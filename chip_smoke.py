@@ -12,12 +12,30 @@
    warm-up), of its plain version, of a PyTorch library call computing
    the same function (timed here only, used nowhere in the port) and
    the least time the card could take for the work (``bound_ms``).
+   The quantized decode runs over int8 and fp8 pools made by the port's
+   ``quantize_kv``; the verify kernel over fp32, bf16, int8 and fp8
+   pools, and each of its rows must ``torch.equal`` the decode kernel's
+   output at ``lengths = start + 1 + w``.
 3. Serving: a GPT-2-small-class LM (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32768, 1024 positions; random weights from
-   ``np.random.RandomState(0)``) serves 16 requests through
-   ``DecodeEngine``; every kernel must have launched exactly 12 times
-   per prefill / per decode step, and the full forward must reproduce
-   the generated greedy tokens wherever the top-2 margin exceeds 1e-3.
+   ``np.random.RandomState(0)``) serves through ``DecodeEngine``, four
+   runs, each with the launch counts reset just before it and read just
+   after:
+   A. fp32 pages, 16 requests of 32 tokens: every kernel must have
+      launched exactly 12 times per prefill / per decode step, and the
+      full forward must reproduce the generated greedy tokens wherever
+      the top-2 margin exceeds 1e-3;
+   B. fp32 pages with ``spec_tokens=4`` (n-gram proposer), 16 requests
+      whose prompts repeat a seeded random segment, 64 tokens each:
+      drafts must be accepted, the verify kernel must launch 12 times a
+      verify step and the decode kernel 12 times a plain step, and the
+      full-forward check holds;
+   C. int8 pages with ``spec_tokens=4``, the same requests: the
+      quantized kernels launch the same way, drafts are accepted, every
+      greedy stream's first token equals run B's (prefill attends raw
+      K/V), and the chains' agreement with run B's is printed;
+   D. fp8 pages without speculation, 4 requests: the quantized decode
+      kernel launches 12 times a step.
 4. Training: the same LM, fp32, as ``transformer_lm(..., head="ce")``
    through ``mod.Module`` on ``gpu(0)``, bound at batch 8 x 1024 tokens
    from the same weights, takes 10 SGD steps (momentum 0.9,
@@ -25,8 +43,11 @@
    must launch 12 forward and 12 + 12 backward attention kernels, every
    ``qkv_weight`` gradient must be finite and non-zero, and the mean
    loss of the last 3 steps must be below the first step's.
-5. Prints ``{"kernels": [...]}``, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+5. Prints ``{"kernels": [...]}`` (seven kernels, launches summed over
+   the runs), the card line, and last ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
+kernel of the port under ROOT (see ``decode_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -34,6 +55,7 @@ line.  It needs a CUDA card and the repository around it.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -48,6 +70,8 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # fp32 BWD_TOL * max(1, max|ref|), bf16 BWD_TOL * max|ref|
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 10, 3e-5
+SPEC_K, SPEC_NEW = 4, 64
+KV_TORCH = {"int8": "int8", "fp8": "float8_e4m3fn"}
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
@@ -175,6 +199,27 @@ def check_backward(torch, ck, F, B, T, dtype):
     return out
 
 
+def _ragged_tables(B, MB, rng, lengths=None):
+    """Fragmented block tables (padded with the scratch page 0) for
+    ``lengths`` (default: ragged up to MB pages, one stream ending on a
+    page boundary and, with B > 1, one empty stream)."""
+    if lengths is None:
+        lengths = rng.randint(1, MB * KVB + 1, size=B).astype(np.int32)
+        lengths[0] = MB * KVB
+        if B > 1:
+            lengths[1] = 0
+        if B > 2:
+            lengths[2] = KVB * max(1, MB // 2)
+    pages = rng.permutation(np.arange(1, 1 + B * MB)).astype(np.int32)
+    table = np.zeros((B, MB), np.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        k = -(-int(n) // KVB)
+        table[i, :k] = pages[used:used + k]
+        used += k
+    return lengths, table
+
+
 def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None):
     """``kv_dtype`` other than ``dtype``: an fp32 model over bf16 pages
     (``kv_dtype='bf16'``); both sides then read the same bf16 values, so
@@ -186,21 +231,7 @@ def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None):
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dt)
     kp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(kv_dt)
     vp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(kv_dt)
-    # ragged lengths up to MB pages; with B > 1 one empty slot and one
-    # stream ending exactly on a page boundary
-    lengths = rng.randint(1, MB * KVB + 1, size=B).astype(np.int32)
-    lengths[0] = MB * KVB
-    if B > 1:
-        lengths[1] = 0
-    if B > 2:
-        lengths[2] = KVB * max(1, MB // 2)
-    pages = rng.permutation(np.arange(1, P)).astype(np.int32)
-    table = np.zeros((B, MB), np.int32)
-    used = 0
-    for i, n in enumerate(lengths):
-        k = -(-int(n) // KVB)
-        table[i, :k] = pages[used:used + k]  # fragmented, padded with 0
-        used += k
+    lengths, table = _ragged_tables(B, MB, rng)
     t_d = torch.from_numpy(table).cuda()
     l_d = torch.from_numpy(lengths).cuda()
     out = ck.paged_attention_decode(q, kp, vp, t_d, l_d)
@@ -242,6 +273,155 @@ def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _quant_pools(torch, tatt, P, kv, g):
+    """int8/fp8 K and V pools and their scales, quantized on the card by
+    the port's ``quantize_kv`` from N(0, 1) values."""
+    qdt = getattr(torch, KV_TORCH[kv])
+    out = []
+    for _ in range(2):
+        raw = torch.randn((P, KVB, H, D), generator=g, device="cuda")
+        out.append(tatt.quantize_kv(raw, qdt))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
+
+
+def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng):
+    """B3 over int8/fp8 pools against its plain version: both
+    dequantize the same bytes, so the fp32/bf16 tolerance holds."""
+    dt = getattr(torch, dtype)
+    P = 1 + B * MB
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + MB + 7)
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(dt)
+    kq, vq, ks, vs = _quant_pools(torch, tatt, P, kv, g)
+    lengths, table = _ragged_tables(B, MB, rng)
+    t_d = torch.from_numpy(table).cuda()
+    l_d = torch.from_numpy(lengths).cuda()
+    out = ck.paged_attention_decode_quant(q, kq, vq, ks, vs, t_d, l_d)
+    ref = ck.paged_attention_decode_quant_plain(q, kq, vq, ks, vs, t_d, l_d)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= TOL[dtype], f"paged_attention_decode_quant B={B} MB={MB} "
+          f"{dtype}/{kv}: max_abs_err {err} over tolerance {TOL[dtype]}")
+    check(bool(torch.isfinite(out.float()).all()), "quant decode not finite")
+    if B > 1:
+        check(out[1].abs().max().item() == 0.0, "lengths==0 row not zeros")
+
+    idx = t_d.long()
+    pos = torch.arange(MB * KVB, device="cuda")
+    mask = (pos[None, :] < l_d[:, None])[:, None, None, :]
+
+    def library():  # gather, dequantize, then masked SDPA
+        kg = ck.gather_dequant(kq, ks, idx).transpose(1, 2).to(dt)
+        vg = ck.gather_dequant(vq, vs, idx).transpose(1, 2).to(dt)
+        return F.scaled_dot_product_attention(q[:, :, None], kg, vg,
+                                              attn_mask=mask)
+
+    toks = int(lengths.sum())
+    npages = int(sum(-(-int(n) // KVB) for n in lengths))
+    # codes (1 byte) and one fp32 scale per token-head, for K and V
+    nbytes = 2 * B * H * D * q.element_size() + 2 * toks * H * (D + 4) \
+        + npages * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4 * H * D * toks, dtype)
+    return {
+        "kernel": "paged_attention_decode_quant",
+        "shape": f"B={B} MB={MB} KVB={KVB} H={H} D={D} tokens={toks}",
+        "dtype": f"{dtype}/{kv}", "max_abs_err": err, "tol": TOL[dtype],
+        "ms": time_ms(torch, lambda: ck.paged_attention_decode_quant(
+            q, kq, vq, ks, vs, t_d, l_d)),
+        "plain_ms": time_ms(torch, lambda: ck.paged_attention_decode_quant_plain(
+            q, kq, vq, ks, vs, t_d, l_d), reps=5, warmup=1),
+        "library_ms": time_ms(torch, library),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng):
+    """B4 (``pool`` float32/bfloat16: raw pages; int8/fp8: the quantized
+    instantiation, under fp32 queries) against its plain version, with
+    q a strided view of a packed (B, W, 3*H*D) qkv; and row w against
+    the decode kernel (B2, or B3 over quantized pools) at lengths =
+    start + 1 + w, bit for bit."""
+    quant = pool in KV_TORCH
+    dtype = "float32" if quant else pool
+    dt = getattr(torch, dtype)
+    P = 1 + B * MB
+    g = torch.Generator(device="cuda").manual_seed(B * 100 + W)
+    qkv = torch.randn((B, W, 3 * H * D), generator=g, device="cuda").to(dt)
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    if quant:
+        kp, vp, ks, vs = _quant_pools(torch, tatt, P, pool, g)
+        scales = (ks, vs)
+    else:
+        kp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(dt)
+        vp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(dt)
+        scales = ()
+    # ragged starts (one window ending exactly on the last page, one
+    # padded batch row: start 0, a table of scratch pages)
+    start = rng.randint(0, MB * KVB - W + 1, size=B).astype(np.int32)
+    start[0] = MB * KVB - W
+    lengths = start + W
+    lengths[1] = 0
+    lengths, table = _ragged_tables(B, MB, rng, lengths)
+    start[1] = 0
+    s_d = torch.from_numpy(start).cuda()
+    t_d = torch.from_numpy(table).cuda()
+    name = "paged_attention_verify_quant" if quant \
+        else "paged_attention_verify"
+    out = ck.paged_attention_verify(q, kp, vp, t_d, s_d, *scales)
+    ref = ck.paged_attention_verify_plain(q, kp, vp, t_d, s_d, *scales)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= TOL[dtype], f"{name} B={B} W={W} MB={MB} {pool}: "
+          f"max_abs_err {err} over tolerance {TOL[dtype]}")
+    check(bool(torch.isfinite(out.float()).all()), f"{name} not finite")
+    for w in range(W):
+        lw = s_d + (1 + w)
+        if quant:
+            dec = ck.paged_attention_decode_quant(q[:, w], kp, vp, *scales,
+                                                  t_d, lw)
+        else:
+            dec = ck.paged_attention_decode(q[:, w], kp, vp, t_d, lw)
+        check(torch.equal(out[:, w], dec),
+              f"{name} {pool}: row {w} differs from the decode kernel at "
+              f"start+1+w (max {(out[:, w].float() - dec.float()).abs().max().item()})")
+
+    idx = t_d.long()
+    pos = torch.arange(MB * KVB, device="cuda")
+    limit = s_d[:, None] + 1 + torch.arange(W, device="cuda")[None, :]
+    mask = (pos[None, None, :] < limit[:, :, None])[:, None]  # (B,1,W,T)
+
+    def library():  # gather (dequantize), SDPA under the diagonal mask
+        if quant:
+            kg = ck.gather_dequant(kp, ks, idx)
+            vg = ck.gather_dequant(vp, vs, idx)
+        else:
+            kg = kp[idx].reshape(B, MB * KVB, H, D)
+            vg = vp[idx].reshape(B, MB * KVB, H, D)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kg.transpose(1, 2).to(dt),
+            vg.transpose(1, 2).to(dt), attn_mask=mask)
+
+    # each stream's visible tokens are read once: start + W (its window
+    # included); every row w sums over start + 1 + w of them
+    vis = int(sum(int(st) + W for st in start))
+    pairs = int(sum(W * int(st) + W * (W + 1) // 2 for st in start))
+    per_tok = 2 * H * ((D + 4) if quant else D * kp.element_size())
+    npages = int(sum(-(-(int(st) + W) // KVB) for st in start))
+    nbytes = 2 * B * W * H * D * q.element_size() + vis * per_tok \
+        + npages * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4 * H * D * pairs, dtype)
+    return {
+        "kernel": name,
+        "shape": f"B={B} W={W} MB={MB} KVB={KVB} H={H} D={D} "
+        f"tokens={vis}", "dtype": f"{dtype}/{pool}" if quant else dtype,
+        "max_abs_err": err, "tol": TOL[dtype], "rows_bitwise": True,
+        "ms": time_ms(torch, lambda: ck.paged_attention_verify(
+            q, kp, vp, t_d, s_d, *scales)),
+        "plain_ms": time_ms(torch, lambda: ck.paged_attention_verify_plain(
+            q, kp, vp, t_d, s_d, *scales), reps=3, warmup=1),
+        "library_ms": time_ms(torch, library),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
 def gpt2_small_params(seed=0):
     """Random GPT-2-small-class weights, N(0, 0.02), LayerNorm at
     identity, zero biases."""
@@ -275,69 +455,170 @@ def gpt2_small_params(seed=0):
     return params
 
 
-def main_path(torch, mt, ck):
-    params = gpt2_small_params(0)
-    dev_params = mt.params_from_numpy(params, "cuda")
-    del params
-    L = GPT2_SMALL["num_layers"]
+def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
+              **engine_kw):
+    """Serve ``prompts`` through a fresh ``DecodeEngine`` (after a
+    warm-up request), with the launch counts reset just before and read
+    just after.  Returns (engine model, outputs, stats, launches,
+    record)."""
     eng = mt.DecodeEngine(dev_params, **GPT2_SMALL, ctx=mt.gpu(0),
-                          kv_block=KVB, max_streams=16, seed=0)
+                          kv_block=KVB, max_streams=16, seed=0, **engine_kw)
     with eng:
         eng.generate(np.arange(1, 20, dtype=np.int32), 2)  # CUDA warm-up
-        rng = np.random.RandomState(1)
-        lens = rng.randint(32, 901, size=16)
-        prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], size=n)
-                   .astype(np.int32) for n in lens]
-        temps = [0.8 if i in (3, 11) else 0.0 for i in range(16)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         eng.reset_stats()
-        ck.reset_launch_counts()  # counts from here on: the main path
+        ck.reset_launch_counts()  # counts from here on: this run
         t0 = time.perf_counter()
-        futs = [eng.submit(p, 32, temperature=t)
+        futs = [eng.submit(p, new_tokens, temperature=t)
                 for p, t in zip(prompts, temps)]
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = dict(ck.LAUNCHES)
         st = eng.stats()
         peak = torch.cuda.max_memory_allocated()
-        for o in outs:
-            check(o.shape == (32,) and o.min() >= 0
-                  and o.max() < GPT2_SMALL["vocab_size"],
-                  f"bad generation {o}")
-        check(launches["flash_mha_packed"] == L * st["prefills"] > 0,
-              f"flash_mha_packed launched {launches['flash_mha_packed']} "
-              f"times for {st['prefills']} prefills")
-        check(launches["paged_attention_decode"] == L * st["steps"] > 0,
-              f"paged_attention_decode launched "
-              f"{launches['paged_attention_decode']} times for "
-              f"{st['steps']} steps")
-        # the port's full forward reproduces the greedy tokens
-        greedy = [i for i in range(16) if temps[i] == 0.0]
-        for i in (min(greedy, key=lambda j: lens[j]),
-                  max(greedy, key=lambda j: lens[j])):
-            seq = np.concatenate([prompts[i], outs[i]])
-            logits = eng.model(torch.from_numpy(seq).cuda()[None])[0]
-            top2 = torch.topk(logits[len(prompts[i]) - 1:-1], 2, dim=-1)
-            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-            arg = top2.indices[:, 0].cpu().numpy()
-            sure = margin > 1e-3
-            check(sure.sum() > 0 and np.array_equal(arg[sure],
-                                                    outs[i][sure]),
-                  f"stream {i}: full forward disagrees with the engine at "
-                  f"{np.nonzero(sure & (arg != outs[i]))[0]}")
-            print(f"forward check: stream {i} ({lens[i]}-token prompt) "
-                  f"{int(sure.sum())}/32 tokens over the 1e-3 margin agree")
-    return {"requests": 16, "prompt_tokens": int(lens.sum()),
-            "generated_tokens": int(sum(len(o) for o in outs)),
-            "wall_s": wall,
-            "tokens_per_s": sum(len(o) for o in outs) / wall,
-            "ttft_p50_ms": st["ttft_p50_ms"],
-            "ttft_p99_ms": st["ttft_p99_ms"],
-            "decode_step_p50_ms": st["step_p50_ms"],
-            "prefills": st["prefills"], "steps": st["steps"],
-            "preempted": st["preempted"],
-            "peak_memory_bytes": int(peak), "launches": launches}
+        model = eng.model
+    for o in outs:
+        check(o.shape == (new_tokens,) and o.min() >= 0
+              and o.max() < GPT2_SMALL["vocab_size"], f"bad generation {o}")
+    gen = int(sum(len(o) for o in outs))
+    rec = {"requests": len(prompts),
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "generated_tokens": gen, "wall_s": wall,
+           "tokens_per_s": gen / wall,
+           "ttft_p50_ms": st["ttft_p50_ms"], "ttft_p99_ms": st["ttft_p99_ms"],
+           "decode_step_p50_ms": st["step_p50_ms"],
+           "prefills": st["prefills"], "steps": st["steps"],
+           "spec_steps": st["spec_steps"],
+           "spec_proposed": st["spec_proposed"],
+           "spec_accepted": st["spec_accepted"],
+           "accepted_token_rate": st["accepted_token_rate"],
+           "tokens_per_step": st["tokens_per_step"],
+           "preempted": st["preempted"], "kv_dtype": st["kv_dtype"],
+           "pool_bytes": st["pool_bytes"], "peak_memory_bytes": int(peak),
+           "launches": launches}
+    return model, outs, st, launches, rec
+
+
+def forward_check(torch, model, prompts, outs, temps, lens, label):
+    """The port's full forward reproduces the greedy tokens of the
+    shortest and the longest greedy stream wherever its top-2 margin
+    exceeds 1e-3."""
+    greedy = [i for i in range(len(prompts)) if temps[i] == 0.0]
+    for i in (min(greedy, key=lambda j: lens[j]),
+              max(greedy, key=lambda j: lens[j])):
+        seq = np.concatenate([prompts[i], outs[i]])
+        logits = model(torch.from_numpy(seq).cuda()[None])[0]
+        top2 = torch.topk(logits[len(prompts[i]) - 1:-1], 2, dim=-1)
+        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        arg = top2.indices[:, 0].cpu().numpy()
+        sure = margin > 1e-3
+        check(sure.sum() > 0 and np.array_equal(arg[sure], outs[i][sure]),
+              f"{label} stream {i}: full forward disagrees with the engine "
+              f"at {np.nonzero(sure & (arg != outs[i]))[0]}")
+        print(f"forward check ({label}): stream {i} ({lens[i]}-token "
+              f"prompt) {int(sure.sum())}/{len(outs[i])} tokens over the "
+              f"1e-3 margin agree")
+
+
+def main_path(torch, mt, ck, dev_params):
+    """Run A: fp32 pages, 16 requests of 32 tokens."""
+    L = GPT2_SMALL["num_layers"]
+    rng = np.random.RandomState(1)
+    lens = rng.randint(32, 901, size=16)
+    prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], size=n)
+               .astype(np.int32) for n in lens]
+    temps = [0.8 if i in (3, 11) else 0.0 for i in range(16)]
+    model, outs, st, launches, rec = serve_run(torch, mt, ck, dev_params,
+                                               prompts, temps, 32)
+    check(launches["flash_mha_packed"] == L * st["prefills"] > 0,
+          f"flash_mha_packed launched {launches['flash_mha_packed']} "
+          f"times for {st['prefills']} prefills")
+    check(launches["paged_attention_decode"] == L * st["steps"] > 0,
+          f"paged_attention_decode launched "
+          f"{launches['paged_attention_decode']} times for "
+          f"{st['steps']} steps")
+    forward_check(torch, model, prompts, outs, temps, lens, "A")
+    return rec
+
+
+def spec_prompts(seed=3):
+    """16 prompts, each a seeded random segment of 8-64 tokens repeated
+    to 64-900 tokens (quoted or templated text, where prompt lookup
+    finds drafts)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(16):
+        seg = rng.randint(1, GPT2_SMALL["vocab_size"],
+                          size=rng.randint(8, 65)).astype(np.int32)
+        n = rng.randint(64, 901)
+        out.append(np.tile(seg, -(-n // len(seg)))[:n])
+    return out
+
+
+def _expect_launches(launches, want, run):
+    for name, n in want.items():
+        check(launches[name] == n, f"run {run}: {name} launched "
+              f"{launches[name]} times, expected {n}")
+
+
+def spec_paths(torch, mt, ck, dev_params):
+    """Runs B (fp32, spec), C (int8, spec) and D (fp8, no spec)."""
+    L = GPT2_SMALL["num_layers"]
+    prompts = spec_prompts()
+    lens = [len(p) for p in prompts]
+    temps = [0.8 if i in (5, 12) else 0.0 for i in range(16)]
+    greedy = [i for i in range(16) if temps[i] == 0.0]
+    runs = {}
+
+    model, outs_b, st, launches, runs["B"] = serve_run(
+        torch, mt, ck, dev_params, prompts, temps, SPEC_NEW,
+        spec_tokens=SPEC_K, proposer="ngram")
+    plain = st["steps"] - st["spec_steps"]
+    check(st["spec_accepted"] > 0, f"run B: no draft accepted ({st})")
+    _expect_launches(launches, {
+        "flash_mha_packed": L * st["prefills"],
+        "paged_attention_verify": L * st["spec_steps"],
+        "paged_attention_decode": L * plain,
+        "paged_attention_decode_quant": 0,
+        "paged_attention_verify_quant": 0}, "B")
+    forward_check(torch, model, prompts, outs_b, temps, lens, "B")
+    del model
+    torch.cuda.empty_cache()
+
+    _, outs_c, st, launches, runs["C"] = serve_run(
+        torch, mt, ck, dev_params, prompts, temps, SPEC_NEW,
+        kv_dtype="int8", spec_tokens=SPEC_K, proposer="ngram")
+    plain = st["steps"] - st["spec_steps"]
+    check(st["spec_accepted"] > 0, f"run C: no draft accepted ({st})")
+    _expect_launches(launches, {
+        "flash_mha_packed": L * st["prefills"],
+        "paged_attention_verify_quant": L * st["spec_steps"],
+        "paged_attention_decode_quant": L * plain,
+        "paged_attention_decode": 0, "paged_attention_verify": 0}, "C")
+    for i in greedy:  # prefill attends raw K/V: the same first token
+        check(outs_c[i][0] == outs_b[i][0], f"run C stream {i}: first "
+              f"token {outs_c[i][0]} differs from run B's {outs_b[i][0]}")
+    agree = []
+    for i in greedy:
+        same = np.nonzero(outs_c[i] != outs_b[i])[0]
+        agree.append(int(same[0]) if same.size else SPEC_NEW)
+    runs["C"]["greedy_tokens_equal_to_B_before_first_difference"] = agree
+    print(f"int8 vs fp32 pages (runs C, B): greedy streams agree for "
+          f"{agree} of {SPEC_NEW} tokens")
+    torch.cuda.empty_cache()
+
+    _, _, st, launches, runs["D"] = serve_run(
+        torch, mt, ck, dev_params, prompts[:4], [0.0] * 4, 32,
+        kv_dtype="fp8")
+    _expect_launches(launches, {
+        "flash_mha_packed": L * st["prefills"],
+        "paged_attention_decode_quant": L * st["steps"],
+        "paged_attention_decode": 0, "paged_attention_verify": 0,
+        "paged_attention_verify_quant": 0}, "D")
+    check(st["steps"] > 0 and st["spec_steps"] == 0, f"run D: {st}")
+    torch.cuda.empty_cache()
+    return runs
 
 
 def random_walk_tokens(vocab, seq_len, rows, seed=7):
@@ -409,6 +690,35 @@ def train_path(torch, mt, ck):
             "peak_memory_bytes": int(peak), "launches": launches}
 
 
+def decode_timing(root):
+    """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
+    kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
+    unpacked beside this one) at the kernel checks' shapes, one JSON
+    line each.  Run parent, change, change, parent in one call to
+    compare two versions on one card."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    check(ck.__file__.startswith(root), f"imported {ck.__file__}, not "
+          f"the port under {root}")
+    _build.build(["paged_attention_decode"])
+    rng = np.random.RandomState(2)  # main()'s shapes: the same lengths
+    for dtype in ("float32", "bfloat16"):
+        for B in (1, 16, 64):
+            c = check_decode(torch, ck, F, B, 64, dtype, rng)
+            print(json.dumps({"decode_timing": {"root": root, **c}}))
+    print(card_line())
+    return 0
+
+
 def main():
     import torch
 
@@ -420,6 +730,7 @@ def main():
 
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import attention as tatt
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -446,6 +757,16 @@ def main():
     checks.append(check_decode(torch, ck, F, 16, 64, "float32", rng,
                                kv_dtype="bfloat16"))
     print(json.dumps({"check": checks[-1]}))
+    for kv in ("int8", "fp8"):
+        for dtype in ("float32", "bfloat16"):
+            for B in (1, 16, 64):
+                checks.append(check_decode_quant(torch, ck, tatt, F, B, 64,
+                                                 dtype, kv, rng))
+                print(json.dumps({"check": checks[-1]}))
+    for pool in ("float32", "bfloat16", "int8", "fp8"):
+        checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
+                                   pool, rng))
+        print(json.dumps({"check": checks[-1]}))
     for dtype in ("float32", "bfloat16"):
         for B, T in ((1, 128), (1, 1000), (1, 1024), (TRAIN_BATCH, 1024)):
             for c in check_backward(torch, ck, F, B, T, dtype):
@@ -453,34 +774,52 @@ def main():
                 print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
 
-    res = main_path(torch, mt, ck)
+    dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
+    res = main_path(torch, mt, ck, dev_params)
     print(json.dumps({"main_path": res}))
+    torch.cuda.empty_cache()
+    runs = spec_paths(torch, mt, ck, dev_params)
+    for run, rec in runs.items():
+        print(json.dumps({f"serving_{run}": rec}))
+    del dev_params
     torch.cuda.empty_cache()
     train = train_path(torch, mt, ck)
     print(json.dumps({"train_path": train}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
-    # it; launches are summed over the two paths' runs
-    rep = {"flash_mha_packed": "B=1 T=1024 ",
-           "flash_mha_packed_bwd_dq": f"B={TRAIN_BATCH} T=1024 ",
-           "flash_mha_packed_bwd_dkv": f"B={TRAIN_BATCH} T=1024 ",
-           "paged_attention_decode": "B=16 MB=64 "}
+    # it; launches are summed over the serving runs and the training run
+    paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
     meta = {"flash_mha_packed": (
                 "mxnet_tpu_torch/csrc/flash_mha_packed.cu",
-                "mxnet_tpu/ops/pallas_kernels.py:1193"),
-            "flash_mha_packed_bwd_dq": bwd,
-            "flash_mha_packed_bwd_dkv": bwd,
+                "mxnet_tpu/ops/pallas_kernels.py:1193", "B=1 T=1024 ",
+                "float32"),
+            "flash_mha_packed_bwd_dq": bwd + (f"B={TRAIN_BATCH} T=1024 ",
+                                              "float32"),
+            "flash_mha_packed_bwd_dkv": bwd + (f"B={TRAIN_BATCH} T=1024 ",
+                                               "float32"),
             "paged_attention_decode": (
-                "mxnet_tpu_torch/csrc/paged_attention_decode.cu",
-                "mxnet_tpu/ops/pallas_kernels.py:1389")}
+                paged + "decode.cu", "mxnet_tpu/ops/pallas_kernels.py:1389",
+                "B=16 MB=64 ", "float32"),
+            "paged_attention_decode_quant": (
+                paged + "decode_quant.cu",
+                "mxnet_tpu/ops/pallas_kernels.py:1437", "B=16 MB=64 ",
+                "float32/int8"),
+            "paged_attention_verify": (
+                paged + "verify.cu", "mxnet_tpu/ops/pallas_kernels.py:1545",
+                f"B=16 W={SPEC_K + 1} ", "float32"),
+            "paged_attention_verify_quant": (
+                paged + "verify.cu",
+                "mxnet_tpu/ops/attention.py:894 (paged_verify_attention_q, "
+                "a lax function: no Pallas kernel exists)",
+                f"B=16 W={SPEC_K + 1} ", "float32/int8")}
+    all_runs = [res, *runs.values(), train]
     kernels = []
-    for name, (src, replaces) in meta.items():
+    for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
-                 and c["dtype"] == "float32"
-                 and c["shape"].startswith(rep[name]))
-        launches = res["launches"][name] + train["launches"][name]
+                 and c["dtype"] == dtype and c["shape"].startswith(shape))
+        launches = sum(r["launches"][name] for r in all_runs)
         check(launches > 0, f"{name} never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
@@ -498,4 +837,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--decode-timing"]:
+        sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

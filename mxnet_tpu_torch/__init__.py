@@ -2,9 +2,11 @@
 
 A second package beside the JAX reference, written for an NVIDIA H100.
 It serves the ``transformer_lm`` family through :class:`DecodeEngine`
-and trains it through ``mod.Module`` over the ``transformer_lm`` symbol,
-on hand-written CUDA kernels (packed-QKV flash attention forward and
-backward, paged decode attention; ``csrc/``).  It imports ``torch``,
+(fp32/bf16 or int8/fp8 KV pages, n-gram speculative decoding) and
+trains it through ``mod.Module`` over the ``transformer_lm`` symbol, on
+hand-written CUDA kernels (packed-QKV flash attention forward and
+backward, paged decode attention over raw and quantized pages, the
+speculative verify window; ``csrc/``).  It imports ``torch``,
 never ``jax`` and nothing of ``mxnet_tpu``.
 
 Entry points run on the card (``gpu(0)``) unless the caller passes
@@ -26,10 +28,11 @@ from . import executor, initializer, io, metric, optimizer
 from . import module
 from . import module as mod
 from . import models
+from . import speculative
 from .serving import DecodeEngine, EngineClosedError
 
 __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
            "cpu", "gpu", "current_context", "params_from_numpy",
            "params_to_numpy", "nd", "sym", "mod", "io", "metric",
-           "optimizer", "initializer", "random", "models", "Variable",
-           "Group", "AttrScope"]
+           "optimizer", "initializer", "random", "models", "speculative",
+           "Variable", "Group", "AttrScope"]

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``build/lib<name>-<hash>.so``, a shared library with a plain C
 interface that ``ops/cuda_kernels.py`` loads with ``ctypes``.  The hash
-covers the source and the flags, so an edited kernel rebuilds and an
-unchanged one loads at once.  Nothing here runs at import: the first
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited kernel or header rebuilds and an unchanged one loads at
+once.  Nothing here runs at import: the first
 call that launches a kernel builds it, or ``build()`` builds every
 kernel at once, one ``nvcc`` process per source, all started together.
 """
@@ -28,7 +29,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_mha_packed", "flash_mha_packed_bwd",
-           "paged_attention_decode")
+           "paged_attention_decode", "paged_attention_decode_quant",
+           "paged_attention_verify")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -55,7 +57,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

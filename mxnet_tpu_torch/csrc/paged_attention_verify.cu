@@ -1,0 +1,136 @@
+// Speculative-verify paged attention for Hopper (sm_90a).
+//
+// Replaces: mxnet_tpu/ops/pallas_kernels.py:paged_attention_verify (the
+// Pallas kernel _paged_verify_kernel) and, over quantized pools, the lax
+// function mxnet_tpu/ops/attention.py:paged_verify_attention_q, which has
+// no Pallas kernel.  Same function: W = 1 + k queries per stream,
+// q (B, W, H, D) at positions start[b] + w, against K/V pages
+// (P, KVB, H, D) through the block table (B, MB) under the diagonal mask
+// k_pos < start[b] + 1 + w; out (B, W, H, D).  Row w equals the decode
+// kernel (quantized: the quantized decode kernel) at lengths =
+// start + 1 + w, bit for bit, over the same pool bytes.
+//
+// What bounds it on the H100: bytes.  The pages a stream holds are read
+// once (start + W tokens, 2 * D * element size per token-head, plus 2 * 4
+// bytes of scales when quantized), for 4 * D FLOP per visible (row, token)
+// pair; at W = 5 that is ~2.5 FLOP a byte in fp32, below the card's
+// balance point.
+//
+// Design: grid (B, H, W); block (b, h, w) runs the decode kernel's body
+// (paged::attend) at visible length start[b] + 1 + w, with the raw page
+// reader (paged_attention_verify) or the quantized one
+// (paged_attention_verify_quant).  This re-reads a stream's pages W
+// times, mostly from L2; it is simple and keeps each row's summation
+// order equal to the decode step's.  q is a strided view of the packed
+// qkv (B, W, 3*H*D): batch and row strides are arguments, head and lane
+// strides D and 1.  Padded batch rows (start = 0) read their table's
+// first page and give finite values nobody uses.  Built for D = 64.
+// Every entry point returns cudaGetLastError() after its launch.
+
+#include "paged_attention.cuh"
+
+namespace {
+
+template <typename TQ, typename Pages>
+cudaError_t launch(const void* q, long qbs, long qrs, const Pages& pages,
+                   const int* table, const int* start, void* out, int B,
+                   int W, int H, int KVB, int MB, float scale,
+                   cudaStream_t stream) {
+  const dim3 grid(B, H, W);
+  paged::verify_kernel<TQ, 64><<<grid, paged::NW * 32, 0, stream>>>(
+      static_cast<const TQ*>(q), qbs, qrs, pages, table, start,
+      static_cast<TQ*>(out), W, H, KVB, MB, scale);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_raw(const void* q, long qbs, long qrs, const void* kp,
+                       const void* vp, const int* table, const int* start,
+                       void* out, int B, int W, int H, int KVB, int MB,
+                       float scale, cudaStream_t stream) {
+  const paged::RawPages<TKV> pages{static_cast<const TKV*>(kp),
+                                   static_cast<const TKV*>(vp)};
+  return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, KVB, MB,
+                    scale, stream);
+}
+
+template <typename TQ, typename TC>
+cudaError_t launch_quant(const void* q, long qbs, long qrs, const void* kp,
+                         const void* vp, const void* ks, const void* vs,
+                         const int* table, const int* start, void* out,
+                         int B, int W, int H, int KVB, int MB, float scale,
+                         cudaStream_t stream) {
+  const paged::QuantPages<TC> pages{
+      static_cast<const TC*>(kp), static_cast<const TC*>(vp),
+      static_cast<const float*>(ks), static_cast<const float*>(vs)};
+  return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, KVB, MB,
+                    scale, stream);
+}
+
+bool bad_shape(int B, int W, int H, int D, int KVB, int MB) {
+  return B < 1 || W < 1 || H < 1 || KVB < 1 || MB < 1 || H > 65535 ||
+         W > 65535 || D != 64;
+}
+
+}  // namespace
+
+// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16; pairs (0, 0), (0, 1)
+// and (1, 1), as the decode kernel.  out has q's dtype.
+extern "C" int paged_attention_verify(const void* q, long q_batch_stride,
+                                      long q_row_stride, const void* k_pool,
+                                      const void* v_pool, const void* table,
+                                      const void* start, void* out, int B,
+                                      int W, int H, int D, int KVB, int MB,
+                                      int q_dtype, int kv_dtype,
+                                      void* stream) {
+  if (bad_shape(B, W, H, D, KVB, MB)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(table);
+  const int* st = static_cast<const int*>(start);
+  const float scale = 1.f / sqrtf((float)D);
+  if (q_dtype == 0 && kv_dtype == 0)
+    return (int)launch_raw<float, float>(q, q_batch_stride, q_row_stride,
+                                         k_pool, v_pool, t, st, out, B, W, H,
+                                         KVB, MB, scale, s);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return (int)launch_raw<float, __nv_bfloat16>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
+        KVB, MB, scale, s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return (int)launch_raw<__nv_bfloat16, __nv_bfloat16>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
+        KVB, MB, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q_dtype: 0 = float32, 1 = bfloat16; kv_code: 2 = int8, 3 = fp8 e4m3;
+// scales float32 (P, KVB, H).
+extern "C" int paged_attention_verify_quant(
+    const void* q, long q_batch_stride, long q_row_stride,
+    const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* start, void* out,
+    int B, int W, int H, int D, int KVB, int MB, int q_dtype, int kv_code,
+    void* stream) {
+  if (bad_shape(B, W, H, D, KVB, MB)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(table);
+  const int* st = static_cast<const int*>(start);
+  const float scale = 1.f / sqrtf((float)D);
+  if (q_dtype == 0 && kv_code == 2)
+    return (int)launch_quant<float, signed char>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
+        st, out, B, W, H, KVB, MB, scale, s);
+  if (q_dtype == 0 && kv_code == 3)
+    return (int)launch_quant<float, unsigned char>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
+        st, out, B, W, H, KVB, MB, scale, s);
+  if (q_dtype == 1 && kv_code == 2)
+    return (int)launch_quant<__nv_bfloat16, signed char>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
+        st, out, B, W, H, KVB, MB, scale, s);
+  if (q_dtype == 1 && kv_code == 3)
+    return (int)launch_quant<__nv_bfloat16, unsigned char>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
+        st, out, B, W, H, KVB, MB, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -3,7 +3,9 @@
 Own copy of the parts of ``mxnet_tpu/kv_cache.py`` that the serving
 slice runs.  The device side is two pool tensors per layer,
 ``k_pool``/``v_pool`` of shape ``(num_blocks, block_tokens, H, D)``,
-written in place by ``ops/attention.py``.  This module decides which
+plus, for int8/fp8 storage, two float32 scale pools
+``(num_blocks, block_tokens, H)``, all written in place by
+``ops/attention.py``.  This module decides which
 pages belong to which stream (PagedAttention, Kwon et al. SOSP '23):
 
 * memory is carved into fixed-size token pages; a stream holds
@@ -25,28 +27,57 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .base import MXNetError, not_ported
+from .base import MXNetError
 
 __all__ = ["BlockAllocator", "blocks_for_tokens", "bucket_ladder",
-           "kv_storage_dtype", "KV_DTYPES", "SCRATCH_PAGE"]
+           "kv_storage_dtype", "kv_quantized", "pool_device_bytes",
+           "trim_blocks", "KV_DTYPES", "KV_QMAX", "SCRATCH_PAGE"]
 
 SCRATCH_PAGE = 0
 
-# the JAX package's MXNET_SERVING_KV_DTYPE vocabulary; the port stores
-# fp32 and bf16 pools, the quantized two are still to come
+# the JAX package's MXNET_SERVING_KV_DTYPE vocabulary.  fp32 is exact;
+# bf16 is a plain narrow cast; int8/fp8 store codes plus one float32
+# scale per (slot, head), dequantized inside the decode attention (fp32
+# softmax throughout)
 KV_DTYPES = ("fp32", "bf16", "int8", "fp8")
+KV_QMAX = {"int8": 127.0, "fp8": 448.0}  # e4m3 finite max
+
+
+def kv_quantized(name: str) -> bool:
+    """Does this KV storage dtype carry per-slot scale pools?"""
+    return name in KV_QMAX
 
 
 def kv_storage_dtype(name: str) -> torch.dtype:
-    """Torch dtype backing the K/V pools for a kv_dtype name."""
+    """Torch dtype backing the K/V pools for a kv_dtype name.  fp8 is
+    ``torch.float8_e4m3fn``: the encoding of ml_dtypes' float8_e4m3fn
+    and of CUDA's ``__nv_fp8_e4m3``."""
     if name == "fp32":
         return torch.float32
     if name == "bf16":
         return torch.bfloat16
-    if name in ("int8", "fp8"):
-        raise not_ported(f"kv_dtype {name!r} (quantized KV pages)")
+    if name == "int8":
+        return torch.int8
+    if name == "fp8":
+        return torch.float8_e4m3fn
     raise MXNetError(f"unknown KV cache dtype {name!r} (wants one of "
                      f"{KV_DTYPES})")
+
+
+def pool_device_bytes(cache_blocks: int, kv_block: int, num_layers: int,
+                      num_heads: int, d_model: int,
+                      kv_dtype: str = "fp32") -> int:
+    """Bytes of K/V pool (values plus quantization scales) of one
+    engine's device: what ``DecodeEngine.stats()["pool_bytes"]``
+    reports."""
+    d_head = int(d_model) // int(num_heads)
+    slots = int(num_layers) * int(cache_blocks) * int(kv_block) \
+        * int(num_heads)
+    itemsize = torch.empty(0, dtype=kv_storage_dtype(kv_dtype)).element_size()
+    total = 2 * slots * d_head * itemsize
+    if kv_quantized(kv_dtype):
+        total += 2 * slots * 4  # per-slot-per-head float32 scales
+    return total
 
 
 def blocks_for_tokens(tokens: int, block_tokens: int) -> int:
@@ -56,6 +87,19 @@ def blocks_for_tokens(tokens: int, block_tokens: int) -> int:
     if tokens < 0:
         raise MXNetError(f"blocks_for_tokens({tokens}): negative")
     return -(-tokens // int(block_tokens))
+
+
+def trim_blocks(blocks: List[int], tokens: int, block_tokens: int):
+    """Split a stream's page list after a speculative-verify rollback
+    into (keep, surplus): ``keep`` covers ``tokens`` cache slots,
+    ``surplus`` held only rejected window writes (every read of them is
+    length-masked, every later write overwrites before a read), so the
+    caller returns it to the pool.  Pages are positional, so the split
+    is a prefix split."""
+    keep = blocks_for_tokens(tokens, block_tokens)
+    if keep >= len(blocks):
+        return blocks, []
+    return blocks[:keep], blocks[keep:]
 
 
 def bucket_ladder(max_value: int, base: int = 1) -> List[int]:

@@ -11,8 +11,14 @@ fixed chains of the port's ops on one ``nn.Module``:
 * ``prefill`` — the causal forward over a (padded) prompt that also
   writes every layer's K/V into the paged pools;
 * ``decode`` — one token per stream against the paged pools;
+* ``verify`` — the speculative verify step: W = 1 + k tokens per stream
+  against the paged pools, one logits row per token;
 * ``forward`` — the full causal forward over whole sequences, what
   prefill plus decode steps are checked against.
+
+Pools are raw fp32/bf16 ``[k, v]`` per layer or, quantized (int8 /
+float8_e4m3fn codes), ``[k, v, k_scale, v_scale]`` per layer: the JAX
+engine's pool stride 2 or 4.
 
 Parameter names are the training symbol's argument names
 (``tok_embed_weight``, ``layer{i}_qkv_weight``, ..., ``head_bias``), so
@@ -36,6 +42,8 @@ from ..ops.nn import fully_connected, gelu, layer_norm
 
 __all__ = ["TransformerLM", "param_names", "transformer_lm",
            "logical_axes"]
+
+_QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _LAYER_PARAMS = ("ln1_gamma", "ln1_beta", "qkv_weight", "qkv_bias",
                  "proj_weight", "proj_bias", "ln2_gamma", "ln2_beta",
@@ -148,7 +156,8 @@ class TransformerLM(nn.Module):
     ``kv_block`` is the cache page size and the plain attention's block
     size (the JAX graphs' ``block_size=kv_block``).  Pools are passed as
     a flat list ``[k_0, v_0, k_1, v_1, ...]`` of (P, KVB, H, D) tensors
-    and are written in place."""
+    or, for int8/fp8 pages, ``[k_0, v_0, ks_0, vs_0, ...]`` with
+    (P, KVB, H) float32 scales, and are written in place."""
 
     def __init__(self, params: Dict[str, torch.Tensor], *, num_layers: int,
                  num_heads: int, kv_block: int = 16):
@@ -197,10 +206,16 @@ class TransformerLM(nn.Module):
         return fully_connected(x, self._p("head_weight"),
                                self._p("head_bias"))
 
-    def _check_pools(self, pools: Sequence[torch.Tensor]) -> None:
-        if len(pools) != 2 * self.num_layers:
-            raise MXNetError(f"expected {2 * self.num_layers} pools "
-                             f"[k_0, v_0, ...]; got {len(pools)}")
+    def _check_pools(self, pools: Sequence[torch.Tensor]) -> int:
+        """The pool stride: 2 ([k, v] a layer) or, for int8/fp8 codes,
+        4 ([k, v, k_scale, v_scale] a layer)."""
+        stride = 4 if pools and pools[0].dtype in _QUANT_DTYPES else 2
+        if len(pools) != stride * self.num_layers:
+            form = "[k_0, v_0, ks_0, vs_0, ...]" if stride == 4 \
+                else "[k_0, v_0, ...]"
+            raise MXNetError(f"expected {stride * self.num_layers} pools "
+                             f"{form}; got {len(pools)}")
+        return stride
 
     @torch.no_grad()
     def prefill(self, data, positions, lengths, block_table,
@@ -208,14 +223,20 @@ class TransformerLM(nn.Module):
         """data/positions (B, T) int, lengths (B,) int32 prompt lengths,
         block_table (B, MB) int32 → logits (B, T, vocab); every layer's
         K/V of rows < lengths lands in its pools (padding rows on the
-        scratch page)."""
-        self._check_pools(pools)
+        scratch page).  Attention reads the raw K/V; quantized pools
+        only receive codes and scales."""
+        st = self._check_pools(pools)
 
         def attend(i, qkv):
             out, k, v = att.qkv_self_attention_prefill(
                 qkv, self.num_heads, block_size=self.kv_block)
-            att.paged_prefill_write(k, v, pools[2 * i], pools[2 * i + 1],
-                                    block_table, lengths)
+            if st == 4:
+                att.paged_prefill_write_q(k, v, *pools[4 * i:4 * i + 4],
+                                          block_table, lengths)
+            else:
+                att.paged_prefill_write(k, v, pools[2 * i],
+                                        pools[2 * i + 1], block_table,
+                                        lengths)
             return out
 
         return self._trunk(data, positions, attend)
@@ -227,13 +248,37 @@ class TransformerLM(nn.Module):
         int32 counting the current token (0 = padded slot), block_table
         (B, MB) int32 → logits (B, 1, vocab); the token's K/V is written
         into the pools first."""
-        self._check_pools(pools)
+        st = self._check_pools(pools)
 
         def attend(i, qkv):
+            if st == 4:
+                return att.qkv_paged_attention_decode_q(
+                    qkv, *pools[4 * i:4 * i + 4], block_table, lengths,
+                    self.num_heads)
             out, _, _ = att.qkv_paged_attention_decode(
                 qkv, pools[2 * i], pools[2 * i + 1], block_table, lengths,
                 self.num_heads)
             return out
+
+        return self._trunk(data, positions, attend)
+
+    @torch.no_grad()
+    def verify(self, data, positions, start, lengths, block_table,
+               pools: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The speculative verify step: data/positions (B, W) hold the
+        pending token and the drafts at positions ``start[b] + w``;
+        start (B,) int32 tokens cached before the window; lengths (B,)
+        int32 start + live window rows (rows past it are padding and
+        write to the scratch page); block_table (B, MB) int32 → logits
+        (B, W, vocab).  Every layer writes the window's K/V into its
+        pools first; row w equals the decode step at length start+1+w
+        over the same pool bytes."""
+        st = self._check_pools(pools)
+
+        def attend(i, qkv):
+            return att.qkv_paged_verify_attend(
+                qkv, pools[st * i:st * (i + 1)], block_table, start,
+                lengths, self.num_heads)
 
         return self._trunk(data, positions, attend)
 

@@ -1,5 +1,6 @@
 """Attention ops of the serving and training paths: packed-QKV self
-attention (differentiable), prefill, paged cache writes and paged decode.
+attention (differentiable), prefill, paged cache writes (raw and
+quantize-on-write), paged decode and the speculative verify window.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  Layouts are the JAX
 package's: qkv (B, S, 3*H*D) packed [q | k | v], pools (P, KVB, H, D),
@@ -36,7 +37,11 @@ from .registry import register
 __all__ = ["blockwise_attention_partial", "normalize_attention_state",
            "paged_cache_update", "paged_prefill_write",
            "paged_decode_attention", "qkv_self_attention",
-           "qkv_self_attention_prefill", "qkv_paged_attention_decode"]
+           "qkv_self_attention_prefill", "qkv_paged_attention_decode",
+           "quantize_kv", "dequantize_kv", "paged_prefill_write_q",
+           "paged_cache_update_q", "paged_decode_attention_q",
+           "qkv_paged_attention_decode_q", "paged_verify_attention",
+           "qkv_paged_verify_attend"]
 
 
 def blockwise_attention_partial(q, k, v, causal: bool = False,
@@ -124,24 +129,34 @@ def paged_cache_update(k_pool, v_pool, k_t, v_t, block_table, lengths):
     """Write the current token's K/V (B, 1, H, D) into the pools at
     position ``lengths - 1``, in place.  Streams with lengths == 0
     (padded batch slots) write to the scratch page 0."""
-    KVB = k_pool.shape[1]
+    page, slot = _token_coords(block_table, lengths, k_pool.shape[1])
+    k_pool.index_put_((page, slot), k_t[:, 0].to(k_pool.dtype))
+    v_pool.index_put_((page, slot), v_t[:, 0].to(v_pool.dtype))
+    return k_pool, v_pool
+
+
+def _token_coords(block_table, lengths, KVB: int):
+    """(page, slot) of each stream's position ``lengths - 1``; streams
+    with lengths == 0 map to the scratch page 0."""
     lengths = lengths.long()
     pos = torch.clamp(lengths - 1, min=0)
     rows = torch.arange(block_table.shape[0], device=block_table.device)
     live = lengths > 0
     page = torch.where(live, block_table[rows, pos // KVB].long(), 0)
     slot = torch.where(live, pos % KVB, 0)
-    k_pool.index_put_((page, slot), k_t[:, 0].to(k_pool.dtype))
-    v_pool.index_put_((page, slot), v_t[:, 0].to(v_pool.dtype))
-    return k_pool, v_pool
+    return page, slot
 
 
-def _paged_write_coords(block_table, lengths, T: int, KVB: int):
+def _paged_write_coords(block_table, lengths, T: int, KVB: int,
+                        start=None):
     """(page, slot, live) scatter coordinates for a (B, T, ...) run of
-    tokens at positions 0..T-1; rows at or past ``lengths[b]`` (padding)
+    tokens whose first row sits at position ``start[b]`` (default 0, the
+    whole-prompt prefill); rows at or past ``lengths[b]`` (padding)
     route to the scratch page 0."""
     B = block_table.shape[0]
     pos = torch.arange(T, device=block_table.device)[None, :].expand(B, T)
+    if start is not None:
+        pos = pos + start.long()[:, None]
     live = pos < lengths.long()[:, None]
     page = torch.where(
         live, torch.gather(block_table.long(), 1,
@@ -151,16 +166,98 @@ def _paged_write_coords(block_table, lengths, T: int, KVB: int):
     return page, slot, live
 
 
-def paged_prefill_write(k, v, k_pool, v_pool, block_table, lengths):
-    """Write a prompt's K/V (B, T, H, D) into the pools through each
-    stream's block table, in place; positions >= lengths[b] land on the
-    scratch page 0."""
+def paged_prefill_write(k, v, k_pool, v_pool, block_table, lengths,
+                        start=None):
+    """Write a prompt's (with ``start``: a window's) K/V (B, T, H, D)
+    into the pools through each stream's block table, in place;
+    positions >= lengths[b] land on the scratch page 0."""
     KVB = k_pool.shape[1]
     page, slot, _ = _paged_write_coords(block_table, lengths, k.shape[1],
-                                        KVB)
+                                        KVB, start)
     k_pool.index_put_((page, slot), k.to(k_pool.dtype))
     v_pool.index_put_((page, slot), v.to(v_pool.dtype))
     return k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# quantized pages: int8 / fp8 codes with one float32 scale per (slot, head)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor, qdtype: torch.dtype):
+    """Quantize K or V state (..., H, D) to int8 or float8_e4m3fn with
+    one float32 scale per (..., H): scale = max|x| / qmax over the D
+    lanes (1.0 where that max is 0), int8 codes round half to even and
+    clip to +-127, fp8 codes are the nearest e4m3 value.  Returns
+    (codes, scale), the JAX package's ``quantize_kv``."""
+    from ..kv_cache import KV_QMAX
+
+    qmax = KV_QMAX["int8"] if qdtype == torch.int8 else KV_QMAX["fp8"]
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    y = x32 / scale[..., None]
+    if qdtype == torch.int8:
+        q = torch.clamp(torch.round(y), -qmax, qmax).to(torch.int8)
+    else:
+        q = y.to(qdtype)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`: float32 values."""
+    return q.float() * scale[..., None]
+
+
+def _put_codes(pool, coords, codes):
+    """``pool[coords] = codes`` in place; an fp8 pool is written through
+    its uint8 view (the same bytes), which every device can scatter."""
+    if pool.dtype == torch.float8_e4m3fn:
+        pool.view(torch.uint8).index_put_(coords, codes.view(torch.uint8))
+    else:
+        pool.index_put_(coords, codes)
+
+
+def paged_prefill_write_q(k, v, k_pool, v_pool, k_scale, v_scale,
+                          block_table, lengths, start=None):
+    """Quantize-on-write form of :func:`paged_prefill_write`: codes land
+    in the int8/fp8 pools, their scales in the (P, KVB, H) scale pools,
+    all in place."""
+    KVB = k_pool.shape[1]
+    page, slot, _ = _paged_write_coords(block_table, lengths, k.shape[1],
+                                        KVB, start)
+    kq, ks = quantize_kv(k, k_pool.dtype)
+    vq, vs = quantize_kv(v, v_pool.dtype)
+    _put_codes(k_pool, (page, slot), kq)
+    _put_codes(v_pool, (page, slot), vq)
+    k_scale.index_put_((page, slot), ks)
+    v_scale.index_put_((page, slot), vs)
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def paged_cache_update_q(k_pool, v_pool, k_scale, v_scale, k_t, v_t,
+                         block_table, lengths):
+    """Quantize-on-write form of :func:`paged_cache_update`: the token's
+    K/V quantizes against its own per-head scale; slots written before
+    are untouched."""
+    page, slot = _token_coords(block_table, lengths, k_pool.shape[1])
+    kq, ks = quantize_kv(k_t[:, 0], k_pool.dtype)   # (B, H, D), (B, H)
+    vq, vs = quantize_kv(v_t[:, 0], v_pool.dtype)
+    _put_codes(k_pool, (page, slot), kq)
+    _put_codes(v_pool, (page, slot), vq)
+    k_scale.index_put_((page, slot), ks)
+    v_scale.index_put_((page, slot), vs)
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def paged_decode_attention_q(q, k_pool, v_pool, k_scale, v_scale,
+                             block_table, lengths):
+    """q (B, 1, H, D) → (B, 1, H, D) over quantized pages through the
+    ``paged_attention_decode_quant`` kernel (its plain version on the
+    CPU)."""
+    out = ck.paged_attention_decode_quant(q[:, 0], k_pool, v_pool, k_scale,
+                                          v_scale, block_table, lengths)
+    return out[:, None]
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths):
@@ -254,3 +351,73 @@ def qkv_paged_attention_decode(qkv, k_pool, v_pool, block_table, lengths,
     out = paged_decode_attention(q, k_pool, v_pool, block_table, lengths)
     B = qkv.shape[0]
     return out.reshape(B, 1, num_heads * D), k_pool, v_pool
+
+
+def _pool_set(pools):
+    """(k_pool, v_pool, k_scale, v_scale) of one layer's pools: two raw
+    pools, or two quantized pools and their scales."""
+    if len(pools) == 2:
+        return pools[0], pools[1], None, None
+    if len(pools) == 4:
+        return tuple(pools)
+    raise MXNetError(f"a layer's pools are [k, v] or [k, v, k_scale, "
+                     f"v_scale]; got {len(pools)} tensors")
+
+
+def qkv_paged_attention_decode_q(qkv, k_pool, v_pool, k_scale, v_scale,
+                                 block_table, lengths, num_heads: int):
+    """:func:`qkv_paged_attention_decode` over quantized pools: the
+    token's K/V quantizes on write, then the query reads every cached
+    token (its own included) back through the codes and scales.
+    Returns the output (B, 1, H*D); the pools are written in place."""
+    _check_decode_step_shape("QKVPagedAttentionDecodeQ", qkv.shape)
+    q, k_t, v_t, D = _unpack_qkv(qkv, num_heads)
+    paged_cache_update_q(k_pool, v_pool, k_scale, v_scale, k_t, v_t,
+                         block_table, lengths)
+    out = paged_decode_attention_q(q, k_pool, v_pool, k_scale, v_scale,
+                                   block_table, lengths)
+    B = qkv.shape[0]
+    return out.reshape(B, 1, num_heads * D)
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: W = 1 + k queries per stream in one step
+# ---------------------------------------------------------------------------
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_table, start,
+                           k_scale=None, v_scale=None):
+    """q (B, W, H, D) at positions ``start[b] + w`` (the window's K/V
+    already in the pools) → (B, W, H, D) through the
+    ``paged_attention_verify`` kernel (with scales:
+    ``paged_attention_verify_quant``); row w equals the decode step at
+    ``lengths = start + 1 + w`` over the same pool bytes."""
+    return ck.paged_attention_verify(q, k_pool, v_pool, block_table, start,
+                                     k_scale, v_scale)
+
+
+def qkv_paged_verify_attend(qkv, pools, block_table, start, lengths,
+                            num_heads: int):
+    """One verify step over the paged cache: qkv (B, W, 3*H*D) holds the
+    pending token and the drafts at positions ``start[b] + w``.  Their
+    K/V is written through the block table at offset ``start`` (rows at
+    or past ``lengths[b]``, the padding, land on the scratch page 0;
+    quantized pools quantize on write), then every query reads the
+    cache back through the pools under the mask k_pos < start + 1 + w,
+    its own window keys included, as the decode step reads its own
+    token.  ``pools`` is one layer's [k, v] or [k, v, k_scale, v_scale],
+    written in place.  Returns (B, W, H*D)."""
+    if qkv.ndim != 3:
+        raise MXNetError("QKVPagedVerifyAttend expects (B, W, 3*H*D)")
+    q, k, v, D = _unpack_qkv(qkv, num_heads)
+    k_pool, v_pool, k_scale, v_scale = _pool_set(pools)
+    if k_scale is None:
+        paged_prefill_write(k, v, k_pool, v_pool, block_table, lengths,
+                            start=start)
+    else:
+        paged_prefill_write_q(k, v, k_pool, v_pool, k_scale, v_scale,
+                              block_table, lengths, start=start)
+    out = paged_verify_attention(q, k_pool, v_pool, block_table, start,
+                                 k_scale, v_scale)
+    B, W = qkv.shape[0], qkv.shape[1]
+    return out.reshape(B, W, num_heads * D)

@@ -9,7 +9,19 @@ the serving and training paths:
 * ``flash_mha_packed_bwd`` — its backward, a dq kernel and a dk/dv
   kernel (``csrc/flash_mha_packed_bwd.cu``, replacing ``_mhap_bwd``);
 * ``paged_attention_decode`` — one query per stream against pages
-  gathered through a block table (``csrc/paged_attention_decode.cu``).
+  gathered through a block table (``csrc/paged_attention_decode.cu``);
+* ``paged_attention_decode_quant`` — the same over int8/fp8 pages with
+  per-(slot, head) float32 scales (``csrc/paged_attention_decode_quant.cu``,
+  replacing ``paged_attention_decode_quant``);
+* ``paged_attention_verify`` — W queries per stream under the diagonal
+  mask of a speculative verify window, over raw pages, and its quantized
+  instantiation ``paged_attention_verify_quant``
+  (``csrc/paged_attention_verify.cu``, replacing
+  ``paged_attention_verify`` and the lax ``paged_verify_attention_q``).
+
+The three paged kernels share one body (``csrc/paged_attention.cuh``):
+verify row w equals the decode kernel at ``lengths = start + 1 + w`` bit
+for bit, raw and quantized alike.
 
 ``ops/attention.py`` wraps forward and backward in one
 ``torch.autograd.Function``; the forward wrapper here refuses an input
@@ -38,16 +50,25 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "flash_mha_packed_bwd", "flash_mha_packed_bwd_plain",
            "launch_flash_mha_packed_bwd",
            "paged_attention_decode", "paged_attention_decode_plain",
+           "paged_attention_decode_quant",
+           "paged_attention_decode_quant_plain", "gather_pages",
+           "gather_dequant",
+           "paged_attention_verify", "paged_attention_verify_plain",
            "LAUNCHES", "reset_launch_counts", "SUPPORTED_HEAD_DIMS"]
 
 LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "flash_mha_packed_bwd_dq": 0,
                             "flash_mha_packed_bwd_dkv": 0,
-                            "paged_attention_decode": 0}
+                            "paged_attention_decode": 0,
+                            "paged_attention_decode_quant": 0,
+                            "paged_attention_verify": 0,
+                            "paged_attention_verify_quant": 0}
 
 # head widths the kernels are instantiated for (csrc/*.cu)
 SUPPORTED_HEAD_DIMS = (64,)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# quantized page codes of the kernels' kv_code argument
+_QUANT_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 
@@ -337,26 +358,10 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_decode_plain(q, k_pool, v_pool, block_table,
                                             lengths)
     MB = block_table.shape[1]
-    pair = (_DTYPE_CODE.get(q.dtype), _DTYPE_CODE.get(k_pool.dtype))
-    if pair not in ((0, 0), (0, 1), (1, 1)) or v_pool.dtype != k_pool.dtype:
-        raise MXNetError(
-            f"paged_attention_decode: q {q.dtype} over pools "
-            f"{k_pool.dtype}/{v_pool.dtype} (the kernel takes fp32/fp32, "
-            f"fp32/bf16 and bf16/bf16)")
-    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise MXNetError("paged_attention_decode: block_table and lengths "
-                         "must be int32")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise MXNetError(f"paged_attention_decode: head dim {D} (the "
-                         f"kernel is built for {SUPPORTED_HEAD_DIMS})")
-    if q.stride(2) != 1 or q.stride(1) != D:
-        raise MXNetError("paged_attention_decode: q's head and lane "
-                         "strides must be D and 1")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_table", block_table), ("lengths", lengths)):
-        if not t.is_contiguous():
-            raise MXNetError(f"paged_attention_decode: {name} must be "
-                             f"contiguous")
+    _check_paged_launch("paged_attention_decode", q, D,
+                        (k_pool, v_pool, block_table, lengths), block_table,
+                        lengths)
+    pair = _raw_pair("paged_attention_decode", q, k_pool, v_pool)
     fn = _load("paged_attention_decode", "paged_attention_decode",
                [_vp, ctypes.c_long, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
                 _i, _i, _i, _i, _vp])
@@ -369,4 +374,232 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
                  pair[0], pair[1], stream)
     _check_launch(err, "paged_attention_decode")
     LAUNCHES["paged_attention_decode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paged_attention_decode_quant
+# ---------------------------------------------------------------------------
+
+
+def gather_pages(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]`` along the page axis; an fp8 pool is gathered through
+    its uint8 view (the same bytes), which every device indexes."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return pool.view(torch.uint8)[idx].view(pool.dtype)
+    return pool[idx]
+
+
+def gather_dequant(pool, scale, idx):
+    """(B, MB*KVB, H, D) float32 values of the table's pages."""
+    from .attention import dequantize_kv
+
+    B, MB = idx.shape
+    KVB, H, D = pool.shape[1], pool.shape[2], pool.shape[3]
+    return dequantize_kv(gather_pages(pool, idx).reshape(B, MB * KVB, H, D),
+                         scale[idx].reshape(B, MB * KVB, H))
+
+
+def paged_attention_decode_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                       block_table, lengths):
+    """Plain version: gather the table's pages and their scales,
+    dequantize to float32 (``dequantize_kv``), then the blockwise body
+    with block == KVB and the per-stream length mask.  (B, H, D) in q's
+    dtype."""
+    from .attention import (blockwise_attention_partial,
+                            normalize_attention_state)
+
+    idx = block_table.long()
+    kg = gather_dequant(k_pool, k_scale, idx)
+    vg = gather_dequant(v_pool, v_scale, idx)
+    o, m, l = blockwise_attention_partial(q[:, None], kg, vg, causal=True,
+                                          block_size=k_pool.shape[1],
+                                          lengths=lengths)
+    return normalize_attention_state(o, m, l, q.dtype)[:, 0]
+
+
+def _check_quant_pools(name, k_pool, v_pool, k_scale, v_scale):
+    if k_pool.dtype not in _QUANT_CODE or v_pool.dtype != k_pool.dtype:
+        raise MXNetError(f"{name}: pools {k_pool.dtype}/{v_pool.dtype} (the "
+                         f"kernel takes int8 or float8_e4m3fn, one for both)")
+    want = tuple(k_pool.shape[:3])
+    for sname, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise MXNetError(f"{name}: {sname} must be float32 {want} "
+                             f"(P, KVB, H); got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def paged_attention_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 lengths: torch.Tensor) -> torch.Tensor:
+    """``paged_attention_decode`` over quantized pages: k_pool/v_pool
+    (P, KVB, H, D) int8 or float8_e4m3fn codes, k_scale/v_scale
+    (P, KVB, H) float32 per-(slot, head) scales; each element is
+    ``float(code) * scale``.  q (B, H, D) float32 or bfloat16, with any
+    batch stride → (B, H, D) in q's dtype; lengths == 0 gives zeros."""
+    if q.ndim != 3 or k_pool.ndim != 4 or block_table.ndim != 2 \
+            or lengths.ndim != 1:
+        raise MXNetError(
+            f"paged_attention_decode_quant wants q (B, H, D), pools "
+            f"(P, KVB, H, D), table (B, MB), lengths (B,); got "
+            f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+            f"{tuple(block_table.shape)}, {tuple(lengths.shape)}")
+    B, H, D = q.shape
+    if tuple(k_pool.shape[2:]) != (H, D) or v_pool.shape != k_pool.shape \
+            or block_table.shape[0] != B or lengths.shape[0] != B:
+        raise MXNetError(
+            f"paged_attention_decode_quant: shapes disagree: q "
+            f"{tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
+            f"{tuple(v_pool.shape)}, table {tuple(block_table.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    _check_quant_pools("paged_attention_decode_quant", k_pool, v_pool,
+                       k_scale, v_scale)
+    if not _route("paged_attention_decode_quant", q, k_pool, v_pool,
+                  k_scale, v_scale, block_table, lengths):
+        return paged_attention_decode_quant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, block_table, lengths)
+    _check_paged_launch("paged_attention_decode_quant", q, D,
+                        (k_pool, v_pool, k_scale, v_scale, block_table,
+                         lengths), block_table, lengths)
+    fn = _load("paged_attention_decode_quant", "paged_attention_decode_quant",
+               [_vp, ctypes.c_long, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                _i, _i, _i, _i, _i, _i, _vp])
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(),
+                 v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 B, H, D, k_pool.shape[1], block_table.shape[1],
+                 _DTYPE_CODE[q.dtype], _QUANT_CODE[k_pool.dtype], stream)
+    _check_launch(err, "paged_attention_decode_quant")
+    LAUNCHES["paged_attention_decode_quant"] += 1
+    return out
+
+
+def _raw_pair(name, q, k_pool, v_pool):
+    """(q, pool) dtype codes of a raw-page kernel: fp32/fp32, fp32/bf16
+    or bf16/bf16."""
+    pair = (_DTYPE_CODE.get(q.dtype), _DTYPE_CODE.get(k_pool.dtype))
+    if pair not in ((0, 0), (0, 1), (1, 1)) or v_pool.dtype != k_pool.dtype:
+        raise MXNetError(
+            f"{name}: q {q.dtype} over pools {k_pool.dtype}/{v_pool.dtype} "
+            f"(the kernel takes fp32/fp32, fp32/bf16 and bf16/bf16)")
+    return pair
+
+
+def _check_paged_launch(name, q, D, tensors, block_table, ints):
+    """What every paged kernel needs of its CUDA inputs: q float32 or
+    bfloat16 with head and lane strides D and 1, int32 table and
+    lengths/start, contiguous pools, scales and ints, D = 64."""
+    if q.dtype not in _DTYPE_CODE:
+        raise MXNetError(f"{name}: q {q.dtype} (the kernel takes float32 "
+                         f"and bfloat16)")
+    if block_table.dtype != torch.int32 or ints.dtype != torch.int32:
+        raise MXNetError(f"{name}: the block table and the per-stream "
+                         f"lengths/start must be int32")
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise MXNetError(f"{name}: head dim {D} (the kernel is built for "
+                         f"{SUPPORTED_HEAD_DIMS})")
+    if q.stride(-1) != 1 or q.stride(-2) != D:
+        raise MXNetError(f"{name}: q's head and lane strides must be D "
+                         f"and 1")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise MXNetError(f"{name}: pools, scales, table and "
+                             f"lengths/start must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# paged_attention_verify (raw and quantized pages)
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_verify_plain(q, k_pool, v_pool, block_table, start,
+                                 k_scale=None, v_scale=None):
+    """Plain version: row w is the plain decode (with scales: the plain
+    quantized decode) at ``lengths = start + 1 + w``, so on any device
+    verify row w equals the decode step bit for bit.  (B, W, H, D) in
+    q's dtype."""
+    start = start.to(torch.int32)
+    rows = []
+    for w in range(q.shape[1]):
+        lengths = start + (1 + w)
+        if k_scale is None:
+            rows.append(paged_attention_decode_plain(
+                q[:, w], k_pool, v_pool, block_table, lengths))
+        else:
+            rows.append(paged_attention_decode_quant_plain(
+                q[:, w], k_pool, v_pool, k_scale, v_scale, block_table,
+                lengths))
+    return torch.stack(rows, dim=1)
+
+
+def paged_attention_verify(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           start: torch.Tensor,
+                           k_scale: torch.Tensor = None,
+                           v_scale: torch.Tensor = None) -> torch.Tensor:
+    """Speculative-verify attention: q (B, W, H, D), the window's queries
+    at positions ``start[b] + w`` (their K/V already in the pools);
+    pools (P, KVB, H, D); block_table (B, MB) int32; start (B,) int32
+    tokens cached before the window → (B, W, H, D) in q's dtype, row w
+    under the mask ``k_pos < start + 1 + w``.
+
+    Raw fp32/bf16 pools launch ``paged_attention_verify``; int8/fp8
+    pools with their (P, KVB, H) float32 scales launch
+    ``paged_attention_verify_quant``.  q may be a strided view (the
+    query third of a packed qkv): head and lane strides D and 1."""
+    if q.ndim != 4 or k_pool.ndim != 4 or block_table.ndim != 2 \
+            or start.ndim != 1:
+        raise MXNetError(
+            f"paged_attention_verify wants q (B, W, H, D), pools "
+            f"(P, KVB, H, D), table (B, MB), start (B,); got "
+            f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+            f"{tuple(block_table.shape)}, {tuple(start.shape)}")
+    B, W, H, D = q.shape
+    if tuple(k_pool.shape[2:]) != (H, D) or v_pool.shape != k_pool.shape \
+            or block_table.shape[0] != B or start.shape[0] != B:
+        raise MXNetError(
+            f"paged_attention_verify: shapes disagree: q {tuple(q.shape)}, "
+            f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
+            f"{tuple(block_table.shape)}, start {tuple(start.shape)}")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise MXNetError("paged_attention_verify: give both scales or none")
+    name = "paged_attention_verify_quant" if quant \
+        else "paged_attention_verify"
+    extra = (k_scale, v_scale) if quant else ()
+    if quant:
+        _check_quant_pools(name, k_pool, v_pool, k_scale, v_scale)
+    if not _route(name, q, k_pool, v_pool, block_table, start, *extra):
+        return paged_attention_verify_plain(q, k_pool, v_pool, block_table,
+                                            start, k_scale, v_scale)
+    _check_paged_launch(name, q, D, (k_pool, v_pool, block_table, start,
+                                     *extra), block_table, start)
+    if quant:
+        codes = (_DTYPE_CODE[q.dtype], _QUANT_CODE[k_pool.dtype])
+        fn = _load("paged_attention_verify", name,
+                   [_vp, ctypes.c_long, ctypes.c_long, _vp, _vp, _vp, _vp,
+                    _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp])
+    else:
+        codes = _raw_pair(name, q, k_pool, v_pool)
+        fn = _load("paged_attention_verify", name,
+                   [_vp, ctypes.c_long, ctypes.c_long, _vp, _vp, _vp, _vp,
+                    _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp])
+    out = torch.empty((B, W, H, D), dtype=q.dtype, device=q.device)
+    pools = [k_pool.data_ptr(), v_pool.data_ptr()] \
+        + [t.data_ptr() for t in extra]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), q.stride(0), q.stride(1), *pools,
+                 block_table.data_ptr(), start.data_ptr(), out.data_ptr(),
+                 B, W, H, D, k_pool.shape[1], block_table.shape[1], *codes,
+                 stream)
+    _check_launch(err, name)
+    LAUNCHES[name] += 1
     return out

@@ -7,7 +7,10 @@ from.  JAX's threefry bits cannot be reproduced, so tests carry
 parameters across packages and never seeds.
 
 Sampler keying: one counter-based draw per (engine seed, stream seed,
-absolute position).
+absolute position), and for the speculative verify sampler two sub-keys
+of that key (``sub_key(key, 1)`` for the acceptance uniform,
+``sub_key(key, 2)`` for the residual draw: the JAX sampler's
+``fold_in(key, 1)`` / ``fold_in(key, 2)``).
 
 Counterpart of the keying in ``mxnet_tpu/serving.py:sample_tokens``,
 where each draw uses ``fold_in(fold_in(base_key, stream_seed),
@@ -25,7 +28,8 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["seed", "generator", "stream_key", "gumbel_noise"]
+__all__ = ["seed", "generator", "stream_key", "sub_key", "gumbel_noise",
+           "uniform"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -73,16 +77,32 @@ def stream_key(engine_seed: int, stream_seed: int, position: int) -> int:
     return k >> 1
 
 
+def sub_key(key: int, i: int) -> int:
+    """The ``i``-th sub-key of a ``stream_key``: a further draw keyed by
+    the same (engine seed, stream seed, position), unrelated to the
+    key's own draw and to the other sub-keys."""
+    return _splitmix64(_splitmix64(int(key) & _MASK64)
+                       ^ (int(i) & _MASK64)) >> 1
+
+
+def _draw(key: int, n: int, device) -> torch.Tensor:
+    g = torch.Generator(device=device)
+    g.manual_seed(int(key))
+    return torch.rand(n, generator=g, device=device, dtype=torch.float32)
+
+
 def gumbel_noise(keys: Sequence[int], n: int,
                  device: torch.device) -> torch.Tensor:
     """(len(keys), n) float32 standard Gumbel noise, row ``i`` drawn
-    from a generator seeded with ``keys[i]`` on ``device``."""
-    rows = []
-    for k in keys:
-        g = torch.Generator(device=device)
-        g.manual_seed(int(k))
-        u = torch.rand(n, generator=g, device=device, dtype=torch.float32)
-        rows.append(u)
-    u = torch.stack(rows)
+    from a generator seeded with ``keys[i]`` on ``device``.  Each row is
+    transformed on its own, so its bits do not depend on the other
+    rows (the CPU's vector math would otherwise round a row's tail by
+    its offset in the batch)."""
     # u in [0, 1): u == 0 maps to -inf (never the argmax), u < 1 always
-    return -torch.log(-torch.log(u))
+    return torch.stack([-torch.log(-torch.log(_draw(k, n, device)))
+                        for k in keys])
+
+
+def uniform(keys: Sequence[int], device: torch.device) -> torch.Tensor:
+    """(len(keys),) float32 uniforms in [0, 1), one per key."""
+    return torch.cat([_draw(k, 1, device) for k in keys])

@@ -7,9 +7,19 @@ entry point and semantics:
   (one stream at a time), writing each layer's K/V into the stream's
   pages (``flash_mha_packed`` kernel for the attention);
 * **decode** advances every active stream one token per step in one
-  batch (``paged_attention_decode`` kernel), samples greedy or
-  temperature tokens on the device, and copies ONE (B,) int32 vector
-  to the host per step;
+  batch (``paged_attention_decode`` kernel; ``paged_attention_decode_quant``
+  over int8/fp8 pages), samples greedy or temperature tokens on the
+  device, and copies ONE (B,) int32 vector to the host per step;
+* **speculation** (``spec_tokens=k``): the n-gram proposer drafts up to
+  k tokens a stream, and one verify step (``paged_attention_verify`` /
+  ``_quant`` kernel) scores the pending token and the drafts; the
+  longest verified prefix plus the target's own next token commits, ONE
+  (B, 1+k) int32 copy a step; pages that held only rejected tokens go
+  back to the pool.  A step where no stream has a draft is the plain
+  step;
+* **quantized pages** (``kv_dtype='int8'`` / ``'fp8'``): codes plus one
+  float32 scale per (slot, head), quantized on write, dequantized inside
+  the attention kernels;
 * streams join and retire at every step (Orca, Yu et al. OSDI '22);
 * admission is keyed to free pages (the prompt's pages plus one block
   of headroom); when a growing stream finds the pool empty, the
@@ -43,9 +53,11 @@ from .base import MXNetError, get_env, not_ported
 from .context import current_context
 from .convert import params_from_numpy
 from .kv_cache import (KV_DTYPES, BlockAllocator, blocks_for_tokens,
-                       bucket_ladder, kv_storage_dtype)
+                       bucket_ladder, kv_quantized, kv_storage_dtype,
+                       trim_blocks)
 from .models.transformer import TransformerLM
 from .random import gumbel_noise, stream_key
+from .speculative import PROPOSERS, make_proposer, verify_sample
 
 __all__ = ["DecodeEngine", "EngineClosedError", "sample_tokens"]
 
@@ -108,9 +120,8 @@ def _env_buckets(name: str, default):
     return vals
 
 
-def _refuse_unported(*, prefix_cache, evict_policy, spec_tokens,
-                     proposer, prefill_chunk, tp, pp, devices, adapters,
-                     tenant_quota, dtype) -> None:
+def _refuse_unported(*, prefix_cache, evict_policy, prefill_chunk, tp,
+                     pp, devices, adapters, tenant_quota, dtype) -> None:
     """Raise for every feature of the JAX engine this port does not
     carry yet, asked for by argument or by environment variable."""
     pc = prefix_cache if prefix_cache is not None else \
@@ -123,13 +134,6 @@ def _refuse_unported(*, prefix_cache, evict_policy, spec_tokens,
     if evict_policy is not None or os.environ.get("MXNET_SERVING_EVICT"):
         raise not_ported("prefix-cache eviction (evict_policy / "
                          "MXNET_SERVING_EVICT)")
-    k = spec_tokens if spec_tokens is not None else \
-        _env_int("MXNET_SERVING_SPEC_TOKENS", 0, 0)
-    if int(k) or proposer is not None \
-            or os.environ.get("MXNET_SERVING_PROPOSER"):
-        raise not_ported("speculative decoding (spec_tokens / proposer / "
-                         "MXNET_SERVING_SPEC_TOKENS / "
-                         "MXNET_SERVING_PROPOSER)")
     chunk = prefill_chunk if prefill_chunk is not None else \
         _env_int("MXNET_SERVING_PREFILL_CHUNK", 0, 0)
     if int(chunk):
@@ -259,8 +263,15 @@ class DecodeEngine:
         ``gpu(0)`` unless given; on a host without CUDA that raises —
         pass ``cpu()`` to run on the CPU.
     kv_dtype : str
-        Pool storage: ``'fp32'`` (default, env
-        ``MXNET_SERVING_KV_DTYPE``) or ``'bf16'``.
+        Pool storage (env ``MXNET_SERVING_KV_DTYPE``): ``'fp32'``
+        (default), ``'bf16'``, or quantized ``'int8'`` / ``'fp8'``
+        (e4m3) codes with float32 scale pools.
+    spec_tokens : int
+        Speculative draft depth k (env ``MXNET_SERVING_SPEC_TOKENS``,
+        default 0 = off): up to k + 1 tokens a stream per step.
+    proposer : str or object
+        Draft proposer (env ``MXNET_SERVING_PROPOSER``, default
+        ``'ngram'``), or an object with ``propose(context, k)``.
     """
 
     def __init__(self, params, *, vocab_size, num_layers, num_heads,
@@ -273,16 +284,34 @@ class DecodeEngine:
                  tp=None, pp=None, devices=None, adapters=None,
                  tenant_quota=None):
         _refuse_unported(prefix_cache=prefix_cache,
-                         evict_policy=evict_policy, spec_tokens=spec_tokens,
-                         proposer=proposer, prefill_chunk=prefill_chunk,
-                         tp=tp, pp=pp, devices=devices, adapters=adapters,
+                         evict_policy=evict_policy,
+                         prefill_chunk=prefill_chunk, tp=tp, pp=pp,
+                         devices=devices, adapters=adapters,
                          tenant_quota=tenant_quota, dtype=dtype)
         self._kv_dtype = kv_dtype if kv_dtype is not None else \
             get_env("MXNET_SERVING_KV_DTYPE", "fp32", str)
         if self._kv_dtype not in KV_DTYPES:
             raise MXNetError(f"kv_dtype {self._kv_dtype!r} must be one of "
-                             f"{KV_DTYPES}")
-        pool_dtype = kv_storage_dtype(self._kv_dtype)  # int8/fp8 raise
+                             f"{KV_DTYPES} (MXNET_SERVING_KV_DTYPE)")
+        pool_dtype = kv_storage_dtype(self._kv_dtype)
+        self._spec_k = int(spec_tokens) if spec_tokens is not None else \
+            _env_int("MXNET_SERVING_SPEC_TOKENS", 0, 0)
+        if self._spec_k < 0:
+            raise MXNetError(f"spec_tokens {self._spec_k} must be >= 0")
+        if proposer is None or isinstance(proposer, str):
+            name = proposer if proposer is not None else \
+                get_env("MXNET_SERVING_PROPOSER", "ngram", str)
+            if name not in PROPOSERS:
+                raise MXNetError(f"MXNET_SERVING_PROPOSER={name!r} must be "
+                                 f"one of {PROPOSERS}")
+            self._proposer_name = name
+            self._proposer = make_proposer(name) if self._spec_k else None
+        else:  # a custom proposer instance
+            if not callable(getattr(proposer, "propose", None)):
+                raise MXNetError(f"proposer {proposer!r} must expose "
+                                 f"propose(context, k) -> np.int32 tokens")
+            self._proposer_name = type(proposer).__name__
+            self._proposer = proposer
 
         self._L = int(num_layers)
         self._H = int(num_heads)
@@ -367,10 +396,19 @@ class DecodeEngine:
                 f"cache_buckets {self._cache_buckets} does not cover the "
                 f"{self._max_blocks_seq} pages a max_len stream holds")
 
+        # per layer [k, v] or, quantized, [k, v, k_scale, v_scale]; the
+        # scale pools start at ones (the JAX engine's), the values at 0
         pool_shape = (int(cache_blocks), self._kv_block, self._H, self._D)
-        self._pools = [torch.zeros(pool_shape, dtype=pool_dtype,
-                                   device=self._device)
-                       for _ in range(2 * self._L)]
+        self._pools = []
+        for _ in range(self._L):
+            for _ in range(2):
+                self._pools.append(torch.zeros(pool_shape, dtype=pool_dtype,
+                                               device=self._device))
+            if kv_quantized(self._kv_dtype):
+                for _ in range(2):
+                    self._pools.append(torch.ones(
+                        pool_shape[:3], dtype=torch.float32,
+                        device=self._device))
         self._pool_bytes = sum(p.numel() * p.element_size()
                                for p in self._pools)
 
@@ -476,7 +514,19 @@ class DecodeEngine:
         out = {k: int(c.get(k, 0)) for k in
                ("requests", "generations", "tokens", "prefill_tokens",
                 "preempted", "prefills", "steps", "stream_steps",
-                "d2h_syncs")}
+                "spec_steps", "spec_proposed", "spec_accepted",
+                "spec_pages_rolled_back", "d2h_syncs")}
+        # how much of what the proposer offered was verified, and how
+        # many tokens one target evaluation of one stream commits (1.0
+        # without speculation; up to spec_tokens + 1)
+        out["accepted_token_rate"] = round(
+            out["spec_accepted"] / out["spec_proposed"], 4) \
+            if out["spec_proposed"] else 0.0
+        out["tokens_per_step"] = round(
+            out["tokens"] / out["stream_steps"], 4) \
+            if out["stream_steps"] else 0.0
+        out["spec_tokens"] = self._spec_k
+        out["proposer"] = self._proposer_name if self._spec_k else None
         for name, key in (("time_per_token_ms", ""), ("ttft_ms", "ttft_"),
                           ("step_ms", "step_"), ("prefill_ms", "prefill_"),
                           ("queue_wait_ms", "queue_wait_")):
@@ -692,10 +742,11 @@ class DecodeEngine:
                 return None
             self._preempt(max(victims, key=lambda v: v.t_admit))
 
-    def _ensure_capacity(self, s: _Stream) -> bool:
-        """Grow ``s`` to hold its next token's page; False when ``s``
-        itself could not be kept resident."""
-        need = blocks_for_tokens(s.length + 1, self._kv_block) \
+    def _ensure_capacity(self, s: _Stream, ahead: int = 1) -> bool:
+        """Grow ``s`` to hold ``ahead`` more tokens' pages (1: the next
+        token; a verify window: its width); False when ``s`` itself
+        could not be kept resident."""
+        need = blocks_for_tokens(s.length + ahead, self._kv_block) \
             - len(s.blocks)
         if need <= 0:
             return True
@@ -727,6 +778,126 @@ class DecodeEngine:
         self._metrics.inc("generations")
 
     def _step(self):
+        """One scheduling step: with speculation on, ask the proposer for
+        every active stream's drafts and run the verify step if any
+        stream has one; otherwise (and always without speculation) the
+        plain one-token step, which is the zero-draft verify step."""
+        if self._spec_k:
+            with self._lock:
+                streams = list(self._active)
+            drafts = {s.sid: self._propose(s) for s in streams}
+            if any(d.size for d in drafts.values()):
+                self._verify_step(drafts)
+                return
+        self._plain_step()
+
+    def _propose(self, s: _Stream) -> np.ndarray:
+        """Draft tokens for one stream, capped by what the step may
+        commit: emissions left before max_new, positions left before
+        max_len, and the draft depth."""
+        room = min(s.max_new - len(s.generated) - 1,
+                   self._max_len - s.length - 1, self._spec_k)
+        if room < 1:
+            return np.empty(0, np.int32)
+        ctx = np.concatenate([s.prompt, np.asarray(s.generated, np.int32)])
+        d = np.asarray(self._proposer.propose(ctx, room), np.int32)
+        return d[:room]
+
+    def _verify_step(self, drafts: Dict[int, np.ndarray]):
+        """One speculative step: feed every active stream its pending
+        token plus its drafts (W = 1 + spec_tokens rows, padded), score
+        all rows in one ``TransformerLM.verify``, copy the (B, W) int32
+        emissions to the host once, commit the longest verified prefix
+        plus the first mismatching emission (cut at eos / max_new), and
+        return pages that held only rejected tokens to the pool."""
+        t0 = time.perf_counter()
+        for s in list(self._active):
+            if s in self._active:
+                self._ensure_capacity(s, ahead=1 + len(drafts.get(s.sid,
+                                                                  ())))
+        with self._lock:
+            streams = list(self._active)
+        if not streams:
+            return
+        n = len(streams)
+        W = self._spec_k + 1
+        bb = self._bucket(self._decode_buckets, n, "active streams")
+        mb = self._bucket(self._cache_buckets,
+                          max(len(s.blocks) for s in streams),
+                          "cache blocks")
+        # padded batch rows: start 0, lengths 0 (every window row writes
+        # to the scratch page); padded window rows sit past lengths[i]
+        tokens = np.zeros((bb, W), np.int32)
+        positions = np.zeros((bb, W), np.int32)
+        start = np.zeros((bb,), np.int32)
+        lengths = np.zeros((bb,), np.int32)
+        table = np.zeros((bb, mb), np.int32)
+        temps = np.zeros((bb,), np.float32)
+        seeds = np.zeros((bb,), np.int64)
+        steps0 = np.zeros((bb,), np.int64)
+        fed: List[np.ndarray] = []
+        for i, s in enumerate(streams):
+            d = drafts.get(s.sid, np.empty(0, np.int32))
+            row = np.concatenate([np.asarray([s.next_token], np.int32), d])
+            fed.append(row)
+            tokens[i, :len(row)] = row
+            # pad rows keep in-range positions (their logits are unused)
+            positions[i] = np.minimum(s.length + np.arange(W),
+                                      self._max_len - 1)
+            start[i] = s.length
+            lengths[i] = s.length + len(row)
+            table[i, :len(s.blocks)] = s.blocks
+            temps[i] = s.temp
+            seeds[i] = s.seed
+            steps0[i] = s.length  # row j samples position length + j
+        tok_d, pos_d, start_d, len_d, tab_d = self._feed(
+            tokens, positions, start, lengths, table)
+        logits = self._model.verify(tok_d, pos_d, start_d, len_d, tab_d,
+                                    self._pools)
+        emit = verify_sample(logits, tokens, lengths - start, temps, seeds,
+                             steps0, self._seed)
+        emit = emit.cpu().numpy()  # the step's one device-to-host copy
+        t_done = time.perf_counter()
+        step_ms = (t_done - t0) * 1e3
+        self._metrics.inc("d2h_syncs")
+        self._metrics.inc("steps")
+        self._metrics.inc("stream_steps", n)
+        self._metrics.inc("spec_steps")
+        self._metrics.inc("spec_proposed", sum(len(r) - 1 for r in fed))
+        self._metrics.observe("step_ms", step_ms)
+        retired = []
+        for i, s in enumerate(streams):
+            d = fed[i][1:]
+            t = 0
+            for j in range(len(fed[i])):
+                tok = int(emit[i, j])
+                # every emission up to and including the first mismatch
+                # is an exact sample for its own slot
+                s.generated.append(tok)
+                t += 1
+                if s.done():
+                    break
+                if j < len(d) and tok != int(d[j]):
+                    break
+            s.length += t
+            s.next_token = s.generated[-1]
+            self._metrics.inc("tokens", t)
+            self._metrics.inc("spec_accepted", t - 1)
+            for _ in range(t):
+                self._metrics.observe("time_per_token_ms", step_ms / t)
+            # pages past the committed tokens and the pending token's
+            # slot held only rejected window writes
+            keep, surplus = trim_blocks(s.blocks, s.length + 1,
+                                        self._kv_block)
+            if surplus:
+                s.blocks = keep
+                self._alloc.free(surplus)
+                self._metrics.inc("spec_pages_rolled_back", len(surplus))
+            if s.done():
+                retired.append(s)
+        self._retire_all(retired)
+
+    def _plain_step(self):
         """One decode step over every active stream, unpipelined: feed,
         run, then one (B,) int32 copy to the host."""
         t0 = time.perf_counter()
@@ -787,6 +958,9 @@ class DecodeEngine:
             self._metrics.observe("time_per_token_ms", step_ms)
             if s.done():
                 retired.append(s)
+        self._retire_all(retired)
+
+    def _retire_all(self, retired: List[_Stream]):
         if retired:
             with self._lock:
                 for s in retired:

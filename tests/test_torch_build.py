@@ -43,6 +43,8 @@ def fake(tmp_path, monkeypatch):
 def test_build_all_kernels_once_with_sm90a_flags(fake):
     record, _ = fake
     assert "flash_mha_packed_bwd" in _build.SOURCES  # the backward kernels
+    for name in ("paged_attention_decode_quant", "paged_attention_verify"):
+        assert name in _build.SOURCES  # quantized decode and verify
     first = _build.build()
     assert set(first) == set(_build.SOURCES)
     assert all(t > 0 for t in first.values())
@@ -66,6 +68,25 @@ def test_edited_source_rebuilds_under_a_new_name(fake):
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build._target(name) != before
     assert _build.build([name])[name] > 0
+
+
+def test_edited_shared_header_rebuilds_every_paged_kernel(fake):
+    """The paged kernels share csrc/paged_attention.cuh: editing it gives
+    each of them a new library name, so no stale build is loaded."""
+    _, csrc = fake
+    paged = [n for n in _build.SOURCES if n.startswith("paged_attention")]
+    assert len(paged) == 3
+    for name in paged:
+        assert '#include "paged_attention.cuh"' in \
+            (csrc / f"{name}.cu").read_text()
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    hdr = csrc / "paged_attention.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in paged)
+    assert all(t > 0 for t in _build.build(paged).values())
+    assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == sorted(
+        after[n].name for n in paged)
 
 
 def test_failed_compile_raises_with_compiler_output(fake):

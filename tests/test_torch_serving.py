@@ -186,9 +186,9 @@ def test_eos_and_single_token_requests_retire(lm):
     ({"prefix_cache": 1}, {}),
     ({}, {"MXNET_SERVING_PREFIX_CACHE": "1"}),
     ({"evict_policy": "lru"}, {}),
-    ({"spec_tokens": 2}, {}),
-    ({}, {"MXNET_SERVING_SPEC_TOKENS": "2"}),
-    ({"proposer": "ngram"}, {}),
+    ({"spec_tokens": 2, "proposer": "draft_lm"}, {}),
+    ({"spec_tokens": 2}, {"MXNET_SERVING_PROPOSER": "draft_lm"}),
+    ({"spec_tokens": 2, "prefill_chunk": 8}, {}),
     ({"prefill_chunk": 8}, {}),
     ({}, {"MXNET_SERVING_PREFILL_CHUNK": "8"}),
     ({"tp": 2}, {}),
@@ -198,8 +198,8 @@ def test_eos_and_single_token_requests_retire(lm):
     ({}, {"MXNET_ADAPTER_ENABLE": "1"}),
     ({"tenant_quota": object()}, {}),
     ({}, {"MXNET_TENANT_QUOTA_TOKENS": "100"}),
-    ({"kv_dtype": "int8"}, {}),
-    ({}, {"MXNET_SERVING_KV_DTYPE": "fp8"}),
+    ({"kv_dtype": "int8", "prefix_cache": 1}, {}),
+    ({"tp": 2}, {"MXNET_SERVING_KV_DTYPE": "fp8"}),
     ({"dtype": "bfloat16"}, {}),
 ], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
 def test_unported_features_raise(lm, monkeypatch, kwargs, env):
@@ -302,7 +302,7 @@ def test_blocks_for_tokens_and_ladder():
 
 
 def test_import_leaves_jax_and_reference_unloaded():
-    code = ("import sys, mxnet_tpu_torch\n"
+    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.speculative\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
