@@ -15,7 +15,11 @@
    The quantized decode runs over int8 and fp8 pools made by the port's
    ``quantize_kv``; the verify kernel over fp32, bf16, int8 and fp8
    pools, and each of its rows must ``torch.equal`` the decode kernel's
-   output at ``lengths = start + 1 + w``.
+   output at ``lengths = start + 1 + w``.  The LSTM recurrence
+   (``lstm_scan``, fp32 only) runs at (T, B, H) = (60, 32, 200),
+   (10, 32, 200) and (7, 3, 37) with random non-zero states; its library
+   yardstick is cuDNN's LSTM (``torch.nn.LSTM``) fed the projection
+   through an identity input weight.
 3. Serving: a GPT-2-small-class LM (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32768, 1024 positions; random weights from
    ``np.random.RandomState(0)``) serves through ``DecodeEngine``, four
@@ -43,7 +47,20 @@
    must launch 12 forward and 12 + 12 backward attention kernels, every
    ``qkv_weight`` gradient must be finite and non-zero, and the mean
    loss of the last 3 steps must be below the first step's.
-5. Prints ``{"kernels": [...]}`` (seven kernels, launches summed over
+5. LSTM-PTB: the LSTM language model of ``examples/lstm_bucketing.py``
+   at the published widths of upstream MXNet's
+   ``example/rnn/lstm_bucketing.py`` (vocab 10,000, embed 200, 2 LSTM
+   layers of 200, batch 32, buckets 10-60) trains through
+   ``mod.BucketingModule.fit`` on ``gpu(0)`` for ``LSTM_EPOCHS`` epochs
+   over a seeded synthetic Markov corpus (Adam lr 0.01, ``Uniform(0.08)``,
+   zero states through ``arg_params``, ``Perplexity(ignore_label=0)``,
+   ``Speedometer``), then ``score``s a held-out corpus.  Every forward,
+   in training and in scoring, must launch ``lstm_scan`` once a layer;
+   every bucket must have been seen, with the buckets sharing the
+   parameter objects; ``rnn_parameters``' gradient must be finite and
+   non-zero every batch; the second epoch's perplexity must be below the
+   first's.
+6. Prints ``{"kernels": [...]}`` (eight kernels, launches summed over
    the runs), the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
@@ -71,6 +88,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 10, 3e-5
 SPEC_K, SPEC_NEW = 4, 64
+LSTM_PTB = dict(vocab=10000, num_embed=200, num_hidden=200, num_layers=2,
+                batch=32, buckets=(10, 20, 30, 40, 50, 60))
+LSTM_EPOCHS, LSTM_TRAIN_SENTENCES, LSTM_HELD_OUT_SENTENCES = 2, 1800, 480
 KV_TORCH = {"int8": "int8", "fp8": "float8_e4m3fn"}
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
@@ -197,6 +217,59 @@ def check_backward(torch, ck, F, B, T, dtype):
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by})
     return out
+
+
+def check_lstm(torch, ck, T, B, Hd):
+    """B6 against its plain version at (T, B, H), fp32, with random
+    non-zero states; the library yardstick is cuDNN's LSTM with input
+    size 4H, the identity as its input weight, zero biases and
+    ``weight_hh = ut.T``: the same function plus one redundant 4H x 4H
+    input product (its values are compared too)."""
+    g = torch.Generator(device="cuda").manual_seed(T * 1000 + B * 10 + Hd)
+    xw = torch.randn((T, B, 4 * Hd), generator=g, device="cuda") * 0.5
+    h0 = torch.randn((B, Hd), generator=g, device="cuda") * 0.5
+    c0 = torch.randn((B, Hd), generator=g, device="cuda") * 0.5
+    ut = torch.randn((Hd, 4 * Hd), generator=g, device="cuda") * 0.1
+    got = ck.lstm_scan(xw, h0, c0, ut)
+    ref = ck.lstm_scan_plain(xw, h0, c0, ut)
+    torch.cuda.synchronize()
+    errs = {n: (a - b).abs().max().item()
+            for n, a, b in zip(("y", "hT", "cT"), got, ref)}
+    err = max(errs.values())
+    check(err <= TOL["float32"], f"lstm_scan T={T} B={B} H={Hd}: "
+          f"max_abs_err {errs} over tolerance {TOL['float32']}")
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          "lstm_scan output not finite")
+
+    lib = torch.nn.LSTM(4 * Hd, Hd).cuda()
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(4 * Hd, device="cuda"))
+        lib.weight_hh_l0.copy_(ut.t())
+        lib.bias_ih_l0.zero_()
+        lib.bias_hh_l0.zero_()
+
+    def library():
+        with torch.no_grad():
+            return lib(xw, (h0[None], c0[None]))
+
+    ly, (lh, lc) = library()
+    lib_err = max((ly - ref[0]).abs().max().item(),
+                  (lh[0] - ref[1]).abs().max().item(),
+                  (lc[0] - ref[2]).abs().max().item())
+    # each input read once (xw, h0, c0, ut), each output written once
+    nbytes = 4 * (T * B * 4 * Hd + 2 * B * Hd + Hd * 4 * Hd
+                  + T * B * Hd + 2 * B * Hd)
+    b_ms, b_by = bound(nbytes, 2 * T * B * Hd * 4 * Hd, "float32")
+    ms = time_ms(torch, lambda: ck.lstm_scan(xw, h0, c0, ut))
+    return {
+        "kernel": "lstm_scan", "shape": f"T={T} B={B} H={Hd}",
+        "dtype": "float32", "max_abs_err": err, "max_abs_err_y_hT_cT": errs,
+        "tol": TOL["float32"], "ms": ms, "ms_per_step": ms / T,
+        "plain_ms": time_ms(torch, lambda: ck.lstm_scan_plain(
+            xw, h0, c0, ut), reps=5, warmup=1),
+        "library_ms": time_ms(torch, library),
+        "library_max_abs_err": lib_err,
+        "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _ragged_tables(B, MB, rng, lengths=None):
@@ -690,6 +763,266 @@ def train_path(torch, mt, ck):
             "peak_memory_bytes": int(peak), "launches": launches}
 
 
+def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers):
+    """``make_sym_gen`` of ``examples/lstm_bucketing.py:134-153``."""
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data, input_dim=vocab,
+                                 output_dim=num_embed, name="embed")
+        rnn = mt.sym.RNN(data=mt.sym.transpose(embed, axes=(1, 0, 2)),
+                         parameters=mt.sym.Variable("rnn_parameters"),
+                         state=mt.sym.Variable("rnn_state"),
+                         state_cell=mt.sym.Variable("rnn_state_cell"),
+                         state_size=num_hidden, num_layers=num_layers,
+                         mode="lstm", name="rnn")
+        out = mt.sym.Reshape(mt.sym.transpose(rnn, axes=(1, 0, 2)),
+                             shape=(-1, num_hidden))
+        pred = mt.sym.FullyConnected(out, num_hidden=vocab, name="pred")
+        flat_label = mt.sym.Reshape(label, shape=(-1,))
+        sm = mt.sym.SoftmaxOutput(pred, flat_label, ignore_label=0,
+                                  use_ignore=True, name="softmax")
+        return sm, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def synthetic_corpus(num_sentences, vocab_size, max_len, seed):
+    """``examples/lstm_bucketing.py:45``: a Markov corpus (each token one
+    of two successors of the last, from one table drawn from seed 0),
+    lengths 5..max_len, ids 2..vocab-1."""
+    trans = np.random.RandomState(0).randint(2, vocab_size,
+                                             size=(vocab_size, 2))
+    rng = np.random.RandomState(seed)
+    sentences = []
+    for _ in range(num_sentences):
+        n = rng.randint(5, max_len + 1)
+        tok = rng.randint(2, vocab_size)
+        s = [tok]
+        for _ in range(n - 1):
+            tok = trans[tok, rng.randint(0, 2)]
+            s.append(int(tok))
+        sentences.append(s)
+    return sentences
+
+
+class BucketSentenceIter:
+    """Sentences padded with 0 up to their bucket, batched per bucket in
+    a seeded shuffled order (``examples/lstm_bucketing.py:61``); label =
+    data shifted left, 0 (ignored) at the end."""
+
+    def __init__(self, mt, sentences, batch_size, buckets, seed):
+        self.mt, self.batch_size = mt, batch_size
+        self.buckets = sorted(buckets)
+        self.default_bucket_key = max(buckets)
+        self._rng = np.random.RandomState(seed)
+        per = {b: [] for b in self.buckets}
+        for s in sentences:
+            b = next(b for b in self.buckets if len(s) <= b)
+            per[b].append(np.pad(s, (0, b - len(s))))
+        self._data = {b: np.asarray(v, np.float32) for b, v in per.items()
+                      if len(v) >= batch_size}
+        self.provide_data = [mt.io.DataDesc(
+            "data", (batch_size, self.default_bucket_key))]
+        self.provide_label = [mt.io.DataDesc(
+            "softmax_label", (batch_size, self.default_bucket_key))]
+        self.reset()
+
+    def reset(self):
+        self._plan = []
+        for b, arr in self._data.items():
+            idx = self._rng.permutation(len(arr))
+            for i in range(0, len(arr) - self.batch_size + 1,
+                           self.batch_size):
+                self._plan.append((b, idx[i:i + self.batch_size]))
+        self._rng.shuffle(self._plan)
+        self._cur = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._cur >= len(self._plan):
+            raise StopIteration
+        b, idx = self._plan[self._cur]
+        self._cur += 1
+        data = self._data[b][idx]
+        label = np.concatenate([data[:, 1:],
+                                np.zeros((len(data), 1), np.float32)], 1)
+        mt, cpu = self.mt, self.mt.cpu()
+        return mt.io.DataBatch(
+            [mt.nd.array(data, ctx=cpu)], [mt.nd.array(label, ctx=cpu)],
+            pad=0, bucket_key=b,
+            provide_data=[mt.io.DataDesc("data", (self.batch_size, b))],
+            provide_label=[mt.io.DataDesc("softmax_label",
+                                          (self.batch_size, b))])
+
+
+class BatchChecks:
+    """A batch-end callback: ``lstm_scan`` launched once a layer in the
+    batch's forward, and (training) ``rnn_parameters``' gradient finite
+    and non-zero; records each batch's host time and bucket."""
+
+    def __init__(self, torch, ck, mod, layers, phase, training):
+        self.torch, self.ck, self.mod = torch, ck, mod
+        self.layers, self.phase, self.training = layers, phase, training
+        self.seen = 0
+        self.batch_ms, self.keys = [], []
+        self.t = time.perf_counter()
+
+    def __call__(self, param):
+        n = self.ck.LAUNCHES["lstm_scan"] - self.seen
+        self.seen += n
+        key = self.mod._curr_bucket_key
+        check(n == self.layers, f"lstm {self.phase} epoch {param.epoch} "
+              f"batch {param.nbatch} (bucket {key}): lstm_scan launched "
+              f"{n} times, not {self.layers}")
+        if self.training:
+            grad = self.mod._curr_module._exec.grad_dict["rnn_parameters"]
+            total = grad._data.abs().sum().item()
+            check(np.isfinite(total) and total > 0, f"lstm {self.phase} "
+                  f"batch {param.nbatch}: rnn_parameters gradient {total}")
+        now = time.perf_counter()
+        self.batch_ms.append((now - self.t) * 1e3)
+        self.keys.append(key)
+        self.t = now
+
+
+def lstm_breakdown(torch, mt, ck, mod, data, key, Hd, B, reps=3):
+    """Host-clock split (each part ends in a synchronize; medians of
+    ``reps``) of one training batch of bucket ``key`` after training:
+    forward, backward, update, metric; and the remat backward of one
+    layer alone (the plain recurrence's forward and backward under
+    autograd at (key, B, Hd))."""
+    data.reset()
+    batch = next(b for b in data if b.bucket_key == key)
+    parts = {"forward": [], "backward": [], "update": [], "metric": []}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        parts[name].append((time.perf_counter() - t) * 1e3)
+
+    m = mt.metric.Perplexity(ignore_label=0)
+    for _ in range(reps):
+        timed("forward", lambda: mod.forward(batch, is_train=True))
+        timed("backward", mod.backward)
+        timed("update", mod.update)
+        timed("metric", lambda: mod.update_metric(m, batch.label))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(s, generator=g, device="cuda") * 0.1 for s in
+          ((key, B, 4 * Hd), (B, Hd), (B, Hd), (Hd, 4 * Hd))]
+    cots = [torch.randn(s, generator=g, device="cuda") for s in
+            ((key, B, Hd), (B, Hd), (B, Hd))]
+    remat = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        ins = [x.clone().requires_grad_() for x in xs]
+        torch.autograd.grad(ck.lstm_scan_plain(*ins), ins, cots)
+        torch.cuda.synchronize()
+        remat.append((time.perf_counter() - t) * 1e3)
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    out.update(bucket=key, remat_backward_one_layer=float(np.median(remat)))
+    return out
+
+
+def lstm_path(torch, mt, ck):
+    """Train the LSTM-PTB model through ``BucketingModule.fit``, then
+    score a held-out corpus; launch counts reset just before each phase
+    and read just after."""
+    import logging
+
+    cfg = LSTM_PTB
+    L, Hd, B = cfg["num_layers"], cfg["num_hidden"], cfg["batch"]
+    buckets = list(cfg["buckets"])
+    train = BucketSentenceIter(
+        mt, synthetic_corpus(LSTM_TRAIN_SENTENCES, cfg["vocab"], buckets[-1],
+                             seed=1), B, buckets, seed=1)
+    held_out = BucketSentenceIter(
+        mt, synthetic_corpus(LSTM_HELD_OUT_SENTENCES, cfg["vocab"],
+                             buckets[-1], seed=2), B, buckets, seed=2)
+    check(sorted(train._data) == buckets and sorted(held_out._data) ==
+          buckets, "a bucket holds fewer sentences than one batch")
+    mod = mt.mod.BucketingModule(
+        lstm_sym_gen(mt, cfg["vocab"], cfg["num_embed"], Hd, L),
+        default_bucket_key=train.default_bucket_key, context=mt.gpu(0),
+        logger=logging.getLogger("lstm_ptb"))
+    metric = mt.metric.Perplexity(ignore_label=0)
+    zeros = mt.nd.zeros((L, B, Hd), ctx=mt.gpu(0))
+    checks = BatchChecks(torch, ck, mod, L, "training", True)
+    curve, epoch_s = [], []
+    t_epoch = [time.perf_counter()]
+
+    def epoch_end(epoch, *_):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        epoch_s.append(now - t_epoch[0])
+        curve.append(metric.get()[1])
+        t_epoch[0] = now
+
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    mt.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()  # counts from here on: LSTM training
+    t_epoch[0] = checks.t = time.perf_counter()
+    mod.fit(train, num_epoch=LSTM_EPOCHS, optimizer="adam",
+            optimizer_params={"learning_rate": 0.01}, eval_metric=metric,
+            initializer=mt.initializer.Uniform(0.08),
+            arg_params={"rnn_state": zeros, "rnn_state_cell": zeros.copy()},
+            allow_missing=True,
+            batch_end_callback=[mt.callback.Speedometer(B, 20,
+                                                        auto_reset=False),
+                                checks],
+            epoch_end_callback=epoch_end)
+    train_launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = len(checks.batch_ms) // LSTM_EPOCHS
+    check(set(checks.keys) == set(buckets) == set(mod._buckets),
+          f"buckets seen {sorted(set(checks.keys))}, bound "
+          f"{sorted(mod._buckets)}")
+    default = mod._buckets[train.default_bucket_key]
+    for key, m in mod._buckets.items():
+        for p in default._param_names:
+            check(m._exec.arg_dict[p] is default._exec.arg_dict[p],
+                  f"bucket {key} does not share parameter {p}")
+    check(all(np.isfinite(curve)) and curve[1] < curve[0],
+          f"training perplexity did not fall: {curve}")
+
+    breakdown = lstm_breakdown(torch, mt, ck, mod, train, buckets[-1], Hd, B)
+    scoring = BatchChecks(torch, ck, mod, L, "scoring", False)
+    ck.reset_launch_counts()  # counts from here on: LSTM scoring
+    scoring.t = time.perf_counter()
+    (_, held_ppl), = mod.score(held_out, mt.metric.Perplexity(ignore_label=0),
+                               batch_end_callback=scoring)
+    score_launches = dict(ck.LAUNCHES)
+    check(np.isfinite(held_ppl) and held_ppl < curve[0],
+          f"held-out perplexity {held_ppl} (training {curve})")
+    check(score_launches["lstm_scan"] == L * len(scoring.batch_ms) > 0,
+          f"lstm_scan launched {score_launches['lstm_scan']} times in "
+          f"scoring")
+    launches = {k: train_launches[k] + score_launches[k] for k in
+                train_launches}
+    print(f"LSTM-PTB perplexity curve {curve}, held-out {held_ppl}")
+    return {"config": cfg, "epochs": LSTM_EPOCHS,
+            "train_sentences": LSTM_TRAIN_SENTENCES,
+            "batches_per_epoch": n_batches,
+            "samples_per_s_per_epoch": [n_batches * B / t for t in epoch_s],
+            "epoch_s": epoch_s,
+            "batch_p50_ms": float(np.median(checks.batch_ms)),
+            "batch_p50_ms_by_bucket": {
+                b: float(np.median([t for t, k in zip(checks.batch_ms,
+                                                      checks.keys)
+                                    if k == b])) for b in buckets},
+            "batch_breakdown_ms": breakdown,
+            "train_perplexity": curve, "held_out_perplexity": held_ppl,
+            "held_out_batches": len(scoring.batch_ms),
+            "score_batch_p50_ms": float(np.median(scoring.batch_ms)),
+            "lstm_scan_launches": {"training": train_launches["lstm_scan"],
+                                   "scoring": score_launches["lstm_scan"]},
+            "peak_memory_bytes": int(peak), "launches": launches}
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -772,6 +1105,9 @@ def main():
             for c in check_backward(torch, ck, F, B, T, dtype):
                 checks.append(c)
                 print(json.dumps({"check": c}))
+    for T, B, Hd in ((60, 32, 200), (10, 32, 200), (7, 3, 37)):
+        checks.append(check_lstm(torch, ck, T, B, Hd))
+        print(json.dumps({"check": checks[-1]}))
     torch.cuda.empty_cache()
 
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
@@ -785,9 +1121,13 @@ def main():
     torch.cuda.empty_cache()
     train = train_path(torch, mt, ck)
     print(json.dumps({"train_path": train}))
+    torch.cuda.empty_cache()
+    lstm = lstm_path(torch, mt, ck)
+    print(json.dumps({"lstm_path": lstm}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
-    # it; launches are summed over the serving runs and the training run
+    # it; launches are summed over the serving runs, the training run and
+    # the LSTM-PTB run
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -813,8 +1153,12 @@ def main():
                 paged + "verify.cu",
                 "mxnet_tpu/ops/attention.py:894 (paged_verify_attention_q, "
                 "a lax function: no Pallas kernel exists)",
-                f"B=16 W={SPEC_K + 1} ", "float32/int8")}
-    all_runs = [res, *runs.values(), train]
+                f"B=16 W={SPEC_K + 1} ", "float32/int8"),
+            "lstm_scan": (
+                "mxnet_tpu_torch/csrc/lstm_scan.cu",
+                "mxnet_tpu/ops/pallas_kernels.py:94", "T=60 B=32 H=200",
+                "float32")}
+    all_runs = [res, *runs.values(), train, lstm]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name

@@ -3,10 +3,12 @@
 A second package beside the JAX reference, written for an NVIDIA H100.
 It serves the ``transformer_lm`` family through :class:`DecodeEngine`
 (fp32/bf16 or int8/fp8 KV pages, n-gram speculative decoding) and
-trains it through ``mod.Module`` over the ``transformer_lm`` symbol, on
-hand-written CUDA kernels (packed-QKV flash attention forward and
-backward, paged decode attention over raw and quantized pages, the
-speculative verify window; ``csrc/``).  It imports ``torch``,
+trains it through ``mod.Module`` over the ``transformer_lm`` symbol, and
+trains and scores the LSTM language model through
+``mod.BucketingModule`` over ``sym.RNN``, on hand-written CUDA kernels
+(packed-QKV flash attention forward and backward, paged decode
+attention over raw and quantized pages, the speculative verify window,
+the LSTM recurrence; ``csrc/``).  It imports ``torch``,
 never ``jax`` and nothing of ``mxnet_tpu``.
 
 Entry points run on the card (``gpu(0)``) unless the caller passes
@@ -24,7 +26,7 @@ from .attribute import AttrScope
 from . import symbol
 from . import symbol as sym
 from .symbol import Group, Variable
-from . import executor, initializer, io, metric, optimizer
+from . import callback, executor, initializer, io, metric, optimizer
 from . import module
 from . import module as mod
 from . import models
@@ -33,6 +35,6 @@ from .serving import DecodeEngine, EngineClosedError
 
 __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
            "cpu", "gpu", "current_context", "params_from_numpy",
-           "params_to_numpy", "nd", "sym", "mod", "io", "metric",
+           "params_to_numpy", "nd", "sym", "mod", "io", "metric", "callback",
            "optimizer", "initializer", "random", "models", "speculative",
            "Variable", "Group", "AttrScope"]

@@ -20,7 +20,7 @@ import torch
 
 from .base import MXNetError, not_ported
 from .context import Context
-from .ndarray import NDArray, zeros as nd_zeros
+from .ndarray import NDArray, torch_dtype, zeros as nd_zeros
 from .ops.registry import OpContext, get_op
 
 __all__ = ["Executor", "simple_bind", "build_graph_fn"]
@@ -211,9 +211,12 @@ class Executor:
 
 
 def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
-                **kwargs) -> Executor:
+                shared_exec=None, **kwargs) -> Executor:
     """Allocate every array from the inferred shapes and types on
-    ``ctx`` and bind."""
+    ``ctx`` and bind.  With ``shared_exec``, an argument, gradient or aux
+    array whose name, shape and dtype match the donor's is the donor's
+    NDArray object itself (one storage for the parameters of bucketed
+    executors); the others are fresh."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
     if arg_shapes is None:
         raise MXNetError(f"cannot infer shapes from {kwargs}")
@@ -221,11 +224,21 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
     arg_names = symbol.list_arguments()
     ctx = ctx if isinstance(ctx, Context) else Context(ctx)
     req = _req_dict(grad_req, arg_names)
+
+    def alloc(pool, name, shape, dt):
+        old = None if shared_exec is None \
+            else getattr(shared_exec, pool).get(name)
+        if old is not None and old.shape == tuple(shape) \
+                and old._data.dtype == torch_dtype(dt):
+            return old
+        return nd_zeros(shape, ctx, dt)
+
     args, args_grad = {}, {}
     for name, shape, dt in zip(arg_names, arg_shapes, arg_types):
-        args[name] = nd_zeros(shape, ctx, dt)
+        args[name] = alloc("arg_dict", name, shape, dt)
         if req.get(name, "null") != "null":
-            args_grad[name] = nd_zeros(shape, ctx, dt)
-    aux = {name: nd_zeros(shape, ctx, dt) for name, shape, dt in
-           zip(symbol.list_auxiliary_states(), aux_shapes, aux_types)}
+            args_grad[name] = alloc("grad_dict", name, shape, dt)
+    aux = {name: alloc("aux_dict", name, shape, dt)
+           for name, shape, dt in zip(symbol.list_auxiliary_states(),
+                                      aux_shapes, aux_types)}
     return Executor(symbol, ctx, args, args_grad or None, req, aux or None)

@@ -1,7 +1,10 @@
 """Weight initializers.
 
-Counterpart of ``mxnet_tpu/initializer.py:35-106``: name dispatch (bias
-and beta → 0, gamma → 1, weight → the initializer's own rule), ``Zero``,
+Counterpart of ``mxnet_tpu/initializer.py:35-106``: name dispatch
+(``upsampling*`` → bilinear, bias and beta → 0, gamma → 1, weight and
+the fused RNN's packed ``parameters`` → the initializer's own rule,
+``moving_mean``/``running_mean``/``moving_inv_var``/``moving_avg`` → 0,
+``moving_var``/``running_var`` → 1, any other name raises), ``Zero``,
 ``One``, ``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.  A
 variable whose symbol carries an ``init`` attr (``Variable(...,
 init=...)``, e.g. ``pos_embed_weight``'s ``["zero", {}]``) is
@@ -72,22 +75,45 @@ class Initializer:
         own = getattr(name, "attrs", {}).get("__init__")
         if own:
             create(own)._init_weight(name, arr)
+        elif name.startswith("upsampling"):
+            self._init_bilinear(name, arr)
         elif name.endswith("bias") or name.endswith("beta"):
             self._init_zero(name, arr)
         elif name.endswith("gamma"):
             self._init_one(name, arr)
-        elif name.endswith("weight"):
+        elif name.endswith("weight") or name.endswith("parameters"):
+            # "parameters": the fused RNN's packed vector, weight-like
             self._init_weight(name, arr)
+        elif name.endswith(("moving_mean", "running_mean", "moving_inv_var",
+                            "moving_avg")):
+            self._init_zero(name, arr)
+        elif name.endswith(("moving_var", "running_var")):
+            self._init_one(name, arr)
         else:
-            raise MXNetError(
-                f"Unknown initialization pattern for {name!r}. Default "
-                "initialization is limited to weight/bias/gamma/beta names")
+            self._init_default(name, arr)
+
+    def _init_bilinear(self, _, arr):
+        shape = arr.shape
+        weight = np.zeros(int(np.prod(shape)), dtype="float32")
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
 
     def _init_zero(self, _, arr):
         arr[:] = 0.0
 
     def _init_one(self, _, arr):
         arr[:] = 1.0
+
+    def _init_default(self, name, _):
+        raise MXNetError(
+            f"Unknown initialization pattern for {name!r}. Default "
+            "initialization is limited to weight/bias/gamma/beta/"
+            "parameters/moving_* names")
 
     def _init_weight(self, name, arr):
         raise NotImplementedError("must override _init_weight")

@@ -9,6 +9,7 @@ Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``, ``Accuracy``
 from __future__ import annotations
 
 import numpy
+import torch
 
 from .base import Registry, not_ported
 from .ndarray import NDArray
@@ -99,15 +100,58 @@ class Accuracy(EvalMetric):
 
 class Perplexity(EvalMetric):
     """exp of the mean negative log-probability of the labels, over
-    softmax outputs; ``ignore_label`` rows are left out."""
+    softmax outputs; ``ignore_label`` rows are left out.
+
+    One (labels, preds) pair with preds an NDArray is scored where preds
+    lie, the label moved there (``mxnet_tpu/metric.py:290-343``): the
+    softmax output never crosses to the host, and the weighted sums are
+    read back once, by ``get``."""
 
     def __init__(self, ignore_label=None, axis=-1):
         super().__init__("Perplexity")
         self.ignore_label = ignore_label
         self.axis = axis
+        self._dev = None  # (perplexity * count, count) summed where preds lie
+
+    def reset(self):
+        super().reset()
+        self._dev = None
+
+    def get(self):
+        if self._dev is not None:
+            ppl, num = self._dev
+            self.sum_metric += float(ppl)
+            self.num_inst += int(num)
+            self._dev = None
+        return super().get()
+
+    def _device_update(self, label, pred):
+        p = pred._data
+        p = torch.movedim(p, self.axis, -1).reshape(-1, p.shape[self.axis])
+        lab = label._data if isinstance(label, NDArray) \
+            else torch.as_tensor(numpy.asarray(label))
+        lab = lab.to(p.device).reshape(-1).long()
+        probs = p.gather(1, lab[:, None])[:, 0].float()
+        num = torch.tensor(lab.shape[0], device=p.device)
+        if self.ignore_label is not None:
+            ignore = lab == int(self.ignore_label)
+            probs = torch.where(ignore, 1.0, probs)
+            num = num - ignore.sum()
+        loss = -torch.log(torch.clamp(probs, min=1e-10)).sum()
+        # an all-ignored batch adds nothing, as the host path's "if num"
+        ppl = torch.where(num > 0, torch.exp(loss / num.clamp(min=1)) * num,
+                          0.0)
+        self._dev = (ppl, num) if self._dev is None \
+            else (self._dev[0] + ppl, self._dev[1] + num)
 
     def update(self, labels, preds):
         check_label_shapes(labels, preds)
+        if len(preds) == 1 and isinstance(preds[0], NDArray) \
+                and preds[0].ndim >= 2 \
+                and preds[0].size // preds[0].shape[self.axis] \
+                == int(numpy.prod(numpy.shape(labels[0]))):
+            self._device_update(labels[0], preds[0])
+            return
         loss = 0.0
         num = 0
         for label, pred in zip(labels, preds):

@@ -1,19 +1,20 @@
 """Module — a Symbol bound on one device, with parameters and an
 optimizer.
 
-Counterpart of ``mxnet_tpu/module/module.py``, single-device: ``bind``,
+Counterpart of ``mxnet_tpu/module/module.py``, single-device: ``bind``
+(with ``shared_module=``, the parameter sharing of bucketed modules),
 ``init_params`` (with ``arg_params=``), ``set_params``/``get_params``,
 ``init_optimizer`` (default ``rescale_grad = 1/batch_size``,
-``:542-610``), ``forward``, ``backward``, ``update``, ``get_outputs``,
-``update_metric``.
+``:542-610``), ``borrow_optimizer``, ``forward``, ``backward``,
+``update``, ``get_outputs``, ``update_metric``.
 
 The context defaults to ``gpu(0)`` and is resolved at construction, so
 a host without CUDA raises there unless the caller passes ``cpu()``.
 Where the JAX package fuses forward, backward and the optimizer into
 one donated XLA program, the port runs the executor's autograd pass and
 then updates each parameter in place.  Multi-device contexts, kvstores
-other than ``None``/``'local'``, mesh plans, checkpoints, shared
-modules and monitors are not ported yet and raise.
+other than ``None``/``'local'``, mesh plans, checkpoints and monitors
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -106,6 +107,8 @@ class Module(BaseModule):
             arr = self._exec.arg_dict[name]
             if arg_params is not None and name in arg_params:
                 arr[:] = arg_params[name]
+            elif allow_missing and initializer is None:
+                raise MXNetError(f"cannot init parameter {name}")
             elif initializer is None:
                 raise MXNetError(f"parameter {name} missing and no "
                                  f"initializer given")
@@ -128,9 +131,9 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Allocate every array on the module's device from the shapes
-        (DataDesc or (name, shape) entries)."""
-        if shared_module is not None:
-            raise not_ported("bind(shared_module=...)")
+        (DataDesc or (name, shape) entries).  With ``shared_module`` the
+        parameters and their gradients are that module's NDArray objects
+        (the same storage), which every parameter must match."""
         if force_rebind:
             self._exec = None
             self.binded = False
@@ -155,12 +158,33 @@ class Module(BaseModule):
                 req[name] = "null"
             else:
                 req[name] = grad_req
+        shared_exec = shared_module._exec if shared_module is not None \
+            else None
         self._exec = self._symbol.simple_bind(self._context[0],
-                                              grad_req=req, **shape_kwargs)
+                                              grad_req=req,
+                                              shared_exec=shared_exec,
+                                              **shape_kwargs)
         _, out_shapes, _ = self._symbol.infer_shape(**shape_kwargs)
         self._inferred_output_shapes = list(zip(self._output_names,
                                                 out_shapes))
         self.binded = True
+        if shared_module is not None and shared_module.params_initialized:
+            # a parameter the donor lacks, or holds in another shape,
+            # would train apart from the shared storage: refuse it
+            for n in self._param_names:
+                arr = self._exec.arg_dict[n]
+                donor = shared_exec.arg_dict.get(n)
+                if donor is None:
+                    raise MXNetError(
+                        f"shared_module is missing parameter {n!r}; "
+                        "parameters must be identical across shared modules")
+                if arr is not donor:
+                    raise MXNetError(
+                        f"parameter {n!r} ({arr.shape}/{arr.dtype}) does not "
+                        f"match the shared module's ({donor.shape}/"
+                        f"{donor.dtype}); bucket-specific parameter shapes "
+                        "are not supported")
+            self.params_initialized = True
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
@@ -186,6 +210,22 @@ class Module(BaseModule):
                              f"got {optimizer!r}")
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer and updater (one per
+        BucketingModule): the updater keys its state by parameter index,
+        so both modules must list the same parameters in the same
+        order."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("borrow_optimizer: the shared module has no "
+                             "optimizer yet")
+        if self._param_names != shared_module._param_names:
+            raise MXNetError(
+                f"borrow_optimizer: parameters {self._param_names} differ "
+                f"from the shared module's {shared_module._param_names}")
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
         self.optimizer_initialized = True
 
     # -- computation -------------------------------------------------------------

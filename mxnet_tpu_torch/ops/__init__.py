@@ -2,7 +2,7 @@
 the package registers every op the port carries."""
 
 from . import registry
-from . import attention, cuda_kernels, elemwise, indexing, matrix, nn
+from . import attention, cuda_kernels, elemwise, indexing, matrix, nn, rnn
 
 __all__ = ["registry", "attention", "cuda_kernels", "elemwise", "indexing",
-           "matrix", "nn"]
+           "matrix", "nn", "rnn"]

@@ -17,15 +17,18 @@ the serving and training paths:
   mask of a speculative verify window, over raw pages, and its quantized
   instantiation ``paged_attention_verify_quant``
   (``csrc/paged_attention_verify.cu``, replacing
-  ``paged_attention_verify`` and the lax ``paged_verify_attention_q``).
+  ``paged_attention_verify`` and the lax ``paged_verify_attention_q``);
+* ``lstm_scan`` — the float32 LSTM recurrence over a whole sequence in
+  one launch (``csrc/lstm_scan.cu``, replacing ``_lstm_pallas_fwd``).
 
 The three paged kernels share one body (``csrc/paged_attention.cuh``):
 verify row w equals the decode kernel at ``lengths = start + 1 + w`` bit
 for bit, raw and quantized alike.
 
 ``ops/attention.py`` wraps forward and backward in one
-``torch.autograd.Function``; the forward wrapper here refuses an input
-that requires a gradient, since the kernel's output carries none.
+``torch.autograd.Function``, and ``ops/rnn.py`` wraps ``lstm_scan``
+with its remat backward; the forward wrappers here refuse an input that
+requires a gradient, since the kernel's output carries none.
 
 Every wrapper follows one rule: a tensor on the CPU goes to the plain
 PyTorch version beside it; a tensor on a CUDA device launches the
@@ -54,7 +57,7 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "paged_attention_decode_quant_plain", "gather_pages",
            "gather_dequant",
            "paged_attention_verify", "paged_attention_verify_plain",
-           "LAUNCHES", "reset_launch_counts", "SUPPORTED_HEAD_DIMS"]
+           "lstm_scan", "lstm_scan_plain", "LSTM_MAX_HIDDEN", "LAUNCHES", "reset_launch_counts", "SUPPORTED_HEAD_DIMS"]
 
 LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "flash_mha_packed_bwd_dq": 0,
@@ -62,10 +65,13 @@ LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "paged_attention_decode": 0,
                             "paged_attention_decode_quant": 0,
                             "paged_attention_verify": 0,
-                            "paged_attention_verify_quant": 0}
+                            "paged_attention_verify_quant": 0,
+                            "lstm_scan": 0}
 
 # head widths the kernels are instantiated for (csrc/*.cu)
 SUPPORTED_HEAD_DIMS = (64,)
+# the largest LSTM hidden size lstm_scan takes: one thread per hidden unit
+LSTM_MAX_HIDDEN = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # quantized page codes of the kernels' kv_code argument
 _QUANT_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -603,3 +609,71 @@ def paged_attention_verify(q: torch.Tensor, k_pool: torch.Tensor,
     _check_launch(err, name)
     LAUNCHES[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# lstm_scan
+# ---------------------------------------------------------------------------
+
+
+def lstm_scan_plain(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                    ut: torch.Tensor):
+    """Plain version: the step-by-step recurrence with ``ops/rnn.py``'s
+    own LSTM cell (so the forward and the remat backward cannot drift
+    apart), ``pre = xw[t] + h @ ut``.  Differentiable."""
+    from .rnn import _cell_step, _scan
+
+    cell = _cell_step("lstm", h0.shape[-1])
+    (hT, cT), y = _scan(lambda carry, x_t: cell(carry, x_t + carry[0] @ ut),
+                        (h0, c0), xw, reverse=False)
+    return y, hT, cT
+
+
+def lstm_scan(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+              ut: torch.Tensor):
+    """LSTM recurrence: xw (T, B, 4H) the input projection with both
+    biases, gates [i | f | g | o]; h0, c0 (B, H); ut (H, 4H) the
+    recurrent weight transposed → (y (T, B, H), hT, cT), float32.
+
+    No gradient flows through this call: an input that requires one
+    raises.  ``ops.rnn._LSTMScanFn`` is the differentiable form."""
+    if xw.ndim != 3 or h0.ndim != 2 or c0.ndim != 2 or ut.ndim != 2:
+        raise MXNetError(
+            f"lstm_scan wants xw (T, B, 4H), h0/c0 (B, H), ut (H, 4H); got "
+            f"{tuple(xw.shape)}, {tuple(h0.shape)}, {tuple(c0.shape)}, "
+            f"{tuple(ut.shape)}")
+    T, B, G = xw.shape
+    H = h0.shape[1]
+    if G != 4 * H or h0.shape != (B, H) or c0.shape != (B, H) \
+            or ut.shape != (H, G):
+        raise MXNetError(
+            f"lstm_scan: shapes disagree: xw {tuple(xw.shape)}, h0 "
+            f"{tuple(h0.shape)}, c0 {tuple(c0.shape)}, ut {tuple(ut.shape)}")
+    tensors = (xw, h0, c0, ut)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise MXNetError(
+            "lstm_scan: an input requires a gradient, which this call would "
+            "drop; use the RNN op, whose autograd Function rematerializes "
+            "the backward")
+    if not _route("lstm_scan", *tensors):
+        return lstm_scan_plain(xw, h0, c0, ut)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise MXNetError(f"lstm_scan: dtypes {[t.dtype for t in tensors]} "
+                         f"(the kernel takes float32)")
+    if H > LSTM_MAX_HIDDEN:
+        raise MXNetError(f"lstm_scan: hidden size {H} (the kernel takes up "
+                         f"to {LSTM_MAX_HIDDEN})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise MXNetError("lstm_scan: xw, h0, c0 and ut must be contiguous")
+    fn = _load("lstm_scan", "lstm_scan",
+               [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp])
+    y = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    hT = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    cT = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xw.data_ptr(), h0.data_ptr(), c0.data_ptr(), ut.data_ptr(),
+                 y.data_ptr(), hT.data_ptr(), cT.data_ptr(), T, B, H, stream)
+    _check_launch(err, "lstm_scan")
+    LAUNCHES["lstm_scan"] += 1
+    return y, hT, cT

@@ -270,11 +270,13 @@ class Symbol:
         return arg_types, out_types, aux_types
 
     # -- binding ---------------------------------------------------------------
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    shared_exec=None, **kwargs):
         from .executor import simple_bind
 
         return simple_bind(self, ctx, grad_req=grad_req,
-                           type_dict=type_dict, **kwargs)
+                           type_dict=type_dict, shared_exec=shared_exec,
+                           **kwargs)
 
 
 # ---------------------------------------------------------------------------

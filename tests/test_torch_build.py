@@ -45,6 +45,7 @@ def test_build_all_kernels_once_with_sm90a_flags(fake):
     assert "flash_mha_packed_bwd" in _build.SOURCES  # the backward kernels
     for name in ("paged_attention_decode_quant", "paged_attention_verify"):
         assert name in _build.SOURCES  # quantized decode and verify
+    assert "lstm_scan" in _build.SOURCES  # the LSTM recurrence
     first = _build.build()
     assert set(first) == set(_build.SOURCES)
     assert all(t > 0 for t in first.values())
@@ -98,6 +99,25 @@ def test_failed_compile_raises_with_compiler_output(fake):
     left = [p.name for p in _build.BUILD_DIR.iterdir()]
     assert not [n for n in left if n.endswith((".tmp", ".log"))]
     assert not [n for n in left if n.startswith("libflash_mha_packed-")]
+
+
+def test_lstm_scan_source_exports_the_wrappers_entry_point(fake):
+    """csrc/lstm_scan.cu stands alone (no shared header), takes float32
+    and exports the C entry point ``ops.cuda_kernels.lstm_scan`` loads;
+    editing it rebuilds it alone."""
+    _, csrc = fake
+    src = (csrc / "lstm_scan.cu").read_text()
+    assert 'extern "C" int lstm_scan(' in src and ".cuh" not in src
+    assert "kMaxHidden = 1024" in src
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    assert ck.LSTM_MAX_HIDDEN == 1024 and "lstm_scan" in ck.LAUNCHES
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    (csrc / "lstm_scan.cu").write_text(src + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == \
+        ["lstm_scan"]
+    assert _build.build(["lstm_scan"])["lstm_scan"] > 0
 
 
 def test_unknown_source_is_refused(fake):
