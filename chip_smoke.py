@@ -60,7 +60,29 @@
    parameter objects; ``rnn_parameters``' gradient must be finite and
    non-zero every batch; the second epoch's perplexity must be below the
    first's.
-6. Prints ``{"kernels": [...]}`` (eight kernels, launches summed over
+6. Greedy NMS (``nms``, fp32) at (B, A) = (8, 192), the toy SSD of
+   ``examples/ssd.py``'s detection batch, and (32, 8732), SSD300's
+   detection batch, with ``force_suppress`` off and on, over
+   score-sorted rows made on the card (20 classes, boxes clustered so
+   that most rows are suppressed): the kernel must ``torch.equal`` its
+   plain version, and so at A = 12,000, where the boxes no longer fit
+   in shared memory.  No PyTorch call computes greedy NMS, so it has no
+   library time.
+7. SSD300: upstream MXNet's ``example/ssd`` SSD300 over VGG16-reduced
+   (``models/ssd.py``'s ``ssd300_symbol``) at its published widths:
+   300x300 images, 8,732 anchors, 21 classes (PASCAL VOC's 20 +
+   background), batch 32, SGD as upstream's ``train.py`` (lr 0.002,
+   momentum 0.9, wd 5e-4), ``Xavier()``, trained through ``mod.Module``
+   on ``gpu(0)`` with ``forward``/``backward``/``update`` over seeded
+   ``synthetic_boxes`` (VOC images are not in the repo).  Every output
+   must be finite, the masked class cross-entropy (from ``cls_prob``
+   and the ``cls_label`` output) and the localization loss of the last
+   epoch below the first's, and training must launch ``nms`` zero
+   times.  Then the detection symbol in a second ``Module``, filled by
+   ``set_params(*mod.get_params())``, detects every batch: one ``nms``
+   launch a forward, scores sorted, and rows that ``torch.equal``
+   ``nms_plain`` of the same rows before NMS.
+8. Prints ``{"kernels": [...]}`` (nine kernels, launches summed over
    the runs), the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
@@ -92,6 +114,15 @@ LSTM_PTB = dict(vocab=10000, num_embed=200, num_hidden=200, num_layers=2,
                 batch=32, buckets=(10, 20, 30, 40, 50, 60))
 LSTM_EPOCHS, LSTM_TRAIN_SENTENCES, LSTM_HELD_OUT_SENTENCES = 2, 1800, 480
 KV_TORCH = {"int8": "int8", "fp8": "float8_e4m3fn"}
+# nms: SSD300's detection batch (8,732 default boxes; Liu et al., ECCV
+# 2016) beside the toy SSD's; 20 classes and the paper's threshold 0.45
+NMS_SHAPES = ((8, 192), (32, 8732))
+NMS_CLASSES, NMS_THRESHOLD, NMS_FLOPS_PER_PAIR = 20, 0.45, 20
+# SSD300 at upstream example/ssd's train.py settings (batch 32, SGD lr
+# 0.002, momentum 0.9, wd 5e-4, rescale_grad 1 on one device); the
+# synthetic data set and the epochs cut to the run's time
+SSD300 = dict(images=256, batch=32, epochs=6, lr=0.002, momentum=0.9,
+              wd=0.0005)
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
@@ -270,6 +301,93 @@ def check_lstm(torch, ck, T, B, Hd):
         "library_ms": time_ms(torch, library),
         "library_max_abs_err": lib_err,
         "bound_ms": b_ms, "bound_by": b_by}
+
+
+def nms_rows(torch, B, A, seed):
+    """Score-sorted detection rows (B, A, 6) made on the card: scores
+    uniform, sorted descending; classes 0-19, -1 below score 0.01; boxes
+    0.10-0.20 wide around A/64 cluster centres, jittered by 0.02, so
+    that most rows of a class in a cluster overlap the first."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    score = torch.rand((B, A), generator=g, device=dev).sort(
+        dim=1, descending=True).values
+    cls = torch.randint(0, NMS_CLASSES, (B, A), generator=g,
+                        device=dev).float()
+    cls[score < 0.01] = -1.0
+    k = max(1, A // 64)
+    centres = torch.rand((B, k, 2), generator=g, device=dev) * 0.7 + 0.15
+    pick = torch.randint(0, k, (B, A), generator=g, device=dev)
+    c = torch.gather(centres, 1, pick[..., None].expand(B, A, 2)) \
+        + (torch.rand((B, A, 2), generator=g, device=dev) - 0.5) * 0.04
+    half = (torch.rand((B, A, 2), generator=g, device=dev) * 0.1 + 0.1) / 2
+    return torch.cat([cls[..., None], score[..., None], c - half, c + half],
+                     dim=-1).contiguous()
+
+
+def nms_tested_pairs(torch, rows, out, thr, force):
+    """The (i, j) pairs greedy NMS must test on these rows: for each row
+    j live before NMS, every kept row i < j of its class (any class with
+    ``force``) up to the first that suppresses it.  One image at a time
+    on the card (an A x A IoU matrix)."""
+    from mxnet_tpu_torch.ops.detection import _iou_matrix
+
+    total = 0
+    for r, o in zip(rows, out):
+        A = r.shape[0]
+        iou = _iou_matrix(r[:, 2:6], r[:, 2:6])
+        idx = torch.arange(A, device=r.device)
+        kept = o[:, 0] >= 0
+        tested = kept[:, None] & (idx[:, None] < idx[None, :]) \
+            & (r[None, :, 0] >= 0)  # [i, j]
+        if not force:
+            tested &= r[:, None, 0] == r[None, :, 0]
+        kills = tested & (iou >= thr)
+        first = torch.where(kills.any(0), kills.float().argmax(0), A)
+        total += int((tested & (idx[:, None] <= first[None, :])).sum())
+        del iou, tested, kills
+    return total
+
+
+def check_nms(torch, ck, B, A, force, seed):
+    """B7 against its plain version, bit for bit (``torch.equal``)."""
+    rows = nms_rows(torch, B, A, seed)
+    got = ck.nms(rows, NMS_THRESHOLD, force)
+    ref = ck.nms_plain(rows, NMS_THRESHOLD, force)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"nms B={B} A={A} force={force}: differs "
+          f"from nms_plain in {int((got != ref).sum())} entries")
+    check(torch.equal(got[..., 1:], rows[..., 1:]), "nms changed a column "
+          "other than the class")
+    live = rows[..., 0] >= 0
+    suppressed = int((live & (got[..., 0] < 0)).sum())
+    pairs = nms_tested_pairs(torch, rows, got, NMS_THRESHOLD, force)
+    nbytes = 2 * rows.numel() * 4  # rows read once, written once
+    b_ms, b_by = bound(nbytes, NMS_FLOPS_PER_PAIR * pairs, "float32")
+    all_ms, _ = bound(nbytes, NMS_FLOPS_PER_PAIR * B * A * A, "float32")
+    return {
+        "kernel": "nms", "shape": f"B={B} A={A} force_suppress={force}",
+        "dtype": "float32", "max_abs_err": 0.0, "bitwise": True,
+        "suppressed_share": suppressed / max(1, int(live.sum())),
+        "rounds": A, "live_rounds_max": int((got[..., 0] >= 0).sum(1).max()),
+        "tested_pairs": pairs,
+        "ms": time_ms(torch, lambda: ck.nms(rows, NMS_THRESHOLD, force)),
+        "plain_ms": time_ms(torch, lambda: ck.nms_plain(
+            rows, NMS_THRESHOLD, force), reps=3, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms_all_pairs": all_ms}
+
+
+def check_nms_boxes_in_device_memory(torch, ck):
+    """At A = 12,000 an image's five columns (240 KB) exceed a block's
+    shared memory, so the kernel keeps only the class column there and
+    reads the boxes from device memory: it still equals the plain
+    version."""
+    big = nms_rows(torch, 1, 12000, 12)
+    check(torch.equal(ck.nms(big, NMS_THRESHOLD, True),
+                      ck.nms_plain(big, NMS_THRESHOLD, True)),
+          "nms at A=12000 (boxes in device memory) differs")
+    torch.cuda.synchronize()
 
 
 def _ragged_tables(B, MB, rng, lengths=None):
@@ -1023,6 +1141,129 @@ def lstm_path(torch, mt, ck):
             "peak_memory_bytes": int(peak), "launches": launches}
 
 
+def ssd_path(torch, mt, ck):
+    """Train SSD300 through ``Module`` at upstream's batch and optimizer
+    settings, then detect through a second module filled by
+    ``set_params``; launch counts reset just before each phase.  The
+    first epoch is the warm-up: samples/s counts the later ones' steps
+    over their wall time (gates included)."""
+    from mxnet_tpu_torch.models.ssd import ssd300_symbol, synthetic_boxes
+    from mxnet_tpu_torch.ops.detection import _iou_matrix
+
+    train_sym, det_sym = ssd300_symbol()
+    X, Y = synthetic_boxes(SSD300["images"], seed=0)
+    np.random.seed(0)  # NDArrayIter's shuffle
+    mt.random.seed(0)  # Xavier's draws
+    it = mt.io.NDArrayIter(X, Y, batch_size=SSD300["batch"], shuffle=True,
+                           label_name="label", last_batch_handle="discard")
+    dev = mt.gpu(0)
+    mod = mt.mod.Module(train_sym, label_names=("label",), context=dev)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=True)
+    mod.init_params(mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": SSD300["lr"], "momentum": SSD300["momentum"],
+        "wd": SSD300["wd"], "rescale_grad": 1.0})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()  # counts from here on: SSD300 training
+    ce, loc, step_ms = [], [], []
+    for epoch in range(SSD300["epochs"]):
+        if epoch == 1:
+            t_window = time.perf_counter()
+        it.reset()
+        ce_e, loc_e = [], []
+        for batch in it:
+            t0 = time.perf_counter()
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            prob, loc_loss, target = (o._data for o in mod.get_outputs())
+            check(bool(torch.isfinite(prob).all())
+                  and bool(torch.isfinite(loc_loss).all()),
+                  f"SSD300 epoch {epoch}: an output is not finite")
+            keep = target >= 0
+            p = torch.gather(prob, 1, target.clamp(min=0).long()[:, None])
+            ce_e.append(float(-torch.log(p[:, 0][keep]).mean()))
+            loc_e.append(float(loc_loss.sum(1).mean()))
+        ce.append(float(np.mean(ce_e)))
+        loc.append(float(np.mean(loc_e)))
+    window_s = time.perf_counter() - t_window
+    window_steps = len(step_ms) * (SSD300["epochs"] - 1) // SSD300["epochs"]
+    train_launches = dict(ck.LAUNCHES)
+    train_peak = torch.cuda.max_memory_allocated()
+    check(train_launches["nms"] == 0, f"training forwards launched nms "
+          f"{train_launches['nms']} times")
+    check(ce[-1] < ce[0], f"SSD300 class cross-entropy did not fall: {ce}")
+    check(loc[-1] < loc[0], f"SSD300 localization loss did not fall: {loc}")
+
+    det = mt.mod.Module(det_sym, label_names=("label",), context=dev)
+    det.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False)
+    det.set_params(*mod.get_params())
+    # the same rows before NMS (shares det's parameters)
+    cls_prob, loc_preds, anchors = det_sym.get_children()
+    raw = mt.mod.Module(mt.sym.MultiBoxDetection(
+        cls_prob, loc_preds, anchors, nms_threshold="0",
+        variances="(0.1, 0.1, 0.2, 0.2)"),
+        label_names=("label",), context=dev)
+    raw.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False, shared_module=det)
+    it.reset()
+    det_ms, kept, dropped, hits, images = [], 0, 0, 0, 0
+    det_launches = {k: 0 for k in ck.LAUNCHES}
+    for batch in it:
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()  # counts from here on: one detection
+        t0 = time.perf_counter()
+        det.forward(batch, is_train=False)
+        torch.cuda.synchronize()
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+        check(ck.LAUNCHES["nms"] == 1, f"a detection forward launched nms "
+              f"{ck.LAUNCHES['nms']} times")
+        for k, n in ck.LAUNCHES.items():
+            det_launches[k] += n
+        rows = det.get_outputs()[0]._data
+        raw.forward(batch, is_train=False)
+        before = raw.get_outputs()[0]._data
+        check(torch.equal(rows, ck.nms_plain(before, NMS_THRESHOLD, False)),
+              "detection rows differ from nms_plain of the rows before NMS")
+        s = rows[:, :, 1]
+        check(bool(((s[:, :-1] >= s[:, 1:]) | (s[:, 1:] < 0)).all()),
+              "detection scores not sorted")
+        kept += int((rows[:, :, 0] >= 0).sum())
+        dropped += int(((before[:, :, 0] >= 0) & (rows[:, :, 0] < 0)).sum())
+        gt = batch.label[0]._data.to(rows.device)
+        iou = _iou_matrix(rows[:, :1, 2:6], gt[:, :, 1:5])[:, 0]  # (B, L)
+        right = (gt[:, :, 0] == rows[:, :1, 0]) & (rows[:, :1, 0] >= 0) \
+            & (iou >= 0.5)
+        hits += int(right.any(1).sum())
+        images += rows.shape[0]
+    print(f"SSD300 class cross-entropy {ce}, loc loss per image {loc}; "
+          f"{kept / images:.2f} detections an image, {dropped} rows "
+          f"suppressed, top detection right in {hits}/{images} images")
+    return {"config": dict(SSD300, anchors=8732, classes=21,
+                           image="3x300x300"),
+            "class_ce_by_epoch": ce,
+            "loc_loss_per_image_by_epoch": loc,
+            "steps": len(step_ms),
+            "samples_per_s": window_steps * SSD300["batch"] / window_s,
+            "step_p50_ms": float(np.median(step_ms)),
+            "train_peak_memory_bytes": int(train_peak),
+            "detection_batches": len(det_ms),
+            "detection_forward_p50_ms": float(np.median(det_ms)),
+            "detections_per_image": kept / images,
+            "rows_suppressed": dropped,
+            "top_detection_right_share": hits / images,
+            "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+            "nms_launches": {"training": train_launches["nms"],
+                             "detection": det_launches["nms"]},
+            "launches": {k: train_launches[k] + det_launches[k]
+                         for k in train_launches}}
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -1108,6 +1349,11 @@ def main():
     for T, B, Hd in ((60, 32, 200), (10, 32, 200), (7, 3, 37)):
         checks.append(check_lstm(torch, ck, T, B, Hd))
         print(json.dumps({"check": checks[-1]}))
+    for B, A in NMS_SHAPES:
+        for force in (False, True):
+            checks.append(check_nms(torch, ck, B, A, force, seed=B + A))
+            print(json.dumps({"check": checks[-1]}))
+    check_nms_boxes_in_device_memory(torch, ck)
     torch.cuda.empty_cache()
 
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
@@ -1124,10 +1370,13 @@ def main():
     torch.cuda.empty_cache()
     lstm = lstm_path(torch, mt, ck)
     print(json.dumps({"lstm_path": lstm}))
+    torch.cuda.empty_cache()
+    ssd = ssd_path(torch, mt, ck)
+    print(json.dumps({"ssd300_path": ssd}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
-    # it; launches are summed over the serving runs, the training run and
-    # the LSTM-PTB run
+    # it; launches are summed over the serving runs, the training run,
+    # the LSTM-PTB run and the SSD300 run
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -1157,8 +1406,12 @@ def main():
             "lstm_scan": (
                 "mxnet_tpu_torch/csrc/lstm_scan.cu",
                 "mxnet_tpu/ops/pallas_kernels.py:94", "T=60 B=32 H=200",
-                "float32")}
-    all_runs = [res, *runs.values(), train, lstm]
+                "float32"),
+            "nms": (
+                "mxnet_tpu_torch/csrc/nms.cu",
+                "mxnet_tpu/ops/pallas_kernels.py:203",
+                "B=32 A=8732 force_suppress=False", "float32")}
+    all_runs = [res, *runs.values(), train, lstm, ssd]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name

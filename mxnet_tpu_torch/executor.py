@@ -188,8 +188,13 @@ class Executor:
                      for h, o in zip(heads, outs)]
         self._train_graph = None
         names = list(leaves)
-        grads = torch.autograd.grad(outs, [leaves[n] for n in names],
-                                    grad_outputs=heads, allow_unused=True)
+        # an output that depends on no parameter (a MakeLoss over a
+        # target, grad_scale 0) contributes nothing
+        live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+        grads = torch.autograd.grad(
+            [o for o, _ in live], [leaves[n] for n in names],
+            grad_outputs=[h for _, h in live], allow_unused=True) \
+            if live else [None] * len(names)
         with torch.no_grad():
             for name, g in zip(names, grads):
                 dst = self.grad_dict[name]._data

@@ -19,7 +19,10 @@ the serving and training paths:
   (``csrc/paged_attention_verify.cu``, replacing
   ``paged_attention_verify`` and the lax ``paged_verify_attention_q``);
 * ``lstm_scan`` — the float32 LSTM recurrence over a whole sequence in
-  one launch (``csrc/lstm_scan.cu``, replacing ``_lstm_pallas_fwd``).
+  one launch (``csrc/lstm_scan.cu``, replacing ``_lstm_pallas_fwd``);
+* ``nms`` — greedy non-maximum suppression over score-sorted detection
+  rows, one block an image (``csrc/nms.cu``, replacing ``nms`` and its
+  body ``_nms_kernel``).
 
 The three paged kernels share one body (``csrc/paged_attention.cuh``):
 verify row w equals the decode kernel at ``lengths = start + 1 + w`` bit
@@ -57,7 +60,9 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "paged_attention_decode_quant_plain", "gather_pages",
            "gather_dequant",
            "paged_attention_verify", "paged_attention_verify_plain",
-           "lstm_scan", "lstm_scan_plain", "LSTM_MAX_HIDDEN", "LAUNCHES", "reset_launch_counts", "SUPPORTED_HEAD_DIMS"]
+           "lstm_scan", "lstm_scan_plain", "LSTM_MAX_HIDDEN", "nms",
+           "nms_plain", "LAUNCHES", "reset_launch_counts",
+           "SUPPORTED_HEAD_DIMS"]
 
 LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "flash_mha_packed_bwd_dq": 0,
@@ -66,7 +71,8 @@ LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "paged_attention_decode_quant": 0,
                             "paged_attention_verify": 0,
                             "paged_attention_verify_quant": 0,
-                            "lstm_scan": 0}
+                            "lstm_scan": 0,
+                            "nms": 0}
 
 # head widths the kernels are instantiated for (csrc/*.cu)
 SUPPORTED_HEAD_DIMS = (64,)
@@ -677,3 +683,68 @@ def lstm_scan(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     _check_launch(err, "lstm_scan")
     LAUNCHES["lstm_scan"] += 1
     return y, hT, cT
+
+
+# ---------------------------------------------------------------------------
+# nms
+# ---------------------------------------------------------------------------
+
+
+def nms_plain(rows: torch.Tensor, nms_threshold: float,
+              force_suppress: bool) -> torch.Tensor:
+    """Plain version: A rounds over all images at once, with the
+    kernel's arithmetic op for op (no fused multiply-add), so the kernel
+    equals it bit for bit."""
+    out = rows.clone()
+    cls = out[:, :, 0]  # a view: suppression writes into out
+    l, t, r, b = (rows[:, :, k] for k in range(2, 6))
+    area = (r - l) * (b - t)
+    later = torch.arange(rows.shape[1], device=rows.device)
+    thr = float(torch.tensor(nms_threshold, dtype=torch.float32))
+    for i in range(rows.shape[1] - 1):
+        cls_i = cls[:, i:i + 1].clone()
+        w = torch.clamp(torch.minimum(r, r[:, i:i + 1])
+                        - torch.maximum(l, l[:, i:i + 1]), min=0.0)
+        h = torch.clamp(torch.minimum(b, b[:, i:i + 1])
+                        - torch.maximum(t, t[:, i:i + 1]), min=0.0)
+        inter = w * h
+        union = (area + area[:, i:i + 1]) - inter
+        iou = torch.where(union > 0, inter / torch.clamp(union, min=1e-12),
+                          0.0)
+        kill = (cls_i >= 0) & (later > i) & (cls >= 0) & (iou >= thr)
+        if not force_suppress:
+            kill &= cls == cls_i
+        cls.masked_fill_(kill, -1.0)
+    return out
+
+
+def nms(rows: torch.Tensor, nms_threshold: float,
+        force_suppress: bool) -> torch.Tensor:
+    """Greedy NMS over score-sorted rows (B, A, 6) [cls, score, l, t, r,
+    b] float32: in order of i, a live row (cls >= 0) suppresses every
+    later live row of its class (any class under ``force_suppress``)
+    whose IoU with it is at least ``nms_threshold`` by setting its cls
+    to -1.  Returns a new tensor; columns 1-5 pass through.  The kernel
+    keeps an image's class column in shared memory, and its boxes too
+    where they fit; an A whose class column does not fit (~58k rows on
+    an H100) fails to launch."""
+    if rows.ndim != 3 or rows.shape[2] != 6:
+        raise MXNetError(f"nms wants rows (B, A, 6); got "
+                         f"{tuple(rows.shape)}")
+    if not _route("nms", rows):
+        return nms_plain(rows, nms_threshold, force_suppress)
+    if rows.dtype != torch.float32:
+        raise MXNetError(f"nms: dtype {rows.dtype} (the kernel takes "
+                         f"float32)")
+    if not rows.is_contiguous():
+        raise MXNetError("nms: rows must be contiguous")
+    B, A, _ = rows.shape
+    fn = _load("nms", "nms", [_vp, _vp, _i, _i, ctypes.c_float, _i, _vp])
+    out = torch.empty_like(rows)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(rows.data_ptr(), out.data_ptr(), B, A, float(nms_threshold),
+                 int(bool(force_suppress)), stream)
+    _check_launch(err, "nms")
+    LAUNCHES["nms"] += 1
+    return out

@@ -1,7 +1,7 @@
 """Shape ops: ``Reshape`` (alias ``reshape``) with MXNet's special codes,
-``transpose`` and ``expand_dims``.
+``Flatten``, ``transpose``, ``expand_dims`` and ``Concat``.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:23-125``, with its own copy of
+Counterpart of ``mxnet_tpu/ops/matrix.py:23-125,260-287``, with its own copy of
 ``_infer_reshape_shape``.  ``transpose`` returns a contiguous tensor, so
 the op after it (the RNN's input projection, a ``Reshape``) reads
 memory in its own order.
@@ -10,6 +10,7 @@ memory in its own order.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..base import attr_bool, attr_int, attr_shape
 from .registry import register
@@ -90,6 +91,16 @@ def _reshape(op_ctx, attrs, inputs, aux):
     return [x.reshape(_infer_reshape_shape(x.shape, *_reshape_target(attrs)))]
 
 
+@register("Flatten", arg_names=("data",), aliases=("flatten",),
+          infer_shape=lambda attrs, s: (
+              s, [None if s[0] is None
+                  else (s[0][0], int(np.prod(s[0][1:])))], []),
+          doc="Flatten to (batch, everything else)")
+def _flatten(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    return [x.reshape(x.shape[0], -1)]
+
+
 def _transpose_axes(attrs, ndim):
     return attr_shape(attrs.get("axes")) or tuple(reversed(range(ndim)))
 
@@ -122,3 +133,23 @@ def _expand_infer(attrs, in_shapes):
           doc="Insert a size-1 axis at attrs['axis']")
 def _expand_dims(op_ctx, attrs, inputs, aux):
     return [inputs[0].unsqueeze(attr_int(attrs.get("axis")))]
+
+
+def _concat_args(attrs):
+    return [f"arg{i}" for i in range(attr_int(attrs.get("num_args", 1)))]
+
+
+def _concat_infer(attrs, in_shapes):
+    if any(s is None for s in in_shapes):
+        return in_shapes, [None], []
+    dim = attr_int(attrs.get("dim", 1))
+    out = list(in_shapes[0])
+    out[dim] = sum(s[dim] for s in in_shapes)
+    return in_shapes, [tuple(out)], []
+
+
+@register("Concat", arg_names=_concat_args, aliases=("concat",),
+          infer_shape=_concat_infer,
+          doc="Concatenate the num_args inputs along attrs['dim']")
+def _concat(op_ctx, attrs, inputs, aux):
+    return [torch.cat(inputs, dim=attr_int(attrs.get("dim", 1)))]

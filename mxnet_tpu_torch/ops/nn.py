@@ -1,29 +1,35 @@
-"""Dense, normalization and activation ops of the transformer LM, and
-its loss heads.
+"""Dense, convolution, pooling, normalization and activation ops, and
+the loss heads.
 
-Counterpart of the ``FullyConnected`` (``:50``), ``LayerNorm``
-(``:532``), ``Activation(act_type="gelu")`` (``:98``), ``SoftmaxOutput``
-(``:669-768``) and ``SoftmaxCELoss`` (``:770-832``) ops of
-``mxnet_tpu/ops/nn.py``.  The matmul goes to ``torch.matmul``, as the
-JAX package leaves it to XLA outside any Pallas kernel.
+Counterpart of the ``FullyConnected`` (``:50``), ``Activation``
+(``:98``), ``Convolution`` (``:201-295``), ``Pooling`` (``:367-428``),
+``LayerNorm`` (``:532``), ``L2Normalization`` (``:608``),
+``SoftmaxOutput`` (``:669-768``),
+``SoftmaxCELoss`` (``:770-832``) and ``MakeLoss`` (``:878-909``) ops of
+``mxnet_tpu/ops/nn.py``.  The matmul and the convolution go to torch,
+as the JAX package leaves them to XLA outside any Pallas kernel.
 
 The loss heads keep the reference convention: their backward is
-``(p - onehot) * grad_scale`` from what the forward saved, with ignored
-rows zeroed, and the incoming gradient is ignored (so the executor may
-seed them with ones).
+``(p - onehot) * grad_scale`` (``MakeLoss``: ``grad_scale``) from what
+the forward saved, with ignored rows zeroed, and the incoming gradient
+is ignored (so the executor may seed them with ones).  A label outside
+[0, C), such as an ignore label of -1, is never used as an index.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from ..base import MXNetError, attr_bool, attr_float, attr_int, not_ported
+from ..base import (MXNetError, attr_bool, attr_float, attr_int, attr_shape,
+                    not_ported)
 from .registry import register
 
 __all__ = ["fully_connected", "layer_norm", "gelu", "softmax_ce_loss",
-           "softmax_output"]
+           "softmax_output", "make_loss"]
 
 
 def fully_connected(x: torch.Tensor, weight: torch.Tensor,
@@ -57,7 +63,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _fc_args(attrs):
+def _weight_bias_args(attrs):
     if attr_bool(attrs.get("no_bias"), False):
         return ["data", "weight"]
     return ["data", "weight", "bias"]
@@ -83,8 +89,8 @@ def _fc_infer(attrs, in_shapes):
     return ins, [out], []
 
 
-@register("FullyConnected", arg_names=_fc_args, infer_shape=_fc_infer,
-          doc="Dense layer: x @ weight.T + bias")
+@register("FullyConnected", arg_names=_weight_bias_args,
+          infer_shape=_fc_infer, doc="Dense layer: x @ weight.T + bias")
 def _fully_connected_op(op_ctx, attrs, inputs, aux):
     data = inputs[0]
     if attr_bool(attrs.get("flatten"), True) and data.ndim > 2:
@@ -93,14 +99,124 @@ def _fully_connected_op(op_ctx, attrs, inputs, aux):
     return [fully_connected(data, inputs[1], bias)]
 
 
+_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus,
+                "softsign": F.softsign, "gelu": gelu}
+
+
 @register("Activation", arg_names=("data",),
           infer_shape=lambda attrs, s: (s, [s[0]], []),
-          doc="Activation; the port carries act_type='gelu' (exact erf)")
+          doc="relu/sigmoid/tanh/softrelu/softsign, and gelu (exact erf)")
 def _activation_op(op_ctx, attrs, inputs, aux):
     act = attrs.get("act_type", "relu")
-    if act != "gelu":
-        raise not_ported(f"Activation(act_type={act!r})")
-    return [gelu(inputs[0])]
+    if act not in _ACTIVATIONS:
+        raise MXNetError(f"unknown act_type {act}")
+    return [_ACTIVATIONS[act](inputs[0])]
+
+
+# -- convolution and pooling (NCHW; torch's convolution, as the JAX package
+# leaves it to lax.conv_general_dilated outside any Pallas kernel) ----------
+
+
+def _spatial_attrs(attrs, nd):
+    kernel = attr_shape(attrs.get("kernel"))
+    stride = attr_shape(attrs.get("stride")) or (1,) * nd
+    dilate = attr_shape(attrs.get("dilate")) or (1,) * nd
+    pad = attr_shape(attrs.get("pad")) or (0,) * nd
+    return kernel, stride, dilate, pad
+
+
+def _conv_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    nd = len(d) - 2
+    kernel, stride, dilate, pad = _spatial_attrs(attrs, nd)
+    nf = attr_int(attrs.get("num_filter"))
+    groups = attr_int(attrs.get("num_group", 1), 1)
+    w = (nf, d[1] // groups) + tuple(kernel)
+    no_bias = attr_bool(attrs.get("no_bias"), False)
+    ins = [tuple(d), w] + ([] if no_bias else [(nf,)])
+    spatial = tuple(
+        (d[2 + i] + 2 * pad[i] - (dilate[i] * (kernel[i] - 1) + 1))
+        // stride[i] + 1 for i in range(nd))
+    return ins, [(d[0], nf) + spatial], []
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", arg_names=_weight_bias_args,
+          infer_shape=_conv_infer,
+          doc="N-D convolution over NC(D)HW data, (O, I/groups, *k) weights")
+def _convolution_op(op_ctx, attrs, inputs, aux):
+    data, weight = inputs[0], inputs[1]
+    nd = data.ndim - 2
+    if nd not in _CONV:
+        raise MXNetError(f"Convolution over {nd} spatial dims (1-3)")
+    _, stride, dilate, pad = _spatial_attrs(attrs, nd)
+    bias = None if attr_bool(attrs.get("no_bias"), False) else inputs[2]
+    return [_CONV[nd](data, weight, bias, stride=stride, padding=pad,
+                      dilation=dilate,
+                      groups=attr_int(attrs.get("num_group", 1), 1))]
+
+
+def _pool_window(attrs, spatial):
+    """(kernel, stride, [(lo, hi) pads]) of a Pooling over ``spatial``:
+    ``global_pool`` covers it whole; the ``full`` convention (ceil
+    division) widens only the upper pad."""
+    nd = len(spatial)
+    kernel, stride, _, pad = _spatial_attrs(attrs, nd)
+    if attr_bool(attrs.get("global_pool"), False):
+        return tuple(spatial), (1,) * nd, [(0, 0)] * nd
+    full = attrs.get("pooling_convention", "valid") == "full"
+    pads = []
+    for i in range(nd):
+        hi = pad[i]
+        if full:
+            insz = spatial[i] + 2 * pad[i]
+            out = -(-(insz - kernel[i]) // stride[i]) + 1
+            hi += max(0, (out - 1) * stride[i] + kernel[i] - insz)
+        pads.append((pad[i], hi))
+    return tuple(kernel), tuple(stride), pads
+
+
+def _pool_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    kernel, stride, pads = _pool_window(attrs, d[2:])
+    spatial = tuple((d[2 + i] + lo + hi - kernel[i]) // stride[i] + 1
+                    for i, (lo, hi) in enumerate(pads))
+    return in_shapes, [tuple(d[:2]) + spatial], []
+
+
+@register("Pooling", arg_names=("data",), infer_shape=_pool_infer,
+          doc="max/avg/sum pooling, valid/full conventions, global_pool")
+def _pooling_op(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    pool_type = attrs.get("pool_type", "max")
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError(f"unknown pool_type {pool_type}")
+    kernel, stride, pads = _pool_window(attrs, x.shape[2:])
+    one_d = x.ndim == 3
+    if one_d:  # torch pools 1-D windows as 2-D ones of width 1
+        x, kernel, stride = x[..., None], kernel + (1,), stride + (1,)
+        pads = pads + [(0, 0)]
+    # pad explicitly (torch pads only symmetrically, and its ceil mode
+    # divides edge windows by a clipped count): -inf for max, 0 for the
+    # sums, so avg divides by the whole kernel area, padding included
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    if any(flat):
+        x = F.pad(x, flat, value=-math.inf if pool_type == "max" else 0.0)
+    if pool_type == "max":
+        pool = F.max_pool2d if x.ndim == 4 else F.max_pool3d
+        out = pool(x, kernel, stride)
+    else:
+        pool = F.avg_pool2d if x.ndim == 4 else F.avg_pool3d
+        out = pool(x, kernel, stride,
+                   divisor_override=1 if pool_type == "sum" else None)
+    return [out[..., 0] if one_d else out]
 
 
 def _ln_infer(attrs, in_shapes):
@@ -125,7 +241,37 @@ def _layer_norm_op(op_ctx, attrs, inputs, aux):
                        eps=attr_float(attrs.get("eps", 1e-5), 1e-5))]
 
 
+_L2_AXES = {"instance": lambda nd: tuple(range(1, nd)),
+            "channel": lambda nd: (1,),
+            "spatial": lambda nd: tuple(range(2, nd))}
+
+
+@register("L2Normalization", arg_names=("data",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="x / sqrt(sum(x^2) + eps) over the instance, channel or "
+              "spatial axes")
+def _l2_normalization_op(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    mode = attrs.get("mode", "instance")
+    if mode not in _L2_AXES:
+        raise MXNetError(f"unknown L2Normalization mode {mode}")
+    eps = attr_float(attrs.get("eps", 1e-10), 1e-10)
+    norm = torch.sqrt(x.square().sum(dim=_L2_AXES[mode](x.ndim), keepdim=True)
+                      + eps)
+    return [x / norm]
+
+
 # -- loss heads ---------------------------------------------------------------
+
+
+def _sub_onehot_(grad, lab, dim):
+    """``grad -= one_hot(lab)`` along ``dim`` in place, ``lab`` holding a
+    size-1 ``dim``.  A label outside [0, C) — an ignore label such as -1
+    — subtracts nothing, as ``jax.nn.one_hot`` gives it a zero row; it
+    is clamped into range only to be a valid index."""
+    C = grad.shape[dim]
+    inside = ((lab >= 0) & (lab < C)).to(grad.dtype)
+    grad.scatter_add_(dim, lab.clamp(0, C - 1), -inside)
 
 
 class _SoftmaxCELoss(torch.autograd.Function):
@@ -138,7 +284,8 @@ class _SoftmaxCELoss(torch.autograd.Function):
         x = data.float()
         lse = torch.logsumexp(x, dim=-1)
         lab = label.long()
-        loss = lse - torch.gather(x, -1, lab[..., None])[..., 0]
+        safe = lab.clamp(0, x.shape[-1] - 1)  # an ignore label may be -1
+        loss = lse - torch.gather(x, -1, safe[..., None])[..., 0]
         if use_ignore:
             loss = torch.where(lab == int(ignore_label), 0.0, loss)
         ctx.save_for_backward(data, lse, label)
@@ -151,8 +298,7 @@ class _SoftmaxCELoss(torch.autograd.Function):
         grad_scale, use_ignore, ignore_label = ctx.cfg
         lab = label.long()[..., None]
         grad = torch.exp(data.float() - lse[..., None])
-        grad.scatter_add_(-1, lab, torch.full(lab.shape, -1.0,
-                                              device=grad.device))
+        _sub_onehot_(grad, lab, -1)
         grad.mul_(grad_scale)
         if use_ignore:
             grad.masked_fill_(lab == int(ignore_label), 0.0)
@@ -174,33 +320,36 @@ class _SoftmaxOutput(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, label, grad_scale, use_ignore, ignore_label,
-                preserve_shape, normalization):
-        if preserve_shape:
+                mode, normalization):
+        if mode == "multi_output":
+            out = torch.softmax(data, dim=1)
+        elif mode == "preserve_shape":
             out = torch.softmax(data, dim=-1)
         else:
             out = torch.softmax(data.reshape(data.shape[0], -1),
                                 dim=-1).reshape(data.shape)
         ctx.save_for_backward(out, label)
-        ctx.cfg = (grad_scale, use_ignore, ignore_label, preserve_shape,
-                   normalization)
+        ctx.cfg = (grad_scale, use_ignore, ignore_label, mode, normalization)
         return out
 
     @staticmethod
     def backward(ctx, _g):
         out, label = ctx.saved_tensors
-        grad_scale, use_ignore, ignore_label, preserve_shape, \
-            normalization = ctx.cfg
-        flat = out.reshape(-1, out.shape[-1]) if preserve_shape \
-            else out.reshape(out.shape[0], -1)
-        lab = label.reshape(-1).long()
-        grad = flat.clone()
-        grad.scatter_add_(-1, lab[:, None],
-                          torch.full((lab.shape[0], 1), -1.0,
-                                     dtype=grad.dtype, device=grad.device))
+        grad_scale, use_ignore, ignore_label, mode, normalization = ctx.cfg
+        if mode == "multi_output":  # classes on axis 1, labels (B, ...)
+            grad = out.clone()
+            lab = label.long().unsqueeze(1)
+            axis = 1
+        else:
+            grad = (out.reshape(-1, out.shape[-1]) if mode == "preserve_shape"
+                    else out.reshape(out.shape[0], -1)).clone()
+            lab = label.reshape(-1, 1).long()
+            axis = -1
+        _sub_onehot_(grad, lab, axis)
         valid = torch.ones(lab.shape, dtype=out.dtype, device=out.device)
         if use_ignore:
             valid = (lab != int(ignore_label)).to(out.dtype)
-            grad = grad * valid[:, None]
+            grad = grad * valid
         scale = grad_scale
         if normalization == "batch":
             scale = scale / out.shape[0]
@@ -213,21 +362,26 @@ class _SoftmaxOutput(torch.autograd.Function):
 def softmax_output(data, label, grad_scale: float = 1.0,
                    use_ignore: bool = False, ignore_label: float = -1.0,
                    preserve_shape: bool = False,
-                   normalization: str = "null"):
-    """Softmax loss head: probabilities over the last axis
-    (``preserve_shape``) or over all but the batch axis."""
+                   normalization: str = "null", multi_output: bool = False):
+    """Softmax loss head: probabilities over axis 1 with labels (B, ...)
+    (``multi_output``), over the last axis (``preserve_shape``) or over
+    all but the batch axis."""
     if normalization not in ("null", "batch", "valid"):
         raise MXNetError(f"SoftmaxOutput: normalization {normalization!r}")
+    mode = "multi_output" if multi_output else \
+        "preserve_shape" if preserve_shape else "flat"
     return _SoftmaxOutput.apply(data, label, float(grad_scale),
-                                bool(use_ignore), float(ignore_label),
-                                bool(preserve_shape), normalization)
+                                bool(use_ignore), float(ignore_label), mode,
+                                normalization)
 
 
 def _softmax_output_infer(attrs, in_shapes):
     d = in_shapes[0]
     if d is None:
         return in_shapes, [None], []
-    if attr_bool(attrs.get("preserve_shape"), False):
+    if attr_bool(attrs.get("multi_output"), False):
+        lab = (d[0],) + tuple(d[2:])
+    elif attr_bool(attrs.get("preserve_shape"), False):
         lab = tuple(d[:-1])
     else:
         lab = (d[0],)
@@ -239,15 +393,14 @@ def _softmax_output_infer(attrs, in_shapes):
           doc="Softmax loss head; backward = (p - onehot)*scale, ignoring "
               "the head gradient")
 def _softmax_output_op(op_ctx, attrs, inputs, aux):
-    if attr_bool(attrs.get("multi_output"), False):
-        raise not_ported("SoftmaxOutput(multi_output=True)")
     return [softmax_output(
         inputs[0], inputs[1],
         grad_scale=attr_float(attrs.get("grad_scale", 1.0), 1.0),
         use_ignore=attr_bool(attrs.get("use_ignore"), False),
         ignore_label=attr_float(attrs.get("ignore_label", -1.0), -1.0),
         preserve_shape=attr_bool(attrs.get("preserve_shape"), False),
-        normalization=attrs.get("normalization", "null"))]
+        normalization=attrs.get("normalization", "null"),
+        multi_output=attr_bool(attrs.get("multi_output"), False))]
 
 
 def _softmax_ce_infer(attrs, in_shapes):
@@ -268,3 +421,47 @@ def _softmax_ce_op(op_ctx, attrs, inputs, aux):
         grad_scale=attr_float(attrs.get("grad_scale", 1.0), 1.0),
         use_ignore=attr_bool(attrs.get("use_ignore"), False),
         ignore_label=attr_float(attrs.get("ignore_label", -1.0), -1.0))]
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; backward ``grad_scale`` everywhere (divided by
+    the batch, or by the count of entries above ``valid_thresh``),
+    whatever the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, normalization, valid_thresh):
+        ctx.save_for_backward(data)
+        ctx.cfg = (grad_scale, normalization, valid_thresh)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _g):
+        data, = ctx.saved_tensors
+        grad_scale, normalization, valid_thresh = ctx.cfg
+        scale = torch.tensor(grad_scale, dtype=data.dtype, device=data.device)
+        if normalization == "batch":
+            scale = scale / data.shape[0]
+        elif normalization == "valid":
+            valid = (data > valid_thresh).to(data.dtype).sum()
+            scale = scale / torch.clamp(valid, min=1.0)
+        return scale.expand(data.shape).clone(), None, None, None
+
+
+def make_loss(data, grad_scale: float = 1.0, normalization: str = "null",
+              valid_thresh: float = 0.0):
+    """Treat ``data`` as a loss: its value passes through, its backward
+    is ``grad_scale`` (normalized by ``batch`` or ``valid`` count)."""
+    if normalization not in ("null", "batch", "valid"):
+        raise MXNetError(f"MakeLoss: normalization {normalization!r}")
+    return _MakeLoss.apply(data, float(grad_scale), normalization,
+                           float(valid_thresh))
+
+
+@register("MakeLoss", arg_names=("data",), aliases=("make_loss",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []), is_loss=True,
+          doc="Treat the input as a loss: backward = grad_scale")
+def _make_loss_op(op_ctx, attrs, inputs, aux):
+    return [make_loss(
+        inputs[0], grad_scale=attr_float(attrs.get("grad_scale", 1.0), 1.0),
+        normalization=attrs.get("normalization", "null"),
+        valid_thresh=attr_float(attrs.get("valid_thresh", 0.0), 0.0))]

@@ -3,6 +3,8 @@
 Counterpart of ``mxnet_tpu/symbol.py``, holding what the training path
 touches: ``Variable`` (with ``shape``, ``dtype``, ``init`` and
 ``attr``), ``Group``, op functions generated from the port's registry,
+``+``/``-``/``*`` of two symbols, outputs by index or name,
+``get_internals``/``get_children``,
 ``list_arguments``/``list_outputs``/``list_auxiliary_states``,
 ``infer_shape``/``infer_type``, ``attr_dict``, ``_topo`` and
 ``simple_bind``.  A Symbol is a DAG of nodes, each a variable
@@ -129,16 +131,62 @@ class Symbol:
                 ret[n.name] = d
         return ret
 
+    def get_internals(self) -> "Symbol":
+        """Every output of every node (variables included) as one grouped
+        symbol, indexable by output name."""
+        return Symbol([(n, i) for n in self._topo()
+                       for i in range(n.num_outputs())])
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of the (first) output's node, grouped; None for a
+        variable."""
+        node = self._outputs[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
+    def __getitem__(self, index) -> "Symbol":
+        """One output by position or name, or a slice of them."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError(f"cannot find output {index!r} in {names}")
+            index = names.index(index)
+        if isinstance(index, slice):
+            return Symbol(self._outputs[index])
+        return Symbol([self._outputs[index]])
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._outputs)))
+
     # -- arithmetic ----------------------------------------------------------
-    def __add__(self, other):
+    def _binop(self, other, op_name, scalar_op, rev=False):
         if not isinstance(other, Symbol):
-            raise not_ported("Symbol + scalar (_plus_scalar)")
-        return _create_symbol("elemwise_add", [self, other], {})
+            raise not_ported(f"Symbol arithmetic with a scalar "
+                             f"({scalar_op})")
+        lhs, rhs = (other, self) if rev else (self, other)
+        return _create_symbol(op_name, [lhs, rhs], {})
+
+    def __add__(self, other):
+        return self._binop(other, "elemwise_add", "_plus_scalar")
 
     def __radd__(self, other):
-        if not isinstance(other, Symbol):
-            raise not_ported("scalar + Symbol (_plus_scalar)")
-        return _create_symbol("elemwise_add", [other, self], {})
+        return self._binop(other, "elemwise_add", "_plus_scalar", rev=True)
+
+    def __sub__(self, other):
+        return self._binop(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binop(other, "elemwise_sub", "_rminus_scalar", rev=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar")
+
+    def __rmul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar", rev=True)
 
     # -- shape / type inference ------------------------------------------------
     def infer_shape(self, *args, **kwargs):

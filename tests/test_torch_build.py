@@ -123,3 +123,62 @@ def test_lstm_scan_source_exports_the_wrappers_entry_point(fake):
 def test_unknown_source_is_refused(fake):
     with pytest.raises(MXNetError, match="unknown kernel source"):
         _build.build(["no_such_kernel"])
+
+
+def test_nms_source_kernel_and_wrapper(fake):
+    """csrc/nms.cu stands alone, exports the entry point the wrapper
+    loads and computes the IoU with round-to-nearest intrinsics (no
+    contracted multiply-add); ``nms`` counts its launches and routes a
+    CPU tensor to ``nms_plain``."""
+    _, csrc = fake
+    src = (csrc / "nms.cu").read_text()
+    assert 'extern "C" int nms(' in src and ".cuh" not in src
+    for op in ("__fmul_rn", "__fsub_rn", "__fadd_rn", "__fdiv_rn",
+               "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+        assert op in src
+    assert "nms" in _build.SOURCES
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    assert "nms" in ck.LAUNCHES
+    import torch
+
+    rows = torch.rand(2, 9, 6)
+    rows[:, :, 0] = torch.tensor([0., 1., 0., -1., 1., 0., 0., 1., 1.])
+    ck.reset_launch_counts()
+    assert torch.equal(ck.nms(rows, 0.2, False), ck.nms_plain(rows, 0.2,
+                                                              False))
+    assert ck.LAUNCHES["nms"] == 0
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    (csrc / "nms.cu").write_text(src + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == ["nms"]
+
+
+def test_multibox_detection_raises_for_rows_the_kernel_does_not_take():
+    import torch
+
+    from mxnet_tpu_torch.ops.detection import multibox_detection
+
+    B, C, A = 2, 3, 12
+    prob = torch.softmax(torch.randn(B, C, A), 1).to(torch.bfloat16)
+    loc = torch.zeros(B, A * 4, dtype=torch.bfloat16)
+    anchors = torch.rand(1, A, 4).to(torch.bfloat16)
+    with pytest.raises(MXNetError, match="not ported"):
+        multibox_detection(prob, loc, anchors)
+    # without NMS the decode runs in any dtype
+    rows = multibox_detection(prob, loc, anchors, nms_threshold=0)
+    assert rows.dtype == torch.bfloat16 and rows.shape == (B, A, 6)
+
+
+def test_no_code_path_catches_a_failed_launch():
+    """The wrappers and the ops that call them hold no try statement, so
+    a kernel that fails to build or launch on a CUDA tensor raises and
+    never falls back to the plain version."""
+    import ast
+    import pathlib
+
+    ops = pathlib.Path(_build.__file__).parent / "ops"
+    for name in ("cuda_kernels", "attention", "rnn", "detection"):
+        tree = ast.parse((ops / f"{name}.py").read_text())
+        tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        assert not tries, f"ops/{name}.py has try statements at {tries}"
