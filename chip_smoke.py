@@ -19,7 +19,11 @@
    (``lstm_scan``, fp32 only) runs at (T, B, H) = (60, 32, 200),
    (10, 32, 200) and (7, 3, 37) with random non-zero states; its library
    yardstick is cuDNN's LSTM (``torch.nn.LSTM``) fed the projection
-   through an identity input weight.
+   through an identity input weight.  ``flash_mha`` and its two backward
+   kernels run on (B, H, T, D) views of BTHD tensors at ``MHA_SHAPES``:
+   the DPA path's (8, 12, 1024, 1024, 64) causal, a tail (T = 1000),
+   Tq < Tk, and head widths 128 and 80; their library yardstick is
+   SDPA's forward and backward.
 3. Serving: a GPT-2-small-class LM (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32768, 1024 positions; random weights from
    ``np.random.RandomState(0)``) serves through ``DecodeEngine``, four
@@ -47,6 +51,21 @@
    must launch 12 forward and 12 + 12 backward attention kernels, every
    ``qkv_weight`` gradient must be finite and non-zero, and the mean
    loss of the last 3 steps must be below the first step's.
+4b. DotProductAttention: the same LM written with user attention
+   symbols (``dpa_lm_symbol``: separate q/k/v projections, ``Reshape``
+   to (B, T, H, D), ``DotProductAttention(causal=True)``, ``Reshape``
+   back), its weights the packed ones cut into thirds
+   (``split_qkv_params``).  One ``forward_backward`` on the first batch
+   in a fresh module each, counts reset just before: the packed
+   ``transformer_lm``, then the BHTD and BTHD variants, whose mean loss
+   must agree with the packed LM's to 1e-4 relative and whose q/k/v
+   weight gradients must match the thirds of its ``qkv_weight``
+   gradient within ``BWD_TOL``.  Then ``TRAIN_STEPS`` SGD steps as in
+   4: every step launches ``flash_mha`` and both its backward kernels
+   12 times each and the packed kernels never, every q/k/v weight
+   gradient is finite and non-zero, and the loss falls.  Last,
+   ``mt.nd.DotProductAttention`` on ``gpu(0)`` NDArrays launches
+   ``flash_mha`` once and equals the plain version.
 5. LSTM-PTB: the LSTM language model of ``examples/lstm_bucketing.py``
    at the published widths of upstream MXNet's
    ``example/rnn/lstm_bucketing.py`` (vocab 10,000, embed 200, 2 LSTM
@@ -82,7 +101,7 @@
    ``set_params(*mod.get_params())``, detects every batch: one ``nms``
    launch a forward, scores sorted, and rows that ``torch.equal``
    ``nms_plain`` of the same rows before NMS.
-8. Prints ``{"kernels": [...]}`` (nine kernels, launches summed over
+8. Prints ``{"kernels": [...]}`` (twelve kernels, launches summed over
    the runs), the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
@@ -127,6 +146,12 @@ SSD300 = dict(images=256, batch=32, epochs=6, lr=0.002, momentum=0.9,
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
 H, D, KVB = 12, 64, 16
+# flash_mha checks (B, H, Tq, Tk, D, causal): the DPA path's shape first,
+# then a tail (T = 1000), Tq < Tk, and head widths 128 and 80
+MHA_SHAPES = ((TRAIN_BATCH, H, 1024, 1024, D, True),
+              (1, H, 1000, 1000, D, False),
+              (2, H, 256, 1024, D, True), (2, H, 256, 1024, D, False),
+              (4, 8, 1024, 1024, 128, True), (2, H, 1024, 1024, 80, True))
 
 
 class SmokeFailure(Exception):
@@ -245,6 +270,87 @@ def check_backward(torch, ck, F, B, T, dtype):
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(torch, lambda: ck.launch_flash_mha_packed_bwd(
                 part, qkv, o, lse, do, buf, H, True)),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def mha_pairs(B, H, Tq, Tk, causal):
+    """The (query, key) pairs attention scores: under the causal mask
+    aligned at position 0, row q sees min(q + 1, Tk) keys."""
+    if not causal:
+        return B * H * Tq * Tk
+    n = min(Tq, Tk)
+    return B * H * (n * (n + 1) // 2 + (Tq - n) * Tk)
+
+
+def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype):
+    """B5 forward and both backward kernels against their plain versions
+    on (B, H, T, D) views of BTHD tensors (the layout DotProductAttention
+    hands them).  One record per kernel; the backward's plain version and
+    library call (SDPA's backward) compute dq, dk and dv together, so
+    both backward records carry their one time."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + Tq + Dh)
+    q, k, v, do = (torch.randn((B, T, Hh, Dh), generator=g, device="cuda")
+                   .to(dt).transpose(1, 2) for T in (Tq, Tk, Tk, Tq))
+    o, lse = ck.flash_mha(q, k, v, causal)
+    po, plse = ck.flash_mha_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    err = (o.float() - po.float()).abs().max().item()
+    lse_err = (lse - plse).abs().max().item()
+    shape = (f"B={B} H={Hh} Tq={Tq} Tk={Tk} D={Dh} "
+             + ("causal" if causal else "full"))
+    check(err <= TOL[dtype] and lse_err <= TOL["float32"] * 10,
+          f"flash_mha {shape} {dtype}: max_abs_err {err} (lse {lse_err}) "
+          f"over tolerance {TOL[dtype]}")
+    check(o.stride() == q.stride(), "flash_mha: o not in q's layout")
+    got = ck.flash_mha_bwd(q, k, v, o, lse, do, causal)
+    ref = ck.flash_mha_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    es = q.element_size()
+    pairs = mha_pairs(B, Hh, Tq, Tk, causal)
+    rows_q, rows_k = B * Hh * Tq * Dh, B * Hh * Tk * Dh
+    b_ms, b_by = bound((2 * rows_q + 2 * rows_k) * es + B * Hh * Tq * 4,
+                       4 * Dh * pairs, dtype)
+    out = [{
+        "kernel": "flash_mha", "shape": shape, "dtype": dtype,
+        "max_abs_err": err, "tol": TOL[dtype],
+        "ms": time_ms(torch, lambda: ck.flash_mha(q, k, v, causal)),
+        "plain_ms": time_ms(torch, lambda: ck.flash_mha_plain(
+            q, k, v, causal), reps=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)),
+        "bound_ms": b_ms, "bound_by": b_by}]
+    plain_ms = time_ms(torch, lambda: ck.flash_mha_bwd_plain(
+        q, k, v, o, lse, do, causal), reps=5, warmup=1)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa, (qg, kg, vg), do, retain_graph=True))
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    # every backward kernel reads q, k, v, do, lse and Delta
+    reads = (2 * rows_q + 2 * rows_k) * es + 2 * B * Hh * Tq * 4
+    for part, grads, writes, flop_per_pair in (
+            ("dq", got[:1], rows_q, 6 * Dh),
+            ("dkv", got[1:], 2 * rows_k, 8 * Dh)):
+        refs = ref[:1] if part == "dq" else ref[1:]
+        peak = max(r.float().abs().max().item() for r in refs)
+        tol = BWD_TOL[dtype] * (max(1.0, peak) if dtype == "float32"
+                                else peak)
+        gerr = max((a.float() - r.float()).abs().max().item()
+                   for a, r in zip(grads, refs))
+        check(all(bool(torch.isfinite(a.float()).all()) for a in grads),
+              f"flash_mha_bwd_{part} {shape} {dtype}: not finite")
+        check(gerr <= tol, f"flash_mha_bwd_{part} {shape} {dtype}: "
+              f"max_abs_err {gerr} over tolerance {tol}")
+        bufs = tuple(torch.empty_like(a) for a in grads)
+        b_ms, b_by = bound(reads + writes * es, flop_per_pair * pairs, dtype)
+        out.append({
+            "kernel": f"flash_mha_bwd_{part}", "shape": shape,
+            "dtype": dtype, "max_abs_err": gerr, "tol": tol,
+            "ms": time_ms(torch, lambda: ck.launch_flash_mha_bwd(
+                part, q, k, v, do, lse, delta, bufs, causal)),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by})
     return out
@@ -822,63 +928,259 @@ def random_walk_tokens(vocab, seq_len, rows, seed=7):
             toks[1:].reshape(rows, seq_len))
 
 
-def train_path(torch, mt, ck):
-    """10 SGD steps of the GPT-2-small-class LM through ``Module``."""
-    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
-        GPT2_SMALL["max_len"]
-    sym = mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
-                                   d_model=GPT2_SMALL["d_model"],
-                                   d_ff=GPT2_SMALL["d_ff"], head="ce")
+DPA_KERNELS = ("flash_mha", "flash_mha_bwd_dq", "flash_mha_bwd_dkv")
+PACKED_KERNELS = ("flash_mha_packed", "flash_mha_packed_bwd_dq",
+                  "flash_mha_packed_bwd_dkv")
+
+
+def lm_module(mt, sym, params):
+    """``sym`` (a GPT-2-class LM symbol) bound through ``Module`` on
+    ``gpu(0)`` at batch ``TRAIN_BATCH`` x 1024 with ``params``."""
     mod = mt.mod.Module(sym, context=mt.gpu(0))
+    T = GPT2_SMALL["max_len"]
     mod.bind(data_shapes=[("data", (TRAIN_BATCH, T))],
              label_shapes=[("softmax_label", (TRAIN_BATCH, T))])
-    mod.init_params(arg_params=gpt2_small_params(0))
+    mod.init_params(arg_params=params)
+    return mod
+
+
+def lm_batches(mt):
+    V, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["max_len"]
+    X, Y = random_walk_tokens(V, T, TRAIN_BATCH * TRAIN_STEPS)
+    return mt.io.NDArrayIter(X, Y, batch_size=TRAIN_BATCH)
+
+
+def train_steps(torch, ck, mod, batches, kernels, grad_names, label):
+    """``TRAIN_STEPS`` SGD steps (``TRAIN_LR``, momentum 0.9) of a bound
+    LM module, the launch counts reset just before and read just after:
+    every step must launch each of ``kernels`` once a layer and the
+    other attention family's kernels never (a dropped attention gradient
+    shows as 0 backward launches), every gradient of ``grad_names`` must
+    be finite and non-zero, and the mean loss of the last 3 steps must
+    be below the first step's."""
+    L, T = GPT2_SMALL["num_layers"], GPT2_SMALL["max_len"]
     mod.init_optimizer(optimizer="sgd", optimizer_params={
         "learning_rate": TRAIN_LR, "momentum": 0.9})
-    X, Y = random_walk_tokens(V, T, TRAIN_BATCH * TRAIN_STEPS)
-    batches = mt.io.NDArrayIter(X, Y, batch_size=TRAIN_BATCH)
-    qkv_grads = [mod._exec.grad_dict[f"layer{i}_qkv_weight"]._data
-                 for i in range(L)]
-    per_step = ("flash_mha_packed", "flash_mha_packed_bwd_dq",
-                "flash_mha_packed_bwd_dkv")
+    grads = [mod._exec.grad_dict[n]._data for n in grad_names]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    ck.reset_launch_counts()  # counts from here on: the training path
+    ck.reset_launch_counts()  # counts from here on: this training path
     t0 = time.perf_counter()
     for step, batch in enumerate(batches):
-        before = {k: ck.LAUNCHES[k] for k in per_step}
+        before = dict(ck.LAUNCHES)
         ts = time.perf_counter()
         mod.forward_backward(batch)
         mod.update()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - ts) * 1e3)
-        for k in per_step:
+        for k in DPA_KERNELS + PACKED_KERNELS:
             n = ck.LAUNCHES[k] - before[k]
-            check(n == L, f"training step {step}: {k} launched {n} times, "
-                  f"not {L} (a dropped attention gradient shows as 0 "
-                  f"backward launches)")
-        sums = torch.stack([g.abs().sum() for g in qkv_grads]).cpu()
+            want = L if k in kernels else 0
+            check(n == want, f"{label} step {step}: {k} launched {n} "
+                  f"times, not {want}")
+        sums = torch.stack([g.abs().sum() for g in grads]).cpu()
         check(bool(torch.isfinite(sums).all() and (sums > 0).all()),
-              f"training step {step}: a qkv_weight gradient is zero or "
+              f"{label} step {step}: a gradient of {grad_names} is zero or "
               f"not finite: {sums.tolist()}")
         out = mod.get_outputs()[0].asnumpy()
         check(out.shape == (TRAIN_BATCH, T), f"loss shape {out.shape}")
         losses.append(float(out.mean()))
-        check(np.isfinite(losses[-1]), f"loss not finite: {losses}")
+        check(np.isfinite(losses[-1]), f"{label} loss not finite: {losses}")
     wall = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(len(losses) == TRAIN_STEPS, f"{len(losses)} training steps")
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} {label} steps")
     check(np.mean(losses[-3:]) < losses[0],
-          f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    print(f"training loss curve: {losses}")
+          f"{label} loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    print(f"{label} loss curve: {losses}")
     return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": T,
             "learning_rate": TRAIN_LR, "momentum": 0.9, "losses": losses,
             "wall_s": wall,
             "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * T / wall,
             "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "peak_memory_bytes": int(peak), "launches": launches}
+
+
+def packed_lm_symbol(mt):
+    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
+        GPT2_SMALL["max_len"]
+    return mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
+                                    d_model=GPT2_SMALL["d_model"],
+                                    d_ff=GPT2_SMALL["d_ff"], head="ce")
+
+
+def train_path(torch, mt, ck):
+    """10 SGD steps of the GPT-2-small-class LM through ``Module``."""
+    L = GPT2_SMALL["num_layers"]
+    mod = lm_module(mt, packed_lm_symbol(mt), gpt2_small_params(0))
+    return train_steps(torch, ck, mod, lm_batches(mt), PACKED_KERNELS,
+                       [f"layer{i}_qkv_weight" for i in range(L)],
+                       "training")
+
+
+def dpa_lm_symbol(sym, vocab, seq_len, num_layers, num_heads, d_model,
+                  d_ff, layout="BTHD"):
+    """The GPT-2-class LM of ``transformer_lm(..., head="ce")`` with its
+    attention written as a user writes it, in the symbol namespace
+    ``sym`` (``mt.sym`` or the JAX package's ``mx.sym``): per layer,
+    ``layer{i}_q``/``_k``/``_v`` ``FullyConnected(flatten=False)`` →
+    ``Reshape`` to (B, T, H, D) (``BHTD``: then ``transpose`` to
+    (B, H, T, D)) → ``DotProductAttention(causal=True)`` → back to
+    (B, T, H*D) → ``layer{i}_proj``.  With ``split_qkv_params`` weights
+    it computes what ``transformer_lm`` computes."""
+    Dh = d_model // num_heads
+    data = sym.Variable("data")
+    label = sym.Variable("softmax_label")
+    x = sym.Embedding(data, input_dim=vocab, output_dim=d_model,
+                      name="tok_embed")
+    pos = sym.Variable("pos_embed_weight", shape=(seq_len, d_model),
+                       init="[\"zero\", {}]")
+    x = sym.broadcast_add(x, sym.expand_dims(pos, axis=0))
+    for i in range(num_layers):
+        name = f"layer{i}"
+        h = sym.LayerNorm(x, name=f"{name}_ln1")
+        qkv = []
+        for part in "qkv":
+            t = sym.FullyConnected(h, num_hidden=d_model, flatten=False,
+                                   name=f"{name}_{part}")
+            t = sym.Reshape(t, shape=(0, 0, num_heads, Dh))
+            if layout == "BHTD":
+                t = sym.transpose(t, axes=(0, 2, 1, 3))
+            qkv.append(t)
+        a = sym.DotProductAttention(*qkv, causal=True, layout=layout,
+                                    name=f"{name}_attn")
+        if layout == "BHTD":
+            a = sym.transpose(a, axes=(0, 2, 1, 3))
+        a = sym.Reshape(a, shape=(0, 0, d_model))
+        x = x + sym.FullyConnected(a, num_hidden=d_model, flatten=False,
+                                   name=f"{name}_proj")
+        h = sym.LayerNorm(x, name=f"{name}_ln2")
+        h = sym.FullyConnected(h, num_hidden=d_ff, flatten=False,
+                               name=f"{name}_ff1")
+        h = sym.Activation(h, act_type="gelu", name=f"{name}_gelu")
+        x = x + sym.FullyConnected(h, num_hidden=d_model, flatten=False,
+                                   name=f"{name}_ff2")
+    x = sym.LayerNorm(x, name="ln_f")
+    logits = sym.FullyConnected(x, num_hidden=vocab, flatten=False,
+                                name="head")
+    return sym.SoftmaxCELoss(logits, label, use_ignore=True, ignore_label=0,
+                             name="softmax")
+
+
+def split_qkv_params(params, num_layers):
+    """``transformer_lm`` weights for ``dpa_lm_symbol``: each packed
+    ``layer{i}_qkv_weight`` (3*d, d) and ``_bias`` (3*d,) cut into row
+    thirds [q | k | v]."""
+    out = {k: v for k, v in params.items() if "_qkv_" not in k}
+    for i in range(num_layers):
+        for kind in ("weight", "bias"):
+            packed = params[f"layer{i}_qkv_{kind}"]
+            n = packed.shape[0] // 3
+            for j, part in enumerate("qkv"):
+                out[f"layer{i}_{part}_{kind}"] = packed[j * n:(j + 1) * n]
+    return out
+
+
+def first_step(torch, mt, ck, sym, params, batch, grads, want):
+    """One ``forward_backward`` of a fresh module on ``batch``, the
+    launch counts reset just before and read just after (each kernel of
+    ``want`` 12 times, the others of both attention families 0); returns
+    (mean loss, launches, host copies of the ``grads`` gradients).  The
+    module is released before returning."""
+    L = GPT2_SMALL["num_layers"]
+    mod = lm_module(mt, sym, params)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    mod.forward_backward(batch)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    for name in DPA_KERNELS + PACKED_KERNELS:
+        n = L if name in want else 0
+        check(launches[name] == n, f"first step: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    loss = float(mod.get_outputs()[0].asnumpy().mean())
+    out = {n: mod._exec.grad_dict[n]._data.cpu() for n in grads}
+    del mod
+    torch.cuda.empty_cache()
+    return loss, launches, out
+
+
+def dpa_path(torch, mt, ck):
+    """The GPT-2-small-class LM over user-written attention symbols
+    (``dpa_lm_symbol``) through ``Module``: first the check step against
+    the packed ``transformer_lm`` on the same weights and batch (and the
+    BHTD variant), then ``TRAIN_STEPS`` SGD steps."""
+    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
+        GPT2_SMALL["max_len"]
+    dm, dff = GPT2_SMALL["d_model"], GPT2_SMALL["d_ff"]
+    packed_params = gpt2_small_params(0)
+    params = split_qkv_params(packed_params, L)
+    batches = lm_batches(mt)
+    first = next(batches)
+    qkv_names = [f"layer{i}_{p}_weight" for i in range(L) for p in "qkv"]
+
+    ref_loss, _, ref = first_step(
+        torch, mt, ck, packed_lm_symbol(mt), packed_params, first,
+        [f"layer{i}_qkv_weight" for i in range(L)], PACKED_KERNELS)
+    check_launches = {k: 0 for k in ck.LAUNCHES}
+    agreement = {}
+    for layout in ("BHTD", "BTHD"):
+        sym = dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff, layout=layout)
+        loss, launches, grads = first_step(torch, mt, ck, sym, params, first,
+                                           qkv_names, DPA_KERNELS)
+        for k, n in launches.items():
+            check_launches[k] += n
+        check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
+              f"DPA LM ({layout}) first-step loss {loss} vs the packed "
+              f"LM's {ref_loss}")
+        worst = 0.0
+        for i in range(L):
+            thirds = ref[f"layer{i}_qkv_weight"].chunk(3, dim=0)
+            for part, want in zip("qkv", thirds):
+                got = grads[f"layer{i}_{part}_weight"]
+                err = (got - want).abs().max().item()
+                tol = BWD_TOL["float32"] * max(1.0, want.abs().max().item())
+                check(err <= tol, f"DPA LM ({layout}) layer{i}_{part}_weight "
+                      f"gradient: max_abs_err {err} over {tol} against the "
+                      f"packed LM's qkv_weight third")
+                worst = max(worst, err / tol)
+        agreement[layout] = {"loss": loss,
+                             "qkv_grad_err_over_tol_max": worst}
+    print(f"DPA LM first step: {agreement}, packed LM loss {ref_loss}")
+
+    mod = lm_module(mt, dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff), params)
+    batches.reset()
+    rec = train_steps(torch, ck, mod, batches, DPA_KERNELS, qkv_names,
+                      "DPA training")
+    del mod
+    torch.cuda.empty_cache()
+    for k, n in check_launches.items():
+        rec["launches"][k] += n
+    rec["first_step_vs_packed"] = dict(agreement, packed_loss=ref_loss)
+    return rec
+
+
+def imperative_check(torch, mt, ck):
+    """``mt.nd.DotProductAttention`` on ``gpu(0)`` NDArrays: one
+    ``flash_mha`` launch, equal to the plain version."""
+    rng = np.random.RandomState(4)
+    q, k, v = (mt.nd.array(rng.randn(2, 100, H, D).astype(np.float32),
+                           ctx=mt.gpu(0)) for _ in range(3))
+    ck.reset_launch_counts()
+    out = mt.nd.DotProductAttention(q, k, v, causal="True")
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["flash_mha"]
+    check(launches == 1 and sum(ck.LAUNCHES.values()) == 1,
+          f"mt.nd.DotProductAttention launched {dict(ck.LAUNCHES)}")
+    ref, _ = ck.flash_mha_plain(*(x._data.transpose(1, 2) for x in (q, k, v)),
+                                causal=True)
+    err = (out._data - ref.transpose(1, 2)).abs().max().item()
+    check(out.shape == q.shape and out.context == mt.gpu(0)
+          and err <= TOL["float32"], f"mt.nd.DotProductAttention: shape "
+          f"{out.shape}, context {out.context}, max_abs_err {err}")
+    return {"shape": list(q.shape), "launches": launches,
+            "max_abs_err": err}
 
 
 def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers):
@@ -1346,6 +1648,13 @@ def main():
             for c in check_backward(torch, ck, F, B, T, dtype):
                 checks.append(c)
                 print(json.dumps({"check": c}))
+    for dtype in ("float32", "bfloat16"):
+        for B, Hh, Tq, Tk, Dh, causal in MHA_SHAPES:
+            for c in check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal,
+                               dtype):
+                checks.append(c)
+                print(json.dumps({"check": c}))
+    torch.cuda.empty_cache()
     for T, B, Hd in ((60, 32, 200), (10, 32, 200), (7, 3, 37)):
         checks.append(check_lstm(torch, ck, T, B, Hd))
         print(json.dumps({"check": checks[-1]}))
@@ -1368,6 +1677,9 @@ def main():
     train = train_path(torch, mt, ck)
     print(json.dumps({"train_path": train}))
     torch.cuda.empty_cache()
+    dpa = dpa_path(torch, mt, ck)
+    print(json.dumps({"dpa_path": dpa}))
+    print(json.dumps({"imperative": imperative_check(torch, mt, ck)}))
     lstm = lstm_path(torch, mt, ck)
     print(json.dumps({"lstm_path": lstm}))
     torch.cuda.empty_cache()
@@ -1376,10 +1688,13 @@ def main():
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the training run,
-    # the LSTM-PTB run and the SSD300 run
+    # the DPA training run, the LSTM-PTB run and the SSD300 run
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
+    mha_bwd = ("mxnet_tpu_torch/csrc/flash_mha_bwd.cu",
+               "mxnet_tpu/ops/pallas_kernels.py:838")
+    path_mha = f"B={TRAIN_BATCH} H={H} Tq=1024 Tk=1024 D={D} causal"
     meta = {"flash_mha_packed": (
                 "mxnet_tpu_torch/csrc/flash_mha_packed.cu",
                 "mxnet_tpu/ops/pallas_kernels.py:1193", "B=1 T=1024 ",
@@ -1388,6 +1703,11 @@ def main():
                                               "float32"),
             "flash_mha_packed_bwd_dkv": bwd + (f"B={TRAIN_BATCH} T=1024 ",
                                                "float32"),
+            "flash_mha": ("mxnet_tpu_torch/csrc/flash_mha.cu",
+                          "mxnet_tpu/ops/pallas_kernels.py:792", path_mha,
+                          "float32"),
+            "flash_mha_bwd_dq": mha_bwd + (path_mha, "float32"),
+            "flash_mha_bwd_dkv": mha_bwd + (path_mha, "float32"),
             "paged_attention_decode": (
                 paged + "decode.cu", "mxnet_tpu/ops/pallas_kernels.py:1389",
                 "B=16 MB=64 ", "float32"),
@@ -1411,7 +1731,7 @@ def main():
                 "mxnet_tpu_torch/csrc/nms.cu",
                 "mxnet_tpu/ops/pallas_kernels.py:203",
                 "B=32 A=8732 force_suppress=False", "float32")}
-    all_runs = [res, *runs.values(), train, lstm, ssd]
+    all_runs = [res, *runs.values(), train, dpa, lstm, ssd]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name

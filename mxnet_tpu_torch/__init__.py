@@ -3,13 +3,16 @@
 A second package beside the JAX reference, written for an NVIDIA H100.
 It serves the ``transformer_lm`` family through :class:`DecodeEngine`
 (fp32/bf16 or int8/fp8 KV pages, n-gram speculative decoding) and
-trains it through ``mod.Module`` over the ``transformer_lm`` symbol, and
-trains and scores the LSTM language model through
-``mod.BucketingModule`` over ``sym.RNN``, on hand-written CUDA kernels
-(packed-QKV flash attention forward and backward, paged decode
-attention over raw and quantized pages, the speculative verify window,
-the LSTM recurrence; ``csrc/``).  It imports ``torch``,
-never ``jax`` and nothing of ``mxnet_tpu``.
+trains it through ``mod.Module`` over the ``transformer_lm`` symbol or
+over user-written ``sym.DotProductAttention`` symbols, trains and
+scores the LSTM language model through ``mod.BucketingModule`` over
+``sym.RNN``, and trains and runs the SSD detector, on hand-written CUDA
+kernels (packed-QKV flash attention forward and backward, attention
+over separate q, k, v forward and backward, paged decode attention over
+raw and quantized pages, the speculative verify window, the LSTM
+recurrence, greedy NMS; ``csrc/``).  Every registered op is also an
+imperative function, ``nd.<op>``.  It imports ``torch``, never ``jax``
+and nothing of ``mxnet_tpu``.
 
 Entry points run on the card (``gpu(0)``) unless the caller passes
 ``ctx=cpu()`` (``context=cpu()`` for ``Module``); there the kernels'

@@ -131,7 +131,11 @@ class Perplexity(EvalMetric):
         lab = label._data if isinstance(label, NDArray) \
             else torch.as_tensor(numpy.asarray(label))
         lab = lab.to(p.device).reshape(-1).long()
-        probs = p.gather(1, lab[:, None])[:, 0].float()
+        # the JAX gather's indexing: a label in [-C, 0) wraps, then any
+        # label clamps into [0, C); ignored rows are masked after it
+        C = p.shape[1]
+        idx = torch.where(lab < 0, lab + C, lab).clamp(0, C - 1)
+        probs = p.gather(1, idx[:, None])[:, 0].float()
         num = torch.tensor(lab.shape[0], device=p.device)
         if self.ignore_label is not None:
             ignore = lab == int(self.ignore_label)

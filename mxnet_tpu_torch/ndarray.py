@@ -3,8 +3,10 @@
 Counterpart of ``mxnet_tpu/ndarray.py``, holding what the training
 path touches: creation (``array``, ``zeros``), ``asnumpy``,
 ``shape``/``dtype``/``context``, ``copy``/``copyto``, ``__setitem__``
-(how initializers, ``set_params`` and batches write) and elementwise
-arithmetic.
+(how initializers, ``set_params`` and batches write), ``__getitem__``
+and ``slice``, elementwise arithmetic, and the imperative op namespace:
+every registered op is ``nd.<name>`` (``imperative_invoke``; forward
+only, outputs on the inputs' context).
 
 An NDArray is a mutable handle on one tensor on one explicit device
 (its context).  Writes go into that tensor in place (``x[:] = v``,
@@ -15,22 +17,30 @@ dtype: a write from another device or dtype is copied and cast.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import sys
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .base import MXNetError, numeric_types
+from .base import MXNetError, attrs_to_str, numeric_types
 from .context import Context, cpu, current_context
 
-__all__ = ["NDArray", "array", "zeros", "torch_dtype", "dtype_name"]
+__all__ = ["NDArray", "array", "zeros", "torch_dtype", "dtype_name",
+           "imperative_invoke"]
 
 _py_slice = slice
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "float16": torch.float16, "bfloat16": torch.bfloat16,
-           "int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
-           "uint8": torch.uint8, "bool": torch.bool}
+           "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+           "int64": torch.int64, "uint8": torch.uint8,
+           "uint16": torch.uint16, "uint32": torch.uint32,
+           "bool": torch.bool}
+# what ``array`` makes of a 64-bit non-float source when no dtype is
+# given: the JAX package runs without x64, so its arrays hold 32 bits
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
+           torch.uint64: torch.uint32}
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
@@ -160,6 +170,14 @@ class NDArray:
             else:
                 self._data[key] = v
 
+    def __getitem__(self, key) -> "NDArray":
+        """Basic indexing gives a view, as MXNet's slicing does: a write
+        through it reaches this array."""
+        return NDArray(self._data[key], self._ctx)
+
+    def slice(self, start: int, stop: int) -> "NDArray":
+        return NDArray(self._data[start:stop], self._ctx)
+
     # -- arithmetic ----------------------------------------------------------
     def _other(self, o):
         return o._data if isinstance(o, NDArray) else o
@@ -208,16 +226,17 @@ def _ctx(ctx: Optional[Context]) -> Tuple[Context, torch.device]:
 def array(source_array, ctx: Optional[Context] = None,
           dtype=None) -> NDArray:
     """A copy of ``source_array`` (numpy-like, NDArray or tensor) on
-    ``ctx``; float64 sources become float32 unless ``dtype`` says."""
+    ``ctx``.  Unless ``dtype`` says otherwise, a 64-bit numpy-like
+    source narrows to 32 bits as in the JAX package: float64 to float32,
+    int64 to int32, uint64 to uint32."""
     if isinstance(source_array, NDArray):
         src = source_array._data.detach()
     elif isinstance(source_array, torch.Tensor):
         src = source_array.detach()
     else:
-        view = np.asarray(source_array)
-        if dtype is None and view.dtype == np.float64:
-            view = view.astype(np.float32)
-        src = torch.from_numpy(np.array(view, copy=True))
+        src = torch.from_numpy(np.array(np.asarray(source_array), copy=True))
+        if dtype is None:
+            src = src.to(_NARROW.get(src.dtype, src.dtype))
     ctx, dev = _ctx(ctx)
     tdt = torch_dtype(dtype) if dtype is not None else src.dtype
     return NDArray(src.to(device=dev, dtype=tdt, copy=True), ctx)
@@ -228,3 +247,74 @@ def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype), device=dev),
                    ctx)
+
+
+# ---------------------------------------------------------------------------
+# imperative invoke + the generated op namespace (``mxnet_tpu/ndarray.py:
+# 496-560``)
+# ---------------------------------------------------------------------------
+
+
+def imperative_invoke(op_name: str, *args, out=None, is_train: bool = False,
+                      **kwargs) -> Union[NDArray, List[NDArray]]:
+    """Run registered op ``op_name`` on NDArrays, forward only.  Keyword
+    arguments are its attrs (``ctx`` and ``name`` aside); NDArrays past
+    the op's formal inputs are its aux states, written back in place.
+    Outputs lie on the inputs' context (``ctx`` when there are none);
+    ``out`` receives them instead of new arrays."""
+    nd_inputs = [a for a in args if isinstance(a, NDArray)]
+    ctx = kwargs.pop("ctx", None)
+    if ctx is None:
+        ctx = nd_inputs[0]._ctx if nd_inputs else current_context()
+    kwargs.pop("name", None)
+    attrs = attrs_to_str({k: v for k, v in kwargs.items() if v is not None})
+    op = _reg.get_op(op_name)
+    n_formal = len(op.input_names(attrs))
+    nd_aux = nd_inputs[n_formal:] if op.auxiliary_names(attrs) else []
+    nd_inputs = nd_inputs[:n_formal]
+    with torch.no_grad():
+        outs, new_aux = _reg.invoke(op_name, [a._data for a in nd_inputs],
+                                    attrs, is_train=is_train,
+                                    aux=[a._data for a in nd_aux])
+    for dst, src in zip(nd_aux, new_aux):
+        dst[:] = src
+    results = [NDArray(o, ctx) for o in outs]
+    if out is not None:
+        for dst, src in zip(out if isinstance(out, (list, tuple)) else [out],
+                            results):
+            dst[:] = src
+        return out
+    return results[0] if len(results) == 1 else results
+
+
+def _make_ndarray_function(op_name: str):
+    op = _reg.get_op(op_name)
+
+    def fn(*args, **kwargs):
+        # positional NDArrays, or inputs by name (data=...)
+        pos = list(args)
+        named = op.input_names(attrs_to_str(
+            {k: v for k, v in kwargs.items() if not isinstance(v, NDArray)}))
+        for name in named:
+            if name in kwargs:
+                pos.append(kwargs.pop(name))
+        return imperative_invoke(op_name, *pos, **kwargs)
+
+    fn.__name__ = op_name
+    fn.__doc__ = op.doc
+    return fn
+
+
+def _init_ndarray_module():
+    """``nd.<op>`` for every registered op whose name is free (``array``
+    and ``zeros`` stay the creation functions)."""
+    mod = sys.modules[__name__]
+    for name in _reg.list_ops():
+        if not hasattr(mod, name):
+            setattr(mod, name, _make_ndarray_function(name))
+
+
+# the ops import this module's dtype helpers, so the registry comes last
+from .ops import registry as _reg  # noqa: E402
+
+_init_ndarray_module()

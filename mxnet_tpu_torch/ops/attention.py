@@ -1,10 +1,12 @@
 """Attention ops of the serving and training paths: packed-QKV self
-attention (differentiable), prefill, paged cache writes (raw and
+attention (differentiable), ``DotProductAttention`` over separate q, k,
+v (differentiable), prefill, paged cache writes (raw and
 quantize-on-write), paged decode and the speculative verify window.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  Layouts are the JAX
-package's: qkv (B, S, 3*H*D) packed [q | k | v], pools (P, KVB, H, D),
-block tables (B, MB) int32 with page 0 as scratch, lengths (B,) int32.
+package's: qkv (B, S, 3*H*D) packed [q | k | v], q/k/v (B, T, H, D)
+('BTHD') or (B, H, T, D) ('BHTD'), pools (P, KVB, H, D), block tables
+(B, MB) int32 with page 0 as scratch, lengths (B,) int32.
 
 The JAX ops return new pools (buffer donation makes the update in place
 under jit, ``serving.py:2045-2047``).  Here the pools are written in
@@ -20,7 +22,8 @@ path, in float32.
 (``pallas_kernels._flash_mha_packed_fn``): its forward saves (qkv, o,
 lse) and its backward runs the backward kernels, each routed like every
 kernel wrapper (a CUDA tensor launches the kernel, a CPU tensor runs the
-plain version).
+plain version).  ``_FlashMHAFn`` is the same around ``flash_mha``
+(``pallas_kernels._flash_mha_fn``), saving (q, k, v, o, lse).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from ..base import MXNetError, attr_bool, attr_int
 from . import cuda_kernels as ck
 from .registry import register
 
-__all__ = ["blockwise_attention_partial", "normalize_attention_state",
+__all__ = ["blockwise_attention", "blockwise_attention_partial",
+           "normalize_attention_state",
            "paged_cache_update", "paged_prefill_write",
            "paged_decode_attention", "qkv_self_attention",
            "qkv_self_attention_prefill", "qkv_paged_attention_decode",
@@ -325,6 +329,74 @@ def _qkv_attention_op(op_ctx, attrs, inputs, aux):
         inputs[0], attr_int(attrs.get("num_heads", 1), 1),
         causal=attr_bool(attrs.get("causal", False), False),
         block_size=attr_int(attrs.get("block_size", 0), 0))]
+
+
+class _FlashMHAFn(torch.autograd.Function):
+    """Normalized attention over separate q, k, v with its backward
+    kernels: forward ``flash_mha`` → o, saving (q, k, v, o, lse);
+    backward ``flash_mha_bwd`` → (dq, dk, dv) in the inputs' layouts."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_size):
+        o, lse = ck.flash_mha(q, k, v, causal=causal, block_size=block_size)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, block_size)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, block_size = ctx.cfg
+        dq, dk, dv = ck.flash_mha_bwd(q, k, v, o, lse, do, causal=causal,
+                                      block_size=block_size)
+        return dq, dk, dv, None, None
+
+
+def _lanes_contiguous(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def blockwise_attention(q, k, v, causal: bool = False, block_size: int = 0,
+                        layout: str = "BTHD") -> torch.Tensor:
+    """Normalized attention through the ``flash_mha`` kernels (forward,
+    and backward when a gradient is asked for).
+
+    layout 'BTHD': q (B, Tq, H, D), k/v (B, Tk, H, D) in and out;
+    'BHTD': (B, H, T, D).  Either way the kernels read (B, H, T, D)
+    views through their strides: no transpose is copied, and the output
+    comes back in the input's layout.  ``block_size`` (0: 512) is the
+    plain version's key block."""
+    if layout not in ("BTHD", "BHTD"):
+        raise MXNetError(f"unknown attention layout {layout!r}")
+    if layout == "BTHD":
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    q, k, v = (_lanes_contiguous(x) for x in (q, k, v))
+    out, _ = _FlashMHAFn.apply(q, k, v, bool(causal),
+                               int(block_size or 512))
+    return out.transpose(1, 2) if layout == "BTHD" else out
+
+
+def _attention_infer(attrs, in_shapes):
+    q = in_shapes[0]
+    if q is None:
+        return in_shapes, None, None
+    return in_shapes, [tuple(q)], []
+
+
+@register("DotProductAttention", arg_names=("query", "key", "value"),
+          infer_shape=_attention_infer, aliases=("MultiHeadAttention",),
+          doc="Fused blockwise multi-head attention: (B, T, H, D) "
+              "q/k/v -> (B, T, H, D) on the flash_mha kernels; attrs: "
+              "causal, block_size, layout ('BTHD' default | 'BHTD')")
+def _attention_op(op_ctx, attrs, inputs, aux):
+    q, k, v = inputs
+    if q.ndim != 4:
+        raise MXNetError("DotProductAttention expects 4-D inputs")
+    return [blockwise_attention(
+        q, k, v, causal=attr_bool(attrs.get("causal", False), False),
+        block_size=attr_int(attrs.get("block_size", 0), 0),
+        layout=str(attrs.get("layout", "BTHD")))]
 
 
 def qkv_self_attention_prefill(qkv, num_heads: int, block_size: int = 0

@@ -8,6 +8,11 @@ the serving and training paths:
   (``csrc/flash_mha_packed.cu``, replacing ``_mhap_fwd``);
 * ``flash_mha_packed_bwd`` — its backward, a dq kernel and a dk/dv
   kernel (``csrc/flash_mha_packed_bwd.cu``, replacing ``_mhap_bwd``);
+* ``flash_mha`` — normalized attention over three separate q, k, v
+  tensors of any head width up to ``FLASH_MHA_MAX_HEAD_DIM``, Tq and Tk
+  free (``csrc/flash_mha.cu``, replacing ``_mha_fwd``), and
+  ``flash_mha_bwd``, its dq kernel and kv-block-outer dk/dv kernel
+  (``csrc/flash_mha_bwd.cu``, replacing ``_mha_bwd``);
 * ``paged_attention_decode`` — one query per stream against pages
   gathered through a block table (``csrc/paged_attention_decode.cu``);
 * ``paged_attention_decode_quant`` — the same over int8/fp8 pages with
@@ -28,8 +33,8 @@ The three paged kernels share one body (``csrc/paged_attention.cuh``):
 verify row w equals the decode kernel at ``lengths = start + 1 + w`` bit
 for bit, raw and quantized alike.
 
-``ops/attention.py`` wraps forward and backward in one
-``torch.autograd.Function``, and ``ops/rnn.py`` wraps ``lstm_scan``
+``ops/attention.py`` wraps each attention forward and its backward in
+one ``torch.autograd.Function``, and ``ops/rnn.py`` wraps ``lstm_scan``
 with its remat backward; the forward wrappers here refuse an input that
 requires a gradient, since the kernel's output carries none.
 
@@ -54,7 +59,9 @@ from ..base import MXNetError
 
 __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "flash_mha_packed_bwd", "flash_mha_packed_bwd_plain",
-           "launch_flash_mha_packed_bwd",
+           "launch_flash_mha_packed_bwd", "flash_mha", "flash_mha_plain",
+           "flash_mha_bwd", "flash_mha_bwd_plain", "launch_flash_mha_bwd",
+           "FLASH_MHA_MAX_HEAD_DIM",
            "paged_attention_decode", "paged_attention_decode_plain",
            "paged_attention_decode_quant",
            "paged_attention_decode_quant_plain", "gather_pages",
@@ -67,6 +74,9 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
 LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "flash_mha_packed_bwd_dq": 0,
                             "flash_mha_packed_bwd_dkv": 0,
+                            "flash_mha": 0,
+                            "flash_mha_bwd_dq": 0,
+                            "flash_mha_bwd_dkv": 0,
                             "paged_attention_decode": 0,
                             "paged_attention_decode_quant": 0,
                             "paged_attention_verify": 0,
@@ -74,8 +84,11 @@ LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "lstm_scan": 0,
                             "nms": 0}
 
-# head widths the kernels are instantiated for (csrc/*.cu)
+# head widths the packed and paged kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (64,)
+# the widest head flash_mha's kernels take (csrc/flash_mha*.cu: D padded
+# to a multiple of 32, four threads a row)
+FLASH_MHA_MAX_HEAD_DIM = 128
 # the largest LSTM hidden size lstm_scan takes: one thread per hidden unit
 LSTM_MAX_HIDDEN = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,6 +96,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_strides = ctypes.POINTER(ctypes.c_longlong)
 
 
 def reset_launch_counts() -> None:
@@ -309,6 +323,230 @@ def launch_flash_mha_packed_bwd(part: str, qkv, o, lse, do, dqkv,
         err = fn(qkv.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  do.data_ptr(), dqkv.data_ptr(), B, T, H, HD3 // (3 * H),
                  int(bool(causal)), _DTYPE_CODE[qkv.dtype], stream)
+    _check_launch(err, name)
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# flash_mha: normalized attention over separate q, k, v, and its backward
+# ---------------------------------------------------------------------------
+
+
+def _bhtd(x: torch.Tensor) -> torch.Tensor:
+    """A (BH, T, D) tensor as a (BH, 1, T, D) view; (B, H, T, D) as is."""
+    return x[:, None] if x.ndim == 3 else x
+
+
+def _check_mha(name: str, q, k, v) -> None:
+    """What both packages' flash_mha take: q (BH, Tq, D) or (B, H, Tq,
+    D), k and v of q's rank and leading dims with one Tk, v's head
+    width q's (the TPU kernel reads v in blocks of q's D), one dtype."""
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
+        raise MXNetError(f"{name} wants q, k, v (BH, T, D) or (B, H, T, D);"
+                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    lead = q.shape[:-2]
+    if k.shape[:-2] != lead or v.shape[:-2] != lead \
+            or v.shape[-2] != k.shape[-2] or k.shape[-1] != q.shape[-1]:
+        raise MXNetError(f"{name}: shapes disagree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if v.shape[-1] != q.shape[-1]:
+        raise MXNetError(f"{name}: v's head width {v.shape[-1]} differs "
+                         f"from q's {q.shape[-1]}; the kernels read v in "
+                         f"blocks of q's head width, as the TPU kernel")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise MXNetError(f"{name}: q, k, v dtypes differ ({q.dtype}, "
+                         f"{k.dtype}, {v.dtype})")
+
+
+def _check_mha_launch(name: str, D: int, dtype, *tensors) -> None:
+    """What the CUDA kernels take beyond ``_check_mha``."""
+    if dtype not in _DTYPE_CODE:
+        raise MXNetError(f"{name}: dtype {dtype} (the kernels take float32 "
+                         f"and bfloat16)")
+    if D > FLASH_MHA_MAX_HEAD_DIM:
+        raise MXNetError(f"{name}: head dim {D} (the kernels take up to "
+                         f"FLASH_MHA_MAX_HEAD_DIM = {FLASH_MHA_MAX_HEAD_DIM})")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise MXNetError(f"{name}: the head lanes (last axis) of q, k and v "
+                         f"must be contiguous")
+
+
+def _layout_args(*tensors) -> ctypes.Array:
+    """(batch, head, row) element strides of each (B, H, T, D) view."""
+    vals = [t.stride(i) for t in tensors for i in range(3)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, block_size: int = 512
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the blockwise online softmax in fp32 over
+    ``block_size`` key blocks (``blockwise_attention_partial``), then
+    normalized.  Returns (o of q's shape in q's dtype, lse of q's shape
+    without its last axis, float32, natural log)."""
+    from .attention import (blockwise_attention_partial,
+                            normalize_attention_state)
+
+    q4, k4, v4 = (_bhtd(x).transpose(1, 2) for x in (q, k, v))
+    o, m, l = blockwise_attention_partial(q4, k4, v4, causal=causal,
+                                          block_size=block_size or 512)
+    out = normalize_attention_state(o, m, l, q.dtype).transpose(1, 2)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return out.reshape(q.shape), lse.reshape(q.shape[:-1])
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False, block_size: int = 512
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalized attention: q (BH, Tq, D) or (B, H, Tq, D), k and v
+    (..., Tk, D) → (o like q, in q's dtype; lse q.shape[:-1] float32 in
+    natural-log units).  Causal: the mask k_pos <= q_pos aligned at
+    position 0 (a row at q_pos >= Tk sees every key).
+
+    Any strides with contiguous lanes: the kernel reads each tensor
+    through its own (batch, head, row) strides, so (B, H, T, D) views
+    of BTHD tensors need no copy, and o takes q's layout.
+    ``block_size`` is the plain version's online-softmax block (the JAX
+    lax path's); the kernel tiles on its own.
+
+    No gradient flows through this call: an input that requires one
+    raises.  ``ops.attention.blockwise_attention`` is the differentiable
+    form (forward and backward kernels in one autograd Function)."""
+    _check_mha("flash_mha", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise MXNetError(
+            "flash_mha: an input requires a gradient, which this call "
+            "would drop; use ops.attention.blockwise_attention, whose "
+            "autograd Function runs the backward kernels")
+    if not _route("flash_mha", q, k, v):
+        return flash_mha_plain(q, k, v, causal, block_size)
+    D = q.shape[-1]
+    _check_mha_launch("flash_mha", D, q.dtype, q, k, v)
+    q4, k4, v4 = (_bhtd(x) for x in (q, k, v))
+    B, H, Tq, _ = q4.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    fn = _load("flash_mha", "flash_mha_fwd",
+               [_vp, _vp, _vp, _vp, _vp, _strides, _i, _i, _i, _i, _i, _i,
+                _i, _vp])
+    strides = _layout_args(q4, k4, v4, _bhtd(o))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), strides, B, H, Tq, k4.shape[2], D,
+                 int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    _check_launch(err, "flash_mha")
+    LAUNCHES["flash_mha"] += 1
+    return o, lse
+
+
+def flash_mha_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
+                        block_size: int = 512):
+    """Plain version of the backward: the kernels' blockwise formulas in
+    float32 over ``block_size`` query and key blocks, with separate
+    query and key positions (no autograd).
+
+    p = exp(q.k^T*scale - lse), 0 where k_pos > q_pos under ``causal``
+    (aligned at position 0); Delta = rowsum(do*o) in float32; ds =
+    p*(do.v^T - Delta); dq = ds.k*scale, dk = ds^T.q*scale, dv = p^T.do,
+    with p and ds rounded to the inputs' dtype before their products, as
+    the TPU kernels cast them.  Returns (dq, dk, dv) in q's, k's and v's
+    shapes and dtype."""
+    dt = q.dtype
+    rnd = (lambda x: x) if dt == torch.float32 \
+        else (lambda x: x.to(dt).float())
+    q4, k4, v4, o4, do4 = (_bhtd(x) for x in (q, k, v, o, do))
+    Tq, Tk, D = q4.shape[2], k4.shape[2], q4.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf = q4.float(), k4.float(), v4.float()
+    dof = do4.to(dt).float()
+    delta = (do4.float() * o4.float()).sum(-1)          # (B, H, Tq)
+    lse4 = lse.reshape(q4.shape[:3]).float()
+    dq, dk, dv = (torch.zeros_like(x) for x in (qf, kf, vf))
+    block = max(1, int(block_size or 512))
+    q_pos = torch.arange(Tq, device=q.device)
+    k_pos = torch.arange(Tk, device=q.device)
+    for i0 in range(0, Tq, block):
+        i1 = min(i0 + block, Tq)
+        q_i, do_i = qf[:, :, i0:i1], dof[:, :, i0:i1]
+        lse_i = lse4[:, :, i0:i1, None]
+        delta_i = delta[:, :, i0:i1, None]
+        # causal: key blocks wholly past the block's last query are skipped
+        for j0 in range(0, min(Tk, i1) if causal else Tk, block):
+            j1 = min(j0 + block, Tk)
+            k_j, v_j = kf[:, :, j0:j1], vf[:, :, j0:j1]
+            p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q_i, k_j) * scale
+                          - lse_i)
+            if causal:
+                p = torch.where(k_pos[None, j0:j1] <= q_pos[i0:i1, None],
+                                p, 0.0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", do_i, v_j)
+            ds = rnd(p * (dp - delta_i))
+            dq[:, :, i0:i1] += torch.einsum("bhqk,bhkd->bhqd", ds, k_j) \
+                * scale
+            dk[:, :, j0:j1] += torch.einsum("bhqk,bhqd->bhkd", ds, q_i) \
+                * scale
+            dv[:, :, j0:j1] += torch.einsum("bhqk,bhqd->bhkd", rnd(p), do_i)
+    return tuple(g.to(dt).reshape(x.shape)
+                 for g, x in ((dq, q), (dk, k), (dv, v)))
+
+
+def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool = False, block_size: int = 512):
+    """Backward of ``flash_mha``: q, k, v, its output o and lse, and the
+    cotangent do of o → (dq, dk, dv), each in its input's shape, dtype
+    and layout.
+
+    On a CUDA device Delta = rowsum(do*o) is computed here in float32,
+    outside the kernels as the JAX code does, then two kernels run: dq,
+    and dk/dv, kv-block-outer (each gradient row written once by one
+    block: no atomics, deterministic)."""
+    _check_mha("flash_mha_bwd", q, k, v)
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != q.shape[:-1]:
+        raise MXNetError(
+            f"flash_mha_bwd: shapes disagree: q {tuple(q.shape)}, o "
+            f"{tuple(o.shape)}, lse {tuple(lse.shape)}, do "
+            f"{tuple(do.shape)}")
+    if not _route("flash_mha_bwd", q, k, v, o, lse, do):
+        return flash_mha_bwd_plain(q, k, v, o, lse, do, causal, block_size)
+    _check_mha_launch("flash_mha_bwd", q.shape[-1], q.dtype, q, k, v)
+    if o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise MXNetError(f"flash_mha_bwd: o {o.dtype} / lse {lse.dtype} "
+                         f"(o in q's dtype {q.dtype}, lse float32)")
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    launch_flash_mha_bwd("dq", q, k, v, do, lse, delta, (dq,), causal)
+    launch_flash_mha_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), causal)
+    return dq, dk, dv
+
+
+def launch_flash_mha_bwd(part: str, q, k, v, do, lse, delta, outs,
+                         causal: bool) -> None:
+    """Launch one of the two backward kernels on inputs ``flash_mha_bwd``
+    has checked (CUDA, one dtype, lanes contiguous, do in q's dtype, lse
+    and delta contiguous float32): ``part`` "dq" writes ``outs`` (dq,),
+    "dkv" writes (dk, dv).  Counts the launch."""
+    name = f"flash_mha_bwd_{part}"
+    q4, k4, v4, do4 = (_bhtd(x) for x in (q, k, v, do))
+    B, H, Tq, D = q4.shape
+    fn = _load("flash_mha_bwd", name,
+               [_vp] * (6 + len(outs)) + [_strides, _i, _i, _i, _i, _i, _i,
+                                           _i, _vp])
+    strides = _layout_args(q4, k4, v4, do4, *(_bhtd(t) for t in outs))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), strides, B, H, Tq,
+                 k4.shape[2], D, int(bool(causal)), _DTYPE_CODE[q.dtype],
+                 stream)
     _check_launch(err, name)
     LAUNCHES[name] += 1
 

@@ -284,7 +284,11 @@ class _SoftmaxCELoss(torch.autograd.Function):
         x = data.float()
         lse = torch.logsumexp(x, dim=-1)
         lab = label.long()
-        safe = lab.clamp(0, x.shape[-1] - 1)  # an ignore label may be -1
+        C = x.shape[-1]
+        # take_along_axis wraps a label in [-C, 0) to the class counted
+        # from the end; the clamp only makes any other label (an ignore
+        # label) a valid index
+        safe = torch.where(lab < 0, lab + C, lab).clamp(0, C - 1)
         loss = lse - torch.gather(x, -1, safe[..., None])[..., 0]
         if use_ignore:
             loss = torch.where(lab == int(ignore_label), 0.0, loss)

@@ -350,6 +350,27 @@ def test_perplexity_scored_where_preds_lie_matches_host_and_jax():
     assert dev.num_inst == host.num_inst == 14
 
 
+def test_perplexity_device_path_takes_a_negative_label_as_jax_does():
+    """Repair (ROADMAP queue C, C5): the device path gathered at the raw
+    label, so ``ignore_label=-1`` raised "index -1 is out of bounds" (a
+    device-side assert on the card); JAX gathers at the label wrapped
+    and clamped into range, then masks the ignored rows."""
+    p = np.random.RandomState(0).rand(6, 5).astype(np.float32)
+    p /= p.sum(1, keepdims=True)
+    for labels, ignore in (([1, -1, 3, 0, -1, 2], -1),
+                           ([1, -1, 7, -9, 0, 2], None)):
+        lab = np.array(labels, np.float32)
+        jm = mx.metric.Perplexity(ignore_label=ignore)
+        jm.update([mx.nd.array(lab)], [mx.nd.array(p)])
+        tm = mt.metric.Perplexity(ignore_label=ignore)
+        tm.update([mt.nd.array(lab, ctx=mt.cpu())],
+                  [mt.nd.array(p, ctx=mt.cpu())])
+        assert tm._dev is not None  # the device path took it
+        name, value = tm.get()
+        assert name == jm.get()[0]
+        np.testing.assert_allclose(value, jm.get()[1], **FWD)
+
+
 # ---------------------------------------------------------------------------
 # (c) the callbacks, as tests/test_callback.py pins the JAX ones
 # ---------------------------------------------------------------------------

@@ -46,6 +46,8 @@ def test_build_all_kernels_once_with_sm90a_flags(fake):
     for name in ("paged_attention_decode_quant", "paged_attention_verify"):
         assert name in _build.SOURCES  # quantized decode and verify
     assert "lstm_scan" in _build.SOURCES  # the LSTM recurrence
+    for name in ("flash_mha", "flash_mha_bwd"):
+        assert name in _build.SOURCES  # DotProductAttention's kernels
     first = _build.build()
     assert set(first) == set(_build.SOURCES)
     assert all(t > 0 for t in first.values())
@@ -171,14 +173,55 @@ def test_multibox_detection_raises_for_rows_the_kernel_does_not_take():
 
 
 def test_no_code_path_catches_a_failed_launch():
-    """The wrappers and the ops that call them hold no try statement, so
-    a kernel that fails to build or launch on a CUDA tensor raises and
-    never falls back to the plain version."""
+    """The wrappers, the ops that call them and the imperative namespace
+    that calls the ops hold no try statement, so a kernel that fails to
+    build or launch on a CUDA tensor raises and never falls back to the
+    plain version."""
     import ast
     import pathlib
 
-    ops = pathlib.Path(_build.__file__).parent / "ops"
-    for name in ("cuda_kernels", "attention", "rnn", "detection"):
-        tree = ast.parse((ops / f"{name}.py").read_text())
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    for name in ("flash_mha", "flash_mha_bwd", "launch_flash_mha_bwd"):
+        assert callable(getattr(ck, name))  # the B5 wrappers are scanned
+    pkg = pathlib.Path(_build.__file__).parent
+    for path in [pkg / "ops" / f"{name}.py" for name in
+                 ("cuda_kernels", "attention", "rnn", "detection")] \
+            + [pkg / "ndarray.py"]:
+        tree = ast.parse(path.read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
-        assert not tries, f"ops/{name}.py has try statements at {tries}"
+        assert not tries, f"{path.name} has try statements at {tries}"
+
+
+@pytest.mark.parametrize("source,entries,loads", [
+    ("flash_mha", ("flash_mha_fwd",),
+     ('_load("flash_mha", "flash_mha_fwd"',)),
+    ("flash_mha_bwd", ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"),
+     ('name = f"flash_mha_bwd_{part}"', '_load("flash_mha_bwd", name')),
+])
+def test_flash_mha_sources_export_the_wrappers_entry_points(
+        fake, source, entries, loads):
+    """csrc/flash_mha.cu and flash_mha_bwd.cu stand alone, export the C
+    entry points ``ops.cuda_kernels`` loads, return cudaGetLastError()
+    and take head widths up to the wrappers' limit; each counts its
+    launches, and editing one rebuilds it alone."""
+    import inspect
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    _, csrc = fake
+    assert source in _build.SOURCES
+    src = (csrc / f"{source}.cu").read_text()
+    assert ".cuh" not in src and "return cudaGetLastError();" in src
+    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in src
+    wrappers = inspect.getsource(ck)
+    assert all(text in wrappers for text in loads)
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in src
+    for name in ("flash_mha", "flash_mha_bwd_dq", "flash_mha_bwd_dkv"):
+        assert name in ck.LAUNCHES
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    (csrc / f"{source}.cu").write_text(src + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == [source]
+    assert _build.build([source])[source] > 0

@@ -220,3 +220,23 @@ def test_op_forward_and_gradients_vs_jax(op, inputs, attrs, diff):
     out.backward(torch.from_numpy(ct))
     for i, g in zip(diff, ref_grads):
         np.testing.assert_allclose(tin[i].grad.numpy(), g, **GRAD)
+
+
+def test_softmax_ce_loss_wraps_a_negative_label_as_jax_does():
+    """Repair (ROADMAP queue C, C6): a label in [-C, 0) without
+    ``use_ignore`` scores the class counted from the end, as JAX's
+    ``take_along_axis`` does (the port clamped it to class 0); the
+    gradient, which subtracts no one-hot for it on either side, stays."""
+    x = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+    lab = np.array([1, -1, 2], np.float32)
+    jloss, vjp = jax.vjp(
+        lambda d: jax_invoke("SoftmaxCELoss", [d, jnp.asarray(lab)], {})[0][0],
+        jnp.asarray(x))
+    (jgrad,) = vjp(jnp.ones_like(jloss))
+    t = torch.from_numpy(x).requires_grad_()
+    (tloss,), _ = torch_invoke("SoftmaxCELoss", [t, torch.from_numpy(lab)],
+                               {})
+    np.testing.assert_allclose(tloss.detach().numpy(), np.asarray(jloss),
+                               **FWD)
+    tloss.backward(torch.ones_like(tloss))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgrad), **GRAD)
