@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 1. Device and build: prints the card's name and power limit and builds
-   the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together).
+   the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and the user
+   kernels from their CUDA source text (the example's and this
+   script's, below) in one ``_build.build(sources=...)``, one ``nvcc``
+   per source, all started together.
 2. Kernels against their plain PyTorch versions on the card, at the
    main paths' shapes, in fp32 and bf16 (tolerances in ``TOL`` and
    ``BWD_TOL``): the time of each (CUDA events, median of 20 after
@@ -24,6 +26,22 @@
    the DPA path's (8, 12, 1024, 1024, 64) causal, a tail (T = 1000),
    Tq < Tk, and head widths 128 and 80; their library yardstick is
    SDPA's forward and backward.
+2b. User kernels (``mt.rtc``, the port of ``rtc.pallas_op``): the
+   example's ``user_silu`` and ``user_silu_grad`` at its (16, 32) batch
+   (and, as extra check lines, at (8192, 3072)) and this script's
+   exact-erf ``user_gelu`` and ``user_gelu_grad`` at the GELU LM's
+   (8, 1024, 3072), fp32, against their plain versions
+   (``TOL``), timed as above and also back to back (events around 20
+   queued launches, which hides the host's launch overhead), beside
+   ``F.silu``/``F.gelu`` and aten's ``silu_backward``/``gelu_backward``.
+   Then the API on ``gpu(0)``: ``register_op`` of ``axpb``
+   imperatively and through ``bind``; ``rowsum`` (an output of shape
+   (rows, 1) through a callable ``out_like``, ``sym.infer_shape``) and
+   ``tiled_scale`` (a 2 x 2 grid of 128 x 128 tiles through
+   ``grid``/``block``) equal to their plain versions; a deliberately
+   broken user source must raise ``MXNetError`` carrying nvcc's output
+   (the run's one expected failure, asserted); a ``cuda_op`` without a
+   VJP runs forward and raises when differentiated.
 3. Serving: a GPT-2-small-class LM (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32768, 1024 positions; random weights from
    ``np.random.RandomState(0)``) serves through ``DecodeEngine``, four
@@ -66,6 +84,27 @@
    gradient is finite and non-zero, and the loss falls.  Last,
    ``mt.nd.DotProductAttention`` on ``gpu(0)`` NDArrays launches
    ``flash_mha`` once and equals the plain version.
+4c. The user-kernel example (``mxnet_tpu_torch/examples/
+   user_cuda_kernel.py``, the port of ``examples/user_pallas_kernel.py``):
+   ``main(gpu(0))`` runs ``mt.nd.user_silu``, then FC(32) →
+   ``user_silu`` → FC(2) → ``SoftmaxOutput`` through ``Module.fit`` (10
+   epochs, SGD 0.1, ``Xavier()``, batch 16): accuracy above 0.85, and
+   every training batch launches ``user_silu`` once and
+   ``user_silu_grad`` (its VJP) once.
+4d. The GELU LM: the DPA LM of 4b with its 12 feed-forward GELUs the
+   user op ``user_gelu`` (``dpa_lm_symbol(..., gelu_op="user_gelu")``),
+   full width.  Its first step must equal the built-in-GELU DPA LM's on
+   the same weights and batch (mean loss to 1e-5 relative; ``ff1`` and
+   q/k/v weight gradients within ``BWD_TOL``); then ``TRAIN_STEPS`` SGD
+   steps as in 4, each launching ``user_gelu``, ``user_gelu_grad`` and
+   the three B5 kernels 12 times; its step p50 is printed beside 4b's.
+4e. ``CustomOp``: ``tests/test_custom_op.py``'s net, FC(8) →
+   ``Custom(op_type=...)`` (a sigmoid whose forward and backward are
+   written with ``mt.nd`` ops and check that their NDArrays lie on
+   ``gpu(0)``) → FC(2) → ``SoftmaxOutput``: its first step must equal
+   the ``Activation(sigmoid)`` net's on the same seeded weights (outputs
+   and gradients to ``TOL``), then ``Module.fit`` takes 10 epochs with a
+   finite, falling loss.
 5. LSTM-PTB: the LSTM language model of ``examples/lstm_bucketing.py``
    at the published widths of upstream MXNet's
    ``example/rnn/lstm_bucketing.py`` (vocab 10,000, embed 200, 2 LSTM
@@ -101,8 +140,9 @@
    ``set_params(*mod.get_params())``, detects every batch: one ``nms``
    launch a forward, scores sorted, and rows that ``torch.equal``
    ``nms_plain`` of the same rows before NMS.
-8. Prints ``{"kernels": [...]}`` (twelve kernels, launches summed over
-   the runs), the card line, and last ``{"ok": true, "device": {...}}``.
+8. Prints ``{"kernels": [...]}`` (the twelve built-in kernels and the
+   four timed user kernels, launches summed over the runs), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``).
@@ -169,6 +209,24 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def back_to_back_ms(torch, fn, reps=20, warmup=3):
+    """Mean device time of ``reps`` launches queued back to back between
+    two CUDA events: when the host queues faster than the card runs, the
+    host's launch overhead is hidden, which ``time_ms``'s event pair
+    around each single call includes."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -950,14 +1008,30 @@ def lm_batches(mt):
     return mt.io.NDArrayIter(X, Y, batch_size=TRAIN_BATCH)
 
 
-def train_steps(torch, ck, mod, batches, kernels, grad_names, label):
+def launch_counts(ck):
+    """The built-in kernels' launch counts and the user kernels' (a user
+    kernel cannot take a built-in kernel's name)."""
+    from mxnet_tpu_torch import rtc
+
+    return {**ck.LAUNCHES, **rtc.LAUNCHES}
+
+
+def reset_launch_counts(ck):
+    from mxnet_tpu_torch import rtc
+
+    ck.reset_launch_counts()
+    rtc.reset_launch_counts()
+
+
+def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
+                user_kernels=()):
     """``TRAIN_STEPS`` SGD steps (``TRAIN_LR``, momentum 0.9) of a bound
     LM module, the launch counts reset just before and read just after:
-    every step must launch each of ``kernels`` once a layer and the
-    other attention family's kernels never (a dropped attention gradient
-    shows as 0 backward launches), every gradient of ``grad_names`` must
-    be finite and non-zero, and the mean loss of the last 3 steps must
-    be below the first step's."""
+    every step must launch each of ``kernels`` and ``user_kernels`` (of
+    ``rtc``) once a layer and the other attention family's kernels never
+    (a dropped attention gradient shows as 0 backward launches), every
+    gradient of ``grad_names`` must be finite and non-zero, and the mean
+    loss of the last 3 steps must be below the first step's."""
     L, T = GPT2_SMALL["num_layers"], GPT2_SMALL["max_len"]
     mod.init_optimizer(optimizer="sgd", optimizer_params={
         "learning_rate": TRAIN_LR, "momentum": 0.9})
@@ -965,18 +1039,19 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    ck.reset_launch_counts()  # counts from here on: this training path
+    reset_launch_counts(ck)  # counts from here on: this training path
     t0 = time.perf_counter()
     for step, batch in enumerate(batches):
-        before = dict(ck.LAUNCHES)
+        before = launch_counts(ck)
         ts = time.perf_counter()
         mod.forward_backward(batch)
         mod.update()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - ts) * 1e3)
-        for k in DPA_KERNELS + PACKED_KERNELS:
-            n = ck.LAUNCHES[k] - before[k]
-            want = L if k in kernels else 0
+        now = launch_counts(ck)
+        for k in DPA_KERNELS + PACKED_KERNELS + tuple(user_kernels):
+            n = now[k] - before[k]
+            want = L if k in tuple(kernels) + tuple(user_kernels) else 0
             check(n == want, f"{label} step {step}: {k} launched {n} "
                   f"times, not {want}")
         sums = torch.stack([g.abs().sum() for g in grads]).cpu()
@@ -988,7 +1063,7 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label):
         losses.append(float(out.mean()))
         check(np.isfinite(losses[-1]), f"{label} loss not finite: {losses}")
     wall = time.perf_counter() - t0
-    launches = dict(ck.LAUNCHES)
+    launches = launch_counts(ck)
     peak = torch.cuda.max_memory_allocated()
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} {label} steps")
     check(np.mean(losses[-3:]) < losses[0],
@@ -1020,7 +1095,7 @@ def train_path(torch, mt, ck):
 
 
 def dpa_lm_symbol(sym, vocab, seq_len, num_layers, num_heads, d_model,
-                  d_ff, layout="BTHD"):
+                  d_ff, layout="BTHD", gelu_op=None):
     """The GPT-2-class LM of ``transformer_lm(..., head="ce")`` with its
     attention written as a user writes it, in the symbol namespace
     ``sym`` (``mt.sym`` or the JAX package's ``mx.sym``): per layer,
@@ -1028,7 +1103,9 @@ def dpa_lm_symbol(sym, vocab, seq_len, num_layers, num_heads, d_model,
     ``Reshape`` to (B, T, H, D) (``BHTD``: then ``transpose`` to
     (B, H, T, D)) → ``DotProductAttention(causal=True)`` → back to
     (B, T, H*D) → ``layer{i}_proj``.  With ``split_qkv_params`` weights
-    it computes what ``transformer_lm`` computes."""
+    it computes what ``transformer_lm`` computes.  ``gelu_op`` names a
+    registered op (a user kernel, ``register_user_gelu``) that takes the
+    place of each feed-forward ``Activation(act_type="gelu")``."""
     Dh = d_model // num_heads
     data = sym.Variable("data")
     label = sym.Variable("softmax_label")
@@ -1058,7 +1135,8 @@ def dpa_lm_symbol(sym, vocab, seq_len, num_layers, num_heads, d_model,
         h = sym.LayerNorm(x, name=f"{name}_ln2")
         h = sym.FullyConnected(h, num_hidden=d_ff, flatten=False,
                                name=f"{name}_ff1")
-        h = sym.Activation(h, act_type="gelu", name=f"{name}_gelu")
+        h = getattr(sym, gelu_op)(h, name=f"{name}_gelu") if gelu_op \
+            else sym.Activation(h, act_type="gelu", name=f"{name}_gelu")
         x = x + sym.FullyConnected(h, num_hidden=d_model, flatten=False,
                                    name=f"{name}_ff2")
     x = sym.LayerNorm(x, name="ln_f")
@@ -1082,21 +1160,162 @@ def split_qkv_params(params, num_layers):
     return out
 
 
-def first_step(torch, mt, ck, sym, params, batch, grads, want):
+# ---------------------------------------------------------------------------
+# user kernels: this script is a user of mt.rtc (the port of rtc.pallas_op)
+# ---------------------------------------------------------------------------
+
+# exact-erf GELU, 0.5 x (1 + erf(x / sqrt 2)), and its VJP
+# g (Phi(x) + x phi(x)), fp32, grid-stride over float4 (one float4 a
+# thread a pass when every pointer is 16-byte aligned, then the tail)
+GELU_SOURCE = r"""
+__device__ __forceinline__ float gelu(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__global__ void user_gelu(const float* __restrict__ x, float* __restrict__ y,
+                          long long n) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const bool vec = (((unsigned long long)x | (unsigned long long)y) & 15) == 0;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long i = tid; i < n4; i += stride) {
+    float4 v = reinterpret_cast<const float4*>(x)[i];
+    v.x = gelu(v.x); v.y = gelu(v.y); v.z = gelu(v.z); v.w = gelu(v.w);
+    reinterpret_cast<float4*>(y)[i] = v;
+  }
+  for (long long i = n4 * 4 + tid; i < n; i += stride) y[i] = gelu(x[i]);
+}
+"""
+GELU_GRAD_SOURCE = r"""
+__device__ __forceinline__ float gelu_grad(float x, float g) {
+  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+  const float pdf = expf(-0.5f * x * x) * 0.39894228040143268f;
+  return g * (cdf + x * pdf);
+}
+
+__global__ void user_gelu_grad(const float* __restrict__ x,
+                               const float* __restrict__ g,
+                               float* __restrict__ dx, long long n) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const bool vec = (((unsigned long long)x | (unsigned long long)g |
+                     (unsigned long long)dx) & 15) == 0;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long i = tid; i < n4; i += stride) {
+    const float4 a = reinterpret_cast<const float4*>(x)[i];
+    const float4 b = reinterpret_cast<const float4*>(g)[i];
+    float4 r;
+    r.x = gelu_grad(a.x, b.x); r.y = gelu_grad(a.y, b.y);
+    r.z = gelu_grad(a.z, b.z); r.w = gelu_grad(a.w, b.w);
+    reinterpret_cast<float4*>(dx)[i] = r;
+  }
+  for (long long i = n4 * 4 + tid; i < n; i += stride)
+    dx[i] = gelu_grad(x[i], g[i]);
+}
+"""
+# the two API checks of tests/test_rtc.py: an output shaped (rows, 1),
+# one thread a row; and a tiled kernel, one 128 x 128 tile a block
+ROWSUM_SOURCE = r"""
+__global__ void rowsum(const float* __restrict__ x, float* __restrict__ y,
+                       long long rows, long long cols) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  float acc = 0.0f;
+  for (long long c = 0; c < cols; ++c) acc += x[r * cols + c];
+  y[r] = acc;
+}
+"""
+TILED_SCALE_SOURCE = r"""
+__global__ void tiled_scale(const float* __restrict__ x,
+                            float* __restrict__ y, long long rows,
+                            long long cols) {
+  const long long r0 = (long long)blockIdx.y * 128;
+  const long long c0 = (long long)blockIdx.x * 128;
+  for (int r = threadIdx.y; r < 128; r += blockDim.y)
+    for (int c = threadIdx.x; c < 128; c += blockDim.x) {
+      const long long i = r0 + r, j = c0 + c;
+      if (i < rows && j < cols) y[i * cols + j] = 3.0f * x[i * cols + j];
+    }
+}
+"""
+USER_BLOCK = 256
+# operations an element (a transcendental counted as one), for bound_ms
+USER_FLOPS = {"user_silu": 4, "user_silu_grad": 9, "user_gelu": 5,
+              "user_gelu_grad": 11}
+
+
+def float4_grid(x, *rest):
+    """One float4 a thread: ceil(n / (4 * USER_BLOCK)) blocks."""
+    return (-(-x.numel() // (4 * USER_BLOCK)),)
+
+
+def gelu_plain(torch, x):
+    return 0.5 * x * (1.0 + torch.erf(x * 0.7071067811865476))
+
+
+def gelu_grad_plain(torch, x, g):
+    cdf = 0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+    pdf = torch.exp(-0.5 * x * x) * 0.3989422804014327
+    return g * (cdf + x * pdf)
+
+
+def register_user_gelu(torch, mt, name="user_gelu"):
+    """Exact-erf GELU as a user CUDA op ``name`` whose VJP launches a
+    second user kernel, ``<name>_grad``; their plain versions are the CPU
+    route.  Returns the two kernels."""
+    grad = mt.rtc.cuda_kernel(GELU_GRAD_SOURCE, "user_gelu_grad",
+                              grid=float4_grid, block=USER_BLOCK,
+                              plain=lambda x, g: gelu_grad_plain(torch, x, g),
+                              name=f"{name}_grad")
+
+    def vjp(inputs, out_grads):
+        return (grad(inputs[0], out_grads[0]),)
+
+    op = mt.rtc.cuda_op(name, GELU_SOURCE, "user_gelu", grid=float4_grid,
+                        block=USER_BLOCK,
+                        plain=lambda x: gelu_plain(torch, x), vjp=vjp)
+    return op.kernel, grad
+
+
+def register_api_ops(torch, mt, suffix=""):
+    """The three ops of ``tests/test_rtc.py``'s API checks, named with
+    ``suffix``: ``axpb`` (``register_op`` of a torch function), ``rowsum``
+    (an output of another shape, through a callable ``out_like`` and
+    ``infer_shape``) and ``tiled_scale`` (a 2 x 2 grid of 128 x 128
+    tiles through ``grid``/``block``) → their names and the two
+    kernels."""
+    names = {k: f"{k}{suffix}" for k in ("axpb", "rowsum", "tiled_scale")}
+    mt.rtc.register_op(names["axpb"], lambda x: 2.0 * x + 1.0)
+    mt.rtc.cuda_op(
+        names["rowsum"], ROWSUM_SOURCE, "rowsum",
+        out_like=lambda x: ((x.shape[0], 1), x.dtype),
+        scalars=lambda x: (x.shape[0], x.shape[1]),
+        plain=lambda x: x.sum(1, keepdim=True),
+        infer_shape=lambda s: (s[0], 1))
+    mt.rtc.cuda_op(
+        names["tiled_scale"], TILED_SCALE_SOURCE, "tiled_scale",
+        grid=(2, 2), block=(32, 8), scalars=lambda x: tuple(x.shape),
+        plain=lambda x: x * 3.0)
+    return names, [mt.ops.registry.get_op(names[k]).kernel
+                   for k in ("rowsum", "tiled_scale")]
+
+
+def first_step(torch, mt, ck, sym, params, batch, grads, want,
+               user_kernels=()):
     """One ``forward_backward`` of a fresh module on ``batch``, the
     launch counts reset just before and read just after (each kernel of
-    ``want`` 12 times, the others of both attention families 0); returns
-    (mean loss, launches, host copies of the ``grads`` gradients).  The
-    module is released before returning."""
+    ``want`` and ``user_kernels`` 12 times, the others of both attention
+    families 0); returns (mean loss, launches, host copies of the
+    ``grads`` gradients).  The module is released before returning."""
     L = GPT2_SMALL["num_layers"]
     mod = lm_module(mt, sym, params)
     torch.cuda.synchronize()
-    ck.reset_launch_counts()
+    reset_launch_counts(ck)
     mod.forward_backward(batch)
     torch.cuda.synchronize()
-    launches = dict(ck.LAUNCHES)
-    for name in DPA_KERNELS + PACKED_KERNELS:
-        n = L if name in want else 0
+    launches = launch_counts(ck)
+    for name in DPA_KERNELS + PACKED_KERNELS + tuple(user_kernels):
+        n = L if name in tuple(want) + tuple(user_kernels) else 0
         check(launches[name] == n, f"first step: {name} launched "
               f"{launches[name]} times, expected {n}")
     loss = float(mod.get_outputs()[0].asnumpy().mean())
@@ -1123,14 +1342,14 @@ def dpa_path(torch, mt, ck):
     ref_loss, _, ref = first_step(
         torch, mt, ck, packed_lm_symbol(mt), packed_params, first,
         [f"layer{i}_qkv_weight" for i in range(L)], PACKED_KERNELS)
-    check_launches = {k: 0 for k in ck.LAUNCHES}
+    check_launches = {}
     agreement = {}
     for layout in ("BHTD", "BTHD"):
         sym = dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff, layout=layout)
         loss, launches, grads = first_step(torch, mt, ck, sym, params, first,
                                            qkv_names, DPA_KERNELS)
         for k, n in launches.items():
-            check_launches[k] += n
+            check_launches[k] = check_launches.get(k, 0) + n
         check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
               f"DPA LM ({layout}) first-step loss {loss} vs the packed "
               f"LM's {ref_loss}")
@@ -1181,6 +1400,307 @@ def imperative_check(torch, mt, ck):
           f"{out.shape}, context {out.context}, max_abs_err {err}")
     return {"shape": list(q.shape), "launches": launches,
             "max_abs_err": err}
+
+
+def check_user_kernel(torch, kernel, shape, plain, library, flops, n_in):
+    """A user kernel against its plain version on seeded fp32 inputs of
+    ``shape``, timed beside the plain version, ``library`` (one PyTorch
+    call computing the same function) and its bound: each input read
+    once, the output written once, ``flops`` operations an element."""
+    g = torch.Generator(device="cuda").manual_seed(len(kernel.name))
+    xs = [torch.randn(shape, generator=g, device="cuda")
+          for _ in range(n_in)]
+    got, ref = kernel(*xs), plain(*xs)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= TOL["float32"],
+          f"{kernel.name} {shape}: max_abs_err {err} over {TOL['float32']}")
+    n = got.numel()
+    b_ms, b_by = bound((n_in + 1) * n * 4, flops * n, "float32")
+    return {"kernel": kernel.name, "shape": "x".join(map(str, shape)),
+            "dtype": "float32", "max_abs_err": err, "tol": TOL["float32"],
+            "ms": time_ms(torch, lambda: kernel(*xs)),
+            "plain_ms": time_ms(torch, lambda: plain(*xs)),
+            "library_ms": time_ms(torch, lambda: library(*xs)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "back_to_back_ms": back_to_back_ms(torch, lambda: kernel(*xs)),
+            "library_back_to_back_ms": back_to_back_ms(
+                torch, lambda: library(*xs))}
+
+
+def user_kernel_checks(torch, F, ex, gelu_kernels):
+    """The four timed user kernels, SiLU and GELU and their VJPs, at the
+    shapes of their paths: the example's (16, 32) batch of FC(32)
+    outputs, and the GELU LM's FFN activation (8, 1024, 3072).  The SiLU
+    pair is also held and timed at (8192, 3072), a GPT-2-small FFN batch
+    of 8 x 1024 flattened, which no path runs.  The library yardsticks
+    are ``F.silu``/``F.gelu`` and aten's ``silu_backward``/
+    ``gelu_backward``, the calls their autograd backward makes.  Returns
+    (the rows at the paths' shapes, the extra rows)."""
+    aten = torch.ops.aten
+    gelu, gelu_grad = gelu_kernels
+    silu = (ex.register().kernel, ex.silu_plain, F.silu,
+            USER_FLOPS["user_silu"], 1)
+    silu_grad = (ex.silu_grad, ex.silu_grad_plain,
+                 lambda x, g: aten.silu_backward(g, x),
+                 USER_FLOPS["user_silu_grad"], 2)
+    ffn = (TRAIN_BATCH, 1024, GPT2_SMALL["d_ff"])
+    path = [
+        check_user_kernel(torch, silu[0], (16, 32), *silu[1:]),
+        check_user_kernel(torch, silu_grad[0], (16, 32), *silu_grad[1:]),
+        check_user_kernel(torch, gelu, ffn, lambda x: gelu_plain(torch, x),
+                          lambda x: F.gelu(x, approximate="none"),
+                          USER_FLOPS["user_gelu"], 1),
+        check_user_kernel(torch, gelu_grad, ffn,
+                          lambda x, g: gelu_grad_plain(torch, x, g),
+                          lambda x, g: aten.gelu_backward(
+                              g, x, approximate="none"),
+                          USER_FLOPS["user_gelu_grad"], 2)]
+    big = (8192, 3072)
+    extra = [check_user_kernel(torch, silu[0], big, *silu[1:]),
+             check_user_kernel(torch, silu_grad[0], big, *silu_grad[1:])]
+    return path, extra
+
+
+def rtc_api_checks(torch, mt, names, ex):
+    """The API on the card: ``register_op`` of ``axpb`` imperatively and
+    through ``bind``; ``rowsum`` (output (rows, 1), ``sym.infer_shape``)
+    and ``tiled_scale`` (a 2 x 2 grid of 128 x 128 tiles) equal to their
+    plain versions, one launch each; a broken user source raises
+    ``MXNetError`` with nvcc's output, and the run goes on; a ``cuda_op``
+    without a VJP runs forward and raises when differentiated."""
+    rtc, gpu = mt.rtc, mt.gpu(0)
+    rng = np.random.RandomState(11)
+    x = rng.randn(3, 4).astype(np.float32)
+    axpb = getattr(mt.nd, names["axpb"])(mt.nd.array(x, ctx=gpu))
+    check(axpb.context == gpu and np.allclose(axpb.asnumpy(), 2 * x + 1,
+                                              rtol=1e-6),
+          f"axpb on gpu(0): {axpb.context}")
+    sym = getattr(mt.sym, names["axpb"])(mt.sym.Variable("data"))
+    out = sym.bind(gpu, {"data": mt.nd.array(x, ctx=gpu)}).forward()[0]
+    check(np.allclose(out.asnumpy(), 2 * x + 1, rtol=1e-6), "axpb via bind")
+
+    reset = rtc.reset_launch_counts
+    reset()
+    xt = torch.from_numpy(x).cuda()
+    rs = getattr(mt.nd, names["rowsum"])(mt.nd.array(x, ctx=gpu))
+    want = xt.sum(1, keepdim=True)
+    _, shapes, _ = getattr(mt.sym, names["rowsum"])(
+        mt.sym.Variable("data")).infer_shape(data=(3, 4))
+    check(rs.shape == (3, 1) and shapes == [(3, 1)]
+          and (rs._data - want).abs().max().item() <= TOL["float32"]
+          and rtc.LAUNCHES[names["rowsum"]] == 1,
+          f"rowsum: shape {rs.shape}, infer_shape {shapes}, launches "
+          f"{rtc.LAUNCHES[names['rowsum']]}")
+    big = torch.arange(256 * 256, dtype=torch.float32, device="cuda")
+    big = (big % 97).reshape(256, 256)
+    ts = getattr(mt.nd, names["tiled_scale"])(mt.nd.NDArray(big, gpu))
+    check(torch.equal(ts._data, big * 3.0)
+          and rtc.LAUNCHES[names["tiled_scale"]] == 1,
+          "tiled_scale: not 3x its input over the 2 x 2 grid of tiles")
+
+    broken = rtc.cuda_kernel("__global__ void broken(float* x) "
+                             "{ this is not C++; }\n", "broken",
+                             name="smoke_broken_source")
+    try:  # the one expected failure of the run
+        broken(torch.ones(4, device="cuda"))
+        build_failure = None
+    except mt.MXNetError as e:
+        build_failure = str(e)
+    check(build_failure is not None and "nvcc failed" in build_failure
+          and "error" in build_failure.split("\n", 1)[-1]
+          and rtc.LAUNCHES["smoke_broken_source"] == 0,
+          f"a broken user source did not raise with nvcc's output: "
+          f"{build_failure!r}")
+
+    novjp = "smoke_novjp_silu"
+    rtc.cuda_op(novjp, ex.SILU_SOURCE, "user_silu", grid=ex.float4_grid,
+                block=ex.BLOCK, plain=ex.silu_plain)
+    net = getattr(mt.sym, novjp)(mt.sym.FullyConnected(
+        mt.sym.Variable("data"), num_hidden=8, name="fc"))
+    exe = net.simple_bind(gpu, data=(4, 5))
+    exe.forward(is_train=True)
+    try:  # differentiating a raw kernel without a VJP must raise
+        exe.backward(out_grads=[mt.nd.ones((4, 8), ctx=gpu)])
+        failure = None
+    except mt.MXNetError as e:
+        failure = str(e)
+    check(failure is not None and novjp in failure and "no vjp" in failure
+          and rtc.LAUNCHES[novjp] == 1,
+          f"a cuda_op without vjp did not raise when differentiated: "
+          f"{failure!r}")
+    print(f"rtc API on gpu(0): axpb, rowsum, tiled_scale OK; the broken "
+          f"source raised: {build_failure.splitlines()[:3]!r} ...; the "
+          f"op without vjp raised: {failure!r}")
+    return {"axpb": True, "rowsum_shape": list(rs.shape),
+            "tiled_scale_grid": [2, 2], "broken_source_raised": True,
+            "no_vjp_raised": True}
+
+
+def example_path(torch, mt, ck, ex):
+    """``examples/user_cuda_kernel.main(gpu(0))``: the op imperatively,
+    then ``Module.fit`` to accuracy > 0.85, each training batch launching
+    ``user_silu`` once and ``user_silu_grad`` once."""
+    torch.cuda.synchronize()
+    reset_launch_counts(ck)
+    t0 = time.perf_counter()
+    rec = ex.main(mt.gpu(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(ck)
+    check(rec["accuracy"] > 0.85, f"example accuracy {rec['accuracy']}")
+    check(rec["batches"] == 80 and set(rec["batch_launches"]) == {(1, 1)},
+          f"example: {rec['batches']} batches, launches a batch "
+          f"{sorted(set(rec['batch_launches']))}, not (1, 1)")
+    check(launches["user_silu"] == 81 and launches["user_silu_grad"] == 80,
+          f"example launches {launches['user_silu']} / "
+          f"{launches['user_silu_grad']}, not 81 / 80")
+    return {"accuracy": rec["accuracy"], "batches": rec["batches"],
+            "wall_s": wall, "launches": launches}
+
+
+def gelu_lm_path(torch, mt, ck, gelu_name, dpa_step_p50_ms):
+    """The DPA LM with its 12 GELUs a user kernel (``dpa_lm_symbol(...,
+    gelu_op=)``), full width: its first step against the built-in-GELU
+    DPA LM on the same weights and batch (mean loss to 1e-5 relative;
+    ``ff1_weight`` and q/k/v weight gradients within ``BWD_TOL``), then
+    ``TRAIN_STEPS`` SGD steps, each launching ``user_gelu``,
+    ``user_gelu_grad`` and the three DPA kernels 12 times."""
+    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
+        GPT2_SMALL["max_len"]
+    dm, dff = GPT2_SMALL["d_model"], GPT2_SMALL["d_ff"]
+    user = (gelu_name, f"{gelu_name}_grad")
+    params = split_qkv_params(gpt2_small_params(0), L)
+    batches = lm_batches(mt)
+    first = next(batches)
+    names = [f"layer{i}_{p}_weight" for i in range(L)
+             for p in ("q", "k", "v", "ff1")]
+    ref_loss, _, ref = first_step(
+        torch, mt, ck, dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff), params,
+        first, names, DPA_KERNELS)
+    sym = dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff, gelu_op=gelu_name)
+    loss, launches, grads = first_step(torch, mt, ck, sym, params, first,
+                                       names, DPA_KERNELS, user)
+    check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
+          f"GELU LM first-step loss {loss} vs the built-in-GELU LM's "
+          f"{ref_loss}")
+    worst = 0.0
+    for n in names:
+        err = (grads[n] - ref[n]).abs().max().item()
+        tol = BWD_TOL["float32"] * max(1.0, ref[n].abs().max().item())
+        check(err <= tol, f"GELU LM {n} gradient: max_abs_err {err} over "
+              f"{tol} against the built-in-GELU LM's")
+        worst = max(worst, err / tol)
+    print(f"GELU LM first step: loss {loss} (built-in GELU {ref_loss}), "
+          f"gradient error over tolerance at most {worst}")
+    mod = lm_module(mt, sym, params)
+    batches.reset()
+    rec = train_steps(torch, ck, mod, batches, DPA_KERNELS,
+                      [n for n in names if "ff1" in n or "_q_" in n],
+                      "GELU LM training", user_kernels=user)
+    del mod
+    torch.cuda.empty_cache()
+    for k, n in launches.items():
+        rec["launches"][k] += n
+    rec["first_step_vs_builtin_gelu"] = {
+        "loss": loss, "builtin_loss": ref_loss,
+        "grad_err_over_tol_max": worst}
+    rec["dpa_step_p50_ms"] = dpa_step_p50_ms
+    return rec
+
+
+def _custom_sigmoid(mt, op_type):
+    """A ``CustomOp`` sigmoid written with ``mt.nd`` ops, asserting its
+    NDArrays lie on ``gpu(0)``."""
+    op = mt.operator
+
+    @op.register(op_type)
+    class SigmoidProp(op.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=True)
+
+        def create_operator(self, ctx, in_shapes, in_dtypes=None):
+            return Sigmoid()
+
+    class Sigmoid(op.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            check(in_data[0].context == mt.gpu(0)
+                  and out_data[0].context == mt.gpu(0),
+                  f"CustomOp forward got {in_data[0].context}")
+            y = mt.nd.Activation(in_data[0], act_type="sigmoid")
+            self.assign(out_data[0], req[0], y)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            check(all(a.context == mt.gpu(0) for a in
+                      (out_grad[0], out_data[0], in_grad[0])),
+                  "CustomOp backward NDArrays not on gpu(0)")
+            y = out_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] * y * (1.0 - y))
+
+
+def custom_op_path(torch, mt):
+    """``test_custom_op.py``'s net, FC(8) → ``Custom(op_type=sigmoid)``
+    → FC(2) → ``SoftmaxOutput``, on ``gpu(0)``: its first step against
+    the same net with ``Activation(sigmoid)`` on the same seeded weights
+    (outputs and every gradient to ``TOL``), then ``Module.fit`` for 10
+    epochs (SGD 0.5, batch 20) with a finite, falling loss."""
+    _custom_sigmoid(mt, "smoke_sigmoid")
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(2)
+    X = rng.randn(80, 6).astype(np.float32)
+    y = (X.sum(axis=1) > 0).astype(np.float32)
+    init = {"fc1_weight": rng.randn(8, 6) * 0.3, "fc1_bias": np.zeros(8),
+            "fc2_weight": rng.randn(2, 8) * 0.3, "fc2_bias": np.zeros(2)}
+    init = {k: v.astype(np.float32) for k, v in init.items()}
+
+    def net(custom):
+        h = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=8,
+                                  name="fc1")
+        h = mt.sym.Custom(h, op_type="smoke_sigmoid", name="act") if custom \
+            else mt.sym.Activation(h, act_type="sigmoid", name="act")
+        h = mt.sym.FullyConnected(h, num_hidden=2, name="fc2")
+        return mt.sym.SoftmaxOutput(h, name="softmax")
+
+    batch = mt.io.DataBatch([mt.nd.array(X[:20], ctx=gpu)],
+                            [mt.nd.array(y[:20], ctx=gpu)])
+    steps = {}
+    for custom in (False, True):
+        mod = mt.mod.Module(net(custom), context=gpu)
+        mod.bind(data_shapes=[("data", (20, 6))],
+                 label_shapes=[("softmax_label", (20,))])
+        mod.init_params(arg_params=init)
+        mod.forward_backward(batch)
+        steps[custom] = (mod.get_outputs()[0]._data.clone(),
+                         {k: v._data.clone() for k, v in
+                          mod._exec.grad_dict.items() if v is not None})
+    (ref_out, ref_g), (out, grads) = steps[False], steps[True]
+    err = max([(out - ref_out).abs().max().item()]
+              + [(grads[k] - ref_g[k]).abs().max().item() for k in ref_g])
+    check(sorted(grads) == sorted(ref_g) and err <= TOL["float32"],
+          f"Custom sigmoid net's first step vs Activation(sigmoid): "
+          f"max_abs_err {err}")
+
+    losses = []
+
+    def on_batch(p):
+        prob = p.locals["self"].get_outputs()[0]._data
+        lab = p.locals["data_batch"].label[0]._data.to(prob.device).long()
+        losses.append(float(-prob.gather(1, lab[:, None]).log().mean()))
+
+    mod = mt.mod.Module(net(True), context=gpu)
+    t0 = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(X, y, batch_size=20), num_epoch=10,
+            optimizer="sgd", optimizer_params={"learning_rate": 0.5},
+            arg_params=init, batch_end_callback=on_batch)
+    wall = time.perf_counter() - t0
+    check(len(losses) == 40 and np.all(np.isfinite(losses))
+          and np.mean(losses[-4:]) < np.mean(losses[:4]),
+          f"Custom-op net did not train: {losses}")
+    print(f"CustomOp on gpu(0): first step max_abs_err {err}; loss "
+          f"{np.mean(losses[:4]):.4f} → {np.mean(losses[-4:]):.4f}")
+    return {"first_step_max_abs_err": err, "epochs": 10, "batches": 40,
+            "loss_first_epoch": float(np.mean(losses[:4])),
+            "loss_last_epoch": float(np.mean(losses[-4:])), "wall_s": wall}
 
 
 def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers):
@@ -1616,8 +2136,17 @@ def main():
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; device {kind}")
 
+    # the user kernels (this script and the example are users of
+    # mt.rtc) build from their source text beside the port's csrc/
+    from mxnet_tpu_torch.examples import user_cuda_kernel as ex
+
+    gelu_kernels = register_user_gelu(torch, mt)
+    api_names, api_kernels = register_api_ops(torch, mt)
+    user_kernels = [ex.register().kernel, ex.silu_grad, *gelu_kernels,
+                    *api_kernels]
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(sources=[(k.name, k.text, ())
+                                  for k in user_kernels])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
 
@@ -1664,6 +2193,11 @@ def main():
             print(json.dumps({"check": checks[-1]}))
     check_nms_boxes_in_device_memory(torch, ck)
     torch.cuda.empty_cache()
+    user_checks, user_extra = user_kernel_checks(torch, F, ex, gelu_kernels)
+    for c in user_checks + user_extra:
+        print(json.dumps({"check": c}))
+    torch.cuda.empty_cache()
+    print(json.dumps({"rtc_api": rtc_api_checks(torch, mt, api_names, ex)}))
 
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
     res = main_path(torch, mt, ck, dev_params)
@@ -1680,6 +2214,12 @@ def main():
     dpa = dpa_path(torch, mt, ck)
     print(json.dumps({"dpa_path": dpa}))
     print(json.dumps({"imperative": imperative_check(torch, mt, ck)}))
+    example = example_path(torch, mt, ck, ex)
+    print(json.dumps({"user_kernel_example": example}))
+    gelu = gelu_lm_path(torch, mt, ck, "user_gelu", dpa["step_p50_ms"])
+    print(json.dumps({"gelu_lm_path": gelu}))
+    print(json.dumps({"custom_op": custom_op_path(torch, mt)}))
+    torch.cuda.empty_cache()
     lstm = lstm_path(torch, mt, ck)
     print(json.dumps({"lstm_path": lstm}))
     torch.cuda.empty_cache()
@@ -1731,15 +2271,32 @@ def main():
                 "mxnet_tpu_torch/csrc/nms.cu",
                 "mxnet_tpu/ops/pallas_kernels.py:203",
                 "B=32 A=8732 force_suppress=False", "float32")}
-    all_runs = [res, *runs.values(), train, dpa, lstm, ssd]
+    all_runs = [res, *runs.values(), train, dpa, lstm, ssd, example, gelu]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
                  and c["dtype"] == dtype and c["shape"].startswith(shape))
-        launches = sum(r["launches"][name] for r in all_runs)
+        launches = sum(r["launches"].get(name, 0) for r in all_runs)
         check(launches > 0, f"{name} never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
+                        "launches": launches,
+                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                        "plain_ms": c["plain_ms"],
+                        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                        "library_ms": c["library_ms"]})
+    # the user kernels (B10's port, rtc.cuda_op): launches over the
+    # example's run (SiLU) and the GELU LM's (GELU)
+    user_src = {"user_silu": "mxnet_tpu_torch/examples/user_cuda_kernel.py",
+                "user_gelu": "chip_smoke.py"}
+    for c in user_checks:
+        name = c["kernel"]
+        launches = sum(r["launches"].get(name, 0) for r in all_runs)
+        check(launches > 0, f"{name} never launched on the main paths")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": user_src[name.replace("_grad", "")],
+                        "replaces": "mxnet_tpu/rtc.py:143 (pallas_op, user "
+                                    "kernel)",
                         "launches": launches,
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                         "plain_ms": c["plain_ms"],

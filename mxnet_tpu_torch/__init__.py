@@ -11,8 +11,13 @@ kernels (packed-QKV flash attention forward and backward, attention
 over separate q, k, v forward and backward, paged decode attention over
 raw and quantized pages, the speculative verify window, the LSTM
 recurrence, greedy NMS; ``csrc/``).  Every registered op is also an
-imperative function, ``nd.<op>``.  It imports ``torch``, never ``jax``
-and nothing of ``mxnet_tpu``.
+imperative function, ``nd.<op>``.  Users add operators of their own:
+``rtc.register_op`` over a torch function, ``rtc.cuda_op`` over a
+``__global__`` kernel written in CUDA C++ and built with ``nvcc`` at
+first use (the port of ``rtc.pallas_op``; worked example
+``examples/user_cuda_kernel.py``), and ``operator.CustomOp`` with
+Python forward and backward over NDArrays (``sym.Custom``).  It imports
+``torch``, never ``jax`` and nothing of ``mxnet_tpu``.
 
 Entry points run on the card (``gpu(0)``) unless the caller passes
 ``ctx=cpu()`` (``context=cpu()`` for ``Module``); there the kernels'
@@ -34,10 +39,11 @@ from . import module
 from . import module as mod
 from . import models
 from . import speculative
+from . import operator, rtc
 from .serving import DecodeEngine, EngineClosedError
 
 __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
            "cpu", "gpu", "current_context", "params_from_numpy",
            "params_to_numpy", "nd", "sym", "mod", "io", "metric", "callback",
            "optimizer", "initializer", "random", "models", "speculative",
-           "Variable", "Group", "AttrScope"]
+           "operator", "rtc", "Variable", "Group", "AttrScope"]

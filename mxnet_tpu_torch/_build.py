@@ -8,6 +8,13 @@ an edited kernel or header rebuilds and an unchanged one loads at
 once.  Nothing here runs at import: the first
 call that launches a kernel builds it, or ``build()`` builds every
 kernel at once, one ``nvcc`` process per source, all started together.
+
+A user's CUDA source (``rtc.cuda_kernel``) builds the same way from
+text: ``build_sources`` compiles each ``(key, text, flags)`` into
+``build/libuser_<key>-<hash>.so``, the hash over the text and the
+flags, and ``library_for_source`` loads one once per process;
+``build(sources=...)`` compiles user sources beside the kernels of
+``csrc/``.
 """
 
 from __future__ import annotations
@@ -20,11 +27,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "library"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "library", "build_sources",
+           "build_source", "library_for_source"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -63,18 +71,18 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every kernel of ``names`` not built yet, all ``nvcc``
-    processes at once.  Returns ``{name: seconds}`` (0.0 for a library
-    already built).  A failed build raises with the compiler's output."""
+def _compile(jobs: Dict[str, Tuple[Path, Path, Sequence[str]]]
+             ) -> Dict[str, float]:
+    """Run one ``nvcc`` per ``name: (source, target, extra flags)`` whose
+    target is not built yet, all at once; each library lands under its
+    target name by an atomic rename.  Returns ``{name: seconds}`` (0.0
+    for a library already built).  A failed build raises with the
+    compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, float] = {}
     running = {}
     t0 = time.perf_counter()
-    for name in names:
-        if name not in SOURCES:
-            raise MXNetError(f"unknown kernel source {name!r}")
-        target = _target(name)
+    for name, (src, target, flags) in jobs.items():
         if target.exists():
             out[name] = 0.0
             continue
@@ -84,33 +92,50 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         log = tmp.with_suffix(".log")
         with open(log, "w") as fh:
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(_CSRC / f"{name}.cu")],
+                [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)],
                 stdout=fh, stderr=subprocess.STDOUT)
-        running[name] = (proc, tmp, target, log)
+        running[name] = (proc, tmp, target, log, src)
     try:
         while running:
-            for name, (proc, tmp, target, log) in list(running.items()):
+            for name, (proc, tmp, target, log, src) in list(
+                    running.items()):
                 if proc.poll() is None:
                     continue
                 del running[name]
                 text = log.read_text(errors="replace")
                 log.unlink()
                 if proc.returncode != 0:
-                    raise MXNetError(f"nvcc failed on csrc/{name}.cu "
-                                     f"(exit {proc.returncode}):\n{text}")
+                    raise MXNetError(f"nvcc failed on {name} ({src.name}, "
+                                     f"exit {proc.returncode}):\n{text}")
                 os.replace(tmp, target)  # atomic: a concurrent loader
                 # never sees a half-written library
                 out[name] = time.perf_counter() - t0
             if running:
                 time.sleep(0.05)
     finally:
-        for proc, tmp, _, log in running.values():  # only after a failure
+        for proc, tmp, _, log, _ in running.values():  # after a failure
             proc.kill()
             proc.wait()
             tmp.unlink(missing_ok=True)
             log.unlink(missing_ok=True)
     return out
+
+
+def build(names: Iterable[str] = SOURCES,
+          sources: Iterable[Tuple[str, str, Sequence[str]]] = ()
+          ) -> Dict[str, float]:
+    """Compile every kernel of ``names`` not built yet, and every user
+    source ``(key, text, flags)`` of ``sources`` (as ``build_sources``),
+    all ``nvcc`` processes at once.  Returns ``{name: seconds}``, a user
+    source under ``user_<key>`` (0.0 for a library already built).  A
+    failed build raises with the compiler's output."""
+    jobs = {}
+    for name in names:
+        if name not in SOURCES:
+            raise MXNetError(f"unknown kernel source {name!r}")
+        jobs[name] = (_CSRC / f"{name}.cu", _target(name), ())
+    jobs.update({f"user_{k}": job for k, job in _source_jobs(sources).items()})
+    return _compile(jobs)
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -124,4 +149,68 @@ def library(name: str) -> ctypes.CDLL:
             build([name])
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# user sources (rtc.cuda_kernel): CUDA C++ text from Python
+# ---------------------------------------------------------------------------
+
+_user_libs: Dict[Path, ctypes.CDLL] = {}
+
+
+def _source_target(key: str, text: str, flags: Sequence[str]) -> Path:
+    if not key.replace("_", "").isalnum():
+        raise MXNetError(f"source key {key!r}: letters, digits and _ only")
+    digest = hashlib.sha256("\0".join(
+        (text, " ".join(NVCC_FLAGS), " ".join(flags))).encode())
+    return BUILD_DIR / f"libuser_{key}-{digest.hexdigest()[:16]}.so"
+
+
+def _source_jobs(sources: Iterable[Tuple[str, str, Sequence[str]]]
+                 ) -> Dict[str, Tuple[Path, Path, Sequence[str]]]:
+    """``_compile``'s jobs for user sources: each text written once to
+    ``build/libuser_<key>-<hash>.cu`` beside its target."""
+    jobs = {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for key, text, flags in sources:
+        target = _source_target(key, text, flags)
+        src = target.with_suffix(".cu")
+        if not target.exists() and not src.exists():
+            tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        jobs[key] = (src, target, tuple(flags))
+    return jobs
+
+
+def build_sources(sources: Iterable[Tuple[str, str, Sequence[str]]]
+                  ) -> Dict[str, float]:
+    """Compile each ``(key, text, flags)`` not built yet into
+    ``build/libuser_<key>-<hash>.so``, all ``nvcc`` processes at once,
+    with ``NVCC_FLAGS`` and then ``flags``.  Returns ``{key: seconds}``
+    (0.0 for a library already built).  A failed build raises
+    ``MXNetError`` with the compiler's output."""
+    return _compile(_source_jobs(sources))
+
+
+def build_source(key: str, text: str, flags: Sequence[str] = ()) -> float:
+    """``build_sources`` of one source → seconds (0.0 when built)."""
+    return build_sources([(key, text, flags)])[key]
+
+
+def library_for_source(key: str, text: str,
+                       flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library built from ``text``, built first if needed;
+    loaded once per process."""
+    target = _source_target(key, text, flags)
+    lib = _user_libs.get(target)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _user_libs.get(target)
+        if lib is None:
+            build_source(key, text, flags)
+            lib = ctypes.CDLL(str(target))
+            _user_libs[target] = lib
     return lib

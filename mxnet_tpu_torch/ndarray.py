@@ -1,7 +1,8 @@
 """NDArray — the imperative tensor, over a ``torch.Tensor``.
 
 Counterpart of ``mxnet_tpu/ndarray.py``, holding what the training
-path touches: creation (``array``, ``zeros``), ``asnumpy``,
+path touches: creation (``array``, ``zeros``, ``empty``, ``ones``,
+``full``, ``arange``), ``asnumpy``,
 ``shape``/``dtype``/``context``, ``copy``/``copyto``, ``__setitem__``
 (how initializers, ``set_params`` and batches write), ``__getitem__``
 and ``slice``, elementwise arithmetic, and the imperative op namespace:
@@ -26,8 +27,8 @@ import torch
 from .base import MXNetError, attrs_to_str, numeric_types
 from .context import Context, cpu, current_context
 
-__all__ = ["NDArray", "array", "zeros", "torch_dtype", "dtype_name",
-           "imperative_invoke"]
+__all__ = ["NDArray", "array", "zeros", "empty", "ones", "full", "arange",
+           "torch_dtype", "dtype_name", "imperative_invoke"]
 
 _py_slice = slice
 
@@ -242,11 +243,40 @@ def array(source_array, ctx: Optional[Context] = None,
     return NDArray(src.to(device=dev, dtype=tdt, copy=True), ctx)
 
 
-def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+def full(shape, val, ctx: Optional[Context] = None,
+         dtype="float32") -> NDArray:
+    """An array of ``shape`` filled with ``val`` (``mxnet_tpu/ndarray.py:
+    353``)."""
     ctx, dev = _ctx(ctx)
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype), device=dev),
-                   ctx)
+    return NDArray(torch.full(shape, val, dtype=torch_dtype(dtype),
+                              device=dev), ctx)
+
+
+def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    return full(shape, 0, ctx, dtype)
+
+
+def ones(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    return full(shape, 1, ctx, dtype)
+
+
+def empty(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    """Zeros, as in the JAX package, whose arrays are never
+    uninitialized."""
+    return full(shape, 0, ctx, dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx: Optional[Context] = None,
+           dtype="float32") -> NDArray:
+    """``start, start + step, ...`` below ``stop`` (``[0, start)`` when
+    ``stop`` is None), each value ``repeat`` times, computed as numpy's
+    ``arange`` in ``dtype`` (``mxnet_tpu/ndarray.py:360``)."""
+    lo, hi = (0, start) if stop is None else (start, stop)
+    vals = np.arange(lo, hi, step, dtype=np.dtype(dtype_name(dtype)))
+    if repeat > 1:
+        vals = np.repeat(vals, repeat)
+    return array(vals, ctx=ctx, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +336,8 @@ def _make_ndarray_function(op_name: str):
 
 
 def _init_ndarray_module():
-    """``nd.<op>`` for every registered op whose name is free (``array``
-    and ``zeros`` stay the creation functions)."""
+    """``nd.<op>`` for every registered op whose name is free (``array``,
+    ``zeros`` and the other creation functions keep their names)."""
     mod = sys.modules[__name__]
     for name in _reg.list_ops():
         if not hasattr(mod, name):

@@ -2,8 +2,8 @@
 the package registers every op the port carries."""
 
 from . import registry
-from . import (attention, cuda_kernels, detection, elemwise, indexing, matrix,
-               nn, rnn)
+from . import (attention, cuda_kernels, custom, detection, elemwise, indexing,
+               matrix, nn, rnn)
 
-__all__ = ["registry", "attention", "cuda_kernels", "detection", "elemwise",
-           "indexing", "matrix", "nn", "rnn"]
+__all__ = ["registry", "attention", "cuda_kernels", "custom", "detection",
+           "elemwise", "indexing", "matrix", "nn", "rnn"]

@@ -6,8 +6,8 @@ touches: ``Variable`` (with ``shape``, ``dtype``, ``init`` and
 ``+``/``-``/``*`` of two symbols, outputs by index or name,
 ``get_internals``/``get_children``,
 ``list_arguments``/``list_outputs``/``list_auxiliary_states``,
-``infer_shape``/``infer_type``, ``attr_dict``, ``_topo`` and
-``simple_bind``.  A Symbol is a DAG of nodes, each a variable
+``infer_shape``/``infer_type``, ``attr_dict``, ``_topo``, ``bind``,
+``simple_bind`` and ``eval``.  A Symbol is a DAG of nodes, each a variable
 (``op=None``) or an operator application; the executor lowers it to one
 Python function over tensors, and autograd differentiates it.
 """
@@ -318,6 +318,25 @@ class Symbol:
         return arg_types, out_types, aux_types
 
     # -- binding ---------------------------------------------------------------
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, shared_exec=None):
+        """An ``Executor`` over the caller's arrays (``mxnet_tpu/symbol.py:
+        469``): ``args``, ``args_grad`` and ``aux_states`` are lists in
+        ``list_arguments()`` / ``list_auxiliary_states()`` order or dicts
+        by name; gradients land in the ``args_grad`` arrays themselves.
+        ``shared_exec`` is taken for the reference's signature: the
+        caller's arrays are bound as given, so nothing is shared."""
+        from .executor import Executor
+
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` (name → NDArray) on ``ctx`` and run forward
+        once → the outputs."""
+        from .context import current_context
+
+        return self.bind(ctx or current_context(), kwargs).forward()
+
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     shared_exec=None, **kwargs):
         from .executor import simple_bind

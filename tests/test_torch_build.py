@@ -173,10 +173,10 @@ def test_multibox_detection_raises_for_rows_the_kernel_does_not_take():
 
 
 def test_no_code_path_catches_a_failed_launch():
-    """The wrappers, the ops that call them and the imperative namespace
-    that calls the ops hold no try statement, so a kernel that fails to
-    build or launch on a CUDA tensor raises and never falls back to the
-    plain version."""
+    """The wrappers, the ops that call them, the imperative namespace
+    that calls the ops and the user-kernel surface (``rtc``) hold no try
+    statement, so a kernel that fails to build or launch on a CUDA
+    tensor raises and never falls back to the plain version."""
     import ast
     import pathlib
 
@@ -187,7 +187,7 @@ def test_no_code_path_catches_a_failed_launch():
     pkg = pathlib.Path(_build.__file__).parent
     for path in [pkg / "ops" / f"{name}.py" for name in
                  ("cuda_kernels", "attention", "rnn", "detection")] \
-            + [pkg / "ndarray.py"]:
+            + [pkg / "ndarray.py", pkg / "rtc.py"]:
         tree = ast.parse(path.read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{path.name} has try statements at {tries}"
@@ -225,3 +225,102 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
     after = {n: _build._target(n) for n in _build.SOURCES}
     assert [n for n in _build.SOURCES if after[n] != before[n]] == [source]
     assert _build.build([source])[source] > 0
+
+
+USER_SOURCE = "__global__ void k(const float* x, float* y, long long n) {}\n"
+
+
+def test_user_source_builds_under_a_hash_of_its_text_and_flags(fake):
+    """``build_source``: the same text and flags give the same library
+    and build once; another text or another flag gives a new one; the
+    flags reach nvcc after the sm_90a ones."""
+    record, _ = fake
+    target = _build._source_target("usr", USER_SOURCE, ())
+    assert target.name.startswith("libuser_usr-") and \
+        target.name.endswith(".so")
+    assert _build._source_target("usr", USER_SOURCE, ()) == target
+    assert _build.build_source("usr", USER_SOURCE) > 0
+    assert target.exists()
+    assert _build.build_source("usr", USER_SOURCE) == 0.0
+    assert len(record.read_text().splitlines()) == 1
+    edited = USER_SOURCE + "// edited\n"
+    assert _build._source_target("usr", edited, ()) != target
+    assert _build._source_target("usr", USER_SOURCE, ("-lineinfo",)) != target
+    assert _build._source_target("other", USER_SOURCE, ()) != target
+    assert _build.build_source("usr", USER_SOURCE, ("-lineinfo",)) > 0
+    calls = record.read_text().splitlines()
+    assert len(calls) == 2 and "arch=compute_90a,code=sm_90a" in calls[1]
+    assert calls[1].index("sm_90a") < calls[1].index("-lineinfo")
+    # several sources compile at once
+    done = _build.build_sources([("a", USER_SOURCE + "//a\n", ()),
+                                 ("b", USER_SOURCE + "//b\n", ())])
+    assert sorted(done) == ["a", "b"] and all(t > 0 for t in done.values())
+    with pytest.raises(MXNetError, match="letters, digits and _ only"):
+        _build.build_source("no/slash", USER_SOURCE)
+
+
+def test_kernels_and_user_sources_build_in_one_call(fake):
+    """``build(names, sources=...)``: the kernels of ``csrc/`` and user
+    sources compile together, a user source keyed ``user_<key>``; a
+    second call compiles nothing."""
+    record, _ = fake
+    names = ["nms", "lstm_scan"]
+    done = _build.build(names, sources=[("nms", USER_SOURCE, ()),
+                                        ("b", USER_SOURCE + "//b\n", ())])
+    assert sorted(done) == ["lstm_scan", "nms", "user_b", "user_nms"]
+    assert all(t > 0 for t in done.values())
+    assert len(record.read_text().splitlines()) == 4
+    assert _build._source_target("nms", USER_SOURCE, ()).exists()
+    assert _build._target("nms").exists()
+    again = _build.build(names, sources=[("nms", USER_SOURCE, ())])
+    assert again == {"nms": 0.0, "lstm_scan": 0.0, "user_nms": 0.0}
+    assert len(record.read_text().splitlines()) == 4
+
+
+def test_user_source_that_fails_raises_with_the_compiler_output(fake):
+    with pytest.raises(MXNetError, match="stand-in compile failure"):
+        _build.build_source("broken", "FAIL\n")
+    left = [p.name for p in _build.BUILD_DIR.iterdir()]
+    assert not [n for n in left if n.endswith((".tmp", ".log", ".so"))]
+
+
+def test_user_kernel_loads_its_library_once(fake, monkeypatch):
+    """``library_for_source`` builds and loads a source once a process;
+    a kernel's entry point comes from that library."""
+    loads = []
+
+    class Lib:
+        def __init__(self, path):
+            loads.append(path)
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(_build, "_user_libs", {})
+    first = _build.library_for_source("once", USER_SOURCE)
+    assert _build.library_for_source("once", USER_SOURCE) is first
+    assert len(loads) == 1 and loads[0].endswith(".so")
+
+
+def test_missing_nvcc_raises_at_the_first_cuda_build_not_before(
+        tmp_path, monkeypatch):
+    """Without nvcc the port imports, registers a user CUDA op and runs
+    it on CPU tensors; the first build (a CUDA call) raises MXNetError."""
+    import torch
+    import torch.utils.cpp_extension as cpp_ext
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import rtc
+
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_user_libs", {})
+    name = "nonvcc_" + tmp_path.name.replace("-", "_")[-12:]
+    op = rtc.cuda_op(name, USER_SOURCE, "k", plain=lambda x: x + 1.0)
+    out = getattr(mt.nd, name)(mt.nd.ones((2,), ctx=mt.cpu()))
+    assert out.asnumpy().tolist() == [2.0, 2.0]
+    with torch.no_grad():
+        assert op.kernel(torch.zeros(1)).tolist() == [1.0]
+    with pytest.raises(MXNetError, match="nvcc not found"):
+        op.kernel._load()
+    with pytest.raises(MXNetError, match="nvcc not found"):
+        _build.build([], sources=[(name, op.kernel.text, ())])
