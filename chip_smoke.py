@@ -25,7 +25,19 @@
    kernels run on (B, H, T, D) views of BTHD tensors at ``MHA_SHAPES``:
    the DPA path's (8, 12, 1024, 1024, 64) causal, a tail (T = 1000),
    Tq < Tk, and head widths 128 and 80; their library yardstick is
-   SDPA's forward and backward.
+   SDPA's forward and backward.  Before the next checks, B8 and B9
+   must have launched 0 times (the plain versions of B1, B2, B3 and B5
+   run the plain partial body).  ``flash_attention_partial`` (B8) and
+   its two backward kernels (B9) run on BTHD tensors at
+   ``PARTIAL_SHAPES``: the ring's hops at (1, 12, 4096, 4096, 64) on the
+   diagonal, in the past, with a positive ``kv_offset`` that leaves the
+   first 1024 rows without a key, and non-causal; the Ulysses decode hop
+   (1, 3, 2048, 16384, 64) at ``kv_offset`` -8000; a tail (T = 1000),
+   the same with every row masked, and head widths 128 and 80.  m must
+   ``torch.equal`` the plain m's -inf pattern, such rows hold o = 0 and
+   l = 0 exactly, and o / l agrees within ``TOL``; the yardstick is SDPA
+   with the hop's boolean mask (the same QK^T and PV work, normalized:
+   no PyTorch call returns (o, m, l)) and SDPA's backward.
 2b. User kernels (``mt.rtc``, the port of ``rtc.pallas_op``): the
    example's ``user_silu`` and ``user_silu_grad`` at its (16, 32) batch
    (and, as extra check lines, at (8192, 3072)) and this script's
@@ -140,7 +152,23 @@
    ``set_params(*mod.get_params())``, detects every batch: one ``nms``
    launch a forward, scores sorted, and rows that ``torch.equal``
    ``nms_plain`` of the same rows before NMS.
-8. Prints ``{"kernels": [...]}`` (the twelve built-in kernels and the
+8. Sequence parallelism (``mt.sequence``) on one card, fp32, at the
+   GPT-2-class attention width (H = 12, D = 64), over
+   ``sequence_mesh(4, ["cuda:0"] * 4)`` (``sequence_path``): every
+   earlier path must have launched B8 and B9 0 times; then the ring at
+   T = 16,384, causal (10 B8 launches a forward, 10 + 10 B9 a backward)
+   and non-causal (16), its output and q/k/v gradients against
+   ``blockwise_attention`` (B5); one attention block of the LM (layer
+   0's ``qkv_weight`` and ``proj_weight`` of ``gpt2_small_params(0)``
+   around the ring), its ``qkv_weight`` gradient against the same block
+   through B5; the decode-time layout, a 2,048-row chunk at
+   ``q_offset`` 8,000 through the ring (12 B8) and Ulysses (4 B8), and
+   the plain Ulysses (4 B5), against the same rows of B5's causal
+   forward; the ring's forward and forward + backward times beside
+   B5's, and peak memory.  One card shows the kernels and the hop loop:
+   each hop's K/V rotation is ``Tensor.to`` onto the same device, no
+   transfer between cards.
+9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels and the
    four timed user kernels, launches summed over the runs), the card
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -192,6 +220,32 @@ MHA_SHAPES = ((TRAIN_BATCH, H, 1024, 1024, D, True),
               (1, H, 1000, 1000, D, False),
               (2, H, 256, 1024, D, True), (2, H, 256, 1024, D, False),
               (4, 8, 1024, 1024, 128, True), (2, H, 1024, 1024, 80, True))
+# sequence parallelism on one card: a SEQ_SP-shard ring over
+# ["cuda:0"] * SEQ_SP at the GPT-2-class attention width and SEQ_T
+# positions; the decode-time layout is a SEQ_CHUNK-row chunk of q at
+# SEQ_Q_OFFSET into that K/V
+SEQ_SP, SEQ_T, SEQ_CHUNK, SEQ_Q_OFFSET = 4, 16384, 2048, 8000
+SEQ_KERNELS = ("flash_attention_partial", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+# B8/B9 checks (B, H, Tq, Tk, D, causal, kv_offset): a ring hop of the
+# path (T = 16384 over 4 shards) on the diagonal, in the past (nothing
+# masked), with a positive offset that masks the first 1024 rows, and
+# non-causal; the Ulysses decode hop (3 heads a device); a tail (T =
+# 1000), the same with every row masked, and head widths 128 and 80
+PARTIAL_SHAPES = ((1, H, 4096, 4096, D, True, 0),
+                  (1, H, 4096, 4096, D, True, -4096),
+                  (1, H, 4096, 4096, D, True, 1024),
+                  (1, H, 4096, 4096, D, False, 0),
+                  (1, 3, 2048, 16384, D, True, -8000),
+                  (1, H, 1000, 1000, D, True, 40),
+                  (1, H, 1000, 1000, D, True, 1200),
+                  (1, 8, 1024, 1024, 128, True, 0),
+                  (1, H, 1024, 1024, 80, True, 256))
+# B8 launches of one ring call at T = SEQ_T (causal: shard i attends
+# shards 0..i, 1 + 2 + 3 + 4; full: every shard every hop) and of the
+# decode layout (ring: 3 of 4 blocks a shard; Ulysses: one a device)
+SEQ_LAUNCHES = {"causal": 10, "full": 16, "decode_ring": 12,
+                "decode_ulysses": 4}
 
 
 class SmokeFailure(Exception):
@@ -409,6 +463,114 @@ def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype):
             "dtype": dtype, "max_abs_err": gerr, "tol": tol,
             "ms": time_ms(torch, lambda: ck.launch_flash_mha_bwd(
                 part, q, k, v, do, lse, delta, bufs, causal)),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def partial_pairs(B, H, Tq, Tk, causal, koff):
+    """The (query, key) pairs a partial-state call scores: under the
+    causal mask row i sees keys j with j + koff <= i."""
+    if not causal:
+        return B * H * Tq * Tk
+    rows = np.clip(np.arange(Tq) - koff + 1, 0, Tk)
+    return B * H * int(rows.sum())
+
+
+def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
+    """B8 and both B9 kernels against their plain versions on BTHD
+    tensors (the layout the ring hands them).  m must match the plain
+    m's -inf pattern exactly (``torch.equal``) and its finite values to
+    1e-4; a row with m = -inf must hold o = 0 and l = 0 exactly; l agrees
+    to 1e-5 relative, and o / l (the normalized rows) to ``TOL``, the
+    reported error.  The library yardstick is SDPA on the same q, k, v
+    with the hop's boolean mask: the same QK^T and PV work, normalized
+    (no PyTorch call returns (o, m, l)); for B9, SDPA's backward, dq,
+    dk and dv together (the plain version likewise)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(
+        B * 1000 + Tq + Dh + abs(koff))
+    q, k, v = (torch.randn((B, T, Hh, Dh), generator=g, device="cuda")
+               .to(dt) for T in (Tq, Tk, Tk))
+    ob = torch.randn((B, Hh, Tq, Dh), generator=g, device="cuda")
+    lb = torch.randn((B, Hh, Tq), generator=g, device="cuda")
+    o, m, l = ck.flash_attention_partial(q, k, v, causal, 512, koff)
+    po, pm, pl = ck.flash_attention_partial_plain(q, k, v, causal, 512, koff)
+    torch.cuda.synchronize()
+    shape = (f"B={B} H={Hh} Tq={Tq} Tk={Tk} D={Dh} koff={koff} "
+             + ("causal" if causal else "full"))
+    empty = torch.isinf(pm)
+    check(torch.equal(torch.isinf(m), empty) and not bool(
+        torch.isnan(m).any() or torch.isnan(o).any() or torch.isnan(l).any()),
+          f"flash_attention_partial {shape} {dtype}: the -inf pattern of m "
+          f"differs from the plain version's, or a NaN")
+    check(bool((m[empty] < 0).all()) and not bool(o[empty].any())
+          and not bool(l[empty].any()),
+          f"flash_attention_partial {shape} {dtype}: a row that sees no "
+          f"key is not m = -inf, l = 0, o = 0")
+    seen = ~empty
+    m_err = (m[seen] - pm[seen]).abs().max().item() if seen.any() else 0.0
+    l_err = ((l[seen] - pl[seen]).abs() / pl[seen]).max().item() \
+        if seen.any() else 0.0
+    lsafe, plsafe = (x.clamp(min=1e-30)[..., None] for x in (l, pl))
+    err = ((o / lsafe) - (po / plsafe)).abs().max().item()
+    check(m_err <= 1e-4 and l_err <= 1e-5 and err <= TOL[dtype],
+          f"flash_attention_partial {shape} {dtype}: o/l max_abs_err {err} "
+          f"(tolerance {TOL[dtype]}), m {m_err}, l relative {l_err}")
+    got = ck.flash_attention_bwd(q, k, v, m, ob, lb, causal, 512, koff)
+    ref = ck.flash_attention_bwd_plain(q, k, v, m, ob, lb, causal, 512,
+                                       koff)
+    torch.cuda.synchronize()
+    es = q.element_size()
+    pairs = partial_pairs(B, Hh, Tq, Tk, causal, koff)
+    rows_q, rows_k = B * Hh * Tq * Dh, B * Hh * Tk * Dh
+    b_ms, b_by = bound((rows_q + 2 * rows_k) * es + (rows_q + 2 * B * Hh * Tq)
+                       * 4, 4 * Dh * pairs, dtype)
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if causal:
+        kpos = torch.arange(Tk, device="cuda") + koff
+        mask = kpos[None, :] <= torch.arange(Tq, device="cuda")[:, None]
+    out = [{
+        "kernel": "flash_attention_partial", "shape": shape, "dtype": dtype,
+        "max_abs_err": err, "tol": TOL[dtype], "m_err": m_err,
+        "l_rel_err": l_err, "rows_seeing_no_key": int(empty.sum()),
+        "ms": time_ms(torch, lambda: ck.flash_attention_partial(
+            q, k, v, causal, 512, koff)),
+        "plain_ms": time_ms(torch, lambda: ck.flash_attention_partial_plain(
+            q, k, v, causal, 512, koff), reps=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by}]
+    plain_ms = time_ms(torch, lambda: ck.flash_attention_bwd_plain(
+        q, k, v, m, ob, lb, causal, 512, koff), reps=5, warmup=1)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    do_t = ob.to(dt)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa, (qg, kg, vg), do_t, retain_graph=True))
+    # every backward kernel reads q, k, v, m, o's and l's cotangents
+    reads = (rows_q + 2 * rows_k) * es + (rows_q + 2 * B * Hh * Tq) * 4
+    for part, grads, writes, flop_per_pair in (
+            ("dq", got[:1], rows_q, 6 * Dh),
+            ("dkv", got[1:], 2 * rows_k, 8 * Dh)):
+        refs = ref[:1] if part == "dq" else ref[1:]
+        peak = max(r.float().abs().max().item() for r in refs)
+        tol = BWD_TOL[dtype] * (max(1.0, peak) if dtype == "float32"
+                                else peak)
+        gerr = max((a.float() - r.float()).abs().max().item()
+                   for a, r in zip(grads, refs))
+        check(all(bool(torch.isfinite(a.float()).all()) for a in grads),
+              f"flash_attention_bwd_{part} {shape} {dtype}: not finite")
+        check(gerr <= tol, f"flash_attention_bwd_{part} {shape} {dtype}: "
+              f"max_abs_err {gerr} over tolerance {tol}")
+        bufs = tuple(torch.empty_like(a) for a in grads)
+        b_ms, b_by = bound(reads + writes * es, flop_per_pair * pairs, dtype)
+        out.append({
+            "kernel": f"flash_attention_bwd_{part}", "shape": shape,
+            "dtype": dtype, "max_abs_err": gerr, "tol": tol,
+            "ms": time_ms(torch, lambda: ck.launch_flash_attention_bwd(
+                part, q, k, v, m, ob, lb, bufs, causal, koff)),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by})
     return out
@@ -2086,6 +2248,183 @@ def ssd_path(torch, mt, ck):
                          for k in train_launches}}
 
 
+def sequence_path(torch, mt, ck):
+    """Sequence parallelism on one card: ``mt.sequence`` over
+    ``sequence_mesh(SEQ_SP, ["cuda:0"] * SEQ_SP)`` at the GPT-2-class
+    attention width, fp32, SEQ_T positions.  Each run below has the
+    launch counts reset just before it and read just after: exactly
+    ``SEQ_LAUNCHES`` B8 launches a forward, as many B9 dq and dk/dv
+    launches a backward, and no other kernel.
+
+    1. The ring, causal and non-causal: output and q/k/v gradients (under
+       a seeded cotangent) against ``blockwise_attention`` (B5) on the
+       same tensors (``TOL``, ``BWD_TOL``).
+    2. One attention block of the GPT-2-class LM: layer 0's packed
+       ``qkv_weight``/``qkv_bias`` of ``gpt2_small_params(0)`` (cut in
+       row thirds as ``split_qkv_params``) project a seeded (1, SEQ_T,
+       768) activation to q, k, v; the ring; ``proj_weight``/
+       ``proj_bias``; a seeded cotangent's dot product as the loss.  The
+       ``qkv_weight`` gradient is held against the same block through B5.
+    3. The decode-time layout: a SEQ_CHUNK-row chunk of q at
+       SEQ_Q_OFFSET through ``ring_attention`` and ``ulysses_attention``
+       (``q_offset``), and the plain ``ulysses_attention`` (B5 on each
+       device) over all of q, against the same rows of B5's full causal
+       forward.
+    Then the ring's forward and forward + backward times (CUDA events,
+    median of 3) beside B5's and both peak memories.  On one card the
+    K/V rotation is ``Tensor.to`` onto the same device: it moves no
+    bytes, so the times are the kernels' and the merges', not a
+    transfer's."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch import sequence as seq
+    from mxnet_tpu_torch.ops import attention as tatt
+
+    T, sp = SEQ_T, SEQ_SP
+    mesh = seq.sequence_mesh(sp, ["cuda:0"] * sp)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, cot = (torch.randn((1, T, H, D), generator=g, device="cuda")
+                    for _ in range(4))
+    launches = {name: 0 for name in SEQ_KERNELS}
+
+    def counted(label, fn, want):
+        """fn() between a reset and a read of the counts: ``want``
+        launches of the kernels it names, none of any other."""
+        torch.cuda.synchronize()
+        reset_launch_counts(ck)
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts(ck)
+        for name in ck.LAUNCHES:
+            check(got[name] == want.get(name, 0), f"sequence {label}: {name} "
+                  f"launched {got[name]} times, expected {want.get(name, 0)}")
+        for name in SEQ_KERNELS:
+            launches[name] += got[name]
+        return out
+
+    def fwd_bwd(attn, xs, cotangent):
+        leaves = [x.detach().clone().requires_grad_() for x in xs]
+        out = attn(*leaves)
+        out.backward(cotangent)
+        return out.detach(), [x.grad for x in leaves]
+
+    def grad_err(got, want):
+        worst = 0.0
+        for a, b in zip(got, want):
+            tol = BWD_TOL["float32"] * max(1.0, b.abs().max().item())
+            err = (a - b).abs().max().item()
+            worst = max(worst, err / tol)
+        return worst
+
+    rec = {"sp": sp, "devices": [str(d) for d in mesh.devices], "T": T,
+           "heads": H, "head_dim": D, "dtype": "float32"}
+    for causal in (True, False):
+        label = "causal" if causal else "full"
+        n = SEQ_LAUNCHES[label]
+
+        def ring(*xs, causal=causal):
+            return seq.ring_attention(*xs, mesh, causal=causal)
+
+        def b5(*xs, causal=causal):
+            return tatt.blockwise_attention(*xs, causal=causal)
+
+        out, grads = counted(
+            f"ring {label}", lambda: fwd_bwd(ring, (q, k, v), cot),
+            {"flash_attention_partial": n, "flash_attention_bwd_dq": n,
+             "flash_attention_bwd_dkv": n})
+        ref, rgrads = fwd_bwd(b5, (q, k, v), cot)
+        err = (out - ref).abs().max().item()
+        gworst = grad_err(grads, rgrads)
+        check(bool(torch.isfinite(out).all()) and err <= TOL["float32"]
+              and gworst <= 1.0, f"sequence ring {label}: output "
+              f"max_abs_err {err} against B5, gradients at {gworst} of "
+              f"BWD_TOL")
+        rec[f"ring_{label}"] = {"launches_fwd": n, "launches_bwd": n,
+                                "max_abs_err": err,
+                                "grad_err_over_tol_max": gworst}
+
+    # one attention block of the GPT-2-class LM
+    params = gpt2_small_params(0)
+    dm = GPT2_SMALL["d_model"]
+    w_qkv, b_qkv, w_p, b_p = (torch.from_numpy(params[f"layer0_{n}"]).cuda()
+                              for n in ("qkv_weight", "qkv_bias",
+                                        "proj_weight", "proj_bias"))
+    del params
+    x = torch.randn((1, T, dm), generator=g, device="cuda")
+    cy = torch.randn((1, T, dm), generator=g, device="cuda")
+
+    def block(attn):
+        w = w_qkv.clone().requires_grad_()
+        q_, k_, v_ = (F.linear(x, wt, bt).unflatten(-1, (H, D)) for wt, bt
+                      in zip(w.chunk(3, dim=0), b_qkv.chunk(3)))
+        y = F.linear(attn(q_, k_, v_, mesh, causal=True).flatten(2), w_p,
+                     b_p)
+        loss = (y * cy).sum()
+        loss.backward()
+        return loss.item(), w.grad
+
+    n = SEQ_LAUNCHES["causal"]
+    loss, gw = counted("GPT-2 block", lambda: block(seq.ring_attention),
+                       {"flash_attention_partial": n,
+                        "flash_attention_bwd_dq": n,
+                        "flash_attention_bwd_dkv": n})
+    ref_loss, ref_gw = block(
+        lambda q_, k_, v_, mesh, causal: tatt.blockwise_attention(
+            q_, k_, v_, causal=causal))
+    gworst = grad_err([gw], [ref_gw])
+    check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss) and gworst <= 1.0,
+          f"sequence GPT-2 block: loss {loss} vs B5's {ref_loss}, "
+          f"layer0_qkv_weight gradient at {gworst} of BWD_TOL")
+    rec["gpt2_block"] = {"loss": loss, "b5_loss": ref_loss,
+                         "qkv_weight_grad_err_over_tol_max": gworst}
+
+    # the decode-time layout
+    off, chunk = SEQ_Q_OFFSET, SEQ_CHUNK
+    with torch.no_grad():
+        full = tatt.blockwise_attention(q, k, v, causal=True)
+        qc = q[:, off:off + chunk]
+        for label, fn, kernel, n in (
+                ("decode_ring", seq.ring_attention, "flash_attention_partial",
+                 SEQ_LAUNCHES["decode_ring"]),
+                ("decode_ulysses", seq.ulysses_attention,
+                 "flash_attention_partial", SEQ_LAUNCHES["decode_ulysses"]),
+                ("ulysses_plain", seq.ulysses_attention, "flash_mha", sp)):
+            if label == "ulysses_plain":
+                out = counted(label, lambda: fn(q, k, v, mesh, causal=True),
+                              {kernel: n})
+                want = full
+            else:
+                out = counted(label, lambda: fn(
+                    qc, k, v, mesh, causal=True, q_offset=off), {kernel: n})
+                want = full[:, off:off + chunk]
+            err = (out - want).abs().max().item()
+            check(out.shape == want.shape and err <= TOL["float32"],
+                  f"sequence {label}: shape {tuple(out.shape)}, "
+                  f"max_abs_err {err} against B5's causal rows")
+            rec[label] = {"launches": {kernel: n}, "max_abs_err": err}
+    rec["decode_layout"] = {"q_rows": chunk, "q_offset": off, "kv_rows": T}
+
+    # times: p50 of 3 after one warm-up; peak memory of one fwd + bwd
+    def timed(attn):
+        with torch.no_grad():
+            fwd = time_ms(torch, lambda: attn(q, k, v), reps=3, warmup=1)
+        both = time_ms(torch, lambda: fwd_bwd(attn, (q, k, v), cot), reps=3,
+                       warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd(attn, (q, k, v), cot)
+        torch.cuda.synchronize()
+        return fwd, both, int(torch.cuda.max_memory_allocated())
+
+    r = timed(lambda *xs: seq.ring_attention(*xs, mesh, causal=True))
+    b = timed(lambda *xs: tatt.blockwise_attention(*xs, causal=True))
+    rec["times"] = {"ring_fwd_ms": r[0], "ring_fwd_bwd_ms": r[1],
+                    "ring_peak_memory_bytes": r[2], "b5_fwd_ms": b[0],
+                    "b5_fwd_bwd_ms": b[1], "b5_peak_memory_bytes": b[2]}
+    rec["launches"] = launches
+    return rec
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -2184,6 +2523,17 @@ def main():
                 checks.append(c)
                 print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
+    # no earlier check launched B8 or B9: the plain versions of B1, B2,
+    # B3 and B5 run the plain partial body, not the B8 wrapper
+    check(all(ck.LAUNCHES[n] == 0 for n in SEQ_KERNELS),
+          f"B8/B9 launched before their checks: {dict(ck.LAUNCHES)}")
+    for dtype in ("float32", "bfloat16"):
+        for B, Hh, Tq, Tk, Dh, causal, koff in PARTIAL_SHAPES:
+            for c in check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal,
+                                   koff, dtype):
+                checks.append(c)
+                print(json.dumps({"check": c}))
+    torch.cuda.empty_cache()
     for T, B, Hd in ((60, 32, 200), (10, 32, 200), (7, 3, 37)):
         checks.append(check_lstm(torch, ck, T, B, Hd))
         print(json.dumps({"check": checks[-1]}))
@@ -2225,16 +2575,25 @@ def main():
     torch.cuda.empty_cache()
     ssd = ssd_path(torch, mt, ck)
     print(json.dumps({"ssd300_path": ssd}))
+    torch.cuda.empty_cache()
+    earlier = [res, *runs.values(), train, dpa, lstm, ssd, example, gelu]
+    check(all(r["launches"].get(n, 0) == 0 for r in earlier
+              for n in SEQ_KERNELS), "B8/B9 launched on an earlier path")
+    sequence = sequence_path(torch, mt, ck)
+    print(json.dumps({"sequence_path": sequence}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the training run,
-    # the DPA training run, the LSTM-PTB run and the SSD300 run
+    # the DPA training run, the LSTM-PTB run, the SSD300 run and the
+    # sequence phase
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
     mha_bwd = ("mxnet_tpu_torch/csrc/flash_mha_bwd.cu",
                "mxnet_tpu/ops/pallas_kernels.py:838")
     path_mha = f"B={TRAIN_BATCH} H={H} Tq=1024 Tk=1024 D={D} causal"
+    partial = "mxnet_tpu_torch/csrc/flash_attention_partial"
+    hop = f"B=1 H={H} Tq=4096 Tk=4096 D={D} koff=-4096 "
     meta = {"flash_mha_packed": (
                 "mxnet_tpu_torch/csrc/flash_mha_packed.cu",
                 "mxnet_tpu/ops/pallas_kernels.py:1193", "B=1 T=1024 ",
@@ -2270,8 +2629,19 @@ def main():
             "nms": (
                 "mxnet_tpu_torch/csrc/nms.cu",
                 "mxnet_tpu/ops/pallas_kernels.py:203",
-                "B=32 A=8732 force_suppress=False", "float32")}
-    all_runs = [res, *runs.values(), train, dpa, lstm, ssd, example, gelu]
+                "B=32 A=8732 force_suppress=False", "float32"),
+            # the ring's past hop (nothing masked, the most work a hop
+            # does) stands for B8 and B9
+            "flash_attention_partial": (
+                partial + ".cu", "mxnet_tpu/ops/pallas_kernels.py:303",
+                hop, "float32"),
+            "flash_attention_bwd_dq": (
+                partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
+                hop, "float32"),
+            "flash_attention_bwd_dkv": (
+                partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
+                hop, "float32")}
+    all_runs = earlier + [sequence]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name

@@ -6,11 +6,13 @@ It serves the ``transformer_lm`` family through :class:`DecodeEngine`
 trains it through ``mod.Module`` over the ``transformer_lm`` symbol or
 over user-written ``sym.DotProductAttention`` symbols, trains and
 scores the LSTM language model through ``mod.BucketingModule`` over
-``sym.RNN``, and trains and runs the SSD detector, on hand-written CUDA
-kernels (packed-QKV flash attention forward and backward, attention
-over separate q, k, v forward and backward, paged decode attention over
-raw and quantized pages, the speculative verify window, the LSTM
-recurrence, greedy NMS; ``csrc/``).  Every registered op is also an
+``sym.RNN``, trains and runs the SSD detector, and cuts long sequences
+over devices (``sequence``: ring and Ulysses attention), on hand-written
+CUDA kernels (packed-QKV flash attention forward and backward,
+attention over separate q, k, v forward and backward, the partial
+online-softmax state of a ring hop forward and backward, paged decode
+attention over raw and quantized pages, the speculative verify window,
+the LSTM recurrence, greedy NMS; ``csrc/``).  Every registered op is also an
 imperative function, ``nd.<op>``.  Users add operators of their own:
 ``rtc.register_op`` over a torch function, ``rtc.cuda_op`` over a
 ``__global__`` kernel written in CUDA C++ and built with ``nvcc`` at
@@ -40,10 +42,11 @@ from . import module as mod
 from . import models
 from . import speculative
 from . import operator, rtc
+from . import sequence
 from .serving import DecodeEngine, EngineClosedError
 
 __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
            "cpu", "gpu", "current_context", "params_from_numpy",
            "params_to_numpy", "nd", "sym", "mod", "io", "metric", "callback",
            "optimizer", "initializer", "random", "models", "speculative",
-           "operator", "rtc", "Variable", "Group", "AttrScope"]
+           "operator", "rtc", "sequence", "Variable", "Group", "AttrScope"]

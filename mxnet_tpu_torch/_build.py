@@ -39,7 +39,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_mha_packed", "flash_mha_packed_bwd", "flash_mha",
            "flash_mha_bwd", "paged_attention_decode",
            "paged_attention_decode_quant", "paged_attention_verify",
-           "lstm_scan", "nms")
+           "lstm_scan", "nms", "flash_attention_partial",
+           "flash_attention_partial_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -13,9 +13,13 @@ under jit, ``serving.py:2045-2047``).  Here the pools are written in
 place with ``index_put_``: the functions mutate the pools they are
 given and return the same tensors.
 
-``blockwise_attention_partial`` / ``normalize_attention_state`` are the
-plain reference of the kernels: the online-softmax body of the JAX lax
-path, in float32.
+``_blockwise_attention_partial_plain`` / ``normalize_attention_state``
+are the plain reference of the kernels: the online-softmax body of the
+JAX lax path, in float32.  ``blockwise_attention_partial`` is the
+partial-state API of ``mxnet_tpu.sequence``'s ring and Ulysses
+attention, on the ``flash_attention_partial`` kernels through
+``_FlashPartialFn``, with ``attention_state_init`` and
+``attention_state_merge``.
 
 ``_FlashMHAPackedFn`` is the counterpart of the JAX package's
 ``jax.custom_vjp`` around ``flash_mha_packed``
@@ -38,7 +42,8 @@ from . import cuda_kernels as ck
 from .registry import register
 
 __all__ = ["blockwise_attention", "blockwise_attention_partial",
-           "normalize_attention_state",
+           "normalize_attention_state", "attention_state_init",
+           "attention_state_merge",
            "paged_cache_update", "paged_prefill_write",
            "paged_decode_attention", "qkv_self_attention",
            "qkv_self_attention_prefill", "qkv_paged_attention_decode",
@@ -48,14 +53,20 @@ __all__ = ["blockwise_attention", "blockwise_attention_partial",
            "qkv_paged_verify_attend"]
 
 
-def blockwise_attention_partial(q, k, v, causal: bool = False,
-                                block_size: int = 512,
-                                lengths: Optional[torch.Tensor] = None):
-    """Online-softmax attention over K/V blocks, un-normalized state.
+def _blockwise_attention_partial_plain(q, k, v, causal: bool = False,
+                                       block_size: int = 512,
+                                       kv_offset: int = 0,
+                                       lengths: Optional[torch.Tensor] = None):
+    """Online-softmax attention over K/V blocks, un-normalized state: the
+    plain body of every attention kernel (the counterpart of the JAX
+    package's ``_blockwise_attention_partial_lax``).  It launches nothing,
+    on any device.
 
     q (B, Tq, H, D), k/v (B, Tk, H, D) → (o (B, H, Tq, D), m, l
-    (B, H, Tq)) in float32, ``out = o / l``.  ``lengths`` (B,) replaces
-    the causal mask with the per-stream visibility ``k_pos <
+    (B, H, Tq)) in float32, ``out = o / l``.  ``kv_offset`` is the
+    absolute position of k[0] minus that of q[0]: under ``causal`` key j
+    is visible to row i when ``j + kv_offset <= i``.  ``lengths`` (B,)
+    replaces the causal mask with the per-stream visibility ``k_pos <
     lengths[b]`` (the decode contract: the single query sits at
     ``lengths[b] - 1``).  A row with nothing visible keeps m = -inf,
     l = 0, o = 0."""
@@ -80,7 +91,8 @@ def blockwise_attention_partial(q, k, v, causal: bool = False,
             mask = k_pos[None, None, None, :] \
                 < lengths.to(dev)[:, None, None, None]
         elif causal:
-            mask = k_pos[None, None, None, :] <= q_pos[None, None, :, None]
+            mask = (k_pos + kv_offset)[None, None, None, :] \
+                <= q_pos[None, None, :, None]
         else:
             mask = torch.ones((1, 1, 1, hi - lo), dtype=torch.bool,
                               device=dev)
@@ -94,6 +106,80 @@ def blockwise_attention_partial(q, k, v, causal: bool = False,
         o = o * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_j)
         m = m_new
     return o, m, l
+
+
+class _FlashPartialFn(torch.autograd.Function):
+    """The partial-state attention with its backward kernels: forward
+    ``flash_attention_partial`` → (o, m, l), saving (q, k, v, m) and
+    ``kv_offset``; backward ``flash_attention_bwd`` on the cotangents of
+    o and l → (dq, dk, dv).  The counterpart of the JAX package's
+    ``jax.custom_vjp`` ``_flash_partial_fn``.
+
+    m's cotangent is dropped, exactly as there, and m is marked
+    non-differentiable, so autograd spends nothing on it.  Why that is
+    exact (``pallas_kernels.py``'s derivation): every consumer of the
+    partial state (``normalize_attention_state``, the ring's
+    ``attention_state_merge``) is invariant under the rescaling (o, m,
+    l) -> (o e^{-c}, m + c, l e^{-c}), which makes the cotangent
+    identity m_bar = o_bar·o + l_bar·l hold, and the argmax-subgradient
+    terms of m cancel exactly.  The backward therefore treats m as a
+    constant: ds_ij = p_ij * (o_bar_i · v_j + l_bar_i), with p_ij =
+    exp(q_i·k_j·scale - m_i) under the same masks as the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_size, kv_offset):
+        o, m, l = ck.flash_attention_partial(q, k, v, causal, block_size,
+                                             kv_offset)
+        ctx.save_for_backward(q, k, v, m)
+        ctx.cfg = (causal, block_size, kv_offset)
+        ctx.mark_non_differentiable(m)
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, do, _dm, dl):
+        q, k, v, m = ctx.saved_tensors
+        causal, block_size, kv_offset = ctx.cfg
+        dq, dk, dv = ck.flash_attention_bwd(q, k, v, m, do, dl, causal,
+                                            block_size, kv_offset)
+        return dq, dk, dv, None, None, None
+
+
+def blockwise_attention_partial(q, k, v, causal: bool = False,
+                                block_size: int = 512, kv_offset: int = 0):
+    """Online-softmax attention over K/V, un-normalized state, through the
+    ``flash_attention_partial`` kernel (and its backward kernels when a
+    gradient is asked for).
+
+    q (B, Tq, H, D), k/v (B, Tk, H, D) → (o (B, H, Tq, D), m, l
+    (B, H, Tq)) in float32 with ``out = o / l`` once every partial state
+    is merged (``attention_state_merge``, ``normalize_attention_state``).
+    ``kv_offset``, a Python int, is the absolute position of k[0] minus
+    that of q[0] (the ring rotation's causal masking across shards); on
+    the card it is a kernel argument.  ``block_size`` is the plain
+    version's key block; the kernel tiles on its own."""
+    return _FlashPartialFn.apply(q, k, v, bool(causal), int(block_size),
+                                 kv_offset)
+
+
+def attention_state_init(q):
+    """Empty online-softmax state for q (B, Tq, H, D) → (o, m, l): o
+    (B, H, Tq, D) and l zeros, m -inf, float32 on q's device."""
+    B, Tq, H, D = q.shape
+    o = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
+    return o, torch.full_like(l, -math.inf), l
+
+
+def attention_state_merge(o, m, l, o2, m2, l2):
+    """Combine two partial online-softmax states (ring accumulation);
+    exact when either side is empty (m = -inf): that side's weight is
+    0, never exp(-inf + inf)."""
+    m_new = torch.maximum(m, m2)
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    a1 = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    a2 = torch.where(torch.isfinite(m2), torch.exp(m2 - m_safe), 0.0)
+    return (o * a1[..., None] + o2 * a2[..., None], m_new,
+            l * a1 + l2 * a2)
 
 
 def normalize_attention_state(o, m, l, dtype) -> torch.Tensor:

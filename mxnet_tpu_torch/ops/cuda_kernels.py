@@ -13,6 +13,14 @@ the serving and training paths:
   free (``csrc/flash_mha.cu``, replacing ``_mha_fwd``), and
   ``flash_mha_bwd``, its dq kernel and kv-block-outer dk/dv kernel
   (``csrc/flash_mha_bwd.cu``, replacing ``_mha_bwd``);
+* ``flash_attention_partial`` — the un-normalized online-softmax state
+  (o, m, l) over q, k, v with a key offset ``kv_offset`` in the causal
+  mask, every hop of ``sequence.ring_attention``
+  (``csrc/flash_attention_partial.cu``, replacing
+  ``flash_attention_partial``), and ``flash_attention_bwd``, its dq
+  kernel and kv-block-outer dk/dv kernel with m held constant
+  (``csrc/flash_attention_partial_bwd.cu``, replacing
+  ``flash_attention_bwd``);
 * ``paged_attention_decode`` — one query per stream against pages
   gathered through a block table (``csrc/paged_attention_decode.cu``);
 * ``paged_attention_decode_quant`` — the same over int8/fp8 pages with
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 from typing import Dict, Tuple
 
 import torch
@@ -61,7 +70,9 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "flash_mha_packed_bwd", "flash_mha_packed_bwd_plain",
            "launch_flash_mha_packed_bwd", "flash_mha", "flash_mha_plain",
            "flash_mha_bwd", "flash_mha_bwd_plain", "launch_flash_mha_bwd",
-           "FLASH_MHA_MAX_HEAD_DIM",
+           "FLASH_MHA_MAX_HEAD_DIM", "flash_attention_partial",
+           "flash_attention_partial_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "launch_flash_attention_bwd",
            "paged_attention_decode", "paged_attention_decode_plain",
            "paged_attention_decode_quant",
            "paged_attention_decode_quant_plain", "gather_pages",
@@ -82,7 +93,10 @@ LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "paged_attention_verify": 0,
                             "paged_attention_verify_quant": 0,
                             "lstm_scan": 0,
-                            "nms": 0}
+                            "nms": 0,
+                            "flash_attention_partial": 0,
+                            "flash_attention_bwd_dq": 0,
+                            "flash_attention_bwd_dkv": 0}
 
 # head widths the packed and paged kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (64,)
@@ -143,13 +157,13 @@ def flash_mha_packed_plain(qkv: torch.Tensor, num_heads: int,
     """Plain version: unpack, blockwise online softmax in fp32 over
     ``block_size`` key blocks, normalize.  Returns (o (B, T, H*D) in
     qkv's dtype, lse (B, T, H) float32, natural log)."""
-    from .attention import (_unpack_qkv, blockwise_attention_partial,
+    from .attention import (_blockwise_attention_partial_plain, _unpack_qkv,
                             normalize_attention_state)
 
     B, T, _ = qkv.shape
     q, k, v, D = _unpack_qkv(qkv, num_heads)
-    o, m, l = blockwise_attention_partial(q, k, v, causal=causal,
-                                          block_size=block_size or 512)
+    o, m, l = _blockwise_attention_partial_plain(
+        q, k, v, causal=causal, block_size=block_size or 512)
     out = normalize_attention_state(o, m, l, qkv.dtype)
     lse = (m + torch.log(torch.clamp(l, min=1e-30))).transpose(1, 2)
     return out.reshape(B, T, num_heads * D), lse.contiguous()
@@ -382,15 +396,15 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_size: int = 512
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: the blockwise online softmax in fp32 over
-    ``block_size`` key blocks (``blockwise_attention_partial``), then
-    normalized.  Returns (o of q's shape in q's dtype, lse of q's shape
+    ``block_size`` key blocks (``_blockwise_attention_partial_plain``),
+    then normalized.  Returns (o of q's shape in q's dtype, lse of q's shape
     without its last axis, float32, natural log)."""
-    from .attention import (blockwise_attention_partial,
+    from .attention import (_blockwise_attention_partial_plain,
                             normalize_attention_state)
 
     q4, k4, v4 = (_bhtd(x).transpose(1, 2) for x in (q, k, v))
-    o, m, l = blockwise_attention_partial(q4, k4, v4, causal=causal,
-                                          block_size=block_size or 512)
+    o, m, l = _blockwise_attention_partial_plain(
+        q4, k4, v4, causal=causal, block_size=block_size or 512)
     out = normalize_attention_state(o, m, l, q.dtype).transpose(1, 2)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return out.reshape(q.shape), lse.reshape(q.shape[:-1])
@@ -552,6 +566,197 @@ def launch_flash_mha_bwd(part: str, q, k, v, do, lse, delta, outs,
 
 
 # ---------------------------------------------------------------------------
+# flash_attention_partial: the un-normalized partial state, and its backward
+# ---------------------------------------------------------------------------
+
+
+def _kv_offset(name: str, kv_offset) -> int:
+    """``kv_offset`` as the int32 the kernels take as an argument: a
+    Python (or numpy) int; a tensor raises, since reading one back to
+    the host would stall the card."""
+    if isinstance(kv_offset, torch.Tensor):
+        raise MXNetError(f"{name}: kv_offset must be a Python int (a kernel "
+                         f"argument), not a tensor")
+    if not isinstance(kv_offset, numbers.Integral):
+        raise MXNetError(f"{name}: kv_offset must be an int; got "
+                         f"{type(kv_offset).__name__}")
+    off = int(kv_offset)
+    if not -2 ** 31 <= off < 2 ** 31:
+        raise MXNetError(f"{name}: kv_offset {off} outside int32")
+    return off
+
+
+def _check_partial(name: str, q, k, v) -> None:
+    """What both packages' partial-state attention takes: q (B, Tq, H, D),
+    k and v (B, Tk, H, D) of one shape, one dtype."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise MXNetError(f"{name} wants q (B, Tq, H, D), k and v (B, Tk, H, "
+                         f"D); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or tuple(k.shape[2:]) != (H, D) \
+            or v.shape != k.shape:
+        raise MXNetError(f"{name}: shapes disagree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise MXNetError(f"{name}: q, k, v dtypes differ ({q.dtype}, "
+                         f"{k.dtype}, {v.dtype})")
+
+
+def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, causal: bool = False,
+                                  block_size: int = 512, kv_offset: int = 0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain version: the blockwise online softmax in fp32 over
+    ``block_size`` key blocks (``_blockwise_attention_partial_plain``)."""
+    from .attention import _blockwise_attention_partial_plain
+
+    return _blockwise_attention_partial_plain(q, k, v, causal, block_size,
+                                              kv_offset)
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = False,
+                            block_size: int = 512, kv_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Un-normalized attention state: q (B, Tq, H, D), k and v (B, Tk, H,
+    D) → (o (B, H, Tq, D), m, l (B, H, Tq)), float32 for every input
+    dtype, ``out = o / l`` after the states are merged.  ``kv_offset``
+    (an int: the position of k[0] minus that of q[0]) shifts the causal
+    mask to ``k_pos + kv_offset <= q_pos``; a row that sees no key is m =
+    -inf, l = 0, o = 0.
+
+    Any strides with contiguous lanes (the kernel reads each tensor
+    through its own strides).  ``block_size`` is the plain version's
+    key block; the kernel tiles on its own.  No gradient flows through
+    this call: an input that requires one raises
+    (``ops.attention.blockwise_attention_partial`` is the differentiable
+    form)."""
+    _check_partial("flash_attention_partial", q, k, v)
+    koff = _kv_offset("flash_attention_partial", kv_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise MXNetError(
+            "flash_attention_partial: an input requires a gradient, which "
+            "this call would drop; use ops.attention."
+            "blockwise_attention_partial, whose autograd Function runs the "
+            "backward kernels")
+    if not _route("flash_attention_partial", q, k, v):
+        return flash_attention_partial_plain(q, k, v, causal, block_size,
+                                             koff)
+    B, Tq, H, D = q.shape
+    _check_mha_launch("flash_attention_partial", D, q.dtype, q, k, v)
+    o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = _load("flash_attention_partial", "flash_attention_partial_fwd",
+               [_vp] * 6 + [_strides] + [_i] * 8 + [_vp])
+    strides = _layout_args(*(x.transpose(1, 2) for x in (q, k, v)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 m.data_ptr(), l.data_ptr(), strides, B, H, Tq, k.shape[1],
+                 D, int(bool(causal)), koff, _DTYPE_CODE[q.dtype], stream)
+    _check_launch(err, "flash_attention_partial")
+    LAUNCHES["flash_attention_partial"] += 1
+    return o, m, l
+
+
+def flash_attention_bwd_plain(q, k, v, m, do, dl, causal: bool = False,
+                              block_size: int = 512, kv_offset: int = 0):
+    """Plain version of the backward: the kernels' formulas in float32,
+    key block by key block (``block_size`` keys; no autograd).
+
+    m held constant (m_safe = 0 where m = -inf); p = exp(q.k^T*scale -
+    m_safe) under the forward's masks; ds = p*(do.v^T + dl); dq =
+    ds.k*scale, dk = ds^T.q*scale, dv = p^T.do, with ds rounded to the
+    inputs' dtype before its products, as the TPU kernels cast it.
+    Returns (dq, dk, dv) in q's, k's and v's shapes and dtype."""
+    dt = q.dtype
+    rnd = (lambda x: x) if dt == torch.float32 \
+        else (lambda x: x.to(dt).float())
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # BHTD
+    ob = do.float()
+    lb = dl.float()[..., None]
+    m_safe = torch.where(torch.isfinite(m), m, 0.0).float()[..., None]
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    q_pos = torch.arange(Tq, device=q.device)
+    block = max(1, int(block_size or 512))
+    for j0 in range(0, Tk, block):
+        j1 = min(j0 + block, Tk)
+        k_j, v_j = kf[:, :, j0:j1], vf[:, :, j0:j1]
+        p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, k_j) * scale
+                      - m_safe)
+        if causal:
+            k_pos = torch.arange(j0, j1, device=q.device) + kv_offset
+            p = torch.where(k_pos[None, :] <= q_pos[:, None], p, 0.0)
+        ds = rnd(p * (torch.einsum("bhqd,bhkd->bhqk", ob, v_j) + lb))
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, k_j) * scale
+        dk[:, :, j0:j1] = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+        dv[:, :, j0:j1] = torch.einsum("bhqk,bhqd->bhkd", p, ob)
+    return tuple(g.transpose(1, 2).to(dt) for g in (dq, dk, dv))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        m: torch.Tensor, do, dl, causal: bool = False,
+                        block_size: int = 512, kv_offset: int = 0):
+    """Backward of ``flash_attention_partial``: q, k, v, its row max m
+    (B, H, Tq), and the cotangents do of o (B, H, Tq, D) and dl of l
+    (B, H, Tq) (``None``: zeros) → (dq, dk, dv), each in its input's
+    shape and dtype.  m's cotangent is not taken: it cancels exactly
+    (``ops.attention._FlashPartialFn``).
+
+    On a CUDA device two kernels run: dq, and dk/dv, kv-block-outer
+    (each gradient row written once by one block: no atomics)."""
+    _check_partial("flash_attention_bwd", q, k, v)
+    B, Tq, H, D = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    do = torch.zeros((B, H, Tq, D), **f32) if do is None else do
+    dl = torch.zeros((B, H, Tq), **f32) if dl is None else dl
+    if m.shape != (B, H, Tq) or dl.shape != (B, H, Tq) \
+            or do.shape != (B, H, Tq, D):
+        raise MXNetError(
+            f"flash_attention_bwd: shapes disagree: q {tuple(q.shape)}, m "
+            f"{tuple(m.shape)}, do {tuple(do.shape)}, dl {tuple(dl.shape)}")
+    koff = _kv_offset("flash_attention_bwd", kv_offset)
+    if not _route("flash_attention_bwd", q, k, v, m, do, dl):
+        return flash_attention_bwd_plain(q, k, v, m, do, dl, causal,
+                                         block_size, koff)
+    _check_mha_launch("flash_attention_bwd", D, q.dtype, q, k, v)
+    m, do, dl = (x.float().contiguous() for x in (m, do, dl))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    launch_flash_attention_bwd("dq", q, k, v, m, do, dl, (dq,), causal, koff)
+    launch_flash_attention_bwd("dkv", q, k, v, m, do, dl, (dk, dv), causal,
+                               koff)
+    return dq, dk, dv
+
+
+def launch_flash_attention_bwd(part: str, q, k, v, m, do, dl, outs,
+                               causal: bool, kv_offset: int) -> None:
+    """Launch one of the two backward kernels on inputs
+    ``flash_attention_bwd`` has checked (CUDA, one dtype, lanes
+    contiguous; m, do and dl contiguous float32): ``part`` "dq" writes
+    ``outs`` (dq,), "dkv" writes (dk, dv).  Counts the launch."""
+    name = f"flash_attention_bwd_{part}"
+    B, Tq, H, D = q.shape
+    fn = _load("flash_attention_partial_bwd", name,
+               [_vp] * (6 + len(outs)) + [_strides] + [_i] * 8 + [_vp])
+    strides = _layout_args(*(x.transpose(1, 2) for x in (q, k, v, *outs)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+                 do.data_ptr(), dl.data_ptr(), *(t.data_ptr() for t in outs),
+                 strides, B, H, Tq, k.shape[1], D, int(bool(causal)),
+                 kv_offset, _DTYPE_CODE[q.dtype], stream)
+    _check_launch(err, name)
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
 # paged_attention_decode
 # ---------------------------------------------------------------------------
 
@@ -563,7 +768,7 @@ def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
     """Plain version: gather the table's pages into a (B, MB*KVB, H, D)
     cache and run the blockwise body with block == KVB and the
     per-stream length mask.  (B, H, D) in q's dtype."""
-    from .attention import (blockwise_attention_partial,
+    from .attention import (_blockwise_attention_partial_plain,
                             normalize_attention_state)
 
     B, MB = block_table.shape
@@ -571,8 +776,8 @@ def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
     idx = block_table.long()
     kg = k_pool[idx].reshape(B, MB * KVB, H, D)
     vg = v_pool[idx].reshape(B, MB * KVB, H, D)
-    o, m, l = blockwise_attention_partial(q[:, None], kg, vg, causal=True,
-                                          block_size=KVB, lengths=lengths)
+    o, m, l = _blockwise_attention_partial_plain(
+        q[:, None], kg, vg, causal=True, block_size=KVB, lengths=lengths)
     return normalize_attention_state(o, m, l, q.dtype)[:, 0]
 
 
@@ -656,15 +861,15 @@ def paged_attention_decode_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
     dequantize to float32 (``dequantize_kv``), then the blockwise body
     with block == KVB and the per-stream length mask.  (B, H, D) in q's
     dtype."""
-    from .attention import (blockwise_attention_partial,
+    from .attention import (_blockwise_attention_partial_plain,
                             normalize_attention_state)
 
     idx = block_table.long()
     kg = gather_dequant(k_pool, k_scale, idx)
     vg = gather_dequant(v_pool, v_scale, idx)
-    o, m, l = blockwise_attention_partial(q[:, None], kg, vg, causal=True,
-                                          block_size=k_pool.shape[1],
-                                          lengths=lengths)
+    o, m, l = _blockwise_attention_partial_plain(
+        q[:, None], kg, vg, causal=True, block_size=k_pool.shape[1],
+        lengths=lengths)
     return normalize_attention_state(o, m, l, q.dtype)[:, 0]
 
 

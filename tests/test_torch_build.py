@@ -48,6 +48,8 @@ def test_build_all_kernels_once_with_sm90a_flags(fake):
     assert "lstm_scan" in _build.SOURCES  # the LSTM recurrence
     for name in ("flash_mha", "flash_mha_bwd"):
         assert name in _build.SOURCES  # DotProductAttention's kernels
+    for name in ("flash_attention_partial", "flash_attention_partial_bwd"):
+        assert name in _build.SOURCES  # the ring's partial-state kernels
     first = _build.build()
     assert set(first) == set(_build.SOURCES)
     assert all(t > 0 for t in first.values())
@@ -219,6 +221,45 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
     for entry in entries:
         assert f'extern "C" int {entry}(' in src
     for name in ("flash_mha", "flash_mha_bwd_dq", "flash_mha_bwd_dkv"):
+        assert name in ck.LAUNCHES
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    (csrc / f"{source}.cu").write_text(src + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == [source]
+    assert _build.build([source])[source] > 0
+
+
+@pytest.mark.parametrize("source,entries,loads", [
+    ("flash_attention_partial", ("flash_attention_partial_fwd",),
+     ('_load("flash_attention_partial", "flash_attention_partial_fwd"',)),
+    ("flash_attention_partial_bwd",
+     ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+     ('name = f"flash_attention_bwd_{part}"',
+      '_load("flash_attention_partial_bwd", name')),
+])
+def test_flash_attention_partial_sources_export_the_wrappers_entry_points(
+        fake, source, entries, loads):
+    """csrc/flash_attention_partial.cu and its backward stand alone,
+    export the C entry points ``ops.cuda_kernels`` loads, take the key
+    offset as an int argument, return cudaGetLastError() and take head
+    widths up to the wrappers' limit; each counts its launches, and
+    editing one rebuilds it alone."""
+    import inspect
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    _, csrc = fake
+    assert source in _build.SOURCES
+    src = (csrc / f"{source}.cu").read_text()
+    assert ".cuh" not in src and "return cudaGetLastError();" in src
+    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in src
+    assert "int kv_offset" in src
+    wrappers = inspect.getsource(ck)
+    assert all(text in wrappers for text in loads)
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in src
+    for name in ("flash_attention_partial", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
         assert name in ck.LAUNCHES
     before = {n: _build._target(n) for n in _build.SOURCES}
     (csrc / f"{source}.cu").write_text(src + "\n// edited\n")
