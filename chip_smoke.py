@@ -7,13 +7,21 @@
    the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and the user
    kernels from their CUDA source text (the example's and this
    script's, below) in one ``_build.build(sources=...)``, one ``nvcc``
-   per source, all started together.
+   per source, all started together.  Then, with ``cuobjdump`` from the
+   toolkit beside ``nvcc``, the tensor-core kernels (B1's forward and
+   both B9 kernels, every fp32 and bf16 instantiation) must hold
+   tensor-core instructions (``HMMA``/``HGMMA``) in their SASS, and
+   those at D = 64 no local (spill) memory; each one's registers, shared
+   memory and local memory are printed (``tensor_cores`` lines).
 2. Kernels against their plain PyTorch versions on the card, at the
    main paths' shapes, in fp32 and bf16 (tolerances in ``TOL`` and
    ``BWD_TOL``): the time of each (CUDA events, median of 20 after
    warm-up), of its plain version, of a PyTorch library call computing
    the same function (timed here only, used nowhere in the port) and
-   the least time the card could take for the work (``bound_ms``).
+   the least time the card could take for the work (``bound_ms``; the
+   tensor-core kernels also carry ``bound_tc_ms``, the same work at
+   ``PEAK_TC_FLOPS``).  B1's forward also runs on a qkv off 16-byte
+   alignment (``offset=1``).
    The quantized decode runs over int8 and fp8 pools made by the port's
    ``quantize_kv``; the verify kernel over fp32, bf16, int8 and fp8
    pools, and each of its rows must ``torch.equal`` the decode kernel's
@@ -33,7 +41,8 @@
    diagonal, in the past, with a positive ``kv_offset`` that leaves the
    first 1024 rows without a key, and non-causal; the Ulysses decode hop
    (1, 3, 2048, 16384, 64) at ``kv_offset`` -8000; a tail (T = 1000),
-   the same with every row masked, and head widths 128 and 80.  m must
+   the same with every row masked, head widths 128 and 80, and an odd
+   width (37) whose rows are off 16-byte alignment.  m must
    ``torch.equal`` the plain m's -inf pattern, such rows hold o = 0 and
    l = 0 exactly, and o / l agrees within ``TOL``; the yardstick is SDPA
    with the hop's boolean mask (the same QK^T and PV work, normalized:
@@ -173,7 +182,10 @@
    line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
-kernel of the port under ROOT (see ``decode_timing``).
+kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
+B1's forward, B9, serving run A, the packed LM's training and the
+sequence phase there, ``--kernels ROOT`` the two kernels alone (see
+``paths_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -191,6 +203,9 @@ import numpy as np
 # H100 SXM published peaks, dense (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the tensor-core kernels' own ceiling: fp32 products as split TF32, three
+# TF32 products at 495 TFLOP/s each; bf16 at its tensor-core rate
+PEAK_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the backward's tolerance scales with its largest reference value:
 # fp32 BWD_TOL * max(1, max|ref|), bf16 BWD_TOL * max|ref|
@@ -231,7 +246,8 @@ SEQ_KERNELS = ("flash_attention_partial", "flash_attention_bwd_dq",
 # path (T = 16384 over 4 shards) on the diagonal, in the past (nothing
 # masked), with a positive offset that masks the first 1024 rows, and
 # non-causal; the Ulysses decode hop (3 heads a device); a tail (T =
-# 1000), the same with every row masked, and head widths 128 and 80
+# 1000), the same with every row masked, head widths 128 and 80, and an
+# odd width (37: rows off 16-byte alignment, staged one element a thread)
 PARTIAL_SHAPES = ((1, H, 4096, 4096, D, True, 0),
                   (1, H, 4096, 4096, D, True, -4096),
                   (1, H, 4096, 4096, D, True, 1024),
@@ -240,7 +256,8 @@ PARTIAL_SHAPES = ((1, H, 4096, 4096, D, True, 0),
                   (1, H, 1000, 1000, D, True, 40),
                   (1, H, 1000, 1000, D, True, 1200),
                   (1, 8, 1024, 1024, 128, True, 0),
-                  (1, H, 1024, 1024, 80, True, 256))
+                  (1, H, 1024, 1024, 80, True, 256),
+                  (1, 4, 520, 300, 37, True, -100))
 # B8 launches of one ring call at T = SEQ_T (causal: shard i attends
 # shards 0..i, 1 + 2 + 3 + 4; full: every shard every hop) and of the
 # decode layout (ring: 3 of 4 blocks a shard; Ulysses: one a device)
@@ -306,10 +323,97 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_prefill(torch, ck, F, T, dtype, B=1):
+def bound_tc(nbytes, flops, dtype):
+    """The second bound of the tensor-core kernels (``PEAK_TC_FLOPS``)."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_TC_FLOPS[dtype]) * 1e3
+
+
+# the tensor-core kernels: library, kernel names, instantiations expected
+TC_KERNELS = (("flash_mha_packed", ("mhap_fwd_kernel",), (64,)),
+              ("flash_attention_partial_bwd",
+               ("partial_bwd_dq_kernel", "partial_bwd_dkv_kernel"),
+               (32, 64, 96, 128)))
+
+
+def _cuobjdump(_build, args, lib):
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    check(os.path.isfile(tool), f"cuobjdump not found beside nvcc ({tool})")
+    return subprocess.run([tool, *args, str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def tensor_core_report(_build):
+    """Registers, shared and local memory of every instantiation of B1's
+    forward and both B9 kernels (``cuobjdump -res-usage``; dynamic shared
+    memory from each library's own query), and the tensor-core
+    instructions in each one's SASS (``cuobjdump -sass``).  Raises when a
+    tool is missing, an instantiation is missing, one holds no HMMA or
+    HGMMA, or one at D = 64 uses local memory."""
+    import ctypes
+    import re
+
+    name_re = re.compile(r"(mhap_fwd_kernel|partial_bwd_dq_kernel|"
+                         r"partial_bwd_dkv_kernel)I(f|13__nv_bfloat16)"
+                         r"(?:Li(\d+)E)?E")
+    out = []
+    for lib, kernels, dps in TC_KERNELS:
+        path = _build._target(lib)
+        res = _cuobjdump(_build, ["-res-usage"], path)
+        sass = _cuobjdump(_build, ["-sass"], path)
+        mma = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            fn, body = part.split("\n", 1)
+            mma[fn.strip()] = (len(re.findall(r"\bHMMA\.", body)),
+                               len(re.findall(r"\bHGMMA\.", body)))
+        handle = _build.library(lib)
+        if lib == "flash_mha_packed":
+            smem = handle.flash_mha_packed_smem_bytes
+            smem.argtypes = [ctypes.c_int]
+        else:
+            smem = handle.flash_attention_bwd_smem_bytes
+            smem.argtypes = [ctypes.c_int] * 3
+        smem.restype = ctypes.c_int
+        seen = set()
+        for fn, regs, stack, shared, local in re.findall(
+                r"Function (\S+?):\s+REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                r"LOCAL:(\d+)", res):
+            mt_ = name_re.search(fn)
+            if mt_ is None:
+                continue
+            kernel, ty, dp = mt_.group(1), mt_.group(2), mt_.group(3)
+            dtype = "float32" if ty == "f" else "bfloat16"
+            dp = int(dp or 64)
+            code = 0 if dtype == "float32" else 1
+            dyn = smem(code) if lib == "flash_mha_packed" else smem(
+                int(kernel == "partial_bwd_dkv_kernel"), dp, code)
+            hmma, hgmma = mma.get(fn, (0, 0))
+            rec = {"kernel": kernel, "dtype": dtype, "head_dim_bucket": dp,
+                   "registers": int(regs), "stack_bytes": int(stack),
+                   "static_shared_bytes": int(shared),
+                   "dynamic_shared_bytes": int(dyn),
+                   "local_bytes": int(local), "hmma": hmma, "hgmma": hgmma}
+            check(hmma + hgmma > 0, f"{kernel} {dtype} D<={dp}: no "
+                  f"tensor-core instruction in its SASS")
+            check(dp != 64 or int(local) == 0,
+                  f"{kernel} {dtype} D<={dp}: {local} bytes of local memory")
+            seen.add((kernel, dtype, dp))
+            out.append(rec)
+        want = {(k, d, p) for k in kernels for d in ("float32", "bfloat16")
+                for p in dps}
+        check(want <= seen, f"{lib}: instantiations missing from "
+              f"cuobjdump's report: {sorted(want - seen)}")
+    return out
+
+
+def check_prefill(torch, ck, F, T, dtype, B=1, offset=0):
+    """B1's forward against its plain version; ``offset`` > 0 starts qkv
+    that many elements into its buffer, off 16-byte alignment, which the
+    kernel stages one element a thread."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(B * 10000 + T)
-    qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda").to(dt)
+    n = B * T * 3 * H * D
+    qkv = torch.randn(n + offset, generator=g, device="cuda").to(dt)[
+        offset:].view(B, T, 3 * H * D)
     o, lse = ck.flash_mha_packed(qkv, H, causal=True)
     po, plse = ck.flash_mha_packed_plain(qkv, H, causal=True)
     torch.cuda.synchronize()
@@ -319,21 +423,25 @@ def check_prefill(torch, ck, F, T, dtype, B=1):
           f"flash_mha_packed B={B} T={T} {dtype}: max_abs_err {err} (lse "
           f"{lse_err}) over tolerance {TOL[dtype]}")
     check(bool(torch.isfinite(o.float()).all()), "prefill output not finite")
+    # SDPA, the yardstick, faults on the misaligned view: it reads an
+    # aligned copy of the same values
     q, k, v = (x.unflatten(-1, (H, D)).transpose(1, 2)
-               for x in qkv.split(H * D, dim=-1))
+               for x in (qkv.clone() if offset else qkv).split(H * D, dim=-1))
     es = qkv.element_size()
     nbytes = B * (T * 3 * H * D * es + T * H * D * es + T * H * 4)
     flops = 4 * B * H * D * T * (T + 1) // 2
     b_ms, b_by = bound(nbytes, flops, dtype)
     return {
         "kernel": "flash_mha_packed", "shape": f"B={B} T={T} H={H} D={D} "
-        f"causal", "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+        f"causal" + (f" offset={offset}" if offset else ""), "dtype": dtype,
+        "max_abs_err": err, "tol": TOL[dtype],
         "ms": time_ms(torch, lambda: ck.flash_mha_packed(qkv, H, True)),
         "plain_ms": time_ms(torch, lambda: ck.flash_mha_packed_plain(
             qkv, H, True), reps=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_tc_ms": bound_tc(nbytes, flops, dtype)}
 
 
 def check_backward(torch, ck, F, B, T, dtype):
@@ -572,7 +680,9 @@ def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
             "ms": time_ms(torch, lambda: ck.launch_flash_attention_bwd(
                 part, q, k, v, m, ob, lb, bufs, causal, koff)),
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": bound_tc(reads + writes * es,
+                                    flop_per_pair * pairs, dtype)})
     return out
 
 
@@ -2454,6 +2564,54 @@ def decode_timing(root):
     return 0
 
 
+def paths_timing(root, paths=True):
+    """``python3 chip_smoke.py --paths ROOT``: B1's forward at (1, 1024)
+    and (8, 1024), B9 at the ring's past hop, both in fp32 and bf16,
+    serving run A, the packed LM's training run and the sequence phase,
+    on the port under ROOT (a checkout, e.g. a parent commit unpacked
+    beside this one), one JSON line each; ``--kernels ROOT`` the two
+    kernels alone.  Run parent, change, change, parent in one call to
+    compare two versions on one card."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    check(ck.__file__.startswith(root), f"imported {ck.__file__}, not "
+          f"the port under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    for dtype in ("float32", "bfloat16"):
+        recs = [check_prefill(torch, ck, F, 1024, dtype, B=B)
+                for B in (1, TRAIN_BATCH)]
+        recs += check_partial(torch, ck, F, *PARTIAL_SHAPES[1], dtype)
+        for rec in recs:
+            print(json.dumps({"paths_timing": {"root": root, **rec}}))
+    if not paths:
+        print(card_line())
+        return 0
+    torch.cuda.empty_cache()
+    dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
+    runs = {"serving_A": main_path(torch, mt, ck, dev_params)}
+    del dev_params
+    torch.cuda.empty_cache()
+    runs["train_path"] = train_path(torch, mt, ck)
+    torch.cuda.empty_cache()
+    runs["sequence_path"] = sequence_path(torch, mt, ck)
+    for name, rec in runs.items():
+        print(json.dumps({"paths_timing": {"root": root, name: rec}}))
+    print(card_line())
+    return 0
+
+
 def main():
     import torch
 
@@ -2488,6 +2646,8 @@ def main():
                                   for k in user_kernels])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
+    for rec in tensor_core_report(_build):
+        print(json.dumps({"tensor_cores": rec}))
 
     rng = np.random.RandomState(2)
     checks = []
@@ -2495,6 +2655,8 @@ def main():
         for B, T in ((1, 128), (1, 1000), (1, 1024), (TRAIN_BATCH, 1024)):
             checks.append(check_prefill(torch, ck, F, T, dtype, B=B))
             print(json.dumps({"check": checks[-1]}))
+        checks.append(check_prefill(torch, ck, F, 1000, dtype, offset=1))
+        print(json.dumps({"check": checks[-1]}))
         for B, MB in ((1, 64), (16, 64), (64, 64)):
             checks.append(check_decode(torch, ck, F, B, MB, dtype, rng))
             print(json.dumps({"check": checks[-1]}))
@@ -2683,4 +2845,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] in (["--paths"], ["--kernels"]):
+        sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
+                              paths=sys.argv[1] == "--paths"))
     sys.exit(main())

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``build/lib<name>-<hash>.so``, a shared library with a plain C
 interface that ``ops/cuda_kernels.py`` loads with ``ctypes``.  The hash
-covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
-an edited kernel or header rebuilds and an unchanged one loads at
-once.  Nothing here runs at import: the first
+covers the source, the headers of ``csrc/`` it includes (``#include
+"x.cuh"``, and theirs in turn) and the flags, so an edited kernel or
+header rebuilds the kernels that include it, and an unchanged one loads
+at once.  Nothing here runs at import: the first
 call that launches a kernel builds it, or ``build()`` builds every
 kernel at once, one ``nvcc`` process per source, all started together.
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,10 +67,26 @@ def _nvcc() -> str:
         "port's CUDA kernels are built from csrc/ at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _included(text: bytes, seen: Dict[str, bytes]) -> None:
+    """Add each ``csrc/`` header that ``text`` includes, and those it
+    includes, to ``seen`` (name → contents)."""
+    for m in _INCLUDE.finditer(text):
+        name = m.group(1).decode()
+        path = _CSRC / name
+        if name not in seen and path.is_file():
+            seen[name] = path.read_bytes()
+            _included(seen[name], seen)
+
+
 def _target(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
+    headers: Dict[str, bytes] = {}
+    _included(src, headers)
+    digest = hashlib.sha256(src + b"".join(
+        headers[h] for h in sorted(headers)) + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,4 +1,5 @@
-// Packed-QKV flash attention, forward, for Hopper (sm_90a).
+// Packed-QKV flash attention, forward, for Hopper (sm_90a), on the tensor
+// cores.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py:_mhap_fwd (the Pallas kernel
 // _mhap_fwd_kernel behind flash_mha_packed).  Same function: attention read
@@ -7,161 +8,233 @@
 // straight into o (B, T, H*D) with no transposes, plus the log-sum-exp of
 // each row for the backward.
 //
-// What bounds it on the H100: the work.  Causal attention at T=1024, H=12,
-// D=64 is ~1.6 GFLOP against ~12.6 MB of traffic (fp32), about 127 FLOP a
-// byte, far above the memory line at fp32's CUDA-core rate.  This first
-// kernel runs its products on the CUDA cores in fp32 (no wgmma/TMA yet),
-// so its ceiling is the 67 TFLOP/s fp32 rate, not the tensor cores'.
+// Rounding, as the TPU kernel's: scores s = (q.k^T) * scale*log2(e) in the
+// exp2 domain, accumulated in fp32.  fp32: Q.K^T and P.V each as split
+// TF32 (three tensor-core products, tensor_core.cuh), which keeps fp32's
+// accuracy.  bf16: Q.K^T on bf16 tensor cores; P is rounded to bf16 before
+// P.V (p.astype(v.dtype)), which then runs on bf16 tensor cores; the row
+// sum l is taken over fp32 p.
+//
+// What bounds it on the H100: the work.  Causal attention at B=8, T=1024,
+// H=12, D=64 is ~12.9 GFLOP against ~100 MB of traffic (fp32): far above
+// the memory line.  Split TF32 runs three TF32 products for each fp32 one:
+// 495 / 3 = 165 TFLOP/s in effect; bf16 runs at up to 989 TFLOP/s.
 //
 // Design:
-// * One thread block per (q-tile of 64 rows, head, batch row); one thread
-//   per query row keeps q, the output accumulator and the online-softmax
-//   state (m, l) in registers.  The loop over k-tiles inside the block takes
-//   the place of the TPU grid's sequential kj axis.
-// * K and V tiles of 32 rows are staged in shared memory as fp32 (bf16 is
-//   widened on load); every thread of the block reads the same K/V element
-//   at once, a shared-memory broadcast.
-// * Scores live in the exp2 domain (q is pre-scaled by log2(e)/sqrt(D)) as
-//   in the TPU kernel.  Causal blocks stop at the last k-tile touching the
-//   diagonal: tiles wholly above it are never loaded.
+// * mma.sync (m16n8k8 TF32, m16n8k16 bf16), not wgmma: wgmma reads a TF32
+//   operand from shared memory only K-major, and V in P.V is MN-major, so
+//   fp32 would need V staged transposed by threads; mma.sync takes every
+//   operand from registers, loaded from padded shared tiles without bank
+//   conflicts, and keeps P in registers between the two products (as
+//   PyTorch's memory-efficient SDPA runs fp32).
+// * A block of 4 warps owns 64 query rows of one (batch, head); a warp owns
+//   16.  Its Q fragments (split into big and small in fp32) stay in
+//   registers; S, the online-softmax state (m, l) and the output
+//   accumulator live in accumulator fragments.  Each tile's P.V is summed
+//   in a fresh accumulator and added to the output's on the CUDA cores
+//   (tc::gemm_pY_acc: the tensor cores' accumulation does not round to
+//   nearest).  The loop over 64-key tiles inside the block takes the place
+//   of the TPU grid's sequential axis.
+// * K and V tiles stream through a two-stage cp.async ring (16 bytes a
+//   thread where qkv is 16-byte aligned), so one tile's copy overlaps the
+//   previous tile's products; one barrier a tile.
+// * Masks (causal, the T tail) are applied on the fragments, on the tiles
+//   that need them; causal blocks stop at the diagonal, and the longest
+//   q-tiles launch first so the last wave is not all short tiles.
 // * lse is written as (B, T, H) float32 in natural-log units; the TPU
 //   kernel's is log2 and broadcast over D.
 // * Built for D = 64, the head width of the transformer_lm configurations
-//   served so far (a wider head would spill this design's registers).
+//   served so far.
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tensor_core.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-constexpr int BQ = 64;  // query rows per block, one per thread
-constexpr int BK = 32;  // key rows per shared-memory tile
+constexpr int D = 64;        // head width
+constexpr int BQ = 64;       // query rows per block, 16 per warp
+constexpr int BN = 64;       // key rows per tile
+constexpr int NT = 128;      // threads per block
+constexpr int STAGES = 2;    // K/V tiles in flight
 constexpr float LN2 = 0.6931471805599453f;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(BQ)
+template <typename T>
+constexpr int smem_bytes() {
+  return STAGES * 2 * BN * tc::stride<T>(D) * (int)sizeof(T);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
 mhap_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
                 float* __restrict__ lse, int T_, int H, int causal,
-                float scale_log2) {
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+                float scale_log2, int vec16) {
+  constexpr int SW = tc::stride<T>(D);
+  constexpr int TILE = BN * SW;
+  constexpr bool F32 = tc::kIsF32<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);  // [STAGES][K, V][BN][SW]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = gridDim.z;
+  const int qt = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int HD = H * D;
-  const long rs = 3L * HD;  // elements between consecutive tokens
-  const T* base = qkv + (long)b * T_ * rs;
-
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
-
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + threadIdx.x;
-  const bool live = qi < T_;
-
-  float q[D];
-  float acc[D];
-  {
-    const T* qrow = base + (long)(live ? qi : 0) * rs + h * D;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      q[c] = live ? to_f32(qrow[c]) * scale_log2 : 0.f;
-      acc[c] = 0.f;
-    }
-  }
-  float m = -INFINITY;
-  float l = 0.f;
+  const long long rs = 3LL * HD;  // elements between consecutive tokens
+  const T* qb = qkv + (long long)b * T_ * rs + h * D;
+  const T* kb = qb + HD;
+  const T* vb = qb + 2 * HD;
 
   const int q_last = min(T_, q0 + BQ) - 1;
   const int k_end = causal ? q_last + 1 : T_;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < BK * D; idx += BQ) {
-      const int r = idx / D;
-      const int c = idx % D;
-      const int kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < T_) {
-        const T* row = base + (long)kr * rs + h * D + c;
-        kx = to_f32(row[HD]);
-        vx = to_f32(row[2 * HD]);
-      }
-      Ks[r][c] = kx;
-      Vs[r][c] = vx;
-    }
-    __syncthreads();
+  const int nk = (k_end + BN - 1) / BN;
 
-    float s[BK];
-    float mt = -INFINITY;
+  // Q goes through stage 1's K slot before the loop needs it
+  tc::stage<T, BQ, D, SW, NT>(sm + 2 * TILE, qb, rs, q0, T_, D, vec16);
+  tc::stage<T, BN, D, SW, NT>(sm, kb, rs, 0, T_, D, vec16);
+  tc::stage<T, BN, D, SW, NT>(sm + TILE, vb, rs, 0, T_, D, vec16);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  constexpr int QK = F32 ? D / 8 : D / 16;  // k-steps over D
+  uint32_t qa[QK][4], qs[F32 ? QK : 1][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; ++c) d = fmaf(q[c], Ks[j][c], d);
-      const int kr = k0 + j;
-      const bool ok = kr < T_ && (!causal || kr <= qi);
-      s[j] = ok ? d : -INFINITY;
-      mt = fmaxf(mt, s[j]);
+  for (int ks = 0; ks < QK; ++ks) {
+    if constexpr (F32) {
+      float a[4];
+      tc::frag_a<SW>(a, sm + 2 * TILE, warp * 16, ks * 8);
+      tc::split(a, qa[ks], qs[ks]);
+    } else {
+      tc::frag_a_bf16<SW>(qa[ks], sm + 2 * TILE, warp * 16, ks * 16);
     }
-    const float m_new = fmaxf(m, mt);
-    if (m_new == -INFINITY) continue;  // nothing visible to this row yet
-    const float alpha = exp2f(m - m_new);  // 0 while m is still -inf
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = exp2f(s[j] - m_new);  // masked entries give exactly 0
-      ps += s[j];
-    }
-    l = l * alpha + ps;
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] = fmaf(s[j], Vs[j][c], acc[c]);
-    }
-    m = m_new;
   }
 
-  if (live) {
-    const float lsafe = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lsafe;
-    T* orow = o + ((long)b * T_ + qi) * HD + h * D;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  float acc[D / 8][4];
+  tc::zero(acc);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's part of each row's sum
+
+  for (int it = 0; it < nk; ++it) {
+    // one barrier a tile: tile it has landed for every thread, and every
+    // thread is done with the stage the next copy refills (tile it - 1's,
+    // or the Q tile's before the first)
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < nk) {
+      T* nxt = sm + ((it + 1) % STAGES) * 2 * TILE;
+      tc::stage<T, BN, D, SW, NT>(nxt, kb, rs, (it + 1) * BN, T_, D, vec16);
+      tc::stage<T, BN, D, SW, NT>(nxt + TILE, vb, rs, (it + 1) * BN, T_, D,
+                                  vec16);
+    }
+    tc::cp_async_commit();
+    const T* Ks = sm + (it % STAGES) * 2 * TILE;
+    const T* Vs = Ks + TILE;
+    const int k0 = it * BN;
+
+    // S = Q.K^T (16 x 64 per warp)
+    float s[BN / 8][4];
+    tc::zero(s);
 #pragma unroll
-    for (int c = 0; c < D; ++c) orow[c] = from_f32<T>(acc[c] * inv);
-    lse[((long)b * T_ + qi) * H + h] = (m + log2f(lsafe)) * LN2;
+    for (int ks = 0; ks < QK; ++ks) {
+      if constexpr (F32) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          float bf[2];
+          uint32_t bb[2], bs[2];
+          tc::frag_b<SW>(bf, Ks, j * 8, ks * 8);
+          tc::split(bf, bb, bs);
+          tc::mma3(s[j], qa[ks], qs[ks], bb, bs);
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < BN / 16; ++jj) {
+          uint32_t r[4];
+          tc::frag_b_bf16<SW>(r, Ks, jj * 16, ks * 16);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          tc::mma_bf16(s[2 * jj], qa[ks], b0);
+          tc::mma_bf16(s[2 * jj + 1], qa[ks], b1);
+        }
+      }
+    }
+
+    // online softmax on the fragments, exp2 domain
+    const bool masked = k0 + BN > T_ || (causal && k0 + BN - 1 > q0);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[j][i] * scale_log2;
+        if (masked) {
+          const int col = k0 + j * 8 + 2 * t + (i & 1);
+          const int row = row0 + (i >> 1) * 8;
+          if (col >= T_ || (causal && col > row)) x = -INFINITY;
+        }
+        s[j][i] = x;
+        mt[i >> 1] = fmaxf(mt[i >> 1], x);
+      }
+    float msafe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], tc::quad_max(mt[r]));
+      msafe[r] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - msafe[r]);  // 0 while m is -inf
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(s[j][i] - msafe[i >> 1]);  // masked: 0
+        s[j][i] = p;
+        l[i >> 1] += p;
+      }
+
+    // acc += P.V, summed a tile at a time (tc::gemm_pY_acc); bf16 rounds p
+    tc::gemm_pY_acc<BN / 8, D / 8, SW, !F32>(acc, s, Vs);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    const float lsafe = fmaxf(tc::quad_sum(l[r]), 1e-30f);
+    if (row >= T_) continue;
+    const float inv = 1.f / lsafe;
+    T* orow = o + ((long long)b * T_ + row) * HD + h * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      tc::store(orow + n * 8, acc[n][2 * r] * inv);
+      tc::store(orow + n * 8 + 1, acc[n][2 * r + 1] * inv);
+    }
+    if (t == 0)
+      lse[((long long)b * T_ + row) * H + h] = (m[r] + log2f(lsafe)) * LN2;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* qkv, void* o, void* lse, int B, int T_,
-                   int H, int D, int causal, cudaStream_t stream) {
-  const dim3 grid((T_ + BQ - 1) / BQ, H, B);
+                   int H, int causal, cudaStream_t stream) {
+  const int bytes = smem_bytes<T>();
+  cudaError_t e = tc::allow_smem<&mhap_fwd_kernel<T>>(bytes);
+  if (e != cudaSuccess) return e;
+  const int nq = (T_ + BQ - 1) / BQ;
+  // every row of qkv starts 16-byte aligned when its base does (D = 64)
+  const int vec16 = reinterpret_cast<uintptr_t>(qkv) % 16 == 0;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  const T* in = static_cast<const T*>(qkv);
-  T* out = static_cast<T*>(o);
-  float* l = static_cast<float*>(lse);
-  switch (D) {
-    case 64:
-      mhap_fwd_kernel<T, 64><<<grid, BQ, 0, stream>>>(in, out, l, T_, H,
-                                                      causal, scale_log2);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  mhap_fwd_kernel<T><<<dim3(H, B, nq), NT, bytes, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(o),
+      static_cast<float*>(lse), T_, H, causal, scale_log2, vec16);
   return cudaGetLastError();
 }
 
@@ -169,13 +242,20 @@ cudaError_t launch(const void* qkv, void* o, void* lse, int B, int T_,
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv and o share it; lse is float32).
 extern "C" int flash_mha_packed_fwd(const void* qkv, void* o, void* lse,
-                                    int B, int T, int H, int D, int causal,
+                                    int B, int T, int H, int D_, int causal,
                                     int dtype, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || T < 1 || H < 1 || B > 65535 || D_ != D ||
+      (T + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(qkv, o, lse, B, T, H, D, causal, s);
+  if (dtype == 0) return (int)launch<float>(qkv, o, lse, B, T, H, causal, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(qkv, o, lse, B, T, H, D, causal, s);
+    return (int)launch<__nv_bfloat16>(qkv, o, lse, B, T, H, causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// dynamic shared memory a block of the kernel takes, for chip_smoke.py's
+// resource report (dtype as above)
+extern "C" int flash_mha_packed_smem_bytes(int dtype) {
+  return dtype == 0 ? smem_bytes<float>() : smem_bytes<__nv_bfloat16>();
 }

@@ -4,6 +4,7 @@ names, reuse of a built library, and a failed compile that raises with
 the compiler's output and leaves nothing half-written.  The real
 compile runs on the card (``chip_smoke.py``)."""
 
+import re
 import shutil
 import sys
 
@@ -92,6 +93,30 @@ def test_edited_shared_header_rebuilds_every_paged_kernel(fake):
     assert all(t > 0 for t in _build.build(paged).values())
     assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == sorted(
         after[n].name for n in paged)
+
+
+def test_edited_tensor_core_header_rebuilds_exactly_its_kernels(fake):
+    """B1's forward and B9 share csrc/tensor_core.cuh: editing it gives
+    exactly those two libraries new names; editing the paged header
+    leaves them as they were.  A header is hashed only into the sources
+    that include it."""
+    _, csrc = fake
+    users = ["flash_mha_packed", "flash_attention_partial_bwd"]
+    for name in _build.SOURCES:
+        text = (csrc / f"{name}.cu").read_text()
+        assert ('#include "tensor_core.cuh"' in text) == (name in users)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    hdr = csrc / "tensor_core.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == users
+    assert all(t > 0 for t in _build.build(users).values())
+    assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == sorted(
+        after[n].name for n in users)
+    paged = csrc / "paged_attention.cuh"
+    paged.write_text(paged.read_text() + "\n// edited\n")
+    again = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(again[n] == after[n] for n in users)
 
 
 def test_failed_compile_raises_with_compiler_output(fake):
@@ -239,11 +264,12 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
 ])
 def test_flash_attention_partial_sources_export_the_wrappers_entry_points(
         fake, source, entries, loads):
-    """csrc/flash_attention_partial.cu and its backward stand alone,
-    export the C entry points ``ops.cuda_kernels`` loads, take the key
-    offset as an int argument, return cudaGetLastError() and take head
-    widths up to the wrappers' limit; each counts its launches, and
-    editing one rebuilds it alone."""
+    """csrc/flash_attention_partial.cu stands alone and its backward
+    includes only the shared tensor-core header; both export the C entry
+    points ``ops.cuda_kernels`` loads, take the key offset as an int
+    argument, return cudaGetLastError() and take head widths up to the
+    wrappers' limit; each counts its launches, and editing one rebuilds
+    it alone."""
     import inspect
 
     from mxnet_tpu_torch.ops import cuda_kernels as ck
@@ -251,7 +277,12 @@ def test_flash_attention_partial_sources_export_the_wrappers_entry_points(
     _, csrc = fake
     assert source in _build.SOURCES
     src = (csrc / f"{source}.cu").read_text()
-    assert ".cuh" not in src and "return cudaGetLastError();" in src
+    if source == "flash_attention_partial_bwd":
+        assert '#include "tensor_core.cuh"' in src
+        assert re.findall(r'#include "([^"]+)"', src) == ["tensor_core.cuh"]
+    else:
+        assert ".cuh" not in src
+    assert "return cudaGetLastError();" in src
     assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in src
     assert "int kv_offset" in src
     wrappers = inspect.getsource(ck)

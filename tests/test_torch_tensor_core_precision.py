@@ -1,0 +1,214 @@
+"""Why the tensor-core kernels split fp32 into TF32 pairs, shown on the CPU.
+
+``csrc/flash_mha_packed.cu`` (B1's forward) and
+``csrc/flash_attention_partial_bwd.cu`` (B9) run every product on the
+H100's tensor cores (``csrc/tensor_core.cuh``).  fp32 operands go in as
+split TF32: ``big = tf32(x)``, ``small = tf32(x - big)``, each rounded as
+``cvt.rna.tf32.f32`` does (to nearest, ties away from zero, 10 stored
+mantissa bits), and a product is ``big.small + small.big + big.big``
+accumulated in fp32.  A bf16 operand is exact in TF32, so a product of an
+fp32 operand with a bf16 one needs two.  bf16 products run on bf16 tensor
+cores, which multiply exactly and accumulate in fp32.  P is rounded to
+bf16 before B1's bf16 P.V; B9 keeps P in fp32 and rounds dS to the input
+dtype before dS.K and dS^T.q, as the TPU kernels do.
+
+This file emulates those products in torch on the CPU (fp32 matmuls over
+TF32-valued operands, whose products are exact in fp32) at B1's prefill
+shape (1, 1024, 12 heads, 64, causal) and at a (1, 12, 512, 512, 64) ring
+hop of B9, from seeded numpy inputs, and holds the result against the
+plain versions ``flash_mha_packed_plain`` and ``flash_attention_bwd_plain``
+with ``chip_smoke.py``'s tolerances: the split scheme lands within half of
+``TOL["float32"]`` and of ``BWD_TOL``; one TF32 product alone does not
+land within them.  The emulation takes the softmax over whole rows; the
+kernels' online softmax over key tiles rescales the same products.
+"""
+
+import math
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (TOL, BWD_TOL)
+
+TOL, BWD_TOL = chip_smoke.TOL, chip_smoke.BWD_TOL
+LOG2E = 1.4426950408889634
+
+
+def tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32: to nearest, ties away from
+    zero, on the 13 low mantissa bits (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def mm_split(a, b, exact_a=False, exact_b=False):
+    """a @ b as the kernels' split-TF32 products: three, or two where one
+    operand is exact in TF32 (it came from bf16)."""
+    if exact_a:
+        bb, bs = split(b)
+        return a @ bs + a @ bb
+    ab, as_ = split(a)
+    if exact_b:
+        return as_ @ b + ab @ b
+    bb, bs = split(b)
+    return ab @ bs + as_ @ bb + ab @ bb
+
+
+def mm_tf32(a, b, **_):
+    """a @ b as ONE TF32 product: each operand rounded to TF32."""
+    return tf32(a) @ tf32(b)
+
+
+def randn(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def b1_forward(qkv, H, mm):
+    """B1's forward, causal, with the products of ``mm`` and the rounding
+    of qkv's dtype → (o in qkv's dtype, lse (B, T, H) natural log)."""
+    B, T, _ = qkv.shape
+    D = qkv.shape[2] // (3 * H)
+    bf16 = qkv.dtype == torch.bfloat16
+    q, k, v = (x.float().unflatten(-1, (H, D)).transpose(1, 2)
+               for x in qkv.split(H * D, dim=-1))
+    prod = (lambda a, b: a @ b) if bf16 else mm
+    s = prod(q, k.transpose(-1, -2)) * (LOG2E / math.sqrt(D))
+    causal = torch.ones(T, T, dtype=torch.bool).tril()
+    s = torch.where(causal, s, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() @ v if bf16 else mm(p, v)
+    o = (pv / l).transpose(1, 2).reshape(B, T, H * D).to(qkv.dtype)
+    lse = ((m + torch.log2(l)) * math.log(2.0))[..., 0].transpose(1, 2)
+    return o, lse
+
+
+def b9_backward(q, k, v, m, ob, lb, koff, mm):
+    """B9 (causal, key offset koff) with the products of ``mm`` and the
+    rounding of q's dtype → (dq, dk, dv) in the inputs' shapes and
+    dtype."""
+    dt = q.dtype
+    bf16 = dt == torch.bfloat16
+    rnd = (lambda x: x.to(dt).float()) if bf16 else (lambda x: x)
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # BHTD
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)[..., None]
+    mask = (torch.arange(Tk) + koff)[None, :] <= torch.arange(Tq)[:, None]
+    exact = (lambda a, b: a @ b) if bf16 else mm
+    s = exact(qf, kf.transpose(-1, -2))
+    p = torch.where(mask, torch.exp(s * scale - m_safe), 0.0)
+    dp = mm(ob, vf.transpose(-1, -2), exact_b=bf16)
+    ds = rnd(p * (dp + lb[..., None]))
+    dq = exact(ds, kf) * scale
+    dk = exact(ds.transpose(-1, -2), qf) * scale
+    dv = mm(p.transpose(-1, -2), ob)
+    return tuple(g.transpose(1, 2).to(dt) for g in (dq, dk, dv))
+
+
+@pytest.fixture(scope="module")
+def b1_case():
+    rng = np.random.RandomState(9)
+    qkv = randn(rng, 1, 1024, 3 * 12 * 64)
+    return qkv, {dt: ck.flash_mha_packed_plain(qkv.to(dt), 12, causal=True)
+                 for dt in (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b1_forward_split_tf32_within_half_the_tolerance(b1_case, dtype):
+    """fp32: split TF32 within TOL/2 of the plain version (o, and lse to
+    the check's 10 x TOL/2).  bf16: bf16 products with P rounded to bf16
+    before P.V within the chip's bf16 TOL (both outputs are rounded to
+    bf16, one ulp of which is 0.0156 at |o| >= 2)."""
+    qkv, plain = b1_case
+    dt = getattr(torch, dtype)
+    po, plse = plain[dt]
+    o, lse = b1_forward(qkv.to(dt), 12, mm_split)
+    err = (o.float() - po.float()).abs().max().item()
+    lse_err = (lse - plse).abs().max().item()
+    limit = TOL[dtype] / 2 if dtype == "float32" else TOL[dtype]
+    assert err <= limit, (dtype, err)
+    assert lse_err <= TOL["float32"] * 10 / 2, (dtype, lse_err)
+
+
+def test_b1_forward_one_tf32_product_misses_the_tolerance(b1_case):
+    """One TF32 product keeps ~3 decimal digits: o misses TOL["float32"],
+    which is why the fp32 path splits."""
+    qkv, plain = b1_case
+    o, _ = b1_forward(qkv, 12, mm_tf32)
+    err = (o - plain[torch.float32][0]).abs().max().item()
+    assert err > TOL["float32"], err
+
+
+def _b9_inputs(dtype, koff, seed=12):
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (randn(rng, 1, 512, 12, 64).to(dt) for _ in range(3))
+    ob = randn(rng, 1, 12, 512, 64)
+    lb = randn(rng, 1, 12, 512)
+    _, m, _ = ck.flash_attention_partial_plain(q, k, v, True, 512, koff)
+    return q, k, v, m, ob, lb
+
+
+def _b9_errors(dtype, koff, mm):
+    """Each gradient's max error against the plain version, over the
+    check's tolerance: BWD_TOL * max(1, peak) in fp32, BWD_TOL * peak in
+    bf16."""
+    args = _b9_inputs(dtype, koff)
+    ref = ck.flash_attention_bwd_plain(*args, causal=True, block_size=512,
+                                       kv_offset=koff)
+    got = b9_backward(*args, koff, mm)
+    out = []
+    for a, r in zip(got, ref):
+        peak = r.float().abs().max().item()
+        tol = BWD_TOL[dtype] * (max(1.0, peak) if dtype == "float32"
+                                else peak)
+        out.append((a.float() - r.float()).abs().max().item() / tol)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("koff", [0, -512])
+def test_b9_split_tf32_within_half_the_tolerance(dtype, koff):
+    """dq, dk and dv of the diagonal hop (koff 0) and a past hop (koff
+    -512, nothing masked) within half of the check's tolerance."""
+    ratios = _b9_errors(dtype, koff, mm_split)
+    assert max(ratios) <= 0.5, (dtype, koff, ratios)
+
+
+def test_b9_one_tf32_product_misses_the_tolerance():
+    """One TF32 product for each fp32 product: some gradient misses
+    BWD_TOL at the past hop."""
+    ratios = _b9_errors("float32", -512, mm_tf32)
+    assert max(ratios) > 1.0, ratios
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """tf32() as cvt.rna.tf32.f32: 13 low bits cleared, rounded to the
+    nearest, a tie away from zero; split() leaves about 2^-22 behind."""
+    one = torch.tensor([1.0])
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4,
+                      1 + 3 * ulp / 4])
+    assert tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + ulp]
+    assert tf32(one).item() == 1.0
+    rng = np.random.RandomState(0)
+    y = randn(rng, 4096)
+    big, small = split(y)
+    assert torch.equal(tf32(big), big) and torch.equal(tf32(small), small)
+    rel = ((big.double() + small.double() - y.double()).abs()
+           / y.double().abs()).max().item()
+    assert rel <= 2.0 ** -21
