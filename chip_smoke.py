@@ -8,11 +8,13 @@
    kernels from their CUDA source text (the example's and this
    script's, below) in one ``_build.build(sources=...)``, one ``nvcc``
    per source, all started together.  Then, with ``cuobjdump`` from the
-   toolkit beside ``nvcc``, the tensor-core kernels (B1's forward and
-   both B9 kernels, every fp32 and bf16 instantiation) must hold
-   tensor-core instructions (``HMMA``/``HGMMA``) in their SASS, and
-   those at D = 64 no local (spill) memory; each one's registers, shared
-   memory and local memory are printed (``tensor_cores`` lines).
+   toolkit beside ``nvcc``, the tensor-core kernels (``TC_KERNELS``:
+   B1's forward, B1's two backward kernels, B5's forward at each
+   head-width bucket and both B9 kernels, every fp32 and bf16
+   instantiation) must hold tensor-core instructions (``HMMA``/
+   ``HGMMA``) in their SASS, and those at D = 64 no local (spill)
+   memory; each one's registers, shared memory and local memory are
+   printed (``tensor_cores`` lines).
 2. Kernels against their plain PyTorch versions on the card, at the
    main paths' shapes, in fp32 and bf16 (tolerances in ``TOL`` and
    ``BWD_TOL``): the time of each (CUDA events, median of 20 after
@@ -20,8 +22,8 @@
    the same function (timed here only, used nowhere in the port) and
    the least time the card could take for the work (``bound_ms``; the
    tensor-core kernels also carry ``bound_tc_ms``, the same work at
-   ``PEAK_TC_FLOPS``).  B1's forward also runs on a qkv off 16-byte
-   alignment (``offset=1``).
+   ``PEAK_TC_FLOPS``).  B1's forward and backward also run on a qkv off
+   16-byte alignment, and B5 on BTHD buffers off it (``offset=1``).
    The quantized decode runs over int8 and fp8 pools made by the port's
    ``quantize_kv``; the verify kernel over fp32, bf16, int8 and fp8
    pools, and each of its rows must ``torch.equal`` the decode kernel's
@@ -183,9 +185,10 @@
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
-B1's forward, B9, serving run A, the packed LM's training and the
-sequence phase there, ``--kernels ROOT`` the two kernels alone (see
-``paths_timing``).
+the tensor-core kernels (B1's forward and backward, B5's forward with
+its backward, B9) in fp32 and bf16, serving run A, the packed LM's and
+the DPA LM's training and the sequence phase there, ``--kernels ROOT``
+the kernels alone (see ``paths_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -235,6 +238,10 @@ MHA_SHAPES = ((TRAIN_BATCH, H, 1024, 1024, D, True),
               (1, H, 1000, 1000, D, False),
               (2, H, 256, 1024, D, True), (2, H, 256, 1024, D, False),
               (4, 8, 1024, 1024, 128, True), (2, H, 1024, 1024, 80, True))
+# B5's forward on a BTHD buffer off 16-byte alignment (element staging)
+MHA_OFFSET_SHAPE = (1, H, 1000, 1000, D, True)
+# what --paths / --kernels time of B5: the DPA path's shape and D = 128
+PATH_MHA_SHAPES = (MHA_SHAPES[0], MHA_SHAPES[4])
 # sequence parallelism on one card: a SEQ_SP-shard ring over
 # ["cuda:0"] * SEQ_SP at the GPT-2-class attention width and SEQ_T
 # positions; the decode-time layout is a SEQ_CHUNK-row chunk of q at
@@ -328,11 +335,25 @@ def bound_tc(nbytes, flops, dtype):
     return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_TC_FLOPS[dtype]) * 1e3
 
 
-# the tensor-core kernels: library, kernel names, instantiations expected
-TC_KERNELS = (("flash_mha_packed", ("mhap_fwd_kernel",), (64,)),
-              ("flash_attention_partial_bwd",
-               ("partial_bwd_dq_kernel", "partial_bwd_dkv_kernel"),
-               (32, 64, 96, 128)))
+# the tensor-core kernels: library, kernel names, head-width buckets
+# instantiated, and the library's dynamic shared-memory query with the
+# arguments it takes for (kernel, bucket, dtype code)
+def _which(kernel):
+    return int(kernel.endswith("dkv_kernel"))
+
+
+TC_KERNELS = (
+    ("flash_mha_packed", ("mhap_fwd_kernel",), (64,),
+     "flash_mha_packed_smem_bytes", lambda k, dp, code: (code,)),
+    ("flash_mha_packed_bwd", ("mhap_bwd_dq_kernel", "mhap_bwd_dkv_kernel"),
+     (64,), "flash_mha_packed_bwd_smem_bytes",
+     lambda k, dp, code: (_which(k), code)),
+    ("flash_mha", ("mha_fwd_kernel",), (32, 64, 96, 128),
+     "flash_mha_smem_bytes", lambda k, dp, code: (dp, code)),
+    ("flash_attention_partial_bwd",
+     ("partial_bwd_dq_kernel", "partial_bwd_dkv_kernel"), (32, 64, 96, 128),
+     "flash_attention_bwd_smem_bytes",
+     lambda k, dp, code: (_which(k), dp, code)))
 
 
 def _cuobjdump(_build, args, lib):
@@ -343,8 +364,9 @@ def _cuobjdump(_build, args, lib):
 
 
 def tensor_core_report(_build):
-    """Registers, shared and local memory of every instantiation of B1's
-    forward and both B9 kernels (``cuobjdump -res-usage``; dynamic shared
+    """Registers, shared and local memory of every instantiation of the
+    tensor-core kernels (``TC_KERNELS``: B1's forward and backward, B5's
+    forward, both B9 kernels; ``cuobjdump -res-usage``, dynamic shared
     memory from each library's own query), and the tensor-core
     instructions in each one's SASS (``cuobjdump -sass``).  Raises when a
     tool is missing, an instantiation is missing, one holds no HMMA or
@@ -352,11 +374,11 @@ def tensor_core_report(_build):
     import ctypes
     import re
 
-    name_re = re.compile(r"(mhap_fwd_kernel|partial_bwd_dq_kernel|"
-                         r"partial_bwd_dkv_kernel)I(f|13__nv_bfloat16)"
+    names = "|".join(k for spec in TC_KERNELS for k in spec[1])
+    name_re = re.compile(rf"\d({names})I(f|13__nv_bfloat16)"
                          r"(?:Li(\d+)E)?E")
     out = []
-    for lib, kernels, dps in TC_KERNELS:
+    for lib, kernels, dps, query, query_args in TC_KERNELS:
         path = _build._target(lib)
         res = _cuobjdump(_build, ["-res-usage"], path)
         sass = _cuobjdump(_build, ["-sass"], path)
@@ -365,13 +387,8 @@ def tensor_core_report(_build):
             fn, body = part.split("\n", 1)
             mma[fn.strip()] = (len(re.findall(r"\bHMMA\.", body)),
                                len(re.findall(r"\bHGMMA\.", body)))
-        handle = _build.library(lib)
-        if lib == "flash_mha_packed":
-            smem = handle.flash_mha_packed_smem_bytes
-            smem.argtypes = [ctypes.c_int]
-        else:
-            smem = handle.flash_attention_bwd_smem_bytes
-            smem.argtypes = [ctypes.c_int] * 3
+        smem = getattr(_build.library(lib), query)
+        smem.argtypes = [ctypes.c_int] * len(query_args("", 64, 0))
         smem.restype = ctypes.c_int
         seen = set()
         for fn, regs, stack, shared, local in re.findall(
@@ -383,9 +400,7 @@ def tensor_core_report(_build):
             kernel, ty, dp = mt_.group(1), mt_.group(2), mt_.group(3)
             dtype = "float32" if ty == "f" else "bfloat16"
             dp = int(dp or 64)
-            code = 0 if dtype == "float32" else 1
-            dyn = smem(code) if lib == "flash_mha_packed" else smem(
-                int(kernel == "partial_bwd_dkv_kernel"), dp, code)
+            dyn = smem(*query_args(kernel, dp, int(dtype == "bfloat16")))
             hmma, hgmma = mma.get(fn, (0, 0))
             rec = {"kernel": kernel, "dtype": dtype, "head_dim_bucket": dp,
                    "registers": int(regs), "stack_bytes": int(stack),
@@ -444,15 +459,19 @@ def check_prefill(torch, ck, F, T, dtype, B=1, offset=0):
         "bound_tc_ms": bound_tc(nbytes, flops, dtype)}
 
 
-def check_backward(torch, ck, F, B, T, dtype):
+def check_backward(torch, ck, F, B, T, dtype, offset=0):
     """Both backward kernels against the plain backward, at B x T,
     causal.  One record per kernel: its error over the thirds of dqkv
-    it writes, its own time and bound; the plain version and the
+    it writes, its own time and bounds; the plain version and the
     library call (SDPA's backward) compute dq, dk and dv together, so
-    both records carry their one time."""
+    both records carry their one time.  ``offset`` > 0 starts qkv that
+    many elements into its buffer, off 16-byte alignment, which the
+    kernels stage one element a thread."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(B * 10000 + T)
-    qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda").to(dt)
+    n = B * T * 3 * H * D
+    qkv = torch.randn(n + offset, generator=g, device="cuda").to(dt)[
+        offset:].view(B, T, 3 * H * D)
     do = torch.randn((B, T, H * D), generator=g, device="cuda").to(dt)
     o, lse = ck.flash_mha_packed(qkv, H, causal=True)
     got = ck.flash_mha_packed_bwd(qkv, o, lse, do, H, causal=True)
@@ -464,8 +483,10 @@ def check_backward(torch, ck, F, B, T, dtype):
     tol = BWD_TOL[dtype] * (max(1.0, peak) if dtype == "float32" else peak)
     plain_ms = time_ms(torch, lambda: ck.flash_mha_packed_bwd_plain(
         qkv, o, lse, do, H, causal=True), reps=5, warmup=1)
+    # SDPA reads an aligned copy of a misaligned qkv (it faults on one)
     q, k, v = (x.unflatten(-1, (H, D)).transpose(1, 2).detach()
-               .requires_grad_() for x in qkv.split(H * D, dim=-1))
+               .requires_grad_() for x in
+               (qkv.clone() if offset else qkv).split(H * D, dim=-1))
     sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True)
     do_t = do.unflatten(-1, (H, D)).transpose(1, 2)
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
@@ -486,12 +507,15 @@ def check_backward(torch, ck, F, B, T, dtype):
                            flop_per_pair * pairs, dtype)
         out.append({
             "kernel": f"flash_mha_packed_bwd_{part}",
-            "shape": f"B={B} T={T} H={H} D={D} causal", "dtype": dtype,
+            "shape": f"B={B} T={T} H={H} D={D} causal"
+            + (f" offset={offset}" if offset else ""), "dtype": dtype,
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(torch, lambda: ck.launch_flash_mha_packed_bwd(
                 part, qkv, o, lse, do, buf, H, True)),
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": bound_tc(reads + writes * B * T * H * D * es,
+                                    flop_per_pair * pairs, dtype)})
     return out
 
 
@@ -504,23 +528,31 @@ def mha_pairs(B, H, Tq, Tk, causal):
     return B * H * (n * (n + 1) // 2 + (Tq - n) * Tk)
 
 
-def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype):
+def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype, offset=0):
     """B5 forward and both backward kernels against their plain versions
     on (B, H, T, D) views of BTHD tensors (the layout DotProductAttention
-    hands them).  One record per kernel; the backward's plain version and
-    library call (SDPA's backward) compute dq, dk and dv together, so
-    both backward records carry their one time."""
+    hands them).  One record per kernel (the forward's also with its
+    tensor-core bound); the backward's plain version and library call
+    (SDPA's backward) compute dq, dk and dv together, so both backward
+    records carry their one time.  ``offset`` > 0 starts each BTHD
+    buffer that many elements in, off 16-byte alignment, which the
+    forward kernel stages one element a thread."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(B * 1000 + Tq + Dh)
-    q, k, v, do = (torch.randn((B, T, Hh, Dh), generator=g, device="cuda")
-                   .to(dt).transpose(1, 2) for T in (Tq, Tk, Tk, Tq))
+    q, k, v, do = (torch.randn(B * T * Hh * Dh + offset, generator=g,
+                               device="cuda").to(dt)[offset:]
+                   .view(B, T, Hh, Dh).transpose(1, 2)
+                   for T in (Tq, Tk, Tk, Tq))
+    # SDPA reads aligned copies of misaligned views (it faults on them)
+    qy, ky, vy, doy = (x.clone() if offset else x for x in (q, k, v, do))
     o, lse = ck.flash_mha(q, k, v, causal)
     po, plse = ck.flash_mha_plain(q, k, v, causal)
     torch.cuda.synchronize()
     err = (o.float() - po.float()).abs().max().item()
     lse_err = (lse - plse).abs().max().item()
     shape = (f"B={B} H={Hh} Tq={Tq} Tk={Tk} D={Dh} "
-             + ("causal" if causal else "full"))
+             + ("causal" if causal else "full")
+             + (f" offset={offset}" if offset else ""))
     check(err <= TOL[dtype] and lse_err <= TOL["float32"] * 10,
           f"flash_mha {shape} {dtype}: max_abs_err {err} (lse {lse_err}) "
           f"over tolerance {TOL[dtype]}")
@@ -531,8 +563,8 @@ def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype):
     es = q.element_size()
     pairs = mha_pairs(B, Hh, Tq, Tk, causal)
     rows_q, rows_k = B * Hh * Tq * Dh, B * Hh * Tk * Dh
-    b_ms, b_by = bound((2 * rows_q + 2 * rows_k) * es + B * Hh * Tq * 4,
-                       4 * Dh * pairs, dtype)
+    fwd_bytes = (2 * rows_q + 2 * rows_k) * es + B * Hh * Tq * 4
+    b_ms, b_by = bound(fwd_bytes, 4 * Dh * pairs, dtype)
     out = [{
         "kernel": "flash_mha", "shape": shape, "dtype": dtype,
         "max_abs_err": err, "tol": TOL[dtype],
@@ -540,14 +572,15 @@ def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype):
         "plain_ms": time_ms(torch, lambda: ck.flash_mha_plain(
             q, k, v, causal), reps=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal)),
-        "bound_ms": b_ms, "bound_by": b_by}]
+            qy, ky, vy, is_causal=causal)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_tc_ms": bound_tc(fwd_bytes, 4 * Dh * pairs, dtype)}]
     plain_ms = time_ms(torch, lambda: ck.flash_mha_bwd_plain(
         q, k, v, o, lse, do, causal), reps=5, warmup=1)
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qy, ky, vy))
     sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa, (qg, kg, vg), do, retain_graph=True))
+        sdpa, (qg, kg, vg), doy, retain_graph=True))
     delta = (do.float() * o.float()).sum(-1).contiguous()
     # every backward kernel reads q, k, v, do, lse and Delta
     reads = (2 * rows_q + 2 * rows_k) * es + 2 * B * Hh * Tq * 4
@@ -2565,13 +2598,15 @@ def decode_timing(root):
 
 
 def paths_timing(root, paths=True):
-    """``python3 chip_smoke.py --paths ROOT``: B1's forward at (1, 1024)
-    and (8, 1024), B9 at the ring's past hop, both in fp32 and bf16,
-    serving run A, the packed LM's training run and the sequence phase,
-    on the port under ROOT (a checkout, e.g. a parent commit unpacked
-    beside this one), one JSON line each; ``--kernels ROOT`` the two
-    kernels alone.  Run parent, change, change, parent in one call to
-    compare two versions on one card."""
+    """``python3 chip_smoke.py --paths ROOT``: the tensor-core kernels at
+    their main-path shapes, in fp32 and bf16 — B1's forward at (1, 1024)
+    and (8, 1024), B1's backward at (8, 1024), B5's forward (with B5's
+    backward) at ``PATH_MHA_SHAPES``, B9 at the ring's past hop — then
+    serving run A, the packed LM's training run, the DPA LM's and the
+    sequence phase, on the port under ROOT (a checkout, e.g. a parent
+    commit unpacked beside this one), one JSON line each; ``--kernels
+    ROOT`` the kernels alone.  Run parent, change, change, parent in one
+    call to compare two versions on one card."""
     import torch
     import torch.nn.functional as F
 
@@ -2592,18 +2627,23 @@ def paths_timing(root, paths=True):
     for dtype in ("float32", "bfloat16"):
         recs = [check_prefill(torch, ck, F, 1024, dtype, B=B)
                 for B in (1, TRAIN_BATCH)]
+        recs += check_backward(torch, ck, F, TRAIN_BATCH, 1024, dtype)
+        for shape in PATH_MHA_SHAPES:
+            recs += check_mha(torch, ck, F, *shape, dtype)
         recs += check_partial(torch, ck, F, *PARTIAL_SHAPES[1], dtype)
         for rec in recs:
             print(json.dumps({"paths_timing": {"root": root, **rec}}))
+        torch.cuda.empty_cache()
     if not paths:
         print(card_line())
         return 0
-    torch.cuda.empty_cache()
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
     runs = {"serving_A": main_path(torch, mt, ck, dev_params)}
     del dev_params
     torch.cuda.empty_cache()
     runs["train_path"] = train_path(torch, mt, ck)
+    torch.cuda.empty_cache()
+    runs["dpa_path"] = dpa_path(torch, mt, ck)
     torch.cuda.empty_cache()
     runs["sequence_path"] = sequence_path(torch, mt, ck)
     for name, rec in runs.items():
@@ -2674,16 +2714,19 @@ def main():
                                    pool, rng))
         print(json.dumps({"check": checks[-1]}))
     for dtype in ("float32", "bfloat16"):
-        for B, T in ((1, 128), (1, 1000), (1, 1024), (TRAIN_BATCH, 1024)):
-            for c in check_backward(torch, ck, F, B, T, dtype):
-                checks.append(c)
-                print(json.dumps({"check": c}))
+        for c in [c for B, T in ((1, 128), (1, 1000), (1, 1024),
+                                 (TRAIN_BATCH, 1024))
+                  for c in check_backward(torch, ck, F, B, T, dtype)] \
+                + check_backward(torch, ck, F, 1, 1000, dtype, offset=1):
+            checks.append(c)
+            print(json.dumps({"check": c}))
     for dtype in ("float32", "bfloat16"):
-        for B, Hh, Tq, Tk, Dh, causal in MHA_SHAPES:
-            for c in check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal,
-                               dtype):
-                checks.append(c)
-                print(json.dumps({"check": c}))
+        for c in [c for shape in MHA_SHAPES
+                  for c in check_mha(torch, ck, F, *shape, dtype)] \
+                + check_mha(torch, ck, F, *MHA_OFFSET_SHAPE, dtype,
+                            offset=1):
+            checks.append(c)
+            print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
     # no earlier check launched B8 or B9: the plain versions of B1, B2,
     # B3 and B5 run the plain partial body, not the B8 wrapper

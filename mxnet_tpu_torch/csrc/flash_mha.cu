@@ -1,4 +1,5 @@
-// Normalized multi-head flash attention, forward, for Hopper (sm_90a).
+// Normalized multi-head flash attention, forward, for Hopper (sm_90a), on
+// the tensor cores.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py:_mha_fwd (the Pallas kernel
 // _mha_fwd_kernel behind flash_mha, the attention of DotProductAttention).
@@ -8,8 +9,13 @@
 // q_pos >= Tk sees every key) →
 //   o (B, H, Tq, D) in q's dtype, normalized in-kernel, and
 //   lse (B, H, Tq) float32, natural log: m + log(max(l, 1e-30)).
-// Scores and the online-softmax state are float32; p is rounded to v's
-// dtype before the PV product, as the TPU kernel casts it.
+//
+// Rounding, as the TPU kernel's: scores s = (q.k^T) * scale*log2(e) in the
+// exp2 domain, accumulated in fp32.  fp32: Q.K^T and P.V each as split
+// TF32 (three tensor-core products, tensor_core.cuh), which keeps fp32's
+// accuracy.  bf16: Q.K^T on bf16 tensor cores; P is rounded to bf16 before
+// P.V (p.astype(v.dtype)), which then runs on bf16 tensor cores; the row
+// sum l is taken over fp32 p.
 //
 // Layout: every tensor is addressed through its own (batch, head, row)
 // element strides, lanes contiguous.  blockwise_attention hands the kernel
@@ -17,41 +23,41 @@
 // its own strides (the wrapper gives it q's layout).  lse is contiguous.
 //
 // What bounds it on the H100: the work.  Causal attention at B=8, H=12,
-// T=1024, D=64 is ~13 GFLOP against ~100 MB (fp32), ~130 FLOP a byte, far
-// above the memory line at fp32's CUDA-core rate.  This first kernel runs
-// its products on the CUDA cores in fp32 (no wgmma/TMA yet), so its
-// ceiling is the 67 TFLOP/s fp32 rate.
+// T=1024, D=64 is ~12.9 GFLOP against ~100 MB (fp32), far above the
+// memory line.  Split TF32 runs three TF32 products for each fp32 one:
+// 495 / 3 = 165 TFLOP/s in effect; bf16 runs at up to 989 TFLOP/s.
 //
-// Design:
-// * One block of 256 threads per (64 query rows, head, batch row).  Four
-//   threads share a query row, each holding W = DP/4 contiguous lanes of q
-//   and of the output accumulator in registers (DP: D rounded up to a
-//   multiple of 32; lanes past D are zero), so D = 128 keeps 2 x 32 floats
-//   a thread where a row per thread would spill.  A row's dot products
-//   finish with two xor-shuffles.
-// * K and V tiles of 32 rows are staged in shared memory as fp32 (bf16
-//   widened on load).  A thread reads its lanes of a staged row as float4;
-//   the four parts of a row sit 4 words apart, so the four 16-byte reads of
-//   a row fall in different banks, and the 8 rows of a warp read the same
-//   words (broadcast).
-// * The loop over key tiles takes the place of the TPU grid's sequential
-//   kj axis.  Causal blocks stop at the last key tile touching the
-//   diagonal: tiles wholly above it are never loaded.
-// * Scores live in the exp2 domain (q pre-scaled by log2(e)/sqrt(D)).
+// Design (B1's forward, flash_mha_packed.cu, over strided tensors and any
+// D; why mma.sync and not wgmma: there):
+// * A block of 4 warps owns 64 query rows of one (batch, head); a warp owns
+//   16.  S, the online-softmax state (m, l) and the output accumulator
+//   live in accumulator fragments; each tile's P.V is summed in a fresh
+//   accumulator and added to the output's on the CUDA cores
+//   (tc::gemm_pY_acc).  The loop over key tiles inside the block takes the
+//   place of the TPU grid's sequential kj axis.
+// * Templated on the head-width bucket DP (32, 64, 96, 128; lanes past D
+//   stage as zero).  Up to DP = 64 the warp's Q fragments (split into big
+//   and small in fp32) stay in registers, Q passing through the ring's
+//   second stage, and key tiles hold 64 rows; above, Q keeps its own
+//   shared tile and key tiles hold 32 rows, which keeps the 16 x 128
+//   output accumulator in registers.
+// * K and V tiles stream through a two-stage cp.async ring, one barrier a
+//   tile.  16-byte copies where every row of q, k and v is 16-byte aligned
+//   (the C entry decides per launch), else one element a thread: the same
+//   kernel either way.
+// * Masks (causal, the Tk tail) are applied on the fragments, on the tiles
+//   that need them; causal blocks stop at min(Tk, the block's last row + 1)
+//   and the longest q-tiles launch first.
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int kMaxHeadDim = 128;
-constexpr int TPR = 4;          // threads sharing one query row
-constexpr int BQ = 64;          // query rows a block owns
-constexpr int NT = BQ * TPR;    // threads per block
-constexpr int BK = 32;          // key rows per shared-memory tile
-constexpr int PAD = 4;          // words between the parts of a staged row
+constexpr int BQ = 64;      // query rows per block, 16 per warp
+constexpr int NT = 128;     // threads per block
+constexpr int STAGES = 2;   // K/V tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -59,31 +65,17 @@ struct Layout {  // element strides of one tensor; lanes are contiguous
   long long b, h, t;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision, back in float32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// sum over the TPR threads of one row (adjacent lanes of one warp)
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
+template <typename T, int DP>
+struct Cfg {
+  static constexpr int SW = tc::stride<T>(DP);
+  static constexpr bool QREG = DP <= 64;     // Q fragments in registers
+  static constexpr int BN = QREG ? 64 : 32;  // key rows per tile
+  static constexpr int TILE = BN * SW;
+  // [Q (DP > 64)] then STAGES x (K, V); up to 64 Q goes through stage 1
+  static constexpr int SMEM =
+      ((QREG ? 0 : BQ * SW) + STAGES * 2 * TILE) * (int)sizeof(T);
+  static_assert(!QREG || BQ <= 2 * BN, "Q fits in one stage");
+};
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT)
@@ -91,127 +83,196 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, Layout lq, Layout lk, Layout lv,
                Layout lo, int H, int Tq, int Tk, int D, int causal,
-               float scale_log2) {
-  constexpr int W = DP / TPR;       // lanes a thread holds
-  constexpr int SW = DP + TPR * PAD;  // shared row width (words)
-  static_assert(W % 4 == 0, "a thread's lanes are read as float4");
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row = threadIdx.x / TPR;
-  const int part = threadIdx.x % TPR;
-  const int l0 = part * W;            // first lane this thread holds
-  const int sc0 = part * (W + PAD);   // its first shared column
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + row;
-  const bool live = qi < Tq;
+               float scale_log2, int vec16) {
+  using C = Cfg<T, DP>;
+  constexpr int SW = C::SW, BN = C::BN, TILE = C::TILE;
+  constexpr bool F32 = tc::kIsF32<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);       // DP > 64: Q's own tile
+  T* KV = Qs + (C::QREG ? 0 : BQ * SW);          // [STAGES][K, V][BN][SW]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = gridDim.z;
+  const int qt = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int g = tc::lane_id() >> 2, t = tc::lane_id() & 3;
+  const T* qb = q + b * lq.b + h * lq.h;
   const T* kb = k + b * lk.b + h * lk.h;
   const T* vb = v + b * lv.b + h * lv.h;
 
-  __shared__ __align__(16) float Ks[BK][SW];
-  __shared__ __align__(16) float Vs[BK][SW];
+  // causal: the block's last row sees keys up to itself (rows at or past
+  // Tk see every key)
+  const int k_end = causal ? min(Tk, min(Tq, q0 + BQ)) : Tk;
+  const int nk = (k_end + BN - 1) / BN;
 
-  float qr[W];
-  float acc[W];
-  {
-    const T* src = q + b * lq.b + h * lq.h + (long long)(live ? qi : 0) * lq.t;
+  T* Qtile = C::QREG ? KV + 2 * TILE : Qs;
+  tc::stage<T, BQ, DP, SW, NT>(Qtile, qb, lq.t, q0, Tq, D, vec16);
+  tc::stage<T, BN, DP, SW, NT>(KV, kb, lk.t, 0, k_end, D, vec16);
+  tc::stage<T, BN, DP, SW, NT>(KV + TILE, vb, lv.t, 0, k_end, D, vec16);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  constexpr int QK = C::QREG ? (F32 ? DP / 8 : DP / 16) : 1;  // k-steps
+  uint32_t qa[QK][4], qs[F32 ? QK : 1][4];
+  if constexpr (C::QREG) {
 #pragma unroll
-    for (int c = 0; c < W; ++c) {
-      const int lane = l0 + c;
-      qr[c] = (live && lane < D) ? to_f32(src[lane]) * scale_log2 : 0.f;
-      acc[c] = 0.f;
+    for (int ks = 0; ks < QK; ++ks) {
+      if constexpr (F32) {
+        float a[4];
+        tc::frag_a<SW>(a, Qtile, warp * 16, ks * 8);
+        tc::split(a, qa[ks], qs[ks]);
+      } else {
+        tc::frag_a_bf16<SW>(qa[ks], Qtile, warp * 16, ks * 16);
+      }
     }
   }
-  float m = -INFINITY;
-  float l = 0.f;
 
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < BK * DP; idx += NT) {
-      const int r = idx / DP;
-      const int c = idx % DP;
-      const int kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < k_end && c < D) {
-        kx = to_f32(kb[(long long)kr * lk.t + c]);
-        vx = to_f32(vb[(long long)kr * lv.t + c]);
-      }
-      Ks[r][c + (c / W) * PAD] = kx;
-      Vs[r][c + (c / W) * PAD] = vx;
-    }
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  float acc[DP / 8][4];
+  tc::zero(acc);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's part of each row's sum
+
+  for (int it = 0; it < nk; ++it) {
+    // one barrier a tile: tile it has landed for every thread, and every
+    // thread is done with the stage the next copy refills (tile it - 1's,
+    // or, up to DP = 64, the Q tile's before the first)
+    tc::cp_async_wait<0>();
     __syncthreads();
-    const int jn = min(BK, k_end - k0);
+    if (it + 1 < nk) {
+      T* nxt = KV + ((it + 1) % STAGES) * 2 * TILE;
+      tc::stage<T, BN, DP, SW, NT>(nxt, kb, lk.t, (it + 1) * BN, k_end, D,
+                                   vec16);
+      tc::stage<T, BN, DP, SW, NT>(nxt + TILE, vb, lv.t, (it + 1) * BN,
+                                   k_end, D, vec16);
+    }
+    tc::cp_async_commit();
+    const T* Ks = KV + (it % STAGES) * 2 * TILE;
+    const T* Vs = Ks + TILE;
+    const int k0 = it * BN;
 
-    float s[BK];
-    float mt = -INFINITY;
+    // S = Q.K^T (16 x BN per warp)
+    float s[BN / 8][4];
+    tc::zero(s);
+    if constexpr (C::QREG) {
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* kr4 = reinterpret_cast<const float4*>(&Ks[j][sc0]);
-      float d = 0.f;
+      for (int ks = 0; ks < QK; ++ks) {
+        if constexpr (F32) {
 #pragma unroll
-      for (int c = 0; c < W / 4; ++c) {
-        const float4 x = kr4[c];
-        d = fmaf(qr[4 * c], x.x, d);
-        d = fmaf(qr[4 * c + 1], x.y, d);
-        d = fmaf(qr[4 * c + 2], x.z, d);
-        d = fmaf(qr[4 * c + 3], x.w, d);
+          for (int j = 0; j < BN / 8; ++j) {
+            float bf[2];
+            uint32_t bb[2], bs[2];
+            tc::frag_b<SW>(bf, Ks, j * 8, ks * 8);
+            tc::split(bf, bb, bs);
+            tc::mma3(s[j], qa[ks], qs[ks], bb, bs);
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < BN / 16; ++jj) {
+            uint32_t r[4];
+            tc::frag_b_bf16<SW>(r, Ks, jj * 16, ks * 16);
+            const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+            tc::mma_bf16(s[2 * jj], qa[ks], b0);
+            tc::mma_bf16(s[2 * jj + 1], qa[ks], b1);
+          }
+        }
       }
-      d = row_sum(d);
-      const bool ok = j < jn && (!causal || k0 + j <= qi);
-      s[j] = ok ? d : -INFINITY;
-      mt = fmaxf(mt, s[j]);
+    } else if constexpr (F32) {
+      tc::gemm_abT_tf32<BN / 8, DP, SW, SW, false, false>(s, Qs, warp * 16,
+                                                          Ks);
+    } else {
+      tc::gemm_abT_bf16<BN / 8, DP, SW>(s, Qs, warp * 16, Ks);
     }
-    const float m_new = fmaxf(m, mt);
-    if (m_new == -INFINITY) continue;  // nothing visible to this row yet
-    const float alpha = exp2f(m - m_new);  // 0 while m is still -inf
-    float ps = 0.f;
+
+    // online softmax on the fragments, exp2 domain
+    const bool masked = k0 + BN > Tk || (causal && k0 + BN - 1 > q0);
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = exp2f(s[j] - m_new);  // masked entries give exactly 0
-      ps += s[j];
-    }
-    l = l * alpha + ps;
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = round_to<T>(s[j]);  // p in v's dtype, as on the TPU
-      const float4* vr4 = reinterpret_cast<const float4*>(&Vs[j][sc0]);
-#pragma unroll
-      for (int c = 0; c < W / 4; ++c) {
-        const float4 x = vr4[c];
-        acc[4 * c] = fmaf(p, x.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, x.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, x.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, x.w, acc[4 * c + 3]);
+      for (int i = 0; i < 4; ++i) {
+        float x = s[j][i] * scale_log2;
+        if (masked) {
+          const int col = k0 + j * 8 + 2 * t + (i & 1);
+          const int row = row0 + (i >> 1) * 8;
+          if (col >= Tk || (causal && col > row)) x = -INFINITY;
+        }
+        s[j][i] = x;
+        mt[i >> 1] = fmaxf(mt[i >> 1], x);
       }
+    float msafe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], tc::quad_max(mt[r]));
+      msafe[r] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - msafe[r]);  // 0 while m is -inf
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+      m[r] = m_new;
     }
-    m = m_new;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(s[j][i] - msafe[i >> 1]);  // masked: 0
+        s[j][i] = p;
+        l[i >> 1] += p;
+      }
+
+    // acc += P.V, summed a tile at a time (tc::gemm_pY_acc); bf16 rounds p
+    tc::gemm_pY_acc<BN / 8, DP / 8, SW, !F32>(acc, s, Vs);
   }
 
-  if (live) {
-    const float lsafe = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lsafe;
-    T* dst = o + b * lo.b + h * lo.h + (long long)qi * lo.t;
 #pragma unroll
-    for (int c = 0; c < W; ++c)
-      if (l0 + c < D) dst[l0 + c] = from_f32<T>(acc[c] * inv);
-    if (part == 0)
-      lse[((long long)b * H + h) * Tq + qi] = (m + log2f(lsafe)) * LN2;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    const float lsafe = fmaxf(tc::quad_sum(l[r]), 1e-30f);
+    if (row >= Tq) continue;
+    const float inv = 1.f / lsafe;
+    T* orow = o + b * lo.b + h * lo.h + row * lo.t;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (c < D) tc::store(orow + c, acc[n][2 * r] * inv);
+      if (c + 1 < D) tc::store(orow + c + 1, acc[n][2 * r + 1] * inv);
+    }
+    if (t == 0)
+      lse[((long long)b * H + h) * Tq + row] = (m[r] + log2f(lsafe)) * LN2;
   }
 }
 
+// every row of the tensor starts 16-byte aligned
+bool rows16(const void* p, const Layout& l, int es) {
+  const long long e = 16 / es;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.b % e == 0 &&
+         l.h % e == 0 && l.t % e == 0;
+}
+
 template <typename T, int DP>
-void launch_dp(const void* q, const void* k, const void* v, void* o,
-               void* lse, const Layout* ls, int B, int H, int Tq, int Tk,
-               int D, int causal, cudaStream_t stream) {
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
+                      void* lse, const Layout* ls, int B, int H, int Tq,
+                      int Tk, int D, int causal, cudaStream_t stream) {
+  constexpr int bytes = Cfg<T, DP>::SMEM;
+  cudaError_t e = tc::allow_smem<&mha_fwd_kernel<T, DP>>(bytes);
+  if (e != cudaSuccess) return e;
+  const int es = (int)sizeof(T);
+  const int vec16 = rows16(q, ls[0], es) && rows16(k, ls[1], es) &&
+                    rows16(v, ls[2], es);
+  const dim3 grid(H, B, (Tq + BQ - 1) / BQ);
   const float scale_log2 = LOG2E / sqrtf((float)D);
-  mha_fwd_kernel<T, DP><<<grid, NT, 0, stream>>>(
+  mha_fwd_kernel<T, DP><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), ls[0], ls[1], ls[2], ls[3], H, Tq, Tk, D,
-      causal, scale_log2);
+      causal, scale_log2, vec16);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -219,14 +280,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Layout* ls, int B, int H, int Tq, int Tk,
                    int D, int causal, cudaStream_t s) {
   if (D <= 32)
-    launch_dp<T, 32>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
-  else if (D <= 64)
-    launch_dp<T, 64>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
-  else if (D <= 96)
-    launch_dp<T, 96>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
-  else
-    launch_dp<T, 128>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
-  return cudaGetLastError();
+    return launch_dp<T, 32>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
+  if (D <= 64)
+    return launch_dp<T, 64>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
+  if (D <= 96)
+    return launch_dp<T, 96>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
+  return launch_dp<T, 128>(q, k, v, o, lse, ls, B, H, Tq, Tk, D, causal, s);
+}
+
+template <typename T>
+int smem_of(int D) {
+  if (D <= 32) return Cfg<T, 32>::SMEM;
+  if (D <= 64) return Cfg<T, 64>::SMEM;
+  if (D <= 96) return Cfg<T, 96>::SMEM;
+  return Cfg<T, 128>::SMEM;
 }
 
 }  // namespace
@@ -239,7 +306,7 @@ extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v,
                              int B, int H, int Tq, int Tk, int D, int causal,
                              int dtype, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > kMaxHeadDim ||
-      B > 65535 || H > 65535)
+      B > 65535 || (Tq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   Layout ls[4];
   for (int i = 0; i < 4; ++i)
@@ -252,4 +319,10 @@ extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v,
     return (int)launch<__nv_bfloat16>(q, k, v, o, lse, ls, B, H, Tq, Tk, D,
                                       causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// dynamic shared memory a block of the kernel takes at head width D, for
+// chip_smoke.py's resource report (dtype as above)
+extern "C" int flash_mha_smem_bytes(int D, int dtype) {
+  return dtype == 0 ? smem_of<float>(D) : smem_of<__nv_bfloat16>(D);
 }

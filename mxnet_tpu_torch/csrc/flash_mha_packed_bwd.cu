@@ -1,316 +1,416 @@
-// Packed-QKV flash attention, backward, for Hopper (sm_90a).
+// Packed-QKV flash attention, backward, for Hopper (sm_90a), on the tensor
+// cores.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py:_mhap_bwd (its two Pallas
 // kernels _mhap_bwd_dq_kernel and _mhap_bwd_dkv_kernel, the backward of
 // flash_mha_packed).  Same function: from the packed qkv (B, T, 3*H*D), the
-// forward's output o and row log-sum-exp lse, and the output cotangent do,
-// rebuild p = exp(q.k^T*scale - lse) blockwise and form
+// forward's output o and row log-sum-exp lse (B, T, H, natural log), and
+// the output cotangent do, rebuild p = exp2(s*log2(e) - lse*log2(e)) with
+// s = q.k^T*scale, blockwise, and form
 //   Delta = rowsum(do * o),   ds = p * (do.v^T - Delta),
 //   dq = ds.k*scale,  dk = ds^T.q*scale,  dv = p^T.do,
 // written PACKED into one dqkv (B, T, 3*H*D) buffer: dq into the first third,
 // dk and dv into the other two (no concatenate).
 //
+// Rounding, as the TPU kernels': every product accumulates in fp32.  fp32:
+// all five products (q.k^T, do.v^T, ds.k, ds^T.q, p^T.do) as split TF32,
+// three tensor-core products each (tensor_core.cuh).  bf16: all five on bf16
+// tensor cores, ds rounded to bf16 before ds.k and ds^T.q (ds.astype(
+// k.dtype)) and p before p^T.do (pT = p.astype(do.dtype)).
+//
 // What bounds it on the H100: the work.  At B=8, T=1024, H=12, D=64, causal,
 // the two kernels do ~4.5e10 FLOP against ~200 MB of traffic (fp32), far
-// above the memory line at fp32's CUDA-core rate.  This first version runs
-// its products on the CUDA cores in fp32 (no wgmma/TMA yet), so its ceiling
-// is the 67 TFLOP/s fp32 rate.
+// above the memory line.  Split TF32 runs three TF32 products for each fp32
+// one: 165 TFLOP/s in effect; bf16 up to 989.
 //
-// Design:
-// * Two kernels, as on the TPU: dq walks the key tiles, dk/dv walks the
-//   query tiles.  Each output row is owned by exactly one block and written
-//   once, so nothing races (a fused one-pass backward that revisited output
-//   blocks out of order gave wrong dk on the TPU).  The TPU grid's
-//   sequential inner axis becomes the loop inside the block.
-// * A block owns 64 rows (query rows for dq, key rows for dk/dv); two
-//   threads share a row, each holding 32 of its D = 64 lanes in registers
-//   (dq: q, do, dq accumulator; dk/dv: k, v, dk and dv accumulators), and
-//   complete the row's dot products with one shuffle.
-// * The streamed operand (K and V tiles for dq; Q and dO tiles, with each
-//   row's lse and Delta, for dk/dv) is staged in shared memory as fp32,
-//   32 rows at a time; bf16 is widened on load.  The two halves of a staged
-//   row sit one word apart, so the two threads of a row read different
-//   banks while every other pair reads the same words (broadcast).
-// * Delta is computed in-kernel from do and o; p is rebuilt in the exp2
-//   domain from the natural-log lse the forward kernel writes (B, T, H).
-// * Causal: dq stops at the last key tile touching the diagonal; dk/dv
-//   starts at the first query tile touching it.
-// * Built for D = 64, as the forward; fp32 accumulation, output in qkv's
-//   dtype.
+// Design (B9's, flash_attention_partial_bwd.cu, on the packed layout):
+// * Two kernels, as on the TPU.  Each output row is owned by one warp and
+//   written once: no atomics, deterministic gradients.  dq: a block of 4
+//   warps owns 64 query rows (16 a warp) and walks 64-key tiles; S = Q.K^T
+//   and dP = dO.V^T sit in accumulator fragments, and dS goes straight from
+//   them into the A operand of dQ += dS.K.  dk/dv: a block owns 64 key rows
+//   and walks 32-row query tiles (kv-block-outer); it computes S^T = K.Q^T
+//   and dP^T = V.dO^T, so P^T and dS^T sit in the accumulators as the A
+//   operands of dV += P^T.dO and dK += dS^T.Q.
+// * Delta stays in-kernel, as on the TPU: the dq kernel takes it once for
+//   its own rows from the staged o and do tiles (o passes through the
+//   ring's second stage); the dk/dv kernel takes it for every streamed
+//   query tile from the o and do tiles the ring carries beside q (three
+//   tiles and lse a stage): each warp sums a quarter of 8 rows a lane
+//   (tc::row_dot, conflict-free 16-byte shared loads), into the stage's
+//   Delta vector, which a second barrier publishes before dS needs it.
+//   (One lane a row in every warp would read the tile's 32 rows four
+//   times over, through shared memory, which this kernel runs short of
+//   before the tensor cores.)
+// * The block's own rows (Q, dO for dq; K, V for dk/dv) are staged once;
+//   the streamed tiles come through a two-stage cp.async ring, one barrier
+//   a tile.  16-byte copies where qkv, o and do start 16-byte aligned (every
+//   row is then: D = 64), else one element a thread: the same kernel
+//   either way.  Rows are 3*H*D elements apart in qkv and dqkv, H*D in o
+//   and do; lse is (B, T, H), H apart.
+// * Outputs that sum over the streamed rows take each tile's products in a
+//   fresh accumulator added on the CUDA cores (tc::gemm_pY_acc).
+// * Causal: dq stops at its last row's diagonal and its longest q-tiles
+//   launch first; dk/dv starts at the first query tile that sees its first
+//   key.
+// * Built for D = 64, as the forward.
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tensor_core.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-constexpr int ROWS = 64;         // output rows a block owns
-constexpr int TPR = 2;           // threads sharing one row
-constexpr int NT = ROWS * TPR;   // threads per block
-constexpr int TILE = 32;         // streamed rows per shared-memory tile
+constexpr int D = 64;       // head width
+constexpr int ROWS = 64;    // output rows a block owns, 16 a warp
+constexpr int NT = 128;     // threads per block
+constexpr int STAGES = 2;
+constexpr int BN = 64;      // dq: key rows per tile
+constexpr int BM = 32;      // dk/dv: query rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// sum over the TPR threads of one row (adjacent lanes of one warp)
-__device__ __forceinline__ float row_sum(float x) {
+template <typename T>
+struct Cfg {
+  static constexpr int SW = tc::stride<T>(D);
+  // dq: Q, dO, then STAGES x (K, V); o passes through stage 1
+  static constexpr int DQ_SMEM =
+      (2 * ROWS * SW + STAGES * 2 * BN * SW) * (int)sizeof(T);
+  // dk/dv: K, V, then STAGES x (Q, dO, o, lse, Delta)
+  static constexpr int STAGE_DKV = 3 * BM * SW * (int)sizeof(T) + 2 * BM * 4;
+  static constexpr int DKV_SMEM =
+      2 * ROWS * SW * (int)sizeof(T) + STAGES * STAGE_DKV;
+  static_assert(STAGE_DKV % 16 == 0, "stages start 16-byte aligned");
+  static_assert(ROWS <= 2 * BN, "o fits in one stage");
+};
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// write a warp's 16 x D accumulator times mul into rows r0.. (< nrows) of
+// a tensor whose row r starts at base + r * row_stride
+template <typename T>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride,
+                                           const float (&acc)[D / 8][4],
+                                           float mul, int r0, int nrows) {
+  const int g = tc::lane_id() >> 2, t = tc::lane_id() & 3;
 #pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= nrows) continue;
+    T* p = base + row * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      tc::store(p + n * 8, acc[n][2 * r] * mul);
+      tc::store(p + n * 8 + 1, acc[n][2 * r + 1] * mul);
+    }
+  }
 }
 
-// shared-memory column of lane c: the TPR parts of a row are one word apart
-template <int D> __device__ __forceinline__ int scol(int c) {
-  return c + c / (D / TPR);
+// S = X.Y^T over D lanes for a warp's 16 rows of X (from row m0): split
+// TF32 in fp32, bf16 tensor cores in bf16
+template <int NB, typename T>
+__device__ __forceinline__ void gemm_abT(float (&c)[NB][4], const T* X,
+                                         int m0, const T* Y) {
+  constexpr int SW = tc::stride<T>(D);
+  if constexpr (tc::kIsF32<T>)
+    tc::gemm_abT_tf32<NB, D, SW, SW, false, false>(c, X, m0, Y);
+  else
+    tc::gemm_abT_bf16<NB, D, SW>(c, X, m0, Y);
 }
 
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(NT)
 mhap_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                    const float* __restrict__ lse, const T* __restrict__ dout,
                    T* __restrict__ dqkv, int T_, int H, int causal,
-                   float scale) {
-  constexpr int W = D / TPR;       // lanes per thread
-  constexpr int SW = D + TPR - 1;  // shared row width
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+                   float scale, int vec16) {
+  constexpr int SW = Cfg<T>::SW;
+  constexpr int TILE = BN * SW;
+  constexpr bool F32 = tc::kIsF32<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ds = Qs + ROWS * SW;  // dO
+  T* KV = Ds + ROWS * SW;  // [STAGES][K, V][BN][SW]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = gridDim.z;
+  const int qt = causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int q0 = qt * ROWS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = tc::lane_id();
+  const int g = lane >> 2, t = lane & 3;
   const int HD = H * D;
-  const long rs = 3L * HD;
-  const T* base = qkv + (long)b * T_ * rs;
-
-  __shared__ float Ks[TILE][SW];
-  __shared__ float Vs[TILE][SW];
-
-  const int row = threadIdx.x / TPR;
-  const int part = threadIdx.x % TPR;
-  const int l0 = part * W;        // first lane this thread holds
-  const int sc0 = part * (W + 1); // its first shared column
-  const int q0 = blockIdx.x * ROWS;
-  const int qi = q0 + row;
-  const bool live = qi < T_;
-
-  float q[W], dov[W], acc[W];
-  float dpart = 0.f;
-  {
-    const long r = (long)b * T_ + (live ? qi : 0);
-    const T* qrow = base + (long)(live ? qi : 0) * rs + h * D + l0;
-    const T* orow = o + r * HD + h * D + l0;
-    const T* drow = dout + r * HD + h * D + l0;
-#pragma unroll
-    for (int c = 0; c < W; ++c) {
-      q[c] = live ? to_f32(qrow[c]) : 0.f;
-      dov[c] = live ? to_f32(drow[c]) : 0.f;
-      dpart = fmaf(dov[c], live ? to_f32(orow[c]) : 0.f, dpart);
-      acc[c] = 0.f;
-    }
-  }
-  const float delta = row_sum(dpart);
-  const float lse2 = live ? lse[((long)b * T_ + qi) * H + h] * LOG2E : 0.f;
-  const float c1 = scale * LOG2E;
+  const long long rs = 3LL * HD;  // elements between tokens of qkv, dqkv
+  const T* qb = qkv + (long long)b * T_ * rs + h * D;
+  const T* kb = qb + HD;
+  const T* vb = qb + 2 * HD;
+  const T* ob = o + (long long)b * T_ * HD + h * D;
+  const T* dob = dout + (long long)b * T_ * HD + h * D;
 
   const int q_last = min(T_, q0 + ROWS) - 1;
   const int k_end = causal ? q_last + 1 : T_;
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < TILE * D; idx += NT) {
-      const int r = idx / D;
-      const int c = idx % D;
-      const int kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < T_) {
-        const T* src = base + (long)kr * rs + h * D + c;
-        kx = to_f32(src[HD]);
-        vx = to_f32(src[2 * HD]);
-      }
-      Ks[r][scol<D>(c)] = kx;
-      Vs[r][scol<D>(c)] = vx;
-    }
+  const int nk = (k_end + BN - 1) / BN;
+
+  T* Os = KV + 2 * TILE;  // stage 1, free until the loop refills it
+  tc::stage<T, ROWS, D, SW, NT>(Qs, qb, rs, q0, T_, D, vec16);
+  tc::stage<T, ROWS, D, SW, NT>(Ds, dob, HD, q0, T_, D, vec16);
+  tc::stage<T, ROWS, D, SW, NT>(Os, ob, HD, q0, T_, D, vec16);
+  tc::stage<T, BN, D, SW, NT>(KV, kb, rs, 0, k_end, D, vec16);
+  tc::stage<T, BN, D, SW, NT>(KV + TILE, vb, rs, 0, k_end, D, vec16);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // Delta of the warp's 16 rows, one a lane (lanes 16.. repeat them), then
+  // this thread's rows row0 and row0 + 8: Delta, lse (exp2 domain) and the
+  // causal limit (key j visible when j <= lim)
+  const int mine = warp * 16 + (lane & 15);
+  const float dmine = tc::row_dot<D>(Ds + mine * SW, Os + mine * SW);
+  const int row0 = q0 + warp * 16 + g;
+  float dl[2], l2[2];
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    dl[r] = __shfl_sync(0xffffffffu, dmine, g + 8 * r);
+    l2[r] = row < T_ ? lse[((long long)b * T_ + row) * H + h] * LOG2E : 0.f;
+    lim[r] = causal ? min(row, T_ - 1) : T_ - 1;
+  }
+  const float c1 = scale * LOG2E;
+
+  float acc[D / 8][4];
+  tc::zero(acc);
+  for (int it = 0; it < nk; ++it) {
+    // one barrier a tile: tile it has landed for every thread, and every
+    // thread is done with the stage the next copy refills (tile it - 1's,
+    // or the o tile's before the first)
+    tc::cp_async_wait<0>();
     __syncthreads();
-    const int jn = min(TILE, k_end - k0);  // the same for the whole block
-    for (int j = 0; j < jn; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < W; ++c) {
-        s = fmaf(q[c], Ks[j][sc0 + c], s);
-        dp = fmaf(dov[c], Vs[j][sc0 + c], dp);
-      }
-      s = row_sum(s);
-      dp = row_sum(dp);
-      const int kr = k0 + j;
-      const bool ok = live && (!causal || kr <= qi);
-      const float p = ok ? exp2f(s * c1 - lse2) : 0.f;
-      const float ds = p * (dp - delta);
-#pragma unroll
-      for (int c = 0; c < W; ++c) acc[c] = fmaf(ds, Ks[j][sc0 + c], acc[c]);
+    if (it + 1 < nk) {
+      T* nxt = KV + ((it + 1) % STAGES) * 2 * TILE;
+      tc::stage<T, BN, D, SW, NT>(nxt, kb, rs, (it + 1) * BN, k_end, D,
+                                  vec16);
+      tc::stage<T, BN, D, SW, NT>(nxt + TILE, vb, rs, (it + 1) * BN, k_end,
+                                  D, vec16);
     }
+    tc::cp_async_commit();
+    const T* Ks = KV + (it % STAGES) * 2 * TILE;
+    const T* Vs = Ks + TILE;
+    const int k0 = it * BN;
+
+    // S = Q.K^T, then P (fp32) under the masks
+    float s[BN / 8][4];
+    tc::zero(s);
+    gemm_abT<BN / 8>(s, Qs, warp * 16, Ks);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + j * 8 + 2 * t + (i & 1);
+        s[j][i] = col <= lim[i >> 1] ? exp2f(s[j][i] * c1 - l2[i >> 1])
+                                     : 0.f;
+      }
+
+    // dP = dO.V^T; dS = P * (dP - Delta), in the inputs' dtype
+    float dp[BN / 8][4];
+    tc::zero(dp);
+    gemm_abT<BN / 8>(dp, Ds, warp * 16, Vs);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dp[j][i] = round_to(s[j][i] * (dp[j][i] - dl[i >> 1]), T());
+
+    // dQ += dS.K
+    tc::gemm_pY_acc<BN / 8, D / 8, SW, !F32>(acc, dp, Ks);
   }
 
-  if (live) {
-    T* out = dqkv + ((long)b * T_ + qi) * rs + h * D + l0;
-#pragma unroll
-    for (int c = 0; c < W; ++c) out[c] = from_f32<T>(acc[c] * scale);
-  }
+  store_rows(dqkv + (long long)b * T_ * rs + h * D, rs, acc, scale,
+             q0 + warp * 16, T_);
 }
 
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(NT)
 mhap_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                     const float* __restrict__ lse,
                     const T* __restrict__ dout, T* __restrict__ dqkv, int T_,
-                    int H, int causal, float scale) {
-  constexpr int W = D / TPR;
-  constexpr int SW = D + TPR - 1;
-  // Delta of a staged row: NT / TILE threads each sum D / (NT / TILE) lanes
-  constexpr int GP = NT / TILE;
-  constexpr int GW = D / GP;
-  static_assert(NT % TILE == 0 && D % GP == 0 && (GP & (GP - 1)) == 0,
-                "Delta staging needs a power-of-two thread group per row");
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+                    int H, int causal, float scale, int vec16) {
+  using C = Cfg<T>;
+  constexpr int SW = C::SW;
+  constexpr bool F32 = tc::kIsF32<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + ROWS * SW;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Vs + ROWS * SW);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * ROWS;  // causal: the first blocks work most
+  const int warp = threadIdx.x >> 5;
+  const int lane = tc::lane_id();
+  const int g = lane >> 2, t = lane & 3;
   const int HD = H * D;
-  const long rs = 3L * HD;
-  const T* base = qkv + (long)b * T_ * rs;
+  const long long rs = 3LL * HD;
+  const T* qb = qkv + (long long)b * T_ * rs + h * D;
+  const T* ob = o + (long long)b * T_ * HD + h * D;
+  const T* dob = dout + (long long)b * T_ * HD + h * D;
+  const float* lb = lse + (long long)b * T_ * H + h;
 
-  __shared__ float Qs[TILE][SW];
-  __shared__ float Ds[TILE][SW];
-  __shared__ float Ls[TILE];  // lse of each staged row, exp2 domain
-  __shared__ float Dl[TILE];  // Delta of each staged row
+  // causal: query tiles wholly before this block's first key see none of
+  // its keys
+  const int q_begin = causal ? (k0 / BM) * BM : 0;
+  const int nt = (T_ - q_begin + BM - 1) / BM;
 
-  const int row = threadIdx.x / TPR;
-  const int part = threadIdx.x % TPR;
-  const int l0 = part * W;
-  const int sc0 = part * (W + 1);
-  const int k0 = blockIdx.x * ROWS;
-  const int kr = k0 + row;
-  const bool live = kr < T_;
-
-  float k[W], v[W], dk[W], dv[W];
-  {
-    const T* src = base + (long)(live ? kr : 0) * rs + h * D + l0;
+  // this thread's keys key0 and key0 + 8: query i sees the key when
+  // lim <= i < T (a key past T: never)
+  const int key0 = k0 + warp * 16 + g;
+  int lim[2];
 #pragma unroll
-    for (int c = 0; c < W; ++c) {
-      k[c] = live ? to_f32(src[HD + c]) : 0.f;
-      v[c] = live ? to_f32(src[2 * HD + c]) : 0.f;
-      dk[c] = 0.f;
-      dv[c] = 0.f;
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    lim[r] = key >= T_ ? T_ : (causal ? key : 0);
   }
+
+  auto stage_q = [&](int s, int qs) {
+    unsigned char* p = ring + s * C::STAGE_DKV;
+    T* Qt = reinterpret_cast<T*>(p);
+    T* Dt = Qt + BM * SW;
+    T* Ot = Dt + BM * SW;
+    float* Lt = reinterpret_cast<float*>(Ot + BM * SW);  // then Delta
+    tc::stage<T, BM, D, SW, NT>(Qt, qb, rs, qs, T_, D, vec16);
+    tc::stage<T, BM, D, SW, NT>(Dt, dob, HD, qs, T_, D, vec16);
+    tc::stage<T, BM, D, SW, NT>(Ot, ob, HD, qs, T_, D, vec16);
+    for (int i = threadIdx.x; i < BM; i += NT) {
+      const bool ok = qs + i < T_;
+      tc::cp_async4(Lt + i, ok ? lb + (long long)(qs + i) * H : lb,
+                    ok ? 4 : 0);
+    }
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
+  tc::zero(dka);
+  tc::zero(dva);
+  tc::stage<T, ROWS, D, SW, NT>(Ks, qb + HD, rs, k0, T_, D, vec16);
+  tc::stage<T, ROWS, D, SW, NT>(Vs, qb + 2 * HD, rs, k0, T_, D, vec16);
+  stage_q(0, q_begin);
+  tc::cp_async_commit();
   const float c1 = scale * LOG2E;
 
-  // query tiles wholly above the diagonal see none of this block's keys
-  for (int qs = causal ? k0 : 0; qs < T_; qs += TILE) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < TILE * D; idx += NT) {
-      const int r = idx / D;
-      const int c = idx % D;
-      const int qr = qs + r;
-      float qx = 0.f, dx = 0.f;
-      if (qr < T_) {
-        qx = to_f32(base[(long)qr * rs + h * D + c]);
-        dx = to_f32(dout[((long)b * T_ + qr) * HD + h * D + c]);
-      }
-      Qs[r][scol<D>(c)] = qx;
-      Ds[r][scol<D>(c)] = dx;
-    }
-    {
-      const int r = threadIdx.x / GP;
-      const int g = threadIdx.x % GP;
-      const int qr = qs + r;
-      float sum = 0.f;
-      if (qr < T_) {
-        const long off = ((long)b * T_ + qr) * HD + h * D + g * GW;
-#pragma unroll 8
-        for (int c = 0; c < GW; ++c)
-          sum = fmaf(to_f32(dout[off + c]), to_f32(o[off + c]), sum);
-      }
-#pragma unroll
-      for (int m = 1; m < GP; m <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, m);
-      if (g == 0) {
-        Dl[r] = sum;
-        Ls[r] = qr < T_ ? lse[((long)b * T_ + qr) * H + h] * LOG2E : 0.f;
-      }
-    }
+  for (int it = 0; it < nt; ++it) {
+    const int qs = q_begin + it * BM;
+    tc::cp_async_wait<0>();  // the first barrier a tile, as in dq's
     __syncthreads();
-    const int jn = min(TILE, T_ - qs);
-    for (int j = 0; j < jn; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < W; ++c) {
-        s = fmaf(k[c], Qs[j][sc0 + c], s);
-        dp = fmaf(v[c], Ds[j][sc0 + c], dp);
-      }
-      s = row_sum(s);
-      dp = row_sum(dp);
-      const int qi = qs + j;
-      const bool ok = live && (!causal || qi >= kr);
-      const float p = ok ? exp2f(s * c1 - Ls[j]) : 0.f;
-      const float ds = p * (dp - Dl[j]);
-#pragma unroll
-      for (int c = 0; c < W; ++c) {
-        dv[c] = fmaf(p, Ds[j][sc0 + c], dv[c]);
-        dk[c] = fmaf(ds, Qs[j][sc0 + c], dk[c]);
-      }
+    if (it + 1 < nt) stage_q((it + 1) % STAGES, qs + BM);
+    tc::cp_async_commit();
+    unsigned char* p = ring + (it % STAGES) * C::STAGE_DKV;
+    const T* Qt = reinterpret_cast<const T*>(p);
+    const T* Dt = Qt + BM * SW;
+    const T* Ot = Dt + BM * SW;
+    float* Lt = reinterpret_cast<float*>(p + 3 * BM * SW * sizeof(T));
+    float* Dl = Lt + BM;
+
+    // Delta of the tile's rows: warp w rows 8w..8w+7, lanes i, i+8, i+16
+    // and i+24 a quarter each of row 8w + i%8 (for a fixed quarter the 8
+    // rows' 16-byte loads fall in distinct banks)
+    {
+      const int r = warp * 8 + (lane & 7), part = (lane >> 3) * (D / 4);
+      float d = tc::row_dot<D / 4>(Dt + r * SW + part, Ot + r * SW + part);
+      d += __shfl_xor_sync(0xffffffffu, d, 8);
+      d += __shfl_xor_sync(0xffffffffu, d, 16);
+      if (lane < 8) Dl[r] = d;
     }
+    // lse of this thread's columns (queries qs + j*8 + 2t + e), exp2 domain
+    float l2[BM / 8][2];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l2[j][e] = Lt[j * 8 + 2 * t + e] * LOG2E;
+
+    // S^T = K.Q^T, then P^T (fp32) under the masks
+    float s[BM / 8][4];
+    tc::zero(s);
+    gemm_abT<BM / 8>(s, Ks, warp * 16, Qt);
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = qs + j * 8 + 2 * t + (i & 1);
+        const bool ok = qc >= lim[i >> 1] && qc < T_;
+        s[j][i] = ok ? exp2f(s[j][i] * c1 - l2[j][i & 1]) : 0.f;
+      }
+
+    // dV += P^T.dO (bf16: p rounded to bf16 first)
+    tc::gemm_pY_acc<BM / 8, D / 8, SW, !F32>(dva, s, Dt);
+
+    // dP^T = V.dO^T; dS^T = P^T * (dP^T - Delta), in the inputs' dtype
+    float dp[BM / 8][4];
+    tc::zero(dp);
+    gemm_abT<BM / 8>(dp, Vs, warp * 16, Dt);
+    __syncthreads();  // every warp's part of Delta has landed
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dp[j][i] = round_to(
+            s[j][i] * (dp[j][i] - Dl[j * 8 + 2 * t + (i & 1)]), T());
+
+    // dK += dS^T.Q
+    tc::gemm_pY_acc<BM / 8, D / 8, SW, !F32>(dka, dp, Qt);
   }
 
-  if (live) {
-    T* out = dqkv + ((long)b * T_ + kr) * rs + h * D + l0;
-#pragma unroll
-    for (int c = 0; c < W; ++c) {
-      out[HD + c] = from_f32<T>(dk[c] * scale);
-      out[2 * HD + c] = from_f32<T>(dv[c]);
-    }
-  }
+  T* out = dqkv + (long long)b * T_ * rs + h * D;
+  store_rows(out + HD, rs, dka, scale, k0 + warp * 16, T_);
+  store_rows(out + 2 * HD, rs, dva, 1.f, k0 + warp * 16, T_);
 }
 
 template <typename T>
 cudaError_t launch(int which, const void* qkv, const void* o, const void* lse,
-                   const void* dout, void* dqkv, int B, int T_, int H, int D,
+                   const void* dout, void* dqkv, int B, int T_, int H,
                    int causal, cudaStream_t stream) {
-  const dim3 grid((T_ + ROWS - 1) / ROWS, H, B);
+  using C = Cfg<T>;
   const float scale = 1.f / sqrtf((float)D);
   const T* in = static_cast<const T*>(qkv);
   const T* oo = static_cast<const T*>(o);
   const float* l = static_cast<const float*>(lse);
   const T* d = static_cast<const T*>(dout);
   T* out = static_cast<T*>(dqkv);
-  if (D != 64) return cudaErrorInvalidValue;
-  if (which == 0)
-    mhap_bwd_dq_kernel<T, 64><<<grid, NT, 0, stream>>>(in, oo, l, d, out, T_,
-                                                       H, causal, scale);
-  else
-    mhap_bwd_dkv_kernel<T, 64><<<grid, NT, 0, stream>>>(in, oo, l, d, out,
-                                                        T_, H, causal, scale);
+  // rows of qkv (3*H*D apart), o and do (H*D apart) are 16-byte aligned
+  // when their bases are (D = 64)
+  auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec16 = al(qkv) && al(o) && al(dout);
+  const dim3 grid(H, B, (T_ + ROWS - 1) / ROWS);
+  cudaError_t e;
+  if (which == 0) {
+    e = tc::allow_smem<&mhap_bwd_dq_kernel<T>>(C::DQ_SMEM);
+    if (e != cudaSuccess) return e;
+    mhap_bwd_dq_kernel<T><<<grid, NT, C::DQ_SMEM, stream>>>(
+        in, oo, l, d, out, T_, H, causal, scale, vec16);
+  } else {
+    e = tc::allow_smem<&mhap_bwd_dkv_kernel<T>>(C::DKV_SMEM);
+    if (e != cudaSuccess) return e;
+    mhap_bwd_dkv_kernel<T><<<grid, NT, C::DKV_SMEM, stream>>>(
+        in, oo, l, d, out, T_, H, causal, scale, vec16);
+  }
   return cudaGetLastError();
 }
 
 int dispatch(int which, const void* qkv, const void* o, const void* lse,
-             const void* dout, void* dqkv, int B, int T, int H, int D,
+             const void* dout, void* dqkv, int B, int T, int H, int D_,
              int causal, int dtype, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || T < 1 || H < 1 || B > 65535 || D_ != D ||
+      (T + ROWS - 1) / ROWS > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(which, qkv, o, lse, dout, dqkv, B, T, H, D,
+    return (int)launch<float>(which, qkv, o, lse, dout, dqkv, B, T, H,
                               causal, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(which, qkv, o, lse, dout, dqkv, B, T,
-                                      H, D, causal, s);
+                                      H, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -334,4 +434,13 @@ extern "C" int flash_mha_packed_bwd_dkv(const void* qkv, const void* o,
                                         void* stream) {
   return dispatch(1, qkv, o, lse, dout, dqkv, B, T, H, D, causal, dtype,
                   stream);
+}
+
+// dynamic shared memory a block takes (which: 0 = dq, 1 = dk/dv; dtype as
+// above), for chip_smoke.py's resource report
+extern "C" int flash_mha_packed_bwd_smem_bytes(int which, int dtype) {
+  if (dtype == 0) return which == 0 ? Cfg<float>::DQ_SMEM
+                                    : Cfg<float>::DKV_SMEM;
+  return which == 0 ? Cfg<__nv_bfloat16>::DQ_SMEM
+                    : Cfg<__nv_bfloat16>::DKV_SMEM;
 }

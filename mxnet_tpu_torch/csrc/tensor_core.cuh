@@ -1,5 +1,6 @@
 // Tensor-core building blocks for the port's attention kernels on Hopper
-// (sm_90a): flash_mha_packed.cu and flash_attention_partial_bwd.cu.
+// (sm_90a): flash_mha_packed.cu and flash_mha_packed_bwd.cu (B1),
+// flash_mha.cu (B5's forward) and flash_attention_partial_bwd.cu (B9).
 //
 // * mma.sync wrappers: m16n8k8 with TF32 operands and m16n8k16 with bf16
 //   operands, fp32 accumulators.  A warp owns a 16-row tile; the fragment
@@ -456,6 +457,45 @@ __device__ __forceinline__ void stage(T* dst, const T* src,
       copy_elem(dst + r * SW + c, ok ? src + row * row_stride + c : src, ok);
     }
   }
+}
+
+// sum over lanes 0..DP-1 of x[c] * y[c], two staged rows that start
+// 16-byte aligned, in fp32 (four partial sums, then added)
+template <int DP>
+__device__ __forceinline__ float row_dot(const float* x, const float* y) {
+  static_assert(DP % 4 == 0, "16-byte loads tile the row");
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(x + c);
+    const float4 b = *reinterpret_cast<const float4*>(y + c);
+    s[0] = fmaf(a.x, b.x, s[0]);
+    s[1] = fmaf(a.y, b.y, s[1]);
+    s[2] = fmaf(a.z, b.z, s[2]);
+    s[3] = fmaf(a.w, b.w, s[3]);
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+template <int DP>
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* x,
+                                         const __nv_bfloat16* y) {
+  static_assert(DP % 8 == 0, "16-byte loads tile the row");
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < DP; c += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(x + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(y + c);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fa = __bfloat1622float2(a2[i]);
+      const float2 fb = __bfloat1622float2(b2[i]);
+      s[i] = fmaf(fa.y, fb.y, fmaf(fa.x, fb.x, s[i]));
+    }
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

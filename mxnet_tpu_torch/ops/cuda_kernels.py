@@ -101,7 +101,7 @@ LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
 # head widths the packed and paged kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (64,)
 # the widest head flash_mha's kernels take (csrc/flash_mha*.cu: D padded
-# to a multiple of 32, four threads a row)
+# to a bucket of 32, 64, 96 or 128 lanes)
 FLASH_MHA_MAX_HEAD_DIM = 128
 # the largest LSTM hidden size lstm_scan takes: one thread per hidden unit
 LSTM_MAX_HIDDEN = 1024

@@ -96,12 +96,13 @@ def test_edited_shared_header_rebuilds_every_paged_kernel(fake):
 
 
 def test_edited_tensor_core_header_rebuilds_exactly_its_kernels(fake):
-    """B1's forward and B9 share csrc/tensor_core.cuh: editing it gives
-    exactly those two libraries new names; editing the paged header
-    leaves them as they were.  A header is hashed only into the sources
-    that include it."""
+    """B1's forward and backward, B5's forward and B9 share
+    csrc/tensor_core.cuh: editing it gives exactly those four libraries
+    new names; editing the paged header leaves them as they were.  A
+    header is hashed only into the sources that include it."""
     _, csrc = fake
-    users = ["flash_mha_packed", "flash_attention_partial_bwd"]
+    users = ["flash_mha_packed", "flash_mha_packed_bwd", "flash_mha",
+             "flash_attention_partial_bwd"]
     for name in _build.SOURCES:
         text = (csrc / f"{name}.cu").read_text()
         assert ('#include "tensor_core.cuh"' in text) == (name in users)
@@ -220,18 +221,20 @@ def test_no_code_path_catches_a_failed_launch():
         assert not tries, f"{path.name} has try statements at {tries}"
 
 
-@pytest.mark.parametrize("source,entries,loads", [
-    ("flash_mha", ("flash_mha_fwd",),
-     ('_load("flash_mha", "flash_mha_fwd"',)),
+@pytest.mark.parametrize("source,entries,loads,headers", [
+    ("flash_mha", ("flash_mha_fwd", "flash_mha_smem_bytes"),
+     ('_load("flash_mha", "flash_mha_fwd"',), ["tensor_core.cuh"]),
     ("flash_mha_bwd", ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"),
-     ('name = f"flash_mha_bwd_{part}"', '_load("flash_mha_bwd", name')),
+     ('name = f"flash_mha_bwd_{part}"', '_load("flash_mha_bwd", name'), []),
 ])
 def test_flash_mha_sources_export_the_wrappers_entry_points(
-        fake, source, entries, loads):
-    """csrc/flash_mha.cu and flash_mha_bwd.cu stand alone, export the C
-    entry points ``ops.cuda_kernels`` loads, return cudaGetLastError()
-    and take head widths up to the wrappers' limit; each counts its
-    launches, and editing one rebuilds it alone."""
+        fake, source, entries, loads, headers):
+    """csrc/flash_mha.cu (on the tensor cores, through the shared
+    tensor_core.cuh) and flash_mha_bwd.cu (standing alone) export the C
+    entry points ``ops.cuda_kernels`` loads, and the forward its dynamic
+    shared-memory query for chip_smoke.py's resource report; both return
+    cudaGetLastError() and take head widths up to the wrappers' limit;
+    each counts its launches, and editing one rebuilds it alone."""
     import inspect
 
     from mxnet_tpu_torch.ops import cuda_kernels as ck
@@ -239,7 +242,8 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
     _, csrc = fake
     assert source in _build.SOURCES
     src = (csrc / f"{source}.cu").read_text()
-    assert ".cuh" not in src and "return cudaGetLastError();" in src
+    assert re.findall(r'#include "([^"]+)"', src) == headers
+    assert "return cudaGetLastError();" in src
     assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in src
     wrappers = inspect.getsource(ck)
     assert all(text in wrappers for text in loads)
@@ -251,6 +255,39 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
     (csrc / f"{source}.cu").write_text(src + "\n// edited\n")
     after = {n: _build._target(n) for n in _build.SOURCES}
     assert [n for n in _build.SOURCES if after[n] != before[n]] == [source]
+    assert _build.build([source])[source] > 0
+
+
+@pytest.mark.parametrize("source,entries,smem", [
+    ("flash_mha_packed", ("flash_mha_packed_fwd",),
+     "flash_mha_packed_smem_bytes(int dtype)"),
+    ("flash_mha_packed_bwd",
+     ("flash_mha_packed_bwd_dq", "flash_mha_packed_bwd_dkv"),
+     "flash_mha_packed_bwd_smem_bytes(int which, int dtype)"),
+])
+def test_packed_sources_export_entry_points_and_shared_memory_queries(
+        fake, source, entries, smem):
+    """B1's forward and backward sources include only the tensor-core
+    header, are built for the head widths the wrappers accept, export
+    the C entry points ``ops.cuda_kernels`` loads and the dynamic
+    shared-memory query chip_smoke.py's resource report calls, and
+    return cudaGetLastError() after each launch."""
+    import inspect
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    _, csrc = fake
+    src = (csrc / f"{source}.cu").read_text()
+    assert re.findall(r'#include "([^"]+)"', src) == ["tensor_core.cuh"]
+    assert ck.SUPPORTED_HEAD_DIMS == (64,)
+    assert "constexpr int D = 64;" in src
+    assert "return cudaGetLastError();" in src
+    assert f'extern "C" int {smem}' in src
+    wrappers = inspect.getsource(ck)
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in src
+        assert f'"{entry}"' in wrappers or "flash_mha_packed_bwd_{part}" \
+            in wrappers
     assert _build.build([source])[source] > 0
 
 

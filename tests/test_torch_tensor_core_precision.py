@@ -1,6 +1,7 @@
 """Why the tensor-core kernels split fp32 into TF32 pairs, shown on the CPU.
 
-``csrc/flash_mha_packed.cu`` (B1's forward) and
+``csrc/flash_mha_packed.cu`` and ``csrc/flash_mha_packed_bwd.cu`` (B1's
+forward and backward), ``csrc/flash_mha.cu`` (B5's forward) and
 ``csrc/flash_attention_partial_bwd.cu`` (B9) run every product on the
 H100's tensor cores (``csrc/tensor_core.cuh``).  fp32 operands go in as
 split TF32: ``big = tf32(x)``, ``small = tf32(x - big)``, each rounded as
@@ -9,17 +10,23 @@ mantissa bits), and a product is ``big.small + small.big + big.big``
 accumulated in fp32.  A bf16 operand is exact in TF32, so a product of an
 fp32 operand with a bf16 one needs two.  bf16 products run on bf16 tensor
 cores, which multiply exactly and accumulate in fp32.  P is rounded to
-bf16 before B1's bf16 P.V; B9 keeps P in fp32 and rounds dS to the input
-dtype before dS.K and dS^T.q, as the TPU kernels do.
+bf16 before the bf16 P.V of B1's and B5's forward and before B1's
+backward's P^T.dO; B9 keeps P in fp32; both backwards round dS to the
+input dtype before dS.K and dS^T.q, as the TPU kernels do.
 
 This file emulates those products in torch on the CPU (fp32 matmuls over
 TF32-valued operands, whose products are exact in fp32) at B1's prefill
-shape (1, 1024, 12 heads, 64, causal) and at a (1, 12, 512, 512, 64) ring
-hop of B9, from seeded numpy inputs, and holds the result against the
-plain versions ``flash_mha_packed_plain`` and ``flash_attention_bwd_plain``
-with ``chip_smoke.py``'s tolerances: the split scheme lands within half of
-``TOL["float32"]`` and of ``BWD_TOL``; one TF32 product alone does not
-land within them.  The emulation takes the softmax over whole rows; the
+and training shape (1, 1024, 12 heads, 64, causal), at B5's head width
+128 and a Tq != Tk causal case (256 queries, 1024 keys), and at a
+(1, 12, 512, 512, 64) ring hop of B9, from seeded numpy inputs, and holds
+the result against the plain versions ``flash_mha_packed_plain``,
+``flash_mha_packed_bwd_plain``, ``flash_mha_plain`` and
+``flash_attention_bwd_plain`` with ``chip_smoke.py``'s tolerances: the
+split scheme lands within half of ``TOL["float32"]`` and of ``BWD_TOL``;
+one TF32 product alone does not land within them.  B1's bf16 backward,
+with P and dS rounded, is also held against the JAX package's
+``flash_mha_packed`` backward (``jax.vjp`` through its Pallas kernels in
+interpret mode).  The emulation takes the softmax over whole rows; the
 kernels' online softmax over key tiles rescales the same products.
 """
 
@@ -27,10 +34,13 @@ import math
 import os
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch.ops import cuda_kernels as ck
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -93,6 +103,55 @@ def b1_forward(qkv, H, mm):
     pv = p.to(torch.bfloat16).float() @ v if bf16 else mm(p, v)
     o = (pv / l).transpose(1, 2).reshape(B, T, H * D).to(qkv.dtype)
     lse = ((m + torch.log2(l)) * math.log(2.0))[..., 0].transpose(1, 2)
+    return o, lse
+
+
+def b1_backward(qkv, o, lse, do, H, mm):
+    """B1's backward, causal, with the products of ``mm`` (fp32) or bf16
+    products with P and dS rounded to bf16 (bf16) → dqkv (B, T, 3*H*D)
+    in qkv's dtype."""
+    B, T, _ = qkv.shape
+    D = qkv.shape[2] // (3 * H)
+    dt = qkv.dtype
+    bf16 = dt == torch.bfloat16
+    rnd = (lambda x: x.to(dt).float()) if bf16 else (lambda x: x)
+    prod = (lambda a, b: a @ b) if bf16 else mm
+    heads = (lambda x: x.float().unflatten(-1, (H, D)).transpose(1, 2))
+    q, k, v = (heads(x) for x in qkv.split(H * D, dim=-1))
+    of, dof = heads(o), heads(do)
+    scale = 1.0 / math.sqrt(D)
+    lse2 = lse.float().transpose(1, 2)[..., None] * LOG2E   # (B, H, T, 1)
+    causal = torch.ones(T, T, dtype=torch.bool).tril()
+    s = prod(q, k.transpose(-1, -2))
+    p = torch.where(causal, torch.exp2(s * (scale * LOG2E) - lse2), 0.0)
+    dp = prod(dof, v.transpose(-1, -2))
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = rnd(p * (dp - delta))
+    dq = prod(ds, k) * scale
+    dk = prod(ds.transpose(-1, -2), q) * scale
+    dv = prod(rnd(p).transpose(-1, -2), dof)
+    return torch.cat([g.transpose(1, 2).flatten(2) for g in (dq, dk, dv)],
+                     dim=-1).to(dt)
+
+
+def b5_forward(q, k, v, causal, mm):
+    """B5's forward on (B, H, T, D) tensors, the causal mask aligned at
+    position 0, with the products of ``mm`` and the rounding of q's dtype
+    → (o in q's dtype, lse (B, H, Tq) natural log)."""
+    Tq, Tk, D = q.shape[2], k.shape[2], q.shape[3]
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    prod = (lambda a, b: a @ b) if bf16 else mm
+    s = prod(qf, kf.transpose(-1, -2)) * (LOG2E / math.sqrt(D))
+    if causal:
+        mask = torch.arange(Tk)[None, :] <= torch.arange(Tq)[:, None]
+        s = torch.where(mask, s, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() @ vf if bf16 else mm(p, vf)
+    o = (pv / l).to(q.dtype)
+    lse = ((m + torch.log2(l)) * math.log(2.0))[..., 0]
     return o, lse
 
 
@@ -212,3 +271,122 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     rel = ((big.double() + small.double() - y.double()).abs()
            / y.double().abs()).max().item()
     assert rel <= 2.0 ** -21
+
+
+def _bwd_tol(ref, dtype):
+    peak = ref.float().abs().max().item()
+    return BWD_TOL[dtype] * (max(1.0, peak) if dtype == "float32" else peak)
+
+
+def _thirds_over_tol(got, ref, dtype):
+    """The error of each third of dqkv (dq, dk, dv) over the check's
+    tolerance for that kernel's output (chip_smoke.check_backward: one
+    tolerance from the peak of the whole reference)."""
+    tol = _bwd_tol(ref, dtype)
+    n = ref.shape[-1] // 3
+    return [(got[..., i * n:(i + 1) * n].float()
+             - ref[..., i * n:(i + 1) * n].float()).abs().max().item() / tol
+            for i in range(3)]
+
+
+@pytest.fixture(scope="module")
+def b1_bwd_case():
+    """B1's training shape at batch 1: (1, 1024, 12 heads, 64), causal;
+    o and lse from the plain forward in each dtype."""
+    rng = np.random.RandomState(10)
+    qkv = randn(rng, 1, 1024, 3 * 12 * 64)
+    do = randn(rng, 1, 1024, 12 * 64)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x, g = qkv.to(dt), do.to(dt)
+        o, lse = ck.flash_mha_packed_plain(x, 12, causal=True)
+        out[dt] = (x, o, lse, g, ck.flash_mha_packed_bwd_plain(
+            x, o, lse, g, 12, causal=True))
+    return out
+
+
+def test_b1_backward_split_tf32_within_half_the_tolerance(b1_bwd_case):
+    """fp32: the five products (q.k^T, do.v^T, ds.k, ds^T.q, p^T.do) in
+    split TF32 land within half of BWD_TOL on dq, dk and dv."""
+    qkv, o, lse, do, ref = b1_bwd_case[torch.float32]
+    got = b1_backward(qkv, o, lse, do, 12, mm_split)
+    ratios = _thirds_over_tol(got, ref, "float32")
+    assert max(ratios) <= 0.5, ratios
+
+
+def test_b1_backward_one_tf32_product_misses_the_tolerance(b1_bwd_case):
+    """One TF32 product for each of the five: some gradient misses
+    BWD_TOL, which is why the fp32 path splits."""
+    qkv, o, lse, do, ref = b1_bwd_case[torch.float32]
+    got = b1_backward(qkv, o, lse, do, 12, mm_tf32)
+    ratios = _thirds_over_tol(got, ref, "float32")
+    assert max(ratios) > 1.0, ratios
+
+
+def test_b1_backward_bf16_rounding_within_the_tolerance(b1_bwd_case):
+    """bf16: every product on bf16 tensor cores, P rounded to bf16 before
+    P^T.dO and dS before dS.K and dS^T.q, within the chip's bf16
+    BWD_TOL of the plain version (which rounds neither)."""
+    qkv, o, lse, do, ref = b1_bwd_case[torch.bfloat16]
+    got = b1_backward(qkv, o, lse, do, 12, None)
+    ratios = _thirds_over_tol(got, ref, "bfloat16")
+    assert max(ratios) <= 1.0, ratios
+
+
+def test_b1_bf16_backward_against_the_jax_reference(monkeypatch):
+    """The JAX package's bf16 ``flash_mha_packed`` backward (``jax.vjp``
+    through its Pallas kernels in interpret mode, which round P and dS
+    to bf16 before their products) against the port's plain bf16
+    backward and against the kernels' rounding (``b1_backward``), both
+    on the port's plain forward: each within the chip's bf16 BWD_TOL."""
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    assert pk.enabled()
+    H, T, D = 2, 256, 64
+    rng = np.random.RandomState(11)
+    qkv = randn(rng, 1, T, 3 * H * D).to(torch.bfloat16)
+    do = randn(rng, 1, T, H * D).to(torch.bfloat16)
+    as_jax = (lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    _, vjp = jax.vjp(lambda x: pk.flash_mha_packed(
+        x, H, causal=True, block_size=128), as_jax(qkv))
+    (ref,) = vjp(as_jax(do))
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    o, lse = ck.flash_mha_packed_plain(qkv, H, causal=True)
+    plain = ck.flash_mha_packed_bwd_plain(qkv, o, lse, do, H, causal=True)
+    kernel = b1_backward(qkv, o, lse, do, H, None)
+    for got in (plain, kernel):
+        ratios = _thirds_over_tol(got, ref, "bfloat16")
+        assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 4, 512, 512, 128),
+                                   (1, 12, 256, 1024, 64)])
+def test_b5_forward_split_tf32_within_half_the_tolerance(shape, dtype):
+    """B5's forward, causal, at head width 128 and at Tq != Tk (the
+    diagonal at q_pos = k_pos, 256 queries over 1024 keys), on BTHD
+    views: fp32 split TF32 within TOL/2 of ``flash_mha_plain`` (lse to
+    the check's 10 x TOL/2); bf16 with P rounded before P.V within the
+    chip's bf16 TOL."""
+    B, H, Tq, Tk, D = shape
+    rng = np.random.RandomState(Tq + D)
+    dt = getattr(torch, dtype)
+    q, k, v = (randn(rng, B, T, H, D).to(dt).transpose(1, 2)
+               for T in (Tq, Tk, Tk))
+    po, plse = ck.flash_mha_plain(q, k, v, causal=True)
+    o, lse = b5_forward(q, k, v, True, mm_split)
+    err = (o.float() - po.float()).abs().max().item()
+    lse_err = (lse - plse).abs().max().item()
+    limit = TOL[dtype] / 2 if dtype == "float32" else TOL[dtype]
+    assert err <= limit, (dtype, err)
+    assert lse_err <= TOL["float32"] * 10 / 2, (dtype, lse_err)
+
+
+def test_b5_forward_one_tf32_product_misses_the_tolerance():
+    """At head width 128, one TF32 product for Q.K^T and one for P.V
+    misses TOL["float32"]."""
+    rng = np.random.RandomState(128)
+    q, k, v = (randn(rng, 1, 512, 4, 128).transpose(1, 2)
+               for _ in range(3))
+    po, _ = ck.flash_mha_plain(q, k, v, causal=True)
+    o, _ = b5_forward(q, k, v, True, mm_tf32)
+    assert (o - po).abs().max().item() > TOL["float32"]
