@@ -9,8 +9,9 @@
    script's, below) in one ``_build.build(sources=...)``, one ``nvcc``
    per source, all started together.  Then, with ``cuobjdump`` from the
    toolkit beside ``nvcc``, the tensor-core kernels (``TC_KERNELS``:
-   B1's forward, B1's two backward kernels, B5's forward at each
-   head-width bucket and both B9 kernels, every fp32 and bf16
+   B1's forward, B1's two backward kernels, B5's forward and its two
+   backward kernels at each head-width bucket and both B9 kernels,
+   every fp32 and bf16
    instantiation) must hold tensor-core instructions (``HMMA``/
    ``HGMMA``) in their SASS, and those at D = 64 no local (spill)
    memory; each one's registers, shared memory and local memory are
@@ -29,13 +30,19 @@
    pools, and each of its rows must ``torch.equal`` the decode kernel's
    output at ``lengths = start + 1 + w``.  The LSTM recurrence
    (``lstm_scan``, fp32 only) runs at (T, B, H) = (60, 32, 200),
-   (10, 32, 200) and (7, 3, 37) with random non-zero states; its library
-   yardstick is cuDNN's LSTM (``torch.nn.LSTM``) fed the projection
-   through an identity input weight.  ``flash_mha`` and its two backward
+   (10, 32, 200) and (7, 3, 37), where a thread-block cluster holds ut,
+   and at (60, 32, 512) and (20, 8, 1024), where the L2-streaming kernel
+   runs (``LSTM_SHAPES``; each record names its design), with random
+   non-zero states; its library yardstick is cuDNN's LSTM
+   (``torch.nn.LSTM``) fed the projection through an identity input
+   weight.  ``flash_mha`` and its two backward
    kernels run on (B, H, T, D) views of BTHD tensors at ``MHA_SHAPES``:
    the DPA path's (8, 12, 1024, 1024, 64) causal, a tail (T = 1000),
    Tq < Tk, and head widths 128 and 80; their library yardstick is
-   SDPA's forward and backward.  Before the next checks, B8 and B9
+   SDPA's forward and backward.  Then ``float64_check``: B1's and B5's
+   forward and backward at the LM's attention shape against their plain
+   versions' formulas in float64 (max error over tolerance and mean
+   signed error of each output).  Before the next checks, B8 and B9
    must have launched 0 times (the plain versions of B1, B2, B3 and B5
    run the plain partial body).  ``flash_attention_partial`` (B8) and
    its two backward kernels (B9) run on BTHD tensors at
@@ -186,9 +193,10 @@
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
 the tensor-core kernels (B1's forward and backward, B5's forward with
-its backward, B9) in fp32 and bf16, serving run A, the packed LM's and
-the DPA LM's training and the sequence phase there, ``--kernels ROOT``
-the kernels alone (see ``paths_timing``).
+its backward, B9) in fp32 and bf16, B6 at (60, 32, 200) and the float64
+check, then serving run A, the packed LM's and the DPA LM's training,
+the sequence phase and LSTM-PTB there, ``--kernels ROOT`` the kernels
+alone (see ``paths_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -218,6 +226,11 @@ SPEC_K, SPEC_NEW = 4, 64
 LSTM_PTB = dict(vocab=10000, num_embed=200, num_hidden=200, num_layers=2,
                 batch=32, buckets=(10, 20, 30, 40, 50, 60))
 LSTM_EPOCHS, LSTM_TRAIN_SENTENCES, LSTM_HELD_OUT_SENTENCES = 2, 1800, 480
+# lstm_scan checks (T, B, H): LSTM-PTB's longest and shortest bucket and an
+# odd shape (the cluster-resident design), then two widths whose ut no
+# cluster holds (the L2-streaming kernel)
+LSTM_SHAPES = ((60, 32, 200), (10, 32, 200), (7, 3, 37), (60, 32, 512),
+               (20, 8, 1024))
 KV_TORCH = {"int8": "int8", "fp8": "float8_e4m3fn"}
 # nms: SSD300's detection batch (8,732 default boxes; Liu et al., ECCV
 # 2016) beside the toy SSD's; 20 classes and the paper's threshold 0.45
@@ -350,6 +363,9 @@ TC_KERNELS = (
      lambda k, dp, code: (_which(k), code)),
     ("flash_mha", ("mha_fwd_kernel",), (32, 64, 96, 128),
      "flash_mha_smem_bytes", lambda k, dp, code: (dp, code)),
+    ("flash_mha_bwd", ("mha_bwd_dq_kernel", "mha_bwd_dkv_kernel"),
+     (32, 64, 96, 128), "flash_mha_bwd_smem_bytes",
+     lambda k, dp, code: (_which(k), dp, code)),
     ("flash_attention_partial_bwd",
      ("partial_bwd_dq_kernel", "partial_bwd_dkv_kernel"), (32, 64, 96, 128),
      "flash_attention_bwd_smem_bytes",
@@ -366,8 +382,8 @@ def _cuobjdump(_build, args, lib):
 def tensor_core_report(_build):
     """Registers, shared and local memory of every instantiation of the
     tensor-core kernels (``TC_KERNELS``: B1's forward and backward, B5's
-    forward, both B9 kernels; ``cuobjdump -res-usage``, dynamic shared
-    memory from each library's own query), and the tensor-core
+    forward and backward, both B9 kernels; ``cuobjdump -res-usage``,
+    dynamic shared memory from each library's own query), and the tensor-core
     instructions in each one's SASS (``cuobjdump -sass``).  Raises when a
     tool is missing, an instantiation is missing, one holds no HMMA or
     HGMMA, or one at D = 64 uses local memory."""
@@ -605,7 +621,99 @@ def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype, offset=0):
             "ms": time_ms(torch, lambda: ck.launch_flash_mha_bwd(
                 part, q, k, v, do, lse, delta, bufs, causal)),
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": bound_tc(reads + writes * es,
+                                    flop_per_pair * pairs, dtype)})
+    return out
+
+
+def float64_check(torch, ck):
+    """B1's forward and backward and B5's forward and backward at the
+    LM's attention shape (8, 12, 1024, 64), causal, fp32, on one set of
+    inputs (B5 on the BTHD views of B1's packed qkv), against their plain
+    versions' formulas run in float64 on the card (the backward's from
+    the kernel forward's own o and lse), beside the fp32 plain versions
+    themselves.  For each output: the max error over the check's
+    tolerance (``TOL``; lse 10 x; ``BWD_TOL`` x max(1, peak)) and the
+    mean signed error (output - float64), and B1's gradients against
+    B5's over the same tolerance: the two paths the DPA LM's first step
+    holds against each other."""
+    import math
+
+    B, T = TRAIN_BATCH, 1024
+    g = torch.Generator(device="cuda").manual_seed(64)
+    qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda")
+    do = torch.randn((B, T, H * D), generator=g, device="cuda")
+
+    def heads(x):  # (B, T, H*D) -> a (B, H, T, D) view
+        return x.unflatten(-1, (H, D)).transpose(1, 2)
+
+    q, k, v = (heads(x) for x in qkv.split(H * D, dim=-1))
+    dob = heads(do)
+    scale = 1.0 / math.sqrt(D)
+    keep = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+
+    def scores64(q, k):
+        return (q.double() @ k.double().transpose(-1, -2)) * scale
+
+    s = scores64(q, k).masked_fill(~keep, -math.inf)
+    lse64 = torch.logsumexp(s, -1)
+    o64 = torch.exp(s - lse64[..., None]) @ v.double()
+    del s
+
+    def bwd64(o, lse):
+        p = torch.exp(scores64(q, k) - lse.double()[..., None])
+        p = p.masked_fill(~keep, 0.0)
+        delta = (dob.double() * o.double()).sum(-1, keepdim=True)
+        ds = p * (dob.double() @ v.double().transpose(-1, -2) - delta)
+        return (ds @ k.double() * scale,
+                ds.transpose(-1, -2) @ q.double() * scale,
+                p.transpose(-1, -2) @ dob.double())
+
+    def stats(got, ref, tol):
+        err = got.double() - ref
+        return {"err_over_tol": err.abs().max().item() / tol,
+                "mean_signed_err": err.mean().item()}
+
+    def bwd_tol(ref):
+        return BWD_TOL["float32"] * max(1.0, ref.abs().max().item())
+
+    out = []
+    o1, lse1 = ck.flash_mha_packed(qkv, H, causal=True)
+    po1, plse1 = ck.flash_mha_packed_plain(qkv, H, causal=True)
+    o5, lse5 = ck.flash_mha(q, k, v, True)
+    po5, plse5 = ck.flash_mha_plain(q, k, v, True)
+    for name, o, lse, po, plse in (
+            ("flash_mha_packed", heads(o1), lse1.transpose(1, 2),
+             heads(po1), plse1.transpose(1, 2)),
+            ("flash_mha", o5, lse5, po5, plse5)):
+        for part, got, plain, ref, tol in (
+                ("o", o, po, o64, TOL["float32"]),
+                ("lse", lse, plse, lse64, 10 * TOL["float32"])):
+            out.append({"kernel": name, "output": part,
+                        "kernel_vs_float64": stats(got, ref, tol),
+                        "plain_vs_float64": stats(plain, ref, tol)})
+    d1 = ck.flash_mha_packed_bwd(qkv, o1, lse1, do, H, causal=True)
+    pd1 = ck.flash_mha_packed_bwd_plain(qkv, o1, lse1, do, H, causal=True)
+    d5 = ck.flash_mha_bwd(q, k, v, o5, lse5, dob, True)
+    pd5 = ck.flash_mha_bwd_plain(q, k, v, o5, lse5, dob, True)
+    d1 = [heads(x) for x in d1.split(H * D, dim=-1)]
+    pd1 = [heads(x) for x in pd1.split(H * D, dim=-1)]
+    ref1 = bwd64(heads(o1), lse1.transpose(1, 2))
+    ref5 = bwd64(o5, lse5)
+    for name, got, plain, ref in (("flash_mha_packed_bwd", d1, pd1, ref1),
+                                  ("flash_mha_bwd", d5, pd5, ref5)):
+        for part, a, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+            tol = bwd_tol(r)
+            rec = {"kernel": name, "output": part,
+                   "kernel_vs_float64": stats(a, r, tol),
+                   "plain_vs_float64": stats(p, r, tol)}
+            if name == "flash_mha_bwd":
+                b1 = d1["dq dk dv".split().index(part)]
+                rec["b1_vs_b5_err_over_tol"] = (
+                    (b1 - a).abs().max().item() / tol)
+            out.append(rec)
+    torch.cuda.synchronize()
     return out
 
 
@@ -719,12 +827,30 @@ def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
     return out
 
 
+def lstm_design(ck, Hd):
+    """The design ``lstm_scan``'s launch takes at hidden size ``Hd``:
+    ``cluster8`` / ``cluster16`` (ut resident in a cluster's shared
+    memory) or ``streaming`` (ut streamed from L2), from the library's
+    own size rule; a port without that rule (before the cluster design)
+    launches one block a batch row."""
+    import ctypes
+
+    fn = getattr(ck._build.library("lstm_scan"), "lstm_scan_cluster_size",
+                 None)
+    if fn is None:
+        return "one block a row"
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    nc = fn(Hd)
+    return f"cluster{nc}" if nc else "streaming"
+
+
 def check_lstm(torch, ck, T, B, Hd):
     """B6 against its plain version at (T, B, H), fp32, with random
     non-zero states; the library yardstick is cuDNN's LSTM with input
     size 4H, the identity as its input weight, zero biases and
     ``weight_hh = ut.T``: the same function plus one redundant 4H x 4H
-    input product (its values are compared too)."""
+    input product (its values are compared too).  The record names the
+    design the launch took (``lstm_design``) and both times per step."""
     g = torch.Generator(device="cuda").manual_seed(T * 1000 + B * 10 + Hd)
     xw = torch.randn((T, B, 4 * Hd), generator=g, device="cuda") * 0.5
     h0 = torch.randn((B, Hd), generator=g, device="cuda") * 0.5
@@ -761,13 +887,15 @@ def check_lstm(torch, ck, T, B, Hd):
                   + T * B * Hd + 2 * B * Hd)
     b_ms, b_by = bound(nbytes, 2 * T * B * Hd * 4 * Hd, "float32")
     ms = time_ms(torch, lambda: ck.lstm_scan(xw, h0, c0, ut))
+    library_ms = time_ms(torch, library)
     return {
         "kernel": "lstm_scan", "shape": f"T={T} B={B} H={Hd}",
-        "dtype": "float32", "max_abs_err": err, "max_abs_err_y_hT_cT": errs,
+        "dtype": "float32", "design": lstm_design(ck, Hd),
+        "max_abs_err": err, "max_abs_err_y_hT_cT": errs,
         "tol": TOL["float32"], "ms": ms, "ms_per_step": ms / T,
         "plain_ms": time_ms(torch, lambda: ck.lstm_scan_plain(
             xw, h0, c0, ut), reps=5, warmup=1),
-        "library_ms": time_ms(torch, library),
+        "library_ms": library_ms, "library_ms_per_step": library_ms / T,
         "library_max_abs_err": lib_err,
         "bound_ms": b_ms, "bound_by": b_by}
 
@@ -2601,9 +2729,10 @@ def paths_timing(root, paths=True):
     """``python3 chip_smoke.py --paths ROOT``: the tensor-core kernels at
     their main-path shapes, in fp32 and bf16 — B1's forward at (1, 1024)
     and (8, 1024), B1's backward at (8, 1024), B5's forward (with B5's
-    backward) at ``PATH_MHA_SHAPES``, B9 at the ring's past hop — then
-    serving run A, the packed LM's training run, the DPA LM's and the
-    sequence phase, on the port under ROOT (a checkout, e.g. a parent
+    backward) at ``PATH_MHA_SHAPES``, B9 at the ring's past hop, B6 at
+    LSTM-PTB's (60, 32, 200) and ``float64_check`` — then serving run A,
+    the packed LM's training run, the DPA LM's, the sequence phase and
+    LSTM-PTB, on the port under ROOT (a checkout, e.g. a parent
     commit unpacked beside this one), one JSON line each; ``--kernels
     ROOT`` the kernels alone.  Run parent, change, change, parent in one
     call to compare two versions on one card."""
@@ -2634,6 +2763,11 @@ def paths_timing(root, paths=True):
         for rec in recs:
             print(json.dumps({"paths_timing": {"root": root, **rec}}))
         torch.cuda.empty_cache()
+    rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
+    print(json.dumps({"paths_timing": {"root": root, **rec}}))
+    for rec in float64_check(torch, ck):
+        print(json.dumps({"paths_timing": {"root": root, "float64": rec}}))
+    torch.cuda.empty_cache()
     if not paths:
         print(card_line())
         return 0
@@ -2646,6 +2780,8 @@ def paths_timing(root, paths=True):
     runs["dpa_path"] = dpa_path(torch, mt, ck)
     torch.cuda.empty_cache()
     runs["sequence_path"] = sequence_path(torch, mt, ck)
+    torch.cuda.empty_cache()
+    runs["lstm_path"] = lstm_path(torch, mt, ck)
     for name, rec in runs.items():
         print(json.dumps({"paths_timing": {"root": root, name: rec}}))
     print(card_line())
@@ -2728,6 +2864,9 @@ def main():
             checks.append(c)
             print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
+    for rec in float64_check(torch, ck):
+        print(json.dumps({"float64": rec}))
+    torch.cuda.empty_cache()
     # no earlier check launched B8 or B9: the plain versions of B1, B2,
     # B3 and B5 run the plain partial body, not the B8 wrapper
     check(all(ck.LAUNCHES[n] == 0 for n in SEQ_KERNELS),
@@ -2739,7 +2878,7 @@ def main():
                 checks.append(c)
                 print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
-    for T, B, Hd in ((60, 32, 200), (10, 32, 200), (7, 3, 37)):
+    for T, B, Hd in LSTM_SHAPES:
         checks.append(check_lstm(torch, ck, T, B, Hd))
         print(json.dumps({"check": checks[-1]}))
     for B, A in NMS_SHAPES:

@@ -72,9 +72,10 @@ constexpr int NT = 128;   // threads per block
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-struct Layout {  // element strides of one tensor; lanes are contiguous
-  long long b, h, t;
-};
+using tc::Layout;
+using tc::round_to;
+using tc::rows16;
+using tc::store_rows;
 
 template <typename T, int DP>
 struct Cfg {
@@ -96,33 +97,6 @@ struct Cfg {
 // m in the exp2 domain, 0 for a row that saw no key (m = -inf)
 __device__ __forceinline__ float m_safe2(float m) {
   return m == -INFINITY ? 0.f : m * LOG2E;
-}
-
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// write a warp's 16 x DP accumulator times mul into rows r0.. (< nrows)
-// of a strided tensor, lanes < D
-template <int DP, typename T>
-__device__ __forceinline__ void store_rows(T* base, long long row_stride,
-                                           const float (&acc)[DP / 8][4],
-                                           float mul, int r0, int nrows,
-                                           int D) {
-  const int g = tc::lane_id() >> 2, t = tc::lane_id() & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
-    if (row >= nrows) continue;
-    T* p = base + row * row_stride;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (c < D) tc::store(p + c, acc[n][2 * r] * mul);
-      if (c + 1 < D) tc::store(p + c + 1, acc[n][2 * r + 1] * mul);
-    }
-  }
 }
 
 template <typename T, int DP>
@@ -206,11 +180,7 @@ partial_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // S = Q.K^T, then P (fp32) under the masks
     float s[BN / 8][4];
     tc::zero(s);
-    if constexpr (F32)
-      tc::gemm_abT_tf32<BN / 8, DP, SW, SW, false, false>(s, Qs, warp * 16,
-                                                          Ks);
-    else
-      tc::gemm_abT_bf16<BN / 8, DP, SW>(s, Qs, warp * 16, Ks);
+    tc::gemm_abT<BN / 8, DP>(s, Qs, warp * 16, Ks);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -330,11 +300,7 @@ partial_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // S^T = K.Q^T, then P^T (fp32) under the masks
     float s[BM / 8][4];
     tc::zero(s);
-    if constexpr (F32)
-      tc::gemm_abT_tf32<BM / 8, DP, SW, SW, false, false>(s, Ks, warp * 16,
-                                                          Qt);
-    else
-      tc::gemm_abT_bf16<BM / 8, DP, SW>(s, Ks, warp * 16, Qt);
+    tc::gemm_abT<BM / 8, DP>(s, Ks, warp * 16, Qt);
 #pragma unroll
     for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
@@ -380,12 +346,6 @@ struct Args {
   Layout ls[5];  // q, k, v, then dq (dq kernel) or dk, dv (dk/dv kernel)
   int B, H, Tq, Tk, D, causal, koff;
 };
-
-bool rows16(const void* p, const Layout& l, int es) {
-  const long long e = 16 / es;
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.b % e == 0 &&
-         l.h % e == 0 && l.t % e == 0;
-}
 
 template <typename T, int DP>
 cudaError_t launch_dp(int which, const Args& a, cudaStream_t stream) {

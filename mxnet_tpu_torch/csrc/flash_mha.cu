@@ -61,9 +61,8 @@ constexpr int STAGES = 2;   // K/V tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-struct Layout {  // element strides of one tensor; lanes are contiguous
-  long long b, h, t;
-};
+using tc::Layout;
+using tc::rows16;
 
 template <typename T, int DP>
 struct Cfg {
@@ -246,13 +245,6 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t == 0)
       lse[((long long)b * H + h) * Tq + row] = (m[r] + log2f(lsafe)) * LN2;
   }
-}
-
-// every row of the tensor starts 16-byte aligned
-bool rows16(const void* p, const Layout& l, int es) {
-  const long long e = 16 / es;
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.b % e == 0 &&
-         l.h % e == 0 && l.t % e == 0;
 }
 
 template <typename T, int DP>

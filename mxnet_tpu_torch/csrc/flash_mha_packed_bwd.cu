@@ -82,10 +82,7 @@ struct Cfg {
   static_assert(ROWS <= 2 * BN, "o fits in one stage");
 };
 
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+using tc::round_to;
 
 // write a warp's 16 x D accumulator times mul into rows r0.. (< nrows) of
 // a tensor whose row r starts at base + r * row_stride
@@ -105,18 +102,6 @@ __device__ __forceinline__ void store_rows(T* base, long long row_stride,
       tc::store(p + n * 8 + 1, acc[n][2 * r + 1] * mul);
     }
   }
-}
-
-// S = X.Y^T over D lanes for a warp's 16 rows of X (from row m0): split
-// TF32 in fp32, bf16 tensor cores in bf16
-template <int NB, typename T>
-__device__ __forceinline__ void gemm_abT(float (&c)[NB][4], const T* X,
-                                         int m0, const T* Y) {
-  constexpr int SW = tc::stride<T>(D);
-  if constexpr (tc::kIsF32<T>)
-    tc::gemm_abT_tf32<NB, D, SW, SW, false, false>(c, X, m0, Y);
-  else
-    tc::gemm_abT_bf16<NB, D, SW>(c, X, m0, Y);
 }
 
 template <typename T>
@@ -203,7 +188,7 @@ mhap_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     // S = Q.K^T, then P (fp32) under the masks
     float s[BN / 8][4];
     tc::zero(s);
-    gemm_abT<BN / 8>(s, Qs, warp * 16, Ks);
+    tc::gemm_abT<BN / 8, D>(s, Qs, warp * 16, Ks);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -216,7 +201,7 @@ mhap_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     // dP = dO.V^T; dS = P * (dP - Delta), in the inputs' dtype
     float dp[BN / 8][4];
     tc::zero(dp);
-    gemm_abT<BN / 8>(dp, Ds, warp * 16, Vs);
+    tc::gemm_abT<BN / 8, D>(dp, Ds, warp * 16, Vs);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -331,7 +316,7 @@ mhap_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     // S^T = K.Q^T, then P^T (fp32) under the masks
     float s[BM / 8][4];
     tc::zero(s);
-    gemm_abT<BM / 8>(s, Ks, warp * 16, Qt);
+    tc::gemm_abT<BM / 8, D>(s, Ks, warp * 16, Qt);
 #pragma unroll
     for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
@@ -347,7 +332,7 @@ mhap_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     // dP^T = V.dO^T; dS^T = P^T * (dP^T - Delta), in the inputs' dtype
     float dp[BM / 8][4];
     tc::zero(dp);
-    gemm_abT<BM / 8>(dp, Vs, warp * 16, Dt);
+    tc::gemm_abT<BM / 8, D>(dp, Vs, warp * 16, Dt);
     __syncthreads();  // every warp's part of Delta has landed
 #pragma unroll
     for (int j = 0; j < BM / 8; ++j)

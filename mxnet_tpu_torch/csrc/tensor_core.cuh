@@ -1,6 +1,7 @@
 // Tensor-core building blocks for the port's attention kernels on Hopper
 // (sm_90a): flash_mha_packed.cu and flash_mha_packed_bwd.cu (B1),
-// flash_mha.cu (B5's forward) and flash_attention_partial_bwd.cu (B9).
+// flash_mha.cu and flash_mha_bwd.cu (B5) and flash_attention_partial_bwd.cu
+// (B9).
 //
 // * mma.sync wrappers: m16n8k8 with TF32 operands and m16n8k16 with bf16
 //   operands, fp32 accumulators.  A warp owns a 16-row tile; the fragment
@@ -30,6 +31,10 @@
 //   thread where every row is 16-byte aligned, else one element a thread
 //   (4-byte cp.async for fp32, a plain load for bf16); lanes past D and
 //   rows past the end read as zero.
+// * What the attention kernels over strided (batch, head, row) tensors
+//   share: the strides (Layout), the 16-byte row test, the rounding of a
+//   value to the input dtype, S = X.Y^T in the input dtype's products,
+//   and the store of a warp's 16-row accumulator.
 
 #pragma once
 
@@ -506,6 +511,61 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// strided attention tensors
+// ---------------------------------------------------------------------------
+
+struct Layout {  // element strides of one tensor; lanes are contiguous
+  long long b, h, t;
+};
+
+// every row of the tensor starts 16-byte aligned (es: bytes an element)
+inline bool rows16(const void* p, const Layout& l, int es) {
+  const long long e = 16 / es;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && l.b % e == 0 &&
+         l.h % e == 0 && l.t % e == 0;
+}
+
+// x rounded to the input dtype (the second argument's type) and back
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// c += X.Y^T over DP lanes for a warp's 16 rows of X (from row m0), both
+// padded tiles of T: split TF32 in fp32, bf16 tensor cores in bf16
+template <int NB, int DP, typename T>
+__device__ __forceinline__ void gemm_abT(float (&c)[NB][4], const T* X,
+                                         int m0, const T* Y) {
+  constexpr int SW = stride<T>(DP);
+  if constexpr (kIsF32<T>)
+    gemm_abT_tf32<NB, DP, SW, SW, false, false>(c, X, m0, Y);
+  else
+    gemm_abT_bf16<NB, DP, SW>(c, X, m0, Y);
+}
+
+// write a warp's 16 x DP accumulator times mul into rows r0.. (< nrows)
+// of a strided tensor, lanes < D
+template <int DP, typename T>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride,
+                                           const float (&acc)[DP / 8][4],
+                                           float mul, int r0, int nrows,
+                                           int D) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= nrows) continue;
+    T* p = base + row * row_stride;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (c < D) store(p + c, acc[n][2 * r] * mul);
+      if (c + 1 < D) store(p + c + 1, acc[n][2 * r + 1] * mul);
+    }
+  }
 }
 
 // dynamic shared memory above 48 KB, granted once per kernel and device

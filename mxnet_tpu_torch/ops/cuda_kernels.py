@@ -11,8 +11,8 @@ the serving and training paths:
 * ``flash_mha`` — normalized attention over three separate q, k, v
   tensors of any head width up to ``FLASH_MHA_MAX_HEAD_DIM``, Tq and Tk
   free (``csrc/flash_mha.cu``, replacing ``_mha_fwd``), and
-  ``flash_mha_bwd``, its dq kernel and kv-block-outer dk/dv kernel
-  (``csrc/flash_mha_bwd.cu``, replacing ``_mha_bwd``);
+  ``flash_mha_bwd``, its dq kernel and kv-block-outer dk/dv kernel on
+  the tensor cores (``csrc/flash_mha_bwd.cu``, replacing ``_mha_bwd``);
 * ``flash_attention_partial`` — the un-normalized online-softmax state
   (o, m, l) over q, k, v with a key offset ``kv_offset`` in the causal
   mask, every hop of ``sequence.ring_attention``
@@ -32,7 +32,9 @@ the serving and training paths:
   (``csrc/paged_attention_verify.cu``, replacing
   ``paged_attention_verify`` and the lax ``paged_verify_attention_q``);
 * ``lstm_scan`` — the float32 LSTM recurrence over a whole sequence in
-  one launch (``csrc/lstm_scan.cu``, replacing ``_lstm_pallas_fwd``);
+  one launch (``csrc/lstm_scan.cu``, replacing ``_lstm_pallas_fwd``): a
+  thread-block cluster holds the recurrent weight in shared memory for
+  every step where it fits, an L2-streaming kernel above that size;
 * ``nms`` — greedy non-maximum suppression over score-sorted detection
   rows, one block an image (``csrc/nms.cu``, replacing ``nms`` and its
   body ``_nms_kernel``).
@@ -103,7 +105,8 @@ SUPPORTED_HEAD_DIMS = (64,)
 # the widest head flash_mha's kernels take (csrc/flash_mha*.cu: D padded
 # to a bucket of 32, 64, 96 or 128 lanes)
 FLASH_MHA_MAX_HEAD_DIM = 128
-# the largest LSTM hidden size lstm_scan takes: one thread per hidden unit
+# the largest LSTM hidden size lstm_scan takes (its L2-streaming kernel:
+# one thread per hidden unit)
 LSTM_MAX_HIDDEN = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # quantized page codes of the kernels' kv_code argument

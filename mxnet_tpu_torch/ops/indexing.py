@@ -17,8 +17,16 @@ __all__ = ["embedding", "take"]
 def embedding(data: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Rows of ``weight`` (vocab, d) at the ids in ``data`` (any shape;
     float ids, as the JAX package's symbols carry them, are truncated
-    to integers)."""
-    return weight[data.long()]
+    toward zero).  As ``jnp.take`` in fill mode: an id in [-V, 0) wraps
+    to the row counted from the end, and an id outside [-V, V) gives a
+    row of NaN whose weight gradient is dropped.  Masks on a clamped
+    index, so a CUDA tensor needs no host sync and trips no device
+    assert."""
+    idx = data.long()
+    V = weight.shape[0]
+    inside = (idx >= -V) & (idx < V)
+    rows = weight[torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)]
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 def take(a: torch.Tensor, indices: torch.Tensor, axis: int = 0,

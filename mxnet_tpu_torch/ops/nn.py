@@ -286,10 +286,11 @@ class _SoftmaxCELoss(torch.autograd.Function):
         lab = label.long()
         C = x.shape[-1]
         # take_along_axis wraps a label in [-C, 0) to the class counted
-        # from the end; the clamp only makes any other label (an ignore
-        # label) a valid index
+        # from the end and gives NaN for a label outside [-C, C); the
+        # clamp only makes such a label a valid index
         safe = torch.where(lab < 0, lab + C, lab).clamp(0, C - 1)
         loss = lse - torch.gather(x, -1, safe[..., None])[..., 0]
+        loss = torch.where((lab >= -C) & (lab < C), loss, float("nan"))
         if use_ignore:
             loss = torch.where(lab == int(ignore_label), 0.0, loss)
         ctx.save_for_backward(data, lse, label)

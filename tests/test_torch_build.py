@@ -96,13 +96,13 @@ def test_edited_shared_header_rebuilds_every_paged_kernel(fake):
 
 
 def test_edited_tensor_core_header_rebuilds_exactly_its_kernels(fake):
-    """B1's forward and backward, B5's forward and B9 share
-    csrc/tensor_core.cuh: editing it gives exactly those four libraries
+    """B1's forward and backward, B5's forward and backward and B9 share
+    csrc/tensor_core.cuh: editing it gives exactly those five libraries
     new names; editing the paged header leaves them as they were.  A
     header is hashed only into the sources that include it."""
     _, csrc = fake
     users = ["flash_mha_packed", "flash_mha_packed_bwd", "flash_mha",
-             "flash_attention_partial_bwd"]
+             "flash_mha_bwd", "flash_attention_partial_bwd"]
     for name in _build.SOURCES:
         text = (csrc / f"{name}.cu").read_text()
         assert ('#include "tensor_core.cuh"' in text) == (name in users)
@@ -224,15 +224,17 @@ def test_no_code_path_catches_a_failed_launch():
 @pytest.mark.parametrize("source,entries,loads,headers", [
     ("flash_mha", ("flash_mha_fwd", "flash_mha_smem_bytes"),
      ('_load("flash_mha", "flash_mha_fwd"',), ["tensor_core.cuh"]),
-    ("flash_mha_bwd", ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"),
-     ('name = f"flash_mha_bwd_{part}"', '_load("flash_mha_bwd", name'), []),
+    ("flash_mha_bwd", ("flash_mha_bwd_dq", "flash_mha_bwd_dkv",
+                       "flash_mha_bwd_smem_bytes"),
+     ('name = f"flash_mha_bwd_{part}"', '_load("flash_mha_bwd", name'),
+     ["tensor_core.cuh"]),
 ])
 def test_flash_mha_sources_export_the_wrappers_entry_points(
         fake, source, entries, loads, headers):
-    """csrc/flash_mha.cu (on the tensor cores, through the shared
-    tensor_core.cuh) and flash_mha_bwd.cu (standing alone) export the C
-    entry points ``ops.cuda_kernels`` loads, and the forward its dynamic
-    shared-memory query for chip_smoke.py's resource report; both return
+    """csrc/flash_mha.cu and flash_mha_bwd.cu (both on the tensor cores,
+    through the shared tensor_core.cuh) export the C entry points
+    ``ops.cuda_kernels`` loads, and their dynamic shared-memory queries
+    for chip_smoke.py's resource report; both return
     cudaGetLastError() and take head widths up to the wrappers' limit;
     each counts its launches, and editing one rebuilds it alone."""
     import inspect

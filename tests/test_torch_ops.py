@@ -7,6 +7,7 @@ gathers are exact.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -15,6 +16,7 @@ from mxnet_tpu.ops.registry import invoke
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops.indexing import embedding, take
 from mxnet_tpu_torch.ops.nn import fully_connected, gelu, layer_norm
+from mxnet_tpu_torch.ops.registry import invoke as torch_invoke
 
 # tiny shapes gain nothing from intra-op threads; one thread keeps these
 # tests from crowding the timing-sensitive ones that share the host
@@ -68,6 +70,29 @@ def test_embedding():
     ref = _jax("Embedding", [ids, w], {"input_dim": 11, "output_dim": 6})
     got = embedding(torch.from_numpy(ids), torch.from_numpy(w))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_embedding_out_of_range_ids_as_jax():
+    """Repair (ROADMAP queue C, C9): an id in [-V, 0) wraps, one outside
+    [-V, V) gives a row of NaN and drops its weight gradient, as the JAX
+    op's ``jnp.take`` in fill mode (the port raised IndexError; on a CUDA
+    tensor a device-side assert).  Fractional ids truncate toward zero.
+    NaN rows compare as NaN."""
+    rng = np.random.RandomState(5)
+    w = rng.randn(10, 6).astype(np.float32)
+    ids = np.array([[-11, -1, 0], [9, 10, 12], [2.7, -1.5, 3]], np.float32)
+    attrs = {"input_dim": 10, "output_dim": 6}
+    ct = rng.randn(3, 3, 6).astype(np.float32)
+    ref, vjp = jax.vjp(
+        lambda wj: invoke("Embedding", [jnp.asarray(ids), wj], attrs)[0][0],
+        jnp.asarray(w))
+    (ref_grad,) = vjp(jnp.asarray(ct))
+    tw = torch.from_numpy(w).requires_grad_()
+    (got,), _ = torch_invoke("Embedding", [torch.from_numpy(ids), tw], attrs)
+    assert np.isnan(got.detach().numpy()).all(-1).sum() == 3
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(ref))
+    got.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(ref_grad), **TOL)
 
 
 @pytest.mark.parametrize("mode", ["clip", "wrap"])

@@ -1,6 +1,7 @@
 """The port's RNN path against the JAX package: the packed parameter
 layout, the ``lstm_scan`` kernel's plain version and its remat gradients
 against the Pallas kernel (interpret mode) and its scan reference, the
+cluster kernel's summation order emulated at LSTM-PTB's width, the
 ``RNN`` op in every mode against the JAX op on the lax path, the shape
 ops the LSTM language model needs (``Reshape``, ``transpose``), and the
 wrapper's routing.  ``test_torch_bucketing.py`` holds the module half.
@@ -140,6 +141,67 @@ def test_lstm_scan_wrapper_checks_its_inputs():
     with torch.no_grad():
         y, _, _ = ck.lstm_scan(xw, h0, c0, ut)
     assert y.grad_fn is None
+
+
+def lstm_cluster_order(xw, h0, c0, ut, nc=8, split=8):
+    """The cluster-resident kernel's arithmetic (``csrc/lstm_scan.cu``)
+    in float32 torch: CTA c of ``nc`` owns units [c*U, (c+1)*U), U =
+    ceil(H / nc), for all four gates; lane s of a unit's ``split`` lanes
+    sums k = s, s + split, ... in order with fused multiply-adds
+    (emulated in float64, rounded once to float32), the lanes' partial
+    sums add as ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)), and
+    ``pre = xw[t] + that`` feeds the cell in float32."""
+    T, B, G = xw.shape
+    H = G // 4
+    U = -(-H // nc)
+    owner = torch.full((H,), -1)
+    h, c = h0, c0
+    hp = torch.zeros(B, -(-H // split) * split)  # h padded to whole rounds
+    ys = []
+    for t in range(T):
+        hp[:, :H] = h
+        pre = torch.empty(B, G)
+        for cta in range(nc):
+            units = torch.arange(cta * U, min(H, (cta + 1) * U))
+            if t == 0:
+                owner[units] = cta
+            cols = (torch.arange(4)[:, None] * H + units[None]).reshape(-1)
+            w = torch.zeros(hp.shape[1], cols.numel())
+            w[:H] = ut[:, cols]
+            acc = torch.zeros(split, B, cols.numel())
+            for k0 in range(0, hp.shape[1], split):
+                hk = hp[:, k0:k0 + split].t()[:, :, None].double()
+                acc = (acc.double() + hk * w[k0:k0 + split, None].double()
+                       ).float()
+            p = list(acc)
+            tot = ((p[0] + p[4]) + (p[2] + p[6])) + \
+                ((p[1] + p[5]) + (p[3] + p[7]))
+            pre[:, cols] = xw[t][:, cols] + tot
+        i, f, g, o = pre.split(H, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    assert (owner >= 0).all()  # every unit owned once
+    return torch.stack(ys), h, c
+
+
+def test_lstm_cluster_order_keeps_fp32_tolerance_at_ptb_width():
+    """The cluster kernel's k split and reduction tree, per CTA slice of
+    units, at LSTM-PTB's width (T, B, H) = (60, 32, 200) (8 CTAs of 25
+    units), against the JAX ``_lstm_reference`` (lax scan) and
+    ``lstm_scan_plain`` within chip_smoke.py's fp32 ``TOL`` = 2e-5: the
+    order the kernel sums in keeps fp32's tolerance over 60 recurrent
+    steps."""
+    case = _lstm_case(6, 60, 32, 200)
+    case = (case[0], case[1], case[2], case[3] * 0.5)  # check_lstm's 0.1
+    got = lstm_cluster_order(*[torch.from_numpy(x) for x in case])
+    plain = ck.lstm_scan_plain(*[torch.from_numpy(x) for x in case])
+    ref = pk._lstm_reference(*[jnp.asarray(x) for x in case])
+    for g, p, r in zip(got, plain, ref):
+        assert g.shape == p.shape
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=0, atol=2e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=2e-5)
 
 
 @pytest.mark.cuda

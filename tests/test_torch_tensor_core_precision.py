@@ -1,33 +1,36 @@
 """Why the tensor-core kernels split fp32 into TF32 pairs, shown on the CPU.
 
 ``csrc/flash_mha_packed.cu`` and ``csrc/flash_mha_packed_bwd.cu`` (B1's
-forward and backward), ``csrc/flash_mha.cu`` (B5's forward) and
+forward and backward), ``csrc/flash_mha.cu`` and
+``csrc/flash_mha_bwd.cu`` (B5's forward and backward) and
 ``csrc/flash_attention_partial_bwd.cu`` (B9) run every product on the
-H100's tensor cores (``csrc/tensor_core.cuh``).  fp32 operands go in as
-split TF32: ``big = tf32(x)``, ``small = tf32(x - big)``, each rounded as
-``cvt.rna.tf32.f32`` does (to nearest, ties away from zero, 10 stored
+H100's tensor cores (``csrc/tensor_core.cuh``). fp32 operands go in as
+split TF32: ``big = tf32(x)``, ``small = tf32(x - big)``, each rounded
+as ``cvt.rna.tf32.f32`` does (to nearest, ties away from zero, 10 stored
 mantissa bits), and a product is ``big.small + small.big + big.big``
-accumulated in fp32.  A bf16 operand is exact in TF32, so a product of an
-fp32 operand with a bf16 one needs two.  bf16 products run on bf16 tensor
-cores, which multiply exactly and accumulate in fp32.  P is rounded to
-bf16 before the bf16 P.V of B1's and B5's forward and before B1's
-backward's P^T.dO; B9 keeps P in fp32; both backwards round dS to the
-input dtype before dS.K and dS^T.q, as the TPU kernels do.
+accumulated in fp32. A bf16 operand is exact in TF32, so a product of an
+fp32 operand with a bf16 one needs two. bf16 products run on bf16 tensor
+cores, which multiply exactly and accumulate in fp32. P is rounded to
+bf16 before the bf16 P.V of B1's and B5's forward and before B1's and
+B5's backward's P^T.dO; B9 keeps P in fp32; the backwards round dS to
+the input dtype before dS.K and dS^T.q, as the TPU kernels do.
 
 This file emulates those products in torch on the CPU (fp32 matmuls over
 TF32-valued operands, whose products are exact in fp32) at B1's prefill
 and training shape (1, 1024, 12 heads, 64, causal), at B5's head width
-128 and a Tq != Tk causal case (256 queries, 1024 keys), and at a
-(1, 12, 512, 512, 64) ring hop of B9, from seeded numpy inputs, and holds
-the result against the plain versions ``flash_mha_packed_plain``,
-``flash_mha_packed_bwd_plain``, ``flash_mha_plain`` and
+128 and a Tq != Tk causal case (256 queries, 1024 keys), forward and
+backward, and at a (1, 12, 512, 512, 64) ring hop of B9, from seeded
+numpy inputs, and holds the result against the plain versions
+``flash_mha_packed_plain``, ``flash_mha_packed_bwd_plain``,
+``flash_mha_plain``, ``flash_mha_bwd_plain`` and
 ``flash_attention_bwd_plain`` with ``chip_smoke.py``'s tolerances: the
 split scheme lands within half of ``TOL["float32"]`` and of ``BWD_TOL``;
-one TF32 product alone does not land within them.  B1's bf16 backward,
-with P and dS rounded, is also held against the JAX package's
-``flash_mha_packed`` backward (``jax.vjp`` through its Pallas kernels in
-interpret mode).  The emulation takes the softmax over whole rows; the
-kernels' online softmax over key tiles rescales the same products.
+one TF32 product alone does not land within them. B1's and B5's bf16
+backward, with P and dS rounded, are also held against the JAX package's
+``flash_mha_packed`` and ``flash_mha`` backward (``jax.vjp`` through its
+Pallas kernels in interpret mode). The emulation takes the softmax over
+whole rows; the kernels' online softmax over key tiles rescales the same
+products.
 """
 
 import math
@@ -153,6 +156,33 @@ def b5_forward(q, k, v, causal, mm):
     o = (pv / l).to(q.dtype)
     lse = ((m + torch.log2(l)) * math.log(2.0))[..., 0]
     return o, lse
+
+
+def b5_backward(q, k, v, o, lse, do, causal, mm):
+    """B5's backward on (B, H, T, D) tensors, the causal mask aligned at
+    position 0, Delta = rowsum(do * o) in float32 as the wrapper takes
+    it, with the products of ``mm`` (fp32) or bf16 products with P
+    rounded to do's dtype and dS to k's (bf16) → (dq, dk, dv) in the
+    inputs' dtype."""
+    dt = q.dtype
+    bf16 = dt == torch.bfloat16
+    rnd = (lambda x: x.to(dt).float()) if bf16 else (lambda x: x)
+    prod = (lambda a, b: a @ b) if bf16 else mm
+    Tq, Tk, D = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = prod(qf, kf.transpose(-1, -2))
+    p = torch.exp2(s * (scale * LOG2E) - lse.float()[..., None] * LOG2E)
+    if causal:
+        mask = torch.arange(Tk)[None, :] <= torch.arange(Tq)[:, None]
+        p = torch.where(mask, p, 0.0)
+    dp = prod(dof, vf.transpose(-1, -2))
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = rnd(p * (dp - delta))
+    dq = prod(ds, kf) * scale
+    dk = prod(ds.transpose(-1, -2), qf) * scale
+    dv = prod(rnd(p).transpose(-1, -2), dof)
+    return tuple(g.to(dt) for g in (dq, dk, dv))
 
 
 def b9_backward(q, k, v, m, ob, lb, koff, mm):
@@ -390,3 +420,86 @@ def test_b5_forward_one_tf32_product_misses_the_tolerance():
     po, _ = ck.flash_mha_plain(q, k, v, causal=True)
     o, _ = b5_forward(q, k, v, True, mm_tf32)
     assert (o - po).abs().max().item() > TOL["float32"]
+
+
+def _b5_bwd_case(shape, dtype):
+    """Seeded BTHD inputs as (B, H, T, D) views, o and lse from the plain
+    forward, and the plain backward."""
+    B, H, Tq, Tk, D = shape
+    rng = np.random.RandomState(Tq + Tk + D)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (randn(rng, B, T, H, D).to(dt).transpose(1, 2)
+                   for T in (Tq, Tk, Tk, Tq))
+    o, lse = ck.flash_mha_plain(q, k, v, causal=True)
+    ref = ck.flash_mha_bwd_plain(q, k, v, o, lse, do, causal=True)
+    return (q, k, v, o, lse, do), ref
+
+
+def _b5_over_tol(got, ref, dtype):
+    """dq, dk and dv's max errors over chip_smoke.check_mha's tolerance:
+    the dq kernel's from dq's peak, the dk/dv kernel's from the larger
+    peak of the two."""
+    tq = _bwd_tol(ref[0], dtype)
+    tkv = max(_bwd_tol(ref[1], dtype), _bwd_tol(ref[2], dtype))
+    return [(a.float() - r.float()).abs().max().item() / t
+            for a, r, t in zip(got, ref, (tq, tkv, tkv))]
+
+
+B5_BWD_SHAPES = [(1, 4, 512, 512, 128), (1, 12, 256, 1024, 64)]
+
+
+@pytest.mark.parametrize("shape", B5_BWD_SHAPES)
+def test_b5_backward_split_tf32_within_half_the_tolerance(shape):
+    """fp32: B5's five products in split TF32, causal, at head width 128
+    and at Tq != Tk (256 queries over 1024 keys), on BTHD views, land
+    within half of BWD_TOL on dq, dk and dv."""
+    args, ref = _b5_bwd_case(shape, "float32")
+    ratios = _b5_over_tol(b5_backward(*args, True, mm_split), ref,
+                          "float32")
+    assert max(ratios) <= 0.5, ratios
+
+
+def test_b5_backward_one_tf32_product_misses_the_tolerance():
+    """One TF32 product for each of the five: some gradient misses
+    BWD_TOL, which is why the fp32 path splits."""
+    args, ref = _b5_bwd_case(B5_BWD_SHAPES[0], "float32")
+    ratios = _b5_over_tol(b5_backward(*args, True, mm_tf32), ref,
+                          "float32")
+    assert max(ratios) > 1.0, ratios
+
+
+@pytest.mark.parametrize("shape", B5_BWD_SHAPES)
+def test_b5_backward_bf16_rounding_within_the_tolerance(shape):
+    """bf16: every product on bf16 tensor cores, P rounded to do's dtype
+    before P^T.dO and dS to k's before dS.K and dS^T.Q, within the
+    chip's bf16 BWD_TOL of the plain version."""
+    args, ref = _b5_bwd_case(shape, "bfloat16")
+    ratios = _b5_over_tol(b5_backward(*args, True, None), ref, "bfloat16")
+    assert max(ratios) <= 1.0, ratios
+
+
+def test_b5_bf16_backward_against_the_jax_reference(monkeypatch):
+    """The JAX package's bf16 ``flash_mha`` backward (``jax.vjp`` through
+    its Pallas kernels in interpret mode, which round P and dS to bf16
+    before their products) against the port's plain bf16 backward and
+    against the kernels' rounding (``b5_backward``), both on the port's
+    plain forward, causal, (BH, T, D) = (2, 256, 64): each within the
+    chip's bf16 BWD_TOL."""
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    assert pk.enabled()
+    BH, T, D = 2, 256, 64
+    rng = np.random.RandomState(13)
+    q, k, v, do = (randn(rng, BH, T, D).to(torch.bfloat16)
+                   for _ in range(4))
+    as_jax = (lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    _, vjp = jax.vjp(lambda a, b, c: pk.flash_mha(
+        a, b, c, causal=True, block_size=128), *map(as_jax, (q, k, v)))
+    ref = [torch.from_numpy(np.array(g.astype(jnp.float32)))
+           for g in vjp(as_jax(do))]
+    o, lse = ck.flash_mha_plain(q, k, v, causal=True)
+    plain = ck.flash_mha_bwd_plain(q, k, v, o, lse, do, causal=True)
+    kernel = [g[:, 0] for g in b5_backward(
+        *(x[:, None] for x in (q, k, v, o, lse, do)), True, None)]
+    for got in (plain, kernel):
+        ratios = _b5_over_tol(got, ref, "bfloat16")
+        assert max(ratios) <= 1.0, ratios

@@ -223,20 +223,26 @@ def test_op_forward_and_gradients_vs_jax(op, inputs, attrs, diff):
 
 
 def test_softmax_ce_loss_wraps_a_negative_label_as_jax_does():
-    """Repair (ROADMAP queue C, C6): a label in [-C, 0) without
-    ``use_ignore`` scores the class counted from the end, as JAX's
-    ``take_along_axis`` does (the port clamped it to class 0); the
-    gradient, which subtracts no one-hot for it on either side, stays."""
-    x = np.random.RandomState(0).randn(3, 4).astype(np.float32)
-    lab = np.array([1, -1, 2], np.float32)
-    jloss, vjp = jax.vjp(
-        lambda d: jax_invoke("SoftmaxCELoss", [d, jnp.asarray(lab)], {})[0][0],
-        jnp.asarray(x))
-    (jgrad,) = vjp(jnp.ones_like(jloss))
-    t = torch.from_numpy(x).requires_grad_()
-    (tloss,), _ = torch_invoke("SoftmaxCELoss", [t, torch.from_numpy(lab)],
-                               {})
-    np.testing.assert_allclose(tloss.detach().numpy(), np.asarray(jloss),
-                               **FWD)
-    tloss.backward(torch.ones_like(tloss))
-    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgrad), **GRAD)
+    """Repairs (ROADMAP queue C, C6 and C10): a label in [-C, 0) scores
+    the class counted from the end, as JAX's ``take_along_axis`` does
+    (the port clamped it to class 0), and a label outside [-C, C) gives
+    a NaN loss (the port scored a clamped class), unless it is the
+    ignored label, whose loss is 0.  The gradient, which subtracts no
+    one-hot for either on both sides, stays."""
+    C = 4
+    x = np.random.RandomState(0).randn(6, C).astype(np.float32)
+    lab = np.array([1, -1, 2, C, C + 2, -C - 1], np.float32)
+    for attrs in ({}, {"use_ignore": True, "ignore_label": C + 2}):
+        jloss, vjp = jax.vjp(
+            lambda d: jax_invoke("SoftmaxCELoss", [d, jnp.asarray(lab)],
+                                 attrs)[0][0],
+            jnp.asarray(x))
+        (jgrad,) = vjp(jnp.ones_like(jloss))
+        assert np.isnan(np.asarray(jloss)[3:]).sum() == (2 if attrs else 3)
+        t = torch.from_numpy(x).requires_grad_()
+        (tloss,), _ = torch_invoke("SoftmaxCELoss",
+                                   [t, torch.from_numpy(lab)], attrs)
+        np.testing.assert_allclose(tloss.detach().numpy(), np.asarray(jloss),
+                                   **FWD)
+        tloss.backward(torch.ones_like(tloss))
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgrad), **GRAD)
