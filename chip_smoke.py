@@ -10,7 +10,7 @@
    per source, all started together.  Then, with ``cuobjdump`` from the
    toolkit beside ``nvcc``, the tensor-core kernels (``TC_KERNELS``:
    B1's forward, B1's two backward kernels, B5's forward and its two
-   backward kernels at each head-width bucket and both B9 kernels,
+   backward kernels, B8 and both B9 kernels, at each head-width bucket,
    every fp32 and bf16
    instantiation) must hold tensor-core instructions (``HMMA``/
    ``HGMMA``) in their SASS, and those at D = 64 no local (spill)
@@ -23,12 +23,16 @@
    the same function (timed here only, used nowhere in the port) and
    the least time the card could take for the work (``bound_ms``; the
    tensor-core kernels also carry ``bound_tc_ms``, the same work at
-   ``PEAK_TC_FLOPS``).  B1's forward and backward also run on a qkv off
+   ``PEAK_TC_FLOPS``, and ``back_to_back_ms``, events around 20 queued
+   launches, which hides the host's launch overhead and its noise).  B1's forward and backward also run on a qkv off
    16-byte alignment, and B5 on BTHD buffers off it (``offset=1``).
    The quantized decode runs over int8 and fp8 pools made by the port's
    ``quantize_kv``; the verify kernel over fp32, bf16, int8 and fp8
    pools, and each of its rows must ``torch.equal`` the decode kernel's
-   output at ``lengths = start + 1 + w``.  The LSTM recurrence
+   output at ``lengths = start + 1 + w``.  B1's forward and backward and
+   the paged kernels (decode, quantized decode, verify over all four
+   pools) run again at the head widths of ``WIDTH_CASES``: 4 heads of 32
+   lanes (the default ``transformer_lm``) and 6 of 128.  The LSTM recurrence
    (``lstm_scan``, fp32 only) runs at (T, B, H) = (60, 32, 200),
    (10, 32, 200) and (7, 3, 37), where a thread-block cluster holds ut,
    and at (60, 32, 512) and (20, 8, 1024), where the L2-streaming kernel
@@ -55,7 +59,8 @@
    ``torch.equal`` the plain m's -inf pattern, such rows hold o = 0 and
    l = 0 exactly, and o / l agrees within ``TOL``; the yardstick is SDPA
    with the hop's boolean mask (the same QK^T and PV work, normalized:
-   no PyTorch call returns (o, m, l)) and SDPA's backward.
+   no PyTorch call returns (o, m, l)) and SDPA's backward, in fp32 and
+   bf16; B8's records carry its tensor-core bound (``bound_tc_ms``).
 2b. User kernels (``mt.rtc``, the port of ``rtc.pallas_op``): the
    example's ``user_silu`` and ``user_silu_grad`` at its (16, 32) batch
    (and, as extra check lines, at (8192, 3072)) and this script's
@@ -92,6 +97,13 @@
       K/V), and the chains' agreement with run B's is printed;
    D. fp8 pages without speculation, 4 requests: the quantized decode
       kernel launches 12 times a step.
+3b. The default LM (``default_lm_path``): ``transformer_lm`` at its own
+   defaults (4 layers, 4 heads of width 32, d_model 128; ``DEFAULT_LM``)
+   serves 8 greedy requests (B1 and the decode kernel 4 times a prefill
+   and a step, the full forward reproducing the tokens) and takes one
+   ``forward_backward`` through ``Module`` on ``gpu(0)`` at batch 4 x
+   512, held against the same step by the port on the CPU (loss to 1e-4
+   relative, weight gradients within ``BWD_TOL``).
 4. Training: the same LM, fp32, as ``transformer_lm(..., head="ce")``
    through ``mod.Module`` on ``gpu(0)``, bound at batch 8 x 1024 tokens
    from the same weights, takes 10 SGD steps (momentum 0.9,
@@ -245,6 +257,16 @@ SSD300 = dict(images=256, batch=32, epochs=6, lr=0.002, momentum=0.9,
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
 H, D, KVB = 12, 64, 16
+# transformer_lm at its own defaults (models/transformer.py: 4 layers, 4
+# heads, d_model 128, d_ff 4 x 128: head width 32) over an 8,192-token
+# vocabulary and 512 positions, batch 4 in training
+DEFAULT_LM = dict(vocab_size=8192, num_layers=4, num_heads=4, d_model=128,
+                  d_ff=512, max_len=512)
+DEFAULT_LM_BATCH = 4
+# B1 and the paged kernels at head widths other than 64, (B, T, heads,
+# width) of B1's checks: the default LM's training shape, and 128-lane
+# heads at the GPT-2-class d_model; the paged kernels at B = 16, MB = 64
+WIDTH_CASES = ((DEFAULT_LM_BATCH, 512, 4, 32), (1, 1024, 6, 128))
 # flash_mha checks (B, H, Tq, Tk, D, causal): the DPA path's shape first,
 # then a tail (T = 1000), Tq < Tk, and head widths 128 and 80
 MHA_SHAPES = ((TRAIN_BATCH, H, 1024, 1024, D, True),
@@ -356,16 +378,18 @@ def _which(kernel):
 
 
 TC_KERNELS = (
-    ("flash_mha_packed", ("mhap_fwd_kernel",), (64,),
-     "flash_mha_packed_smem_bytes", lambda k, dp, code: (code,)),
+    ("flash_mha_packed", ("mhap_fwd_kernel",), (32, 64, 96, 128),
+     "flash_mha_packed_smem_bytes", lambda k, dp, code: (dp, code)),
     ("flash_mha_packed_bwd", ("mhap_bwd_dq_kernel", "mhap_bwd_dkv_kernel"),
-     (64,), "flash_mha_packed_bwd_smem_bytes",
-     lambda k, dp, code: (_which(k), code)),
+     (32, 64, 96, 128), "flash_mha_packed_bwd_smem_bytes",
+     lambda k, dp, code: (_which(k), dp, code)),
     ("flash_mha", ("mha_fwd_kernel",), (32, 64, 96, 128),
      "flash_mha_smem_bytes", lambda k, dp, code: (dp, code)),
     ("flash_mha_bwd", ("mha_bwd_dq_kernel", "mha_bwd_dkv_kernel"),
      (32, 64, 96, 128), "flash_mha_bwd_smem_bytes",
      lambda k, dp, code: (_which(k), dp, code)),
+    ("flash_attention_partial", ("partial_fwd_kernel",), (32, 64, 96, 128),
+     "flash_attention_partial_smem_bytes", lambda k, dp, code: (dp, code)),
     ("flash_attention_partial_bwd",
      ("partial_bwd_dq_kernel", "partial_bwd_dkv_kernel"), (32, 64, 96, 128),
      "flash_attention_bwd_smem_bytes",
@@ -382,7 +406,7 @@ def _cuobjdump(_build, args, lib):
 def tensor_core_report(_build):
     """Registers, shared and local memory of every instantiation of the
     tensor-core kernels (``TC_KERNELS``: B1's forward and backward, B5's
-    forward and backward, both B9 kernels; ``cuobjdump -res-usage``,
+    forward and backward, B8, both B9 kernels; ``cuobjdump -res-usage``,
     dynamic shared memory from each library's own query), and the tensor-core
     instructions in each one's SASS (``cuobjdump -sass``).  Raises when a
     tool is missing, an instantiation is missing, one holds no HMMA or
@@ -436,10 +460,10 @@ def tensor_core_report(_build):
     return out
 
 
-def check_prefill(torch, ck, F, T, dtype, B=1, offset=0):
-    """B1's forward against its plain version; ``offset`` > 0 starts qkv
-    that many elements into its buffer, off 16-byte alignment, which the
-    kernel stages one element a thread."""
+def check_prefill(torch, ck, F, T, dtype, B=1, offset=0, H=H, D=D):
+    """B1's forward against its plain version at H heads of width D;
+    ``offset`` > 0 starts qkv that many elements into its buffer, off
+    16-byte alignment, which the kernel stages one element a thread."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(B * 10000 + T)
     n = B * T * 3 * H * D
@@ -467,6 +491,8 @@ def check_prefill(torch, ck, F, T, dtype, B=1, offset=0):
         f"causal" + (f" offset={offset}" if offset else ""), "dtype": dtype,
         "max_abs_err": err, "tol": TOL[dtype],
         "ms": time_ms(torch, lambda: ck.flash_mha_packed(qkv, H, True)),
+        "back_to_back_ms": back_to_back_ms(
+            torch, lambda: ck.flash_mha_packed(qkv, H, True)),
         "plain_ms": time_ms(torch, lambda: ck.flash_mha_packed_plain(
             qkv, H, True), reps=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -475,14 +501,14 @@ def check_prefill(torch, ck, F, T, dtype, B=1, offset=0):
         "bound_tc_ms": bound_tc(nbytes, flops, dtype)}
 
 
-def check_backward(torch, ck, F, B, T, dtype, offset=0):
+def check_backward(torch, ck, F, B, T, dtype, offset=0, H=H, D=D):
     """Both backward kernels against the plain backward, at B x T,
     causal.  One record per kernel: its error over the thirds of dqkv
     it writes, its own time and bounds; the plain version and the
     library call (SDPA's backward) compute dq, dk and dv together, so
     both records carry their one time.  ``offset`` > 0 starts qkv that
     many elements into its buffer, off 16-byte alignment, which the
-    kernels stage one element a thread."""
+    kernels stage one element a thread.  H heads of width D."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(B * 10000 + T)
     n = B * T * 3 * H * D
@@ -528,6 +554,9 @@ def check_backward(torch, ck, F, B, T, dtype, offset=0):
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(torch, lambda: ck.launch_flash_mha_packed_bwd(
                 part, qkv, o, lse, do, buf, H, True)),
+            "back_to_back_ms": back_to_back_ms(
+                torch, lambda: ck.launch_flash_mha_packed_bwd(
+                    part, qkv, o, lse, do, buf, H, True)),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_tc_ms": bound_tc(reads + writes * B * T * H * D * es,
@@ -585,6 +614,8 @@ def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype, offset=0):
         "kernel": "flash_mha", "shape": shape, "dtype": dtype,
         "max_abs_err": err, "tol": TOL[dtype],
         "ms": time_ms(torch, lambda: ck.flash_mha(q, k, v, causal)),
+        "back_to_back_ms": back_to_back_ms(
+            torch, lambda: ck.flash_mha(q, k, v, causal)),
         "plain_ms": time_ms(torch, lambda: ck.flash_mha_plain(
             q, k, v, causal), reps=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -620,6 +651,9 @@ def check_mha(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, dtype, offset=0):
             "dtype": dtype, "max_abs_err": gerr, "tol": tol,
             "ms": time_ms(torch, lambda: ck.launch_flash_mha_bwd(
                 part, q, k, v, do, lse, delta, bufs, causal)),
+            "back_to_back_ms": back_to_back_ms(
+                torch, lambda: ck.launch_flash_mha_bwd(
+                    part, q, k, v, do, lse, delta, bufs, causal)),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_tc_ms": bound_tc(reads + writes * es,
@@ -735,7 +769,8 @@ def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
     reported error.  The library yardstick is SDPA on the same q, k, v
     with the hop's boolean mask: the same QK^T and PV work, normalized
     (no PyTorch call returns (o, m, l)); for B9, SDPA's backward, dq,
-    dk and dv together (the plain version likewise)."""
+    dk and dv together (the plain version likewise).  B8's record also
+    carries its tensor-core bound (``bound_tc_ms``)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(
         B * 1000 + Tq + Dh + abs(koff))
@@ -773,8 +808,8 @@ def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
     es = q.element_size()
     pairs = partial_pairs(B, Hh, Tq, Tk, causal, koff)
     rows_q, rows_k = B * Hh * Tq * Dh, B * Hh * Tk * Dh
-    b_ms, b_by = bound((rows_q + 2 * rows_k) * es + (rows_q + 2 * B * Hh * Tq)
-                       * 4, 4 * Dh * pairs, dtype)
+    fwd_bytes = (rows_q + 2 * rows_k) * es + (rows_q + 2 * B * Hh * Tq) * 4
+    b_ms, b_by = bound(fwd_bytes, 4 * Dh * pairs, dtype)
     q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
     mask = None
     if causal:
@@ -786,11 +821,15 @@ def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
         "l_rel_err": l_err, "rows_seeing_no_key": int(empty.sum()),
         "ms": time_ms(torch, lambda: ck.flash_attention_partial(
             q, k, v, causal, 512, koff)),
+        "back_to_back_ms": back_to_back_ms(
+            torch, lambda: ck.flash_attention_partial(
+                q, k, v, causal, 512, koff)),
         "plain_ms": time_ms(torch, lambda: ck.flash_attention_partial_plain(
             q, k, v, causal, 512, koff), reps=5, warmup=1),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask)),
-        "bound_ms": b_ms, "bound_by": b_by}]
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_tc_ms": bound_tc(fwd_bytes, 4 * Dh * pairs, dtype)}]
     plain_ms = time_ms(torch, lambda: ck.flash_attention_bwd_plain(
         q, k, v, m, ob, lb, causal, 512, koff), reps=5, warmup=1)
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
@@ -820,6 +859,9 @@ def check_partial(torch, ck, F, B, Hh, Tq, Tk, Dh, causal, koff, dtype):
             "dtype": dtype, "max_abs_err": gerr, "tol": tol,
             "ms": time_ms(torch, lambda: ck.launch_flash_attention_bwd(
                 part, q, k, v, m, ob, lb, bufs, causal, koff)),
+            "back_to_back_ms": back_to_back_ms(
+                torch, lambda: ck.launch_flash_attention_bwd(
+                    part, q, k, v, m, ob, lb, bufs, causal, koff)),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_tc_ms": bound_tc(reads + writes * es,
@@ -1008,10 +1050,10 @@ def _ragged_tables(B, MB, rng, lengths=None):
     return lengths, table
 
 
-def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None):
-    """``kv_dtype`` other than ``dtype``: an fp32 model over bf16 pages
-    (``kv_dtype='bf16'``); both sides then read the same bf16 values, so
-    the fp32 tolerance holds."""
+def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None, H=H, D=D):
+    """B2 at H heads of width D.  ``kv_dtype`` other than ``dtype``: an
+    fp32 model over bf16 pages (``kv_dtype='bf16'``); both sides then
+    read the same bf16 values, so the fp32 tolerance holds."""
     dt = getattr(torch, dtype)
     kv_dt = getattr(torch, kv_dtype or dtype)
     P = 1 + B * MB
@@ -1061,7 +1103,7 @@ def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _quant_pools(torch, tatt, P, kv, g):
+def _quant_pools(torch, tatt, P, kv, g, H=H, D=D):
     """int8/fp8 K and V pools and their scales, quantized on the card by
     the port's ``quantize_kv`` from N(0, 1) values."""
     qdt = getattr(torch, KV_TORCH[kv])
@@ -1073,14 +1115,15 @@ def _quant_pools(torch, tatt, P, kv, g):
     return kq, vq, ks, vs
 
 
-def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng):
-    """B3 over int8/fp8 pools against its plain version: both
-    dequantize the same bytes, so the fp32/bf16 tolerance holds."""
+def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng, H=H, D=D):
+    """B3 over int8/fp8 pools against its plain version, at H heads of
+    width D: both dequantize the same bytes, so the fp32/bf16 tolerance
+    holds."""
     dt = getattr(torch, dtype)
     P = 1 + B * MB
     g = torch.Generator(device="cuda").manual_seed(B * 1000 + MB + 7)
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dt)
-    kq, vq, ks, vs = _quant_pools(torch, tatt, P, kv, g)
+    kq, vq, ks, vs = _quant_pools(torch, tatt, P, kv, g, H, D)
     lengths, table = _ragged_tables(B, MB, rng)
     t_d = torch.from_numpy(table).cuda()
     l_d = torch.from_numpy(lengths).cuda()
@@ -1122,9 +1165,10 @@ def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng):
+def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D):
     """B4 (``pool`` float32/bfloat16: raw pages; int8/fp8: the quantized
-    instantiation, under fp32 queries) against its plain version, with
+    instantiation, under fp32 queries) at H heads of width D against its
+    plain version, with
     q a strided view of a packed (B, W, 3*H*D) qkv; and row w against
     the decode kernel (B2, or B3 over quantized pools) at lengths =
     start + 1 + w, bit for bit."""
@@ -1136,7 +1180,7 @@ def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng):
     qkv = torch.randn((B, W, 3 * H * D), generator=g, device="cuda").to(dt)
     q = qkv[..., :H * D].unflatten(-1, (H, D))
     if quant:
-        kp, vp, ks, vs = _quant_pools(torch, tatt, P, pool, g)
+        kp, vp, ks, vs = _quant_pools(torch, tatt, P, pool, g, H, D)
         scales = (ks, vs)
     else:
         kp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(dt)
@@ -1210,14 +1254,14 @@ def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def gpt2_small_params(seed=0):
-    """Random GPT-2-small-class weights, N(0, 0.02), LayerNorm at
+def gpt2_small_params(seed=0, cfg=GPT2_SMALL):
+    """Random weights of the GPT-2-small-class LM (or of the
+    ``transformer_lm`` configuration ``cfg``), N(0, 0.02), LayerNorm at
     identity, zero biases."""
     from mxnet_tpu_torch.models.transformer import param_names
 
-    V, L, dm = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
-        GPT2_SMALL["d_model"]
-    dff, T = GPT2_SMALL["d_ff"], GPT2_SMALL["max_len"]
+    V, L, dm = cfg["vocab_size"], cfg["num_layers"], cfg["d_model"]
+    dff, T = cfg["d_ff"], cfg["max_len"]
     shapes = {"tok_embed_weight": (V, dm), "pos_embed_weight": (T, dm),
               "ln_f_gamma": (dm,), "ln_f_beta": (dm,),
               "head_weight": (V, dm), "head_bias": (V,)}
@@ -1244,12 +1288,12 @@ def gpt2_small_params(seed=0):
 
 
 def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
-              **engine_kw):
-    """Serve ``prompts`` through a fresh ``DecodeEngine`` (after a
-    warm-up request), with the launch counts reset just before and read
-    just after.  Returns (engine model, outputs, stats, launches,
-    record)."""
-    eng = mt.DecodeEngine(dev_params, **GPT2_SMALL, ctx=mt.gpu(0),
+              cfg=GPT2_SMALL, **engine_kw):
+    """Serve ``prompts`` through a fresh ``DecodeEngine`` of the LM
+    ``cfg`` (after a warm-up request), with the launch counts reset just
+    before and read just after.  Returns (engine model, outputs, stats,
+    launches, record)."""
+    eng = mt.DecodeEngine(dev_params, **cfg, ctx=mt.gpu(0),
                           kv_block=KVB, max_streams=16, seed=0, **engine_kw)
     with eng:
         eng.generate(np.arange(1, 20, dtype=np.int32), 2)  # CUDA warm-up
@@ -1268,7 +1312,7 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
         model = eng.model
     for o in outs:
         check(o.shape == (new_tokens,) and o.min() >= 0
-              and o.max() < GPT2_SMALL["vocab_size"], f"bad generation {o}")
+              and o.max() < cfg["vocab_size"], f"bad generation {o}")
     gen = int(sum(len(o) for o in outs))
     rec = {"requests": len(prompts),
            "prompt_tokens": int(sum(len(p) for p in prompts)),
@@ -1811,6 +1855,87 @@ def dpa_path(torch, mt, ck):
         rec["launches"][k] += n
     rec["first_step_vs_packed"] = dict(agreement, packed_loss=ref_loss)
     return rec
+
+
+def default_lm_path(torch, mt, ck):
+    """``transformer_lm`` at its own defaults (``DEFAULT_LM``: 4 heads of
+    width 32) on the card, through B1's 32-lane instantiations and the
+    paged kernels': serving 8 greedy requests (fp32 pages, 24-400 token
+    prompts, 16 new tokens), B1's forward 4 times a prefill and the
+    decode kernel 4 times a step, the full forward reproducing the
+    greedy tokens; then one ``forward_backward`` through ``Module`` at
+    batch ``DEFAULT_LM_BATCH`` x 512 on ``gpu(0)``, B1's three kernels 4
+    times each, held against the same step run by the port on the CPU
+    (mean loss to 1e-4 relative, every weight gradient within
+    ``BWD_TOL``).  Launch counts reset just before each run and read
+    just after."""
+    cfg = DEFAULT_LM
+    V, L, T = cfg["vocab_size"], cfg["num_layers"], cfg["max_len"]
+    NH, dm = cfg["num_heads"], cfg["d_model"]
+    params = gpt2_small_params(5, cfg)
+    rng = np.random.RandomState(6)
+    lens = rng.randint(24, 401, size=8)
+    prompts = [rng.randint(1, V, size=n).astype(np.int32) for n in lens]
+    temps = [0.0] * len(prompts)
+    dev_params = mt.params_from_numpy(params, "cuda")
+    model, outs, st, launches, serving = serve_run(
+        torch, mt, ck, dev_params, prompts, temps, 16, cfg=cfg)
+    check(launches["flash_mha_packed"] == L * st["prefills"] > 0
+          and launches["paged_attention_decode"] == L * st["steps"] > 0,
+          f"default LM serving: {launches} for {st['prefills']} prefills "
+          f"and {st['steps']} steps")
+    forward_check(torch, model, prompts, outs, temps, lens, "default LM")
+    del model, dev_params
+    torch.cuda.empty_cache()
+
+    sym = mt.models.transformer_lm(V, T, num_layers=L, num_heads=NH,
+                                   d_model=dm, d_ff=cfg["d_ff"], head="ce")
+    X, Y = random_walk_tokens(V, T, DEFAULT_LM_BATCH, seed=9)
+    batch = next(mt.io.NDArrayIter(X, Y, batch_size=DEFAULT_LM_BATCH))
+    weights = sorted(n for n in params if n.endswith("_weight"))
+    steps = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        mod = mt.mod.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", (DEFAULT_LM_BATCH, T))],
+                 label_shapes=[("softmax_label", (DEFAULT_LM_BATCH, T))])
+        mod.init_params(arg_params=params)
+        torch.cuda.synchronize()
+        reset_launch_counts(ck)
+        mod.forward_backward(batch)
+        torch.cuda.synchronize()
+        steps[ctx.device_type] = (
+            float(mod.get_outputs()[0].asnumpy().mean()), launch_counts(ck),
+            {n: mod._exec.grad_dict[n]._data.cpu() for n in weights})
+        del mod
+    torch.cuda.empty_cache()
+    (loss, train_launches, grads), (ref_loss, cpu_launches, ref) = \
+        steps["gpu"], steps["cpu"]
+    for name in PACKED_KERNELS + DPA_KERNELS:
+        want = L if name in PACKED_KERNELS else 0
+        check(train_launches[name] == want and cpu_launches[name] == 0,
+              f"default LM step: {name} launched {train_launches[name]} "
+              f"times on the card ({cpu_launches[name]} on the CPU), "
+              f"expected {want}")
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
+          f"default LM step: loss {loss} on the card vs {ref_loss} on the "
+          f"CPU")
+    worst = 0.0
+    for n in weights:
+        tol = BWD_TOL["float32"] * max(1.0, ref[n].abs().max().item())
+        err = (grads[n] - ref[n]).abs().max().item()
+        check(bool(torch.isfinite(grads[n]).all()) and err <= tol,
+              f"default LM step: {n} gradient max_abs_err {err} over {tol} "
+              f"against the CPU step")
+        worst = max(worst, err / tol)
+    print(f"default LM step: loss {loss} (CPU {ref_loss}), weight "
+          f"gradients at {worst} of BWD_TOL")
+    return {"config": dict(cfg), "head_dim": dm // NH, "serving": serving,
+            "train_step": {"batch": DEFAULT_LM_BATCH, "seq_len": T,
+                           "loss": loss, "cpu_loss": ref_loss,
+                           "grad_err_over_tol_max": worst,
+                           "launches": train_launches},
+            "launches": {k: n + train_launches.get(k, 0)
+                         for k, n in launches.items()}}
 
 
 def imperative_check(torch, mt, ck):
@@ -2729,8 +2854,10 @@ def paths_timing(root, paths=True):
     """``python3 chip_smoke.py --paths ROOT``: the tensor-core kernels at
     their main-path shapes, in fp32 and bf16 — B1's forward at (1, 1024)
     and (8, 1024), B1's backward at (8, 1024), B5's forward (with B5's
-    backward) at ``PATH_MHA_SHAPES``, B9 at the ring's past hop, B6 at
-    LSTM-PTB's (60, 32, 200) and ``float64_check`` — then serving run A,
+    backward) at ``PATH_MHA_SHAPES``, B8 and B9 at the ring's past hop,
+    B6 at LSTM-PTB's (60, 32, 200), the four timed user kernels (B10's
+    port, per call and back to back) and ``float64_check`` — then
+    serving run A,
     the packed LM's training run, the DPA LM's, the sequence phase and
     LSTM-PTB, on the port under ROOT (a checkout, e.g. a parent
     commit unpacked beside this one), one JSON line each; ``--kernels
@@ -2750,9 +2877,13 @@ def paths_timing(root, paths=True):
 
     check(ck.__file__.startswith(root), f"imported {ck.__file__}, not "
           f"the port under {root}")
+    from mxnet_tpu_torch.examples import user_cuda_kernel as ex
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build()
+    gelu_kernels = register_user_gelu(torch, mt)
+    _build.build(sources=[(k.name, k.text, ()) for k in (
+        ex.register().kernel, ex.silu_grad, *gelu_kernels)])
     for dtype in ("float32", "bfloat16"):
         recs = [check_prefill(torch, ck, F, 1024, dtype, B=B)
                 for B in (1, TRAIN_BATCH)]
@@ -2765,6 +2896,8 @@ def paths_timing(root, paths=True):
         torch.cuda.empty_cache()
     rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
     print(json.dumps({"paths_timing": {"root": root, **rec}}))
+    for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0]:
+        print(json.dumps({"paths_timing": {"root": root, **rec}}))
     for rec in float64_check(torch, ck):
         print(json.dumps({"paths_timing": {"root": root, "float64": rec}}))
     torch.cuda.empty_cache()
@@ -2849,6 +2982,26 @@ def main():
         checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
                                    pool, rng))
         print(json.dumps({"check": checks[-1]}))
+    # head widths other than 64: B1's forward and backward and the paged
+    # kernels at each width of WIDTH_CASES, fp32 and bf16
+    for B, T, Hh, Dh in WIDTH_CASES:
+        wide = dict(H=Hh, D=Dh)
+        for dtype in ("float32", "bfloat16"):
+            width_checks = [
+                check_prefill(torch, ck, F, T, dtype, B=B, **wide),
+                *check_backward(torch, ck, F, B, T, dtype, **wide),
+                check_decode(torch, ck, F, 16, 64, dtype, rng, **wide),
+                check_decode_quant(torch, ck, tatt, F, 16, 64, dtype,
+                                   "int8" if dtype == "float32" else "fp8",
+                                   rng, **wide)]
+            for c in width_checks:
+                checks.append(c)
+                print(json.dumps({"check": c}))
+        for pool in ("float32", "bfloat16", "int8", "fp8"):
+            checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1,
+                                       64, pool, rng, **wide))
+            print(json.dumps({"check": checks[-1]}))
+        torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
         for c in [c for B, T in ((1, 128), (1, 1000), (1, 1024),
                                  (TRAIN_BATCH, 1024))
@@ -2902,6 +3055,9 @@ def main():
         print(json.dumps({f"serving_{run}": rec}))
     del dev_params
     torch.cuda.empty_cache()
+    default_lm = default_lm_path(torch, mt, ck)
+    print(json.dumps({"default_lm_path": default_lm}))
+    torch.cuda.empty_cache()
     train = train_path(torch, mt, ck)
     print(json.dumps({"train_path": train}))
     torch.cuda.empty_cache()
@@ -2920,16 +3076,17 @@ def main():
     ssd = ssd_path(torch, mt, ck)
     print(json.dumps({"ssd300_path": ssd}))
     torch.cuda.empty_cache()
-    earlier = [res, *runs.values(), train, dpa, lstm, ssd, example, gelu]
+    earlier = [res, *runs.values(), default_lm, train, dpa, lstm, ssd,
+               example, gelu]
     check(all(r["launches"].get(n, 0) == 0 for r in earlier
               for n in SEQ_KERNELS), "B8/B9 launched on an earlier path")
     sequence = sequence_path(torch, mt, ck)
     print(json.dumps({"sequence_path": sequence}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
-    # it; launches are summed over the serving runs, the training run,
-    # the DPA training run, the LSTM-PTB run, the SSD300 run and the
-    # sequence phase
+    # it; launches are summed over the serving runs, the default LM's
+    # serving and step, the training run, the DPA training run, the
+    # LSTM-PTB run, the SSD300 run and the sequence phase
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")

@@ -12,8 +12,11 @@
 //
 // * Eight warps; warp w takes pages w, w+8, ... (pages at or past
 //   ceil(len / KVB) are never read, slots at or past len inside the last
-//   page are masked); each lane holds D/32 lanes of q and of the
-//   accumulator.  Eight tokens are in flight per warp (independent loads
+//   page are masked); each lane holds DP/32 lanes of q and of the
+//   accumulator, DP the head-width bucket (32, 64, 96 or 128).  A head
+//   width below its bucket (Ragged) masks the lanes past D: they load
+//   nothing, hold zeros and are not stored.  At D = DP the lane count is a
+//   constant and the code is the unmasked one.  Eight tokens are in flight per warp (independent loads
 //   and butterfly reductions) before one online-softmax update.
 // * The eight warps' (m, l, acc) states merge through shared memory at
 //   the end; a warp that saw no page contributes nothing, and len == 0
@@ -38,10 +41,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace paged {
 
 constexpr int NW = 8;  // warps per block
 constexpr int U = 8;   // tokens in flight per warp
+constexpr int kMaxHeadDim = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -67,22 +73,24 @@ __device__ __forceinline__ float to_f32(unsigned char x) {
 
 // A reader gets each token-head row twice over: ``off``, the element
 // offset of this lane's first value (the decode kernel's addressing),
-// and ``r``, the row's index, which addresses its scale.
+// and ``r``, the row's index, which addresses its scale; ``n`` of this
+// lane's DPL values exist (DPL, a constant, unless the head is ragged),
+// the rest read as zero.
 template <typename TKV>
 struct RawPages {
   const TKV* __restrict__ k;
   const TKV* __restrict__ v;
   template <int DPL>
-  __device__ __forceinline__ void key(long off, long r,
+  __device__ __forceinline__ void key(long off, long r, int n,
                                       float (&x)[DPL]) const {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) x[i] = to_f32(k[off + i]);
+    for (int i = 0; i < DPL; ++i) x[i] = i < n ? to_f32(k[off + i]) : 0.f;
   }
   template <int DPL>
-  __device__ __forceinline__ void value(long off, long r,
+  __device__ __forceinline__ void value(long off, long r, int n,
                                         float (&x)[DPL]) const {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) x[i] = to_f32(v[off + i]);
+    for (int i = 0; i < DPL; ++i) x[i] = i < n ? to_f32(v[off + i]) : 0.f;
   }
 };
 
@@ -95,40 +103,46 @@ struct QuantPages {
   const float* __restrict__ ks;
   const float* __restrict__ vs;
   template <int DPL>
-  __device__ __forceinline__ void key(long off, long r,
+  __device__ __forceinline__ void key(long off, long r, int n,
                                       float (&x)[DPL]) const {
     const float sc = ks[r];
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) x[i] = to_f32(k[off + i]) * sc;
+    for (int i = 0; i < DPL; ++i)
+      x[i] = i < n ? to_f32(k[off + i]) * sc : 0.f;
   }
   template <int DPL>
-  __device__ __forceinline__ void value(long off, long r,
+  __device__ __forceinline__ void value(long off, long r, int n,
                                         float (&x)[DPL]) const {
     const float sc = vs[r];
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) x[i] = to_f32(v[off + i]) * sc;
+    for (int i = 0; i < DPL; ++i)
+      x[i] = i < n ? to_f32(v[off + i]) * sc : 0.f;
   }
 };
 
 // One block (NW warps): q row at position len-1 of head h against the
-// stream's first len tokens; writes D values at orow.
-template <typename TQ, int D, typename Pages>
+// stream's first len tokens; writes D values at orow.  DP: D's bucket;
+// Ragged: D < DP.
+template <typename TQ, int DP, bool Ragged, typename Pages>
 __device__ __forceinline__ void attend(const TQ* __restrict__ qrow,
                                        const Pages pages,
                                        const int* __restrict__ table_row,
-                                       int len, int h, int H, int KVB,
-                                       int MB, float scale,
+                                       int len, int h, int H, int D_,
+                                       int KVB, int MB, float scale,
                                        TQ* __restrict__ orow) {
-  constexpr int DPL = D / 32;  // head lanes per thread
+  constexpr int DPL = DP / 32;  // head lanes per thread
+  const int D = Ragged ? D_ : DP;  // a constant in the addressing at D = DP
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int npages = len > 0 ? min((len + KVB - 1) / KVB, MB) : 0;
+  // this lane's head lanes that exist
+  const int nv = Ragged ? max(0, min(DPL, D - lane * DPL)) : DPL;
 
   float qr[DPL];
   float acc[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) {
-    qr[i] = to_f32(qrow[lane * DPL + i]) * scale;
+    qr[i] = i < nv ? to_f32(qrow[lane * DPL + i]) * scale : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY;
@@ -148,7 +162,7 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ qrow,
         if (t0 + u < tmax) {
           float kx[DPL];
           pages.key(pbase + (long)(t0 + u) * tok_stride,
-                    rbase + (long)(t0 + u) * H, kx);
+                    rbase + (long)(t0 + u) * H, nv, kx);
 #pragma unroll
           for (int i = 0; i < DPL; ++i) d = fmaf(qr[i], kx[i], d);
         }
@@ -182,7 +196,7 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ qrow,
         if (t0 + u < tmax) {
           float vx[DPL];
           pages.value(pbase + (long)(t0 + u) * tok_stride,
-                      rbase + (long)(t0 + u) * H, vx);
+                      rbase + (long)(t0 + u) * H, nv, vx);
 #pragma unroll
           for (int i = 0; i < DPL; ++i) acc[i] = fmaf(s[u], vx[i], acc[i]);
         }
@@ -193,7 +207,7 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ qrow,
 
   __shared__ float sm_m[NW];
   __shared__ float sm_l[NW];
-  __shared__ float sm_acc[NW][D];
+  __shared__ float sm_acc[NW][DP];
   if (lane == 0) {
     sm_m[warp] = m;
     sm_l[warp] = l;
@@ -221,44 +235,71 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ qrow,
     const float inv = 1.f / fmaxf(L, 1e-30f);  // L == 0 -> zeros
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      orow[lane * DPL + i] = from_f32<TQ>(A[i] * inv);
+      if (i < nv) orow[lane * DPL + i] = from_f32<TQ>(A[i] * inv);
   }
 }
 
 // Decode: grid (B, H); block (b, h) attends lengths[b] tokens.  q may be
 // a strided view (the query third of the packed qkv): batch stride
 // q_batch_stride, head and lane strides D and 1.  out is (B, H, D).
-template <typename TQ, int D, typename Pages>
+template <typename TQ, int DP, bool Ragged, typename Pages>
 __global__ void __launch_bounds__(NW * 32)
 decode_kernel(const TQ* __restrict__ q, long q_batch_stride, Pages pages,
               const int* __restrict__ table,
               const int* __restrict__ lengths, TQ* __restrict__ out, int H,
-              int KVB, int MB, float scale) {
+              int D_, int KVB, int MB, float scale) {
   const int b = blockIdx.x;
   const int h = blockIdx.y;
-  attend<TQ, D>(q + (long)b * q_batch_stride + (long)h * D, pages,
-                table + (long)b * MB, lengths[b], h, H, KVB, MB, scale,
-                out + ((long)b * H + h) * D);
+  const int D = Ragged ? D_ : DP;
+  attend<TQ, DP, Ragged>(q + (long)b * q_batch_stride + (long)h * D, pages,
+                         table + (long)b * MB, lengths[b], h, H, D, KVB, MB,
+                         scale, out + ((long)b * H + h) * D);
 }
 
 // Verify: grid (B, H, W); block (b, h, w) attends start[b] + 1 + w
 // tokens (the diagonal mask k_pos < start + 1 + w).  q (B, W, H, D) may
 // be strided: batch and row strides given, head and lane strides D and
 // 1.  out is (B, W, H, D).
-template <typename TQ, int D, typename Pages>
+template <typename TQ, int DP, bool Ragged, typename Pages>
 __global__ void __launch_bounds__(NW * 32)
 verify_kernel(const TQ* __restrict__ q, long q_batch_stride,
               long q_row_stride, Pages pages,
               const int* __restrict__ table, const int* __restrict__ start,
-              TQ* __restrict__ out, int W, int H, int KVB, int MB,
+              TQ* __restrict__ out, int W, int H, int D_, int KVB, int MB,
               float scale) {
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int w = blockIdx.z;
-  attend<TQ, D>(q + (long)b * q_batch_stride + (long)w * q_row_stride +
-                    (long)h * D,
-                pages, table + (long)b * MB, start[b] + 1 + w, h, H, KVB,
-                MB, scale, out + (((long)b * W + w) * H + h) * D);
+  const int D = Ragged ? D_ : DP;
+  attend<TQ, DP, Ragged>(q + (long)b * q_batch_stride +
+                             (long)w * q_row_stride + (long)h * D,
+                         pages, table + (long)b * MB, start[b] + 1 + w, h, H,
+                         D, KVB, MB, scale,
+                         out + (((long)b * W + w) * H + h) * D);
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// launch(Int<DP>{}, std::bool_constant<Ragged>{}) for D's bucket: the
+// launchers' one dispatch on the head width, so the decode and verify
+// kernels run the same instantiation of attend at every D
+template <typename F>
+cudaError_t with_head_dim(int D, F&& launch) {
+  using std::false_type;
+  using std::true_type;
+  if (D < 1 || D > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (D <= 32)
+    return D == 32 ? launch(Int<32>{}, false_type{})
+                   : launch(Int<32>{}, true_type{});
+  if (D <= 64)
+    return D == 64 ? launch(Int<64>{}, false_type{})
+                   : launch(Int<64>{}, true_type{});
+  if (D <= 96)
+    return D == 96 ? launch(Int<96>{}, false_type{})
+                   : launch(Int<96>{}, true_type{});
+  return D == 128 ? launch(Int<128>{}, false_type{})
+                  : launch(Int<128>{}, true_type{});
 }
 
 }  // namespace paged

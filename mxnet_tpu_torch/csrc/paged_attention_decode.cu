@@ -22,8 +22,9 @@
 //   one online-softmax update; the warps' states merge at the end.
 // * q may be a strided view (the query third of the packed qkv): its batch
 //   stride is an argument, its head and lane strides are D and 1.
-// * Built for D = 64 (D/32 head lanes a thread), the head width served so
-//   far; another multiple of 32 is one more case in launch().
+// * Head widths up to 128 in buckets of 32, 64, 96 and 128 lanes (DP/32
+//   head lanes a thread; paged::with_head_dim): a width below its bucket
+//   masks the lanes past D.
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "paged_attention.cuh"
@@ -38,18 +39,14 @@ cudaError_t launch(const void* q, long qs, const void* kp, const void* vp,
   const float scale = 1.f / sqrtf((float)D);
   const TQ* qq = static_cast<const TQ*>(q);
   TQ* o = static_cast<TQ*>(out);
-  switch (D) {
-    case 64: {
-      const paged::RawPages<TKV> pages{static_cast<const TKV*>(kp),
-                                       static_cast<const TKV*>(vp)};
-      paged::decode_kernel<TQ, 64><<<grid, paged::NW * 32, 0, stream>>>(
-          qq, qs, pages, table, lengths, o, H, KVB, MB, scale);
-      break;
-    }
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const paged::RawPages<TKV> pages{static_cast<const TKV*>(kp),
+                                   static_cast<const TKV*>(vp)};
+  return paged::with_head_dim(D, [&](auto dp, auto ragged) {
+    paged::decode_kernel<TQ, decltype(dp)::value, decltype(ragged)::value>
+        <<<grid, paged::NW * 32, 0, stream>>>(qq, qs, pages, table, lengths,
+                                              o, H, D, KVB, MB, scale);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -16,7 +16,8 @@
 // (paged::attend) with the quantized page reader (paged::QuantPages), so
 // its arithmetic after the dequantization is the decode kernel's and the
 // verify kernel's quantized rows equal it bit for bit.  The scale is read
-// once per token, not per element.  Built for D = 64.
+// once per token, not per element.  Head widths up to 128, as the decode
+// kernel.
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "paged_attention.cuh"
@@ -32,18 +33,14 @@ cudaError_t launch(const void* q, long qs, const void* kp, const void* vp,
   const float scale = 1.f / sqrtf((float)D);
   const TQ* qq = static_cast<const TQ*>(q);
   TQ* o = static_cast<TQ*>(out);
-  switch (D) {
-    case 64: {
-      const paged::QuantPages<TC> pages{static_cast<const TC*>(kp),
-                                        static_cast<const TC*>(vp), ks, vs};
-      paged::decode_kernel<TQ, 64><<<grid, paged::NW * 32, 0, stream>>>(
-          qq, qs, pages, table, lengths, o, H, KVB, MB, scale);
-      break;
-    }
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const paged::QuantPages<TC> pages{static_cast<const TC*>(kp),
+                                    static_cast<const TC*>(vp), ks, vs};
+  return paged::with_head_dim(D, [&](auto dp, auto ragged) {
+    paged::decode_kernel<TQ, decltype(dp)::value, decltype(ragged)::value>
+        <<<grid, paged::NW * 32, 0, stream>>>(qq, qs, pages, table, lengths,
+                                              o, H, D, KVB, MB, scale);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace

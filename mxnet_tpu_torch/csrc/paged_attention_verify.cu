@@ -24,7 +24,9 @@
 // order equal to the decode step's.  q is a strided view of the packed
 // qkv (B, W, 3*H*D): batch and row strides are arguments, head and lane
 // strides D and 1.  Padded batch rows (start = 0) read their table's
-// first page and give finite values nobody uses.  Built for D = 64.
+// first page and give finite values nobody uses.  Head widths up to 128,
+// dispatched as the decode kernels (paged::with_head_dim), so a verify row
+// and the decode step run one instantiation of attend.
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "paged_attention.cuh"
@@ -34,42 +36,45 @@ namespace {
 template <typename TQ, typename Pages>
 cudaError_t launch(const void* q, long qbs, long qrs, const Pages& pages,
                    const int* table, const int* start, void* out, int B,
-                   int W, int H, int KVB, int MB, float scale,
+                   int W, int H, int D, int KVB, int MB, float scale,
                    cudaStream_t stream) {
   const dim3 grid(B, H, W);
-  paged::verify_kernel<TQ, 64><<<grid, paged::NW * 32, 0, stream>>>(
-      static_cast<const TQ*>(q), qbs, qrs, pages, table, start,
-      static_cast<TQ*>(out), W, H, KVB, MB, scale);
-  return cudaGetLastError();
+  return paged::with_head_dim(D, [&](auto dp, auto ragged) {
+    paged::verify_kernel<TQ, decltype(dp)::value, decltype(ragged)::value>
+        <<<grid, paged::NW * 32, 0, stream>>>(
+            static_cast<const TQ*>(q), qbs, qrs, pages, table, start,
+            static_cast<TQ*>(out), W, H, D, KVB, MB, scale);
+    return cudaGetLastError();
+  });
 }
 
 template <typename TQ, typename TKV>
 cudaError_t launch_raw(const void* q, long qbs, long qrs, const void* kp,
                        const void* vp, const int* table, const int* start,
-                       void* out, int B, int W, int H, int KVB, int MB,
-                       float scale, cudaStream_t stream) {
+                       void* out, int B, int W, int H, int D, int KVB,
+                       int MB, float scale, cudaStream_t stream) {
   const paged::RawPages<TKV> pages{static_cast<const TKV*>(kp),
                                    static_cast<const TKV*>(vp)};
-  return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, KVB, MB,
-                    scale, stream);
+  return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, D, KVB,
+                    MB, scale, stream);
 }
 
 template <typename TQ, typename TC>
 cudaError_t launch_quant(const void* q, long qbs, long qrs, const void* kp,
                          const void* vp, const void* ks, const void* vs,
                          const int* table, const int* start, void* out,
-                         int B, int W, int H, int KVB, int MB, float scale,
-                         cudaStream_t stream) {
+                         int B, int W, int H, int D, int KVB, int MB,
+                         float scale, cudaStream_t stream) {
   const paged::QuantPages<TC> pages{
       static_cast<const TC*>(kp), static_cast<const TC*>(vp),
       static_cast<const float*>(ks), static_cast<const float*>(vs)};
-  return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, KVB, MB,
-                    scale, stream);
+  return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, D, KVB,
+                    MB, scale, stream);
 }
 
 bool bad_shape(int B, int W, int H, int D, int KVB, int MB) {
   return B < 1 || W < 1 || H < 1 || KVB < 1 || MB < 1 || H > 65535 ||
-         W > 65535 || D != 64;
+         W > 65535 || D < 1 || D > paged::kMaxHeadDim;
 }
 
 }  // namespace
@@ -91,15 +96,15 @@ extern "C" int paged_attention_verify(const void* q, long q_batch_stride,
   if (q_dtype == 0 && kv_dtype == 0)
     return (int)launch_raw<float, float>(q, q_batch_stride, q_row_stride,
                                          k_pool, v_pool, t, st, out, B, W, H,
-                                         KVB, MB, scale, s);
+                                         D, KVB, MB, scale, s);
   if (q_dtype == 0 && kv_dtype == 1)
     return (int)launch_raw<float, __nv_bfloat16>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
-        KVB, MB, scale, s);
+        D, KVB, MB, scale, s);
   if (q_dtype == 1 && kv_dtype == 1)
     return (int)launch_raw<__nv_bfloat16, __nv_bfloat16>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
-        KVB, MB, scale, s);
+        D, KVB, MB, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -119,18 +124,18 @@ extern "C" int paged_attention_verify_quant(
   if (q_dtype == 0 && kv_code == 2)
     return (int)launch_quant<float, signed char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, scale, s);
   if (q_dtype == 0 && kv_code == 3)
     return (int)launch_quant<float, unsigned char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, scale, s);
   if (q_dtype == 1 && kv_code == 2)
     return (int)launch_quant<__nv_bfloat16, signed char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, scale, s);
   if (q_dtype == 1 && kv_code == 3)
     return (int)launch_quant<__nv_bfloat16, unsigned char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, scale, s);
   return (int)cudaErrorInvalidValue;
 }

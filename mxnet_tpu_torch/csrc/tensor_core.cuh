@@ -1,7 +1,7 @@
 // Tensor-core building blocks for the port's attention kernels on Hopper
-// (sm_90a): flash_mha_packed.cu and flash_mha_packed_bwd.cu (B1),
-// flash_mha.cu and flash_mha_bwd.cu (B5) and flash_attention_partial_bwd.cu
-// (B9).
+// (sm_90a): attention_fwd.cuh (the forward of B1, B5 and B8),
+// flash_mha_packed_bwd.cu (B1's backward), flash_mha_bwd.cu (B5's) and
+// flash_attention_partial_bwd.cu (B9).
 //
 // * mma.sync wrappers: m16n8k8 with TF32 operands and m16n8k16 with bf16
 //   operands, fp32 accumulators.  A warp owns a 16-row tile; the fragment

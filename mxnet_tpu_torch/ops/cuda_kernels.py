@@ -82,7 +82,7 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "paged_attention_verify", "paged_attention_verify_plain",
            "lstm_scan", "lstm_scan_plain", "LSTM_MAX_HIDDEN", "nms",
            "nms_plain", "LAUNCHES", "reset_launch_counts",
-           "SUPPORTED_HEAD_DIMS"]
+           "HEAD_DIM_BUCKETS"]
 
 LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "flash_mha_packed_bwd_dq": 0,
@@ -100,11 +100,11 @@ LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkv": 0}
 
-# head widths the packed and paged kernels are instantiated for
-SUPPORTED_HEAD_DIMS = (64,)
-# the widest head flash_mha's kernels take (csrc/flash_mha*.cu: D padded
-# to a bucket of 32, 64, 96 or 128 lanes)
-FLASH_MHA_MAX_HEAD_DIM = 128
+# the head-width buckets every attention kernel is instantiated for: a head
+# of width D runs the smallest bucket >= D, its lanes past D masked
+HEAD_DIM_BUCKETS = (32, 64, 96, 128)
+# the widest head the attention kernels take; a wider one raises
+FLASH_MHA_MAX_HEAD_DIM = HEAD_DIM_BUCKETS[-1]
 # the largest LSTM hidden size lstm_scan takes (its L2-streaming kernel:
 # one thread per hidden unit)
 LSTM_MAX_HIDDEN = 1024
@@ -133,6 +133,14 @@ def _check_launch(err: int, name: str) -> None:
     if err != 0:
         raise MXNetError(f"{name}: kernel launch failed with CUDA error "
                          f"{err} (cudaGetLastError)")
+
+
+def _check_head_dim(name: str, D: int) -> None:
+    """The attention kernels take head widths up to
+    ``FLASH_MHA_MAX_HEAD_DIM``, in ``HEAD_DIM_BUCKETS``."""
+    if D > FLASH_MHA_MAX_HEAD_DIM:
+        raise MXNetError(f"{name}: head dim {D} (the kernels take up to "
+                         f"FLASH_MHA_MAX_HEAD_DIM = {FLASH_MHA_MAX_HEAD_DIM})")
 
 
 def _route(name: str, *tensors: torch.Tensor) -> bool:
@@ -205,9 +213,7 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int,
     if qkv.dtype not in _DTYPE_CODE:
         raise MXNetError(f"flash_mha_packed: dtype {qkv.dtype} (the "
                          f"kernel takes float32 and bfloat16)")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise MXNetError(f"flash_mha_packed: head dim {D} (the kernel "
-                         f"is built for {SUPPORTED_HEAD_DIMS})")
+    _check_head_dim("flash_mha_packed", D)
     if not qkv.is_contiguous():
         raise MXNetError("flash_mha_packed: qkv must be contiguous")
     fn = _load("flash_mha_packed", "flash_mha_packed_fwd",
@@ -310,9 +316,7 @@ def flash_mha_packed_bwd(qkv: torch.Tensor, o: torch.Tensor,
                          f"bfloat16, one for both)")
     if lse.dtype != torch.float32:
         raise MXNetError("flash_mha_packed_bwd: lse must be float32")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise MXNetError(f"flash_mha_packed_bwd: head dim {D} (the "
-                         f"kernels are built for {SUPPORTED_HEAD_DIMS})")
+    _check_head_dim("flash_mha_packed_bwd", D)
     do = do.to(qkv.dtype).contiguous()
     for name, t in (("qkv", qkv), ("o", o), ("lse", lse)):
         if not t.is_contiguous():
@@ -328,8 +332,8 @@ def launch_flash_mha_packed_bwd(part: str, qkv, o, lse, do, dqkv,
                                 num_heads: int, causal: bool) -> None:
     """Launch one of the two backward kernels on inputs
     ``flash_mha_packed_bwd`` has checked (CUDA, contiguous, one dtype,
-    D = 64): ``part`` "dq" writes dqkv's first third, "dkv" the other
-    two.  Counts the launch."""
+    D up to ``FLASH_MHA_MAX_HEAD_DIM``): ``part`` "dq" writes dqkv's
+    first third, "dkv" the other two.  Counts the launch."""
     B, T, HD3 = qkv.shape
     H = int(num_heads)
     name = f"flash_mha_packed_bwd_{part}"
@@ -381,9 +385,7 @@ def _check_mha_launch(name: str, D: int, dtype, *tensors) -> None:
     if dtype not in _DTYPE_CODE:
         raise MXNetError(f"{name}: dtype {dtype} (the kernels take float32 "
                          f"and bfloat16)")
-    if D > FLASH_MHA_MAX_HEAD_DIM:
-        raise MXNetError(f"{name}: head dim {D} (the kernels take up to "
-                         f"FLASH_MHA_MAX_HEAD_DIM = {FLASH_MHA_MAX_HEAD_DIM})")
+    _check_head_dim(name, D)
     if any(t.stride(-1) != 1 for t in tensors):
         raise MXNetError(f"{name}: the head lanes (last axis) of q, k and v "
                          f"must be contiguous")
@@ -953,16 +955,15 @@ def _raw_pair(name, q, k_pool, v_pool):
 def _check_paged_launch(name, q, D, tensors, block_table, ints):
     """What every paged kernel needs of its CUDA inputs: q float32 or
     bfloat16 with head and lane strides D and 1, int32 table and
-    lengths/start, contiguous pools, scales and ints, D = 64."""
+    lengths/start, contiguous pools, scales and ints, D up to
+    ``FLASH_MHA_MAX_HEAD_DIM``."""
     if q.dtype not in _DTYPE_CODE:
         raise MXNetError(f"{name}: q {q.dtype} (the kernel takes float32 "
                          f"and bfloat16)")
     if block_table.dtype != torch.int32 or ints.dtype != torch.int32:
         raise MXNetError(f"{name}: the block table and the per-stream "
                          f"lengths/start must be int32")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise MXNetError(f"{name}: head dim {D} (the kernel is built for "
-                         f"{SUPPORTED_HEAD_DIMS})")
+    _check_head_dim(name, D)
     if q.stride(-1) != 1 or q.stride(-2) != D:
         raise MXNetError(f"{name}: q's head and lane strides must be D "
                          f"and 1")

@@ -49,26 +49,33 @@ __all__ = ["register_op", "cuda_kernel", "cuda_op", "LAUNCHES",
 
 LAUNCHES: Dict[str, int] = {}
 
-# appended to the user's source: one launcher with a plain C interface
-# (args is the array of pointers to each kernel argument that
-# cudaLaunchKernel takes)
+# the most arguments a user kernel takes (pointers and scalars together)
+MAX_KERNEL_ARGS = 256
+# appended to the user's source: one launcher with a plain C interface,
+# called with one array of 64-bit values: the grid and block dims, the
+# dynamic shared memory bytes, the stream, then the kernel's n arguments
+# in order, at which it points cudaLaunchKernel's argument array
 _LAUNCHER = """
 
 // ---- launcher generated by mxnet_tpu_torch.rtc for {kernel} ----
 #include <cuda_runtime.h>
-extern "C" int mxrtc_launch(void** args, unsigned int gx, unsigned int gy,
-                            unsigned int gz, unsigned int bx, unsigned int by,
-                            unsigned int bz, unsigned int smem,
-                            void* stream) {{
+extern "C" int mxrtc_launch(const long long* vals, int n) {{
+  void* args[{max_args}];
+  if (n < 0 || n > {max_args}) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) args[i] = const_cast<long long*>(vals + 8 + i);
   const void* fn = (const void*)({kernel});
+  const unsigned int smem = (unsigned int)vals[6];
   if (smem > 48u * 1024u) {{
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }}
-  cudaError_t err = cudaLaunchKernel(fn, dim3(gx, gy, gz), dim3(bx, by, bz),
-                                     args, (size_t)smem,
-                                     (cudaStream_t)stream);
+  const dim3 grid((unsigned int)vals[0], (unsigned int)vals[1],
+                  (unsigned int)vals[2]);
+  const dim3 block((unsigned int)vals[3], (unsigned int)vals[4],
+                   (unsigned int)vals[5]);
+  cudaError_t err = cudaLaunchKernel(fn, grid, block, args, (size_t)smem,
+                                     (cudaStream_t)vals[7]);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }}
@@ -77,8 +84,7 @@ extern "C" const char* mxrtc_error_string(int err) {{
 }}
 """
 _IDENT = re.compile(r"[A-Za-z_][A-Za-z0-9_]*$")
-_vp = ctypes.c_void_p
-_u = ctypes.c_uint
+_i64 = ctypes.c_longlong
 
 
 def reset_launch_counts() -> None:
@@ -209,15 +215,16 @@ def _dims(v, what: str) -> Tuple[int, int, int]:
     return dims + (1,) * (3 - len(dims))
 
 
-def _pack_args(pointers: Sequence[int], scalars: Sequence[int]):
-    """The ``void** args`` of ``cudaLaunchKernel``: one 64-bit slot per
-    pointer (``c_void_p``) and per scalar (``c_longlong``), and an array
-    of their addresses.  Returns (array, slots): keep the slots alive
-    until the launch returns."""
-    slots = [_vp(p) for p in pointers] + [ctypes.c_longlong(int(s))
-                                          for s in scalars]
-    arr = (_vp * len(slots))(*[ctypes.addressof(s) for s in slots])
-    return arr, slots
+def _pack_args(head: Sequence[int], pointers: Sequence[int],
+               scalars: Sequence[int]):
+    """One launch as one array of 64-bit values: ``head`` (grid and
+    block dims, dynamic shared memory bytes, the stream), then the
+    kernel's arguments, the pointers and then the scalars, at whose
+    slots the generated launcher points ``cudaLaunchKernel``'s ``void**
+    args``.  One array a call, so calls from several threads share
+    nothing."""
+    vals = [*head, *pointers, *scalars]
+    return (_i64 * len(vals))(*vals)
 
 
 def _out_specs(spec) -> Tuple[list, bool]:
@@ -249,6 +256,15 @@ class cuda_kernel:
     0's n elements), a tuple, or a callable of the inputs; ``block``: an
     int or a 3-tuple; ``shared_mem``: dynamic shared memory bytes.
 
+    What those callables give is fixed by the inputs' shapes, dtype and
+    device, as ``pallas_op``'s ``out_like`` and ``grid`` see shapes only
+    at trace time: each of ``out_like``, ``grid`` and ``scalars`` is
+    called once per (shapes, dtype, device) key, and later calls with
+    the same key reuse the output specs, launch dims and scalars
+    (``plan``).  A launch packs its dims, stream, pointers and scalars
+    into one array for the generated launcher; the device's context is
+    entered only when the inputs' device is not the current one.
+
     A CPU tensor goes to ``plain(*inputs)``, which must give what
     ``out_like`` says; a CUDA tensor builds the source at the first call
     (``nvcc``; a failure raises with the compiler's output) and launches
@@ -273,13 +289,15 @@ class cuda_kernel:
         if not callable(out_like) and not isinstance(out_like, int):
             raise MXNetError("out_like: an input index or a callable")
         self.kernel = kernel
-        self.text = source + _LAUNCHER.format(kernel=kernel)
+        self.text = source + _LAUNCHER.format(kernel=kernel,
+                                              max_args=MAX_KERNEL_ARGS)
         self.out_like, self.grid, self.scalars = out_like, grid, scalars
         self.block = _dims(block, "block")
         self.shared_mem = int(shared_mem)
         self.plain = plain
         self.dtype = torch_dtype(dtype)
         self._lib = self._entry = None
+        self._plans: Dict[tuple, tuple] = {}
         LAUNCHES.setdefault(self.name, 0)
 
     def __repr__(self):
@@ -310,6 +328,32 @@ class cuda_kernel:
             return None
         return grid, self.block
 
+    def plan(self, inputs, dev: torch.device) -> tuple:
+        """(output specs, single, launch dims, scalars) for inputs of
+        these shapes on ``dev``, computed at a key's first call and
+        cached.  The dims are (gx, gy, gz, bx, by, bz, shared memory
+        bytes), None when every output is empty; on the CPU dims and
+        scalars are None."""
+        key = (tuple(t.shape for t in inputs), self.dtype, dev)
+        plan = self._plans.get(key)
+        if plan is None:
+            specs, single = self.output_specs(inputs)
+            dims = scal = None
+            if dev.type == "cuda":
+                dims = self.launch_dims(inputs, specs)
+                if dims is not None:
+                    scal = tuple(self.scalars(*inputs)) \
+                        if self.scalars is not None \
+                        else (math.prod(specs[0][0]),)
+                    n = len(inputs) + len(specs) + len(scal)
+                    if n > MAX_KERNEL_ARGS:
+                        raise MXNetError(
+                            f"{self.name}: {n} kernel arguments (the "
+                            f"launcher takes up to {MAX_KERNEL_ARGS})")
+                    dims = (*dims[0], *dims[1], self.shared_mem)
+            plan = self._plans[key] = (specs, single, dims, scal)
+        return plan
+
     def _check_inputs(self, inputs) -> torch.device:
         if not inputs:
             raise MXNetError(f"{self.name}: takes at least one input tensor")
@@ -333,7 +377,9 @@ class cuda_kernel:
 
     def __call__(self, *inputs: torch.Tensor):
         dev = self._check_inputs(inputs)
-        specs, single = self.output_specs(inputs)
+        if dev.type not in ("cpu", "cuda"):
+            raise MXNetError(f"{self.name}: no kernel for device {dev}")
+        specs, single, dims, scal = self.plan(inputs, dev)
         if dev.type == "cpu":
             if self.plain is None:
                 raise MXNetError(
@@ -347,22 +393,18 @@ class cuda_kernel:
                 raise MXNetError(f"{self.name}: plain version gave {got}, "
                                  f"out_like says {specs}")
             return out
-        if dev.type != "cuda":
-            raise MXNetError(f"{self.name}: no kernel for device {dev}")
         outs = [torch.empty(s, dtype=dt, device=dev) for s, dt in specs]
-        dims = self.launch_dims(inputs, specs)
         if dims is None:  # every output empty: nothing to compute
             return outs[0] if single else tuple(outs)
-        grid, block = dims
-        scal = self.scalars(*inputs) if self.scalars is not None \
-            else (outs[0].numel(),)
         xs = [t.contiguous() for t in inputs]
-        args, slots = _pack_args([t.data_ptr() for t in xs + outs], scal)
+        ptrs = [t.data_ptr() for t in xs + outs]
         entry = self._load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = entry(args, *grid, *block, self.shared_mem, stream)
-        del slots, xs
+        if dev.index == torch.cuda.current_device():
+            err = self._launch(entry, dims, ptrs, scal, dev.index)
+        else:
+            with torch.cuda.device(dev):
+                err = self._launch(entry, dims, ptrs, scal, dev.index)
+        del xs
         if err != 0:
             msg = self._lib.mxrtc_error_string(err).decode()
             raise MXNetError(f"{self.name}: kernel launch failed with CUDA "
@@ -370,11 +412,19 @@ class cuda_kernel:
         LAUNCHES[self.name] += 1
         return outs[0] if single else tuple(outs)
 
+    @staticmethod
+    def _launch(entry, dims, ptrs, scal, index) -> int:
+        """One launch on the device's current stream (its raw handle,
+        without a ``torch.cuda.Stream`` object a call)."""
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        args = _pack_args((*dims, stream), ptrs, scal)
+        return entry(args, len(ptrs) + len(scal))
+
     def _load(self):
         if self._entry is None:
             lib = _build.library_for_source(self.name, self.text)
             entry = lib.mxrtc_launch
-            entry.argtypes = [_vp] + [_u] * 7 + [_vp]
+            entry.argtypes = [ctypes.POINTER(_i64), ctypes.c_int]
             entry.restype = ctypes.c_int
             lib.mxrtc_error_string.argtypes = [ctypes.c_int]
             lib.mxrtc_error_string.restype = ctypes.c_char_p

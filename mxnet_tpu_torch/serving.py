@@ -773,9 +773,11 @@ class DecodeEngine:
         if s.blocks:
             self._alloc.free(s.blocks)
             s.blocks = []
+        # counted before the result is set: a caller that reads stats()
+        # once its last future resolves sees every generation
+        self._metrics.inc("generations")
         if s.future.set_running_or_notify_cancel():
             s.future.set_result(np.asarray(s.generated, np.int32))
-        self._metrics.inc("generations")
 
     def _step(self):
         """One scheduling step: with speculation on, ask the proposer for

@@ -41,6 +41,22 @@ def fake(tmp_path, monkeypatch):
     return record, csrc
 
 
+def _with_headers(csrc, name):
+    """The text of ``csrc/<name>.cu`` and of every ``csrc/`` header it
+    includes, directly or through another header."""
+    text = (csrc / f"{name}.cu").read_text()
+    seen = []
+    todo = re.findall(r'#include "([^"]+)"', text)
+    while todo:
+        hdr = todo.pop()
+        if hdr not in seen:
+            seen.append(hdr)
+            body = (csrc / hdr).read_text()
+            text += body
+            todo += re.findall(r'#include "([^"]+)"', body)
+    return text, seen
+
+
 def test_build_all_kernels_once_with_sm90a_flags(fake):
     record, _ = fake
     assert "flash_mha_packed_bwd" in _build.SOURCES  # the backward kernels
@@ -96,16 +112,17 @@ def test_edited_shared_header_rebuilds_every_paged_kernel(fake):
 
 
 def test_edited_tensor_core_header_rebuilds_exactly_its_kernels(fake):
-    """B1's forward and backward, B5's forward and backward and B9 share
-    csrc/tensor_core.cuh: editing it gives exactly those five libraries
-    new names; editing the paged header leaves them as they were.  A
-    header is hashed only into the sources that include it."""
+    """B1's forward and backward, B5's forward and backward, B8 and B9
+    share csrc/tensor_core.cuh: editing it gives exactly those six
+    libraries new names; editing the paged header leaves them as they
+    were.  A header is hashed only into the sources that include it."""
     _, csrc = fake
     users = ["flash_mha_packed", "flash_mha_packed_bwd", "flash_mha",
-             "flash_mha_bwd", "flash_attention_partial_bwd"]
+             "flash_mha_bwd", "flash_attention_partial",
+             "flash_attention_partial_bwd"]
     for name in _build.SOURCES:
-        text = (csrc / f"{name}.cu").read_text()
-        assert ('#include "tensor_core.cuh"' in text) == (name in users)
+        headers = _with_headers(csrc, name)[1]
+        assert ("tensor_core.cuh" in headers) == (name in users)
     before = {n: _build._target(n) for n in _build.SOURCES}
     hdr = csrc / "tensor_core.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
@@ -118,6 +135,25 @@ def test_edited_tensor_core_header_rebuilds_exactly_its_kernels(fake):
     paged.write_text(paged.read_text() + "\n// edited\n")
     again = {n: _build._target(n) for n in _build.SOURCES}
     assert all(again[n] == after[n] for n in users)
+
+
+def test_edited_forward_header_rebuilds_exactly_the_three_forwards(fake):
+    """B1's forward, B5's forward and B8 run one body,
+    csrc/attention_fwd.cuh (which includes tensor_core.cuh): editing it
+    gives exactly those three libraries new names."""
+    _, csrc = fake
+    users = ["flash_mha_packed", "flash_mha", "flash_attention_partial"]
+    for name in _build.SOURCES:
+        text = (csrc / f"{name}.cu").read_text()
+        assert ('#include "attention_fwd.cuh"' in text) == (name in users)
+        if name in users:  # one body: no kernel code of their own
+            assert "exp2f" not in text and "cp_async" not in text
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    hdr = csrc / "attention_fwd.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == users
+    assert all(t > 0 for t in _build.build(users).values())
 
 
 def test_failed_compile_raises_with_compiler_output(fake):
@@ -223,7 +259,7 @@ def test_no_code_path_catches_a_failed_launch():
 
 @pytest.mark.parametrize("source,entries,loads,headers", [
     ("flash_mha", ("flash_mha_fwd", "flash_mha_smem_bytes"),
-     ('_load("flash_mha", "flash_mha_fwd"',), ["tensor_core.cuh"]),
+     ('_load("flash_mha", "flash_mha_fwd"',), ["attention_fwd.cuh"]),
     ("flash_mha_bwd", ("flash_mha_bwd_dq", "flash_mha_bwd_dkv",
                        "flash_mha_bwd_smem_bytes"),
      ('name = f"flash_mha_bwd_{part}"', '_load("flash_mha_bwd", name'),
@@ -232,7 +268,8 @@ def test_no_code_path_catches_a_failed_launch():
 def test_flash_mha_sources_export_the_wrappers_entry_points(
         fake, source, entries, loads, headers):
     """csrc/flash_mha.cu and flash_mha_bwd.cu (both on the tensor cores,
-    through the shared tensor_core.cuh) export the C entry points
+    through the shared tensor_core.cuh; the forward through the forward
+    body attention_fwd.cuh) export the C entry points
     ``ops.cuda_kernels`` loads, and their dynamic shared-memory queries
     for chip_smoke.py's resource report; both return
     cudaGetLastError() and take head widths up to the wrappers' limit;
@@ -245,8 +282,9 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
     assert source in _build.SOURCES
     src = (csrc / f"{source}.cu").read_text()
     assert re.findall(r'#include "([^"]+)"', src) == headers
-    assert "return cudaGetLastError();" in src
-    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in src
+    text = _with_headers(csrc, source)[0]
+    assert "return cudaGetLastError();" in text
+    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in text
     wrappers = inspect.getsource(ck)
     assert all(text in wrappers for text in loads)
     for entry in entries:
@@ -262,28 +300,32 @@ def test_flash_mha_sources_export_the_wrappers_entry_points(
 
 @pytest.mark.parametrize("source,entries,smem", [
     ("flash_mha_packed", ("flash_mha_packed_fwd",),
-     "flash_mha_packed_smem_bytes(int dtype)"),
+     "flash_mha_packed_smem_bytes(int D, int dtype)"),
     ("flash_mha_packed_bwd",
      ("flash_mha_packed_bwd_dq", "flash_mha_packed_bwd_dkv"),
-     "flash_mha_packed_bwd_smem_bytes(int which, int dtype)"),
+     "flash_mha_packed_bwd_smem_bytes(int which, int D, int dtype)"),
 ])
 def test_packed_sources_export_entry_points_and_shared_memory_queries(
         fake, source, entries, smem):
     """B1's forward and backward sources include only the tensor-core
-    header, are built for the head widths the wrappers accept, export
-    the C entry points ``ops.cuda_kernels`` loads and the dynamic
-    shared-memory query chip_smoke.py's resource report calls, and
-    return cudaGetLastError() after each launch."""
+    header, are built for the head widths the wrappers accept (up to
+    ``FLASH_MHA_MAX_HEAD_DIM``, ``test_sources_instantiate_every_head_
+    dim_bucket``), export the C entry points ``ops.cuda_kernels`` loads
+    and the dynamic shared-memory query chip_smoke.py's resource report
+    calls, and return cudaGetLastError() after each launch."""
     import inspect
 
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
     _, csrc = fake
     src = (csrc / f"{source}.cu").read_text()
-    assert re.findall(r'#include "([^"]+)"', src) == ["tensor_core.cuh"]
-    assert ck.SUPPORTED_HEAD_DIMS == (64,)
-    assert "constexpr int D = 64;" in src
-    assert "return cudaGetLastError();" in src
+    text, headers = _with_headers(csrc, source)
+    assert headers[-1] == "tensor_core.cuh"  # directly or through the
+    assert len(headers) <= 2                 # forward body's header
+    assert ck.HEAD_DIM_BUCKETS[-1] == ck.FLASH_MHA_MAX_HEAD_DIM
+    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM};" in text
+    assert "constexpr int D = 64;" not in text
+    assert "return cudaGetLastError();" in text
     assert f'extern "C" int {smem}' in src
     wrappers = inspect.getsource(ck)
     for entry in entries:
@@ -303,8 +345,9 @@ def test_packed_sources_export_entry_points_and_shared_memory_queries(
 ])
 def test_flash_attention_partial_sources_export_the_wrappers_entry_points(
         fake, source, entries, loads):
-    """csrc/flash_attention_partial.cu stands alone and its backward
-    includes only the shared tensor-core header; both export the C entry
+    """csrc/flash_attention_partial.cu (through the forward body,
+    attention_fwd.cuh) and its backward include the shared tensor-core
+    header; both export the C entry
     points ``ops.cuda_kernels`` loads, take the key offset as an int
     argument, return cudaGetLastError() and take head widths up to the
     wrappers' limit; each counts its launches, and editing one rebuilds
@@ -316,13 +359,10 @@ def test_flash_attention_partial_sources_export_the_wrappers_entry_points(
     _, csrc = fake
     assert source in _build.SOURCES
     src = (csrc / f"{source}.cu").read_text()
-    if source == "flash_attention_partial_bwd":
-        assert '#include "tensor_core.cuh"' in src
-        assert re.findall(r'#include "([^"]+)"', src) == ["tensor_core.cuh"]
-    else:
-        assert ".cuh" not in src
-    assert "return cudaGetLastError();" in src
-    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in src
+    text, headers = _with_headers(csrc, source)
+    assert headers[-1] == "tensor_core.cuh"
+    assert "return cudaGetLastError();" in text
+    assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM}" in text
     assert "int kv_offset" in src
     wrappers = inspect.getsource(ck)
     assert all(text in wrappers for text in loads)
@@ -336,6 +376,44 @@ def test_flash_attention_partial_sources_export_the_wrappers_entry_points(
     after = {n: _build._target(n) for n in _build.SOURCES}
     assert [n for n in _build.SOURCES if after[n] != before[n]] == [source]
     assert _build.build([source])[source] > 0
+
+
+@pytest.mark.parametrize("dp", (32, 64, 96, 128))
+@pytest.mark.parametrize("source", [
+    "flash_mha_packed", "flash_mha_packed_bwd", "flash_mha", "flash_mha_bwd",
+    "flash_attention_partial", "flash_attention_partial_bwd",
+    "paged_attention_decode", "paged_attention_decode_quant",
+    "paged_attention_verify"])
+def test_sources_instantiate_every_head_dim_bucket(source, dp):
+    """Every attention kernel dispatches each head width up to
+    ``FLASH_MHA_MAX_HEAD_DIM`` to a bucket of ``HEAD_DIM_BUCKETS``: the
+    tensor-core kernels through ``launch_dp<T, DP>`` (``D <= DP``), the
+    paged kernels through ``paged::with_head_dim`` (``Int<DP>``, the
+    exact width unmasked, a narrower one Ragged), which every paged
+    launcher calls, so a verify row and the decode step run one
+    instantiation of their shared body."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    assert dp in ck.HEAD_DIM_BUCKETS
+    src = (_build._CSRC / f"{source}.cu").read_text()
+    if source.startswith("paged_attention"):
+        hdr = (_build._CSRC / "paged_attention.cuh").read_text()
+        assert f"kMaxHeadDim = {ck.FLASH_MHA_MAX_HEAD_DIM};" in hdr
+        assert f"D == {dp} ? launch(Int<{dp}>{{}}, false_type{{}})" in hdr
+        assert f"launch(Int<{dp}>{{}}, true_type{{}})" in hdr
+        assert "paged::with_head_dim(D, [&](auto dp, auto ragged)" in src
+        assert "case 64" not in src and "D != 64" not in src
+    else:
+        flat = " ".join(src.split())
+        call = f"launch_dp<T, {dp}"
+        if dp < ck.FLASH_MHA_MAX_HEAD_DIM:
+            assert any(f"if ({d} <= {dp}) return {p}{call}" in flat
+                       for d in ("D", "a.D") for p in ("", "fwd::")), \
+                f"{source}: no launch_dp<T, {dp}> for its bucket"
+        else:
+            assert call in flat
+        text = _with_headers(_build._CSRC, source)[0]
+        assert f"Cfg<T, {dp}>::" in text  # its shared-memory query
 
 
 USER_SOURCE = "__global__ void k(const float* x, float* y, long long n) {}\n"

@@ -438,17 +438,73 @@ def test_kernel_with_several_outputs_on_the_plain_route():
 
 
 def test_launch_arguments_keep_64_bit_pointers_and_scalars():
-    """``void** args`` slots hold full 64-bit values: a pointer above
-    4 GiB and a scalar above 2**32 read back unchanged (ctypes' default
-    int would cut both to 32 bits)."""
+    """The one array of a launch holds full 64-bit values: the grid and
+    block dims, the shared memory bytes and the stream, then the
+    pointers and the scalars in order.  A pointer above 4 GiB and a
+    scalar above 2**32 read back unchanged from the slots the generated
+    launcher points ``cudaLaunchKernel`` at (ctypes' default int would
+    cut both to 32 bits)."""
+    head = (3, 2, 1, 128, 1, 1, 0, 0x5555_0000_1234)
     ptrs = [0x7F12_3456_7890, 0x10_0000_0040]
     scalars = [2 ** 40 + 3, 7]
-    arr, slots = rtc._pack_args(ptrs, scalars)
-    assert len(arr) == len(slots) == 4
-    for i, p in enumerate(ptrs):
-        assert ctypes.c_void_p.from_address(arr[i]).value == p
-    for i, v in enumerate(scalars):
-        assert ctypes.c_longlong.from_address(arr[2 + i]).value == v
+    arr = rtc._pack_args(head, ptrs, scalars)
+    assert len(arr) == 12 and ctypes.sizeof(arr) == 12 * 8
+    base = ctypes.addressof(arr)
+    for i, v in enumerate([*head, *ptrs, *scalars]):
+        assert ctypes.c_void_p.from_address(base + 8 * i).value == (v or None)
+        assert arr[i] == v
+    # each call packs its own array: nothing is shared between threads
+    assert ctypes.addressof(rtc._pack_args(head, ptrs, scalars)) != base
+    # the launcher reads the head, then points args[i] at slot 8 + i
+    k = rtc.cuda_kernel(ex.SILU_SOURCE, "user_silu", name=_unique("args"))
+    assert "args[i] = const_cast<long long*>(vals + 8 + i);" in k.text
+    assert "(cudaStream_t)vals[7]" in k.text
+
+
+def test_launch_plan_is_cached_per_shape_dtype_and_device():
+    """``out_like``, ``grid`` and ``scalars`` are called once per
+    (shapes, dtype, device) key: a second call with the same shapes
+    reuses the cached output specs, launch dims and scalars; new shapes
+    rebuild them.  The CPU key computes specs only (the plain route
+    launches nothing)."""
+    calls = {"out_like": 0, "grid": 0, "scalars": 0}
+
+    def counted(what, fn):
+        def f(*xs):
+            calls[what] += 1
+            return fn(*xs)
+        return f
+
+    k = rtc.cuda_kernel(
+        ex.SILU_SOURCE, "user_silu", name=_unique("plan"), block=128,
+        out_like=counted("out_like", lambda x: (x.shape, x.dtype)),
+        grid=counted("grid", lambda x: (x.shape[0], 2)),
+        scalars=counted("scalars", lambda x: (x.numel(), x.shape[-1])),
+        plain=lambda x: x * 2)
+    cuda = torch.device("cuda", 0)
+    x = torch.zeros(6, 5)
+    plan = k.plan([x], cuda)
+    f32 = torch.float32
+    assert plan == ([((6, 5), f32)], True, (6, 2, 1, 128, 1, 1, 0), (30, 5))
+    assert k.plan([torch.ones(6, 5)], cuda) is plan
+    assert calls == {"out_like": 1, "grid": 1, "scalars": 1}
+    again = k.plan([torch.zeros(3, 7)], cuda)
+    assert again == ([((3, 7), f32)], True, (3, 2, 1, 128, 1, 1, 0),
+                     (21, 7))
+    assert calls == {"out_like": 2, "grid": 2, "scalars": 2}
+    cpu = k.plan([x], torch.device("cpu"))
+    assert cpu == ([((6, 5), f32)], True, None, None)
+    assert calls == {"out_like": 3, "grid": 2, "scalars": 2}
+    k(x)
+    k(torch.ones(6, 5))
+    assert calls["out_like"] == 3  # the CPU calls reuse the CPU key
+    assert rtc.LAUNCHES[k.name] == 0
+    # the default scalar is output 0's element count, packed after the
+    # pointers; the dims end with the dynamic shared memory bytes
+    d = rtc.cuda_kernel(ex.SILU_SOURCE, "user_silu", name=_unique("plan"),
+                        shared_mem=4096)
+    assert d.plan([torch.zeros(1000)], cuda) == (
+        [((1000,), f32)], True, (4, 1, 1, 256, 1, 1, 4096), (1000,))
 
 
 def test_launch_dims_default_tuple_and_callable():

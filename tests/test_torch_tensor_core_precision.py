@@ -2,7 +2,8 @@
 
 ``csrc/flash_mha_packed.cu`` and ``csrc/flash_mha_packed_bwd.cu`` (B1's
 forward and backward), ``csrc/flash_mha.cu`` and
-``csrc/flash_mha_bwd.cu`` (B5's forward and backward) and
+``csrc/flash_mha_bwd.cu`` (B5's forward and backward),
+``csrc/flash_attention_partial.cu`` (B8) and
 ``csrc/flash_attention_partial_bwd.cu`` (B9) run every product on the
 H100's tensor cores (``csrc/tensor_core.cuh``). fp32 operands go in as
 split TF32: ``big = tf32(x)``, ``small = tf32(x - big)``, each rounded
@@ -11,24 +12,26 @@ mantissa bits), and a product is ``big.small + small.big + big.big``
 accumulated in fp32. A bf16 operand is exact in TF32, so a product of an
 fp32 operand with a bf16 one needs two. bf16 products run on bf16 tensor
 cores, which multiply exactly and accumulate in fp32. P is rounded to
-bf16 before the bf16 P.V of B1's and B5's forward and before B1's and
-B5's backward's P^T.dO; B9 keeps P in fp32; the backwards round dS to
+bf16 before the bf16 P.V of B1's, B5's and B8's forward and before B1's
+and B5's backward's P^T.dO; B9 keeps P in fp32; the backwards round dS to
 the input dtype before dS.K and dS^T.q, as the TPU kernels do.
 
 This file emulates those products in torch on the CPU (fp32 matmuls over
 TF32-valued operands, whose products are exact in fp32) at B1's prefill
 and training shape (1, 1024, 12 heads, 64, causal), at B5's head width
 128 and a Tq != Tk causal case (256 queries, 1024 keys), forward and
-backward, and at a (1, 12, 512, 512, 64) ring hop of B9, from seeded
-numpy inputs, and holds the result against the plain versions
+backward, and at a (1, 12, 512, 512, 64) ring hop of B8 and B9, from
+seeded numpy inputs, and holds the result against the plain versions
 ``flash_mha_packed_plain``, ``flash_mha_packed_bwd_plain``,
-``flash_mha_plain``, ``flash_mha_bwd_plain`` and
-``flash_attention_bwd_plain`` with ``chip_smoke.py``'s tolerances: the
+``flash_mha_plain``, ``flash_mha_bwd_plain``,
+``flash_attention_partial_plain`` and ``flash_attention_bwd_plain`` with
+``chip_smoke.py``'s tolerances: the
 split scheme lands within half of ``TOL["float32"]`` and of ``BWD_TOL``;
 one TF32 product alone does not land within them. B1's and B5's bf16
 backward, with P and dS rounded, are also held against the JAX package's
 ``flash_mha_packed`` and ``flash_mha`` backward (``jax.vjp`` through its
-Pallas kernels in interpret mode). The emulation takes the softmax over
+Pallas kernels in interpret mode), and B8's bf16 state against the JAX
+``flash_attention_partial`` (its Pallas kernel in interpret mode). The emulation takes the softmax over
 whole rows; the kernels' online softmax over key tiles rescales the same
 products.
 """
@@ -183,6 +186,99 @@ def b5_backward(q, k, v, o, lse, do, causal, mm):
     dk = prod(ds.transpose(-1, -2), qf) * scale
     dv = prod(rnd(p).transpose(-1, -2), dof)
     return tuple(g.to(dt) for g in (dq, dk, dv))
+
+
+def b8_forward(q, k, v, koff, mm):
+    """B8 (causal, key offset koff) on BTHD tensors with the products of
+    ``mm`` and the rounding of q's dtype → the un-normalized state (o
+    (B, H, Tq, D), m (B, H, Tq) natural units, l (B, H, Tq)), float32;
+    a row that sees no key: m = -inf, l = 0, o = 0."""
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[3]
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # BHTD
+    prod = (lambda a, b: a @ b) if bf16 else mm
+    s = prod(qf, kf.transpose(-1, -2)) * (LOG2E / math.sqrt(D))
+    mask = (torch.arange(Tk) + koff)[None, :] <= torch.arange(Tq)[:, None]
+    s = torch.where(mask, s, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0))
+    l = p.sum(-1)
+    o = p.to(torch.bfloat16).float() @ vf if bf16 else mm(p, vf)
+    return o, m[..., 0] * math.log(2.0), l
+
+
+def _b8_errors(got, ref):
+    """chip_smoke.check_partial's measures: the rows that see no key
+    hold exactly the plain state (m = -inf, l = 0, o = 0); m's error
+    and l's relative error over the others; o / l's max error."""
+    (o, m, l), (po, pm, pl) = got, ref
+    empty = torch.isinf(pm)
+    assert torch.equal(torch.isinf(m), empty)
+    assert not o[empty].any() and not l[empty].any()
+    seen = ~empty
+    m_err = (m[seen] - pm[seen]).abs().max().item()
+    l_err = ((l[seen] - pl[seen]).abs() / pl[seen]).max().item()
+    norm = (o / l.clamp(min=1e-30)[..., None]
+            - po / pl.clamp(min=1e-30)[..., None]).abs().max().item()
+    return norm, m_err, l_err, int(empty.sum())
+
+
+def _b8_inputs(dtype, seed=13):
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    return tuple(randn(rng, 1, 512, 12, 64).to(dt) for _ in range(3))
+
+
+# the past hop (nothing masked), the diagonal, and a hop whose first 128
+# rows see no key
+B8_OFFSETS = (-512, 0, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("koff", B8_OFFSETS)
+def test_b8_split_tf32_within_half_the_tolerance(dtype, koff):
+    """B8 at a (1, 12, 512, 512, 64) ring hop: fp32 split TF32 within
+    TOL/2 of ``flash_attention_partial_plain`` on o / l, m within the
+    check's 1e-4 and l within its 1e-5 relative; bf16 with P rounded
+    before P.V within the chip's bf16 TOL; the empty rows exact."""
+    q, k, v = _b8_inputs(dtype)
+    ref = ck.flash_attention_partial_plain(q, k, v, True, 512, koff)
+    norm, m_err, l_err, empty = _b8_errors(b8_forward(q, k, v, koff,
+                                                      mm_split), ref)
+    assert empty == (12 * koff if koff > 0 else 0)
+    limit = TOL[dtype] / 2 if dtype == "float32" else TOL[dtype]
+    assert norm <= limit and m_err <= 1e-4 and l_err <= 1e-5, \
+        (dtype, koff, norm, m_err, l_err)
+
+
+def test_b8_one_tf32_product_misses_the_tolerance():
+    """One TF32 product for Q.K^T and one for P.V at the past hop: o / l
+    misses TOL["float32"], which is why the fp32 path splits."""
+    q, k, v = _b8_inputs("float32")
+    ref = ck.flash_attention_partial_plain(q, k, v, True, 512, -512)
+    norm, _, _, _ = _b8_errors(b8_forward(q, k, v, -512, mm_tf32), ref)
+    assert norm > TOL["float32"], norm
+
+
+@pytest.mark.parametrize("koff", B8_OFFSETS)
+def test_b8_bf16_state_against_the_jax_reference(monkeypatch, koff):
+    """The JAX package's bf16 ``flash_attention_partial`` (its Pallas
+    kernel in interpret mode, which rounds P to bf16 before P.V) against
+    the kernel's rounding (``b8_forward``) and the port's plain version:
+    o / l within the chip's bf16 TOL, m and l within the check's
+    limits, the rows that see no key exact."""
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    assert pk.enabled()
+    q, k, v = _b8_inputs("bfloat16")
+    as_jax = (lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    ref = tuple(torch.from_numpy(np.array(x)) for x in
+                pk.flash_attention_partial(*(as_jax(x) for x in (q, k, v)),
+                                           True, 512, koff))
+    for got in (b8_forward(q, k, v, koff, None),
+                ck.flash_attention_partial_plain(q, k, v, True, 512, koff)):
+        norm, m_err, l_err, _ = _b8_errors(got, ref)
+        assert norm <= TOL["bfloat16"] and m_err <= 1e-4 \
+            and l_err <= 1e-5, (koff, norm, m_err, l_err)
 
 
 def b9_backward(q, k, v, m, ob, lb, koff, mm):
