@@ -15,7 +15,12 @@
    instantiation) must hold tensor-core instructions (``HMMA``/
    ``HGMMA``) in their SASS, and those at D = 64 no local (spill)
    memory; each one's registers, shared memory and local memory are
-   printed (``tensor_cores`` lines).
+   printed (``tensor_cores`` lines).  The paged kernels' one body
+   (``paged::attend_kernel``) is read the same way in its three
+   libraries (``paged_report``: registers, shared and local memory, the
+   cluster size and the CTAs an SM holds; ``paged_resources`` lines at
+   D = 64): every head-width bucket for every page
+   reader, no local memory at D = 64, at least two CTAs an SM.
 2. Kernels against their plain PyTorch versions on the card, at the
    main paths' shapes, in fp32 and bf16 (tolerances in ``TOL`` and
    ``BWD_TOL``): the time of each (CUDA events, median of 20 after
@@ -29,7 +34,13 @@
    The quantized decode runs over int8 and fp8 pools made by the port's
    ``quantize_kv``; the verify kernel over fp32, bf16, int8 and fp8
    pools, and each of its rows must ``torch.equal`` the decode kernel's
-   output at ``lengths = start + 1 + w``.  B1's forward and backward and
+   output at ``lengths = start + 1 + w``.  The paged kernels also carry
+   ``back_to_back_ms`` and ``device_ms`` (a CUDA graph of 20 calls: the
+   device's time without the host's), and run again at the edges of
+   their work partition (``paged_edge_checks``: lengths and starts at
+   multiples of 8 and 16 pages and beside them, shorter than a page,
+   empty; windows of 1, 5 and 9 rows; head widths 32, 37, 48, 64, 96
+   and 128; ``paged_edges`` lines).  B1's forward and backward and
    the paged kernels (decode, quantized decode, verify over all four
    pools) run again at the head widths of ``WIDTH_CASES``: 4 heads of 32
    lanes (the default ``transformer_lm``) and 6 of 128.  The LSTM recurrence
@@ -205,8 +216,9 @@
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
 the tensor-core kernels (B1's forward and backward, B5's forward with
-its backward, B9) in fp32 and bf16, B6 at (60, 32, 200) and the float64
-check, then serving run A, the packed LM's and the DPA LM's training,
+its backward, B9) in fp32 and bf16, the paged kernels
+(``paged_timing``), B6 at (60, 32, 200) and the float64 check, then
+serving runs A, B and C, the packed LM's and the DPA LM's training,
 the sequence phase and LSTM-PTB there, ``--kernels ROOT`` the kernels
 alone (see ``paths_timing``).
 
@@ -215,6 +227,7 @@ Any failed check raises and the script exits non-zero without the last
 line.  It needs a CUDA card and the repository around it.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -340,6 +353,36 @@ def back_to_back_ms(torch, fn, reps=20, warmup=3):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fn, reps=20):
+    """Device time of one call: ``reps`` calls captured in a CUDA graph
+    (the host's work per call is done at capture), the graph replayed
+    between two CUDA events, median of 5 replays over ``reps``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    del graph
+    return float(np.median(ts))
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -1040,6 +1083,7 @@ def _ragged_tables(B, MB, rng, lengths=None):
             lengths[1] = 0
         if B > 2:
             lengths[2] = KVB * max(1, MB // 2)
+    lengths = np.asarray(lengths, np.int32)
     pages = rng.permutation(np.arange(1, 1 + B * MB)).astype(np.int32)
     table = np.zeros((B, MB), np.int32)
     used = 0
@@ -1050,10 +1094,13 @@ def _ragged_tables(B, MB, rng, lengths=None):
     return lengths, table
 
 
-def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None, H=H, D=D):
+def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None, H=H, D=D,
+                 lengths=None, timed=True):
     """B2 at H heads of width D.  ``kv_dtype`` other than ``dtype``: an
     fp32 model over bf16 pages (``kv_dtype='bf16'``); both sides then
-    read the same bf16 values, so the fp32 tolerance holds."""
+    read the same bf16 values, so the fp32 tolerance holds.  ``lengths``
+    (B,): the streams' lengths (default: ``_ragged_tables``'); ``timed``
+    False: the check alone, no times."""
     dt = getattr(torch, dtype)
     kv_dt = getattr(torch, kv_dtype or dtype)
     P = 1 + B * MB
@@ -1061,7 +1108,7 @@ def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None, H=H, D=D):
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dt)
     kp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(kv_dt)
     vp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(kv_dt)
-    lengths, table = _ragged_tables(B, MB, rng)
+    lengths, table = _ragged_tables(B, MB, rng, lengths)
     t_d = torch.from_numpy(table).cuda()
     l_d = torch.from_numpy(lengths).cuda()
     out = ck.paged_attention_decode(q, kp, vp, t_d, l_d)
@@ -1071,8 +1118,14 @@ def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None, H=H, D=D):
     check(err <= TOL[dtype], f"paged_attention_decode B={B} MB={MB} "
           f"{dtype}: max_abs_err {err} over tolerance {TOL[dtype]}")
     check(bool(torch.isfinite(out.float()).all()), "decode not finite")
-    if B > 1:
-        check(out[1].abs().max().item() == 0.0, "lengths==0 row not zeros")
+    check(all(out[i].abs().max().item() == 0.0 for i in range(B)
+              if lengths[i] == 0), "lengths==0 row not zeros")
+    if not timed:
+        return {"kernel": "paged_attention_decode",
+                "shape": f"B={B} MB={MB} KVB={KVB} H={H} D={D} "
+                f"lengths={lengths.tolist()}",
+                "dtype": dtype if kv_dtype is None else f"{dtype}/{kv_dtype}",
+                "max_abs_err": err, "tol": TOL[dtype]}
 
     idx = t_d.long()
     pos = torch.arange(MB * KVB, device="cuda")
@@ -1097,6 +1150,10 @@ def check_decode(torch, ck, F, B, MB, dtype, rng, kv_dtype=None, H=H, D=D):
         "max_abs_err": err, "tol": TOL[dtype],
         "ms": time_ms(torch, lambda: ck.paged_attention_decode(
             q, kp, vp, t_d, l_d)),
+        "back_to_back_ms": back_to_back_ms(
+            torch, lambda: ck.paged_attention_decode(q, kp, vp, t_d, l_d)),
+        "device_ms": graph_ms(
+            torch, lambda: ck.paged_attention_decode(q, kp, vp, t_d, l_d)),
         "plain_ms": time_ms(torch, lambda: ck.paged_attention_decode_plain(
             q, kp, vp, t_d, l_d), reps=5, warmup=1),
         "library_ms": time_ms(torch, library),
@@ -1115,16 +1172,17 @@ def _quant_pools(torch, tatt, P, kv, g, H=H, D=D):
     return kq, vq, ks, vs
 
 
-def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng, H=H, D=D):
+def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng, H=H, D=D,
+                       lengths=None, timed=True):
     """B3 over int8/fp8 pools against its plain version, at H heads of
     width D: both dequantize the same bytes, so the fp32/bf16 tolerance
-    holds."""
+    holds.  ``lengths`` and ``timed`` as ``check_decode``'s."""
     dt = getattr(torch, dtype)
     P = 1 + B * MB
     g = torch.Generator(device="cuda").manual_seed(B * 1000 + MB + 7)
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dt)
     kq, vq, ks, vs = _quant_pools(torch, tatt, P, kv, g, H, D)
-    lengths, table = _ragged_tables(B, MB, rng)
+    lengths, table = _ragged_tables(B, MB, rng, lengths)
     t_d = torch.from_numpy(table).cuda()
     l_d = torch.from_numpy(lengths).cuda()
     out = ck.paged_attention_decode_quant(q, kq, vq, ks, vs, t_d, l_d)
@@ -1134,8 +1192,13 @@ def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng, H=H, D=D):
     check(err <= TOL[dtype], f"paged_attention_decode_quant B={B} MB={MB} "
           f"{dtype}/{kv}: max_abs_err {err} over tolerance {TOL[dtype]}")
     check(bool(torch.isfinite(out.float()).all()), "quant decode not finite")
-    if B > 1:
-        check(out[1].abs().max().item() == 0.0, "lengths==0 row not zeros")
+    check(all(out[i].abs().max().item() == 0.0 for i in range(B)
+              if lengths[i] == 0), "lengths==0 row not zeros")
+    if not timed:
+        return {"kernel": "paged_attention_decode_quant",
+                "shape": f"B={B} MB={MB} KVB={KVB} H={H} D={D} "
+                f"lengths={lengths.tolist()}", "dtype": f"{dtype}/{kv}",
+                "max_abs_err": err, "tol": TOL[dtype]}
 
     idx = t_d.long()
     pos = torch.arange(MB * KVB, device="cuda")
@@ -1159,19 +1222,28 @@ def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng, H=H, D=D):
         "dtype": f"{dtype}/{kv}", "max_abs_err": err, "tol": TOL[dtype],
         "ms": time_ms(torch, lambda: ck.paged_attention_decode_quant(
             q, kq, vq, ks, vs, t_d, l_d)),
+        "back_to_back_ms": back_to_back_ms(
+            torch, lambda: ck.paged_attention_decode_quant(
+                q, kq, vq, ks, vs, t_d, l_d)),
+        "device_ms": graph_ms(
+            torch, lambda: ck.paged_attention_decode_quant(
+                q, kq, vq, ks, vs, t_d, l_d)),
         "plain_ms": time_ms(torch, lambda: ck.paged_attention_decode_quant_plain(
             q, kq, vq, ks, vs, t_d, l_d), reps=5, warmup=1),
         "library_ms": time_ms(torch, library),
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D):
+def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D,
+                 start=None, timed=True):
     """B4 (``pool`` float32/bfloat16: raw pages; int8/fp8: the quantized
     instantiation, under fp32 queries) at H heads of width D against its
     plain version, with
     q a strided view of a packed (B, W, 3*H*D) qkv; and row w against
     the decode kernel (B2, or B3 over quantized pools) at lengths =
-    start + 1 + w, bit for bit."""
+    start + 1 + w, bit for bit.  ``start`` (B,): the tokens cached before
+    each window (default: ragged, one window ending on the last page, one
+    padded batch row); ``timed`` False: the checks alone, no times."""
     quant = pool in KV_TORCH
     dtype = "float32" if quant else pool
     dt = getattr(torch, dtype)
@@ -1186,14 +1258,21 @@ def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D):
         kp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(dt)
         vp = torch.randn((P, KVB, H, D), generator=g, device="cuda").to(dt)
         scales = ()
-    # ragged starts (one window ending exactly on the last page, one
-    # padded batch row: start 0, a table of scratch pages)
-    start = rng.randint(0, MB * KVB - W + 1, size=B).astype(np.int32)
-    start[0] = MB * KVB - W
-    lengths = start + W
-    lengths[1] = 0
-    lengths, table = _ragged_tables(B, MB, rng, lengths)
-    start[1] = 0
+    if start is None:
+        # ragged starts (one window ending exactly on the last page, one
+        # padded batch row: start 0, a table of scratch pages)
+        start = rng.randint(0, MB * KVB - W + 1, size=B).astype(np.int32)
+        start[0] = MB * KVB - W
+        lengths = start + W
+        if B > 1:
+            lengths[1] = 0
+        lengths, table = _ragged_tables(B, MB, rng, lengths)
+        if B > 1:
+            start[1] = 0
+    else:
+        start = np.asarray(start, np.int32)
+        _, table = _ragged_tables(B, MB, rng,
+                                  np.minimum(start + W, MB * KVB))
     s_d = torch.from_numpy(start).cuda()
     t_d = torch.from_numpy(table).cuda()
     name = "paged_attention_verify_quant" if quant \
@@ -1215,6 +1294,11 @@ def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D):
         check(torch.equal(out[:, w], dec),
               f"{name} {pool}: row {w} differs from the decode kernel at "
               f"start+1+w (max {(out[:, w].float() - dec.float()).abs().max().item()})")
+    if not timed:
+        return {"kernel": name, "shape": f"B={B} W={W} MB={MB} KVB={KVB} "
+                f"H={H} D={D} start={start.tolist()}",
+                "dtype": f"{dtype}/{pool}" if quant else dtype,
+                "max_abs_err": err, "tol": TOL[dtype], "rows_bitwise": True}
 
     idx = t_d.long()
     pos = torch.arange(MB * KVB, device="cuda")
@@ -1248,10 +1332,150 @@ def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D):
         "max_abs_err": err, "tol": TOL[dtype], "rows_bitwise": True,
         "ms": time_ms(torch, lambda: ck.paged_attention_verify(
             q, kp, vp, t_d, s_d, *scales)),
+        "back_to_back_ms": back_to_back_ms(
+            torch, lambda: ck.paged_attention_verify(
+                q, kp, vp, t_d, s_d, *scales)),
+        "device_ms": graph_ms(
+            torch, lambda: ck.paged_attention_verify(
+                q, kp, vp, t_d, s_d, *scales)),
         "plain_ms": time_ms(torch, lambda: ck.paged_attention_verify_plain(
             q, kp, vp, t_d, s_d, *scales), reps=3, warmup=1),
         "library_ms": time_ms(torch, library),
         "bound_ms": b_ms, "bound_by": b_by}
+
+
+# the paged kernels' work partition (paged_attention.cuh): NC CTAs a
+# cluster take every NC-th page, their NW warps every NW-th of those
+PAGED_NC, PAGED_NW, PAGED_WC = 8, 2, 8
+# head widths of the edge checks: every bucket, a ragged width whose rows
+# stay 16-byte aligned (48) and an odd one (37: 4-, 2- and 1-byte copies)
+PAGED_EDGE_WIDTHS = (32, 37, 48, 64, 96, 128)
+PAGED_EDGE_W = (1, SPEC_K + 1, 9)  # 9: more rows than a pass holds (8)
+
+
+def paged_edge_lengths(MB=64):
+    """Stream lengths at the partition's edges: empty, shorter than a
+    page, one page, and multiples of NC * KVB and NC * NW * KVB (a whole
+    round of the cluster's CTAs, and of all its warps) with their
+    neighbours, up to the full table."""
+    out = {0, 1, KVB - 1, KVB, KVB + 1, MB * KVB}
+    for x in (PAGED_NC * KVB, PAGED_NC * PAGED_NW * KVB):
+        out |= {x - 1, x, x + 1}
+    return sorted(n for n in out if n <= MB * KVB)
+
+
+def paged_edge_starts(W, MB=64):
+    """Verify starts whose windows begin, end or straddle the same
+    edges: start 0 (rows of 1..W tokens, shorter than a page), and for
+    each edge X, windows ending at X - 1, X and X + 1 and starting at X."""
+    out = {0, MB * KVB - W}
+    for x in (KVB, PAGED_NC * KVB, PAGED_NC * PAGED_NW * KVB):
+        out |= {x - W - 1, x - W, x - W + 1, x}
+    return sorted(n for n in out if 0 <= n <= MB * KVB - W)
+
+
+def paged_edge_checks(torch, ck, tatt, F, rng, MB=64):
+    """The paged kernels at the partition's edges (``paged_edge_lengths``,
+    ``paged_edge_starts``) at every head width of ``PAGED_EDGE_WIDTHS``
+    (4 heads): the decode kernel over fp32, bf16 and fp32/bf16 pages, the
+    quantized decode over int8 and fp8, each within ``TOL`` of its plain
+    version, an empty stream all zeros; the verify kernel over the four
+    pools at W = 1, 5 and 9, within ``TOL``, every row ``torch.equal`` to
+    the decode kernel at start + 1 + w.  Untimed."""
+    recs = []
+    lengths = paged_edge_lengths(MB)
+    for Dh in PAGED_EDGE_WIDTHS:
+        wide = dict(H=4, D=Dh)
+        recs += [
+            check_decode(torch, ck, F, len(lengths), MB, "float32", rng,
+                         lengths=lengths, timed=False, **wide),
+            check_decode(torch, ck, F, len(lengths), MB, "bfloat16", rng,
+                         lengths=lengths, timed=False, **wide),
+            check_decode(torch, ck, F, len(lengths), MB, "float32", rng,
+                         kv_dtype="bfloat16", lengths=lengths, timed=False,
+                         **wide)]
+        for kv in ("int8", "fp8"):
+            recs.append(check_decode_quant(
+                torch, ck, tatt, F, len(lengths), MB, "float32", kv, rng,
+                lengths=lengths, timed=False, **wide))
+        for W in PAGED_EDGE_W:
+            starts = paged_edge_starts(W, MB)
+            for pool in ("float32", "bfloat16", "int8", "fp8"):
+                recs.append(check_verify(torch, ck, tatt, F, len(starts), W,
+                                         MB, pool, rng, start=starts,
+                                         timed=False, **wide))
+    return recs
+
+
+# the paged kernels: library, its shared-memory query's argument for a
+# reader (pool element code), the readers it instantiates
+PAGED_LIBS = (
+    ("paged_attention_decode", {"f": 0, "13__nv_bfloat16": 1}),
+    ("paged_attention_decode_quant", {"a": None, "h": None}),
+    ("paged_attention_verify", {"f": 0, "13__nv_bfloat16": 1, "a": 2,
+                                "h": 3}))
+
+
+def paged_report(_build):
+    """Registers, shared and local memory of every instantiation of the
+    paged kernels' one kernel (``paged::attend_kernel``, at 1 and
+    ``PAGED_WC`` rows a pass) in each of the three libraries (``cuobjdump -res-usage``; dynamic shared memory and the
+    cluster size from each library's own queries), and the CTAs an SM
+    holds (by registers, shared memory and threads).  Raises when a
+    head-width bucket is missing for a reader, an instantiation at D = 64
+    uses local memory, or fewer than two CTAs fit an SM."""
+    import ctypes
+    import re
+
+    name_re = re.compile(r"attend_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
+                         r"\w*?(RawPages|QuantPages)I(f|13__nv_bfloat16|a|h)E")
+    out = []
+    for lib, readers in PAGED_LIBS:
+        res = _cuobjdump(_build, ["-res-usage"], _build._target(lib))
+        so = _build.library(lib)
+        cluster = getattr(so, f"{lib}_cluster_size")
+        cluster.restype = ctypes.c_int
+        smem = getattr(so, f"{lib}_smem_bytes")
+        smem.restype = ctypes.c_int
+        seen = set()
+        for fn, regs, stack, shared, local in re.findall(
+                r"Function (\S+?):\s+REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                r"LOCAL:(\d+)", res):
+            mt_ = name_re.search(fn)
+            if mt_ is None:
+                continue
+            tq, dp, rows, _, elem = mt_.groups()
+            dp = int(dp)
+            code = readers[elem]
+            dyn = smem(dp, code) if code is not None else smem(dp)
+            regs = int(regs)
+            # registers go to a warp in units of 256; 64K an SM, 2048
+            # threads, 228 KB of shared memory (1 KB of it per CTA reserved)
+            warp_regs = -(-regs * 32 // 256) * 256
+            per_sm = min(65536 // warp_regs // PAGED_NW,
+                         233472 // (int(shared) + dyn + 1024),
+                         2048 // (PAGED_NW * 32), 32)
+            rec = {"library": lib, "q": "float32" if tq == "f" else
+                   "bfloat16", "pool": {"f": "float32",
+                                        "13__nv_bfloat16": "bfloat16",
+                                        "a": "int8", "h": "fp8"}[elem],
+                   "head_dim_bucket": dp, "rows_a_pass": int(rows),
+                   "registers": regs, "stack_bytes": int(stack),
+                   "static_shared_bytes": int(shared),
+                   "dynamic_shared_bytes": dyn, "local_bytes": int(local),
+                   "cluster_size": cluster(), "ctas_per_sm": per_sm}
+            check(dp != 64 or int(local) == 0,
+                  f"{lib} {rec['q']}/{rec['pool']} D<={dp}: {local} bytes "
+                  f"of local memory")
+            check(per_sm >= 2, f"{lib} {rec}: fewer than two CTAs an SM")
+            check(cluster() == PAGED_NC, f"{lib}: cluster of {cluster()}")
+            seen.add((elem, dp, int(rows)))
+            out.append(rec)
+        want = {(e, p, r) for e in readers for p in (32, 64, 96, 128)
+                for r in (1, PAGED_WC)}
+        check(want <= seen, f"{lib}: instantiations missing from "
+              f"cuobjdump's report: {sorted(want - seen)}")
+    return out
 
 
 def gpt2_small_params(seed=0, cfg=GPT2_SMALL):
@@ -1314,6 +1538,9 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
         check(o.shape == (new_tokens,) and o.min() >= 0
               and o.max() < cfg["vocab_size"], f"bad generation {o}")
     gen = int(sum(len(o) for o in outs))
+    greedy = hashlib.sha256(b"".join(
+        o.astype(np.int32).tobytes() for o, t in zip(outs, temps)
+        if t == 0.0)).hexdigest()[:16]
     rec = {"requests": len(prompts),
            "prompt_tokens": int(sum(len(p) for p in prompts)),
            "generated_tokens": gen, "wall_s": wall,
@@ -1328,7 +1555,7 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
            "tokens_per_step": st["tokens_per_step"],
            "preempted": st["preempted"], "kv_dtype": st["kv_dtype"],
            "pool_bytes": st["pool_bytes"], "peak_memory_bytes": int(peak),
-           "launches": launches}
+           "greedy_outputs_sha256": greedy, "launches": launches}
     return model, outs, st, launches, rec
 
 
@@ -1394,8 +1621,10 @@ def _expect_launches(launches, want, run):
               f"{launches[name]} times, expected {n}")
 
 
-def spec_paths(torch, mt, ck, dev_params):
-    """Runs B (fp32, spec), C (int8, spec) and D (fp8, no spec)."""
+def spec_paths(torch, mt, ck, dev_params, runs=("B", "C", "D")):
+    """Runs B (fp32, spec), C (int8, spec) and D (fp8, no spec), those
+    of ``runs`` (C needs B)."""
+    which = runs
     L = GPT2_SMALL["num_layers"]
     prompts = spec_prompts()
     lens = [len(p) for p in prompts]
@@ -1439,6 +1668,8 @@ def spec_paths(torch, mt, ck, dev_params):
     print(f"int8 vs fp32 pages (runs C, B): greedy streams agree for "
           f"{agree} of {SPEC_NEW} tokens")
     torch.cuda.empty_cache()
+    if "D" not in which:
+        return runs
 
     _, _, st, launches, runs["D"] = serve_run(
         torch, mt, ck, dev_params, prompts[:4], [0.0] * 4, 32,
@@ -2850,14 +3081,44 @@ def decode_timing(root):
     return 0
 
 
+def paged_timing(torch, ck, tatt, F, MB=64):
+    """The paged kernels at their main shapes (B = 1, 16, 64; MB = 64;
+    12 heads of 64; verify at W = SPEC_K + 1): the decode kernel over
+    fp32 and bf16 pages, the quantized decode and the verify kernel over
+    int8 and fp8 (fp32 queries), the verify kernel over fp32 and bf16;
+    then at the two other head widths of ``WIDTH_CASES`` (B = 16): decode,
+    int8 decode, verify over fp32 and int8.  Each record carries its
+    per-call and back-to-back times."""
+    rng = np.random.RandomState(2)  # the same lengths in every run
+    recs = []
+    for dtype in ("float32", "bfloat16"):
+        recs += [check_decode(torch, ck, F, B, MB, dtype, rng)
+                 for B in (1, 16, 64)]
+    for kv in ("int8", "fp8"):
+        recs += [check_decode_quant(torch, ck, tatt, F, B, MB, "float32", kv,
+                                    rng) for B in (1, 16, 64)]
+    for pool in ("float32", "bfloat16", "int8", "fp8"):
+        recs += [check_verify(torch, ck, tatt, F, B, SPEC_K + 1, MB, pool,
+                              rng) for B in (1, 16, 64)]
+    for _, _, Hh, Dh in WIDTH_CASES:
+        wide = dict(H=Hh, D=Dh)
+        recs += [check_decode(torch, ck, F, 16, MB, "float32", rng, **wide),
+                 check_decode_quant(torch, ck, tatt, F, 16, MB, "float32",
+                                    "int8", rng, **wide)]
+        recs += [check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, MB, pool,
+                              rng, **wide) for pool in ("float32", "int8")]
+    return recs
+
+
 def paths_timing(root, paths=True):
     """``python3 chip_smoke.py --paths ROOT``: the tensor-core kernels at
     their main-path shapes, in fp32 and bf16 — B1's forward at (1, 1024)
     and (8, 1024), B1's backward at (8, 1024), B5's forward (with B5's
     backward) at ``PATH_MHA_SHAPES``, B8 and B9 at the ring's past hop,
-    B6 at LSTM-PTB's (60, 32, 200), the four timed user kernels (B10's
-    port, per call and back to back) and ``float64_check`` — then
-    serving run A,
+    the paged kernels (``paged_timing``), B6 at LSTM-PTB's (60, 32,
+    200), the four timed user kernels (B10's port, per call and back to
+    back) and ``float64_check`` — then serving runs A, B and C (the
+    verify steps),
     the packed LM's training run, the DPA LM's, the sequence phase and
     LSTM-PTB, on the port under ROOT (a checkout, e.g. a parent
     commit unpacked beside this one), one JSON line each; ``--kernels
@@ -2873,6 +3134,7 @@ def paths_timing(root, paths=True):
     sys.path.insert(0, root)
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import attention as tatt
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
     check(ck.__file__.startswith(root), f"imported {ck.__file__}, not "
@@ -2894,6 +3156,9 @@ def paths_timing(root, paths=True):
         for rec in recs:
             print(json.dumps({"paths_timing": {"root": root, **rec}}))
         torch.cuda.empty_cache()
+    for rec in paged_timing(torch, ck, tatt, F):
+        print(json.dumps({"paths_timing": {"root": root, **rec}}))
+    torch.cuda.empty_cache()
     rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
     print(json.dumps({"paths_timing": {"root": root, **rec}}))
     for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0]:
@@ -2906,6 +3171,10 @@ def paths_timing(root, paths=True):
         return 0
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
     runs = {"serving_A": main_path(torch, mt, ck, dev_params)}
+    torch.cuda.empty_cache()
+    for run, rec in spec_paths(torch, mt, ck, dev_params,
+                               runs=("B", "C")).items():
+        runs[f"serving_{run}"] = rec
     del dev_params
     torch.cuda.empty_cache()
     runs["train_path"] = train_path(torch, mt, ck)
@@ -2957,6 +3226,9 @@ def main():
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     for rec in tensor_core_report(_build):
         print(json.dumps({"tensor_cores": rec}))
+    for rec in paged_report(_build):
+        if rec["head_dim_bucket"] == D:
+            print(json.dumps({"paged_resources": rec}))
 
     rng = np.random.RandomState(2)
     checks = []
@@ -3002,6 +3274,17 @@ def main():
                                        64, pool, rng, **wide))
             print(json.dumps({"check": checks[-1]}))
         torch.cuda.empty_cache()
+    # the paged kernels at the edges of their work partition, every width
+    edges = paged_edge_checks(torch, ck, tatt, F, rng)
+    for Dh in PAGED_EDGE_WIDTHS:
+        mine = [c for c in edges if f" D={Dh} " in c["shape"]]
+        print(json.dumps({"paged_edges": {
+            "D": Dh, "checks": len(mine),
+            "max_err_over_tol": max(c["max_abs_err"] / c["tol"]
+                                    for c in mine),
+            "verify_rows_bitwise": sum(c.get("rows_bitwise", False)
+                                       for c in mine)}}))
+    torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
         for c in [c for B, T in ((1, 128), (1, 1000), (1, 1024),
                                  (TRAIN_BATCH, 1024))

@@ -12,19 +12,18 @@
 // read once and used for 2*D multiply-adds each, about 0.5 FLOP a byte in
 // fp32, so the floor is the pages' bytes over 3.35 TB/s.
 //
-// Design (the body is paged::attend in paged_attention.cuh, shared with
-// the quantized decode and the verify kernels):
-// * One thread block per (stream, head), eight warps.  The block reads
-//   block_table[b, j] itself (this replaces the TPU's scalar prefetch) and
-//   walks only pages j < ceil(lengths[b] / KVB): the table's padding out to
-//   the cache bucket (page 0, the scratch page) is never touched.
-// * Warp w takes pages w, w+8, ...; eight tokens in flight per warp before
-//   one online-softmax update; the warps' states merge at the end.
-// * q may be a strided view (the query third of the packed qkv): its batch
-//   stride is an argument, its head and lane strides are D and 1.
-// * Head widths up to 128 in buckets of 32, 64, 96 and 128 lanes (DP/32
-//   head lanes a thread; paged::with_head_dim): a width below its bucket
-//   masks the lanes past D.
+// Design: the W = 1 launch of the verify kernels' template,
+// paged::attend_kernel (paged_attention.cuh), at add = 0: one cluster of
+// eight CTAs a (stream, head), the stream's pages split over the CTAs and
+// their warps, each page's K and V slice copied once into a cp.async
+// stage, the partial softmax states merged into rank 0 through
+// distributed shared memory.  The block reads block_table[b, j] itself
+// (this replaces the TPU's scalar prefetch) and walks only pages j <
+// ceil(lengths[b] / KVB): the table's padding out to the cache bucket
+// (page 0, the scratch page) is never touched.  q may be a strided view
+// (the query third of the packed qkv): its batch stride is an argument,
+// its head and lane strides are D and 1.  Head widths up to 128 in
+// buckets of 32, 64, 96 and 128 lanes (paged::with_head_dim).
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "paged_attention.cuh"
@@ -35,17 +34,14 @@ template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, long qs, const void* kp, const void* vp,
                    const int* table, const int* lengths, void* out, int B,
                    int H, int D, int KVB, int MB, cudaStream_t stream) {
-  const dim3 grid(B, H);
-  const float scale = 1.f / sqrtf((float)D);
   const TQ* qq = static_cast<const TQ*>(q);
   TQ* o = static_cast<TQ*>(out);
   const paged::RawPages<TKV> pages{static_cast<const TKV*>(kp),
                                    static_cast<const TKV*>(vp)};
   return paged::with_head_dim(D, [&](auto dp, auto ragged) {
-    paged::decode_kernel<TQ, decltype(dp)::value, decltype(ragged)::value>
-        <<<grid, paged::NW * 32, 0, stream>>>(qq, qs, pages, table, lengths,
-                                              o, H, D, KVB, MB, scale);
-    return cudaGetLastError();
+    (void)ragged;  // the kernel takes D at run time
+    return paged::launch_attend<TQ, decltype(dp)::value>(
+        qq, qs, 0, pages, table, lengths, 0, o, B, 1, H, D, KVB, MB, stream);
   });
 }
 
@@ -77,3 +73,10 @@ extern "C" int paged_attention_decode(const void* q, long q_batch_stride,
         q, q_batch_stride, k_pool, v_pool, t, n, out, B, H, D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// the dynamic shared memory of the instantiation for head-width bucket dp
+// over kv_dtype pools (0 = float32, 1 = bfloat16), and the CTAs a cluster
+extern "C" int paged_attention_decode_smem_bytes(int dp, int kv_dtype) {
+  return paged::smem_bytes(dp, kv_dtype == 0 ? 4 : 2, false);
+}
+extern "C" int paged_attention_decode_cluster_size() { return paged::NC; }

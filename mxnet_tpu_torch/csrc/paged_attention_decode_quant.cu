@@ -5,19 +5,21 @@
 // decode kernel (paged_attention_decode.cu), over int8 or fp8-e4m3 pools
 // (P, KVB, H, D) with (P, KVB, H) float32 scale pools, one scale per
 // (slot, head): each K/V element is dequantized as float(code) * scale
-// right after its load, and the softmax and the P.V sum run in fp32.
+// after it reaches shared memory, and the softmax and the P.V sum run in
+// fp32.
 //
 // What bounds it on the H100: bytes.  A cached token-head costs D code
 // bytes and one 4-byte scale for K and again for V, 2 * (D + 4) bytes, for
 // 4 * D FLOP; the floor is those bytes over 3.35 TB/s, about 3.8x below
 // the fp32 pages' (D = 64).
 //
-// Design: the decode kernel's grid (B, H), eight warps and body
-// (paged::attend) with the quantized page reader (paged::QuantPages), so
-// its arithmetic after the dequantization is the decode kernel's and the
-// verify kernel's quantized rows equal it bit for bit.  The scale is read
-// once per token, not per element.  Head widths up to 128, as the decode
-// kernel.
+// Design: the decode kernel's (paged::attend_kernel at W = 1, add = 0)
+// with the quantized page reader (paged::QuantPages): the codes stay one
+// byte each through the cp.async stage (16-byte copies, 16 codes each, at
+// D = 64), the scales ride along as 4-byte copies, so the arithmetic after
+// the dequantization is the decode kernel's and the verify kernel's
+// quantized rows equal it bit for bit.  Head widths up to 128, as the
+// decode kernel.
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "paged_attention.cuh"
@@ -29,17 +31,14 @@ cudaError_t launch(const void* q, long qs, const void* kp, const void* vp,
                    const float* ks, const float* vs, const int* table,
                    const int* lengths, void* out, int B, int H, int D,
                    int KVB, int MB, cudaStream_t stream) {
-  const dim3 grid(B, H);
-  const float scale = 1.f / sqrtf((float)D);
   const TQ* qq = static_cast<const TQ*>(q);
   TQ* o = static_cast<TQ*>(out);
   const paged::QuantPages<TC> pages{static_cast<const TC*>(kp),
                                     static_cast<const TC*>(vp), ks, vs};
   return paged::with_head_dim(D, [&](auto dp, auto ragged) {
-    paged::decode_kernel<TQ, decltype(dp)::value, decltype(ragged)::value>
-        <<<grid, paged::NW * 32, 0, stream>>>(qq, qs, pages, table, lengths,
-                                              o, H, D, KVB, MB, scale);
-    return cudaGetLastError();
+    (void)ragged;  // the kernel takes D at run time
+    return paged::launch_attend<TQ, decltype(dp)::value>(
+        qq, qs, 0, pages, table, lengths, 0, o, B, 1, H, D, KVB, MB, stream);
   });
 }
 
@@ -76,4 +75,13 @@ extern "C" int paged_attention_decode_quant(
         q, q_batch_stride, k_pool, v_pool, ks, vs, t, n, out, B, H, D, KVB,
         MB, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// the dynamic shared memory of the instantiation for head-width bucket dp
+// (int8 and fp8 codes alike), and the CTAs a cluster
+extern "C" int paged_attention_decode_quant_smem_bytes(int dp) {
+  return paged::smem_bytes(dp, 1, true);
+}
+extern "C" int paged_attention_decode_quant_cluster_size() {
+  return paged::NC;
 }

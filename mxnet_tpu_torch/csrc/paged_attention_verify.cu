@@ -16,17 +16,19 @@
 // pair; at W = 5 that is ~2.5 FLOP a byte in fp32, below the card's
 // balance point.
 //
-// Design: grid (B, H, W); block (b, h, w) runs the decode kernel's body
-// (paged::attend) at visible length start[b] + 1 + w, with the raw page
-// reader (paged_attention_verify) or the quantized one
-// (paged_attention_verify_quant).  This re-reads a stream's pages W
-// times, mostly from L2; it is simple and keeps each row's summation
-// order equal to the decode step's.  q is a strided view of the packed
-// qkv (B, W, 3*H*D): batch and row strides are arguments, head and lane
-// strides D and 1.  Padded batch rows (start = 0) read their table's
-// first page and give finite values nobody uses.  Head widths up to 128,
-// dispatched as the decode kernels (paged::with_head_dim), so a verify row
-// and the decode step run one instantiation of attend.
+// Design: paged::attend_kernel (paged_attention.cuh), the decode kernels'
+// template, at add = 1: one cluster of eight CTAs a (stream, head)
+// reads each live page's K and V slice once for the whole window, as the
+// TPU kernel folds each page once into an (H, W, .) state, and folds it
+// into the W rows' states, eight rows a pass (more loop over passes).
+// The work partition depends on the page and token index alone, so row w
+// meets exactly the tokens, groups and merge order of the decode step at
+// start + 1 + w.  The raw page reader (paged_attention_verify) or the
+// quantized one (paged_attention_verify_quant).  q is a strided view of
+// the packed qkv (B, W, 3*H*D): batch and row strides are arguments, head
+// and lane strides D and 1.  Padded batch rows (start = 0) read their
+// table's first page and give finite values nobody uses.  Head widths up
+// to 128, dispatched as the decode kernels (paged::with_head_dim).
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "paged_attention.cuh"
@@ -36,15 +38,15 @@ namespace {
 template <typename TQ, typename Pages>
 cudaError_t launch(const void* q, long qbs, long qrs, const Pages& pages,
                    const int* table, const int* start, void* out, int B,
-                   int W, int H, int D, int KVB, int MB, float scale,
+                   int W, int H, int D, int KVB, int MB,
                    cudaStream_t stream) {
-  const dim3 grid(B, H, W);
+  const TQ* qq = static_cast<const TQ*>(q);
+  TQ* o = static_cast<TQ*>(out);
   return paged::with_head_dim(D, [&](auto dp, auto ragged) {
-    paged::verify_kernel<TQ, decltype(dp)::value, decltype(ragged)::value>
-        <<<grid, paged::NW * 32, 0, stream>>>(
-            static_cast<const TQ*>(q), qbs, qrs, pages, table, start,
-            static_cast<TQ*>(out), W, H, D, KVB, MB, scale);
-    return cudaGetLastError();
+    (void)ragged;  // the kernel takes D at run time
+    return paged::launch_attend<TQ, decltype(dp)::value>(
+        qq, qbs, qrs, pages, table, start, 1, o, B, W, H, D, KVB, MB,
+        stream);
   });
 }
 
@@ -52,11 +54,11 @@ template <typename TQ, typename TKV>
 cudaError_t launch_raw(const void* q, long qbs, long qrs, const void* kp,
                        const void* vp, const int* table, const int* start,
                        void* out, int B, int W, int H, int D, int KVB,
-                       int MB, float scale, cudaStream_t stream) {
+                       int MB, cudaStream_t stream) {
   const paged::RawPages<TKV> pages{static_cast<const TKV*>(kp),
                                    static_cast<const TKV*>(vp)};
   return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, D, KVB,
-                    MB, scale, stream);
+                    MB, stream);
 }
 
 template <typename TQ, typename TC>
@@ -64,12 +66,12 @@ cudaError_t launch_quant(const void* q, long qbs, long qrs, const void* kp,
                          const void* vp, const void* ks, const void* vs,
                          const int* table, const int* start, void* out,
                          int B, int W, int H, int D, int KVB, int MB,
-                         float scale, cudaStream_t stream) {
+                         cudaStream_t stream) {
   const paged::QuantPages<TC> pages{
       static_cast<const TC*>(kp), static_cast<const TC*>(vp),
       static_cast<const float*>(ks), static_cast<const float*>(vs)};
   return launch<TQ>(q, qbs, qrs, pages, table, start, out, B, W, H, D, KVB,
-                    MB, scale, stream);
+                    MB, stream);
 }
 
 bool bad_shape(int B, int W, int H, int D, int KVB, int MB) {
@@ -92,19 +94,18 @@ extern "C" int paged_attention_verify(const void* q, long q_batch_stride,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(table);
   const int* st = static_cast<const int*>(start);
-  const float scale = 1.f / sqrtf((float)D);
   if (q_dtype == 0 && kv_dtype == 0)
     return (int)launch_raw<float, float>(q, q_batch_stride, q_row_stride,
                                          k_pool, v_pool, t, st, out, B, W, H,
-                                         D, KVB, MB, scale, s);
+                                         D, KVB, MB, s);
   if (q_dtype == 0 && kv_dtype == 1)
     return (int)launch_raw<float, __nv_bfloat16>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
-        D, KVB, MB, scale, s);
+        D, KVB, MB, s);
   if (q_dtype == 1 && kv_dtype == 1)
     return (int)launch_raw<__nv_bfloat16, __nv_bfloat16>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
-        D, KVB, MB, scale, s);
+        D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -120,22 +121,30 @@ extern "C" int paged_attention_verify_quant(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(table);
   const int* st = static_cast<const int*>(start);
-  const float scale = 1.f / sqrtf((float)D);
   if (q_dtype == 0 && kv_code == 2)
     return (int)launch_quant<float, signed char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, D, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, s);
   if (q_dtype == 0 && kv_code == 3)
     return (int)launch_quant<float, unsigned char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, D, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, s);
   if (q_dtype == 1 && kv_code == 2)
     return (int)launch_quant<__nv_bfloat16, signed char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, D, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, s);
   if (q_dtype == 1 && kv_code == 3)
     return (int)launch_quant<__nv_bfloat16, unsigned char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
-        st, out, B, W, H, D, KVB, MB, scale, s);
+        st, out, B, W, H, D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// the dynamic shared memory of the instantiation for head-width bucket dp
+// over kv_code pools (0 = float32, 1 = bfloat16, 2 = int8, 3 = fp8), and
+// the CTAs a cluster
+extern "C" int paged_attention_verify_smem_bytes(int dp, int kv_code) {
+  return paged::smem_bytes(dp, kv_code == 0 ? 4 : kv_code == 1 ? 2 : 1,
+                           kv_code >= 2);
+}
+extern "C" int paged_attention_verify_cluster_size() { return paged::NC; }

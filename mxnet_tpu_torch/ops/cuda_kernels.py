@@ -39,9 +39,10 @@ the serving and training paths:
   rows, one block an image (``csrc/nms.cu``, replacing ``nms`` and its
   body ``_nms_kernel``).
 
-The three paged kernels share one body (``csrc/paged_attention.cuh``):
-verify row w equals the decode kernel at ``lengths = start + 1 + w`` bit
-for bit, raw and quantized alike.
+The paged entry points launch one kernel (``csrc/paged_attention.cuh``,
+a cluster of CTAs a (stream, head), decode its one-row case): verify row
+w equals the decode kernel at ``lengths = start + 1 + w`` bit for bit,
+raw and quantized alike.
 
 ``ops/attention.py`` wraps each attention forward and its backward in
 one ``torch.autograd.Function``, and ``ops/rnn.py`` wraps ``lstm_scan``

@@ -416,6 +416,88 @@ def test_sources_instantiate_every_head_dim_bucket(source, dp):
         assert f"Cfg<T, {dp}>::" in text  # its shared-memory query
 
 
+PAGED = ("paged_attention_decode", "paged_attention_decode_quant",
+         "paged_attention_verify")
+
+
+def _paged_text(source):
+    """A paged launcher's source with whitespace collapsed, and the shared
+    header's."""
+    flat = lambda t: " ".join(t.split())  # noqa: E731
+    return (flat((_build._CSRC / f"{source}.cu").read_text()),
+            flat((_build._CSRC / "paged_attention.cuh").read_text()))
+
+
+def test_paged_entry_points_launch_one_kernel_template_decode_at_w1():
+    """B2, B3 and B4 launch one kernel template, ``paged::attend_kernel``,
+    through ``paged::launch_attend``: the decode entry points at W = 1
+    over ``lengths`` (add 0), the verify entry points at W over ``start``
+    (add 1, row w at start + 1 + w).  The old per-row body and its grid
+    (B, H, W) are gone, and W = 1 picks the one-row instantiation."""
+    _, hdr = _paged_text(PAGED[0])
+    assert hdr.count("__global__") == 1
+    assert "attend_kernel(const TQ* __restrict__ q" in hdr
+    assert "decode_kernel" not in hdr and "verify_kernel" not in hdr
+    assert "if (W == 1) return launch_rows<TQ, DP, 1>(" in hdr
+    assert "return launch_rows<TQ, DP, WC>(" in hdr
+    for source in PAGED:
+        src, _ = _paged_text(source)
+        assert "__global__" not in src and "<<<" not in src
+        assert "dim3 grid" not in src
+        calls = re.findall(r"paged::launch_attend<[^;]*;", src)
+        assert len(calls) == 1  # verify: one for both readers
+        want = "start, 1, o, B, W, H, D, KVB, MB" \
+            if source.endswith("verify") \
+            else "lengths, 0, o, B, 1, H, D, KVB, MB"
+        assert want in calls[0]
+
+
+@pytest.mark.parametrize("dp", (32, 64, 96, 128))
+@pytest.mark.parametrize("source,readers", [
+    ("paged_attention_decode", ("RawPages",)),
+    ("paged_attention_decode_quant", ("QuantPages",)),
+    ("paged_attention_verify", ("RawPages", "QuantPages"))])
+def test_paged_sources_instantiate_every_bucket_for_their_readers(
+        source, readers, dp):
+    """Each paged launcher builds its page readers and hands them to the
+    one head-width dispatch, which instantiates every bucket (the exact
+    width and a narrower, ragged one); the shared-memory query covers
+    every bucket at every pool element size (4, 2 and 1 bytes)."""
+    src, hdr = _paged_text(source)
+    for reader in readers:
+        assert f"const paged::{reader}<" in src
+    assert src.count("paged::with_head_dim(D, [&](auto dp, auto ragged)") \
+        == 1
+    assert f"D == {dp} ? launch(Int<{dp}>{{}}, false_type{{}})" in hdr
+    assert f"launch(Int<{dp}>{{}}, true_type{{}})" in hdr
+    for es in (4, 2, 1):
+        assert f"PAGED_SMEM({dp}, {es})" in hdr
+    assert f"{source}_smem_bytes" in src
+
+
+def test_paged_cluster_size_is_a_constant():
+    """The paged kernels' cluster is NC CTAs, a constant of the header that
+    depends on no argument: the launch sets the cluster dimension to NC
+    and the grid to NC CTAs a (stream, head), and each library reports
+    NC.  chip_smoke.py's partition edges use the header's NC and NW."""
+    import chip_smoke
+
+    _, hdr = _paged_text(PAGED[0])
+    nc, nw, wc = (re.search(rf"constexpr int {c} = (\d+);", hdr)
+                  for c in ("NC", "NW", "WC"))
+    assert nc and nw and wc and int(nc.group(1)) == 8  # the portable size
+    assert (chip_smoke.PAGED_NC, chip_smoke.PAGED_NW, chip_smoke.PAGED_WC) \
+        == tuple(int(x.group(1)) for x in (nc, nw, wc))
+    assert "attr[0].val.clusterDim.x = NC;" in hdr
+    assert "attr[0].val.clusterDim.y = 1;" in hdr
+    assert "cfg.gridDim = dim3(NC * B, H, 1);" in hdr
+    assert hdr.count("clusterDim.x") == 1
+    assert "NonPortableClusterSizeAllowed" not in hdr
+    for source in PAGED:
+        src, _ = _paged_text(source)
+        assert f"int {source}_cluster_size() {{ return paged::NC; }}" in src
+
+
 USER_SOURCE = "__global__ void k(const float* x, float* y, long long n) {}\n"
 
 

@@ -31,8 +31,9 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import kv_cache
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import cuda_kernels as ck
-from torch_serving_parity import (D, DM, H, KVB, L, TOL, V,
-                                  assert_chains_agree, engine_kw,
+from torch_serving_parity import (D, DM, EDGE_D, EDGE_LENGTHS, EDGE_W, H,
+                                  KVB, L, TOL, V, assert_chains_agree,
+                                  edge_tables, edge_verify_starts, engine_kw,
                                   fresh_pools, jax_graph, make_lm,
                                   pool_bytes as _bytes, run_graph, serve)
 
@@ -193,6 +194,68 @@ def test_decode_quant_plain_vs_pallas_and_lax(monkeypatch, name):
     np.testing.assert_allclose(out, lax, **TOL)
     assert np.all(np.isfinite(out))
     np.testing.assert_array_equal(out[2], np.zeros_like(out[2]))
+
+
+# the partition's edge cases of test_torch_spec.py: head widths 32, 48 and
+# 128, lengths on page boundaries, shorter than a page and empty; windows
+# of 1, 2 and 9 rows
+@pytest.mark.parametrize("Dh", EDGE_D)
+@pytest.mark.parametrize("name", QDTYPES)
+def test_decode_quant_plain_vs_pallas_and_lax_at_partition_edges(
+        monkeypatch, name, Dh):
+    lengths = np.array(EDGE_LENGTHS, np.int32)
+    table, P = edge_tables(lengths, 21)
+    rng = np.random.RandomState(Dh + 1)
+    q = rng.randn(len(lengths), H, Dh).astype(np.float32)
+    kq, ks = jatt.quantize_kv(jnp.asarray(
+        rng.randn(P, KVB, H, Dh).astype(np.float32)), JNP[name])
+    vq, vs = jatt.quantize_kv(jnp.asarray(
+        rng.randn(P, KVB, H, Dh).astype(np.float32) * 2), JNP[name])
+    out = ck.paged_attention_decode_quant(
+        torch.from_numpy(q), _to_torch(kq, name), _to_torch(vq, name),
+        torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs)),
+        torch.from_numpy(table), torch.from_numpy(lengths)).numpy()
+    args = (jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(table),
+            jnp.asarray(lengths))
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    pallas = np.asarray(pk.paged_attention_decode_quant(*args))
+    np.testing.assert_allclose(out, pallas, **TOL)
+    monkeypatch.setenv("MXNET_PALLAS", "0")
+    lax = np.asarray(jatt.paged_decode_attention_q(
+        args[0][:, None], *args[1:]))[:, 0]
+    np.testing.assert_allclose(out, lax, **TOL)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_array_equal(out[0], np.zeros_like(out[0]))  # empty
+
+
+@pytest.mark.parametrize("Dh", EDGE_D)
+@pytest.mark.parametrize("W", EDGE_W)
+@pytest.mark.parametrize("name", QDTYPES)
+def test_quant_verify_plain_vs_lax_at_partition_edges(name, W, Dh):
+    start = edge_verify_starts(W)
+    lengths = start + W
+    lengths[-1] = 0
+    table, P = edge_tables(lengths, 22)
+    rng = np.random.RandomState(W * 100 + Dh)
+    q = rng.randn(len(start), W, H, Dh).astype(np.float32)
+    kq, ks = jatt.quantize_kv(jnp.asarray(
+        rng.randn(P, KVB, H, Dh).astype(np.float32)), JNP[name])
+    vq, vs = jatt.quantize_kv(jnp.asarray(
+        rng.randn(P, KVB, H, Dh).astype(np.float32) * 3), JNP[name])
+    pools = [_to_torch(kq, name), _to_torch(vq, name),
+             torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs))]
+    qt, t = torch.from_numpy(q), torch.from_numpy(table)
+    out = ck.paged_attention_verify(qt, pools[0], pools[1], t,
+                                    torch.from_numpy(start), *pools[2:])
+    lax = np.asarray(jatt.paged_verify_attention_q(
+        jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(table),
+        jnp.asarray(start)))
+    np.testing.assert_allclose(out.numpy(), lax, **TOL)
+    assert np.all(np.isfinite(out.numpy()))
+    for w in range(W):  # every row the quantized decode step, bit for bit
+        dec = ck.paged_attention_decode_quant(
+            qt[:, w], *pools, t, torch.from_numpy(start + 1 + w))
+        assert torch.equal(out[:, w], dec), w
 
 
 @pytest.mark.parametrize("name", QDTYPES)

@@ -36,8 +36,10 @@ from mxnet_tpu_torch.ops import cuda_kernels as ck
 from mxnet_tpu_torch.serving import sample_tokens
 from mxnet_tpu_torch.speculative import (NgramProposer, make_proposer,
                                          verify_sample)
-from torch_serving_parity import (D, H, KVB, L, TOL, V, OracleProposer,
-                                  assert_chains_agree, engine_kw,
+from torch_serving_parity import (D, EDGE_D, EDGE_LENGTHS, EDGE_W, H, KVB,
+                                  L, TOL, V, OracleProposer,
+                                  assert_chains_agree, edge_tables,
+                                  edge_verify_starts, engine_kw,
                                   fresh_pools, jax_graph, make_lm,
                                   pool_bytes, repetitive_prompt, run_graph,
                                   serve)
@@ -174,6 +176,77 @@ def test_verify_row_equals_decode_bitwise(name):
             dec = ck.paged_attention_decode(qt[:, w], *pools, _t(table),
                                             lengths)
         assert torch.equal(out[:, w], dec), w
+
+
+# ---------------------------------------------------------------------------
+# B2 and B4 at the edges of the kernels' work partition, against Pallas
+# (interpret) and lax: windows of 1, 2 and 9 rows (9: more than one pass of
+# eight rows), head widths 32, 48 (below its bucket) and 128, starts on
+# page boundaries, a stream shorter than a page, a padded batch row and
+# (decode) an empty stream
+# ---------------------------------------------------------------------------
+
+def _edge_verify_case(W, Dh, seed=11):
+    start = edge_verify_starts(W)
+    lengths = start + W
+    lengths[-1] = 0  # the padded row's table: scratch pages
+    table, P = edge_tables(lengths, seed)
+    rng = np.random.RandomState(seed + W + Dh)
+    kp = rng.randn(P, KVB, H, Dh).astype(np.float32)
+    vp = rng.randn(P, KVB, H, Dh).astype(np.float32)
+    q = rng.randn(len(start), W, H, Dh).astype(np.float32)
+    return q, kp, vp, table, start
+
+
+@pytest.mark.parametrize("Dh", EDGE_D)
+@pytest.mark.parametrize("W", EDGE_W)
+def test_verify_plain_vs_pallas_and_lax_at_partition_edges(monkeypatch, W,
+                                                           Dh):
+    q, kp, vp, table, start = _edge_verify_case(W, Dh)
+    out = ck.paged_attention_verify(*(_t(x) for x in (q, kp, vp, table,
+                                                       start))).numpy()
+    args = [jnp.asarray(x) for x in (q, kp, vp, table, start)]
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    pallas = np.asarray(pk.paged_attention_verify(*args))
+    np.testing.assert_allclose(out, pallas, **TOL)
+    monkeypatch.setenv("MXNET_PALLAS", "0")
+    lax = np.asarray(jatt.paged_verify_attention(*args))
+    np.testing.assert_allclose(out, lax, **TOL)
+    assert np.all(np.isfinite(out))
+
+
+@pytest.mark.parametrize("Dh", EDGE_D)
+@pytest.mark.parametrize("W", EDGE_W)
+def test_verify_row_equals_decode_bitwise_at_partition_edges(W, Dh):
+    q, kp, vp, table, start = _edge_verify_case(W, Dh, seed=13)
+    qt, pools = _t(q), [_t(kp), _t(vp)]
+    out = ck.paged_attention_verify(qt, *pools, _t(table), _t(start))
+    for w in range(W):
+        dec = ck.paged_attention_decode(qt[:, w], *pools, _t(table),
+                                        _t(start + 1 + w))
+        assert torch.equal(out[:, w], dec), w
+
+
+@pytest.mark.parametrize("Dh", EDGE_D)
+def test_decode_plain_vs_pallas_and_lax_at_partition_edges(monkeypatch, Dh):
+    lengths = np.array(EDGE_LENGTHS, np.int32)
+    table, P = edge_tables(lengths, 12)
+    rng = np.random.RandomState(Dh)
+    q = rng.randn(len(lengths), H, Dh).astype(np.float32)
+    kp = rng.randn(P, KVB, H, Dh).astype(np.float32)
+    vp = rng.randn(P, KVB, H, Dh).astype(np.float32)
+    out = ck.paged_attention_decode(*(_t(x) for x in (q, kp, vp, table,
+                                                       lengths))).numpy()
+    args = [jnp.asarray(x) for x in (q, kp, vp, table, lengths)]
+    monkeypatch.setenv("MXNET_PALLAS", "1")
+    pallas = np.asarray(pk.paged_attention_decode(*args))
+    np.testing.assert_allclose(out, pallas, **TOL)
+    monkeypatch.setenv("MXNET_PALLAS", "0")
+    lax = np.asarray(jatt.paged_decode_attention(args[0][:, None],
+                                                 *args[1:]))[:, 0]
+    np.testing.assert_allclose(out, lax, **TOL)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_array_equal(out[0], np.zeros_like(out[0]))  # empty
 
 
 @pytest.mark.parametrize("name", ["fp32", "int8"])

@@ -228,3 +228,33 @@ class OracleProposer:
                     d[i] = (d[i] + 1) % V
                 return d
         return np.empty(0, np.int32)
+
+
+# the paged kernels' work-partition edges at this size (test_torch_spec.py,
+# test_torch_kvquant.py): head widths, window rows, table pages, lengths
+EDGE_D = (32, 48, 128)
+EDGE_W = (1, 2, 9)
+EDGE_MB = 6
+EDGE_LENGTHS = (0, 1, KVB - 1, KVB, KVB + 1, 2 * KVB, EDGE_MB * KVB)
+
+
+def edge_tables(lengths, seed):
+    """Fragmented block tables (padded with the scratch page 0) holding
+    ``lengths`` tokens a stream, and the pool's page count."""
+    rng = np.random.RandomState(seed)
+    B = len(lengths)
+    pages = rng.permutation(np.arange(1, 1 + B * EDGE_MB)).astype(np.int32)
+    table = np.zeros((B, EDGE_MB), np.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        k = -(-int(n) // KVB)
+        table[i, :k] = pages[used:used + k]
+        used += k
+    return table, 1 + B * EDGE_MB
+
+
+def edge_verify_starts(W):
+    """Starts on page boundaries (0, KVB, 2 KVB), one whose window ends a
+    token short of the table's last slot, and a padded batch row (start
+    0 over scratch pages, the last)."""
+    return np.array([0, KVB, 2 * KVB, EDGE_MB * KVB - W - 1, 0], np.int32)
