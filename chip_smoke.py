@@ -173,12 +173,22 @@
    first's.
 6. Greedy NMS (``nms``, fp32) at (B, A) = (8, 192), the toy SSD of
    ``examples/ssd.py``'s detection batch, and (32, 8732), SSD300's
-   detection batch, with ``force_suppress`` off and on, over
-   score-sorted rows made on the card (20 classes, boxes clustered so
-   that most rows are suppressed): the kernel must ``torch.equal`` its
-   plain version, and so at A = 12,000, where the boxes no longer fit
-   in shared memory.  No PyTorch call computes greedy NMS, so it has no
-   library time.
+   detection batch, with ``force_suppress`` off (the one-launch fused
+   path at 192 rows, the suppression mask in a workspace and the sweep
+   at 8732) and on (the survivors' kernel), over score-sorted rows made
+   on the card (20 classes, boxes clustered so that most rows are
+   suppressed): the kernel must ``torch.equal`` its plain version; each
+   record carries its path and workspace bytes, and at (8, 192) force
+   off also the mask and sweep's time there (``_nms_launch``).  Then at
+   its edges (``check_nms_edges``): A = 1, 63, 64, 65 and 257, 319,
+   320, 321 with interleaved dead rows, duplicate boxes and a pair whose
+   IoU equals the threshold, thresholds 0.45, 0, -0.5, 1 and 1.5, force
+   off and on (at A <= 65 force off on both the fused and the mask
+   path); whole blocks of dead rows; one 12,000-row image; three SSD300
+   images under a budget that holds two images' masks (two groups, one
+   launch).  ``nms_resources`` lines give each B7 kernel's registers,
+   shared and local memory (``cuobjdump``; none may use local memory).
+   No PyTorch call computes greedy NMS, so it has no library time.
 7. SSD300: upstream MXNet's ``example/ssd`` SSD300 over VGG16-reduced
    (``models/ssd.py``'s ``ssd300_symbol``) at its published widths:
    300x300 images, 8,732 anchors, 21 classes (PASCAL VOC's 20 +
@@ -192,7 +202,9 @@
    times.  Then the detection symbol in a second ``Module``, filled by
    ``set_params(*mod.get_params())``, detects every batch: one ``nms``
    launch a forward, scores sorted, and rows that ``torch.equal``
-   ``nms_plain`` of the same rows before NMS.
+   ``nms_plain`` of the same rows before NMS; B7 is also timed alone on
+   the first batch's rows (``nms_on_detection_rows``; those launches are
+   not counted).
 8. Sequence parallelism (``mt.sequence``) on one card, fp32, at the
    GPT-2-class attention width (H = 12, D = 64), over
    ``sequence_mesh(4, ["cuda:0"] * 4)`` (``sequence_path``): every
@@ -220,7 +232,7 @@ its backward, B9) in fp32 and bf16, the paged kernels
 (``paged_timing``), B6 at (60, 32, 200) and the float64 check, then
 serving runs A, B and C, the packed LM's and the DPA LM's training,
 the sequence phase and LSTM-PTB there, ``--kernels ROOT`` the kernels
-alone (see ``paths_timing``).
+alone, ``--nms ROOT`` B7 alone (see ``paths_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -1031,6 +1043,21 @@ def nms_tested_pairs(torch, rows, out, thr, force):
     return total
 
 
+def nms_path(ck, B, A, force):
+    """Which of B7's paths the wrapper takes for (B, A), and the bytes of
+    the workspace it allocates; None where the port under test has no
+    workspace (an earlier design)."""
+    if not hasattr(ck, "nms_workspace_bytes"):
+        return None, None
+    if force:
+        return "force", 0
+    if A <= ck.NMS_FUSED_MAX_ROWS:
+        return "fused", 0
+    per_image = ck.nms_workspace_bytes(A)
+    return "mask+sweep", min(B, ck.NMS_WORKSPACE_BUDGET // per_image) \
+        * per_image
+
+
 def check_nms(torch, ck, B, A, force, seed):
     """B7 against its plain version, bit for bit (``torch.equal``)."""
     rows = nms_rows(torch, B, A, seed)
@@ -1047,29 +1074,166 @@ def check_nms(torch, ck, B, A, force, seed):
     nbytes = 2 * rows.numel() * 4  # rows read once, written once
     b_ms, b_by = bound(nbytes, NMS_FLOPS_PER_PAIR * pairs, "float32")
     all_ms, _ = bound(nbytes, NMS_FLOPS_PER_PAIR * B * A * A, "float32")
-    return {
+    path, ws_bytes = nms_path(ck, B, A, force)
+    rec = {
         "kernel": "nms", "shape": f"B={B} A={A} force_suppress={force}",
         "dtype": "float32", "max_abs_err": 0.0, "bitwise": True,
+        "path": path, "workspace_bytes": ws_bytes,
         "suppressed_share": suppressed / max(1, int(live.sum())),
         "rounds": A, "live_rounds_max": int((got[..., 0] >= 0).sum(1).max()),
         "tested_pairs": pairs,
         "ms": time_ms(torch, lambda: ck.nms(rows, NMS_THRESHOLD, force)),
+        "device_ms": kernel_device_ms(
+            torch, lambda: ck.nms(rows, NMS_THRESHOLD, force)),
         "plain_ms": time_ms(torch, lambda: ck.nms_plain(
             rows, NMS_THRESHOLD, force), reps=3, warmup=1),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "bound_ms_all_pairs": all_ms}
+    if path == "fused":  # the mask and sweep at the same shape, for the choice
+        ws = torch.empty(B * ck.nms_workspace_bytes(A), dtype=torch.uint8,
+                         device=rows.device)
+        check(torch.equal(ck._nms_launch(rows, NMS_THRESHOLD, force, ws),
+                          ref), f"nms B={B} A={A} force={force} over a "
+              f"workspace differs from nms_plain")
+        rec["mask_sweep_ms"] = time_ms(torch, lambda: ck._nms_launch(
+            rows, NMS_THRESHOLD, force, ws))
+        rec["mask_sweep_device_ms"] = kernel_device_ms(
+            torch, lambda: ck._nms_launch(rows, NMS_THRESHOLD, force, ws))
+    return rec
 
 
-def check_nms_boxes_in_device_memory(torch, ck):
-    """At A = 12,000 an image's five columns (240 KB) exceed a block's
-    shared memory, so the kernel keeps only the class column there and
-    reads the boxes from device memory: it still equals the plain
-    version."""
-    big = nms_rows(torch, 1, 12000, 12)
-    check(torch.equal(ck.nms(big, NMS_THRESHOLD, True),
-                      ck.nms_plain(big, NMS_THRESHOLD, True)),
-          "nms at A=12000 (boxes in device memory) differs")
+def kernel_device_ms(torch, fn, reps=5):
+    """Device ms of each CUDA kernel one call of ``fn`` runs, by name:
+    ``torch.profiler`` over ``reps`` calls after one, the mean of the
+    launches it recorded (it may miss the first calls' records)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.search(r"(\w+_kernel(<[^>]*>)?)", e.key)
+            out[name.group(1) if name else e.key[:40]] = \
+                e.device_time_total / e.count / 1e3
+    return out
+
+
+def nms_edge_rows(torch, B, A, seed):
+    """``nms_rows`` with B7's edge cases: every 7th row dead before NMS
+    (interleaved), every 9th row's box a duplicate of the row before it
+    (IoU exactly 1), and from A = 4 on rows 2 and 3 of class 0 with boxes
+    [0, 0, 1, 1] and [0, 0, 1, h], h = float32(0.45): their float32 IoU
+    is exactly 0.45 (inter h, union 1 + h - h = 1)."""
+    rows = nms_rows(torch, B, A, seed)
+    rows[:, 3::7, 0] = -1.0
+    dup = torch.arange(9, max(A, 9), 9, device=rows.device)
+    rows[:, dup, 2:] = rows[:, dup - 1, 2:]
+    if A >= 4:
+        rows[:, 2:4, 0] = 0.0
+        rows[:, 2, 2:] = torch.tensor([0.0, 0.0, 1.0, 1.0],
+                                      device=rows.device)
+        rows[:, 3, 2:] = torch.tensor([0.0, 0.0, 1.0, 0.45],
+                                      device=rows.device)
+    return rows
+
+
+def check_nms_edges(torch, ck):
+    """B7 bit for bit against ``nms_plain`` at its edges, through the
+    wrapper: A in {1, 63, 64, 65} (force off: the fused path, and the
+    mask and sweep through ``_nms_launch`` over a workspace) and {257,
+    319, 320, 321} (force off: the mask and sweep) at B = 3 over
+    ``nms_edge_rows``, force off and on (the survivors' kernel),
+    thresholds 0.45, 0, -0.5, 1 and 1.5 (0 and below: every live pair of
+    a class suppresses; 1: duplicates only); A = 200 and 300 with whole
+    blocks of dead rows (mid-order, a tail, an image with none live);
+    then one 12,000-row image and SSD300's A under a workspace budget
+    that holds two of three images (two groups in one call, one launch
+    counted).  Returns the number of checks."""
+    n = 0
+    for A in (1, 63, 64, 65, 257, 319, 320, 321):
+        rows = nms_edge_rows(torch, 3, A, seed=A)
+        ws = torch.empty(3 * ck.nms_workspace_bytes(A), dtype=torch.uint8,
+                         device=rows.device)
+        for force in (False, True):
+            for thr in (NMS_THRESHOLD, 0.0, -0.5, 1.0, 1.5):
+                ref = ck.nms_plain(rows, thr, force)
+                check(torch.equal(ck.nms(rows, thr, force), ref),
+                      f"nms edge A={A} force={force} thr={thr}: differs "
+                      f"from nms_plain")
+                n += 1
+                if A <= ck.NMS_FUSED_MAX_ROWS and not force:
+                    check(torch.equal(ck._nms_launch(rows, thr, force, ws),
+                                      ref), f"nms edge A={A} thr={thr} "
+                          f"(mask and sweep): differs from nms_plain")
+                    n += 1
+    # whole blocks of dead rows (a dead block mid-order, a dead tail, an
+    # image with no live row): the mask skips them, the sweeps stop early
+    for A in (200, 300):
+        rows = nms_edge_rows(torch, 2, A, seed=A)
+        rows[:, 64:128, 0] = -1.0
+        rows[:, 150:, 0] = -1.0
+        rows[1, :, 0] = -1.0
+        for force in (False, True):
+            check(torch.equal(ck.nms(rows, NMS_THRESHOLD, force),
+                              ck.nms_plain(rows, NMS_THRESHOLD, force)),
+                  f"nms with dead blocks A={A} force={force}: differs "
+                  f"from nms_plain")
+            n += 1
+    big = nms_edge_rows(torch, 1, 12000, 12)
+    for force in (False, True):
+        check(torch.equal(ck.nms(big, NMS_THRESHOLD, force),
+                          ck.nms_plain(big, NMS_THRESHOLD, force)),
+              f"nms at A=12000 force={force} differs")
+        n += 1
+    rows = nms_edge_rows(torch, 3, 8732, 3)
+    budget = ck.NMS_WORKSPACE_BUDGET
+    ck.NMS_WORKSPACE_BUDGET = 2 * ck.nms_workspace_bytes(8732) + 8
+    try:
+        ck.reset_launch_counts()
+        got = ck.nms(rows, NMS_THRESHOLD, False)
+        check(ck.LAUNCHES["nms"] == 1, "a grouped nms call counted "
+              f"{ck.LAUNCHES['nms']} launches")
+    finally:
+        ck.NMS_WORKSPACE_BUDGET = budget
+    check(torch.equal(got, ck.nms_plain(rows, NMS_THRESHOLD, False)),
+          "nms over a workspace of two images (B=3 A=8732) differs")
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    return n + 1
+
+
+def nms_report(_build):
+    """Registers, shared and local memory of each of B7's four kernels
+    (``cuobjdump -res-usage``).  Raises when one uses local memory or one
+    is missing."""
+    import re
+
+    res = _cuobjdump(_build, ["-res-usage"], _build._target("nms"))
+    out = []
+    for fn, regs, stack, shared, local in re.findall(
+            r"Function (\S+?):\s+REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+            r"LOCAL:(\d+)", res):
+        kind = re.search(r"nms_(mask|sweep|fused|force)_kernel", fn)
+        if kind is None:
+            continue
+        rec = {"kernel": f"nms_{kind.group(1)}_kernel",
+               "registers": int(regs), "stack_bytes": int(stack),
+               "static_shared_bytes": int(shared),
+               "local_bytes": int(local)}
+        check(int(local) == 0, f"nms: {rec} uses local memory")
+        out.append(rec)
+    check(sorted(r["kernel"] for r in out) == [
+        "nms_force_kernel", "nms_fused_kernel", "nms_mask_kernel",
+        "nms_sweep_kernel"], f"nms: cuobjdump reports {out}, not the "
+        f"four kernels (mask, sweep, fused, force)")
+    return out
 
 
 def _ragged_tables(B, MB, rng, lengths=None):
@@ -2841,6 +3005,12 @@ def ssd_path(torch, mt, ck):
         before = raw.get_outputs()[0]._data
         check(torch.equal(rows, ck.nms_plain(before, NMS_THRESHOLD, False)),
               "detection rows differ from nms_plain of the rows before NMS")
+        if not images:  # B7 alone on this path's rows (launches not counted)
+            nms_rec = {"ms": time_ms(torch, lambda: ck.nms(
+                before, NMS_THRESHOLD, False)), "device_ms": kernel_device_ms(
+                torch, lambda: ck.nms(before, NMS_THRESHOLD, False)),
+                "live_rows_per_image": float((before[:, :, 0] >= 0).float()
+                                             .sum(1).mean())}
         s = rows[:, :, 1]
         check(bool(((s[:, :-1] >= s[:, 1:]) | (s[:, 1:] < 0)).all()),
               "detection scores not sorted")
@@ -2865,6 +3035,7 @@ def ssd_path(torch, mt, ck):
             "train_peak_memory_bytes": int(train_peak),
             "detection_batches": len(det_ms),
             "detection_forward_p50_ms": float(np.median(det_ms)),
+            "nms_on_detection_rows": nms_rec,
             "detections_per_image": kept / images,
             "rows_suppressed": dropped,
             "top_detection_right_share": hits / images,
@@ -3110,20 +3281,21 @@ def paged_timing(torch, ck, tatt, F, MB=64):
     return recs
 
 
-def paths_timing(root, paths=True):
+def paths_timing(root, mode="paths"):
     """``python3 chip_smoke.py --paths ROOT``: the tensor-core kernels at
     their main-path shapes, in fp32 and bf16 — B1's forward at (1, 1024)
     and (8, 1024), B1's backward at (8, 1024), B5's forward (with B5's
     backward) at ``PATH_MHA_SHAPES``, B8 and B9 at the ring's past hop,
     the paged kernels (``paged_timing``), B6 at LSTM-PTB's (60, 32,
     200), the four timed user kernels (B10's port, per call and back to
-    back) and ``float64_check`` — then serving runs A, B and C (the
-    verify steps),
-    the packed LM's training run, the DPA LM's, the sequence phase and
-    LSTM-PTB, on the port under ROOT (a checkout, e.g. a parent
-    commit unpacked beside this one), one JSON line each; ``--kernels
-    ROOT`` the kernels alone.  Run parent, change, change, parent in one
-    call to compare two versions on one card."""
+    back), ``float64_check`` and B7 (``nms``) at ``NMS_SHAPES`` with
+    force off and on — then serving runs A, B and C (the verify steps),
+    the packed LM's training run, the DPA LM's, the sequence phase,
+    LSTM-PTB and SSD300 (its detection forward p50, and B7 alone on its
+    rows), on the port under ROOT (a checkout, e.g. a parent commit
+    unpacked beside this one), one JSON line each; ``--kernels ROOT``
+    the kernels alone, ``--nms ROOT`` B7 alone.  Run parent, change,
+    change, parent in one call to compare two versions on one card."""
     import torch
     import torch.nn.functional as F
 
@@ -3139,34 +3311,41 @@ def paths_timing(root, paths=True):
 
     check(ck.__file__.startswith(root), f"imported {ck.__file__}, not "
           f"the port under {root}")
-    from mxnet_tpu_torch.examples import user_cuda_kernel as ex
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gelu_kernels = register_user_gelu(torch, mt)
-    _build.build(sources=[(k.name, k.text, ()) for k in (
-        ex.register().kernel, ex.silu_grad, *gelu_kernels)])
-    for dtype in ("float32", "bfloat16"):
-        recs = [check_prefill(torch, ck, F, 1024, dtype, B=B)
-                for B in (1, TRAIN_BATCH)]
-        recs += check_backward(torch, ck, F, TRAIN_BATCH, 1024, dtype)
-        for shape in PATH_MHA_SHAPES:
-            recs += check_mha(torch, ck, F, *shape, dtype)
-        recs += check_partial(torch, ck, F, *PARTIAL_SHAPES[1], dtype)
-        for rec in recs:
+    if mode != "nms":
+        from mxnet_tpu_torch.examples import user_cuda_kernel as ex
+
+        gelu_kernels = register_user_gelu(torch, mt)
+        _build.build(sources=[(k.name, k.text, ()) for k in (
+            ex.register().kernel, ex.silu_grad, *gelu_kernels)])
+        for dtype in ("float32", "bfloat16"):
+            recs = [check_prefill(torch, ck, F, 1024, dtype, B=B)
+                    for B in (1, TRAIN_BATCH)]
+            recs += check_backward(torch, ck, F, TRAIN_BATCH, 1024, dtype)
+            for shape in PATH_MHA_SHAPES:
+                recs += check_mha(torch, ck, F, *shape, dtype)
+            recs += check_partial(torch, ck, F, *PARTIAL_SHAPES[1], dtype)
+            for rec in recs:
+                print(json.dumps({"paths_timing": {"root": root, **rec}}))
+            torch.cuda.empty_cache()
+        for rec in paged_timing(torch, ck, tatt, F):
             print(json.dumps({"paths_timing": {"root": root, **rec}}))
         torch.cuda.empty_cache()
-    for rec in paged_timing(torch, ck, tatt, F):
+        rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
         print(json.dumps({"paths_timing": {"root": root, **rec}}))
+        for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0]:
+            print(json.dumps({"paths_timing": {"root": root, **rec}}))
+        for rec in float64_check(torch, ck):
+            print(json.dumps({"paths_timing": {"root": root,
+                                               "float64": rec}}))
+        torch.cuda.empty_cache()
+    for B, A in NMS_SHAPES:
+        for force in (False, True):
+            rec = check_nms(torch, ck, B, A, force, seed=B + A)
+            print(json.dumps({"paths_timing": {"root": root, **rec}}))
     torch.cuda.empty_cache()
-    rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
-    print(json.dumps({"paths_timing": {"root": root, **rec}}))
-    for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0]:
-        print(json.dumps({"paths_timing": {"root": root, **rec}}))
-    for rec in float64_check(torch, ck):
-        print(json.dumps({"paths_timing": {"root": root, "float64": rec}}))
-    torch.cuda.empty_cache()
-    if not paths:
+    if mode != "paths":
         print(card_line())
         return 0
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
@@ -3184,6 +3363,8 @@ def paths_timing(root, paths=True):
     runs["sequence_path"] = sequence_path(torch, mt, ck)
     torch.cuda.empty_cache()
     runs["lstm_path"] = lstm_path(torch, mt, ck)
+    torch.cuda.empty_cache()
+    runs["ssd300_path"] = ssd_path(torch, mt, ck)
     for name, rec in runs.items():
         print(json.dumps({"paths_timing": {"root": root, name: rec}}))
     print(card_line())
@@ -3229,6 +3410,8 @@ def main():
     for rec in paged_report(_build):
         if rec["head_dim_bucket"] == D:
             print(json.dumps({"paged_resources": rec}))
+    for rec in nms_report(_build):
+        print(json.dumps({"nms_resources": rec}))
 
     rng = np.random.RandomState(2)
     checks = []
@@ -3321,7 +3504,7 @@ def main():
         for force in (False, True):
             checks.append(check_nms(torch, ck, B, A, force, seed=B + A))
             print(json.dumps({"check": checks[-1]}))
-    check_nms_boxes_in_device_memory(torch, ck)
+    print(json.dumps({"nms_edges": {"checks": check_nms_edges(torch, ck)}}))
     torch.cuda.empty_cache()
     user_checks, user_extra = user_kernel_checks(torch, F, ex, gelu_kernels)
     for c in user_checks + user_extra:
@@ -3467,7 +3650,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
-    if sys.argv[1:2] in (["--paths"], ["--kernels"]):
+    if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
-                              paths=sys.argv[1] == "--paths"))
+                              mode=sys.argv[1][2:]))
     sys.exit(main())

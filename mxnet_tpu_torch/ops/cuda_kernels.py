@@ -36,8 +36,9 @@ the serving and training paths:
   thread-block cluster holds the recurrent weight in shared memory for
   every step where it fits, an L2-streaming kernel above that size;
 * ``nms`` — greedy non-maximum suppression over score-sorted detection
-  rows, one block an image (``csrc/nms.cu``, replacing ``nms`` and its
-  body ``_nms_kernel``).
+  rows: a parallel suppression mask, then a sweep one round a 64-row
+  block (``csrc/nms.cu``, replacing ``nms`` and its body
+  ``_nms_kernel``).
 
 The paged entry points launch one kernel (``csrc/paged_attention.cuh``,
 a cluster of CTAs a (stream, head), decode its one-row case): verify row
@@ -82,7 +83,8 @@ __all__ = ["flash_mha_packed", "flash_mha_packed_plain",
            "gather_dequant",
            "paged_attention_verify", "paged_attention_verify_plain",
            "lstm_scan", "lstm_scan_plain", "LSTM_MAX_HIDDEN", "nms",
-           "nms_plain", "LAUNCHES", "reset_launch_counts",
+           "nms_plain", "nms_workspace_bytes", "NMS_WORKSPACE_BUDGET",
+           "NMS_FUSED_MAX_ROWS", "LAUNCHES", "reset_launch_counts",
            "HEAD_DIM_BUCKETS"]
 
 LAUNCHES: Dict[str, int] = {"flash_mha_packed": 0,
@@ -109,6 +111,13 @@ FLASH_MHA_MAX_HEAD_DIM = HEAD_DIM_BUCKETS[-1]
 # the largest LSTM hidden size lstm_scan takes (its L2-streaming kernel:
 # one thread per hidden unit)
 LSTM_MAX_HIDDEN = 1024
+# nms with force_suppress off: the largest A of the one-launch path (the
+# mask in shared memory; csrc/nms.cu's kFusedMaxRows), and the most device
+# memory a call's mask workspace takes: above it the images run in
+# groups.  An A whose one image's mask exceeds it (A > 92,672) is refused
+# with force on or off
+NMS_FUSED_MAX_ROWS = 256
+NMS_WORKSPACE_BUDGET = 1 << 30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # quantized page codes of the kernels' kv_code argument
 _QUANT_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -1166,16 +1175,28 @@ def nms_plain(rows: torch.Tensor, nms_threshold: float,
     return out
 
 
+def nms_workspace_bytes(A: int) -> int:
+    """Bytes of one image's suppression mask: A rows of ceil(A / 64)
+    64-bit words."""
+    return A * -(-A // 64) * 8
+
+
 def nms(rows: torch.Tensor, nms_threshold: float,
         force_suppress: bool) -> torch.Tensor:
     """Greedy NMS over score-sorted rows (B, A, 6) [cls, score, l, t, r,
     b] float32: in order of i, a live row (cls >= 0) suppresses every
     later live row of its class (any class under ``force_suppress``)
     whose IoU with it is at least ``nms_threshold`` by setting its cls
-    to -1.  Returns a new tensor; columns 1-5 pass through.  The kernel
-    keeps an image's class column in shared memory, and its boxes too
-    where they fit; an A whose class column does not fit (~58k rows on
-    an H100) fails to launch."""
+    to -1.  Returns a new tensor; columns 1-5 pass through.
+
+    On the card: under ``force_suppress`` one launch that tests only the
+    survivors' pairs.  Otherwise A <= ``NMS_FUSED_MAX_ROWS`` runs one
+    launch with the mask in shared memory, and a larger A computes the
+    mask into a workspace of ``nms_workspace_bytes(A)`` an image, then
+    sweeps it: the workspace, at most ``NMS_WORKSPACE_BUDGET`` bytes, is
+    allocated on the rows' stream and the images run in groups of as
+    many as it holds.  One call counts one launch, whatever the
+    groups."""
     if rows.ndim != 3 or rows.shape[2] != 6:
         raise MXNetError(f"nms wants rows (B, A, 6); got "
                          f"{tuple(rows.shape)}")
@@ -1187,12 +1208,44 @@ def nms(rows: torch.Tensor, nms_threshold: float,
     if not rows.is_contiguous():
         raise MXNetError("nms: rows must be contiguous")
     B, A, _ = rows.shape
-    fn = _load("nms", "nms", [_vp, _vp, _i, _i, ctypes.c_float, _i, _vp])
+    if B == 0 or A == 0:
+        raise MXNetError(f"nms: no rows ({tuple(rows.shape)})")
+    per_image = nms_workspace_bytes(A)
+    if per_image > NMS_WORKSPACE_BUDGET:
+        raise MXNetError(f"nms: A = {A} rows (one image's suppression mask, "
+                         f"{per_image} bytes, exceeds NMS_WORKSPACE_BUDGET)")
+    workspace = None
+    if not force_suppress and A > NMS_FUSED_MAX_ROWS:
+        workspace = torch.empty(
+            min(B, NMS_WORKSPACE_BUDGET // per_image) * per_image,
+            dtype=torch.uint8, device=rows.device)
+    out = _nms_launch(rows, nms_threshold, force_suppress, workspace)
+    LAUNCHES["nms"] += 1
+    return out
+
+
+def _nms_launch(rows: torch.Tensor, nms_threshold: float,
+                force_suppress: bool,
+                workspace: torch.Tensor | None) -> torch.Tensor:
+    """B7's kernels on contiguous float32 CUDA rows (B, A, 6), counting
+    no launch: under ``force_suppress`` the survivors' kernel; else with
+    a ``workspace`` (8-byte aligned, on the rows' device) the mask and
+    the sweep, the images in groups of as many as it holds, and without
+    one the fused launch (A <= ``NMS_FUSED_MAX_ROWS``)."""
+    B, A, _ = rows.shape
+    group, ws = B, 0
+    if workspace is not None and not force_suppress:
+        group = min(B, workspace.nbytes // nms_workspace_bytes(A))
+        ws = workspace.data_ptr()
+    fn = _load("nms", "nms", [_vp, _vp, _vp, _i, _i, ctypes.c_float, _i,
+                              _vp])
     out = torch.empty_like(rows)
+    step = A * 6 * rows.element_size()  # bytes of one image's rows
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rows.data_ptr(), out.data_ptr(), B, A, float(nms_threshold),
-                 int(bool(force_suppress)), stream)
-    _check_launch(err, "nms")
-    LAUNCHES["nms"] += 1
+        for b in range(0, B, group):
+            err = fn(rows.data_ptr() + b * step, out.data_ptr() + b * step,
+                     ws, min(group, B - b), A, float(nms_threshold),
+                     int(bool(force_suppress)), stream)
+            _check_launch(err, "nms")
     return out

@@ -9,11 +9,12 @@ batch is a batch dimension written out here; the bipartite matching's
 batched rounds.  Stable sorts throughout, as ``jnp.argsort``: invalid
 rows (score -1) and the non-candidates of hard-negative mining tie.
 
-``MultiBoxDetection``'s greedy NMS over float32 rows is
-``cuda_kernels.nms`` (``csrc/nms.cu`` on the card, its plain version on
-the CPU); the JAX package sends other dtypes to a lax loop, for which
-the port has no route on the card, so they raise.  The targets and the
-detections carry no gradient, as the JAX ops stop it.
+``MultiBoxDetection`` decodes, scores and sorts in the input dtype and
+returns float32 rows whatever that dtype (its class column is float32,
+as the JAX op's), so its greedy NMS is always ``cuda_kernels.nms`` over
+float32 rows (``csrc/nms.cu`` on the card, its plain version on the
+CPU).  ``MultiBoxTarget``'s ``cls_target`` has the labels' dtype.  The
+targets and the detections carry no gradient, as the JAX ops stop it.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..base import MXNetError, attr_bool, attr_float, not_ported
+from ..base import MXNetError, attr_bool, attr_float
 from . import cuda_kernels
 from .registry import register
 
@@ -231,8 +232,10 @@ def multibox_target(anchors: torch.Tensor, labels: torch.Tensor,
     loc_target = torch.where(positive[..., None], loc_t, 0.0).reshape(B, -1)
     loc_mask = positive[..., None].expand(B, A, 4).to(
         torch.float32).reshape(B, -1)
+    # the labels' dtype, as the JAX op's weakly typed scalars keep it
     cls_target = torch.where(positive, gt[..., 0] + 1.0,
-                             torch.where(negative, 0.0, ignore_label))
+                             torch.where(negative, 0.0, ignore_label).to(
+                                 labels.dtype))
     return loc_target, loc_mask, cls_target
 
 
@@ -274,8 +277,8 @@ def multibox_detection(cls_prob: torch.Tensor, loc_pred: torch.Tensor,
                        force_suppress: bool = False,
                        variances=(0.1, 0.1, 0.2, 0.2)) -> torch.Tensor:
     """Decode and suppress: cls_prob (B, C, A), loc_pred (B, A*4),
-    anchors (1, A, 4) → rows (B, A, 6) [cls, score, l, t, r, b] sorted
-    by score; rows below ``threshold`` and rows NMS suppresses have
+    anchors (1, A, 4) → float32 rows (B, A, 6) [cls, score, l, t, r, b]
+    sorted by score; rows below ``threshold`` and rows NMS suppresses have
     cls -1 (the first also score -1)."""
     anchors = anchors.reshape(-1, 4)
     B, C, A = cls_prob.shape
@@ -293,17 +296,17 @@ def multibox_detection(cls_prob: torch.Tensor, loc_pred: torch.Tensor,
     if clip:
         boxes = boxes.clamp(0.0, 1.0)
     score = torch.max(cls_prob[:, 1:], dim=1).values  # best non-background
-    cid = torch.argmax(cls_prob[:, 1:], dim=1).to(cls_prob.dtype)
+    # float32 class ids make float32 rows, as the JAX op's concatenate
+    # promotes them; the score and boxes keep their rounding
+    cid = torch.argmax(cls_prob[:, 1:], dim=1).to(torch.float32)
     keep = score >= threshold
     cid = torch.where(keep, cid, -1.0)
     score = torch.where(keep, score, -1.0)
-    rows = torch.cat([cid[..., None], score[..., None], boxes], dim=-1)
+    rows = torch.cat([cid[..., None], score[..., None].float(),
+                      boxes.float()], dim=-1)
     order = torch.argsort(-score, dim=1, stable=True)  # invalid rows sink
     rows = torch.gather(rows, 1, order[..., None].expand(B, A, 6))
     if 0 < nms_threshold <= 1:
-        if rows.dtype != torch.float32:
-            raise not_ported(f"MultiBoxDetection's NMS over {rows.dtype} "
-                             f"rows (the nms kernel takes float32)")
         rows = cuda_kernels.nms(rows.contiguous(), nms_threshold,
                                 force_suppress)
     return rows

@@ -193,18 +193,33 @@ def test_unknown_source_is_refused(fake):
 
 def test_nms_source_kernel_and_wrapper(fake):
     """csrc/nms.cu stands alone, exports the entry point the wrapper
-    loads and computes the IoU with round-to-nearest intrinsics (no
-    contracted multiply-add); ``nms`` counts its launches and routes a
-    CPU tensor to ``nms_plain``."""
+    loads (rows, out, the mask workspace or null, B, A, thr, force,
+    stream), computes the IoU with round-to-nearest intrinsics (no
+    contracted multiply-add), holds its four kernels (mask, sweep,
+    fused, and the survivors' kernel under force), and mirrors the
+    wrapper's one-launch limit; ``nms`` routes a CPU tensor to
+    ``nms_plain`` without a launch, and counts one launch per CUDA call
+    (its grouped host path:
+    ``test_nms_wrapper_groups_images_by_its_workspace`` in
+    test_torch_detection.py)."""
+    import inspect
+
     _, csrc = fake
     src = (csrc / "nms.cu").read_text()
-    assert 'extern "C" int nms(' in src and ".cuh" not in src
+    assert 'extern "C" int nms(const void* rows, void* out, void* mask,' \
+        in src and ".cuh" not in src
     for op in ("__fmul_rn", "__fsub_rn", "__fadd_rn", "__fdiv_rn",
-               "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+               "nms_mask_kernel", "nms_sweep_kernel", "nms_fused_kernel",
+               "nms_force_kernel",
+               "return cudaGetLastError();", "constexpr int kBlock = 64;"):
         assert op in src
+    assert "cudaMalloc" not in src and "Synchronize" not in src
+    assert "template" not in src  # one instantiation a kernel
     assert "nms" in _build.SOURCES
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
+    assert f"kFusedMaxRows = {ck.NMS_FUSED_MAX_ROWS};" in src
+    assert inspect.getsource(ck.nms).count('LAUNCHES["nms"] += 1') == 1
     assert "nms" in ck.LAUNCHES
     import torch
 
@@ -221,19 +236,27 @@ def test_nms_source_kernel_and_wrapper(fake):
 
 
 def test_multibox_detection_raises_for_rows_the_kernel_does_not_take():
+    """``MultiBoxDetection`` gives float32 rows whatever its input dtype
+    (C12: float32 class ids, as the JAX op), so its NMS always gets rows
+    the kernel takes, with NMS on and off; the ``nms`` wrapper still
+    refuses rows that are not (B, A, 6).  The name is historical: before
+    C12 was repaired, bf16 rows with NMS on raised here."""
     import torch
 
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
     from mxnet_tpu_torch.ops.detection import multibox_detection
 
     B, C, A = 2, 3, 12
     prob = torch.softmax(torch.randn(B, C, A), 1).to(torch.bfloat16)
     loc = torch.zeros(B, A * 4, dtype=torch.bfloat16)
     anchors = torch.rand(1, A, 4).to(torch.bfloat16)
-    with pytest.raises(MXNetError, match="not ported"):
-        multibox_detection(prob, loc, anchors)
-    # without NMS the decode runs in any dtype
-    rows = multibox_detection(prob, loc, anchors, nms_threshold=0)
-    assert rows.dtype == torch.bfloat16 and rows.shape == (B, A, 6)
+    rows = multibox_detection(prob, loc, anchors)
+    raw = multibox_detection(prob, loc, anchors, nms_threshold=0)
+    assert rows.dtype == raw.dtype == torch.float32
+    assert rows.shape == raw.shape == (B, A, 6)
+    assert torch.equal(rows, ck.nms_plain(raw, 0.5, False))
+    with pytest.raises(MXNetError, match="rows"):
+        ck.nms(raw[..., :5], 0.5, False)
 
 
 def test_no_code_path_catches_a_failed_launch():
