@@ -223,7 +223,29 @@
    transfer between cards.
 9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels and the
    four timed user kernels, launches summed over the runs), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   line, and last ``{"ok": true, "device": {...}}``, after phase 10.
+10. Image classification (``image_path``; no kernel of the port's own
+   on this path: cuDNN's convolutions and eager PyTorch ops, TF32 off as
+   everywhere in this script, the ``tf32`` entry of its line), launch
+   counts reset just before and read just after, every built-in and
+   user kernel 0 times: ``train_mnist.main`` (the port's
+   ``examples/train_mnist.py``) on ``gpu(0)`` for LeNet and the MLP at
+   its defaults (batch 64, SGD lr 0.05, momentum 0.9, wd 1e-4,
+   ``Xavier(gaussian, in, 2)``, 3 epochs of the synthetic 4,096-image
+   set), each above ``MNIST_MIN_ACCURACY`` on the 512 validation
+   images; ResNet-50's first step at full width, batch 4, against the
+   same step by the port on the CPU (outputs and loss within ``TOL``,
+   the 157 weight gradients within ``BWD_TOL``, the 102 new moving
+   statistics within ``TOL``); the ``train_imagenet.py --benchmark 1``
+   path (``resnet_train``: ResNet-50, 3x224x224, 1,000 classes, batch
+   32, SGD lr 0.1, momentum 0.9, wd 1e-4, through ``Module.fit`` with a
+   ``Speedometer``, 2 epochs of 20 batches; images/s and step p50 of the
+   second epoch, peak memory; gates: finite outputs, every moving
+   statistic finite and moved, the last 5 batches' cross-entropy below
+   the first 5's); ``benchmark_score.score`` of ResNet-50 at batch 1, 8
+   and 32 and LeNet at 1 and 32 (images/s); ``Module.predict`` over
+   three batches of 8, the last padded, ``torch.equal`` to the trimmed
+   ``forward`` outputs.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
@@ -231,8 +253,10 @@ the tensor-core kernels (B1's forward and backward, B5's forward with
 its backward, B9) in fp32 and bf16, the paged kernels
 (``paged_timing``), B6 at (60, 32, 200) and the float64 check, then
 serving runs A, B and C, the packed LM's and the DPA LM's training,
-the sequence phase and LSTM-PTB there, ``--kernels ROOT`` the kernels
-alone, ``--nms ROOT`` B7 alone (see ``paths_timing``).
+the sequence phase, LSTM-PTB, SSD300 and ResNet-50's training run
+(``resnet_train``) there, ``--kernels ROOT`` the kernels
+alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone (see
+``paths_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -278,6 +302,17 @@ NMS_CLASSES, NMS_THRESHOLD, NMS_FLOPS_PER_PAIR = 20, 0.45, 20
 # synthetic data set and the epochs cut to the run's time
 SSD300 = dict(images=256, batch=32, epochs=6, lr=0.002, momentum=0.9,
               wd=0.0005)
+
+# image classification: train_imagenet.py --benchmark 1 (ResNet-50 at
+# 3x224x224, 1,000 classes, batch 32, SGD lr 0.1, momentum 0.9, wd 1e-4,
+# Xavier(gaussian, in, 2)), 2 epochs of 20 batches cycling two seeded
+# batches; the first-step check at batch 4; benchmark_score.py's batches
+IMAGE = dict(network="resnet-50", image_shape=(3, 224, 224), classes=1000,
+             batch=32, lr=0.1, momentum=0.9, wd=1e-4, epochs=2, batches=20,
+             check_batch=4, score_batches=(1, 8, 32),
+             lenet_score_batches=(1, 32), score_reps=20, predict_batch=8,
+             predict_images=20)
+MNIST_MIN_ACCURACY = 0.99
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
@@ -3223,6 +3258,374 @@ def sequence_path(torch, mt, ck):
     return rec
 
 
+def resnet50(mt):
+    return mt.models.get_symbol(IMAGE["network"],
+                                num_classes=IMAGE["classes"],
+                                image_shape=IMAGE["image_shape"])
+
+
+def image_bind(mt, sym, ctx, batch, for_training=True):
+    mod = mt.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch,) + IMAGE["image_shape"])],
+             label_shapes=[("softmax_label", (batch,))],
+             for_training=for_training)
+    return mod
+
+
+def image_step(torch, mt, sym, ctx, params, batch, float64=False):
+    """One ``forward_backward`` of ``sym`` bound on ``ctx`` from
+    ``params`` → (outputs, mean cross-entropy, {weight: gradient},
+    {aux: new value}), all float64 on the host.  With ``float64`` every
+    bound array is cast to float64 first (the port's BatchNorm then
+    keeps its statistics in float64)."""
+    B = batch.data[0].shape[0]
+    mod = image_bind(mt, sym, ctx, B)
+    mod.init_params(arg_params=params[0], aux_params=params[1])
+    ex = mod._exec
+    if float64:
+        for arrays in (ex.arg_dict, ex.grad_dict, ex.aux_dict):
+            for a in arrays.values():
+                a._data = a._data.double()
+    mod.forward_backward(batch)
+    out = ex.outputs[0]._data.double().cpu()
+    lab = batch.label[0]._data.long()[:, None]
+    return (out, float(-torch.log(out.gather(1, lab)).mean()),
+            {n: ex.grad_dict[n]._data.double().cpu() for n in params[0]},
+            {n: a._data.double().cpu() for n, a in ex.aux_dict.items()})
+
+
+def resnet_first_step(torch, mt):
+    """One ResNet-50 ``forward_backward`` at full width, batch
+    ``IMAGE["check_batch"]``, on ``gpu(0)`` against the same step by the
+    port on the CPU from the same seeded ``Xavier(gaussian, in, 2)``
+    parameters: outputs, the mean cross-entropy and every new moving
+    statistic within ``TOL`` (scaled by max(1, max|CPU value|)).
+
+    The weight gradients of this step are ill-conditioned in float32:
+    the CPU's own float32 step misses the same step in float64 by ~1.5%
+    in norm and by up to ~17% of a gradient's largest value, the card's
+    by as much (measured on the H100), so no two float32 runs meet
+    ``BWD_TOL`` here.  They are held against the CPU's float64 step
+    instead: the card's error norm over all weights at most 1.5 times
+    the CPU float32's, and each weight's largest error (over its
+    largest value) at most twice the CPU float32's worst; gradients
+    that are exactly zero (``bn_data``'s fixed gamma) stay zero."""
+    B = IMAGE["check_batch"]
+    sym = resnet50(mt)
+    rng = np.random.RandomState(11)
+    X = rng.rand(B, *IMAGE["image_shape"]).astype(np.float32)
+    Y = rng.randint(0, IMAGE["classes"], size=B).astype(np.float32)
+    batch = mt.io.DataBatch([mt.nd.array(X, ctx=mt.cpu())],
+                            [mt.nd.array(Y, ctx=mt.cpu())])
+    init = image_bind(mt, sym, mt.cpu(), B)
+    mt.random.seed(0)
+    init.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+    params = init.get_params()
+    del init
+    rout, rloss, rgrads, raux = image_step(torch, mt, sym, mt.cpu(), params,
+                                           batch)
+    _, _, grads64, _ = image_step(torch, mt, sym, mt.cpu(), params, batch,
+                                  float64=True)
+    out, loss, grads, aux = image_step(torch, mt, sym, mt.gpu(0), params,
+                                       batch)
+    torch.cuda.empty_cache()
+
+    def err_over_tol(a, ref, tol):
+        return (a - ref).abs().max().item() \
+            / (tol * max(1.0, ref.abs().max().item()))
+
+    worst = {"outputs": err_over_tol(out, rout, TOL["float32"]),
+             "loss": abs(loss - rloss) / (TOL["float32"] * max(1.0, rloss))}
+    errs = {n: err_over_tol(aux[n], raux[n], TOL["float32"]) for n in raux}
+    worst["moving_statistic_name"] = name = max(errs, key=errs.get)
+    worst["moving_statistic"] = errs[name]
+    check(bool(torch.isfinite(out).all()) and worst["outputs"] <= 1
+          and worst["loss"] <= 1 and worst["moving_statistic"] <= 1
+          and len(aux) == len(sym.list_auxiliary_states()),
+          f"ResNet-50 first step on the card against the CPU: {worst}")
+    check(len(grads) == len(sym.list_arguments()) - 2
+          and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          f"ResNet-50 first step: {len(grads)} gradients, or one not finite")
+    zero = [n for n, g in grads64.items() if not g.any()]
+    check(all(not grads[n].any() and not rgrads[n].any() for n in zero),
+          f"ResNet-50 first step: a gradient of {zero} is not zero")
+
+    def vs64(g):
+        rel = {n: ((g[n] - grads64[n]).abs().max()
+                   / grads64[n].abs().max()).item()
+               for n in grads64 if n not in zero}
+        diff = torch.cat([(g[n] - grads64[n]).reshape(-1) for n in grads64])
+        return rel, diff.norm().item()
+
+    ref_norm = torch.cat([g.reshape(-1) for g in grads64.values()]).norm()
+    card_rel, card_norm = vs64(grads)
+    cpu_rel, cpu_norm = vs64(rgrads)
+    worst.update({
+        "grad_err_norm_vs_float64": card_norm / ref_norm.item(),
+        "cpu_grad_err_norm_vs_float64": cpu_norm / ref_norm.item(),
+        "grad_max_rel_err_vs_float64": max(card_rel.values()),
+        "cpu_grad_max_rel_err_vs_float64": max(cpu_rel.values()),
+        "grad_vs_cpu_over_bwd_tol": max(
+            err_over_tol(grads[n], rgrads[n], BWD_TOL["float32"])
+            for n in grads)})
+    check(card_norm <= 1.5 * cpu_norm and max(card_rel.values())
+          <= 2 * max(cpu_rel.values()), f"ResNet-50 first step: the card's "
+          f"gradients miss the float64 step by more than the CPU's float32 "
+          f"ones: {worst}")
+    print(f"ResNet-50 first step on the card against the CPU: {worst}")
+    return {"batch": B, "loss": loss, "cpu_loss": rloss,
+            "err_over_tol": worst}
+
+
+def resnet_train(torch, mt):
+    """``train_imagenet.py --benchmark 1`` at full width: ResNet-50
+    through ``Module.fit`` on ``gpu(0)`` over ``synthetic_image_iter``
+    (two seeded batches cycled by ``ResizeIter``), ``IMAGE``'s epochs,
+    batches and optimizer, ``Xavier(gaussian, in, 2)``, accuracy and a
+    ``Speedometer`` every 10 batches.  A step is timed by host clock
+    around ``forward_backward`` + ``update`` + synchronize; images/s and
+    step p50 are the last epoch's.  Gates: every output finite; every
+    moving statistic finite and moved from its initial value; the mean
+    cross-entropy of the last 5 batches below that of the first 5."""
+    from mxnet_tpu_torch.examples.common import synthetic_image_iter
+
+    step_ms = []
+
+    class TimedModule(mt.mod.Module):
+        def forward_backward(self, data_batch):
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+            super().forward_backward(data_batch)
+
+        def update(self):
+            super().update()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - self._t0) * 1e3)
+
+    B, batches = IMAGE["batch"], IMAGE["batches"]
+    train = synthetic_image_iter(B, IMAGE["image_shape"], IMAGE["classes"],
+                                 batches)
+    mod = TimedModule(resnet50(mt), context=mt.gpu(0))
+    ce, finite, epoch_end = [], [], []
+
+    def on_batch(param):
+        prob = mod.get_outputs()[0]._data
+        lab = param.locals["data_batch"].label[0]._data.to(prob.device)
+        ce.append(-torch.log(prob.gather(1, lab.long()[:, None])).mean())
+        finite.append(torch.isfinite(prob).all())
+        if param.nbatch == batches - 1:
+            torch.cuda.synchronize()
+            epoch_end.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.random.seed(0)
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=IMAGE["epochs"], eval_metric="acc",
+            optimizer="sgd", optimizer_params={
+                "learning_rate": IMAGE["lr"], "wd": IMAGE["wd"],
+                "momentum": IMAGE["momentum"]},
+            initializer=mt.initializer.Xavier(rnd_type="gaussian",
+                                              factor_type="in", magnitude=2),
+            batch_end_callback=[mt.callback.Speedometer(B, 10), on_batch])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = IMAGE["epochs"] * batches
+    check(len(step_ms) == steps == len(ce), f"{len(step_ms)} timed steps, "
+          f"{len(ce)} batches for {steps}")
+    check(bool(torch.stack(finite).all()), "ResNet-50: an output is not "
+          "finite")
+    ce = torch.stack(ce).tolist()
+    aux = mod._exec.aux_dict
+    moved = [n for n, a in aux.items() if bool(torch.isfinite(a._data).all())
+             and bool((a._data != (0.0 if n.endswith("_mean")
+                                   else 1.0)).any())]
+    check(len(moved) == len(aux) == len(mod.symbol.list_auxiliary_states()),
+          f"ResNet-50: {len(aux) - len(moved)}"
+          f" moving statistics not finite or not moved: "
+          f"{sorted(set(aux) - set(moved))[:5]}")
+    check(np.mean(ce[-5:]) < np.mean(ce[:5]), f"ResNet-50 cross-entropy did "
+          f"not fall: {ce}")
+    run_ms = list(step_ms)  # the breakdown's steps are not the run's
+    last = run_ms[-batches:]
+    print(f"ResNet-50 cross-entropy by batch: {ce}")
+    train.reset()
+    breakdown = resnet_breakdown(torch, mt, mod, next(train))
+    print(f"ResNet-50 step breakdown: {breakdown}")
+    return {"config": dict(IMAGE), "steps": steps,
+            "cross_entropy": ce, "step_ms": run_ms,
+            "step_p50_ms": float(np.median(last)),
+            "images_per_s": B * batches / (sum(last) / 1e3),
+            "last_epoch_wall_images_per_s": B * batches
+            / (epoch_end[-1] - epoch_end[-2]),
+            "wall_s": wall, "peak_memory_bytes": int(peak),
+            "breakdown": breakdown, "reference_p100_images_per_s": 181.53}
+
+
+# ResNet-50's step by the aten op that launched each kernel: a key
+# containing a substring of a class lands there; the rest (BatchNorm's
+# eager ops, the residual adds, the loss head) is "batchnorm_adds_rest"
+STEP_OP_CLASSES = (("convolution", ("convolution",)),
+                   ("relu", ("relu", "clamp_min", "threshold_backward")),
+                   ("pool", ("pool",)), ("fc", ("addmm", "aten::mm")),
+                   ("copy", ("copy_", "_to_copy")))
+
+
+def device_ms_by_class(torch, fn, reps):
+    """Device ms a call of ``fn`` by ``STEP_OP_CLASSES``: the self
+    device time of each aten op (the kernels it launched), from
+    ``torch.profiler`` over ``reps`` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in STEP_OP_CLASSES}
+    out["batchnorm_adds_rest"] = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type) != "DeviceType.CPU":
+            continue  # a kernel's own entry: counted under its aten op
+        ms = e.self_device_time_total / reps / 1e3
+        name = next((n for n, keys in STEP_OP_CLASSES
+                     if any(k in e.key for k in keys)),
+                    "batchnorm_adds_rest")
+        out[name] += ms
+    return out
+
+
+def resnet_breakdown(torch, mt, mod, batch, reps=3):
+    """Where a ResNet-50 training step of the bound ``mod`` goes, on
+    ``batch`` after training: host-clock forward, backward and update
+    (each ending in a synchronize; medians of ``reps``); the device time
+    of ``forward_backward`` and of ``update`` by the aten ops that
+    launched it (``device_ms_by_class``); the convolutions' FLOPs
+    (forward, data and weight gradients, from the symbol's shapes) and
+    rate; the BatchNorm layers and the elements they normalize."""
+    parts = {"forward": [], "backward": [], "update": []}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        parts[name].append((time.perf_counter() - t) * 1e3)
+
+    for _ in range(reps):
+        timed("forward", lambda: mod.forward(batch, is_train=True))
+        timed("backward", mod.backward)
+        timed("update", mod.update)
+    out = {k + "_ms": float(np.median(v)) for k, v in parts.items()}
+    fb = device_ms_by_class(torch, lambda: mod.forward_backward(batch), reps)
+    upd = device_ms_by_class(torch, mod.update, reps)
+    out["forward_backward_device_ms"] = fb
+    out["update_device_ms"] = sum(upd.values())
+    out["step_device_ms"] = sum(fb.values()) + out["update_device_ms"]
+
+    sym = mod.symbol
+    B = batch.data[0].shape[0]
+    internals = sym.get_internals()
+    arg_shapes, out_shapes, _ = internals.infer_shape(
+        data=(B,) + IMAGE["image_shape"], softmax_label=(B,))
+    shape_of = dict(zip(internals.list_outputs(), out_shapes))
+    shape_of.update(zip(internals.list_arguments(), arg_shapes))
+    flops, bn_elements, bn_layers = 0, 0, 0
+    for node in sym._topo():
+        if node.op == "Convolution":
+            w = shape_of[f"{node.name}_weight"]
+            flops += 3 * 2 * int(np.prod(shape_of[f"{node.name}_output"])) \
+                * int(np.prod(w[1:]))
+        elif node.op == "BatchNorm":
+            bn_layers += 1
+            bn_elements += int(np.prod(shape_of[f"{node.name}_output"]))
+    conv = fb["convolution"]
+    rate = flops / (conv / 1e3) if conv else float("nan")
+    out.update(conv_gflop=flops / 1e9, conv_tflop_per_s=rate / 1e12,
+               conv_share_of_fp32_peak=rate / PEAK_FLOPS["float32"],
+               batchnorm_layers=bn_layers, batchnorm_elements=bn_elements,
+               parameters=len(mod._exec.grad_dict),
+               aux_states=len(mod._exec.aux_dict))
+    return out
+
+
+def image_path(torch, mt, ck):
+    """Phase 10, image classification, on ``gpu(0)``: ``train_mnist``
+    for LeNet and the MLP at its defaults (gate: validation accuracy
+    >= ``MNIST_MIN_ACCURACY``), ResNet-50's first step against the CPU
+    (``resnet_first_step``), its training run (``resnet_train``), then
+    ``benchmark_score``'s scoring of ResNet-50 and LeNet, and
+    ``Module.predict`` over three batches, the last one padded, which
+    must ``torch.equal`` the trimmed ``forward`` outputs.  The launch
+    counts are reset just before and read just after: no built-in or
+    user kernel may launch on this path."""
+    from mxnet_tpu_torch.examples import benchmark_score, train_mnist
+
+    dev = mt.gpu(0)
+    torch.cuda.synchronize()
+    reset_launch_counts(ck)  # counts from here on: image classification
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    mnist = {}
+    for net in ("lenet", "mlp"):
+        np.random.seed(0)  # the training iterator's shuffle
+        mt.random.seed(0)  # Xavier's draws
+        t0 = time.perf_counter()
+        acc = float(train_mnist.main(["--network", net], ctx=dev))
+        mnist[net] = {"val_accuracy": acc,
+                      "wall_s": time.perf_counter() - t0}
+        check(acc >= MNIST_MIN_ACCURACY, f"train_mnist {net}: validation "
+              f"accuracy {acc} below {MNIST_MIN_ACCURACY}")
+    first = resnet_first_step(torch, mt)
+    train = resnet_train(torch, mt)
+    torch.cuda.empty_cache()
+    score = {}
+    for net, shape, classes, sizes in (
+            ("resnet-50", IMAGE["image_shape"], IMAGE["classes"],
+             IMAGE["score_batches"]),
+            ("lenet", (1, 28, 28), 10, IMAGE["lenet_score_batches"])):
+        for b in sizes:
+            mt.random.seed(0)
+            score[f"{net} batch {b}"] = benchmark_score.score(
+                net, b, shape, classes, dev, num_batches=IMAGE["score_reps"])
+    print(f"scoring images/s: {score}")
+
+    Bp, n = IMAGE["predict_batch"], IMAGE["predict_images"]
+    pmod = image_bind(mt, resnet50(mt), dev, Bp, for_training=False)
+    mt.random.seed(0)
+    pmod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+    rng = np.random.RandomState(12)
+    it = mt.io.NDArrayIter(
+        rng.rand(n, *IMAGE["image_shape"]).astype(np.float32),
+        rng.randint(0, IMAGE["classes"], size=n).astype(np.float32),
+        batch_size=Bp)
+    merged = pmod.predict(it)._data
+    it.reset()
+    trimmed, pads = [], []
+    for batch in it:
+        pmod.forward(batch, is_train=False)
+        out = pmod.get_outputs()[0]._data
+        trimmed.append(out[:out.shape[0] - batch.pad].clone())
+        pads.append(batch.pad)
+    check(pads == [0, 0, 3 * Bp - n] and merged.shape == (n, IMAGE["classes"])
+          and torch.equal(merged, torch.cat(trimmed)),
+          f"Module.predict (pads {pads}, shape {tuple(merged.shape)}) does "
+          f"not equal the trimmed forward outputs")
+    del pmod
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    check(not any(launches.values()), f"the image path launched a kernel: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return {"tf32": tf32, "mnist": mnist, "resnet50_first_step": first,
+            "resnet50_train": train, "score_images_per_s": score,
+            "predict": {"images": n, "batch": Bp, "pads": pads,
+                        "equal_to_forward": True},
+            "launches": launches}
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -3291,10 +3694,12 @@ def paths_timing(root, mode="paths"):
     back), ``float64_check`` and B7 (``nms``) at ``NMS_SHAPES`` with
     force off and on — then serving runs A, B and C (the verify steps),
     the packed LM's training run, the DPA LM's, the sequence phase,
-    LSTM-PTB and SSD300 (its detection forward p50, and B7 alone on its
-    rows), on the port under ROOT (a checkout, e.g. a parent commit
+    LSTM-PTB, SSD300 (its detection forward p50, and B7 alone on its
+    rows) and ResNet-50's training run (step p50, images/s), on the
+    port under ROOT (a checkout, e.g. a parent commit
     unpacked beside this one), one JSON line each; ``--kernels ROOT``
-    the kernels alone, ``--nms ROOT`` B7 alone.  Run parent, change,
+    the kernels alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase
+    10 (image classification) alone.  Run parent, change,
     change, parent in one call to compare two versions on one card."""
     import torch
     import torch.nn.functional as F
@@ -3313,6 +3718,11 @@ def paths_timing(root, mode="paths"):
           f"the port under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mode == "image":
+        print(json.dumps({"paths_timing": {
+            "root": root, "image_path": image_path(torch, mt, ck)}}))
+        print(card_line())
+        return 0
     if mode != "nms":
         from mxnet_tpu_torch.examples import user_cuda_kernel as ex
 
@@ -3365,6 +3775,8 @@ def paths_timing(root, mode="paths"):
     runs["lstm_path"] = lstm_path(torch, mt, ck)
     torch.cuda.empty_cache()
     runs["ssd300_path"] = ssd_path(torch, mt, ck)
+    torch.cuda.empty_cache()
+    runs["resnet50_train"] = resnet_train(torch, mt)
     for name, rec in runs.items():
         print(json.dumps({"paths_timing": {"root": root, name: rec}}))
     print(card_line())
@@ -3548,6 +3960,11 @@ def main():
               for n in SEQ_KERNELS), "B8/B9 launched on an earlier path")
     sequence = sequence_path(torch, mt, ck)
     print(json.dumps({"sequence_path": sequence}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    image = image_path(torch, mt, ck)
+    image["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"image_path": image}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
@@ -3608,7 +4025,7 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence]
+    all_runs = earlier + [sequence, image]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -3650,7 +4067,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
-    if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"]):
+    if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
+                         ["--image"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

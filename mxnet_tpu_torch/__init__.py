@@ -6,7 +6,10 @@ It serves the ``transformer_lm`` family through :class:`DecodeEngine`
 trains it through ``mod.Module`` over the ``transformer_lm`` symbol or
 over user-written ``sym.DotProductAttention`` symbols, trains and
 scores the LSTM language model through ``mod.BucketingModule`` over
-``sym.RNN``, trains and runs the SSD detector, and cuts long sequences
+``sym.RNN``, trains and runs the SSD detector, trains and scores the
+image classifiers (LeNet, the MLP, ResNet with ``sym.BatchNorm``'s
+moving statistics as aux states; ``examples/train_mnist.py``,
+``train_imagenet.py``, ``benchmark_score.py``), and cuts long sequences
 over devices (``sequence``: ring and Ulysses attention), on hand-written
 CUDA kernels (packed-QKV flash attention forward and backward,
 attention over separate q, k, v forward and backward, the partial
@@ -37,6 +40,7 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Group, Variable
 from . import callback, executor, initializer, io, metric, optimizer
+from . import lr_scheduler
 from . import module
 from . import module as mod
 from . import models
@@ -48,5 +52,6 @@ from .serving import DecodeEngine, EngineClosedError
 __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
            "cpu", "gpu", "current_context", "params_from_numpy",
            "params_to_numpy", "nd", "sym", "mod", "io", "metric", "callback",
-           "optimizer", "initializer", "random", "models", "speculative",
-           "operator", "rtc", "sequence", "Variable", "Group", "AttrScope"]
+           "optimizer", "lr_scheduler", "initializer", "random", "models",
+           "speculative", "operator", "rtc", "sequence", "Variable", "Group",
+           "AttrScope"]

@@ -153,7 +153,8 @@ class Executor:
         with torch.set_grad_enabled(trace):
             outs, new_aux = self._graph_fn(args, aux, None, bool(is_train))
         for name, val in new_aux.items():
-            self.aux_dict[name][:] = val
+            if val is not self.aux_dict[name]._data:  # an op left it as is
+                self.aux_dict[name][:] = val
         if trace:
             self._train_graph = (outs, leaves)
         self.outputs_cache = [NDArray(o.detach(), self._ctx) for o in outs]

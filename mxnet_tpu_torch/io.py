@@ -1,10 +1,10 @@
 """Data iterators.
 
-Counterpart of ``mxnet_tpu/io.py:59-268``: ``DataDesc``, ``DataBatch``,
-``DataIter`` and ``NDArrayIter`` (shuffle, ``last_batch_handle`` pad /
-discard / roll_over).  Batches are host (CPU) NDArrays; the module that
-consumes them stages each one onto its own device, into the arrays it
-bound.
+Counterpart of ``mxnet_tpu/io.py:59-310``: ``DataDesc``, ``DataBatch``,
+``DataIter``, ``NDArrayIter`` (shuffle, ``last_batch_handle`` pad /
+discard / roll_over) and ``ResizeIter``.  Batches are host (CPU)
+NDArrays; the module that consumes them stages each one onto its own
+device, into the arrays it bound.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import numpy as np
 from .context import cpu
 from .ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
+           "ResizeIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -177,3 +178,49 @@ class NDArrayIter(DataIter):
                 and self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class ResizeIter(DataIter):
+    """``size`` batches an epoch from ``data_iter``, which is reset and
+    read again whenever it runs out (``mxnet_tpu/io.py:270``).  With
+    ``reset_internal`` every ``reset`` also resets ``data_iter``;
+    without it, the next epoch goes on where this one stopped."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad

@@ -2,8 +2,10 @@
 
 Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``, ``Accuracy``
 (``:142``), ``Perplexity`` (``:262``), ``CrossEntropy`` (``:408``),
-``Loss`` (``:426``) and ``create``.  Scores are summed on the host from
-``asnumpy()`` of each batch's outputs, the reference's numpy path.
+``Loss`` (``:426``) and ``create``.  ``Accuracy`` and ``Perplexity``
+score NDArray predictions where they lie and read one sum back in
+``get``; the other metrics, and the cases those two leave to the host,
+sum ``asnumpy()`` of each batch's outputs, the reference's numpy path.
 """
 
 from __future__ import annotations
@@ -77,14 +79,52 @@ class EvalMetric:
 
 class Accuracy(EvalMetric):
     """Classification accuracy; predictions with a trailing class axis
-    are reduced by argmax."""
+    are reduced by argmax (the first maximum, as ``jnp.argmax``).
+
+    A pair of NDArrays whose shapes are equal, or differ by the
+    prediction's trailing class axis, is counted where the prediction
+    lies (``mxnet_tpu/metric.py:122-192``): the count adds to a device
+    scalar, the prediction never crosses to the host, and ``get`` reads
+    the sum back once.  A label on another device (the port's iterators
+    give host batches, where the JAX package's lie on the default
+    device) moves to the prediction's first, as ``Perplexity``'s does.
+    Anything else takes the reference's numpy path."""
 
     def __init__(self):
         super().__init__("accuracy")
+        self._dev = None  # (correct, count) summed where preds lie
+
+    def reset(self):
+        super().reset()
+        self._dev = None
+
+    def get(self):
+        if self._dev is not None:
+            correct, num = self._dev
+            self.sum_metric += int(correct)
+            self.num_inst += num
+            self._dev = None
+        return super().get()
+
+    def _device_update(self, label, pred):
+        p = pred._data
+        if p.shape != label._data.shape:
+            p = torch.argmax(p, dim=-1)
+        lab = label._data.to(p.device, non_blocking=True)
+        correct = (p.to(torch.int32).reshape(-1)
+                   == lab.to(torch.int32).reshape(-1)).sum()
+        num = lab.numel()
+        self._dev = (correct, num) if self._dev is None \
+            else (self._dev[0] + correct, self._dev[1] + num)
 
     def update(self, labels, preds):
         check_label_shapes(labels, preds)
         for label, pred_label in zip(labels, preds):
+            if isinstance(label, NDArray) and isinstance(pred_label, NDArray):
+                ps, ls = pred_label.shape, label.shape
+                if ps == ls or (len(ps) == len(ls) + 1 and ps[:-1] == ls):
+                    self._device_update(label, pred_label)
+                    continue
             pred_label = _as_np(pred_label)
             label = _as_np(label)
             if pred_label.ndim > label.ndim or (

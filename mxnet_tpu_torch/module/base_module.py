@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/module/base_module.py``: the bind →
 init_params → init_optimizer lifecycle plus ``forward_backward``
-(``:41-43``), ``score`` and ``fit`` (``:117``).  Checkpoints, resume,
-elastic mode and monitors are not ported yet and raise.
+(``:41-43``), ``score``, ``iter_predict`` and ``predict``
+(``:74-115``) and ``fit`` (``:117``).  Checkpoints, resume, elastic
+mode and monitors are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import time
 from collections import namedtuple
 
 from .. import metric as metric_mod
-from ..base import not_ported
+from .. import ndarray as nd
+from ..base import MXNetError, not_ported
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -69,6 +71,47 @@ class BaseModule:
             for callback in _as_list(score_end_callback):
                 callback(params)
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield (outputs, nbatch, batch) for each batch of ``eval_data``
+        run with ``is_train=False``, the outputs cut by the batch's pad
+        (views of the module's outputs, valid until the next forward)."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("iter_predict needs a bound module with "
+                               "parameters")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over ``eval_data`` (``is_train=False``), each
+        batch's cut by its pad: with ``merge_batches`` one array per
+        output, concatenated over the batches (the array itself for a
+        single output unless ``always_output_list``), else a list of
+        each batch's outputs."""
+        output_list = [[out.copy() for out in outputs]
+                       for outputs, _, _ in self.iter_predict(
+                           eval_data, num_batch=num_batch, reset=reset)]
+        if not (output_list and merge_batches):
+            return output_list
+        num_outputs = len(output_list[0])
+        if any(len(out) != num_outputs for out in output_list):
+            raise MXNetError("Cannot merge batches, as num of outputs is "
+                             "not the same in mini-batches. Maybe bucketing "
+                             "is used?")
+        merged = [nd.concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,

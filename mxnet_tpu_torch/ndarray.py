@@ -2,7 +2,7 @@
 
 Counterpart of ``mxnet_tpu/ndarray.py``, holding what the training
 path touches: creation (``array``, ``zeros``, ``empty``, ``ones``,
-``full``, ``arange``), ``asnumpy``,
+``full``, ``arange``), ``concatenate``, ``asnumpy``, ``wait_to_read``,
 ``shape``/``dtype``/``context``, ``copy``/``copyto``, ``__setitem__``
 (how initializers, ``set_params`` and batches write), ``__getitem__``
 and ``slice``, elementwise arithmetic, and the imperative op namespace:
@@ -28,7 +28,7 @@ from .base import MXNetError, attrs_to_str, numeric_types
 from .context import Context, cpu, current_context
 
 __all__ = ["NDArray", "array", "zeros", "empty", "ones", "full", "arange",
-           "torch_dtype", "dtype_name", "imperative_invoke"]
+           "concatenate", "torch_dtype", "dtype_name", "imperative_invoke"]
 
 _py_slice = slice
 
@@ -119,6 +119,12 @@ class NDArray:
         return self.shape[0]
 
     # -- sync / conversion -------------------------------------------------
+    def wait_to_read(self):
+        """Block until the work queued on this array's device is done
+        (``mxnet_tpu/ndarray.py:106``)."""
+        if self._data.device.type == "cuda":
+            torch.cuda.synchronize(self._data.device)
+
     def asnumpy(self) -> np.ndarray:
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
@@ -277,6 +283,13 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx: Optional[Context] = None,
     if repeat > 1:
         vals = np.repeat(vals, repeat)
     return array(vals, ctx=ctx, dtype=dtype)
+
+
+def concatenate(arrays, axis=0, always_copy=True) -> NDArray:
+    """The arrays joined along ``axis``, on the first one's context
+    (``mxnet_tpu/ndarray.py:368``); the result is always a new array."""
+    return NDArray(torch.cat([a._data for a in arrays], dim=axis),
+                   arrays[0]._ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@ the loss heads.
 
 Counterpart of the ``FullyConnected`` (``:50``), ``Activation``
 (``:98``), ``Convolution`` (``:201-295``), ``Pooling`` (``:367-428``),
-``LayerNorm`` (``:532``), ``L2Normalization`` (``:608``),
-``SoftmaxOutput`` (``:669-768``),
+``BatchNorm`` (``:431-529``), ``LayerNorm`` (``:532``),
+``L2Normalization`` (``:608``), ``SoftmaxOutput`` (``:669-768``),
 ``SoftmaxCELoss`` (``:770-832``) and ``MakeLoss`` (``:878-909``) ops of
 ``mxnet_tpu/ops/nn.py``.  The matmul and the convolution go to torch,
 as the JAX package leaves them to XLA outside any Pallas kernel.
@@ -28,8 +28,8 @@ from ..base import (MXNetError, attr_bool, attr_float, attr_int, attr_shape,
                     not_ported)
 from .registry import register
 
-__all__ = ["fully_connected", "layer_norm", "gelu", "softmax_ce_loss",
-           "softmax_output", "make_loss"]
+__all__ = ["fully_connected", "layer_norm", "gelu", "fused_mean_var",
+           "batch_norm", "softmax_ce_loss", "softmax_output", "make_loss"]
 
 
 def fully_connected(x: torch.Tensor, weight: torch.Tensor,
@@ -217,6 +217,111 @@ def _pooling_op(op_ctx, attrs, inputs, aux):
         out = pool(x, kernel, stride,
                    divisor_override=1 if pool_type == "sum" else None)
     return [out[..., 0] if one_d else out]
+
+
+def fused_mean_var(xf: torch.Tensor, in_dtype: torch.dtype, dims,
+                   shift_index):
+    """Batch statistics as ``_fused_mean_var`` of ``mxnet_tpu/ops/nn.py:
+    431-457`` computes them, over ``dims`` of ``xf`` (the input in float32,
+    or in float64 for a float64 input, which the JAX package, without
+    64-bit mode, never sees): the
+    mean and the biased variance ``max(E[x^2] - E[x]^2, 0)``.  Every
+    input dtype but bfloat16 is first shifted by a detached sample of
+    each channel, ``xf[shift_index]``, which lies inside the data's
+    range, so ``E[x^2] - E[x]^2`` cannot cancel catastrophically where
+    |mean| >> std; bfloat16 (8 mantissa bits cannot hold such a spread)
+    is unshifted, as there."""
+    # torch.maximum, not clamp: at a tie the gradient splits in half, as
+    # jnp.maximum's does
+    zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
+    if in_dtype == torch.bfloat16:
+        mean = xf.mean(dim=dims)
+        mean_sq = xf.square().mean(dim=dims)
+        return mean, torch.maximum(mean_sq - mean.square(), zero)
+    shift = xf[shift_index].detach()
+    xs = xf - shift
+    mean_s = xs.mean(dim=dims)
+    var = torch.maximum(xs.square().mean(dim=dims) - mean_s.square(), zero)
+    return mean_s + shift.reshape(-1), var
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, is_train: bool,
+               eps: float = 1e-3, momentum: float = 0.9,
+               fix_gamma: bool = True, use_global_stats: bool = False):
+    """BatchNorm over channel axis 1 → (out, mean, var, new_mean,
+    new_var), the port of ``_batch_norm`` (``mxnet_tpu/ops/nn.py:
+    465-514``).  In training (without ``use_global_stats``) the batch
+    statistics of ``fused_mean_var`` normalize, in the aux dtype, and
+    the new moving statistics ``moving * momentum + stat * (1 -
+    momentum)`` come back detached (statistics in float32, float64 for a
+    float64 input); otherwise the moving statistics are
+    constants and come back as they are.  ``fix_gamma`` puts ones in
+    gamma's place, so gamma's gradient is zero.  The normalization runs
+    in the dtype the operands promote to (float32 statistics promote a
+    bfloat16 input) and the output is cast to the input's dtype.
+
+    Not ``F.batch_norm``: its running variance is the unbiased one, its
+    momentum is ``1 - momentum`` here, and it updates the running
+    tensors in place inside the autograd graph."""
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    if is_train and not use_global_stats:
+        dims = (0,) + tuple(range(2, x.ndim))
+        shift_index = (slice(0, 1), slice(None)) \
+            + (slice(0, 1),) * (x.ndim - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = fused_mean_var(xf, x.dtype, dims, shift_index)
+        mean = mean.to(moving_mean.dtype)
+        var = var.to(moving_var.dtype)
+        new_mean = (moving_mean * momentum + mean * (1 - momentum)).detach()
+        new_var = (moving_var * momentum + var * (1 - momentum)).detach()
+    else:
+        mean, var = moving_mean.detach(), moving_var.detach()
+        new_mean, new_var = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    out = (x - mean.reshape(bshape)) * inv.reshape(bshape) \
+        * gamma.reshape(bshape) + beta.reshape(bshape)
+    return out.to(x.dtype), mean, var, new_mean, new_var
+
+
+def _bn_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], [None, None]
+    c = (d[1],)
+    outs = [tuple(d)]
+    if attr_bool(attrs.get("output_mean_var"), False):
+        outs += [c, c]
+    return [tuple(d), c, c], outs, [c, c]
+
+
+def _bn_outs(attrs):
+    if attr_bool(attrs.get("output_mean_var"), False):
+        return ["output", "mean", "var"]
+    return ["output"]
+
+
+@register("BatchNorm", arg_names=("data", "gamma", "beta"),
+          aux_names=("moving_mean", "moving_var"), out_names=_bn_outs,
+          infer_shape=_bn_infer,
+          doc="Batch normalization over axis 1 with the moving statistics "
+              "as aux states")
+def _batch_norm_op(op_ctx, attrs, inputs, aux):
+    x, gamma, beta = inputs
+    out, mean, var, new_mean, new_var = batch_norm(
+        x, gamma, beta, *aux, is_train=op_ctx.is_train,
+        eps=attr_float(attrs.get("eps", 1e-3), 1e-3),
+        momentum=attr_float(attrs.get("momentum", 0.9), 0.9),
+        fix_gamma=attr_bool(attrs.get("fix_gamma"), True),
+        use_global_stats=attr_bool(attrs.get("use_global_stats"), False))
+    outs = [out]
+    if attr_bool(attrs.get("output_mean_var"), False):
+        # the moving statistics are the aux storage itself: an output
+        # gets its own copy
+        outs += [mean.clone(), var.clone()] if new_mean is aux[0] \
+            else [mean, var]
+    return outs, [new_mean, new_var]
 
 
 def _ln_infer(attrs, in_shapes):
