@@ -223,7 +223,8 @@
    transfer between cards.
 9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels and the
    four timed user kernels, launches summed over the runs), the card
-   line, and last ``{"ok": true, "device": {...}}``, after phase 10.
+   line, and last ``{"ok": true, "device": {...}}``, after phases 10
+   and 11.
 10. Image classification (``image_path``; no kernel of the port's own
    on this path: cuDNN's convolutions and eager PyTorch ops, TF32 off as
    everywhere in this script, the ``tf32`` entry of its line), launch
@@ -246,6 +247,37 @@
    and 32 and LeNet at 1 and 32 (images/s); ``Module.predict`` over
    three batches of 8, the last padded, ``torch.equal`` to the trimmed
    ``forward`` outputs.
+11. Per-node randomness, Dropout, the rest of the CNN ops and the CNN
+   families (``cnn_dropout_path``; fp32, TF32 off), launch counts reset
+   just before and summed over its parts just after: (a) the training
+   run's LM with ``LM_DROPOUT`` after each attention projection and
+   feed-forward (``dropout_lm_path``): one seed set twice gives bitwise
+   equal masks over two forwards, two nodes of a step and two steps of
+   a node give other masks, each keeps within 6 sigma of 1 - p; 10 SGD
+   steps as in 4 (B1 forward and backward 12 times a step, a falling
+   loss); the inference forward ``torch.equal`` to the dropout-free
+   LM's on the same weights; (b) LSTM-PTB's symbol with
+   ``LSTM_DROPOUT`` between its layers, one bucket-60 batch: 2
+   ``lstm_scan`` launches, a finite loss, layer 0's mask keeping within
+   6 sigma; (c) AlexNet (BASELINE's row: 3x224x224, 1,000 classes,
+   batch 256, ``CNN_TRAIN``) through ``train_imagenet.main`` (its Module
+   timing each step), 2 epochs of 20 batches: images/s and step p50 of
+   the second epoch, peak memory, device time by aten op
+   (``CNN_OP_CLASSES``); gates: finite outputs, the last 5 batches'
+   cross-entropy below the first 5's; (d) AlexNet's first step at batch
+   4 on the card against the CPU replaying the card's masks (float32
+   outputs and loss within ``TOL``; the same step in float64 on both,
+   outputs within ``TOL`` and gradients within ``BWD_TOL``; float32
+   gradients within ``BWD_TOL`` except below a ReLU or max-pool decision
+   the card's float32 forward takes otherwise); (e)
+   Inception-v3 (3x299x299, batch 32) as (c), every moving statistic
+   finite and moved; (f) ``benchmark_score.score`` at batch 1 and 32
+   of AlexNet, VGG, Inception-BN, Inception-v3 and ResNet-50 with the
+   s2d stem; (g) every op of queue A item 2 through ``mt.nd`` on the
+   card against the CPU, forward (``TOL``) and gradient (``BWD_TOL``),
+   rrelu and ``Dropout`` with their draws injected, and a Dropout of
+   2^24 ones keeping within 6 sigma of 1 - p.  Only (a) and (b) launch
+   the port's kernels.
 
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
@@ -255,8 +287,8 @@ its backward, B9) in fp32 and bf16, the paged kernels
 serving runs A, B and C, the packed LM's and the DPA LM's training,
 the sequence phase, LSTM-PTB, SSD300 and ResNet-50's training run
 (``resnet_train``) there, ``--kernels ROOT`` the kernels
-alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone (see
-``paths_timing``).
+alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
+``--cnn ROOT`` phase 11 alone (see ``paths_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
@@ -313,6 +345,27 @@ IMAGE = dict(network="resnet-50", image_shape=(3, 224, 224), classes=1000,
              lenet_score_batches=(1, 32), score_reps=20, predict_batch=8,
              predict_images=20)
 MNIST_MIN_ACCURACY = 0.99
+
+# phase 11: GPT-2 small's residual dropout (Radford et al. 2019) on the
+# training run's LM; LSTM-PTB's symbol with p = 0.5 between its layers;
+# BASELINE's AlexNet (batch 256) and Inception-v3 (batch 32, 3x299x299)
+# training rows through train_imagenet.py --benchmark 1 (AlexNet, which
+# has no BatchNorm, at lr 0.01, the rate of Krizhevsky et al. 2012); the
+# AlexNet first-step check at batch 4; benchmark_score's batches 1 and 32
+# of the scoring row's networks and ResNet-50's s2d stem
+LM_DROPOUT, LSTM_DROPOUT = 0.1, 0.5
+CNN_TRAIN = {
+    "alexnet": dict(image_shape=(3, 224, 224), classes=1000, batch=256,
+                    lr=0.01, epochs=2, batches=20),
+    "inception-v3": dict(image_shape=(3, 299, 299), classes=1000, batch=32,
+                         lr=0.1, epochs=2, batches=20)}
+ALEXNET_CHECK_BATCH = 4
+CNN_SCORE = (("alexnet", (3, 224, 224), {}), ("vgg", (3, 224, 224), {}),
+             ("inception-bn", (3, 224, 224), {}),
+             ("inception-v3", (3, 299, 299), {}),
+             ("resnet-50", (3, 224, 224), {"stem": "s2d"}))
+CNN_SCORE_BATCHES = (1, 32)
+DROPOUT_MASK_ELEMENTS = 1 << 24
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
@@ -1984,12 +2037,13 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
             "peak_memory_bytes": int(peak), "launches": launches}
 
 
-def packed_lm_symbol(mt):
+def packed_lm_symbol(mt, dropout=0.0):
     V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
         GPT2_SMALL["max_len"]
     return mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
                                     d_model=GPT2_SMALL["d_model"],
-                                    d_ff=GPT2_SMALL["d_ff"], head="ce")
+                                    d_ff=GPT2_SMALL["d_ff"], head="ce",
+                                    dropout=dropout)
 
 
 def train_path(torch, mt, ck):
@@ -2691,8 +2745,9 @@ def custom_op_path(torch, mt):
             "loss_last_epoch": float(np.mean(losses[-4:])), "wall_s": wall}
 
 
-def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers):
-    """``make_sym_gen`` of ``examples/lstm_bucketing.py:134-153``."""
+def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers, dropout=0.0):
+    """``make_sym_gen`` of ``examples/lstm_bucketing.py:134-153``;
+    ``dropout`` between the LSTM layers (the RNN's ``p``)."""
     def sym_gen(seq_len):
         data = mt.sym.Variable("data")
         label = mt.sym.Variable("softmax_label")
@@ -2703,7 +2758,7 @@ def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers):
                          state=mt.sym.Variable("rnn_state"),
                          state_cell=mt.sym.Variable("rnn_state_cell"),
                          state_size=num_hidden, num_layers=num_layers,
-                         mode="lstm", name="rnn")
+                         mode="lstm", p=dropout, name="rnn")
         out = mt.sym.Reshape(mt.sym.transpose(rnn, axes=(1, 0, 2)),
                              shape=(-1, num_hidden))
         pred = mt.sym.FullyConnected(out, num_hidden=vocab, name="pred")
@@ -3264,9 +3319,10 @@ def resnet50(mt):
                                 image_shape=IMAGE["image_shape"])
 
 
-def image_bind(mt, sym, ctx, batch, for_training=True):
+def image_bind(mt, sym, ctx, batch, for_training=True,
+               shape=IMAGE["image_shape"]):
     mod = mt.mod.Module(sym, context=ctx)
-    mod.bind(data_shapes=[("data", (batch,) + IMAGE["image_shape"])],
+    mod.bind(data_shapes=[("data", (batch,) + tuple(shape))],
              label_shapes=[("softmax_label", (batch,))],
              for_training=for_training)
     return mod
@@ -3279,7 +3335,7 @@ def image_step(torch, mt, sym, ctx, params, batch, float64=False):
     bound array is cast to float64 first (the port's BatchNorm then
     keeps its statistics in float64)."""
     B = batch.data[0].shape[0]
-    mod = image_bind(mt, sym, ctx, B)
+    mod = image_bind(mt, sym, ctx, B, shape=batch.data[0].shape[1:])
     mod.init_params(arg_params=params[0], aux_params=params[1])
     ex = mod._exec
     if float64:
@@ -3472,10 +3528,13 @@ STEP_OP_CLASSES = (("convolution", ("convolution",)),
                    ("copy", ("copy_", "_to_copy")))
 
 
-def device_ms_by_class(torch, fn, reps):
-    """Device ms a call of ``fn`` by ``STEP_OP_CLASSES``: the self
-    device time of each aten op (the kernels it launched), from
+def device_ms_by_class(torch, fn, reps, classes=None, rest=None):
+    """Device ms a call of ``fn`` by ``classes`` (``STEP_OP_CLASSES``,
+    the rest under ``rest``, "batchnorm_adds_rest"): the self device
+    time of each aten op (the kernels it launched), from
     ``torch.profiler`` over ``reps`` calls after one."""
+    classes = classes or STEP_OP_CLASSES
+    rest = rest or "batchnorm_adds_rest"
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3485,15 +3544,14 @@ def device_ms_by_class(torch, fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {name: 0.0 for name, _ in STEP_OP_CLASSES}
-    out["batchnorm_adds_rest"] = 0.0
+    out = {name: 0.0 for name, _ in classes}
+    out[rest] = 0.0
     for e in prof.key_averages():
         if str(e.device_type) != "DeviceType.CPU":
             continue  # a kernel's own entry: counted under its aten op
         ms = e.self_device_time_total / reps / 1e3
-        name = next((n for n, keys in STEP_OP_CLASSES
-                     if any(k in e.key for k in keys)),
-                    "batchnorm_adds_rest")
+        name = next((n for n, keys in classes
+                     if any(k in e.key for k in keys)), rest)
         out[name] += ms
     return out
 
@@ -3626,6 +3684,591 @@ def image_path(torch, mt, ck):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: per-node randomness, Dropout, the rest of the CNN ops and the
+# CNN families
+# ---------------------------------------------------------------------------
+
+
+class MaskRecorder:
+    """While entered, ``ops.nn.draw_mask`` keeps every mask it draws."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.ops import nn as tnn
+
+        self.nn, self.masks = tnn, []
+
+    def __enter__(self):
+        self.draw = self.nn.draw_mask
+
+        def draw(*args):
+            mask = self.draw(*args)
+            self.masks.append(mask)
+            return mask
+
+        self.nn.draw_mask = draw
+        return self
+
+    def __exit__(self, *exc):
+        self.nn.draw_mask = self.draw
+
+
+class Replay:
+    """While entered, ``ops.nn.<name>`` (``draw_mask`` or
+    ``draw_slopes``) hands out ``draws`` in order, each moved to the
+    device asked for; every draw must be taken."""
+
+    def __init__(self, draws, name="draw_mask"):
+        from mxnet_tpu_torch.ops import nn as tnn
+
+        self.nn, self.name, self.draws = tnn, name, list(draws)
+
+    def __enter__(self):
+        self.draw = getattr(self.nn, self.name)
+        setattr(self.nn, self.name,
+                lambda g, *args: self.draws.pop(0).to(args[-1]))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.nn, self.name, self.draw)
+        if exc[0] is None:
+            check(not self.draws, f"{len(self.draws)} {self.name} draws "
+                  f"not taken")
+
+
+def keep_fraction_ok(mask, keep):
+    """The fraction of True in ``mask`` within 6 sigma of ``keep``."""
+    n = mask.numel()
+    frac = float(mask.float().mean())
+    return frac, abs(frac - keep) <= 6 * np.sqrt(keep * (1 - keep) / n)
+
+
+class Launches:
+    """Launch counts summed over the parts of a phase: ``take`` adds the
+    counts since the last reset and resets them."""
+
+    def __init__(self, ck):
+        self.ck, self.total = ck, {}
+        reset_launch_counts(ck)
+
+    def take(self):
+        for k, v in launch_counts(self.ck).items():
+            self.total[k] = self.total.get(k, 0) + v
+        reset_launch_counts(self.ck)
+
+
+def dropout_lm_path(torch, mt, ck, counts):
+    """(a) The GPT-2-class LM of the training run with ``LM_DROPOUT``
+    after each attention projection and feed-forward: under one seed set
+    twice the masks of two forwards are bitwise equal, two nodes of one
+    step and two steps of one node differ, every mask keeps within 6
+    sigma of 1 - p; then ``train_steps`` (B1 forward and backward 12
+    times a step, a finite, falling loss); then ``forward(is_train=
+    False)`` equals, bitwise, the same weights under dropout 0."""
+    L = GPT2_SMALL["num_layers"]
+    mod = lm_module(mt, packed_lm_symbol(mt, LM_DROPOUT),
+                    gpt2_small_params(0))
+    batches = lm_batches(mt)
+    first = next(iter(batches))
+    batches.reset()
+    runs = []
+    for _ in range(2):
+        mt.random.seed(5)
+        with MaskRecorder() as rec:
+            mod.forward(first, is_train=True)
+            mod.forward(first, is_train=True)
+        runs.append(rec.masks)
+    n = 2 * L  # Dropout nodes a forward
+    check(len(runs[0]) == len(runs[1]) == 2 * n, f"{len(runs[0])} masks "
+          f"for two forwards of {n} Dropout nodes")
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "one seed set twice drew other masks")
+    check(not torch.equal(runs[0][0], runs[0][1]), "two Dropout nodes of "
+          "one step drew the same mask")
+    check(not torch.equal(runs[0][0], runs[0][n]), "two steps of one "
+          "Dropout node drew the same mask")
+    fracs = [keep_fraction_ok(m, 1 - LM_DROPOUT) for m in runs[0]]
+    check(all(ok for _, ok in fracs), f"a keep fraction off 1 - p: "
+          f"{[f for f, _ in fracs]}")
+    del runs
+    mod._exec._train_graph = None
+    counts.take()
+    rec = train_steps(torch, ck, mod, batches, PACKED_KERNELS,
+                      [f"layer{i}_qkv_weight" for i in range(L)],
+                      "dropout LM training")
+    counts.take()
+    mod.forward(first, is_train=False)
+    out = mod.get_outputs()[0]._data.clone()
+    ref = mt.mod.Module(packed_lm_symbol(mt), context=mt.gpu(0))
+    T = GPT2_SMALL["max_len"]
+    ref.bind(data_shapes=[("data", (TRAIN_BATCH, T))],
+             label_shapes=[("softmax_label", (TRAIN_BATCH, T))],
+             for_training=False)
+    ref.init_params(arg_params=mod.get_params()[0])
+    ref.forward(first, is_train=False)
+    check(torch.equal(out, ref.get_outputs()[0]._data), "the dropout LM's "
+          "inference forward differs from the dropout-free LM's")
+    del mod, ref
+    counts.take()
+    rec.update(dropout=LM_DROPOUT, mask_keep_fractions=[f for f, _ in fracs],
+               inference_equal_to_dropout_free=True)
+    return rec
+
+
+def lstm_dropout_batch(torch, mt, ck, counts):
+    """(b) LSTM-PTB's symbol with ``LSTM_DROPOUT`` between its 2 layers:
+    one training batch of bucket 60 (Adam 0.01, ``Uniform(0.08)``, zero
+    states): ``lstm_scan`` launched once a layer, a finite loss, layer
+    0's mask keeping within 6 sigma of 1 - p."""
+    cfg = LSTM_PTB
+    L, Hd, B, T = cfg["num_layers"], cfg["num_hidden"], cfg["batch"], 60
+    it = BucketSentenceIter(mt, synthetic_corpus(4 * B, cfg["vocab"], T,
+                                                 seed=3), B, [T], seed=3)
+    batch = next(it)
+    sym, _, _ = lstm_sym_gen(mt, cfg["vocab"], cfg["num_embed"], Hd, L,
+                             dropout=LSTM_DROPOUT)(T)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    zeros = mt.nd.zeros((L, B, Hd), ctx=mt.gpu(0))
+    mt.random.seed(0)
+    mod.init_params(mt.initializer.Uniform(0.08),
+                    arg_params={"rnn_state": zeros,
+                                "rnn_state_cell": zeros.copy()},
+                    allow_missing=True)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 0.01})
+    counts.take()
+    with MaskRecorder() as rec:
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+    n = launch_counts(ck)["lstm_scan"]
+    counts.take()
+    check(n == L, f"LSTM with dropout: lstm_scan launched {n} times, not "
+          f"{L}")
+    check(len(rec.masks) == L - 1 and tuple(rec.masks[0].shape) ==
+          (T, B, Hd), f"LSTM dropout masks {[m.shape for m in rec.masks]}")
+    frac, ok = keep_fraction_ok(rec.masks[0], 1 - LSTM_DROPOUT)
+    check(ok, f"LSTM dropout keep fraction {frac}")
+    prob = mod.get_outputs()[0]._data
+    lab = batch.label[0]._data.to(prob.device).reshape(-1).long()
+    live = lab != 0
+    ce = float(-torch.log(prob[live].gather(1, lab[live][:, None])).mean())
+    check(np.isfinite(ce), f"LSTM with dropout: loss {ce}")
+    return {"bucket": T, "batch": B, "p": LSTM_DROPOUT, "lstm_scan": n,
+            "keep_fraction": frac, "cross_entropy": ce}
+
+
+# a CNN step by the aten op that launched each kernel: LRN is
+# F.local_response_norm's window mean (avg_pool3d) and power, Dropout's
+# draw is uniform_ and lt (its where and division, and BatchNorm's
+# eager ops, the adds and the loss head fall in "rest"); copy is mostly
+# the batch's staging from pageable host memory
+CNN_OP_CLASSES = (("convolution", ("convolution",)),
+                  ("relu", ("relu", "clamp_min", "threshold_backward")),
+                  ("max_pool", ("max_pool",)),
+                  ("lrn", ("avg_pool3d", "aten::pow")),
+                  ("dropout_draw", ("uniform_", "aten::lt")),
+                  ("pool_pad", ("constant_pad_nd",)),
+                  ("avg_pool", ("avg_pool2d",)),
+                  ("fc", ("addmm", "aten::mm")),
+                  ("concat", ("aten::cat",)),
+                  ("copy", ("copy_", "_to_copy")))
+
+
+def cnn_train(torch, mt, network):
+    """(c), (e) ``train_imagenet.main(["--network", network, "--benchmark",
+    "1", ...])`` on ``gpu(0)`` at ``CNN_TRAIN[network]`` (``Module.fit``,
+    SGD momentum 0.9, wd 1e-4, ``Xavier(gaussian, in, 2)``), its Module
+    a subclass that times each step (host clock around ``forward_backward``
+    + ``update`` + synchronize) and reads its cross-entropy.  Gates:
+    every output finite; the last 5 batches' mean cross-entropy below the
+    first 5's; every moving statistic finite and moved.  Reports the
+    second epoch's images/s and step p50, peak memory, and the device
+    time of a step (``forward_backward`` + ``update``) by aten op
+    (``CNN_OP_CLASSES``, two steps profiled after one)."""
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    cfg = CNN_TRAIN[network]
+    B, batches = cfg["batch"], cfg["batches"]
+    step_ms, ce, finite = [], [], []
+
+    class TimedModule(mt.mod.Module):
+        def forward_backward(self, data_batch):
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+            self._label = data_batch.label[0]
+            super().forward_backward(data_batch)
+
+        def update(self):
+            super().update()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - self._t0) * 1e3)
+            prob = self.get_outputs()[0]._data
+            lab = self._label._data.to(prob.device).long()[:, None]
+            ce.append(-torch.log(prob.gather(1, lab)).mean())
+            finite.append(torch.isfinite(prob).all())
+
+    argv = ["--network", network, "--benchmark", "1", "--batch-size", str(B),
+            "--image-shape", ",".join(map(str, cfg["image_shape"])),
+            "--num-classes", str(cfg["classes"]), "--num-epochs",
+            str(cfg["epochs"]), "--num-batches", str(batches), "--lr",
+            str(cfg["lr"]), "--disp-batches", "10"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = mt.mod.Module
+    mt.mod.Module = TimedModule
+    try:
+        mt.random.seed(0)
+        t0 = time.perf_counter()
+        mod = train_imagenet.main(argv, ctx=mt.gpu(0))
+        wall = time.perf_counter() - t0
+    finally:
+        mt.mod.Module = plain
+    peak = torch.cuda.max_memory_allocated()
+    steps = cfg["epochs"] * batches
+    # the breakdown's steps below are not the run's
+    run_ms, losses = list(step_ms), torch.stack(ce).tolist()
+    check(len(run_ms) == steps == len(losses), f"{network}: {len(run_ms)} "
+          f"timed steps for {steps}")
+    check(bool(torch.stack(finite).all()), f"{network}: an output is not "
+          f"finite")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]), f"{network} "
+          f"cross-entropy did not fall: {losses}")
+    aux = mod._exec.aux_dict
+    moved = [n for n, a in aux.items() if bool(torch.isfinite(a._data).all())
+             and bool((a._data != (0.0 if n.endswith("_mean")
+                                   else 1.0)).any())]
+    check(len(moved) == len(aux) == len(mod.symbol.list_auxiliary_states()),
+          f"{network}: {len(aux) - len(moved)} moving statistics not finite"
+          f" or not moved")
+    print(f"{network} cross-entropy by batch: {losses}")
+    last = run_ms[-batches:]
+    batch = mt.io.DataBatch([mt.nd.array(np.random.RandomState(0).rand(
+        B, *cfg["image_shape"]).astype(np.float32), ctx=mt.cpu())],
+        [mt.nd.array(np.zeros(B, np.float32), ctx=mt.cpu())])
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    by_op = device_ms_by_class(torch, step, 2, CNN_OP_CLASSES, "rest")
+    del mod
+    torch.cuda.empty_cache()
+    return {"config": dict(cfg, network=network), "steps": steps,
+            "cross_entropy": losses, "step_ms": run_ms,
+            "step_p50_ms": float(np.median(last)),
+            "images_per_s": B * batches / (sum(last) / 1e3),
+            "wall_s": wall, "peak_memory_bytes": int(peak),
+            "step_device_ms_by_op": by_op,
+            "step_device_ms": sum(by_op.values()),
+            "moving_statistics": len(aux)}
+
+
+def forward_decisions(torch, sym, ctx, params, X, Y, masks):
+    """The float32 training forward of ``sym`` on ``ctx`` (``masks``
+    replayed) → ``{node: decisions}``: each ReLU's pattern of positive
+    outputs and each max pool's argmax (where the window's max is
+    positive: a window of zeros routes no gradient)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.executor import build_graph_fn
+
+    internals = sym.get_internals()
+    names = internals.list_outputs()
+    dev = ctx.torch_device()
+    args = {n: v._data.to(dev) for n, v in params[0].items()}
+    args.update(data=torch.from_numpy(X).to(dev),
+                softmax_label=torch.from_numpy(Y).to(dev))
+    with torch.no_grad(), Replay(masks):
+        outs, _ = build_graph_fn(internals)(args, {}, 0, True)
+    value = dict(zip(names, outs))
+    out = {}
+    for node in sym._topo():
+        if node.op == "Activation" and node.attrs.get("act_type") == "relu":
+            out[node.name] = (value[f"{node.name}_output"] > 0).cpu()
+        elif node.op == "Pooling" and node.attrs.get("pool_type") == "max":
+            src, i = node.inputs[0]
+            x = value[f"{src.name}_output" if i == 0 else f"{src.name}_"
+                      f"output{i}"]
+            k = tuple(int(v) for v in node.attrs["kernel"].strip("()")
+                      .split(","))
+            st = tuple(int(v) for v in node.attrs["stride"].strip("()")
+                       .split(","))
+            top, idx = F.max_pool2d(x, k, st, return_indices=True)
+            out[node.name] = torch.where(top > 0, idx, -1).cpu()
+    return out
+
+
+def alexnet_first_step(torch, mt):
+    """(d) AlexNet's first ``forward_backward`` at full width, batch
+    ``ALEXNET_CHECK_BATCH``, on ``gpu(0)`` against the same step on the
+    CPU, which replays the card's two dropout masks.  Float32: outputs
+    and the loss within ``TOL``; each weight gradient within
+    ``BWD_TOL`` of the CPU's, except below the last ReLU or max pool
+    whose decisions (``forward_decisions``) the card's float32 forward
+    takes otherwise than the CPU's: a pre-activation within float32
+    noise of the kink, or a near tie, routes the gradient elsewhere (a
+    chaotic, not a systematic difference; those weights are listed with
+    the flipped decisions and their distance from float64).  Float64:
+    the same step on the card (cuDNN and cuBLAS in double) against the
+    CPU's, every output and gradient within ``BWD_TOL``: there the
+    decisions cannot flip, so the card's path is held whole."""
+    B, cfg = ALEXNET_CHECK_BATCH, CNN_TRAIN["alexnet"]
+    shape = cfg["image_shape"]
+    sym = mt.models.get_symbol("alexnet", num_classes=cfg["classes"],
+                               image_shape=shape)
+    rng = np.random.RandomState(13)
+    X = rng.rand(B, *shape).astype(np.float32)
+    Y = rng.randint(0, cfg["classes"], size=B).astype(np.float32)
+    batch = mt.io.DataBatch([mt.nd.array(X, ctx=mt.cpu())],
+                            [mt.nd.array(Y, ctx=mt.cpu())])
+    init = image_bind(mt, sym, mt.cpu(), B, shape=shape)
+    mt.random.seed(0)
+    init.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+    params = init.get_params()
+    del init
+    with MaskRecorder() as rec:
+        out, loss, grads, _ = image_step(torch, mt, sym, mt.gpu(0), params,
+                                         batch)
+    masks = [m.cpu() for m in rec.masks]
+    check(len(masks) == 2, f"AlexNet drew {len(masks)} dropout masks")
+    steps = {}
+    for key, ctx, f64 in (("cpu", mt.cpu(), False),
+                          ("cpu64", mt.cpu(), True),
+                          ("card64", mt.gpu(0), True)):
+        with Replay(masks):
+            steps[key] = image_step(torch, mt, sym, ctx, params, batch,
+                                    float64=f64)
+    rout, rloss, rgrads, _ = steps["cpu"]
+    torch.cuda.empty_cache()
+
+    def over(a, ref, tol):
+        return (a - ref).abs().max().item() \
+            / (tol * max(1.0, ref.abs().max().item()))
+
+    worst = {"outputs": over(out, rout, TOL["float32"]),
+             "loss": abs(loss - rloss) / (TOL["float32"] * max(1.0, rloss))}
+    check(bool(torch.isfinite(out).all()) and worst["outputs"] <= 1
+          and worst["loss"] <= 1, f"AlexNet first step: {worst}")
+    o64, l64, g64, _ = steps["card64"]
+    r64, rl64, rg64, _ = steps["cpu64"]
+    worst["float64_outputs"] = over(o64, r64, TOL["float32"])
+    worst["float64_grads"] = max(over(g64[n], rg64[n], BWD_TOL["float32"])
+                                 for n in rg64)
+    check(worst["float64_outputs"] <= 1 and worst["float64_grads"] <= 1
+          and abs(l64 - rl64) <= TOL["float32"] * max(1.0, rl64),
+          f"AlexNet first step in float64, card against CPU: {worst}")
+
+    card_dec = forward_decisions(torch, sym, mt.gpu(0), params, X, Y, masks)
+    cpu_dec = forward_decisions(torch, sym, mt.cpu(), params, X, Y, masks)
+    flipped = {n: int((card_dec[n] != cpu_dec[n]).sum()) for n in cpu_dec}
+    order = [n.name for n in sym._topo()]
+    last = max((order.index(n) for n, c in flipped.items() if c),
+               default=-1)
+    by_tol = {n: over(grads[n], rgrads[n], BWD_TOL["float32"])
+              for n in grads}
+    below = {n for n in grads if order.index(n) < last}
+    check(all(by_tol[n] <= 1 for n in grads if n not in below),
+          f"AlexNet first step: gradients off the CPU's with no flipped "
+          f"decision above them: {by_tol}, flipped {flipped}")
+    worst["grad_vs_cpu_over_bwd_tol"] = max(by_tol.values())
+    worst["flipped_decisions"] = {n: c for n, c in flipped.items() if c}
+    worst["past_bwd_tol_below_a_flip"] = {
+        n: {"vs_cpu_over_bwd_tol": by_tol[n],
+            "card_vs_float64_rel": ((grads[n] - rg64[n]).abs().max()
+                                    / rg64[n].abs().max()).item(),
+            "cpu_vs_float64_rel": ((rgrads[n] - rg64[n]).abs().max()
+                                   / rg64[n].abs().max()).item()}
+        for n in sorted(below) if by_tol[n] > 1}
+    print(f"AlexNet first step on the card against the CPU: {worst}")
+    return {"batch": B, "loss": loss, "cpu_loss": rloss,
+            "err_over_tol": worst}
+
+
+def cnn_score(torch, mt):
+    """(f) ``benchmark_score.score`` of ``CNN_SCORE`` at
+    ``CNN_SCORE_BATCHES`` (images/s; ``IMAGE["score_reps"]`` forwards)."""
+    from mxnet_tpu_torch.examples import benchmark_score
+
+    out = {}
+    for net, shape, kw in CNN_SCORE:
+        label = net + ("-s2d" if kw.get("stem") == "s2d" else "")
+        for b in CNN_SCORE_BATCHES:
+            mt.random.seed(0)
+            out[f"{label} batch {b}"] = benchmark_score.score(
+                net, b, shape, 1000, mt.gpu(0),
+                num_batches=IMAGE["score_reps"], **kw)
+        torch.cuda.empty_cache()
+    print(f"scoring images/s: {out}")
+    return out
+
+
+def cnn_op_cases(rng):
+    """(name, inputs, attrs, gradient slots, draws) of ``check_cnn_ops``:
+    every op of queue A item 2 at small shapes over its attributes;
+    ``draws`` replaces ``draw_mask`` / ``draw_slopes``."""
+    def r(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    x = r(4, 8, 13, 13)
+    cases = [("LRN", [x], dict(nsize=5, knorm=1, alpha=1e-4, beta=0.75),
+              (0,), None),
+             ("LRN", [x], dict(nsize=4, knorm=2), (0,), None)]
+    for attrs in (dict(act_type="leaky", slope=0.1), dict(act_type="elu"),
+                  dict(act_type="gelu"), dict(act_type="rrelu")):
+        cases.append(("LeakyReLU", [x], attrs, (0,), None))
+    cases.append(("LeakyReLU", [x, rng.rand(8).astype(np.float32)],
+                  dict(act_type="prelu"), (0, 1), None))
+    cases.append(("LeakyReLU", [x], dict(act_type="rrelu"), (0,),
+                  ("draw_slopes", rng.uniform(0.125, 0.334, (4, 8))
+                   .astype(np.float32))))
+    for mode in ("channel", "instance"):
+        cases.append(("SoftmaxActivation", [x], dict(mode=mode), (0,),
+                      None))
+    cases.append(("InstanceNorm", [x, rng.rand(8).astype(np.float32),
+                                   r(8)], dict(eps=1e-3), (0, 1, 2), None))
+    for attrs in (dict(kernel=(3, 3), num_filter=6, stride=(2, 2),
+                       pad=(1, 1), adj=(1, 1), no_bias=False),
+                  dict(kernel=(4, 4), num_filter=12, num_group=4,
+                       dilate=(2, 2), pad=(2, 1), no_bias=True),
+                  dict(kernel=(2, 2), num_filter=4, stride=(2, 2),
+                       pad=(1, 1), adj=(2, 2), no_bias=True)):
+        g = attrs.get("num_group", 1)
+        ins = [x, r(8, attrs["num_filter"] // g, *attrs["kernel"]) * 0.3]
+        if not attrs["no_bias"]:
+            ins.append(r(attrs["num_filter"]))
+        cases.append(("Deconvolution", ins, attrs,
+                      tuple(range(len(ins))), None))
+    cases.append(("UpSampling", [x], dict(scale=2, sample_type="nearest"),
+                  (0,), None))
+    cases.append(("UpSampling", [x, r(4, 3, 1, 1)], dict(
+        scale=2, sample_type="nearest", num_args=2), (0, 1), None))
+    cases.append(("UpSampling", [x, r(8, 1, 4, 4) * 0.5], dict(
+        scale=2, sample_type="bilinear", num_filter=8), (0, 1), None))
+    for attrs, like in ((dict(h_w=(7, 9), offset=(2, 1)), None),
+                        (dict(num_args=2), r(1, 1, 6, 5)),
+                        (dict(h_w=(5, 5), center_crop=True), None)):
+        cases.append(("Crop", [x] + ([] if like is None else [like]), attrs,
+                      (0,), None))
+    for mode in ("constant", "edge", "reflect"):
+        cases.append(("Pad", [x], dict(mode=mode, constant_value=0.5,
+                                       pad_width=(0, 0, 0, 0, 2, 3, 1, 4)),
+                      (0,), None))
+    for order in ("depth_major", "group_major"):
+        cases.append(("space_to_depth", [x], dict(
+            block_size=2, pad=(3, 3), channel_order=order), (0,), None))
+        cases.append(("depth_to_space", [r(4, 32, 5, 6)], dict(
+            block_size=2, channel_order=order), (0,), None))
+    cases.append(("Dropout", [x], dict(p=0.3), (0,),
+                  ("draw_mask", rng.rand(*x.shape) < 0.7)))
+    return cases
+
+
+def check_cnn_ops(torch, mt):
+    """(g) Each op of queue A item 2 through ``mt.nd.<op>`` on ``gpu(0)``
+    against the same call on the CPU (``TOL``), and its gradients
+    (``registry.invoke`` under autograd, one seeded cotangent) against
+    the CPU's (``BWD_TOL``); rrelu in training and ``Dropout`` with the
+    slopes and mask injected.  Then one ``Dropout`` of
+    ``DROPOUT_MASK_ELEMENTS`` ones on the card: a keep fraction within 6
+    sigma of 1 - p, every kept value ``1 / keep`` exactly."""
+    from mxnet_tpu_torch.ops.registry import invoke
+
+    rng = np.random.RandomState(14)
+    worst = {}
+    for i, (name, ins, attrs, slots, draws) in enumerate(cnn_op_cases(rng)):
+        train = draws is not None
+        outs = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            dev = ctx.torch_device()
+            nds = [mt.nd.array(a, ctx=ctx) for a in ins]
+            inject = Replay([torch.from_numpy(np.array(draws[1]))],
+                            draws[0]) if train else None
+            if inject:
+                with inject:
+                    fwd = getattr(mt.nd, name)(*nds, is_train=True, **attrs)
+            else:
+                fwd = getattr(mt.nd, name)(*nds, **attrs)
+            tin = [torch.from_numpy(a).to(dev).requires_grad_(i in slots)
+                   for i, a in enumerate(ins)]
+            if inject:
+                inject = Replay([torch.from_numpy(np.array(draws[1]))],
+                                draws[0])
+                with inject:
+                    (y,), _ = invoke(name, tin, attrs, is_train=True)
+            else:
+                (y,), _ = invoke(name, tin, attrs)
+            cot = torch.from_numpy(np.random.RandomState(1).randn(
+                *y.shape).astype(np.float32)).to(dev)
+            grads = torch.autograd.grad(y, [tin[i] for i in slots], cot)
+            outs.append((fwd._data.cpu(), [g.cpu() for g in grads]))
+        (o, gs), (ro, rgs) = outs
+        err = (o - ro).abs().max().item() / (
+            TOL["float32"] * max(1.0, ro.abs().max().item()))
+        gerr = max((g - r).abs().max().item() / (
+            BWD_TOL["float32"] * max(1.0, r.abs().max().item()))
+            for g, r in zip(gs, rgs))
+        key = f"{i} {name} {attrs}"
+        worst[key] = {"fwd": err, "bwd": gerr}
+        check(o.shape == ro.shape and err <= 1 and gerr <= 1,
+              f"{key} on the card against the CPU: {worst[key]}")
+    p = 0.3
+    x = mt.nd.ones((DROPOUT_MASK_ELEMENTS,), ctx=mt.gpu(0))
+    y = mt.nd.Dropout(x, p=p, is_train=True)._data
+    kept = y != 0
+    frac, ok = keep_fraction_ok(kept, 1 - p)
+    scale = (torch.tensor(1.0) / torch.tensor(1 - p)).item()
+    check(ok and bool((y[kept] == scale).all()), f"Dropout of 2^24 ones: "
+          f"keep fraction {frac}, kept values {y[kept].unique()[:4]}")
+    return {"ops": len(worst), "max_fwd_err_over_tol":
+            max(w["fwd"] for w in worst.values()),
+            "max_bwd_err_over_tol": max(w["bwd"] for w in worst.values()),
+            "dropout_2_24_keep_fraction": frac, "p": p}
+
+
+def cnn_dropout_path(torch, mt, ck):
+    """Phase 11 on ``gpu(0)``, fp32 with TF32 off: (a) the dropout LM
+    (``dropout_lm_path``), (b) LSTM-PTB with dropout between layers
+    (``lstm_dropout_batch``), (c) AlexNet's training run
+    (``cnn_train``), (d) its first step against the CPU
+    (``alexnet_first_step``), (e) Inception-v3's training run, (f) the
+    scoring (``cnn_score``), (g) the ops on the card
+    (``check_cnn_ops``).  Launch counts reset just before and summed
+    over the parts just after: B1's forward and backward come from (a),
+    ``lstm_scan`` from (b), nothing else launches a kernel."""
+    counts = Launches(ck)
+    rec, wall = {}, {}
+    for part, fn in (("dropout_lm", lambda: dropout_lm_path(torch, mt, ck,
+                                                            counts)),
+                     ("lstm_dropout", lambda: lstm_dropout_batch(
+                         torch, mt, ck, counts)),
+                     ("alexnet_train", lambda: cnn_train(torch, mt,
+                                                         "alexnet")),
+                     ("alexnet_first_step", lambda: alexnet_first_step(
+                         torch, mt)),
+                     ("inception_v3_train", lambda: cnn_train(
+                         torch, mt, "inception-v3")),
+                     ("score_images_per_s", lambda: cnn_score(torch, mt)),
+                     ("ops", lambda: check_cnn_ops(torch, mt))):
+        t0 = time.perf_counter()
+        rec[part] = fn()
+        torch.cuda.synchronize()
+        wall[part] = time.perf_counter() - t0
+        counts.take()
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in counts.total.items() if v}
+    # (a): two mask runs of two forwards, the steps, two inference
+    # forwards (the dropout LM's and the dropout-free one's)
+    want = {"flash_mha_packed": 12 * (4 + TRAIN_STEPS + 2),
+            "flash_mha_packed_bwd_dq": 12 * TRAIN_STEPS,
+            "flash_mha_packed_bwd_dkv": 12 * TRAIN_STEPS,
+            "lstm_scan": LSTM_PTB["num_layers"]}
+    check(launched == want, f"phase 11 launched {launched}, not {want}")
+    rec.update(part_wall_s=wall, launches=counts.total)
+    return rec
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -3699,7 +4342,8 @@ def paths_timing(root, mode="paths"):
     port under ROOT (a checkout, e.g. a parent commit
     unpacked beside this one), one JSON line each; ``--kernels ROOT``
     the kernels alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase
-    10 (image classification) alone.  Run parent, change,
+    10 (image classification) alone, ``--cnn ROOT`` phase 11 alone
+    (building B1 and B6 first).  Run parent, change,
     change, parent in one call to compare two versions on one card."""
     import torch
     import torch.nn.functional as F
@@ -3721,6 +4365,14 @@ def paths_timing(root, mode="paths"):
     if mode == "image":
         print(json.dumps({"paths_timing": {
             "root": root, "image_path": image_path(torch, mt, ck)}}))
+        print(card_line())
+        return 0
+    if mode == "cnn":
+        _build.build(["flash_mha_packed", "flash_mha_packed_bwd",
+                      "lstm_scan"])
+        print(json.dumps({"paths_timing": {
+            "root": root, "cnn_dropout_path": cnn_dropout_path(torch, mt,
+                                                               ck)}}))
         print(card_line())
         return 0
     if mode != "nms":
@@ -3965,11 +4617,17 @@ def main():
     image = image_path(torch, mt, ck)
     image["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"image_path": image}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cnn = cnn_dropout_path(torch, mt, ck)
+    cnn["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"cnn_dropout_path": cnn}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
     # serving and step, the training run, the DPA training run, the
-    # LSTM-PTB run, the SSD300 run and the sequence phase
+    # LSTM-PTB run, the SSD300 run, the sequence phase and phase 11 (the
+    # dropout LM's B1, the LSTM with dropout's lstm_scan)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -4025,7 +4683,7 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence, image]
+    all_runs = earlier + [sequence, image, cnn]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -4068,7 +4726,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
-                         ["--image"]):
+                         ["--image"], ["--cnn"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

@@ -4,7 +4,7 @@ scores each network at each batch size on synthetic data and prints
 images/s.
 
     python -m mxnet_tpu_torch.examples.benchmark_score \
-        --networks lenet,resnet-50
+        --networks lenet,alexnet,vgg,inception-bn,resnet-50
 """
 
 import argparse
@@ -18,12 +18,13 @@ from mxnet_tpu_torch import models
 
 
 def score(network, batch_size, image_shape, num_classes, dev,
-          num_batches=10):
+          num_batches=10, **symbol_kwargs):
     """images/s of ``num_batches`` ``forward(is_train=False)`` calls of
-    ``network`` at ``batch_size`` on ``dev`` (two warm-up calls first),
-    from ``Xavier(magnitude=2)`` weights."""
+    ``network`` (``symbol_kwargs`` to ``get_symbol``, e.g. ``stem="s2d"``)
+    at ``batch_size`` on ``dev`` (two warm-up calls first), from
+    ``Xavier(magnitude=2)`` weights."""
     sym = models.get_symbol(network, num_classes=num_classes,
-                            image_shape=image_shape)
+                            image_shape=image_shape, **symbol_kwargs)
     data_shape = (batch_size,) + image_shape
     # the zoo symbols end in SoftmaxOutput, so declare the label input
     # (zero-filled at bind; unused by the inference forward)
@@ -48,7 +49,7 @@ def score(network, batch_size, image_shape, num_classes, dev,
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="inference benchmark")
     parser.add_argument("--networks", type=str,
-                        default="lenet,resnet-18,resnet-50")
+                        default="lenet,alexnet,resnet-18,resnet-50")
     parser.add_argument("--batch-sizes", type=str, default="1,2,4,8,16,32")
     parser.add_argument("--image-shape", type=str, default="3,224,224")
     parser.add_argument("--num-classes", type=int, default=1000)

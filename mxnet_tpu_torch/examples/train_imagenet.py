@@ -1,12 +1,19 @@
-"""Train an ImageNet-class network — BASELINE config 2.
+"""Train an ImageNet-class network — BASELINE config 2 and its AlexNet
+and Inception-v3 rows.
 
 The port of ``examples/train_imagenet.py`` (reference:
 ``example/image-classification/train_imagenet.py``) in its synthetic
 benchmark mode (``--benchmark 1``, the reference's throughput path):
 two seeded batches cycled by ``ResizeIter`` through ``Module.fit``.
+``--network`` is any of ``models.get_symbol``'s: resnet-N, alexnet,
+vgg, inception-bn, inception-v3 (at ``--image-shape 3,299,299``).
 RecordIO data (``--data-train``, ``ImageRecordIter``) is not ported.
 
     python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1
+    python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1 \
+        --network alexnet --batch-size 256 --lr 0.01
+    python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1 \
+        --network inception-v3 --image-shape 3,299,299
 """
 
 import argparse

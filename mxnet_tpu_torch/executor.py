@@ -7,6 +7,13 @@ and ``Executor.forward(is_train=True)`` runs it under autograd.
 ignores the seed), fills ``grad_dict`` and honours ``grad_req``
 ``write``/``add``/``null`` (``:91-126``, ``:267-360``).
 
+Randomness (``:55``, ``:69-70``, ``:278``): ``forward`` draws one step
+key from ``random.next_key``, and every node registered ``needs_rng``
+gets its own generator on its data's device, seeded with
+``random.sub_key(step_key, node_index)``, ``node_index`` its position in
+``symbol._topo()``.  The backward walks the forward's autograd graph,
+so a mask is drawn once a forward and the backward reuses it.
+
 Where the JAX package jits one fused forward+backward XLA program, the
 port runs eagerly: forward records the autograd graph of the arguments
 that need a gradient, and backward walks it once.
@@ -18,6 +25,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from . import random as _random
 from .base import MXNetError, not_ported
 from .context import Context
 from .ndarray import NDArray, torch_dtype, zeros as nd_zeros
@@ -28,22 +36,30 @@ __all__ = ["Executor", "simple_bind", "build_graph_fn"]
 
 def build_graph_fn(symbol):
     """Lower a Symbol DAG into ``f(arg_dict, aux_dict, rng, is_train) ->
-    (outputs, new_aux_dict)`` over tensors."""
+    (outputs, new_aux_dict)`` over tensors.  ``rng`` is the step key (an
+    int; None draws ``random.next_key()``): node ``i`` of ``_topo()``
+    registered ``needs_rng`` draws from a generator seeded with
+    ``random.sub_key(rng, i)`` on its first input's device."""
     nodes = symbol._topo()
     out_refs = [(id(n), i) for n, i in symbol._outputs]
 
     def fn(arg_dict, aux_dict, rng, is_train: bool):
         vals: Dict[tuple, Any] = {}
         new_aux: Dict[str, Any] = {}
-        for n in nodes:
+        for index, n in enumerate(nodes):
             if n.is_variable:
                 vals[(id(n), 0)] = arg_dict[n.name]
                 continue
             op = n.opdef()
             inputs = [vals[(id(i), ix)] for i, ix in n.inputs]
             aux_names = n.aux_names()
-            op_ctx = OpContext(is_train=is_train,
-                               rng=rng if op.needs_rng else None)
+            op_ctx = OpContext(is_train=is_train)
+            if op.needs_rng:
+                if rng is None:
+                    rng = _random.next_key()
+                op_ctx.key = _random.sub_key(rng, index)
+                op_ctx.rng = _random.key_generator(op_ctx.key,
+                                                   inputs[0].device)
             if aux_names:
                 outs, aux_out = op.compute(op_ctx, n.attrs, inputs,
                                            [aux_dict[a] for a in aux_names])
@@ -151,7 +167,8 @@ class Executor:
             args[n] = t
         aux = {n: a._data for n, a in self.aux_dict.items()}
         with torch.set_grad_enabled(trace):
-            outs, new_aux = self._graph_fn(args, aux, None, bool(is_train))
+            outs, new_aux = self._graph_fn(args, aux, _random.next_key(),
+                                           bool(is_train))
         for name, val in new_aux.items():
             if val is not self.aux_dict[name]._data:  # an op left it as is
                 self.aux_dict[name][:] = val

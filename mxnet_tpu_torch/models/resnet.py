@@ -4,16 +4,18 @@ example/image-classification/symbol_resnet.py): 18/34/50/101/152/200/269
 layers at ImageNet shapes, the cifar family (20, 32, 44, 56, 110, ...,
 164+ bottleneck) at height <= 32.
 
-The JAX package's ``stem="s2d"``, the 7x7 stem re-expressed on a 2x2
-space-to-depth input for the TPU's matrix unit, needs
-``space_to_depth`` and raises here; ``"conv7"`` is the reference's
-stem.
+``stem="conv7"`` is the reference's stem; ``"s2d"`` (``_s2d_stem``) is
+the JAX package's 7x7 stem re-expressed as a 4x4 convolution over a 2x2
+space-to-depth input (``mxnet_tpu/models/resnet.py:59-96``), an exact
+reparametrization (``conv7_to_s2d_weight``).  It applies at ImageNet
+shapes only; the cifar stem is a 3x3 convolution either way.
 """
 
-from .. import symbol as sym
-from ..base import not_ported
+import numpy as np
 
-__all__ = ["get_symbol", "resnet", "residual_unit"]
+from .. import symbol as sym
+
+__all__ = ["get_symbol", "resnet", "residual_unit", "conv7_to_s2d_weight"]
 
 
 def residual_unit(data, num_filter, stride, dim_match, name, bottle_neck=True,
@@ -66,13 +68,35 @@ def residual_unit(data, num_filter, stride, dim_match, name, bottle_neck=True,
     return conv2 + shortcut
 
 
+def _s2d_stem(data, num_filter):
+    """conv0 as a 4x4/stride-1 convolution over the 2x2 space-to-depth
+    of the image padded by 3 (224 -> 230 -> 115 blocks): every 7x7/
+    stride-2 window lands on 4x4 whole blocks, so no further padding."""
+    body = sym.space_to_depth(data, block_size=2, pad=(3, 3),
+                              channel_order="group_major", name="s2d")
+    return sym.Convolution(body, num_filter=num_filter, kernel=(4, 4),
+                           stride=(1, 1), pad=(0, 0), no_bias=True,
+                           name="conv0")
+
+
+def conv7_to_s2d_weight(w7):
+    """A (O, C, 7, 7) conv0 weight in the (O, 4C, 4, 4) layout of the
+    s2d stem, so both stems compute the same function."""
+    w7 = np.asarray(w7)
+    o, c = w7.shape[:2]
+    w4 = np.zeros((o, 4 * c, 4, 4), dtype=w7.dtype)
+    ch = np.arange(c) * 4
+    for ky in range(7):
+        for kx in range(7):
+            w4[:, ch + 2 * (ky % 2) + (kx % 2), ky // 2, kx // 2] = \
+                w7[:, :, ky, kx]
+    return w4
+
+
 def resnet(units, num_stages, filter_list, num_classes, image_shape,
            bottle_neck=True, bn_mom=0.9, workspace=256, stem="conv7"):
-    """reference: symbol_resnet.py resnet."""
-    if stem == "s2d":
-        raise not_ported("resnet(stem='s2d'), which needs space_to_depth "
-                         "(queue A item 2)")
-    if stem != "conv7":
+    """reference: symbol_resnet.py resnet; ``stem`` "conv7" or "s2d"."""
+    if stem not in ("conv7", "s2d"):
         raise ValueError(f"unknown stem {stem!r} (conv7 or s2d)")
     num_unit = len(units)
     if num_unit != num_stages:
@@ -86,9 +110,12 @@ def resnet(units, num_stages, filter_list, num_classes, image_shape,
                                stride=(1, 1), pad=(1, 1), no_bias=True,
                                name="conv0")
     else:  # imagenet
-        body = sym.Convolution(data, num_filter=filter_list[0], kernel=(7, 7),
-                               stride=(2, 2), pad=(3, 3), no_bias=True,
-                               name="conv0")
+        if stem == "s2d":
+            body = _s2d_stem(data, filter_list[0])
+        else:
+            body = sym.Convolution(data, num_filter=filter_list[0],
+                                   kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                                   no_bias=True, name="conv0")
         body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=bn_mom,
                              name="bn0")
         body = sym.Activation(body, act_type="relu", name="relu0")

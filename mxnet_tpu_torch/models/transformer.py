@@ -67,7 +67,7 @@ def logical_axes(*names: Optional[str]) -> Dict[str, str]:
                                     for n in names)}
 
 
-def _block(x, d_model, num_heads, d_ff, name, causal, block_size):
+def _block(x, d_model, num_heads, d_ff, name, causal, dropout, block_size):
     # attention sublayer (pre-LN); the fused QKV projection feeds
     # QKVSelfAttention directly, no reshapes between the two matmuls
     h = sym.LayerNorm(x, name=f"{name}_ln1")
@@ -83,6 +83,8 @@ def _block(x, d_model, num_heads, d_ff, name, causal, block_size):
         weight=sym.Variable(f"{name}_proj_weight",
                             attr=logical_axes("embed", "heads")),
         bias=sym.Variable(f"{name}_proj_bias", attr=logical_axes("embed")))
+    if dropout > 0:
+        a = sym.Dropout(a, p=dropout, name=f"{name}_attn_drop")
     x = x + a
     # feed-forward sublayer (pre-LN, GELU)
     h = sym.LayerNorm(x, name=f"{name}_ln2")
@@ -97,6 +99,8 @@ def _block(x, d_model, num_heads, d_ff, name, causal, block_size):
         weight=sym.Variable(f"{name}_ff2_weight",
                             attr=logical_axes("embed", "ffn")),
         bias=sym.Variable(f"{name}_ff2_bias", attr=logical_axes("embed")))
+    if dropout > 0:
+        h = sym.Dropout(h, p=dropout, name=f"{name}_ff_drop")
     return x + h
 
 
@@ -108,13 +112,14 @@ def transformer_lm(vocab_size, seq_len, num_layers=4, num_heads=4,
     SoftmaxCELoss head, the one for 32k+ vocabularies).  Labels are
     next-token ids (B, T); id 0 is ignored.  Pre-LN blocks, learned
     positions (``pos_embed_weight`` starts at zero), exact-erf GELU.
+    ``dropout > 0`` drops the attention projection's and the
+    feed-forward's outputs before their residual adds
+    (``layer{i}_attn_drop``, ``layer{i}_ff_drop``), never inside
+    attention.
 
-    The port carries ``dtype="float32"`` and ``dropout=0.0``; Dropout
-    would need the RNG chain and is not on this path."""
+    The port carries ``dtype="float32"``."""
     if d_model % num_heads:
         raise ValueError(f"d_model {d_model} % num_heads {num_heads} != 0")
-    if dropout > 0:
-        raise not_ported("transformer_lm(dropout > 0)")
     if dtype != "float32":
         raise not_ported(f"transformer_lm(dtype={dtype!r})")
     if head not in ("ce", "softmax"):
@@ -135,7 +140,7 @@ def transformer_lm(vocab_size, seq_len, num_layers=4, num_heads=4,
     for i in range(num_layers):
         with AttrScope(__pp_block__=str(i)):
             x = _block(x, d_model, num_heads, d_ff, f"layer{i}", causal,
-                       block_size)
+                       dropout, block_size)
     x = sym.LayerNorm(x, name="ln_f")
     logits = sym.FullyConnected(
         x, num_hidden=vocab_size, flatten=False, name="head",

@@ -1,18 +1,25 @@
 """Shape ops: ``Reshape`` (alias ``reshape``) with MXNet's special codes,
-``Flatten``, ``transpose``, ``expand_dims`` and ``Concat``.
+``Flatten``, ``transpose``, ``expand_dims``, ``Concat``, ``Pad`` (alias
+``pad``), ``space_to_depth`` and ``depth_to_space``.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:23-125,260-287``, with its own copy of
-``_infer_reshape_shape``.  ``transpose`` returns a contiguous tensor, so
-the op after it (the RNN's input projection, a ``Reshape``) reads
-memory in its own order.
+Counterpart of ``mxnet_tpu/ops/matrix.py:23-125,260-287,343-353,
+372-470``, with its own copy of ``_infer_reshape_shape``.  ``transpose``
+returns a contiguous tensor, so the op after it (the RNN's input
+projection, a ``Reshape``) reads memory in its own order.  The JAX
+package lowers ``space_to_depth``/``depth_to_space`` as a one-hot
+convolution, for the TPU's layouts (``:372-392``); here they are a
+reshape and a permute, the same channel orders: ``depth_major``, out
+channel ``(by * block + bx) * C + c`` (MXNet's), and ``group_major``,
+``c * block^2 + by * block + bx`` (``F.pixel_unshuffle``'s).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..base import attr_bool, attr_int, attr_shape
+from ..base import MXNetError, attr_bool, attr_int, attr_shape
 from .registry import register
 
 __all__ = []
@@ -153,3 +160,112 @@ def _concat_infer(attrs, in_shapes):
           doc="Concatenate the num_args inputs along attrs['dim']")
 def _concat(op_ctx, attrs, inputs, aux):
     return [torch.cat(inputs, dim=attr_int(attrs.get("dim", 1)))]
+
+
+def _pad_pairs(attrs):
+    pw = attr_shape(attrs.get("pad_width"))
+    return [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+
+
+def _pad_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    pads = _pad_pairs(attrs)
+    return in_shapes, [tuple(d + lo + hi for d, (lo, hi) in
+                             zip(s, pads))], []
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source index of every padded position along an axis of ``n``:
+    ``edge`` repeats the end, ``reflect`` mirrors about it (numpy's
+    modes, periodic past one reflection)."""
+    idx = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return idx.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    idx = torch.remainder(idx, period)
+    return torch.where(idx >= n, period - idx, idx)
+
+
+@register("Pad", arg_names=("data",), aliases=("pad",),
+          infer_shape=_pad_infer,
+          doc="constant/edge/reflect padding; pad_width has a (before, "
+              "after) pair for every axis")
+def _pad(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    mode = attrs.get("mode", "constant")
+    pads = _pad_pairs(attrs)
+    if mode == "constant":
+        flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+        return [F.pad(x, flat, value=float(attrs.get("constant_value", 0)
+                                           or 0))]
+    if mode not in ("edge", "reflect"):
+        raise MXNetError(f"Pad mode {mode!r} (constant, edge or reflect)")
+    for axis, (lo, hi) in enumerate(pads):
+        if lo or hi:
+            x = x.index_select(axis, _pad_index(x.shape[axis], lo, hi, mode,
+                                                x.device))
+    return [x]
+
+
+def _s2d_order(attrs):
+    order = attrs.get("channel_order", "depth_major")
+    if order not in ("depth_major", "group_major"):
+        raise MXNetError(f"channel_order {order!r} (depth_major or "
+                         f"group_major)")
+    return order
+
+
+def _s2d_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    b = attr_int(attrs.get("block_size"))
+    pad = attr_shape(attrs.get("pad")) or (0, 0)
+    n, c, h, w = s
+    return in_shapes, [(n, c * b * b, (h + 2 * pad[0]) // b,
+                        (w + 2 * pad[1]) // b)], []
+
+
+@register("space_to_depth", arg_names=("data",), infer_shape=_s2d_infer,
+          doc="Blocks of block_size x block_size pixels into channels, "
+              "after zero padding by pad; rows and columns past the last "
+              "whole block are dropped")
+def _space_to_depth(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    b = attr_int(attrs.get("block_size"))
+    order = _s2d_order(attrs)
+    ph, pw = attr_shape(attrs.get("pad")) or (0, 0)
+    if ph or pw:
+        x = F.pad(x, (pw, pw, ph, ph))
+    n, c, h, w = x.shape
+    h, w = h // b, w // b
+    x = x[:, :, :h * b, :w * b].reshape(n, c, h, b, w, b)
+    perm = (0, 3, 5, 1, 2, 4) if order == "depth_major" \
+        else (0, 1, 3, 5, 2, 4)
+    return [x.permute(perm).reshape(n, c * b * b, h, w)]
+
+
+def _d2s_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    b = attr_int(attrs.get("block_size"))
+    n, c, h, w = s
+    return in_shapes, [(n, c // (b * b), h * b, w * b)], []
+
+
+@register("depth_to_space", arg_names=("data",), infer_shape=_d2s_infer,
+          doc="The inverse of space_to_depth (without its padding)")
+def _depth_to_space(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    b = attr_int(attrs.get("block_size"))
+    order = _s2d_order(attrs)
+    n, cb, h, w = x.shape
+    c = cb // (b * b)
+    if order == "depth_major":
+        x = x.reshape(n, b, b, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    else:
+        x = x.reshape(n, c, b, b, h, w).permute(0, 1, 4, 2, 5, 3)
+    return [x.reshape(n, c, h * b, w * b)]

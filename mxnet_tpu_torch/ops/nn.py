@@ -1,13 +1,22 @@
-"""Dense, convolution, pooling, normalization and activation ops, and
-the loss heads.
+"""Dense, convolution, pooling, normalization, activation and dropout
+ops, the resampling ops of the CNN families, and the loss heads.
 
 Counterpart of the ``FullyConnected`` (``:50``), ``Activation``
-(``:98``), ``Convolution`` (``:201-295``), ``Pooling`` (``:367-428``),
-``BatchNorm`` (``:431-529``), ``LayerNorm`` (``:532``),
-``L2Normalization`` (``:608``), ``SoftmaxOutput`` (``:669-768``),
-``SoftmaxCELoss`` (``:770-832``) and ``MakeLoss`` (``:878-909``) ops of
-``mxnet_tpu/ops/nn.py``.  The matmul and the convolution go to torch,
+(``:98``), ``LeakyReLU`` (``:121-165``), ``SoftmaxActivation``
+(``:185-193``), ``Convolution`` (``:201-295``), ``Deconvolution``
+(``:298-365``), ``Pooling`` (``:367-428``), ``BatchNorm``
+(``:431-529``), ``LayerNorm`` (``:532``), ``InstanceNorm``
+(``:584-605``), ``L2Normalization`` (``:608``), ``LRN`` (``:627-651``),
+``Dropout`` (``:654-671``), ``SoftmaxOutput`` (``:669-768``),
+``SoftmaxCELoss`` (``:770-832``), ``MakeLoss`` (``:878-909``),
+``UpSampling`` (``:981-1040``) and ``Crop`` (``:1043-1078``) ops of
+``mxnet_tpu/ops/nn.py``.  The matmul and the convolutions go to torch,
 as the JAX package leaves them to XLA outside any Pallas kernel.
+
+Randomness: ``Dropout``'s keep mask comes from ``draw_mask`` and
+rrelu's slopes from ``draw_slopes``, each over the generator the
+executor hands the node (``OpContext.rng``); tests replace these two
+functions to inject the JAX package's own draws.
 
 The loss heads keep the reference convention: their backward is
 ``(p - onehot) * grad_scale`` (``MakeLoss``: ``grad_scale``) from what
@@ -21,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,7 +39,8 @@ from ..base import (MXNetError, attr_bool, attr_float, attr_int, attr_shape,
 from .registry import register
 
 __all__ = ["fully_connected", "layer_norm", "gelu", "fused_mean_var",
-           "batch_norm", "softmax_ce_loss", "softmax_output", "make_loss"]
+           "batch_norm", "softmax_ce_loss", "softmax_output", "make_loss",
+           "draw_mask", "draw_slopes", "dropout"]
 
 
 def fully_connected(x: torch.Tensor, weight: torch.Tensor,
@@ -114,6 +125,74 @@ def _activation_op(op_ctx, attrs, inputs, aux):
     return [_ACTIVATIONS[act](inputs[0])]
 
 
+def draw_slopes(generator: torch.Generator, shape, lower: float,
+                upper: float, device) -> torch.Tensor:
+    """rrelu's negative slopes: float32 uniforms in [lower, upper) of
+    ``shape`` from ``generator``, computed as ``jax.random.uniform``
+    scales its bits (``max(lower, u * (upper - lower) + lower)``, the
+    bounds and their difference in float32)."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u * float(hi - lo) + float(lo)).clamp_min(float(lo))
+
+
+def _lrelu_args(attrs):
+    if attrs.get("act_type", "leaky") == "prelu":
+        return ["data", "gamma"]
+    return ["data"]
+
+
+def _lrelu_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if attrs.get("act_type", "leaky") == "prelu":
+        g = in_shapes[1] if len(in_shapes) > 1 else None
+        if g is None and d is not None:
+            g = (d[1],)
+        return [d, g], [d], []
+    return [d], [d], []
+
+
+@register("LeakyReLU", arg_names=_lrelu_args, needs_rng=True,
+          infer_shape=_lrelu_infer,
+          doc="leaky/elu/prelu/gelu/rrelu; rrelu draws one slope a (batch, "
+              "channel) in training, their mean otherwise")
+def _leaky_relu_op(op_ctx, attrs, inputs, aux):
+    act = attrs.get("act_type", "leaky")
+    x = inputs[0]
+    slope = attr_float(attrs.get("slope", 0.25), 0.25)
+    if act == "leaky":
+        return [torch.where(x > 0, x, slope * x)]
+    if act == "elu":
+        return [torch.where(x > 0, x, slope * torch.expm1(x))]
+    if act == "prelu":
+        gamma = inputs[1].reshape((1, -1) + (1,) * (x.ndim - 2))
+        return [torch.where(x > 0, x, gamma * x)]
+    if act == "gelu":
+        return [gelu(x)]
+    if act == "rrelu":
+        lo = attr_float(attrs.get("lower_bound", 0.125), 0.125)
+        hi = attr_float(attrs.get("upper_bound", 0.334), 0.334)
+        if op_ctx.is_train:
+            s = draw_slopes(op_ctx.rng, x.shape[:2], lo, hi, x.device)
+            s = s.reshape(x.shape[:2] + (1,) * (x.ndim - 2)).to(x.dtype)
+        else:
+            s = (lo + hi) / 2.0
+        return [torch.where(x > 0, x, s * x)]
+    raise MXNetError(f"unknown LeakyReLU act_type {act}")
+
+
+@register("SoftmaxActivation", arg_names=("data",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="softmax over the channel axis (mode=channel) or over all "
+              "but the batch axis (instance)")
+def _softmax_activation_op(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if attrs.get("mode", "instance") == "channel":
+        return [torch.softmax(x, dim=1)]
+    return [torch.softmax(x.reshape(x.shape[0], -1), dim=-1)
+            .reshape(x.shape)]
+
+
 # -- convolution and pooling (NCHW; torch's convolution, as the JAX package
 # leaves it to lax.conv_general_dilated outside any Pallas kernel) ----------
 
@@ -159,6 +238,65 @@ def _convolution_op(op_ctx, attrs, inputs, aux):
     return [_CONV[nd](data, weight, bias, stride=stride, padding=pad,
                       dilation=dilate,
                       groups=attr_int(attrs.get("num_group", 1), 1))]
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconvolution(data, weight, bias, stride, dilate, pad, adj, groups):
+    """Transposed convolution with the reference's (C_in,
+    num_filter/groups, *k) weight (``conv_transpose``'s own layout):
+    the full transposed output, then ``pad`` cut from each side of every
+    spatial axis and ``adj`` added at its end (rows past the full output
+    are zero before the bias), so any ``adj`` works, where
+    ``output_padding`` must stay below the stride or the dilation."""
+    nd = data.ndim - 2
+    out = _CONV_T[nd](data, weight, None, stride=stride, dilation=dilate,
+                      groups=groups)
+    flat = [p for i in reversed(range(nd)) for p in (-pad[i],
+                                                     adj[i] - pad[i])]
+    if any(flat):
+        out = F.pad(out, flat)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _deconv_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    nd = len(d) - 2
+    kernel, stride, dilate, pad = _spatial_attrs(attrs, nd)
+    adj = attr_shape(attrs.get("adj")) or (0,) * nd
+    nf = attr_int(attrs.get("num_filter"))
+    groups = attr_int(attrs.get("num_group", 1), 1)
+    w = (d[1], nf // groups) + tuple(kernel)
+    no_bias = attr_bool(attrs.get("no_bias"), True)
+    ins = [tuple(d), w] + ([] if no_bias else [(nf,)])
+    spatial = tuple(stride[i] * (d[2 + i] - 1) + dilate[i] * (kernel[i] - 1)
+                    + 1 - 2 * pad[i] + adj[i] for i in range(nd))
+    return ins, [(d[0], nf) + spatial], []
+
+
+# the argument list follows ``no_bias`` (default False) as Convolution's
+# does, while the bias is added only under an explicit no_bias=False:
+# the JAX op's defaults, kept as they are
+@register("Deconvolution", arg_names=_weight_bias_args,
+          infer_shape=_deconv_infer,
+          doc="N-D transposed convolution, (C_in, num_filter/groups, *k) "
+              "weights; adj extends the output's end")
+def _deconvolution_op(op_ctx, attrs, inputs, aux):
+    data, weight = inputs[0], inputs[1]
+    nd = data.ndim - 2
+    if nd not in _CONV_T:
+        raise MXNetError(f"Deconvolution over {nd} spatial dims (1-3)")
+    _, stride, dilate, pad = _spatial_attrs(attrs, nd)
+    adj = attr_shape(attrs.get("adj")) or (0,) * nd
+    bias = None if attr_bool(attrs.get("no_bias"), True) else inputs[2]
+    return [deconvolution(data, weight, bias, stride, dilate, pad, adj,
+                          attr_int(attrs.get("num_group", 1), 1))]
 
 
 def _pool_window(attrs, spatial):
@@ -364,6 +502,78 @@ def _l2_normalization_op(op_ctx, attrs, inputs, aux):
     norm = torch.sqrt(x.square().sum(dim=_L2_AXES[mode](x.ndim), keepdim=True)
                       + eps)
     return [x / norm]
+
+
+def _in_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    c = (d[1],)
+    return [tuple(d), c, c], [tuple(d)], []
+
+
+@register("InstanceNorm", arg_names=("data", "gamma", "beta"),
+          infer_shape=_in_infer,
+          doc="Instance normalization over the spatial axes, biased "
+              "variance")
+def _instance_norm_op(op_ctx, attrs, inputs, aux):
+    x, gamma, beta = inputs
+    eps = attr_float(attrs.get("eps", 1e-3), 1e-3)
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    return [(x - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape)]
+
+
+@register("LRN", arg_names=("data",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="Local response normalization across channels: x * (knorm "
+              "+ alpha / nsize * window sum of x^2) ^ -beta")
+def _lrn_op(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    # F.local_response_norm pads the channel window (nsize // 2,
+    # (nsize - 1) // 2), the JAX op's, and wants a spatial axis
+    out = F.local_response_norm(
+        x if x.ndim > 2 else x[..., None],
+        attr_int(attrs.get("nsize", 5), 5),
+        alpha=attr_float(attrs.get("alpha", 1e-4), 1e-4),
+        beta=attr_float(attrs.get("beta", 0.75), 0.75),
+        k=attr_float(attrs.get("knorm", 2.0), 2.0))
+    return [out if x.ndim > 2 else out[..., 0]]
+
+
+def draw_mask(generator: torch.Generator, keep: float, shape,
+              device) -> torch.Tensor:
+    """A dropout keep mask of ``shape``: True with probability ``keep``,
+    a float32 uniform from ``generator`` below ``keep``, as
+    ``jax.random.bernoulli`` draws it."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator):
+    """Inverted dropout of ``x`` in training: ``where(mask, x / keep,
+    0)`` in ``x``'s dtype, ``keep = 1 - p`` rounded to that dtype (the
+    JAX op divides by a weakly typed Python float), the mask from
+    ``draw_mask``.  The rounded ``keep`` is a host scalar: a device
+    tensor made from it would be a synchronizing copy a call."""
+    keep = 1.0 - p
+    mask = draw_mask(generator, keep, x.shape, x.device)
+    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype).item(),
+                       0.0)
+
+
+@register("Dropout", arg_names=("data",), needs_rng=True,
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="Inverted dropout in training; the identity otherwise or at "
+              "p <= 0")
+def _dropout_op(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    p = attr_float(attrs.get("p", 0.5), 0.5)
+    if not op_ctx.is_train or p <= 0.0:
+        return [x]
+    return [dropout(x, p, op_ctx.rng)]
 
 
 # -- loss heads ---------------------------------------------------------------
@@ -575,3 +785,87 @@ def _make_loss_op(op_ctx, attrs, inputs, aux):
         inputs[0], grad_scale=attr_float(attrs.get("grad_scale", 1.0), 1.0),
         normalization=attrs.get("normalization", "null"),
         valid_thresh=attr_float(attrs.get("valid_thresh", 0.0), 0.0))]
+
+
+# -- resampling ---------------------------------------------------------------
+
+
+def _upsampling_args(attrs):
+    n = attr_int(attrs.get("num_args", 1), 1)
+    if attrs.get("sample_type", "nearest") == "bilinear":
+        return ["data", "weight"]
+    return [f"arg{i}" for i in range(n)] if n > 1 else ["data"]
+
+
+def _bilinear_window(scale):
+    """(kernel, pad) of the depthwise transposed convolution that is
+    bilinear upsampling by ``scale`` (the reference's upsampling.cc)."""
+    return 2 * scale - scale % 2, -(-(scale - 1) // 2)
+
+
+def _upsampling_infer(attrs, in_shapes):
+    scale = attr_int(attrs.get("scale", 2), 2)
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    if attrs.get("sample_type", "nearest") == "bilinear":
+        k, _ = _bilinear_window(scale)
+        nf = attr_int(attrs.get("num_filter", d[1]), d[1])
+        return ([tuple(d), (nf, 1, k, k)],
+                [(d[0], nf, d[2] * scale, d[3] * scale)], [])
+    out_c = sum(s[1] for s in in_shapes if s is not None) \
+        if len(in_shapes) > 1 else d[1]
+    return in_shapes, [(d[0], out_c, d[2] * scale, d[3] * scale)], []
+
+
+@register("UpSampling", arg_names=_upsampling_args,
+          infer_shape=_upsampling_infer,
+          doc="Nearest upsampling (several inputs concatenated over "
+              "channels) or bilinear, a depthwise Deconvolution whose "
+              "weight input is trainable")
+def _upsampling_op(op_ctx, attrs, inputs, aux):
+    scale = attr_int(attrs.get("scale", 2), 2)
+    if attrs.get("sample_type", "nearest") == "bilinear":
+        k, pad = _bilinear_window(scale)
+        nf = attr_int(attrs.get("num_filter", inputs[0].shape[1]),
+                      inputs[0].shape[1])
+        return [deconvolution(inputs[0], inputs[1], None, (scale, scale),
+                              (1, 1), (pad, pad), (0, 0), nf)]
+    # the output is the first input's size times scale; every input is
+    # repeated up to it
+    oh, ow = inputs[0].shape[2] * scale, inputs[0].shape[3] * scale
+    outs = [x.repeat_interleave(oh // x.shape[2], dim=2)
+            .repeat_interleave(ow // x.shape[3], dim=3) for x in inputs]
+    return [torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]]
+
+
+def _crop_args(attrs):
+    n = attr_int(attrs.get("num_args", 1), 1)
+    return ["data", "crop_like"] if n == 2 else ["data"]
+
+
+def _crop_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    if len(in_shapes) == 2 and in_shapes[1] is not None:
+        th, tw = in_shapes[1][2], in_shapes[1][3]
+    else:
+        th, tw = attr_shape(attrs.get("h_w"))
+    return in_shapes, [(d[0], d[1], th, tw)], []
+
+
+@register("Crop", arg_names=_crop_args, infer_shape=_crop_infer,
+          doc="Spatial crop to h_w or to crop_like's size, at offset or "
+              "centred")
+def _crop_op(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if len(inputs) == 2:
+        th, tw = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        th, tw = attr_shape(attrs.get("h_w"))
+    if attr_bool(attrs.get("center_crop"), False):
+        oy, ox = (x.shape[2] - th) // 2, (x.shape[3] - tw) // 2
+    else:
+        oy, ox = attr_shape(attrs.get("offset")) or (0, 0)
+    return [x[:, :, oy:oy + th, ox:ox + tw]]

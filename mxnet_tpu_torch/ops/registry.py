@@ -32,10 +32,14 @@ __all__ = ["OpContext", "OpDef", "register", "get_op", "list_ops",
 class OpContext:
     """Per-invocation context handed to compute functions: ``is_train``
     and, for ops registered with ``needs_rng=True``, an explicit
-    ``torch.Generator`` where the JAX package passes a PRNG key."""
+    ``torch.Generator`` where the JAX package passes a PRNG key.  In a
+    graph ``key`` is the node's 63-bit key, which seeded ``rng`` (an op
+    that draws sub-streams, the fused RNN's per-layer dropout, keys
+    them with ``random.sub_key(key, i)``); None for an eager call."""
 
     is_train: bool = False
     rng: Optional[torch.Generator] = None
+    key: Optional[int] = None
 
 
 # infer_shape: (attrs, in_shapes: List[Optional[tuple]])

@@ -18,16 +18,21 @@ direction flips the projection outside the kernel.  Every other mode or
 dtype runs the plain step-by-step recurrence, as the JAX package runs
 ``lax.scan`` there.
 
-Dropout between layers (``p > 0``) in training is not ported yet: the
-port's executor hands ops no random generator.
+Dropout between layers (``p > 0``, training only) drops each layer's
+output but the last's with ``nn.dropout``, outside the recurrence: in a
+graph layer ``l``'s mask comes from a generator seeded with
+``random.sub_key(node_key, l)`` (the JAX op's ``fold_in(key, l)``); an
+eager call draws the layers' masks from its generator in turn.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError, attr_bool, attr_float, attr_int, not_ported
+from .. import random as _random
+from ..base import MXNetError, attr_bool, attr_float, attr_int
 from . import cuda_kernels as ck
+from . import nn
 from .registry import register
 
 __all__ = ["rnn_param_size"]
@@ -173,9 +178,7 @@ def _rnn_forward(data, params, state, state_cell, attrs, op_ctx):
     num_layers = attr_int(attrs["num_layers"])
     bidirectional = attr_bool(attrs.get("bidirectional"), False)
     mode = attrs["mode"]
-    if attr_float(attrs.get("p", 0.0), 0.0) > 0.0 and op_ctx.is_train \
-            and num_layers > 1:
-        raise not_ported("RNN dropout between layers (p > 0) in training")
+    p_drop = attr_float(attrs.get("p", 0.0), 0.0)
     d = 2 if bidirectional else 1
     g = _GATES[mode]
     t, b, input_size = data.shape
@@ -200,6 +203,10 @@ def _rnn_forward(data, params, state, state_cell, attrs, op_ctx):
             if cT is not None:
                 c_finals.append(cT)
         x = ys[0] if d == 1 else torch.cat(ys, dim=-1)
+        if p_drop > 0.0 and op_ctx.is_train and layer < num_layers - 1:
+            g = op_ctx.rng if op_ctx.key is None else _random.key_generator(
+                _random.sub_key(op_ctx.key, layer), x.device)
+            x = nn.dropout(x, p_drop, g)
 
     h_out = torch.stack(h_finals).reshape(num_layers * d, b, h)
     c_out = torch.stack(c_finals).reshape(num_layers * d, b, h) \

@@ -1,10 +1,19 @@
-"""Framework randomness: the seeded generators of initializers, and the
-sampler keying of the serving engine.
+"""Framework randomness: the seeded generators of initializers, the
+step-key chain of the executor, and the sampler keying of the serving
+engine.
 
 ``seed`` is the counterpart of ``mx.random.seed``: it reseeds one
 explicit ``torch.Generator`` per device, which the initializers draw
 from.  JAX's threefry bits cannot be reproduced, so tests carry
 parameters across packages and never seeds.
+
+The step-key chain (``next_key``, ``get_state``, ``set_state``) is the
+counterpart of ``mxnet_tpu/random.py:32-62``: one 63-bit chain per
+process, started by ``seed``, that advances once a call.  The executor
+draws one step key a forward and keys each random node with
+``sub_key(step_key, node_index)`` (the JAX executor's ``fold_in(key,
+node_index)``), the fused RNN each layer's dropout with ``sub_key(
+node_key, layer)``.
 
 Sampler keying: one counter-based draw per (engine seed, stream seed,
 absolute position), and for the speculative verify sampler two sub-keys
@@ -24,25 +33,30 @@ threefry; only the keying contract carries over.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["seed", "generator", "stream_key", "sub_key", "gumbel_noise",
+__all__ = ["seed", "generator", "next_key", "get_state", "set_state",
+           "key_generator", "stream_key", "sub_key", "gumbel_noise",
            "uniform"]
 
 _lock = threading.Lock()
 _seed = 0
 _generators: Dict[torch.device, torch.Generator] = {}
+# the step-key chain; None until the first next_key after a seed
+_chain: Optional[int] = None
 
 
 def seed(seed_state: int) -> None:
     """Seed all framework randomness (``mx.random.seed``): every
-    device's generator restarts from ``seed_state``."""
-    global _seed
+    device's generator and the step-key chain restart from
+    ``seed_state``."""
+    global _seed, _chain
     with _lock:
         _seed = int(seed_state)
         _generators.clear()
+        _chain = None
 
 
 def generator(device) -> torch.Generator:
@@ -85,10 +99,47 @@ def sub_key(key: int, i: int) -> int:
                        ^ (int(i) & _MASK64)) >> 1
 
 
-def _draw(key: int, n: int, device) -> torch.Tensor:
+def next_key() -> int:
+    """The next 63-bit key of the process's chain (thread-safe): the
+    chain steps to ``sub_key(chain, 0)`` and hands out ``sub_key(chain,
+    1)``, as ``jax.random.split`` keeps one half and returns the
+    other."""
+    global _chain
+    with _lock:
+        if _chain is None:
+            _chain = stream_key(_seed, 0, 0)
+        key = sub_key(_chain, 1)
+        _chain = sub_key(_chain, 0)
+        return key
+
+
+def get_state() -> Optional[int]:
+    """The chain's state for a checkpoint (None before its first key
+    since the last ``seed``)."""
+    with _lock:
+        return _chain
+
+
+def set_state(state: Optional[int]) -> None:
+    """Restore a ``get_state`` snapshot: the chain continues where the
+    snapshot was taken.  None leaves the chain as it is."""
+    global _chain
+    if state is None:
+        return
+    with _lock:
+        _chain = int(state)
+
+
+def key_generator(key: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded with ``key``."""
     g = torch.Generator(device=device)
     g.manual_seed(int(key))
-    return torch.rand(n, generator=g, device=device, dtype=torch.float32)
+    return g
+
+
+def _draw(key: int, n: int, device) -> torch.Tensor:
+    return torch.rand(n, generator=key_generator(key, device), device=device,
+                      dtype=torch.float32)
 
 
 def gumbel_noise(keys: Sequence[int], n: int,

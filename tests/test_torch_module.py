@@ -58,10 +58,31 @@ def test_transformer_lm_symbol_matches_jax(head):
 
 
 def test_transformer_lm_refuses_what_is_not_ported():
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mt.models.transformer_lm(V, T, dropout=0.1)
+    """``dtype`` other than float32 raises; ``dropout > 0`` builds the
+    JAX graph: its Dropout nodes by name, attrs and place (the
+    residual adds take them), its arguments and shapes."""
     with pytest.raises(mt.MXNetError, match="not ported"):
         mt.models.transformer_lm(V, T, dtype="bfloat16")
+    js = jax_transformer_lm(V, T, num_layers=L, num_heads=H, d_model=DM,
+                            dropout=0.1)
+    ts = mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
+                                  d_model=DM, dropout=0.1)
+    assert ts.list_arguments() == js.list_arguments()
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    assert ts.infer_shape(**shapes) == tuple(
+        [list(x) for x in js.infer_shape(**shapes)])
+
+    def drops(sym):
+        consumers = {}
+        for n in sym._topo():
+            for i, _ in n.inputs:
+                consumers.setdefault(i.name, []).append(n.op)
+        return [(n.name, n.attrs["p"], n.inputs[0][0].name,
+                 consumers[n.name]) for n in sym._topo() if n.op == "Dropout"]
+
+    assert drops(ts) == drops(js)
+    assert [d[0] for d in drops(ts)] == [
+        f"layer{i}_{s}_drop" for i in range(L) for s in ("attn", "ff")]
 
 
 # ---------------------------------------------------------------------------

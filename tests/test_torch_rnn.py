@@ -272,14 +272,19 @@ def test_rnn_op_forward_and_gradients_vs_jax(monkeypatch, mode, layers,
 
 
 def test_rnn_dropout_between_layers_raises_in_training():
+    """Dropout between layers runs in training (held against the JAX
+    op's own masks in ``test_torch_dropout.py``): layer 0's output is
+    dropped, so the output moves off the p = 0 one; inference draws no
+    mask, as in the JAX package."""
     ins, attrs = _rnn_case("lstm", 2, False, seed=0)
     attrs["p"] = 0.5
     tin = [torch.from_numpy(x) for x in ins]
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        torch_invoke("RNN", tin, attrs, is_train=True)
-    # inference draws no mask, as in the JAX package
-    (out,), _ = torch_invoke("RNN", tin, attrs, is_train=False)
     (ref,), _ = torch_invoke("RNN", tin, dict(attrs, p=0.0))
+    (out,), _ = torch_invoke("RNN", tin, attrs, is_train=True,
+                             rng=mt.random.key_generator(1, "cpu"))
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert not torch.equal(out, ref)
+    (out,), _ = torch_invoke("RNN", tin, attrs, is_train=False)
     assert torch.equal(out, ref)
 
 
