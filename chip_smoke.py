@@ -165,7 +165,8 @@
    ``mod.BucketingModule.fit`` on ``gpu(0)`` for ``LSTM_EPOCHS`` epochs
    over a seeded synthetic Markov corpus (Adam lr 0.01, ``Uniform(0.08)``,
    zero states through ``arg_params``, ``Perplexity(ignore_label=0)``,
-   ``Speedometer``), then ``score``s a held-out corpus.  Every forward,
+   ``Speedometer``; a CUDA graph a bucket), then ``score``s a held-out
+   corpus (an inference graph a bucket).  Every forward,
    in training and in scoring, must launch ``lstm_scan`` once a layer;
    every bucket must have been seen, with the buckets sharing the
    parameter objects; ``rnn_parameters``' gradient must be finite and
@@ -200,11 +201,16 @@
    and the ``cls_label`` output) and the localization loss of the last
    epoch below the first's, and training must launch ``nms`` zero
    times.  Then the detection symbol in a second ``Module``, filled by
-   ``set_params(*mod.get_params())``, detects every batch: one ``nms``
-   launch a forward, scores sorted, and rows that ``torch.equal``
-   ``nms_plain`` of the same rows before NMS; B7 is also timed alone on
-   the first batch's rows (``nms_on_detection_rows``; those launches are
-   not counted).
+   ``set_params(*mod.get_params())`` while the training module and its
+   graph pool stay alive, detects every batch: one ``nms`` launch a
+   forward, scores sorted, and rows that ``torch.equal`` ``nms_plain``
+   of the rows before NMS of the same forward (rebuilt from the
+   ``MultiBoxDetection`` inputs it also outputs).  A second module with
+   NMS off runs each batch in its own forward; the batches whose rows
+   before NMS differ from the detection forward's, and the kernels only
+   one of the two ran, are recorded (``raw_forward_apart``).  B7 is also
+   timed alone on the first batch's rows (``nms_on_detection_rows``;
+   those launches are not counted).
 8. Sequence parallelism (``mt.sequence``) on one card, fp32, at the
    GPT-2-class attention width (H = 12, D = 64), over
    ``sequence_mesh(4, ["cuda:0"] * 4)`` (``sequence_path``): every
@@ -257,12 +263,14 @@
    steps as in 4 (B1 forward and backward 12 times a step, a falling
    loss); the inference forward ``torch.equal`` to the dropout-free
    LM's on the same weights; (b) LSTM-PTB's symbol with
-   ``LSTM_DROPOUT`` between its layers, one bucket-60 batch: 2
-   ``lstm_scan`` launches, a finite loss, layer 0's mask keeping within
-   6 sigma; (c) AlexNet (BASELINE's row: 3x224x224, 1,000 classes,
-   batch 256, ``CNN_TRAIN``) through ``train_imagenet.main`` (its Module
-   timing each step), 2 epochs of 20 batches: images/s and step p50 of
-   the second epoch, peak memory, device time by aten op
+   ``LSTM_DROPOUT`` between its layers, ``LSTM_DROPOUT_BATCHES``
+   bucket-60 batches (the fused step's warm-up, capture and a replay):
+   2 ``lstm_scan`` launches a batch, finite losses, layer 0's mask new
+   every batch and keeping within 6 sigma; (c) AlexNet (BASELINE's
+   row: 3x224x224, 1,000 classes, batch 256, ``CNN_TRAIN``) through
+   ``train_imagenet.main`` (its Module timing each step), 2 epochs of 20
+   batches: images/s and step p50 of the second epoch, peak memory, the
+   device time of a step, and of the eager run's by aten op
    (``CNN_OP_CLASSES``); gates: finite outputs, the last 5 batches'
    cross-entropy below the first 5's; (d) AlexNet's first step at batch
    4 on the card against the CPU replaying the card's masks (float32
@@ -279,25 +287,60 @@
    2^24 ones keeping within 6 sigma of 1 - p.  Only (a) and (b) launch
    the port's kernels.
 
+The fused step.  Every ``Module`` training path above and below (the
+packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
+trains through the port's fused step, its default: after
+two eager warm-up steps the step of each input shape is a CUDA
+graph (forward, backward and one optimizer segment), and so is each
+module's ``forward(is_train=False)`` (scoring, detection, predict).
+Each such path prints a ``fused_step`` line: whether it runs as graphs
+(or the ops that keep it uncaptured: the ``CustomOp`` net's ``Custom``),
+the graphs held, captures, capture ms and the pool bytes they added,
+beside its step p50 and, from this run, the step p50 of the same path
+under ``MXNET_FUSED_STEP=0`` (the eager path), and records the device
+time of a step both ways (``step_device_ms``: the kernels' time from
+``torch.profiler``, graph replays included, and the CUDA events' span);
+ResNet-50, AlexNet and Inception-v3 split the eager step by aten op,
+LSTM-PTB's eager batch by part.  The graphed steps of the packed, DPA
+and GELU LMs must match the eager steps from the same parameters (each
+step's loss within ``TOL``, the weights after the last within
+``BWD_TOL``); per-step launch counts are the same both ways.  A
+replay runs no wrapper, so wherever a CUDA graph may replay (the
+graphed training runs, the example's fit, LSTM-PTB's scoring, SSD300's
+detection, phase 11's parts) the launches are read from a
+``torch.profiler`` trace of the device (``TracedLaunches``: each kernel
+counted by its device function) and must equal what the wrappers
+counted (a replay adds the launches its capture recorded); the kernels
+line's launches are those traces' counts there.  The dropout LM's and
+the dropout LSTM's replayed steps draw new masks every step
+(``ReplayMasks``); scoring is timed both ways (``score_pair``).
+
 ``python3 chip_smoke.py --decode-timing ROOT`` times only the decode
 kernel of the port under ROOT (see ``decode_timing``); ``--paths ROOT``
 the tensor-core kernels (B1's forward and backward, B5's forward with
 its backward, B9) in fp32 and bf16, the paged kernels
 (``paged_timing``), B6 at (60, 32, 200) and the float64 check, then
 serving runs A, B and C, the packed LM's and the DPA LM's training,
-the sequence phase, LSTM-PTB, SSD300 and ResNet-50's training run
-(``resnet_train``) there, ``--kernels ROOT`` the kernels
+the sequence phase, LSTM-PTB, SSD300 (its step and detection forward),
+ResNet-50's, AlexNet's and Inception-v3's training runs and
+``benchmark_score`` of ResNet-50 at batch 1, 8 and 32 there (the
+training paths without their eager runs: parent against change is the
+comparison), ``--kernels ROOT`` the kernels
 alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
-``--cnn ROOT`` phase 11 alone (see ``paths_timing``).
+``--cnn ROOT`` phase 11 alone (see ``paths_timing``);
+``--eager-step ROOT`` ResNet-50's step on the eager path, by part
+(``eager_step_timing``).
 
 Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
 Any failed check raises and the script exits non-zero without the last
 line.  It needs a CUDA card and the repository around it.
 """
 
+import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -319,6 +362,9 @@ SPEC_K, SPEC_NEW = 4, 64
 LSTM_PTB = dict(vocab=10000, num_embed=200, num_hidden=200, num_layers=2,
                 batch=32, buckets=(10, 20, 30, 40, 50, 60))
 LSTM_EPOCHS, LSTM_TRAIN_SENTENCES, LSTM_HELD_OUT_SENTENCES = 2, 1800, 480
+# the eager runs (MXNET_FUSED_STEP=0) beside the fused ones: one epoch
+# of LSTM-PTB, SSD300 and the image runs
+EAGER_EPOCHS = 1
 # lstm_scan checks (T, B, H): LSTM-PTB's longest and shortest bucket and an
 # odd shape (the cluster-resident design), then two widths whose ut no
 # cluster holds (the L2-streaming kernel)
@@ -354,6 +400,8 @@ MNIST_MIN_ACCURACY = 0.99
 # AlexNet first-step check at batch 4; benchmark_score's batches 1 and 32
 # of the scoring row's networks and ResNet-50's s2d stem
 LM_DROPOUT, LSTM_DROPOUT = 0.1, 0.5
+# (b)'s batches: the fused step's two warm-up steps, its capture, a replay
+LSTM_DROPOUT_BATCHES = 4
 CNN_TRAIN = {
     "alexnet": dict(image_shape=(3, 224, 224), classes=1000, batch=256,
                     lr=0.01, epochs=2, batches=20),
@@ -1193,20 +1241,20 @@ def check_nms(torch, ck, B, A, force, seed):
 def kernel_device_ms(torch, fn, reps=5):
     """Device ms of each CUDA kernel one call of ``fn`` runs, by name:
     ``torch.profiler`` over ``reps`` calls after one, the mean of the
-    launches it recorded (it may miss the first calls' records)."""
-    import re
-
+    launches it recorded (spin kernels first, ``spin_fill``: a trace
+    may miss the records of its first moments)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin_fill(torch)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_time_total > 0:
+        if e.device_time_total > 0 and "spin_kernel" not in e.key:
             name = re.search(r"(\w+_kernel(<[^>]*>)?)", e.key)
             out[name.group(1) if name else e.key[:40]] = \
                 e.device_time_total / e.count / 1e3
@@ -1983,15 +2031,223 @@ def reset_launch_counts(ck):
     rtc.reset_launch_counts()
 
 
+# the device functions of each kernel a graphed path launches, as a
+# trace names them: one launch a wrapper counts is one of these (nms:
+# its sweep, its fused or its survivors' kernel, one a call whose images
+# fit one workspace group, as the detection forward's do)
+TRACE_FUNCTIONS = {
+    "flash_mha_packed": ("mhap_fwd_kernel",),
+    "flash_mha_packed_bwd_dq": ("mhap_bwd_dq_kernel",),
+    "flash_mha_packed_bwd_dkv": ("mhap_bwd_dkv_kernel",),
+    "flash_mha": ("mha_fwd_kernel",),
+    "flash_mha_bwd_dq": ("mha_bwd_dq_kernel",),
+    "flash_mha_bwd_dkv": ("mha_bwd_dkv_kernel",),
+    "lstm_scan": ("lstm_cluster_kernel", "lstm_stream_kernel"),
+    "nms": ("nms_sweep_kernel", "nms_fused_kernel", "nms_force_kernel"),
+    "user_silu": ("user_silu",), "user_silu_grad": ("user_silu_grad",),
+    "user_gelu": ("user_gelu",), "user_gelu_grad": ("user_gelu_grad",)}
+_TRACE_KEY = {f: k for k, fs in TRACE_FUNCTIONS.items() for f in fs}
+# a function's name in a kernel's trace name, demangled ("void
+# mhap_fwd_kernel<float>(...)", "user_gelu(float const*, ...)") or not
+# ("_Z9user_geluPKfPfi")
+_TRACE_NAME = re.compile(r"(?<![A-Za-z_])("
+                         + "|".join(sorted(_TRACE_KEY, key=len,
+                                           reverse=True))
+                         + r")(?=[<(IP]|$)")
+
+
+# spin kernels (``torch.cuda._sleep``) at each end of a traced region,
+# about a millisecond each first and half that last: a trace may miss
+# the records of its first moments (up to 28 of 32 first spins in a
+# full run), and no kernel of the region is then among them
+TRACE_FILLERS, TRACE_FILLER_CYCLES = 100, 2_000_000
+
+
+def spin_fill(torch, cycles=TRACE_FILLER_CYCLES):
+    """``TRACE_FILLERS`` spin kernels of ``cycles``, then a
+    synchronize."""
+    for _ in range(TRACE_FILLERS):
+        torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+
+
+def traced_launches(prof):
+    """The kernels of ``TRACE_FUNCTIONS`` in the device activity of the
+    finished ``torch.profiler`` run ``prof``, by wrapper name, and the
+    spin kernels: "spin_long" (at least 3/4 of a ``TRACE_FILLER_CYCLES``
+    spin's median) and "spin_short"."""
+    counts = {k: 0 for k in TRACE_FUNCTIONS}
+    kineto = getattr(prof.profiler, "kineto_results", None)
+    if kineto is not None:
+        events = [(e.name(), e.duration_ns()) for e in kineto.events()
+                  if str(e.device_type()).endswith("CUDA")]
+    else:
+        events = [(e.name, e.device_time_total * 1e3) for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]
+    spins = []
+    for name, ns in events:
+        m = _TRACE_NAME.search(name)
+        if m:
+            counts[_TRACE_KEY[m.group(1)]] += 1
+        elif "spin_kernel" in name:
+            spins.append(ns)
+    top = max(spins, default=0)
+    counts["spin_long"] = sum(ns >= 0.75 * top for ns in spins)
+    counts["spin_short"] = len(spins) - counts["spin_long"]
+    return counts
+
+
+class TracedLaunches:
+    """The port's kernels as the card ran them while entered: with
+    ``on``, a ``torch.profiler`` trace of the device's activity (each
+    kernel a CUDA graph replays is a record of its own) counted by
+    device function (``traced_launches``) is ``launches``, and what the
+    wrappers counted meanwhile (a graph's replays by the launches its
+    capture recorded) must equal it, kernel by kernel; a kernel counted
+    that ``TRACE_FUNCTIONS`` lacks fails.  ``TRACE_FILLERS`` spin
+    kernels open and close the trace (``spin_fill``; a line is printed
+    if the trace lost any).  Without ``on`` (an eager path, where each
+    count is a launch), ``launches`` is the wrappers' counts.  ``label``
+    names the region in a failure."""
+
+    def __init__(self, torch, ck, label, on=True):
+        self.torch, self.ck, self.label, self.on = torch, ck, label, on
+        self.launches = self.counted = None
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.before = launch_counts(self.ck)
+        self.prof = None
+        if self.on:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            spin_fill(self.torch)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        if self.prof is not None:
+            spin_fill(self.torch, TRACE_FILLER_CYCLES // 2)
+            self.prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        now = launch_counts(self.ck)
+        self.counted = {k: now[k] - self.before.get(k, 0) for k in now}
+        if not self.on:
+            self.launches = dict(self.counted)
+            return False
+        traced = traced_launches(self.prof)
+        self.prof = None
+        spins = (traced.pop("spin_long"), traced.pop("spin_short"))
+        if spins != (TRACE_FILLERS, TRACE_FILLERS):
+            print(json.dumps({"trace_fillers": {
+                "region": self.label, "launched": TRACE_FILLERS,
+                "traced_first": spins[0], "traced_last": spins[1]}}))
+        untraced = [k for k, n in self.counted.items()
+                    if n and k not in traced]
+        check(not untraced, f"{self.label}: {untraced} launched, and the "
+              f"trace names no device function of theirs")
+        off = {k: (self.counted.get(k, 0), n) for k, n in traced.items()
+               if self.counted.get(k, 0) != n}
+        check(not off, f"{self.label}: (counted, traced) launches differ: "
+              f"{off}")
+        self.launches = {**self.counted, **traced}
+        return False
+
+
+@contextlib.contextmanager
+def fused_env(value):
+    """``MXNET_FUSED_STEP`` = ``value`` while entered: a module made
+    meanwhile (it reads the switch at construction, a BucketingModule's
+    bucket modules when they are made) takes the eager path for "0"."""
+    old = os.environ.get("MXNET_FUSED_STEP")
+    os.environ["MXNET_FUSED_STEP"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MXNET_FUSED_STEP"]
+        else:
+            os.environ["MXNET_FUSED_STEP"] = old
+
+
+def graph_stats(mod):
+    """``mod.graph_stats()``: where the fused step and the inference
+    forward run (None for a port without the fused step, a parent
+    checkout under ``--paths``)."""
+    stats = getattr(mod, "graph_stats", None)
+    return stats() if stats is not None else None
+
+
+def fused_report(label, stats, p50, eager_p50, captured=True):
+    """Print the fused step's line of a path: whether it runs as CUDA
+    graphs (or the ops that keep it uncaptured), the graphs held, the
+    captures, their time and the pool bytes they added, beside the
+    path's step p50 and the eager path's from this run.  With
+    ``captured`` the path must have captured a graph."""
+    rec = {"path": label, "step_p50_ms": p50, "eager_step_p50_ms": eager_p50}
+    if stats is not None:
+        rec.update(stats)
+        check(not captured or (stats["graphs_on"] and stats["captures"] > 0),
+              f"{label}: the fused step ran no CUDA graph: {stats}")
+    print(json.dumps({"fused_step": rec}))
+    return rec
+
+
+# steps that time a step's device time (after one more); inference
+# forwards of a module that capture its graph and replay it (the fused
+# step's two warm-up calls, the capture, a replay)
+STEP_PROFILE_REPS, INFERENCE_FORWARDS = 3, 4
+
+
+def step_device_ms(torch, fn, reps=STEP_PROFILE_REPS):
+    """Device ms a call of ``fn`` (called once first, then ``reps``
+    times under ``torch.profiler`` and ``reps`` times between CUDA
+    events): the kernels' own time (those a CUDA graph replays
+    included) and the events' span, the device's idle gaps included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.self_device_time_total for e in prof.key_averages()
+                  if str(e.device_type) != "DeviceType.CPU") / reps / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return {"kernels_ms": kernels, "span_ms": start.elapsed_time(end) / reps}
+
+
+def graphs_on(mod):
+    """True where ``mod`` (a ``Module``, or a bound ``BucketingModule``)
+    runs its steps as CUDA graphs."""
+    stats = graph_stats(mod)
+    return bool(stats and stats["graphs_on"])
+
+
 def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
-                user_kernels=()):
+                user_kernels=(), after_step=None):
     """``TRAIN_STEPS`` SGD steps (``TRAIN_LR``, momentum 0.9) of a bound
     LM module, the launch counts reset just before and read just after:
-    every step must launch each of ``kernels`` and ``user_kernels`` (of
-    ``rtc``) once a layer and the other attention family's kernels never
-    (a dropped attention gradient shows as 0 backward launches), every
-    gradient of ``grad_names`` must be finite and non-zero, and the mean
-    loss of the last 3 steps must be below the first step's."""
+    every step must count a launch of each of ``kernels`` and
+    ``user_kernels`` (of ``rtc``) a layer and none of the other
+    attention family's kernels (a dropped attention gradient shows as 0
+    backward launches), every gradient of ``grad_names`` must be finite
+    and non-zero, and the mean loss of the last 3 steps must be below
+    the first step's.  Under CUDA graphs the steps run inside
+    ``TracedLaunches``: the launches are the trace's, which must hold
+    ``TRAIN_STEPS`` a layer of each kernel.  ``after_step(step)`` runs
+    after each step's checks."""
     L, T = GPT2_SMALL["num_layers"], GPT2_SMALL["max_len"]
     mod.init_optimizer(optimizer="sgd", optimizer_params={
         "learning_rate": TRAIN_LR, "momentum": 0.9})
@@ -2000,6 +2256,8 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     reset_launch_counts(ck)  # counts from here on: this training path
+    traced = TracedLaunches(torch, ck, label, on=graphs_on(mod))
+    traced.__enter__()
     t0 = time.perf_counter()
     for step, batch in enumerate(batches):
         before = launch_counts(ck)
@@ -2022,8 +2280,16 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
         check(out.shape == (TRAIN_BATCH, T), f"loss shape {out.shape}")
         losses.append(float(out.mean()))
         check(np.isfinite(losses[-1]), f"{label} loss not finite: {losses}")
+        if after_step is not None:
+            after_step(step)
     wall = time.perf_counter() - t0
-    launches = launch_counts(ck)
+    traced.__exit__(None, None, None)
+    launches = traced.launches
+    for k in DPA_KERNELS + PACKED_KERNELS + tuple(user_kernels):
+        want = L * TRAIN_STEPS \
+            if k in tuple(kernels) + tuple(user_kernels) else 0
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times in {TRAIN_STEPS} steps, not {want}")
     peak = torch.cuda.max_memory_allocated()
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} {label} steps")
     check(np.mean(losses[-3:]) < losses[0],
@@ -2034,7 +2300,77 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
             "wall_s": wall,
             "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * T / wall,
             "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
-            "peak_memory_bytes": int(peak), "launches": launches}
+            "peak_memory_bytes": int(peak), "launches": launches,
+            "graphs": graph_stats(mod)}
+
+
+def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
+                  label, user_kernels=(), compare=True, probe=None,
+                  eager=True, keep=None, tally=None):
+    """``train_steps`` of a fresh ``make_mod()`` through the fused step
+    (the default: warm-up steps, a capture, replays), then the device
+    time of a step (``step_device_ms``, ``STEP_PROFILE_REPS`` + 1 more
+    steps); with ``eager``, the same again from the same parameters
+    under ``MXNET_FUSED_STEP=0``, and with ``compare`` (a dropout-free
+    LM) each graphed step's mean loss within ``TOL`` of the eager one's
+    (relative) and the ``grad_names`` weights after the last step within
+    ``BWD_TOL`` (of max(1, max|w|)).  The record is the fused run's,
+    with the eager run's p50, losses and device time beside it.  A
+    ``probe`` (``ReplayMasks``) is entered around the fused run's steps
+    and checks each; ``keep(mod)`` sees the fused module last;
+    ``tally(launches)`` takes each run's ``train_steps`` launches (a
+    phase's ``Launches.add``)."""
+    first = next(iter(batches))
+    batches.reset()
+
+    def run(mod, tag, probe):
+        with probe or contextlib.nullcontext():
+            rec = train_steps(torch, ck, mod, batches, kernels, grad_names,
+                              tag, user_kernels,
+                              probe.after_step if probe else None)
+        if tally is not None:
+            tally(rec["launches"])
+        weights = {n: mod._exec.arg_dict[n]._data.clone()
+                   for n in grad_names} if compare else None
+
+        def step():
+            mod.forward_backward(first)
+            mod.update()
+
+        rec["step_device_ms"] = step_device_ms(torch, step)
+        batches.reset()
+        return rec, weights
+
+    mod = make_mod()
+    rec, fused_w = run(mod, label, probe)
+    if keep is not None:
+        keep(mod)
+    del mod
+    torch.cuda.empty_cache()
+    eager_p50 = None
+    if eager:
+        with fused_env("0"):
+            emod = make_mod()
+        erec, eager_w = run(emod, f"{label} (eager)", None)
+        del emod
+        torch.cuda.empty_cache()
+        eager_p50 = erec["step_p50_ms"]
+        rec.update(eager_step_p50_ms=eager_p50, eager_losses=erec["losses"],
+                   eager_step_device_ms=erec["step_device_ms"])
+        if compare:
+            loss_err = max(abs(a - b) / (TOL["float32"] * abs(b))
+                           for a, b in zip(rec["losses"], erec["losses"]))
+            w_err = max((fused_w[n] - eager_w[n]).abs().max().item()
+                        / (BWD_TOL["float32"]
+                           * max(1.0, eager_w[n].abs().max().item()))
+                        for n in grad_names)
+            rec["graphed_vs_eager_err_over_tol"] = {"loss": loss_err,
+                                                    "weights": w_err}
+            check(loss_err <= 1 and w_err <= 1, f"{label}: the graphed "
+                  f"steps miss the eager ones (error over tolerance: loss "
+                  f"{loss_err}, weights {w_err})")
+    fused_report(label, rec["graphs"], rec["step_p50_ms"], eager_p50)
+    return rec
 
 
 def packed_lm_symbol(mt, dropout=0.0):
@@ -2046,13 +2382,15 @@ def packed_lm_symbol(mt, dropout=0.0):
                                     dropout=dropout)
 
 
-def train_path(torch, mt, ck):
-    """10 SGD steps of the GPT-2-small-class LM through ``Module``."""
+def train_path(torch, mt, ck, eager=True):
+    """10 SGD steps of the GPT-2-small-class LM through ``Module``'s
+    fused step, against the eager path (``lm_train_pair``)."""
     L = GPT2_SMALL["num_layers"]
-    mod = lm_module(mt, packed_lm_symbol(mt), gpt2_small_params(0))
-    return train_steps(torch, ck, mod, lm_batches(mt), PACKED_KERNELS,
-                       [f"layer{i}_qkv_weight" for i in range(L)],
-                       "training")
+    params = gpt2_small_params(0)
+    return lm_train_pair(
+        torch, mt, ck, lambda: lm_module(mt, packed_lm_symbol(mt), params),
+        lm_batches(mt), PACKED_KERNELS,
+        [f"layer{i}_qkv_weight" for i in range(L)], "training", eager=eager)
 
 
 def dpa_lm_symbol(sym, vocab, seq_len, num_layers, num_heads, d_model,
@@ -2286,11 +2624,12 @@ def first_step(torch, mt, ck, sym, params, batch, grads, want,
     return loss, launches, out
 
 
-def dpa_path(torch, mt, ck):
+def dpa_path(torch, mt, ck, eager=True):
     """The GPT-2-small-class LM over user-written attention symbols
     (``dpa_lm_symbol``) through ``Module``: first the check step against
     the packed ``transformer_lm`` on the same weights and batch (and the
-    BHTD variant), then ``TRAIN_STEPS`` SGD steps."""
+    BHTD variant), then ``TRAIN_STEPS`` SGD steps of the fused step
+    against the eager path (``lm_train_pair``)."""
     V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
         GPT2_SMALL["max_len"]
     dm, dff = GPT2_SMALL["d_model"], GPT2_SMALL["d_ff"]
@@ -2329,12 +2668,11 @@ def dpa_path(torch, mt, ck):
                              "qkv_grad_err_over_tol_max": worst}
     print(f"DPA LM first step: {agreement}, packed LM loss {ref_loss}")
 
-    mod = lm_module(mt, dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff), params)
+    sym = dpa_lm_symbol(mt.sym, V, T, L, H, dm, dff)
     batches.reset()
-    rec = train_steps(torch, ck, mod, batches, DPA_KERNELS, qkv_names,
-                      "DPA training")
-    del mod
-    torch.cuda.empty_cache()
+    rec = lm_train_pair(torch, mt, ck, lambda: lm_module(mt, sym, params),
+                        batches, DPA_KERNELS, qkv_names, "DPA training",
+                        eager=eager)
     for k, n in check_launches.items():
         rec["launches"][k] += n
     rec["first_step_vs_packed"] = dict(agreement, packed_loss=ref_loss)
@@ -2581,15 +2919,17 @@ def rtc_api_checks(torch, mt, names, ex):
 
 def example_path(torch, mt, ck, ex):
     """``examples/user_cuda_kernel.main(gpu(0))``: the op imperatively,
-    then ``Module.fit`` to accuracy > 0.85, each training batch launching
-    ``user_silu`` once and ``user_silu_grad`` once."""
+    then ``Module.fit`` to accuracy > 0.85, each training batch counting
+    a launch of ``user_silu`` and one of ``user_silu_grad``, under
+    ``TracedLaunches`` (the fit's steps are CUDA graphs)."""
     torch.cuda.synchronize()
     reset_launch_counts(ck)
-    t0 = time.perf_counter()
-    rec = ex.main(mt.gpu(0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts(ck)
+    with TracedLaunches(torch, ck, "user kernel example") as traced:
+        t0 = time.perf_counter()
+        rec = ex.main(mt.gpu(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = traced.launches
     check(rec["accuracy"] > 0.85, f"example accuracy {rec['accuracy']}")
     check(rec["batches"] == 80 and set(rec["batch_launches"]) == {(1, 1)},
           f"example: {rec['batches']} batches, launches a batch "
@@ -2606,7 +2946,8 @@ def gelu_lm_path(torch, mt, ck, gelu_name, dpa_step_p50_ms):
     gelu_op=)``), full width: its first step against the built-in-GELU
     DPA LM on the same weights and batch (mean loss to 1e-5 relative;
     ``ff1_weight`` and q/k/v weight gradients within ``BWD_TOL``), then
-    ``TRAIN_STEPS`` SGD steps, each launching ``user_gelu``,
+    ``TRAIN_STEPS`` SGD steps of the fused step against the eager path
+    (``lm_train_pair``), each launching ``user_gelu``,
     ``user_gelu_grad`` and the three DPA kernels 12 times."""
     V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
         GPT2_SMALL["max_len"]
@@ -2635,13 +2976,11 @@ def gelu_lm_path(torch, mt, ck, gelu_name, dpa_step_p50_ms):
         worst = max(worst, err / tol)
     print(f"GELU LM first step: loss {loss} (built-in GELU {ref_loss}), "
           f"gradient error over tolerance at most {worst}")
-    mod = lm_module(mt, sym, params)
     batches.reset()
-    rec = train_steps(torch, ck, mod, batches, DPA_KERNELS,
-                      [n for n in names if "ff1" in n or "_q_" in n],
-                      "GELU LM training", user_kernels=user)
-    del mod
-    torch.cuda.empty_cache()
+    rec = lm_train_pair(torch, mt, ck, lambda: lm_module(mt, sym, params),
+                        batches, DPA_KERNELS,
+                        [n for n in names if "ff1" in n or "_q_" in n],
+                        "GELU LM training", user_kernels=user)
     for k, n in launches.items():
         rec["launches"][k] += n
     rec["first_step_vs_builtin_gelu"] = {
@@ -2735,6 +3074,11 @@ def custom_op_path(torch, mt):
             optimizer="sgd", optimizer_params={"learning_rate": 0.5},
             arg_params=init, batch_end_callback=on_batch)
     wall = time.perf_counter() - t0
+    # Custom runs Python per call: the fused step runs uncaptured
+    stats = fused_report("CustomOp net", graph_stats(mod), None, None,
+                         captured=False)
+    check(not stats["graphs_on"] and stats["uncapturable_ops"] == ["Custom"]
+          and stats["captures"] == 0, f"CustomOp net: {stats}")
     check(len(losses) == 40 and np.all(np.isfinite(losses))
           and np.mean(losses[-4:]) < np.mean(losses[:4]),
           f"Custom-op net did not train: {losses}")
@@ -2742,7 +3086,8 @@ def custom_op_path(torch, mt):
           f"{np.mean(losses[:4]):.4f} → {np.mean(losses[-4:]):.4f}")
     return {"first_step_max_abs_err": err, "epochs": 10, "batches": 40,
             "loss_first_epoch": float(np.mean(losses[:4])),
-            "loss_last_epoch": float(np.mean(losses[-4:])), "wall_s": wall}
+            "loss_last_epoch": float(np.mean(losses[-4:])), "wall_s": wall,
+            "graphs": stats}
 
 
 def lstm_sym_gen(mt, vocab, num_embed, num_hidden, num_layers, dropout=0.0):
@@ -2909,23 +3254,21 @@ def lstm_breakdown(torch, mt, ck, mod, data, key, Hd, B, reps=3):
     return out
 
 
-def lstm_path(torch, mt, ck):
-    """Train the LSTM-PTB model through ``BucketingModule.fit``, then
-    score a held-out corpus; launch counts reset just before each phase
-    and read just after."""
+def lstm_fit(torch, mt, ck, train, epochs):
+    """``BucketingModule.fit`` of the LSTM-PTB model over ``train`` for
+    ``epochs`` (Adam 0.01, ``Uniform(0.08)``, zero states,
+    ``Perplexity``, a ``Speedometer``), the launch counts reset just
+    before, ``BatchChecks`` on every batch → (module, checks, the
+    perplexity and seconds of each epoch, the launches of the first
+    epoch and its batches).  Under the fused step the first epoch
+    (every bucket's warm-up steps, capture and first replays) runs
+    inside ``TracedLaunches`` and the launches are its trace's; the
+    later epochs run untraced, the ones to time (a trace costs a graph
+    of LSTM-PTB's many small kernels about as much again)."""
     import logging
 
     cfg = LSTM_PTB
     L, Hd, B = cfg["num_layers"], cfg["num_hidden"], cfg["batch"]
-    buckets = list(cfg["buckets"])
-    train = BucketSentenceIter(
-        mt, synthetic_corpus(LSTM_TRAIN_SENTENCES, cfg["vocab"], buckets[-1],
-                             seed=1), B, buckets, seed=1)
-    held_out = BucketSentenceIter(
-        mt, synthetic_corpus(LSTM_HELD_OUT_SENTENCES, cfg["vocab"],
-                             buckets[-1], seed=2), B, buckets, seed=2)
-    check(sorted(train._data) == buckets and sorted(held_out._data) ==
-          buckets, "a bucket holds fewer sentences than one batch")
     mod = mt.mod.BucketingModule(
         lstm_sym_gen(mt, cfg["vocab"], cfg["num_embed"], Hd, L),
         default_bucket_key=train.default_bucket_key, context=mt.gpu(0),
@@ -2941,15 +3284,26 @@ def lstm_path(torch, mt, ck):
         now = time.perf_counter()
         epoch_s.append(now - t_epoch[0])
         curve.append(metric.get()[1])
+        if epoch == 0:
+            traced.__exit__(None, None, None)
+            first.append(len(checks.batch_ms))
+            now = checks.t = time.perf_counter()
         t_epoch[0] = now
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     mt.random.seed(0)
+    train.reset()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ck.reset_launch_counts()  # counts from here on: LSTM training
+    ck.reset_launch_counts()
+    # graphs where the port has them and the bucket modules, made in
+    # fit, read no MXNET_FUSED_STEP=0
+    traced = TracedLaunches(torch, ck, "LSTM-PTB training",
+                            on=hasattr(mod, "graph_stats") and os.environ.get(
+                                "MXNET_FUSED_STEP", "1") != "0")
+    traced.__enter__()
+    first = []
     t_epoch[0] = checks.t = time.perf_counter()
-    mod.fit(train, num_epoch=LSTM_EPOCHS, optimizer="adam",
+    mod.fit(train, num_epoch=epochs, optimizer="adam",
             optimizer_params={"learning_rate": 0.01}, eval_metric=metric,
             initializer=mt.initializer.Uniform(0.08),
             arg_params={"rnn_state": zeros, "rnn_state_cell": zeros.copy()},
@@ -2958,7 +3312,37 @@ def lstm_path(torch, mt, ck):
                                                         auto_reset=False),
                                 checks],
             epoch_end_callback=epoch_end)
-    train_launches = dict(ck.LAUNCHES)
+    return mod, checks, curve, epoch_s, traced.launches, first[0]
+
+
+def lstm_path(torch, mt, ck, eager=True):
+    """Train the LSTM-PTB model through ``BucketingModule.fit`` (the
+    fused step: a CUDA graph a bucket after its warm-up steps), then
+    score a held-out corpus (an inference graph a bucket); launch counts
+    reset just before each phase and read just after, from
+    ``TracedLaunches`` where the graphs run.  Then the device
+    time of a bucket-60 batch (``step_device_ms``), and with ``eager``
+    ``EAGER_EPOCHS`` under ``MXNET_FUSED_STEP=0``: its batch p50,
+    ``lstm_breakdown`` of its module and its batch's device time."""
+    cfg = LSTM_PTB
+    L, Hd, B = cfg["num_layers"], cfg["num_hidden"], cfg["batch"]
+    buckets = list(cfg["buckets"])
+    train = BucketSentenceIter(
+        mt, synthetic_corpus(LSTM_TRAIN_SENTENCES, cfg["vocab"], buckets[-1],
+                             seed=1), B, buckets, seed=1)
+    held_out = BucketSentenceIter(
+        mt, synthetic_corpus(LSTM_HELD_OUT_SENTENCES, cfg["vocab"],
+                             buckets[-1], seed=2), B, buckets, seed=2)
+    check(sorted(train._data) == buckets and sorted(held_out._data) ==
+          buckets, "a bucket holds fewer sentences than one batch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # counts from here on: LSTM training
+    mod, checks, curve, epoch_s, train_launches, traced_batches = \
+        lstm_fit(torch, mt, ck, train, LSTM_EPOCHS)
+    check(train_launches["lstm_scan"] == L * traced_batches,
+          f"lstm_scan launched {train_launches['lstm_scan']} times in "
+          f"{traced_batches} training batches")
     peak = torch.cuda.max_memory_allocated()
     n_batches = len(checks.batch_ms) // LSTM_EPOCHS
     check(set(checks.keys) == set(buckets) == set(mod._buckets),
@@ -2971,14 +3355,17 @@ def lstm_path(torch, mt, ck):
                   f"bucket {key} does not share parameter {p}")
     check(all(np.isfinite(curve)) and curve[1] < curve[0],
           f"training perplexity did not fall: {curve}")
+    train_graphs = graph_stats(mod)
 
-    breakdown = lstm_breakdown(torch, mt, ck, mod, train, buckets[-1], Hd, B)
     scoring = BatchChecks(torch, ck, mod, L, "scoring", False)
     ck.reset_launch_counts()  # counts from here on: LSTM scoring
-    scoring.t = time.perf_counter()
-    (_, held_ppl), = mod.score(held_out, mt.metric.Perplexity(ignore_label=0),
-                               batch_end_callback=scoring)
-    score_launches = dict(ck.LAUNCHES)
+    with TracedLaunches(torch, ck, "LSTM-PTB scoring",
+                        on=graphs_on(mod)) as traced:
+        scoring.t = time.perf_counter()
+        (_, held_ppl), = mod.score(
+            held_out, mt.metric.Perplexity(ignore_label=0),
+            batch_end_callback=scoring)
+    score_launches = traced.launches
     check(np.isfinite(held_ppl) and held_ppl < curve[0],
           f"held-out perplexity {held_ppl} (training {curve})")
     check(score_launches["lstm_scan"] == L * len(scoring.batch_ms) > 0,
@@ -2987,42 +3374,78 @@ def lstm_path(torch, mt, ck):
     launches = {k: train_launches[k] + score_launches[k] for k in
                 train_launches}
     print(f"LSTM-PTB perplexity curve {curve}, held-out {held_ppl}")
-    return {"config": cfg, "epochs": LSTM_EPOCHS,
-            "train_sentences": LSTM_TRAIN_SENTENCES,
-            "batches_per_epoch": n_batches,
-            "samples_per_s_per_epoch": [n_batches * B / t for t in epoch_s],
-            "epoch_s": epoch_s,
-            "batch_p50_ms": float(np.median(checks.batch_ms)),
-            "batch_p50_ms_by_bucket": {
-                b: float(np.median([t for t, k in zip(checks.batch_ms,
-                                                      checks.keys)
-                                    if k == b])) for b in buckets},
-            "batch_breakdown_ms": breakdown,
-            "train_perplexity": curve, "held_out_perplexity": held_ppl,
-            "held_out_batches": len(scoring.batch_ms),
-            "score_batch_p50_ms": float(np.median(scoring.batch_ms)),
-            "lstm_scan_launches": {"training": train_launches["lstm_scan"],
-                                   "scoring": score_launches["lstm_scan"]},
-            "peak_memory_bytes": int(peak), "launches": launches}
+
+    train.reset()
+    longest = next(b for b in train if b.bucket_key == buckets[-1])
+
+    def batch_step(m):
+        m.forward_backward(longest)
+        m.update()
+
+    device = step_device_ms(torch, lambda: batch_step(mod))
+    graphs = graph_stats(mod)
+    del mod
+    torch.cuda.empty_cache()
+    rec = {"config": cfg, "epochs": LSTM_EPOCHS,
+           "train_sentences": LSTM_TRAIN_SENTENCES,
+           "batches_per_epoch": n_batches,
+           "samples_per_s_per_epoch": [n_batches * B / t for t in epoch_s],
+           "epoch_s": epoch_s,
+           # the batches after the traced first epoch: replays
+           "batch_p50_ms": float(np.median(
+               checks.batch_ms[traced_batches:])),
+           "traced_epoch_batch_p50_ms": float(np.median(
+               checks.batch_ms[:traced_batches])),
+           "batch_p50_ms_by_bucket": {
+               b: float(np.median([t for t, k in zip(
+                   checks.batch_ms[traced_batches:],
+                   checks.keys[traced_batches:]) if k == b]))
+               for b in buckets},
+           "batch_device_ms": device,
+           "train_perplexity": curve, "held_out_perplexity": held_ppl,
+           "held_out_batches": len(scoring.batch_ms),
+           "score_batch_p50_ms": float(np.median(scoring.batch_ms)),
+           "lstm_scan_launches": {"training": train_launches["lstm_scan"],
+                                  "scoring": score_launches["lstm_scan"]},
+           "peak_memory_bytes": int(peak), "launches": launches,
+           "train_graphs": train_graphs, "graphs": graphs}
+    eager_p50 = None
+    if eager:
+        with fused_env("0"):
+            emod, echecks, ecurve, _, _, _ = lstm_fit(
+                torch, mt, ck, train, EAGER_EPOCHS)
+            breakdown = lstm_breakdown(torch, mt, ck, emod, train,
+                                       buckets[-1], Hd, B)
+            edevice = step_device_ms(torch, lambda: batch_step(emod))
+        del emod
+        torch.cuda.empty_cache()
+        eager_p50 = float(np.median(echecks.batch_ms))
+        rec["eager"] = {"epochs": EAGER_EPOCHS,
+                        "batch_p50_ms": eager_p50, "perplexity": ecurve,
+                        "batch_breakdown_ms": breakdown,
+                        "batch_device_ms": edevice}
+    fused_report("LSTM-PTB", graphs, rec["batch_p50_ms"], eager_p50)
+    return rec
 
 
-def ssd_path(torch, mt, ck):
-    """Train SSD300 through ``Module`` at upstream's batch and optimizer
-    settings, then detect through a second module filled by
-    ``set_params``; launch counts reset just before each phase.  The
-    first epoch is the warm-up: samples/s counts the later ones' steps
-    over their wall time (gates included)."""
+def ssd_train(torch, mt, ck, epochs):
+    """SSD300 through ``Module`` at upstream's batch and optimizer
+    settings for ``epochs`` over the shuffled ``synthetic_boxes`` (the
+    launch counts reset just before), each step timed (host clock,
+    synchronized) and its outputs checked finite, under
+    ``TracedLaunches`` → (module, iterator, class cross-entropy and
+    localization loss by epoch, step ms, the later epochs' samples/s,
+    the launches)."""
     from mxnet_tpu_torch.models.ssd import ssd300_symbol, synthetic_boxes
-    from mxnet_tpu_torch.ops.detection import _iou_matrix
 
-    train_sym, det_sym = ssd300_symbol()
+    train_sym, _ = ssd300_symbol()
     X, Y = synthetic_boxes(SSD300["images"], seed=0)
     np.random.seed(0)  # NDArrayIter's shuffle
     mt.random.seed(0)  # Xavier's draws
     it = mt.io.NDArrayIter(X, Y, batch_size=SSD300["batch"], shuffle=True,
                            label_name="label", last_batch_handle="discard")
-    dev = mt.gpu(0)
-    mod = mt.mod.Module(train_sym, label_names=("label",), context=dev)
+    mod = mt.mod.Module(train_sym, label_names=("label",),
+                        context=mt.gpu(0))
     mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
              for_training=True)
     mod.init_params(mt.initializer.Xavier())
@@ -3031,9 +3454,12 @@ def ssd_path(torch, mt, ck):
         "wd": SSD300["wd"], "rescale_grad": 1.0})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launch_counts()  # counts from here on: SSD300 training
+    ck.reset_launch_counts()
     ce, loc, step_ms = [], [], []
-    for epoch in range(SSD300["epochs"]):
+    traced = TracedLaunches(torch, ck, "SSD300 training", on=graphs_on(mod))
+    traced.__enter__()
+    t_window = time.perf_counter()
+    for epoch in range(epochs):
         if epoch == 1:
             t_window = time.perf_counter()
         it.reset()
@@ -3056,84 +3482,237 @@ def ssd_path(torch, mt, ck):
         ce.append(float(np.mean(ce_e)))
         loc.append(float(np.mean(loc_e)))
     window_s = time.perf_counter() - t_window
-    window_steps = len(step_ms) * (SSD300["epochs"] - 1) // SSD300["epochs"]
-    train_launches = dict(ck.LAUNCHES)
+    traced.__exit__(None, None, None)
+    window_steps = len(step_ms) * max(epochs - 1, 1) // epochs
+    return (mod, it, ce, loc, step_ms,
+            window_steps * SSD300["batch"] / window_s, traced.launches)
+
+
+def ssd_detect_module(mt, mod, it):
+    """The detection symbol bound for inference, filled by
+    ``set_params(*mod.get_params())``: its outputs are the rows and the
+    inputs of its ``MultiBoxDetection`` (cls_prob, loc_preds, anchors),
+    so the rows before NMS can be rebuilt from the same forward."""
+    from mxnet_tpu_torch.models.ssd import ssd300_symbol
+
+    _, det_sym = ssd300_symbol()
+    det = mt.mod.Module(mt.sym.Group([det_sym, *det_sym.get_children()]),
+                        label_names=("label",), context=mt.gpu(0))
+    det.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False)
+    det.set_params(*mod.get_params())
+    return det, det_sym
+
+
+def kernel_configs(torch, fn):
+    """The kernels one call of ``fn`` runs on the card, each as "name
+    grid block" (a ``torch.profiler`` trace of the device's activity,
+    exported as a Chrome trace; spin kernels around the call), counted.
+    """
+    import collections
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin_fill(torch)
+        fn()
+        spin_fill(torch)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return collections.Counter(
+        f"{e['name']} grid {e['args'].get('grid')} block "
+        f"{e['args'].get('block')}" for e in events
+        if e.get("cat") == "kernel" and "spin_kernel" not in e["name"])
+
+
+def ssd_path(torch, mt, ck, eager=True):
+    """Train SSD300 through ``Module``'s fused step (``ssd_train``, a
+    CUDA graph after the warm-up), then detect through a second module
+    filled by ``set_params`` (its inference graph: B7 replayed inside
+    it), the training module and its graph's pool still alive; launch
+    counts under ``TracedLaunches`` in both phases.  The first epoch is
+    the warm-up: samples/s counts the later ones' steps over their wall
+    time (gates included).  The device time of a training step
+    (``step_device_ms``) is taken before the detection.  Each detection
+    batch's rows must equal ``nms_plain`` of its rows before NMS, rebuilt
+    from the cls_prob, loc_preds and anchors of the same forward.  A
+    module ``raw`` (the same net, NMS off, sharing the detection
+    module's parameters and graph pool) runs each batch in a forward of
+    its own: the batches whose rows before NMS differ from the detection
+    forward's are counted; where some do, whether each module's forward
+    repeats bit for bit on the first batch, and the kernels (with their
+    grids) only one of the two ran (``kernel_configs``).  With
+    ``eager``, ``EAGER_EPOCHS`` of training and one pass of detection
+    under ``MXNET_FUSED_STEP=0``: their p50s and the step's device
+    time."""
+    from mxnet_tpu_torch.ops.detection import _iou_matrix, \
+        multibox_detection
+
+    mod, it, ce, loc, step_ms, samples_per_s, train_launches = ssd_train(
+        torch, mt, ck, SSD300["epochs"])
     train_peak = torch.cuda.max_memory_allocated()
     check(train_launches["nms"] == 0, f"training forwards launched nms "
           f"{train_launches['nms']} times")
     check(ce[-1] < ce[0], f"SSD300 class cross-entropy did not fall: {ce}")
     check(loc[-1] < loc[0], f"SSD300 localization loss did not fall: {loc}")
 
-    det = mt.mod.Module(det_sym, label_names=("label",), context=dev)
-    det.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
-             for_training=False)
-    det.set_params(*mod.get_params())
-    # the same rows before NMS (shares det's parameters)
+    it.reset()
+    first = next(it)
+
+    def step(m):
+        m.forward(first, is_train=True)
+        m.backward()
+        m.update()
+
+    device = step_device_ms(torch, lambda: step(mod))
+    graphs = graph_stats(mod)
+    det, det_sym = ssd_detect_module(mt, mod, it)
     cls_prob, loc_preds, anchors = det_sym.get_children()
     raw = mt.mod.Module(mt.sym.MultiBoxDetection(
         cls_prob, loc_preds, anchors, nms_threshold="0",
         variances="(0.1, 0.1, 0.2, 0.2)"),
-        label_names=("label",), context=dev)
+        label_names=("label",), context=mt.gpu(0))
     raw.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
              for_training=False, shared_module=det)
     it.reset()
     det_ms, kept, dropped, hits, images = [], 0, 0, 0, 0
-    det_launches = {k: 0 for k in ck.LAUNCHES}
-    for batch in it:
-        torch.cuda.synchronize()
-        ck.reset_launch_counts()  # counts from here on: one detection
-        t0 = time.perf_counter()
-        det.forward(batch, is_train=False)
-        torch.cuda.synchronize()
-        det_ms.append((time.perf_counter() - t0) * 1e3)
-        check(ck.LAUNCHES["nms"] == 1, f"a detection forward launched nms "
-              f"{ck.LAUNCHES['nms']} times")
-        for k, n in ck.LAUNCHES.items():
-            det_launches[k] += n
-        rows = det.get_outputs()[0]._data
-        raw.forward(batch, is_train=False)
-        before = raw.get_outputs()[0]._data
-        check(torch.equal(rows, ck.nms_plain(before, NMS_THRESHOLD, False)),
-              "detection rows differ from nms_plain of the rows before NMS")
-        if not images:  # B7 alone on this path's rows (launches not counted)
-            nms_rec = {"ms": time_ms(torch, lambda: ck.nms(
-                before, NMS_THRESHOLD, False)), "device_ms": kernel_device_ms(
-                torch, lambda: ck.nms(before, NMS_THRESHOLD, False)),
-                "live_rows_per_image": float((before[:, :, 0] >= 0).float()
-                                             .sum(1).mean())}
-        s = rows[:, :, 1]
-        check(bool(((s[:, :-1] >= s[:, 1:]) | (s[:, 1:] < 0)).all()),
-              "detection scores not sorted")
-        kept += int((rows[:, :, 0] >= 0).sum())
-        dropped += int(((before[:, :, 0] >= 0) & (rows[:, :, 0] < 0)).sum())
-        gt = batch.label[0]._data.to(rows.device)
-        iou = _iou_matrix(rows[:, :1, 2:6], gt[:, :, 1:5])[:, 0]  # (B, L)
-        right = (gt[:, :, 0] == rows[:, :1, 0]) & (rows[:, :1, 0] >= 0) \
-            & (iou >= 0.5)
-        hits += int(right.any(1).sum())
-        images += rows.shape[0]
+    apart = {"batches": 0, "max_abs_diff": 0.0, "kernels_only_in_detection":
+             None, "kernels_only_in_raw": None}
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()  # counts from here on: the detection
+    with TracedLaunches(torch, ck, "SSD300 detection",
+                        on=graphs_on(det)) as traced:
+        for batch in it:
+            torch.cuda.synchronize()
+            counted = ck.LAUNCHES["nms"]
+            t0 = time.perf_counter()
+            det.forward(batch, is_train=False)
+            torch.cuda.synchronize()
+            det_ms.append((time.perf_counter() - t0) * 1e3)
+            n = ck.LAUNCHES["nms"] - counted
+            check(n == 1, f"a detection forward counted {n} nms launches")
+            rows, cls_out, loc_out, anchor_out = (
+                o._data for o in det.get_outputs())
+            # the rows before NMS of this forward: its own NMS inputs,
+            # decoded and sorted again with NMS off
+            before = multibox_detection(cls_out, loc_out, anchor_out,
+                                        nms_threshold=0.0)
+            want = ck.nms_plain(before, NMS_THRESHOLD, False)
+            if not torch.equal(rows, want):
+                cls_off = int((rows[:, :, 0] != want[:, :, 0]).sum())
+                rest = (rows[:, :, 1:] - before[:, :, 1:]).abs().max().item()
+                check(False, f"detection batch {images // rows.shape[0]}: "
+                      f"rows differ from nms_plain of the rows before NMS "
+                      f"({cls_off} class ids; columns 1-5 against the rows "
+                      f"before NMS: max abs diff {rest}); graphs "
+                      f"{graph_stats(det)}")
+            raw.forward(batch, is_train=False)
+            other = raw.get_outputs()[0]._data
+            if not torch.equal(other, before):
+                apart["batches"] += 1
+                apart["max_abs_diff"] = max(apart["max_abs_diff"], (
+                    other[:, :, 1:] - before[:, :, 1:]).abs().max().item())
+            if not images:
+                first_rows = before
+            s = rows[:, :, 1]
+            check(bool(((s[:, :-1] >= s[:, 1:]) | (s[:, 1:] < 0)).all()),
+                  "detection scores not sorted")
+            kept += int((rows[:, :, 0] >= 0).sum())
+            dropped += int(((before[:, :, 0] >= 0)
+                            & (rows[:, :, 0] < 0)).sum())
+            gt = batch.label[0]._data.to(rows.device)
+            iou = _iou_matrix(rows[:, :1, 2:6], gt[:, :, 1:5])[:, 0]
+            right = (gt[:, :, 0] == rows[:, :1, 0]) & (rows[:, :1, 0] >= 0) \
+                & (iou >= 0.5)
+            hits += int(right.any(1).sum())
+            images += rows.shape[0]
+    det_launches = traced.launches
+    # B7 alone on the first batch's rows (launches not counted)
+    nms_rec = {"ms": time_ms(torch, lambda: ck.nms(
+        first_rows, NMS_THRESHOLD, False)), "device_ms": kernel_device_ms(
+        torch, lambda: ck.nms(first_rows, NMS_THRESHOLD, False)),
+        "live_rows_per_image": float((first_rows[:, :, 0] >= 0).float()
+                                     .sum(1).mean())}
+    check(det_launches["nms"] == len(det_ms), f"nms launched "
+          f"{det_launches['nms']} times in {len(det_ms)} detection forwards")
+    if apart["batches"]:  # why, outside the count: is each forward
+        # repeatable, and did the two run the same kernels at the same
+        # grids?
+        it.reset()
+        batch = next(it)
+        seen = []
+        for m, i in ((det, 1), (det, 1), (raw, 0), (raw, 0)):
+            m.forward(batch, is_train=False)
+            seen.append(m.get_outputs()[i]._data.clone())
+        apart["detection_repeats_equal"] = torch.equal(seen[0], seen[1])
+        apart["raw_repeats_equal"] = torch.equal(seen[2], seen[3])
+        det_k = kernel_configs(torch, lambda: det.forward(batch, False))
+        raw_k = kernel_configs(torch, lambda: raw.forward(batch, False))
+        apart["kernels_only_in_detection"] = sorted((det_k - raw_k)
+                                                    .elements())
+        apart["kernels_only_in_raw"] = sorted((raw_k - det_k).elements())
     print(f"SSD300 class cross-entropy {ce}, loc loss per image {loc}; "
           f"{kept / images:.2f} detections an image, {dropped} rows "
           f"suppressed, top detection right in {hits}/{images} images")
-    return {"config": dict(SSD300, anchors=8732, classes=21,
-                           image="3x300x300"),
-            "class_ce_by_epoch": ce,
-            "loc_loss_per_image_by_epoch": loc,
-            "steps": len(step_ms),
-            "samples_per_s": window_steps * SSD300["batch"] / window_s,
-            "step_p50_ms": float(np.median(step_ms)),
-            "train_peak_memory_bytes": int(train_peak),
-            "detection_batches": len(det_ms),
-            "detection_forward_p50_ms": float(np.median(det_ms)),
-            "nms_on_detection_rows": nms_rec,
-            "detections_per_image": kept / images,
-            "rows_suppressed": dropped,
-            "top_detection_right_share": hits / images,
-            "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
-            "nms_launches": {"training": train_launches["nms"],
-                             "detection": det_launches["nms"]},
-            "launches": {k: train_launches[k] + det_launches[k]
-                         for k in train_launches}}
+    det_graphs = graph_stats(det)
+    check(det_graphs is None or det_graphs["captures"] == 1, f"SSD300 "
+          f"detection: {det_graphs}")
+    peak = int(torch.cuda.max_memory_allocated())
+    del det, raw, mod
+    torch.cuda.empty_cache()
+    rec = {"config": dict(SSD300, anchors=8732, classes=21,
+                          image="3x300x300"),
+           "class_ce_by_epoch": ce,
+           "loc_loss_per_image_by_epoch": loc,
+           "steps": len(step_ms),
+           "samples_per_s": samples_per_s,
+           "step_p50_ms": float(np.median(step_ms)),
+           "step_device_ms": device,
+           "train_peak_memory_bytes": int(train_peak),
+           "detection_batches": len(det_ms),
+           "detection_forward_p50_ms": float(np.median(det_ms)),
+           "nms_on_detection_rows": nms_rec,
+           "detections_per_image": kept / images,
+           "rows_suppressed": dropped,
+           "top_detection_right_share": hits / images,
+           "raw_forward_apart": apart,
+           "peak_memory_bytes": peak,
+           "nms_launches": {"training": train_launches["nms"],
+                            "detection": det_launches["nms"]},
+           "launches": {k: train_launches[k] + det_launches[k]
+                        for k in train_launches},
+           "graphs": graphs, "detection_graphs": det_graphs}
+    eager_p50 = eager_det_p50 = None
+    if eager:
+        with fused_env("0"):
+            emod, eit, _, _, estep_ms, _, _ = ssd_train(torch, mt, ck,
+                                                         EAGER_EPOCHS)
+            edevice = step_device_ms(torch, lambda: step(emod))
+            edet, _ = ssd_detect_module(mt, emod, eit)
+        eit.reset()
+        edet_ms = []
+        for batch in eit:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            edet.forward(batch, is_train=False)
+            torch.cuda.synchronize()
+            edet_ms.append((time.perf_counter() - t0) * 1e3)
+        del emod, edet
+        torch.cuda.empty_cache()
+        eager_p50 = float(np.median(estep_ms))
+        eager_det_p50 = float(np.median(edet_ms))
+        rec["eager"] = {"epochs": EAGER_EPOCHS, "step_p50_ms": eager_p50,
+                        "step_device_ms": edevice,
+                        "detection_forward_p50_ms": eager_det_p50}
+    fused_report("SSD300", graphs, rec["step_p50_ms"], eager_p50)
+    fused_report("SSD300 detection", det_graphs,
+                 rec["detection_forward_p50_ms"], eager_det_p50)
+    return rec
 
 
 def sequence_path(torch, mt, ck):
@@ -3434,16 +4013,18 @@ def resnet_first_step(torch, mt):
             "err_over_tol": worst}
 
 
-def resnet_train(torch, mt):
+def resnet_run(torch, mt, epochs=IMAGE["epochs"]):
     """``train_imagenet.py --benchmark 1`` at full width: ResNet-50
     through ``Module.fit`` on ``gpu(0)`` over ``synthetic_image_iter``
-    (two seeded batches cycled by ``ResizeIter``), ``IMAGE``'s epochs,
-    batches and optimizer, ``Xavier(gaussian, in, 2)``, accuracy and a
-    ``Speedometer`` every 10 batches.  A step is timed by host clock
+    (two seeded batches cycled by ``ResizeIter``), ``epochs`` epochs
+    (``IMAGE``'s by default), ``IMAGE``'s batches and optimizer,
+    ``Xavier(gaussian, in, 2)``, accuracy and a ``Speedometer`` every 10
+    batches.  A step is timed by host clock
     around ``forward_backward`` + ``update`` + synchronize; images/s and
     step p50 are the last epoch's.  Gates: every output finite; every
     moving statistic finite and moved from its initial value; the mean
-    cross-entropy of the last 5 batches below that of the first 5."""
+    cross-entropy of the last 5 batches below that of the first 5.
+    → (the record, the trained module, the iterator's first batch)."""
     from mxnet_tpu_torch.examples.common import synthetic_image_iter
 
     step_ms = []
@@ -3478,7 +4059,7 @@ def resnet_train(torch, mt):
     torch.cuda.reset_peak_memory_stats()
     mt.random.seed(0)
     t0 = time.perf_counter()
-    mod.fit(train, num_epoch=IMAGE["epochs"], eval_metric="acc",
+    mod.fit(train, num_epoch=epochs, eval_metric="acc",
             optimizer="sgd", optimizer_params={
                 "learning_rate": IMAGE["lr"], "wd": IMAGE["wd"],
                 "momentum": IMAGE["momentum"]},
@@ -3487,7 +4068,7 @@ def resnet_train(torch, mt):
             batch_end_callback=[mt.callback.Speedometer(B, 10), on_batch])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    steps = IMAGE["epochs"] * batches
+    steps = epochs * batches
     check(len(step_ms) == steps == len(ce), f"{len(step_ms)} timed steps, "
           f"{len(ce)} batches for {steps}")
     check(bool(torch.stack(finite).all()), "ResNet-50: an output is not "
@@ -3503,20 +4084,51 @@ def resnet_train(torch, mt):
           f"{sorted(set(aux) - set(moved))[:5]}")
     check(np.mean(ce[-5:]) < np.mean(ce[:5]), f"ResNet-50 cross-entropy did "
           f"not fall: {ce}")
-    run_ms = list(step_ms)  # the breakdown's steps are not the run's
+    run_ms = list(step_ms)  # the device-time steps are not the run's
     last = run_ms[-batches:]
     print(f"ResNet-50 cross-entropy by batch: {ce}")
     train.reset()
-    breakdown = resnet_breakdown(torch, mt, mod, next(train))
-    print(f"ResNet-50 step breakdown: {breakdown}")
     return {"config": dict(IMAGE), "steps": steps,
             "cross_entropy": ce, "step_ms": run_ms,
             "step_p50_ms": float(np.median(last)),
             "images_per_s": B * batches / (sum(last) / 1e3),
             "last_epoch_wall_images_per_s": B * batches
-            / (epoch_end[-1] - epoch_end[-2]),
+            / (epoch_end[-1] - epoch_end[-2]) if epochs > 1 else None,
             "wall_s": wall, "peak_memory_bytes": int(peak),
-            "breakdown": breakdown, "reference_p100_images_per_s": 181.53}
+            "reference_p100_images_per_s": 181.53}, mod, next(train)
+
+
+def resnet_train(torch, mt, eager=True):
+    """``resnet_run`` through the fused step (a CUDA graph a step after
+    the warm-up), then the device time of its step (``step_device_ms``);
+    with ``eager`` the same run for ``EAGER_EPOCHS`` under
+    ``MXNET_FUSED_STEP=0``, its step p50 and ``resnet_breakdown`` of its
+    module (host and device time by
+    part: a replayed step's kernels run under no aten op)."""
+    rec, mod, batch = resnet_run(torch, mt)
+
+    def step(m):
+        m.forward_backward(batch)
+        m.update()
+
+    rec["step_device_ms"] = step_device_ms(torch, lambda: step(mod))
+    rec["graphs"] = graph_stats(mod)
+    del mod
+    torch.cuda.empty_cache()
+    eager_p50 = None
+    if eager:
+        with fused_env("0"):
+            erec, emod, _ = resnet_run(torch, mt, EAGER_EPOCHS)
+        breakdown = resnet_breakdown(torch, mt, emod, batch)
+        print(f"ResNet-50 eager step breakdown: {breakdown}")
+        del emod
+        torch.cuda.empty_cache()
+        eager_p50 = erec["step_p50_ms"]
+        rec["eager"] = {k: erec[k] for k in ("step_p50_ms", "images_per_s",
+                                             "peak_memory_bytes")}
+        rec["eager"]["breakdown"] = breakdown
+    fused_report("resnet-50", rec["graphs"], rec["step_p50_ms"], eager_p50)
+    return rec
 
 
 # ResNet-50's step by the aten op that launched each kernel: a key
@@ -3609,7 +4221,7 @@ def resnet_breakdown(torch, mt, mod, batch, reps=3):
     return out
 
 
-def image_path(torch, mt, ck):
+def image_path(torch, mt, ck, eager=True):
     """Phase 10, image classification, on ``gpu(0)``: ``train_mnist``
     for LeNet and the MLP at its defaults (gate: validation accuracy
     >= ``MNIST_MIN_ACCURACY``), ResNet-50's first step against the CPU
@@ -3619,7 +4231,7 @@ def image_path(torch, mt, ck):
     must ``torch.equal`` the trimmed ``forward`` outputs.  The launch
     counts are reset just before and read just after: no built-in or
     user kernel may launch on this path."""
-    from mxnet_tpu_torch.examples import benchmark_score, train_mnist
+    from mxnet_tpu_torch.examples import train_mnist
 
     dev = mt.gpu(0)
     torch.cuda.synchronize()
@@ -3637,7 +4249,7 @@ def image_path(torch, mt, ck):
         check(acc >= MNIST_MIN_ACCURACY, f"train_mnist {net}: validation "
               f"accuracy {acc} below {MNIST_MIN_ACCURACY}")
     first = resnet_first_step(torch, mt)
-    train = resnet_train(torch, mt)
+    train = resnet_train(torch, mt, eager)
     torch.cuda.empty_cache()
     score = {}
     for net, shape, classes, sizes in (
@@ -3645,9 +4257,8 @@ def image_path(torch, mt, ck):
              IMAGE["score_batches"]),
             ("lenet", (1, 28, 28), 10, IMAGE["lenet_score_batches"])):
         for b in sizes:
-            mt.random.seed(0)
-            score[f"{net} batch {b}"] = benchmark_score.score(
-                net, b, shape, classes, dev, num_batches=IMAGE["score_reps"])
+            score[f"{net} batch {b}"] = score_pair(torch, mt, net, b, shape,
+                                                   classes, eager)
     print(f"scoring images/s: {score}")
 
     Bp, n = IMAGE["predict_batch"], IMAGE["predict_images"]
@@ -3736,6 +4347,55 @@ class Replay:
                   f"not taken")
 
 
+class ReplayMasks:
+    """While entered, ``ops.nn.draw_mask`` also copies each mask it
+    draws into its node's buffer (``nodes`` masks a step, in order),
+    made at the node's first, eager draw: a captured step records the
+    copy, so every replay writes its masks where the host reads them.
+    ``after_step`` holds each step's masks against the last step's (none
+    equal) and ``keep`` (each within 6 sigma)."""
+
+    def __init__(self, nodes, keep):
+        from mxnet_tpu_torch.ops import nn as tnn
+
+        self.nn, self.nodes, self.keep = tnn, nodes, keep
+        self.buffers, self.calls, self.last = [], 0, None
+        self.fractions = []
+
+    def __enter__(self):
+        self.draw = self.nn.draw_mask
+
+        def draw(*args):
+            mask = self.draw(*args)
+            i = self.calls % self.nodes
+            if len(self.buffers) <= i:
+                self.buffers.append(mask.new_empty(mask.shape))
+            self.buffers[i].copy_(mask)
+            self.calls += 1
+            return mask
+
+        self.nn.draw_mask = draw
+        return self
+
+    def __exit__(self, *exc):
+        self.nn.draw_mask = self.draw
+
+    def after_step(self, step):
+        check(len(self.buffers) == self.nodes, f"{len(self.buffers)} masks "
+              f"of {self.nodes} nodes")
+        masks = [b.clone() for b in self.buffers]
+        if self.last is not None:
+            same = [i for i, (a, b) in enumerate(zip(self.last, masks))
+                    if a.equal(b)]
+            check(not same, f"step {step}: nodes {same} drew the masks of "
+                  f"the step before")
+        fracs = [keep_fraction_ok(m, self.keep) for m in masks]
+        check(all(ok for _, ok in fracs), f"step {step}: a keep fraction "
+              f"off {self.keep}: {[f for f, _ in fracs]}")
+        self.fractions.append([f for f, _ in fracs])
+        self.last = masks
+
+
 def keep_fraction_ok(mask, keep):
     """The fraction of True in ``mask`` within 6 sigma of ``keep``."""
     n = mask.numel()
@@ -3744,40 +4404,52 @@ def keep_fraction_ok(mask, keep):
 
 
 class Launches:
-    """Launch counts summed over the parts of a phase: ``take`` adds the
-    counts since the last reset and resets them."""
+    """Launch counts summed over the parts of a phase that launch the
+    port's kernels: ``add`` adds a part's (``TracedLaunches``'), and
+    ``region(label, on)`` is a ``TracedLaunches`` whose launches are
+    added at its exit."""
 
-    def __init__(self, ck):
-        self.ck, self.total = ck, {}
-        reset_launch_counts(ck)
+    def __init__(self, torch, ck):
+        self.torch, self.ck, self.total = torch, ck, {}
 
-    def take(self):
-        for k, v in launch_counts(self.ck).items():
+    def add(self, launches):
+        for k, v in launches.items():
             self.total[k] = self.total.get(k, 0) + v
-        reset_launch_counts(self.ck)
+
+    @contextlib.contextmanager
+    def region(self, label, on=True):
+        with TracedLaunches(self.torch, self.ck, label, on) as traced:
+            yield
+        self.add(traced.launches)
 
 
-def dropout_lm_path(torch, mt, ck, counts):
+def dropout_lm_path(torch, mt, ck, counts, eager=True):
     """(a) The GPT-2-class LM of the training run with ``LM_DROPOUT``
     after each attention projection and feed-forward: under one seed set
     twice the masks of two forwards are bitwise equal, two nodes of one
     step and two steps of one node differ, every mask keeps within 6
-    sigma of 1 - p; then ``train_steps`` (B1 forward and backward 12
-    times a step, a finite, falling loss); then ``forward(is_train=
-    False)`` equals, bitwise, the same weights under dropout 0."""
+    sigma of 1 - p; then ``lm_train_pair`` (B1 forward and backward 12
+    times a step, a finite, falling loss; the fused step's graphed
+    steps, under ``ReplayMasks``, draw new masks every step, warm-up and
+    replays alike); then ``forward(is_train=False)`` of the trained
+    module, ``INFERENCE_FORWARDS`` times (its inference graph captured
+    and replayed), equals, bitwise, the same weights under dropout 0 on
+    the eager path."""
     L = GPT2_SMALL["num_layers"]
-    mod = lm_module(mt, packed_lm_symbol(mt, LM_DROPOUT),
-                    gpt2_small_params(0))
+    params = gpt2_small_params(0)
+    sym = packed_lm_symbol(mt, LM_DROPOUT)
+    mod = lm_module(mt, sym, params)
     batches = lm_batches(mt)
     first = next(iter(batches))
     batches.reset()
     runs = []
-    for _ in range(2):
-        mt.random.seed(5)
-        with MaskRecorder() as rec:
-            mod.forward(first, is_train=True)
-            mod.forward(first, is_train=True)
-        runs.append(rec.masks)
+    with counts.region("dropout LM mask runs", on=False):
+        for _ in range(2):
+            mt.random.seed(5)
+            with MaskRecorder() as rec:
+                mod.forward(first, is_train=True)
+                mod.forward(first, is_train=True)
+            runs.append(rec.masks)
     n = 2 * L  # Dropout nodes a forward
     check(len(runs[0]) == len(runs[1]) == 2 * n, f"{len(runs[0])} masks "
           f"for two forwards of {n} Dropout nodes")
@@ -3790,36 +4462,55 @@ def dropout_lm_path(torch, mt, ck, counts):
     fracs = [keep_fraction_ok(m, 1 - LM_DROPOUT) for m in runs[0]]
     check(all(ok for _, ok in fracs), f"a keep fraction off 1 - p: "
           f"{[f for f, _ in fracs]}")
-    del runs
-    mod._exec._train_graph = None
-    counts.take()
-    rec = train_steps(torch, ck, mod, batches, PACKED_KERNELS,
-                      [f"layer{i}_qkv_weight" for i in range(L)],
-                      "dropout LM training")
-    counts.take()
-    mod.forward(first, is_train=False)
-    out = mod.get_outputs()[0]._data.clone()
-    ref = mt.mod.Module(packed_lm_symbol(mt), context=mt.gpu(0))
+    del runs, mod
+    torch.cuda.empty_cache()
+    probe = ReplayMasks(n, 1 - LM_DROPOUT)
+    outs, kept = [], {}
+
+    def inference(trained):
+        with counts.region("dropout LM inference"):
+            for _ in range(INFERENCE_FORWARDS):
+                trained.forward(first, is_train=False)
+                outs.append(trained.get_outputs()[0]._data.clone())
+        kept.update(stats=graph_stats(trained),
+                    params=trained.get_params()[0])
+
+    rec = lm_train_pair(torch, mt, ck, lambda: lm_module(mt, sym, params),
+                        batches, PACKED_KERNELS,
+                        [f"layer{i}_qkv_weight" for i in range(L)],
+                        "dropout LM training", compare=False, probe=probe,
+                        eager=eager, keep=inference, tally=counts.add)
+    stats = kept["stats"]
+    check(stats is None or stats["graphs"] == 2, f"the dropout LM holds "
+          f"{stats and stats['graphs']} graphs, not its training step's "
+          f"and its inference forward's")
+    with fused_env("0"):
+        ref = mt.mod.Module(packed_lm_symbol(mt), context=mt.gpu(0))
     T = GPT2_SMALL["max_len"]
     ref.bind(data_shapes=[("data", (TRAIN_BATCH, T))],
              label_shapes=[("softmax_label", (TRAIN_BATCH, T))],
              for_training=False)
-    ref.init_params(arg_params=mod.get_params()[0])
-    ref.forward(first, is_train=False)
-    check(torch.equal(out, ref.get_outputs()[0]._data), "the dropout LM's "
-          "inference forward differs from the dropout-free LM's")
-    del mod, ref
-    counts.take()
+    ref.init_params(arg_params=kept.pop("params"))
+    with counts.region("dropout-free LM forward", on=False):
+        ref.forward(first, is_train=False)
+    check(all(torch.equal(o, ref.get_outputs()[0]._data) for o in outs),
+          "the dropout LM's inference forward (its graph's replays) differs "
+          "from the dropout-free LM's on the eager path")
+    del ref
     rec.update(dropout=LM_DROPOUT, mask_keep_fractions=[f for f, _ in fracs],
-               inference_equal_to_dropout_free=True)
+               replayed_mask_keep_fractions=probe.fractions,
+               inference_equal_to_dropout_free=True,
+               inference_graph_forwards=len(outs))
     return rec
 
 
 def lstm_dropout_batch(torch, mt, ck, counts):
     """(b) LSTM-PTB's symbol with ``LSTM_DROPOUT`` between its 2 layers:
-    one training batch of bucket 60 (Adam 0.01, ``Uniform(0.08)``, zero
-    states): ``lstm_scan`` launched once a layer, a finite loss, layer
-    0's mask keeping within 6 sigma of 1 - p."""
+    ``LSTM_DROPOUT_BATCHES`` training batches of bucket 60 through the
+    fused step (Adam 0.01, ``Uniform(0.08)``, zero states; the warm-up
+    steps, the capture, a replay): ``lstm_scan`` launched once a layer a
+    batch, finite losses, layer 0's mask new every batch (``ReplayMasks``)
+    and keeping within 6 sigma of 1 - p."""
     cfg = LSTM_PTB
     L, Hd, B, T = cfg["num_layers"], cfg["num_hidden"], cfg["batch"], 60
     it = BucketSentenceIter(mt, synthetic_corpus(4 * B, cfg["vocab"], T,
@@ -3838,26 +4529,31 @@ def lstm_dropout_batch(torch, mt, ck, counts):
                     allow_missing=True)
     mod.init_optimizer(optimizer="adam",
                        optimizer_params={"learning_rate": 0.01})
-    counts.take()
-    with MaskRecorder() as rec:
-        mod.forward_backward(batch)
-        mod.update()
-        torch.cuda.synchronize()
-    n = launch_counts(ck)["lstm_scan"]
-    counts.take()
-    check(n == L, f"LSTM with dropout: lstm_scan launched {n} times, not "
-          f"{L}")
-    check(len(rec.masks) == L - 1 and tuple(rec.masks[0].shape) ==
-          (T, B, Hd), f"LSTM dropout masks {[m.shape for m in rec.masks]}")
-    frac, ok = keep_fraction_ok(rec.masks[0], 1 - LSTM_DROPOUT)
-    check(ok, f"LSTM dropout keep fraction {frac}")
-    prob = mod.get_outputs()[0]._data
-    lab = batch.label[0]._data.to(prob.device).reshape(-1).long()
-    live = lab != 0
-    ce = float(-torch.log(prob[live].gather(1, lab[live][:, None])).mean())
-    check(np.isfinite(ce), f"LSTM with dropout: loss {ce}")
-    return {"bucket": T, "batch": B, "p": LSTM_DROPOUT, "lstm_scan": n,
-            "keep_fraction": frac, "cross_entropy": ce}
+    ces = []
+    with counts.region("LSTM with dropout"), \
+            ReplayMasks(L - 1, 1 - LSTM_DROPOUT) as probe:
+        for step in range(LSTM_DROPOUT_BATCHES):
+            before = launch_counts(ck)["lstm_scan"]
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            n = launch_counts(ck)["lstm_scan"] - before
+            check(n == L, f"LSTM with dropout, batch {step}: lstm_scan "
+                  f"launched {n} times, not {L}")
+            probe.after_step(step)
+            prob = mod.get_outputs()[0]._data
+            lab = batch.label[0]._data.to(prob.device).reshape(-1).long()
+            live = lab != 0
+            ces.append(float(-torch.log(prob[live].gather(
+                1, lab[live][:, None])).mean()))
+            check(np.isfinite(ces[-1]), f"LSTM with dropout: loss {ces}")
+    check(tuple(probe.buffers[0].shape) == (T, B, Hd),
+          f"LSTM dropout mask {tuple(probe.buffers[0].shape)}")
+    stats = fused_report("LSTM with dropout", graph_stats(mod), None, None)
+    return {"bucket": T, "batch": B, "p": LSTM_DROPOUT,
+            "batches": LSTM_DROPOUT_BATCHES, "lstm_scan_a_batch": L,
+            "keep_fractions": probe.fractions, "cross_entropy": ces,
+            "graphs": stats}
 
 
 # a CNN step by the aten op that launched each kernel: LRN is
@@ -3877,20 +4573,21 @@ CNN_OP_CLASSES = (("convolution", ("convolution",)),
                   ("copy", ("copy_", "_to_copy")))
 
 
-def cnn_train(torch, mt, network):
-    """(c), (e) ``train_imagenet.main(["--network", network, "--benchmark",
-    "1", ...])`` on ``gpu(0)`` at ``CNN_TRAIN[network]`` (``Module.fit``,
+def cnn_run(torch, mt, network, epochs=None):
+    """``train_imagenet.main(["--network", network, "--benchmark", "1",
+    ...])`` on ``gpu(0)`` at ``CNN_TRAIN[network]`` (``Module.fit``,
     SGD momentum 0.9, wd 1e-4, ``Xavier(gaussian, in, 2)``), its Module
     a subclass that times each step (host clock around ``forward_backward``
     + ``update`` + synchronize) and reads its cross-entropy.  Gates:
     every output finite; the last 5 batches' mean cross-entropy below the
-    first 5's; every moving statistic finite and moved.  Reports the
-    second epoch's images/s and step p50, peak memory, and the device
-    time of a step (``forward_backward`` + ``update``) by aten op
-    (``CNN_OP_CLASSES``, two steps profiled after one)."""
+    first 5's; every moving statistic finite and moved.  ``epochs``
+    overrides the config's.  → (the record: the last epoch's images/s
+    and step p50, peak memory; the trained module; a step function on
+    one fixed batch)."""
     from mxnet_tpu_torch.examples import train_imagenet
 
-    cfg = CNN_TRAIN[network]
+    cfg = dict(CNN_TRAIN[network])
+    cfg["epochs"] = epochs or cfg["epochs"]
     B, batches = cfg["batch"], cfg["batches"]
     step_ms, ce, finite = [], [], []
 
@@ -3928,7 +4625,7 @@ def cnn_train(torch, mt, network):
         mt.mod.Module = plain
     peak = torch.cuda.max_memory_allocated()
     steps = cfg["epochs"] * batches
-    # the breakdown's steps below are not the run's
+    # the device-time steps after the run are not the run's
     run_ms, losses = list(step_ms), torch.stack(ce).tolist()
     check(len(run_ms) == steps == len(losses), f"{network}: {len(run_ms)} "
           f"timed steps for {steps}")
@@ -3948,21 +4645,46 @@ def cnn_train(torch, mt, network):
     batch = mt.io.DataBatch([mt.nd.array(np.random.RandomState(0).rand(
         B, *cfg["image_shape"]).astype(np.float32), ctx=mt.cpu())],
         [mt.nd.array(np.zeros(B, np.float32), ctx=mt.cpu())])
+
     def step():
         mod.forward_backward(batch)
         mod.update()
 
-    by_op = device_ms_by_class(torch, step, 2, CNN_OP_CLASSES, "rest")
-    del mod
-    torch.cuda.empty_cache()
     return {"config": dict(cfg, network=network), "steps": steps,
             "cross_entropy": losses, "step_ms": run_ms,
             "step_p50_ms": float(np.median(last)),
             "images_per_s": B * batches / (sum(last) / 1e3),
             "wall_s": wall, "peak_memory_bytes": int(peak),
-            "step_device_ms_by_op": by_op,
-            "step_device_ms": sum(by_op.values()),
-            "moving_statistics": len(aux)}
+            "moving_statistics": len(aux)}, mod, step
+
+
+def cnn_train(torch, mt, network, eager=True):
+    """(c), (e) ``cnn_run`` through the fused step (a CUDA graph a step
+    after the warm-up), then the device time of its step
+    (``step_device_ms``); with ``eager`` the same run under
+    ``MXNET_FUSED_STEP=0``, its step p50 and the device time of its step
+    by aten op (``CNN_OP_CLASSES``, two steps profiled after one: a
+    replayed step's kernels run under no aten op)."""
+    rec, mod, step = cnn_run(torch, mt, network)
+    rec["step_device_ms"] = step_device_ms(torch, step)
+    rec["graphs"] = graph_stats(mod)
+    del mod, step
+    torch.cuda.empty_cache()
+    eager_p50 = None
+    if eager:
+        with fused_env("0"):
+            erec, emod, estep = cnn_run(torch, mt, network, EAGER_EPOCHS)
+        by_op = device_ms_by_class(torch, estep, 2, CNN_OP_CLASSES, "rest")
+        del emod, estep
+        torch.cuda.empty_cache()
+        eager_p50 = erec["step_p50_ms"]
+        rec["eager"] = {"step_p50_ms": eager_p50,
+                        "images_per_s": erec["images_per_s"],
+                        "peak_memory_bytes": erec["peak_memory_bytes"],
+                        "step_device_ms_by_op": by_op,
+                        "step_device_ms": sum(by_op.values())}
+    fused_report(network, rec["graphs"], rec["step_p50_ms"], eager_p50)
+    return rec
 
 
 def forward_decisions(torch, sym, ctx, params, X, Y, masks):
@@ -4086,19 +4808,34 @@ def alexnet_first_step(torch, mt):
             "err_over_tol": worst}
 
 
-def cnn_score(torch, mt):
-    """(f) ``benchmark_score.score`` of ``CNN_SCORE`` at
-    ``CNN_SCORE_BATCHES`` (images/s; ``IMAGE["score_reps"]`` forwards)."""
+def score_pair(torch, mt, net, batch, shape, classes, eager, **kw):
+    """``benchmark_score.score`` images/s of ``net`` at ``batch`` (its
+    forwards replay the inference graph after the warm-up and capture),
+    and with ``eager`` the same under ``MXNET_FUSED_STEP=0``."""
     from mxnet_tpu_torch.examples import benchmark_score
 
+    mt.random.seed(0)
+    out = {"graphed": benchmark_score.score(
+        net, batch, shape, classes, mt.gpu(0),
+        num_batches=IMAGE["score_reps"], **kw)}
+    if eager:
+        mt.random.seed(0)
+        with fused_env("0"):
+            out["eager"] = benchmark_score.score(
+                net, batch, shape, classes, mt.gpu(0),
+                num_batches=IMAGE["score_reps"], **kw)
+    return out
+
+
+def cnn_score(torch, mt, eager=True):
+    """(f) ``score_pair`` of ``CNN_SCORE`` at ``CNN_SCORE_BATCHES``
+    (images/s; ``IMAGE["score_reps"]`` forwards)."""
     out = {}
     for net, shape, kw in CNN_SCORE:
         label = net + ("-s2d" if kw.get("stem") == "s2d" else "")
         for b in CNN_SCORE_BATCHES:
-            mt.random.seed(0)
-            out[f"{label} batch {b}"] = benchmark_score.score(
-                net, b, shape, 1000, mt.gpu(0),
-                num_batches=IMAGE["score_reps"], **kw)
+            out[f"{label} batch {b}"] = score_pair(torch, mt, net, b, shape,
+                                                   1000, eager, **kw)
         torch.cuda.empty_cache()
     print(f"scoring images/s: {out}")
     return out
@@ -4227,43 +4964,51 @@ def check_cnn_ops(torch, mt):
             "dropout_2_24_keep_fraction": frac, "p": p}
 
 
-def cnn_dropout_path(torch, mt, ck):
+def cnn_dropout_path(torch, mt, ck, eager=True):
     """Phase 11 on ``gpu(0)``, fp32 with TF32 off: (a) the dropout LM
     (``dropout_lm_path``), (b) LSTM-PTB with dropout between layers
     (``lstm_dropout_batch``), (c) AlexNet's training run
     (``cnn_train``), (d) its first step against the CPU
     (``alexnet_first_step``), (e) Inception-v3's training run, (f) the
     scoring (``cnn_score``), (g) the ops on the card
-    (``check_cnn_ops``).  Launch counts reset just before and summed
-    over the parts just after: B1's forward and backward come from (a),
-    ``lstm_scan`` from (b), nothing else launches a kernel."""
-    counts = Launches(ck)
+    (``check_cnn_ops``).  Launch counts summed over the traced regions
+    of (a) and (b) (``Launches``): B1's forward and backward come from
+    (a), ``lstm_scan`` from (b); the wrappers count no launch in the
+    other parts."""
+    counts = Launches(torch, ck)
     rec, wall = {}, {}
-    for part, fn in (("dropout_lm", lambda: dropout_lm_path(torch, mt, ck,
-                                                            counts)),
+    for part, fn in (("dropout_lm", lambda: dropout_lm_path(
+                         torch, mt, ck, counts, eager)),
                      ("lstm_dropout", lambda: lstm_dropout_batch(
                          torch, mt, ck, counts)),
                      ("alexnet_train", lambda: cnn_train(torch, mt,
-                                                         "alexnet")),
+                                                         "alexnet", eager)),
                      ("alexnet_first_step", lambda: alexnet_first_step(
                          torch, mt)),
                      ("inception_v3_train", lambda: cnn_train(
-                         torch, mt, "inception-v3")),
-                     ("score_images_per_s", lambda: cnn_score(torch, mt)),
+                         torch, mt, "inception-v3", eager)),
+                     ("score_images_per_s", lambda: cnn_score(torch, mt,
+                                                              eager)),
                      ("ops", lambda: check_cnn_ops(torch, mt))):
+        counted = launch_counts(ck)
         t0 = time.perf_counter()
         rec[part] = fn()
         torch.cuda.synchronize()
         wall[part] = time.perf_counter() - t0
-        counts.take()
+        if part not in ("dropout_lm", "lstm_dropout"):
+            now = launch_counts(ck)
+            check(now == counted, f"phase 11 {part} counted launches: "
+                  f"{ {k: n - counted[k] for k, n in now.items()} }")
         torch.cuda.empty_cache()
     launched = {k: v for k, v in counts.total.items() if v}
-    # (a): two mask runs of two forwards, the steps, two inference
-    # forwards (the dropout LM's and the dropout-free one's)
-    want = {"flash_mha_packed": 12 * (4 + TRAIN_STEPS + 2),
-            "flash_mha_packed_bwd_dq": 12 * TRAIN_STEPS,
-            "flash_mha_packed_bwd_dkv": 12 * TRAIN_STEPS,
-            "lstm_scan": LSTM_PTB["num_layers"]}
+    # (a): two mask runs of two forwards; the fused and the eager run's
+    # steps; the trained module's inference forwards and the
+    # dropout-free one's; (b): its batches
+    steps = (1 + eager) * TRAIN_STEPS
+    want = {"flash_mha_packed": 12 * (4 + steps + INFERENCE_FORWARDS + 1),
+            "flash_mha_packed_bwd_dq": 12 * steps,
+            "flash_mha_packed_bwd_dkv": 12 * steps,
+            "lstm_scan": LSTM_PTB["num_layers"] * LSTM_DROPOUT_BATCHES}
     check(launched == want, f"phase 11 launched {launched}, not {want}")
     rec.update(part_wall_s=wall, launches=counts.total)
     return rec
@@ -4325,6 +5070,69 @@ def paged_timing(torch, ck, tatt, F, MB=64):
         recs += [check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, MB, pool,
                               rng, **wide) for pool in ("float32", "int8")]
     return recs
+
+
+# steps of ``eager_step_timing``: untimed, then timed
+EAGER_STEP_WARMUP, EAGER_STEP_REPS = 3, 20
+
+
+def eager_step_timing(root):
+    """``python3 chip_smoke.py --eager-step ROOT``: ResNet-50's training
+    step (batch 32, ``IMAGE``'s SGD settings, one batch of uniform
+    noise) on the eager path of the port under ROOT
+    (``MXNET_FUSED_STEP=0``: the executor's autograd pass, then the
+    ``Updater`` on each parameter), fp32 with TF32 off: host ms of
+    ``forward``, ``backward`` and ``update`` (each ending in a
+    synchronize) and of the whole step, medians of ``EAGER_STEP_REPS``
+    steps after ``EAGER_STEP_WARMUP``.  Run parent, change, change,
+    parent in one call to compare two versions on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.environ["MXNET_FUSED_STEP"] = "0"
+    import mxnet_tpu_torch as mt
+
+    check(mt.__file__.startswith(root), f"imported {mt.__file__}, not "
+          f"the port under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B = IMAGE["batch"]
+    mod = image_bind(mt, resnet50(mt), mt.gpu(0), B)
+    mt.random.seed(0)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": IMAGE["lr"], "momentum": IMAGE["momentum"],
+        "wd": IMAGE["wd"]})
+    rng = np.random.RandomState(0)
+    batch = mt.io.DataBatch(
+        [mt.nd.array(rng.rand(B, *IMAGE["image_shape"]).astype(np.float32),
+                     ctx=mt.cpu())],
+        [mt.nd.array(rng.randint(0, IMAGE["classes"], B).astype(np.float32),
+                     ctx=mt.cpu())])
+    parts = {"forward": [], "backward": [], "update": [], "step": []}
+    for i in range(EAGER_STEP_WARMUP + EAGER_STEP_REPS):
+        times = []
+        for fn in (lambda: mod.forward(batch, is_train=True), mod.backward,
+                   mod.update):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        if i >= EAGER_STEP_WARMUP:
+            for k, ms in zip(parts, times + [sum(times)]):
+                parts[k].append(ms)
+    out = {k + "_ms": float(np.median(v)) for k, v in parts.items()}
+    print(json.dumps({"eager_step": {
+        "root": root, "network": IMAGE["network"], "batch": B,
+        "parameters": len(mod._exec.grad_dict), "steps": EAGER_STEP_REPS,
+        **out}}))
+    print(card_line())
+    return 0
 
 
 def paths_timing(root, mode="paths"):
@@ -4418,17 +5226,24 @@ def paths_timing(root, mode="paths"):
         runs[f"serving_{run}"] = rec
     del dev_params
     torch.cuda.empty_cache()
-    runs["train_path"] = train_path(torch, mt, ck)
+    runs["train_path"] = train_path(torch, mt, ck, eager=False)
     torch.cuda.empty_cache()
-    runs["dpa_path"] = dpa_path(torch, mt, ck)
+    runs["dpa_path"] = dpa_path(torch, mt, ck, eager=False)
     torch.cuda.empty_cache()
     runs["sequence_path"] = sequence_path(torch, mt, ck)
     torch.cuda.empty_cache()
-    runs["lstm_path"] = lstm_path(torch, mt, ck)
+    runs["lstm_path"] = lstm_path(torch, mt, ck, eager=False)
     torch.cuda.empty_cache()
-    runs["ssd300_path"] = ssd_path(torch, mt, ck)
+    runs["ssd300_path"] = ssd_path(torch, mt, ck, eager=False)
     torch.cuda.empty_cache()
-    runs["resnet50_train"] = resnet_train(torch, mt)
+    runs["resnet50_train"] = resnet_train(torch, mt, eager=False)
+    torch.cuda.empty_cache()
+    for net in ("alexnet", "inception-v3"):
+        runs[f"{net}_train"] = cnn_train(torch, mt, net, eager=False)
+    runs["resnet50_score_images_per_s"] = {
+        b: score_pair(torch, mt, "resnet-50", b, IMAGE["image_shape"],
+                      IMAGE["classes"], False)["graphed"]
+        for b in IMAGE["score_batches"]}
     for name, rec in runs.items():
         print(json.dumps({"paths_timing": {"root": root, name: rec}}))
     print(card_line())
@@ -4723,6 +5538,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--eager-step"]:
+        sys.exit(eager_step_timing(sys.argv[2] if len(sys.argv) > 2
+                                   else "."))
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],

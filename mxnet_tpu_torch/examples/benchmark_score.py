@@ -16,13 +16,17 @@ import numpy as np
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import models
 
+# untimed calls first: they build the kernels and, on the card, leave
+# the module's inference graph captured, so the timed calls replay it
+WARMUP_CALLS = 5
+
 
 def score(network, batch_size, image_shape, num_classes, dev,
           num_batches=10, **symbol_kwargs):
     """images/s of ``num_batches`` ``forward(is_train=False)`` calls of
     ``network`` (``symbol_kwargs`` to ``get_symbol``, e.g. ``stem="s2d"``)
-    at ``batch_size`` on ``dev`` (two warm-up calls first), from
-    ``Xavier(magnitude=2)`` weights."""
+    at ``batch_size`` on ``dev``, from ``Xavier(magnitude=2)`` weights,
+    after ``WARMUP_CALLS`` untimed ones."""
     sym = models.get_symbol(network, num_classes=num_classes,
                             image_shape=image_shape, **symbol_kwargs)
     data_shape = (batch_size,) + image_shape
@@ -36,7 +40,7 @@ def score(network, batch_size, image_shape, num_classes, dev,
     rng = np.random.RandomState(0)
     batch = mt.io.DataBatch([mt.nd.array(
         rng.rand(*data_shape).astype(np.float32), ctx=mt.cpu())], [])
-    for _ in range(2):  # warm-up
+    for _ in range(WARMUP_CALLS):
         mod.forward(batch, is_train=False)
         mod.get_outputs()[0].wait_to_read()
     tic = time.time()

@@ -16,7 +16,10 @@ so a mask is drawn once a forward and the backward reuses it.
 
 Where the JAX package jits one fused forward+backward XLA program, the
 port runs eagerly: forward records the autograd graph of the arguments
-that need a gradient, and backward walks it once.
+that need a gradient, and backward walks it once.  ``_run`` and
+``_backprop`` are the two halves over the bound arrays, which the
+Module's fused step (``module/fused_step.py``) runs as one function,
+with ``random.Streams`` in place of the step key.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ def build_graph_fn(symbol):
     (outputs, new_aux_dict)`` over tensors.  ``rng`` is the step key (an
     int; None draws ``random.next_key()``): node ``i`` of ``_topo()``
     registered ``needs_rng`` draws from a generator seeded with
-    ``random.sub_key(rng, i)`` on its first input's device."""
+    ``random.sub_key(rng, i)`` on its first input's device.  With a
+    ``random.Streams`` it draws from that one's persistent generator
+    keyed ``sub_key(streams.base_key, i)``."""
     nodes = symbol._topo()
     out_refs = [(id(n), i) for n, i in symbol._outputs]
 
@@ -55,11 +60,16 @@ def build_graph_fn(symbol):
             aux_names = n.aux_names()
             op_ctx = OpContext(is_train=is_train)
             if op.needs_rng:
-                if rng is None:
-                    rng = _random.next_key()
-                op_ctx.key = _random.sub_key(rng, index)
-                op_ctx.rng = _random.key_generator(op_ctx.key,
-                                                   inputs[0].device)
+                if isinstance(rng, _random.Streams):
+                    op_ctx.key = _random.sub_key(rng.base_key, index)
+                    op_ctx.rng = rng.generator(op_ctx.key, inputs[0].device)
+                    op_ctx.streams = rng
+                else:
+                    if rng is None:
+                        rng = _random.next_key()
+                    op_ctx.key = _random.sub_key(rng, index)
+                    op_ctx.rng = _random.key_generator(op_ctx.key,
+                                                       inputs[0].device)
             if aux_names:
                 outs, aux_out = op.compute(op_ctx, n.attrs, inputs,
                                            [aux_dict[a] for a in aux_names])
@@ -147,15 +157,19 @@ class Executor:
     def outputs(self) -> List[NDArray]:
         return self.outputs_cache
 
-    def forward(self, is_train: bool = False, **kwargs):
-        """Write ``kwargs`` into the bound arguments and run the graph;
-        with ``is_train`` the arguments that need a gradient are traced
-        for ``backward``."""
+    def _write_inputs(self, kwargs):
+        """Copy ``kwargs`` into the bound arguments of those names."""
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(f"unknown forward argument {k!r}")
             self.arg_dict[k][:] = v
-        self._train_graph = None
+
+    def _run(self, is_train, rng):
+        """The graph over the bound arrays, the aux states written back
+        → (outputs, leaves): with ``is_train`` the arguments that need a
+        gradient are traced, and ``leaves`` maps their names to the
+        traced tensors; otherwise ``leaves`` is None.  ``rng`` as in
+        ``build_graph_fn``."""
         trace = bool(is_train) and bool(self._grad_names)
         args = {}
         leaves = {}
@@ -167,12 +181,42 @@ class Executor:
             args[n] = t
         aux = {n: a._data for n, a in self.aux_dict.items()}
         with torch.set_grad_enabled(trace):
-            outs, new_aux = self._graph_fn(args, aux, _random.next_key(),
-                                           bool(is_train))
+            outs, new_aux = self._graph_fn(args, aux, rng, bool(is_train))
         for name, val in new_aux.items():
             if val is not self.aux_dict[name]._data:  # an op left it as is
                 self.aux_dict[name][:] = val
-        if trace:
+        return outs, (leaves if trace else None)
+
+    def _backprop(self, outs, leaves, heads):
+        """Walk the traced graph of ``outs`` once from ``heads`` and
+        write each leaf's gradient into ``grad_dict`` per ``grad_req``."""
+        names = list(leaves)
+        # an output that depends on no parameter (a MakeLoss over a
+        # target, grad_scale 0) contributes nothing
+        live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+        grads = torch.autograd.grad(
+            [o for o, _ in live], [leaves[n] for n in names],
+            grad_outputs=[h for _, h in live], allow_unused=True) \
+            if live else [None] * len(names)
+        with torch.no_grad():
+            for name, g in zip(names, grads):
+                dst = self.grad_dict[name]._data
+                if g is None:  # the output does not depend on it
+                    if self.grad_req[name] == "write":
+                        dst.zero_()
+                elif self.grad_req[name] == "add":
+                    dst.add_(g.to(dst.dtype))
+                else:
+                    dst.copy_(g)
+
+    def forward(self, is_train: bool = False, **kwargs):
+        """Write ``kwargs`` into the bound arguments and run the graph;
+        with ``is_train`` the arguments that need a gradient are traced
+        for ``backward``."""
+        self._write_inputs(kwargs)
+        self._train_graph = None
+        outs, leaves = self._run(is_train, _random.next_key())
+        if leaves is not None:
             self._train_graph = (outs, leaves)
         self.outputs_cache = [NDArray(o.detach(), self._ctx) for o in outs]
         return self.outputs_cache
@@ -205,24 +249,7 @@ class Executor:
             heads = [h.to(device=o.device, dtype=o.dtype)
                      for h, o in zip(heads, outs)]
         self._train_graph = None
-        names = list(leaves)
-        # an output that depends on no parameter (a MakeLoss over a
-        # target, grad_scale 0) contributes nothing
-        live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
-        grads = torch.autograd.grad(
-            [o for o, _ in live], [leaves[n] for n in names],
-            grad_outputs=[h for _, h in live], allow_unused=True) \
-            if live else [None] * len(names)
-        with torch.no_grad():
-            for name, g in zip(names, grads):
-                dst = self.grad_dict[name]._data
-                if g is None:  # the output does not depend on it
-                    if self.grad_req[name] == "write":
-                        dst.zero_()
-                elif self.grad_req[name] == "add":
-                    dst.add_(g.to(dst.dtype))
-                else:
-                    dst.copy_(g)
+        self._backprop(outs, leaves, heads)
 
     def forward_backward(self, **kwargs):
         outs = self.forward(is_train=True, **kwargs)

@@ -5,10 +5,15 @@ Counterpart of ``mxnet_tpu/module/bucketing_module.py``: a
 one ``Module`` per bucket key met, all bound with ``shared_module`` to
 the default bucket's, so every bucket's parameters and gradients are
 the same NDArray objects, and all sharing one optimizer and updater, so
-Adam's moments and step counts carry across buckets (the port's
-counterpart of the JAX package's ``_adopt_fused_state``).  The context
-defaults to ``gpu(0)`` and is resolved at construction.  Checkpoints
-and monitors are not ported yet and raise.
+Adam's moments and step counts carry across buckets.  Under the fused
+step the bucket switched to takes over the previous bucket's fused
+state (``Module._adopt_fused_state``, the JAX package's
+``_adopt_fused_state``): one set of optimizer states, one device step
+counter ``t`` and one set of random streams for every bucket, and one
+CUDA graph pool for every bucket's graphs (``bind`` with
+``shared_module``).  The context defaults to ``gpu(0)`` and is resolved
+at construction.  Checkpoints and monitors are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -164,6 +169,8 @@ class BucketingModule(BaseModule):
             module = self._buckets[bucket_key]
             if prev.optimizer_initialized and not module.optimizer_initialized:
                 module.borrow_optimizer(prev)
+            if prev.optimizer_initialized:
+                module._adopt_fused_state(prev)
             self._curr_module = module
             self._curr_bucket_key = bucket_key
 
@@ -210,6 +217,16 @@ class BucketingModule(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._check_ready()
         self._curr_module.update_metric(eval_metric, labels)
+
+    def graph_stats(self):
+        """``Module.graph_stats`` summed over the bucket modules."""
+        stats = [m.graph_stats() for m in self._buckets.values()]
+        out = {"graphs_on": all(s["graphs_on"] for s in stats),
+               "uncapturable_ops": sorted({o for s in stats
+                                           for o in s["uncapturable_ops"]})}
+        for k in ("graphs", "captures", "capture_ms", "pool_bytes"):
+            out[k] = sum(s[k] for s in stats)
+        return out
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         raise not_ported("BucketingModule.save_checkpoint")

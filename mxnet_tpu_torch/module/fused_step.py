@@ -1,0 +1,294 @@
+"""The Module's fused training step, and its CUDA graphs on the card.
+
+Counterpart of the JAX ``Module``'s one donated XLA program
+(``mxnet_tpu/module/module.py``: ``_build_fused_step`` ``:916-971``,
+``_make_param_update`` ``:1296-1363``, ``_run_fused_step``
+``:1842-1918``, ``_lr_device`` ``:1765-1783``).  ``TrainStep`` is one
+function of a bound executor's arrays: the forward over every argument
+that needs a gradient, the backward from all-ones heads into
+``grad_dict``, then the optimizer segment, ``Optimizer.apply`` once per
+(lr_mult, wd_mult) group over every parameter of the group
+(``FusedState.apply``). Parameters bound to one storage get their own
+copies before the first step (``untie``). The base learning rate and the
+update number ``t`` are 0-dim float64 tensors on the device: the host
+writes the rate with ``fill_`` only when the scheduler's value changes,
+and the step itself advances ``t``, so replaying a captured step reads
+both from the device and the host copies no scalar a step. Random nodes
+draw from the ``random.Streams`` of the state (a generator a node,
+seeded once from a base key drawn when the state is made), which the
+steps of every bucket share.
+
+``Graphed`` runs such a function on the card as a CUDA graph: its first
+``_WARMUP_STEPS`` calls run eagerly on a side stream (real steps, which
+also build and load every kernel at its first use), the next call is
+captured with ``torch.cuda.graph`` into the module's graph pool and
+replayed once to perform it, and every later call replays.  The batch
+is copied into the bound argument arrays outside the graph; they are
+its static inputs.  A replay's outputs are handed out as copies, so outputs a
+caller keeps are not overwritten by the next step.  Before each replay
+every array the graph captured (arguments, gradients, aux states,
+optimizer states, ``t`` and the rate) must still be the same tensor:
+``set_params`` writes in place, but a replaced ``_data`` drops the
+graph, and the next calls warm up and capture again.  The kernels'
+launch counters (``cuda_kernels.LAUNCHES``, ``rtc.LAUNCHES``) count
+Python calls: the counts a capture made are taken back and kept as the
+graph's ``launches`` (the kernels it holds), and added again at every
+replay.  That is bookkeeping, not an observation of a replay: a
+profiler trace of the replays (``chip_smoke.py``'s ``TracedLaunches``)
+sees the kernels themselves.  The generators of the streams are
+registered with every graph, so each replay advances their Philox
+offsets and draws new masks.
+
+Whether a symbol is captured is decided from the registry before any
+capture: an op registered ``capturable=False`` (``Custom``, whose
+Python body runs per call) makes the module run the same function
+uncaptured.  A capture that fails raises.  On the CPU the function runs
+uncaptured too: CUDA graphs exist only on the card.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List
+
+import torch
+
+from .. import random as _random
+from ..ops.registry import get_op
+
+__all__ = ["uncapturable_ops", "untie", "FusedState", "TrainStep",
+           "InferStep", "Graphed"]
+
+# eager calls of a new graph before its capture
+_WARMUP_STEPS = 2
+
+
+def uncapturable_ops(symbol) -> List[str]:
+    """The names of the ops of ``symbol`` registered
+    ``capturable=False``."""
+    return sorted({n.op for n in symbol._topo()
+                   if not n.is_variable and not get_op(n.op).capturable})
+
+
+def _launch_counters():
+    from .. import rtc
+    from ..ops import cuda_kernels
+
+    return (cuda_kernels.LAUNCHES, rtc.LAUNCHES)
+
+
+def untie(ex, names):
+    """Give each parameter of ``names`` whose storage another bound
+    argument or aux state shares (a parameter met earlier, a fixed one,
+    an input) a copy of its own, as the JAX step's
+    ``_copy_donated_aliases`` does: the names then train as independent
+    parameters, and no in-place update lands twice in one storage."""
+    def key(t):
+        return t.untyped_storage().data_ptr()
+
+    mine = set(names)
+    taken = {key(a._data) for n, a in ex.arg_dict.items() if n not in mine}
+    taken |= {key(a._data) for a in ex.aux_dict.values()}
+    for n in names:
+        arr = ex.arg_dict[n]
+        if key(arr._data) in taken:
+            arr._data = arr._data.clone()
+        taken.add(key(arr._data))
+
+
+class FusedState:
+    """The optimizer segment's state: a state per parameter name, the
+    update number ``t`` and the base learning rate as 0-dim float64
+    tensors on ``device``, the random streams, and the count of steps.
+    The modules of a ``BucketingModule`` share one."""
+
+    def __init__(self, optimizer, device):
+        self.optimizer = optimizer
+        self.states: Dict[str, object] = {}
+        self.t = torch.full((), float(optimizer.num_update),
+                            dtype=torch.float64, device=device)
+        self.lr = torch.zeros((), dtype=torch.float64, device=device)
+        self.lr_value = None
+        self.streams = _random.Streams(_random.next_key())
+        self.step_count = 0
+
+    def ensure_states(self, names, weights):
+        """Make the states of the ``names`` that have none yet."""
+        missing = [(n, w) for n, w in zip(names, weights)
+                   if n not in self.states]
+        if missing:
+            with torch.no_grad():
+                made = self.optimizer.init_state_arrays(
+                    [w for _, w in missing])
+            self.states.update(zip([n for n, _ in missing], made))
+
+    def count_update(self):
+        """The host's half of a step: one update count (the JAX step's
+        ``_update_count(0)``), then the base rate of ``num_update``,
+        written to the device when it changed."""
+        opt = self.optimizer
+        opt._update_count(0)
+        lr = float(opt.lr_scheduler(opt.num_update) if opt.lr_scheduler
+                   else opt.lr)
+        if lr != self.lr_value:
+            self.lr.fill_(lr)
+            self.lr_value = lr
+        self.step_count += 1
+
+    def apply(self, groups, arg_dict, grad_dict):
+        """The device's half: advance ``t``, then one ``apply`` a group
+        of (lr_mult, wd, names) over the gradients in ``grad_dict``."""
+        self.t.add_(1)
+        for lr_mult, wd, names in groups:
+            lr = self.lr if lr_mult == 1.0 else self.lr * lr_mult
+            self.optimizer.apply([arg_dict[n]._data for n in names],
+                                 [grad_dict[n]._data for n in names],
+                                 [self.states[n] for n in names], lr, wd,
+                                 self.t)
+
+    def tensors(self):
+        """Every tensor of the state."""
+        out = [self.t, self.lr]
+        for s in self.states.values():
+            if isinstance(s, torch.Tensor):
+                out.append(s)
+            elif isinstance(s, (tuple, list)):
+                out += [x for x in s if isinstance(x, torch.Tensor)]
+        return out
+
+
+class TrainStep:
+    """Forward, backward and the optimizer segment of the executor
+    ``ex`` over ``fused``, for the parameters ``names``, as one function
+    of the bound arrays → the outputs."""
+
+    def __init__(self, ex, fused: FusedState, names):
+        self.ex = ex
+        self.fused = fused
+        opt = fused.optimizer
+        groups: Dict[tuple, List[str]] = {}
+        for n in names:
+            key = (float(opt.lr_mult.get(n, 1.0)),
+                   float(opt.wd * opt.wd_mult.get(n, 1.0)))
+            groups.setdefault(key, []).append(n)
+        self.groups = [(lm, wd, ns) for (lm, wd), ns in groups.items()]
+        untie(ex, names)
+        fused.ensure_states(names, [ex.arg_dict[n]._data for n in names])
+
+    @property
+    def streams(self):
+        return self.fused.streams
+
+    def __call__(self):
+        ex = self.ex
+        outs, leaves = ex._run(True, self.fused.streams)
+        if leaves is not None:
+            ex._backprop(outs, leaves, [torch.ones_like(o) for o in outs])
+        self.apply_grads()
+        return [o.detach() for o in outs]
+
+    def apply_grads(self):
+        """The optimizer segment alone, over ``grad_dict`` as it is."""
+        with torch.no_grad():
+            self.fused.apply(self.groups, self.ex.arg_dict, self.ex.grad_dict)
+
+    def arrays(self):
+        ex = self.ex
+        return ([a._data for a in ex.arg_dict.values()]
+                + [a._data for a in ex.grad_dict.values()]
+                + [a._data for a in ex.aux_dict.values()]
+                + self.fused.tensors())
+
+
+class InferStep:
+    """``forward(is_train=False)`` of the executor ``ex`` as a function
+    of the bound arrays → the outputs (random nodes draw nothing in
+    inference; ``streams`` keys them all the same)."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.streams = _random.Streams(0)
+
+    def __call__(self):
+        outs, _ = self.ex._run(False, self.streams)
+        return [o.detach() for o in outs]
+
+    def arrays(self):
+        return ([a._data for a in self.ex.arg_dict.values()]
+                + [a._data for a in self.ex.aux_dict.values()])
+
+
+class Graphed:
+    """``step`` (a ``TrainStep`` or ``InferStep``) under a CUDA graph in
+    the memory pool ``pool()`` returns at the capture, every generator
+    of ``step.streams`` registered with it."""
+
+    def __init__(self, step, pool):
+        self.step = step
+        self.pool = pool
+        self.graph = None
+        self.outs = None
+        self.captured = None
+        self.launches = None
+        self.warm = 0
+        self.side = None
+        self.captures = 0
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+
+    def __call__(self):
+        arrays = self.step.arrays()
+        if self.graph is not None and not (
+                len(arrays) == len(self.captured)
+                and all(a is b for a, b in zip(arrays, self.captured))):
+            # a captured array was replaced: warm up and capture again
+            self.graph = self.outs = self.captured = None
+            self.warm = 0
+        if self.graph is None:
+            if self.warm < _WARMUP_STEPS:
+                self.warm += 1
+                return self._eager()
+            self._capture(arrays)
+        self.graph.replay()
+        for counts, delta in zip(_launch_counters(), self.launches):
+            for k, n in delta.items():
+                counts[k] = counts.get(k, 0) + n
+        return [o.clone() for o in self.outs]
+
+    def _eager(self):
+        if self.side is None:
+            self.side = torch.cuda.Stream()
+        main = torch.cuda.current_stream()
+        self.side.wait_stream(main)
+        with torch.cuda.stream(self.side):
+            outs = self.step()
+        main.wait_stream(self.side)
+        return outs
+
+    def _capture(self, arrays):
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        t0 = time.perf_counter()
+        # torch.cuda.graph releases the cached blocks before it captures:
+        # release them first, so the growth is the pool's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        for g in self.step.streams.generators():
+            if g.device.type == "cuda":
+                graph.register_generator_state(g)
+        with torch.cuda.graph(graph, pool=self.pool()):
+            outs = self.step()
+        self.capture_ms += (time.perf_counter() - t0) * 1e3
+        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+        self.captures += 1
+        # the capture ran no kernel: take back what its calls counted
+        self.launches = []
+        for counts, old in zip(counters, before):
+            delta = {k: n - old.get(k, 0) for k, n in counts.items()
+                     if n != old.get(k, 0)}
+            for k, n in delta.items():
+                counts[k] -= n
+            self.launches.append(delta)
+        self.graph, self.outs, self.captured = graph, outs, arrays

@@ -10,21 +10,41 @@ Counterpart of ``mxnet_tpu/module/module.py``, single-device: ``bind``
 
 The context defaults to ``gpu(0)`` and is resolved at construction, so
 a host without CUDA raises there unless the caller passes ``cpu()``.
-Where the JAX package fuses forward, backward and the optimizer into
-one donated XLA program, the port runs the executor's autograd pass and
-then updates each parameter in place.  Multi-device contexts, kvstores
-other than ``None``/``'local'``, mesh plans, checkpoints and monitors
-are not ported yet and raise.
+
+Training runs the fused step (``fused_step.py``) by default, as the JAX
+``Module`` runs its one XLA program (``MXNET_FUSED_STEP``, read at
+construction; ``"0"`` turns it off, ``:160``): once ``_fused_ready``
+holds (``:904-914``: an optimizer with ``apply``, no input gradients,
+every output a loss head; here also no ``grad_req="add"``, whose
+accumulation the JAX step drops), ``forward(is_train=True)`` only keeps
+the batch, ``backward()`` does nothing, and ``update()`` runs forward,
+backward and the optimizer segment over every parameter as one
+function, a CUDA graph on the card.  ``get_outputs()`` (or
+``backward(out_grads)``) before ``update()`` runs the batch through the
+executor's forward and backward instead, and ``update()`` then applies
+its gradients through the same optimizer state (``:1785-1823``,
+``:2045-2063``).  On the card ``forward(is_train=False)`` replays a
+CUDA graph too (``score``, ``predict``).  ``MXNET_FUSED_STEP=0`` gives
+the eager path: the executor's autograd pass, then the ``Updater`` on
+each parameter.  Multi-device contexts, kvstores other than
+``None``/``'local'``, mesh plans, checkpoints and monitors are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+
+import torch
 
 from .. import optimizer as opt
+from .. import random as _random
 from ..base import MXNetError, not_ported
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
+from ..ndarray import NDArray
+from . import fused_step as _fs
 from .base_module import BaseModule
 
 __all__ = ["Module"]
@@ -60,6 +80,20 @@ class Module(BaseModule):
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
+        # the fused step: its switch, the ops that keep it uncaptured,
+        # the optimizer state (shared by the modules of a
+        # BucketingModule), the step functions, each a CUDA graph on the
+        # card, and the module that holds their graph pool (this one, or
+        # the shared module bound to)
+        self._use_fused = os.environ.get("MXNET_FUSED_STEP", "1") != "0"
+        self._uncapturable = _fs.uncapturable_ops(symbol)
+        self._fused = None
+        self._train_fn = self._train_step = None
+        self._infer_step = None
+        self._graph_pool = None
+        self._pool_owner = self
+        self._pending_batch = None
+        self._flushed_backward = False
 
     # -- properties ------------------------------------------------------------
     @property
@@ -140,6 +174,8 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
+        self._train_fn = self._train_step = self._infer_step = None
+        self._pending_batch = None
         if inputs_need_grad and not for_training:
             raise MXNetError("inputs_need_grad needs for_training")
         self.for_training = for_training
@@ -160,6 +196,8 @@ class Module(BaseModule):
                 req[name] = grad_req
         shared_exec = shared_module._exec if shared_module is not None \
             else None
+        if shared_module is not None:
+            self._pool_owner = shared_module._pool_owner
         self._exec = self._symbol.simple_bind(self._context[0],
                                               grad_req=req,
                                               shared_exec=shared_exec,
@@ -210,6 +248,7 @@ class Module(BaseModule):
                              f"got {optimizer!r}")
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._fused = None
         self.optimizer_initialized = True
 
     def borrow_optimizer(self, shared_module):
@@ -226,27 +265,75 @@ class Module(BaseModule):
                 f"from the shared module's {shared_module._param_names}")
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
+        self._fused = None
         self.optimizer_initialized = True
+
+    def _adopt_fused_state(self, other):
+        """Take over ``other``'s fused state (optimizer states, ``t``,
+        the rate and the random streams): a BucketingModule's buckets
+        train one state (``mxnet_tpu/module/module.py:771-805``)."""
+        if other is not self:
+            self._fused = other._fused
 
     # -- computation -------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
-        """Stage the batch onto the module's device and run the graph."""
+        """Stage the batch onto the module's device and run the graph;
+        under the fused step a training batch waits for ``update()``."""
         self._check_bound()
         if is_train is None:
             is_train = self.for_training
         kwargs = dict(zip(self._data_names, data_batch.data))
         if self._label_names and data_batch.label:
             kwargs.update(zip(self._label_names, data_batch.label))
+        self._pending_batch = None
+        self._flushed_backward = False
+        if is_train and self._fused_ready():
+            self._pending_batch = kwargs  # the fused step runs in update()
+            return
+        if not is_train and self._graphs_on():
+            ex = self._exec
+            ex._write_inputs(kwargs)
+            _random.next_key()  # the eager forward's draw: the same chain
+            if self._infer_step is None:
+                self._infer_step = _fs.Graphed(_fs.InferStep(ex),
+                                               self._pool_handle)
+            self._set_outputs(self._infer_step())
+            return
         self._exec.forward(is_train=is_train, **kwargs)
 
     def backward(self, out_grads=None):
         self._check_bound()
+        if self._pending_batch is not None:
+            if out_grads is None:
+                return  # the fused step in update() runs it
+            # explicit head gradients: the executor's forward first
+            kwargs, self._pending_batch = self._pending_batch, None
+            self._exec.forward(is_train=True, **kwargs)
+        elif self._flushed_backward and out_grads is None:
+            # get_outputs() already ran this batch's backward
+            self._flushed_backward = False
+            return
         self._exec.backward(out_grads=out_grads)
 
     def update(self):
-        """One optimizer step on every parameter that has a gradient."""
+        """One optimizer step on every parameter that has a gradient:
+        the fused step for a kept batch, the fused state's optimizer
+        segment over ``grad_dict`` for a batch the executor ran, or the
+        ``Updater`` on each parameter (``MXNET_FUSED_STEP=0``)."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer before update")
+        if self._pending_batch is not None:
+            kwargs, self._pending_batch = self._pending_batch, None
+            self._exec._write_inputs(kwargs)
+            step = self._fused_train_step()
+            self._fused.count_update()
+            self._set_outputs(step())
+            return
+        if self._fused_ready():
+            self._fused_train_step()
+            self._fused.count_update()
+            self._train_fn.apply_grads()
+            return
         for i, name in enumerate(self._param_names):
             grad = self._exec.grad_dict.get(name)
             if grad is not None:
@@ -254,7 +341,75 @@ class Module(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         self._check_bound()
+        if self._pending_batch is not None:
+            # outputs before update(): the executor runs this batch's
+            # forward and backward, and update() applies its gradients
+            kwargs, self._pending_batch = self._pending_batch, None
+            self._exec.forward(is_train=True, **kwargs)
+            self._exec.backward()
+            self._flushed_backward = True
         return self._exec.outputs
+
+    # -- the fused step ----------------------------------------------------------
+    def _fused_ready(self):
+        return (self._use_fused and self.optimizer_initialized
+                and not self.inputs_need_grad
+                and type(self._optimizer).apply is not opt.Optimizer.apply
+                and all(r in ("write", "null")
+                        for r in self._exec.grad_req.values())
+                and self._exec._outputs_all_loss_heads())
+
+    def _graphs_on(self):
+        """True where the fused step and the inference forward run as
+        CUDA graphs: on the card, with no uncapturable op."""
+        return (self._use_fused and not self._uncapturable
+                and self._context[0].device_type == "gpu")
+
+    def _fused_train_step(self):
+        """The training step over the fused state (made at the first
+        step, or taken over from another bucket): ``_train_fn``, run by
+        ``_train_step`` (its CUDA graph on the card), both made anew
+        when the state changed."""
+        if self._fused is None:
+            self._fused = _fs.FusedState(self._optimizer,
+                                         self._context[0].torch_device())
+        if self._train_fn is None or self._train_fn.fused is not self._fused:
+            names = [n for n in self._param_names
+                     if self._exec.grad_req.get(n, "null") != "null"]
+            self._train_fn = _fs.TrainStep(self._exec, self._fused, names)
+            self._train_step = self._train_fn
+            if self._graphs_on():
+                self._train_step = _fs.Graphed(self._train_fn,
+                                               self._pool_handle)
+        return self._train_step
+
+    def _pool_handle(self):
+        """The CUDA graph pool of this module's graphs and of every
+        module bound to it with ``shared_module``, made at the first
+        capture."""
+        owner = self._pool_owner
+        if owner._graph_pool is None:
+            owner._graph_pool = torch.cuda.graph_pool_handle()
+        return owner._graph_pool
+
+    def _set_outputs(self, outs):
+        self._exec._train_graph = None
+        self._exec.outputs_cache = [NDArray(o, self._context[0])
+                                    for o in outs]
+
+    def graph_stats(self):
+        """What the fused step and the inference forward run as: whether
+        they are CUDA graphs (and the ops that keep them from it), the
+        graphs held, the captures made, their time and the pool bytes
+        they added."""
+        graphs = [g for g in (self._train_step, self._infer_step)
+                  if isinstance(g, _fs.Graphed)]
+        return {"graphs_on": self._graphs_on(),
+                "uncapturable_ops": list(self._uncapturable),
+                "graphs": sum(g.graph is not None for g in graphs),
+                "captures": sum(g.captures for g in graphs),
+                "capture_ms": sum(g.capture_ms for g in graphs),
+                "pool_bytes": sum(g.pool_bytes for g in graphs)}
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())

@@ -16,7 +16,9 @@ with the saved inputs, outputs and the aux state the forward left.
 Outputs are new arrays the framework allocates and the user writes; aux
 states are handed over as copies and come back as new values, which
 the executor writes into the bound aux arrays, so no user write lands in
-a tensor autograd has saved.
+a tensor autograd has saved.  The user's Python runs at every call, so
+the op is registered ``capturable=False``: a Module whose symbol holds
+it runs its fused step without a CUDA graph.
 """
 
 from __future__ import annotations
@@ -174,7 +176,7 @@ def _user_dtype(t: torch.Tensor):
           aux_names=_custom_aux_names,
           out_names=_custom_out_names,
           infer_shape=_custom_infer_shape,
-          is_loss=_custom_is_loss,
+          is_loss=_custom_is_loss, capturable=False,
           doc="Apply a registered CustomOp (reference: operator.py Custom)")
 def _custom_compute(op_ctx, attrs, inputs, aux):
     run = _Run(_make_prop(attrs), bool(op_ctx.is_train), inputs)

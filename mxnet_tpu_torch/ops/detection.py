@@ -76,21 +76,19 @@ def multibox_prior(h: int, w: int, sizes, ratios, clip: bool = False,
     step_x, step_y = 1.0 / w, 1.0 / h
     cy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * step_y
     cx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * step_x
-    # half-extents in float64, cast once (as the JAX package builds them)
+    # half-extents in float64, cast once (as the JAX package builds
+    # them); host scalars, so no host-to-device copy (a CUDA graph
+    # cannot record one)
     ws = [s / 2 for s in sizes] + [sizes[0] * np.sqrt(r) / 2
                                    for r in ratios[1:]]
     hs = [s / 2 for s in sizes] + [sizes[0] / np.sqrt(r) / 2
                                    for r in ratios[1:]]
-    ws = torch.tensor(ws, dtype=torch.float32, device=device)
-    hs = torch.tensor(hs, dtype=torch.float32, device=device)
-    apx = ws.shape[0]
-    CX = cx[None, :, None]
-    CY = cy[:, None, None]
-    boxes = torch.stack([(CX - ws).expand(h, w, apx),
-                         (CY - hs).expand(h, w, apx),
-                         (CX + ws).expand(h, w, apx),
-                         (CY + hs).expand(h, w, apx)], dim=-1)
-    out = boxes.reshape(1, h * w * apx, 4)
+    CX = cx[None, :].expand(h, w)
+    CY = cy[:, None].expand(h, w)
+    boxes = torch.stack([torch.stack([CX - x, CY - y, CX + x, CY + y], -1)
+                         for x, y in zip(np.float32(ws).tolist(),
+                                         np.float32(hs).tolist())], dim=2)
+    out = boxes.reshape(1, h * w * len(ws), 4)
     return out.clamp(0.0, 1.0) if clip else out
 
 

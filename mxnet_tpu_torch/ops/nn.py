@@ -758,7 +758,8 @@ class _MakeLoss(torch.autograd.Function):
     def backward(ctx, _g):
         data, = ctx.saved_tensors
         grad_scale, normalization, valid_thresh = ctx.cfg
-        scale = torch.tensor(grad_scale, dtype=data.dtype, device=data.device)
+        scale = torch.full((), grad_scale, dtype=data.dtype,
+                           device=data.device)
         if normalization == "batch":
             scale = scale / data.shape[0]
         elif normalization == "valid":

@@ -12,6 +12,11 @@ function, not from per-op backward registrations; ops whose gradient
 is not the derivative of their output (the loss heads, whose backward
 ignores the incoming gradient) and ops backed by a kernel are
 ``torch.autograd.Function``s inside their compute.
+
+An op whose compute cannot be recorded into a CUDA graph (its body
+synchronizes with the host or runs Python over host values per call)
+is registered ``capturable=False``; a symbol that holds one runs the
+Module's fused step uncaptured (``module/fused_step.py``).
 """
 
 from __future__ import annotations
@@ -33,13 +38,31 @@ class OpContext:
     """Per-invocation context handed to compute functions: ``is_train``
     and, for ops registered with ``needs_rng=True``, an explicit
     ``torch.Generator`` where the JAX package passes a PRNG key.  In a
-    graph ``key`` is the node's 63-bit key, which seeded ``rng`` (an op
-    that draws sub-streams, the fused RNN's per-layer dropout, keys
-    them with ``random.sub_key(key, i)``); None for an eager call."""
+    graph ``key`` is the node's 63-bit key, which seeded ``rng``; None
+    for an eager call.  Under the Module's fused step ``streams`` holds
+    the step's persistent generators (``random.Streams``): ``rng`` is
+    then the node's own, seeded once, whose state runs on from step to
+    step.  An op that draws sub-streams (the fused RNN's per-layer
+    dropout) takes them from ``sub_generator``."""
 
     is_train: bool = False
     rng: Optional[torch.Generator] = None
     key: Optional[int] = None
+    streams: Any = None
+
+    def sub_generator(self, i: int, device) -> torch.Generator:
+        """The generator of sub-stream ``i`` of this node, keyed
+        ``random.sub_key(key, i)``: fresh for an executor forward, the
+        persistent one under the fused step, and ``rng`` itself for an
+        eager call."""
+        from .. import random as _random
+
+        if self.key is None:
+            return self.rng
+        key = _random.sub_key(self.key, i)
+        if self.streams is not None:
+            return self.streams.generator(key, device)
+        return _random.key_generator(key, device)
 
 
 # infer_shape: (attrs, in_shapes: List[Optional[tuple]])
@@ -59,6 +82,8 @@ class OpDef:
     out_names: Any = ("output",)
     infer_shape: Optional[InferShapeFn] = None
     needs_rng: bool = False
+    # False: the compute cannot be recorded into a CUDA graph
+    capturable: bool = True
     # loss head: backward ignores the incoming head gradient, so the
     # executor may seed it with ones
     is_loss: Any = False

@@ -21,15 +21,15 @@ dtype runs the plain step-by-step recurrence, as the JAX package runs
 Dropout between layers (``p > 0``, training only) drops each layer's
 output but the last's with ``nn.dropout``, outside the recurrence: in a
 graph layer ``l``'s mask comes from a generator seeded with
-``random.sub_key(node_key, l)`` (the JAX op's ``fold_in(key, l)``); an
-eager call draws the layers' masks from its generator in turn.
+``random.sub_key(node_key, l)`` (the JAX op's ``fold_in(key, l)``;
+``OpContext.sub_generator``); an eager call draws the layers' masks
+from its generator in turn.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import random as _random
 from ..base import MXNetError, attr_bool, attr_float, attr_int
 from . import cuda_kernels as ck
 from . import nn
@@ -204,8 +204,7 @@ def _rnn_forward(data, params, state, state_cell, attrs, op_ctx):
                 c_finals.append(cT)
         x = ys[0] if d == 1 else torch.cat(ys, dim=-1)
         if p_drop > 0.0 and op_ctx.is_train and layer < num_layers - 1:
-            g = op_ctx.rng if op_ctx.key is None else _random.key_generator(
-                _random.sub_key(op_ctx.key, layer), x.device)
+            g = op_ctx.sub_generator(layer, x.device)
             x = nn.dropout(x, p_drop, g)
 
     h_out = torch.stack(h_finals).reshape(num_layers * d, b, h)

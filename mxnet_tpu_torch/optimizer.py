@@ -5,10 +5,20 @@ clip, the ``wd_mult`` name rule, ``lr_mult``, update counts;
 ``:48-160``), ``SGD`` with momentum (``:188-215``), ``Adam``
 (``:303-336``), ``create`` and ``get_updater``.
 
-Updates run in place on the device tensors under ``torch.no_grad()``:
-the weight and the state tensors are overwritten, where the JAX package
-returns new buffers.  The arithmetic follows the reference's ``apply``
-term by term.
+The functional core is the port of ``init_state_arrays`` and ``apply``
+(``:122-128``), written over lists: ``init_state_arrays(weights)`` makes
+one state a weight, and ``apply(weights, grads, states, lr, wd, t)``
+updates every weight and state of the lists in place with multi-tensor
+ops (``torch._foreach_*``: a few launches for all of them on the card).
+The Module's fused step calls it once per (lr_mult, wd_mult) group with
+``lr`` and ``t`` as 0-dim float64 device tensors, so a captured step
+reads them from the device.  The per-parameter ``Updater`` (the eager
+path) calls ``update``, whose ``_step`` runs the same operations on one
+tensor with Python numbers, without the lists.  In-place writes keep
+each weight's and state's dtype (the JAX segment's ``astype``); the
+learning rate and Adam's bias correction are float64 (Python's, or the
+tensors'), cast once to the weights' type.  The arithmetic follows the
+reference's ``apply`` term by term.
 """
 
 from __future__ import annotations
@@ -99,28 +109,60 @@ class Optimizer:
     def _get_wd(self, index) -> float:
         return self.wd * self.wd_mult.get(self._name(index), 1.0)
 
-    def _preprocess(self, grad: torch.Tensor) -> torch.Tensor:
-        """rescale and clip, into a new tensor (the gradient buffer
-        stays as backward wrote it)."""
-        g = grad * self.rescale_grad
+    def _preprocess(self, grads):
+        """rescale and clip, into new tensors (the gradient buffers stay
+        as backward wrote them)."""
+        g = torch._foreach_mul(grads, self.rescale_grad)
         if self.clip_gradient is not None:
-            g.clamp_(-self.clip_gradient, self.clip_gradient)
+            torch._foreach_clamp_min_(g, -self.clip_gradient)
+            torch._foreach_clamp_max_(g, self.clip_gradient)
+        return g
+
+    def _preprocess_one(self, grad):
+        """``_preprocess`` of one gradient."""
+        g = grad.mul(self.rescale_grad)
+        if self.clip_gradient is not None:
+            g.clamp_min_(-self.clip_gradient).clamp_max_(self.clip_gradient)
         return g
 
     def create_state(self, index, weight: NDArray):
+        return self.init_state_arrays([weight._data])[0]
+
+    def init_state_arrays(self, weights):
+        """One state a weight (tensors like it, or None)."""
+        raise NotImplementedError
+
+    def apply(self, weights, grads, states, lr, wd, t):
+        """Update ``weights`` and ``states`` (lists, one entry a
+        parameter; gradients in the weights' dtype) in place: ``lr`` a
+        float or a 0-dim float64 tensor, ``wd`` a float, ``t`` this
+        update's number (an int, or a 0-dim float64 tensor)."""
+        raise NotImplementedError
+
+    def _step(self, w, g, state, lr, wd, t):
+        """``apply`` on the one weight ``w`` (Python ``lr`` and ``t``),
+        op for op."""
         raise NotImplementedError
 
     def update(self, index, weight: NDArray, grad: NDArray, state):
         """Update ``weight`` in place from ``grad``; returns the state."""
         self._update_count(index)
         with torch.no_grad():
-            return self._step(weight._data, grad._data.to(weight._data.dtype),
-                              state, self._get_lr(index),
-                              self._get_wd(index),
-                              self._index_update_count[index])
+            self._step(weight._data, grad._data.to(weight._data.dtype),
+                       state, self._get_lr(index), self._get_wd(index),
+                       self._index_update_count[index])
+        return state
 
-    def _step(self, w, g, state, lr, wd, t):
-        raise NotImplementedError
+
+def _scalar_for(x, weights):
+    """``x`` for a foreach op over ``weights``: a Python number as it
+    is, a 0-dim tensor cast to the lists' type (float32 for a half
+    type), which keeps the op on its multi-tensor path."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    dt = weights[0].dtype
+    return x.to(dt if dt in (torch.float32, torch.float64)
+                else torch.float32)
 
 
 @register
@@ -131,20 +173,32 @@ class SGD(Optimizer):
         super().__init__(**kwargs)
         self.momentum = momentum
 
-    def create_state(self, index, weight):
+    def init_state_arrays(self, weights):
         if self.momentum == 0.0:
-            return None
-        return torch.zeros_like(weight._data)
+            return [None] * len(weights)
+        return [torch.zeros_like(w) for w in weights]
+
+    def apply(self, weights, grads, states, lr, wd, t):
+        if not weights:
+            return
+        g = self._preprocess(grads)
+        torch._foreach_add_(g, weights, alpha=wd)
+        torch._foreach_mul_(g, _scalar_for(lr, weights))
+        if self.momentum == 0.0:
+            torch._foreach_sub_(weights, g)
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_sub_(states, g)
+        torch._foreach_add_(weights, states)
 
     def _step(self, w, g, state, lr, wd, t):
-        g = self._preprocess(g)
-        g.add_(w, alpha=wd)
+        g = self._preprocess_one(g)
+        g.add_(w, alpha=wd).mul_(lr)
         if self.momentum == 0.0:
-            w.sub_(g, alpha=lr)
-            return None
-        state.mul_(self.momentum).sub_(g.mul_(lr))
+            w.sub_(g)
+            return
+        state.mul_(self.momentum).sub_(g)
         w.add_(state)
-        return state
 
 
 @register
@@ -158,21 +212,43 @@ class Adam(Optimizer):
         self.beta2 = beta2
         self.epsilon = epsilon
 
-    def create_state(self, index, weight):
-        return (torch.zeros_like(weight._data),
-                torch.zeros_like(weight._data))
+    def init_state_arrays(self, weights):
+        return [(torch.zeros_like(w), torch.zeros_like(w)) for w in weights]
+
+    def apply(self, weights, grads, states, lr, wd, t):
+        if not weights:
+            return
+        m = [s[0] for s in states]
+        v = [s[1] for s in states]
+        g = self._preprocess(grads)
+        torch._foreach_add_(g, weights, alpha=wd)
+        torch._foreach_mul_(m, self.beta1)
+        torch._foreach_add_(m, g, alpha=1 - self.beta1)
+        torch._foreach_mul_(v, self.beta2)
+        torch._foreach_add_(v, torch._foreach_mul(g, g),
+                            alpha=1 - self.beta2)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.epsilon)
+        step = torch._foreach_div(m, denom)
+        torch._foreach_mul_(step, _scalar_for(self._lr_t(lr, t), weights))
+        torch._foreach_sub_(weights, step)
 
     def _step(self, w, g, state, lr, wd, t):
         m, v = state
-        g = self._preprocess(g)
+        g = self._preprocess_one(g)
         g.add_(w, alpha=wd)
         m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
         v.mul_(self.beta2).add_(g * g, alpha=1 - self.beta2)
+        step = m / v.sqrt().add_(self.epsilon)
+        w.sub_(step.mul_(self._lr_t(lr, t)))
+
+    def _lr_t(self, lr, t):
+        """The rate with the bias correction of update ``t`` folded in
+        (float64: Python's, or the 0-dim tensors')."""
         coef1 = 1.0 - self.beta1 ** t
         coef2 = 1.0 - self.beta2 ** t
-        lr_t = lr * math.sqrt(coef2) / coef1
-        w.sub_(m / (v.sqrt() + self.epsilon), alpha=lr_t)
-        return state
+        sqrt = torch.sqrt if isinstance(t, torch.Tensor) else math.sqrt
+        return lr * sqrt(coef2) / coef1
 
 
 class Updater:

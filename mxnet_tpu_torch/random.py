@@ -15,6 +15,15 @@ draws one step key a forward and keys each random node with
 node_index)``), the fused RNN each layer's dropout with ``sub_key(
 node_key, layer)``.
 
+The fused training step (``module/fused_step.py``) keys its random
+nodes with ``Streams``: a base key drawn once from ``next_key`` when the
+step is built (the JAX step's ``base_key``), and one persistent
+generator per node, seeded once with ``sub_key(base_key, node_index)``,
+whose state runs on from step to step (the JAX step folds ``t`` into
+the base key instead).  On the card each generator is registered with
+every CUDA graph of the step, so a replay advances its Philox offset
+and draws new masks.
+
 Sampler keying: one counter-based draw per (engine seed, stream seed,
 absolute position), and for the speculative verify sampler two sub-keys
 of that key (``sub_key(key, 1)`` for the acceptance uniform,
@@ -38,8 +47,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 __all__ = ["seed", "generator", "next_key", "get_state", "set_state",
-           "key_generator", "stream_key", "sub_key", "gumbel_noise",
-           "uniform"]
+           "key_generator", "Streams", "stream_key", "sub_key",
+           "gumbel_noise", "uniform"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -135,6 +144,29 @@ def key_generator(key: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(key))
     return g
+
+
+class Streams:
+    """Persistent generators keyed by 63-bit keys under one
+    ``base_key``: ``generator(key, device)`` makes a generator seeded
+    with ``key`` at its first request and hands the same object out
+    after, so its draws run on.  The executor gives node ``i`` the one
+    keyed ``sub_key(base_key, i)``."""
+
+    def __init__(self, base_key: int):
+        self.base_key = int(base_key)
+        self._generators: Dict[tuple, torch.Generator] = {}
+
+    def generator(self, key: int, device) -> torch.Generator:
+        device = torch.device(device)
+        g = self._generators.get((key, device))
+        if g is None:
+            g = self._generators[(key, device)] = key_generator(key, device)
+        return g
+
+    def generators(self):
+        """Every generator made so far."""
+        return list(self._generators.values())
 
 
 def _draw(key: int, n: int, device) -> torch.Tensor:

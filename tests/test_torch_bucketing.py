@@ -223,11 +223,15 @@ def test_buckets_share_parameters_gradients_and_one_optimizer():
             assert other._exec.grad_dict[p] is default._exec.grad_dict[p], p
         assert other._optimizer is default._optimizer
         assert other._updater is default._updater
+        assert other._fused is default._fused  # one fused-step state
     # Adam's step count runs on across buckets: one count per batch
     opt = default._optimizer
     assert opt.num_update == len(batches)
     assert set(opt._index_update_count.values()) == {len(batches)}
-    assert len(default._updater.states) == len(default._param_names)
+    # the states live in the fused step's state (the Updater's, under
+    # MXNET_FUSED_STEP=0), one a parameter, and its t ran on as well
+    assert sorted(default._fused.states) == sorted(default._param_names)
+    assert float(default._fused.t) == len(batches)
 
 
 def test_borrow_optimizer_refuses_other_parameters():
