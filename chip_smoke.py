@@ -286,6 +286,32 @@
    rrelu and ``Dropout`` with their draws injected, and a Dropout of
    2^24 ones keeping within 6 sigma of 1 - p.  Only (a) and (b) launch
    the port's kernels.
+12. Checkpoints and resume (``ckpt_path``; fp32, TF32 off), every
+   checkpoint under one ``tempfile.mkdtemp()`` directory removed at the
+   end, launch counts reset just before and summed over its traced
+   parts just after: (a) phase 11's dropout LM (GPT-2-small class, 12 x
+   768, vocabulary 32,768, batch 8 x 1024, dropout 0.1, SGD momentum
+   0.9) through ``Module.fit`` and the fused step's CUDA graphs: 10
+   steps with no manager; the same weights and seed with a
+   ``CheckpointManager(every_n_steps=5, async_save=True)``, stopped by
+   an exception after step 7; a fresh module under another seed resumes
+   with ``fit(resume='auto')`` at step 5 and runs to 10.  Gates: every
+   weight and momentum within ``CKPT_TOL`` (``tests/
+   test_torch_fused_graphs.py``'s) of the uninterrupted run's, the
+   dropout masks of steps 6-10 equal to its masks, ``verify_checkpoint``
+   clean.  Records: each tensor's largest difference, bit for bit or
+   the first tensor that parts, each run's captures, the async save's
+   blocking ms against a synchronous save's, the writer's ms and the
+   bytes, the resume's load, restore, first step and warm-up + capture
+   ms, the step p50 with the manager and without.  (b) LSTM-PTB (phase
+   4's widths, buckets 10-60, Adam) through ``BucketingModule.fit``: 12
+   batches, a checkpoint at batch 6, a stop after batch 8, a resume
+   from a fresh module: the same gates (Adam's mean and var beside the
+   weights) and records.  (c) ResNet-50 through ``train_imagenet.py
+   --benchmark 1 --model-prefix``: 1 epoch, whose checkpoint's arrays
+   (every BatchNorm moving statistic too) equal the module's bit for
+   bit; then ``--load-epoch 1`` for 1 more, which starts at epoch 1 with
+   finite outputs.  Only (a) and (b) launch the port's kernels.
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -327,7 +353,8 @@ ResNet-50's, AlexNet's and Inception-v3's training runs and
 training paths without their eager runs: parent against change is the
 comparison), ``--kernels ROOT`` the kernels
 alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
-``--cnn ROOT`` phase 11 alone (see ``paths_timing``);
+``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone (see
+``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -341,8 +368,11 @@ import hashlib
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -414,6 +444,15 @@ CNN_SCORE = (("alexnet", (3, 224, 224), {}), ("vgg", (3, 224, 224), {}),
              ("resnet-50", (3, 224, 224), {"stem": "s2d"}))
 CNN_SCORE_BATCHES = (1, 32)
 DROPOUT_MASK_ELEMENTS = 1 << 24
+
+# phase 12: the LM checkpointed every 5 steps, stopped after step 7 and
+# resumed at 5; LSTM-PTB checkpointed at batch 6 of 12, stopped after 8;
+# tests/test_torch_fused_graphs.py's tolerance; the two runs' seeds
+CKPT_EVERY, CKPT_STOP = 5, 7
+CKPT_LSTM_BATCHES, CKPT_LSTM_EVERY, CKPT_LSTM_STOP = 12, 6, 8
+CKPT_TOL = dict(rtol=1e-4, atol=1e-5)
+CKPT_SEEDS = (5, 23)
+CKPT_RESNET_BATCHES = 8
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
@@ -3168,6 +3207,18 @@ class BucketSentenceIter:
     def __iter__(self):
         return self
 
+    def state_dict(self):
+        """The position for a checkpoint: the epoch's plan (bucket, rows)
+        and the batches taken, and the shuffling generator's state."""
+        return {"kind": "BucketSentenceIter", "cur": self._cur,
+                "plan": [(int(b), np.asarray(idx)) for b, idx in self._plan],
+                "rng": self._rng.get_state()}
+
+    def set_state(self, state, rewind=False):
+        self._plan = [(int(b), np.asarray(idx)) for b, idx in state["plan"]]
+        self._cur = 0 if rewind else int(state["cur"])
+        self._rng.set_state(state["rng"])
+
     def __next__(self):
         if self._cur >= len(self._plan):
             raise StopIteration
@@ -5014,6 +5065,410 @@ def cnn_dropout_path(torch, mt, ck, eager=True):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: checkpoints and resume
+# ---------------------------------------------------------------------------
+
+
+class Stop(Exception):
+    """Ends an interrupted run (raised by a ``StepClock``)."""
+
+
+class MaskTape(ReplayMasks):
+    """``ReplayMasks`` that also keeps each step's masks (``steps``)."""
+
+    def __init__(self, nodes, keep):
+        super().__init__(nodes, keep)
+        self.steps = []
+
+    def after_step(self, step):
+        super().after_step(step)
+        self.steps.append(self.last)
+
+
+class StepClock:
+    """A batch-end callback: each step's ms since the last call, the
+    main stream synchronized (not the device: a checkpoint writer's
+    copies on its own stream are not waited for); a ``tape`` takes the
+    step's masks; after ``stop`` steps it raises ``Stop``."""
+
+    def __init__(self, torch, stop=None, tape=None):
+        self.torch, self.stop, self.tape = torch, stop, tape
+        self.ms, self.done_at = [], []
+        self.t = None
+
+    def start(self):
+        self.torch.cuda.current_stream().synchronize()
+        self.t = time.perf_counter()
+
+    def __call__(self, param):
+        self.torch.cuda.current_stream().synchronize()
+        now = time.perf_counter()
+        self.ms.append((now - self.t) * 1e3)
+        self.done_at.append(now)
+        self.t = now
+        if self.tape is not None:
+            self.tape.after_step(len(self.ms))
+        if self.stop is not None and len(self.ms) == self.stop:
+            raise Stop()
+
+
+def ckpt_fit(torch, mt, counts, label, mod, it, fit_kw, seed, stop=None,
+             manager=None, tape=None):
+    """``mod.fit(it)`` for one epoch under ``seed`` inside a traced
+    region of ``counts``, with ``manager`` and ``resume='auto'`` when one
+    is given, stopped after ``stop`` steps → (clock, stamps): the
+    perf_counter times at the start, after the manager's ``load_latest``
+    and after its ``restore_training_state``."""
+    mt.random.seed(seed)
+    np.random.seed(seed)
+    clock = StepClock(torch, stop, tape)
+    stamps = {}
+    if manager is not None:
+        for name in ("load_latest", "restore_training_state"):
+            def stamped(*a, _f=getattr(manager, name), _n=name, **kw):
+                out = _f(*a, **kw)
+                torch.cuda.current_stream().synchronize()
+                stamps[_n] = time.perf_counter()
+                return out
+            setattr(manager, name, stamped)
+    with counts.region(label), tape or contextlib.nullcontext():
+        clock.start()
+        stamps["start"] = clock.t
+        try:
+            mod.fit(it, num_epoch=1, checkpoint=manager,
+                    resume="auto" if manager is not None else None,
+                    batch_end_callback=clock, **fit_kw)
+        except Stop:
+            pass
+    return clock, stamps
+
+
+def state_diffs(torch, ref, got):
+    """{name: max |ref - got|} of two {name: tensor or tuple} dicts, the
+    names of the entries outside ``CKPT_TOL``, and the first that is not
+    bit for bit equal (None when all are)."""
+    diffs, off, first = {}, [], None
+    for name, a in ref.items():
+        b = got[name]
+        pairs = zip(a, b) if isinstance(a, (tuple, list)) else [(a, b)]
+        for i, (x, y) in enumerate(pairs):
+            key = name if not isinstance(a, (tuple, list)) \
+                else f"{name}[{i}]"
+            diffs[key] = float((x.double() - y.double()).abs().max())
+            if first is None and not torch.equal(x, y):
+                first = key
+            if not torch.allclose(y, x, **CKPT_TOL):
+                off.append(key)
+    return diffs, off, first
+
+
+def ckpt_resume_record(torch, mt, label, ref, got, ref_clock, int_clock,
+                       res_clock, stamps, mgr, sync_mgr, ckpt_dir, runs):
+    """The gates and the record of a resume: every state within
+    ``CKPT_TOL`` of the uninterrupted run's, the checkpoint clean."""
+    diffs, off, first = state_diffs(torch, ref, got)
+    check(not off, f"{label}: the resumed run parts from the "
+          f"uninterrupted one beyond {CKPT_TOL}: {off[:8]}")
+    infos = [i for i in mt.checkpoint.list_checkpoints(ckpt_dir)
+             if i.committed]
+    problems = [p for i in infos
+                for p in mt.checkpoint.verify_checkpoint(i.path)]
+    check(infos and not problems, f"{label}: checkpoints {infos}: "
+          f"{problems}")
+    done = res_clock.done_at
+    return {
+        "tensors": len(diffs), "max_abs_err": max(diffs.values()),
+        "bit_for_bit": first is None, "first_parting_tensor": first,
+        "max_abs_err_by_tensor": {k: v for k, v in diffs.items() if v},
+        "checkpoint_steps": [i.step for i in infos],
+        "captures": runs,
+        "async_save_blocking_ms": mgr["blocking_ms"],
+        "snapshot_ms_new_and_cached_memory": mgr["snapshot_ms"],
+        "async_writer_ms": mgr["save_ms"], "checkpoint_bytes": mgr["bytes"],
+        "sync_save_ms": sync_mgr["blocking_ms"],
+        "sync_checkpoint_bytes": sync_mgr["bytes"],
+        "resume_load_ms": (stamps["load_latest"] - stamps["start"]) * 1e3,
+        "resume_restore_ms": (stamps["restore_training_state"]
+                              - stamps["load_latest"]) * 1e3,
+        "resume_first_step_ms": (done[0] - stamps["restore_training_state"])
+        * 1e3,
+        "resume_warmup_and_capture_ms":
+            (done[2] - stamps["restore_training_state"]) * 1e3,
+        "step_ms": {"uninterrupted": ref_clock.ms,
+                    "with_manager": int_clock.ms, "resumed": res_clock.ms},
+        # the steps after the capture (the 4th on)
+        "step_p50_ms_without_manager": float(np.median(ref_clock.ms[3:])),
+        "step_p50_ms_with_manager": float(np.median(int_clock.ms[3:]))}
+
+
+def ckpt_sync_save(mt, mod, directory, step):
+    """A synchronous save of ``mod`` → its blocking ms and bytes."""
+    mgr = mt.CheckpointManager(directory, async_save=False, keep=1)
+    mgr.save(module=mod, epoch=0, nbatch=step - 1, step=step)
+    return {"blocking_ms": mgr.last_blocking_ms, "bytes": mgr.last_bytes}
+
+
+def ckpt_three_runs(torch, mt, counts, label, make, fit_kw, stop, every,
+                    root, state_of, tape_of=None):
+    """The uninterrupted run, the run with a manager stopped after
+    ``stop`` steps, and the resume of a fresh module from its checkpoint,
+    for ``make()`` → (module, iterator) → (the gated record, the
+    uninterrupted run's and the resumed run's tapes)."""
+    ckpt_dir = os.path.join(root, label)
+    seed, other = CKPT_SEEDS
+    mod, it = make()
+    ref_tape = tape_of() if tape_of else None
+    ref_clock, _ = ckpt_fit(torch, mt, counts, f"{label} uninterrupted",
+                            mod, it, fit_kw(True), seed, tape=ref_tape)
+    ref = state_of(mod)
+    runs = {"uninterrupted": graph_stats(mod)["captures"]}
+    del mod
+    torch.cuda.empty_cache()
+    mod, it = make()
+    mgr = mt.CheckpointManager(ckpt_dir, every_n_steps=every,
+                               async_save=True, keep=2)
+    blocking = []
+    save = mgr.save
+
+    def timed_save(*a, **kw):
+        save(*a, **kw)
+        blocking.append(mgr.last_blocking_ms)
+    mgr.save = timed_save
+    int_clock, _ = ckpt_fit(torch, mt, counts, f"{label} interrupted", mod,
+                            it, fit_kw(True), seed, stop=stop, manager=mgr,
+                            tape=tape_of() if tape_of else None)
+    mgr.close()
+    check(len(int_clock.ms) == stop, f"{label}: the interrupted run took "
+          f"{len(int_clock.ms)} steps, not {stop}")
+    check(mgr.last_error is None, f"{label}: {mgr.last_error!r}")
+    saved = {"blocking_ms": blocking[0], "save_ms": mgr.last_save_ms,
+             "bytes": mgr.last_bytes}
+    sync = ckpt_sync_save(mt, mod, os.path.join(root, f"{label}-sync"),
+                          stop)
+    # the snapshot's host ms alone (device copies, no write), twice: the
+    # first with the copies' memory new to the allocator, the second
+    # with it cached
+    saved["snapshot_ms"] = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        snap = (mod.get_params(), mod._optimizer_states_to_host(lazy=True))
+        saved["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        del snap
+    runs["interrupted"] = graph_stats(mod)["captures"]
+    del mod
+    torch.cuda.empty_cache()
+    mod, it = make()
+    res_tape = tape_of() if tape_of else None
+    res_mgr = mt.CheckpointManager(ckpt_dir, every_n_steps=0)
+    res_clock, stamps = ckpt_fit(torch, mt, counts, f"{label} resumed", mod,
+                                 it, fit_kw(False), other, manager=res_mgr,
+                                 tape=res_tape)
+    res_mgr.close()
+    check(len(res_clock.ms) + every == len(ref_clock.ms), f"{label}: the "
+          f"resumed run took {len(res_clock.ms)} steps after step {every}")
+    runs["resumed"] = graph_stats(mod)["captures"]
+    rec = ckpt_resume_record(torch, mt, label, ref, state_of(mod),
+                             ref_clock, int_clock, res_clock, stamps, saved,
+                             sync, ckpt_dir, runs)
+    del mod
+    torch.cuda.empty_cache()
+    return rec, ref_tape, res_tape
+
+
+def ckpt_lm(torch, mt, ck, counts, root):
+    """(a) The dropout LM: 10 steps, stopped after ``CKPT_STOP`` with a
+    checkpoint every ``CKPT_EVERY``, resumed (``ckpt_three_runs``); the
+    resumed run's masks must be the uninterrupted run's."""
+    L = GPT2_SMALL["num_layers"]
+    params = gpt2_small_params(0)
+    sym = packed_lm_symbol(mt, LM_DROPOUT)
+
+    def make():
+        return mt.mod.Module(sym, context=mt.gpu(0)), lm_batches(mt)
+
+    def fit_kw(with_params):
+        return dict(optimizer="sgd", eval_metric="loss",
+                    optimizer_params={"learning_rate": TRAIN_LR,
+                                      "momentum": 0.9},
+                    arg_params=params if with_params else None)
+
+    def state_of(mod):
+        w = {n: mod._exec.arg_dict[n]._data.clone()
+             for n in mod._param_names}
+        w.update({f"{n} momentum": s.clone()
+                  for n, s in mod._fused.states.items()})
+        return w
+
+    rec, ref_tape, res_tape = ckpt_three_runs(
+        torch, mt, counts, "ckpt-lm", make, fit_kw, CKPT_STOP, CKPT_EVERY,
+        root, state_of, tape_of=lambda: MaskTape(2 * L, 1 - LM_DROPOUT))
+    want = ref_tape.steps[CKPT_EVERY:]
+    check(len(res_tape.steps) == len(want), f"{len(res_tape.steps)} "
+          f"resumed steps' masks, not {len(want)}")
+    same = [all(torch.equal(a, b) for a, b in zip(x, y))
+            for x, y in zip(want, res_tape.steps)]
+    check(all(same), f"the resumed LM's masks of steps "
+          f"{CKPT_EVERY + 1}-{TRAIN_STEPS} part from the uninterrupted "
+          f"run's: {same}")
+    rec.update(masks_equal_steps=list(range(CKPT_EVERY + 1,
+                                            TRAIN_STEPS + 1)),
+               dropout=LM_DROPOUT, steps=TRAIN_STEPS,
+               stopped_after=CKPT_STOP, every_n_steps=CKPT_EVERY)
+    return rec
+
+
+def ckpt_lstm(torch, mt, ck, counts, root):
+    """(b) LSTM-PTB through ``BucketingModule.fit`` (Adam 0.01,
+    ``Uniform(0.08)``, zero states): ``CKPT_LSTM_BATCHES`` batches, a
+    checkpoint every ``CKPT_LSTM_EVERY``, stopped after
+    ``CKPT_LSTM_STOP``, resumed (``ckpt_three_runs``)."""
+    cfg = LSTM_PTB
+    L, Hd, B = cfg["num_layers"], cfg["num_hidden"], cfg["batch"]
+    sentences = synthetic_corpus(LSTM_TRAIN_SENTENCES, cfg["vocab"],
+                                 max(cfg["buckets"]), seed=1)
+
+    def make():
+        it = BucketSentenceIter(mt, sentences, B, list(cfg["buckets"]),
+                                seed=3)
+        it._plan = it._plan[:CKPT_LSTM_BATCHES]
+        mod = mt.mod.BucketingModule(
+            lstm_sym_gen(mt, cfg["vocab"], cfg["num_embed"], Hd, L),
+            default_bucket_key=it.default_bucket_key, context=mt.gpu(0))
+        return mod, it
+
+    def fit_kw(_):
+        zeros = mt.nd.zeros((L, B, Hd), ctx=mt.gpu(0))
+        return dict(optimizer="adam", optimizer_params={
+                        "learning_rate": 0.01},
+                    eval_metric=mt.metric.Perplexity(ignore_label=0),
+                    initializer=mt.initializer.Uniform(0.08),
+                    arg_params={"rnn_state": zeros,
+                                "rnn_state_cell": zeros.copy()},
+                    allow_missing=True)
+
+    def state_of(mod):
+        cur = mod._curr_module
+        w = {n: cur._exec.arg_dict[n]._data.clone()
+             for n in cur._param_names}
+        w.update({f"{n} adam": tuple(x.clone() for x in s)
+                  for n, s in cur._fused.states.items()})
+        return w
+
+    rec = ckpt_three_runs(torch, mt, counts, "ckpt-lstm", make, fit_kw,
+                          CKPT_LSTM_STOP, CKPT_LSTM_EVERY, root,
+                          state_of)[0]
+    rec.update(batches=CKPT_LSTM_BATCHES, stopped_after=CKPT_LSTM_STOP,
+               every_n_steps=CKPT_LSTM_EVERY)
+    return rec
+
+
+def ckpt_resnet(torch, mt, root):
+    """(c) ResNet-50 through ``train_imagenet.py --benchmark 1``: one
+    epoch with ``--model-prefix``, whose checkpoint's arrays equal the
+    module's bit for bit, then ``--load-epoch 1`` for one more, which
+    begins at epoch 1 with finite outputs."""
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    prefix = os.path.join(root, "r50")
+    argv = ["--benchmark", "1", "--network", IMAGE["network"],
+            "--batch-size", str(IMAGE["batch"]), "--num-batches",
+            str(CKPT_RESNET_BATCHES), "--model-prefix", prefix]
+    t0 = time.perf_counter()
+    mod = train_imagenet.main(argv + ["--num-epochs", "1"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, arg, aux = mt.model.load_checkpoint(prefix, 1)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    have_arg, have_aux = mod.get_params()
+    check(sorted(arg) == sorted(have_arg) and sorted(aux) == sorted(have_aux)
+          and len(aux) == 102, f"the checkpoint holds {len(arg)} args and "
+          f"{len(aux)} aux states")
+    parted = [k for src, have in ((arg, have_arg), (aux, have_aux))
+              for k, v in src.items()
+              if not torch.equal(v._data, have[k]._data.cpu())]
+    check(not parted, f"ResNet-50's checkpoint parts from the module: "
+          f"{parted[:8]}")
+    nbytes = os.path.getsize(prefix + "-0001.params")
+    del mod
+    torch.cuda.empty_cache()
+    begun = []
+    fit = mt.mod.Module.fit
+
+    def spy(self, *a, **kw):
+        begun.append(kw.get("begin_epoch"))
+        return fit(self, *a, **kw)
+
+    mt.mod.Module.fit = spy
+    try:
+        t0 = time.perf_counter()
+        mod = train_imagenet.main(argv + ["--num-epochs", "2",
+                                          "--load-epoch", "1"])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+    finally:
+        mt.mod.Module.fit = fit
+    check(begun == [1], f"--load-epoch 1 began at epochs {begun}")
+    out = mod.get_outputs()[0]._data
+    check(bool(torch.isfinite(out).all()), "the resumed ResNet-50's "
+          "outputs are not finite")
+    check(os.path.exists(prefix + "-0002.params"), "no epoch-2 checkpoint")
+    del mod
+    torch.cuda.empty_cache()
+    return {"args": len(arg), "aux_states": len(aux),
+            "params_bytes": nbytes, "load_checkpoint_ms": load_ms,
+            "arrays_bit_for_bit": True, "begin_epoch": 1,
+            "epoch1_wall_s": first_s, "resumed_epoch_wall_s": second_s,
+            "batches_an_epoch": CKPT_RESNET_BATCHES}
+
+
+def ckpt_path(torch, mt, ck):
+    """Phase 12 on ``gpu(0)``, fp32 with TF32 off: (a) the dropout LM
+    (``ckpt_lm``), (b) LSTM-PTB (``ckpt_lstm``), (c) ResNet-50 through
+    ``train_imagenet.py`` (``ckpt_resnet``), every checkpoint under one
+    temporary directory removed at the end, the SIGTERM handler the
+    managers install put back.  Launch counts summed over the traced
+    regions of (a) and (b)."""
+    counts = Launches(torch, ck)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    handler = signal.getsignal(signal.SIGTERM)
+    rec, wall = {}, {}
+    try:
+        for part, fn in (("lm", lambda: ckpt_lm(torch, mt, ck, counts,
+                                                root)),
+                         ("lstm", lambda: ckpt_lstm(torch, mt, ck, counts,
+                                                    root)),
+                         ("resnet", lambda: ckpt_resnet(torch, mt, root))):
+            counted = launch_counts(ck)
+            t0 = time.perf_counter()
+            rec[part] = fn()
+            torch.cuda.synchronize()
+            wall[part] = time.perf_counter() - t0
+            print(json.dumps({f"ckpt_{part}": rec[part]}))
+            if part == "resnet":
+                now = launch_counts(ck)
+                check(now == counted, f"phase 12 {part} counted launches: "
+                      f"{ {k: n - counted[k] for k, n in now.items()} }")
+            torch.cuda.empty_cache()
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+        shutil.rmtree(root, ignore_errors=True)
+    launched = {k: v for k, v in counts.total.items() if v}
+    lm_steps = TRAIN_STEPS + CKPT_STOP + TRAIN_STEPS - CKPT_EVERY
+    lstm_batches = (CKPT_LSTM_BATCHES + CKPT_LSTM_STOP + CKPT_LSTM_BATCHES
+                    - CKPT_LSTM_EVERY)
+    L = GPT2_SMALL["num_layers"]
+    want = {"flash_mha_packed": L * lm_steps,
+            "flash_mha_packed_bwd_dq": L * lm_steps,
+            "flash_mha_packed_bwd_dkv": L * lm_steps,
+            "lstm_scan": LSTM_PTB["num_layers"] * lstm_batches}
+    check(launched == want, f"phase 12 launched {launched}, not {want}")
+    rec.update(part_wall_s=wall, launches=counts.total)
+    return rec
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -5151,8 +5606,9 @@ def paths_timing(root, mode="paths"):
     unpacked beside this one), one JSON line each; ``--kernels ROOT``
     the kernels alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase
     10 (image classification) alone, ``--cnn ROOT`` phase 11 alone
-    (building B1 and B6 first).  Run parent, change,
-    change, parent in one call to compare two versions on one card."""
+    and ``--ckpt ROOT`` phase 12 alone (each building B1 and B6 first).
+    Run parent, change, change, parent in one call to compare two
+    versions on one card."""
     import torch
     import torch.nn.functional as F
 
@@ -5181,6 +5637,13 @@ def paths_timing(root, mode="paths"):
         print(json.dumps({"paths_timing": {
             "root": root, "cnn_dropout_path": cnn_dropout_path(torch, mt,
                                                                ck)}}))
+        print(card_line())
+        return 0
+    if mode == "ckpt":
+        _build.build(["flash_mha_packed", "flash_mha_packed_bwd",
+                      "lstm_scan"])
+        print(json.dumps({"paths_timing": {
+            "root": root, "ckpt_path": ckpt_path(torch, mt, ck)}}))
         print(card_line())
         return 0
     if mode != "nms":
@@ -5437,12 +5900,19 @@ def main():
     cnn = cnn_dropout_path(torch, mt, ck)
     cnn["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"cnn_dropout_path": cnn}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ckpt = ckpt_path(torch, mt, ck)
+    ckpt["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"ckpt_path": {k: ckpt[k] for k in (
+        "part_wall_s", "launches", "wall_s")}}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
     # serving and step, the training run, the DPA training run, the
-    # LSTM-PTB run, the SSD300 run, the sequence phase and phase 11 (the
-    # dropout LM's B1, the LSTM with dropout's lstm_scan)
+    # LSTM-PTB run, the SSD300 run, the sequence phase, phase 11 (the
+    # dropout LM's B1, the LSTM with dropout's lstm_scan) and phase 12
+    # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -5498,7 +5968,7 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence, image, cnn]
+    all_runs = earlier + [sequence, image, cnn, ckpt]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -5544,7 +6014,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
-                         ["--image"], ["--cnn"]):
+                         ["--image"], ["--cnn"], ["--ckpt"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

@@ -27,6 +27,12 @@ Python forward and backward over NDArrays (``sym.Custom``).  It imports
 Entry points run on the card (``gpu(0)``) unless the caller passes
 ``ctx=cpu()`` (``context=cpu()`` for ``Module``); there the kernels'
 plain PyTorch versions run.
+
+Checkpoints use the JAX package's files, so each package loads what the
+other wrote: ``nd.save``/``nd.load``, ``sym.load``/``sym.load_json``,
+``model.save_checkpoint``/``load_checkpoint``, ``Module.load``/
+``save_checkpoint`` with the optimizer states, and
+``CheckpointManager`` with ``Module.fit(checkpoint=..., resume='auto')``.
 """
 
 from .base import MXNetError
@@ -41,6 +47,9 @@ from . import symbol as sym
 from .symbol import Group, Variable
 from . import callback, executor, initializer, io, metric, optimizer
 from . import lr_scheduler
+from . import checkpoint
+from .checkpoint import CheckpointManager
+from . import model
 from . import module
 from . import module as mod
 from . import models
@@ -54,4 +63,4 @@ __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
            "params_to_numpy", "nd", "sym", "mod", "io", "metric", "callback",
            "optimizer", "lr_scheduler", "initializer", "random", "models",
            "speculative", "operator", "rtc", "sequence", "Variable", "Group",
-           "AttrScope"]
+           "AttrScope", "checkpoint", "CheckpointManager", "model"]

@@ -1,8 +1,9 @@
 """Training callbacks.
 
-Counterpart of ``mxnet_tpu/callback.py``: ``Speedometer``,
+Counterpart of ``mxnet_tpu/callback.py``: ``do_checkpoint`` and
+``module_checkpoint`` (``:18-39``), ``Speedometer``,
 ``log_train_metric`` and ``ProgressBar``, with the same cadence and
-output.  ``do_checkpoint`` is not ported yet and raises.
+output.
 """
 
 from __future__ import annotations
@@ -12,14 +13,35 @@ import math
 import sys
 import time
 
-from .base import not_ported
-
 __all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
-           "ProgressBar"]
+           "ProgressBar", "module_checkpoint"]
 
 
 def do_checkpoint(prefix, period=1):
-    raise not_ported("callback.do_checkpoint")
+    """An epoch-end callback: ``model.save_checkpoint(prefix, epoch + 1,
+    ...)`` every ``period`` epochs (parameters and symbol; no optimizer
+    state)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            from .model import save_checkpoint
+
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+
+    return _callback
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """An epoch-end callback: ``mod.save_checkpoint(prefix, epoch + 1,
+    save_optimizer_states)`` every ``period`` epochs."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -68,11 +68,12 @@ def fit(args, network, train_iter, val_iter=None, label_names=None,
     """reference: common/fit.py fit — ``Module.fit`` of ``network`` on
     ``ctx`` (default ``gpu(0)``): SGD (momentum ``--mom``) or the named
     optimizer at ``--lr`` and ``--wd``, ``Xavier(gaussian, in, 2)``,
-    accuracy, a ``Speedometer`` every ``--disp-batches``.  Returns the
+    accuracy, a ``Speedometer`` every ``--disp-batches``.  With
+    ``--model-prefix`` each epoch ends with ``do_checkpoint`` (symbol
+    and parameters, no optimizer state); with ``--load-epoch`` too, the
+    run starts from that epoch's checkpoint, at that epoch.  Returns the
     module."""
     for flag, value, where in (
-            ("--model-prefix", args.model_prefix, "checkpoints, item 3"),
-            ("--load-epoch", args.load_epoch, "checkpoints, item 3"),
             ("--monitor", args.monitor or None, "monitors, item 5"),
             ("--profile", args.profile, "the profiler, item 8")):
         if value is not None:
@@ -84,14 +85,29 @@ def fit(args, network, train_iter, val_iter=None, label_names=None,
     mod = mt.mod.Module(network, context=ctx if ctx is not None
                         else mt.gpu(0),
                         label_names=label_names or ("softmax_label",))
+    arg_params = aux_params = None
+    if args.load_epoch is not None:
+        if not args.model_prefix:
+            raise mt.MXNetError("--load-epoch needs --model-prefix, the "
+                                "checkpoint to load")
+        try:
+            _, arg_params, aux_params = mt.model.load_checkpoint(
+                args.model_prefix, args.load_epoch)
+        except mt.MXNetError as exc:
+            raise mt.MXNetError(f"--model-prefix {args.model_prefix} "
+                                f"--load-epoch {args.load_epoch}: {exc}") \
+                from None
     optimizer_params = {"learning_rate": args.lr, "wd": args.wd}
     if args.optimizer in ("sgd", "nag"):
         optimizer_params["momentum"] = args.mom
     sched = lr_scheduler(args, epoch_size or 1000)
     if sched is not None:
         optimizer_params["lr_scheduler"] = sched
+    checkpoint = mt.callback.do_checkpoint(args.model_prefix) \
+        if args.model_prefix else None
     mod.fit(train_iter,
             eval_data=val_iter,
+            begin_epoch=args.load_epoch or 0,
             num_epoch=args.num_epochs,
             eval_metric="acc",
             kvstore=args.kv_store,
@@ -99,8 +115,11 @@ def fit(args, network, train_iter, val_iter=None, label_names=None,
             optimizer_params=optimizer_params,
             initializer=initializer or mt.initializer.Xavier(
                 rnd_type="gaussian", factor_type="in", magnitude=2),
+            arg_params=arg_params,
+            aux_params=aux_params,
             batch_end_callback=mt.callback.Speedometer(
-                args.batch_size, args.disp_batches))
+                args.batch_size, args.disp_batches),
+            epoch_end_callback=checkpoint)
     return mod
 
 

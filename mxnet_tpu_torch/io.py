@@ -4,7 +4,10 @@ Counterpart of ``mxnet_tpu/io.py:59-310``: ``DataDesc``, ``DataBatch``,
 ``DataIter``, ``NDArrayIter`` (shuffle, ``last_batch_handle`` pad /
 discard / roll_over) and ``ResizeIter``.  Batches are host (CPU)
 NDArrays; the module that consumes them stages each one onto its own
-device, into the arrays it bound.
+device, into the arrays it bound.  ``state_dict``/``set_state`` give a
+checkpoint the position of ``NDArrayIter`` (its cursor and shuffle
+order) and ``ResizeIter`` in the JAX iterators' form
+(``mxnet_tpu/io.py:120-140, 236-260, 312-320``); other iterators raise.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from collections import namedtuple
 
 import numpy as np
 
+from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array
 
@@ -79,6 +83,19 @@ class DataIter:
 
     def getpad(self):
         raise NotImplementedError
+
+    def state_dict(self):
+        """The iterator's position for a checkpoint (builtins and
+        numpy); iterators that cannot give one raise."""
+        raise MXNetError(f"{type(self).__name__} does not support "
+                         "checkpointing (state_dict)")
+
+    def set_state(self, state, rewind=False):
+        """Restore a ``state_dict``: the next batch is the one the
+        snapshotted iterator would have given next (with ``rewind``, the
+        first of its epoch)."""
+        raise MXNetError(f"{type(self).__name__} does not support "
+                         "checkpointing (set_state)")
 
 
 def _init_data(data, allow_empty, default_name):
@@ -167,6 +184,28 @@ class NDArrayIter(DataIter):
                                   self._order[:end - self.num_data]])
         return [array(x[1][sel], ctx=cpu()) for x in data_source]
 
+    def state_dict(self):
+        return {"kind": "NDArrayIter", "cursor": int(self.cursor),
+                "order": self._order.copy(), "num_data": int(self.num_data),
+                "batch_size": int(self.batch_size)}
+
+    def set_state(self, state, rewind=False):
+        if state.get("kind") != "NDArrayIter":
+            raise MXNetError(f"NDArrayIter.set_state: snapshot is for "
+                             f"{state.get('kind')!r}")
+        if int(state["num_data"]) != self.num_data or \
+                int(state["batch_size"]) != self.batch_size:
+            raise MXNetError(
+                "NDArrayIter.set_state: snapshot shape mismatch "
+                f"(saved num_data={state['num_data']}/batch_size="
+                f"{state['batch_size']}, this iterator has "
+                f"{self.num_data}/{self.batch_size})")
+        order = np.asarray(state["order"])
+        if order.shape != self._order.shape:
+            raise MXNetError("NDArrayIter.set_state: corrupt shuffle order")
+        self._order = order.copy()
+        self.cursor = -self.batch_size if rewind else int(state["cursor"])
+
     def getdata(self):
         return self._getdata(self.data)
 
@@ -224,3 +263,13 @@ class ResizeIter(DataIter):
 
     def getpad(self):
         return self.current_batch.pad
+
+    def state_dict(self):
+        return {"kind": "ResizeIter", "cur": int(self.cur),
+                "inner": self.data_iter.state_dict()}
+
+    def set_state(self, state, rewind=False):
+        if state.get("kind") != "ResizeIter":
+            raise MXNetError("ResizeIter.set_state: wrong snapshot kind")
+        self.data_iter.set_state(state["inner"], rewind=rewind)
+        self.cur = 0 if rewind else int(state["cur"])

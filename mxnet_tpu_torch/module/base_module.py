@@ -3,8 +3,10 @@
 Counterpart of ``mxnet_tpu/module/base_module.py``: the bind →
 init_params → init_optimizer lifecycle plus ``forward_backward``
 (``:41-43``), ``score``, ``iter_predict`` and ``predict``
-(``:74-115``) and ``fit`` (``:117``).  Checkpoints, resume, elastic
-mode and monitors are not ported yet and raise.
+(``:74-115``), ``fit`` (``:117``) with a ``checkpoint.
+CheckpointManager`` and ``resume`` (``:160-214``), and
+``save_params``/``load_params``.  Elastic mode and monitors are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from collections import namedtuple
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
-from ..base import MXNetError, not_ported
+from ..base import MXNetError, get_env, not_ported
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -124,18 +126,46 @@ class BaseModule:
             monitor=None, checkpoint=None, resume=None, elastic_data=None):
         """Train ``num_epoch`` epochs over ``train_data``: per batch
         ``forward_backward`` + ``update`` + metric; per epoch the
-        callbacks and, with ``eval_data``, a ``score`` pass."""
+        callbacks and, with ``eval_data``, a ``score`` pass.
+
+        ``checkpoint`` (a ``checkpoint.CheckpointManager``; made over
+        ``MXNET_CKPT_DIR`` when that is set and none is given) saves the
+        training state on its ``every_n_steps`` cadence and on SIGTERM.
+        ``resume='auto'`` (or True) restores its newest committed
+        checkpoint: parameters, optimizer state, randomness, epoch,
+        batch and the iterator's position, and goes on as if never
+        stopped; ``'never'``, False or None start afresh."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        for name, val in (("monitor", monitor), ("checkpoint", checkpoint),
-                          ("resume", resume),
-                          ("elastic_data", elastic_data)):
+        for name, val, item in (("monitor", monitor, 5),
+                                ("elastic_data", elastic_data, 9)):
             if val not in (None, False):
-                raise not_ported(f"fit({name}=...)")
+                raise not_ported(f"fit({name}=...) (queue A item {item})")
         from ..initializer import Uniform
 
         if initializer is None:
             initializer = Uniform(0.01)
+        if checkpoint is None:
+            ckpt_dir = get_env("MXNET_CKPT_DIR", None, str)
+            if ckpt_dir:
+                from ..checkpoint import CheckpointManager
+
+                checkpoint = CheckpointManager(ckpt_dir, logger=self.logger)
+        if resume not in (None, False, True, "auto", "never"):
+            raise MXNetError(f"fit: resume must be 'auto'/'never'/bool, "
+                             f"got {resume!r}")
+        ckpt_state = None
+        if resume in (True, "auto"):
+            if checkpoint is None:
+                raise MXNetError("fit(resume='auto') needs a checkpoint "
+                                 "manager (or MXNET_CKPT_DIR)")
+            ckpt_state = checkpoint.load_latest()
+            if ckpt_state is not None:
+                arg_params = ckpt_state["arg_params"]
+                aux_params = ckpt_state["aux_params"]
+                begin_epoch = ckpt_state["epoch"]
+                force_init = True
+
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
@@ -144,6 +174,14 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        resume_nbatch = -1
+        if checkpoint is not None:
+            checkpoint.attach(self, train_data)
+            checkpoint.install_signal_handler()
+            if ckpt_state is not None:
+                checkpoint.restore_training_state(self, ckpt_state,
+                                                  train_data)
+                resume_nbatch = ckpt_state["nbatch"]
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = metric_mod.create(eval_metric)
@@ -151,16 +189,27 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
+            nbatch = 0
+            if resume_nbatch >= 0:
+                # the restored iterator goes on after the checkpointed
+                # batch; so does the count
+                nbatch, resume_nbatch = resume_nbatch + 1, -1
+            for data_batch in train_data:
+                if checkpoint is not None:
+                    checkpoint.step_begin()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if checkpoint is not None:
+                    checkpoint.step_end(self, epoch=epoch, nbatch=nbatch,
+                                        train_iter=train_data)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
                                            locals=locals())
                     for callback in _as_list(batch_end_callback):
                         callback(params)
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -178,6 +227,9 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+        if checkpoint is not None:
+            # the queued saves land before the caller can exit
+            checkpoint.flush()
 
     # -- symbol & params -------------------------------------------------------
     @property
@@ -191,10 +243,21 @@ class BaseModule:
                          force_init=force_init)
 
     def save_params(self, fname):
-        raise not_ported("save_params")
+        """The parameters as an ``nd.save`` dict with ``arg:``/``aux:``
+        keys, written atomically."""
+        from ..checkpoint import atomic_save
+
+        arg_params, aux_params = self.get_params()
+        save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
+        save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
+        atomic_save(fname, lambda tmp: nd.save(tmp, save_dict))
 
     def load_params(self, fname):
-        raise not_ported("load_params")
+        """``save_params``' file (either package's) into the parameters,
+        in place."""
+        from ..model import split_params
+
+        self.set_params(*split_params(nd.load(fname)))
 
     def install_monitor(self, mon):
-        raise not_ported("monitors")
+        raise not_ported("monitors (queue A item 5)")

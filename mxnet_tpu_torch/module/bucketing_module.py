@@ -12,15 +12,19 @@ state (``Module._adopt_fused_state``, the JAX package's
 counter ``t`` and one set of random streams for every bucket, and one
 CUDA graph pool for every bucket's graphs (``bind`` with
 ``shared_module``).  The context defaults to ``gpu(0)`` and is resolved
-at construction.  Checkpoints and monitors are not ported yet and
-raise.
+at construction.  A checkpoint holds the default bucket's symbol and
+the shared parameters; its optimizer state goes through the current
+bucket, which holds the adopted fused state
+(``mxnet_tpu/module/bucketing_module.py:219-236``).  Monitors are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
 import logging
 
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
+from ..checkpoint import atomic_save
 from ..context import Context, current_context
 from ..initializer import Uniform
 from .base_module import BaseModule
@@ -228,5 +232,28 @@ class BucketingModule(BaseModule):
             out[k] = sum(s[k] for s in stats)
         return out
 
+    # -- checkpoints ---------------------------------------------------------
+    def _optimizer_states_to_host(self, lazy=False):
+        self._check_ready()
+        return self._curr_module._optimizer_states_to_host(lazy=lazy)
+
+    def _install_optimizer_states(self, payload):
+        self._check_ready()
+        self._curr_module._install_optimizer_states(payload)
+
+    def save_optimizer_states(self, fname):
+        self._check_ready()
+        self._curr_module.save_optimizer_states(fname)
+
+    def load_optimizer_states(self, fname):
+        self._check_ready()
+        self._curr_module.load_optimizer_states(fname)
+
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        raise not_ported("BucketingModule.save_checkpoint")
+        """The default bucket's symbol and the shared parameters (and
+        with ``save_optimizer_states`` the optimizer states)."""
+        atomic_save(f"{prefix}-symbol.json",
+                    self._buckets[self._default_bucket_key]._symbol.save)
+        self.save_params("%s-%04d.params" % (prefix, epoch))
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))

@@ -22,7 +22,9 @@ steps of every bucket share.
 ``_WARMUP_STEPS`` calls run eagerly on a side stream (real steps, which
 also build and load every kernel at its first use), the next call is
 captured with ``torch.cuda.graph`` into the module's graph pool and
-replayed once to perform it, and every later call replays.  The batch
+replayed once to perform it, and every later call replays (captured in
+the ``thread_local`` error mode, so that another thread's CUDA work,
+such as a checkpoint writer's copies, may go on meanwhile).  The batch
 is copied into the bound argument arrays outside the graph; they are
 its static inputs.  A replay's outputs are handed out as copies, so outputs a
 caller keeps are not overwritten by the next step.  Before each replay
@@ -39,6 +41,16 @@ sees the kernels themselves.  The generators of the streams are
 registered with every graph, so each replay advances their Philox
 offsets and draws new masks.
 
+A checkpoint carries the state to the host and back:
+``FusedState.to_host`` gives the per-name state trees (device copies,
+or numpy), the step count and the streams' snapshot;
+``FusedState.install`` writes a checkpoint's trees with ``copy_`` into
+the tensors that exist (a captured graph keeps reading them), sets
+``t`` and the step count, and restores the streams, which drops every
+graph of the state (its ``version`` changes): a graph registered the
+generators whose states were set, so the steps warm up and capture
+again.
+
 Whether a symbol is captured is decided from the registry before any
 capture: an op registered ``capturable=False`` (``Custom``, whose
 Python body runs per call) makes the module run the same function
@@ -51,9 +63,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from .. import random as _random
+from ..base import MXNetError
+from ..checkpoint import to_host_tree
+from ..optimizer import place_state
 from ..ops.registry import get_op
 
 __all__ = ["uncapturable_ops", "untie", "FusedState", "TrainStep",
@@ -102,15 +118,54 @@ class FusedState:
     tensors on ``device``, the random streams, and the count of steps.
     The modules of a ``BucketingModule`` share one."""
 
-    def __init__(self, optimizer, device):
+    def __init__(self, optimizer, device, base_key=None):
         self.optimizer = optimizer
         self.states: Dict[str, object] = {}
         self.t = torch.full((), float(optimizer.num_update),
                             dtype=torch.float64, device=device)
         self.lr = torch.zeros((), dtype=torch.float64, device=device)
         self.lr_value = None
-        self.streams = _random.Streams(_random.next_key())
+        self.streams = _random.Streams(_random.next_key() if base_key is None
+                                       else base_key)
         self.step_count = 0
+        self.device = torch.device(device)
+        # bumped when the streams are restored: graphs of an older
+        # version are captured again
+        self.version = 0
+
+    def to_host(self, lazy=False):
+        """{"step", "states": {name: tree}, "streams"}: each state tree
+        (None, a tensor or a tuple of tensors) as device copies with
+        ``lazy`` (the checkpoint writer moves them to the host later),
+        else as numpy; the streams' snapshot is host data."""
+        if lazy:
+            with torch.no_grad():
+                states = {n: _clone_tree(tree)
+                          for n, tree in self.states.items()}
+        else:
+            states = to_host_tree(self.states)
+        return {"step": int(self.step_count), "states": states,
+                "streams": self.streams.get_state()}
+
+    def install(self, step, states, streams=None):
+        """A checkpoint's state: each tree of ``states`` (numpy or
+        tensors, by name) written in place into the state of that name,
+        or placed on the device for a name without one yet; ``t`` and
+        the step count set to ``step``; the streams restored when given.
+        The base rate is written again at the next ``count_update``."""
+        with torch.no_grad():
+            for n, tree in states.items():
+                old = self.states.get(n)
+                if old is None or tree is None:
+                    self.states[n] = place_state(tree, self.device)
+                else:
+                    _copy_tree(old, tree)
+            self.t.fill_(float(step))
+        self.step_count = int(step)
+        self.lr_value = None
+        if streams is not None:
+            self.streams.set_state(streams)
+            self.version += 1
 
     def ensure_states(self, names, weights):
         """Make the states of the ``names`` that have none yet."""
@@ -155,6 +210,28 @@ class FusedState:
             elif isinstance(s, (tuple, list)):
                 out += [x for x in s if isinstance(x, torch.Tensor)]
         return out
+
+
+def _clone_tree(tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(x) for x in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _copy_tree(dst, src):
+    if isinstance(dst, (tuple, list)):
+        if not isinstance(src, (tuple, list)) or len(src) != len(dst):
+            raise MXNetError("an optimizer state of another form than "
+                             "this optimizer's")
+        for d, x in zip(dst, src):
+            _copy_tree(d, x)
+        return
+    x = src if isinstance(src, torch.Tensor) \
+        else torch.from_numpy(np.array(src, copy=True))
+    if tuple(x.shape) != tuple(dst.shape):
+        raise MXNetError(f"an optimizer state of shape {tuple(x.shape)} "
+                         f"for one of {tuple(dst.shape)}")
+    dst.copy_(x)
 
 
 class TrainStep:
@@ -235,13 +312,20 @@ class Graphed:
         self.captures = 0
         self.capture_ms = 0.0
         self.pool_bytes = 0
+        self.version = None
+
+    def _state_version(self):
+        fused = getattr(self.step, "fused", None)
+        return None if fused is None else fused.version
 
     def __call__(self):
         arrays = self.step.arrays()
         if self.graph is not None and not (
                 len(arrays) == len(self.captured)
-                and all(a is b for a, b in zip(arrays, self.captured))):
-            # a captured array was replaced: warm up and capture again
+                and all(a is b for a, b in zip(arrays, self.captured))
+                and self.version == self._state_version()):
+            # a captured array was replaced, or the streams restored:
+            # warm up and capture again
             self.graph = self.outs = self.captured = None
             self.warm = 0
         if self.graph is None:
@@ -278,7 +362,11 @@ class Graphed:
         for g in self.step.streams.generators():
             if g.device.type == "cuda":
                 graph.register_generator_state(g)
-        with torch.cuda.graph(graph, pool=self.pool()):
+        # thread_local: another thread's CUDA calls (a checkpoint writer's
+        # copies on its own stream) neither fail this capture nor fail
+        # themselves, as they do under the default global mode
+        with torch.cuda.graph(graph, pool=self.pool(),
+                              capture_error_mode="thread_local"):
             outs = self.step()
         self.capture_ms += (time.perf_counter() - t0) * 1e3
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
@@ -292,3 +380,4 @@ class Graphed:
                 counts[k] -= n
             self.launches.append(delta)
         self.graph, self.outs, self.captured = graph, outs, arrays
+        self.version = self._state_version()

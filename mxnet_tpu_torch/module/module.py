@@ -26,21 +26,34 @@ its gradients through the same optimizer state (``:1785-1823``,
 ``:2045-2063``).  On the card ``forward(is_train=False)`` replays a
 CUDA graph too (``score``, ``predict``).  ``MXNET_FUSED_STEP=0`` gives
 the eager path: the executor's autograd pass, then the ``Updater`` on
-each parameter.  Multi-device contexts, kvstores other than
-``None``/``'local'``, mesh plans, checkpoints and monitors are not
-ported yet and raise.
+each parameter.
+
+Checkpoints follow ``:203-224`` and ``:2102-2390``: ``Module.load``,
+``save_checkpoint``, and the optimizer states in both of the JAX
+package's files, the fused one (a pickle of {"format", "step",
+"states": {name: tree}}) and the ``Updater`` blob, mapped to names for
+the fused step.  A restore before the first fused step is pending and
+installed when the step makes its ``FusedState``; the ``Updater`` is
+filled too, for a module that ends up on the eager path.
+``_optimizer_states_to_host``/``_install_optimizer_states`` carry the
+same payload for ``checkpoint.CheckpointManager``.  Multi-device
+contexts, kvstores other than ``None``/``'local'``, mesh plans and
+monitors are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import pickle
 
 import torch
 
 from .. import optimizer as opt
 from .. import random as _random
 from ..base import MXNetError, not_ported
+from ..checkpoint import (FUSED_STATES_FORMAT, atomic_save,
+                          atomic_write_bytes, to_host_tree)
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..ndarray import NDArray
@@ -94,6 +107,29 @@ class Module(BaseModule):
         self._pool_owner = self
         self._pending_batch = None
         self._flushed_backward = False
+        # a checkpoint's parameters (Module.load), its optimizer-states
+        # file to read at init_optimizer, and its states for the fused
+        # step not made yet: (step, states by name, streams or None)
+        self._arg_params = self._aux_params = None
+        self._preload_opt_states = None
+        self._pending_fused_states = None
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over ``prefix-symbol.json`` whose parameters are
+        ``prefix-%04d.params`` (written into its arrays at ``bind``),
+        and with ``load_optimizer_states`` the optimizer states of
+        ``prefix-%04d.states`` (read at ``init_optimizer``)."""
+        from ..model import load_checkpoint
+
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
 
     # -- properties ------------------------------------------------------------
     @property
@@ -141,6 +177,8 @@ class Module(BaseModule):
             arr = self._exec.arg_dict[name]
             if arg_params is not None and name in arg_params:
                 arr[:] = arg_params[name]
+            elif self._arg_params is not None and name in self._arg_params:
+                arr[:] = self._arg_params[name]
             elif allow_missing and initializer is None:
                 raise MXNetError(f"cannot init parameter {name}")
             elif initializer is None:
@@ -152,6 +190,8 @@ class Module(BaseModule):
             arr = self._exec.aux_dict[name]
             if aux_params is not None and name in aux_params:
                 arr[:] = aux_params[name]
+            elif self._aux_params is not None and name in self._aux_params:
+                arr[:] = self._aux_params[name]
             elif initializer is not None:
                 initializer(InitDesc(name, attrs.get(name, {})), arr)
         self.params_initialized = True
@@ -206,6 +246,13 @@ class Module(BaseModule):
         self._inferred_output_shapes = list(zip(self._output_names,
                                                 out_shapes))
         self.binded = True
+        if self.params_initialized and self._arg_params is not None:
+            # Module.load: the checkpoint's parameters into the arrays
+            for src, dst in ((self._arg_params, self._exec.arg_dict),
+                             (self._aux_params or {}, self._exec.aux_dict)):
+                for n, v in src.items():
+                    if n in dst:
+                        dst[n][:] = v
         if shared_module is not None and shared_module.params_initialized:
             # a parameter the donor lacks, or holds in another shape,
             # would train apart from the shared storage: refuse it
@@ -249,7 +296,11 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self._fused = None
+        self._pending_fused_states = None
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def borrow_optimizer(self, shared_module):
         """Use ``shared_module``'s optimizer and updater (one per
@@ -274,6 +325,10 @@ class Module(BaseModule):
         train one state (``mxnet_tpu/module/module.py:771-805``)."""
         if other is not self:
             self._fused = other._fused
+            if other._pending_fused_states is not None:
+                # a restore not installed yet travels with the state
+                self._pending_fused_states = other._pending_fused_states
+                other._pending_fused_states = None
 
     # -- computation -------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -371,8 +426,14 @@ class Module(BaseModule):
         ``_train_step`` (its CUDA graph on the card), both made anew
         when the state changed."""
         if self._fused is None:
-            self._fused = _fs.FusedState(self._optimizer,
-                                         self._context[0].torch_device())
+            pending, self._pending_fused_states = \
+                self._pending_fused_states, None
+            streams = pending[2] if pending is not None else None
+            self._fused = _fs.FusedState(
+                self._optimizer, self._context[0].torch_device(),
+                base_key=streams["base_key"] if streams else None)
+            if pending is not None:
+                self._fused.install(*pending)
         if self._train_fn is None or self._train_fn.fused is not self._fused:
             names = [n for n in self._param_names
                      if self._exec.grad_req.get(n, "null") != "null"]
@@ -414,5 +475,139 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
 
+    # -- checkpoints -------------------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        raise not_ported("Module.save_checkpoint")
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and with
+        ``save_optimizer_states`` ``prefix-%04d.states``, each written
+        atomically."""
+        atomic_save(f"{prefix}-symbol.json", self._symbol.save)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        logging.info('Saved checkpoint to "%s"', param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info('Saved optimizer state to "%s"', state_name)
+
+    def save_optimizer_states(self, fname):
+        """The fused step's states file (the states by name and the step
+        count; the port's random streams beside them, which the JAX
+        package ignores), or the ``Updater`` blob on the eager path."""
+        if not self.optimizer_initialized:
+            raise MXNetError("save_optimizer_states needs init_optimizer")
+        payload = self._optimizer_states_to_host()
+        if payload["kind"] == "fused":
+            blob = pickle.dumps({"format": FUSED_STATES_FORMAT,
+                                 "step": payload["step"],
+                                 "states": payload["states"],
+                                 "torch_streams": payload["torch_streams"]})
+        else:
+            blob = payload["blob"]
+        atomic_write_bytes(fname, blob)
+
+    def load_optimizer_states(self, fname):
+        """Either states file, written by either package."""
+        if not self.optimizer_initialized:
+            raise MXNetError("load_optimizer_states needs init_optimizer")
+        with open(fname, "rb") as f:
+            blob = f.read()
+        data = pickle.loads(blob)
+        if isinstance(data, dict) and \
+                data.get("format") == FUSED_STATES_FORMAT:
+            self._install_host_states(int(data["step"]), data["states"],
+                                      data.get("torch_streams"))
+            return
+        self._install_updater_blob(blob)
+
+    def _fused_step_count(self):
+        if self._fused is not None:
+            return self._fused.step_count
+        if self._pending_fused_states is not None:
+            return self._pending_fused_states[0]
+        return 0
+
+    def _install_updater_blob(self, blob):
+        """The ``Updater`` blob (keys: parameter indices) into the
+        Updater, and for the fused step mapped to names."""
+        self._updater.set_states(blob)
+        if self._use_fused and self._updater.states:
+            by_name = {}
+            for i, tree in self._updater.states.items():
+                n = i if isinstance(i, str) else (
+                    self._param_names[i] if 0 <= i < len(self._param_names)
+                    else None)
+                if n in self._param_names:
+                    by_name[n] = tree
+            if by_name:
+                self._restore_fused_states(self._fused_step_count(), by_name)
+
+    def _install_host_states(self, step, states_by_name, streams=None):
+        """A checkpoint's states by name into the ``Updater`` (host trees,
+        placed at their first update; counts at ``step``) and, with the
+        fused step, into its state (``_restore_fused_states``)."""
+        name2idx = {n: i for i, n in enumerate(self._param_names)}
+        self._updater.states = {name2idx[n]: tree
+                                for n, tree in states_by_name.items()
+                                if n in name2idx}
+        for i in self._updater.states:
+            self._optimizer._index_update_count[i] = step
+        self._optimizer.num_update = max(self._optimizer.num_update, step)
+        if self._use_fused:
+            self._restore_fused_states(step, states_by_name, streams)
+
+    def _restore_fused_states(self, step, states_by_name, streams=None):
+        """Into the fused state at once, or pending until the first
+        fused step makes it."""
+        self._optimizer._index_update_count[0] = int(step)
+        self._optimizer.num_update = max(self._optimizer.num_update,
+                                         int(step))
+        if self._fused is None:
+            self._pending_fused_states = (int(step), dict(states_by_name),
+                                          streams)
+            return
+        self._fused.install(step, states_by_name, streams)
+
+    def _optimizer_states_to_host(self, lazy=False):
+        """The optimizer state as a checkpoint payload: ``{"kind":
+        "fused", "step", "states", "num_update", "torch_streams"}`` for
+        the fused step (made or pending), else ``{"kind": "updater",
+        "blob", "num_update"}``.  With ``lazy`` the fused states are
+        device copies (no wait for the device; the writer moves them),
+        else numpy."""
+        if not self.optimizer_initialized:
+            raise MXNetError("no optimizer state before init_optimizer")
+        num_update = int(self._optimizer.num_update)
+        if self._fused is not None:
+            d = self._fused.to_host(lazy=lazy)
+            return {"kind": "fused", "step": d["step"],
+                    "states": d["states"], "num_update": num_update,
+                    "torch_streams": d["streams"]}
+        if self._pending_fused_states is not None:
+            step, states, streams = self._pending_fused_states
+            return {"kind": "fused", "step": int(step),
+                    "states": to_host_tree(dict(states)),
+                    "num_update": num_update, "torch_streams": streams}
+        return {"kind": "updater", "blob": self._updater.get_states(),
+                "num_update": num_update}
+
+    def _install_optimizer_states(self, payload):
+        """The inverse of ``_optimizer_states_to_host``, for either
+        package's payload (the JAX package's ``fused_key`` is not
+        reproducible here and is ignored)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("no optimizer state before init_optimizer")
+        kind = payload.get("kind")
+        if kind == "updater":
+            if payload.get("blob"):
+                self._install_updater_blob(payload["blob"])
+        elif kind == "fused":
+            self._install_host_states(int(payload["step"]),
+                                      payload["states"],
+                                      payload.get("torch_streams"))
+        else:
+            raise MXNetError(
+                f"unknown optimizer-state payload kind {kind!r}")
+        nu = payload.get("num_update")
+        if nu:
+            self._optimizer.num_update = max(self._optimizer.num_update,
+                                             int(nu))

@@ -5,9 +5,10 @@ path touches: creation (``array``, ``zeros``, ``empty``, ``ones``,
 ``full``, ``arange``), ``concatenate``, ``asnumpy``, ``wait_to_read``,
 ``shape``/``dtype``/``context``, ``copy``/``copyto``, ``__setitem__``
 (how initializers, ``set_params`` and batches write), ``__getitem__``
-and ``slice``, elementwise arithmetic, and the imperative op namespace:
-every registered op is ``nd.<name>`` (``imperative_invoke``; forward
-only, outputs on the inputs' context).
+and ``slice``, elementwise arithmetic, ``save``/``load`` (the JAX
+package's binary format, byte for byte), and the imperative op
+namespace: every registered op is ``nd.<name>`` (``imperative_invoke``;
+forward only, outputs on the inputs' context).
 
 An NDArray is a mutable handle on one tensor on one explicit device
 (its context).  Writes go into that tensor in place (``x[:] = v``,
@@ -18,8 +19,9 @@ dtype: a write from another device or dtype is copied and cast.
 
 from __future__ import annotations
 
+import struct
 import sys
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,7 +30,8 @@ from .base import MXNetError, attrs_to_str, numeric_types
 from .context import Context, cpu, current_context
 
 __all__ = ["NDArray", "array", "zeros", "empty", "ones", "full", "arange",
-           "concatenate", "torch_dtype", "dtype_name", "imperative_invoke"]
+           "concatenate", "torch_dtype", "dtype_name", "save", "load",
+           "imperative_invoke"]
 
 _py_slice = slice
 
@@ -290,6 +293,104 @@ def concatenate(arrays, axis=0, always_copy=True) -> NDArray:
     (``mxnet_tpu/ndarray.py:368``); the result is always a new array."""
     return NDArray(torch.cat([a._data for a in arrays], dim=axis),
                    arrays[0]._ctx)
+
+
+# ---------------------------------------------------------------------------
+# save / load (``mxnet_tpu/ndarray.py:418-489``): the magic number, a flag
+# for a dict or a list, the count, then per entry its name (dict form)
+# and the array: dtype code, ndim, the shape as int64s, the raw bytes
+# ---------------------------------------------------------------------------
+
+_NDARRAY_MAGIC = 0x112
+_DTYPE_TO_CODE = {"float32": 0, "float64": 1, "float16": 2, "uint8": 3,
+                  "int32": 4, "int8": 5, "int64": 6, "bfloat16": 7, "bool": 8}
+_CODE_TO_DTYPE = {v: k for k, v in _DTYPE_TO_CODE.items()}
+
+
+def _write_array(f, arr) -> None:
+    if isinstance(arr, NDArray):
+        t = arr._data.detach()
+    elif isinstance(arr, torch.Tensor):
+        t = arr.detach()
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    name = _NAMES.get(t.dtype)
+    if name not in _DTYPE_TO_CODE:
+        t, name = t.float(), "float32"
+    t = t.contiguous().cpu()
+    # numpy has no bfloat16 without ml_dtypes: its bits as int16
+    raw = t.view(torch.int16) if name == "bfloat16" else t
+    f.write(struct.pack("<II", _DTYPE_TO_CODE[name], t.ndim))
+    f.write(struct.pack(f"<{t.ndim}q", *t.shape))
+    f.write(raw.numpy().tobytes())
+
+
+def _read(f, n: int, fname: str) -> bytes:
+    """``n`` bytes of ``fname``, or an error naming it (no ``try``: a
+    short or foreign file is found by its lengths and codes)."""
+    buf = f.read(n)
+    if len(buf) != n:
+        raise MXNetError(f"corrupt or truncated NDArray file {fname!r}: "
+                         f"{len(buf)} of {n} bytes")
+    return buf
+
+
+def _read_array(f, fname: str) -> NDArray:
+    code, ndim = struct.unpack("<II", _read(f, 8, fname))
+    if code not in _CODE_TO_DTYPE:
+        raise MXNetError(f"corrupt NDArray file {fname!r}: dtype code "
+                         f"{code}")
+    shape = struct.unpack(f"<{ndim}q", _read(f, 8 * ndim, fname))
+    name = _CODE_TO_DTYPE[code]
+    dt = np.dtype("int16" if name == "bfloat16" else name)
+    n = int(np.prod(shape)) if shape else 1
+    buf = _read(f, n * dt.itemsize, fname)
+    t = torch.from_numpy(np.frombuffer(buf, dtype=dt).reshape(shape).copy())
+    if name == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return NDArray(t, cpu())
+
+
+def save(fname: str, data) -> None:
+    """Write a list of arrays or a name → array dict (NDArrays, tensors
+    or numpy arrays) to ``fname`` in the JAX package's ``nd.save``
+    format; a dtype the format lacks is written as float32."""
+    if isinstance(data, (NDArray, torch.Tensor, np.ndarray)):
+        data = [data]
+    if not isinstance(data, (dict, list, tuple)):
+        raise MXNetError(f"cannot save type {type(data)}")
+    with open(fname, "wb") as f:
+        f.write(struct.pack("<Q", _NDARRAY_MAGIC))
+        f.write(struct.pack("<B", int(isinstance(data, dict))))
+        f.write(struct.pack("<Q", len(data)))
+        if isinstance(data, dict):
+            for k, v in data.items():
+                kb = k.encode("utf-8")
+                f.write(struct.pack("<I", len(kb)))
+                f.write(kb)
+                _write_array(f, v)
+        else:
+            for v in data:
+                _write_array(f, v)
+
+
+def load(fname: str):
+    """The list or dict ``save`` wrote, as NDArrays on the CPU (callers
+    copy them onto their device, e.g. with ``set_params``)."""
+    with open(fname, "rb") as f:
+        magic, = struct.unpack("<Q", _read(f, 8, fname))
+        if magic != _NDARRAY_MAGIC:
+            raise MXNetError(f"invalid NDArray file {fname}")
+        has_names, = struct.unpack("<B", _read(f, 1, fname))
+        count, = struct.unpack("<Q", _read(f, 8, fname))
+        if not has_names:
+            return [_read_array(f, fname) for _ in range(count)]
+        out: Dict[str, NDArray] = {}
+        for _ in range(count):
+            klen, = struct.unpack("<I", _read(f, 4, fname))
+            key = _read(f, klen, fname).decode("utf-8")
+            out[key] = _read_array(f, fname)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,15 +24,17 @@ reference's ``apply`` term by term.
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
-from .base import Registry, not_ported
+from .base import Registry
 from .ndarray import NDArray
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register"]
+           "register", "place_state"]
 
 _REGISTRY = Registry("optimizer")
 
@@ -252,7 +254,12 @@ class Adam(Optimizer):
 
 
 class Updater:
-    """Per-index state, created at an index's first update."""
+    """Per-index state, created at an index's first update.
+    ``get_states``/``set_states`` carry it as the JAX package's
+    ``Updater`` blob (``mxnet_tpu/optimizer.py:469-476``): a pickle of
+    {index: None, an array, or a tuple of arrays}, numpy on the host.  A
+    state set from a blob moves to its weight's device (and dtype) at
+    that index's next update."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -261,13 +268,34 @@ class Updater:
     def __call__(self, index, grad: NDArray, weight: NDArray):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+        else:
+            self.states[index] = place_state(self.states[index],
+                                             weight._data.device,
+                                             weight._data.dtype)
         self.states[index] = self.optimizer.update(index, weight, grad,
                                                    self.states[index])
 
-    def get_states(self, *args):
-        raise not_ported("optimizer state checkpoints")
+    def get_states(self) -> bytes:
+        from .checkpoint import to_host_tree
 
-    set_states = get_states
+        return pickle.dumps({k: to_host_tree(v)
+                             for k, v in self.states.items()})
+
+    def set_states(self, states_blob: bytes) -> None:
+        self.states = dict(pickle.loads(states_blob))
+
+
+def place_state(tree, device, dtype=None):
+    """A state tree (None, an array or tensor, a tuple or list of them)
+    as tensors on ``device`` (in ``dtype`` when given); tensors already
+    there are kept as they are."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(place_state(x, device, dtype) for x in tree)
+    t = tree if isinstance(tree, torch.Tensor) \
+        else torch.from_numpy(np.array(tree, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -44,6 +44,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["seed", "generator", "next_key", "get_state", "set_state",
@@ -151,22 +152,67 @@ class Streams:
     ``base_key``: ``generator(key, device)`` makes a generator seeded
     with ``key`` at its first request and hands the same object out
     after, so its draws run on.  The executor gives node ``i`` the one
-    keyed ``sub_key(base_key, i)``."""
+    keyed ``sub_key(base_key, i)``.
+
+    ``get_state``/``set_state`` carry the streams through a checkpoint
+    (the JAX step needs only its base key and ``t``, since it folds ``t``
+    into the key; here each generator's state runs on and must be kept
+    too).  A state set for a generator not made yet is held and applied
+    when ``generator`` makes it.  On the card ``get_state`` of a
+    generator registered with CUDA graphs includes their replays' Philox
+    offsets (a replay advances the generator's offset on the host before
+    it launches)."""
 
     def __init__(self, base_key: int):
         self.base_key = int(base_key)
         self._generators: Dict[tuple, torch.Generator] = {}
+        self._pending: Dict[tuple, torch.Tensor] = {}
 
     def generator(self, key: int, device) -> torch.Generator:
         device = torch.device(device)
         g = self._generators.get((key, device))
         if g is None:
             g = self._generators[(key, device)] = key_generator(key, device)
+            state = self._pending.pop((key, device.type), None)
+            if state is not None:
+                g.set_state(state)
         return g
 
     def generators(self):
         """Every generator made so far."""
         return list(self._generators.values())
+
+    def get_state(self) -> dict:
+        """The base key and each generator's state, as builtins and numpy
+        (a checkpoint's pickle): ``{"base_key": int, "generators":
+        [(key, device type, uint8 state), ...]}``; the states held for
+        generators not made yet are included."""
+        gens = [(int(k), d.type, g.get_state().numpy().copy())
+                for (k, d), g in self._generators.items()]
+        gens += [(int(k), t, s.numpy().copy())
+                 for (k, t), s in self._pending.items()]
+        return {"base_key": self.base_key, "generators": gens}
+
+    def set_state(self, state: dict) -> None:
+        """Restore a ``get_state`` snapshot: the base key, then each
+        generator's state, set on a generator made already (of the same
+        key and device type) or held until it is made.  A CUDA graph that
+        registered a generator must be dropped before (the module's
+        ``FusedState.install`` does)."""
+        self.base_key = int(state["base_key"])
+        self._pending = {}
+        made = {(k, d.type): g for (k, d), g in self._generators.items()}
+        for key, dev_type, arr in state["generators"]:
+            t = torch.from_numpy(np.array(arr, dtype=np.uint8, copy=True))
+            g = made.get((int(key), dev_type))
+            if g is not None:
+                g.set_state(t)
+            else:
+                self._pending[(int(key), dev_type)] = t
+        # generators of other keys belong to another base key
+        keys = {(int(k), t) for k, t, _ in state["generators"]}
+        self._generators = {(k, d): g for (k, d), g in
+                            self._generators.items() if (k, d.type) in keys}
 
 
 def _draw(key: int, n: int, device) -> torch.Tensor:

@@ -7,13 +7,16 @@ touches: ``Variable`` (with ``shape``, ``dtype``, ``init`` and
 ``get_internals``/``get_children``,
 ``list_arguments``/``list_outputs``/``list_auxiliary_states``,
 ``infer_shape``/``infer_type``, ``attr_dict``, ``_topo``, ``bind``,
-``simple_bind`` and ``eval``.  A Symbol is a DAG of nodes, each a variable
+``simple_bind`` and ``eval``, and the JSON form (``tojson``/``save``,
+``load_json``/``load``, ``mxnet_tpu/symbol.py:437-465, 631-655``), which
+each package loads from the other.  A Symbol is a DAG of nodes, each a variable
 (``op=None``) or an operator application; the executor lowers it to one
 Python function over tensors, and autograd differentiates it.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -23,7 +26,14 @@ from .name import NameManager
 from . import ops as _ops  # noqa: F401  (registers the port's ops)
 from .ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "Group", "var"]
+__all__ = ["Symbol", "Variable", "Group", "var", "load", "load_json"]
+
+# the node attrs that are not operator parameters (the JAX package's
+# ``_META_ATTRS``): kept in ``_Node._meta`` by ``load_json``
+_META_ATTRS = {
+    "ctx_group", "lr_mult", "wd_mult", "__init__", "__shape__", "__dtype__",
+    "force_mirroring", "__force_mirroring__",
+}
 
 
 class _Node:
@@ -317,6 +327,38 @@ class Symbol:
         aux_types = [default] * len(self.list_auxiliary_states())
         return arg_types, out_types, aux_types
 
+    # -- JSON ------------------------------------------------------------------
+    def tojson(self) -> str:
+        """The graph as the JAX package's ``Symbol.tojson`` writes it (the
+        nnvm JSON layout: nodes in topological order, ``arg_nodes``,
+        ``heads``)."""
+        nodes = self._topo()
+        node_ids = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            entry = {
+                "op": "null" if n.is_variable else n.op,
+                "name": n.name,
+                "inputs": [[node_ids[id(i)], ix, 0] for i, ix in n.inputs],
+            }
+            attrs = dict(n.attrs)
+            attrs.update(n._meta)
+            if attrs:
+                entry["attr"] = attrs
+            jnodes.append(entry)
+        return json.dumps({
+            "nodes": jnodes,
+            "arg_nodes": [i for i, n in enumerate(nodes) if n.is_variable],
+            "node_row_ptr": list(range(len(nodes) + 1)),
+            "heads": [[node_ids[id(n)], i, 0] for n, i in self._outputs],
+            "attrs": {"mxnet_version": ["int", 901],
+                      "framework": ["str", "mxnet_tpu"]},
+        }, indent=2)
+
+    def save(self, fname: str) -> None:
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- binding ---------------------------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, shared_exec=None):
@@ -436,6 +478,37 @@ def _make_symbol_function(op_name: str):
     fn.__name__ = op_name
     fn.__doc__ = op.doc
     return fn
+
+
+def load_json(json_str: str) -> Symbol:
+    """The Symbol of a ``tojson`` string (either package's, or the legacy
+    form with a ``param`` dict per node).  An op the port does not
+    register raises here, naming it."""
+    data = json.loads(json_str)
+    nodes: List[_Node] = []
+    for jn in data["nodes"]:
+        op = jn["op"]
+        attrs = dict(jn.get("attr", jn.get("attrs", {})) or {})
+        attrs.update(jn.get("param", {}) or {})  # the legacy form
+        meta = {k: attrs.pop(k) for k in list(attrs) if k in _META_ATTRS}
+        if op != "null":
+            try:
+                op = _reg.get_op(op).name
+            except MXNetError:
+                raise not_ported(
+                    f"operator {op!r} (node {jn['name']!r} of a symbol "
+                    f"file; the operators of queue A item 5)") from None
+        node = _Node(None if op == "null" else op, jn["name"], attrs,
+                     [(nodes[i[0]], i[1]) for i in jn["inputs"]])
+        node._meta = meta
+        nodes.append(node)
+    heads = data.get("heads", [[len(nodes) - 1, 0, 0]])
+    return Symbol([(nodes[h[0]], h[1]) for h in heads])
+
+
+def load(fname: str) -> Symbol:
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def _init_symbol_module():

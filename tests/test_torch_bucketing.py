@@ -320,12 +320,14 @@ def test_default_context_and_unported_parts():
         with pytest.raises(mt.MXNetError, match="no CUDA device"):
             mt.mod.BucketingModule(sym_gen, default_bucket_key=8)
     mod = port_module()
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mod.save_checkpoint("x", 1)
+    with pytest.raises(mt.MXNetError, match="item 5.*not ported"):
+        mod.fit(BucketBatches(bucket_arrays(1, 1)), num_epoch=1,
+                monitor=object())
     with pytest.raises(mt.MXNetError, match="not ported"):
         mod.install_monitor(object())
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mt.callback.do_checkpoint("x")
+    with pytest.raises(mt.MXNetError, match="item 9.*not ported"):
+        mod.fit(BucketBatches(bucket_arrays(1, 1)), num_epoch=1,
+                elastic_data=object())
 
 
 def test_perplexity_scored_where_preds_lie_matches_host_and_jax():

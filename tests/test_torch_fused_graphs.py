@@ -19,7 +19,10 @@ layer a step by replay, one step counter.  ResNet-20 (BatchNorm: its
 moving statistics written by every step) and SSD300 at its published
 widths (``MultiBoxTarget`` and ``MakeLoss`` heads) take graphed steps
 against eager steps from the same parameters: outputs of every step,
-weights and moving statistics agree within ``TOL``.
+weights and moving statistics agree within ``TOL``.  A fused states
+file loaded into a module whose step is captured drops the graph and
+repeats the steps after the save; a thread copying to the host (a
+checkpoint writer) beside a capture fails neither.
 """
 
 import numpy as np
@@ -337,3 +340,71 @@ def test_graphed_ssd300_steps_match_the_eager_steps(card, monkeypatch):
                                   "wd": 0.0005, "rescale_grad": 1.0},
         label_names=("label",))
     _assert_pair_close(runs)
+
+
+@pytest.mark.cuda
+def test_states_restored_into_a_captured_step(card, monkeypatch, tmp_path):
+    """A dropout LM's fused states file (optimizer states, step count,
+    the random streams) saved after 4 graphed steps, loaded back with
+    the parameters of that moment into the same module after 2 more
+    steps: restoring the streams drops the captured graph (its
+    generators' states were set), and the next 2 steps (eager warm-ups
+    again) repeat the 2 after the save, masks and all: parameters and
+    momentum within ``TOL``."""
+    batches = _batches(6)
+    mod = _module(card, monkeypatch, fused=True, sym=_lm(dropout=0.1))
+    _train(mod, card, batches[:4])
+    step = mod._train_step
+    assert step.graph is not None and step.captures == 1
+    fname = str(tmp_path / "lm.states")
+    mod.save_optimizer_states(fname)
+    saved = mod.get_params()
+    _train(mod, card, batches[4:])
+    want = _params(mod)
+    want_mom = {n: s.cpu().numpy() for n, s in mod._fused.states.items()}
+    mod.set_params(*saved)
+    mod.load_optimizer_states(fname)
+    assert mod._fused.step_count == 4
+    _train(mod, card, batches[4:])
+    assert step.graph is None and step.warm == 2 and step.captures == 1
+    got = _params(mod)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+    for n, s in mod._fused.states.items():
+        np.testing.assert_allclose(s.cpu().numpy(), want_mom[n],
+                                   err_msg=f"{n} momentum", **TOL)
+
+
+@pytest.mark.cuda
+def test_capture_beside_a_thread_copying_to_the_host(card, monkeypatch):
+    """A thread that copies a device tensor to the host on its own
+    stream, as the checkpoint writer does, while the module warms up,
+    captures and replays: the capture succeeds and so does every copy
+    (under CUDA's default global capture mode the copy raises and the
+    capture is invalidated)."""
+    import threading
+
+    src = torch.randn(4 << 20, device="cuda")
+    stop, errors, copies = threading.Event(), [], [0]
+
+    def writer():
+        stream = torch.cuda.Stream()
+        while not stop.is_set():
+            with torch.cuda.stream(stream):
+                try:
+                    src.cpu()
+                except Exception as exc:  # reported by the test
+                    errors.append(exc)
+                    return
+            copies[0] += 1
+
+    thread = threading.Thread(target=writer, daemon=True)
+    thread.start()
+    try:
+        mod = _module(card, monkeypatch, fused=True)
+        _train(mod, card, _batches(4))
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not errors, errors
+    assert copies[0] > 0 and mod.graph_stats()["captures"] == 1

@@ -603,7 +603,8 @@ def test_examples_run_on_cpu_and_default_to_the_card(caplog):
 
 @pytest.mark.parametrize("argv,match", [
     (["--kv-store", "device"], "--kv-store device"),
-    (["--model-prefix", "ck"], "--model-prefix"),
+    (["--model-prefix", "no/such/ck", "--load-epoch", "3"],
+     "--model-prefix"),
     (["--load-epoch", "3"], "--load-epoch"),
     (["--monitor", "5"], "--monitor"),
     (["--profile", "trace.json"], "--profile"),
