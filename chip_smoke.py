@@ -230,7 +230,7 @@
 9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels and the
    four timed user kernels, launches summed over the runs), the card
    line, and last ``{"ok": true, "device": {...}}``, after phases 10
-   and 11.
+   to 13.
 10. Image classification (``image_path``; no kernel of the port's own
    on this path: cuDNN's convolutions and eager PyTorch ops, TF32 off as
    everywhere in this script, the ``tf32`` entry of its line), launch
@@ -312,6 +312,33 @@
    (every BatchNorm moving statistic too) equal the module's bit for
    bit; then ``--load-epoch 1`` for 1 more, which starts at epoch 1 with
    finite outputs.  Only (a) and (b) launch the port's kernels.
+13. bf16 training and storage (``bf16_path``; TF32 off but in (c)'s
+   TF32 run), launch counts reset just before and summed over (a) and
+   (b) just after: (a) the training run's LM built by
+   ``transformer_lm(..., dtype="bfloat16")`` (``tok_embed_weight``
+   float32, every other parameter bf16), its first step against the
+   fp32 first step from the same weights (``BF16_FIRST_STEP``), then
+   ``TRAIN_STEPS`` Adam steps (``BF16_OPT``) through ``Module``'s fused
+   step and again eagerly from the same weights: a finite, falling
+   loss, the graphed steps within bf16's ``TOL``/``BWD_TOL`` of the eager
+   ones, every traced B1 launch of the graphed run a bf16 instantiation
+   (``BF16_SUFFIX``), the share of bf16 weight elements step 10 changed;
+   (b) the trained LM served by ``DecodeEngine`` with ``dtype=
+   "bfloat16"`` and with ``kv_dtype="bf16"`` (run A's requests; greedy
+   tokens equal) and with ``spec_tokens=4``: parameters in their dtypes,
+   bf16 pages, every B1, decode and verify launch on bf16 operands
+   (``DtypeLaunches``), tokens/s and TTFT; the random-weight LM served
+   the same way first (S0): its greedy tokens the full forward's argmax
+   wherever its top-2 margin exceeds ``BF16_MARGIN`` U of the row's
+   largest logit, at a quarter of them at least (the trained LM's top
+   logits lie within that margin of each other: its tokens within it of
+   the top logit); (c) ResNet-50's first step (batch 4) in fp32, under TF32
+   and in bf16 against the port's float64 step on the CPU (recorded:
+   ill-conditioned), every op node of the TF32 and bf16 steps alone
+   against the same node in float64 on its inputs (``NODE_UNITS``
+   roundings), and phase 10's training run (2 epochs of 20 batches,
+   batch 32) in bf16 (bound from a bf16 data descriptor) and under TF32,
+   each with its eager step by aten op.
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -353,14 +380,15 @@ ResNet-50's, AlexNet's and Inception-v3's training runs and
 training paths without their eager runs: parent against change is the
 comparison), ``--kernels ROOT`` the kernels
 alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
-``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone (see
-``paths_timing``);
+``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone,
+``--bf16 ROOT`` phase 13 alone after B1's and the paged kernels' bf16
+checks at its shapes (see ``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
-Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN.
-Any failed check raises and the script exits non-zero without the last
-line.  It needs a CUDA card and the repository around it.
+Float32 matmuls run in full float32: TF32 is off for matmuls and cuDNN (but in
+phase 13's TF32 run).  Any failed check raises and the script exits non-zero
+without the last line.  It needs a CUDA card and the repository around it.
 """
 
 import contextlib
@@ -453,6 +481,30 @@ CKPT_LSTM_BATCHES, CKPT_LSTM_EVERY, CKPT_LSTM_STOP = 12, 6, 8
 CKPT_TOL = dict(rtol=1e-4, atol=1e-5)
 CKPT_SEEDS = (5, 23)
 CKPT_RESNET_BATCHES = 8
+
+# phase 13: bf16.  The training run's LM built in bf16 under Adam at lr
+# 3e-4 (bf16 weights of ~0.02 move by steps of ~1.2e-4, which SGD at
+# TRAIN_LR never reaches; at 1e-3 the loss rose again after step 7 on
+# the H100); its first step against the fp32 first step from the same
+# weights within BF16_FIRST_STEP (bf16's unit roundoff U = 2^-8: the
+# mean loss and the gradients' norm within 4 U relative, as the errors
+# of a few roundings; measured 1.7e-5 and 6.6e-3); serving's greedy
+# tokens (of the random-weight LM served in bf16) equal to the full
+# forward's argmax wherever its top-2 margin exceeds BF16_MARGIN U of the
+# row's largest logit (a few roundings of the logits on each side), at a
+# quarter of the tokens at least; the trained LM's within that margin of
+# the top logit (its top logits lie within it of each other)
+U_BF16 = 2.0 ** -8
+BF16_OPT = ("adam", {"learning_rate": 3e-4})
+BF16_FIRST_STEP = {"loss": 4 * U_BF16, "grad": 4 * U_BF16}
+BF16_MARGIN = 8
+# ResNet-50's first step in TF32 and bf16, node by node against float64
+# on the same inputs: within NODE_UNITS roundings of the format in
+# relative norm (the unit roundoff: 2^-11 for TF32's 11 significand
+# bits, 2^-8 for bf16's 8; one rounding of a result is about half a
+# unit in norm, a product of two TF32-rounded operands about one)
+ROUNDING_UNIT = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8}
+NODE_UNITS = 4
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
                   d_ff=3072, max_len=1024)
@@ -1851,11 +1903,11 @@ def gpt2_small_params(seed=0, cfg=GPT2_SMALL):
 
 
 def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
-              cfg=GPT2_SMALL, **engine_kw):
+              cfg=GPT2_SMALL, on_reset=None, **engine_kw):
     """Serve ``prompts`` through a fresh ``DecodeEngine`` of the LM
     ``cfg`` (after a warm-up request), with the launch counts reset just
-    before and read just after.  Returns (engine model, outputs, stats,
-    launches, record)."""
+    before (``on_reset()`` then) and read just after.  Returns (engine
+    model, outputs, stats, launches, record)."""
     eng = mt.DecodeEngine(dev_params, **cfg, ctx=mt.gpu(0),
                           kv_block=KVB, max_streams=16, seed=0, **engine_kw)
     with eng:
@@ -1864,6 +1916,8 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
         torch.cuda.reset_peak_memory_stats()
         eng.reset_stats()
         ck.reset_launch_counts()  # counts from here on: this run
+        if on_reset is not None:
+            on_reset()
         t0 = time.perf_counter()
         futs = [eng.submit(p, new_tokens, temperature=t)
                 for p, t in zip(prompts, temps)]
@@ -1898,25 +1952,50 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
     return model, outs, st, launches, rec
 
 
-def forward_check(torch, model, prompts, outs, temps, lens, label):
-    """The port's full forward reproduces the greedy tokens of the
-    shortest and the longest greedy stream wherever its top-2 margin
-    exceeds 1e-3."""
+def forward_check(torch, model, prompts, outs, temps, lens, label,
+                  margin_tol=1e-3, rel_margin=0.0, band=False):
+    """The port's full forward over the shortest and the longest greedy
+    stream (its prompt and the engine's tokens) reproduces the engine's
+    token wherever the forward's top-2 margin exceeds the tolerance
+    (``margin_tol``, fp32; or ``rel_margin`` times the row's largest
+    |logit|, bf16, whose logits carry roundings of that size), at a
+    quarter of the tokens at least.  With ``band`` (an LM whose top
+    logits lie within that tolerance of each other) every engine token's
+    logit lies within the tolerance of the top one instead."""
     greedy = [i for i in range(len(prompts)) if temps[i] == 0.0]
     for i in (min(greedy, key=lambda j: lens[j]),
               max(greedy, key=lambda j: lens[j])):
         seq = np.concatenate([prompts[i], outs[i]])
-        logits = model(torch.from_numpy(seq).cuda()[None])[0]
-        top2 = torch.topk(logits[len(prompts[i]) - 1:-1], 2, dim=-1)
-        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        rows = model(torch.from_numpy(seq).cuda()[None])[0][
+            len(prompts[i]) - 1:-1].float()
+        top2 = torch.topk(rows, 2, dim=-1)
+        margin = top2.values[:, 0] - top2.values[:, 1]
+        tol = rel_margin * rows.abs().max(-1).values if rel_margin \
+            else torch.full_like(margin, margin_tol)
+        sure = (margin > tol).cpu().numpy()
         arg = top2.indices[:, 0].cpu().numpy()
-        sure = margin > 1e-3
-        check(sure.sum() > 0 and np.array_equal(arg[sure], outs[i][sure]),
-              f"{label} stream {i}: full forward disagrees with the engine "
-              f"at {np.nonzero(sure & (arg != outs[i]))[0]}")
+        agree = int((arg == outs[i]).sum())
+        if band:
+            tok = torch.from_numpy(outs[i].astype(np.int64)).cuda()
+            gap = top2.values[:, 0] - rows.gather(1, tok[:, None])[:, 0]
+            near = (gap <= tol).cpu().numpy()
+            check(near.all(), f"{label} stream {i}: the engine's tokens at "
+                  f"{np.nonzero(~near)[0]} lie below the full forward's top "
+                  f"logit by more than the tolerance")
+        else:
+            check(np.array_equal(arg[sure], outs[i][sure])
+                  and 4 * sure.sum() >= len(arg),
+                  f"{label} stream {i}: full forward disagrees with the "
+                  f"engine at {np.nonzero(sure & (arg != outs[i]))[0]}, or "
+                  f"fewer than a quarter of {len(arg)} tokens over the "
+                  f"margin ({int(sure.sum())})")
+        what = f"{rel_margin:g} of the row's largest logit" if rel_margin \
+            else f"{margin_tol:g}"
         print(f"forward check ({label}): stream {i} ({lens[i]}-token "
-              f"prompt) {int(sure.sum())}/{len(outs[i])} tokens over the "
-              f"1e-3 margin agree")
+              f"prompt) {int(sure.sum())}/{len(arg)} tokens over the "
+              f"{what} margin agree; its argmax is the engine's token at "
+              f"{agree}/{len(arg)}" + ("; every token within the margin "
+                                       "of the top logit" if band else ""))
 
 
 def main_path(torch, mt, ck, dev_params):
@@ -2110,10 +2189,16 @@ def spin_fill(torch, cycles=TRACE_FILLER_CYCLES):
     torch.cuda.synchronize()
 
 
+# a traced kernel whose name holds "bfloat16" (its template argument) is
+# also counted under its wrapper's name with this suffix
+BF16_SUFFIX = "@bf16"
+
+
 def traced_launches(prof):
     """The kernels of ``TRACE_FUNCTIONS`` in the device activity of the
-    finished ``torch.profiler`` run ``prof``, by wrapper name, and the
-    spin kernels: "spin_long" (at least 3/4 of a ``TRACE_FILLER_CYCLES``
+    finished ``torch.profiler`` run ``prof``, by wrapper name (the bf16
+    instantiations also under name + ``BF16_SUFFIX``), and the spin
+    kernels: "spin_long" (at least 3/4 of a ``TRACE_FILLER_CYCLES``
     spin's median) and "spin_short"."""
     counts = {k: 0 for k in TRACE_FUNCTIONS}
     kineto = getattr(prof.profiler, "kineto_results", None)
@@ -2128,6 +2213,9 @@ def traced_launches(prof):
         m = _TRACE_NAME.search(name)
         if m:
             counts[_TRACE_KEY[m.group(1)]] += 1
+            if "bfloat16" in name:  # the bf16 instantiation
+                key = _TRACE_KEY[m.group(1)] + BF16_SUFFIX
+                counts[key] = counts.get(key, 0) + 1
         elif "spin_kernel" in name:
             spins.append(ns)
     top = max(spins, default=0)
@@ -2152,6 +2240,7 @@ class TracedLaunches:
     def __init__(self, torch, ck, label, on=True):
         self.torch, self.ck, self.label, self.on = torch, ck, label, on
         self.launches = self.counted = None
+        self.bf16_launches = {}
 
     def __enter__(self):
         self.torch.cuda.synchronize()
@@ -2179,6 +2268,9 @@ class TracedLaunches:
             return False
         traced = traced_launches(self.prof)
         self.prof = None
+        self.bf16_launches = {k[:-len(BF16_SUFFIX)]: traced.pop(k)
+                              for k in list(traced)
+                              if k.endswith(BF16_SUFFIX)}
         spins = (traced.pop("spin_long"), traced.pop("spin_short"))
         if spins != (TRACE_FILLERS, TRACE_FILLERS):
             print(json.dumps({"trace_fillers": {
@@ -2275,9 +2367,10 @@ def graphs_on(mod):
 
 
 def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
-                user_kernels=(), after_step=None):
-    """``TRAIN_STEPS`` SGD steps (``TRAIN_LR``, momentum 0.9) of a bound
-    LM module, the launch counts reset just before and read just after:
+                user_kernels=(), after_step=None, opt=None):
+    """``TRAIN_STEPS`` steps of a bound LM module under ``opt``
+    ((optimizer, its parameters); SGD at ``TRAIN_LR`` with momentum 0.9
+    by default), the launch counts reset just before and read just after:
     every step must count a launch of each of ``kernels`` and
     ``user_kernels`` (of ``rtc``) a layer and none of the other
     attention family's kernels (a dropped attention gradient shows as 0
@@ -2288,8 +2381,8 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
     ``TRAIN_STEPS`` a layer of each kernel.  ``after_step(step)`` runs
     after each step's checks."""
     L, T = GPT2_SMALL["num_layers"], GPT2_SMALL["max_len"]
-    mod.init_optimizer(optimizer="sgd", optimizer_params={
-        "learning_rate": TRAIN_LR, "momentum": 0.9})
+    opt = opt or ("sgd", {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    mod.init_optimizer(optimizer=opt[0], optimizer_params=opt[1])
     grads = [mod._exec.grad_dict[n]._data for n in grad_names]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2335,8 +2428,8 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
           f"{label} loss did not fall over {TRAIN_STEPS} steps: {losses}")
     print(f"{label} loss curve: {losses}")
     return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": T,
-            "learning_rate": TRAIN_LR, "momentum": 0.9, "losses": losses,
-            "wall_s": wall,
+            "optimizer": opt[0], **opt[1], "losses": losses,
+            "bf16_launches": traced.bf16_launches, "wall_s": wall,
             "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * T / wall,
             "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "peak_memory_bytes": int(peak), "launches": launches,
@@ -2345,7 +2438,8 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
 
 def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
                   label, user_kernels=(), compare=True, probe=None,
-                  eager=True, keep=None, tally=None):
+                  eager=True, keep=None, tally=None, opt=None,
+                  dtype="float32", after_step=None):
     """``train_steps`` of a fresh ``make_mod()`` through the fused step
     (the default: warm-up steps, a capture, replays), then the device
     time of a step (``step_device_ms``, ``STEP_PROFILE_REPS`` + 1 more
@@ -2358,15 +2452,18 @@ def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
     ``probe`` (``ReplayMasks``) is entered around the fused run's steps
     and checks each; ``keep(mod)`` sees the fused module last;
     ``tally(launches)`` takes each run's ``train_steps`` launches (a
-    phase's ``Launches.add``)."""
+    phase's ``Launches.add``).  ``opt`` as ``train_steps``'; ``dtype``
+    the network's, which picks ``TOL`` and ``BWD_TOL``; ``after_step``
+    runs after each fused step (``train_steps``), unless a ``probe``
+    does."""
     first = next(iter(batches))
     batches.reset()
 
-    def run(mod, tag, probe):
+    def run(mod, tag, probe, hook=None):
         with probe or contextlib.nullcontext():
             rec = train_steps(torch, ck, mod, batches, kernels, grad_names,
                               tag, user_kernels,
-                              probe.after_step if probe else None)
+                              probe.after_step if probe else hook, opt)
         if tally is not None:
             tally(rec["launches"])
         weights = {n: mod._exec.arg_dict[n]._data.clone()
@@ -2381,7 +2478,7 @@ def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
         return rec, weights
 
     mod = make_mod()
-    rec, fused_w = run(mod, label, probe)
+    rec, fused_w = run(mod, label, probe, after_step)
     if keep is not None:
         keep(mod)
     del mod
@@ -2397,10 +2494,10 @@ def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
         rec.update(eager_step_p50_ms=eager_p50, eager_losses=erec["losses"],
                    eager_step_device_ms=erec["step_device_ms"])
         if compare:
-            loss_err = max(abs(a - b) / (TOL["float32"] * abs(b))
+            loss_err = max(abs(a - b) / (TOL[dtype] * abs(b))
                            for a, b in zip(rec["losses"], erec["losses"]))
             w_err = max((fused_w[n] - eager_w[n]).abs().max().item()
-                        / (BWD_TOL["float32"]
+                        / (BWD_TOL[dtype]
                            * max(1.0, eager_w[n].abs().max().item()))
                         for n in grad_names)
             rec["graphed_vs_eager_err_over_tol"] = {"loss": loss_err,
@@ -2412,13 +2509,13 @@ def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
     return rec
 
 
-def packed_lm_symbol(mt, dropout=0.0):
+def packed_lm_symbol(mt, dropout=0.0, dtype="float32"):
     V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
         GPT2_SMALL["max_len"]
     return mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
                                     d_model=GPT2_SMALL["d_model"],
                                     d_ff=GPT2_SMALL["d_ff"], head="ce",
-                                    dropout=dropout)
+                                    dropout=dropout, dtype=dtype)
 
 
 def train_path(torch, mt, ck, eager=True):
@@ -3950,22 +4047,28 @@ def resnet50(mt):
 
 
 def image_bind(mt, sym, ctx, batch, for_training=True,
-               shape=IMAGE["image_shape"]):
+               shape=IMAGE["image_shape"], dtype="float32"):
+    """``sym`` bound from a ``dtype`` data descriptor (bf16: every
+    parameter bf16, the moving statistics float32)."""
     mod = mt.mod.Module(sym, context=ctx)
-    mod.bind(data_shapes=[("data", (batch,) + tuple(shape))],
+    mod.bind(data_shapes=[mt.io.DataDesc("data", (batch,) + tuple(shape),
+                                         dtype)],
              label_shapes=[("softmax_label", (batch,))],
              for_training=for_training)
     return mod
 
 
-def image_step(torch, mt, sym, ctx, params, batch, float64=False):
-    """One ``forward_backward`` of ``sym`` bound on ``ctx`` from
-    ``params`` → (outputs, mean cross-entropy, {weight: gradient},
-    {aux: new value}), all float64 on the host.  With ``float64`` every
-    bound array is cast to float64 first (the port's BatchNorm then
-    keeps its statistics in float64)."""
+def image_step(torch, mt, sym, ctx, params, batch, float64=False,
+               dtype="float32"):
+    """One ``forward_backward`` of ``sym`` bound on ``ctx`` (from a
+    ``dtype`` descriptor) from ``params`` → (outputs, mean
+    cross-entropy, {weight: gradient}, {aux: new value}), all float64 on
+    the host.  With ``float64`` every bound array is cast to float64
+    first (the port's BatchNorm then keeps its statistics in
+    float64)."""
     B = batch.data[0].shape[0]
-    mod = image_bind(mt, sym, ctx, B, shape=batch.data[0].shape[1:])
+    mod = image_bind(mt, sym, ctx, B, shape=batch.data[0].shape[1:],
+                     dtype=dtype)
     mod.init_params(arg_params=params[0], aux_params=params[1])
     ex = mod._exec
     if float64:
@@ -4064,7 +4167,7 @@ def resnet_first_step(torch, mt):
             "err_over_tol": worst}
 
 
-def resnet_run(torch, mt, epochs=IMAGE["epochs"]):
+def resnet_run(torch, mt, epochs=IMAGE["epochs"], dtype="float32"):
     """``train_imagenet.py --benchmark 1`` at full width: ResNet-50
     through ``Module.fit`` on ``gpu(0)`` over ``synthetic_image_iter``
     (two seeded batches cycled by ``ResizeIter``), ``epochs`` epochs
@@ -4075,6 +4178,8 @@ def resnet_run(torch, mt, epochs=IMAGE["epochs"]):
     step p50 are the last epoch's.  Gates: every output finite; every
     moving statistic finite and moved from its initial value; the mean
     cross-entropy of the last 5 batches below that of the first 5.
+    ``dtype`` "bfloat16": the same images as bf16 tensors, whose
+    descriptor binds the network in bf16.
     → (the record, the trained module, the iterator's first batch)."""
     from mxnet_tpu_torch.examples.common import synthetic_image_iter
 
@@ -4094,6 +4199,11 @@ def resnet_run(torch, mt, epochs=IMAGE["epochs"]):
     B, batches = IMAGE["batch"], IMAGE["batches"]
     train = synthetic_image_iter(B, IMAGE["image_shape"], IMAGE["classes"],
                                  batches)
+    if dtype != "float32":
+        inner = train.data_iter  # its two batches, in dtype
+        train = mt.io.ResizeIter(mt.io.NDArrayIter(
+            torch.from_numpy(inner.data[0][1]).to(getattr(torch, dtype)),
+            inner.label[0][1], batch_size=B), batches, reset_internal=False)
     mod = TimedModule(resnet50(mt), context=mt.gpu(0))
     ce, finite, epoch_end = [], [], []
 
@@ -4139,7 +4249,7 @@ def resnet_run(torch, mt, epochs=IMAGE["epochs"]):
     last = run_ms[-batches:]
     print(f"ResNet-50 cross-entropy by batch: {ce}")
     train.reset()
-    return {"config": dict(IMAGE), "steps": steps,
+    return {"config": dict(IMAGE), "dtype": dtype, "steps": steps,
             "cross_entropy": ce, "step_ms": run_ms,
             "step_p50_ms": float(np.median(last)),
             "images_per_s": B * batches / (sum(last) / 1e3),
@@ -5469,6 +5579,514 @@ def ckpt_path(torch, mt, ck):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13: bf16 training and storage
+# ---------------------------------------------------------------------------
+
+class DtypeLaunches:
+    """While entered, every launch of the ``names`` wrappers of ``ck``
+    counted by its operands' dtypes: "name[q]" for ``flash_mha_packed``
+    (qkv's), "name[q/pages]" for the paged kernels.  The wrappers are
+    replaced in ``ck`` (``ops.attention`` calls them through it) by
+    callers that read the launch counter around the call."""
+
+    def __init__(self, ck, names):
+        self.ck, self.names, self.counts = ck, names, {}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.ck, n) for n in self.names}
+        for n in self.names:
+            setattr(self.ck, n, self._spy(n, self.orig[n]))
+        return self
+
+    def _spy(self, name, fn):
+        def call(*args, **kw):
+            before = self.ck.LAUNCHES[name]
+            out = fn(*args, **kw)
+            n = self.ck.LAUNCHES[name] - before
+            if n:
+                dts = [str(a.dtype).replace("torch.", "")
+                       for a in args[:1 if name.startswith("flash") else 2]]
+                key = f"{name}[{'/'.join(dts)}]"
+                self.counts[key] = self.counts.get(key, 0) + n
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.ck, n, fn)
+        return False
+
+
+@contextlib.contextmanager
+def tf32(torch, on):
+    """TF32 for matmuls and cuDNN ``on`` while entered (this script's
+    setting, off, restored after)."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def bf16_lm_first_step(torch, mt, ck, params, batch):
+    """One eager ``forward_backward`` of the training LM in fp32 and in
+    bf16 from the same weights (``params``, rounded to bf16 in the bf16
+    module) on ``batch``: the bf16 mean loss within
+    ``BF16_FIRST_STEP["loss"]`` of the fp32 one (relative), its
+    gradients within ``BF16_FIRST_STEP["grad"]`` in relative norm over
+    every parameter; per-token loss difference and each parameter's
+    dtype recorded."""
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        with fused_env("0"):
+            mod = lm_module(mt, packed_lm_symbol(mt, dtype=dtype), params)
+        mod.forward_backward(batch)
+        ex = mod._exec
+        res[dtype] = (ex.outputs[0]._data.float().clone(),
+                      {n: ex.grad_dict[n]._data.float().clone()
+                       for n in mod._param_names},
+                      {n: str(ex.arg_dict[n]._data.dtype)
+                       for n in mod._param_names})
+        del mod, ex
+        torch.cuda.empty_cache()
+    (l32, g32, _), (l16, g16, types) = res["float32"], res["bfloat16"]
+    check(types["tok_embed_weight"] == "torch.float32"
+          and {t for n, t in types.items() if n != "tok_embed_weight"}
+          == {"torch.bfloat16"}, f"bf16 LM parameter dtypes: {types}")
+    check(bool(torch.isfinite(l16).all()) and all(
+        bool(torch.isfinite(g).all()) for g in g16.values()),
+        "bf16 LM first step: a loss or gradient is not finite")
+    loss_rel = abs(float(l16.mean()) - float(l32.mean())) \
+        / float(l32.mean())
+    diff = torch.cat([(g16[n] - g32[n]).reshape(-1) for n in g32]).norm()
+    ref = torch.cat([g.reshape(-1) for g in g32.values()]).norm()
+    grad_rel = float(diff / ref)
+    worst = max(g32, key=lambda n: float((g16[n] - g32[n]).norm()
+                                         / g32[n].norm().clamp_min(1e-30)))
+    rec = {"mean_loss_fp32": float(l32.mean()),
+           "mean_loss_bf16": float(l16.mean()),
+           "mean_loss_rel_err": loss_rel,
+           "token_loss_max_abs_err": float((l16 - l32).abs().max()),
+           "grad_rel_norm_err": grad_rel, "worst_param": worst,
+           "worst_param_rel_norm_err": float(
+               (g16[worst] - g32[worst]).norm() / g32[worst].norm()),
+           "tolerance": BF16_FIRST_STEP}
+    check(loss_rel <= BF16_FIRST_STEP["loss"]
+          and grad_rel <= BF16_FIRST_STEP["grad"],
+          f"bf16 LM first step against fp32: {rec}")
+    print(f"bf16 LM first step against fp32: {rec}")
+    return rec
+
+
+def bf16_lm_train(torch, mt, ck, counts, params):
+    """The training run's LM built in bf16 (``transformer_lm(...,
+    dtype="bfloat16")``), ``TRAIN_STEPS`` Adam steps (``BF16_OPT``)
+    through the fused step's CUDA graphs, and again under
+    ``MXNET_FUSED_STEP=0`` from the same weights, the graphed steps held
+    to the eager ones at bf16's ``TOL``/``BWD_TOL`` (``lm_train_pair``).
+    Gates: a falling, finite loss; B1's three kernels a layer a step,
+    each launch of the graphed run a bf16 instantiation in the device
+    trace.  Records the share of the bf16 parameters' elements that step
+    10 changed.  → (the record, the trained parameters on the host)."""
+    L = GPT2_SMALL["num_layers"]
+    kept, before, changed = {}, {}, {}
+
+    def keep(mod):
+        kept.update({k: v._data for k, v in mod.get_params()[0].items()})
+
+    state = {}
+
+    def make():
+        mod = lm_module(mt, packed_lm_symbol(mt, dtype="bfloat16"), params)
+        state["mod"] = mod
+        return mod
+
+    def snapshot(step):
+        mod = state["mod"]
+        arg = mod._exec.arg_dict
+        names = [n for n in mod._param_names
+                 if arg[n]._data.dtype == torch.bfloat16]
+        if step == TRAIN_STEPS - 2:
+            before.update({n: arg[n]._data.clone() for n in names})
+        elif step == TRAIN_STEPS - 1:
+            moved = sum(int((arg[n]._data != before[n]).sum())
+                        for n in names)
+            total = sum(before[n].numel() for n in names)
+            changed.update(elements=total, changed=moved,
+                           share=moved / total)
+            before.clear()
+
+    rec = lm_train_pair(
+        torch, mt, ck, make, lm_batches(mt), PACKED_KERNELS,
+        [f"layer{i}_qkv_weight" for i in range(L)], "bf16 training",
+        keep=keep, tally=counts.add, opt=BF16_OPT,
+        dtype="bfloat16", after_step=snapshot)
+    state.clear()
+    for k in PACKED_KERNELS:
+        check(rec["bf16_launches"].get(k, 0) == L * TRAIN_STEPS,
+              f"bf16 training: {rec['bf16_launches'].get(k, 0)} bf16 "
+              f"launches of {k} in the trace, not {L * TRAIN_STEPS}")
+    check(changed.get("changed", 0) > 0, f"bf16 training: step "
+          f"{TRAIN_STEPS} changed no bf16 weight ({changed})")
+    rec["step_changed_elements"] = changed
+    return rec, kept
+
+
+def bf16_serving(torch, mt, ck, counts, params):
+    """The GPT-2-class LM served in bf16 by ``DecodeEngine``: S0 its
+    random weights (phase 3's, ``tok_embed_weight`` float32, the rest
+    rounded to bf16) with ``dtype="bfloat16"``, run A's 16 requests of 32
+    tokens each; then the trained bf16 LM (``params``): S1
+    ``dtype="bfloat16"`` (bf16 pages) and S2 ``kv_dtype="bf16"`` over
+    the same requests, and S3 ``dtype="bfloat16"`` with
+    ``spec_tokens=4`` over the spec prompts.  Gates: the engine's
+    parameters keep their dtypes and its pools are bf16; every launch of
+    B1 (prefill), the decode kernel and the verify kernel takes bf16
+    operands (``DtypeLaunches``), as many as prefills, plain steps and
+    verify steps times the layers; S2's greedy tokens equal S1's (the
+    same pages); S0's greedy tokens are the full forward's argmax
+    wherever its top-2 margin exceeds ``BF16_MARGIN`` U of the row's
+    largest logit, at a quarter of them at least; the trained LM's top
+    logits lie within that margin of each other (ten steps taught it the
+    few hundred ids its random walk visits, alike), so S1-S3's tokens
+    are held to the band: each within that margin of the full forward's
+    top logit."""
+    L = GPT2_SMALL["num_layers"]
+    rng = np.random.RandomState(1)
+    lens = rng.randint(32, 901, size=16)
+    prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], size=n)
+               .astype(np.int32) for n in lens]
+    temps = [0.8 if i in (3, 11) else 0.0 for i in range(16)]
+    spec = spec_prompts()
+    spec_temps = [0.0] * len(spec)
+    names = ("flash_mha_packed", "paged_attention_decode",
+             "paged_attention_verify")
+    runs, outs = {}, {}
+    random_params = {k: torch.from_numpy(v) if k == "tok_embed_weight"
+                     else torch.from_numpy(v).bfloat16()
+                     for k, v in gpt2_small_params(0).items()}
+    for run, kw, weights, pr, tp, new in (
+            ("S0", dict(dtype="bfloat16"), random_params, prompts, temps,
+             32),
+            ("S1", dict(dtype="bfloat16"), params, prompts, temps, 32),
+            ("S2", dict(kv_dtype="bf16"), params, prompts, temps, 32),
+            ("S3", dict(dtype="bfloat16", spec_tokens=SPEC_K,
+                        proposer="ngram"), params, spec, spec_temps,
+             SPEC_NEW)):
+        with DtypeLaunches(ck, names) as dl:
+            model, outs[run], st, launches, rec = serve_run(
+                torch, mt, ck, weights, pr, tp, new,
+                on_reset=dl.counts.clear, **kw)
+        counts.add(launches)
+        dtypes = {n: str(p.dtype) for n, p in model.named_parameters()}
+        check(dtypes.pop("tok_embed_weight") == "torch.float32"
+              and set(dtypes.values()) == {"torch.bfloat16"},
+              f"{run}: engine parameter dtypes {dtypes}")
+        plain = st["steps"] - st["spec_steps"]
+        want = {"flash_mha_packed[bfloat16]": L * st["prefills"],
+                "paged_attention_decode[bfloat16/bfloat16]": L * plain,
+                "paged_attention_verify[bfloat16/bfloat16]":
+                    L * st["spec_steps"]}
+        got = {k: dl.counts.get(k, 0) for k in want}
+        check(got == want and sum(dl.counts.values()) == sum(want.values())
+              and launches["flash_mha_packed"] == L * st["prefills"],
+              f"{run}: launches by dtype {dl.counts}, want {want}")
+        check(st["steps"] > 0 and (st["spec_steps"] > 0) == (run == "S3"),
+              f"{run}: {st}")
+        forward_check(torch, model, pr, outs[run], tp,
+                      [len(p) for p in pr], run,
+                      rel_margin=BF16_MARGIN * U_BF16, band=run != "S0")
+        rec["launches_by_dtype"] = dl.counts
+        rec["greedy_tokens"] = [o.tolist() for o, t in zip(outs[run], tp)
+                                if t == 0.0][:2]
+        runs[run] = rec
+        del model
+        torch.cuda.empty_cache()
+    del random_params
+    for i, t in enumerate(temps):
+        if t == 0.0:
+            check(np.array_equal(outs["S1"][i], outs["S2"][i]),
+                  f"S2 stream {i}: greedy tokens differ from S1's")
+    return runs
+
+
+def grad_distance(torch, grads, ref):
+    """→ (the error norm over all weights relative to ``ref``'s norm,
+    the largest error of a weight over its largest value), weights whose
+    reference gradient is exactly zero left out of the second."""
+    diff = torch.cat([(grads[n] - ref[n]).reshape(-1) for n in ref]).norm()
+    norm = torch.cat([g.reshape(-1) for g in ref.values()]).norm()
+    worst = max(((grads[n] - ref[n]).abs().max()
+                 / ref[n].abs().max()).item()
+                for n in ref if ref[n].any())
+    return float(diff / norm), worst
+
+
+@contextlib.contextmanager
+def node_inputs(mt, sym):
+    """While entered, every op node of ``sym`` that runs keeps a copy of
+    its inputs and aux states, the first of each (op, attributes, input
+    shapes and dtypes): yields {key: (op name, attrs, inputs, aux)}."""
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    kept = {}
+    ops = {n.op for n in sym._topo() if not n.is_variable}
+    saved = {name: get_op(name).compute for name in ops}
+
+    def spy(name, compute):
+        def run(op_ctx, attrs, inputs, aux):
+            key = (name, tuple(sorted(attrs.items())),
+                   tuple((tuple(x.shape), str(x.dtype)) for x in inputs))
+            if key not in kept:
+                kept[key] = (name, dict(attrs),
+                             [x.detach().clone() for x in inputs],
+                             [x.detach().clone() for x in aux])
+            return compute(op_ctx, attrs, inputs, aux)
+        return run
+
+    for name, compute in saved.items():
+        get_op(name).compute = spy(name, compute)
+    try:
+        yield kept
+    finally:
+        for name, compute in saved.items():
+            get_op(name).compute = compute
+
+
+def node_errors(torch, mt, name, attrs, inputs, aux, seed):
+    """One op node run alone in training mode on its recorded inputs, in
+    their dtypes on the card and in float64 (the same values), forward
+    and backward from one seeded head gradient rounded to the output's
+    dtype → the largest relative error norm over its outputs and its
+    inputs' gradients, and the float64 norms of those."""
+    from mxnet_tpu_torch.ops.registry import OpContext, get_op
+
+    op = get_op(name)
+
+    def run(xs, aux_states):
+        xs = [x.clone().requires_grad_(x.is_floating_point()) for x in xs]
+        outs = op.compute(OpContext(is_train=True), attrs, xs,
+                          [a.clone() for a in aux_states])
+        if aux_states:
+            outs = outs[0]
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        return xs, outs
+
+    xs, outs = run(inputs, aux)
+    rs, routs = run([x.double() for x in inputs], [a.double() for a in aux])
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    heads = [torch.randn(o.shape, generator=g, dtype=torch.float64)
+             .to(o.dtype).to(o.device) for o in outs]
+    want = [i for i, x in enumerate(xs) if x.requires_grad]
+    grads = torch.autograd.grad(outs, [xs[i] for i in want], heads,
+                                allow_unused=True)
+    rgrads = torch.autograd.grad(routs, [rs[i] for i in want],
+                                 [h.double() for h in heads],
+                                 allow_unused=True)
+    worst, what = 0.0, None
+    pairs = [(f"output {i}", o, r) for i, (o, r) in enumerate(zip(outs, routs))]
+    pairs += [(f"input {i} gradient", a, b) for i, a, b in
+              zip(want, grads, rgrads) if a is not None and b is not None]
+    for label, a, b in pairs:
+        norm = float(b.detach().norm())
+        if norm == 0.0:
+            continue
+        err = float((a.detach().double() - b.detach()).norm()) / norm
+        if err >= worst:
+            worst, what = err, label
+    return worst, what
+
+
+def bf16_resnet_first_steps(torch, mt):
+    """ResNet-50's first step (batch ``IMAGE["check_batch"]``, the seeded
+    ``Xavier(gaussian, in, 2)`` parameters of phase 10) on the card in
+    fp32 with TF32 off, with TF32 on, and bound in bf16 from a bf16 data
+    descriptor, each against the port's float64 step on the CPU: the
+    gradients' error norm over all weights (relative to the float64
+    norm) and the largest error of a weight over its largest value, the
+    measure of phase 10, recorded.  That step is ill-conditioned (C13):
+    no bound holds it.  So for TF32 and bf16 every op node of the step,
+    the first of each (op, attributes, shapes), is run alone on the card
+    on the inputs it met in the step and held to the same node in
+    float64 on the same values: its outputs and its inputs' gradients
+    (from a seeded head gradient) within ``NODE_UNITS`` roundings of the
+    format (``ROUNDING_UNIT``) in relative norm.  Outputs finite."""
+    B = IMAGE["check_batch"]
+    sym = resnet50(mt)
+    rng = np.random.RandomState(11)
+    X = rng.rand(B, *IMAGE["image_shape"]).astype(np.float32)
+    Y = rng.randint(0, IMAGE["classes"], size=B).astype(np.float32)
+    batch = mt.io.DataBatch([mt.nd.array(X, ctx=mt.cpu())],
+                            [mt.nd.array(Y, ctx=mt.cpu())])
+    init = image_bind(mt, sym, mt.cpu(), B, shape=IMAGE["image_shape"])
+    mt.random.seed(0)
+    init.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+    params = init.get_params()
+    del init
+    t0 = time.perf_counter()
+    _, loss64, grads64, _ = image_step(torch, mt, sym, mt.cpu(), params,
+                                       batch, float64=True)
+    cpu_s = time.perf_counter() - t0
+    out = {"float64_cpu_s": cpu_s, "float64_loss": loss64}
+    for variant, dtype, on in (("fp32", "float32", False),
+                               ("tf32", "float32", True),
+                               ("bf16", "bfloat16", False)):
+        with tf32(torch, on), node_inputs(mt, sym) as nodes:
+            o, loss, grads, _ = image_step(torch, mt, sym, mt.gpu(0),
+                                           params, batch, dtype=dtype)
+        check(bool(torch.isfinite(o).all()) and np.isfinite(loss)
+              and all(bool(torch.isfinite(g).all())
+                      for g in grads.values()),
+              f"ResNet-50 {variant} first step: not finite")
+        norm, worst = grad_distance(torch, grads, grads64)
+        out[variant] = {"loss": loss, "grad_err_norm_vs_float64": norm,
+                        "grad_max_rel_err_vs_float64": worst}
+        if variant != "fp32":
+            tol = NODE_UNITS * ROUNDING_UNIT[variant]
+            errs = {}
+            with tf32(torch, on):
+                for i, (name, attrs, xs, aux) in enumerate(nodes.values()):
+                    errs[f"{name} {i}"] = node_errors(torch, mt, name, attrs,
+                                                      xs, aux, seed=i)
+            top = max(errs, key=lambda k: errs[k][0])
+            by_op = {}
+            for k, (e, _) in errs.items():
+                op = k.split()[0]
+                by_op[op] = max(by_op.get(op, 0.0), e)
+            out[variant]["nodes"] = {
+                "checked": len(errs), "tolerance": tol,
+                "worst": {"node": top, "part": errs[top][1],
+                          "rel_err": errs[top][0]},
+                "worst_by_op": by_op}
+            check(errs[top][0] <= tol, f"ResNet-50 {variant}: node {top}'s "
+                  f"{errs[top][1]} is {errs[top][0]:.3e} from float64 in "
+                  f"relative norm, over {tol:.3e}")
+        del nodes
+        torch.cuda.empty_cache()
+    print(f"ResNet-50 first steps against float64: {out}")
+    return out
+
+
+def bf16_resnet_run(torch, mt, variant):
+    """``resnet_run`` (phase 10's 2 epochs of 20 batches at batch 32)
+    in bf16 (the data's descriptor binds the network in bf16) or fp32
+    with TF32 on, through the fused step; then an eager module from its
+    parameters split by aten op (``resnet_breakdown``)."""
+    dtype = "bfloat16" if variant == "bf16" else "float32"
+    with tf32(torch, variant == "tf32"):
+        rec, mod, batch = resnet_run(torch, mt, dtype=dtype)
+        rec["graphs"] = graph_stats(mod)
+        arg, aux = mod.get_params()
+        types = {str(a._data.dtype) for a in arg.values()}
+        check(types == {f"torch.{dtype}"}, f"ResNet-50 {variant}: "
+              f"parameter dtypes {types}")
+        check({str(a._data.dtype) for a in aux.values()}
+              == {"torch.float32"}, f"ResNet-50 {variant}: aux dtypes")
+        del mod
+        torch.cuda.empty_cache()
+        with fused_env("0"):
+            emod = image_bind(mt, resnet50(mt), mt.gpu(0), IMAGE["batch"],
+                              shape=IMAGE["image_shape"], dtype=dtype)
+        emod.init_params(arg_params=arg, aux_params=aux)
+        emod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": IMAGE["lr"], "wd": IMAGE["wd"],
+            "momentum": IMAGE["momentum"]})
+        rec["eager_breakdown"] = resnet_breakdown(torch, mt, emod, batch)
+        del emod
+    torch.cuda.empty_cache()
+    rec.pop("step_ms")
+    print(f"ResNet-50 {variant}: step p50 {rec['step_p50_ms']:.2f} ms, "
+          f"{rec['images_per_s']:.1f} images/s; eager device ms by op "
+          f"{rec['eager_breakdown']['forward_backward_device_ms']}")
+    return rec
+
+
+def bf16_path(torch, mt, ck):
+    """Phase 13 on ``gpu(0)``: (a) the training run's LM in bf16, its
+    first step against fp32 (``bf16_lm_first_step``) and 10 Adam steps
+    graphed and eager (``bf16_lm_train``); (b) the trained bf16 LM served
+    (``bf16_serving``); (c) ResNet-50's first steps against float64 in
+    fp32, TF32 and bf16 (``bf16_resnet_first_steps``) and its training
+    run in bf16 and under TF32 (``bf16_resnet_run``).  Launch counts
+    reset just before and summed over (a) and (b) just after."""
+    counts = Launches(torch, ck)
+    reset_launch_counts(ck)
+    wall = {}
+    params = gpt2_small_params(0)
+    t0 = time.perf_counter()
+    with TracedLaunches(torch, ck, "bf16 first step", on=False) as tr:
+        first = bf16_lm_first_step(torch, mt, ck, params,
+                                   next(iter(lm_batches(mt))))
+    counts.add(tr.launches)
+    train, trained = bf16_lm_train(torch, mt, ck, counts, params)
+    del params
+    torch.cuda.empty_cache()
+    wall["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving = bf16_serving(torch, mt, ck, counts, trained)
+    del trained
+    torch.cuda.empty_cache()
+    wall["serving"] = time.perf_counter() - t0
+    now = launch_counts(ck)
+    t0 = time.perf_counter()
+    resnet = {"first_steps": bf16_resnet_first_steps(torch, mt)}
+    for variant in ("bf16", "tf32"):
+        resnet[variant] = bf16_resnet_run(torch, mt, variant)
+    check(launch_counts(ck) == now, "phase 13: ResNet-50 launched a kernel "
+          "of the port's")
+    wall["resnet"] = time.perf_counter() - t0
+    L = GPT2_SMALL["num_layers"]
+    launched = {k: v for k, v in counts.total.items() if v}
+    check(all(launched.get(k, 0) > 0 for k in PACKED_KERNELS + (
+        "paged_attention_decode", "paged_attention_verify")),
+        f"phase 13 launched {launched}")
+    rec = {"first_step": first, "train": train, "serving": serving,
+           "resnet50": resnet, "part_wall_s": wall,
+           "launches": counts.total,
+           "bf16_traced_launches": train["bf16_launches"]}
+    print(json.dumps({"bf16_summary": {
+        "lm_step_p50_ms": train["step_p50_ms"],
+        "lm_eager_step_p50_ms": train.get("eager_step_p50_ms"),
+        "lm_step_device_ms": train["step_device_ms"],
+        "lm_eager_step_device_ms": train.get("eager_step_device_ms"),
+        "lm_graphs": train["graphs"],
+        "lm_peak_memory_bytes": train["peak_memory_bytes"],
+        "lm_tokens_per_s": train["tokens_per_s"],
+        "lm_losses": train["losses"],
+        "lm_graphed_vs_eager": train.get("graphed_vs_eager_err_over_tol"),
+        "lm_step_changed_share": train["step_changed_elements"]["share"],
+        "first_step": first,
+        "serving": {r: {k: s[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                          "decode_step_p50_ms",
+                                          "launches_by_dtype",
+                                          "accepted_token_rate")}
+                    for r, s in serving.items()},
+        "resnet50": {v: {"step_p50_ms": resnet[v]["step_p50_ms"],
+                         "images_per_s": resnet[v]["images_per_s"],
+                         "peak_memory_bytes": resnet[v]["peak_memory_bytes"],
+                         "graphs": resnet[v]["graphs"],
+                         "eager_device_ms_by_op": resnet[v][
+                             "eager_breakdown"]["forward_backward_device_ms"],
+                         "eager_update_device_ms": resnet[v][
+                             "eager_breakdown"]["update_device_ms"],
+                         "grad_err_norm_vs_float64":
+                         resnet["first_steps"][v]["grad_err_norm_vs_float64"],
+                         "grad_max_rel_err_vs_float64": resnet["first_steps"][
+                             v]["grad_max_rel_err_vs_float64"],
+                         "nodes": resnet["first_steps"][v]["nodes"]}
+                     for v in ("bf16", "tf32")},
+        "resnet50_fp32_grad_err_norm_vs_float64":
+            resnet["first_steps"]["fp32"]["grad_err_norm_vs_float64"],
+        "wall_s": wall}}))
+    return rec
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -5605,8 +6223,10 @@ def paths_timing(root, mode="paths"):
     port under ROOT (a checkout, e.g. a parent commit
     unpacked beside this one), one JSON line each; ``--kernels ROOT``
     the kernels alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase
-    10 (image classification) alone, ``--cnn ROOT`` phase 11 alone
-    and ``--ckpt ROOT`` phase 12 alone (each building B1 and B6 first).
+    10 (image classification) alone, ``--cnn ROOT`` phase 11 alone,
+    ``--ckpt ROOT`` phase 12 alone (each building B1 and B6 first) and
+    ``--bf16 ROOT`` phase 13 alone (B1 and the paged kernels built and
+    checked in bf16 at its shapes first).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -5644,6 +6264,26 @@ def paths_timing(root, mode="paths"):
                       "lstm_scan"])
         print(json.dumps({"paths_timing": {
             "root": root, "ckpt_path": ckpt_path(torch, mt, ck)}}))
+        print(card_line())
+        return 0
+    if mode == "bf16":
+        _build.build(["flash_mha_packed", "flash_mha_packed_bwd",
+                      "paged_attention_decode", "paged_attention_verify"])
+        rng = np.random.RandomState(2)
+        # the four bf16 instantiations on phase 13's path at its shapes
+        recs = [check_prefill(torch, ck, F, 1024, "bfloat16", B=B)
+                for B in (1, TRAIN_BATCH)]
+        recs += check_backward(torch, ck, F, TRAIN_BATCH, 1024, "bfloat16")
+        recs.append(check_decode(torch, ck, F, 16, 64, "bfloat16", rng))
+        recs.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
+                                 "bfloat16", rng))
+        for rec in recs:
+            print(json.dumps({"paths_timing": {"root": root, **rec}}))
+        torch.cuda.empty_cache()
+        rec = bf16_path(torch, mt, ck)
+        print(json.dumps({"paths_timing": {"root": root, "bf16_path": {
+            k: rec[k] for k in ("part_wall_s", "launches",
+                                "bf16_traced_launches")}}}))
         print(card_line())
         return 0
     if mode != "nms":
@@ -5716,6 +6356,7 @@ def paths_timing(root, mode="paths"):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this script drives "
               "the port on an NVIDIA card", file=sys.stderr)
@@ -5906,13 +6547,20 @@ def main():
     ckpt["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"ckpt_path": {k: ckpt[k] for k in (
         "part_wall_s", "launches", "wall_s")}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bf16 = bf16_path(torch, mt, ck)
+    bf16["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"bf16_path": {k: bf16[k] for k in (
+        "part_wall_s", "launches", "bf16_traced_launches", "wall_s")}}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
     # serving and step, the training run, the DPA training run, the
     # LSTM-PTB run, the SSD300 run, the sequence phase, phase 11 (the
-    # dropout LM's B1, the LSTM with dropout's lstm_scan) and phase 12
-    # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan)
+    # dropout LM's B1, the LSTM with dropout's lstm_scan), phase 12
+    # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan) and phase
+    # 13 (the bf16 LM's B1, its serving's B1 and paged kernels)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -5968,7 +6616,7 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence, image, cnn, ckpt]
+    all_runs = earlier + [sequence, image, cnn, ckpt, bf16]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -6000,6 +6648,7 @@ def main():
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"]})
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"wall_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -6014,7 +6663,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
-                         ["--image"], ["--cnn"], ["--ckpt"]):
+                         ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

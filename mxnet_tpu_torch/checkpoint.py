@@ -58,12 +58,12 @@ import torch
 
 from . import random as _random
 from .base import MXNetError, not_ported
-from .ndarray import NDArray
+from .ndarray import HostBF16, NDArray, tensor_to_host
 
 __all__ = [
     "CheckpointManager", "atomic_save", "atomic_write_bytes",
     "list_checkpoints", "read_commit", "verify_checkpoint", "load_shard",
-    "CkptInfo", "FORMAT", "FUSED_STATES_FORMAT",
+    "CkptInfo", "FORMAT", "FUSED_STATES_FORMAT", "dumps", "loads",
 ]
 
 FORMAT = "mxnet_tpu-ckpt-v1"
@@ -301,7 +301,7 @@ def load_shard(path: str, rank: int) -> Dict[str, Any]:
     if hashlib.sha256(blob).hexdigest() != shards[key]["sha256"]:
         raise MXNetError(f"checksum mismatch in {shard!r} "
                          "(corrupt checkpoint)")
-    state = pickle.loads(blob)
+    state = loads(blob)
     if not isinstance(state, dict) or state.get("format") != FORMAT:
         raise MXNetError(f"unrecognized snapshot format in {shard!r}")
     return state
@@ -311,29 +311,141 @@ def load_shard(path: str, rank: int) -> Dict[str, Any]:
 # host trees
 # ---------------------------------------------------------------------------
 
-def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of ``t`` (on the current stream).  bfloat16 has
-    no numpy type without ``ml_dtypes``, which the card's machine lacks:
-    such a state is not checkpointed yet."""
-    if t.dtype == torch.bfloat16:
-        raise not_ported("bfloat16 arrays in a pickled checkpoint "
-                         "(bf16 training, queue A item 4)")
-    return t.detach().cpu().numpy()
-
-
 def to_host_tree(obj):
     """``obj`` (dicts, lists, tuples, NDArrays, tensors, builtins) with
-    every array as a host numpy array."""
+    every array as a host numpy array, a bfloat16 one as a ``HostBF16``
+    (its bits; ``dumps`` pickles it as an ``ml_dtypes`` array)."""
     if isinstance(obj, dict):
         return {k: to_host_tree(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         t = [to_host_tree(v) for v in obj]
         return tuple(t) if isinstance(obj, tuple) else t
     if isinstance(obj, NDArray):
-        return _tensor_to_numpy(obj._data)
+        return tensor_to_host(obj._data)
     if isinstance(obj, torch.Tensor):
-        return _tensor_to_numpy(obj)
+        return tensor_to_host(obj)
     return obj
+
+
+# ---------------------------------------------------------------------------
+# pickles with bfloat16 arrays, without ml_dtypes
+# ---------------------------------------------------------------------------
+# numpy has no bfloat16 of its own: the JAX package pickles its bf16
+# arrays as numpy arrays of ``ml_dtypes.bfloat16``, a global that pickle
+# resolves by import on both ends, and the card's machine has no
+# ml_dtypes.  ``dumps`` writes a ``HostBF16`` in exactly numpy's form for
+# such an array, naming the global without importing it; ``loads`` reads
+# such an array back as a ``HostBF16`` whether ml_dtypes exists or not.
+
+class _MLBFloat16:
+    """Stands for the class ``ml_dtypes.bfloat16`` in a pickle."""
+
+
+_BF16_DTYPE_STATE = (3, "<", None, None, None, 2, 2, 64)  # numpy's, for it
+# numpy's array reconstructor (numpy._core or numpy.core by version)
+_RECONSTRUCT = np.zeros(0).__reduce__()[0]
+
+
+class _BF16Dtype:
+    """Stands for ``np.dtype(ml_dtypes.bfloat16)``: pickles as numpy
+    pickles that dtype; what ``loads`` makes of one."""
+
+    def __reduce__(self):
+        return (np.dtype, (_MLBFloat16, False, True), _BF16_DTYPE_STATE)
+
+    def __setstate__(self, state):
+        pass
+
+
+def _reduce_host_bf16(a: HostBF16):
+    return (_RECONSTRUCT, (np.ndarray, (0,), b"b"),
+            (1, a.bits.shape, _BF16Dtype(), False, a.bits.tobytes()))
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler (its ``save_global`` can be overridden:
+    the C one checks that a global imports) writing ``HostBF16`` as an
+    ``ml_dtypes.bfloat16`` array."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, HostBF16):
+            return _reduce_host_bf16(obj)
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is not _MLBFloat16:
+            return super().save_global(obj, name)
+        self.save("ml_dtypes")
+        self.save("bfloat16")
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def dumps(obj) -> bytes:
+    """``pickle.dumps(obj, protocol=4)``, with every ``HostBF16`` (and
+    bfloat16 tensor, through ``to_host_tree``) as the numpy array of
+    ``ml_dtypes.bfloat16`` the JAX package unpickles."""
+    import io
+
+    buf = io.BytesIO()
+    _Pickler(buf, protocol=4).dump(to_host_tree(obj))
+    return buf.getvalue()
+
+
+class _PendingArray:
+    """A numpy array being unpickled; ``loads`` replaces it with the
+    array, or with a ``HostBF16`` when its dtype is bfloat16."""
+
+    def __init__(self, args):
+        self.args = args
+        self.value = None
+
+    def __setstate__(self, state):
+        version, shape, dtype, fortran, raw = state
+        if isinstance(dtype, _BF16Dtype):
+            bits = np.frombuffer(raw, dtype=np.uint16)
+            bits = bits.reshape(shape, order="F" if fortran else "C")
+            self.value = HostBF16(bits.copy())
+        else:
+            arr = _RECONSTRUCT(*self.args)
+            arr.__setstate__(state)
+            self.value = arr
+
+
+def _make_dtype(obj, align=False, copy=False):
+    return _BF16Dtype() if obj is _MLBFloat16 else np.dtype(obj, align, copy)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return _MLBFloat16
+        if (module, name) == ("numpy", "dtype"):
+            return _make_dtype
+        if name == "_reconstruct" and module in ("numpy.core.multiarray",
+                                                 "numpy._core.multiarray"):
+            return lambda *args: _PendingArray(args)
+        return super().find_class(module, name)
+
+
+def _resolve(obj):
+    if isinstance(obj, _PendingArray):
+        return obj.value
+    if isinstance(obj, dict):
+        return {k: _resolve(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        t = [_resolve(v) for v in obj]
+        return tuple(t) if isinstance(obj, tuple) else t
+    return obj
+
+
+def loads(blob: bytes):
+    """``pickle.loads`` of a pickle of either package, every
+    ``ml_dtypes.bfloat16`` array read as a ``HostBF16`` (no
+    ``ml_dtypes`` needed), every other array as numpy."""
+    import io
+
+    return _resolve(_Unpickler(io.BytesIO(blob)).load())
 
 
 def _cuda_device(obj):
@@ -607,7 +719,7 @@ class CheckpointManager:
             return
         os.makedirs(tmp, exist_ok=True)
 
-        blob = pickle.dumps(self._host(snap), protocol=4)
+        blob = dumps(self._host(snap))
         sha = hashlib.sha256(blob).hexdigest()
         shard_path = os.path.join(tmp, _shard_name(rank))
         if self._crash.armed("mid_shard", save_count):
@@ -737,9 +849,9 @@ class CheckpointManager:
         if loader is None:
             raise MXNetError("module cannot restore optimizer states")
         if payload.get("kind") == "fused":
-            blob = pickle.dumps({"format": FUSED_STATES_FORMAT,
-                                 "step": payload["step"],
-                                 "states": payload["states"]})
+            blob = dumps({"format": FUSED_STATES_FORMAT,
+                          "step": payload["step"],
+                          "states": payload["states"]})
         else:
             blob = payload.get("blob", b"")
         if not blob:

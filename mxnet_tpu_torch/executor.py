@@ -20,10 +20,18 @@ that need a gradient, and backward walks it once.  ``_run`` and
 ``_backprop`` are the two halves over the bound arrays, which the
 Module's fused step (``module/fused_step.py``) runs as one function,
 with ``random.Streams`` in place of the step key.
+
+Both halves run with cuDNN held to its deterministic algorithms
+(``_cudnn_algorithms``): its default ones (a weight gradient split
+over atomic adds) sum in no fixed order, so two runs of one step, eager
+or under a CUDA graph, part by more than float32's rounding after a few
+steps of a BatchNorm net; with them one step gives one result, and the
+eager and graphed steps are equal bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List
 
 import torch
@@ -35,6 +43,19 @@ from .ndarray import NDArray, torch_dtype, zeros as nd_zeros
 from .ops.registry import OpContext, get_op
 
 __all__ = ["Executor", "simple_bind", "build_graph_fn"]
+
+
+@contextlib.contextmanager
+def _cudnn_algorithms():
+    """cuDNN kept to its deterministic algorithms while the graph runs
+    (the setting is the process's: restored after)."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = before
 
 
 def build_graph_fn(symbol):
@@ -180,7 +201,7 @@ class Executor:
                 leaves[n] = t
             args[n] = t
         aux = {n: a._data for n, a in self.aux_dict.items()}
-        with torch.set_grad_enabled(trace):
+        with torch.set_grad_enabled(trace), _cudnn_algorithms():
             outs, new_aux = self._graph_fn(args, aux, rng, bool(is_train))
         for name, val in new_aux.items():
             if val is not self.aux_dict[name]._data:  # an op left it as is
@@ -194,10 +215,11 @@ class Executor:
         # an output that depends on no parameter (a MakeLoss over a
         # target, grad_scale 0) contributes nothing
         live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
-        grads = torch.autograd.grad(
-            [o for o, _ in live], [leaves[n] for n in names],
-            grad_outputs=[h for _, h in live], allow_unused=True) \
-            if live else [None] * len(names)
+        with _cudnn_algorithms():
+            grads = torch.autograd.grad(
+                [o for o, _ in live], [leaves[n] for n in names],
+                grad_outputs=[h for _, h in live], allow_unused=True) \
+                if live else [None] * len(names)
         with torch.no_grad():
             for name, g in zip(names, grads):
                 dst = self.grad_dict[name]._data

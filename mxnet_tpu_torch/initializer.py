@@ -119,16 +119,27 @@ class Initializer:
         raise NotImplementedError("must override _init_weight")
 
 
-def _uniform_(arr: NDArray, low: float, high: float):
+def _draw_(arr: NDArray, draw):
+    """``draw(float32 tensor, generator)`` into ``arr``: values are drawn
+    in float32 and cast to the array's dtype, as the JAX package samples
+    a float32 array into a bf16 or fp16 parameter (so a half-precision
+    network starts from its float32 twin's values, rounded)."""
+    t = arr._data
+    gen = _random.generator(t.device)
     with torch.no_grad():
-        arr._data.uniform_(low, high,
-                           generator=_random.generator(arr._data.device))
+        if t.dtype == torch.float32:
+            draw(t, gen)
+        else:
+            t.copy_(draw(torch.empty(t.shape, dtype=torch.float32,
+                                     device=t.device), gen))
+
+
+def _uniform_(arr: NDArray, low: float, high: float):
+    _draw_(arr, lambda t, gen: t.uniform_(low, high, generator=gen))
 
 
 def _normal_(arr: NDArray, sigma: float):
-    with torch.no_grad():
-        arr._data.normal_(0.0, sigma,
-                          generator=_random.generator(arr._data.device))
+    _draw_(arr, lambda t, gen: t.normal_(0.0, sigma, generator=gen))
 
 
 @register

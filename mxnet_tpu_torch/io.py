@@ -8,6 +8,10 @@ device, into the arrays it bound.  ``state_dict``/``set_state`` give a
 checkpoint the position of ``NDArrayIter`` (its cursor and shuffle
 order) and ``ResizeIter`` in the JAX iterators' form
 (``mxnet_tpu/io.py:120-140, 236-260, 312-320``); other iterators raise.
+A source keeps its dtype in ``provide_data``/``provide_label``, so that
+``Module.bind`` types the network in it: a bfloat16 source (an NDArray,
+a tensor or an ``ml_dtypes`` array) is held as a CPU tensor and
+described as ``"bfloat16"``.
 """
 
 from __future__ import annotations
@@ -15,10 +19,11 @@ from __future__ import annotations
 from collections import namedtuple
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import cpu
-from .ndarray import NDArray, array
+from .ndarray import NDArray, array, dtype_name, tensor_from_numpy
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
            "ResizeIter"]
@@ -104,7 +109,7 @@ def _init_data(data, allow_empty, default_name):
         if not allow_empty:
             raise ValueError("data is required")
         data = []
-    if isinstance(data, (np.ndarray, NDArray)):
+    if isinstance(data, (np.ndarray, NDArray, torch.Tensor)):
         data = [data]
     if isinstance(data, list):
         if not allow_empty and not data:
@@ -116,9 +121,27 @@ def _init_data(data, allow_empty, default_name):
     if not isinstance(data, dict):
         raise TypeError("Input must be NDArray, numpy.ndarray, a list of "
                         "them or dict with them as values")
-    out = {k: (v.asnumpy() if isinstance(v, NDArray) else np.asarray(v))
-           for k, v in data.items()}
-    return sorted(out.items())
+    return sorted((k, _host_source(v)) for k, v in data.items())
+
+
+def _host_source(v):
+    """A source on the host: a numpy array, or a CPU bfloat16 tensor for
+    a bfloat16 source (an NDArray, a tensor or an ``ml_dtypes`` array),
+    which numpy cannot hold without ``ml_dtypes``."""
+    if isinstance(v, NDArray):
+        v = v._data
+    if isinstance(v, torch.Tensor):  # a copy, as asnumpy gives
+        t = v.detach().to("cpu", copy=True)
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    v = np.asarray(v)
+    return tensor_from_numpy(v) if v.dtype.name == "bfloat16" else v
+
+
+def _desc(name, shape, dtype):
+    """A DataDesc with a tensor source's dtype by name ("bfloat16")."""
+    if isinstance(dtype, torch.dtype):
+        dtype = dtype_name(dtype)
+    return DataDesc(name, shape, dtype)
 
 
 class NDArrayIter(DataIter):
@@ -146,12 +169,12 @@ class NDArrayIter(DataIter):
 
     @property
     def provide_data(self):
-        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+        return [_desc(k, (self.batch_size,) + tuple(v.shape[1:]), v.dtype)
                 for k, v in self.data]
 
     @property
     def provide_label(self):
-        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+        return [_desc(k, (self.batch_size,) + tuple(v.shape[1:]), v.dtype)
                 for k, v in self.label]
 
     def hard_reset(self):
@@ -182,7 +205,9 @@ class NDArrayIter(DataIter):
         else:  # padded last batch wraps around
             sel = np.concatenate([self._order[self.cursor:self.num_data],
                                   self._order[:end - self.num_data]])
-        return [array(x[1][sel], ctx=cpu()) for x in data_source]
+        return [array(x[1][torch.from_numpy(sel)]
+                      if isinstance(x[1], torch.Tensor) else x[1][sel],
+                      ctx=cpu()) for x in data_source]
 
     def state_dict(self):
         return {"kind": "NDArrayIter", "cursor": int(self.cursor),

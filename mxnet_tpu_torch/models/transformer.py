@@ -35,7 +35,7 @@ from torch import nn
 
 from .. import symbol as sym
 from ..attribute import AttrScope
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..ops import attention as att
 from ..ops.indexing import embedding, take
 from ..ops.nn import fully_connected, gelu, layer_norm
@@ -117,11 +117,13 @@ def transformer_lm(vocab_size, seq_len, num_layers=4, num_heads=4,
     (``layer{i}_attn_drop``, ``layer{i}_ff_drop``), never inside
     attention.
 
-    The port carries ``dtype="float32"``."""
+    ``dtype`` is the network's compute dtype: the token ids and
+    ``tok_embed_weight`` stay float32 (bfloat16 holds no id above 256
+    exactly), a ``Cast`` after the embedding (``embed_cast``) and the
+    typed ``pos_embed_weight`` type every later layer, and binding infers
+    every other parameter in ``dtype``."""
     if d_model % num_heads:
         raise ValueError(f"d_model {d_model} % num_heads {num_heads} != 0")
-    if dtype != "float32":
-        raise not_ported(f"transformer_lm(dtype={dtype!r})")
     if head not in ("ce", "softmax"):
         raise MXNetError(f"transformer_lm: head {head!r} (ce or softmax)")
     d_ff = d_ff or 4 * d_model
@@ -132,6 +134,8 @@ def transformer_lm(vocab_size, seq_len, num_layers=4, num_heads=4,
                       weight=sym.Variable(
                           "tok_embed_weight",
                           attr=logical_axes("vocab", "embed")))
+    if dtype != "float32":
+        x = sym.Cast(x, dtype=dtype, name="embed_cast")
     pos = sym.Variable("pos_embed_weight", shape=(seq_len, d_model),
                        dtype=dtype, init="[\"zero\", {}]",
                        attr=logical_axes("length", "embed"))
@@ -188,10 +192,15 @@ class TransformerLM(nn.Module):
 
     def _trunk(self, data, positions,
                attend: Callable[[int, torch.Tensor], torch.Tensor]):
-        """Embedding → blocks → ln_f → head logits; layer i's attention
-        sublayer is ``attend(i, qkv) -> (B, S, H*D)``."""
-        x = embedding(data, self._p("tok_embed_weight")) \
-            + take(self._p("pos_embed_weight"), positions)
+        """Embedding → blocks → ln_f → head logits (float32); layer i's
+        attention sublayer is ``attend(i, qkv) -> (B, S, H*D)``.  The
+        blocks run in ``pos_embed_weight``'s dtype, as the training
+        symbol's ``embed_cast`` makes them run (the embedding, float32,
+        is cast to it): a bf16 LM's attention meets B1's and the paged
+        kernels' bf16 instantiations."""
+        pos = self._p("pos_embed_weight")
+        x = embedding(data, self._p("tok_embed_weight")).to(pos.dtype) \
+            + take(pos, positions)
         for i in range(self.num_layers):
             p = f"layer{i}_"
             h = layer_norm(x, self._p(p + "ln1_gamma"),
@@ -209,7 +218,7 @@ class TransformerLM(nn.Module):
                                     self._p(p + "ff2_bias"))
         x = layer_norm(x, self._p("ln_f_gamma"), self._p("ln_f_beta"))
         return fully_connected(x, self._p("head_weight"),
-                               self._p("head_bias"))
+                               self._p("head_bias")).float()
 
     def _check_pools(self, pools: Sequence[torch.Tensor]) -> int:
         """The pool stride: 2 ([k, v] a layer) or, for int8/fp8 codes,

@@ -21,10 +21,16 @@ steps of every bucket share.
 ``Graphed`` runs such a function on the card as a CUDA graph: its first
 ``_WARMUP_STEPS`` calls run eagerly on a side stream (real steps, which
 also build and load every kernel at its first use), the next call is
-captured with ``torch.cuda.graph`` into the module's graph pool and
-replayed once to perform it, and every later call replays (captured in
-the ``thread_local`` error mode, so that another thread's CUDA work,
-such as a checkpoint writer's copies, may go on meanwhile).  The batch
+captured on that same stream into the module's graph pool, with no
+garbage collection meanwhile, and replayed once to perform it, and every
+later call replays (captured in the ``thread_local`` error mode, so that
+another thread's CUDA work, such as a checkpoint writer's copies, may go
+on meanwhile).  A capture on a stream of its own (``torch.cuda.graph``'s
+way) met cuBLAS's and cuDNN's per-stream state first inside the
+capture.  The executor keeps cuDNN to its deterministic algorithms
+(``executor._cudnn_algorithms``), in the warm-ups and the capture as
+in the eager steps, so graphed and eager steps are equal bit for bit.
+The batch
 is copied into the bound argument arrays outside the graph; they are
 its static inputs.  A replay's outputs are handed out as copies, so outputs a
 caller keeps are not overwritten by the next step.  Before each replay
@@ -60,15 +66,16 @@ uncaptured too: CUDA graphs exist only on the card.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, List
 
-import numpy as np
 import torch
 
 from .. import random as _random
 from ..base import MXNetError
 from ..checkpoint import to_host_tree
+from ..ndarray import tensor_from_numpy
 from ..optimizer import place_state
 from ..ops.registry import get_op
 
@@ -226,8 +233,7 @@ def _copy_tree(dst, src):
         for d, x in zip(dst, src):
             _copy_tree(d, x)
         return
-    x = src if isinstance(src, torch.Tensor) \
-        else torch.from_numpy(np.array(src, copy=True))
+    x = src if isinstance(src, torch.Tensor) else tensor_from_numpy(src)
     if tuple(x.shape) != tuple(dst.shape):
         raise MXNetError(f"an optimizer state of shape {tuple(x.shape)} "
                          f"for one of {tuple(dst.shape)}")
@@ -295,6 +301,22 @@ class InferStep:
                 + [a._data for a in self.ex.aux_dict.values()])
 
 
+def _release_cached_memory():
+    """Give the allocators' cached blocks back to the device and the
+    pinned host memory back to the host, as ``torch.cuda.graph`` does
+    before it captures: a capture allocates only from its own pool and
+    cannot take a cached block (SSD300's detection capture ran out of
+    memory on the card with 35.44 GiB cached), and this also retires the
+    pools of dropped graphs (capturing into a pool whose every graph is
+    gone before the allocators retire it fails an assertion of
+    theirs)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    host = getattr(torch._C, "_host_emptyCache", None)
+    if host is not None:
+        host()
+
+
 class Graphed:
     """``step`` (a ``TrainStep`` or ``InferStep``) under a CUDA graph in
     the memory pool ``pool()`` returns at the capture, every generator
@@ -353,21 +375,39 @@ class Graphed:
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         t0 = time.perf_counter()
-        # torch.cuda.graph releases the cached blocks before it captures:
-        # release them first, so the growth is the pool's
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        # no garbage collection inside the capture: a CUDA graph freed
+        # there (one in a reference cycle) resets itself, which the
+        # capture does not permit, and the capture fails
+        gc.collect()
+        _release_cached_memory()
         reserved = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph()
         for g in self.step.streams.generators():
             if g.device.type == "cuda":
                 graph.register_generator_state(g)
-        # thread_local: another thread's CUDA calls (a checkpoint writer's
-        # copies on its own stream) neither fail this capture nor fail
-        # themselves, as they do under the default global mode
-        with torch.cuda.graph(graph, pool=self.pool(),
-                              capture_error_mode="thread_local"):
-            outs = self.step()
+        # captured on the warm-ups' stream (torch.cuda.graph would capture
+        # on a stream of its own): cuBLAS's and cuDNN's per-stream state
+        # and workspaces are the ones the eager steps used, not met
+        # first inside the capture.  thread_local: another thread's CUDA
+        # calls (a checkpoint writer's copies on its own stream) neither
+        # fail this capture nor fail themselves, as they do under the
+        # default global mode
+        main = torch.cuda.current_stream()
+        self.side.wait_stream(main)
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self.side):
+                graph.capture_begin(self.pool(),
+                                    capture_error_mode="thread_local")
+                try:
+                    outs = self.step()
+                finally:
+                    graph.capture_end()
+        finally:
+            if gc_was_on:
+                gc.enable()
+        main.wait_stream(self.side)
         self.capture_ms += (time.perf_counter() - t0) * 1e3
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
         self.captures += 1

@@ -32,9 +32,11 @@ Checkpoints follow ``:203-224`` and ``:2102-2390``: ``Module.load``,
 ``save_checkpoint``, and the optimizer states in both of the JAX
 package's files, the fused one (a pickle of {"format", "step",
 "states": {name: tree}}) and the ``Updater`` blob, mapped to names for
-the fused step.  A restore before the first fused step is pending and
-installed when the step makes its ``FusedState``; the ``Updater`` is
-filled too, for a module that ends up on the eager path.
+the fused step; bf16 states pickle as ``ml_dtypes`` arrays through
+``checkpoint.dumps``/``loads``, with no ``ml_dtypes`` here.  A restore
+before the first fused step is pending and installed when the step
+makes its ``FusedState``; the ``Updater`` is filled too, for a module
+that ends up on the eager path.
 ``_optimizer_states_to_host``/``_install_optimizer_states`` carry the
 same payload for ``checkpoint.CheckpointManager``.  Multi-device
 contexts, kvstores other than ``None``/``'local'``, mesh plans and
@@ -45,7 +47,6 @@ from __future__ import annotations
 
 import logging
 import os
-import pickle
 
 import torch
 
@@ -53,10 +54,10 @@ from .. import optimizer as opt
 from .. import random as _random
 from ..base import MXNetError, not_ported
 from ..checkpoint import (FUSED_STATES_FORMAT, atomic_save,
-                          atomic_write_bytes, to_host_tree)
+                          atomic_write_bytes, dumps, loads, to_host_tree)
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
-from ..ndarray import NDArray
+from ..ndarray import NDArray, dtype_name
 from . import fused_step as _fs
 from .base_module import BaseModule
 
@@ -205,9 +206,12 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Allocate every array on the module's device from the shapes
-        (DataDesc or (name, shape) entries).  With ``shared_module`` the
-        parameters and their gradients are that module's NDArray objects
-        (the same storage), which every parameter must match."""
+        (DataDesc or (name, shape) entries) and the DataDescs' dtypes (a
+        bf16 or fp16 ``data`` types every homogeneous parameter through
+        ``infer_type``; ``BucketingModule`` binds each bucket here).
+        With ``shared_module`` the parameters and their gradients are
+        that module's NDArray objects (the same storage), which every
+        parameter must match."""
         if force_rebind:
             self._exec = None
             self.binded = False
@@ -225,6 +229,12 @@ class Module(BaseModule):
                               if label_shapes else None)
         shape_kwargs = dict(self._data_shapes)
         shape_kwargs.update(dict(self._label_shapes or []))
+        # the descriptors' dtypes bind the network in them (a bf16 or fp16
+        # batch types every homogeneous parameter through infer_type), as
+        # mxnet_tpu/module/module.py:336-345
+        type_dict = {d[0]: dtype_name(d.dtype)
+                     for descs in (data_shapes, label_shapes or [])
+                     for d in descs if getattr(d, "dtype", None) is not None}
         req = {}
         for name in self._symbol.list_arguments():
             if name in self._data_names:
@@ -240,6 +250,7 @@ class Module(BaseModule):
             self._pool_owner = shared_module._pool_owner
         self._exec = self._symbol.simple_bind(self._context[0],
                                               grad_req=req,
+                                              type_dict=type_dict or None,
                                               shared_exec=shared_exec,
                                               **shape_kwargs)
         _, out_shapes, _ = self._symbol.infer_shape(**shape_kwargs)
@@ -497,10 +508,10 @@ class Module(BaseModule):
             raise MXNetError("save_optimizer_states needs init_optimizer")
         payload = self._optimizer_states_to_host()
         if payload["kind"] == "fused":
-            blob = pickle.dumps({"format": FUSED_STATES_FORMAT,
-                                 "step": payload["step"],
-                                 "states": payload["states"],
-                                 "torch_streams": payload["torch_streams"]})
+            blob = dumps({"format": FUSED_STATES_FORMAT,
+                          "step": payload["step"],
+                          "states": payload["states"],
+                          "torch_streams": payload["torch_streams"]})
         else:
             blob = payload["blob"]
         atomic_write_bytes(fname, blob)
@@ -511,7 +522,7 @@ class Module(BaseModule):
             raise MXNetError("load_optimizer_states needs init_optimizer")
         with open(fname, "rb") as f:
             blob = f.read()
-        data = pickle.loads(blob)
+        data = loads(blob)
         if isinstance(data, dict) and \
                 data.get("format") == FUSED_STATES_FORMAT:
             self._install_host_states(int(data["step"]), data["states"],

@@ -31,7 +31,8 @@ from .context import Context, cpu, current_context
 
 __all__ = ["NDArray", "array", "zeros", "empty", "ones", "full", "arange",
            "concatenate", "torch_dtype", "dtype_name", "save", "load",
-           "imperative_invoke"]
+           "imperative_invoke", "HostBF16", "tensor_from_numpy",
+           "tensor_to_host"]
 
 _py_slice = slice
 
@@ -71,6 +72,48 @@ def _np_dtype(tdt: torch.dtype):
     back as float32."""
     name = _NAMES.get(tdt, "float32")
     return np.dtype("float32" if name == "bfloat16" else name)
+
+
+class HostBF16:
+    """A bfloat16 array on the host as its bits (``bits``, a uint16
+    numpy array): numpy has no bfloat16 of its own, and the port never
+    imports ``ml_dtypes``.  ``checkpoint.dumps`` pickles it as an
+    ``ml_dtypes.bfloat16`` array; ``checkpoint.loads`` reads such an
+    array back as one."""
+
+    __slots__ = ("bits",)
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = np.ascontiguousarray(bits).view(np.uint16)
+
+    shape = property(lambda self: self.bits.shape)
+    dtype = property(lambda self: "bfloat16")
+
+    def tensor(self) -> torch.Tensor:
+        """The array as a CPU bfloat16 tensor (a copy)."""
+        return torch.from_numpy(self.bits.view(np.int16).copy()) \
+            .view(torch.bfloat16)
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor copy of a host array: numpy (an ``ml_dtypes``
+    bfloat16 array, recognized by its dtype's name, is read through its
+    uint16 bits), a ``HostBF16``, or anything ``np.asarray`` takes."""
+    if isinstance(arr, HostBF16):
+        return arr.tensor()
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return HostBF16(arr.view(np.uint16)).tensor()
+    return torch.from_numpy(np.array(arr, copy=True, order="C"))
+
+
+def tensor_to_host(t: torch.Tensor):
+    """A host copy of ``t``: a numpy array, or a ``HostBF16`` for
+    bfloat16 (the bits, never a widened float32)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return HostBF16(t.contiguous().view(torch.int16).numpy().copy())
+    return t.numpy().copy()
 
 
 class NDArray:
@@ -160,11 +203,11 @@ class NDArray:
         if isinstance(value, torch.Tensor):
             return value.detach().to(device=self._data.device,
                                      dtype=self._data.dtype)
-        arr = np.asarray(value)
+        arr = value if isinstance(value, HostBF16) else np.asarray(value)
         if arr.dtype == np.float64:
             arr = arr.astype(np.float32)
-        return torch.from_numpy(np.array(arr, copy=True)).to(
-            device=self._data.device, dtype=self._data.dtype)
+        return tensor_from_numpy(arr).to(device=self._data.device,
+                                         dtype=self._data.dtype)
 
     def __setitem__(self, key, value):
         if not self.writable:
@@ -244,7 +287,7 @@ def array(source_array, ctx: Optional[Context] = None,
     elif isinstance(source_array, torch.Tensor):
         src = source_array.detach()
     else:
-        src = torch.from_numpy(np.array(np.asarray(source_array), copy=True))
+        src = tensor_from_numpy(source_array)
         if dtype is None:
             src = src.to(_NARROW.get(src.dtype, src.dtype))
     ctx, dev = _ctx(ctx)
@@ -313,7 +356,7 @@ def _write_array(f, arr) -> None:
     elif isinstance(arr, torch.Tensor):
         t = arr.detach()
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = tensor_from_numpy(arr)
     name = _NAMES.get(t.dtype)
     if name not in _DTYPE_TO_CODE:
         t, name = t.float(), "float32"

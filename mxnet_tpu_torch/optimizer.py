@@ -19,19 +19,31 @@ each weight's and state's dtype (the JAX segment's ``astype``); the
 learning rate and Adam's bias correction are float64 (Python's, or the
 tensors'), cast once to the weights' type.  The arithmetic follows the
 reference's ``apply`` term by term.
+
+A bfloat16 or float16 weight is updated with no master copy, as the
+JAX fused step has none (``mxnet_tpu/module/module.py:1348-1360``):
+every term is formed in float32 from the gradient's, weight's and
+states' values, and the new weight and states are rounded once into
+their dtypes.  (The JAX step rounds the terms without the rate to the
+weight's dtype on the way; the two agree within those roundings.)  One
+body serves every dtype: it works on float32 copies of the half-precision
+tensors (``_widen``: a float32 or float64 tensor is its own) and writes
+back only the copies (``_narrow_into``), in ``apply`` and ``_step``
+alike, and a list may mix dtypes.  Every product with a Python number
+is taken in float32 or float64, where a multi-tensor op and a tensor's
+own op round alike (on the CPU, ``torch._foreach_mul_`` rounds the
+number to a bf16 list's dtype first and ``mul_`` does not).
 """
 
 from __future__ import annotations
 
 import math
-import pickle
 from typing import Any, Dict
 
-import numpy as np
 import torch
 
 from .base import Registry
-from .ndarray import NDArray
+from .ndarray import NDArray, tensor_from_numpy
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
            "register", "place_state"]
@@ -156,15 +168,30 @@ class Optimizer:
         return state
 
 
-def _scalar_for(x, weights):
-    """``x`` for a foreach op over ``weights``: a Python number as it
-    is, a 0-dim tensor cast to the lists' type (float32 for a half
-    type), which keeps the op on its multi-tensor path."""
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _widen(tensors):
+    """float32 copies of the half-precision tensors, the others as
+    they are."""
+    return [t.float() if t.dtype in _HALF else t for t in tensors]
+
+
+def _narrow_into(dst, src):
+    """Round each of ``_widen``'s copies ``src`` once into its tensor
+    of ``dst``."""
+    pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+
+def _scalar_for(x, tensors):
+    """``x`` for a foreach op over ``tensors`` (float32 or float64): a
+    Python number as it is, a 0-dim tensor cast to the lists' type, which
+    keeps the op on its multi-tensor path."""
     if not isinstance(x, torch.Tensor):
         return x
-    dt = weights[0].dtype
-    return x.to(dt if dt in (torch.float32, torch.float64)
-                else torch.float32)
+    return x.to(tensors[0].dtype)
 
 
 @register
@@ -183,24 +210,31 @@ class SGD(Optimizer):
     def apply(self, weights, grads, states, lr, wd, t):
         if not weights:
             return
-        g = self._preprocess(grads)
+        g = self._preprocess(_widen(grads))
         torch._foreach_add_(g, weights, alpha=wd)
-        torch._foreach_mul_(g, _scalar_for(lr, weights))
+        torch._foreach_mul_(g, _scalar_for(lr, g))
+        w = _widen(weights)
         if self.momentum == 0.0:
-            torch._foreach_sub_(weights, g)
-            return
-        torch._foreach_mul_(states, self.momentum)
-        torch._foreach_sub_(states, g)
-        torch._foreach_add_(weights, states)
+            torch._foreach_sub_(w, g)
+        else:
+            mom = _widen(states)
+            torch._foreach_mul_(mom, self.momentum)
+            torch._foreach_sub_(mom, g)
+            torch._foreach_add_(w, mom)
+            _narrow_into(states, mom)
+        _narrow_into(weights, w)
 
     def _step(self, w, g, state, lr, wd, t):
+        g, w32 = _widen([g, w])
         g = self._preprocess_one(g)
         g.add_(w, alpha=wd).mul_(lr)
         if self.momentum == 0.0:
-            w.sub_(g)
-            return
-        state.mul_(self.momentum).sub_(g)
-        w.add_(state)
+            w32.sub_(g)
+        else:
+            mom, = _widen([state])
+            w32.add_(mom.mul_(self.momentum).sub_(g))
+            _narrow_into([state], [mom])
+        _narrow_into([w], [w32])
 
 
 @register
@@ -220,9 +254,9 @@ class Adam(Optimizer):
     def apply(self, weights, grads, states, lr, wd, t):
         if not weights:
             return
-        m = [s[0] for s in states]
-        v = [s[1] for s in states]
-        g = self._preprocess(grads)
+        m = _widen([s[0] for s in states])
+        v = _widen([s[1] for s in states])
+        g = self._preprocess(_widen(grads))
         torch._foreach_add_(g, weights, alpha=wd)
         torch._foreach_mul_(m, self.beta1)
         torch._foreach_add_(m, g, alpha=1 - self.beta1)
@@ -232,17 +266,22 @@ class Adam(Optimizer):
         denom = torch._foreach_sqrt(v)
         torch._foreach_add_(denom, self.epsilon)
         step = torch._foreach_div(m, denom)
-        torch._foreach_mul_(step, _scalar_for(self._lr_t(lr, t), weights))
-        torch._foreach_sub_(weights, step)
+        torch._foreach_mul_(step, _scalar_for(self._lr_t(lr, t), step))
+        w = _widen(weights)
+        torch._foreach_sub_(w, step)
+        _narrow_into([s[0] for s in states], m)
+        _narrow_into([s[1] for s in states], v)
+        _narrow_into(weights, w)
 
     def _step(self, w, g, state, lr, wd, t):
-        m, v = state
+        m, v, g, w32 = _widen([*state, g, w])
         g = self._preprocess_one(g)
         g.add_(w, alpha=wd)
         m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
         v.mul_(self.beta2).add_(g * g, alpha=1 - self.beta2)
         step = m / v.sqrt().add_(self.epsilon)
-        w.sub_(step.mul_(self._lr_t(lr, t)))
+        w32.sub_(step.mul_(self._lr_t(lr, t)))
+        _narrow_into([*state, w], [m, v, w32])
 
     def _lr_t(self, lr, t):
         """The rate with the bias correction of update ``t`` folded in
@@ -259,7 +298,9 @@ class Updater:
     ``Updater`` blob (``mxnet_tpu/optimizer.py:469-476``): a pickle of
     {index: None, an array, or a tuple of arrays}, numpy on the host.  A
     state set from a blob moves to its weight's device (and dtype) at
-    that index's next update."""
+    that index's next update.  bfloat16 states go through
+    ``checkpoint.dumps``/``loads``: as ``ml_dtypes`` arrays in the blob,
+    with no ``ml_dtypes`` here."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -276,13 +317,14 @@ class Updater:
                                                    self.states[index])
 
     def get_states(self) -> bytes:
-        from .checkpoint import to_host_tree
+        from .checkpoint import dumps
 
-        return pickle.dumps({k: to_host_tree(v)
-                             for k, v in self.states.items()})
+        return dumps(self.states)
 
     def set_states(self, states_blob: bytes) -> None:
-        self.states = dict(pickle.loads(states_blob))
+        from .checkpoint import loads
+
+        self.states = dict(loads(states_blob))
 
 
 def place_state(tree, device, dtype=None):
@@ -293,8 +335,7 @@ def place_state(tree, device, dtype=None):
         return None
     if isinstance(tree, (tuple, list)):
         return type(tree)(place_state(x, device, dtype) for x in tree)
-    t = tree if isinstance(tree, torch.Tensor) \
-        else torch.from_numpy(np.array(tree, copy=True))
+    t = tree if isinstance(tree, torch.Tensor) else tensor_from_numpy(tree)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

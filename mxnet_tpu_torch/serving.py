@@ -52,6 +52,7 @@ import torch
 from .base import MXNetError, get_env, not_ported
 from .context import current_context
 from .convert import params_from_numpy
+from .ndarray import torch_dtype
 from .kv_cache import (KV_DTYPES, BlockAllocator, blocks_for_tokens,
                        bucket_ladder, kv_quantized, kv_storage_dtype,
                        trim_blocks)
@@ -121,7 +122,7 @@ def _env_buckets(name: str, default):
 
 
 def _refuse_unported(*, prefix_cache, evict_policy, prefill_chunk, tp,
-                     pp, devices, adapters, tenant_quota, dtype) -> None:
+                     pp, devices, adapters, tenant_quota) -> None:
     """Raise for every feature of the JAX engine this port does not
     carry yet, asked for by argument or by environment variable."""
     pc = prefix_cache if prefix_cache is not None else \
@@ -152,9 +153,6 @@ def _refuse_unported(*, prefix_cache, evict_policy, prefill_chunk, tp,
             or _env_int("MXNET_TENANT_QUOTA_TOKENS", 0, 0):
         raise not_ported("tenant quotas (tenant_quota / "
                          "MXNET_TENANT_QUOTA_TOKENS)")
-    if dtype != "float32":
-        raise not_ported(f"dtype={dtype!r} pool storage (bf16 pages come "
-                         f"from kv_dtype='bf16')")
 
 
 class _Metrics:
@@ -238,7 +236,9 @@ class DecodeEngine:
     params : dict
         Arrays or tensors by training-symbol name (``Module.get_params``
         of the JAX package, or ``params_from_numpy``).  They are moved to
-        the engine's device as float32.
+        the engine's device in their own dtypes (a bf16 LM's stay bf16,
+        its ``tok_embed_weight`` float32), and the model computes in
+        ``pos_embed_weight``'s (``TransformerLM``).
     vocab_size, num_layers, num_heads, d_model, d_ff : int
         Architecture of the served model.
     max_len : int, optional
@@ -266,6 +266,10 @@ class DecodeEngine:
         Pool storage (env ``MXNET_SERVING_KV_DTYPE``): ``'fp32'``
         (default), ``'bf16'``, or quantized ``'int8'`` / ``'fp8'``
         (e4m3) codes with float32 scale pools.
+    dtype : str
+        The pools' storage dtype while ``kv_dtype`` is ``'fp32'``
+        (default ``"float32"``; ``"bfloat16"`` stores bf16 pages, as
+        ``kv_dtype='bf16'`` does).
     spec_tokens : int
         Speculative draft depth k (env ``MXNET_SERVING_SPEC_TOKENS``,
         default 0 = off): up to k + 1 tokens a stream per step.
@@ -287,13 +291,20 @@ class DecodeEngine:
                          evict_policy=evict_policy,
                          prefill_chunk=prefill_chunk, tp=tp, pp=pp,
                          devices=devices, adapters=adapters,
-                         tenant_quota=tenant_quota, dtype=dtype)
+                         tenant_quota=tenant_quota)
         self._kv_dtype = kv_dtype if kv_dtype is not None else \
             get_env("MXNET_SERVING_KV_DTYPE", "fp32", str)
         if self._kv_dtype not in KV_DTYPES:
             raise MXNetError(f"kv_dtype {self._kv_dtype!r} must be one of "
                              f"{KV_DTYPES} (MXNET_SERVING_KV_DTYPE)")
+        # the pools' storage: ``dtype`` while kv_dtype is fp32, else the
+        # kv_dtype's (mxnet_tpu/serving.py:1205-1208)
         pool_dtype = kv_storage_dtype(self._kv_dtype)
+        if self._kv_dtype == "fp32":
+            pool_dtype = torch_dtype(dtype)
+            if pool_dtype not in (torch.float32, torch.bfloat16):
+                raise not_ported(f"dtype={dtype!r} pages (the paged "
+                                 f"kernels take float32 and bfloat16)")
         self._spec_k = int(spec_tokens) if spec_tokens is not None else \
             _env_int("MXNET_SERVING_SPEC_TOKENS", 0, 0)
         if self._spec_k < 0:
@@ -343,7 +354,7 @@ class DecodeEngine:
             raise MXNetError(
                 f"max_len {self._max_len} exceeds the model's learned "
                 f"positions ({pos_rows} pos_embed_weight rows)")
-        dev_params = params_from_numpy(params, self._device, torch.float32)
+        dev_params = params_from_numpy(params, self._device, dtype=None)
         self._model = TransformerLM(dev_params, num_layers=self._L,
                                     num_heads=self._H,
                                     kv_block=self._kv_block)

@@ -286,7 +286,10 @@ class Symbol:
         dtypes: Dict[Tuple[int, int], str] = {}
         for n in nodes:
             if n.is_variable:
-                dt = known.get(n.name, n._meta.get("__dtype__"))
+                # Variable(dtype=...) keeps its pin in _meta; a loaded
+                # symbol's in its attrs
+                dt = known.get(n.name, n._meta.get(
+                    "__dtype__", n.attrs.get("__dtype__")))
                 if dt is not None:
                     dtypes[(id(n), 0)] = dt
 

@@ -451,6 +451,197 @@ def test_save_load_params_and_updater_states_round_trip(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+# ---------------------------------------------------------------------------
+# bf16 optimizer states: pickles of ml_dtypes arrays, without ml_dtypes
+# ---------------------------------------------------------------------------
+
+def _bf16_module(pkg, arg0=None):
+    """The crash worker's MLP bound from bfloat16 data descriptors (every
+    parameter bf16), from ``arg0`` (the JAX module's seeded Xavier
+    parameters when None) → (module, its start parameters)."""
+    import ml_dtypes
+
+    dt = "bfloat16" if pkg is mt else ml_dtypes.bfloat16
+    sym = W.build_sym() if pkg is mt else W.build_sym(mx.sym)
+    ctx = mt.cpu() if pkg is mt else mx.cpu()
+    mod = pkg.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[pkg.io.DataDesc("data", (W.BATCH, W.IN_DIM), dt)],
+             label_shapes=[pkg.io.DataDesc("softmax_label", (W.BATCH,))])
+    if arg0 is None:
+        mx.random.seed(0)
+        if pkg is mx:
+            mod.init_params(mx.initializer.Xavier(rnd_type="gaussian"))
+            arg0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            return mod, arg0
+        arg0 = _bf16_module(mx)[1]
+    mod.init_params(arg_params=arg0)
+    return mod, arg0
+
+
+def _bf16_batches(pkg, n):
+    import ml_dtypes
+
+    out = []
+    for b in _batches(mt, n):
+        X = b.data[0].asnumpy().astype(ml_dtypes.bfloat16)
+        y = b.label[0].asnumpy()
+        arr = (lambda v: mt.nd.array(v, ctx=mt.cpu())) if pkg is mt \
+            else mx.nd.array
+        out.append(pkg.io.DataBatch([arr(X)], [arr(y)]))
+    return out
+
+
+def _state_leaves(blob, fused):
+    """The arrays of a states file by (name or index, slot), read with
+    the port's reader: HostBF16 for bf16."""
+    data = mt.checkpoint.loads(blob)
+    trees = data["states"] if fused == "1" else data
+    out = {}
+    for k, tree in trees.items():
+        for i, leaf in enumerate(tree if isinstance(tree, tuple)
+                                 else (tree,)):
+            out[(k, i)] = leaf
+    return out
+
+
+def _leaf_bits(leaf):
+    """The raw bits of a state array: a HostBF16's, or a numpy
+    array's."""
+    if isinstance(leaf, mt.ndarray.HostBF16):
+        return leaf.bits
+    return np.asarray(leaf).view(np.uint8)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bf16_optimizer_states_resume_across_packages(writer, opt, fused,
+                                                      monkeypatch,
+                                                      tmp_path):
+    """A bf16 module's optimizer states after 3 steps (the fused states
+    file, or with ``MXNET_FUSED_STEP=0`` the ``Updater`` blob), written
+    by either package: the pickle holds ``ml_dtypes.bfloat16`` arrays
+    (plain ``pickle`` with ml_dtypes reads them as such); a module of
+    each package loads the file, saves its states again before any step
+    and they are the writer's bit for bit; then each takes a step with
+    finite outputs and bf16 states.  The JAX package's eager Adam
+    (``Updater``) alone writes float32 states: its float32 bias
+    correction widens a bf16 weight and its moments (the port keeps
+    them bf16 on both paths, as the JAX fused step does)."""
+    monkeypatch.setenv("MXNET_FUSED_STEP", fused)
+    src = mt if writer == "port" else mx
+    mod, arg0 = _bf16_module(src)
+    mod.init_optimizer(optimizer=opt, optimizer_params=OPTIMIZERS[opt])
+    _steps(mod, _bf16_batches(src, 3))
+    fname = str(tmp_path / "bf16.states")
+    mod.save_optimizer_states(fname)
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    with open(fname, "rb") as f:
+        blob = f.read()
+    plain = pickle.loads(blob)
+    tree = plain["states"]["fc1_weight"] if fused == "1" else plain[0]
+    leaf = tree[0] if isinstance(tree, tuple) else tree
+    widened = writer == "jax" and fused == "0" and opt == "adam"
+    assert leaf.dtype.name == ("float32" if widened else "bfloat16")
+    want = _state_leaves(blob, fused)
+    assert want and all(isinstance(v, mt.ndarray.HostBF16) != widened
+                        for v in want.values())
+    for pkg in (mx, mt):
+        other, _ = _bf16_module(pkg, params)
+        other.init_optimizer(optimizer=opt, optimizer_params=OPTIMIZERS[opt])
+        other.load_optimizer_states(fname)
+        again = str(tmp_path / f"again-{pkg.__name__}.states")
+        other.save_optimizer_states(again)
+        with open(again, "rb") as f:
+            got = _state_leaves(f.read(), fused)
+        assert sorted(got, key=str) == sorted(want, key=str)
+        for k in want:
+            np.testing.assert_array_equal(_leaf_bits(got[k]),
+                                          _leaf_bits(want[k]),
+                                          err_msg=f"{pkg.__name__} {k}")
+        _steps(other, _bf16_batches(pkg, 4)[3:])
+        out = other.get_outputs()[0].asnumpy().astype(np.float32)
+        assert np.isfinite(out).all()
+    if fused == "1":
+        assert all(s.dtype == torch.bfloat16 for tree in
+                   other._fused.states.values() for s in
+                   (tree if isinstance(tree, tuple) else (tree,)))
+
+
+_NO_ML_DTYPES = r"""
+import sys
+sys.modules["ml_dtypes"] = None  # the card's machine: no ml_dtypes
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/tests")
+import mxnet_tpu_torch as mt
+import torch_ckpt_crash_worker as W
+fname, params, out = sys.argv[2], sys.argv[3], sys.argv[4]
+arg = {k: torch.from_numpy(v).view(torch.bfloat16)
+       for k, v in np.load(params).items()}
+mod = mt.mod.Module(W.build_sym(), context=mt.cpu())
+mod.bind(data_shapes=[mt.io.DataDesc("data", (W.BATCH, W.IN_DIM),
+                                     "bfloat16")],
+         label_shapes=[mt.io.DataDesc("softmax_label", (W.BATCH,))])
+mod.init_params(arg_params=arg)
+mod.init_optimizer(optimizer="adam", optimizer_params={"learning_rate": 0.01})
+mod.load_optimizer_states(fname)
+X, y = W.make_data()
+batch = mt.io.DataBatch(
+    [mt.nd.array(torch.from_numpy(X[:W.BATCH]).to(torch.bfloat16),
+                 ctx=mt.cpu())],
+    [mt.nd.array(y[:W.BATCH], ctx=mt.cpu())])
+mod.forward_backward(batch)
+mod.update()
+mod.save_optimizer_states(out)
+print("ml_dtypes" in sys.modules and sys.modules["ml_dtypes"] is not None)
+"""
+
+
+def test_bf16_states_read_and_written_without_ml_dtypes(monkeypatch,
+                                                        tmp_path):
+    """The port's reader and writer in a process where ``ml_dtypes``
+    cannot be imported (``sys.modules["ml_dtypes"] = None``, as on the
+    card's machine): it loads the JAX package's bf16 fused states file
+    into a bf16 module, steps and writes its own, which the JAX package
+    (here, with ml_dtypes) loads: ``ml_dtypes.bfloat16`` moments that
+    have moved from the JAX file's."""
+    import subprocess
+
+    monkeypatch.setenv("MXNET_FUSED_STEP", "1")
+    mod, _ = _bf16_module(mx)
+    mod.init_optimizer(optimizer="adam", optimizer_params=OPTIMIZERS["adam"])
+    _steps(mod, _bf16_batches(mx, 2))
+    fname, out = str(tmp_path / "jax.states"), str(tmp_path / "port.states")
+    mod.save_optimizer_states(fname)
+    params = str(tmp_path / "params.npz")
+    np.savez(params, **{k: v.asnumpy().view(np.int16)
+                        for k, v in mod.get_params()[0].items()})
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _NO_ML_DTYPES, REPO, fname,
+                           params, out], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
+    with open(fname, "rb") as f:
+        before = pickle.load(f)["states"]
+    with open(out, "rb") as f:
+        after = pickle.load(f)
+    assert after["step"] == 3
+    for n, (m, v) in before.items():
+        m2, v2 = after["states"][n]
+        assert m2.dtype.name == v2.dtype.name == "bfloat16"
+        assert m2.shape == m.shape and not np.array_equal(
+            m2.view(np.int16), m.view(np.int16)), n
+    jmod, _ = _bf16_module(mx, {k: v.asnumpy() for k, v in
+                                mod.get_params()[0].items()})
+    jmod.init_optimizer(optimizer="adam", optimizer_params=OPTIMIZERS["adam"])
+    jmod.load_optimizer_states(out)
+    _steps(jmod, _bf16_batches(mx, 1))
+    assert np.isfinite(jmod.get_outputs()[0].asnumpy().astype(
+        np.float32)).all()
+
+
 def test_examples_model_prefix_and_load_epoch(tmp_path):
     """``train_imagenet --model-prefix`` checkpoints each epoch (the
     loaded arrays, BatchNorm statistics included, equal the module's);

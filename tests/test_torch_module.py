@@ -58,11 +58,19 @@ def test_transformer_lm_symbol_matches_jax(head):
 
 
 def test_transformer_lm_refuses_what_is_not_ported():
-    """``dtype`` other than float32 raises; ``dropout > 0`` builds the
-    JAX graph: its Dropout nodes by name, attrs and place (the
-    residual adds take them), its arguments and shapes."""
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mt.models.transformer_lm(V, T, dtype="bfloat16")
+    """``dtype="bfloat16"`` (ported since the bf16 slice) builds the JAX
+    graph: its ops in order, ``embed_cast`` among them, and its
+    arguments; ``dropout > 0`` builds the JAX graph: its Dropout nodes
+    by name, attrs and place (the residual adds take them), its
+    arguments and shapes."""
+    jb = jax_transformer_lm(V, T, num_layers=L, num_heads=H, d_model=DM,
+                            dtype="bfloat16")
+    tb = mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
+                                  d_model=DM, dtype="bfloat16")
+    assert [n.op for n in tb._topo() if not n.is_variable] == \
+        [n.op for n in jb._topo() if not n.is_variable]
+    assert ("embed_cast", "Cast") in [(n.name, n.op) for n in tb._topo()]
+    assert tb.list_arguments() == jb.list_arguments()
     js = jax_transformer_lm(V, T, num_layers=L, num_heads=H, d_model=DM,
                             dropout=0.1)
     ts = mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,

@@ -200,7 +200,7 @@ def test_eos_and_single_token_requests_retire(lm):
     ({}, {"MXNET_TENANT_QUOTA_TOKENS": "100"}),
     ({"kv_dtype": "int8", "prefix_cache": 1}, {}),
     ({"tp": 2}, {"MXNET_SERVING_KV_DTYPE": "fp8"}),
-    ({"dtype": "bfloat16"}, {}),
+    ({"dtype": "float16"}, {}),
 ], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
 def test_unported_features_raise(lm, monkeypatch, kwargs, env):
     for k, v in env.items():
