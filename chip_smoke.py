@@ -339,6 +339,20 @@
    roundings), and phase 10's training run (2 epochs of 20 batches,
    batch 32) in bf16 (bound from a bf16 data descriptor) and under TF32,
    each with its eager step by aten op.
+14. The operator layer (``ops_path``; no kernel of the port launches):
+   (a) the GPT-2-class LM with its attention written from ``batch_dot``
+   and ``softmax`` (``primitive_lm_symbol``: ``SliceChannel`` of the
+   packed qkv, ``SwapAxis``, scalar arithmetic, a causal bias from
+   ``arange`` and ``broadcast_greater``), its first step on the training
+   run's weights and batch within 1e-4 of the packed LM's loss and
+   ``BWD_TOL`` of its qkv gradients, with no B1 or B5 launch; (b)
+   ``TRAIN_STEPS`` SGD steps graphed against eager (``lm_train_pair``),
+   its eager step by aten op (``bmm``, softmax, the mask add, the dense
+   layers, the rest) beside the packed LM's step; (c) every op name the
+   port registers beyond ``EARLIER_OPS`` through ``mt.nd`` on the card
+   against the CPU (``ops_sweep``: outputs, gradients, bf16, the
+   samplers' moments over 2^20 draws; an ``ops_sweep`` line) and a
+   sampler node through the fused step's replays (new draws a replay).
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -382,7 +396,8 @@ comparison), ``--kernels ROOT`` the kernels
 alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
 ``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone,
 ``--bf16 ROOT`` phase 13 alone after B1's and the paged kernels' bf16
-checks at its shapes (see ``paths_timing``);
+checks at its shapes, ``--ops ROOT`` phase 14 alone with the packed
+LM's training run beside it (see ``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -2492,7 +2507,8 @@ def lm_train_pair(torch, mt, ck, make_mod, batches, kernels, grad_names,
         torch.cuda.empty_cache()
         eager_p50 = erec["step_p50_ms"]
         rec.update(eager_step_p50_ms=eager_p50, eager_losses=erec["losses"],
-                   eager_step_device_ms=erec["step_device_ms"])
+                   eager_step_device_ms=erec["step_device_ms"],
+                   eager_peak_memory_bytes=erec["peak_memory_bytes"])
         if compare:
             loss_err = max(abs(a - b) / (TOL[dtype] * abs(b))
                            for a, b in zip(rec["losses"], erec["losses"]))
@@ -6087,6 +6103,730 @@ def bf16_path(torch, mt, ck):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the operator layer (queue A item 5, part 1)
+# ---------------------------------------------------------------------------
+
+# the op names the port registered before its operator layer; phase 14's
+# op sweep covers every other name the port registers
+EARLIER_OPS = frozenset((
+    "Activation", "BatchNorm", "Cast", "Concat", "Convolution", "Crop",
+    "Custom", "Deconvolution", "DotProductAttention", "Dropout", "Embedding",
+    "Flatten", "FullyConnected", "InstanceNorm", "L2Normalization", "LRN",
+    "LayerNorm", "LeakyReLU", "MakeLoss", "MultiBoxDetection",
+    "MultiBoxPrior", "MultiBoxTarget", "MultiHeadAttention", "Pad",
+    "Pooling", "QKVSelfAttention", "RNN", "Reshape", "Softmax",
+    "SoftmaxActivation", "SoftmaxCELoss", "SoftmaxOutput", "UpSampling",
+    "_add", "_minus", "_mul", "_plus", "_sub", "broadcast_add",
+    "broadcast_mul", "broadcast_plus", "cast", "concat", "depth_to_space",
+    "elemwise_add", "elemwise_mul", "elemwise_sub", "expand_dims",
+    "flatten", "make_loss", "pad", "reshape", "smooth_l1", "space_to_depth",
+    "transpose"))
+# draws a sampler case makes on the card, and the sigmas its sample mean
+# and variance may lie from the distribution's
+SAMPLE_DRAWS, SAMPLE_SIGMAS = 1 << 20, 6.0
+# (heads, T, D) of the primitive LM's attention at batch 1: the sweep's
+# shapes for the ops it uses
+PRIMITIVE_ATTN = (12, 1024, 64)
+# the primitive LM's eager step by aten op: (class, name keys)
+PRIMITIVE_OP_CLASSES = (("bmm", ("aten::bmm",)),
+                        ("softmax", ("softmax",)),
+                        ("fc", ("addmm", "aten::mm", "aten::matmul")))
+
+
+def primitive_lm_symbol(sym, vocab, seq_len, num_layers, num_heads,
+                        d_model, d_ff):
+    """The GPT-2-class LM of ``transformer_lm(..., head="ce")`` with its
+    attention written from ``batch_dot`` and ``softmax``, as a user of
+    MXNet 0.9 wrote it before there was an attention op, in the symbol
+    namespace ``sym`` (``mt.sym`` or the JAX package's ``mx.sym``).  Per
+    layer: the packed ``layer{i}_qkv`` ``FullyConnected(flatten=False)``
+    → ``SliceChannel(num_outputs=3, axis=2)`` → each part ``Reshape`` to
+    (B, T, H, D), ``SwapAxis(1, 2)``, ``Reshape`` to (B*H, T, D) →
+    ``batch_dot(q, k, transpose_b=True) * (1 / sqrt(D))`` + a causal bias
+    (``arange(T)`` as a row and a column, ``broadcast_greater``, ``*
+    -1e9``, ``broadcast_add``) → ``softmax(axis=-1)`` → ``batch_dot(p, v)``
+    → back to (B, T, H*D) → ``layer{i}_proj``.  The parameters are the
+    packed LM's, under its names."""
+    Dh = d_model // num_heads
+    data = sym.Variable("data")
+    label = sym.Variable("softmax_label")
+    x = sym.Embedding(data, input_dim=vocab, output_dim=d_model,
+                      name="tok_embed")
+    pos = sym.Variable("pos_embed_weight", shape=(seq_len, d_model),
+                       init="[\"zero\", {}]")
+    x = sym.broadcast_add(x, sym.expand_dims(pos, axis=0))
+    steps = sym.arange(seq_len, name="causal_steps")
+    future = sym.broadcast_greater(sym.Reshape(steps, shape=(1, seq_len)),
+                                   sym.Reshape(steps, shape=(seq_len, 1)))
+    bias = future * -1e9
+    for i in range(num_layers):
+        name = f"layer{i}"
+        h = sym.LayerNorm(x, name=f"{name}_ln1")
+        qkv = sym.FullyConnected(h, num_hidden=3 * d_model, flatten=False,
+                                 name=f"{name}_qkv")
+        parts = sym.SliceChannel(qkv, num_outputs=3, axis=2,
+                                 name=f"{name}_split")
+        q, k, v = (sym.Reshape(sym.SwapAxis(
+            sym.Reshape(parts[j], shape=(0, 0, num_heads, Dh)),
+            dim1=1, dim2=2), shape=(-3, 0, 0)) for j in range(3))
+        scores = sym.batch_dot(q, k, transpose_b=True) * (1.0 / Dh ** 0.5)
+        p = sym.softmax(sym.broadcast_add(scores, bias), axis=-1)
+        a = sym.batch_dot(p, v)
+        a = sym.Reshape(sym.SwapAxis(
+            sym.Reshape(a, shape=(-4, -1, num_heads, 0, 0)), dim1=1,
+            dim2=2), shape=(0, 0, -3))
+        x = x + sym.FullyConnected(a, num_hidden=d_model, flatten=False,
+                                   name=f"{name}_proj")
+        h = sym.LayerNorm(x, name=f"{name}_ln2")
+        h = sym.FullyConnected(h, num_hidden=d_ff, flatten=False,
+                               name=f"{name}_ff1")
+        h = sym.Activation(h, act_type="gelu", name=f"{name}_gelu")
+        x = x + sym.FullyConnected(h, num_hidden=d_model, flatten=False,
+                                   name=f"{name}_ff2")
+    x = sym.LayerNorm(x, name="ln_f")
+    logits = sym.FullyConnected(x, num_hidden=vocab, flatten=False,
+                                name="head")
+    return sym.SoftmaxCELoss(logits, label, use_ignore=True, ignore_label=0,
+                             name="softmax")
+
+
+def op_sweep_cases(rng, n=64, m=1024, attn=PRIMITIVE_ATTN):
+    """The operator layer's cases: dicts of ``name``, ``ins`` (numpy
+    inputs), ``attrs``, ``grads`` (the input slots whose gradient is
+    compared), ``exact`` (integer, index and comparison results: equal),
+    ``bf16`` (also run on bf16 inputs), ``family``, and for a sampler
+    ``moments`` ((mean, variance, excess kurtosis) of its distribution).
+    Every op name the port registers outside ``EARLIER_OPS`` has at
+    least one case, at (n, m) elementwise shapes and the primitive LM's
+    attention shapes ``attn`` for the ops it uses; inputs hold ties,
+    negative operands, halves and out-of-range indices where an op
+    treats them specially."""
+    f32 = np.float32
+
+    def r(*s):
+        return rng.randn(*s).astype(f32)
+
+    def u(lo, hi, *s):
+        return rng.uniform(lo, hi, s).astype(f32)
+
+    cases = []
+
+    def case(family, name, ins, attrs=None, grads=None, exact=False,
+             bf16=False, **extra):
+        if grads is None:
+            grads = () if exact else tuple(range(len(ins)))
+        cases.append(dict(family=family, name=name, ins=ins,
+                          attrs=attrs or {}, grads=grads, exact=exact,
+                          bf16=bf16, **extra))
+
+    x = r(n, m)
+    halves = (rng.randint(-8, 9, (n, m)) / 2).astype(f32)
+    pos = u(0.2, 3.0, n, m)
+    unit = u(-0.9, 0.9, n, m)
+    domains = {"pos": pos, "unit": unit, "halves": halves,
+               "gamma": np.where(rng.rand(n, m) < 0.3, -(rng.randint(
+                   0, 3, (n, m)) + 0.5), pos).astype(f32),
+               "cosh": 1.0 + pos,
+               "cbrt": np.where(np.abs(x) < 0.1, f32(0.5), x)}
+    unary = {
+        "halves": ("abs", "relu"),
+        "pos": ("sqrt", "rsqrt", "log", "log10", "log2", "rcbrt",
+                "gammaln"),
+        "unit": ("arcsin", "arccos", "arctanh", "log1p", "tan"),
+        "gamma": ("gamma",), "cosh": ("arccosh",), "cbrt": ("cbrt",),
+        "x": ("negative", "_np_negative", "_copy", "identity", "square",
+              "exp", "expm1", "sin", "cos", "arctan", "degrees",
+              "radians", "sinh", "cosh", "tanh", "arcsinh", "sigmoid",
+              "softsign", "erf")}
+    for dom, names in unary.items():
+        for name in names:
+            case("elemwise", name, [domains.get(dom, x)], bf16=True)
+    for name in ("round", "rint", "ceil", "floor", "fix", "trunc", "sign",
+                 "logical_not"):
+        case("elemwise", name, [halves], exact=True, bf16=True)
+    case("elemwise", "round", [halves.astype(np.int32)], exact=True)
+    for name in ("BlockGrad", "stop_gradient"):
+        case("elemwise", name, [x], grads=())
+    case("elemwise", "clip", [halves], dict(a_min=-1.5, a_max=2.0),
+         bf16=True)
+
+    a, b = r(n, m), r(n, m)
+    tie = b.copy()
+    tie[::3] = a[::3]
+    nonzero = np.where(np.abs(b) < 0.3, f32(0.7), b)
+    for name, ins in (("elemwise_div", [a, nonzero]), ("_div", [a, nonzero]),
+                      ("_power", [pos, u(-2, 2, n, m)]),
+                      ("pow", [pos, u(-2, 2, n, m)]),
+                      ("_maximum", [a, tie]), ("_minimum", [a, tie]),
+                      ("_hypot", [a, b])):
+        case("elemwise", name, ins, bf16=True)
+    h2 = halves.copy()
+    h2[::2] = (rng.randint(-8, 9, h2[::2].shape) / 2).astype(f32)
+    for name in ("_equal", "_not_equal", "_greater", "_greater_equal",
+                 "_lesser", "_lesser_equal"):
+        case("elemwise", name, [halves, h2], exact=True, bf16=True)
+
+    row, col = r(1, m), r(n, 1)
+    row_nz = np.where(np.abs(row) < 0.3, f32(-0.8), row)
+    row_tie = row.copy()
+    a_tie = a.copy()
+    a_tie[:, ::5] = row_tie[:, ::5]
+    for name, ins in (("broadcast_sub", [a, row]),
+                      ("broadcast_minus", [a, col]),
+                      ("broadcast_div", [a, row_nz]),
+                      ("broadcast_mod", [3 * a, row_nz]),
+                      ("broadcast_power", [pos, u(-2, 2, 1, m)]),
+                      ("broadcast_maximum", [a_tie, row_tie]),
+                      ("broadcast_minimum", [a_tie, row_tie]),
+                      ("broadcast_hypot", [a, col])):
+        case("elemwise", name, ins, bf16=True)
+    hrow = (rng.randint(-2, 3, (1, m)) / 2).astype(f32)
+    for name in ("broadcast_equal", "broadcast_not_equal",
+                 "broadcast_greater", "broadcast_greater_equal",
+                 "broadcast_lesser", "broadcast_lesser_equal",
+                 "broadcast_logical_and", "broadcast_logical_or",
+                 "broadcast_logical_xor"):
+        case("elemwise", name, [halves, hrow], exact=True, bf16=True)
+
+    xs = x.copy()
+    for name, s, ins in (
+            ("_plus_scalar", 0.5, x), ("_minus_scalar", 1.25, x),
+            ("_rminus_scalar", -2.0, x), ("_mul_scalar", 0.125, x),
+            ("_div_scalar", 3.0, x), ("_rdiv_scalar", 2.0, nonzero),
+            ("_mod_scalar", 1.5, 3 * x), ("_mod_scalar", -1.5, 3 * x),
+            ("_rmod_scalar", 2.5, nonzero), ("_power_scalar", 2.0, x),
+            ("_power_scalar", 0.5, pos), ("_rpower_scalar", 1.7, x),
+            ("_maximum_scalar", 0.25, np.where(rng.rand(n, m) < 0.2,
+                                               f32(0.25), xs)),
+            ("_minimum_scalar", -0.25, np.where(rng.rand(n, m) < 0.2,
+                                                f32(-0.25), xs)),
+            ("_hypot_scalar", 0.75, x)):
+        case("elemwise", name, [ins], dict(scalar=s), bf16=True)
+    for name in ("_mul_scalar", "_plus_scalar", "_div_scalar"):
+        case("elemwise", name, [halves.astype(np.int32)], dict(scalar=0.5),
+             exact=True)
+    for name in ("_equal_scalar", "_not_equal_scalar", "_greater_scalar",
+                 "_greater_equal_scalar", "_lesser_scalar",
+                 "_lesser_equal_scalar"):
+        case("elemwise", name, [halves], dict(scalar=0.5), exact=True,
+             bf16=True)
+    for name in ("add_n", "ElementWiseSum", "_sum"):
+        case("elemwise", name, [a, b, x], dict(num_args=3), bf16=True)
+    case("elemwise", "_grad_add", [a, b])
+
+    # reductions: ties at the row maxima and minima, NaNs for nan*
+    t = r(n, m)
+    t[:, 3] = t[:, 10] = 6.0
+    t[:, 4] = t[:, 11] = -6.0
+    near1 = (1.0 + 0.05 * r(n, m)).astype(f32)
+    nans = np.where(rng.rand(n, m) < 0.1, f32(np.nan), near1)
+    for name, ins, attrs in (
+            ("sum", x, dict(axis=1)), ("sum", x, {}),
+            ("sum_axis", x, dict(axis=0, keepdims=True)),
+            ("mean", x, dict(axis=-1, keepdims=True)),
+            ("mean", x, dict(axis=(0, 1))), ("prod", near1, dict(axis=1)),
+            ("max", t, dict(axis=1)), ("max_axis", t, dict(axis=0)),
+            ("min", t, dict(axis=1)), ("min_axis", t, {}),
+            ("nansum", nans, dict(axis=1)), ("nanprod", nans, dict(axis=1)),
+            ("norm", x, {}), ("broadcast_to", col, dict(shape=(0, m))),
+            ("broadcast_axis", row, dict(axis=0, size=n)),
+            ("broadcast_axes", r(n, 1, 4), dict(axis=(1,), size=(3,)))):
+        case("reduce", name, [ins], attrs, bf16=name in ("sum", "mean"))
+    for name, attrs in (("argmax", dict(axis=1)), ("argmin", dict(axis=0)),
+                        ("argmax", {}),
+                        ("argmin", dict(axis=1, keepdims=True))):
+        case("reduce", name, [t], attrs, exact=True)
+    case("reduce", "argmax_channel", [t], exact=True)
+
+    # shapes, products, splits, gathers
+    heads, T, Dh = attn
+    qkv = r(1, T, 3 * heads * Dh)
+    case("matrix", "slice", [x], dict(begin=(1, 2), end=(n - 1, m // 2)))
+    case("matrix", "crop", [r(4, n, 8)], dict(begin=(1, 0), end=(3, n - 2)))
+    case("matrix", "slice_axis", [x], dict(axis=1, begin=-(m // 4), end=None))
+    case("matrix", "slice_axis", [x], dict(axis=0, begin=2, end=-1))
+    case("matrix", "flip", [x], dict(axis=(1,)))
+    case("matrix", "reverse", [x], dict(axis=(0, 1)))
+    k_ = 96
+    case("matrix", "dot", [r(n, k_), r(k_, m // 4)], bf16=True)
+    case("matrix", "dot", [r(k_, n), r(m // 4, k_)],
+         dict(transpose_a=True, transpose_b=True))
+    case("matrix", "dot", [r(k_), r(k_)])
+    case("matrix", "dot", [r(2, n, k_), r(k_)])
+    qh, kh, vh = (r(heads, T, Dh) for _ in range(3))
+    case("matrix", "batch_dot", [qh, kh], dict(transpose_b=True), bf16=True)
+    case("matrix", "batch_dot", [r(heads, T, T) * 0.05, vh])
+    case("matrix", "batch_dot", [r(4, k_, n), r(4, k_, 8)],
+         dict(transpose_a=True))
+    for name in ("SliceChannel", "split", "slice_channel"):
+        case("matrix", name, [qkv], dict(num_outputs=3, axis=2))
+    case("matrix", "SliceChannel", [r(4, 3, 5)],
+         dict(num_outputs=3, axis=1, squeeze_axis=True))
+    for name in ("SwapAxis", "swapaxes"):
+        case("matrix", name, [r(1, T, heads, Dh)], dict(dim1=1, dim2=2))
+    case("matrix", "repeat", [r(n, 8)], dict(repeats=2, axis=1))
+    case("matrix", "repeat", [r(4, 8)], dict(repeats=3))
+    case("matrix", "tile", [r(n, 8)], dict(reps=(2, 3)))
+    case("matrix", "tile", [r(4, 8)], dict(reps=(2, 1, 2)))
+    ids = rng.randint(-3, m + 5, (n, 3)).astype(f32)
+    table = r(m, 16)
+    case("indexing", "take", [table, ids], grads=(0,))
+    case("indexing", "take", [table, ids], dict(mode="wrap"), grads=(0,))
+    case("indexing", "take", [r(8, m), ids[:, 0]], dict(axis=1),
+         grads=(0,))
+    case("indexing", "batch_take", [x, rng.randint(0, m, n).astype(f32)],
+         grads=(0,))
+    case("indexing", "one_hot", [rng.randint(-1, 13, (n, 5)).astype(f32)],
+         dict(depth=12, on_value=2.0, off_value=-0.5), exact=True)
+    cond = np.where(rng.rand(n, m) < 0.5, f32(0), halves)
+    case("indexing", "where", [cond, a, b], grads=(1, 2))
+    case("indexing", "where", [cond[:, 0], a, b], grads=(1, 2))
+
+    # softmax, the regression and SVM heads, the sequence ops
+    case("nn", "softmax", [x], dict(axis=-1, temperature=2.0), bf16=True)
+    case("nn", "softmax", [r(heads, T, T)], dict(axis=-1))
+    case("nn", "log_softmax", [x], dict(axis=0))
+    reg = r(n, 8)
+    for name, lab in (("LinearRegressionOutput", r(n, 8)),
+                      ("LogisticRegressionOutput", rng.rand(n, 8)
+                       .astype(f32)),
+                      ("MAERegressionOutput", r(n * 8))):
+        case("nn", name, [reg, lab], dict(grad_scale=0.5), grads=(0,))
+    labels = rng.randint(0, 10, n).astype(f32)
+    for lin in (False, True):
+        case("nn", "SVMOutput", [r(n, 10), labels],
+             dict(margin=0.5, regularization_coefficient=2.0,
+                  use_linear=lin), grads=(0,))
+    case("nn", "softmax_cross_entropy", [r(n, 10), labels], grads=(0,))
+    seq = r(8, n, 16)
+    lens = rng.randint(1, 9, n).astype(f32)
+    for name in ("SequenceLast", "SequenceMask", "SequenceReverse"):
+        case("nn", name, [seq, lens], dict(use_sequence_length=True,
+                                           value=-1.0), grads=(0,))
+        case("nn", name, [seq])
+    case("nn", "IdentityAttachKLSparseReg", [x],
+         dict(sparseness_target=0.2, penalty=0.01))
+    # LayerNorm (an earlier op) over the axes and statistics the parent
+    # did not take
+    ln = (r(4, 5, 6) * 2 + 1).astype(f32)
+    for axis, stats in ((1, False), (1, True), (-1, True), (0, True)):
+        k = ln.shape[axis]
+        case("nn", "LayerNorm", [ln, u(0.5, 1.5, k), r(k)],
+             dict(axis=axis, eps=1e-5, output_mean_var=stats))
+
+    # ordering: ties in halves
+    for name, attrs in (("sort", {}), ("sort", dict(axis=0,
+                                                    is_ascend=False))):
+        case("ordering", name, [halves], attrs, bf16=True)
+    case("ordering", "sort", [halves], dict(axis=None))
+    for attrs in ({}, dict(axis=0, is_ascend=False)):
+        case("ordering", "argsort", [halves], attrs, exact=True)
+    for attrs in (dict(k=5), dict(k=3, axis=0, is_ascend=True),
+                  dict(k=4, ret_typ="mask")):
+        case("ordering", "topk", [halves], attrs, exact=True)
+    case("ordering", "topk", [halves], dict(k=5, ret_typ="value"))
+    case("ordering", "topk", [halves], dict(k=2, ret_typ="both", axis=0),
+         grads=(0,))
+
+    # nodes without inputs
+    case("init", "_zeros", [], dict(shape=(n, m)), exact=True)
+    case("init", "_ones", [], dict(shape=(n, 4), dtype="int32"), exact=True)
+    case("init", "_full", [], dict(shape=(3, n), value=2.5), exact=True)
+    case("init", "_arange", [], dict(start=2, stop=50, step=0.5, repeat=2),
+         exact=True)
+    case("init", "_arange", [], dict(start=T), exact=True)
+    draws = (SAMPLE_DRAWS,)
+    for name, attrs, moments in (
+            ("_sample_uniform", dict(low=-1.0, high=3.0), (1.0, 4 / 3, -1.2)),
+            ("uniform", {}, (0.5, 1 / 12, -1.2)),
+            ("_random_uniform", dict(low=2.0, high=2.5),
+             (2.25, 0.25 / 12, -1.2)),
+            ("_sample_normal", dict(loc=1.0, scale=2.0), (1.0, 4.0, 0.0)),
+            ("normal", {}, (0.0, 1.0, 0.0)),
+            ("_random_normal", dict(loc=-3.0, scale=0.5), (-3.0, 0.25, 0.0)),
+            ("_sample_gamma", dict(alpha=2.0, beta=1.5), (3.0, 4.5, 3.0)),
+            ("_random_gamma", dict(alpha=0.5, beta=2.0), (1.0, 2.0, 12.0)),
+            ("_sample_exponential", dict(lam=2.0), (0.5, 0.25, 6.0)),
+            ("_random_exponential", {}, (1.0, 1.0, 6.0))):
+        case("sample", name, [], dict(shape=draws, **attrs), grads=(),
+             moments=moments)
+    case("sample", "normal", [], dict(shape=(n, m), dtype="bfloat16"),
+         grads=(), moments=(0.0, 1.0, 0.0))
+
+    # optimizer updates (forward only)
+    w, g = r(n, m), r(n, m)
+    opt = dict(lr=0.1, wd=0.01, rescale_grad=0.5, clip_gradient=0.3)
+    case("optimizer", "sgd_update", [w, g], opt, grads=())
+    case("optimizer", "sgd_mom_update", [w, g, r(n, m)],
+         dict(opt, momentum=0.9), grads=())
+    case("optimizer", "adam_update", [w, g, r(n, m), u(0, 1, n, m)],
+         dict(opt, beta1=0.8, beta2=0.99, epsilon=1e-6), grads=())
+
+    # spatial
+    img = r(2, 8, 24, 24)
+    boxes = np.stack([rng.randint(0, 2, 6),
+                      *[rng.uniform(0, 30, 6) for _ in range(2)],
+                      *[rng.uniform(20, 46, 6) for _ in range(2)]], 1)
+    boxes[:, [1, 3]] = np.sort(boxes[:, [1, 3]], axis=1)
+    boxes[:, [2, 4]] = np.sort(boxes[:, [2, 4]], axis=1)
+    case("spatial", "ROIPooling", [img, boxes.astype(f32)],
+         dict(pooled_size=(3, 3), spatial_scale=0.5), grads=(0,))
+    # a box reaching past the image: its outer bins are empty (0)
+    case("spatial", "ROIPooling", [img[:, :2, :6, :6],
+                                   np.array([[0, 4, 4, 11, 11]], f32)],
+         dict(pooled_size=(4, 4), spatial_scale=1.0), grads=(0,))
+    theta = (np.array([1, 0, 0, 0, 1, 0], f32) + 0.2 * r(2, 6)).astype(f32)
+    case("spatial", "GridGenerator", [theta],
+         dict(transform_type="affine", target_shape=(12, 16)))
+    case("spatial", "GridGenerator", [r(2, 2, 12, 16)],
+         dict(transform_type="warp"))
+    case("spatial", "SpatialTransformer", [r(2, 4, 12, 16), theta],
+         dict(target_shape=(10, 14)))
+    case("spatial", "BilinearSampler", [r(2, 4, 12, 16),
+                                        u(-1.2, 1.2, 2, 2, 10, 14)])
+    case("spatial", "Correlation", [r(2, 8, 16, 16), r(2, 8, 16, 16)],
+         dict(kernel_size=1, max_displacement=3, stride1=1, stride2=1,
+              pad_size=3))
+    case("spatial", "Correlation", [r(2, 4, 15, 15), r(2, 4, 15, 15)],
+         dict(kernel_size=3, max_displacement=2, stride1=2, stride2=2,
+              pad_size=2, is_multiply=False))
+    return cases
+
+
+def sweep_tensors(torch, case, dev, dtype=None):
+    """A case's inputs as tensors on ``dev`` (the float ones in ``dtype``
+    when given), the ``grads`` slots requiring gradient."""
+    out = []
+    for i, a in enumerate(case["ins"]):
+        t = torch.from_numpy(np.array(a)).to(dev)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out.append(t.requires_grad_(i in case["grads"]))
+    return out
+
+
+def sweep_run(torch, mt, case, ctx, dtype=None):
+    """(outputs through ``mt.nd.imperative_invoke`` on ``ctx``, gradients of
+    sum(out * w) over every output, ``w`` seeded, through
+    ``registry.invoke`` under autograd), all on the host."""
+    from mxnet_tpu_torch.ops.registry import invoke
+
+    dev = ctx.torch_device()
+    nds = [mt.nd.NDArray(t.detach().clone(), ctx)
+           for t in sweep_tensors(torch, case, dev, dtype)]
+    kw = dict(case["attrs"])
+    if not nds:
+        kw["ctx"] = ctx
+    # by the op's name (``nd.gamma`` is the sampler, as in the JAX package)
+    fwd = mt.nd.imperative_invoke(case["name"], *nds, **kw)
+    fwd = fwd if isinstance(fwd, list) else [fwd]
+    grads = []
+    if case["grads"]:
+        tin = sweep_tensors(torch, case, dev, dtype)
+        outs, _ = invoke(case["name"], tin, case["attrs"], is_train=True)
+        cots = [torch.from_numpy(np.random.RandomState(1 + j).randn(
+            *o.shape).astype(np.float32)).to(dev, o.dtype)
+            for j, o in enumerate(outs)]
+        live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in live],
+                                    [tin[i] for i in case["grads"]],
+                                    [c for _, c in live])
+    return [o._data.cpu() for o in fwd], [g.cpu() for g in grads]
+
+
+def sweep_err(torch, got, want, dtype_name, bwd=False):
+    """Largest |got - want| over (tol * max(1, max|want|)), NaNs where the
+    other has NaNs too (``TOL``/``BWD_TOL`` of ``dtype_name``)."""
+    tol = (BWD_TOL if bwd else TOL)[dtype_name]
+    g, w = got.double(), want.double()
+    check(bool(torch.equal(torch.isnan(g), torch.isnan(w))),
+          "NaNs in other places")
+    g, w = torch.nan_to_num(g), torch.nan_to_num(w)
+    scale = max(1.0, w.abs().max().item()) if w.numel() else 1.0
+    return ((g - w).abs().max().item() / (tol * scale)) if w.numel() else 0.0
+
+
+def check_sample_moments(torch, case, out):
+    """A sampler's draws: its dtype and shape, the sample mean within
+    ``SAMPLE_SIGMAS`` standard errors of the distribution's, the sample
+    variance within as many of its own (from the excess kurtosis)."""
+    want_dt = case["attrs"].get("dtype", "float32")
+    check(str(out.dtype) == f"torch.{want_dt}" and tuple(out.shape)
+          == tuple(case["attrs"]["shape"]), f"{case['name']}: {out.dtype} "
+          f"{tuple(out.shape)}")
+    mean, var, kurt = case["moments"]
+    x = out.double().reshape(-1)
+    nn_ = x.numel()
+    got_mean, got_var = x.mean().item(), x.var().item()
+    se_mean = (var / nn_) ** 0.5
+    se_var = var * ((kurt + 2.0) / nn_) ** 0.5
+    dm, dv = abs(got_mean - mean) / se_mean, abs(got_var - var) / se_var
+    check(dm <= SAMPLE_SIGMAS and dv <= SAMPLE_SIGMAS,
+          f"{case['name']} {case['attrs']}: mean {got_mean} (want {mean}, "
+          f"{dm:.2f} sigma), variance {got_var} ({var}, {dv:.2f} sigma)")
+    return max(dm, dv)
+
+
+def ops_sweep(torch, mt):
+    """(c) Every op name the port's ops register outside ``EARLIER_OPS``
+    through ``mt.nd.<name>`` on ``gpu(0)`` and on the CPU on the same
+    seeded inputs (``op_sweep_cases``): outputs within ``TOL`` (exact
+    where ``exact``), gradients of sum(out * w) within ``BWD_TOL``, fp32
+    and, where a case says so, bf16; a sampler's draws (2^20 on the
+    card) by their moments.  One ``ops_sweep`` line; any miss raises."""
+    from mxnet_tpu_torch.ops import registry
+
+    cases = op_sweep_cases(np.random.RandomState(20))
+    names = {c["name"] for c in cases}
+    # the port's own ops (not a user's: mt.rtc, CustomOp)
+    ported = {n for n in registry.list_ops() if registry.get_op(
+        n).compute.__module__.startswith("mxnet_tpu_torch.ops.")}
+    missing = ported - EARLIER_OPS - names
+    check(not missing, f"op names the sweep does not run: {sorted(missing)}")
+    worst = {"fwd": 0.0, "bwd": 0.0, "bf16": 0.0, "sample_sigmas": 0.0}
+    where = {}
+    counts = {"cases": 0, "exact": 0, "with_grads": 0, "bf16_cases": 0}
+    t0 = time.perf_counter()
+    for case in cases:
+        if case["family"] == "sample":
+            outs, _ = sweep_run(torch, mt, case, mt.gpu(0))
+            worst["sample_sigmas"] = max(worst["sample_sigmas"],
+                                         check_sample_moments(torch, case,
+                                                              outs[0]))
+            counts["cases"] += 1
+            continue
+        dtypes = [None] + ([torch.bfloat16] if case["bf16"] else [])
+        for dt in dtypes:
+            label = f"{case['name']} {case['attrs']} {dt or 'float32'}"
+            (o, g), (ro, rg) = (sweep_run(torch, mt, case, ctx, dt)
+                                for ctx in (mt.gpu(0), mt.cpu()))
+            check(len(o) == len(ro) and all(
+                a.shape == b.shape and a.dtype == b.dtype
+                for a, b in zip(o, ro)), f"{label}: outputs "
+                f"{[(a.shape, a.dtype) for a in o]} vs "
+                f"{[(a.shape, a.dtype) for a in ro]}")
+            if case["exact"]:
+                check(all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                          for a, b in zip(o, ro)), f"{label}: not equal")
+                counts["exact"] += 1
+            else:
+                key = "fwd" if dt is None else "bf16"
+                tname = "float32" if dt is None else "bfloat16"
+                err = max(sweep_err(torch, a, b, tname) for a, b in
+                          zip(o, ro))
+                gerr = max([sweep_err(torch, a, b, tname, bwd=True)
+                            for a, b in zip(g, rg)], default=0.0)
+                for k, e in ((key, err), ("bwd" if dt is None else "bf16",
+                                          gerr)):
+                    if e > worst[k]:
+                        worst[k], where[k] = e, label
+                check(err <= 1 and gerr <= 1, f"{label} on the card "
+                      f"against the CPU: forward {err}, backward {gerr} "
+                      f"(error over tolerance)")
+                counts["with_grads"] += bool(g)
+            counts["bf16_cases"] += dt is not None
+            counts["cases"] += 1
+    rec = {"names": len(names), "new_names_registered":
+           len(ported - EARLIER_OPS), **counts,
+           "fwd": worst["fwd"], "bwd": worst["bwd"], "bf16": worst["bf16"],
+           "sample_sigmas": worst["sample_sigmas"],
+           "worst_over_tol": max(worst["fwd"], worst["bwd"], worst["bf16"]),
+           "worst_cases": where, "wall_s": time.perf_counter() - t0}
+    print("ops_sweep " + json.dumps(rec))
+    return rec
+
+
+def sampler_replays(torch, mt):
+    """A module whose symbol draws (``FullyConnected`` + ``normal``
+    noise under ``MakeLoss``) through the fused step's graph, lr 0: each
+    replay's outputs must differ from the step before (new draws), and
+    out - FullyConnected's must look N(0, 1)."""
+    sym = mt.sym
+    data = sym.Variable("data")
+    h = sym.FullyConnected(data, num_hidden=256, name="fc")
+    out = sym.MakeLoss(h + sym.normal(shape=(64, 256), name="noise"))
+    mod = mt.mod.Module(out, label_names=(), context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (64, 32))])
+    mod.init_params(initializer=mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.0})
+    batch = mt.io.DataBatch([mt.nd.array(np.random.RandomState(3).randn(
+        64, 32), ctx=mt.gpu(0))], [])
+    outs = []
+    for _ in range(6):
+        mod.forward_backward(batch)
+        mod.update()
+        outs.append(mod.get_outputs()[0]._data.clone())
+    torch.cuda.synchronize()
+    stats = graph_stats(mod)
+    check(stats is not None and stats["graphs_on"] and stats["captures"]
+          > 0, f"the sampler module ran no CUDA graph: {stats}")
+    for i in range(1, len(outs)):
+        check(not torch.equal(outs[i], outs[i - 1]), f"step {i} drew the "
+              f"step before's noise")
+    w = mod._exec.arg_dict["fc_weight"]._data
+    b = mod._exec.arg_dict["fc_bias"]._data
+    noise = outs[-1] - (batch.data[0]._data @ w.t() + b)
+    m, v = noise.mean().item(), noise.var().item()
+    check(abs(m) < 0.05 and abs(v - 1) < 0.05, f"replayed noise mean {m}, "
+          f"variance {v}")
+    return {"steps": len(outs), "captures": stats["captures"],
+            "noise_mean": m, "noise_var": v}
+
+
+def primitive_breakdown(torch, mt, params, batch, reps=2):
+    """The primitive LM's eager step (``MXNET_FUSED_STEP=0``) by aten
+    op: ``bmm``, softmax, the mask add and the scaling (an add or a
+    multiply over (B*H, T, T) scores, told apart by its input shapes),
+    the dense layers (``fc``) and the rest, device ms from
+    ``torch.profiler`` over ``reps`` steps after one; and ``memory``:
+    the bytes autograd saves in a step (each storage once; how many are
+    (B*H, T, T) float32 scores), the step's peak above the module's
+    resident arrays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
+        GPT2_SMALL["max_len"]
+    sym = primitive_lm_symbol(mt.sym, V, T, L, H, GPT2_SMALL["d_model"],
+                              GPT2_SMALL["d_ff"])
+    with fused_env("0"):
+        mod = lm_module(mt, sym, params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": TRAIN_LR, "momentum": 0.9})
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    step()
+    torch.cuda.synchronize()
+    # what autograd keeps for the backward (storages counted once) and
+    # the eager step's peak above what the module holds between steps
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved[st.data_ptr()] = st.nbytes()
+        return t
+
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        step()
+    torch.cuda.synchronize()
+    scores_bytes = TRAIN_BATCH * H * T * T * 4
+    memory = {"resident_bytes": resident,
+              "step_peak_above_resident_bytes":
+                  torch.cuda.max_memory_allocated() - resident,
+              "saved_bytes": sum(saved.values()),
+              "saved_score_sized": sum(b == scores_bytes
+                                       for b in saved.values())}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in PRIMITIVE_OP_CLASSES}
+    out.update(mask_add=0.0, scale=0.0, rest=0.0)
+    scores = [TRAIN_BATCH * H, T, T]
+    for e in prof.key_averages(group_by_input_shape=True):
+        if str(e.device_type) != "DeviceType.CPU":
+            continue
+        ms = e.self_device_time_total / reps / 1e3
+        on_scores = scores in list(e.input_shapes or [])
+        if on_scores and e.key in ("aten::add", "aten::mul"):
+            out["mask_add" if e.key == "aten::add" else "scale"] += ms
+            continue
+        name = next((n for n, keys in PRIMITIVE_OP_CLASSES
+                     if any(k in e.key for k in keys)), "rest")
+        out[name] += ms
+    out["total"] = sum(out.values())
+    out["memory"] = memory
+    del mod
+    torch.cuda.empty_cache()
+    return out
+
+
+def ops_path(torch, mt, ck, packed=None, eager=True):
+    """Phase 14 on ``gpu(0)``, fp32 with TF32 off: the operator layer.
+    (a) The primitive LM (``primitive_lm_symbol``) at GPT-2-small width
+    from ``gpt2_small_params(0)``: one ``forward_backward`` on the first
+    batch of ``lm_batches``, its loss within 1e-4 (relative) of the packed
+    ``transformer_lm``'s on the same weights and batch and every
+    ``layer{i}_qkv_weight`` gradient within ``BWD_TOL`` of max(1, |ref|)
+    of the packed LM's, with no launch of B1's or B5's kernels (the
+    launch counters: the path is the primitive one).  (b) ``TRAIN_STEPS``
+    SGD steps through ``Module``'s fused step against the eager path
+    (``lm_train_pair``: graphed = eager, a finite falling loss, no B1/B5
+    launch, the captures), its eager step by aten op
+    (``primitive_breakdown``) and the packed LM's step p50 beside it
+    (``packed``, the training run's record; run here when None).  (c)
+    The op sweep (``ops_sweep``) and a sampler through the fused step's
+    replays (``sampler_replays``)."""
+    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
+        GPT2_SMALL["max_len"]
+    params = gpt2_small_params(0)
+    batches = lm_batches(mt)
+    first = next(batches)
+    qkv = [f"layer{i}_qkv_weight" for i in range(L)]
+    part_s = {}
+    t0 = time.perf_counter()
+    ref_loss, _, ref = first_step(torch, mt, ck, packed_lm_symbol(mt),
+                                  params, first, qkv, PACKED_KERNELS)
+    sym = primitive_lm_symbol(mt.sym, V, T, L, H, GPT2_SMALL["d_model"],
+                              GPT2_SMALL["d_ff"])
+    loss, launches, grads = first_step(torch, mt, ck, sym, params, first,
+                                       qkv, ())
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss), f"primitive LM "
+          f"first-step loss {loss} vs the packed LM's {ref_loss}")
+    worst = 0.0
+    for n in qkv:
+        err = (grads[n] - ref[n]).abs().max().item()
+        tol = BWD_TOL["float32"] * max(1.0, ref[n].abs().max().item())
+        check(err <= tol, f"primitive LM {n} gradient: max_abs_err {err} "
+              f"over {tol} against the packed LM's")
+        worst = max(worst, err / tol)
+    first_rec = {"loss": loss, "packed_loss": ref_loss,
+                 "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                 "qkv_grad_err_over_tol_max": worst,
+                 "b1_b5_launches": sum(launches[k] for k in
+                                       DPA_KERNELS + PACKED_KERNELS)}
+    print(f"primitive LM first step: {json.dumps(first_rec)}")
+    part_s["first_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches.reset()
+    rec = lm_train_pair(torch, mt, ck, lambda: lm_module(mt, sym, params),
+                        batches, (), qkv, "primitive LM training",
+                        eager=eager)
+    part_s["training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["eager_step_by_op_ms"] = primitive_breakdown(torch, mt, params,
+                                                     first)
+    part_s["breakdown"] = time.perf_counter() - t0
+    if packed is None:
+        t0 = time.perf_counter()
+        packed = train_path(torch, mt, ck, eager=False)
+        part_s["packed_training"] = time.perf_counter() - t0
+    rec["packed_lm"] = {k: packed.get(k) for k in (
+        "step_p50_ms", "eager_step_p50_ms", "step_device_ms",
+        "peak_memory_bytes")}
+    rec["first_step_vs_packed"] = first_rec
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["ops_sweep"] = ops_sweep(torch, mt)
+    rec["sampler_replays"] = sampler_replays(torch, mt)
+    part_s["sweep"] = time.perf_counter() - t0
+    rec["part_wall_s"] = part_s
+    print(json.dumps({"primitive_lm": {k: rec[k] for k in (
+        "step_p50_ms", "eager_step_p50_ms", "step_device_ms",
+        "eager_step_device_ms", "peak_memory_bytes",
+        "eager_peak_memory_bytes", "graphs",
+        "eager_step_by_op_ms", "packed_lm", "first_step_vs_packed",
+        "sampler_replays", "part_wall_s") if k in rec}}))
+    return rec
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -6226,7 +6966,8 @@ def paths_timing(root, mode="paths"):
     10 (image classification) alone, ``--cnn ROOT`` phase 11 alone,
     ``--ckpt ROOT`` phase 12 alone (each building B1 and B6 first) and
     ``--bf16 ROOT`` phase 13 alone (B1 and the paged kernels built and
-    checked in bf16 at its shapes first).
+    checked in bf16 at its shapes first) and ``--ops ROOT`` phase 14
+    alone (B1 built first, for the packed LM's reference step).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -6264,6 +7005,13 @@ def paths_timing(root, mode="paths"):
                       "lstm_scan"])
         print(json.dumps({"paths_timing": {
             "root": root, "ckpt_path": ckpt_path(torch, mt, ck)}}))
+        print(card_line())
+        return 0
+    if mode == "ops":
+        _build.build(["flash_mha_packed", "flash_mha_packed_bwd"])
+        rec = ops_path(torch, mt, ck)
+        print(json.dumps({"paths_timing": {"root": root, "ops_path": {
+            k: rec[k] for k in ("part_wall_s", "launches")}}}))
         print(card_line())
         return 0
     if mode == "bf16":
@@ -6553,14 +7301,21 @@ def main():
     bf16["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"bf16_path": {k: bf16[k] for k in (
         "part_wall_s", "launches", "bf16_traced_launches", "wall_s")}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops = ops_path(torch, mt, ck, packed=train)
+    ops["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"ops_path": {k: ops[k] for k in (
+        "part_wall_s", "launches", "wall_s")}}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
     # serving and step, the training run, the DPA training run, the
     # LSTM-PTB run, the SSD300 run, the sequence phase, phase 11 (the
     # dropout LM's B1, the LSTM with dropout's lstm_scan), phase 12
-    # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan) and phase
-    # 13 (the bf16 LM's B1, its serving's B1 and paged kernels)
+    # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan), phase 13
+    # (the bf16 LM's B1, its serving's B1 and paged kernels) and phase 14
+    # (none: the primitive LM's training launches no kernel)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -6616,7 +7371,7 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence, image, cnn, ckpt, bf16]
+    all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -6663,7 +7418,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
-                         ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"]):
+                         ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"],
+                         ["--ops"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

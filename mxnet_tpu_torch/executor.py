@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/executor.py``: ``build_graph_fn``
 and ``Executor.forward(is_train=True)`` runs it under autograd.
 ``backward(out_grads=None)`` seeds loss heads with ones (their backward
 ignores the seed), fills ``grad_dict`` and honours ``grad_req``
-``write``/``add``/``null`` (``:91-126``, ``:267-360``).
+``write``/``add``/``null`` (``:91-126``, ``:267-360``);
+``copy_params_from``, ``reshape`` and ``debug_str`` (``:382-427``).
 
 Randomness (``:55``, ``:69-70``, ``:278``): ``forward`` draws one step
 key from ``random.next_key``, and every node registered ``needs_rng``
@@ -59,17 +60,22 @@ def _cudnn_algorithms():
 
 
 def build_graph_fn(symbol):
-    """Lower a Symbol DAG into ``f(arg_dict, aux_dict, rng, is_train) ->
-    (outputs, new_aux_dict)`` over tensors.  ``rng`` is the step key (an
-    int; None draws ``random.next_key()``): node ``i`` of ``_topo()``
-    registered ``needs_rng`` draws from a generator seeded with
-    ``random.sub_key(rng, i)`` on its first input's device.  With a
+    """Lower a Symbol DAG into ``f(arg_dict, aux_dict, rng, is_train,
+    device=None) -> (outputs, new_aux_dict)`` over tensors.  ``rng`` is
+    the step key (an int; None draws ``random.next_key()``): node ``i``
+    of ``_topo()`` registered ``needs_rng`` draws from a generator seeded
+    with ``random.sub_key(rng, i)`` on its first input's device.  With a
     ``random.Streams`` it draws from that one's persistent generator
-    keyed ``sub_key(streams.base_key, i)``."""
+    keyed ``sub_key(streams.base_key, i)``.  A node without inputs
+    (``_arange``, a sampler) runs on ``device``, by default the
+    arguments' (the CPU when there are none)."""
     nodes = symbol._topo()
     out_refs = [(id(n), i) for n, i in symbol._outputs]
 
-    def fn(arg_dict, aux_dict, rng, is_train: bool):
+    def fn(arg_dict, aux_dict, rng, is_train: bool, device=None):
+        if device is None:
+            device = next((t.device for t in arg_dict.values()),
+                          torch.device("cpu"))
         vals: Dict[tuple, Any] = {}
         new_aux: Dict[str, Any] = {}
         for index, n in enumerate(nodes):
@@ -79,18 +85,18 @@ def build_graph_fn(symbol):
             op = n.opdef()
             inputs = [vals[(id(i), ix)] for i, ix in n.inputs]
             aux_names = n.aux_names()
-            op_ctx = OpContext(is_train=is_train)
+            where = inputs[0].device if inputs else device
+            op_ctx = OpContext(is_train=is_train, device=where)
             if op.needs_rng:
                 if isinstance(rng, _random.Streams):
                     op_ctx.key = _random.sub_key(rng.base_key, index)
-                    op_ctx.rng = rng.generator(op_ctx.key, inputs[0].device)
+                    op_ctx.rng = rng.generator(op_ctx.key, where)
                     op_ctx.streams = rng
                 else:
                     if rng is None:
                         rng = _random.next_key()
                     op_ctx.key = _random.sub_key(rng, index)
-                    op_ctx.rng = _random.key_generator(op_ctx.key,
-                                                       inputs[0].device)
+                    op_ctx.rng = _random.key_generator(op_ctx.key, where)
             if aux_names:
                 outs, aux_out = op.compute(op_ctx, n.attrs, inputs,
                                            [aux_dict[a] for a in aux_names])
@@ -202,7 +208,8 @@ class Executor:
             args[n] = t
         aux = {n: a._data for n, a in self.aux_dict.items()}
         with torch.set_grad_enabled(trace), _cudnn_algorithms():
-            outs, new_aux = self._graph_fn(args, aux, rng, bool(is_train))
+            outs, new_aux = self._graph_fn(args, aux, rng, bool(is_train),
+                                           self._ctx.torch_device())
         for name, val in new_aux.items():
             if val is not self.aux_dict[name]._data:  # an op left it as is
                 self.aux_dict[name][:] = val
@@ -280,6 +287,56 @@ class Executor:
 
     def set_monitor_callback(self, callback):
         raise not_ported("Executor monitors")
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Write ``arg_params`` (and ``aux_params``), name → NDArray or
+        array, into the bound arrays of those names, each keeping its
+        device and dtype (``mxnet_tpu/executor.py:382``).  A name the
+        executor lacks raises unless ``allow_extra_params``."""
+        for params, bound, what in ((arg_params, self.arg_dict, "arguments"),
+                                    (aux_params or {}, self.aux_dict,
+                                     "aux states")):
+            for k, v in params.items():
+                if k in bound:
+                    bound[k][:] = v
+                elif not allow_extra_params:
+                    raise MXNetError(f"Found name {k!r} not in executor "
+                                     f"{what}")
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs) -> "Executor":
+        """A new executor for the input shapes in ``kwargs``: an array
+        whose shape stays is the same NDArray (the parameters are
+        shared), one whose shape changes is a fresh zero array, which
+        only a name in ``kwargs`` may have unless ``partial_shaping``
+        (``mxnet_tpu/executor.py:397``)."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("insufficient shapes for reshape")
+
+        def keep_or_new(old, shape):
+            return old if tuple(old.shape) == tuple(shape) \
+                else nd_zeros(shape, self._ctx, old._data.dtype)
+
+        new_args, new_grads = {}, {}
+        for name, shape in zip(self.arg_names, arg_shapes):
+            old = self.arg_dict[name]
+            if tuple(old.shape) != tuple(shape) and not partial_shaping \
+                    and name not in kwargs:
+                raise MXNetError(f"reshape changed shape of {name!r}; pass "
+                                 f"partial_shaping=True")
+            new_args[name] = keep_or_new(old, shape)
+            if name in self.grad_dict:
+                new_grads[name] = keep_or_new(self.grad_dict[name], shape)
+        new_aux = {name: keep_or_new(self.aux_dict[name], shape)
+                   for name, shape in zip(self.aux_names, aux_shapes or [])}
+        return Executor(self._symbol, self._ctx, new_args, new_grads or None,
+                        self.grad_req, new_aux or None)
+
+    def debug_str(self) -> str:
+        """The bound symbol's ``debug_str``."""
+        return self._symbol.debug_str()
 
 
 def simple_bind(symbol, ctx, grad_req="write", type_dict=None,

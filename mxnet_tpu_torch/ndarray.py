@@ -3,12 +3,16 @@
 Counterpart of ``mxnet_tpu/ndarray.py``, holding what the training
 path touches: creation (``array``, ``zeros``, ``empty``, ``ones``,
 ``full``, ``arange``), ``concatenate``, ``asnumpy``, ``wait_to_read``,
-``shape``/``dtype``/``context``, ``copy``/``copyto``, ``__setitem__``
-(how initializers, ``set_params`` and batches write), ``__getitem__``
-and ``slice``, elementwise arithmetic, ``save``/``load`` (the JAX
-package's binary format, byte for byte), and the imperative op
-namespace: every registered op is ``nd.<name>`` (``imperative_invoke``;
-forward only, outputs on the inputs' context).
+``shape``/``dtype``/``context``, ``copy``/``copyto``/``as_in_context``,
+``astype``, ``reshape``, ``T``, ``__setitem__`` (how initializers,
+``set_params`` and batches write), ``__getitem__`` and ``slice``,
+elementwise arithmetic (``%`` floor modulo, ``**``), comparisons giving
+0/1 in the array's dtype, ``onehot_encode``, ``waitall``, ``save``/
+``load`` (the JAX package's binary format, byte for byte), and the
+imperative op namespace: every registered op is ``nd.<name>``
+(``imperative_invoke``; forward only, outputs on the inputs' context,
+an op without inputs on ``ctx``), with ``uniform``/``normal``/
+``random_*`` taking the JAX package's signatures.
 
 An NDArray is a mutable handle on one tensor on one explicit device
 (its context).  Writes go into that tensor in place (``x[:] = v``,
@@ -30,9 +34,10 @@ from .base import MXNetError, attrs_to_str, numeric_types
 from .context import Context, cpu, current_context
 
 __all__ = ["NDArray", "array", "zeros", "empty", "ones", "full", "arange",
-           "concatenate", "torch_dtype", "dtype_name", "save", "load",
-           "imperative_invoke", "HostBF16", "tensor_from_numpy",
-           "tensor_to_host"]
+           "concatenate", "onehot_encode", "waitall", "uniform", "normal",
+           "random_uniform", "random_normal", "torch_dtype", "dtype_name",
+           "save", "load", "imperative_invoke", "HostBF16",
+           "tensor_from_numpy", "tensor_to_host"]
 
 _py_slice = slice
 
@@ -231,9 +236,36 @@ class NDArray:
     def slice(self, start: int, stop: int) -> "NDArray":
         return NDArray(self._data[start:stop], self._ctx)
 
+    def reshape(self, shape) -> "NDArray":
+        """A view of ``shape``, with ``Reshape``'s special codes (0, -1,
+        -2, -3, -4)."""
+        from .ops.matrix import _infer_reshape_shape
+
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        return NDArray(self._data.reshape(
+            _infer_reshape_shape(self.shape, shape)), self._ctx)
+
+    def astype(self, dtype) -> "NDArray":
+        """A copy in ``dtype`` (a name, numpy or torch dtype)."""
+        return NDArray(self._data.to(torch_dtype(dtype), copy=True),
+                       self._ctx)
+
+    def as_in_context(self, context: Context) -> "NDArray":
+        """This array when it lies on ``context``, else a copy there."""
+        return self if context == self._ctx else self.copyto(context)
+
+    @property
+    def T(self) -> "NDArray":
+        """The transpose (the axes reversed)."""
+        return transpose(self)
+
     # -- arithmetic ----------------------------------------------------------
     def _other(self, o):
-        return o._data if isinstance(o, NDArray) else o
+        if isinstance(o, NDArray):
+            return o._data
+        if isinstance(o, np.ndarray):
+            return tensor_from_numpy(o).to(self._data.device)
+        return o
 
     def _binop(self, o, fn, rev=False):
         a, b = self._data, self._other(o)
@@ -247,7 +279,32 @@ class NDArray:
     def __rmul__(self, o): return self._binop(o, torch.mul, rev=True)
     def __truediv__(self, o): return self._binop(o, torch.div)
     def __rtruediv__(self, o): return self._binop(o, lambda a, b: b / a)
+    def __mod__(self, o): return self._binop(o, torch.remainder)
+    def __pow__(self, o): return self._binop(o, torch.pow)
     def __neg__(self): return NDArray(-self._data, self._ctx)
+
+    # comparisons give 0/1 in this array's dtype (``mxnet_tpu/ndarray.py:
+    # 273-284``), so an NDArray hashes by identity
+    def _cmp(self, o, fn):
+        return self._binop(o, lambda a, b: fn(a, b).to(self._data.dtype))
+
+    def __eq__(self, o):
+        if isinstance(o, (NDArray, int, float, np.ndarray)):
+            return self._cmp(o, torch.eq)
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (NDArray, int, float, np.ndarray)):
+            return self._cmp(o, torch.ne)
+        return NotImplemented
+
+    def __gt__(self, o): return self._cmp(o, torch.gt)
+    def __ge__(self, o): return self._cmp(o, torch.ge)
+    def __lt__(self, o): return self._cmp(o, torch.lt)
+    def __le__(self, o): return self._cmp(o, torch.le)
+
+    def __hash__(self):
+        return id(self)
 
     def _inplace(self, o, name):
         if not self.writable:
@@ -329,6 +386,23 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx: Optional[Context] = None,
     if repeat > 1:
         vals = np.repeat(vals, repeat)
     return array(vals, ctx=ctx, dtype=dtype)
+
+
+def onehot_encode(indices: NDArray, out: NDArray) -> NDArray:
+    """Write the one-hot rows of ``indices`` (depth ``out.shape[1]``)
+    into ``out`` (``mxnet_tpu/ndarray.py:372``)."""
+    idx = indices._data.long().to(out._data.device)
+    depth = out.shape[1]
+    out[:] = (idx[:, None] == torch.arange(depth, device=idx.device))
+    return out
+
+
+def waitall() -> None:
+    """Block until the work queued on every CUDA device is done
+    (``mxnet_tpu/ndarray.py:401``); CPU work is done when it returns."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def concatenate(arrays, axis=0, always_copy=True) -> NDArray:
@@ -460,9 +534,10 @@ def imperative_invoke(op_name: str, *args, out=None, is_train: bool = False,
     nd_aux = nd_inputs[n_formal:] if op.auxiliary_names(attrs) else []
     nd_inputs = nd_inputs[:n_formal]
     with torch.no_grad():
-        outs, new_aux = _reg.invoke(op_name, [a._data for a in nd_inputs],
-                                    attrs, is_train=is_train,
-                                    aux=[a._data for a in nd_aux])
+        outs, new_aux = _reg.invoke(
+            op_name, [a._data for a in nd_inputs], attrs, is_train=is_train,
+            aux=[a._data for a in nd_aux],
+            device=None if nd_inputs else ctx.torch_device())
     for dst, src in zip(nd_aux, new_aux):
         dst[:] = src
     results = [NDArray(o, ctx) for o in outs]
@@ -494,14 +569,39 @@ def _make_ndarray_function(op_name: str):
 
 def _init_ndarray_module():
     """``nd.<op>`` for every registered op whose name is free (``array``,
-    ``zeros`` and the other creation functions keep their names)."""
+    ``zeros`` and the other creation functions keep their names), and a
+    sampler ``_sample_<x>`` also as ``nd.<x>`` where that is free when
+    the sorted names reach it: ``nd.exponential``, and ``nd.gamma``,
+    which is the sampler, not the unary op, as in the JAX package."""
     mod = sys.modules[__name__]
     for name in _reg.list_ops():
         if not hasattr(mod, name):
             setattr(mod, name, _make_ndarray_function(name))
+        short = name[len("_sample_"):]
+        if name.startswith("_sample_") and not hasattr(mod, short):
+            setattr(mod, short, _make_ndarray_function(name))
 
 
 # the ops import this module's dtype helpers, so the registry comes last
 from .ops import registry as _reg  # noqa: E402
 
 _init_ndarray_module()
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, out=None,
+            dtype="float32") -> NDArray:
+    """Uniform draws in [low, high) of ``shape`` on ``ctx``
+    (``_sample_uniform``)."""
+    return imperative_invoke("_sample_uniform", low=low, high=high,
+                             shape=shape, dtype=dtype, ctx=ctx, out=out)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, out=None,
+           dtype="float32") -> NDArray:
+    """Gaussian draws of ``shape`` on ``ctx`` (``_sample_normal``)."""
+    return imperative_invoke("_sample_normal", loc=loc, scale=scale,
+                             shape=shape, dtype=dtype, ctx=ctx, out=out)
+
+
+random_uniform = uniform
+random_normal = normal

@@ -3,7 +3,9 @@ the package registers every op the port carries."""
 
 from . import registry
 from . import (attention, cuda_kernels, custom, detection, elemwise, indexing,
-               matrix, nn, rnn)
+               init_ops, matrix, nn, optimizer_op, ordering, reduce, rnn,
+               sample, spatial)
 
 __all__ = ["registry", "attention", "cuda_kernels", "custom", "detection",
-           "elemwise", "indexing", "matrix", "nn", "rnn"]
+           "elemwise", "indexing", "init_ops", "matrix", "nn",
+           "optimizer_op", "ordering", "reduce", "rnn", "sample", "spatial"]

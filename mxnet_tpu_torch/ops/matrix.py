@@ -1,11 +1,16 @@
 """Shape ops: ``Reshape`` (alias ``reshape``) with MXNet's special codes,
 ``Flatten``, ``transpose``, ``expand_dims``, ``Concat``, ``Pad`` (alias
-``pad``), ``space_to_depth`` and ``depth_to_space``.
+``pad``), ``space_to_depth`` and ``depth_to_space``; ``slice``/``crop``,
+``slice_axis``, ``flip``/``reverse``, ``dot``, ``batch_dot``,
+``SliceChannel``/``split``, ``SwapAxis``, ``repeat`` and ``tile``.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:23-125,260-287,343-353,
-372-470``, with its own copy of ``_infer_reshape_shape``.  ``transpose``
-returns a contiguous tensor, so the op after it (the RNN's input
-projection, a ``Reshape``) reads memory in its own order.  The JAX
+Counterpart of ``mxnet_tpu/ops/matrix.py``, with its own copy of
+``_infer_reshape_shape``.  ``dot`` is ``jnp.dot`` (numpy's rule for N-D
+operands: the last axis of lhs against the second to last of rhs) and
+``dot``/``batch_dot`` give lhs's dtype, as the JAX ops' float32
+accumulation cast back; ``SwapAxis`` and ``SliceChannel`` give views.
+``transpose`` returns a contiguous tensor, so the op after it (the
+RNN's input projection, a ``Reshape``) reads memory in its own order.  The JAX
 package lowers ``space_to_depth``/``depth_to_space`` as a one-hot
 convolution, for the TPU's layouts (``:372-392``); here they are a
 reshape and a permute, the same channel orders: ``depth_major``, out
@@ -269,3 +274,228 @@ def _depth_to_space(op_ctx, attrs, inputs, aux):
     else:
         x = x.reshape(n, c, b, b, h, w).permute(0, 1, 4, 2, 5, 3)
     return [x.reshape(n, c, h * b, w * b)]
+
+
+# -- slicing, products, splitting (``mxnet_tpu/ops/matrix.py:141-370``) ----
+
+
+def _slice_bounds(attrs, shape):
+    """(begin, end) of every axis ``slice`` cuts, as Python slices take
+    them (negative from the end)."""
+    begin = attr_shape(attrs.get("begin"))
+    end = attr_shape(attrs.get("end"))
+    return [slice(b, e).indices(shape[i])[:2]
+            for i, (b, e) in enumerate(zip(begin, end))]
+
+
+def _slice_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    out = list(s)
+    for i, (b, e) in enumerate(_slice_bounds(attrs, s)):
+        out[i] = max(0, e - b)
+    return in_shapes, [tuple(out)], []
+
+
+@register("slice", arg_names=("data",), aliases=("crop",),
+          infer_shape=_slice_infer,
+          doc="x[begin[0]:end[0], begin[1]:end[1], ...] over the leading "
+              "len(begin) axes")
+def _slice(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    return [x[tuple(slice(b, e) for b, e in _slice_bounds(attrs, x.shape))]]
+
+
+def _slice_axis_bounds(attrs, shape):
+    axis = attr_int(attrs.get("axis")) % len(shape)
+    n = shape[axis]
+    begin = attr_int(attrs.get("begin"))
+    e = attrs.get("end")
+    end = n if e in (None, "None", "") else attr_int(e)
+    return axis, begin + n if begin < 0 else begin, end + n if end < 0 \
+        else end
+
+
+def _slice_axis_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    axis, begin, end = _slice_axis_bounds(attrs, s)
+    out = list(s)
+    out[axis] = end - begin
+    return in_shapes, [tuple(out)], []
+
+
+@register("slice_axis", arg_names=("data",), infer_shape=_slice_axis_infer,
+          doc="[begin, end) along attrs['axis'] (end None: to the end)")
+def _slice_axis(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    axis, begin, end = _slice_axis_bounds(attrs, x.shape)
+    return [x.narrow(axis, begin, end - begin)]
+
+
+@register("flip", arg_names=("data",), aliases=("reverse",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="Reverse along the axes attrs['axis']")
+def _flip(op_ctx, attrs, inputs, aux):
+    return [torch.flip(inputs[0], attr_shape(attrs.get("axis")))]
+
+
+def _swap_last(x):
+    return x.transpose(-1, -2) if x.ndim > 1 else x
+
+
+def _dot_operands(attrs, a, b):
+    if attr_bool(attrs.get("transpose_a"), False):
+        a = _swap_last(a)
+    if attr_bool(attrs.get("transpose_b"), False):
+        b = _swap_last(b)
+    return a, b
+
+
+def _dot_infer(attrs, in_shapes):
+    a, b = in_shapes
+    if a is None or b is None:
+        return in_shapes, [None], []
+    a2, b2 = (tuple(s[:-2]) + (s[-1], s[-2]) if flag and len(s) > 1
+              else tuple(s) for s, flag in (
+                  (a, attr_bool(attrs.get("transpose_a"), False)),
+                  (b, attr_bool(attrs.get("transpose_b"), False))))
+    if len(a2) == 1 and len(b2) == 1:
+        return in_shapes, [(1,)], []
+    if len(b2) == 1:
+        return in_shapes, [a2[:-1]], []
+    return in_shapes, [a2[:-1] + b2[:-2] + b2[-1:]], []
+
+
+@register("dot", arg_names=("lhs", "rhs"), infer_shape=_dot_infer,
+          doc="numpy's dot (jnp.dot): the last axis of lhs against the "
+              "second to last of rhs (its only one when 1-D); transpose_a/"
+              "_b swap an operand's last two axes; 1-D . 1-D has shape "
+              "(1,); the result in lhs's dtype")
+def _dot(op_ctx, attrs, inputs, aux):
+    a, b = _dot_operands(attrs, *inputs)
+    out = torch.tensordot(a, b, dims=([a.ndim - 1], [max(b.ndim - 2, 0)]))
+    out = out.to(inputs[0].dtype)
+    return [out.reshape(1) if out.ndim == 0 else out]
+
+
+def _batch_dot_infer(attrs, in_shapes):
+    a, b = in_shapes
+    if a is None or b is None:
+        return in_shapes, [None], []
+    m = a[2] if attr_bool(attrs.get("transpose_a"), False) else a[1]
+    n = b[1] if attr_bool(attrs.get("transpose_b"), False) else b[2]
+    return in_shapes, [(a[0], m, n)], []
+
+
+@register("batch_dot", arg_names=("lhs", "rhs"),
+          infer_shape=_batch_dot_infer,
+          doc="Batched (b, m, k) x (b, k, n) product, transpose_a/_b; the "
+              "result in lhs's dtype")
+def _batch_dot(op_ctx, attrs, inputs, aux):
+    a, b = _dot_operands(attrs, *inputs)
+    return [torch.bmm(a, b).to(inputs[0].dtype)]
+
+
+def _split_geometry(attrs, ndim):
+    return (attr_int(attrs.get("num_outputs", 1)),
+            attr_int(attrs.get("axis", 1)) % ndim,
+            attr_bool(attrs.get("squeeze_axis"), False))
+
+
+def _slice_channel_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    n = attr_int(attrs.get("num_outputs", 1))
+    if s is None:
+        return in_shapes, [None] * n, []
+    n, axis, squeeze = _split_geometry(attrs, len(s))
+    out = list(s)
+    out[axis] = s[axis] // n
+    if squeeze and out[axis] == 1:
+        del out[axis]
+    return in_shapes, [tuple(out)] * n, []
+
+
+@register("SliceChannel", arg_names=("data",),
+          aliases=("slice_channel", "split"),
+          out_names=lambda attrs: [f"output{i}" for i in range(
+              attr_int(attrs.get("num_outputs", 1)))],
+          infer_shape=_slice_channel_infer,
+          doc="num_outputs equal parts along attrs['axis'] (1); "
+              "squeeze_axis drops that axis when the parts have size 1")
+def _slice_channel(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    n, axis, squeeze = _split_geometry(attrs, x.ndim)
+    if x.shape[axis] % n:
+        raise MXNetError(f"SliceChannel: axis {axis} of {tuple(x.shape)} "
+                         f"does not split into {n} equal parts")
+    outs = torch.split(x, x.shape[axis] // n, dim=axis)
+    if squeeze:
+        if x.shape[axis] != n:
+            raise MXNetError(f"SliceChannel: squeeze_axis needs parts of "
+                             f"size 1, not {x.shape[axis] // n}")
+        outs = [o.squeeze(axis) for o in outs]
+    return list(outs)
+
+
+def _swap_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    d1, d2 = attr_int(attrs.get("dim1", 0)), attr_int(attrs.get("dim2", 0))
+    out = list(s)
+    out[d1], out[d2] = out[d2], out[d1]
+    return in_shapes, [tuple(out)], []
+
+
+@register("SwapAxis", arg_names=("data",), aliases=("swapaxes",),
+          infer_shape=_swap_infer, doc="Swap axes dim1 and dim2 (a view)")
+def _swapaxis(op_ctx, attrs, inputs, aux):
+    return [inputs[0].transpose(attr_int(attrs.get("dim1", 0)),
+                                attr_int(attrs.get("dim2", 0)))]
+
+
+def _repeat_axis(attrs):
+    ax = attrs.get("axis")
+    return None if ax in (None, "None", "") else attr_int(ax)
+
+
+def _repeat_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    reps = attr_int(attrs.get("repeats", 1))
+    axis = _repeat_axis(attrs)
+    if axis is None:
+        return in_shapes, [(int(np.prod(s)) * reps,)], []
+    out = list(s)
+    out[axis] *= reps
+    return in_shapes, [tuple(out)], []
+
+
+@register("repeat", arg_names=("data",), infer_shape=_repeat_infer,
+          doc="Repeat each element attrs['repeats'] times along "
+              "attrs['axis'] (of the flattened input by default)")
+def _repeat(op_ctx, attrs, inputs, aux):
+    return [torch.repeat_interleave(inputs[0],
+                                    attr_int(attrs.get("repeats", 1)),
+                                    dim=_repeat_axis(attrs))]
+
+
+def _tile_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None], []
+    reps = attr_shape(attrs.get("reps"))
+    n = max(len(s), len(reps))
+    s2 = (1,) * (n - len(s)) + tuple(s)
+    r2 = (1,) * (n - len(reps)) + tuple(reps)
+    return in_shapes, [tuple(a * b for a, b in zip(s2, r2))], []
+
+
+@register("tile", arg_names=("data",), infer_shape=_tile_infer,
+          doc="numpy's tile by attrs['reps']")
+def _tile(op_ctx, attrs, inputs, aux):
+    return [torch.tile(inputs[0], attr_shape(attrs.get("reps")))]

@@ -9,9 +9,15 @@ Counterpart of the ``FullyConnected`` (``:50``), ``Activation``
 (``:584-605``), ``L2Normalization`` (``:608``), ``LRN`` (``:627-651``),
 ``Dropout`` (``:654-671``), ``SoftmaxOutput`` (``:669-768``),
 ``SoftmaxCELoss`` (``:770-832``), ``MakeLoss`` (``:878-909``),
-``UpSampling`` (``:981-1040``) and ``Crop`` (``:1043-1078``) ops of
-``mxnet_tpu/ops/nn.py``.  The matmul and the convolutions go to torch,
-as the JAX package leaves them to XLA outside any Pallas kernel.
+``UpSampling`` (``:981-1040``), ``Crop`` (``:1043-1078``), ``softmax``
+and ``log_softmax`` (``:168-182``), the regression heads (``:848-875``),
+``SVMOutput`` (``:912-958``), ``softmax_cross_entropy`` (``:962``),
+``SequenceLast``/``Mask``/``Reverse`` (``:1081-1145``) and
+``IdentityAttachKLSparseReg`` (``:1148``) ops of ``mxnet_tpu/ops/nn.py``.
+``LayerNorm`` takes any axis and ``output_mean_var`` (its float32 mean
+and 1/sqrt(var + eps), the JAX op's "std").  The matmul and the
+convolutions go to torch, as the JAX package leaves them to XLA outside
+any Pallas kernel.
 
 Randomness: ``Dropout``'s keep mask comes from ``draw_mask`` and
 rrelu's slopes from ``draw_slopes``, each over the generator the
@@ -19,9 +25,11 @@ executor hands the node (``OpContext.rng``); tests replace these two
 functions to inject the JAX package's own draws.
 
 The loss heads keep the reference convention: their backward is
-``(p - onehot) * grad_scale`` (``MakeLoss``: ``grad_scale``) from what
-the forward saved, with ignored rows zeroed, and the incoming gradient
-is ignored (so the executor may seed them with ones).  A label outside
+``(p - onehot) * grad_scale`` (``MakeLoss``: ``grad_scale``; the
+regression heads ``grad_scale * (out - label)`` over the elements of a
+sample, MAE its sign; ``SVMOutput`` the hinge's) from what the forward
+saved, with ignored rows zeroed, and the incoming gradient is ignored
+(so the executor may seed them with ones).  A label outside
 [0, C), such as an ignore label of -1, is never used as an index.
 """
 
@@ -34,8 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import (MXNetError, attr_bool, attr_float, attr_int, attr_shape,
-                    not_ported)
+from ..base import MXNetError, attr_bool, attr_float, attr_int, attr_shape
 from .registry import register
 
 __all__ = ["fully_connected", "layer_norm", "gelu", "fused_mean_var",
@@ -468,20 +475,43 @@ def _ln_infer(attrs, in_shapes):
         return in_shapes, [None], []
     axis = attr_int(attrs.get("axis", -1), -1) % len(d)
     c = (d[axis],)
-    return [tuple(d), c, c], [tuple(d)], []
+    outs = [tuple(d)]
+    if attr_bool(attrs.get("output_mean_var"), False):
+        red = tuple(s for i, s in enumerate(d) if i != axis)
+        outs += [red, red]
+    return [tuple(d), c, c], outs, []
+
+
+def _ln_outs(attrs):
+    if attr_bool(attrs.get("output_mean_var"), False):
+        return ["output", "mean", "std"]
+    return ["output"]
 
 
 @register("LayerNorm", arg_names=("data", "gamma", "beta"),
-          infer_shape=_ln_infer,
-          doc="Layer normalization over the last axis")
+          out_names=_ln_outs, infer_shape=_ln_infer,
+          doc="Layer normalization over attrs['axis'] (the last by "
+              "default); output_mean_var adds the float32 mean and "
+              "1/sqrt(var + eps) (the JAX op's 'std'), the axis dropped")
 def _layer_norm_op(op_ctx, attrs, inputs, aux):
     x, gamma, beta = inputs
-    if attr_int(attrs.get("axis", -1), -1) % x.ndim != x.ndim - 1:
-        raise not_ported("LayerNorm over an axis other than the last")
-    if attr_bool(attrs.get("output_mean_var"), False):
-        raise not_ported("LayerNorm(output_mean_var=True)")
-    return [layer_norm(x, gamma, beta,
-                       eps=attr_float(attrs.get("eps", 1e-5), 1e-5))]
+    eps = attr_float(attrs.get("eps", 1e-5), 1e-5)
+    ax = attr_int(attrs.get("axis", -1), -1) % x.ndim
+    with_stats = attr_bool(attrs.get("output_mean_var"), False)
+    if ax == x.ndim - 1 and not with_stats:
+        return [layer_norm(x, gamma, beta, eps=eps)]
+    xf = x.float()
+    mean = xf.mean(dim=ax, keepdim=True)
+    var = (xf - mean).square().mean(dim=ax, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    bshape = [1] * x.ndim
+    bshape[ax] = x.shape[ax]
+    out = (xf - mean) * inv * gamma.reshape(bshape).float() \
+        + beta.reshape(bshape).float()
+    outs = [out.to(x.dtype)]
+    if with_stats:
+        outs += [mean.squeeze(ax), inv.squeeze(ax)]
+    return outs
 
 
 _L2_AXES = {"instance": lambda nd: tuple(range(1, nd)),
@@ -870,3 +900,213 @@ def _crop_op(op_ctx, attrs, inputs, aux):
     else:
         oy, ox = attr_shape(attrs.get("offset")) or (0, 0)
     return [x[:, :, oy:oy + th, ox:ox + tw]]
+
+
+# -- softmax, the regression and SVM heads, the sequence ops (``mxnet_tpu/
+# ops/nn.py:168-182, 848-985, 1081-1170``) -----------------------------------
+
+
+@register("softmax", arg_names=("data",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="softmax(data / temperature) along attrs['axis'] (-1)")
+def _softmax_op(op_ctx, attrs, inputs, aux):
+    t = attr_float(attrs.get("temperature", 1.0)) or 1.0
+    x = inputs[0]
+    if t != 1.0:  # a true division, as jnp's (see elemwise._with_scalar)
+        x = x / x.new_full((), t)
+    return [torch.softmax(x, dim=attr_int(attrs.get("axis", -1), -1))]
+
+
+@register("log_softmax", arg_names=("data",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="log-softmax along attrs['axis'] (-1)")
+def _log_softmax_op(op_ctx, attrs, inputs, aux):
+    return [torch.log_softmax(inputs[0],
+                              dim=attr_int(attrs.get("axis", -1), -1))]
+
+
+class _LossHead(torch.autograd.Function):
+    """A loss head: ``forward(data)`` out, and ``grad(out, label)`` as the
+    backward in place of the derivative: the incoming gradient is
+    ignored (the reference's loss-head rule) and the label gets none."""
+
+    @staticmethod
+    def forward(ctx, data, label, forward, grad):
+        out = forward(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad = grad
+        return out
+
+    @staticmethod
+    def backward(ctx, _g):
+        out, label = ctx.saved_tensors
+        return ctx.grad(out, label).to(out.dtype), None, None, None
+
+
+def _regression(forward, grad):
+    """A regression head: ``forward(data)`` out, backward ``grad(out,
+    label reshaped to out) * grad_scale / (elements a sample)``."""
+
+    def head(data, label, grad_scale):
+        scale = grad_scale / max(1, int(np.prod(data.shape[1:])))
+        return _LossHead.apply(
+            data, label, forward,
+            lambda out, lab: grad(out, lab.reshape(out.shape)) * scale)
+
+    return head
+
+
+_REGRESSION = {
+    "LinearRegressionOutput": _regression(torch.clone, torch.sub),
+    "LogisticRegressionOutput": _regression(torch.sigmoid, torch.sub),
+    "MAERegressionOutput": _regression(
+        torch.clone, lambda o, l: torch.sign(o - l)),
+}
+
+
+def _regression_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    return [tuple(d), tuple(d)], [tuple(d)], []
+
+
+def _make_regression(name, head):
+    def compute(op_ctx, attrs, inputs, aux):
+        return [head(inputs[0], inputs[1],
+                     attr_float(attrs.get("grad_scale", 1.0), 1.0))]
+
+    register(name, arg_names=("data", "label"), is_loss=True,
+             infer_shape=_regression_infer,
+             doc=f"{name}: backward grad_scale * (out - label) / (elements "
+                 f"a sample) (MAE: its sign), ignoring the head "
+                 f"gradient")(compute)
+
+
+for _n, _h in _REGRESSION.items():
+    _make_regression(_n, _h)
+
+
+@register("SVMOutput", arg_names=("data", "label"), is_loss=True,
+          infer_shape=lambda attrs, s: (
+              s, [s[0]], []) if s[0] is None
+          else ([tuple(s[0]), (s[0][0],)], [tuple(s[0])], []),
+          doc="SVM loss head: data out; backward the hinge's, L2 "
+              "-2 y reg * max(margin - y * data, 0) or L1 (use_linear) "
+              "-y reg where the margin is violated")
+def _svm_output_op(op_ctx, attrs, inputs, aux):
+    margin = attr_float(attrs.get("margin", 1.0), 1.0)
+    reg = attr_float(attrs.get("regularization_coefficient", 1.0), 1.0)
+    linear = attr_bool(attrs.get("use_linear"), False)
+
+    def grad(d, lab):
+        # y = +1 for the label's class, -1 elsewhere
+        hot = lab.long()[:, None] == torch.arange(d.shape[1],
+                                                  device=d.device)
+        y = 2 * hot.to(d.dtype) - 1
+        if linear:
+            return -y * ((margin - y * d) > 0).to(d.dtype) * reg
+        return -2.0 * y * torch.clamp_min(margin - y * d, 0.0) * reg
+
+    return [_LossHead.apply(inputs[0], inputs[1], torch.clone, grad)]
+
+
+@register("softmax_cross_entropy", arg_names=("data", "label"),
+          infer_shape=lambda attrs, s: (s, [(1,)], []),
+          doc="The summed cross entropy of softmax over the last axis "
+              "against integer-valued labels (every leading axis), shape "
+              "(1,); an ordinary differentiable op, not a loss head")
+def _softmax_cross_entropy(op_ctx, attrs, inputs, aux):
+    data, label = inputs
+    logp = torch.log_softmax(data, dim=-1)
+    nll = -torch.gather(logp, -1, label.long()[..., None])
+    return [torch.sum(nll).reshape(1)]
+
+
+def _seq_args(attrs):
+    if attr_bool(attrs.get("use_sequence_length"), False):
+        return ["data", "sequence_length"]
+    return ["data"]
+
+
+def _seq_lengths(attrs, in_shapes):
+    d = in_shapes[0]
+    if not attr_bool(attrs.get("use_sequence_length"), False):
+        return [d]
+    return [d, None if d is None else (d[1],)]
+
+
+@register("SequenceLast", arg_names=_seq_args,
+          infer_shape=lambda attrs, s: (
+              _seq_lengths(attrs, s),
+              [None if s[0] is None else tuple(s[0][1:])], []),
+          doc="The last step of (T, B, ...) data, or step "
+              "sequence_length - 1 (clipped into [0, T)) of each sequence")
+def _sequence_last(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if not attr_bool(attrs.get("use_sequence_length"), False):
+        return [x[-1]]
+    idx = (inputs[1].long() - 1).clamp(0, x.shape[0] - 1)
+    return [x[idx, torch.arange(x.shape[1], device=x.device)]]
+
+
+def _steps_before(x, lengths):
+    """(T, B, 1, ...) True where step t < the sequence's length."""
+    t = torch.arange(x.shape[0], device=x.device)[:, None]
+    mask = t < lengths.long()[None, :]
+    return mask.reshape(mask.shape + (1,) * (x.ndim - 2))
+
+
+@register("SequenceMask", arg_names=_seq_args,
+          infer_shape=lambda attrs, s: (_seq_lengths(attrs, s), [s[0]], []),
+          doc="attrs['value'] past each sequence's length")
+def _sequence_mask(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if not attr_bool(attrs.get("use_sequence_length"), False):
+        return [x]
+    value = attr_float(attrs.get("value", 0.0), 0.0)
+    return [torch.where(_steps_before(x, inputs[1]), x, value).to(x.dtype)]
+
+
+@register("SequenceReverse", arg_names=_seq_args,
+          infer_shape=lambda attrs, s: (_seq_lengths(attrs, s), [s[0]], []),
+          doc="Each sequence's first sequence_length steps reversed, the "
+              "rest in place (all steps without lengths)")
+def _sequence_reverse(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if not attr_bool(attrs.get("use_sequence_length"), False):
+        return [torch.flip(x, (0,))]
+    lengths = inputs[1].long()
+    t = torch.arange(x.shape[0], device=x.device)[:, None]
+    src = torch.where(t < lengths[None, :], lengths[None, :] - 1 - t, t)
+    src = src.reshape(src.shape + (1,) * (x.ndim - 2)).expand(x.shape)
+    return [torch.gather(x, 0, src)]
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """Identity; backward adds the KL sparseness penalty's gradient
+    ``penalty * (-target / rho + (1 - target) / (1 - rho))``, rho the
+    batch mean of sigmoid(x)."""
+
+    @staticmethod
+    def forward(ctx, x, target, penalty):
+        ctx.save_for_backward(x)
+        ctx.cfg = (target, penalty)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        target, penalty = ctx.cfg
+        rho = torch.sigmoid(x).mean(dim=0, keepdim=True)
+        pen = penalty * (-target / rho + (1 - target) / (1 - rho))
+        return g + pen, None, None
+
+
+@register("IdentityAttachKLSparseReg", arg_names=("data",),
+          infer_shape=lambda attrs, s: (s, [s[0]], []),
+          doc="Identity whose backward adds a KL sparseness penalty")
+def _identity_kl(op_ctx, attrs, inputs, aux):
+    return [_KLSparseReg.apply(
+        inputs[0], attr_float(attrs.get("sparseness_target", 0.1), 0.1),
+        attr_float(attrs.get("penalty", 0.001), 0.001))]

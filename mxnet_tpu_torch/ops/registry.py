@@ -43,12 +43,15 @@ class OpContext:
     the step's persistent generators (``random.Streams``): ``rng`` is
     then the node's own, seeded once, whose state runs on from step to
     step.  An op that draws sub-streams (the fused RNN's per-layer
-    dropout) takes them from ``sub_generator``."""
+    dropout) takes them from ``sub_generator``.  ``device`` is where an
+    op with no inputs (``_zeros``, ``_arange``, the samplers) makes its
+    output: the executor's context, or the eager call's."""
 
     is_train: bool = False
     rng: Optional[torch.Generator] = None
     key: Optional[int] = None
     streams: Any = None
+    device: Any = None
 
     def sub_generator(self, i: int, device) -> torch.Generator:
         """The generator of sub-stream ``i`` of this node, keyed
@@ -139,15 +142,18 @@ def list_ops() -> List[str]:
 def invoke(op_name: str, inputs: Sequence[torch.Tensor],
            attrs: Optional[Dict[str, Any]] = None, is_train: bool = False,
            rng: Optional[torch.Generator] = None,
-           aux: Sequence[torch.Tensor] = ()):
-    """Run a registered op eagerly on tensors → (outputs, new_aux)."""
+           aux: Sequence[torch.Tensor] = (), device=None):
+    """Run a registered op eagerly on tensors → (outputs, new_aux).
+    ``device`` is the device of an op without inputs (the CPU when not
+    given); an op with inputs runs on theirs."""
     op = get_op(op_name)
     attrs = attrs_to_str(attrs or {})
+    device = inputs[0].device if inputs else torch.device(device or "cpu")
     if op.needs_rng and rng is None:
         from .. import random as _random
 
-        rng = _random.generator(inputs[0].device)
-    op_ctx = OpContext(is_train=bool(is_train), rng=rng)
+        rng = _random.generator(device)
+    op_ctx = OpContext(is_train=bool(is_train), rng=rng, device=device)
     if aux:
         outs, new_aux = op.compute(op_ctx, attrs, list(inputs), list(aux))
     else:

@@ -1,17 +1,20 @@
 """Symbol — the symbolic graph API.
 
-Counterpart of ``mxnet_tpu/symbol.py``, holding what the training path
-touches: ``Variable`` (with ``shape``, ``dtype``, ``init`` and
-``attr``), ``Group``, op functions generated from the port's registry,
-``+``/``-``/``*`` of two symbols, outputs by index or name,
-``get_internals``/``get_children``,
+Counterpart of ``mxnet_tpu/symbol.py``: ``Variable`` (with ``shape``,
+``dtype``, ``init`` and ``attr``), ``Group``, op functions generated
+from the port's registry (a variadic op counts its inputs into
+``num_args``), ``+``/``-``/``*``/``/``/``**`` of two symbols or of a
+symbol and a number (the scalar ops, ``-s`` as ``_mul_scalar(-1)``),
+outputs by index or name, ``get_internals``/``get_children``,
 ``list_arguments``/``list_outputs``/``list_auxiliary_states``,
-``infer_shape``/``infer_type``, ``attr_dict``, ``_topo``, ``bind``,
-``simple_bind`` and ``eval``, and the JSON form (``tojson``/``save``,
-``load_json``/``load``, ``mxnet_tpu/symbol.py:437-465, 631-655``), which
-each package loads from the other.  A Symbol is a DAG of nodes, each a variable
-(``op=None``) or an operator application; the executor lowers it to one
-Python function over tensors, and autograd differentiates it.
+``infer_shape``/``infer_shape_partial``/``infer_type``, ``attr``/
+``attr_dict``, ``debug_str``, ``_topo``, ``bind``, ``simple_bind`` and
+``eval``, ``zeros``/``ones``/``arange``, and the JSON form
+(``tojson``/``save``, ``load_json``/``load``, ``mxnet_tpu/symbol.py:
+437-465, 631-655``), which each package loads from the other.  A
+Symbol is a DAG of nodes, each a variable (``op=None``) or an operator
+application; the executor lowers it to one Python function over
+tensors, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -21,12 +24,18 @@ import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .attribute import AttrScope
-from .base import MXNetError, attr_shape, attrs_to_str, not_ported
+from .base import (MXNetError, attr_shape, attrs_to_str, not_ported,
+                   numeric_types)
 from .name import NameManager
 from . import ops as _ops  # noqa: F401  (registers the port's ops)
 from .ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "Group", "var", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "var", "load", "load_json",
+           "zeros", "ones", "arange"]
+
+# the generated op functions (slice, sum, max, ...) shadow builtins in
+# this module's namespace; code here uses these
+_py_slice = slice
 
 # the node attrs that are not operator parameters (the JAX package's
 # ``_META_ATTRS``): kept in ``_Node._meta`` by ``load_json``
@@ -132,6 +141,13 @@ class Symbol:
         return f"<Symbol {self.name or 'Grouped'}>"
 
     # -- attributes ----------------------------------------------------------
+    def attr(self, key: str) -> Optional[str]:
+        """Attribute ``key`` of the (first) output's node: a symbol
+        attribute (``lr_mult``, ``__shape__``, ...) or an operator
+        parameter; None when it has none."""
+        node = self._outputs[0][0]
+        return node._meta.get(key) or node.attrs.get(key)
+
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         ret = {}
         for n in self._topo():
@@ -162,7 +178,7 @@ class Symbol:
             if index not in names:
                 raise MXNetError(f"cannot find output {index!r} in {names}")
             index = names.index(index)
-        if isinstance(index, slice):
+        if isinstance(index, _py_slice):
             return Symbol(self._outputs[index])
         return Symbol([self._outputs[index]])
 
@@ -173,12 +189,17 @@ class Symbol:
         return (self[i] for i in range(len(self._outputs)))
 
     # -- arithmetic ----------------------------------------------------------
-    def _binop(self, other, op_name, scalar_op, rev=False):
-        if not isinstance(other, Symbol):
-            raise not_ported(f"Symbol arithmetic with a scalar "
-                             f"({scalar_op})")
-        lhs, rhs = (other, self) if rev else (self, other)
-        return _create_symbol(op_name, [lhs, rhs], {})
+    def _binop(self, other, op_name, scalar_op, rscalar_op=None, rev=False):
+        """``op_name`` of two symbols; with a number, ``scalar_op`` (or
+        ``rscalar_op`` for the reflected form) with attr ``scalar``, as
+        the JAX package builds it (``mxnet_tpu/symbol.py:240-260``)."""
+        if isinstance(other, Symbol):
+            lhs, rhs = (other, self) if rev else (self, other)
+            return _create_symbol(op_name, [lhs, rhs], {})
+        if isinstance(other, numeric_types):
+            name = rscalar_op if (rev and rscalar_op) else scalar_op
+            return _create_symbol(name, [self], {"scalar": str(float(other))})
+        raise TypeError(f"unsupported operand {type(other)}")
 
     def __add__(self, other):
         return self._binop(other, "elemwise_add", "_plus_scalar")
@@ -187,10 +208,12 @@ class Symbol:
         return self._binop(other, "elemwise_add", "_plus_scalar", rev=True)
 
     def __sub__(self, other):
-        return self._binop(other, "elemwise_sub", "_minus_scalar")
+        return self._binop(other, "elemwise_sub", "_minus_scalar",
+                           "_rminus_scalar")
 
     def __rsub__(self, other):
-        return self._binop(other, "elemwise_sub", "_rminus_scalar", rev=True)
+        return self._binop(other, "elemwise_sub", "_minus_scalar",
+                           "_rminus_scalar", rev=True)
 
     def __mul__(self, other):
         return self._binop(other, "elemwise_mul", "_mul_scalar")
@@ -198,10 +221,32 @@ class Symbol:
     def __rmul__(self, other):
         return self._binop(other, "elemwise_mul", "_mul_scalar", rev=True)
 
+    def __truediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar",
+                           "_rdiv_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar",
+                           "_rdiv_scalar", rev=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar", "_rpower_scalar")
+
+    def __neg__(self):
+        return self._binop(-1.0, "elemwise_mul", "_mul_scalar")
+
     # -- shape / type inference ------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the shapes given by
         position or name; (None, None, None) when underdetermined."""
+        return self._infer_shape(False, args, kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape`` that returns what it could infer, None in
+        place of each shape it could not."""
+        return self._infer_shape(True, args, kwargs)
+
+    def _infer_shape(self, partial, args, kwargs):
         arg_names = self.list_arguments()
         known: Dict[str, tuple] = {}
         for n, s in zip(arg_names, args):
@@ -255,17 +300,23 @@ class Symbol:
         arg_shapes = [var_shapes.get(n) for n in arg_names]
         out_shapes = [shapes.get((id(n), i)) for n, i in self._outputs]
         aux_list = [aux_shapes.get(a) for a in self.list_auxiliary_states()]
-        if any(s is None for s in arg_shapes + out_shapes):
+        if not partial and any(s is None for s in arg_shapes + out_shapes):
             return None, None, None
         return arg_shapes, out_shapes, aux_list
 
     # ops whose inputs deliberately do not share the node dtype
     _TYPE_HETERO_INPUTS = {
         "Embedding": {0},       # token ids; the weight drives the dtype
+        "take": {1}, "batch_take": {1}, "one_hot": {0},
         "SoftmaxOutput": {1}, "Softmax": {1}, "SoftmaxCELoss": {1},
+        "LinearRegressionOutput": {1}, "LogisticRegressionOutput": {1},
+        "MAERegressionOutput": {1}, "SVMOutput": {1},
+        "SequenceLast": {1}, "SequenceMask": {1}, "SequenceReverse": {1},
+        "ROIPooling": {1},
     }
     # ops whose output dtype comes from an attr, not the inputs
-    _TYPE_FROM_ATTR = ("Cast", "cast")
+    _TYPE_FROM_ATTR = ("Cast", "cast", "argmax", "argmin", "argsort",
+                       "_zeros", "_ones", "_full", "_arange", "one_hot")
 
     def infer_type(self, *args, **kwargs):
         """Graph dtype inference, forward and backward: a known dtype
@@ -361,6 +412,14 @@ class Symbol:
     def save(self, fname: str) -> None:
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+    def debug_str(self) -> str:
+        """One line a node in topological order: its op (``Variable``),
+        name, inputs and parameters, as the JAX package prints them."""
+        return "\n".join(
+            f"{'Variable' if n.is_variable else n.op} {n.name}("
+            + ", ".join(f"{i.name}[{ix}]" for i, ix in n.inputs)
+            + f") {n.attrs}" for n in self._topo())
 
     # -- binding ---------------------------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
@@ -476,6 +535,12 @@ def _make_symbol_function(op_name: str):
             name = name or NameManager.current().get(None, op.name.lower())
             for iname in input_names[len(inputs):]:
                 inputs.append(Variable(f"{name}_{iname}"))
+        # a variadic op (add_n, Concat) counts its inputs into num_args
+        if "num_args" not in attrs and callable(op.arg_names):
+            attrs["num_args"] = str(len(inputs))
+            if op.input_names(attrs) != [f"arg{i}"
+                                         for i in range(len(inputs))]:
+                del attrs["num_args"]
         return _create_symbol(op_name, inputs, attrs, name=name, attr=attr)
 
     fn.__name__ = op_name
@@ -500,7 +565,8 @@ def load_json(json_str: str) -> Symbol:
             except MXNetError:
                 raise not_ported(
                     f"operator {op!r} (node {jn['name']!r} of a symbol "
-                    f"file; the operators of queue A item 5)") from None
+                    f"file; the serving operators of queue A item 7)") \
+                    from None
         node = _Node(None if op == "null" else op, jn["name"], attrs,
                      [(nodes[i[0]], i[1]) for i in jn["inputs"]])
         node._meta = meta
@@ -512,6 +578,28 @@ def load_json(json_str: str) -> Symbol:
 def load(fname: str) -> Symbol:
     with open(fname) as f:
         return load_json(f.read())
+
+
+def zeros(shape, dtype="float32", **kwargs) -> Symbol:
+    """A ``_zeros`` node of ``shape``."""
+    return _create_symbol("_zeros", [], attrs_to_str({"shape": shape,
+                                                      "dtype": dtype}))
+
+
+def ones(shape, dtype="float32", **kwargs) -> Symbol:
+    """A ``_ones`` node of ``shape``."""
+    return _create_symbol("_ones", [], attrs_to_str({"shape": shape,
+                                                     "dtype": dtype}))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, name=None,
+           dtype="float32") -> Symbol:
+    """An ``_arange`` node: ``start, start + step, ...`` below ``stop``
+    (``[0, start)`` without it), each ``repeat`` times
+    (``mxnet_tpu/symbol.py:624``)."""
+    return _create_symbol("_arange", [], attrs_to_str(
+        {"start": start, "stop": stop, "step": step, "repeat": repeat,
+         "dtype": dtype}), name=name)
 
 
 def _init_symbol_module():

@@ -243,11 +243,14 @@ def test_symbol_json_legacy_param_and_unported_op():
     legacy = mt.sym.load_json(doc)
     assert legacy.list_arguments() == ["data", "fc_weight", "fc_bias"]
     assert legacy.attr_dict()["fc"]["num_hidden"] == "4"
-    # an op of the JAX package the port does not register yet
+    # an op the port registers since its operator layer loads ...
     jsym = mx.sym.Correlation(mx.sym.Variable("a"), mx.sym.Variable("b"),
                               name="corr")
-    with pytest.raises(mt.MXNetError, match="Correlation.*item 5"):
-        mt.sym.load_json(jsym.tojson())
+    assert mt.sym.load_json(jsym.tojson()).list_arguments() == ["a", "b"]
+    # ... and one of the JAX package it does not register yet raises
+    doc = jsym.tojson().replace('"Correlation"', '"LoraGatherDelta"')
+    with pytest.raises(mt.MXNetError, match="LoraGatherDelta.*item 7"):
+        mt.sym.load_json(doc)
 
 
 # ---------------------------------------------------------------------------

@@ -242,10 +242,15 @@ def test_symbol_arithmetic_and_indexing():
                      (a + b, "elemwise_add")):
         node = expr._outputs[0][0]
         assert node.op == op and [n.name for n, _ in node.inputs] == ["a", "b"]
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        a - 1.0
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        2.0 * a
+    # with a number: the JAX package's scalar ops (since the operator
+    # layer; they raised before it)
+    for expr, op, scalar in ((a - 1.0, "_minus_scalar", "1.0"),
+                             (2.0 * a, "_mul_scalar", "2.0")):
+        node = expr._outputs[0][0]
+        assert node.op == op and node.attrs == {"scalar": scalar}
+        assert [n.name for n, _ in node.inputs] == ["a"]
+    with pytest.raises(TypeError):
+        a - "1"
     g = mt.sym.Group([a - b, a * b])
     assert len(g) == 2 and [s.name for s in g] == [x.name for x in
                                                    (g[0], g[1])]
