@@ -353,6 +353,23 @@
    against the CPU (``ops_sweep``: outputs, gradients, bf16, the
    samplers' moments over 2^20 draws; an ``ops_sweep`` line) and a
    sampler node through the fused step's replays (new draws a replay).
+15. Core breadth (``core_path``; the packed LM's B1): (a) ccSGD, NAG,
+   SGLD, DCASGD, AdaGrad, RMSProp, AdaDelta and Test on the packed LM at
+   batch 8 x 1024, each ``CORE_STEPS`` steps (2 warm-ups, a capture, 3
+   replays) through the fused step and again eagerly (graphed = eager
+   at ``TOL``/``BWD_TOL``, a finite loss, B1 a layer a step; SGLD with
+   zero noise for that pair and once more with its noise, N(0, lr)
+   within 6 sigma), RMSProp and AdaDelta on the bf16 LM too; (b)
+   ``MXNET_BACKWARD_DO_MIRROR=1`` on the packed and the primitive LM:
+   the first step's gradients within ``BWD_TOL`` of the plain step's,
+   B1's forward twice a layer a step, graphed = eager, step p50 and peak
+   memory with and without; (c) a ``Monitor(1, '.*')`` run of the packed
+   LM (eager, no capture, every statistic finite, the names of the
+   port's CPU run, the loss of an unmonitored eager step); (d)
+   ``model.FeedForward`` trains LeNet to ``MNIST_MIN_ACCURACY``; (e)
+   the MLP split into a ``SequentialModule`` (its first step equal to
+   one ``Module``'s) trains to ``MNIST_MIN_ACCURACY``.  A
+   ``core_summary`` line.
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -397,7 +414,8 @@ alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
 ``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone,
 ``--bf16 ROOT`` phase 13 alone after B1's and the paged kernels' bf16
 checks at its shapes, ``--ops ROOT`` phase 14 alone with the packed
-LM's training run beside it (see ``paths_timing``);
+LM's training run beside it, ``--core ROOT`` phase 15 alone (see
+``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -2304,19 +2322,24 @@ class TracedLaunches:
 
 
 @contextlib.contextmanager
-def fused_env(value):
-    """``MXNET_FUSED_STEP`` = ``value`` while entered: a module made
-    meanwhile (it reads the switch at construction, a BucketingModule's
-    bucket modules when they are made) takes the eager path for "0"."""
-    old = os.environ.get("MXNET_FUSED_STEP")
-    os.environ["MXNET_FUSED_STEP"] = value
+def env_value(name, value):
+    """The environment variable ``name`` = ``value`` while entered."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["MXNET_FUSED_STEP"]
+            del os.environ[name]
         else:
-            os.environ["MXNET_FUSED_STEP"] = old
+            os.environ[name] = old
+
+
+def fused_env(value):
+    """``MXNET_FUSED_STEP`` = ``value`` while entered: a module made
+    meanwhile (it reads the switch at construction, a BucketingModule's
+    bucket modules when they are made) takes the eager path for "0"."""
+    return env_value("MXNET_FUSED_STEP", value)
 
 
 def graph_stats(mod):
@@ -6827,6 +6850,542 @@ def ops_path(torch, mt, ck, packed=None, eager=True):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: core breadth (queue A item 5, part 2): the remaining
+# optimizers, MXNET_BACKWARD_DO_MIRROR, a monitored run, FeedForward and
+# SequentialModule
+# ---------------------------------------------------------------------------
+
+# each new optimizer on the packed LM: (name, parameters), rates small
+# enough that 6 steps of the random-walk stream stay finite
+CORE_OPTIMIZERS = (
+    ("ccsgd", {"learning_rate": TRAIN_LR, "momentum": 0.9}),
+    ("nag", {"learning_rate": TRAIN_LR, "momentum": 0.9}),
+    ("sgld", {"learning_rate": 1e-6}),
+    ("dcasgd", {"learning_rate": TRAIN_LR, "momentum": 0.9}),
+    ("adagrad", {"learning_rate": 1e-4}),
+    ("rmsprop", {"learning_rate": 2e-5}),
+    ("adadelta", {}),
+    ("test", {"learning_rate": TRAIN_LR}))
+CORE_BF16 = ("rmsprop", "adadelta")
+# the fused step's 2 warm-ups, its capture (replayed once) and 3 replays
+CORE_STEPS = 6
+MIRROR_STEPS = 5
+MONITOR_BATCHES = 2
+
+
+def core_run(torch, mt, ck, make_mod, opt, batches, label, fwd, bwd,
+             steps=CORE_STEPS):
+    """``steps`` steps of ``make_mod()`` under ``opt`` over ``batches``
+    (the launch counts reset just before): per step the mean loss (which
+    must be finite), its wall ms, and the launches of B1's forward
+    (``fwd`` a step) and of its two backward kernels (``bwd`` each a
+    step).  → the record, with the ``layer{i}_qkv_weight`` weights after
+    the last step (``weights``, on the card) and the peak memory."""
+    L = GPT2_SMALL["num_layers"]
+    mod = make_mod()
+    mod.init_optimizer(optimizer=opt[0], optimizer_params=opt[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(ck)
+    losses, step_ms = [], []
+    batches.reset()
+    # a replay runs no wrapper: under graphs the launches are the trace's
+    traced = TracedLaunches(torch, ck, label, on=graphs_on(mod))
+    traced.__enter__()
+    for step in range(steps):
+        batch = next(batches)
+        before = launch_counts(ck)
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        now = launch_counts(ck)
+        for k, want in zip(PACKED_KERNELS, (fwd, bwd, bwd)):
+            n = now[k] - before[k]
+            check(n == want, f"{label} step {step}: {k} launched {n} "
+                  f"times, not {want}")
+        losses.append(float(mod.get_outputs()[0]._data.float().mean()))
+        check(np.isfinite(losses[-1]), f"{label}: loss not finite at step "
+              f"{step}: {losses}")
+    traced.__exit__(None, None, None)
+    rec = {"optimizer": opt[0], **opt[1], "steps": steps, "losses": losses,
+           "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
+           "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+           "launches": traced.launches,
+           "bf16_launches": traced.bf16_launches, "graphs": graph_stats(mod),
+           "weights": {f"layer{i}_qkv_weight":
+                       mod._exec.arg_dict[f"layer{i}_qkv_weight"]._data
+                       .clone() for i in range(L)}}
+    del mod
+    torch.cuda.empty_cache()
+    return rec
+
+
+def core_pair(torch, mt, ck, make_mod, opt, batches, label, fwd, bwd,
+              dtype="float32", steps=CORE_STEPS):
+    """``core_run`` through the fused step (warm-ups, a capture, replays)
+    and under ``MXNET_FUSED_STEP=0`` from the same weights: each step's
+    loss within ``TOL`` (relative) and the qkv weights after the last
+    within ``BWD_TOL`` of max(1, max|w|), the fused-step phase's gate.
+    → the graphed record, the eager p50 and errors beside it."""
+    rec = core_run(torch, mt, ck, make_mod, opt, batches, label, fwd, bwd,
+                   steps)
+    with fused_env("0"):
+        erec = core_run(torch, mt, ck, make_mod, opt, batches,
+                        f"{label} (eager)", fwd, bwd, steps)
+    stats = rec["graphs"]
+    check(stats["graphs_on"] and stats["captures"] == 1,
+          f"{label}: the fused step captured no graph: {stats}")
+    loss_err = max(abs(a - b) / (TOL[dtype] * abs(b))
+                   for a, b in zip(rec["losses"], erec["losses"]))
+    w_err = max((rec["weights"][n].float() - erec["weights"][n].float())
+                .abs().max().item()
+                / (BWD_TOL[dtype]
+                   * max(1.0, erec["weights"][n].float().abs().max().item()))
+                for n in rec["weights"])
+    check(loss_err <= 1 and w_err <= 1, f"{label}: graphed steps miss the "
+          f"eager ones (error over tolerance: loss {loss_err}, weights "
+          f"{w_err})")
+    for r in (rec, erec):
+        del r["weights"]
+    rec.update(eager_step_p50_ms=erec["step_p50_ms"],
+               eager_losses=erec["losses"],
+               eager_peak_memory_bytes=erec["peak_memory_bytes"],
+               graphed_vs_eager_err_over_tol={"loss": loss_err,
+                                              "weights": w_err})
+    rec["launches"] = {k: rec["launches"].get(k, 0)
+                       + erec["launches"].get(k, 0)
+                       for k in set(rec["launches"]) | set(erec["launches"])}
+    return rec
+
+
+def core_optimizers(torch, mt, ck, params):
+    """(a) Each new optimizer on the packed LM through ``core_pair``, in
+    fp32 and, for ``CORE_BF16``, the bf16 LM too.  SGLD's graphed and
+    eager steps draw their noise from other generators (the fused
+    state's streams, the step-key chain), so its pair runs with
+    ``draw_noise`` giving zeros, and one more graphed run draws real
+    noise: finite loss, and the first step's change of the qkv weights
+    against the zero-noise run's, N(0, lr) within 6 sigma."""
+    from mxnet_tpu_torch import optimizer as topt
+
+    L = GPT2_SMALL["num_layers"]
+    batches = lm_batches(mt)
+    out = {}
+
+    def make(dtype="float32"):
+        return lambda: lm_module(mt, packed_lm_symbol(mt, dtype=dtype),
+                                 params)
+
+    for name, kw in CORE_OPTIMIZERS:
+        zero = name == "sgld"
+        real = topt.draw_noise
+        if zero:
+            topt.draw_noise = lambda gen, shape, device: torch.zeros(
+                shape, device=device)
+        try:
+            out[name] = core_pair(torch, mt, ck, make(), (name, kw),
+                                  batches, f"{name} (packed LM)", L, L)
+        finally:
+            topt.draw_noise = real
+        print(json.dumps({"core_optimizer": {k: v for k, v in
+                                             out[name].items()
+                                             if k != "launches"}}))
+    # SGLD with its noise, graphed: the first step's change against the
+    # zero-noise step's is N(0, lr)
+    name, kw = "sgld", dict(CORE_OPTIMIZERS)["sgld"]
+    first = {}
+    for noise in (False, True):
+        real = topt.draw_noise
+        if not noise:
+            topt.draw_noise = lambda gen, shape, device: torch.zeros(
+                shape, device=device)
+        try:
+            rec = core_run(torch, mt, ck, make(), (name, kw), batches,
+                           f"sgld noise={noise}", L, L, steps=1)
+        finally:
+            topt.draw_noise = real
+        first[noise] = rec["weights"]
+    diff = torch.cat([(first[True][n] - first[False][n]).reshape(-1)
+                      for n in first[True]]).double()
+    lr, n = kw["learning_rate"], diff.numel()
+    mean, var = diff.mean().item(), diff.var().item()
+    check(abs(mean) <= 6 * np.sqrt(lr / n)
+          and abs(var - lr) <= 6 * lr * np.sqrt(2.0 / (n - 1)),
+          f"SGLD noise: mean {mean}, variance {var} for N(0, {lr}) over "
+          f"{n} weights")
+    out["sgld_noise"] = {"weights": n, "mean": mean, "variance": var,
+                         "lr": lr, "launches": rec["launches"]}
+    for name in CORE_BF16:
+        kw = dict(CORE_OPTIMIZERS)[name]
+        out[f"{name}_bf16"] = core_pair(
+            torch, mt, ck, make("bfloat16"), (name, kw), batches,
+            f"{name} (bf16 LM)", L, L, dtype="bfloat16")
+        for k in PACKED_KERNELS:
+            n = out[f"{name}_bf16"]["bf16_launches"].get(k, 0)
+            check(n == L * CORE_STEPS, f"{name} (bf16 LM): {n} bf16 "
+                  f"launches of {k} in the trace, not {L * CORE_STEPS}")
+        print(json.dumps({"core_optimizer_bf16": {
+            k: v for k, v in out[f"{name}_bf16"].items()
+            if k != "launches"}}))
+    return out
+
+
+def mirror_first_step(torch, mt, ck, sym, params, batch, grads, fwd, bwd):
+    """One ``forward_backward`` (the executor's; no optimizer) of a fresh
+    module on ``batch``, the launch counts of B1's kernels checked
+    (``fwd`` and ``bwd``) → (mean loss, host copies of ``grads``)."""
+    mod = lm_module(mt, sym, params)
+    torch.cuda.synchronize()
+    reset_launch_counts(ck)
+    mod.forward_backward(batch)
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    for k, want in zip(PACKED_KERNELS, (fwd, bwd, bwd)):
+        check(launches[k] == want, f"first step: {k} launched "
+              f"{launches[k]} times, expected {want}")
+    for k in DPA_KERNELS:
+        check(launches[k] == 0, f"first step: {k} launched")
+    loss = float(mod.get_outputs()[0].asnumpy().mean())
+    out = {n: mod._exec.grad_dict[n]._data.cpu() for n in grads}
+    del mod
+    torch.cuda.empty_cache()
+    return loss, out
+
+
+def mirror_env(value):
+    """``MXNET_BACKWARD_DO_MIRROR`` = ``value`` while entered (an
+    executor reads it at bind)."""
+    return env_value("MXNET_BACKWARD_DO_MIRROR", value)
+
+
+def core_mirror(torch, mt, ck, params):
+    """(b) ``MXNET_BACKWARD_DO_MIRROR=1`` on the packed LM and the
+    primitive LM: the first step's qkv gradients within ``BWD_TOL`` of
+    max(1, |g|) of the step without the mirror, its loss within ``TOL``;
+    B1's forward launched twice a layer a step on the packed LM (once in
+    the forward, once in the recomputation) and its backward kernels
+    once; ``MIRROR_STEPS`` SGD steps graphed against eager under the
+    mirror (``core_pair``), and the same steps graphed without it: step
+    p50 and peak memory of each."""
+    V, L, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"], \
+        GPT2_SMALL["max_len"]
+    qkv = [f"layer{i}_qkv_weight" for i in range(L)]
+    opt = ("sgd", {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    batches = lm_batches(mt)
+    first = next(batches)
+    syms = {"packed": (lambda: packed_lm_symbol(mt), L),
+            "primitive": (lambda: primitive_lm_symbol(
+                mt.sym, V, T, L, H, GPT2_SMALL["d_model"],
+                GPT2_SMALL["d_ff"]), 0)}
+    out = {}
+    for label, (make_sym, per_layer) in syms.items():
+        rec = {}
+        loss0, g0 = mirror_first_step(torch, mt, ck, make_sym(), params,
+                                      first, qkv, per_layer, per_layer)
+        with mirror_env("1"):
+            loss1, g1 = mirror_first_step(torch, mt, ck, make_sym(), params,
+                                          first, qkv, 2 * per_layer,
+                                          per_layer)
+        g_err = max((g1[n] - g0[n]).abs().max().item()
+                    / (BWD_TOL["float32"] * max(1.0, g0[n].abs().max()
+                                                .item())) for n in qkv)
+        l_err = abs(loss1 - loss0) / (TOL["float32"] * abs(loss0))
+        check(g_err <= 1 and l_err <= 1, f"{label} LM under the mirror: "
+              f"first step misses the plain one (error over tolerance: "
+              f"loss {l_err}, gradients {g_err})")
+        rec["first_step_err_over_tol"] = {"loss": l_err, "grads": g_err}
+
+        def make():
+            return lm_module(mt, make_sym(), params)
+
+        with mirror_env("1"):
+            mirrored = core_pair(torch, mt, ck, make, opt, batches,
+                                 f"{label} LM mirrored", 2 * per_layer,
+                                 per_layer, steps=MIRROR_STEPS)
+        plain = core_run(torch, mt, ck, make, opt, batches,
+                         f"{label} LM", per_layer, per_layer,
+                         steps=MIRROR_STEPS)
+        del plain["weights"]
+        rec.update({
+            "mirror": {k: mirrored[k] for k in (
+                "step_p50_ms", "eager_step_p50_ms", "peak_memory_bytes",
+                "eager_peak_memory_bytes", "graphed_vs_eager_err_over_tol",
+                "losses")},
+            "plain": {k: plain[k] for k in ("step_p50_ms",
+                                             "peak_memory_bytes",
+                                             "losses")},
+            "launches": {k: mirrored["launches"].get(k, 0)
+                         + plain["launches"].get(k, 0)
+                         for k in PACKED_KERNELS}})
+        print(json.dumps({"core_mirror": {label: rec}}))
+        out[label] = rec
+    return out
+
+
+def tiny_lm_monitor_names(mt):
+    """The names a monitored step of the packed LM's symbol gives, from
+    the port's CPU run of the same symbol at cut widths (the names do
+    not depend on the widths): 2 steps, ``Monitor(1, '.*')``."""
+    from mxnet_tpu_torch.name import NameManager
+
+    V, L, T = 64, GPT2_SMALL["num_layers"], 16
+    with NameManager():  # the auto names of a first build, as the card's
+        sym = mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
+                                       d_model=2 * H, d_ff=4 * H, head="ce")
+    mod = mt.mod.Module(sym, context=mt.cpu())
+    mod.bind(data_shapes=[("data", (1, T))],
+             label_shapes=[("softmax_label", (1, T))])
+    mod.init_params(mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": TRAIN_LR})
+    mon = mt.Monitor(interval=1, pattern=".*")
+    mod.install_monitor(mon)
+    X, Y = random_walk_tokens(V, T, 1)
+    batch = mt.io.DataBatch([mt.nd.array(X, ctx=mt.cpu())],
+                            [mt.nd.array(Y, ctx=mt.cpu())])
+    names = []
+    for _ in range(MONITOR_BATCHES):
+        mon.tic()
+        mod.forward_backward(batch)
+        mod.update()
+        names.append([k for _, k, _ in mon.toc()])
+    return names
+
+
+def core_monitor(torch, mt, ck, params):
+    """(c) ``Monitor(interval=1, pattern='.*')`` on the packed LM over
+    ``MONITOR_BATCHES`` SGD steps: eager (no capture), every statistic
+    finite, the names those of the port's CPU run of the symbol
+    (``tiny_lm_monitor_names``), B1 a layer a step, and the first step's
+    loss equal (within ``TOL``) to an unmonitored eager step's."""
+    L = GPT2_SMALL["num_layers"]
+    opt = {"learning_rate": TRAIN_LR, "momentum": 0.9}
+    batches = lm_batches(mt)
+    first = next(batches)
+    with fused_env("0"):
+        ref = lm_module(mt, packed_lm_symbol(mt), params)
+    ref.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    ref.forward_backward(first)
+    ref.update()
+    ref_loss = float(ref.get_outputs()[0].asnumpy().mean())
+    del ref
+    torch.cuda.empty_cache()
+    from mxnet_tpu_torch.name import NameManager
+
+    with NameManager():  # the auto names of a first build
+        sym = packed_lm_symbol(mt)
+    mod = lm_module(mt, sym, params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    mon = mt.Monitor(interval=1, pattern=".*")
+    mod.install_monitor(mon)
+    batches.reset()
+    reset_launch_counts(ck)
+    names, losses, stats, toc_ms = [], [], 0, []
+    t0 = time.perf_counter()
+    for step in range(MONITOR_BATCHES):
+        mon.tic()
+        mod.forward_backward(next(batches))
+        mod.update()
+        losses.append(float(mod.get_outputs()[0].asnumpy().mean()))
+        ts = time.perf_counter()
+        res = mon.toc()
+        toc_ms.append((time.perf_counter() - ts) * 1e3)
+        bad = [k for _, k, v in res
+               if not all(np.isfinite(float(x)) for x in v.split())]
+        check(not bad, f"monitored LM step {step}: statistics not finite: "
+              f"{bad[:5]}")
+        names.append([k for _, k, _ in res])
+        stats += len(res)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(ck)
+    for k in PACKED_KERNELS:
+        check(launches[k] == L * MONITOR_BATCHES, f"monitored LM: {k} "
+              f"launched {launches[k]} times, not {L * MONITOR_BATCHES}")
+    gs = graph_stats(mod)
+    check(gs["captures"] == 0 and mod._fused is None,
+          f"monitored LM: a monitored run captured a graph: {gs}")
+    del mod
+    torch.cuda.empty_cache()
+    cpu_names = tiny_lm_monitor_names(mt)
+    check(names == cpu_names, "monitored LM: statistic names differ from "
+          "the CPU run's")
+    l_err = abs(losses[0] - ref_loss) / (TOL["float32"] * abs(ref_loss))
+    check(l_err <= 1, f"monitored LM: loss {losses[0]} against the "
+          f"unmonitored eager step's {ref_loss}")
+    return {"batches": MONITOR_BATCHES, "statistics": stats,
+            "names_per_step": len(names[0]), "losses": losses,
+            "unmonitored_loss": ref_loss, "loss_err_over_tol": l_err,
+            "toc_ms": toc_ms, "wall_s": wall, "graphs": gs,
+            "launches": launches}
+
+
+def core_feedforward(torch, mt):
+    """(d) ``model.FeedForward`` trains LeNet on ``gpu(0)`` over the
+    synthetic MNIST set, ``train_mnist``'s settings (3 epochs, batch 64,
+    SGD 0.05 with momentum 0.9, wd 1e-4, Xavier gaussian in 2):
+    validation accuracy >= ``MNIST_MIN_ACCURACY``."""
+    from mxnet_tpu_torch.examples.common import synthetic_mnist
+
+    np.random.seed(0)
+    mt.random.seed(0)
+    X, y = synthetic_mnist(4096)
+    Xv, yv = synthetic_mnist(512, seed=7)
+    model = mt.model.FeedForward(
+        mt.models.get_symbol("lenet", num_classes=10), ctx=mt.gpu(0),
+        num_epoch=3, optimizer="sgd", learning_rate=0.05, momentum=0.9,
+        wd=0.0001, numpy_batch_size=64,
+        initializer=mt.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    t0 = time.perf_counter()
+    model.fit(mt.io.NDArrayIter(X, y, batch_size=64, shuffle=True,
+                                last_batch_handle="discard"))
+    fit_s = time.perf_counter() - t0
+    acc = float(model.score(Xv, yv))
+    check(acc >= MNIST_MIN_ACCURACY, f"FeedForward LeNet: validation "
+          f"accuracy {acc} below {MNIST_MIN_ACCURACY}")
+    pred = model.predict(Xv[:64])
+    check(pred.shape == (64, 10) and np.isfinite(pred).all(),
+          f"FeedForward.predict: shape {pred.shape}")
+    return {"val_accuracy": acc, "fit_s": fit_s}
+
+
+def core_sequential(torch, mt):
+    """(e) The MLP of ``models.mlp`` split into two modules, a
+    ``SequentialModule`` on ``gpu(0)`` (``take_labels``,
+    ``auto_wiring``): its first SGD step equal to the single
+    ``Module``'s (weights within ``BWD_TOL`` of max(1, |w|), outputs
+    within ``TOL``), then 3 epochs over the synthetic MNIST set to
+    validation accuracy >= ``MNIST_MIN_ACCURACY``."""
+    from mxnet_tpu_torch.examples.common import synthetic_mnist
+
+    dev = mt.gpu(0)
+    X, y = synthetic_mnist(4096)
+    Xv, yv = synthetic_mnist(512, seed=7)
+    X, Xv = X.reshape(len(X), -1), Xv.reshape(len(Xv), -1)
+
+    def head(x):
+        x = mt.sym.FullyConnected(x, num_hidden=10, name="fc3")
+        return mt.sym.SoftmaxOutput(x, name="softmax")
+
+    def body(x):
+        x = mt.sym.Activation(mt.sym.FullyConnected(x, num_hidden=128,
+                                                    name="fc1"),
+                              act_type="relu", name="relu1")
+        return mt.sym.Activation(mt.sym.FullyConnected(x, num_hidden=64,
+                                                       name="fc2"),
+                                 act_type="relu", name="relu2")
+
+    def chain():
+        seq = mt.mod.SequentialModule()
+        seq.add(mt.mod.Module(body(mt.sym.Variable("data")),
+                              label_names=None, context=dev))
+        seq.add(mt.mod.Module(head(mt.sym.Variable("data")), context=dev),
+                take_labels=True, auto_wiring=True)
+        return seq
+
+    def whole():
+        return mt.mod.Module(head(body(mt.sym.Variable("data"))),
+                             context=dev)
+
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    it = mt.io.NDArrayIter(X, y, batch_size=64, shuffle=False,
+                           last_batch_handle="discard")
+    batch = next(iter(it))
+    mt.random.seed(3)
+    start = None
+    got = []
+    for make in (chain, whole):
+        mod = make()
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        if start is None:
+            mod.init_params(mt.initializer.Xavier())
+            start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        else:
+            mod.init_params(arg_params={k: mt.nd.array(v, ctx=dev)
+                                        for k, v in start.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        got.append(({k: v._data for k, v in mod.get_params()[0].items()},
+                    mod.get_outputs()[0]._data.clone()))
+    w_err = max((got[0][0][k] - got[1][0][k]).abs().max().item()
+                / (BWD_TOL["float32"]
+                   * max(1.0, got[1][0][k].abs().max().item()))
+                for k in start)
+    o_err = ((got[0][1] - got[1][1]).abs().max().item()
+             / (TOL["float32"] * max(1.0, got[1][1].abs().max().item())))
+    check(w_err <= 1 and o_err <= 1, f"SequentialModule's first step "
+          f"misses the single Module's (error over tolerance: weights "
+          f"{w_err}, outputs {o_err})")
+    np.random.seed(0)
+    seq = chain()
+    t0 = time.perf_counter()
+    seq.fit(mt.io.NDArrayIter(X, y, batch_size=64, shuffle=True,
+                              last_batch_handle="discard"),
+            num_epoch=3, optimizer="sgd", optimizer_params=opt,
+            initializer=mt.initializer.Xavier())
+    fit_s = time.perf_counter() - t0
+    (_, acc), = seq.score(mt.io.NDArrayIter(Xv, yv, batch_size=64), "acc")
+    check(acc >= MNIST_MIN_ACCURACY, f"SequentialModule MLP: validation "
+          f"accuracy {acc} below {MNIST_MIN_ACCURACY}")
+    return {"first_step_err_over_tol": {"weights": w_err, "outputs": o_err},
+            "val_accuracy": float(acc), "fit_s": fit_s}
+
+
+def core_path(torch, mt, ck):
+    """Phase 15 on ``gpu(0)``, fp32 with TF32 off: (a) the eight
+    optimizers this slice ports on the packed GPT-2-class LM
+    (``core_optimizers``), (b) ``MXNET_BACKWARD_DO_MIRROR`` on the
+    packed and the primitive LM (``core_mirror``), (c) a monitored run
+    (``core_monitor``), (d) ``FeedForward`` (``core_feedforward``) and
+    (e) ``SequentialModule`` (``core_sequential``); one ``core_summary``
+    line.  The launches are summed over (a)-(c)."""
+    params = gpt2_small_params(0)
+    part_s, rec = {}, {}
+    for key, fn in (("optimizers", core_optimizers),
+                    ("mirror", core_mirror), ("monitor", core_monitor)):
+        t0 = time.perf_counter()
+        rec[key] = fn(torch, mt, ck, params)
+        part_s[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    for key, fn in (("feedforward", core_feedforward),
+                    ("sequential", core_sequential)):
+        t0 = time.perf_counter()
+        rec[key] = fn(torch, mt)
+        part_s[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    parts = [r for r in rec["optimizers"].values()]
+    parts += [r for r in rec["mirror"].values()] + [rec["monitor"]]
+    rec["launches"] = {k: sum(p["launches"].get(k, 0) for p in parts)
+                       for k in PACKED_KERNELS}
+    rec["part_wall_s"] = part_s
+    opt = rec["optimizers"]
+    print(json.dumps({"core_summary": {
+        "optimizer_step_p50_ms": {k: v["step_p50_ms"] for k, v in opt.items()
+                                  if "step_p50_ms" in v},
+        "optimizer_eager_step_p50_ms": {
+            k: v["eager_step_p50_ms"] for k, v in opt.items()
+            if "eager_step_p50_ms" in v},
+        "sgld_noise": {k: opt["sgld_noise"][k] for k in (
+            "weights", "mean", "variance", "lr")},
+        "mirror": {k: {"first_step_err_over_tol":
+                       v["first_step_err_over_tol"], **{
+                           f"{m}_{f}": v[m][f] for m in ("mirror", "plain")
+                           for f in ("step_p50_ms", "peak_memory_bytes")}}
+                   for k, v in rec["mirror"].items()},
+        "monitor": {k: rec["monitor"][k] for k in (
+            "statistics", "names_per_step", "loss_err_over_tol", "toc_ms",
+            "wall_s")},
+        "feedforward": rec["feedforward"], "sequential": rec["sequential"],
+        "launches": rec["launches"], "part_wall_s": part_s,
+        "card": card_line()}}))
+    return rec
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -6966,8 +7525,9 @@ def paths_timing(root, mode="paths"):
     10 (image classification) alone, ``--cnn ROOT`` phase 11 alone,
     ``--ckpt ROOT`` phase 12 alone (each building B1 and B6 first) and
     ``--bf16 ROOT`` phase 13 alone (B1 and the paged kernels built and
-    checked in bf16 at its shapes first) and ``--ops ROOT`` phase 14
-    alone (B1 built first, for the packed LM's reference step).
+    checked in bf16 at its shapes first), ``--ops ROOT`` phase 14
+    alone (B1 built first, for the packed LM's reference step) and
+    ``--core ROOT`` phase 15 alone (B1 built first).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -7012,6 +7572,15 @@ def paths_timing(root, mode="paths"):
         rec = ops_path(torch, mt, ck)
         print(json.dumps({"paths_timing": {"root": root, "ops_path": {
             k: rec[k] for k in ("part_wall_s", "launches")}}}))
+        print(card_line())
+        return 0
+    if mode == "core":
+        _build.build(["flash_mha_packed", "flash_mha_packed_bwd"])
+        t0 = time.perf_counter()
+        rec = core_path(torch, mt, ck)
+        print(json.dumps({"paths_timing": {"root": root, "core_path": {
+            "part_wall_s": rec["part_wall_s"], "launches": rec["launches"],
+            "wall_s": time.perf_counter() - t0}}}))
         print(card_line())
         return 0
     if mode == "bf16":
@@ -7307,6 +7876,12 @@ def main():
     ops["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"ops_path": {k: ops[k] for k in (
         "part_wall_s", "launches", "wall_s")}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    core = core_path(torch, mt, ck)
+    core["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"core_path": {k: core[k] for k in (
+        "part_wall_s", "launches", "wall_s")}}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
@@ -7314,8 +7889,9 @@ def main():
     # LSTM-PTB run, the SSD300 run, the sequence phase, phase 11 (the
     # dropout LM's B1, the LSTM with dropout's lstm_scan), phase 12
     # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan), phase 13
-    # (the bf16 LM's B1, its serving's B1 and paged kernels) and phase 14
-    # (none: the primitive LM's training launches no kernel)
+    # (the bf16 LM's B1, its serving's B1 and paged kernels), phase 14
+    # (none: the primitive LM's training launches no kernel) and phase 15
+    # (the packed LM's B1 under each optimizer, the mirror, the monitor)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -7371,7 +7947,7 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops]
+    all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops, core]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -7419,7 +7995,7 @@ if __name__ == "__main__":
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
                          ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"],
-                         ["--ops"]):
+                         ["--ops"], ["--core"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

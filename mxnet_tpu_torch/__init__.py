@@ -33,9 +33,18 @@ other wrote: ``nd.save``/``nd.load``, ``sym.load``/``sym.load_json``,
 ``model.save_checkpoint``/``load_checkpoint``, ``Module.load``/
 ``save_checkpoint`` with the optimizer states, and
 ``CheckpointManager`` with ``Module.fit(checkpoint=..., resume='auto')``.
+
+The training surface of the MXNet 0.9 API around them: the optimizers
+(SGD, NAG, SGLD, DCASGD, Adam, AdaGrad, RMSProp, AdaDelta), the metrics
+and initializers, ``Monitor``, ``model.FeedForward``,
+``mod.SequentialModule``/``PythonModule``, ``config`` (the catalog of
+the ``MXNET_*`` variables the port reads) and ``engine``.
 """
 
 from .base import MXNetError
+from . import config
+from . import engine
+from . import context
 from .context import Context, cpu, current_context, gpu
 from .convert import params_from_numpy, params_to_numpy
 from . import ndarray
@@ -46,6 +55,8 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Group, Variable
 from . import callback, executor, initializer, io, metric, optimizer
+from .executor import Executor
+from .initializer import Normal, Uniform, Xavier
 from . import lr_scheduler
 from . import checkpoint
 from .checkpoint import CheckpointManager
@@ -56,10 +67,14 @@ from . import models
 from . import speculative
 from . import operator, rtc
 from . import sequence
+from . import monitor
+from .monitor import Monitor
 from .serving import DecodeEngine, EngineClosedError
 
 __all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
-           "cpu", "gpu", "current_context", "params_from_numpy",
+           "cpu", "gpu", "current_context", "context", "config", "engine",
+           "executor", "Executor", "Monitor", "monitor", "Uniform",
+           "Normal", "Xavier", "params_from_numpy",
            "params_to_numpy", "nd", "sym", "mod", "io", "metric", "callback",
            "optimizer", "lr_scheduler", "initializer", "random", "models",
            "speculative", "operator", "rtc", "sequence", "Variable", "Group",

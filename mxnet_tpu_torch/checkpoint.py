@@ -128,31 +128,17 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the MXNET_CKPT_* variables (the JAX package's ``config.py:379-412``
-# defaults); each fails loudly when it does not parse
+# the MXNET_CKPT_* variables (declared in ``config``); each fails loudly
+# when it does not parse
 # ---------------------------------------------------------------------------
-
-_ENV = {
-    "MXNET_CKPT_DIR": (None, str, "Checkpoint root directory: Module.fit "
-                       "makes a CheckpointManager there when set."),
-    "MXNET_CKPT_EVERY_N_STEPS": (0, int, "Checkpoint every N optimizer "
-                                 "steps inside Module.fit (0 = only manual "
-                                 "and SIGTERM saves)."),
-    "MXNET_CKPT_KEEP": (5, int, "Newest committed checkpoints kept."),
-    "MXNET_CKPT_ASYNC": (1, int, "1: write and commit on a background "
-                         "thread; 0: block through the commit."),
-    "MXNET_CKPT_COMMIT_TIMEOUT": (300.0, float, "Seconds the commit waits "
-                                  "for the shard markers."),
-    "MXNET_CKPT_CRASH": (None, str, "Fault injection for tests: "
-                         "'mid_shard[:n]' or 'before_commit[:n]'."),
-}
-
 
 def _env(name: str, override=None, minimum=None):
     """The value of ``name`` (``override`` when given), raising
     ``MXNetError`` on a value that does not parse or is below
     ``minimum``."""
-    default, dtype, doc = _ENV[name]
+    from .config import describe
+
+    _, default, dtype, doc = describe(name)
     if override is not None:
         val = override
     else:

@@ -15,7 +15,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_devices"]
 
 
 class Context:
@@ -94,3 +94,14 @@ def current_context() -> Context:
     """The innermost ``with ctx:`` scope, else ``gpu(0)``."""
     ctx = getattr(Context._default, "ctx", None)
     return ctx if ctx is not None else gpu(0)
+
+
+def num_devices(device_type: str = "gpu") -> int:
+    """The number of devices of ``device_type`` this process sees: the
+    CUDA cards for ``gpu`` (0 without CUDA), 1 for ``cpu``."""
+    if device_type in ("cpu", "cpu_pinned"):
+        return 1
+    if device_type != "gpu":
+        raise MXNetError(f"unknown device type {device_type!r}; the port "
+                         f"knows cpu and gpu")
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0

@@ -66,18 +66,16 @@ def lr_scheduler(args, epoch_size):
 def fit(args, network, train_iter, val_iter=None, label_names=None,
         initializer=None, epoch_size=None, ctx=None):
     """reference: common/fit.py fit — ``Module.fit`` of ``network`` on
-    ``ctx`` (default ``gpu(0)``): SGD (momentum ``--mom``) or the named
-    optimizer at ``--lr`` and ``--wd``, ``Xavier(gaussian, in, 2)``,
-    accuracy, a ``Speedometer`` every ``--disp-batches``.  With
-    ``--model-prefix`` each epoch ends with ``do_checkpoint`` (symbol
-    and parameters, no optimizer state); with ``--load-epoch`` too, the
-    run starts from that epoch's checkpoint, at that epoch.  Returns the
-    module."""
-    for flag, value, where in (
-            ("--monitor", args.monitor or None, "monitors, item 5"),
-            ("--profile", args.profile, "the profiler, item 8")):
-        if value is not None:
-            raise not_ported(f"{flag} ({where} of queue A)")
+    ``ctx`` (default ``gpu(0)``): the optimizer named by ``--optimizer``
+    (any registered one; momentum ``--mom`` for sgd and nag) at ``--lr``
+    and ``--wd``, ``Xavier(gaussian, in, 2)``, accuracy, a
+    ``Speedometer`` every ``--disp-batches``, and with ``--monitor N`` a
+    ``Monitor`` of every array each N batches.  With ``--model-prefix``
+    each epoch ends with ``do_checkpoint`` (symbol and parameters, no
+    optimizer state); with ``--load-epoch`` too, the run starts from
+    that epoch's checkpoint, at that epoch.  Returns the module."""
+    if args.profile is not None:
+        raise not_ported("--profile (the profiler, queue A item 8)")
     if args.kv_store != "local":
         raise not_ported(f"--kv-store {args.kv_store} (distribution, "
                          f"queue A item 9)")
@@ -103,6 +101,8 @@ def fit(args, network, train_iter, val_iter=None, label_names=None,
     sched = lr_scheduler(args, epoch_size or 1000)
     if sched is not None:
         optimizer_params["lr_scheduler"] = sched
+    monitor = mt.Monitor(args.monitor, pattern=".*") if args.monitor > 0 \
+        else None
     checkpoint = mt.callback.do_checkpoint(args.model_prefix) \
         if args.model_prefix else None
     mod.fit(train_iter,
@@ -119,7 +119,8 @@ def fit(args, network, train_iter, val_iter=None, label_names=None,
             aux_params=aux_params,
             batch_end_callback=mt.callback.Speedometer(
                 args.batch_size, args.disp_batches),
-            epoch_end_callback=checkpoint)
+            epoch_end_callback=checkpoint,
+            monitor=monitor)
     return mod
 
 

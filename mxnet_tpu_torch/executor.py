@@ -22,6 +22,28 @@ that need a gradient, and backward walks it once.  ``_run`` and
 Module's fused step (``module/fused_step.py``) runs as one function,
 with ``random.Streams`` in place of the step key.
 
+``MXNET_BACKWARD_DO_MIRROR=1`` (read at bind; ``:127-132``, where the
+JAX executor wraps the training forward in ``jax.checkpoint``) runs
+the training forward under ``torch.utils.checkpoint`` (non-reentrant):
+it keeps no activation but the inputs, and ``_backprop`` runs the
+forward again before it walks the graph, so each kernel's forward runs
+twice a step (B1's forward launches double; the backward launches stay).
+The aux states are written back once, after the first run (the
+recomputation's are dropped).  A random node's draws are the one thing
+kept: a graph with random nodes is checkpointed selectively
+(``torch.utils.checkpoint.create_selective_checkpoint_contexts``), so
+every seeded random op (``torch.Tag.nondeterministic_seeded``) hands
+the recomputation the tensor the forward drew.  Its own seed
+(``sub_key(step_key, i)``) would redraw the same tensor from a fresh
+generator, but the fused step's persistent generators (``Streams``),
+registered with a CUDA graph, cannot be rewound inside a capture.
+
+``set_monitor_callback(fn)`` taps the forward (``:366-379``, where the
+JAX executor runs a second program over ``get_internals()``): the same
+run hands every node's output, variables included, to ``fn(name,
+NDArray)`` in the order and under the names of
+``get_internals().list_outputs()``.
+
 Both halves run with cuDNN held to its deterministic algorithms
 (``_cudnn_algorithms``): its default ones (a weight gradient split
 over atomic adds) sum in no fixed order, so two runs of one step, eager
@@ -37,8 +59,9 @@ from typing import Any, Dict, List
 
 import torch
 
+from . import engine as _engine
 from . import random as _random
-from .base import MXNetError, not_ported
+from .base import MXNetError, get_env
 from .context import Context
 from .ndarray import NDArray, torch_dtype, zeros as nd_zeros
 from .ops.registry import OpContext, get_op
@@ -59,9 +82,26 @@ def _cudnn_algorithms():
         cudnn.deterministic = before
 
 
+def _keep_random_draws():
+    """Selective-checkpoint contexts that keep what every seeded random
+    op draws in the forward for the recomputation, and recompute the
+    rest."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        if torch.Tag.nondeterministic_seeded in op.tags:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 def build_graph_fn(symbol):
     """Lower a Symbol DAG into ``f(arg_dict, aux_dict, rng, is_train,
-    device=None) -> (outputs, new_aux_dict)`` over tensors.  ``rng`` is
+    device=None, tap=None) -> (outputs, new_aux_dict)`` over tensors
+    (``tap(values)``, when given, sees every node output at the end, a
+    dict keyed ``(id(node), output index)``).  ``rng`` is
     the step key (an int; None draws ``random.next_key()``): node ``i``
     of ``_topo()`` registered ``needs_rng`` draws from a generator seeded
     with ``random.sub_key(rng, i)`` on its first input's device.  With a
@@ -72,7 +112,7 @@ def build_graph_fn(symbol):
     nodes = symbol._topo()
     out_refs = [(id(n), i) for n, i in symbol._outputs]
 
-    def fn(arg_dict, aux_dict, rng, is_train: bool, device=None):
+    def fn(arg_dict, aux_dict, rng, is_train: bool, device=None, tap=None):
         if device is None:
             device = next((t.device for t in arg_dict.values()),
                           torch.device("cpu"))
@@ -107,6 +147,8 @@ def build_graph_fn(symbol):
                 outs = [outs]
             for i, o in enumerate(outs):
                 vals[(id(n), i)] = o
+        if tap is not None:
+            tap(vals)
         return [vals[r] for r in out_refs], new_aux
 
     return fn
@@ -152,6 +194,13 @@ class Executor:
         self._grad_names = [n for n in self.arg_names
                             if self.grad_req[n] != "null"]
         self._graph_fn = build_graph_fn(symbol)
+        self._do_mirror = bool(get_env("MXNET_BACKWARD_DO_MIRROR", 0, int))
+        self._has_rng = any(not n.is_variable and get_op(n.op).needs_rng
+                            for n in symbol._topo())
+        # the monitor's callback and (name, value key) of every internal
+        # output, in get_internals() order
+        self._monitor_callback = None
+        self._monitor_refs = None
         self.outputs_cache: List[NDArray] = []
         # (outputs with their autograd graph, the leaves that need grad)
         self._train_graph = None
@@ -184,6 +233,14 @@ class Executor:
     def outputs(self) -> List[NDArray]:
         return self.outputs_cache
 
+    @property
+    def arg_arrays(self) -> List[NDArray]:
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def aux_arrays(self) -> List[NDArray]:
+        return [self.aux_dict[n] for n in self.aux_names]
+
     def _write_inputs(self, kwargs):
         """Copy ``kwargs`` into the bound arguments of those names."""
         for k, v in kwargs.items():
@@ -207,13 +264,46 @@ class Executor:
                 leaves[n] = t
             args[n] = t
         aux = {n: a._data for n, a in self.aux_dict.items()}
+        tapped = {}
+        tap = None
+        if self._monitor_callback is not None:
+            def tap(vals):
+                if not tapped:  # the forward's, not a recomputation's
+                    tapped.update(vals)
+        device = self._ctx.torch_device()
         with torch.set_grad_enabled(trace), _cudnn_algorithms():
-            outs, new_aux = self._graph_fn(args, aux, rng, bool(is_train),
-                                           self._ctx.torch_device())
+            if trace and self._do_mirror:
+                outs, new_aux = self._mirrored(args, aux, rng, leaves,
+                                               device, tap)
+            else:
+                outs, new_aux = self._graph_fn(args, aux, rng,
+                                               bool(is_train), device, tap)
         for name, val in new_aux.items():
             if val is not self.aux_dict[name]._data:  # an op left it as is
                 self.aux_dict[name][:] = val
+        if tap is not None:
+            for name, key in self._monitor_refs:
+                self._monitor_callback(
+                    name, NDArray(tapped[key].detach(), self._ctx))
         return outs, (leaves if trace else None)
+
+    def _mirrored(self, args, aux, rng, leaves, device, tap):
+        """The training forward under ``torch.utils.checkpoint``: run now
+        keeping only its inputs, and again in the backward."""
+        from torch.utils.checkpoint import checkpoint
+
+        names = list(leaves)
+
+        def forward(*traced):
+            full = dict(args)
+            full.update(zip(names, traced))
+            return self._graph_fn(full, aux, rng, True, device, tap)
+
+        kwargs = {"context_fn": _keep_random_draws} if self._has_rng \
+            else {}
+        return checkpoint(forward, *[leaves[n] for n in names],
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kwargs)
 
     def _backprop(self, outs, leaves, heads):
         """Walk the traced graph of ``outs`` once from ``heads`` and
@@ -248,6 +338,7 @@ class Executor:
         if leaves is not None:
             self._train_graph = (outs, leaves)
         self.outputs_cache = [NDArray(o.detach(), self._ctx) for o in outs]
+        _engine.sync_if_naive(self.outputs_cache)
         return self.outputs_cache
 
     def backward(self, out_grads=None):
@@ -279,6 +370,7 @@ class Executor:
                      for h, o in zip(heads, outs)]
         self._train_graph = None
         self._backprop(outs, leaves, heads)
+        _engine.sync_if_naive([self.grad_dict[n] for n in self._grad_names])
 
     def forward_backward(self, **kwargs):
         outs = self.forward(is_train=True, **kwargs)
@@ -286,7 +378,14 @@ class Executor:
         return outs
 
     def set_monitor_callback(self, callback):
-        raise not_ported("Executor monitors")
+        """``callback(name, NDArray)`` for every internal output of each
+        later forward (None removes it)."""
+        self._monitor_callback = callback
+        if callback is not None and self._monitor_refs is None:
+            internals = self._symbol.get_internals()
+            self._monitor_refs = [
+                (name, (id(node), i)) for name, (node, i) in
+                zip(internals.list_outputs(), internals._outputs)]
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

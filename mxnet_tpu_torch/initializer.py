@@ -5,7 +5,11 @@ Counterpart of ``mxnet_tpu/initializer.py:35-106``: name dispatch
 the fused RNN's packed ``parameters`` → the initializer's own rule,
 ``moving_mean``/``running_mean``/``moving_inv_var``/``moving_avg`` → 0,
 ``moving_var``/``running_var`` → 1, any other name raises), ``Zero``,
-``One``, ``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.  A
+``One``, ``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``
+(``:137``), ``Xavier``, ``MSRAPrelu`` (``:252``), and the two
+dispatchers that are not ``Initializer``s, ``Load`` (``:109``: a saved
+dict, else a default) and ``Mixed`` (``:198``: the first matching
+pattern's initializer).  A
 variable whose symbol carries an ``init`` attr (``Variable(...,
 init=...)``, e.g. ``pos_embed_weight``'s ``["zero", {}]``) is
 initialized by that initializer instead (``InitDesc`` carries the
@@ -19,6 +23,7 @@ package's threefry draws.
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 import torch
@@ -28,7 +33,8 @@ from .base import MXNetError, Registry
 from .ndarray import NDArray
 
 __all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Load", "Mixed",
+           "register", "create"]
 
 _REGISTRY = Registry("initializer")
 
@@ -119,6 +125,52 @@ class Initializer:
         raise NotImplementedError("must override _init_weight")
 
 
+class Load:
+    """Parameters from a saved dict (an ``nd.save`` file's name, or a
+    name → array dict; ``arg:``/``aux:`` prefixes dropped), the others
+    from ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .ndarray import load as nd_load
+
+            param = nd_load(param)
+        self.param = {name.replace("arg:", "").replace("aux:", ""): arr
+                      for name, arr in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if tuple(self.param[name].shape) != tuple(arr.shape):
+                raise MXNetError(f"Parameter {name} shape mismatch: "
+                                 f"{self.param[name].shape} vs {arr.shape}")
+            arr[:] = self.param[name]
+        elif self.default_init is None:
+            raise MXNetError(f"Cannot init parameter {name} — not in loaded "
+                             "file and no default_init given")
+        else:
+            self.default_init(name, arr)
+
+
+class Mixed:
+    """The initializer of the first of ``patterns`` (regular expressions,
+    matched at the name's start) that matches a name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must have same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise MXNetError(f"Parameter {name} did not match any pattern")
+
+
 def _draw_(arr: NDArray, draw):
     """``draw(float32 tensor, generator)`` into ``arr``: values are drawn
     in float32 and cast to the array's dtype, as the JAX package samples
@@ -189,6 +241,33 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal (nout, prod(rest)) matrix: the U or
+    V of the SVD of a float64 uniform(-1, 1) or normal(0, 1) draw,
+    whichever has the draw's shape."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        nout, nin = shape[0], int(np.prod(shape[1:]))
+        dev = arr._data.device
+        gen = _random.generator(dev)
+        tmp = torch.empty((nout, nin), dtype=torch.float64, device=dev)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        with torch.no_grad():
+            arr._data.copy_((self.scale * res).reshape(shape))
+
+
+@register
 class Xavier(Initializer):
     """Xavier/Glorot: scale sqrt(magnitude / factor) from the fans."""
 
@@ -218,3 +297,13 @@ class Xavier(Initializer):
             _normal_(arr, scale)
         else:
             raise MXNetError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialization for PReLU nets: Xavier's gaussian with magnitude
+    2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}

@@ -1,11 +1,17 @@
 """Evaluation metrics.
 
-Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``, ``Accuracy``
-(``:142``), ``Perplexity`` (``:262``), ``CrossEntropy`` (``:408``),
-``Loss`` (``:426``) and ``create``.  ``Accuracy`` and ``Perplexity``
-score NDArray predictions where they lie and read one sum back in
-``get``; the other metrics, and the cases those two leave to the host,
-sum ``asnumpy()`` of each batch's outputs, the reference's numpy path.
+Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``,
+``CompositeEvalMetric`` (``:78``), ``Accuracy`` (``:142``),
+``TopKAccuracy`` (``:205``), ``F1`` (``:232``), ``Perplexity``
+(``:262``), ``MAE``, ``MSE``, ``RMSE`` (``:363-405``), ``CrossEntropy``
+(``:408``), ``Loss`` (``:426``), ``Torch`` and ``Caffe`` (``:438-446``),
+``CustomMetric`` (``:449``), ``np`` (``:477``) and ``create`` of a
+name, an instance, a callable or a list (``:494``).  ``Accuracy``,
+``Perplexity``, ``TopKAccuracy`` (2-D predictions) and ``MAE``/``MSE``/
+``RMSE`` score NDArray predictions where they lie and read one sum
+back in ``get``, so ``update`` waits for nothing; the other metrics,
+and the cases those leave to the host, sum ``asnumpy()`` of each
+batch's outputs, the reference's numpy path.
 """
 
 from __future__ import annotations
@@ -13,11 +19,12 @@ from __future__ import annotations
 import numpy
 import torch
 
-from .base import Registry, not_ported
+from .base import Registry
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "Perplexity", "CrossEntropy", "Loss",
-           "create"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy", "Loss",
+           "Torch", "Caffe", "CustomMetric", "np", "create"]
 
 _REGISTRY = Registry("metric")
 
@@ -75,6 +82,69 @@ class EvalMetric:
 
     def __str__(self):
         return f"EvalMetric: {dict(self.get_name_value())}"
+
+
+class CompositeEvalMetric(EvalMetric):
+    """Several metrics updated together; ``get`` gives their names and
+    values as two lists."""
+
+    def __init__(self, metrics=None, **kwargs):
+        super().__init__("composite", **kwargs)
+        self.metrics = [create(m) if isinstance(m, str) else m
+                        for m in (metrics or [])]
+
+    def add(self, metric):
+        self.metrics.append(create(metric) if isinstance(metric, str)
+                            else metric)
+
+    def get_metric(self, index):
+        if not 0 <= index < len(self.metrics):
+            raise ValueError(f"Metric index {index} is out of range 0 to "
+                             f"{len(self.metrics)}")
+        return self.metrics[index]
+
+    def update(self, labels, preds):
+        for metric in self.metrics:
+            metric.update(labels, preds)
+
+    def reset(self):
+        for metric in getattr(self, "metrics", ()):
+            metric.reset()
+
+    def get(self):
+        names, results = [], []
+        for metric in self.metrics:
+            name, value = metric.get()
+            names.append(name)
+            results.append(value)
+        return (names, results)
+
+
+class _DeviceSum(EvalMetric):
+    """A metric that adds each batch's value to a float64 scalar where
+    the predictions lie, and its count on the host; ``get`` reads the
+    sum back once."""
+
+    def __init__(self, name):
+        super().__init__(name)
+        self._dev = None
+
+    def reset(self):
+        super().reset()
+        self._dev = None
+
+    def _dev_add(self, value, num):
+        value = value.to(torch.float64)
+        self._dev = (value, num) if self._dev is None \
+            else (self._dev[0] + value, self._dev[1] + num)
+
+    def get(self):
+        if self._dev is not None:
+            total, num = self._dev
+            self.sum_metric += float(total)
+            self.num_inst += num
+            self._dev = None
+        return super().get()
 
 
 class Accuracy(EvalMetric):
@@ -136,6 +206,77 @@ class Accuracy(EvalMetric):
             check_label_shapes(label, pred_label, shape=1)
             self.sum_metric += int((pred_label == label).sum())
             self.num_inst += len(pred_label)
+
+
+class TopKAccuracy(_DeviceSum):
+    """Whether the label is among the ``top_k`` largest predictions.
+    (N, C) NDArray predictions are counted where they lie (``topk``; the
+    reference's ``argsort`` may order tied scores otherwise); other
+    inputs take the reference's numpy path."""
+
+    def __init__(self, top_k=1, **kwargs):
+        super().__init__("top_k_accuracy")
+        self.top_k = top_k
+        if self.top_k <= 1:
+            raise ValueError("Please use Accuracy if top_k is no more "
+                             "than 1")
+        self.name += f"_{self.top_k}"
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred_label in zip(labels, preds):
+            if isinstance(pred_label, NDArray) and pred_label.ndim == 2 \
+                    and tuple(numpy.shape(label)) == pred_label.shape[:1]:
+                p = pred_label._data.float()
+                lab = (label._data if isinstance(label, NDArray)
+                       else torch.as_tensor(numpy.asarray(label)))
+                lab = lab.to(p.device, non_blocking=True).to(torch.int32)
+                k = min(p.shape[1], self.top_k)
+                idx = torch.topk(p, k, dim=1).indices.to(torch.int32)
+                self._dev_add((idx == lab[:, None]).sum(), p.shape[0])
+                continue
+            pred_label = numpy.argsort(_as_np(pred_label).astype("float32"),
+                                       axis=-1)
+            label = _as_np(label).astype("int32")
+            check_label_shapes(label, pred_label)
+            num_samples = pred_label.shape[0]
+            if pred_label.ndim == 1:
+                self.sum_metric += int((pred_label.flat == label.flat).sum())
+            elif pred_label.ndim == 2:
+                num_classes = pred_label.shape[1]
+                for j in range(min(num_classes, self.top_k)):
+                    self.sum_metric += int(
+                        (pred_label[:, num_classes - 1 - j].flat
+                         == label.flat).sum())
+            self.num_inst += num_samples
+
+
+class F1(EvalMetric):
+    """Binary F1 of the argmax of (N, 2) predictions, one value a
+    batch."""
+
+    def __init__(self):
+        super().__init__("f1")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _as_np(pred)
+            label = _as_np(label).astype("int32")
+            pred_label = numpy.argmax(pred, axis=1)
+            check_label_shapes(label, pred)
+            if len(numpy.unique(label)) > 2:
+                raise ValueError("F1 currently only supports binary "
+                                 "classification.")
+            tp = float(((pred_label == 1) & (label == 1)).sum())
+            fp = float(((pred_label == 1) & (label == 0)).sum())
+            fn = float(((pred_label == 0) & (label == 1)).sum())
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+            f1 = 2 * precision * recall / (precision + recall) \
+                if precision + recall > 0 else 0.0
+            self.sum_metric += f1
+            self.num_inst += 1
 
 
 class Perplexity(EvalMetric):
@@ -215,6 +356,64 @@ class Perplexity(EvalMetric):
             self.num_inst += num
 
 
+class _Regression(_DeviceSum):
+    """One value a batch from the batch's error: a 1-D label is taken as
+    a column (N, 1), broadcast against the prediction.  NDArray
+    predictions are scored where they lie, numpy ones on the host."""
+
+    def _reduce(self, err, xp):
+        raise NotImplementedError
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            if isinstance(pred, NDArray):
+                p = pred._data
+                lab = (label._data if isinstance(label, NDArray)
+                       else torch.as_tensor(numpy.asarray(label)))
+                lab = lab.to(p.device, non_blocking=True)
+                if lab.ndim == 1:
+                    lab = lab.reshape(lab.shape[0], 1)
+                self._dev_add(self._reduce(lab - p, torch), 1)
+                continue
+            label = _as_np(label)
+            pred = _as_np(pred)
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            self.sum_metric += self._reduce(label - pred, numpy)
+            self.num_inst += 1
+
+
+class MAE(_Regression):
+    """Mean absolute error."""
+
+    def __init__(self):
+        super().__init__("mae")
+
+    def _reduce(self, err, xp):
+        return xp.abs(err).mean()
+
+
+class MSE(_Regression):
+    """Mean squared error."""
+
+    def __init__(self):
+        super().__init__("mse")
+
+    def _reduce(self, err, xp):
+        return (err ** 2.0).mean()
+
+
+class RMSE(_Regression):
+    """Root of the mean squared error, a batch."""
+
+    def __init__(self):
+        super().__init__("rmse")
+
+    def _reduce(self, err, xp):
+        return xp.sqrt((err ** 2.0).mean())
+
+
 class CrossEntropy(EvalMetric):
     """Cross entropy of (N, C) softmax outputs against int labels."""
 
@@ -248,16 +447,75 @@ class Loss(EvalMetric):
             self.num_inst += p.size
 
 
-for _cls in (Accuracy, Perplexity, CrossEntropy, Loss):
+class Torch(Loss):
+    """The loss output's mean, under the name ``torch``."""
+
+    def __init__(self, name="torch"):
+        super().__init__()
+        self.name = name
+
+
+class Caffe(Torch):
+    """The loss output's mean, under the name ``caffe``."""
+
+    def __init__(self):
+        super().__init__(name="caffe")
+
+
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` over numpy arrays, returning
+    a value or a (sum, count) pair."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = f"custom({name})"
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_as_np(label), _as_np(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A ``CustomMetric`` over a numpy function, named after it."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
+for _cls in (Accuracy, TopKAccuracy, F1, Perplexity, MAE, MSE, RMSE,
+             CrossEntropy, Loss, Torch, Caffe):
     _REGISTRY.register(_cls.__name__, _cls)
 _REGISTRY.register("acc", Accuracy)
 _REGISTRY.register("ce", CrossEntropy)
 
 
 def create(metric, **kwargs) -> EvalMetric:
-    """A metric from an instance or a registered name."""
+    """A metric from a callable (a ``CustomMetric``), an instance, a list
+    (a ``CompositeEvalMetric`` of each) or a registered name."""
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, EvalMetric):
         return metric
-    if isinstance(metric, (list, tuple)):
-        raise not_ported("composite metrics")
+    if isinstance(metric, list):
+        composite = CompositeEvalMetric()
+        for child in metric:
+            composite.add(create(child, **kwargs))
+        return composite
     return _REGISTRY.get(str(metric))(**kwargs)

@@ -5,8 +5,10 @@ init_params → init_optimizer lifecycle plus ``forward_backward``
 (``:41-43``), ``score``, ``iter_predict`` and ``predict``
 (``:74-115``), ``fit`` (``:117``) with a ``checkpoint.
 CheckpointManager`` and ``resume`` (``:160-214``), and
-``save_params``/``load_params``.  Elastic mode and monitors are not
-ported yet and raise.
+``save_params``/``load_params``.  ``fit(monitor=)`` installs the
+``Monitor`` and brackets each batch with ``tic``/``toc_print``
+(``:183-184``, ``:263-264``, ``:320-321``).  Elastic mode is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -137,10 +139,8 @@ class BaseModule:
         stopped; ``'never'``, False or None start afresh."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        for name, val, item in (("monitor", monitor, 5),
-                                ("elastic_data", elastic_data, 9)):
-            if val not in (None, False):
-                raise not_ported(f"fit({name}=...) (queue A item {item})")
+        if elastic_data not in (None, False):
+            raise not_ported("fit(elastic_data=...) (queue A item 9)")
         from ..initializer import Uniform
 
         if initializer is None:
@@ -169,6 +169,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -195,6 +197,8 @@ class BaseModule:
                 # batch; so does the count
                 nbatch, resume_nbatch = resume_nbatch + 1, -1
             for data_batch in train_data:
+                if monitor is not None:
+                    monitor.tic()
                 if checkpoint is not None:
                     checkpoint.step_begin()
                 self.forward_backward(data_batch)
@@ -203,6 +207,8 @@ class BaseModule:
                 if checkpoint is not None:
                     checkpoint.step_end(self, epoch=epoch, nbatch=nbatch,
                                         train_iter=train_data)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -259,5 +265,8 @@ class BaseModule:
 
         self.set_params(*split_params(nd.load(fname)))
 
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
+
     def install_monitor(self, mon):
-        raise not_ported("monitors (queue A item 5)")
+        raise NotImplementedError()

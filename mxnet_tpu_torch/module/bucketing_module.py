@@ -15,8 +15,9 @@ CUDA graph pool for every bucket's graphs (``bind`` with
 at construction.  A checkpoint holds the default bucket's symbol and
 the shared parameters; its optimizer state goes through the current
 bucket, which holds the adopted fused state
-(``mxnet_tpu/module/bucketing_module.py:219-236``).  Monitors are not
-ported yet and raise.
+(``mxnet_tpu/module/bucketing_module.py:219-236``).  A monitor
+installed with ``install_monitor`` taps every bucket's executor, those
+of buckets bound later too (``:204-217``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ class BucketingModule(BaseModule):
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -167,6 +169,8 @@ class BucketingModule(BaseModule):
                         self._curr_module.inputs_need_grad,
                         shared_module=self._buckets[self._default_bucket_key],
                         grad_req=self._grad_req)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
         if bucket_key != self._curr_bucket_key:
             prev = self._curr_module
@@ -218,9 +222,24 @@ class BucketingModule(BaseModule):
         self._check_ready()
         return self._curr_module.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        self._check_ready()
+        if not self.inputs_need_grad:
+            raise MXNetError("get_input_grads needs bind(inputs_need_grad="
+                             "True)")
+        return self._curr_module.get_input_grads(merge_multi_context)
+
     def update_metric(self, eval_metric, labels):
         self._check_ready()
         self._curr_module.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        """``mon`` on every bucket's executor, and on each bucket bound
+        later."""
+        self._check_binded()
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
 
     def graph_stats(self):
         """``Module.graph_stats`` summed over the bucket modules."""

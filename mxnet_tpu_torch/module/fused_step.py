@@ -134,6 +134,8 @@ class FusedState:
         self.lr_value = None
         self.streams = _random.Streams(_random.next_key() if base_key is None
                                        else base_key)
+        # an optimizer that draws (SGLD) draws from the step's streams
+        optimizer.rng_streams = self.streams
         self.step_count = 0
         self.device = torch.device(device)
         # bumped when the streams are restored: graphs of an older
@@ -226,6 +228,11 @@ def _clone_tree(tree):
 
 
 def _copy_tree(dst, src):
+    if dst is None or src is None:  # DCASGD's (None, w) without momentum
+        if dst is not None or src is not None:
+            raise MXNetError("an optimizer state of another form than "
+                             "this optimizer's")
+        return
     if isinstance(dst, (tuple, list)):
         if not isinstance(src, (tuple, list)) or len(src) != len(dst):
             raise MXNetError("an optimizer state of another form than "

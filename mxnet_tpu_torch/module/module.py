@@ -14,10 +14,10 @@ a host without CUDA raises there unless the caller passes ``cpu()``.
 Training runs the fused step (``fused_step.py``) by default, as the JAX
 ``Module`` runs its one XLA program (``MXNET_FUSED_STEP``, read at
 construction; ``"0"`` turns it off, ``:160``): once ``_fused_ready``
-holds (``:904-914``: an optimizer with ``apply``, no input gradients,
-every output a loss head; here also no ``grad_req="add"``, whose
-accumulation the JAX step drops), ``forward(is_train=True)`` only keeps
-the batch, ``backward()`` does nothing, and ``update()`` runs forward,
+holds (``:904-914``: an optimizer with ``apply``, no monitor, no input
+gradients, every output a loss head; here also no ``grad_req="add"``,
+whose accumulation the JAX step drops), ``forward(is_train=True)`` only
+keeps the batch, ``backward()`` does nothing, and ``update()`` runs forward,
 backward and the optimizer segment over every parameter as one
 function, a CUDA graph on the card.  ``get_outputs()`` (or
 ``backward(out_grads)``) before ``update()`` runs the batch through the
@@ -38,9 +38,13 @@ before the first fused step is pending and installed when the step
 makes its ``FusedState``; the ``Updater`` is filled too, for a module
 that ends up on the eager path.
 ``_optimizer_states_to_host``/``_install_optimizer_states`` carry the
-same payload for ``checkpoint.CheckpointManager``.  Multi-device
-contexts, kvstores other than ``None``/``'local'``, mesh plans and
-monitors are not ported yet and raise.
+same payload for ``checkpoint.CheckpointManager``.
+``install_monitor`` taps the executor (``:2095``): a monitored module
+trains and scores through the executor's eager forward, where the tap
+fires, and captures no graph.  ``get_input_grads`` gives the data's
+gradients of a module bound with ``inputs_need_grad`` (``:2088``).
+Multi-device contexts, kvstores other than ``None``/``'local'`` and
+mesh plans are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import os
 
 import torch
 
+from .. import engine as _engine
 from .. import optimizer as opt
 from .. import random as _random
 from ..base import MXNetError, not_ported
@@ -356,7 +361,8 @@ class Module(BaseModule):
         if is_train and self._fused_ready():
             self._pending_batch = kwargs  # the fused step runs in update()
             return
-        if not is_train and self._graphs_on():
+        if not is_train and self._graphs_on() \
+                and self._exec._monitor_callback is None:
             ex = self._exec
             ex._write_inputs(kwargs)
             _random.next_key()  # the eager forward's draw: the same chain
@@ -394,6 +400,7 @@ class Module(BaseModule):
             step = self._fused_train_step()
             self._fused.count_update()
             self._set_outputs(step())
+            _engine.sync_if_naive(self._exec.outputs_cache)
             return
         if self._fused_ready():
             self._fused_train_step()
@@ -418,7 +425,10 @@ class Module(BaseModule):
 
     # -- the fused step ----------------------------------------------------------
     def _fused_ready(self):
+        # a monitored run goes through the executor's forward, where the
+        # tap fires
         return (self._use_fused and self.optimizer_initialized
+                and self._exec._monitor_callback is None
                 and not self.inputs_need_grad
                 and type(self._optimizer).apply is not opt.Optimizer.apply
                 and all(r in ("write", "null")
@@ -483,8 +493,23 @@ class Module(BaseModule):
                 "capture_ms": sum(g.capture_ms for g in graphs),
                 "pool_bytes": sum(g.pool_bytes for g in graphs)}
 
+    def get_input_grads(self, merge_multi_context=True):
+        """The gradients of the data inputs (bound with
+        ``inputs_need_grad``), in ``data_names`` order."""
+        self._check_bound()
+        if not self.inputs_need_grad:
+            raise MXNetError("get_input_grads needs bind(inputs_need_grad="
+                             "True)")
+        return [self._exec.grad_dict.get(n) for n in self._data_names]
+
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
+
+    def install_monitor(self, mon):
+        """Tap the executor with ``mon``."""
+        if not self.binded:
+            raise MXNetError("install_monitor needs bind()")
+        mon.install(self._exec)
 
     # -- checkpoints -------------------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):

@@ -590,15 +590,20 @@ _init_ndarray_module()
 
 def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, out=None,
             dtype="float32") -> NDArray:
-    """Uniform draws in [low, high) of ``shape`` on ``ctx``
-    (``_sample_uniform``)."""
+    """Uniform draws in [low, high) of ``shape`` on ``ctx`` (``out``'s
+    context when only ``out`` is given; ``_sample_uniform``)."""
+    if ctx is None and out is not None:
+        ctx = out.context
     return imperative_invoke("_sample_uniform", low=low, high=high,
                              shape=shape, dtype=dtype, ctx=ctx, out=out)
 
 
 def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, out=None,
            dtype="float32") -> NDArray:
-    """Gaussian draws of ``shape`` on ``ctx`` (``_sample_normal``)."""
+    """Gaussian draws of ``shape`` on ``ctx`` (``out``'s context when
+    only ``out`` is given; ``_sample_normal``)."""
+    if ctx is None and out is not None:
+        ctx = out.context
     return imperative_invoke("_sample_normal", loc=loc, scale=scale,
                              shape=shape, dtype=dtype, ctx=ctx, out=out)
 

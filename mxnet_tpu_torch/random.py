@@ -24,6 +24,10 @@ the base key instead).  On the card each generator is registered with
 every CUDA graph of the step, so a replay advances its Philox offset
 and draws new masks.
 
+``uniform`` and ``normal`` are ``mx.random.uniform``/``normal``
+(``mxnet_tpu/random.py:65-74``): ``nd.uniform``/``nd.normal`` from the
+device's framework generator.
+
 Sampler keying: one counter-based draw per (engine seed, stream seed,
 absolute position), and for the speculative verify sampler two sub-keys
 of that key (``sub_key(key, 1)`` for the acceptance uniform,
@@ -49,7 +53,7 @@ import torch
 
 __all__ = ["seed", "generator", "next_key", "get_state", "set_state",
            "key_generator", "Streams", "stream_key", "sub_key",
-           "gumbel_noise", "uniform"]
+           "gumbel_noise", "uniform_per_key", "uniform", "normal"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -232,6 +236,23 @@ def gumbel_noise(keys: Sequence[int], n: int,
                         for k in keys])
 
 
-def uniform(keys: Sequence[int], device: torch.device) -> torch.Tensor:
+def uniform_per_key(keys: Sequence[int],
+                    device: torch.device) -> torch.Tensor:
     """(len(keys),) float32 uniforms in [0, 1), one per key."""
     return torch.cat([_draw(k, 1, device) for k in keys])
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, out=None):
+    """Uniform draws in [low, high) of ``shape`` on ``ctx``, into
+    ``out`` when given (``mx.random.uniform``: ``nd.uniform``)."""
+    from . import ndarray as nd
+
+    return nd.uniform(low=low, high=high, shape=shape, ctx=ctx, out=out)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, out=None):
+    """Gaussian draws of ``shape`` on ``ctx``, into ``out`` when given
+    (``mx.random.normal``: ``nd.normal``)."""
+    from . import ndarray as nd
+
+    return nd.normal(loc=loc, scale=scale, shape=shape, ctx=ctx, out=out)

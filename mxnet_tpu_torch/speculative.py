@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError, not_ported
-from .random import gumbel_noise, stream_key, sub_key, uniform
+from .random import gumbel_noise, stream_key, sub_key, uniform_per_key
 
 __all__ = ["NgramProposer", "make_proposer", "verify_sample", "PROPOSERS"]
 
@@ -145,7 +145,7 @@ def verify_sample(logits: torch.Tensor, fed: np.ndarray, wlive: np.ndarray,
         d_d = torch.as_tensor(np.clip(d[sel], 0, V - 1), device=dev)
         rows_s = scaled[s_d]
         p = torch.softmax(rows_s, dim=-1).gather(1, d_d[:, None])[:, 0]
-        u = uniform([sub_key(keys[i], 1) for i in sel], dev)
+        u = uniform_per_key([sub_key(keys[i], 1) for i in sel], dev)
         residual = rows_s.scatter(1, d_d[:, None], -float("inf"))
         redraw = torch.argmax(
             residual + gumbel_noise([sub_key(keys[i], 2) for i in sel], V,

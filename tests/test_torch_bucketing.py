@@ -320,11 +320,11 @@ def test_default_context_and_unported_parts():
         with pytest.raises(mt.MXNetError, match="no CUDA device"):
             mt.mod.BucketingModule(sym_gen, default_bucket_key=8)
     mod = port_module()
-    with pytest.raises(mt.MXNetError, match="item 5.*not ported"):
-        mod.fit(BucketBatches(bucket_arrays(1, 1)), num_epoch=1,
-                monitor=object())
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mod.install_monitor(object())
+    # monitors are ported: fit(monitor=) taps every bucket's executor
+    mon = mt.Monitor(1, pattern=".*pred.*")
+    mod.fit(BucketBatches(bucket_arrays(1, 1)), num_epoch=1, monitor=mon)
+    assert mon.exes and all(m._exec._monitor_callback is not None
+                            for m in mod._buckets.values())
     with pytest.raises(mt.MXNetError, match="item 9.*not ported"):
         mod.fit(BucketBatches(bucket_arrays(1, 1)), num_epoch=1,
                 elastic_data=object())

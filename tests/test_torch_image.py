@@ -606,7 +606,7 @@ def test_examples_run_on_cpu_and_default_to_the_card(caplog):
     (["--model-prefix", "no/such/ck", "--load-epoch", "3"],
      "--model-prefix"),
     (["--load-epoch", "3"], "--load-epoch"),
-    (["--monitor", "5"], "--monitor"),
+    (["--kv-store", "dist_sync"], "--kv-store dist_sync"),
     (["--profile", "trace.json"], "--profile"),
     (["--data-dir", "data/mnist"], "MNISTIter"),
 ])

@@ -251,7 +251,8 @@ def test_module_context_and_unported_options():
     with pytest.raises(mt.MXNetError, match="not ported"):
         mod.init_optimizer(kvstore="device")
     with pytest.raises(mt.MXNetError, match="not ported"):
-        mod.fit(random_walk_iter(V, T, B, 2), num_epoch=1, monitor=object())
+        mod.fit(random_walk_iter(V, T, B, 2), num_epoch=1,
+                elastic_data=object())
     with pytest.raises(mt.MXNetError, match="not ported"):
         mt.mod.Module(net, context=[mt.cpu(0), mt.cpu(1)])
 
