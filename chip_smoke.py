@@ -6,8 +6,12 @@
 1. Device and build: prints the card's name and power limit and builds
    the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and the user
    kernels from their CUDA source text (the example's and this
-   script's, below) in one ``_build.build(sources=...)``, one ``nvcc``
-   per source, all started together.  Then, with ``cuobjdump`` from the
+   script's, below), one ``nvcc`` per source, all started together; the
+   paged kernels' three libraries (``PAGED_SOURCES``, the longest
+   builds) compile on a thread while the checks of every other kernel
+   run, and their own checks come after those (a ``phase_walls`` line
+   near the end gives the seconds at each phase's end).  Then, with
+   ``cuobjdump`` from the
    toolkit beside ``nvcc``, the tensor-core kernels (``TC_KERNELS``:
    B1's forward, B1's two backward kernels, B5's forward and its two
    backward kernels, B8 and both B9 kernels, at each head-width bucket,
@@ -230,7 +234,7 @@
 9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels and the
    four timed user kernels, launches summed over the runs), the card
    line, and last ``{"ok": true, "device": {...}}``, after phases 10
-   to 13.
+   to 16.
 10. Image classification (``image_path``; no kernel of the port's own
    on this path: cuDNN's convolutions and eager PyTorch ops, TF32 off as
    everywhere in this script, the ``tf32`` entry of its line), launch
@@ -370,6 +374,34 @@
    the MLP split into a ``SequentialModule`` (its first step equal to
    one ``Module``'s) trains to ``MNIST_MIN_ACCURACY``.  A
    ``core_summary`` line.
+16. The prefix cache and chunked prefill (``prefix_path``), at the
+   GPT-2-class width, fp32 pages unless said, KVB 16.  B8 first, at the
+   suffix prefill's shapes (``SUFFIX_SHAPES``: one stream, keys [cached
+   prefix | suffix] at ``kv_offset = -start``) against its plain
+   version, timed beside SDPA and its bound.  Then, each run's launch
+   counts reset just before its traffic: (a) a 512-token system prompt
+   served alone, then 15 requests of it plus distinct 16-400-token
+   suffixes (two at temperature 0.8), 32 tokens each, with the cache on
+   and off: 15 hits of 512 tokens, 15 x 512 fewer prefill tokens, B1 12
+   times a miss, B8 12 times a hit's suffix prefill, the decode kernel
+   12 times a step, the full forward over both runs' greedy streams;
+   (b) the system prompt alone again: a full hit, one copy-on-write of
+   its tail page (whose bytes stay as they were), no prefill launch;
+   (c) a 48-page pool against six streams of a shared prompt: evictions
+   of parked pages, preemptions of streams holding shared pages, every
+   page back at the end; (d) four 900-token prompts and one of 960
+   (above the engine's largest prefill bucket, 512) in chunks of 256
+   beside 8 short streams already decoding: the chunk count, B8 12
+   times a chunk, the full forward; the same with the cache off (the
+   greedy chains equal up to a near-tie, where batch shapes round
+   either way) and unchunked (the short streams' cost of the stall);
+   (e) (a)'s traffic over int8 pages (B8 and the quantized decode
+   kernel; the first greedy tokens (a)'s wherever the fp32 forward's
+   top-2 margin exceeds ``QMARGIN``) and ``spec_tokens=4`` on
+   ``spec_prompts()`` with the cache and chunks of 256 (run B's launch
+   rule, chunks on B8).  A ``prefix_summary`` line.  Serving runs A-D,
+   the default LM's and phase 13's state that their random prompts
+   scored no hit (``serve_run``).
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -414,8 +446,8 @@ alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
 ``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone,
 ``--bf16 ROOT`` phase 13 alone after B1's and the paged kernels' bf16
 checks at its shapes, ``--ops ROOT`` phase 14 alone with the packed
-LM's training run beside it, ``--core ROOT`` phase 15 alone (see
-``paths_timing``);
+LM's training run beside it, ``--core ROOT`` phase 15 alone,
+``--prefix ROOT`` phase 16 alone (see ``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -424,6 +456,7 @@ phase 13's TF32 run).  Any failed check raises and the script exits non-zero
 without the last line.  It needs a CUDA card and the repository around it.
 """
 
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -462,6 +495,10 @@ EAGER_EPOCHS = 1
 LSTM_SHAPES = ((60, 32, 200), (10, 32, 200), (7, 3, 37), (60, 32, 512),
                (20, 8, 1024))
 KV_TORCH = {"int8": "int8", "fp8": "float8_e4m3fn"}
+# the paged kernels' libraries: the longest builds (one cluster kernel,
+# many instantiations), compiled while the other kernels' checks run
+PAGED_SOURCES = ("paged_attention_decode", "paged_attention_decode_quant",
+                 "paged_attention_verify")
 # nms: SSD300's detection batch (8,732 default boxes; Liu et al., ECCV
 # 2016) beside the toy SSD's; 20 classes and the paper's threshold 0.45
 NMS_SHAPES = ((8, 192), (32, 8732))
@@ -1345,8 +1382,10 @@ def check_nms(torch, ck, B, A, force, seed):
         "ms": time_ms(torch, lambda: ck.nms(rows, NMS_THRESHOLD, force)),
         "device_ms": kernel_device_ms(
             torch, lambda: ck.nms(rows, NMS_THRESHOLD, force)),
+        # one call (the check above warmed it): the plain sweep takes
+        # seconds at SSD300's (32, 8732)
         "plain_ms": time_ms(torch, lambda: ck.nms_plain(
-            rows, NMS_THRESHOLD, force), reps=3, warmup=1),
+            rows, NMS_THRESHOLD, force), reps=1, warmup=0),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "bound_ms_all_pairs": all_ms}
     if path == "fused":  # the mask and sweep at the same shape, for the choice
@@ -1960,6 +1999,12 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
         st = eng.stats()
         peak = torch.cuda.max_memory_allocated()
         model = eng.model
+    # seeded random prompts under the default prefix cache: no hit, so
+    # B1 runs once a prefill and B8 never (the callers' launch rules)
+    check(st["prefix_cache"] == 1 and st["prefix_hits"] == 0
+          and st["prefill_chunks"] == 0,
+          f"a serving run scored {st['prefix_hits']} prefix hits and "
+          f"{st['prefill_chunks']} chunks on random prompts")
     for o in outs:
         check(o.shape == (new_tokens,) and o.min() >= 0
               and o.max() < cfg["vocab_size"], f"bad generation {o}")
@@ -1980,6 +2025,7 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
            "accepted_token_rate": st["accepted_token_rate"],
            "tokens_per_step": st["tokens_per_step"],
            "preempted": st["preempted"], "kv_dtype": st["kv_dtype"],
+           "prefix_hits": st["prefix_hits"],
            "pool_bytes": st["pool_bytes"], "peak_memory_bytes": int(peak),
            "greedy_outputs_sha256": greedy, "launches": launches}
     return model, outs, st, launches, rec
@@ -7386,6 +7432,660 @@ def core_path(torch, mt, ck):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the prefix cache and chunked prefill (queue A item 7, part 1)
+# ---------------------------------------------------------------------------
+
+# (a)'s traffic: a PREFIX_TOKENS-token system prompt (32 pages), a first
+# request of it alone, then PREFIX_REQUESTS requests of it plus distinct
+# 16-400-token suffixes, PREFIX_NEW tokens each, two sampled
+PREFIX_TOKENS, PREFIX_REQUESTS, PREFIX_NEW = 512, 15, 32
+PREFIX_SAMPLED = (4, 10)
+# (c): a pool of PRESSURE_PAGES usable pages against six streams of a
+# shared 256-token prompt growing by 160 tokens each (lifetimes ~88 pages)
+PRESSURE_PAGES, PRESSURE_PREFIX, PRESSURE_NEW = 48, 256, 160
+# (d): four 900-token prompts and one of 960 (above the engine's largest
+# prefill bucket, 512) in chunks of 256, beside 8 short streams decoding
+CHUNK, CHUNK_LONG, CHUNK_LONGEST, CHUNK_NEW = 256, 900, 960, 32
+CHUNK_SHORT, CHUNK_SHORT_NEW = 8, 96
+CHUNK_BUCKETS = [16, 32, 64, 128, 256, 512]
+# the top-2 logit margin above which int8 pages must not change a greedy
+# token (tests/torch_serving_parity.py's QMARGIN)
+QMARGIN = 1e-2
+# B8 at the suffix prefill's shapes (start, suffix bucket): (a)'s hit
+# (512 cached, the longest suffix's bucket) and (d)'s last chunk
+SUFFIX_SHAPES = ((PREFIX_TOKENS, 512), (768, CHUNK))
+# one prefill call at the model level, (cached tokens, tokens run): a
+# miss of (a)'s mean prompt, a hit's mean suffix, a chunk
+PREFILL_TIMED = ((0, 712), (PREFIX_TOKENS, 200), (PREFIX_TOKENS, CHUNK))
+
+
+def check_suffix_attention(torch, ck, tatt, F, start, Ts, dtype="float32"):
+    """B8 as the suffix prefill calls it (one stream, H heads of D: q
+    (1, Ts, H, D) over keys [prefix (start) | suffix (Ts)] at
+    ``kv_offset = -start``) against its plain version on the same
+    inputs, through ``prefix_suffix_attention``: the normalized rows
+    within ``TOL``.  Timed beside its plain version, SDPA with the same
+    boolean mask (the library yardstick) and its bound."""
+    g = torch.Generator(device="cuda").manual_seed(start + Ts)
+    dt = getattr(torch, dtype)
+    q, ks, vs = (torch.randn((1, Ts, H, D), generator=g, device="cuda")
+                 .to(dt) for _ in range(3))
+    kg, vg = (torch.randn((1, start, H, D), generator=g, device="cuda")
+              .to(dt) for _ in range(2))
+    out = tatt.prefix_suffix_attention(q, ks, vs, kg, vg, start, KVB)
+    k, v = torch.cat([kg, ks], 1), torch.cat([vg, vs], 1)
+    o, m, l = tatt._blockwise_attention_partial_plain(q, k, v, True, KVB,
+                                                      -start)
+    ref = tatt.normalize_attention_state(o, m, l, dt)
+    err = (out.float() - ref.float()).abs().max().item()
+    shape = f"suffix start={start} Ts={Ts} H={H} D={D}"
+    check(bool(torch.isfinite(out).all()) and err <= TOL[dtype],
+          f"flash_attention_partial {shape} {dtype}: max_abs_err {err}")
+    Tk = start + Ts
+    pairs = partial_pairs(1, H, Ts, Tk, True, -start)
+    es = q.element_size()
+    nbytes = (Ts + 2 * Tk) * H * D * es + (Ts * D + 2 * Ts) * H * 4
+    b_ms, b_by = bound(nbytes, 4 * D * pairs, dtype)
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (torch.arange(Tk, device="cuda") - start)[None, :] \
+        <= torch.arange(Ts, device="cuda")[:, None]
+    return {"kernel": "flash_attention_partial", "shape": shape,
+            "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+            "ms": time_ms(torch, lambda: ck.flash_attention_partial(
+                q, k, v, True, KVB, -start)),
+            "plain_ms": time_ms(torch, lambda: ck.flash_attention_partial_plain(
+                q, k, v, True, KVB, -start), reps=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": bound_tc(nbytes, 4 * D * pairs, dtype)}
+
+
+# the engine's host work in (a), by method: (label, attribute path under
+# the engine).  _run_prefill only queues the forward; _sample_first waits
+# for the device and copies the first token back
+HOST_SPANS = (("admit", "_admit"), ("prefill", "_prefill"),
+              ("run_prefill", "_run_prefill"),
+              ("model.prefill", "_model.prefill"),
+              ("model.suffix_prefill", "_model.suffix_prefill"),
+              ("sample_first", "_sample_first"),
+              ("finish_prefill", "_finish_prefill"), ("step", "_step"),
+              ("cow_active", "_cow_active"), ("retire", "_retire"),
+              ("prefix.peek", "_prefix.peek"),
+              ("prefix.attach", "_prefix.attach"),
+              ("prefix.register", "_prefix.register"),
+              ("prefix.release", "_prefix.release"))
+
+
+@contextlib.contextmanager
+def host_spans(eng, spans=HOST_SPANS):
+    """Time the engine's methods named in ``spans`` on the host clock
+    while the block runs: each is shadowed on its object by a wrapper
+    that adds its inclusive wall time and a call to the label's total
+    (a few microseconds a call).  Yields the totals; read them with
+    ``span_report``.  Spans whose object is absent (no prefix cache) are
+    skipped."""
+    totals, undo = {}, []
+    for label, path in spans:
+        *owners, attr = path.split(".")
+        obj = eng
+        for o in owners:
+            obj = getattr(obj, o, None)
+        if obj is None:
+            continue
+        fn = getattr(obj, attr)
+
+        def timed(*a, _fn=fn, _label=label, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                tot = totals.setdefault(_label, [0.0, 0])
+                tot[0] += time.perf_counter() - t
+                tot[1] += 1
+
+        object.__setattr__(obj, attr, timed)
+        undo.append((obj, attr))
+    try:
+        yield totals
+    finally:
+        for obj, attr in undo:
+            object.__delattr__(obj, attr)
+
+
+def engine_prefill_profile(torch, eng, prompt, top=12):
+    """One admission of ``prompt`` through ``eng`` (``max_new`` 1: its
+    prefill and first token, no step) under ``torch.profiler`` with the
+    device's activity: the wall, every device kernel's time by name
+    (``top`` of them) and their sum, so a device wait at the end of the
+    prefill can be read against the kernels that make it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.generate(prompt, 1)
+        wall = (time.perf_counter() - t) * 1e3
+    ev = sorted((e for e in prof.key_averages()
+                 if e.self_device_time_total > 0),
+                key=lambda e: -e.self_device_time_total)
+    return {"tokens": len(prompt), "wall_ms": wall,
+            "device_ms": sum(e.self_device_time_total for e in ev) / 1e3,
+            "top": [[e.key, e.count, e.self_device_time_total / 1e3]
+                    for e in ev[:top]]}
+
+
+def span_report(totals):
+    """``host_spans`` totals as {label: {calls, ms_per_call, ms}}."""
+    return {k: {"calls": n, "ms_per_call": t * 1e3 / n, "ms": t * 1e3}
+            for k, (t, n) in totals.items() if n}
+
+
+@contextlib.contextmanager
+def counted_engine(torch, mt, ck, dev_params, warm=(), **engine_kw):
+    """A fresh ``DecodeEngine`` of the GPT-2-class LM after a warm-up
+    request and the ``warm`` requests ((prompt, max_new[, temperature]):
+    prompts of the traffic's shapes under other tokens and its
+    temperatures, served together, so the measured traffic meets no
+    first use of a shape or of the sampler), with its stats and the
+    launch counts reset just before the caller's traffic."""
+    kw = dict(kv_block=KVB, max_streams=16, seed=0)
+    kw.update(engine_kw)
+    with mt.DecodeEngine(dev_params, **GPT2_SMALL, ctx=mt.gpu(0),
+                         **kw) as eng:
+        eng.generate(np.arange(1, 20, dtype=np.int32), 2)  # CUDA warm-up
+        for f in [eng.submit(*w) for w in warm]:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        ck.reset_launch_counts()
+        yield eng
+
+
+def shared_prompt_traffic(seed=4):
+    """(a)'s requests: (system prompt, the first request, the others,
+    their temperatures)."""
+    V = GPT2_SMALL["vocab_size"]
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(1, V, size=PREFIX_TOKENS).astype(np.int32)
+    first = np.concatenate([prefix, rng.randint(1, V, size=64)]) \
+        .astype(np.int32)
+    lens = rng.randint(16, 401, size=PREFIX_REQUESTS)
+    prompts = [np.concatenate([prefix, rng.randint(1, V, size=n)])
+               .astype(np.int32) for n in lens]
+    temps = [0.8 if i in PREFIX_SAMPLED else 0.0
+             for i in range(PREFIX_REQUESTS)]
+    return prefix, first, prompts, temps
+
+
+def expect_prefix_launches(launches, st, run, quant=False, misses=None):
+    """The launch rule of a run with the prefix cache: B1 12 times a
+    whole-prompt prefill (``misses``; by default every prefill that is
+    not a hit's suffix), B8 12 times a chunk or a hit's suffix prefill,
+    the paged decode kernel 12 times a plain step and the verify kernel
+    12 times a verify step (their quantized instantiations over int8 /
+    fp8 pages)."""
+    L = GPT2_SMALL["num_layers"]
+    suffix = st["prefix_hits"] - st["prefix_full_hits"]
+    if misses is None:
+        misses = st["prefills"] - suffix
+    plain = st["steps"] - st["spec_steps"]
+    q = "_quant" if quant else ""
+    want = {"flash_mha_packed": L * misses,
+            "flash_attention_partial": L * (suffix + st["prefill_chunks"]),
+            f"paged_attention_decode{q}": L * plain,
+            f"paged_attention_verify{q}": L * st["spec_steps"],
+            "paged_attention_decode" + ("" if quant else "_quant"): 0,
+            "paged_attention_verify" + ("" if quant else "_quant"): 0}
+    _expect_launches(launches, want, run)
+
+
+def shared_prompt_run(torch, mt, ck, dev_params, traffic, label, **kw):
+    """(a): the first request alone, then the rest together, after a
+    warm pass of the same shapes under another system prompt.  With the
+    cache on also (b): the system prompt alone again (a full hit), its
+    shared tail page's bytes compared before and after the COW."""
+    prefix, first, prompts, temps = traffic
+    _, wfirst, wprompts, _ = shared_prompt_traffic(seed=5)
+    # the temperatures too: the process's first sampled token costs ~90
+    # ms once (tools/torch_prefill_trace.py), which must not land in (a)
+    warm = [(p, PREFIX_NEW, t) for p, t in zip([wfirst] + wprompts,
+                                               [0.0] + temps)]
+    out = {}
+    with counted_engine(torch, mt, ck, dev_params, warm=warm, **kw) as eng:
+        with host_spans(eng) as totals:
+            t0 = time.perf_counter()
+            outs = [eng.generate(first, PREFIX_NEW)]
+            futs = [eng.submit(p, PREFIX_NEW, temperature=t)
+                    for p, t in zip(prompts, temps)]
+            outs += [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        launches, st = dict(ck.LAUNCHES), eng.stats()
+        model = eng.model
+        # a probe of the system prompt and 200 new tokens: a hit of 512
+        # with the cache on, a 712-token miss with it off
+        probe = np.concatenate([prefix, np.random.RandomState(7).randint(
+            1, GPT2_SMALL["vocab_size"], size=200)]).astype(np.int32)
+        out["profile"] = engine_prefill_profile(torch, eng, probe)
+        if st["prefix_cache"]:
+            chain = [n.page for n in eng._prefix.index.match(
+                prefix, touch=False)]
+            check(len(chain) == PREFIX_TOKENS // KVB,
+                  f"16{label}: the system prompt's chain holds {len(chain)} "
+                  f"pages")
+            before = [p[chain[-1]].view(torch.uint8).clone()
+                      for p in eng._pools]
+            eng.reset_stats()
+            ck.reset_launch_counts()
+            again = eng.generate(prefix, PREFIX_NEW)
+            st_b, launches_b = eng.stats(), dict(ck.LAUNCHES)
+            same = all(torch.equal(p[chain[-1]].view(torch.uint8), b)
+                       for p, b in zip(eng._pools, before))
+            out["full_hit"] = (again, st_b, launches_b, same)
+    out.update(outs=outs, st=st, launches=launches, model=model, rec={
+        "wall_s": wall, "prefix_hits": st["prefix_hits"] if st[
+            "prefix_cache"] else None,
+        "prefill_tokens": st["prefill_tokens"], "prefills": st["prefills"],
+        "steps": st["steps"], "ttft_p50_ms": st["ttft_p50_ms"],
+        "ttft_hit_p50_ms": st["ttft_hit_p50_ms"],
+        "ttft_miss_p50_ms": st["ttft_miss_p50_ms"],
+        "prefill_p50_ms": st["prefill_p50_ms"],
+        "queue_wait_p50_ms": st["queue_wait_p50_ms"],
+        "step_p50_ms": st["step_p50_ms"],
+        "tokens_per_s": st["tokens"] / wall, "launches": launches,
+        "host_spans": span_report(totals), "profile": out["profile"]})
+    return out
+
+
+def pressure_run(torch, mt, ck, dev_params):
+    """(c): a 48-page pool.  A request of a 256-token prompt P and one
+    of another prompt retire and park their pages; then six requests of
+    P plus distinct suffixes, 160 tokens each (~88 pages of lifetimes):
+    admission revives P's chain and evicts the other parked pages,
+    growth preempts streams that hold P's shared pages, and they return
+    as prefix hits."""
+    V = GPT2_SMALL["vocab_size"]
+    rng = np.random.RandomState(12)
+    P = rng.randint(1, V, size=PRESSURE_PREFIX).astype(np.int32)
+    seed_req = np.concatenate([P, rng.randint(1, V, size=16)]).astype(
+        np.int32)
+    other = rng.randint(1, V, size=128).astype(np.int32)
+    prompts = [np.concatenate([P, rng.randint(1, V, size=n)])
+               .astype(np.int32) for n in (16, 24, 32, 40, 48, 56)]
+    with counted_engine(torch, mt, ck, dev_params,
+                        cache_blocks=1 + PRESSURE_PAGES) as eng:
+        eng.generate(seed_req, 2)
+        eng.generate(other, 2)
+        futs = [eng.submit(p, PRESSURE_NEW) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        launches, st = dict(ck.LAUNCHES), eng.stats()
+        a = eng._alloc
+        pages = (a.free_list_blocks, a.parked_blocks, a.capacity)
+        model = eng.model
+    check(st["evictions"] >= 1 and st["preempted"] >= 1
+          and st["prefix_hits"] >= len(prompts),
+          f"16c: evictions {st['evictions']}, preempted {st['preempted']}, "
+          f"hits {st['prefix_hits']}")
+    check(st["cache_util"] == 0.0 and pages[0] + pages[1] == pages[2],
+          f"16c: pages leaked: free {pages[0]} + parked {pages[1]} of "
+          f"{pages[2]}, cache_util {st['cache_util']}")
+    expect_prefix_launches(launches, st, "16c")
+    forward_check(torch, model, prompts, outs, [0.0] * len(prompts),
+                  [len(p) for p in prompts], "16c")
+    return {"evictions": st["evictions"], "preempted": st["preempted"],
+            "prefix_hits": st["prefix_hits"], "prefills": st["prefills"],
+            "free_pages": pages[0], "parked_pages": pages[1],
+            "launches": launches}
+
+
+def chunk_traffic(seed=13):
+    V = GPT2_SMALL["vocab_size"]
+    rng = np.random.RandomState(seed)
+    short = [rng.randint(1, V, size=n).astype(np.int32)
+             for n in rng.randint(32, 65, size=CHUNK_SHORT)]
+    long = [rng.randint(1, V, size=n).astype(np.int32)
+            for n in [CHUNK_LONG] * 4 + [CHUNK_LONGEST]]
+    return short, long
+
+
+def chunk_run(torch, mt, ck, dev_params, traffic, **kw):
+    """(d): the short streams first; once all decode, the long prompts
+    (after a warm pass of the same shapes under other tokens).  Returns
+    outputs, stats, launches and the short streams' host ms a token
+    (submit to result over their tokens: what a stall costs them)."""
+    short, long = traffic
+    warm = [(p, 2) for p in sum(chunk_traffic(seed=14), [])]
+    with counted_engine(torch, mt, ck, dev_params, warm=warm, **kw) as eng:
+        done = {}
+        futs = []
+        for i, p in enumerate(short):
+            t = time.perf_counter()
+            f = eng.submit(p, CHUNK_SHORT_NEW)
+            f.add_done_callback(
+                lambda _f, i=i, t=t: done.__setitem__(
+                    i, time.perf_counter() - t))
+            futs.append(f)
+        deadline = time.perf_counter() + 120
+        while eng.stats()["active_streams"] < len(short):
+            check(time.perf_counter() < deadline, "16d: short streams idle")
+            time.sleep(0.002)
+        futs += [eng.submit(p, CHUNK_NEW) for p in long]
+        outs = [f.result(timeout=600) for f in futs]
+        launches, st = dict(ck.LAUNCHES), eng.stats()
+        model = eng.model
+    per_tok = [done[i] * 1e3 / CHUNK_SHORT_NEW for i in range(len(short))]
+    return outs, st, launches, model, {
+        "short_ms_per_token_p50": float(np.median(per_tok)),
+        "short_ms_per_token_max": float(np.max(per_tok)),
+        "step_p50_ms": st["step_p50_ms"], "steps": st["steps"],
+        "prefill_chunks": st["prefill_chunks"],
+        "prefill_chunk_p50_ms": st["prefill_chunk_p50_ms"],
+        "launches": launches}
+
+
+def prefill_timing(torch, model):
+    """One prefill call of the served model at ``PREFILL_TIMED``'s
+    shapes over fresh fp32 pools: ``prefill`` for a miss,
+    ``suffix_prefill`` over cached pages for a hit or a chunk, each
+    padded to its bucket: host ms of a call ending in a synchronize
+    (median of 5 after 2) beside the device's (``step_device_ms``: its
+    kernels' time and the CUDA-event span)."""
+    L = GPT2_SMALL["num_layers"]
+    pools = [torch.zeros((128, KVB, H, D), device="cuda")
+             for _ in range(2 * L)]
+    out = []
+    for start, n in PREFILL_TIMED:
+        tp = 1 << (n - 1).bit_length()
+        data = torch.randint(1, GPT2_SMALL["vocab_size"], (1, tp),
+                             device="cuda")
+        pos = (start + torch.arange(tp, device="cuda"))[None]
+        lengths = torch.tensor([start + n], dtype=torch.int32,
+                               device="cuda")
+        table = torch.arange(1, 1 + (start + tp) // KVB, dtype=torch.int32,
+                             device="cuda")[None]
+        if start:
+            def fn():
+                model.suffix_prefill(data, pos, start, lengths, table, pools)
+        else:
+            def fn():
+                model.prefill(data, pos, lengths, table, pools)
+        host = []
+        for i in range(7):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+        out.append({"start": start, "tokens": n, "bucket": tp,
+                    "host_ms": float(np.median(host[2:])),
+                    **step_device_ms(torch, fn, reps=3),
+                    "host_ops": host_ops(torch, fn, top=40)})
+    del pools
+    return out
+
+
+def host_ops(torch, fn, reps=3, top=12):
+    """Where one call's host time goes: ``torch.profiler`` on the CPU
+    only over ``reps`` calls (each ending in a synchronize), the ops'
+    self time a call (``aten_ms``: every recorded op's; ``top``: the
+    largest, by name, with their calls a call) beside the call's wall
+    time under the profiler.  What the wall holds beyond ``aten_ms`` is
+    Python and the kernel wrappers' launches (ctypes), which the
+    profiler does not see as ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"profiled_wall_ms": wall,
+            "aten_ms": sum(e.self_cpu_time_total for e in ev) / 1e3 / reps,
+            "ops": sum(e.count for e in ev) / reps,
+            "top": [[e.key, e.count / reps,
+                     e.self_cpu_time_total / 1e3 / reps] for e in ev[:top]]}
+
+
+def margin_agree(torch, model, prompts, a, b, tol=1e-3):
+    """Greedy chains ``a`` and ``b`` of ``prompts``: the positions before
+    the first where they differ, and whether the full forward over
+    ``a``'s chain has its top-2 margin at or below ``tol`` there (a
+    near-tie, where batch shapes may round either way)."""
+    firsts, ties = [], 0
+    for p, x, y in zip(prompts, a, b):
+        diff = np.nonzero(x != y)[0]
+        if not diff.size:
+            firsts.append(len(x))
+            continue
+        j = int(diff[0])
+        seq = np.concatenate([p, x])
+        row = model(torch.from_numpy(seq).cuda()[None])[0][len(p) - 1 + j]
+        top2 = torch.topk(row.float(), 2).values
+        check(float(top2[0] - top2[1]) <= tol,
+              f"chains differ at token {j} where the full forward's top-2 "
+              f"margin {float(top2[0] - top2[1])} exceeds {tol}")
+        firsts.append(j)
+        ties += 1
+    return firsts, ties
+
+
+def prefix_path(torch, mt, ck, tatt, F):
+    """Phase 16, the prefix cache and chunked prefill at the GPT-2-class
+    width (fp32 pages unless said, KVB 16), each run's launch counts
+    reset just before its traffic and read just after:
+
+    (a) a 512-token system prompt: one request alone, then 15 of it
+        plus distinct 16-400-token suffixes (two sampled), with the
+        cache on and off: 15 hits of 512 tokens, 15 x 512 fewer prefill
+        tokens, B1 12 a miss, B8 12 a hit's suffix, the decode kernel 12
+        a step, the full forward on both runs' greedy streams;
+    (b) the system prompt alone again: a full hit, one COW, the shared
+        page's bytes unchanged, no prefill launch;
+    (c) a pool too small for the lifetimes: evictions, preemptions of
+        streams holding shared pages, no page leaked;
+    (d) four 900-token prompts and a 960 (above the largest prefill
+        bucket, 512) in chunks of 256 beside 8 short decoding streams,
+        with the cache on and off, and unchunked (buckets to 1024): the
+        chunk count, B8 12 a chunk, the full forward, the cache-off
+        chains equal up to a near-tie, the short streams' cost;
+    (e) (a)'s traffic over int8 pages (B8 and the quantized decode
+        kernel, first tokens as (a)'s up to a near-tie), and
+        ``spec_tokens=4`` on ``spec_prompts()`` with the cache and
+        chunks of 256 (run B's launch rule with chunks)."""
+    t_start = time.perf_counter()
+    L = GPT2_SMALL["num_layers"]
+    kernels = [check_suffix_attention(torch, ck, tatt, F, s, ts)
+               for s, ts in SUFFIX_SHAPES]
+    for c in kernels:
+        print(json.dumps({"check": c}))
+    ck.reset_launch_counts()
+    dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
+    traffic = shared_prompt_traffic()
+    prefix, first, prompts, temps = traffic
+    all_prompts, all_temps = [first] + prompts, [0.0] + temps
+    lens = [len(p) for p in all_prompts]
+    parts, part_s, launches = {}, {}, {}
+
+    def tally(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    on = shared_prompt_run(torch, mt, ck, dev_params, traffic, "a")
+    off = shared_prompt_run(torch, mt, ck, dev_params, traffic, "a",
+                            prefix_cache=0)
+    st = on["st"]
+    check(st["prefix_hits"] == PREFIX_REQUESTS
+          and st["prefix_hit_tokens"] == PREFIX_REQUESTS * PREFIX_TOKENS
+          and st["prefix_full_hits"] == 0,
+          f"16a: hits {st['prefix_hits']}, hit tokens "
+          f"{st['prefix_hit_tokens']}, full hits {st['prefix_full_hits']}")
+    saved = off["st"]["prefill_tokens"] - st["prefill_tokens"]
+    check(saved == PREFIX_REQUESTS * PREFIX_TOKENS,
+          f"16a: prefill tokens {st['prefill_tokens']} against "
+          f"{off['st']['prefill_tokens']} with the cache off")
+    expect_prefix_launches(on["launches"], st, "16a", misses=1)
+    expect_prefix_launches(off["launches"], {**off["st"], "prefix_hits": 0,
+                                             "prefix_full_hits": 0},
+                           "16a off", misses=1 + PREFIX_REQUESTS)
+    for run in (on, off):
+        forward_check(torch, run["model"], all_prompts, run["outs"],
+                      all_temps, lens, "16a")
+        tally(run["launches"])
+    parts["a"] = {"cache_on": on["rec"], "cache_off": off["rec"],
+                  "prefill_tokens_saved": saved,
+                  "prefill_calls": prefill_timing(torch, on["model"])}
+    again, st_b, launches_b, same = on["full_hit"]
+    check(st_b["prefix_full_hits"] >= 1 and st_b["cow_copies"] >= 1
+          and same, f"16b: full hits {st_b['prefix_full_hits']}, COWs "
+          f"{st_b['cow_copies']}, shared page unchanged {same}")
+    expect_prefix_launches(launches_b, st_b, "16b", misses=0)
+    check(st_b["prefills"] == 0, f"16b: {st_b['prefills']} prefills")
+    forward_check(torch, on["model"], [prefix], [again], [0.0],
+                  [PREFIX_TOKENS], "16b")
+    tally(launches_b)
+    parts["b"] = {"prefix_full_hits": st_b["prefix_full_hits"],
+                  "cow_copies": st_b["cow_copies"],
+                  "shared_page_unchanged": same,
+                  "ttft_hit_p50_ms": st_b["ttft_hit_p50_ms"],
+                  "launches": launches_b}
+    part_s["ab"] = time.perf_counter() - t0
+    del on["model"], off["model"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    parts["c"] = pressure_run(torch, mt, ck, dev_params)
+    tally(parts["c"]["launches"])
+    part_s["c"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ctraffic = chunk_traffic()
+    short, long = ctraffic
+    want_chunks = sum(-(-len(p) // CHUNK) for p in long)
+    runs_d = {}
+    for name, kw in (("chunked", dict(prefill_chunk=CHUNK,
+                                      prefill_buckets=CHUNK_BUCKETS)),
+                     ("chunked_cache_off", dict(
+                         prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS,
+                         prefix_cache=0)),
+                     ("unchunked", {})):
+        outs, st, got, model, rec = chunk_run(torch, mt, ck, dev_params,
+                                              ctraffic, **kw)
+        cached = kw.get("prefix_cache", 1)
+        stx = st if cached else {**st, "prefix_hits": 0,
+                                 "prefix_full_hits": 0}
+        check(stx["prefix_hits"] == 0, f"16d {name}: {stx['prefix_hits']} "
+              f"hits on random prompts")
+        chunked = len(long) if "prefill_chunk" in kw else 0
+        expect_prefix_launches(got, stx, f"16d {name}",
+                               misses=len(short) + len(long) - chunked)
+        check(st["prefill_chunks"] == (want_chunks if chunked else 0),
+              f"16d {name}: {st['prefill_chunks']} chunks, want "
+              f"{want_chunks if chunked else 0}")
+        runs_d[name] = (outs, model)
+        rec["launches"] = got
+        tally(got)
+        parts.setdefault("d", {})[name] = rec
+    outs, model = runs_d["chunked"]
+    every = short + long
+    forward_check(torch, model, every, outs, [0.0] * len(every),
+                  [len(p) for p in every], "16d")
+    firsts, ties = margin_agree(torch, model, every, outs,
+                                runs_d["chunked_cache_off"][0])
+    parts["d"]["cache_off_equal_streams"] = sum(
+        f == len(o) for f, o in zip(firsts, outs))
+    parts["d"]["cache_off_near_ties"] = ties
+    del runs_d
+    part_s["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    q8 = shared_prompt_run(torch, mt, ck, dev_params, traffic, "e",
+                           kv_dtype="int8")
+    st = q8["st"]
+    check(st["prefix_hits"] == PREFIX_REQUESTS,
+          f"16e int8: {st['prefix_hits']} hits")
+    expect_prefix_launches(q8["launches"], st, "16e int8", quant=True,
+                           misses=1)
+    greedy = [i for i, t in enumerate(all_temps) if t == 0.0]
+    # a hit reads the prefix from int8 pages where (a) read fp32 ones:
+    # the first tokens agree wherever the fp32 forward's top-2 margin
+    # exceeds QMARGIN
+    firsts, ties = margin_agree(
+        torch, q8["model"], [all_prompts[i] for i in greedy],
+        [on["outs"][i][:1] for i in greedy],
+        [q8["outs"][i][:1] for i in greedy], tol=QMARGIN)
+    tally(q8["launches"])
+    again, st_b, launches_b, same = q8["full_hit"]
+    check(st_b["cow_copies"] >= 1 and same,
+          f"16e int8 full hit: COWs {st_b['cow_copies']}, page kept {same}")
+    tally(launches_b)
+    parts["e"] = {"int8": {**q8["rec"], "first_tokens_equal_to_a": sum(
+        f == 1 for f in firsts), "first_token_near_ties": ties}}
+    del q8
+    torch.cuda.empty_cache()
+    spec = spec_prompts()
+    stemps = [0.8 if i in (5, 12) else 0.0 for i in range(len(spec))]
+    with counted_engine(torch, mt, ck, dev_params, spec_tokens=SPEC_K,
+                        proposer="ngram", prefill_chunk=CHUNK) as eng:
+        futs = [eng.submit(p, SPEC_NEW, temperature=t)
+                for p, t in zip(spec, stemps)]
+        souts = [f.result(timeout=600) for f in futs]
+        got, st, model = dict(ck.LAUNCHES), eng.stats(), eng.model
+    long_n = sum(len(p) > CHUNK for p in spec)
+    check(st["spec_accepted"] > 0 and st["prefix_hits"] == 0
+          and st["prefill_chunks"] == sum(-(-len(p) // CHUNK) for p in spec
+                                          if len(p) > CHUNK),
+          f"16e spec: accepted {st['spec_accepted']}, hits "
+          f"{st['prefix_hits']}, chunks {st['prefill_chunks']}")
+    expect_prefix_launches(got, st, "16e spec",
+                           misses=len(spec) - long_n)
+    forward_check(torch, model, spec, souts, stemps, [len(p) for p in spec],
+                  "16e spec")
+    tally(got)
+    parts["e"]["spec"] = {"spec_steps": st["spec_steps"],
+                          "spec_accepted": st["spec_accepted"],
+                          "prefill_chunks": st["prefill_chunks"],
+                          "step_p50_ms": st["step_p50_ms"], "launches": got}
+    part_s["e"] = time.perf_counter() - t0
+    del model, dev_params
+    torch.cuda.empty_cache()
+    a_on, a_off = parts["a"]["cache_on"], parts["a"]["cache_off"]
+    d = parts["d"]
+    summary = {
+        "ttft_hit_p50_ms": a_on["ttft_hit_p50_ms"],
+        "prefill_calls": parts["a"]["prefill_calls"],
+        "ttft_miss_p50_ms": a_off["ttft_miss_p50_ms"],
+        "ttft_p50_ms": [a_on["ttft_p50_ms"], a_off["ttft_p50_ms"]],
+        "prefill_p50_ms": [a_on["prefill_p50_ms"], a_off["prefill_p50_ms"]],
+        "step_p50_ms": [a_on["step_p50_ms"], a_off["step_p50_ms"]],
+        "host_spans": [a_on["host_spans"], a_off["host_spans"]],
+        "prefill_profile": [a_on["profile"], a_off["profile"]],
+        "prefill_tokens": [a_on["prefill_tokens"], a_off["prefill_tokens"]],
+        "prefill_tokens_saved": parts["a"]["prefill_tokens_saved"],
+        "full_hit_ttft_ms": parts["b"]["ttft_hit_p50_ms"],
+        "evictions": parts["c"]["evictions"],
+        "preempted": parts["c"]["preempted"],
+        "short_step_p50_ms": [d["chunked"]["step_p50_ms"],
+                              d["unchunked"]["step_p50_ms"]],
+        "short_ms_per_token_p50": [d["chunked"]["short_ms_per_token_p50"],
+                                   d["unchunked"]["short_ms_per_token_p50"]],
+        "short_ms_per_token_max": [d["chunked"]["short_ms_per_token_max"],
+                                   d["unchunked"]["short_ms_per_token_max"]],
+        "b8_serving_launches": launches.get("flash_attention_partial", 0),
+        "part_wall_s": part_s, "wall_s": time.perf_counter() - t_start,
+        "card": card_line()}
+    print(json.dumps({"prefix_summary": summary}))
+    return {"parts": parts, "kernels": kernels, "launches": launches,
+            "summary": summary}
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -7527,7 +8227,8 @@ def paths_timing(root, mode="paths"):
     ``--bf16 ROOT`` phase 13 alone (B1 and the paged kernels built and
     checked in bf16 at its shapes first), ``--ops ROOT`` phase 14
     alone (B1 built first, for the packed LM's reference step) and
-    ``--core ROOT`` phase 15 alone (B1 built first).
+    ``--core ROOT`` phase 15 alone (B1 built first), ``--prefix ROOT``
+    phase 16 alone (B1, B8 and the paged kernels built first).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -7572,6 +8273,16 @@ def paths_timing(root, mode="paths"):
         rec = ops_path(torch, mt, ck)
         print(json.dumps({"paths_timing": {"root": root, "ops_path": {
             k: rec[k] for k in ("part_wall_s", "launches")}}}))
+        print(card_line())
+        return 0
+    if mode == "prefix":
+        _build.build(["flash_mha_packed", "flash_attention_partial",
+                      "paged_attention_decode",
+                      "paged_attention_decode_quant",
+                      "paged_attention_verify"])
+        rec = prefix_path(torch, mt, ck, tatt, F)
+        print(json.dumps({"paths_timing": {"root": root, "prefix_path": {
+            k: rec[k] for k in ("parts", "launches")}}}))
         print(card_line())
         return 0
     if mode == "core":
@@ -7700,20 +8411,29 @@ def main():
     api_names, api_kernels = register_api_ops(torch, mt)
     user_kernels = [ex.register().kernel, ex.silu_grad, *gelu_kernels,
                     *api_kernels]
+    # the paged kernels' three libraries take the longest to compile (most
+    # of the build's wall): they compile on a thread while the checks of
+    # every other kernel run, and their own checks wait for them
     t0 = time.perf_counter()
-    built = _build.build(sources=[(k.name, k.text, ())
-                                  for k in user_kernels])
+    paged_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        _build.build, PAGED_SOURCES)
+    built = _build.build(
+        [n for n in _build.SOURCES if n not in PAGED_SOURCES],
+        sources=[(k.name, k.text, ()) for k in user_kernels])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
+    # seconds since the start at each phase's end, for the time budget
+    marks = {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t_start, 2)
+
+    mark("build")
     for rec in tensor_core_report(_build):
         print(json.dumps({"tensor_cores": rec}))
-    for rec in paged_report(_build):
-        if rec["head_dim_bucket"] == D:
-            print(json.dumps({"paged_resources": rec}))
     for rec in nms_report(_build):
         print(json.dumps({"nms_resources": rec}))
 
-    rng = np.random.RandomState(2)
     checks = []
     for dtype in ("float32", "bfloat16"):
         for B, T in ((1, 128), (1, 1000), (1, 1024), (TRAIN_BATCH, 1024)):
@@ -7721,53 +8441,16 @@ def main():
             print(json.dumps({"check": checks[-1]}))
         checks.append(check_prefill(torch, ck, F, 1000, dtype, offset=1))
         print(json.dumps({"check": checks[-1]}))
-        for B, MB in ((1, 64), (16, 64), (64, 64)):
-            checks.append(check_decode(torch, ck, F, B, MB, dtype, rng))
-            print(json.dumps({"check": checks[-1]}))
-    checks.append(check_decode(torch, ck, F, 16, 64, "float32", rng,
-                               kv_dtype="bfloat16"))
-    print(json.dumps({"check": checks[-1]}))
-    for kv in ("int8", "fp8"):
-        for dtype in ("float32", "bfloat16"):
-            for B in (1, 16, 64):
-                checks.append(check_decode_quant(torch, ck, tatt, F, B, 64,
-                                                 dtype, kv, rng))
-                print(json.dumps({"check": checks[-1]}))
-    for pool in ("float32", "bfloat16", "int8", "fp8"):
-        checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
-                                   pool, rng))
-        print(json.dumps({"check": checks[-1]}))
-    # head widths other than 64: B1's forward and backward and the paged
-    # kernels at each width of WIDTH_CASES, fp32 and bf16
+    # head widths other than 64: B1's forward and backward at each width
+    # of WIDTH_CASES, fp32 and bf16 (the paged kernels' below)
     for B, T, Hh, Dh in WIDTH_CASES:
-        wide = dict(H=Hh, D=Dh)
         for dtype in ("float32", "bfloat16"):
-            width_checks = [
-                check_prefill(torch, ck, F, T, dtype, B=B, **wide),
-                *check_backward(torch, ck, F, B, T, dtype, **wide),
-                check_decode(torch, ck, F, 16, 64, dtype, rng, **wide),
-                check_decode_quant(torch, ck, tatt, F, 16, 64, dtype,
-                                   "int8" if dtype == "float32" else "fp8",
-                                   rng, **wide)]
-            for c in width_checks:
+            for c in [check_prefill(torch, ck, F, T, dtype, B=B, H=Hh, D=Dh),
+                      *check_backward(torch, ck, F, B, T, dtype, H=Hh,
+                                      D=Dh)]:
                 checks.append(c)
                 print(json.dumps({"check": c}))
-        for pool in ("float32", "bfloat16", "int8", "fp8"):
-            checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1,
-                                       64, pool, rng, **wide))
-            print(json.dumps({"check": checks[-1]}))
         torch.cuda.empty_cache()
-    # the paged kernels at the edges of their work partition, every width
-    edges = paged_edge_checks(torch, ck, tatt, F, rng)
-    for Dh in PAGED_EDGE_WIDTHS:
-        mine = [c for c in edges if f" D={Dh} " in c["shape"]]
-        print(json.dumps({"paged_edges": {
-            "D": Dh, "checks": len(mine),
-            "max_err_over_tol": max(c["max_abs_err"] / c["tol"]
-                                    for c in mine),
-            "verify_rows_bitwise": sum(c.get("rows_bitwise", False)
-                                       for c in mine)}}))
-    torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
         for c in [c for B, T in ((1, 128), (1, 1000), (1, 1024),
                                  (TRAIN_BATCH, 1024))
@@ -7812,6 +8495,62 @@ def main():
     torch.cuda.empty_cache()
     print(json.dumps({"rtc_api": rtc_api_checks(torch, mt, api_names, ex)}))
 
+    mark("checks")
+    t0 = time.perf_counter()
+    built = paged_build.result()
+    print(f"build (paged kernels, waited {time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
+    for rec in paged_report(_build):
+        if rec["head_dim_bucket"] == D:
+            print(json.dumps({"paged_resources": rec}))
+    rng = np.random.RandomState(2)
+    for dtype in ("float32", "bfloat16"):
+        for B, MB in ((1, 64), (16, 64), (64, 64)):
+            checks.append(check_decode(torch, ck, F, B, MB, dtype, rng))
+            print(json.dumps({"check": checks[-1]}))
+    checks.append(check_decode(torch, ck, F, 16, 64, "float32", rng,
+                               kv_dtype="bfloat16"))
+    print(json.dumps({"check": checks[-1]}))
+    for kv in ("int8", "fp8"):
+        for dtype in ("float32", "bfloat16"):
+            for B in (1, 16, 64):
+                checks.append(check_decode_quant(torch, ck, tatt, F, B, 64,
+                                                 dtype, kv, rng))
+                print(json.dumps({"check": checks[-1]}))
+    for pool in ("float32", "bfloat16", "int8", "fp8"):
+        checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
+                                   pool, rng))
+        print(json.dumps({"check": checks[-1]}))
+    # the paged kernels at each width of WIDTH_CASES, fp32 and bf16
+    for B, T, Hh, Dh in WIDTH_CASES:
+        wide = dict(H=Hh, D=Dh)
+        for dtype in ("float32", "bfloat16"):
+            width_checks = [
+                check_decode(torch, ck, F, 16, 64, dtype, rng, **wide),
+                check_decode_quant(torch, ck, tatt, F, 16, 64, dtype,
+                                   "int8" if dtype == "float32" else "fp8",
+                                   rng, **wide)]
+            for c in width_checks:
+                checks.append(c)
+                print(json.dumps({"check": c}))
+        for pool in ("float32", "bfloat16", "int8", "fp8"):
+            checks.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1,
+                                       64, pool, rng, **wide))
+            print(json.dumps({"check": checks[-1]}))
+        torch.cuda.empty_cache()
+    # the paged kernels at the edges of their work partition, every width
+    edges = paged_edge_checks(torch, ck, tatt, F, rng)
+    for Dh in PAGED_EDGE_WIDTHS:
+        mine = [c for c in edges if f" D={Dh} " in c["shape"]]
+        print(json.dumps({"paged_edges": {
+            "D": Dh, "checks": len(mine),
+            "max_err_over_tol": max(c["max_abs_err"] / c["tol"]
+                                    for c in mine),
+            "verify_rows_bitwise": sum(c.get("rows_bitwise", False)
+                                       for c in mine)}}))
+    torch.cuda.empty_cache()
+    mark("paged_checks")
+
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
     res = main_path(torch, mt, ck, dev_params)
     print(json.dumps({"main_path": res}))
@@ -7823,24 +8562,29 @@ def main():
     torch.cuda.empty_cache()
     default_lm = default_lm_path(torch, mt, ck)
     print(json.dumps({"default_lm_path": default_lm}))
+    mark("serving")
     torch.cuda.empty_cache()
     train = train_path(torch, mt, ck)
     print(json.dumps({"train_path": train}))
     torch.cuda.empty_cache()
     dpa = dpa_path(torch, mt, ck)
     print(json.dumps({"dpa_path": dpa}))
+    mark("train")
     print(json.dumps({"imperative": imperative_check(torch, mt, ck)}))
     example = example_path(torch, mt, ck, ex)
     print(json.dumps({"user_kernel_example": example}))
     gelu = gelu_lm_path(torch, mt, ck, "user_gelu", dpa["step_p50_ms"])
     print(json.dumps({"gelu_lm_path": gelu}))
     print(json.dumps({"custom_op": custom_op_path(torch, mt)}))
+    mark("user_ops")
     torch.cuda.empty_cache()
     lstm = lstm_path(torch, mt, ck)
     print(json.dumps({"lstm_path": lstm}))
+    mark("lstm")
     torch.cuda.empty_cache()
     ssd = ssd_path(torch, mt, ck)
     print(json.dumps({"ssd300_path": ssd}))
+    mark("ssd300")
     torch.cuda.empty_cache()
     earlier = [res, *runs.values(), default_lm, train, dpa, lstm, ssd,
                example, gelu]
@@ -7848,16 +8592,19 @@ def main():
               for n in SEQ_KERNELS), "B8/B9 launched on an earlier path")
     sequence = sequence_path(torch, mt, ck)
     print(json.dumps({"sequence_path": sequence}))
+    mark("sequence")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     image = image_path(torch, mt, ck)
     image["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"image_path": image}))
+    mark("image")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cnn = cnn_dropout_path(torch, mt, ck)
     cnn["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"cnn_dropout_path": cnn}))
+    mark("cnn")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ckpt = ckpt_path(torch, mt, ck)
@@ -7882,6 +8629,12 @@ def main():
     core["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"core_path": {k: core[k] for k in (
         "part_wall_s", "launches", "wall_s")}}))
+    torch.cuda.empty_cache()
+    prefix = prefix_path(torch, mt, ck, tatt, F)
+    print(json.dumps({"prefix_path": {k: prefix[k] for k in (
+        "parts", "launches")}}))
+    mark("prefix")
+    print(json.dumps({"phase_walls": marks}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
     # it; launches are summed over the serving runs, the default LM's
@@ -7892,6 +8645,8 @@ def main():
     # (the bf16 LM's B1, its serving's B1 and paged kernels), phase 14
     # (none: the primitive LM's training launches no kernel) and phase 15
     # (the packed LM's B1 under each optimizer, the mirror, the monitor)
+    # and phase 16 (serving with the prefix cache: B1 a miss, B8 a hit's
+    # suffix prefill or a chunk, the paged kernels a step)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -7947,7 +8702,8 @@ def main():
             "flash_attention_bwd_dkv": (
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
-    all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops, core]
+    all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops, core,
+                          prefix]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -7995,7 +8751,7 @@ if __name__ == "__main__":
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
                          ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"],
-                         ["--ops"], ["--core"]):
+                         ["--ops"], ["--core"], ["--prefix"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

@@ -105,7 +105,10 @@ def _compile(jobs: Dict[str, Tuple[Path, Path, Sequence[str]]]
         if target.exists():
             out[name] = 0.0
             continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        # a name per process and thread: two threads building the same
+        # target never write one file
+        tmp = target.with_name(
+            f"{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         # compiler output goes to a file: a pipe nobody drains while the
         # others compile could fill and stall nvcc
         log = tmp.with_suffix(".log")
@@ -196,7 +199,8 @@ def _source_jobs(sources: Iterable[Tuple[str, str, Sequence[str]]]
         target = _source_target(key, text, flags)
         src = target.with_suffix(".cu")
         if not target.exists() and not src.exists():
-            tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+            tmp = src.with_name(
+                f"{src.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             tmp.write_text(text)
             os.replace(tmp, src)
         jobs[key] = (src, target, tuple(flags))

@@ -3,9 +3,7 @@
 Counterpart of ``mxnet_tpu/config.py``'s ``register_env``, ``list_env``,
 ``describe`` and ``current``: every ``MXNET_*`` variable that
 ``mxnet_tpu_torch`` reads is declared here, with its type, its default
-(the JAX package's, but for ``MXNET_SERVING_PREFIX_CACHE``: the prefix
-cache is not ported, so the port's default is off) and what it does,
-and only those.  ``tests/test_torch_config.py`` holds the package to
+(the JAX package's) and what it does, and only those.  ``tests/test_torch_config.py`` holds the package to
 it.
 """
 
@@ -117,15 +115,26 @@ register_env(
     "MXNET_SERVING_PROPOSER", "ngram", str,
     "Draft proposer of speculative decoding ('ngram').")
 register_env(
-    "MXNET_SERVING_PREFIX_CACHE", 0, int,
-    "1 asks for the prefix cache, which is not ported and raises; 0 "
-    "(the port's default) serves without it.")
+    "MXNET_SERVING_PREFIX_CACHE", 1, int,
+    "1 (default): DecodeEngine shares KV pages between streams with a "
+    "common block-aligned prompt prefix (a radix index over cached "
+    "prefixes, ref-counted pages, prefill of the uncached suffix only, "
+    "copy-on-write of a shared page before a write, parked pages "
+    "evicted under MXNET_SERVING_EVICT); 0: each stream owns its pages. "
+    "Other values raise at engine construction.")
 register_env(
     "MXNET_SERVING_EVICT", "lru", str,
-    "Prefix-cache eviction policy; not ported: setting it raises.")
+    "Prefix-cache policy for pages no stream holds: 'lru' (default) "
+    "keeps them parked for later hits and evicts the least recently "
+    "used leaf first when the pool runs dry; 'off' frees them at once "
+    "and drops their index entries.")
 register_env(
     "MXNET_SERVING_PREFILL_CHUNK", 0, int,
-    "Chunked prefill; not ported: a value other than 0 raises.")
+    "Chunked prefill: a prompt whose uncached part exceeds this many "
+    "tokens (a multiple of MXNET_SERVING_KV_BLOCK, at most the largest "
+    "prefill bucket) prefills one chunk per scheduler iteration, with "
+    "decode steps between chunks, and may exceed the largest prefill "
+    "bucket; 0 (default): whole-prompt prefill.")
 register_env(
     "MXNET_SERVING_TP", 1, int,
     "Tensor-parallel serving degree; not ported: other than 1 raises.")

@@ -15,15 +15,19 @@ pages belong to which stream (PagedAttention, Kwon et al. SOSP '23):
   never the memory;
 * page 0 is reserved scratch: padded batch slots and padded prompt
   rows write there, and every read of it is masked by the stream's
-  length.
+  length;
+* pages are reference counted, so streams with a common prompt prefix
+  share its pages (``prefix_cache.PrefixCache``); a page whose last
+  holder lets go while the prefix index still maps it is parked: it
+  keeps its bytes until a hit revives it or an eviction reclaims it.
 
-Reference counting, parking and page export (prefix cache, migration)
-belong to features that are not ported yet.
+Page export and import (stream migration between engines) belong to the
+fleet, which is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
 import torch
 
@@ -120,11 +124,15 @@ def bucket_ladder(max_value: int, base: int = 1) -> List[int]:
 
 
 class BlockAllocator:
-    """Free-list allocator over ``num_blocks`` fixed-size token pages.
+    """Ref-counted free-list allocator over ``num_blocks`` fixed-size
+    token pages.
 
-    Page 0 is the reserved scratch page and never handed out.
-    ``alloc`` is all-or-nothing: a request that cannot be fully met
-    takes nothing, and the caller decides whether to preempt or wait.
+    Page 0 is the reserved scratch page and never handed out.  ``alloc``
+    is all-or-nothing: a request that cannot be fully met takes nothing,
+    and the caller decides whether to preempt, evict or wait.  Pages come
+    back at refcount 1; ``share`` attaches another holder, ``release``
+    detaches one.  A released page returns to the free list or, with
+    ``park=True``, keeps its bytes as reclaimable cache.
     """
 
     def __init__(self, num_blocks: int, block_tokens: int):
@@ -138,7 +146,9 @@ class BlockAllocator:
         self.block_tokens = int(block_tokens)
         # LIFO free list: recently freed pages are reused first
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
-        self._owner: Dict[int, object] = {}
+        self._owner: Dict[int, object] = {}  # page -> stream tag
+        self._refs: Dict[int, int] = {}      # page -> holder count
+        self._parked: Set[int] = set()       # refcount-0 cached pages
 
     @property
     def capacity(self) -> int:
@@ -147,18 +157,45 @@ class BlockAllocator:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        """Pages a new allocation can have: free ones plus parked ones,
+        which are reclaimable on demand.  A page N streams share is
+        absent from this count once."""
+        return len(self._free) + len(self._parked)
 
     @property
     def used_blocks(self) -> int:
+        """Pages some stream references (refcount >= 1), each once."""
         return self.capacity - self.free_blocks
+
+    @property
+    def free_list_blocks(self) -> int:
+        """Pages allocatable without an eviction."""
+        return len(self._free)
+
+    @property
+    def parked_blocks(self) -> int:
+        """Refcount-0 cached pages awaiting revival or reclaim."""
+        return len(self._parked)
+
+    @property
+    def shared_blocks(self) -> int:
+        """Pages referenced by more than one stream."""
+        return sum(1 for r in self._refs.values() if r > 1)
 
     def utilization(self) -> float:
         return self.used_blocks / self.capacity
 
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def is_parked(self, page: int) -> bool:
+        return page in self._parked
+
     def alloc(self, n: int, owner=None) -> Optional[List[int]]:
-        """Take ``n`` pages, or None (taking nothing) if the free list
-        holds fewer."""
+        """Take ``n`` pages at refcount 1, or None (taking nothing) if
+        the free list holds fewer.  Parked pages are not taken: the
+        prefix cache's eviction must ``reclaim`` them first, so an
+        eviction is always an explicit, counted decision."""
         if n < 0:
             raise MXNetError(f"alloc({n})")
         if n > len(self._free):
@@ -166,16 +203,73 @@ class BlockAllocator:
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._owner[p] = owner
+            self._refs[p] = 1
         return pages
 
+    def share(self, page: int) -> int:
+        """Attach one more holder to a live page; returns the new
+        refcount."""
+        if page not in self._refs:
+            raise MXNetError(f"share of non-live page {page}")
+        self._refs[page] += 1
+        return self._refs[page]
+
+    def revive(self, page: int, owner=None) -> None:
+        """Re-activate a parked page at refcount 1 (a prefix hit on a
+        cached page no stream holds)."""
+        if page not in self._parked:
+            raise MXNetError(f"revive of non-parked page {page} "
+                             f"(parked: {sorted(self._parked)})")
+        self._parked.discard(page)
+        self._owner[page] = owner
+        self._refs[page] = 1
+
+    def release(self, page: int, park: bool = False) -> int:
+        """Detach one holder; returns the refcount left.  At zero the
+        page returns to the free list or, with ``park``, keeps its bytes
+        as reclaimable cache (the prefix index still maps them)."""
+        if page not in self._refs:
+            raise MXNetError(f"release of non-live page {page}")
+        self._refs[page] -= 1
+        left = self._refs[page]
+        if left == 0:
+            del self._refs[page]
+            del self._owner[page]
+            if park:
+                self._parked.add(page)
+            else:
+                self._free.append(page)
+        return left
+
+    def reclaim(self, page: int) -> None:
+        """Move a parked page to the free list (the prefix index dropped
+        its entry: an eviction)."""
+        if page not in self._parked:
+            raise MXNetError(f"reclaim of non-parked page {page}")
+        self._parked.discard(page)
+        self._free.append(page)
+
     def free(self, pages: List[int]) -> None:
-        """Return pages to the free list; a page not held raises."""
+        """Terminal free of exclusively held pages.  A page another
+        stream still references raises: handing it to a new stream while
+        the sharer reads it would corrupt the sharer.  Shared pages go
+        through :meth:`release`; a parked page frees as a reclaim."""
         for p in pages:
             if p == SCRATCH_PAGE:
                 raise MXNetError("attempt to free the scratch page")
+            if p in self._parked:
+                self._parked.discard(p)
+                self._free.append(p)
+                continue
             if p not in self._owner:
                 raise MXNetError(
                     f"double free / foreign page {p} (owned pages: "
                     f"{sorted(self._owner)})")
+            if self._refs.get(p, 0) > 1:
+                raise MXNetError(
+                    f"free of page {p} with {self._refs[p]} live "
+                    f"references: another stream still reads it; "
+                    f"release() the caller's reference instead")
             del self._owner[p]
+            self._refs.pop(p, None)
             self._free.append(p)

@@ -10,6 +10,9 @@ fixed chains of the port's ops on one ``nn.Module``:
 
 * ``prefill`` — the causal forward over a (padded) prompt that also
   writes every layer's K/V into the paged pools;
+* ``suffix_prefill`` — the forward over the uncached suffix of a prompt
+  whose first ``start`` tokens are cached (a prefix-cache hit, or one
+  chunk of a chunked prefill), attending the cached pages;
 * ``decode`` — one token per stream against the paged pools;
 * ``verify`` — the speculative verify step: W = 1 + k tokens per stream
   against the paged pools, one logits row per token;
@@ -252,6 +255,32 @@ class TransformerLM(nn.Module):
                                         pools[2 * i + 1], block_table,
                                         lengths)
             return out
+
+        return self._trunk(data, positions, attend)
+
+    @torch.no_grad()
+    def suffix_prefill(self, data, positions, start: int, lengths,
+                       block_table, pools: Sequence[torch.Tensor]
+                       ) -> torch.Tensor:
+        """The counterpart of ``transformer_lm_prefix_prefill``:
+        data/positions (B, Ts) int hold the uncached suffix at positions
+        ``start + i``; ``start`` (an int, block-aligned) the tokens every
+        row has cached; lengths (B,) int32 the total tokens (start + the
+        real suffix); block_table (B, MB) int32 covering the prefix and
+        suffix pages → logits (B, Ts, vocab) of the suffix rows.  Every
+        layer writes the suffix's K/V into its pools (quantized pools
+        quantize on write), then attends the cached prefix and the raw
+        suffix on the ``flash_attention_partial`` kernel."""
+        st = self._check_pools(pools)
+
+        def attend(i, qkv):
+            if st == 4:
+                return att.qkv_paged_prefill_attend_q(
+                    qkv, *pools[4 * i:4 * i + 4], block_table, start,
+                    lengths, self.num_heads)
+            return att.qkv_paged_prefill_attend(
+                qkv, pools[2 * i], pools[2 * i + 1], block_table, start,
+                lengths, self.num_heads)
 
         return self._trunk(data, positions, attend)
 

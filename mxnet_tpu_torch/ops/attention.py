@@ -1,7 +1,10 @@
 """Attention ops of the serving and training paths: packed-QKV self
 attention (differentiable), ``DotProductAttention`` over separate q, k,
 v (differentiable), prefill, paged cache writes (raw and
-quantize-on-write), paged decode and the speculative verify window.
+quantize-on-write), paged decode, the speculative verify window and the
+suffix prefill over cached prefix pages (a prefix-cache hit or one
+chunk of a chunked prefill, on the ``flash_attention_partial``
+kernel).
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  Layouts are the JAX
 package's: qkv (B, S, 3*H*D) packed [q | k | v], q/k/v (B, T, H, D)
@@ -50,7 +53,8 @@ __all__ = ["blockwise_attention", "blockwise_attention_partial",
            "quantize_kv", "dequantize_kv", "paged_prefill_write_q",
            "paged_cache_update_q", "paged_decode_attention_q",
            "qkv_paged_attention_decode_q", "paged_verify_attention",
-           "qkv_paged_verify_attend"]
+           "qkv_paged_verify_attend", "prefix_suffix_attention",
+           "qkv_paged_prefill_attend", "qkv_paged_prefill_attend_q"]
 
 
 def _blockwise_attention_partial_plain(q, k, v, causal: bool = False,
@@ -240,13 +244,15 @@ def _token_coords(block_table, lengths, KVB: int):
 def _paged_write_coords(block_table, lengths, T: int, KVB: int,
                         start=None):
     """(page, slot, live) scatter coordinates for a (B, T, ...) run of
-    tokens whose first row sits at position ``start[b]`` (default 0, the
-    whole-prompt prefill); rows at or past ``lengths[b]`` (padding)
-    route to the scratch page 0."""
+    tokens whose first row sits at position ``start[b]`` (a (B,) tensor,
+    or an int for every row; default 0, the whole-prompt prefill); rows
+    at or past ``lengths[b]`` (padding) route to the scratch page 0."""
     B = block_table.shape[0]
     pos = torch.arange(T, device=block_table.device)[None, :].expand(B, T)
-    if start is not None:
+    if isinstance(start, torch.Tensor):
         pos = pos + start.long()[:, None]
+    elif start is not None:
+        pos = pos + int(start)
     live = pos < lengths.long()[:, None]
     page = torch.where(
         live, torch.gather(block_table.long(), 1,
@@ -579,3 +585,96 @@ def qkv_paged_verify_attend(qkv, pools, block_table, start, lengths,
                                  k_scale, v_scale)
     B, W = qkv.shape[0], qkv.shape[1]
     return out.reshape(B, W, num_heads * D)
+
+
+# ---------------------------------------------------------------------------
+# suffix prefill: the uncached suffix of a prompt over its cached prefix
+# ---------------------------------------------------------------------------
+
+
+def prefix_suffix_attention(q, k_suf, v_suf, kg, vg, start: int,
+                            block: int) -> torch.Tensor:
+    """Attention of a suffix prefill, through the
+    ``flash_attention_partial`` kernel (its plain version on the CPU).
+
+    q/k_suf/v_suf (B, Ts, H, D) are the uncached suffix at absolute
+    positions ``start + i``; kg/vg (B, start, H, D) the cached prefix
+    gathered from the pools (dequantized for int8/fp8 pages).  One call
+    over keys ``[prefix | raw suffix]`` with ``kv_offset = -start``: row
+    i sees every prefix key and the suffix keys j <= i, as the JAX
+    package's two chained scans of ``prefix_suffix_attention`` do (its
+    prefix scan masked to ``start``, then the causal suffix scan).
+    ``start`` is block-aligned, so the plain version's key blocks of
+    ``block`` tokens are the JAX scans' blocks.  The suffix attends its
+    own K/V raw, as the full forward would.  Returns (B, Ts, H, D) in
+    q's dtype."""
+    dtype = q.dtype
+    if kg.dtype != dtype:
+        # dequantized (float32) prefix pages: the softmax runs in float32
+        # over float32 operands, as the JAX lax body promotes them
+        wide = torch.promote_types(kg.dtype, dtype)
+        q, k_suf, v_suf, kg, vg = (x.to(wide) for x in
+                                   (q, k_suf, v_suf, kg, vg))
+    if start:
+        k, v = torch.cat([kg, k_suf], 1), torch.cat([vg, v_suf], 1)
+    else:
+        k, v = k_suf, v_suf
+    o, m, l = ck.flash_attention_partial(q, k, v, True, block, -int(start))
+    return normalize_attention_state(o, m, l, dtype)
+
+
+def _check_suffix_start(start, KVB: int) -> int:
+    """``start`` (the tokens already cached, an int the engine knows on
+    the host) as a block-aligned non-negative int."""
+    if isinstance(start, torch.Tensor):
+        raise MXNetError("QKVPagedPrefillAttend: start must be a Python "
+                         "int (a kernel argument), not a tensor")
+    start = int(start)
+    if start < 0 or start % KVB:
+        raise MXNetError(f"QKVPagedPrefillAttend: start {start} must be a "
+                         f"non-negative multiple of the page size {KVB}")
+    return start
+
+
+def qkv_paged_prefill_attend(qkv, k_pool, v_pool, block_table, start,
+                             lengths, num_heads: int) -> torch.Tensor:
+    """Suffix prefill over a paged cache whose first ``start`` tokens
+    (block-aligned, every row) are cached: qkv (B, Ts, 3*H*D) holds the
+    uncached suffix at positions ``start + i``.  Its K/V is written
+    through the block table at offset ``start`` (rows at or past
+    ``lengths[b]``, the total tokens, land on the scratch page 0), then
+    its queries attend the cached prefix pages plus the raw suffix
+    causally (:func:`prefix_suffix_attention`).  The pools are written in
+    place; returns (B, Ts, H*D)."""
+    q, k, v, D = _unpack_qkv(qkv, num_heads)
+    KVB = k_pool.shape[1]
+    start = _check_suffix_start(start, KVB)
+    paged_prefill_write(k, v, k_pool, v_pool, block_table, lengths,
+                        start=start)
+    B, Ts = qkv.shape[0], qkv.shape[1]
+    idx = block_table[:, :start // KVB].long()
+    kg = ck.gather_pages(k_pool, idx).reshape(B, start, num_heads, D)
+    vg = ck.gather_pages(v_pool, idx).reshape(B, start, num_heads, D)
+    out = prefix_suffix_attention(q, k, v, kg.to(q.dtype), vg.to(q.dtype),
+                                  start, KVB)
+    return out.reshape(B, Ts, num_heads * D)
+
+
+def qkv_paged_prefill_attend_q(qkv, k_pool, v_pool, k_scale, v_scale,
+                               block_table, start, lengths,
+                               num_heads: int) -> torch.Tensor:
+    """:func:`qkv_paged_prefill_attend` over int8/fp8 pools: the suffix
+    quantizes on write, the cached prefix dequantizes on gather, and the
+    suffix attends its own K/V raw (pre-quantization), float32 softmax
+    throughout.  Returns (B, Ts, H*D); the pools are written in place."""
+    q, k, v, D = _unpack_qkv(qkv, num_heads)
+    KVB = k_pool.shape[1]
+    start = _check_suffix_start(start, KVB)
+    paged_prefill_write_q(k, v, k_pool, v_pool, k_scale, v_scale,
+                          block_table, lengths, start=start)
+    B, Ts = qkv.shape[0], qkv.shape[1]
+    idx = block_table[:, :start // KVB].long()
+    kg = ck.gather_dequant(k_pool, k_scale, idx)
+    vg = ck.gather_dequant(v_pool, v_scale, idx)
+    out = prefix_suffix_attention(q, k, v, kg, vg, start, KVB)
+    return out.reshape(B, Ts, num_heads * D)

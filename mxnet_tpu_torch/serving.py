@@ -21,10 +21,24 @@ entry point and semantics:
   float32 scale per (slot, head), quantized on write, dequantized inside
   the attention kernels;
 * streams join and retire at every step (Orca, Yu et al. OSDI '22);
+* the **prefix cache** (on by default, ``prefix_cache`` /
+  ``MXNET_SERVING_PREFIX_CACHE``): admission attaches the longest cached
+  block-aligned prefix of a prompt (``prefix_cache.PrefixCache``: pages
+  shared by refcount, parked pages revived) and prefills only the
+  uncached suffix (``TransformerLM.suffix_prefill``, the
+  ``flash_attention_partial`` kernel over the cached pages); a fully
+  cached prompt skips prefill and replays its last token, whose write
+  copies the shared tail page first (copy-on-write); a retired stream's
+  indexed pages park, and are evicted LRU when the pool runs dry
+  (``evict_policy`` / ``MXNET_SERVING_EVICT``);
+* **chunked prefill** (``prefill_chunk`` / ``MXNET_SERVING_PREFILL_CHUNK``):
+  a prompt whose uncached part exceeds the chunk prefills one chunk per
+  scheduler iteration, each a suffix prefill, with the decode step of
+  the active streams between chunks; pages are charged chunk by chunk;
 * admission is keyed to free pages (the prompt's pages plus one block
   of headroom); when a growing stream finds the pool empty, the
-  youngest other stream is preempted and re-queued for re-prefill
-  (recompute-style);
+  youngest other stream is preempted (one whose pages are its own
+  first) and re-queued for re-prefill (recompute-style);
 * batch size, table width and prompt length are bucketed on doubling
   ladders, so the kernels see few distinct shapes.
 
@@ -57,6 +71,7 @@ from .kv_cache import (KV_DTYPES, BlockAllocator, blocks_for_tokens,
                        bucket_ladder, kv_quantized, kv_storage_dtype,
                        trim_blocks)
 from .models.transformer import TransformerLM
+from .prefix_cache import EVICT_POLICIES, PrefixCache
 from .random import gumbel_noise, stream_key
 from .speculative import PROPOSERS, make_proposer, verify_sample
 
@@ -121,25 +136,9 @@ def _env_buckets(name: str, default):
     return vals
 
 
-def _refuse_unported(*, prefix_cache, evict_policy, prefill_chunk, tp,
-                     pp, devices, adapters, tenant_quota) -> None:
+def _refuse_unported(*, tp, pp, devices, adapters, tenant_quota) -> None:
     """Raise for every feature of the JAX engine this port does not
     carry yet, asked for by argument or by environment variable."""
-    pc = prefix_cache if prefix_cache is not None else \
-        _env_int("MXNET_SERVING_PREFIX_CACHE", 0, 0)
-    if int(pc) not in (0, 1):
-        raise MXNetError(f"prefix_cache={pc!r} must be 0 or 1")
-    if int(pc):
-        raise not_ported("the prefix cache (prefix_cache / "
-                         "MXNET_SERVING_PREFIX_CACHE)")
-    if evict_policy is not None or os.environ.get("MXNET_SERVING_EVICT"):
-        raise not_ported("prefix-cache eviction (evict_policy / "
-                         "MXNET_SERVING_EVICT)")
-    chunk = prefill_chunk if prefill_chunk is not None else \
-        _env_int("MXNET_SERVING_PREFILL_CHUNK", 0, 0)
-    if int(chunk):
-        raise not_ported("chunked prefill (prefill_chunk / "
-                         "MXNET_SERVING_PREFILL_CHUNK)")
     tp = tp if tp is not None else _env_int("MXNET_SERVING_TP", 1, 1)
     pp = pp if pp is not None else _env_int("MXNET_SERVING_PP", 1, 1)
     if int(tp) != 1 or int(pp) != 1 or devices is not None \
@@ -193,7 +192,8 @@ class _Stream:
 
     __slots__ = ("sid", "prompt", "max_new", "temp", "eos", "future",
                  "seed", "generated", "blocks", "length", "next_token",
-                 "resume", "t_submit", "t_admit", "t_enqueue")
+                 "resume", "t_submit", "t_admit", "t_enqueue",
+                 "cached_len", "await_first", "t_chunk0")
 
     def __init__(self, sid, prompt, max_new, temp, eos, future, seed):
         self.sid = sid
@@ -210,7 +210,10 @@ class _Stream:
         self.resume = False           # re-prefill after preemption
         self.t_submit = time.perf_counter()
         self.t_admit = 0.0
-        self.t_enqueue = self.t_submit
+        self.t_enqueue = self.t_submit  # (re)joined the pending queue
+        self.cached_len = 0           # prefix-cache tokens attached
+        self.await_first = False      # full hit: first token pending
+        self.t_chunk0 = 0.0           # chunked prefill: first chunk start
 
     def prefill_seq(self) -> np.ndarray:
         """Tokens whose K/V the cache must hold before the next decode
@@ -276,6 +279,18 @@ class DecodeEngine:
     proposer : str or object
         Draft proposer (env ``MXNET_SERVING_PROPOSER``, default
         ``'ngram'``), or an object with ``propose(context, k)``.
+    prefix_cache : int
+        1 (default; env ``MXNET_SERVING_PREFIX_CACHE``): share the pages
+        of common block-aligned prompt prefixes between streams; 0: each
+        stream owns its pages.
+    evict_policy : str
+        ``'lru'`` (default; env ``MXNET_SERVING_EVICT``): keep retired
+        streams' indexed pages parked for later hits, evicted least
+        recently used first under pressure; ``'off'``: free them at
+        once.
+    prefill_chunk : int
+        Chunk size in tokens (env ``MXNET_SERVING_PREFILL_CHUNK``, a
+        multiple of ``kv_block``; default 0 = whole-prompt prefill).
     """
 
     def __init__(self, params, *, vocab_size, num_layers, num_heads,
@@ -287,10 +302,7 @@ class DecodeEngine:
                  spec_tokens=None, proposer=None, prefill_chunk=None,
                  tp=None, pp=None, devices=None, adapters=None,
                  tenant_quota=None):
-        _refuse_unported(prefix_cache=prefix_cache,
-                         evict_policy=evict_policy,
-                         prefill_chunk=prefill_chunk, tp=tp, pp=pp,
-                         devices=devices, adapters=adapters,
+        _refuse_unported(tp=tp, pp=pp, devices=devices, adapters=adapters,
                          tenant_quota=tenant_quota)
         self._kv_dtype = kv_dtype if kv_dtype is not None else \
             get_env("MXNET_SERVING_KV_DTYPE", "fp32", str)
@@ -305,6 +317,21 @@ class DecodeEngine:
             if pool_dtype not in (torch.float32, torch.bfloat16):
                 raise not_ported(f"dtype={dtype!r} pages (the paged "
                                  f"kernels take float32 and bfloat16)")
+        pc = prefix_cache if prefix_cache is not None else \
+            _env_int("MXNET_SERVING_PREFIX_CACHE", 1, 0)
+        if int(pc) not in (0, 1):
+            raise MXNetError(f"MXNET_SERVING_PREFIX_CACHE={pc!r} must be 0 "
+                             f"or 1")
+        self._prefix_on = bool(int(pc))
+        self._evict_policy = evict_policy if evict_policy is not None \
+            else get_env("MXNET_SERVING_EVICT", "lru", str)
+        if self._evict_policy not in EVICT_POLICIES:
+            raise MXNetError(f"MXNET_SERVING_EVICT={self._evict_policy!r} "
+                             f"must be one of {EVICT_POLICIES}")
+        self._chunk = int(prefill_chunk) if prefill_chunk is not None \
+            else _env_int("MXNET_SERVING_PREFILL_CHUNK", 0, 0)
+        if self._chunk < 0:
+            raise MXNetError(f"prefill_chunk {self._chunk} must be >= 0")
         self._spec_k = int(spec_tokens) if spec_tokens is not None else \
             _env_int("MXNET_SERVING_SPEC_TOKENS", 0, 0)
         if self._spec_k < 0:
@@ -334,6 +361,11 @@ class DecodeEngine:
             _env_int("MXNET_SERVING_KV_BLOCK", _DEFAULT_KV_BLOCK, 1)
         if self._kv_block < 1:
             raise MXNetError(f"kv_block {self._kv_block} must be >= 1")
+        if self._chunk % self._kv_block:
+            raise MXNetError(
+                f"MXNET_SERVING_PREFILL_CHUNK={self._chunk} must be a "
+                f"multiple of kv_block {self._kv_block}: every chunk after "
+                f"the first starts on a page boundary")
         self._max_streams = int(max_streams) if max_streams is not None \
             else _env_int("MXNET_SERVING_MAX_STREAMS",
                           _DEFAULT_MAX_STREAMS, 1)
@@ -375,6 +407,8 @@ class DecodeEngine:
         if int(cache_blocks) < 2:
             raise MXNetError(f"cache_blocks {cache_blocks} must be >= 2")
         self._alloc = BlockAllocator(int(cache_blocks), self._kv_block)
+        self._prefix = PrefixCache(self._alloc, policy=self._evict_policy) \
+            if self._prefix_on else None
 
         self._decode_buckets = tuple(
             decode_buckets if decode_buckets is not None else
@@ -406,6 +440,11 @@ class DecodeEngine:
             raise MXNetError(
                 f"cache_buckets {self._cache_buckets} does not cover the "
                 f"{self._max_blocks_seq} pages a max_len stream holds")
+        if self._chunk > self._prefill_buckets[-1]:
+            raise MXNetError(
+                f"prefill_chunk {self._chunk} exceeds the largest prefill "
+                f"bucket {self._prefill_buckets[-1]}: chunks are bucketed "
+                f"through the prefill ladder")
 
         # per layer [k, v] or, quantized, [k, v, k_scale, v_scale]; the
         # scale pools start at ones (the JAX engine's), the values at 0
@@ -432,6 +471,7 @@ class DecodeEngine:
         self._pending: List[_Stream] = []
         self._active: List[_Stream] = []
         self._admitting: Optional[_Stream] = None
+        self._prefilling: Optional[_Stream] = None  # mid-chunked-prefill
         self._accepting = True
         self._alive = True
         self._next_sid = 0
@@ -473,10 +513,11 @@ class DecodeEngine:
             raise MXNetError(
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new}) = "
                 f"{total} exceeds max_len {self._max_len}")
-        if prompt.size > self._prefill_buckets[-1]:
+        if prompt.size > self._prefill_buckets[-1] and not self._chunk:
             raise MXNetError(
                 f"prompt of {prompt.size} tokens exceeds the largest "
-                f"prefill bucket {self._prefill_buckets[-1]}")
+                f"prefill bucket {self._prefill_buckets[-1]} (enable "
+                f"MXNET_SERVING_PREFILL_CHUNK to prefill it in chunks)")
         need = blocks_for_tokens(total, self._kv_block)
         if need > self._alloc.capacity:
             raise MXNetError(f"request needs {need} cache blocks but the "
@@ -514,8 +555,11 @@ class DecodeEngine:
 
     def reset_stats(self) -> None:
         """Zero the counters and latency samples so the next
-        :meth:`stats` covers only work from here on."""
+        :meth:`stats` covers only work from here on; the prefix cache's
+        index and pages are untouched."""
         self._metrics.reset()
+        if self._prefix is not None:
+            self._prefix.reset_counters()
 
     def stats(self) -> dict:
         m = self._metrics
@@ -525,8 +569,8 @@ class DecodeEngine:
         out = {k: int(c.get(k, 0)) for k in
                ("requests", "generations", "tokens", "prefill_tokens",
                 "preempted", "prefills", "steps", "stream_steps",
-                "spec_steps", "spec_proposed", "spec_accepted",
-                "spec_pages_rolled_back", "d2h_syncs")}
+                "prefill_chunks", "spec_steps", "spec_proposed",
+                "spec_accepted", "spec_pages_rolled_back", "d2h_syncs")}
         # how much of what the proposer offered was verified, and how
         # many tokens one target evaluation of one stream commits (1.0
         # without speculation; up to spec_tokens + 1)
@@ -538,8 +582,14 @@ class DecodeEngine:
             if out["stream_steps"] else 0.0
         out["spec_tokens"] = self._spec_k
         out["proposer"] = self._proposer_name if self._spec_k else None
+        out["prefill_chunk"] = self._chunk
+        # ttft_hit / ttft_miss: the first token of a prefix-cache hit
+        # (suffix prefill or full hit) and of a miss
         for name, key in (("time_per_token_ms", ""), ("ttft_ms", "ttft_"),
+                          ("ttft_hit_ms", "ttft_hit_"),
+                          ("ttft_miss_ms", "ttft_miss_"),
                           ("step_ms", "step_"), ("prefill_ms", "prefill_"),
+                          ("prefill_chunk_ms", "prefill_chunk_"),
                           ("queue_wait_ms", "queue_wait_")):
             h = m.percentiles(name)
             for q in ("p50", "p90", "p99"):
@@ -547,7 +597,15 @@ class DecodeEngine:
         out["tokens_per_s"] = out["tokens"] / wall if wall > 0 else 0.0
         out["cache_util"] = self._alloc.utilization()
         out["cache_blocks_free"] = self._alloc.free_blocks
+        out["cache_blocks_cached"] = self._alloc.parked_blocks
+        out["shared_blocks"] = self._alloc.shared_blocks
         out["kv_dtype"] = self._kv_dtype
+        out["prefix_cache"] = int(self._prefix_on)
+        if self._prefix is not None:
+            out.update(self._prefix.stats())
+            admissions = out["prefills"] + self._prefix.full_hits
+            out["prefix_hit_rate"] = round(
+                self._prefix.hits / admissions, 4) if admissions else 0.0
         out["pool_bytes"] = self._pool_bytes
         with self._lock:
             out["active_streams"] = len(self._active)
@@ -597,10 +655,15 @@ class DecodeEngine:
                 if self._admitting not in streams:
                     streams.append(self._admitting)
                 self._admitting = None
+            # a stream mid-chunked-prefill is in neither list either
+            if self._prefilling is not None:
+                if self._prefilling not in streams:
+                    streams.append(self._prefilling)
+                self._prefilling = None
             self._pending, self._active = [], []
         for s in streams:
             if s.blocks:
-                self._alloc.free(s.blocks)
+                self._release_pages(s.blocks)
                 s.blocks = []
             if s.future.set_running_or_notify_cancel():
                 s.future.set_exception(exc)
@@ -625,19 +688,45 @@ class DecodeEngine:
             off += a.size
         return out
 
+    # ------------------------------------------------------------------
+    # page accounting: the one funnel for alloc and release
+    # ------------------------------------------------------------------
+    def _palloc(self, n: int, owner=None) -> Optional[List[int]]:
+        """Allocate pages; with the prefix cache on, parked (cached)
+        pages are evicted LRU when the free list runs dry."""
+        if self._prefix is not None:
+            return self._prefix.alloc(n, owner=owner)
+        return self._alloc.alloc(n, owner=owner)
+
+    def _release_pages(self, pages: List[int]) -> None:
+        """Detach a stream from its pages: exclusive pages free, shared
+        pages drop one reference, indexed pages park for later hits."""
+        if not pages:
+            return
+        if self._prefix is not None:
+            self._prefix.release(pages)
+        else:
+            self._alloc.free(pages)
+
     def _loop(self):
         try:
             while True:
                 with self._cond:
                     while self._alive and not self._pending \
-                            and not self._active:
+                            and not self._active \
+                            and self._prefilling is None:
                         self._cond.wait(timeout=0.5)
                     if not self._alive:
                         return
                 self._admit()
+                if self._prefilling is not None:
+                    # one chunk an iteration: the decode step below runs
+                    # between chunks, so a long prompt does not stall
+                    # every active stream for its whole prefill
+                    self._prefill_chunk()
                 if self._active:
                     self._step()
-                elif self._pending:
+                elif self._pending and self._prefilling is None:
                     # head-of-line request cannot be admitted and nothing
                     # decodes (a submit racing the loop): don't spin
                     with self._cond:
@@ -659,56 +748,176 @@ class DecodeEngine:
 
     def _admit(self):
         """Join pending requests, FIFO, while the pool holds the
-        prompt's pages plus one block of decode headroom (capped at the
-        stream's lifetime need, so a request sized exactly to the pool
-        still admits)."""
+        prompt's new pages plus one block of decode headroom (capped at
+        the stream's lifetime need of new pages, so a request sized
+        exactly to the pool still admits).
+
+        With the prefix cache on, the longest cached block-aligned
+        prefix is attached (pages shared by refcount, parked pages
+        revived) and only the suffix needs new pages and prefill; parked
+        matches are about to be revived, so they are not spare capacity.
+        A fully cached prompt skips prefill (``_full_hit``).  A prompt
+        whose uncached part exceeds ``prefill_chunk`` is handed to the
+        chunk state machine, charged only its first chunk's pages."""
+        kvb = self._kv_block
         while True:
             with self._lock:
                 if not self._pending \
-                        or len(self._active) >= self._max_streams:
+                        or len(self._active) >= self._max_streams \
+                        or self._prefilling is not None:
                     return
                 s = self._pending[0]
                 seq = s.prefill_seq()
-                need = blocks_for_tokens(max(len(seq), 1), self._kv_block)
-                lifetime = blocks_for_tokens(len(s.prompt) + s.max_new,
-                                             self._kv_block)
-                if self._alloc.free_blocks < min(need + 1, lifetime):
+                cached, parked_matched = self._prefix.peek(seq) \
+                    if self._prefix is not None else (0, 0)
+                chunked = bool(self._chunk) \
+                    and len(seq) - cached > self._chunk
+                if chunked:
+                    need = blocks_for_tokens(self._chunk, kvb)
+                elif cached:  # block-aligned: 0 new pages on a full hit
+                    need = blocks_for_tokens(len(seq) - cached, kvb)
+                else:
+                    need = blocks_for_tokens(max(len(seq), 1), kvb)
+                lifetime = blocks_for_tokens(len(s.prompt) + s.max_new, kvb)
+                lifetime_new = max(lifetime - cached // kvb, 0)
+                avail = self._alloc.free_blocks - parked_matched
+                if avail < min(need + 1, max(lifetime_new, 1)):
                     return  # not enough cache: hold the FIFO line
                 self._pending.pop(0)
                 self._admitting = s  # visible to _fail_outstanding
-            pages = self._alloc.alloc(need, owner=s.sid)
-            if pages is None:  # pragma: no cover - checked just above
+            cached, pages = self._prefix.attach(seq, owner=s.sid) \
+                if self._prefix is not None else (0, [])
+            s.blocks = pages  # held now: a dying prefill must not leak
+            s.cached_len = cached
+            if chunked:
+                s.length = cached  # tokens cached so far
+                self._prefilling = s
+                self._admitting = None
+                return
+            new = self._palloc(need, owner=s.sid)
+            if new is None:  # pragma: no cover - checked just above
                 raise MXNetError(f"admission raced the allocator: {need} "
                                  f"pages unavailable")
-            s.blocks = pages
-            self._prefill(s, seq)
+            s.blocks = pages + new
+            if cached and cached == len(seq):
+                self._full_hit(s, seq)
+            else:
+                self._prefill(s, seq)
             self._admitting = None
 
-    def _prefill(self, s: _Stream, seq: np.ndarray):
-        """Prefill one stream: B = 1, the prompt padded to its bucket;
-        rows past the prompt write to the scratch page and are never
-        read."""
-        n = len(seq)
-        t0 = time.perf_counter()
-        tp = self._bucket(self._prefill_buckets, n, "prompt length")
-        mb = tp // self._kv_block
+    def _full_hit(self, s: _Stream, seq: np.ndarray):
+        """Admission of a fully cached prompt: no prefill.  A fresh
+        stream re-enters decode at its last prompt token, whose step
+        recomputes that token's K/V (the write copies the shared tail
+        page first) and samples the first new token; a resumed stream's
+        pending token survives, so it continues where preemption cut
+        it."""
+        self._prefix.full_hits += 1
+        if s.resume:
+            s.length = len(seq)
+            s.resume = False
+        else:
+            s.length = len(seq) - 1
+            s.next_token = int(seq[-1])
+            s.await_first = True  # first token (and TTFT) at its step
+        now = time.perf_counter()
+        self._metrics.observe("queue_wait_ms", (now - s.t_enqueue) * 1e3)
+        s.t_admit = now
+        with self._lock:
+            self._active.append(s)
+
+    def _run_prefill(self, s: _Stream, seq: np.ndarray, done: int,
+                     end: int, what: str, suffix: bool) -> torch.Tensor:
+        """The B = 1 forward over ``seq[done:end]`` padded to its prefill
+        bucket; rows past ``end`` write to the scratch page and are never
+        read.  A whole-prompt miss runs ``TransformerLM.prefill`` over
+        its bucket's pages; with ``suffix`` (a prefix hit's suffix, every
+        chunk of a chunked prefill) ``suffix_prefill`` runs over the
+        cached pages (``done`` block-aligned).  Returns the logits of the
+        real rows."""
+        csize = end - done
+        tp = self._bucket(self._prefill_buckets, csize, what)
+        mb = self._bucket(self._cache_buckets, len(s.blocks),
+                          "cache blocks") if suffix else tp // self._kv_block
         tokens = np.zeros((1, tp), np.int32)
-        tokens[0, :n] = seq
-        positions = np.arange(tp, dtype=np.int32)[None]
-        lengths = np.asarray([n], np.int32)
+        tokens[0, :csize] = seq[done:end]
+        positions = (done + np.arange(tp, dtype=np.int32))[None]
+        lengths = np.asarray([end], np.int32)
         table = np.zeros((1, mb), np.int32)
         table[0, :len(s.blocks)] = s.blocks
         tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions, lengths,
                                                 table)
-        logits = self._model.prefill(tok_d, pos_d, len_d, tab_d,
-                                     self._pools)
-        toks = sample_tokens(logits[:, n - 1], np.asarray([s.temp]),
-                             np.asarray([s.seed]), np.asarray([n - 1]),
-                             self._seed)
-        first = int(toks.cpu()[0])  # the one device-to-host copy
-        t_done = time.perf_counter()
+        if suffix:
+            logits = self._model.suffix_prefill(tok_d, pos_d, done, len_d,
+                                                tab_d, self._pools)
+        else:
+            logits = self._model.prefill(tok_d, pos_d, len_d, tab_d,
+                                         self._pools)
+        return logits[:, :csize]
+
+    def _sample_first(self, s: _Stream, row: torch.Tensor, n: int) -> int:
+        """Sample the stream's token at position ``n - 1`` from its
+        logits row and copy it to the host (the prefill's one copy)."""
+        toks = sample_tokens(row, np.asarray([s.temp]), np.asarray([s.seed]),
+                             np.asarray([n - 1]), self._seed)
+        first = int(toks.cpu()[0])
         self._metrics.inc("d2h_syncs")
+        return first
+
+    def _prefill(self, s: _Stream, seq: np.ndarray):
+        """Prefill one stream: a miss runs the whole prompt, a prefix hit
+        only the uncached suffix over the attached pages."""
+        n, c = len(seq), s.cached_len
+        t0 = time.perf_counter()
+        logits = self._run_prefill(s, seq, c, n, "suffix length" if c
+                                   else "prompt length", suffix=bool(c))
+        first = self._sample_first(s, logits[:, -1], n)
         s.length = n
+        self._finish_prefill(s, first, n - c, c, t0, time.perf_counter())
+
+    def _prefill_chunk(self):
+        """Advance the in-flight chunked prefill by one chunk, a suffix
+        prefill at offset ``s.length``.  A chunk that cannot get its
+        pages waits for the next iteration (decode retirements refill
+        the pool); only the final chunk samples and fetches its token,
+        so the others leave the loop free to queue the decode step
+        behind them."""
+        s = self._prefilling
+        seq = s.prefill_seq()
+        n, done = len(seq), s.length
+        end = min(done + self._chunk, n)
+        need = blocks_for_tokens(end, self._kv_block) - len(s.blocks)
+        if need > 0:
+            pages = self._palloc(need, owner=s.sid)
+            if pages is None:
+                return  # pool dry: retry after the next decode step
+            s.blocks.extend(pages)
+        t0 = time.perf_counter()
+        if done == s.cached_len:
+            s.t_chunk0 = t0  # first chunk: queue wait ends here
+        logits = self._run_prefill(s, seq, done, end, "chunk length",
+                                   suffix=True)
+        if end >= n:
+            first = self._sample_first(s, logits[:, -1], n)
+        t_done = time.perf_counter()
+        self._metrics.inc("prefill_chunks")
+        self._metrics.observe("prefill_chunk_ms", (t_done - t0) * 1e3)
+        s.length = end
+        if end < n:
+            return  # more chunks; a decode step runs in between
+        self._prefilling = None
+        self._finish_prefill(s, first, n - s.cached_len, s.cached_len,
+                             s.t_chunk0, t_done)
+
+    def _finish_prefill(self, s: _Stream, first: int, ns: int, c: int,
+                        t0: float, t_done: float):
+        """The completion of every prefill (whole, suffix, last chunk):
+        the prompt's full pages enter the prefix index, the timing and
+        TTFT metrics, the first token, then activation or retirement.
+        ``ns`` tokens were prefilled, ``c`` were attached."""
+        if self._prefix is not None:
+            # blocks already indexed keep their page; ours stays private
+            self._prefix.register(s.prompt, s.blocks)
         self._metrics.observe("prefill_ms", (t_done - t0) * 1e3)
         self._metrics.observe("queue_wait_ms", (t0 - s.t_enqueue) * 1e3)
         s.t_admit = t_done
@@ -717,32 +926,45 @@ class DecodeEngine:
         else:
             s.next_token = first
             s.generated.append(first)
-            self._metrics.observe("ttft_ms", (t_done - s.t_submit) * 1e3)
+            s.await_first = False
+            ttft = (t_done - s.t_submit) * 1e3
+            self._metrics.observe("ttft_ms", ttft)
+            self._metrics.observe("ttft_hit_ms" if c else "ttft_miss_ms",
+                                  ttft)
             self._metrics.inc("tokens")
         self._metrics.inc("prefills")
-        self._metrics.inc("prefill_tokens", n)
+        self._metrics.inc("prefill_tokens", ns)  # uncached tokens only
         if s.done():  # max_new == 1 or instant eos
             self._retire(s)
         else:
             with self._lock:
                 self._active.append(s)
 
+    def _reclaimable(self, v: _Stream) -> int:
+        """Pages preempting ``v`` would return to the pool: those it
+        holds alone (a shared page only loses one reference)."""
+        if self._prefix is None:
+            return len(v.blocks)
+        return sum(1 for p in v.blocks if self._alloc.refcount(p) == 1)
+
     def _alloc_with_preempt(self, s: _Stream, n: int) -> Optional[List[int]]:
-        """Pages for active stream ``s``, preempting the youngest other
-        stream while the pool is dry.  None: ``s`` itself could not be
-        kept and was failed."""
+        """Pages for active stream ``s``, evicting parked pages and then
+        preempting the youngest other stream while the pool is dry.
+        None: ``s`` itself could not be kept and was failed."""
         while True:
-            pages = self._alloc.alloc(n, owner=s.sid)
+            pages = self._palloc(n, owner=s.sid)
             if pages is not None:
                 return pages
             # a victim must be able to come back: its re-prefill has to
-            # fit the prefill ladder
+            # fit the prefill ladder, unless chunked prefill re-prefills
+            # any length
             victims = [v for v in self._active if v is not s
-                       and v.length <= self._prefill_buckets[-1]]
+                       and (self._chunk
+                            or v.length <= self._prefill_buckets[-1])]
             if not victims:
                 with self._lock:
                     self._active.remove(s)
-                self._alloc.free(s.blocks)
+                self._release_pages(s.blocks)
                 s.blocks = []
                 if s.future.set_running_or_notify_cancel():
                     s.future.set_exception(MXNetError(
@@ -751,7 +973,12 @@ class DecodeEngine:
                         f"{self._alloc.capacity} blocks); size "
                         f"cache_blocks for the workload"))
                 return None
-            self._preempt(max(victims, key=lambda v: v.t_admit))
+            # prefer victims whose preemption frees pages: a pure sharer
+            # only drops refcounts.  When every victim is one, take the
+            # youngest anyway: its chain's refcounts drain to zero, park,
+            # and the eviction above reclaims them
+            productive = [v for v in victims if self._reclaimable(v) > 0]
+            self._preempt(max(productive or victims, key=lambda v: v.t_admit))
 
     def _ensure_capacity(self, s: _Stream, ahead: int = 1) -> bool:
         """Grow ``s`` to hold ``ahead`` more tokens' pages (1: the next
@@ -767,12 +994,42 @@ class DecodeEngine:
         s.blocks.extend(pages)
         return True
 
+    def _maybe_cow(self, s: _Stream) -> bool:
+        """Copy-on-write before this step's cache write: if the page
+        about to receive position ``s.length``'s K/V is shared (another
+        stream holds it, or the prefix index maps its bytes), copy it to
+        a private page, every pool (values and scales), and splice the
+        block table.  In practice only a full hit's replayed token gets
+        here: the index holds full pages only.  False when ``s`` could
+        not get its page."""
+        j = s.length // self._kv_block
+        if j >= len(s.blocks):  # pragma: no cover - ensured upstream
+            return True
+        page = s.blocks[j]
+        if not self._prefix.needs_cow(page):
+            return True
+        pages = self._alloc_with_preempt(s, 1)
+        if pages is None:
+            return False
+        new = pages[0]
+        for pool in self._pools:  # a byte copy: fp8 pages included
+            pool[new].view(torch.uint8).copy_(pool[page].view(torch.uint8))
+        s.blocks[j] = new
+        self._prefix.release([page])  # our reference; sharers keep it
+        self._prefix.note_cow()
+        return True
+
     def _preempt(self, victim: _Stream):
-        """Recompute-style preemption: free the victim's pages and queue
-        it at the front for re-prefill of prompt + progress."""
-        self._alloc.free(victim.blocks)
+        """Recompute-style preemption: drop the victim's references and
+        queue it at the front for re-prefill of prompt + progress.
+        Shared pages lose only its reference; its re-admission will
+        usually attach them again as a prefix hit."""
+        self._release_pages(victim.blocks)
         victim.blocks = []
         victim.length = 0
+        victim.cached_len = 0
+        # a full hit preempted before its first token re-admits as a
+        # fresh request: there is no pending token to resume
         victim.resume = bool(victim.generated)
         victim.t_enqueue = time.perf_counter()
         with self._lock:
@@ -781,9 +1038,8 @@ class DecodeEngine:
         self._metrics.inc("preempted")
 
     def _retire(self, s: _Stream):
-        if s.blocks:
-            self._alloc.free(s.blocks)
-            s.blocks = []
+        self._release_pages(s.blocks)
+        s.blocks = []
         # counted before the result is set: a caller that reads stats()
         # once its last future resolves sees every generation
         self._metrics.inc("generations")
@@ -828,6 +1084,7 @@ class DecodeEngine:
             if s in self._active:
                 self._ensure_capacity(s, ahead=1 + len(drafts.get(s.sid,
                                                                   ())))
+        self._cow_active()
         with self._lock:
             streams = list(self._active)
         if not streams:
@@ -850,6 +1107,7 @@ class DecodeEngine:
         steps0 = np.zeros((bb,), np.int64)
         fed: List[np.ndarray] = []
         for i, s in enumerate(streams):
+            # a stream admitted after the propose pass has no draft
             d = drafts.get(s.sid, np.empty(0, np.int32))
             row = np.concatenate([np.asarray([s.next_token], np.int32), d])
             fed.append(row)
@@ -896,6 +1154,7 @@ class DecodeEngine:
             s.next_token = s.generated[-1]
             self._metrics.inc("tokens", t)
             self._metrics.inc("spec_accepted", t - 1)
+            self._first_from_step(s, t_done)
             for _ in range(t):
                 self._metrics.observe("time_per_token_ms", step_ms / t)
             # pages past the committed tokens and the pending token's
@@ -904,7 +1163,7 @@ class DecodeEngine:
                                         self._kv_block)
             if surplus:
                 s.blocks = keep
-                self._alloc.free(surplus)
+                self._release_pages(surplus)
                 self._metrics.inc("spec_pages_rolled_back", len(surplus))
             if s.done():
                 retired.append(s)
@@ -917,6 +1176,7 @@ class DecodeEngine:
         for s in list(self._active):
             if s in self._active:
                 self._ensure_capacity(s)
+        self._cow_active()
         with self._lock:
             streams = list(self._active)
         if not streams:
@@ -968,10 +1228,29 @@ class DecodeEngine:
             s.generated.append(tok)
             s.length += 1
             s.next_token = tok
+            self._first_from_step(s, t_done)
             self._metrics.observe("time_per_token_ms", step_ms)
             if s.done():
                 retired.append(s)
         self._retire_all(retired)
+
+    def _cow_active(self):
+        """The copy-on-write probe of every active stream before a
+        step's cache writes (prefix cache on)."""
+        if self._prefix is None:
+            return
+        for s in list(self._active):
+            if s in self._active:
+                self._maybe_cow(s)
+
+    def _first_from_step(self, s: _Stream, t_done: float):
+        """A full hit's first token came from this step: its TTFT is the
+        wait plus one step."""
+        if s.await_first:
+            s.await_first = False
+            ttft = (t_done - s.t_submit) * 1e3
+            self._metrics.observe("ttft_ms", ttft)
+            self._metrics.observe("ttft_hit_ms", ttft)
 
     def _retire_all(self, retired: List[_Stream]):
         if retired:

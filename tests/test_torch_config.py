@@ -5,9 +5,8 @@ Lint, as ``tests/test_env_catalog.py`` does over ``mxnet_tpu/``: every
 ``MXNET_*`` variable mentioned in ``mxnet_tpu_torch/`` resolves through
 the catalog (a read exactly, prose by family prefix), and every entry
 is mentioned outside ``config.py`` (no dead entries).  Each variable the
-JAX package also declares has its type and default, but for
-``MXNET_SERVING_PREFIX_CACHE``: the prefix cache is not ported, so the
-port's default is 0 (1 raises).  ``engine``: the JAX package's names,
+JAX package also declares has its type and default.  ``engine``: the JAX
+package's names,
 ``NaiveEngine`` synchronizing executor runs and training steps."""
 
 import os
@@ -25,8 +24,6 @@ _PKG = os.path.join(os.path.dirname(os.path.dirname(
 _TOKEN = re.compile(r"MXNET_[A-Z0-9_]+")
 _READ = re.compile(r"environ|get_env|getenv|_env_int|_env_buckets|"
                    r"_env\(|describe\(")
-# the port's default differs from the JAX package's, and why
-OWN_DEFAULT = {"MXNET_SERVING_PREFIX_CACHE": 0}
 
 
 def _catalog():
@@ -76,7 +73,7 @@ def test_catalog_has_no_dead_entries():
 def test_shared_variables_keep_the_jax_type_and_default(name):
     mine, theirs = config.describe(name), jax_config.describe(name)
     assert mine.dtype is theirs.dtype
-    assert mine.default == OWN_DEFAULT.get(name, theirs.default)
+    assert mine.default == theirs.default
     assert mine.doc
 
 

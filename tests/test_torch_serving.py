@@ -183,14 +183,8 @@ def test_eos_and_single_token_requests_retire(lm):
 
 
 @pytest.mark.parametrize("kwargs,env", [
-    ({"prefix_cache": 1}, {}),
-    ({}, {"MXNET_SERVING_PREFIX_CACHE": "1"}),
-    ({"evict_policy": "lru"}, {}),
     ({"spec_tokens": 2, "proposer": "draft_lm"}, {}),
     ({"spec_tokens": 2}, {"MXNET_SERVING_PROPOSER": "draft_lm"}),
-    ({"spec_tokens": 2, "prefill_chunk": 8}, {}),
-    ({"prefill_chunk": 8}, {}),
-    ({}, {"MXNET_SERVING_PREFILL_CHUNK": "8"}),
     ({"tp": 2}, {}),
     ({}, {"MXNET_SERVING_PP": "2"}),
     ({"devices": [0]}, {}),
@@ -198,7 +192,6 @@ def test_eos_and_single_token_requests_retire(lm):
     ({}, {"MXNET_ADAPTER_ENABLE": "1"}),
     ({"tenant_quota": object()}, {}),
     ({}, {"MXNET_TENANT_QUOTA_TOKENS": "100"}),
-    ({"kv_dtype": "int8", "prefix_cache": 1}, {}),
     ({"tp": 2}, {"MXNET_SERVING_KV_DTYPE": "fp8"}),
     ({"dtype": "float16"}, {}),
 ], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
@@ -207,6 +200,35 @@ def test_unported_features_raise(lm, monkeypatch, kwargs, env):
         monkeypatch.setenv(k, v)
     with pytest.raises(mt.MXNetError, match="not ported yet"):
         mt.DecodeEngine(lm[0], **_kw(ctx=mt.cpu(), **kwargs))
+
+
+@pytest.mark.parametrize("kwargs,env", [
+    ({"prefix_cache": 1}, {}),
+    ({}, {"MXNET_SERVING_PREFIX_CACHE": "1"}),
+    ({"evict_policy": "lru"}, {}),
+    ({"spec_tokens": 2, "prefill_chunk": 8}, {}),
+    ({"prefill_chunk": 8}, {}),
+    ({}, {"MXNET_SERVING_PREFILL_CHUNK": "8"}),
+    ({"kv_dtype": "int8", "prefix_cache": 1}, {}),
+], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
+def test_prefix_cache_and_chunking_options_serve(lm, monkeypatch, kwargs,
+                                                 env):
+    """The configurations the port refused until the prefix cache and
+    chunked prefill were ported now construct and serve: a 13-token
+    prompt twice (a chunked prefill at chunk 8, then a prefix hit)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    prompt = np.arange(3, 16, dtype=np.int32)
+    with mt.DecodeEngine(lm[0], **_kw(ctx=mt.cpu(), **kwargs)) as eng:
+        a = eng.generate(prompt, 4)
+        b = eng.generate(prompt, 4)
+        st = eng.stats()
+    assert a.shape == b.shape == (4,)
+    assert np.all((a >= 0) & (a < V))
+    assert st["prefix_cache"] == 1 and st["prefix_hits"] == 1
+    assert st["prefill_chunks"] == (2 if st["prefill_chunk"] else 0)
+    if kwargs.get("kv_dtype") is None:  # fp32 pages: the hit is exact
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("kwargs", [{"prefill_only": True},

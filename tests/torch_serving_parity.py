@@ -23,7 +23,8 @@ import torch
 
 from mxnet_tpu.executor import build_graph_fn
 from mxnet_tpu.models.transformer import (transformer_lm_decode,
-                                          transformer_lm_prefill)
+                                          transformer_lm_prefill,
+                                          transformer_lm_prefix_prefill)
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.kv_cache import kv_storage_dtype
 from mxnet_tpu_torch.models.transformer import TransformerLM, param_names
@@ -133,29 +134,65 @@ def run_graph(graph, feeds, pools):
     return np.asarray(outs[0]), list(outs[1:])
 
 
-def jax_quant_chain_rows(host, name, prompt, gen, P=14):
-    """Logit rows the JAX quantized prefill/decode graphs give along the
-    chain prompt + gen: row i predicts gen[i]."""
+def jax_quant_chain_rows(host, name, prompt, gen, P=14, chunk=0,
+                         cached=0):
+    """Logit rows the JAX quantized serving graphs give along the chain
+    prompt + gen, on the path the engine takes: row i predicts gen[i].
+
+    The prompt's pages are written by one whole-prompt prefill, or, with
+    ``chunk`` and a prompt longer than it, by suffix prefills
+    (``transformer_lm_prefix_prefill``) of ``chunk`` tokens each.  With
+    ``cached`` (block-aligned) the chain is a later request of the same
+    prompt that found ``cached`` tokens in the prefix cache: its first
+    row comes from a suffix prefill of the rest, or, when the whole
+    prompt was cached (a full hit), from a decode step replaying the
+    last prompt token.  The other rows are decode steps."""
     pre = jax_graph(transformer_lm_prefill, host, name, paged=True)
     dec = jax_graph(transformer_lm_decode, host, name, paged=True)
+    sp = jax_graph(transformer_lm_prefix_prefill, host, name)
     _, pools = fresh_pools(name, P)
     n = len(prompt)
-    tp = -(-n // KVB) * KVB
     table = np.arange(1, P, dtype=np.int32)[
         None, :(n + len(gen) + KVB) // KVB]
-    tokens = np.zeros((1, tp), np.int32)
-    tokens[0, :n] = prompt
-    logits, pools = run_graph(pre, dict(
-        data=tokens, positions=np.arange(tp, dtype=np.int32)[None],
-        lengths=np.array([n], np.int32),
-        block_table=table[:, :tp // KVB]), pools)
-    rows = [logits[0, n - 1]]
-    for i, tok in enumerate(gen[:-1]):
-        logits, pools = run_graph(dec, dict(
+
+    def suffix(a, b, pools):
+        ts = -(-(b - a) // KVB) * KVB
+        tokens = np.zeros((1, ts), np.int32)
+        tokens[0, :b - a] = prompt[a:b]
+        return run_graph(sp, dict(
+            data=tokens, positions=(a + np.arange(ts, dtype=np.int32))[None],
+            start=np.array([a], np.int32), lengths=np.array([b], np.int32),
+            block_table=table), pools)
+
+    def decode(tok, pos, pools):
+        return run_graph(dec, dict(
             data=np.array([[tok]], np.int32),
-            positions=np.array([[n + i]], np.int32),
-            lengths=np.array([n + i + 1], np.int32), block_table=table),
+            positions=np.array([[pos]], np.int32),
+            lengths=np.array([pos + 1], np.int32), block_table=table),
             pools)
+
+    if chunk and n > chunk:
+        for a in range(0, n, chunk):
+            logits, pools = suffix(a, min(a + chunk, n), pools)
+        last = logits[0, n - 1 - a]
+    else:
+        tp = -(-n // KVB) * KVB
+        tokens = np.zeros((1, tp), np.int32)
+        tokens[0, :n] = prompt
+        logits, pools = run_graph(pre, dict(
+            data=tokens, positions=np.arange(tp, dtype=np.int32)[None],
+            lengths=np.array([n], np.int32),
+            block_table=table[:, :tp // KVB]), pools)
+        last = logits[0, n - 1]
+    if cached == n:
+        logits, pools = decode(prompt[-1], n - 1, pools)
+        last = logits[0, 0]
+    elif cached:
+        logits, pools = suffix(cached, n, pools)
+        last = logits[0, n - 1 - cached]
+    rows = [last]
+    for i, tok in enumerate(gen[:-1]):
+        logits, pools = decode(tok, n + i, pools)
         rows.append(logits[0, 0])
     return np.stack(rows)
 
@@ -175,19 +212,23 @@ def jax_full_rows(host, prompt, gen):
     return np.asarray(outs[0][0])[len(prompt) - 1:len(seq) - 1]
 
 
-def assert_chains_agree(host, jobs, ref_outs, outs, name="fp32"):
+def assert_chains_agree(host, jobs, ref_outs, outs, name="fp32",
+                        paths=None):
     """Greedy chains ``outs`` equal the JAX engine's ``ref_outs`` up to
     each chain's first reference near-tie (MARGIN against the full
     forward for fp32 pages, QMARGIN against the quantized graphs for
-    int8/fp8); at least half of all tokens are compared."""
+    int8/fp8, along each job's path: ``paths`` holds one dict of
+    ``jax_quant_chain_rows``'s ``chunk``/``cached`` a job); at least
+    half of all tokens are compared."""
     compared, total = 0, sum(len(r) for r in ref_outs)
-    for (prompt, _), ref, got in zip(jobs, ref_outs, outs):
+    paths = paths or [{}] * len(jobs)
+    for (prompt, _), ref, got, path in zip(jobs, ref_outs, outs, paths):
         assert len(ref) == len(got)
         if name == "fp32":
             rows, margin = jax_full_rows(host, prompt, ref), MARGIN
         else:
-            rows, margin = jax_quant_chain_rows(host, name, prompt,
-                                                ref), QMARGIN
+            rows, margin = jax_quant_chain_rows(host, name, prompt, ref,
+                                                **path), QMARGIN
         for i in range(len(ref)):
             top2 = np.sort(rows[i])[-2:]
             if top2[1] - top2[0] <= margin:
