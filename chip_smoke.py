@@ -83,7 +83,11 @@
    (8, 1024, 3072), fp32, against their plain versions
    (``TOL``), timed as above and also back to back (events around 20
    queued launches, which hides the host's launch overhead), beside
-   ``F.silu``/``F.gelu`` and aten's ``silu_backward``/``gelu_backward``.
+   ``F.silu``/``F.gelu`` and aten's ``silu_backward``/``gelu_backward``;
+   the Triton example's ``user_triton_silu`` and
+   ``user_triton_silu_grad`` (``rtc.triton_op``, compiled by Triton at
+   their first call) the same way in fp32 and bf16 at (16, 32) and
+   (8, 1024, 3072).
    Then the API on ``gpu(0)``: ``register_op`` of ``axpb``
    imperatively and through ``bind``; ``rowsum`` (an output of shape
    (rows, 1) through a callable ``out_like``, ``sym.infer_shape``) and
@@ -147,7 +151,10 @@
    ``user_silu`` → FC(2) → ``SoftmaxOutput`` through ``Module.fit`` (10
    epochs, SGD 0.1, ``Xavier()``, batch 16): accuracy above 0.85, and
    every training batch launches ``user_silu`` once and
-   ``user_silu_grad`` (its VJP) once.
+   ``user_silu_grad`` (its VJP) once; then the Triton example
+   (``examples/user_triton_kernel.py``) the same way, its kernels
+   ``user_triton_silu`` and ``user_triton_silu_grad`` (in the graphed
+   steps too: ``TracedLaunches`` counts them by their Triton names).
 4d. The GELU LM: the DPA LM of 4b with its 12 feed-forward GELUs the
    user op ``user_gelu`` (``dpa_lm_symbol(..., gelu_op="user_gelu")``),
    full width.  Its first step must equal the built-in-GELU DPA LM's on
@@ -198,7 +205,8 @@
    (``models/ssd.py``'s ``ssd300_symbol``) at its published widths:
    300x300 images, 8,732 anchors, 21 classes (PASCAL VOC's 20 +
    background), batch 32, SGD as upstream's ``train.py`` (lr 0.002,
-   momentum 0.9, wd 5e-4), ``Xavier()``, trained through ``mod.Module``
+   momentum 0.9, wd 5e-4), ``Xavier()``, 4 epochs, trained through
+   ``mod.Module``
    on ``gpu(0)`` with ``forward``/``backward``/``update`` over seeded
    ``synthetic_boxes`` (VOC images are not in the repo).  Every output
    must be finite, the masked class cross-entropy (from ``cls_prob``
@@ -206,7 +214,7 @@
    epoch below the first's, and training must launch ``nms`` zero
    times.  Then the detection symbol in a second ``Module``, filled by
    ``set_params(*mod.get_params())`` while the training module and its
-   graph pool stay alive, detects every batch: one ``nms`` launch a
+   graph pool stay alive, detects the first 3 batches: one ``nms`` launch a
    forward, scores sorted, and rows that ``torch.equal`` ``nms_plain``
    of the rows before NMS of the same forward (rebuilt from the
    ``MultiBoxDetection`` inputs it also outputs).  A second module with
@@ -231,10 +239,10 @@
    B5's, and peak memory.  One card shows the kernels and the hop loop:
    each hop's K/V rotation is ``Tensor.to`` onto the same device, no
    transfer between cards.
-9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels and the
-   four timed user kernels, launches summed over the runs), the card
-   line, and last ``{"ok": true, "device": {...}}``, after phases 10
-   to 16.
+9. Prints ``{"kernels": [...]}`` (the fifteen built-in kernels, the
+   four timed CUDA user kernels and the two Triton ones, launches summed
+   over the runs), the card line, and last ``{"ok": true, "device":
+   {...}}``, after phases 10 to 17.
 10. Image classification (``image_path``; no kernel of the port's own
    on this path: cuDNN's convolutions and eager PyTorch ops, TF32 off as
    everywhere in this script, the ``tf32`` entry of its line), launch
@@ -402,6 +410,34 @@
    rule, chunks on B8).  A ``prefix_summary`` line.  Serving runs A-D,
    the default LM's and phase 13's state that their random prompts
    scored no hit (``serve_run``).
+17. Multi-tenant serving and the draft-LM proposer (``tenancy_path``),
+   at the GPT-2-class width, fp32 pages unless said, KVB 16, seeded
+   LoRA adapters of ranks 8, 8, 16 and 16 (``tenancy_adapters``) in an
+   ``AdapterPool`` of rank buckets (8, 16) and 4 slots a bucket: (a) 20
+   requests of 64-256-token prompts, 4 per adapter and 4 plain, 32
+   tokens each, two sampled: each adapter's greedy streams held by
+   ``forward_check`` against the merged-weights model ``W + (A B)^T``,
+   the plain ones against the base; the same prompts without adapters
+   through an adapter-enabled engine and a pre-adapter engine equal bit
+   for bit; B1 12 times a miss, the decode kernel 12 times a step; step
+   p50 with adapters and without; (b) a 256-token system prompt with
+   new suffixes, plain, under adapter X, plain, under X, then X retired
+   and republished with other weights: hits only within a salt, none on
+   X's old chain, B8 12 times a hit's suffix prefill, each stream held
+   against its own model; (c) six rank-8 adapters published into bucket
+   8's 4 slots while 8 streams decode, one retired mid-run: nothing
+   shed, evictions of parked slots only (a held slot's rows keep their
+   bytes), every refcount 0 and every slot free at the end; (d) one
+   decode seat and a quota of two requests: a tenant's third request
+   shed with ``QuotaExceededError`` and its counters; an interactive
+   request admitted before two batch ones submitted ahead of it; (e)
+   ``spec_tokens=4`` on ``spec_prompts()`` (greedy) with the target's
+   own weights as the draft LM, with a 2-layer draft cut from them
+   (fp32 and int8 pages) and with the n-gram proposer: run B's launch
+   rule, B1 also ``layers`` times a draft forward, ``forward_check``
+   (over int8 pages: every token's logit within ``INT8_MARGIN`` of the
+   row's largest of the top one), the self-draft accepting above 0.9.
+   A ``tenancy_summary`` line.
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -447,7 +483,8 @@ alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
 ``--bf16 ROOT`` phase 13 alone after B1's and the paged kernels' bf16
 checks at its shapes, ``--ops ROOT`` phase 14 alone with the packed
 LM's training run beside it, ``--core ROOT`` phase 15 alone,
-``--prefix ROOT`` phase 16 alone (see ``paths_timing``);
+``--prefix ROOT`` phase 16 alone, ``--tenancy ROOT`` phase 17 alone
+(see ``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -467,6 +504,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -505,9 +543,11 @@ NMS_SHAPES = ((8, 192), (32, 8732))
 NMS_CLASSES, NMS_THRESHOLD, NMS_FLOPS_PER_PAIR = 20, 0.45, 20
 # SSD300 at upstream example/ssd's train.py settings (batch 32, SGD lr
 # 0.002, momentum 0.9, wd 5e-4, rescale_grad 1 on one device); the
-# synthetic data set and the epochs cut to the run's time
-SSD300 = dict(images=256, batch=32, epochs=6, lr=0.002, momentum=0.9,
-              wd=0.0005)
+# synthetic data set, the epochs and the detection pass (its first
+# ``detect_batches`` batches, each held against nms_plain) cut to the
+# run's time; both losses fall by the fourth epoch
+SSD300 = dict(images=256, batch=32, epochs=4, detect_batches=3, lr=0.002,
+              momentum=0.9, wd=0.0005)
 
 # image classification: train_imagenet.py --benchmark 1 (ResNet-50 at
 # 3x224x224, 1,000 classes, batch 32, SGD lr 0.1, momentum 0.9, wd 1e-4,
@@ -2242,15 +2282,18 @@ TRACE_FUNCTIONS = {
     "lstm_scan": ("lstm_cluster_kernel", "lstm_stream_kernel"),
     "nms": ("nms_sweep_kernel", "nms_fused_kernel", "nms_force_kernel"),
     "user_silu": ("user_silu",), "user_silu_grad": ("user_silu_grad",),
-    "user_gelu": ("user_gelu",), "user_gelu_grad": ("user_gelu_grad",)}
+    "user_gelu": ("user_gelu",), "user_gelu_grad": ("user_gelu_grad",),
+    "user_triton_silu": ("user_triton_silu",),
+    "user_triton_silu_grad": ("user_triton_silu_grad",)}
 _TRACE_KEY = {f: k for k, fs in TRACE_FUNCTIONS.items() for f in fs}
 # a function's name in a kernel's trace name, demangled ("void
-# mhap_fwd_kernel<float>(...)", "user_gelu(float const*, ...)") or not
-# ("_Z9user_geluPKfPfi")
+# mhap_fwd_kernel<float>(...)", "user_gelu(float const*, ...)"), not
+# ("_Z9user_geluPKfPfi"), or a Triton kernel's ("user_triton_silu", in
+# older Triton versions with a specialization suffix "_0d1d2de")
 _TRACE_NAME = re.compile(r"(?<![A-Za-z_])("
                          + "|".join(sorted(_TRACE_KEY, key=len,
                                            reverse=True))
-                         + r")(?=[<(IP]|$)")
+                         + r")(?=[<(IP]|_\d|$)")
 
 
 # spin kernels (``torch.cuda._sleep``) at each end of a traced region,
@@ -3003,23 +3046,29 @@ def imperative_check(torch, mt, ck):
             "max_abs_err": err}
 
 
-def check_user_kernel(torch, kernel, shape, plain, library, flops, n_in):
-    """A user kernel against its plain version on seeded fp32 inputs of
-    ``shape``, timed beside the plain version, ``library`` (one PyTorch
-    call computing the same function) and its bound: each input read
-    once, the output written once, ``flops`` operations an element."""
+def check_user_kernel(torch, kernel, shape, plain, library, flops, n_in,
+                      dtype="float32"):
+    """A user kernel against its plain version on seeded inputs of
+    ``shape`` and ``dtype``, timed beside the plain version, ``library``
+    (one PyTorch call computing the same function) and its bound: each
+    input read once, the output written once, ``flops`` float32
+    operations an element (the kernels compute in float32 whatever they
+    store)."""
     g = torch.Generator(device="cuda").manual_seed(len(kernel.name))
-    xs = [torch.randn(shape, generator=g, device="cuda")
-          for _ in range(n_in)]
+    xs = [torch.randn(shape, generator=g, device="cuda").to(
+        getattr(torch, dtype)) for _ in range(n_in)]
     got, ref = kernel(*xs), plain(*xs)
     torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    check(bool(torch.isfinite(got).all()) and err <= TOL["float32"],
-          f"{kernel.name} {shape}: max_abs_err {err} over {TOL['float32']}")
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and got.dtype == ref.dtype
+          and err <= TOL[dtype],
+          f"{kernel.name} {shape} {dtype}: max_abs_err {err} over "
+          f"{TOL[dtype]}")
     n = got.numel()
-    b_ms, b_by = bound((n_in + 1) * n * 4, flops * n, "float32")
+    b_ms, b_by = bound((n_in + 1) * n * got.element_size(), flops * n,
+                       "float32")
     return {"kernel": kernel.name, "shape": "x".join(map(str, shape)),
-            "dtype": "float32", "max_abs_err": err, "tol": TOL["float32"],
+            "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
             "ms": time_ms(torch, lambda: kernel(*xs)),
             "plain_ms": time_ms(torch, lambda: plain(*xs)),
             "library_ms": time_ms(torch, lambda: library(*xs)),
@@ -3061,6 +3110,25 @@ def user_kernel_checks(torch, F, ex, gelu_kernels):
     extra = [check_user_kernel(torch, silu[0], big, *silu[1:]),
              check_user_kernel(torch, silu_grad[0], big, *silu_grad[1:])]
     return path, extra
+
+
+def triton_kernel_checks(torch, F, tex):
+    """The Triton example's kernels (``rtc.triton_op``), SiLU and its
+    VJP, against their plain versions in fp32 and bf16 at the example's
+    (16, 32) batch and at (8, 1024, 3072), the GELU LM's FFN activation,
+    timed beside ``F.silu`` and aten's ``silu_backward`` and the byte
+    bound.  Triton compiles each (kernel, dtype) at its first call here.
+    Returns (the fp32 rows at the example's shape, the other rows)."""
+    aten = torch.ops.aten
+    silu = (tex.register().kernel, tex.silu_plain, F.silu,
+            USER_FLOPS["user_silu"], 1)
+    silu_grad = (tex.silu_grad, tex.silu_grad_plain,
+                 lambda x, g: aten.silu_backward(g, x),
+                 USER_FLOPS["user_silu_grad"], 2)
+    rows = [check_user_kernel(torch, k[0], shape, *k[1:], dtype=dtype)
+            for shape in ((16, 32), (TRAIN_BATCH, 1024, GPT2_SMALL["d_ff"]))
+            for dtype in ("float32", "bfloat16") for k in (silu, silu_grad)]
+    return rows[:2], rows[2:]
 
 
 def rtc_api_checks(torch, mt, names, ex):
@@ -3138,11 +3206,12 @@ def rtc_api_checks(torch, mt, names, ex):
             "no_vjp_raised": True}
 
 
-def example_path(torch, mt, ck, ex):
-    """``examples/user_cuda_kernel.main(gpu(0))``: the op imperatively,
-    then ``Module.fit`` to accuracy > 0.85, each training batch counting
-    a launch of ``user_silu`` and one of ``user_silu_grad``, under
-    ``TracedLaunches`` (the fit's steps are CUDA graphs)."""
+def example_path(torch, mt, ck, ex, op="user_silu"):
+    """``examples/user_cuda_kernel.main(gpu(0))`` (or the Triton
+    example's, ``op`` ``user_triton_silu``): the op imperatively, then
+    ``Module.fit`` to accuracy > 0.85, each training batch counting a
+    launch of ``op`` and one of ``<op>_grad``, under ``TracedLaunches``
+    (the fit's steps are CUDA graphs)."""
     torch.cuda.synchronize()
     reset_launch_counts(ck)
     with TracedLaunches(torch, ck, "user kernel example") as traced:
@@ -3155,9 +3224,9 @@ def example_path(torch, mt, ck, ex):
     check(rec["batches"] == 80 and set(rec["batch_launches"]) == {(1, 1)},
           f"example: {rec['batches']} batches, launches a batch "
           f"{sorted(set(rec['batch_launches']))}, not (1, 1)")
-    check(launches["user_silu"] == 81 and launches["user_silu_grad"] == 80,
-          f"example launches {launches['user_silu']} / "
-          f"{launches['user_silu_grad']}, not 81 / 80")
+    check(launches[op] == 81 and launches[f"{op}_grad"] == 80,
+          f"example launches {launches[op]} / {launches[f'{op}_grad']}, "
+          f"not 81 / 80")
     return {"accuracy": rec["accuracy"], "batches": rec["batches"],
             "wall_s": wall, "launches": launches}
 
@@ -3786,8 +3855,11 @@ def ssd_path(torch, mt, ck, eager=True):
     from mxnet_tpu_torch.ops.detection import _iou_matrix, \
         multibox_detection
 
+    t_part = time.perf_counter()
+    part_s = {}
     mod, it, ce, loc, step_ms, samples_per_s, train_launches = ssd_train(
         torch, mt, ck, SSD300["epochs"])
+    part_s["train"] = time.perf_counter() - t_part
     train_peak = torch.cuda.max_memory_allocated()
     check(train_launches["nms"] == 0, f"training forwards launched nms "
           f"{train_launches['nms']} times")
@@ -3818,9 +3890,12 @@ def ssd_path(torch, mt, ck, eager=True):
              None, "kernels_only_in_raw": None}
     torch.cuda.synchronize()
     ck.reset_launch_counts()  # counts from here on: the detection
+    t_part = time.perf_counter()
     with TracedLaunches(torch, ck, "SSD300 detection",
                         on=graphs_on(det)) as traced:
         for batch in it:
+            if len(det_ms) == SSD300["detect_batches"]:
+                break
             torch.cuda.synchronize()
             counted = ck.LAUNCHES["nms"]
             t0 = time.perf_counter()
@@ -3865,6 +3940,7 @@ def ssd_path(torch, mt, ck, eager=True):
             hits += int(right.any(1).sum())
             images += rows.shape[0]
     det_launches = traced.launches
+    part_s["detect"] = time.perf_counter() - t_part
     # B7 alone on the first batch's rows (launches not counted)
     nms_rec = {"ms": time_ms(torch, lambda: ck.nms(
         first_rows, NMS_THRESHOLD, False)), "device_ms": kernel_device_ms(
@@ -3921,7 +3997,9 @@ def ssd_path(torch, mt, ck, eager=True):
                         for k in train_launches},
            "graphs": graphs, "detection_graphs": det_graphs}
     eager_p50 = eager_det_p50 = None
+    rec["part_wall_s"] = part_s
     if eager:
+        t_part = time.perf_counter()
         with fused_env("0"):
             emod, eit, _, _, estep_ms, _, _ = ssd_train(torch, mt, ck,
                                                          EAGER_EPOCHS)
@@ -3942,6 +4020,7 @@ def ssd_path(torch, mt, ck, eager=True):
         rec["eager"] = {"epochs": EAGER_EPOCHS, "step_p50_ms": eager_p50,
                         "step_device_ms": edevice,
                         "detection_forward_p50_ms": eager_det_p50}
+        part_s["eager"] = time.perf_counter() - t_part
     fused_report("SSD300", graphs, rec["step_p50_ms"], eager_p50)
     fused_report("SSD300 detection", det_graphs,
                  rec["detection_forward_p50_ms"], eager_det_p50)
@@ -6560,6 +6639,14 @@ def op_sweep_cases(rng, n=64, m=1024, attn=PRIMITIVE_ATTN):
     case("spatial", "Correlation", [r(2, 4, 15, 15), r(2, 4, 15, 15)],
          dict(kernel_size=3, max_displacement=2, stride1=2, stride2=2,
               pad_size=2, is_multiply=False))
+    # the LoRA epilogue (the first serving op name): 4 streams of 8 rows,
+    # slots 0 (the base's bits), 2, 1, 2 of a slab of 3 slots, rank 8
+    slabs_a, slabs_b = 0.3 * r(3, 2, 32, 8), 0.3 * r(3, 2, 8, 96)
+    slabs_a[0], slabs_b[0] = 0.0, 0.0
+    case("adapter", "LoraGatherDelta",
+         [r(4, 8, 96), r(4, 8, 32), slabs_a, slabs_b,
+          np.array([0, 2, 1, 2], np.int32)], dict(layer=1),
+         grads=(0, 1, 2, 3))
     return cases
 
 
@@ -8086,6 +8173,463 @@ def prefix_path(torch, mt, ck, tatt, F):
             "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multi-tenant serving (LoRA adapters, quotas, SLO classes) and
+# the draft-LM proposer
+# ---------------------------------------------------------------------------
+
+# seeded adapters of ranks 8, 8, 16 and 16 in the pool's rank buckets
+TENANCY_RANKS, TENANCY_BUCKETS, TENANCY_SLOTS = (8, 8, 16, 16), (8, 16), 4
+# (a): 4 requests per adapter and 4 plain (20), 64-256-token prompts,
+# 32 new tokens each, two sampled
+TENANCY_NEW, TENANCY_PER, TENANCY_SAMPLED = 32, 4, (2, 17)
+# (b): a 256-token system prompt and 32-token suffixes
+TENANCY_SYSTEM, TENANCY_SUFFIX = 256, 32
+# (c): 6 rank-8 adapters into the 4 slots of bucket 8 while 8 streams
+# of HOT_NEW tokens decode
+HOT_ADAPTERS, HOT_STREAMS, HOT_NEW = 6, 8, 96
+# (d): a quota of two requests of 64 + 32 tokens, and the tiers
+QUOTA_PROMPT = 64
+# (e): forward_check's margin over int8 pages, of the row's largest logit
+INT8_MARGIN = 2.0 ** -5
+
+
+def tenancy_adapters(seed=21, ranks=TENANCY_RANKS, prefix="t"):
+    """Seeded LoRA pairs {name: (A, B, alpha)} of the GPT-2-class LM:
+    A ~ N(0, 1/d_model), B ~ N(0, 1/r), alpha = r (scale 1), a delta of
+    about unit size on each QKV lane beside the base projection's ~0.55,
+    so an adapter's greedy chain leaves the base's within a few
+    tokens."""
+    rng = np.random.RandomState(seed)
+    L, dm = GPT2_SMALL["num_layers"], GPT2_SMALL["d_model"]
+    out = {}
+    for i, r in enumerate(ranks):
+        a = (rng.standard_normal((L, dm, r)) / np.sqrt(dm)).astype(np.float32)
+        b = (rng.standard_normal((L, r, 3 * dm)) / np.sqrt(r)).astype(
+            np.float32)
+        out[f"{prefix}{i}"] = (a, b, float(r))
+    return out
+
+
+def merged_model(torch, dev_params, a, b, alpha):
+    """The merged-weights LM, ``W + (alpha / r) (A B)^T`` on each layer's
+    fused QKV weight (the product in float64 on the host): what an
+    adapter stream's tokens are held against (``forward_check``)."""
+    from mxnet_tpu_torch.models.transformer import TransformerLM
+
+    L = GPT2_SMALL["num_layers"]
+    params = dict(dev_params)
+    for i in range(L):
+        w = dev_params[f"layer{i}_qkv_weight"]
+        delta = a[i].astype(np.float64) @ b[i] * (alpha / a.shape[2])
+        params[f"layer{i}_qkv_weight"] = w + torch.from_numpy(
+            delta.T.astype(np.float32)).to(w.device)
+    return TransformerLM(params, num_layers=L,
+                         num_heads=GPT2_SMALL["num_heads"], kv_block=KVB)
+
+
+def adapter_pool(mt, slots=TENANCY_SLOTS, buckets=TENANCY_BUCKETS):
+    return mt.AdapterPool(num_layers=GPT2_SMALL["num_layers"],
+                          d_model=GPT2_SMALL["d_model"], slots=slots,
+                          rank_buckets=buckets, ctx=mt.gpu(0))
+
+
+def tenant_traffic(seed=17):
+    """(a)'s prompts, their adapters (``TENANCY_PER`` each of t0-t3, as
+    many plain) and temperatures."""
+    V = GPT2_SMALL["vocab_size"]
+    n = TENANCY_PER * (len(TENANCY_RANKS) + 1)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(1, V, size=k).astype(np.int32)
+               for k in rng.randint(64, 257, size=n)]
+    names = [f"t{i // TENANCY_PER}" if i < n - TENANCY_PER else None
+             for i in range(n)]
+    temps = [0.8 if i in TENANCY_SAMPLED else 0.0 for i in range(n)]
+    return prompts, names, temps
+
+
+def tenant_run(torch, mt, ck, dev_params, traffic, adapters, ads=None):
+    """One engine (an adapter pool with ``ads`` published when
+    ``adapters``), a warm pass of the traffic's shapes under other
+    tokens, then the traffic with the launch counts reset just before →
+    (outputs, stats, launches, wall, model)."""
+    prompts, names, temps = traffic
+    wprompts, _, _ = tenant_traffic(seed=18)
+    kw = {}
+    if adapters:
+        kw["adapters"] = adapter_pool(mt)
+        for name, (a, b, alpha) in (ads or {}).items():
+            kw["adapters"].publish(name, a, b, alpha=alpha)
+    with counted_engine(torch, mt, ck, dev_params, **kw) as eng:
+        for f in [eng.submit(p, TENANCY_NEW, temperature=t, adapter=n)
+                  for p, n, t in zip(wprompts, names, temps)]:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, TENANCY_NEW, temperature=t, adapter=n,
+                           tenant=n or "plain")
+                for p, n, t in zip(prompts, names, temps)]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches, st, model = dict(ck.LAUNCHES), eng.stats(), eng.model
+    return outs, st, launches, wall, model
+
+
+def tenancy_mixed(torch, mt, ck, dev_params, ads):
+    """(a) Mixed tenants: the traffic through a pre-adapter engine and an
+    adapter-enabled one with no adapter named (bit for bit equal), then
+    mixed (each adapter's greedy streams held by ``forward_check``
+    against its merged-weights model, the plain ones against the base)."""
+    L = GPT2_SMALL["num_layers"]
+    prompts, names, temps = tenant_traffic()
+    n = len(prompts)
+    mine = [i for i in range(n) if names[i] is None]
+    plain = (prompts, [None] * n, temps)
+    base_outs, base_st, base_launches, _, _ = tenant_run(
+        torch, mt, ck, dev_params, plain, adapters=False)
+    off_outs, off_st, off_launches, _, _ = tenant_run(
+        torch, mt, ck, dev_params, plain, adapters=True, ads=ads)
+    same = sum(a.tobytes() == b.tobytes() for a, b in zip(base_outs,
+                                                          off_outs))
+    check(same == n, f"17a: {n - same} plain streams of the adapter-"
+          f"enabled engine differ from the pre-adapter engine's")
+    outs, st, launches, wall, model = tenant_run(
+        torch, mt, ck, dev_params, (prompts, names, temps), adapters=True,
+        ads=ads)
+    for run, s, got in (("pre-adapter", base_st, base_launches),
+                        ("no adapter named", off_st, off_launches),
+                        ("mixed", st, launches)):
+        check(s["prefix_hits"] == 0 and s["prefills"] == n,
+              f"17a {run}: {s['prefix_hits']} hits, {s['prefills']} "
+              f"prefills")
+        _expect_launches(got, {
+            "flash_mha_packed": L * s["prefills"],
+            "paged_attention_decode": L * s["steps"],
+            "flash_attention_partial": 0}, f"17a {run}")
+    lens = [len(p) for p in prompts]
+    forward_check(torch, model, [prompts[i] for i in mine],
+                  [outs[i] for i in mine], [temps[i] for i in mine],
+                  [lens[i] for i in mine], "17a plain")
+    left = {}
+    for name, (a, b, alpha) in ads.items():
+        idx = [i for i in range(n) if names[i] == name]
+        merged = merged_model(torch, dev_params, a, b, alpha)
+        forward_check(torch, merged, [prompts[i] for i in idx],
+                      [outs[i] for i in idx], [temps[i] for i in idx],
+                      [lens[i] for i in idx], f"17a {name}")
+        del merged
+        # where the adapter's greedy chain leaves the base's
+        greedy = [i for i in idx if temps[i] == 0.0]
+        left[name] = [int(np.nonzero(outs[i] != base_outs[i])[0][0])
+                      if not np.array_equal(outs[i], base_outs[i])
+                      else None for i in greedy]
+        check(all(j is not None for j in left[name]),
+              f"17a {name}: a greedy chain equals the base's: {left[name]}")
+    plain_same = sum(outs[i].tobytes() == base_outs[i].tobytes()
+                     for i in mine)
+    torch.cuda.empty_cache()
+    return {"requests": n, "generated_tokens": int(sum(map(len, outs))),
+            "wall_s": wall, "tokens_per_s": sum(map(len, outs)) / wall,
+            "step_p50_ms": {"mixed": st["step_p50_ms"],
+                            "no_adapter_named": off_st["step_p50_ms"],
+                            "pre_adapter": base_st["step_p50_ms"]},
+            "ttft_p50_ms": {"mixed": st["ttft_p50_ms"],
+                            "no_adapter_named": off_st["ttft_p50_ms"],
+                            "pre_adapter": base_st["ttft_p50_ms"]},
+            "steps": st["steps"], "prefills": st["prefills"],
+            "plain_streams_bitwise": same,
+            "mixed_plain_streams_equal_to_plain_run": plain_same,
+            "greedy_chain_leaves_base_at": left,
+            "tenants": st["tenants"], "adapters": st["adapters"],
+            "launches": {k: launches[k] + off_launches[k]
+                         + base_launches[k] for k in launches}}
+
+
+def tenancy_salted(torch, mt, ck, dev_params, ads):
+    """(b) Salted prefixes: the system prompt with a new suffix each time,
+    plain, under adapter X, plain, under X, then X retired and
+    republished with other weights, under X again: hits only within a
+    salt, none on X's old chain after the republish, every stream held
+    by ``forward_check`` against its own model, B8 12 times a hit's
+    suffix prefill."""
+    L, V = GPT2_SMALL["num_layers"], GPT2_SMALL["vocab_size"]
+    rng = np.random.RandomState(23)
+    system = rng.randint(1, V, size=TENANCY_SYSTEM).astype(np.int32)
+    prompts = [np.concatenate([system, rng.randint(1, V, size=TENANCY_SUFFIX)])
+               .astype(np.int32) for _ in range(5)]
+    x, x2 = ads["t0"], tenancy_adapters(seed=22, ranks=(8,), prefix="x")["x0"]
+    order = [None, "X", None, "X", "X"]
+    outs, hits = [], []
+    with counted_engine(torch, mt, ck, dev_params,
+                        adapters=adapter_pool(mt)) as eng:
+        eng.publish_adapter("X", x[0], x[1], alpha=x[2])
+        for i, (p, name) in enumerate(zip(prompts, order)):
+            if i == 4:  # retire, then bind new weights to the name
+                retired = eng.retire_adapter("X")
+                eng.publish_adapter("X", x2[0], x2[1], alpha=x2[2])
+            outs.append(eng.generate(p, TENANCY_NEW, adapter=name))
+            hits.append(eng.stats()["prefix_hits"])
+        launches, st, model = dict(ck.LAUNCHES), eng.stats(), eng.model
+    # plain: a miss; X: a miss (its own salt); plain: a hit on the plain
+    # chain; X: a hit on X's chain; X republished: a miss
+    check(hits == [0, 0, 1, 2, 2] and retired,
+          f"17b: prefix hits after each stream {hits}, want [0, 0, 1, 2, 2]"
+          f" (retired at once: {retired})")
+    suffix = st["prefix_hits"] - st["prefix_full_hits"]
+    _expect_launches(launches, {
+        "flash_mha_packed": L * (st["prefills"] - suffix),
+        "flash_attention_partial": L * suffix}, "17b")
+    models = {None: model,
+              "X": merged_model(torch, dev_params, *x),
+              "X2": merged_model(torch, dev_params, *x2)}
+    for i, name in enumerate(order):
+        forward_check(torch, models["X2" if i == 4 else name], [prompts[i]],
+                      [outs[i]], [0.0], [len(prompts[i])], f"17b {i}")
+    del models
+    torch.cuda.empty_cache()
+    return {"hits_after_each": hits, "prefix_hit_tokens":
+            st["prefix_hit_tokens"], "suffix_prefills": suffix,
+            "ttft_hit_p50_ms": st["ttft_hit_p50_ms"],
+            "ttft_miss_p50_ms": st["ttft_miss_p50_ms"],
+            "launches": launches}
+
+
+def tenancy_hot(torch, mt, ck, dev_params):
+    """(c) Hot publish and retire: 4 rank-8 adapters fill bucket 8's 4
+    slots; 8 streams decode (2 on h0, 2 on h1, 4 plain); meanwhile h4
+    and h5 are published (evicting parked ones, never a held slot: the
+    held rows keep their bytes) and h1 is retired (deferred to its last
+    stream); then an evicted adapter serves again (a miss, re-installed).
+    At the end every adapter is retired: refcounts 0, every slot free."""
+    V = GPT2_SMALL["vocab_size"]
+    ads = tenancy_adapters(seed=24, ranks=(8,) * HOT_ADAPTERS, prefix="h")
+    rng = np.random.RandomState(25)
+    prompts = [rng.randint(1, V, size=n).astype(np.int32)
+               for n in rng.randint(64, 129, size=HOT_STREAMS)]
+    names = ["h0", "h0", "h1", "h1"] + [None] * (HOT_STREAMS - 4)
+    pool = adapter_pool(mt)
+    with counted_engine(torch, mt, ck, dev_params, adapters=pool) as eng:
+        for n in ("h0", "h1", "h2", "h3"):
+            a, b, alpha = ads[n]
+            eng.publish_adapter(n, a, b, alpha=alpha)
+        futs = [eng.submit(p, HOT_NEW, adapter=n) for p, n in zip(prompts,
+                                                                  names)]
+        deadline = time.perf_counter() + 120
+        while eng.stats()["active_streams"] < HOT_STREAMS:
+            check(time.perf_counter() < deadline, "17c: streams idle")
+            time.sleep(0.002)
+        held = {n: pool._entries[n].slot for n in ("h0", "h1")}
+        slabs = pool.slabs()
+        rows = {n: [s[held[n]].clone() for s in slabs[:2]] for n in held}
+        for n in ("h4", "h5"):
+            a, b, alpha = ads[n]
+            eng.publish_adapter(n, a, b, alpha=alpha)
+        retired_now = eng.retire_adapter("h1")
+        torch.cuda.synchronize()
+        kept = all(torch.equal(s[held[n]], r) for n in held
+                   for s, r in zip(pool.slabs()[:2], rows[n]))
+        active_during = eng.stats()["active_streams"]
+        outs = [f.result(timeout=600) for f in futs]
+        evictions = pool.stats()["evictions"]
+        again = eng.generate(prompts[0], 8, adapter="h2")  # evicted: miss
+        st = eng.stats()
+        for n in ("h0", "h2", "h3", "h4", "h5"):
+            eng.retire_adapter(n)
+        end = pool.stats()
+        refs = [pool.refcount(n) for n in ads]
+        launches = dict(ck.LAUNCHES)
+    check(st["shed"] == 0 and all(o.shape == (HOT_NEW,) for o in outs)
+          and again.shape == (8,), f"17c: shed {st['shed']}")
+    check(evictions >= 1 and kept and not retired_now
+          and active_during == HOT_STREAMS,
+          f"17c: evictions {evictions}, held rows kept {kept}, h1 retired "
+          f"at once {retired_now}, streams active {active_during}")
+    check(all(r == 0 for r in refs) and end["published"] == 0
+          and all(b["free"] == TENANCY_SLOTS and b["live"] == 0
+                  and b["parked"] == 0 for b in end["buckets"].values()),
+          f"17c: at the end refcounts {refs}, pool {end}")
+    return {"evictions": evictions, "held_rows_kept": kept,
+            "misses": end["misses"], "hits": end["hits"],
+            "publishes": end["publishes"], "retires": end["retires"],
+            "step_p50_ms": st["step_p50_ms"], "launches": launches}
+
+
+def tenancy_quota_tiers(torch, mt, ck, dev_params):
+    """(d) One decode seat and a quota of two 64 + 32-token requests: a
+    tenant's third request is shed with ``QuotaExceededError`` (the
+    per-tenant counters equal the submissions), another tenant's goes
+    through; an interactive request is admitted before two batch ones
+    submitted ahead of it."""
+    V = GPT2_SMALL["vocab_size"]
+    rng = np.random.RandomState(26)
+    prompt = rng.randint(1, V, size=QUOTA_PROMPT).astype(np.int32)
+    need = QUOTA_PROMPT + TENANCY_NEW
+    order, lock = [], threading.Lock()
+
+    def done(name):
+        def cb(_f):
+            with lock:
+                order.append(name)
+        return cb
+
+    with counted_engine(torch, mt, ck, dev_params, max_streams=1,
+                        decode_buckets=[1],
+                        tenant_quota=mt.TenantQuota(2 * need + 10)) as eng:
+        for _ in range(2):
+            eng.generate(prompt, TENANCY_NEW, tenant="q")
+        try:
+            eng.submit(prompt, TENANCY_NEW, tenant="q")
+            shed = None
+        except mt.QuotaExceededError as e:
+            shed = (e.reason, e.tenant, e.needed)
+        eng.generate(prompt, TENANCY_NEW, tenant="r")
+        st = eng.stats()
+        f0 = eng.submit(prompt, 64)  # holds the one seat
+        time.sleep(0.05)
+        futs = [(eng.submit(prompt, 2, slo_class=c), n) for c, n in (
+            ("batch", "batch1"), ("batch", "batch2"),
+            ("interactive", "interactive"))]
+        for f, n in futs:
+            f.add_done_callback(done(n))
+        for f in [f0] + [f for f, _ in futs]:
+            f.result(timeout=600)
+        launches = dict(ck.LAUNCHES)
+    q = st["tenants"]["q"]
+    check(shed == ("tenant_quota", "q", need) and st["shed"] == 1
+          and st["shed_tenant_quota"] == 1 and q["requests"] == 2
+          and q["shed"] == 1 and q["charged"] == 2 * need
+          and st["tenants"]["r"]["requests"] == 1,
+          f"17d: shed {shed}, tenants {st['tenants']}")
+    check(order.index("interactive") < min(order.index("batch1"),
+                                           order.index("batch2")),
+          f"17d: completion order {order}")
+    return {"shed": shed, "tenants": st["tenants"], "tier_order": order,
+            "launches": launches}
+
+
+def draft_params(dev_params, layers):
+    """A draft LM made of the target: its embeddings, its first
+    ``layers`` blocks, its final LayerNorm and its head."""
+    keep = {f"layer{i}_" for i in range(layers)}
+    return {k: v for k, v in dev_params.items()
+            if not k.startswith("layer") or k[:k.index("_") + 1] in keep}
+
+
+def tenancy_draft(torch, mt, ck, dev_params):
+    """(e) The draft-LM proposer, ``spec_tokens=4`` on ``spec_prompts()``
+    (run B's prompts, greedy): drafting with the target's own weights
+    and with a 2-layer draft cut from them, fp32 pages, then the 2-layer
+    draft over int8 pages; the n-gram proposer on the same prompts beside
+    them.  Run B's launch rule, B1 also ``layers`` times a draft forward;
+    the outputs held by ``forward_check`` (``INT8_MARGIN`` over int8
+    pages)."""
+    from mxnet_tpu_torch.speculative import DraftLMProposer
+
+    L, Hh = GPT2_SMALL["num_layers"], GPT2_SMALL["num_heads"]
+    prompts = spec_prompts()
+    lens = [len(p) for p in prompts]
+    # greedy: a sampled stream rejects a greedy draft with the probability
+    # the target gives other tokens (run B holds the sampled verify rows)
+    temps = [0.0] * 16
+    runs = {}
+    for label, layers, kv in (("self", L, "fp32"), ("two_layer", 2, "fp32"),
+                              ("two_layer_int8", 2, "int8"),
+                              ("ngram", None, "fp32")):
+        draft = DraftLMProposer(draft_params(dev_params, layers),
+                                num_heads=Hh, kv_block=KVB,
+                                ctx=mt.gpu(0)) if layers else "ngram"
+
+        def reset(draft=draft):
+            if layers:
+                draft.forwards = 0
+
+        model, outs, st, launches, rec = serve_run(
+            torch, mt, ck, dev_params, prompts, temps, SPEC_NEW,
+            on_reset=reset, kv_dtype=kv, spec_tokens=SPEC_K,
+            proposer=draft)
+        q = "_quant" if kv == "int8" else ""
+        plain = st["steps"] - st["spec_steps"]
+        forwards = draft.forwards if layers else 0
+        _expect_launches(launches, {
+            "flash_mha_packed": L * st["prefills"] + (layers or 0) * forwards,
+            f"paged_attention_verify{q}": L * st["spec_steps"],
+            f"paged_attention_decode{q}": L * plain,
+            "paged_attention_verify" + ("" if q else "_quant"): 0,
+            "paged_attention_decode" + ("" if q else "_quant"): 0},
+            f"17e {label}")
+        # int8 pages hold K/V to a code (max|x| / 127), which moves the
+        # logits in proportion to their size: there every engine token's
+        # logit in the fp32 full forward lies within INT8_MARGIN of the
+        # row's largest |logit| below the top one
+        forward_check(torch, model, prompts, outs, temps, lens,
+                      f"17e {label}",
+                      rel_margin=INT8_MARGIN if kv == "int8" else 0.0,
+                      band=kv == "int8")
+        rec.update(draft_layers=layers, draft_forwards=forwards,
+                   accepted_token_rate=st["accepted_token_rate"])
+        runs[label] = rec
+        del model, draft
+        torch.cuda.empty_cache()
+    check(runs["self"]["accepted_token_rate"] > 0.9,
+          f"17e: the target drafting for itself accepted "
+          f"{runs['self']['accepted_token_rate']}")
+    return runs
+
+
+def tenancy_path(torch, mt, ck):
+    """Phase 17, multi-tenant serving and the draft-LM proposer at the
+    GPT-2-class width (fp32 pages unless said, KVB 16), each run's
+    launch counts reset just before its traffic and read just after:
+    (a) ``tenancy_mixed``, (b) ``tenancy_salted``, (c) ``tenancy_hot``,
+    (d) ``tenancy_quota_tiers``, (e) ``tenancy_draft``.  A
+    ``tenancy_summary`` line."""
+    t_start = time.perf_counter()
+    dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
+    ads = tenancy_adapters()
+    parts, part_s, launches = {}, {}, {}
+    for name, fn in (("a", lambda: tenancy_mixed(torch, mt, ck, dev_params,
+                                                 ads)),
+                     ("b", lambda: tenancy_salted(torch, mt, ck, dev_params,
+                                                  ads)),
+                     ("c", lambda: tenancy_hot(torch, mt, ck, dev_params)),
+                     ("d", lambda: tenancy_quota_tiers(torch, mt, ck,
+                                                       dev_params)),
+                     ("e", lambda: tenancy_draft(torch, mt, ck, dev_params))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        part_s[name] = time.perf_counter() - t0
+        recs = parts[name].values() if name == "e" else [parts[name]]
+        for r in recs:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    del dev_params
+    torch.cuda.empty_cache()
+    e = parts["e"]
+    summary = {
+        "step_p50_ms": parts["a"]["step_p50_ms"],
+        "ttft_p50_ms": parts["a"]["ttft_p50_ms"],
+        "mixed_tokens_per_s": parts["a"]["tokens_per_s"],
+        "plain_streams_bitwise": parts["a"]["plain_streams_bitwise"],
+        "greedy_chain_leaves_base_at":
+            parts["a"]["greedy_chain_leaves_base_at"],
+        "salted_hits_after_each": parts["b"]["hits_after_each"],
+        "salted_ttft_hit_p50_ms": parts["b"]["ttft_hit_p50_ms"],
+        "hot_evictions": parts["c"]["evictions"],
+        "quota_shed": parts["d"]["shed"], "tier_order":
+            parts["d"]["tier_order"],
+        "draft": {k: {"accepted_token_rate": r["accepted_token_rate"],
+                      "tokens_per_s": r["tokens_per_s"],
+                      "decode_step_p50_ms": r["decode_step_p50_ms"],
+                      "draft_forwards": r["draft_forwards"]}
+                  for k, r in e.items()},
+        "launches": launches, "part_wall_s": part_s,
+        "wall_s": time.perf_counter() - t_start, "card": card_line()}
+    print(json.dumps({"tenancy_summary": summary}))
+    return {"parts": parts, "launches": launches, "summary": summary}
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -8228,7 +8772,8 @@ def paths_timing(root, mode="paths"):
     checked in bf16 at its shapes first), ``--ops ROOT`` phase 14
     alone (B1 built first, for the packed LM's reference step) and
     ``--core ROOT`` phase 15 alone (B1 built first), ``--prefix ROOT``
-    phase 16 alone (B1, B8 and the paged kernels built first).
+    phase 16 alone and ``--tenancy ROOT`` phase 17 alone (B1, B8 and
+    the paged kernels built first).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -8314,8 +8859,19 @@ def paths_timing(root, mode="paths"):
                                 "bf16_traced_launches")}}}))
         print(card_line())
         return 0
+    if mode == "tenancy":
+        _build.build(["flash_mha_packed", "flash_attention_partial",
+                      "paged_attention_decode",
+                      "paged_attention_decode_quant",
+                      "paged_attention_verify"])
+        rec = tenancy_path(torch, mt, ck)
+        print(json.dumps({"paths_timing": {"root": root, "tenancy_path": {
+            k: rec[k] for k in ("parts", "launches")}}}))
+        print(card_line())
+        return 0
     if mode != "nms":
         from mxnet_tpu_torch.examples import user_cuda_kernel as ex
+        from mxnet_tpu_torch.examples import user_triton_kernel as tex
 
         gelu_kernels = register_user_gelu(torch, mt)
         _build.build(sources=[(k.name, k.text, ()) for k in (
@@ -8335,7 +8891,8 @@ def paths_timing(root, mode="paths"):
         torch.cuda.empty_cache()
         rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
         print(json.dumps({"paths_timing": {"root": root, **rec}}))
-        for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0]:
+        for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0] \
+                + sum(triton_kernel_checks(torch, F, tex), []):
             print(json.dumps({"paths_timing": {"root": root, **rec}}))
         for rec in float64_check(torch, ck):
             print(json.dumps({"paths_timing": {"root": root,
@@ -8406,6 +8963,7 @@ def main():
     # the user kernels (this script and the example are users of
     # mt.rtc) build from their source text beside the port's csrc/
     from mxnet_tpu_torch.examples import user_cuda_kernel as ex
+    from mxnet_tpu_torch.examples import user_triton_kernel as tex
 
     gelu_kernels = register_user_gelu(torch, mt)
     api_names, api_kernels = register_api_ops(torch, mt)
@@ -8490,7 +9048,8 @@ def main():
     print(json.dumps({"nms_edges": {"checks": check_nms_edges(torch, ck)}}))
     torch.cuda.empty_cache()
     user_checks, user_extra = user_kernel_checks(torch, F, ex, gelu_kernels)
-    for c in user_checks + user_extra:
+    triton_checks, triton_extra = triton_kernel_checks(torch, F, tex)
+    for c in user_checks + user_extra + triton_checks + triton_extra:
         print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
     print(json.dumps({"rtc_api": rtc_api_checks(torch, mt, api_names, ex)}))
@@ -8573,6 +9132,8 @@ def main():
     print(json.dumps({"imperative": imperative_check(torch, mt, ck)}))
     example = example_path(torch, mt, ck, ex)
     print(json.dumps({"user_kernel_example": example}))
+    triton_example = example_path(torch, mt, ck, tex, op="user_triton_silu")
+    print(json.dumps({"user_triton_kernel_example": triton_example}))
     gelu = gelu_lm_path(torch, mt, ck, "user_gelu", dpa["step_p50_ms"])
     print(json.dumps({"gelu_lm_path": gelu}))
     print(json.dumps({"custom_op": custom_op_path(torch, mt)}))
@@ -8587,7 +9148,7 @@ def main():
     mark("ssd300")
     torch.cuda.empty_cache()
     earlier = [res, *runs.values(), default_lm, train, dpa, lstm, ssd,
-               example, gelu]
+               example, triton_example, gelu]
     check(all(r["launches"].get(n, 0) == 0 for r in earlier
               for n in SEQ_KERNELS), "B8/B9 launched on an earlier path")
     sequence = sequence_path(torch, mt, ck)
@@ -8634,6 +9195,10 @@ def main():
     print(json.dumps({"prefix_path": {k: prefix[k] for k in (
         "parts", "launches")}}))
     mark("prefix")
+    torch.cuda.empty_cache()
+    tenancy = tenancy_path(torch, mt, ck)
+    print(json.dumps({"tenancy_path": tenancy["parts"]}))
+    mark("tenancy")
     print(json.dumps({"phase_walls": marks}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
@@ -8644,9 +9209,11 @@ def main():
     # (the checkpointed dropout LM's B1, LSTM-PTB's lstm_scan), phase 13
     # (the bf16 LM's B1, its serving's B1 and paged kernels), phase 14
     # (none: the primitive LM's training launches no kernel) and phase 15
-    # (the packed LM's B1 under each optimizer, the mirror, the monitor)
-    # and phase 16 (serving with the prefix cache: B1 a miss, B8 a hit's
-    # suffix prefill or a chunk, the paged kernels a step)
+    # (the packed LM's B1 under each optimizer, the mirror, the monitor),
+    # phase 16 (serving with the prefix cache: B1 a miss, B8 a hit's
+    # suffix prefill or a chunk, the paged kernels a step) and phase 17
+    # (multi-tenant serving: B1 a miss and a draft LM's forward, B8 a
+    # salted hit's suffix prefill, the paged kernels a step)
     paged = "mxnet_tpu_torch/csrc/paged_attention_"
     bwd = ("mxnet_tpu_torch/csrc/flash_mha_packed_bwd.cu",
            "mxnet_tpu/ops/pallas_kernels.py:1230")
@@ -8703,7 +9270,7 @@ def main():
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
     all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops, core,
-                          prefix]
+                          prefix, tenancy]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -8717,15 +9284,18 @@ def main():
                         "plain_ms": c["plain_ms"],
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"]})
-    # the user kernels (B10's port, rtc.cuda_op): launches over the
-    # example's run (SiLU) and the GELU LM's (GELU)
+    # the user kernels (B10's port, rtc.cuda_op and rtc.triton_op):
+    # launches over the examples' runs (SiLU) and the GELU LM's (GELU)
     user_src = {"user_silu": "mxnet_tpu_torch/examples/user_cuda_kernel.py",
-                "user_gelu": "chip_smoke.py"}
-    for c in user_checks:
+                "user_gelu": "chip_smoke.py",
+                "user_triton_silu":
+                    "mxnet_tpu_torch/examples/user_triton_kernel.py"}
+    for c in user_checks + triton_checks:
         name = c["kernel"]
         launches = sum(r["launches"].get(name, 0) for r in all_runs)
         check(launches > 0, f"{name} never launched on the main paths")
-        kernels.append({"name": name, "route": "cuda",
+        kernels.append({"name": name,
+                        "route": "triton" if "triton" in name else "cuda",
                         "source": user_src[name.replace("_grad", "")],
                         "replaces": "mxnet_tpu/rtc.py:143 (pallas_op, user "
                                     "kernel)",
@@ -8751,7 +9321,8 @@ if __name__ == "__main__":
         sys.exit(decode_timing(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
                          ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"],
-                         ["--ops"], ["--core"], ["--prefix"]):
+                         ["--ops"], ["--core"], ["--prefix"],
+                         ["--tenancy"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

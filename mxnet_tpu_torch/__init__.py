@@ -2,7 +2,9 @@
 
 A second package beside the JAX reference, written for an NVIDIA H100.
 It serves the ``transformer_lm`` family through :class:`DecodeEngine`
-(fp32/bf16 or int8/fp8 KV pages, n-gram speculative decoding) and
+(fp32/bf16 or int8/fp8 KV pages, n-gram or draft-LM speculative
+decoding, a prefix cache, LoRA adapters from an :class:`AdapterPool`,
+tenant quotas and SLO classes) and
 trains it through ``mod.Module`` over the ``transformer_lm`` symbol or
 over user-written ``sym.DotProductAttention`` symbols, trains and
 scores the LSTM language model through ``mod.BucketingModule`` over
@@ -20,7 +22,8 @@ imperative function, ``nd.<op>``.  Users add operators of their own:
 ``rtc.register_op`` over a torch function, ``rtc.cuda_op`` over a
 ``__global__`` kernel written in CUDA C++ and built with ``nvcc`` at
 first use (the port of ``rtc.pallas_op``; worked example
-``examples/user_cuda_kernel.py``), and ``operator.CustomOp`` with
+``examples/user_cuda_kernel.py``), ``rtc.triton_op`` over a
+``@triton.jit`` kernel (``examples/user_triton_kernel.py``), and ``operator.CustomOp`` with
 Python forward and backward over NDArrays (``sym.Custom``).  It imports
 ``torch``, never ``jax`` and nothing of ``mxnet_tpu``.
 
@@ -65,13 +68,17 @@ from . import module
 from . import module as mod
 from . import models
 from . import speculative
+from . import adapters, slo
+from .adapters import AdapterPool, QuotaExceededError, TenantQuota
 from . import operator, rtc
 from . import sequence
 from . import monitor
 from .monitor import Monitor
 from .serving import DecodeEngine, EngineClosedError
 
-__all__ = ["DecodeEngine", "EngineClosedError", "MXNetError", "Context",
+__all__ = ["DecodeEngine", "EngineClosedError", "AdapterPool",
+           "TenantQuota", "QuotaExceededError", "adapters", "slo",
+           "MXNetError", "Context",
            "cpu", "gpu", "current_context", "context", "config", "engine",
            "executor", "Executor", "Monitor", "monitor", "Uniform",
            "Normal", "Xavier", "params_from_numpy",

@@ -33,8 +33,10 @@ CUDA event after them, without synchronizing the device; a background
 writer thread waits on that event on a stream of its own, moves the
 copies to the host, pickles, checksums, writes and commits.  The
 multi-rank parts of the JAX manager (the kvstore barrier, the shards of
-other ranks, elastic rollback), ``publish_params`` and
-``load_latest_params`` are not ported yet.
+other ranks, elastic rollback) are not ported yet.  ``publish_params``
+writes a params-only checkpoint (the draft LM's, for the ``draft_lm``
+proposer) and ``load_latest_params`` reads the newest one of either
+package.
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ from .ndarray import HostBF16, NDArray, tensor_to_host
 __all__ = [
     "CheckpointManager", "atomic_save", "atomic_write_bytes",
     "list_checkpoints", "read_commit", "verify_checkpoint", "load_shard",
-    "CkptInfo", "FORMAT", "FUSED_STATES_FORMAT", "dumps", "loads",
+    "publish_params", "load_latest_params", "CkptInfo", "FORMAT",
+    "FUSED_STATES_FORMAT", "dumps", "loads",
 ]
 
 FORMAT = "mxnet_tpu-ckpt-v1"
@@ -291,6 +294,83 @@ def load_shard(path: str, rank: int) -> Dict[str, Any]:
     if not isinstance(state, dict) or state.get("format") != FORMAT:
         raise MXNetError(f"unrecognized snapshot format in {shard!r}")
     return state
+
+
+# ---------------------------------------------------------------------------
+# weight publish / load: a committed params-only checkpoint
+# ---------------------------------------------------------------------------
+
+def publish_params(directory: str, params: Dict[str, Any], step: int,
+                   aux_params: Optional[Dict[str, Any]] = None) -> str:
+    """Write a committed params-only checkpoint ``ckpt-<step>`` under
+    ``directory`` in the format ``CheckpointManager`` commits (one
+    checksummed shard and the ``COMMIT`` manifest;
+    ``mxnet_tpu/checkpoint.py:314-354``), atomically: a reader sees the
+    old newest checkpoint or the new one.  ``params`` may hold NDArrays,
+    tensors or numpy arrays.  Returns the committed path; an existing
+    step raises."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"{_DIR_PREFIX}{int(step):012d}")
+    if os.path.isdir(final):
+        raise MXNetError(f"checkpoint step {step} already committed at "
+                         f"{final}; publish a higher step")
+    tmp = final + _TMP_SUFFIX
+    os.makedirs(tmp, exist_ok=True)
+    snap = {
+        "format": FORMAT, "step": int(step), "epoch": 0, "nbatch": 0,
+        "rank": 0, "num_shards": 1, "reason": "publish",
+        "wall_time": time.time(),
+        "arg_params": dict(params),
+        "aux_params": dict(aux_params or {}),
+        "optimizer": None, "rng": None, "iter_state": None,
+    }
+    blob = dumps(snap)
+    sha = hashlib.sha256(blob).hexdigest()
+    atomic_write_bytes(os.path.join(tmp, _shard_name(0)), blob)
+    manifest = {"format": FORMAT, "step": int(step), "num_shards": 1,
+                "shards": {"00000": {"sha256": sha, "bytes": len(blob),
+                                     "step": int(step)}},
+                "wall_time": time.time()}
+    atomic_write_bytes(os.path.join(tmp, _COMMIT_FILE),
+                       json.dumps(manifest, indent=1).encode())
+    _fsync_dir(tmp)
+    os.rename(tmp, final)
+    _fsync_dir(directory)
+    return final
+
+
+def load_latest_params(path: str):
+    """``(params, step, checkpoint path)`` of the newest committed,
+    checksum-clean checkpoint at ``path`` (one checkpoint directory, or
+    a root of ``ckpt-*`` directories), arg and aux parameters merged
+    into one dict of host arrays (bfloat16 ones as ``HostBF16``)
+    (``mxnet_tpu/checkpoint.py:357-396``).  Training checkpoints load
+    too, their optimizer and iterator payloads ignored; a corrupt newest
+    checkpoint falls back to the one before; none usable raises."""
+    if os.path.isfile(os.path.join(path, _COMMIT_FILE)):
+        candidates = [path]
+    else:
+        candidates = [i.path for i in reversed(list_checkpoints(path))
+                      if i.committed]
+    last_err: Optional[MXNetError] = None
+    for cand in candidates:
+        try:
+            state = load_shard(cand, 0)
+        except MXNetError as exc:
+            logging.warning("[ckpt] %s unusable for weight load (%s); "
+                            "trying the previous committed checkpoint",
+                            cand, exc)
+            last_err = exc
+            continue
+        params = dict(state.get("arg_params") or {})
+        params.update(state.get("aux_params") or {})
+        if not params:
+            last_err = MXNetError(f"checkpoint {cand} has no parameters")
+            continue
+        return params, int(state["step"]), cand
+    detail = f": {last_err}" if last_err is not None else ""
+    raise MXNetError(
+        f"no committed, checksum-clean checkpoint under {path!r}{detail}")
 
 
 # ---------------------------------------------------------------------------

@@ -113,7 +113,8 @@ register_env(
     "Speculative draft depth k (0 = plain decoding).")
 register_env(
     "MXNET_SERVING_PROPOSER", "ngram", str,
-    "Draft proposer of speculative decoding ('ngram').")
+    "Draft proposer of speculative decoding: 'ngram' (prompt lookup) or "
+    "'draft_lm' (a small LM from MXNET_SERVING_DRAFT_CKPT, greedy).")
 register_env(
     "MXNET_SERVING_PREFIX_CACHE", 1, int,
     "1 (default): DecodeEngine shares KV pages between streams with a "
@@ -146,8 +147,44 @@ register_env(
     "Devices of a model-parallel engine; not ported: setting it raises.")
 register_env(
     "MXNET_ADAPTER_ENABLE", 0, int,
-    "LoRA adapters in serving; not ported: 1 raises.")
+    "1: DecodeEngine builds an AdapterPool from MXNET_ADAPTER_SLOTS / "
+    "_RANK_BUCKETS and serves per-stream LoRA adapters "
+    "(submit(adapter=)): each stream's low-rank delta is gathered by "
+    "slot id into its QKV projection; streams without an adapter stay "
+    "bit for bit the pre-adapter engine's.  0 (default): no pool.  "
+    "Other values raise at engine construction.")
+register_env(
+    "MXNET_ADAPTER_SLOTS", 8, int,
+    "Resident adapter slots per rank bucket of the AdapterPool (device "
+    "rows slots + 1; row 0 the null adapter).  Publishing past capacity "
+    "evicts the least recently used parked adapter; a request for an "
+    "evicted one re-installs it from its host copy.  Must be >= 1.")
+register_env(
+    "MXNET_ADAPTER_RANK_BUCKETS", "8", str,
+    "Comma-separated LoRA rank buckets of the AdapterPool (e.g. '4,16'): "
+    "a rank-r adapter is zero-padded into the smallest bucket >= r.  "
+    "Positive, strictly increasing integers.")
 register_env(
     "MXNET_TENANT_QUOTA_TOKENS", 0, int,
-    "Per-tenant token quotas in serving; not ported: other than 0 "
+    "Per-tenant token-bucket capacity of DecodeEngine admission: a "
+    "request of a tenant charges prompt + max_new tokens; an empty "
+    "bucket sheds it with QuotaExceededError (counted per tenant in "
+    "stats()).  0 (default): quotas off.  Negative values raise.")
+register_env(
+    "MXNET_TENANT_QUOTA_REFILL", 0.0, float,
+    "Refill rate of the MXNET_TENANT_QUOTA_TOKENS buckets in tokens a "
+    "second (0, the default: a hard lifetime cap).  Negative values "
+    "raise.")
+register_env(
+    "MXNET_SERVING_DRAFT_CKPT", None, str,
+    "Checkpoint directory of the draft LM of the 'draft_lm' proposer "
+    "(MXNET_SERVING_PROPOSER): its newest committed checkpoint loads at "
+    "engine construction (either package's files); the architecture "
+    "comes from the parameter shapes, the head count from "
+    "MXNET_SERVING_DRAFT_HEADS.  Unset with the 'draft_lm' proposer "
     "raises.")
+register_env(
+    "MXNET_SERVING_DRAFT_HEADS", 0, int,
+    "Attention heads of the MXNET_SERVING_DRAFT_CKPT draft LM (a fused "
+    "QKV checkpoint does not record them); with the 'draft_lm' proposer "
+    "it must be >= 1 and divide the draft's d_model.")

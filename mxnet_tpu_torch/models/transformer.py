@@ -40,6 +40,7 @@ from .. import symbol as sym
 from ..attribute import AttrScope
 from ..base import MXNetError
 from ..ops import attention as att
+from ..ops.adapter import lora_gather_delta
 from ..ops.indexing import embedding, take
 from ..ops.nn import fully_connected, gelu, layer_norm
 
@@ -169,10 +170,21 @@ class TransformerLM(nn.Module):
     size (the JAX graphs' ``block_size=kv_block``).  Pools are passed as
     a flat list ``[k_0, v_0, k_1, v_1, ...]`` of (P, KVB, H, D) tensors
     or, for int8/fp8 pages, ``[k_0, v_0, ks_0, vs_0, ...]`` with
-    (P, KVB, H) float32 scales, and are written in place."""
+    (P, KVB, H) float32 scales, and are written in place.
+
+    ``lora`` (rank buckets, the JAX graphs' ``lora=``): the serving entry
+    points take ``adapter``, per bucket in this order an (a_slab, b_slab,
+    slots) triple (``AdapterPool.slabs()`` and the batch's (B,) slot
+    ids), as runtime arguments; each bucket applies one
+    ``lora_gather_delta`` epilogue after the fused QKV projection,
+    chained as ``_decode_block`` chains them
+    (``mxnet_tpu/models/transformer.py:188-195``: a stream sits in one
+    bucket, slot 0 in the others).  A bucket whose slots are None (no
+    stream of the batch in it) is skipped, which the where-select makes
+    exact; an empty ``adapter`` runs the pre-adapter ops."""
 
     def __init__(self, params: Dict[str, torch.Tensor], *, num_layers: int,
-                 num_heads: int, kv_block: int = 16):
+                 num_heads: int, kv_block: int = 16, lora=()):
         super().__init__()
         names = param_names(num_layers)
         missing = [n for n in names if n not in params]
@@ -182,6 +194,7 @@ class TransformerLM(nn.Module):
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.kv_block = int(kv_block)
+        self.lora = tuple(int(r) for r in lora or ())
         d_model = params["tok_embed_weight"].shape[1]
         if d_model % self.num_heads:
             raise MXNetError(f"d_model {d_model} % num_heads "
@@ -193,10 +206,26 @@ class TransformerLM(nn.Module):
     def _p(self, name: str) -> torch.Tensor:
         return getattr(self, name)
 
+    def _epilogues(self, adapter) -> List[tuple]:
+        """The (a_slab, b_slab, slots) triples of ``adapter`` whose
+        bucket holds a stream of the batch."""
+        if not adapter:
+            return []
+        if len(adapter) != 3 * len(self.lora):
+            raise MXNetError(
+                f"adapter: {len(adapter)} arguments; the model's rank "
+                f"buckets {self.lora} take an (a_slab, b_slab, slots) "
+                f"triple each")
+        return [tuple(adapter[3 * j:3 * j + 3])
+                for j in range(len(self.lora))
+                if adapter[3 * j + 2] is not None]
+
     def _trunk(self, data, positions,
-               attend: Callable[[int, torch.Tensor], torch.Tensor]):
+               attend: Callable[[int, torch.Tensor], torch.Tensor],
+               adapter=()):
         """Embedding → blocks → ln_f → head logits (float32); layer i's
-        attention sublayer is ``attend(i, qkv) -> (B, S, H*D)``.  The
+        attention sublayer is ``attend(i, qkv) -> (B, S, H*D)``, after
+        the ``adapter`` epilogues on its QKV projection.  The
         blocks run in ``pos_embed_weight``'s dtype, as the training
         symbol's ``embed_cast`` makes them run (the embedding, float32,
         is cast to it): a bf16 LM's attention meets B1's and the paged
@@ -204,12 +233,15 @@ class TransformerLM(nn.Module):
         pos = self._p("pos_embed_weight")
         x = embedding(data, self._p("tok_embed_weight")).to(pos.dtype) \
             + take(pos, positions)
+        epilogues = self._epilogues(adapter)
         for i in range(self.num_layers):
             p = f"layer{i}_"
             h = layer_norm(x, self._p(p + "ln1_gamma"),
                            self._p(p + "ln1_beta"))
             qkv = fully_connected(h, self._p(p + "qkv_weight"),
                                   self._p(p + "qkv_bias"))
+            for a_slab, b_slab, slots in epilogues:
+                qkv = lora_gather_delta(qkv, h, a_slab, b_slab, slots, i)
             a = attend(i, qkv)
             x = x + fully_connected(a, self._p(p + "proj_weight"),
                                     self._p(p + "proj_bias"))
@@ -236,7 +268,7 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, data, positions, lengths, block_table,
-                pools: Sequence[torch.Tensor]) -> torch.Tensor:
+                pools: Sequence[torch.Tensor], adapter=()) -> torch.Tensor:
         """data/positions (B, T) int, lengths (B,) int32 prompt lengths,
         block_table (B, MB) int32 → logits (B, T, vocab); every layer's
         K/V of rows < lengths lands in its pools (padding rows on the
@@ -256,12 +288,12 @@ class TransformerLM(nn.Module):
                                         lengths)
             return out
 
-        return self._trunk(data, positions, attend)
+        return self._trunk(data, positions, attend, adapter)
 
     @torch.no_grad()
     def suffix_prefill(self, data, positions, start: int, lengths,
-                       block_table, pools: Sequence[torch.Tensor]
-                       ) -> torch.Tensor:
+                       block_table, pools: Sequence[torch.Tensor],
+                       adapter=()) -> torch.Tensor:
         """The counterpart of ``transformer_lm_prefix_prefill``:
         data/positions (B, Ts) int hold the uncached suffix at positions
         ``start + i``; ``start`` (an int, block-aligned) the tokens every
@@ -282,11 +314,11 @@ class TransformerLM(nn.Module):
                 qkv, pools[2 * i], pools[2 * i + 1], block_table, start,
                 lengths, self.num_heads)
 
-        return self._trunk(data, positions, attend)
+        return self._trunk(data, positions, attend, adapter)
 
     @torch.no_grad()
     def decode(self, data, positions, lengths, block_table,
-               pools: Sequence[torch.Tensor]) -> torch.Tensor:
+               pools: Sequence[torch.Tensor], adapter=()) -> torch.Tensor:
         """One token per stream: data/positions (B, 1), lengths (B,)
         int32 counting the current token (0 = padded slot), block_table
         (B, MB) int32 → logits (B, 1, vocab); the token's K/V is written
@@ -303,11 +335,11 @@ class TransformerLM(nn.Module):
                 self.num_heads)
             return out
 
-        return self._trunk(data, positions, attend)
+        return self._trunk(data, positions, attend, adapter)
 
     @torch.no_grad()
     def verify(self, data, positions, start, lengths, block_table,
-               pools: Sequence[torch.Tensor]) -> torch.Tensor:
+               pools: Sequence[torch.Tensor], adapter=()) -> torch.Tensor:
         """The speculative verify step: data/positions (B, W) hold the
         pending token and the drafts at positions ``start[b] + w``;
         start (B,) int32 tokens cached before the window; lengths (B,)
@@ -323,7 +355,7 @@ class TransformerLM(nn.Module):
                 qkv, pools[st * i:st * (i + 1)], block_table, start,
                 lengths, self.num_heads)
 
-        return self._trunk(data, positions, attend)
+        return self._trunk(data, positions, attend, adapter)
 
     @torch.no_grad()
     def forward(self, data: torch.Tensor) -> torch.Tensor:

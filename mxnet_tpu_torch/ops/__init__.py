@@ -2,10 +2,10 @@
 the package registers every op the port carries."""
 
 from . import registry
-from . import (attention, cuda_kernels, custom, detection, elemwise, indexing,
-               init_ops, matrix, nn, optimizer_op, ordering, reduce, rnn,
-               sample, spatial)
+from . import (adapter, attention, cuda_kernels, custom, detection,
+               elemwise, indexing, init_ops, matrix, nn, optimizer_op,
+               ordering, reduce, rnn, sample, spatial)
 
-__all__ = ["registry", "attention", "cuda_kernels", "custom", "detection",
-           "elemwise", "indexing", "init_ops", "matrix", "nn",
+__all__ = ["registry", "adapter", "attention", "cuda_kernels", "custom",
+           "detection", "elemwise", "indexing", "init_ops", "matrix", "nn",
            "optimizer_op", "ordering", "reduce", "rnn", "sample", "spatial"]

@@ -7,8 +7,10 @@ with NVRTC).  The JAX package's equivalent is a Pallas kernel
 (``pallas_op``); the port's is the reference's own model again: the user
 writes a ``__global__`` kernel in CUDA C++, the framework builds it with
 ``nvcc`` at first use (``_build.build_sources``) and launches it on the
-inputs' stream.  Whatever is registered is exposed everywhere a built-in
-op appears:
+inputs' stream (``cuda_op``).  A kernel in a Python kernel language, as
+Pallas is, is a Triton kernel (``triton_op``): the user writes a
+``@triton.jit`` function, Triton compiles it at first use.  Whatever is
+registered is exposed everywhere a built-in op appears:
 
 * imperatively: ``mt.nd.<name>(x, y)``;
 * symbolically: ``mt.sym.<name>(a, b)``, through ``bind``/``forward``/
@@ -23,17 +25,24 @@ op appears:
 ``cuda_kernel`` follows the rule of ``ops/cuda_kernels.py``: a CPU tensor
 goes to the user's ``plain`` PyTorch version (a CPU call without one
 raises); a CUDA tensor launches the kernel or raises.  Nothing falls
-back and nothing is compiled at import or registration.  ``LAUNCHES``
-counts each kernel's successful launches, nowhere else.
+back and nothing is compiled at import or registration; ``triton`` is
+imported at a Triton kernel's first CUDA call and nowhere else.
+``LAUNCHES`` counts each kernel's successful launches, nowhere else.
 
-Worked example: ``mxnet_tpu_torch/examples/user_cuda_kernel.py``.
+Worked examples: ``mxnet_tpu_torch/examples/user_cuda_kernel.py`` and
+``mxnet_tpu_torch/examples/user_triton_kernel.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import importlib.util
 import math
+import os
 import re
+import sys
+import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -44,8 +53,8 @@ from .ndarray import dtype_name, torch_dtype
 from .ops import cuda_kernels as _ck
 from .ops import registry as _reg
 
-__all__ = ["register_op", "cuda_kernel", "cuda_op", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["register_op", "cuda_kernel", "cuda_op", "triton_kernel",
+           "triton_op", "LAUNCHES", "reset_launch_counts"]
 
 LAUNCHES: Dict[str, int] = {}
 
@@ -238,7 +247,83 @@ def _out_specs(spec) -> Tuple[list, bool]:
         single
 
 
-class cuda_kernel:
+class _UserKernel:
+    """What the two routes of a user kernel share (``cuda_kernel``,
+    ``triton_kernel``): the name, which keys ``LAUNCHES`` and may not be
+    a built-in kernel's; the output specs from ``out_like``; the checks
+    of a call's inputs; and the plain route, ``plain(*inputs)``, that a
+    CPU tensor takes."""
+
+    route = ""
+
+    def __init__(self, kernel: str, name: Optional[str], out_like, plain,
+                 dtype):
+        if not _IDENT.match(kernel):
+            raise MXNetError(f"kernel {kernel!r} is not a C identifier")
+        self.name = name or kernel
+        if not _IDENT.match(self.name):
+            raise MXNetError(f"kernel name {self.name!r}: letters, digits "
+                             f"and _ only")
+        if self.name in _ck.LAUNCHES:
+            raise MXNetError(f"kernel name {self.name!r} is a built-in "
+                             f"kernel's; name the user kernel otherwise")
+        if not callable(out_like) and not isinstance(out_like, int):
+            raise MXNetError("out_like: an input index or a callable")
+        self.kernel = kernel
+        self.out_like, self.plain = out_like, plain
+        self.dtype = None if dtype is None else torch_dtype(dtype)
+        self._plans: Dict[tuple, tuple] = {}
+        LAUNCHES.setdefault(self.name, 0)
+
+    def __repr__(self):
+        return f"<{type(self).__name__} {self.name} ({self.kernel})>"
+
+    def output_specs(self, inputs) -> Tuple[list, bool]:
+        if callable(self.out_like):
+            return _out_specs(self.out_like(*inputs))
+        x = inputs[self.out_like]
+        return [(tuple(x.shape), x.dtype)], True
+
+    def _check_inputs(self, inputs) -> torch.device:
+        if not inputs:
+            raise MXNetError(f"{self.name}: takes at least one input tensor")
+        for i, t in enumerate(inputs):
+            if not isinstance(t, torch.Tensor):
+                raise MXNetError(f"{self.name}: input {i} is a {type(t)}, "
+                                 f"not a torch.Tensor")
+            if self.dtype is not None and t.dtype != self.dtype:
+                raise MXNetError(
+                    f"{self.name}: input {i} is {dtype_name(t.dtype)}; the "
+                    f"kernel takes {dtype_name(self.dtype)}")
+        devs = {t.device for t in inputs}
+        if len(devs) != 1:
+            raise MXNetError(f"{self.name}: inputs on several devices {devs}")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            raise MXNetError(
+                f"{self.name}: an input requires a gradient, which a kernel "
+                f"call would drop; register it with rtc.{self.route.lower()}"
+                f"_op(..., vjp=) to differentiate through it")
+        dev = devs.pop()
+        if dev.type not in ("cpu", "cuda"):
+            raise MXNetError(f"{self.name}: no kernel for device {dev}")
+        return dev
+
+    def _plain_call(self, inputs, specs, single):
+        if self.plain is None:
+            raise MXNetError(
+                f"{self.name}: CPU tensors need plain=, the kernel's plain "
+                f"PyTorch version; the {self.route} kernel runs only on a "
+                f"CUDA device")
+        out = self.plain(*inputs)
+        outs = [out] if single else list(out)
+        got = [(tuple(o.shape), o.dtype) for o in outs]
+        if got != specs:
+            raise MXNetError(f"{self.name}: plain version gave {got}, "
+                             f"out_like says {specs}")
+        return out
+
+
+class cuda_kernel(_UserKernel):
     """A callable on tensors that launches the ``__global__`` function
     ``kernel`` of the CUDA C++ text ``source``; what ``pallas_op``'s
     inner function does (``mxnet_tpu/rtc.py:165-198``).
@@ -272,42 +357,20 @@ class cuda_kernel:
     ``kernel``; not a built-in kernel's) keys ``LAUNCHES`` and the built
     library."""
 
+    route = "CUDA"
+
     def __init__(self, source: str, kernel: str, out_like=0, grid=None,
                  block=256, shared_mem: int = 0,
                  scalars: Optional[Callable] = None,
                  plain: Optional[Callable] = None, dtype="float32",
                  name: Optional[str] = None):
-        if not _IDENT.match(kernel):
-            raise MXNetError(f"kernel {kernel!r} is not a C identifier")
-        self.name = name or kernel
-        if not _IDENT.match(self.name):
-            raise MXNetError(f"kernel name {self.name!r}: letters, digits "
-                             f"and _ only")
-        if self.name in _ck.LAUNCHES:
-            raise MXNetError(f"kernel name {self.name!r} is a built-in "
-                             f"kernel's; name the user kernel otherwise")
-        if not callable(out_like) and not isinstance(out_like, int):
-            raise MXNetError("out_like: an input index or a callable")
-        self.kernel = kernel
+        super().__init__(kernel, name, out_like, plain, dtype)
         self.text = source + _LAUNCHER.format(kernel=kernel,
                                               max_args=MAX_KERNEL_ARGS)
-        self.out_like, self.grid, self.scalars = out_like, grid, scalars
+        self.grid, self.scalars = grid, scalars
         self.block = _dims(block, "block")
         self.shared_mem = int(shared_mem)
-        self.plain = plain
-        self.dtype = torch_dtype(dtype)
         self._lib = self._entry = None
-        self._plans: Dict[tuple, tuple] = {}
-        LAUNCHES.setdefault(self.name, 0)
-
-    def __repr__(self):
-        return f"<cuda_kernel {self.name} ({self.kernel})>"
-
-    def output_specs(self, inputs) -> Tuple[list, bool]:
-        if callable(self.out_like):
-            return _out_specs(self.out_like(*inputs))
-        x = inputs[self.out_like]
-        return [(tuple(x.shape), x.dtype)], True
 
     def launch_dims(self, inputs, specs):
         """(grid, block) for outputs of ``specs`` (``output_specs``):
@@ -354,45 +417,11 @@ class cuda_kernel:
             plan = self._plans[key] = (specs, single, dims, scal)
         return plan
 
-    def _check_inputs(self, inputs) -> torch.device:
-        if not inputs:
-            raise MXNetError(f"{self.name}: takes at least one input tensor")
-        for i, t in enumerate(inputs):
-            if not isinstance(t, torch.Tensor):
-                raise MXNetError(f"{self.name}: input {i} is a {type(t)}, "
-                                 f"not a torch.Tensor")
-            if t.dtype != self.dtype:
-                raise MXNetError(
-                    f"{self.name}: input {i} is {dtype_name(t.dtype)}; the "
-                    f"kernel takes {dtype_name(self.dtype)}")
-        devs = {t.device for t in inputs}
-        if len(devs) != 1:
-            raise MXNetError(f"{self.name}: inputs on several devices {devs}")
-        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-            raise MXNetError(
-                f"{self.name}: an input requires a gradient, which a kernel "
-                f"call would drop; register it with rtc.cuda_op(..., vjp=) "
-                f"to differentiate through it")
-        return devs.pop()
-
     def __call__(self, *inputs: torch.Tensor):
         dev = self._check_inputs(inputs)
-        if dev.type not in ("cpu", "cuda"):
-            raise MXNetError(f"{self.name}: no kernel for device {dev}")
         specs, single, dims, scal = self.plan(inputs, dev)
         if dev.type == "cpu":
-            if self.plain is None:
-                raise MXNetError(
-                    f"{self.name}: CPU tensors need plain=, the kernel's "
-                    f"plain PyTorch version; the CUDA kernel runs only on a "
-                    f"CUDA device")
-            out = self.plain(*inputs)
-            outs = [out] if single else list(out)
-            got = [(tuple(o.shape), o.dtype) for o in outs]
-            if got != specs:
-                raise MXNetError(f"{self.name}: plain version gave {got}, "
-                                 f"out_like says {specs}")
-            return out
+            return self._plain_call(inputs, specs, single)
         outs = [torch.empty(s, dtype=dt, device=dev) for s, dt in specs]
         if dims is None:  # every output empty: nothing to compute
             return outs[0] if single else tuple(outs)
@@ -432,10 +461,10 @@ class cuda_kernel:
         return self._entry
 
 
-def _no_vjp(name: str) -> Callable:
+def _no_vjp(name: str, what: str = "cuda_op") -> Callable:
     def vjp(inputs, out_grads):
         raise MXNetError(
-            f"cuda_op {name!r} has no vjp: a raw kernel has no derivative "
+            f"{what} {name!r} has no vjp: a raw kernel has no derivative "
             f"autograd can take; pass vjp= to differentiate through it")
 
     return vjp
@@ -463,3 +492,156 @@ def cuda_op(name: str, source: str, kernel: str,
     op.kernel = fn
     return op
 
+
+
+# ---------------------------------------------------------------------------
+# user Triton kernels
+# ---------------------------------------------------------------------------
+
+
+class triton_kernel(_UserKernel):
+    """A callable on tensors that launches the ``@triton.jit`` function
+    ``kernel`` of the Python module text ``source``; the port's
+    counterpart of ``pallas_op``'s inner function, in a Python kernel
+    language as Pallas is (``mxnet_tpu/rtc.py:165-198``).
+    ``kernel(*inputs)`` returns the output tensor, or a tuple when
+    ``out_like`` gives several.
+
+    The kernel's arguments, in order: each input, each output (Triton
+    takes tensors as pointers), the element count of output 0, then
+    ``meta`` as keywords: its ``tl.constexpr`` values and, if given,
+    ``num_warps``/``num_stages``.  Inputs must lie on one device; they
+    are made contiguous.  Outputs are new ``torch.empty`` tensors, as
+    ``cuda_kernel``'s: ``out_like`` is an input index or a callable of
+    the inputs returning ``(shape, dtype)`` or a list of them.
+    ``grid``: None (``ceil(n / meta["BLOCK"])`` programs over output 0's
+    n elements), a tuple, or ``grid(*inputs, meta) -> tuple``; computed
+    once per (shapes, dtypes, device) key (``plan``).
+
+    A CPU tensor goes to ``plain(*inputs)``.  At the first call on a
+    CUDA tensor ``triton`` is imported (its absence raises, naming the
+    kernel), the text is written to ``mxnet_tpu_torch/build/`` (Triton's
+    ``jit`` reads its function's source from a file) and imported from
+    there, and Triton compiles the kernel for the inputs' types; the
+    launch runs on the current stream.  Nothing is imported or compiled
+    before that.  ``name`` (default ``kernel``; not a built-in kernel's)
+    keys ``LAUNCHES``."""
+
+    route = "Triton"
+
+    def __init__(self, source: str, kernel: str, out_like=0, grid=None,
+                 meta: Optional[Dict] = None,
+                 plain: Optional[Callable] = None,
+                 name: Optional[str] = None):
+        super().__init__(kernel, name, out_like, plain, None)
+        self.text, self.grid, self.meta = source, grid, dict(meta or {})
+        self._fn = None
+
+    def launch_grid(self, inputs, specs):
+        """The launch grid for outputs of ``specs`` (``output_specs``),
+        as a 3-tuple; None when every output is empty (nothing to
+        launch), and a grid without programs for a non-empty output
+        raises."""
+        if self.grid is None:
+            if "BLOCK" not in self.meta:
+                raise MXNetError(f"{self.name}: grid=None takes "
+                                 f"meta['BLOCK'], the elements a program")
+            grid = (math.ceil(math.prod(specs[0][0])
+                              / int(self.meta["BLOCK"])),)
+        else:
+            grid = self.grid(*inputs, self.meta) if callable(self.grid) \
+                else self.grid
+        grid = _dims(grid, f"{self.name}: grid")
+        if 0 in grid:
+            if any(math.prod(s) for s, _ in specs):
+                raise MXNetError(f"{self.name}: grid {grid} launches no "
+                                 f"program, but an output is not empty")
+            return None
+        return grid
+
+    def plan(self, inputs, dev: torch.device) -> tuple:
+        """(output specs, single, grid) for inputs of these shapes and
+        dtypes on ``dev``, computed at a key's first call and cached; the
+        grid is None on the CPU."""
+        key = (tuple(t.shape for t in inputs),
+               tuple(t.dtype for t in inputs), dev)
+        plan = self._plans.get(key)
+        if plan is None:
+            specs, single = self.output_specs(inputs)
+            grid = self.launch_grid(inputs, specs) if dev.type == "cuda" \
+                else None
+            plan = self._plans[key] = (specs, single, grid)
+        return plan
+
+    def __call__(self, *inputs: torch.Tensor):
+        dev = self._check_inputs(inputs)
+        specs, single, grid = self.plan(inputs, dev)
+        if dev.type == "cpu":
+            return self._plain_call(inputs, specs, single)
+        outs = [torch.empty(s, dtype=dt, device=dev) for s, dt in specs]
+        if grid is None:  # every output empty: nothing to compute
+            return outs[0] if single else tuple(outs)
+        xs = [t.contiguous() for t in inputs]
+        fn = self._load()
+        n = math.prod(specs[0][0])
+        if dev.index == torch.cuda.current_device():
+            fn[grid](*xs, *outs, n, **self.meta)
+        else:
+            with torch.cuda.device(dev):
+                fn[grid](*xs, *outs, n, **self.meta)
+        LAUNCHES[self.name] += 1
+        return outs[0] if single else tuple(outs)
+
+    def _load(self):
+        """The ``@triton.jit`` function, imported at the first CUDA call
+        from the source written under ``_build.BUILD_DIR``."""
+        if self._fn is not None:
+            return self._fn
+        # no try here: a kernel that cannot load raises, never falls back
+        if not (sys.modules.get("triton") if "triton" in sys.modules
+                else importlib.util.find_spec("triton")):
+            raise MXNetError(
+                f"{self.name}: a Triton kernel needs the triton package at "
+                f"its first CUDA call, and it is not installed")
+        import triton  # noqa: F401  (the kernel module imports it)
+        digest = hashlib.sha256(self.text.encode()).hexdigest()[:16]
+        path = _build.BUILD_DIR / f"triton_{self.name}-{digest}.py"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if not path.exists():
+            tmp = path.with_name(f"{path.name}.{os.getpid()}."
+                                 f"{threading.get_ident()}.tmp")
+            tmp.write_text(self.text)
+            os.replace(tmp, path)
+        spec = importlib.util.spec_from_file_location(
+            f"mxnet_tpu_torch_triton_{self.name}_{digest}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        fn = getattr(module, self.kernel, None)
+        if fn is None or not hasattr(fn, "run"):
+            raise MXNetError(f"{self.name}: the source defines no "
+                             f"@triton.jit function {self.kernel!r}")
+        self._fn = fn
+        return fn
+
+
+def triton_op(name: str, source: str, kernel: str,
+              arg_names: Sequence[str] = ("data",), out_like=0, grid=None,
+              meta: Optional[Dict] = None, plain: Optional[Callable] = None,
+              vjp: Optional[Callable] = None,
+              infer_shape: Optional[Callable] = None, doc: str = ""):
+    """Register a user Triton kernel as a named operator:
+    ``register_op(name, triton_kernel(...), ...)``, the port's
+    ``pallas_op`` in a Python kernel language (``mxnet_tpu/rtc.py:143``).
+    ``source`` is the text of a module holding the ``@triton.jit``
+    function ``kernel``; ``grid`` a tuple or ``grid(*inputs, meta)``;
+    ``meta`` the ``tl.constexpr`` values.  The kernel's launches count
+    under ``name``.  Without ``vjp`` the op runs forward, and
+    differentiating through it raises."""
+    _check_name(name)
+    fn = triton_kernel(source, kernel, out_like=out_like, grid=grid,
+                       meta=meta, plain=plain, name=name)
+    op = register_op(name, fn, arg_names=arg_names, infer_shape=infer_shape,
+                     vjp=vjp or _no_vjp(name, "triton_op"), doc=doc or
+                     f"user Triton kernel op (mxnet_tpu_torch.rtc.triton_op)")
+    op.kernel = fn
+    return op

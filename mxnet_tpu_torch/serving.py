@@ -35,10 +35,22 @@ entry point and semantics:
   a prompt whose uncached part exceeds the chunk prefills one chunk per
   scheduler iteration, each a suffix prefill, with the decode step of
   the active streams between chunks; pages are charged chunk by chunk;
+* **multi-tenancy** (``adapters`` / ``MXNET_ADAPTER_ENABLE``,
+  ``tenant_quota`` / ``MXNET_TENANT_QUOTA_TOKENS``): a request names an
+  adapter of the engine's ``adapters.AdapterPool`` (published and
+  retired hot, ``publish_adapter`` / ``retire_adapter``), whose
+  low-rank delta every forward of the stream adds to its QKV
+  projection (``ops.adapter.lora_gather_delta``, the slabs and the
+  batch's slot ids runtime arguments); a request of a tenant charges
+  the tenant's token bucket or is shed with ``QuotaExceededError``;
+  the prefix cache keys an adapter stream's pages by the adapter's
+  name, so no other stream matches them;
 * admission is keyed to free pages (the prompt's pages plus one block
-  of headroom); when a growing stream finds the pool empty, the
-  youngest other stream is preempted (one whose pages are its own
-  first) and re-queued for re-prefill (recompute-style);
+  of headroom), the first ``interactive`` request ahead of ``batch``
+  ones (``submit(slo_class=)``); when a growing stream finds the pool
+  empty, the youngest other stream is preempted (one whose pages are
+  its own first, a ``batch`` one before an ``interactive`` one) and
+  re-queued for re-prefill (recompute-style);
 * batch size, table width and prompt length are bucketed on doubling
   ladders, so the kernels see few distinct shapes.
 
@@ -48,7 +60,10 @@ its own thread; kernels launch on that thread's current CUDA stream,
 and the step's one device-to-host copy synchronises that stream only.
 
 Features of the JAX engine outside this slice raise ``MXNetError("...
-not ported yet")`` when asked for by argument or environment variable.
+not ported yet")`` when asked for by argument or environment variable:
+tp/pp/devices, ``prefill_only``, ``trace=``, ``canary=``,
+``cost_records()`` and the ``cost_*`` statistics, ``swap_params``,
+``import_stream``.
 """
 
 from __future__ import annotations
@@ -63,6 +78,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import slo as _slo
+from .adapters import (AdapterPool, QuotaExceededError, TenantQuota,
+                       adapters_enabled, pool_from_env, quota_from_env)
 from .base import MXNetError, get_env, not_ported
 from .context import current_context
 from .convert import params_from_numpy
@@ -136,7 +154,7 @@ def _env_buckets(name: str, default):
     return vals
 
 
-def _refuse_unported(*, tp, pp, devices, adapters, tenant_quota) -> None:
+def _refuse_unported(*, tp, pp, devices) -> None:
     """Raise for every feature of the JAX engine this port does not
     carry yet, asked for by argument or by environment variable."""
     tp = tp if tp is not None else _env_int("MXNET_SERVING_TP", 1, 1)
@@ -145,13 +163,26 @@ def _refuse_unported(*, tp, pp, devices, adapters, tenant_quota) -> None:
             or os.environ.get("MXNET_SERVING_DEVICES"):
         raise not_ported("model-parallel serving (tp / pp / devices / "
                          "MXNET_SERVING_TP / _PP / _DEVICES)")
-    if (adapters is not None and adapters is not False) \
-            or _env_int("MXNET_ADAPTER_ENABLE", 0, 0):
-        raise not_ported("LoRA adapters (adapters / MXNET_ADAPTER_ENABLE)")
-    if tenant_quota is not None \
-            or _env_int("MXNET_TENANT_QUOTA_TOKENS", 0, 0):
-        raise not_ported("tenant quotas (tenant_quota / "
-                         "MXNET_TENANT_QUOTA_TOKENS)")
+
+
+def _prefix_salt(s) -> bytes:
+    """The prefix-cache namespace of a stream: its adapter's name.  An
+    adapter's K/V is a function of (tokens, adapter), so a prefix
+    prefilled under adapter X never serves a plain stream or one of Y;
+    plain streams keep the unsalted tree."""
+    return s.adapter.encode("utf-8") if s.adapter else b""
+
+
+class _Stats(dict):
+    """``stats()``: a dict whose per-request cost keys (``cost_by_class``,
+    ``cost_by_tenant``, ...) raise ``not_ported`` when read."""
+
+    def __missing__(self, key):
+        if isinstance(key, str) and key.startswith("cost_"):
+            raise not_ported(f"per-request cost attribution (stats()"
+                             f"[{key!r}]; the SLO tracker of queue A "
+                             f"item 8)")
+        raise KeyError(key)
 
 
 class _Metrics:
@@ -193,9 +224,11 @@ class _Stream:
     __slots__ = ("sid", "prompt", "max_new", "temp", "eos", "future",
                  "seed", "generated", "blocks", "length", "next_token",
                  "resume", "t_submit", "t_admit", "t_enqueue",
-                 "cached_len", "await_first", "t_chunk0")
+                 "cached_len", "await_first", "t_chunk0", "slo_class",
+                 "tenant", "adapter", "adapter_bucket", "adapter_slot")
 
-    def __init__(self, sid, prompt, max_new, temp, eos, future, seed):
+    def __init__(self, sid, prompt, max_new, temp, eos, future, seed,
+                 slo_class="interactive", tenant=None, adapter=None):
         self.sid = sid
         self.prompt = prompt          # np.int32 (P,)
         self.max_new = max_new
@@ -214,6 +247,11 @@ class _Stream:
         self.cached_len = 0           # prefix-cache tokens attached
         self.await_first = False      # full hit: first token pending
         self.t_chunk0 = 0.0           # chunked prefill: first chunk start
+        self.slo_class = slo_class    # validated at submit()
+        self.tenant = tenant          # quota and per-tenant counters key
+        self.adapter = adapter        # published adapter name | None
+        self.adapter_bucket = None    # rank bucket (set on acquire)
+        self.adapter_slot = None      # pool slot, None once released
 
     def prefill_seq(self) -> np.ndarray:
         """Tokens whose K/V the cache must hold before the next decode
@@ -291,6 +329,15 @@ class DecodeEngine:
     prefill_chunk : int
         Chunk size in tokens (env ``MXNET_SERVING_PREFILL_CHUNK``, a
         multiple of ``kv_block``; default 0 = whole-prompt prefill).
+    adapters : AdapterPool, True or None
+        The LoRA adapter pool requests name adapters of (its slabs on
+        the engine's device, its geometry the model's: ``num_layers``,
+        ``d_model``, d_out ``3 * d_model``); True builds one from
+        ``MXNET_ADAPTER_SLOTS`` / ``_RANK_BUCKETS``; None (default)
+        follows ``MXNET_ADAPTER_ENABLE``.
+    tenant_quota : TenantQuota, optional
+        Per-tenant token buckets of admission (default: from
+        ``MXNET_TENANT_QUOTA_TOKENS`` / ``_REFILL``, off at 0).
     """
 
     def __init__(self, params, *, vocab_size, num_layers, num_heads,
@@ -302,8 +349,7 @@ class DecodeEngine:
                  spec_tokens=None, proposer=None, prefill_chunk=None,
                  tp=None, pp=None, devices=None, adapters=None,
                  tenant_quota=None):
-        _refuse_unported(tp=tp, pp=pp, devices=devices, adapters=adapters,
-                         tenant_quota=tenant_quota)
+        _refuse_unported(tp=tp, pp=pp, devices=devices)
         self._kv_dtype = kv_dtype if kv_dtype is not None else \
             get_env("MXNET_SERVING_KV_DTYPE", "fp32", str)
         if self._kv_dtype not in KV_DTYPES:
@@ -336,6 +382,8 @@ class DecodeEngine:
             _env_int("MXNET_SERVING_SPEC_TOKENS", 0, 0)
         if self._spec_k < 0:
             raise MXNetError(f"spec_tokens {self._spec_k} must be >= 0")
+        ctx = ctx if ctx is not None else current_context()
+        self._device = ctx.torch_device()  # gpu without CUDA raises
         if proposer is None or isinstance(proposer, str):
             name = proposer if proposer is not None else \
                 get_env("MXNET_SERVING_PROPOSER", "ngram", str)
@@ -343,7 +391,10 @@ class DecodeEngine:
                 raise MXNetError(f"MXNET_SERVING_PROPOSER={name!r} must be "
                                  f"one of {PROPOSERS}")
             self._proposer_name = name
-            self._proposer = make_proposer(name) if self._spec_k else None
+            # a draft LM drafts on the engine's device
+            kw = {"ctx": ctx} if name == "draft_lm" else {}
+            self._proposer = make_proposer(name, **kw) if self._spec_k \
+                else None
         else:  # a custom proposer instance
             if not callable(getattr(proposer, "propose", None)):
                 raise MXNetError(f"proposer {proposer!r} must expose "
@@ -373,9 +424,6 @@ class DecodeEngine:
             raise MXNetError(f"max_streams {self._max_streams} must be "
                              f">= 1")
 
-        ctx = ctx if ctx is not None else current_context()
-        self._device = ctx.torch_device()  # gpu without CUDA raises
-
         if "pos_embed_weight" not in params:
             raise MXNetError(
                 "params has no 'pos_embed_weight' — DecodeEngine serves "
@@ -386,10 +434,55 @@ class DecodeEngine:
             raise MXNetError(
                 f"max_len {self._max_len} exceeds the model's learned "
                 f"positions ({pos_rows} pos_embed_weight rows)")
+        # -- LoRA adapters and tenant quotas (mxnet_tpu/serving.py:1303-1350)
+        if adapters is None:
+            adapters = adapters_enabled()
+        if adapters is True:
+            adapters = pool_from_env(self._L, int(d_model), ctx=ctx)
+        elif adapters is False:
+            adapters = None
+        if adapters is not None and not isinstance(adapters, AdapterPool):
+            raise MXNetError(
+                f"adapters must be an AdapterPool, True (build from "
+                f"MXNET_ADAPTER_* env), or None; got {adapters!r}")
+        self._adapter_pool = adapters
+        if adapters is not None:
+            if adapters.num_layers != self._L \
+                    or adapters.d_model != int(d_model) \
+                    or adapters.d_out != 3 * int(d_model):
+                raise MXNetError(
+                    f"AdapterPool geometry (layers={adapters.num_layers}, "
+                    f"d_model={adapters.d_model}, d_out={adapters.d_out}) "
+                    f"does not match the engine (layers={self._L}, d_model="
+                    f"{int(d_model)}, d_out={3 * int(d_model)})")
+            if adapters.device != self._device:
+                raise MXNetError(
+                    f"AdapterPool slabs lie on {adapters.device}; the "
+                    f"engine serves on {self._device} (AdapterPool(ctx=))")
+        self._lora = tuple(adapters.rank_buckets) if adapters is not None \
+            else ()
+        if tenant_quota is None:
+            tenant_quota = quota_from_env()
+        if tenant_quota is not None \
+                and not isinstance(tenant_quota, TenantQuota):
+            raise MXNetError(f"tenant_quota must be a TenantQuota or None; "
+                             f"got {tenant_quota!r}")
+        self._quota = tenant_quota
+        # per-tenant requests / tokens / shed, at the global counters' sites
+        self._tenants: Dict[str, Dict[str, float]] = {}
+        # a draft LM that tokenizes otherwise would propose other ids
+        if self._proposer is not None \
+                and hasattr(self._proposer, "vocab_size") \
+                and int(self._proposer.vocab_size) != int(vocab_size):
+            raise MXNetError(
+                f"draft_lm proposer vocab {self._proposer.vocab_size} "
+                f"!= target vocab {int(vocab_size)} — draft and "
+                f"target must share a tokenizer")
+
         dev_params = params_from_numpy(params, self._device, dtype=None)
         self._model = TransformerLM(dev_params, num_layers=self._L,
                                     num_heads=self._H,
-                                    kv_block=self._kv_block)
+                                    kv_block=self._kv_block, lora=self._lora)
         want = {"tok_embed_weight": (int(vocab_size), int(d_model))}
         if self._L:
             want["layer0_ff1_weight"] = (int(d_ff or 4 * d_model),
@@ -472,6 +565,9 @@ class DecodeEngine:
         self._active: List[_Stream] = []
         self._admitting: Optional[_Stream] = None
         self._prefilling: Optional[_Stream] = None  # mid-chunked-prefill
+        # adapter salts whose prefix chains the scheduler drops before
+        # its next admission (publish / retire of the adapter)
+        self._prefix_dirty: List[bytes] = []
         self._accepting = True
         self._alive = True
         self._next_sid = 0
@@ -485,21 +581,31 @@ class DecodeEngine:
     # client surface
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, temperature=None,
-               eos_id=None, seed=None, trace=None, prefill_only=False,
-               tenant=None, adapter=None) -> Future:
+               eos_id=None, seed=None, trace=None, slo_class="interactive",
+               canary=False, prefill_only=False, tenant=None,
+               adapter=None) -> Future:
         """Enqueue one generation; the Future resolves to the np.int32
         array of generated token ids (eos, when hit, included).
 
         ``seed`` overrides the stream's sampling seed (default: the
         engine-local stream id + 1); sampling is keyed by (engine seed,
-        stream seed, position)."""
+        stream seed, position).  ``slo_class`` (``"interactive"``, the
+        default, or ``"batch"``): an interactive request is admitted
+        ahead of batch ones, and batch streams are preempted first.
+        ``tenant`` charges prompt + ``max_new_tokens`` tokens to the
+        tenant's quota (``QuotaExceededError`` when it cannot pay,
+        counted under ``shed_tenant_quota``); ``adapter`` names a
+        published adapter of the engine's pool, whose reference the
+        stream holds until it ends."""
+        _slo.check_class(slo_class)
+        if canary:
+            raise not_ported("canary probes (submit(canary=True); the SLO "
+                             "tracker of queue A item 8)")
         if prefill_only:
             raise not_ported("prefill_only stream export (disaggregated "
                              "serving)")
         if trace is not None:
             raise not_ported("request tracing (trace=)")
-        if tenant is not None or adapter is not None:
-            raise not_ported("multi-tenant requests (tenant= / adapter=)")
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
             raise MXNetError(f"prompt must be a non-empty 1-D token array; "
@@ -522,20 +628,50 @@ class DecodeEngine:
         if need > self._alloc.capacity:
             raise MXNetError(f"request needs {need} cache blocks but the "
                              f"pool only has {self._alloc.capacity}")
-        temp = self._temperature if temperature is None \
-            else float(temperature)
-        eos = self._eos if eos_id is None else eos_id
-        fut: Future = Future()
-        with self._cond:
-            if not self._accepting:
-                raise EngineClosedError("DecodeEngine is closed")
-            s = _Stream(self._next_sid, prompt, max_new, temp, eos, fut,
-                        seed=(self._next_sid + 1 if seed is None
-                              else int(seed)))
-            self._next_sid += 1
-            self._pending.append(s)
-            self._cond.notify_all()
+        # tenancy: the quota's charge and the adapter's reference, before
+        # the stream takes any engine state (mxnet_tpu/serving.py:1550-1602)
+        if adapter is not None and self._adapter_pool is None:
+            raise MXNetError(
+                f"request names adapter {adapter!r} but the engine has no "
+                f"adapter pool (MXNET_ADAPTER_ENABLE=1 or "
+                f"adapters=AdapterPool(...))")
+        tenant = str(tenant) if tenant is not None else None
+        charged = self._quota is not None and tenant is not None
+        if charged:
+            try:
+                self._quota.charge(tenant, prompt.size + max_new)
+            except QuotaExceededError:
+                self._metrics.inc("shed")
+                self._metrics.inc("shed_tenant_quota")
+                self._tenant_count(tenant, "shed")
+                raise
+        ad_bucket = ad_slot = None
+        try:
+            if adapter is not None:
+                ad_bucket, ad_slot = self._adapter_pool.acquire(adapter)
+            temp = self._temperature if temperature is None \
+                else float(temperature)
+            eos = self._eos if eos_id is None else eos_id
+            fut: Future = Future()
+            with self._cond:
+                if not self._accepting:
+                    raise EngineClosedError("DecodeEngine is closed")
+                s = _Stream(self._next_sid, prompt, max_new, temp, eos, fut,
+                            seed=(self._next_sid + 1 if seed is None
+                                  else int(seed)), slo_class=slo_class,
+                            tenant=tenant, adapter=adapter)
+                s.adapter_bucket, s.adapter_slot = ad_bucket, ad_slot
+                self._next_sid += 1
+                self._pending.append(s)
+                self._cond.notify_all()
+        except BaseException:
+            if ad_slot is not None:  # refused: hand the reference back
+                self._adapter_pool.release(adapter)
+            if charged:
+                self._quota.refund(tenant, prompt.size + max_new)
+            raise
         self._metrics.inc("requests")
+        self._tenant_count(tenant, "requests")
         return fut
 
     @property
@@ -550,6 +686,60 @@ class DecodeEngine:
     def swap_params(self, params):
         raise not_ported("live weight swap (swap_params)")
 
+    def cost_records(self):
+        raise not_ported("per-request cost records (cost_records(); the "
+                         "SLO tracker of queue A item 8)")
+
+    def publish_adapter(self, name, a, b, alpha=None) -> int:
+        """Install a LoRA adapter under ``name``, hot: the pool writes a
+        free or parked slot's rows in place (no drain, no stream
+        disturbed) and the name's old prefix chains are dropped before
+        the next admission.  Returns the slot."""
+        if self._adapter_pool is None:
+            raise MXNetError(
+                "publish_adapter: this engine has no adapter pool "
+                "(construct with adapters=..., or set "
+                "MXNET_ADAPTER_ENABLE=1)")
+        slot = self._adapter_pool.publish(name, a, b, alpha=alpha)
+        # a retire-then-republish binds new weights to the name: chains
+        # prefilled under the old ones (the name is the salt) must stop
+        # matching
+        self._queue_prefix_invalidate(name)
+        self._metrics.inc("adapter_publishes")
+        return slot
+
+    def retire_adapter(self, name) -> bool:
+        """Retire an adapter, hot: the name stops being acquirable at
+        once and its slot frees when its last stream ends; its prefix
+        chains are dropped.  True when the slot freed now."""
+        if self._adapter_pool is None:
+            raise MXNetError(
+                "retire_adapter: this engine has no adapter pool")
+        freed = self._adapter_pool.retire(name)
+        self._queue_prefix_invalidate(name)
+        self._metrics.inc("adapter_retires")
+        return freed
+
+    def _queue_prefix_invalidate(self, name) -> None:
+        """Queue the salt invalidation of adapter ``name`` for the
+        scheduler thread, which owns the radix index; it is applied at
+        the next admission pass, before any request submitted after this
+        call is admitted."""
+        if self._prefix is None:
+            return
+        with self._cond:
+            self._prefix_dirty.append(str(name).encode("utf-8"))
+            self._cond.notify_all()
+
+    def _tenant_count(self, tenant, name, value=1) -> None:
+        """Per-tenant requests / tokens / shed, at the sites of the
+        engine-wide counters."""
+        if tenant is None:
+            return
+        with self._lock:
+            d = self._tenants.setdefault(tenant, {})
+            d[name] = d.get(name, 0) + value
+
     def import_stream(self, *args, **kwargs):
         raise not_ported("KV-page stream import (import_stream)")
 
@@ -558,6 +748,8 @@ class DecodeEngine:
         :meth:`stats` covers only work from here on; the prefix cache's
         index and pages are untouched."""
         self._metrics.reset()
+        with self._lock:
+            self._tenants.clear()
         if self._prefix is not None:
             self._prefix.reset_counters()
 
@@ -566,11 +758,13 @@ class DecodeEngine:
         with m._lock:
             c = dict(m.counters)
             wall = time.perf_counter() - m.t0
-        out = {k: int(c.get(k, 0)) for k in
-               ("requests", "generations", "tokens", "prefill_tokens",
-                "preempted", "prefills", "steps", "stream_steps",
-                "prefill_chunks", "spec_steps", "spec_proposed",
-                "spec_accepted", "spec_pages_rolled_back", "d2h_syncs")}
+        out = _Stats({k: int(c.get(k, 0)) for k in
+                      ("requests", "generations", "tokens", "prefill_tokens",
+                       "preempted", "prefills", "steps", "stream_steps",
+                       "prefill_chunks", "spec_steps", "spec_proposed",
+                       "spec_accepted", "spec_pages_rolled_back",
+                       "d2h_syncs", "shed", "shed_tenant_quota",
+                       "adapter_publishes", "adapter_retires")})
         # how much of what the proposer offered was verified, and how
         # many tokens one target evaluation of one stream commits (1.0
         # without speculation; up to spec_tokens + 1)
@@ -615,6 +809,16 @@ class DecodeEngine:
         out["prefill_buckets"] = list(self._prefill_buckets)
         out["kv_block"] = self._kv_block
         out["device"] = str(self._device)
+        # tenancy: per-tenant requests / tokens / shed and the quota's
+        # balances; the adapter pool's counters
+        with self._lock:
+            out["tenants"] = {t: dict(d) for t, d in self._tenants.items()}
+        if self._quota is not None:
+            for t, q in self._quota.stats().items():
+                out["tenants"].setdefault(t, {}).update(q)
+        if self._adapter_pool is not None:
+            out["adapters"] = self._adapter_pool.stats()
+            out["adapter_rank_buckets"] = list(self._lora)
         return out
 
     # ------------------------------------------------------------------
@@ -665,6 +869,7 @@ class DecodeEngine:
             if s.blocks:
                 self._release_pages(s.blocks)
                 s.blocks = []
+            self._release_adapter(s)
             if s.future.set_running_or_notify_cancel():
                 s.future.set_exception(exc)
 
@@ -760,15 +965,27 @@ class DecodeEngine:
         whose uncached part exceeds ``prefill_chunk`` is handed to the
         chunk state machine, charged only its first chunk's pages."""
         kvb = self._kv_block
+        if self._prefix is not None and self._prefix_dirty:
+            # adapter publishes / retires queued salt invalidations: here,
+            # on the thread that owns the index, before any later request
+            with self._cond:
+                dirty, self._prefix_dirty = self._prefix_dirty, []
+            for salt in dirty:
+                self._prefix.invalidate_salt(salt)
         while True:
             with self._lock:
                 if not self._pending \
                         or len(self._active) >= self._max_streams \
                         or self._prefilling is not None:
                     return
-                s = self._pending[0]
+                # SLO tiers: the first interactive request goes ahead of
+                # batch ones, FIFO within a class
+                pick = next((i for i, c in enumerate(self._pending)
+                             if c.slo_class == "interactive"), 0)
+                s = self._pending[pick]
                 seq = s.prefill_seq()
-                cached, parked_matched = self._prefix.peek(seq) \
+                cached, parked_matched = self._prefix.peek(
+                    seq, salt=_prefix_salt(s)) \
                     if self._prefix is not None else (0, 0)
                 chunked = bool(self._chunk) \
                     and len(seq) - cached > self._chunk
@@ -782,10 +999,11 @@ class DecodeEngine:
                 lifetime_new = max(lifetime - cached // kvb, 0)
                 avail = self._alloc.free_blocks - parked_matched
                 if avail < min(need + 1, max(lifetime_new, 1)):
-                    return  # not enough cache: hold the FIFO line
-                self._pending.pop(0)
+                    return  # not enough cache: hold the line
+                self._pending.pop(pick)
                 self._admitting = s  # visible to _fail_outstanding
-            cached, pages = self._prefix.attach(seq, owner=s.sid) \
+            cached, pages = self._prefix.attach(
+                seq, owner=s.sid, salt=_prefix_salt(s)) \
                 if self._prefix is not None else (0, [])
             s.blocks = pages  # held now: a dying prefill must not leak
             s.cached_len = cached
@@ -847,12 +1065,13 @@ class DecodeEngine:
         table[0, :len(s.blocks)] = s.blocks
         tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions, lengths,
                                                 table)
+        adapter = self._adapter_args([s], 1)
         if suffix:
             logits = self._model.suffix_prefill(tok_d, pos_d, done, len_d,
-                                                tab_d, self._pools)
+                                                tab_d, self._pools, adapter)
         else:
             logits = self._model.prefill(tok_d, pos_d, len_d, tab_d,
-                                         self._pools)
+                                         self._pools, adapter)
         return logits[:, :csize]
 
     def _sample_first(self, s: _Stream, row: torch.Tensor, n: int) -> int:
@@ -917,7 +1136,7 @@ class DecodeEngine:
         ``ns`` tokens were prefilled, ``c`` were attached."""
         if self._prefix is not None:
             # blocks already indexed keep their page; ours stays private
-            self._prefix.register(s.prompt, s.blocks)
+            self._prefix.register(s.prompt, s.blocks, salt=_prefix_salt(s))
         self._metrics.observe("prefill_ms", (t_done - t0) * 1e3)
         self._metrics.observe("queue_wait_ms", (t0 - s.t_enqueue) * 1e3)
         s.t_admit = t_done
@@ -966,6 +1185,7 @@ class DecodeEngine:
                     self._active.remove(s)
                 self._release_pages(s.blocks)
                 s.blocks = []
+                self._release_adapter(s)
                 if s.future.set_running_or_notify_cancel():
                     s.future.set_exception(MXNetError(
                         f"KV cache exhausted: stream {s.sid} needs a page "
@@ -976,9 +1196,12 @@ class DecodeEngine:
             # prefer victims whose preemption frees pages: a pure sharer
             # only drops refcounts.  When every victim is one, take the
             # youngest anyway: its chain's refcounts drain to zero, park,
-            # and the eviction above reclaims them
+            # and the eviction above reclaims them.  Among them a batch
+            # stream goes before an interactive one, youngest first
             productive = [v for v in victims if self._reclaimable(v) > 0]
-            self._preempt(max(productive or victims, key=lambda v: v.t_admit))
+            self._preempt(max(productive or victims,
+                              key=lambda v: (v.slo_class == "batch",
+                                             v.t_admit)))
 
     def _ensure_capacity(self, s: _Stream, ahead: int = 1) -> bool:
         """Grow ``s`` to hold ``ahead`` more tokens' pages (1: the next
@@ -1020,10 +1243,11 @@ class DecodeEngine:
         return True
 
     def _preempt(self, victim: _Stream):
-        """Recompute-style preemption: drop the victim's references and
-        queue it at the front for re-prefill of prompt + progress.
+        """Recompute-style preemption: drop the victim's page references
+        and queue it at the front for re-prefill of prompt + progress.
         Shared pages lose only its reference; its re-admission will
-        usually attach them again as a prefix hit."""
+        usually attach them again as a prefix hit.  It keeps its adapter
+        reference, so its slot cannot be evicted while it waits."""
         self._release_pages(victim.blocks)
         victim.blocks = []
         victim.length = 0
@@ -1037,9 +1261,41 @@ class DecodeEngine:
             self._pending.insert(0, victim)
         self._metrics.inc("preempted")
 
+    def _release_adapter(self, s: _Stream) -> None:
+        """Drop the stream's adapter reference once (the slot doubles as
+        the not-yet-released flag)."""
+        if s.adapter is None or s.adapter_slot is None:
+            return
+        s.adapter_slot = None
+        self._adapter_pool.release(s.adapter)
+
+    def _adapter_args(self, streams, bb: int) -> tuple:
+        """The adapter arguments of one forward over ``streams`` padded
+        to ``bb`` rows: per rank bucket the pool's slabs and the (bb,)
+        slot ids (0 for rows without an adapter in that bucket, pad rows
+        included), slot ids None for a bucket no row sits in.  () when
+        no row has an adapter: the pre-adapter ops."""
+        if not self._lora or not any(s.adapter_slot for s in streams):
+            return ()
+        slabs = self._adapter_pool.slabs()
+        out = []
+        for j, rb in enumerate(self._lora):
+            vec = np.zeros(bb, np.int32)
+            for i, s in enumerate(streams):
+                if s.adapter_slot is not None and s.adapter_bucket == rb:
+                    vec[i] = s.adapter_slot
+            out += [slabs[2 * j], slabs[2 * j + 1],
+                    torch.from_numpy(vec).to(self._device)
+                    if vec.any() else None]
+        return tuple(out)
+
     def _retire(self, s: _Stream):
         self._release_pages(s.blocks)
         s.blocks = []
+        self._release_adapter(s)
+        self._tenant_count(s.tenant, "tokens",
+                           len(s.generated) + len(s.prompt))
+        self._tenant_count(s.tenant, "generations")
         # counted before the result is set: a caller that reads stats()
         # once its last future resolves sees every generation
         self._metrics.inc("generations")
@@ -1124,7 +1380,8 @@ class DecodeEngine:
         tok_d, pos_d, start_d, len_d, tab_d = self._feed(
             tokens, positions, start, lengths, table)
         logits = self._model.verify(tok_d, pos_d, start_d, len_d, tab_d,
-                                    self._pools)
+                                    self._pools,
+                                    self._adapter_args(streams, bb))
         emit = verify_sample(logits, tokens, lengths - start, temps, seeds,
                              steps0, self._seed)
         emit = emit.cpu().numpy()  # the step's one device-to-host copy
@@ -1206,7 +1463,8 @@ class DecodeEngine:
             steps[i] = s.length  # the position being sampled from
         tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions, lengths,
                                                 table)
-        logits = self._model.decode(tok_d, pos_d, len_d, tab_d, self._pools)
+        logits = self._model.decode(tok_d, pos_d, len_d, tab_d, self._pools,
+                                    self._adapter_args(streams, bb))
         toks = sample_tokens(logits[:, 0], temps, seeds, steps, self._seed)
         toks = toks.cpu().numpy()  # the step's one device-to-host copy
         t_done = time.perf_counter()

@@ -1,4 +1,4 @@
-"""Speculative decoding: the n-gram draft proposer and the exact verify
+"""Speculative decoding: the draft proposers and the exact verify
 sampler.
 
 Counterpart of ``mxnet_tpu/speculative.py``.  A cheap **proposer**
@@ -13,24 +13,28 @@ temperature output keeps the target distribution.
 * :class:`NgramProposer` (prompt-lookup decoding): continue the most
   recent earlier occurrence of the stream's trailing n-gram.  Pure
   numpy, carried over as it is; deterministic in the context.
+* :class:`DraftLMProposer`: a small ``transformer_lm`` drafts greedily
+  for the big one, one full causal forward a proposed token
+  (``TransformerLM.forward``, the ``flash_mha_packed`` kernel on the
+  card), deterministic in the context.
 * :func:`verify_sample`: greedy rows emit argmax; a temperature row
   with a draft ``d`` accepts it with probability ``p_target(d)``, else
   samples the residual (``d`` removed, renormalized); a row with no
   draft samples exactly as ``serving.sample_tokens`` does, bit for bit.
-
-The draft-LM proposer needs a trained draft checkpoint and is not
-ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
 
-from .base import MXNetError, not_ported
+from .base import MXNetError, get_env
 from .random import gumbel_noise, stream_key, sub_key, uniform_per_key
 
-__all__ = ["NgramProposer", "make_proposer", "verify_sample", "PROPOSERS"]
+__all__ = ["NgramProposer", "DraftLMProposer", "make_proposer",
+           "draft_lm_from_env", "verify_sample", "PROPOSERS"]
 
 PROPOSERS = ("ngram", "draft_lm")
 
@@ -82,14 +86,122 @@ class NgramProposer:
         return np.empty(0, np.int32)
 
 
+class DraftLMProposer:
+    """A small LM drafting for the big one (Leviathan et al.'s two-model
+    speculation) behind ``propose(context, k)``
+    (``mxnet_tpu/speculative.py:108-199``).
+
+    Drafting is greedy, so the drafts are a deterministic function of
+    the context; the verify sampler keeps the target's distribution
+    exact whatever the drafts.  The draft sees at most its own window:
+    the context's tail, room left for ``k`` drafts (``k`` at most
+    ``max_len - 1``), at positions from 0.  Each proposed token is one
+    causal forward of ``TransformerLM.forward`` over the ``t`` tokens so
+    far on the draft's device, read at row ``t - 1`` (the JAX draft pads
+    to ``max_len`` for one fixed-shape executable, which causality makes
+    invisible; here the forward runs the real tokens only).  No second
+    KV cache.  The architecture is read from the parameter names and
+    shapes; ``num_heads`` is not (a fused QKV weight does not record
+    it) and must be given.  ``ctx`` is the draft's device (default
+    ``gpu(0)``: the engine's).  ``forwards`` counts the forwards run."""
+
+    def __init__(self, params: Dict, *, num_heads: int, kv_block: int = 16,
+                 ctx=None):
+        from .context import current_context
+        from .convert import params_from_numpy
+        from .models.transformer import TransformerLM, param_names
+
+        for need in ("tok_embed_weight", "pos_embed_weight",
+                     "layer0_qkv_weight", "layer0_ff1_weight"):
+            if need not in params:
+                raise MXNetError(
+                    f"draft_lm checkpoint is missing {need!r} — "
+                    f"MXNET_SERVING_DRAFT_CKPT must point at a "
+                    f"transformer_lm checkpoint (have: "
+                    f"{sorted(params)[:8]}...)")
+        self.vocab_size, d_model = (int(n) for n in
+                                    params["tok_embed_weight"].shape)
+        self.max_len = int(params["pos_embed_weight"].shape[0])
+        self.d_model = d_model
+        self.num_layers = max(
+            int(k[len("layer"):-len("_qkv_weight")]) for k in params
+            if k.startswith("layer") and k.endswith("_qkv_weight")) + 1
+        self.num_heads = int(num_heads)
+        if self.num_heads < 1 or self.d_model % self.num_heads:
+            raise MXNetError(
+                f"MXNET_SERVING_DRAFT_HEADS={num_heads} must be >= 1 "
+                f"and divide the draft d_model {self.d_model}")
+        missing = [n for n in param_names(self.num_layers)
+                   if n not in params]
+        if missing:
+            raise MXNetError(
+                f"draft_lm checkpoint is missing parameters {missing}")
+        self.device = (ctx if ctx is not None
+                       else current_context()).torch_device()
+        self.model = TransformerLM(
+            params_from_numpy({n: params[n]
+                               for n in param_names(self.num_layers)},
+                              self.device, dtype=None),
+            num_layers=self.num_layers, num_heads=self.num_heads,
+            kv_block=kv_block)
+        self.forwards = 0
+
+    def propose(self, context: np.ndarray, k: int) -> np.ndarray:
+        ctx = np.asarray(context, np.int32)
+        if k < 1 or ctx.size == 0:
+            return np.empty(0, np.int32)
+        k = min(int(k), self.max_len - 1)
+        # the draft's window: the context's tail (the recent tokens carry
+        # the signal), leaving room for the k drafts
+        keep = max(1, self.max_len - k)
+        seq = torch.as_tensor(ctx[-keep:], device=self.device)
+        out = []
+        for _ in range(k):
+            logits = self.model(seq[None])
+            self.forwards += 1
+            nxt = torch.argmax(logits[0, -1]).to(torch.int32)
+            out.append(int(nxt))  # one device-to-host copy a draft
+            seq = torch.cat([seq, nxt[None]])
+        return np.asarray(out, np.int32)
+
+
+def draft_lm_from_env(kv_block: int = 16, ctx=None) -> DraftLMProposer:
+    """The draft-LM proposer of ``MXNET_SERVING_DRAFT_CKPT`` (its newest
+    committed checkpoint, of either package) and
+    ``MXNET_SERVING_DRAFT_HEADS``, validated at engine construction."""
+    from .checkpoint import load_latest_params
+
+    path = get_env("MXNET_SERVING_DRAFT_CKPT", None, str)
+    if not path:
+        raise MXNetError(
+            "MXNET_SERVING_PROPOSER=draft_lm needs "
+            "MXNET_SERVING_DRAFT_CKPT pointing at the draft model's "
+            "checkpoint directory")
+    raw = get_env("MXNET_SERVING_DRAFT_HEADS", None, str)
+    try:
+        heads = int(raw) if raw is not None else 0
+    except ValueError:
+        raise MXNetError(
+            f"MXNET_SERVING_DRAFT_HEADS={raw!r} is not an integer")
+    if heads < 1:
+        raise MXNetError(
+            f"MXNET_SERVING_DRAFT_HEADS={heads} must be >= 1 when "
+            f"MXNET_SERVING_PROPOSER=draft_lm")
+    params, _, _ = load_latest_params(path)
+    return DraftLMProposer(params, num_heads=heads, kv_block=kv_block,
+                           ctx=ctx)
+
+
 def make_proposer(name: str, **kw):
     """Proposer registry (``MXNET_SERVING_PROPOSER``): unknown names
-    raise at engine construction."""
+    raise at engine construction.  ``draft_lm`` builds from ``params``
+    when given, else from the environment (``draft_lm_from_env``)."""
     if name == "ngram":
         return NgramProposer(**kw)
     if name == "draft_lm":
-        raise not_ported("the draft-LM proposer (proposer='draft_lm' / "
-                         "MXNET_SERVING_PROPOSER=draft_lm)")
+        if "params" in kw:
+            return DraftLMProposer(**kw)
+        return draft_lm_from_env(**kw)
     raise MXNetError(
         f"unknown speculative proposer {name!r} "
         f"(MXNET_SERVING_PROPOSER wants one of {PROPOSERS})")

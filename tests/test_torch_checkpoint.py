@@ -248,8 +248,8 @@ def test_symbol_json_legacy_param_and_unported_op():
                               name="corr")
     assert mt.sym.load_json(jsym.tojson()).list_arguments() == ["a", "b"]
     # ... and one of the JAX package it does not register yet raises
-    doc = jsym.tojson().replace('"Correlation"', '"LoraGatherDelta"')
-    with pytest.raises(mt.MXNetError, match="LoraGatherDelta.*item 7"):
+    doc = jsym.tojson().replace('"Correlation"', '"QKVPagedVerifyAttend"')
+    with pytest.raises(mt.MXNetError, match="QKVPagedVerifyAttend.*item 7"):
         mt.sym.load_json(doc)
 
 

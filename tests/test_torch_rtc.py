@@ -48,6 +48,7 @@ from mxnet_tpu.base import MXNetError as JaxMXNetError
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import _build, rtc
 from mxnet_tpu_torch.examples import user_cuda_kernel as ex
+from mxnet_tpu_torch.examples import user_triton_kernel as tex
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -637,6 +638,254 @@ def test_user_kernel_example_fit_tracks_the_jax_example():
 
 
 # ---------------------------------------------------------------------------
+# triton_op on the CPU: the plain route, the refusals, the lazy import
+# ---------------------------------------------------------------------------
+
+
+def _register_tsilu(name):
+    mx.rtc.pallas_op(name, jex.silu_kernel, arg_names=("data",),
+                     vjp=jex.silu_vjp)
+    grad = rtc.triton_kernel(tex.SILU_GRAD_SOURCE, "user_triton_silu_grad",
+                             meta=tex.META, plain=tex.silu_grad_plain,
+                             name=f"{name}_grad")
+    return rtc.triton_op(name, tex.SILU_SOURCE, "user_triton_silu",
+                         meta=tex.META, plain=tex.silu_plain,
+                         vjp=lambda inputs, gs: (grad(inputs[0], gs[0]),))
+
+
+def test_triton_op_plain_route_with_vjp_matches_pallas_op():
+    """The Triton example's kernels as ``tsilu``: forward and the
+    symbolic backward through the user VJP against ``pallas_op`` + its
+    VJP, as ``cuda_op``'s plain route is held above."""
+    name = _unique("tsilu")
+    op = _register_tsilu(name)
+    assert isinstance(op.kernel, rtc.triton_kernel)
+    x = np.linspace(-3, 3, 24, dtype=np.float32).reshape(4, 6)
+    head = np.random.RandomState(1).randn(4, 6).astype(np.float32)
+    out = getattr(mt.nd, name)(mt.nd.array(x, ctx=CPU)).asnumpy()
+    want = getattr(mx.nd, name)(mx.nd.array(x)).asnumpy()
+    np.testing.assert_allclose(out, want, rtol=1e-5)
+    grads = {}
+    for key, pkg, ctx in (("jax", mx, mx.cpu()), ("torch", mt, CPU)):
+        sym = getattr(pkg.sym, name)(pkg.sym.Variable("data"))
+        g = pkg.nd.zeros(x.shape, ctx=ctx)
+        exe = sym.bind(ctx, {"data": pkg.nd.array(x, ctx=ctx)},
+                       args_grad={"data": g})
+        exe.forward(is_train=True)
+        exe.backward(out_grads=[pkg.nd.array(head, ctx=ctx)])
+        grads[key] = g.asnumpy()
+    np.testing.assert_allclose(grads["torch"], grads["jax"], rtol=1e-5,
+                               atol=1e-6)
+    assert rtc.LAUNCHES[name] == rtc.LAUNCHES[f"{name}_grad"] == 0
+    # bf16 on the plain route: fp32 inside, rounded once, as the kernel
+    got = op.kernel(torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=2 ** -7)
+
+
+def test_triton_op_out_like_callable_grid_and_shape_infer():
+    """A callable ``out_like`` (rows, 1) with ``infer_shape`` against
+    ``pallas_op``'s; the launch grid: default ``ceil(n / BLOCK)``, a
+    tuple, ``grid(*inputs, meta)``; none launched for empty outputs, and
+    a grid without programs for a non-empty one raises."""
+    import jax
+
+    name = _unique("trowsum")
+    source = "import triton\n\n\n@triton.jit\ndef rowsum(x, o, n):\n" \
+        "    pass\n"
+
+    def kern(x_ref, o_ref):
+        o_ref[...] = x_ref[...].sum(axis=1, keepdims=True)
+
+    mx.rtc.pallas_op(
+        name, kern, arg_names=("data",),
+        out_like=lambda x: jax.ShapeDtypeStruct((x.shape[0], 1), x.dtype),
+        infer_shape=lambda s: (s[0], 1))
+    rtc.triton_op(name, source, "rowsum",
+                  out_like=lambda x: ((x.shape[0], 1), x.dtype),
+                  grid=lambda x, meta: (x.shape[0],),
+                  plain=lambda x: x.sum(1, keepdim=True),
+                  infer_shape=lambda s: (s[0], 1))
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    out = getattr(mt.nd, name)(mt.nd.array(x, ctx=CPU))
+    want = getattr(mx.nd, name)(mx.nd.array(x)).asnumpy()
+    assert out.shape == (3, 1)
+    np.testing.assert_allclose(out.asnumpy(), want, rtol=1e-6)
+    sym = getattr(mt.sym, name)(mt.sym.Variable("data"))
+    assert sym.infer_shape(data=(3, 4))[1] == [(3, 1)]
+    assert getattr(mx.sym, name)(mx.sym.Variable("data")).infer_shape(
+        data=(3, 4))[1] == [(3, 1)]
+    k = mt.ops.registry.get_op(name).kernel
+    t = torch.zeros(3, 4)
+    specs, single = k.output_specs([t])
+    assert (specs, single) == ([((3, 1), torch.float32)], True)
+    assert k.launch_grid([t], specs) == (3, 1, 1)
+    f32 = torch.float32
+    d = rtc.triton_kernel(source, "rowsum", name=_unique("tgrid"),
+                          meta={"BLOCK": 256})
+    assert d.launch_grid([torch.zeros(1000)], [((1000,), f32)]) \
+        == (4, 1, 1)
+    assert d.launch_grid([torch.zeros(0)], [((0,), f32)]) is None
+    fixed = rtc.triton_kernel(source, "rowsum", name=_unique("tgrid"),
+                              grid=(2, 3))
+    assert fixed.launch_grid([t], specs) == (2, 3, 1)
+    with pytest.raises(mt.MXNetError, match="meta\\['BLOCK'\\]"):
+        rtc.triton_kernel(source, "rowsum", name=_unique("tgrid")) \
+            .launch_grid([t], specs)
+    empty = rtc.triton_kernel(source, "rowsum", name=_unique("tgrid"),
+                              grid=lambda x, meta: (0,))
+    with pytest.raises(mt.MXNetError, match="launches no program"):
+        empty.launch_grid([t], specs)
+    # the plan is cached per (shapes, dtypes, device)
+    calls = {"n": 0}
+
+    def counting(x):
+        calls["n"] += 1
+        return (x.shape, x.dtype)
+
+    c = rtc.triton_kernel(source, "rowsum", name=_unique("tplan"),
+                          out_like=counting, plain=lambda x: x.clone())
+    c(torch.ones(4))
+    c(torch.ones(4))
+    c(torch.ones(4, dtype=torch.float64))
+    assert calls["n"] == 2
+
+
+def test_triton_cpu_call_without_plain_raises_naming_the_op():
+    name = _unique("tnoplain")
+    rtc.triton_op(name, tex.SILU_SOURCE, "user_triton_silu", meta=tex.META)
+    with pytest.raises(mt.MXNetError, match=f"{name}: CPU tensors need "
+                                            f"plain=.*the Triton kernel"):
+        getattr(mt.nd, name)(mt.nd.ones((4,), ctx=CPU))
+
+
+def test_differentiating_a_triton_op_without_vjp_raises_naming_the_op():
+    name = _unique("tnovjp")
+    rtc.triton_op(name, tex.SILU_SOURCE, "user_triton_silu", meta=tex.META,
+                  plain=tex.silu_plain)
+    data = mt.sym.Variable("data")
+    sym = getattr(mt.sym, name)(mt.sym.FullyConnected(data, num_hidden=4,
+                                                      name="fc"))
+    exe = sym.simple_bind(CPU, data=(2, 3))
+    assert exe.forward(is_train=True)[0].shape == (2, 4)
+    with pytest.raises(mt.MXNetError,
+                       match=f"triton_op '{name}' has no vjp"):
+        exe.backward(out_grads=[mt.nd.ones((2, 4), ctx=CPU)])
+    k = rtc.triton_kernel(tex.SILU_SOURCE, "user_triton_silu",
+                          plain=tex.silu_plain, name=_unique("tgrad"))
+    with pytest.raises(mt.MXNetError, match=r"rtc\.triton_op\(\.\.\., vjp=\)"):
+        k(torch.ones(3, requires_grad=True))
+
+
+def test_triton_kernel_cannot_take_a_built_in_kernel_name():
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    for name in ("nms", "flash_mha", "paged_attention_decode"):
+        with pytest.raises(mt.MXNetError, match="built-in kernel"):
+            rtc.triton_kernel(tex.SILU_SOURCE, "user_triton_silu", name=name)
+        with pytest.raises(mt.MXNetError, match="built-in kernel"):
+            rtc.triton_op(name, tex.SILU_SOURCE, "user_triton_silu")
+    with pytest.raises(mt.MXNetError, match="not a C identifier"):
+        rtc.triton_kernel(tex.SILU_SOURCE, "user-silu")
+    with pytest.raises(mt.MXNetError, match="already registered"):
+        rtc.triton_op("FullyConnected", tex.SILU_SOURCE, "user_triton_silu")
+
+
+def test_triton_is_imported_only_at_a_cuda_call(monkeypatch, tmp_path):
+    """Registration and CPU calls import no ``triton`` (``sys.modules``)
+    and write nothing; the first CUDA call's load imports it, and its
+    absence raises naming the kernel."""
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    name = _unique("tlazy")
+    op = _register_tsilu(name)
+    with torch.no_grad():
+        getattr(mt.nd, name)(mt.nd.ones((3,), ctx=CPU))
+        op.kernel(torch.ones(5, dtype=torch.bfloat16))
+    assert "triton" not in sys.modules
+    assert not (tmp_path / "build").exists()
+    monkeypatch.setitem(sys.modules, "triton", None)  # import fails
+    with pytest.raises(mt.MXNetError,
+                       match=f"{name}: a Triton kernel needs the triton "
+                             f"package"):
+        op.kernel._load()
+    assert not (tmp_path / "build").exists()
+
+
+def test_triton_load_writes_and_imports_the_source(monkeypatch, tmp_path):
+    """With a ``triton`` module present, the load writes the text under
+    the build directory once, imports it from there and hands back the
+    named function; a source without it raises."""
+    import types
+
+    fake = types.ModuleType("triton")
+
+    def jit(fn):
+        fn.run = True  # what a JITFunction carries
+        return fn
+
+    fake.jit = jit
+    monkeypatch.setitem(sys.modules, "triton", fake)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    source = "import triton\n\n\n@triton.jit\ndef k(x, y, n):\n" \
+        "    return n\n"
+    k = rtc.triton_kernel(source, "k", name=_unique("tload"))
+    fn = k._load()
+    assert fn(1, 2, 3) == 3 and k._load() is fn
+    files = list((tmp_path / "build").glob("triton_*.py"))
+    assert len(files) == 1 and files[0].read_text() == source
+    bad = rtc.triton_kernel(source, "missing", name=_unique("tload"))
+    with pytest.raises(mt.MXNetError, match="no @triton.jit function "
+                                            "'missing'"):
+        bad._load()
+
+
+def test_triton_example_end_to_end_on_cpu():
+    rec = tex.main(CPU)
+    assert rec["accuracy"] > 0.85 and rec["batches"] == 80
+    assert set(rec["batch_launches"]) == {(0, 0)}
+    assert tex.register() is mt.ops.registry.get_op("user_triton_silu")
+
+
+def test_triton_example_fit_tracks_the_jax_example():
+    """The Triton example's ``Module.fit`` on ``cpu()`` against the JAX
+    example's from the JAX module's initial parameters, as the CUDA
+    example's: each batch's correct count within one sample of 16, its
+    cross-entropy to 1e-4 relative, both above 0.85."""
+    tex.register()
+    jname = _unique("user_silu")
+    mx.rtc.pallas_op(jname, jex.silu_kernel, arg_names=("data",),
+                     vjp=jex.silu_vjp)
+    X, labels = tex.dataset()
+    data = mx.sym.Variable("data")
+    h = mx.sym.FullyConnected(data, num_hidden=32, name="fc1")
+    h = getattr(mx.sym, jname)(h)
+    h = mx.sym.FullyConnected(h, num_hidden=2, name="fc2")
+    jnet = mx.sym.SoftmaxOutput(h, name="softmax")
+    assert jnet.list_arguments() == tex.net().list_arguments()
+    jmod = mx.mod.Module(jnet, context=mx.cpu())
+    jmod.bind(data_shapes=[("data", (16, 16))],
+              label_shapes=[("softmax_label", (16,))])
+    mx.random.seed(0)
+    jmod.init_params(mx.initializer.Xavier())
+    host = {k: v.asnumpy() for k, v in jmod.get_params()[0].items()}
+    jl, jc, tl, tc = [], [], [], []
+    jmod2 = mx.mod.Module(jnet, context=mx.cpu())
+    jmod2.fit(mx.io.NDArrayIter(X, labels, batch_size=16,
+                                label_name="softmax_label"),
+              num_epoch=10, optimizer="sgd",
+              optimizer_params={"learning_rate": 0.1},
+              arg_params={k: mx.nd.array(v) for k, v in host.items()},
+              eval_metric="acc", batch_end_callback=_batch_stats(jl, jc))
+    tex.train(CPU, arg_params=host, batch_end_callback=_batch_stats(tl, tc))
+    assert len(tl) == len(jl) == 80
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert max(abs(a - b) for a, b in zip(tc, jc)) <= 1
+    assert np.mean(tc[-8:]) / 16 > 0.85 and np.mean(jc[-8:]) / 16 > 0.85
+
+
+# ---------------------------------------------------------------------------
 # the GPT-2-class LM with a user GELU kernel
 # ---------------------------------------------------------------------------
 
@@ -745,3 +994,42 @@ def test_user_kernels_on_the_card():
     np.testing.assert_allclose(g.asnumpy(),
                                ex.silu_grad_plain(xt, ht).numpy(),
                                rtol=1e-5, atol=2e-6)
+
+
+
+@pytest.mark.cuda
+def test_user_triton_kernels_on_the_card():
+    """On CUDA tensors ``user_triton_silu`` and its VJP kernel launch
+    once each through a symbolic forward/backward and equal their plain
+    versions, in fp32; in bf16 each kernel call against its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and triton (the user Triton "
+                    "kernels have no CPU mode); python3 chip_smoke.py runs "
+                    "them there")
+    tex.register()
+    x = np.linspace(-4, 4, 4099, dtype=np.float32)
+    head = np.random.RandomState(0).randn(4099).astype(np.float32)
+    gpu = mt.gpu(0)
+    sym = mt.sym.user_triton_silu(mt.sym.Variable("data"))
+    g = mt.nd.zeros(x.shape, ctx=gpu)
+    exe = sym.bind(gpu, {"data": mt.nd.array(x, ctx=gpu)},
+                   args_grad={"data": g})
+    rtc.reset_launch_counts()
+    out = exe.forward(is_train=True)[0]
+    exe.backward(out_grads=[mt.nd.array(head, ctx=gpu)])
+    torch.cuda.synchronize()
+    assert rtc.LAUNCHES["user_triton_silu"] == 1
+    assert rtc.LAUNCHES["user_triton_silu_grad"] == 1
+    xt, ht = torch.from_numpy(x), torch.from_numpy(head)
+    np.testing.assert_allclose(out.asnumpy(), tex.silu_plain(xt).numpy(),
+                               rtol=1e-5, atol=2e-6)
+    np.testing.assert_allclose(g.asnumpy(),
+                               tex.silu_grad_plain(xt, ht).numpy(),
+                               rtol=1e-5, atol=2e-6)
+    xb, hb = xt.cuda().bfloat16(), ht.cuda().bfloat16()
+    k = mt.ops.registry.get_op("user_triton_silu").kernel
+    assert (k(xb).float() - tex.silu_plain(xb).float()).abs().max() \
+        <= 2 ** -7
+    assert (tex.silu_grad(xb, hb).float()
+            - tex.silu_grad_plain(xb, hb).float()).abs().max() <= 2 ** -6

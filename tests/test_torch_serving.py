@@ -183,15 +183,9 @@ def test_eos_and_single_token_requests_retire(lm):
 
 
 @pytest.mark.parametrize("kwargs,env", [
-    ({"spec_tokens": 2, "proposer": "draft_lm"}, {}),
-    ({"spec_tokens": 2}, {"MXNET_SERVING_PROPOSER": "draft_lm"}),
     ({"tp": 2}, {}),
     ({}, {"MXNET_SERVING_PP": "2"}),
     ({"devices": [0]}, {}),
-    ({"adapters": True}, {}),
-    ({}, {"MXNET_ADAPTER_ENABLE": "1"}),
-    ({"tenant_quota": object()}, {}),
-    ({}, {"MXNET_TENANT_QUOTA_TOKENS": "100"}),
     ({"tp": 2}, {"MXNET_SERVING_KV_DTYPE": "fp8"}),
     ({"dtype": "float16"}, {}),
 ], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
@@ -231,9 +225,57 @@ def test_prefix_cache_and_chunking_options_serve(lm, monkeypatch, kwargs,
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("kwargs,env", [
+    ({"spec_tokens": 2, "proposer": "draft_lm"}, {}),
+    ({"spec_tokens": 2}, {"MXNET_SERVING_PROPOSER": "draft_lm"}),
+    ({"adapters": True}, {}),
+    ({}, {"MXNET_ADAPTER_ENABLE": "1"}),
+    ({"tenant_quota": 100}, {}),
+    ({}, {"MXNET_TENANT_QUOTA_TOKENS": "100"}),
+], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
+def test_tenancy_and_draft_options_serve(lm, monkeypatch, tmp_path, kwargs,
+                                         env):
+    """The configurations the port refused until multi-tenancy and the
+    draft-LM proposer were ported now construct and serve: the draft LM
+    from a checkpoint directory (the served LM's own weights, through
+    ``MXNET_SERVING_DRAFT_CKPT``/``_HEADS``) drafting every token the
+    target then emits; a pool from ``MXNET_ADAPTER_*`` (4 slots of rank
+    8 by default, here 2) serving an adapter stream; a quota charging
+    the tenant prompt + max_new tokens."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    kwargs = dict(kwargs)
+    if kwargs.get("spec_tokens"):
+        mt.checkpoint.publish_params(str(tmp_path), lm[0], 1)
+        monkeypatch.setenv("MXNET_SERVING_DRAFT_CKPT", str(tmp_path))
+        monkeypatch.setenv("MXNET_SERVING_DRAFT_HEADS", str(H))
+    if "tenant_quota" in kwargs:
+        kwargs["tenant_quota"] = mt.TenantQuota(kwargs["tenant_quota"])
+    monkeypatch.setenv("MXNET_ADAPTER_SLOTS", "2")
+    prompt = np.arange(3, 10, dtype=np.int32)
+    with mt.DecodeEngine(lm[0], **_kw(ctx=mt.cpu(), **kwargs)) as eng:
+        plain = eng.generate(prompt, 4)
+        if "spec_tokens" in kwargs:
+            st = eng.stats()
+            assert st["proposer"] == "draft_lm" and st["spec_proposed"] > 0
+            assert st["accepted_token_rate"] == 1.0
+        elif "tenant_quota" in kwargs or env.get("MXNET_TENANT_QUOTA_TOKENS"):
+            eng.generate(prompt, 4, tenant="t")
+            assert eng.stats()["tenants"]["t"]["balance"] == 100 - 11
+        else:
+            rng = np.random.RandomState(0)
+            eng.publish_adapter("x", rng.randn(L, DM, 8) * 0.5,
+                                rng.randn(L, 8, 3 * DM) * 0.5)
+            adapted = eng.generate(prompt, 4, adapter="x")
+            st = eng.stats()
+            assert st["adapter_rank_buckets"] == [8]
+            assert st["adapters"]["buckets"]["r8"]["slots"] == 2
+            assert not np.array_equal(adapted, plain)
+    assert plain.shape == (4,) and np.all((plain >= 0) & (plain < V))
+
+
 @pytest.mark.parametrize("kwargs", [{"prefill_only": True},
-                                    {"tenant": "a"}, {"adapter": "x"},
-                                    {"trace": object()}])
+                                    {"trace": object()}, {"canary": True}])
 def test_unported_request_options_raise(lm, kwargs):
     with mt.DecodeEngine(lm[0], **_kw(ctx=mt.cpu())) as eng:
         with pytest.raises(mt.MXNetError, match="not ported yet"):
@@ -242,6 +284,8 @@ def test_unported_request_options_raise(lm, kwargs):
             eng.swap_params(lm[0])
         with pytest.raises(mt.MXNetError, match="not ported yet"):
             eng.import_stream({})
+        with pytest.raises(mt.MXNetError, match="item 8"):
+            eng.cost_records()
 
 
 def test_bf16_pages_serve(lm):
