@@ -9,14 +9,15 @@
    script's, below), one ``nvcc`` per source, all started together; the
    paged kernels' three libraries (``PAGED_SOURCES``, the longest
    builds) compile on a thread while the checks of every other kernel
-   run, and their own checks come after those (a ``phase_walls`` line
-   near the end gives the seconds at each phase's end).  Then, with
+   and the training paths (phases 4, 4b-4e and 5, which launch no paged
+   kernel) run, and their own checks come after those (a
+   ``phase_walls`` line near the end gives the seconds at each phase's
+   end).  Then, with
    ``cuobjdump`` from the
    toolkit beside ``nvcc``, the tensor-core kernels (``TC_KERNELS``:
    B1's forward, B1's two backward kernels, B5's forward and its two
    backward kernels, B8 and both B9 kernels, at each head-width bucket,
-   every fp32 and bf16
-   instantiation) must hold tensor-core instructions (``HMMA``/
+   every fp32, bf16 and fp16 instantiation) must hold tensor-core instructions (``HMMA``/
    ``HGMMA``) in their SASS, and those at D = 64 no local (spill)
    memory; each one's registers, shared memory and local memory are
    printed (``tensor_cores`` lines).  The paged kernels' one body
@@ -26,8 +27,10 @@
    D = 64): every head-width bucket for every page
    reader, no local memory at D = 64, at least two CTAs an SM.
 2. Kernels against their plain PyTorch versions on the card, at the
-   main paths' shapes, in fp32 and bf16 (tolerances in ``TOL`` and
-   ``BWD_TOL``): the time of each (CUDA events, median of 20 after
+   main paths' shapes, in fp32 and bf16, and the fp16 instantiations of
+   rows 1-9 at the table's shapes (``half_kernel_checks``; tolerances in
+   ``TOL`` and ``BWD_TOL``, fp16's from bf16's by the two formats' unit
+   roundoff): the time of each (CUDA events, median of 20 after
    warm-up), of its plain version, of a PyTorch library call computing
    the same function (timed here only, used nowhere in the port) and
    the least time the card could take for the work (``bound_ms``; the
@@ -98,9 +101,10 @@
    VJP runs forward and raises when differentiated.
 3. Serving: a GPT-2-small-class LM (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 32768, 1024 positions; random weights from
-   ``np.random.RandomState(0)``) serves through ``DecodeEngine``, four
-   runs, each with the launch counts reset just before it and read just
-   after:
+   ``np.random.RandomState(0)``) serves through ``DecodeEngine`` (its
+   decode, verify and miss-prefill buckets CUDA graphs, whose replays
+   add the launches their captures recorded), four runs, each with the
+   launch counts reset just before it and read just after:
    A. fp32 pages, 16 requests of 32 tokens: every kernel must have
       launched exactly 12 times per prefill / per decode step, and the
       full forward must reproduce the generated greedy tokens wherever
@@ -324,33 +328,40 @@
    (every BatchNorm moving statistic too) equal the module's bit for
    bit; then ``--load-epoch 1`` for 1 more, which starts at epoch 1 with
    finite outputs.  Only (a) and (b) launch the port's kernels.
-13. bf16 training and storage (``bf16_path``; TF32 off but in (c)'s
-   TF32 run), launch counts reset just before and summed over (a) and
-   (b) just after: (a) the training run's LM built by
-   ``transformer_lm(..., dtype="bfloat16")`` (``tok_embed_weight``
-   float32, every other parameter bf16), its first step against the
-   fp32 first step from the same weights (``BF16_FIRST_STEP``), then
-   ``TRAIN_STEPS`` Adam steps (``BF16_OPT``) through ``Module``'s fused
-   step and again eagerly from the same weights: a finite, falling
-   loss, the graphed steps within bf16's ``TOL``/``BWD_TOL`` of the eager
-   ones, every traced B1 launch of the graphed run a bf16 instantiation
-   (``BF16_SUFFIX``), the share of bf16 weight elements step 10 changed;
-   (b) the trained LM served by ``DecodeEngine`` with ``dtype=
-   "bfloat16"`` and with ``kv_dtype="bf16"`` (run A's requests; greedy
-   tokens equal) and with ``spec_tokens=4``: parameters in their dtypes,
-   bf16 pages, every B1, decode and verify launch on bf16 operands
-   (``DtypeLaunches``), tokens/s and TTFT; the random-weight LM served
-   the same way first (S0): its greedy tokens the full forward's argmax
-   wherever its top-2 margin exceeds ``BF16_MARGIN`` U of the row's
-   largest logit, at a quarter of them at least (the trained LM's top
-   logits lie within that margin of each other: its tokens within it of
-   the top logit); (c) ResNet-50's first step (batch 4) in fp32, under TF32
+13. bf16 and fp16 training and storage (``bf16_path``; TF32 off but in
+   (c)'s TF32 run), launch counts reset just before and summed over (a)
+   and (b) just after, for bf16 and then fp16: (a) the training run's
+   LM built by ``transformer_lm(..., dtype=...)`` (``tok_embed_weight``
+   float32, every other parameter in the dtype), its first step against
+   the fp32 first step from the same weights (``HALF_FIRST_STEP``: 4 U
+   of the dtype, ``HALF_U``), then ``TRAIN_STEPS`` Adam steps
+   (``BF16_OPT``, no loss scaling) through ``Module``'s fused step and
+   again eagerly from the same weights: a finite, falling loss, the
+   graphed steps within the dtype's ``TOL``/``BWD_TOL`` of the eager
+   ones, every traced B1 launch of the graphed run the dtype's
+   instantiation (``BF16_SUFFIX`` / ``FP16_SUFFIX``), the share of its
+   weight elements step 10 changed; (b) the trained LM served by
+   ``DecodeEngine`` (``half_serving``, each run a device trace): with
+   ``dtype=`` the dtype (run A's requests), over other pages (bf16:
+   ``kv_dtype="bf16"``, greedy tokens equal; fp16: int8 codes under
+   fp16 queries) and with ``spec_tokens=4``; fp16 also a prefix hit (B8
+   over [cached prefix | suffix]): parameters in their dtypes, every
+   traced B1 and paged launch the dtype's instantiation, as many as
+   prefills and steps times the layers, tokens/s and TTFT; the
+   random-weight LM served the same way first (S0 / F0): its greedy
+   tokens the full forward's argmax wherever its top-2 margin exceeds
+   ``BF16_MARGIN`` U of the row's largest logit, at a quarter of them at
+   least (the trained LM's top logits lie within that margin of each
+   other: its tokens within it, over int8 pages ``INT8_MARGIN``, of the
+   top logit); (c) ResNet-50's first step (batch 4) in fp32, under TF32
    and in bf16 against the port's float64 step on the CPU (recorded:
    ill-conditioned), every op node of the TF32 and bf16 steps alone
    against the same node in float64 on its inputs (``NODE_UNITS``
    roundings), and phase 10's training run (2 epochs of 20 batches,
    batch 32) in bf16 (bound from a bf16 data descriptor) and under TF32,
-   each with its eager step by aten op.
+   each with its eager step by aten op.  The fp16 instantiations of rows
+   1-9 are held against their plain versions at the table's shapes
+   (``half_kernel_checks``) with the kernel checks.
 14. The operator layer (``ops_path``; no kernel of the port launches):
    (a) the GPT-2-class LM with its attention written from ``batch_dot``
    and ``softmax`` (``primitive_lm_symbol``: ``SliceChannel`` of the
@@ -438,6 +449,24 @@
    (over int8 pages: every token's logit within ``INT8_MARGIN`` of the
    row's largest of the top one), the self-draft accepting above 0.9.
    A ``tenancy_summary`` line.
+18. The engine's executables as CUDA graphs (``graphs_path``), at the
+   GPT-2-class width, KVB 16: (a) run A's traffic, (b) run B's
+   (``spec_tokens=4``: the verify executables), (c) run A's over int8
+   pages and (d) phase 17 (a)'s mixed adapter batch, each through a
+   graphed engine and one with ``_graphs=False`` (the same executables
+   uncaptured): every token equal, one capture an executable; the
+   graphed (b) and (c) are device traces (B1 12 a prefill, the paged
+   kernel 12 a step, verify steps included); (e) the pipelined fetch:
+   one prompt alone saves device-to-host syncs, its tokens those of an
+   engine that cannot pipeline; (f) ``warmup()`` of (a)'s and (b)'s
+   graphed engines (run B's speculating) builds and captures every prefill,
+   decode and verify bucket once (the JAX engine's keys), and the
+   traffic after it builds none; (g) a 712-token
+   miss's host and kernel ms graphed and eager; (h) ``swap_params`` mid-
+   serve: the same weights change no chain and build nothing, other
+   weights make the next chains a fresh engine's over them, a swap
+   missing a name or of a wrong shape raises and installs nothing;
+   ``get_params`` gives the new weights.  A ``graphs_summary`` line.
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -480,11 +509,11 @@ training paths without their eager runs: parent against change is the
 comparison), ``--kernels ROOT`` the kernels
 alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
 ``--cnn ROOT`` phase 11 alone, ``--ckpt ROOT`` phase 12 alone,
-``--bf16 ROOT`` phase 13 alone after B1's and the paged kernels' bf16
-checks at its shapes, ``--ops ROOT`` phase 14 alone with the packed
+``--bf16 ROOT`` phase 13 alone after the bf16 and fp16 checks of rows
+1-9 at the table's shapes, ``--ops ROOT`` phase 14 alone with the packed
 LM's training run beside it, ``--core ROOT`` phase 15 alone,
-``--prefix ROOT`` phase 16 alone, ``--tenancy ROOT`` phase 17 alone
-(see ``paths_timing``);
+``--prefix ROOT`` phase 16 alone, ``--tenancy ROOT`` phase 17 alone,
+``--graphs ROOT`` phase 18 alone (see ``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -511,14 +540,21 @@ import numpy as np
 
 # H100 SXM published peaks, dense (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # the tensor-core kernels' own ceiling: fp32 products as split TF32, three
-# TF32 products at 495 TFLOP/s each; bf16 at its tensor-core rate
-PEAK_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# TF32 products at 495 TFLOP/s each; bf16 and fp16 at their tensor-core
+# rate
+PEAK_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12,
+                 "float16": 989e12}
+# fp16's tolerances are bf16's scaled by the two formats' unit roundoff
+# (2^-11 against 2^-8: 11 significand bits against 8)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2 / 8}
 # the backward's tolerance scales with its largest reference value:
-# fp32 BWD_TOL * max(1, max|ref|), bf16 BWD_TOL * max|ref|
-BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# fp32 BWD_TOL * max(1, max|ref|), bf16 and fp16 BWD_TOL * max|ref|
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2 / 8}
+# the attention kernels' 16-bit dtypes, and their dtype codes
+HALF_DTYPES = ("bfloat16", "float16")
+DTYPE_CODE = {"float32": 0, "bfloat16": 1, "float16": 2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 10, 3e-5
 SPEC_K, SPEC_NEW = 4, 64
 LSTM_PTB = dict(vocab=10000, num_embed=200, num_hidden=200, num_layers=2,
@@ -596,7 +632,7 @@ CKPT_RESNET_BATCHES = 8
 # 3e-4 (bf16 weights of ~0.02 move by steps of ~1.2e-4, which SGD at
 # TRAIN_LR never reaches; at 1e-3 the loss rose again after step 7 on
 # the H100); its first step against the fp32 first step from the same
-# weights within BF16_FIRST_STEP (bf16's unit roundoff U = 2^-8: the
+# weights within HALF_FIRST_STEP (bf16's unit roundoff U = 2^-8: the
 # mean loss and the gradients' norm within 4 U relative, as the errors
 # of a few roundings; measured 1.7e-5 and 6.6e-3); serving's greedy
 # tokens (of the random-weight LM served in bf16) equal to the full
@@ -606,14 +642,22 @@ CKPT_RESNET_BATCHES = 8
 # the top logit (its top logits lie within it of each other)
 U_BF16 = 2.0 ** -8
 BF16_OPT = ("adam", {"learning_rate": 3e-4})
-BF16_FIRST_STEP = {"loss": 4 * U_BF16, "grad": 4 * U_BF16}
 BF16_MARGIN = 8
+# fp16 the same way in its own unit roundoff, 2^-11 (11
+# significand bits): the fp16 LM's first step within 4 U of fp32's, the
+# same Adam run (no loss scaling, as the JAX package has none), serving
+# held to BF16_MARGIN U
+U_FP16 = 2.0 ** -11
+HALF_U = {"bfloat16": U_BF16, "float16": U_FP16}
+HALF_TAG = {"bfloat16": "bf16", "float16": "fp16"}
+HALF_FIRST_STEP = {dt: {"loss": 4 * u, "grad": 4 * u}
+                   for dt, u in HALF_U.items()}
 # ResNet-50's first step in TF32 and bf16, node by node against float64
 # on the same inputs: within NODE_UNITS roundings of the format in
 # relative norm (the unit roundoff: 2^-11 for TF32's 11 significand
 # bits, 2^-8 for bf16's 8; one rounding of a result is about half a
 # unit in norm, a product of two TF32-rounded operands about one)
-ROUNDING_UNIT = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8}
+ROUNDING_UNIT = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8, "fp16": 2.0 ** -11}
 NODE_UNITS = 4
 
 GPT2_SMALL = dict(vocab_size=32768, num_layers=12, num_heads=12, d_model=768,
@@ -807,8 +851,10 @@ def tensor_core_report(_build):
     import re
 
     names = "|".join(k for spec in TC_KERNELS for k in spec[1])
-    name_re = re.compile(rf"\d({names})I(f|13__nv_bfloat16)"
+    name_re = re.compile(rf"\d({names})I(f|13__nv_bfloat16|6__half)"
                          r"(?:Li(\d+)E)?E")
+    mangled = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+               "6__half": "float16"}
     out = []
     for lib, kernels, dps, query, query_args in TC_KERNELS:
         path = _build._target(lib)
@@ -830,9 +876,9 @@ def tensor_core_report(_build):
             if mt_ is None:
                 continue
             kernel, ty, dp = mt_.group(1), mt_.group(2), mt_.group(3)
-            dtype = "float32" if ty == "f" else "bfloat16"
+            dtype = mangled[ty]
             dp = int(dp or 64)
-            dyn = smem(*query_args(kernel, dp, int(dtype == "bfloat16")))
+            dyn = smem(*query_args(kernel, dp, DTYPE_CODE[dtype]))
             hmma, hgmma = mma.get(fn, (0, 0))
             rec = {"kernel": kernel, "dtype": dtype, "head_dim_bucket": dp,
                    "registers": int(regs), "stack_bytes": int(stack),
@@ -845,7 +891,7 @@ def tensor_core_report(_build):
                   f"{kernel} {dtype} D<={dp}: {local} bytes of local memory")
             seen.add((kernel, dtype, dp))
             out.append(rec)
-        want = {(k, d, p) for k in kernels for d in ("float32", "bfloat16")
+        want = {(k, d, p) for k in kernels for d in DTYPE_CODE
                 for p in dps}
         check(want <= seen, f"{lib}: instantiations missing from "
               f"cuobjdump's report: {sorted(want - seen)}")
@@ -1738,17 +1784,18 @@ def check_decode_quant(torch, ck, tatt, F, B, MB, dtype, kv, rng, H=H, D=D,
 
 
 def check_verify(torch, ck, tatt, F, B, W, MB, pool, rng, H=H, D=D,
-                 start=None, timed=True):
-    """B4 (``pool`` float32/bfloat16: raw pages; int8/fp8: the quantized
-    instantiation, under fp32 queries) at H heads of width D against its
-    plain version, with
+                 start=None, timed=True, qdtype=None):
+    """B4 (``pool`` float32/bfloat16/float16: raw pages, queries of the
+    pool's dtype; int8/fp8: the quantized instantiation, under ``qdtype``
+    queries, float32 by default) at H heads of width D against its plain
+    version, with
     q a strided view of a packed (B, W, 3*H*D) qkv; and row w against
     the decode kernel (B2, or B3 over quantized pools) at lengths =
     start + 1 + w, bit for bit.  ``start`` (B,): the tokens cached before
     each window (default: ragged, one window ending on the last page, one
     padded batch row); ``timed`` False: the checks alone, no times."""
     quant = pool in KV_TORCH
-    dtype = "float32" if quant else pool
+    dtype = (qdtype or "float32") if quant else pool
     dt = getattr(torch, dtype)
     P = 1 + B * MB
     g = torch.Generator(device="cuda").manual_seed(B * 100 + W)
@@ -1912,17 +1959,58 @@ def paged_edge_checks(torch, ck, tatt, F, rng, MB=64):
 
 # the paged kernels: library, its shared-memory query's argument for a
 # reader (pool element code), the readers it instantiates
+def half_kernel_checks(torch, ck, tatt, F, dtype, rng, parts=("tc",
+                                                             "paged")):
+    """The ``dtype`` (bfloat16 or float16) instantiations of rows 1-9 of
+    PERF.md's table at its shapes, each against its plain version at
+    ``TOL`` / ``BWD_TOL`` of ``dtype``: "tc" in ``parts``, B1's forward
+    (B = 1 and 8, T = 1024) and backward (B = 8), B5's forward and
+    backward at the DPA path's shape, B8 and B9 at the ring's past hop;
+    "paged", the paged kernels at B = 16, MB = 64: decode over ``dtype``
+    pages under ``dtype`` and fp32 queries, the quantized decode and
+    verify under ``dtype`` queries over int8 and fp8 codes, verify over
+    ``dtype`` pages (each verify row bit for bit the decode kernel's)."""
+    recs = []
+    if "tc" in parts:
+        recs += [check_prefill(torch, ck, F, 1024, dtype, B=B)
+                 for B in (1, TRAIN_BATCH)]
+        recs += check_backward(torch, ck, F, TRAIN_BATCH, 1024, dtype)
+        recs += check_mha(torch, ck, F, *MHA_SHAPES[0], dtype)
+        recs += check_partial(torch, ck, F, *PARTIAL_SHAPES[1], dtype)
+        torch.cuda.empty_cache()
+    if "paged" not in parts:
+        return recs
+    recs.append(check_decode(torch, ck, F, 16, 64, dtype, rng))
+    recs.append(check_decode(torch, ck, F, 16, 64, "float32", rng,
+                             kv_dtype=dtype))
+    for kv in ("int8", "fp8"):
+        recs.append(check_decode_quant(torch, ck, tatt, F, 16, 64, dtype, kv,
+                                       rng))
+    for pool in (dtype, "int8", "fp8"):
+        recs.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
+                                 pool, rng, qdtype=dtype))
+    torch.cuda.empty_cache()
+    return recs
+
+
+# (library, its page readers' mangled element types → the library's
+# shared-memory query code, the rows a pass it instantiates: the decode
+# libraries one, the verify library one and PAGED_WC)
 PAGED_LIBS = (
-    ("paged_attention_decode", {"f": 0, "13__nv_bfloat16": 1}),
-    ("paged_attention_decode_quant", {"a": None, "h": None}),
-    ("paged_attention_verify", {"f": 0, "13__nv_bfloat16": 1, "a": 2,
-                                "h": 3}))
+    ("paged_attention_decode", {"f": 0, "13__nv_bfloat16": 1,
+                                "6__half": 2}, (1,)),
+    ("paged_attention_decode_quant", {"a": None, "h": None}, (1,)),
+    # the verify library's query takes 1 for any 16-bit pool
+    ("paged_attention_verify", {"f": 0, "13__nv_bfloat16": 1,
+                                "6__half": 1, "a": 2, "h": 3},
+     (1, PAGED_WC)))
 
 
 def paged_report(_build):
     """Registers, shared and local memory of every instantiation of the
-    paged kernels' one kernel (``paged::attend_kernel``, at 1 and
-    ``PAGED_WC`` rows a pass) in each of the three libraries (``cuobjdump -res-usage``; dynamic shared memory and the
+    paged kernels' one kernel (``paged::attend_kernel``, at 1 row a pass,
+    and in the verify library also ``PAGED_WC``) in each of the three
+    libraries (``cuobjdump -res-usage``; dynamic shared memory and the
     cluster size from each library's own queries), and the CTAs an SM
     holds (by registers, shared memory and threads).  Raises when a
     head-width bucket is missing for a reader, an instantiation at D = 64
@@ -1930,10 +2018,13 @@ def paged_report(_build):
     import ctypes
     import re
 
-    name_re = re.compile(r"attend_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
-                         r"\w*?(RawPages|QuantPages)I(f|13__nv_bfloat16|a|h)E")
+    name_re = re.compile(r"attend_kernelI(f|13__nv_bfloat16|6__half)"
+                         r"Li(\d+)ELi(\d+)E\w*?(RawPages|QuantPages)"
+                         r"I(f|13__nv_bfloat16|6__half|a|h)E")
+    half = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+            "6__half": "float16"}
     out = []
-    for lib, readers in PAGED_LIBS:
+    for lib, readers, rows_built in PAGED_LIBS:
         res = _cuobjdump(_build, ["-res-usage"], _build._target(lib))
         so = _build.library(lib)
         cluster = getattr(so, f"{lib}_cluster_size")
@@ -1958,10 +2049,8 @@ def paged_report(_build):
             per_sm = min(65536 // warp_regs // PAGED_NW,
                          233472 // (int(shared) + dyn + 1024),
                          2048 // (PAGED_NW * 32), 32)
-            rec = {"library": lib, "q": "float32" if tq == "f" else
-                   "bfloat16", "pool": {"f": "float32",
-                                        "13__nv_bfloat16": "bfloat16",
-                                        "a": "int8", "h": "fp8"}[elem],
+            rec = {"library": lib, "q": half[tq],
+                   "pool": {**half, "a": "int8", "h": "fp8"}[elem],
                    "head_dim_bucket": dp, "rows_a_pass": int(rows),
                    "registers": regs, "stack_bytes": int(stack),
                    "static_shared_bytes": int(shared),
@@ -1975,7 +2064,7 @@ def paged_report(_build):
             seen.add((elem, dp, int(rows)))
             out.append(rec)
         want = {(e, p, r) for e in readers for p in (32, 64, 96, 128)
-                for r in (1, PAGED_WC)}
+                for r in rows_built}
         check(want <= seen, f"{lib}: instantiations missing from "
               f"cuobjdump's report: {sorted(want - seen)}")
     return out
@@ -2015,14 +2104,28 @@ def gpt2_small_params(seed=0, cfg=GPT2_SMALL):
 
 
 def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
-              cfg=GPT2_SMALL, on_reset=None, **engine_kw):
+              cfg=GPT2_SMALL, on_reset=None, trace=None, warm=False,
+              **engine_kw):
     """Serve ``prompts`` through a fresh ``DecodeEngine`` of the LM
-    ``cfg`` (after a warm-up request), with the launch counts reset just
-    before (``on_reset()`` then) and read just after.  Returns (engine
-    model, outputs, stats, launches, record)."""
+    ``cfg`` (after a warm-up request; with ``warm`` after ``warmup()``
+    too, so no bucket is built inside the traffic), with the launch
+    counts reset just before (``on_reset()`` then) and read just after;
+    with ``trace`` (a label) the run is a ``TracedLaunches`` region and
+    the launches are its trace's (the record's ``half_launches``: the
+    bf16 and fp16 instantiations' counts).  Returns (engine model,
+    outputs, stats, launches, record)."""
     eng = mt.DecodeEngine(dev_params, **cfg, ctx=mt.gpu(0),
                           kv_block=KVB, max_streams=16, seed=0, **engine_kw)
+    traced = None
+    warmed = None
     with eng:
+        if warm:  # every bucket, and the sampler's first draw
+            t0 = time.perf_counter()
+            eng.warmup()
+            warmed = eng.stats()
+            warmed["wall_s"] = time.perf_counter() - t0
+            eng.generate(np.arange(1, 20, dtype=np.int32), 2,
+                         temperature=0.8)
         eng.generate(np.arange(1, 20, dtype=np.int32), 2)  # CUDA warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2030,12 +2133,17 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
         ck.reset_launch_counts()  # counts from here on: this run
         if on_reset is not None:
             on_reset()
+        if trace is not None:
+            traced = TracedLaunches(torch, ck, trace).__enter__()
         t0 = time.perf_counter()
         futs = [eng.submit(p, new_tokens, temperature=t)
                 for p, t in zip(prompts, temps)]
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = dict(ck.LAUNCHES)
+        if traced is not None:
+            traced.__exit__(None, None, None)
+            launches = traced.launches
         st = eng.stats()
         peak = torch.cuda.max_memory_allocated()
         model = eng.model
@@ -2067,7 +2175,18 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
            "preempted": st["preempted"], "kv_dtype": st["kv_dtype"],
            "prefix_hits": st["prefix_hits"],
            "pool_bytes": st["pool_bytes"], "peak_memory_bytes": int(peak),
+           "graphs": st.get("graphs"),
+           "compiles": len(st.get("compiles", ())),
+           "d2h_syncs_saved": st.get("d2h_syncs_saved"),
            "greedy_outputs_sha256": greedy, "launches": launches}
+    if traced is not None:
+        rec["half_launches"] = {"bf16": traced.bf16_launches,
+                                "fp16": traced.fp16_launches}
+    if warmed is not None:
+        rec["warmup"] = {k: warmed[k] for k in (
+            "compiles", "graphs", "wall_s", "prefill_buckets",
+            "decode_buckets", "cache_buckets", "spec_tokens")}
+        rec["warmup"]["compiles_after_traffic"] = st["compiles"]
     return model, outs, st, launches, rec
 
 
@@ -2284,8 +2403,17 @@ TRACE_FUNCTIONS = {
     "user_silu": ("user_silu",), "user_silu_grad": ("user_silu_grad",),
     "user_gelu": ("user_gelu",), "user_gelu_grad": ("user_gelu_grad",),
     "user_triton_silu": ("user_triton_silu",),
-    "user_triton_silu_grad": ("user_triton_silu_grad",)}
+    "user_triton_silu_grad": ("user_triton_silu_grad",),
+    # the four paged wrappers launch one device function: a trace counts
+    # them together (PAGED_GROUP)
+    "paged_attention": ("attend_kernel",),
+    "flash_attention_partial": ("partial_fwd_kernel",),
+    "flash_attention_bwd_dq": ("partial_bwd_dq_kernel",),
+    "flash_attention_bwd_dkv": ("partial_bwd_dkv_kernel",)}
 _TRACE_KEY = {f: k for k, fs in TRACE_FUNCTIONS.items() for f in fs}
+# the wrappers whose launches a trace counts under "paged_attention"
+PAGED_GROUP = ("paged_attention_decode", "paged_attention_decode_quant",
+               "paged_attention_verify", "paged_attention_verify_quant")
 # a function's name in a kernel's trace name, demangled ("void
 # mhap_fwd_kernel<float>(...)", "user_gelu(float const*, ...)"), not
 # ("_Z9user_geluPKfPfi"), or a Triton kernel's ("user_triton_silu", in
@@ -2311,15 +2439,17 @@ def spin_fill(torch, cycles=TRACE_FILLER_CYCLES):
     torch.cuda.synchronize()
 
 
-# a traced kernel whose name holds "bfloat16" (its template argument) is
-# also counted under its wrapper's name with this suffix
-BF16_SUFFIX = "@bf16"
+# a traced kernel whose name holds "bfloat16" or "__half" (a template
+# argument: its input, or a paged kernel's pages or q) is also counted
+# under its wrapper's name with this suffix
+BF16_SUFFIX, FP16_SUFFIX = "@bf16", "@fp16"
 
 
 def traced_launches(prof):
     """The kernels of ``TRACE_FUNCTIONS`` in the device activity of the
     finished ``torch.profiler`` run ``prof``, by wrapper name (the bf16
-    instantiations also under name + ``BF16_SUFFIX``), and the spin
+    and fp16 instantiations also under name + ``BF16_SUFFIX`` /
+    ``FP16_SUFFIX``), and the spin
     kernels: "spin_long" (at least 3/4 of a ``TRACE_FILLER_CYCLES``
     spin's median) and "spin_short"."""
     counts = {k: 0 for k in TRACE_FUNCTIONS}
@@ -2335,9 +2465,11 @@ def traced_launches(prof):
         m = _TRACE_NAME.search(name)
         if m:
             counts[_TRACE_KEY[m.group(1)]] += 1
-            if "bfloat16" in name:  # the bf16 instantiation
-                key = _TRACE_KEY[m.group(1)] + BF16_SUFFIX
-                counts[key] = counts.get(key, 0) + 1
+            for tag, suffix in (("bfloat16", BF16_SUFFIX),
+                                ("__half", FP16_SUFFIX)):
+                if tag in name:  # the bf16 / fp16 instantiation
+                    key = _TRACE_KEY[m.group(1)] + suffix
+                    counts[key] = counts.get(key, 0) + 1
         elif "spin_kernel" in name:
             spins.append(ns)
     top = max(spins, default=0)
@@ -2353,7 +2485,8 @@ class TracedLaunches:
     device function (``traced_launches``) is ``launches``, and what the
     wrappers counted meanwhile (a graph's replays by the launches its
     capture recorded) must equal it, kernel by kernel; a kernel counted
-    that ``TRACE_FUNCTIONS`` lacks fails.  ``TRACE_FILLERS`` spin
+    that ``TRACE_FUNCTIONS`` lacks fails (the paged wrappers are counted
+    together, as "paged_attention").  ``TRACE_FILLERS`` spin
     kernels open and close the trace (``spin_fill``; a line is printed
     if the trace lost any).  Without ``on`` (an eager path, where each
     count is a launch), ``launches`` is the wrappers' counts.  ``label``
@@ -2362,7 +2495,7 @@ class TracedLaunches:
     def __init__(self, torch, ck, label, on=True):
         self.torch, self.ck, self.label, self.on = torch, ck, label, on
         self.launches = self.counted = None
-        self.bf16_launches = {}
+        self.bf16_launches, self.fp16_launches = {}, {}
 
     def __enter__(self):
         self.torch.cuda.synchronize()
@@ -2390,16 +2523,18 @@ class TracedLaunches:
             return False
         traced = traced_launches(self.prof)
         self.prof = None
-        self.bf16_launches = {k[:-len(BF16_SUFFIX)]: traced.pop(k)
-                              for k in list(traced)
-                              if k.endswith(BF16_SUFFIX)}
+        self.bf16_launches, self.fp16_launches = (
+            {k[:-len(sfx)]: traced.pop(k) for k in list(traced)
+             if k.endswith(sfx)} for sfx in (BF16_SUFFIX, FP16_SUFFIX))
         spins = (traced.pop("spin_long"), traced.pop("spin_short"))
         if spins != (TRACE_FILLERS, TRACE_FILLERS):
             print(json.dumps({"trace_fillers": {
                 "region": self.label, "launched": TRACE_FILLERS,
                 "traced_first": spins[0], "traced_last": spins[1]}}))
+        self.counted["paged_attention"] = sum(self.counted.get(k, 0)
+                                              for k in PAGED_GROUP)
         untraced = [k for k, n in self.counted.items()
-                    if n and k not in traced]
+                    if n and k not in traced and k not in PAGED_GROUP]
         check(not untraced, f"{self.label}: {untraced} launched, and the "
               f"trace names no device function of theirs")
         off = {k: (self.counted.get(k, 0), n) for k, n in traced.items()
@@ -2531,7 +2666,8 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
             want = L if k in tuple(kernels) + tuple(user_kernels) else 0
             check(n == want, f"{label} step {step}: {k} launched {n} "
                   f"times, not {want}")
-        sums = torch.stack([g.abs().sum() for g in grads]).cpu()
+        # summed in float32: an fp16 gradient's sum may pass 65504
+        sums = torch.stack([g.float().abs().sum() for g in grads]).cpu()
         check(bool(torch.isfinite(sums).all() and (sums > 0).all()),
               f"{label} step {step}: a gradient of {grad_names} is zero or "
               f"not finite: {sums.tolist()}")
@@ -2556,7 +2692,8 @@ def train_steps(torch, ck, mod, batches, kernels, grad_names, label,
     print(f"{label} loss curve: {losses}")
     return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": T,
             "optimizer": opt[0], **opt[1], "losses": losses,
-            "bf16_launches": traced.bf16_launches, "wall_s": wall,
+            "bf16_launches": traced.bf16_launches,
+            "fp16_launches": traced.fp16_launches, "wall_s": wall,
             "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * T / wall,
             "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "peak_memory_bytes": int(peak), "launches": launches,
@@ -5747,41 +5884,6 @@ def ckpt_path(torch, mt, ck):
 # phase 13: bf16 training and storage
 # ---------------------------------------------------------------------------
 
-class DtypeLaunches:
-    """While entered, every launch of the ``names`` wrappers of ``ck``
-    counted by its operands' dtypes: "name[q]" for ``flash_mha_packed``
-    (qkv's), "name[q/pages]" for the paged kernels.  The wrappers are
-    replaced in ``ck`` (``ops.attention`` calls them through it) by
-    callers that read the launch counter around the call."""
-
-    def __init__(self, ck, names):
-        self.ck, self.names, self.counts = ck, names, {}
-
-    def __enter__(self):
-        self.orig = {n: getattr(self.ck, n) for n in self.names}
-        for n in self.names:
-            setattr(self.ck, n, self._spy(n, self.orig[n]))
-        return self
-
-    def _spy(self, name, fn):
-        def call(*args, **kw):
-            before = self.ck.LAUNCHES[name]
-            out = fn(*args, **kw)
-            n = self.ck.LAUNCHES[name] - before
-            if n:
-                dts = [str(a.dtype).replace("torch.", "")
-                       for a in args[:1 if name.startswith("flash") else 2]]
-                key = f"{name}[{'/'.join(dts)}]"
-                self.counts[key] = self.counts.get(key, 0) + n
-            return out
-        return call
-
-    def __exit__(self, *exc):
-        for n, fn in self.orig.items():
-            setattr(self.ck, n, fn)
-        return False
-
-
 @contextlib.contextmanager
 def tf32(torch, on):
     """TF32 for matmuls and cuDNN ``on`` while entered (this script's
@@ -5797,67 +5899,72 @@ def tf32(torch, on):
          torch.backends.cudnn.allow_tf32) = old
 
 
-def bf16_lm_first_step(torch, mt, ck, params, batch):
+def half_lm_first_step(torch, mt, ck, params, batch, dtype):
     """One eager ``forward_backward`` of the training LM in fp32 and in
-    bf16 from the same weights (``params``, rounded to bf16 in the bf16
-    module) on ``batch``: the bf16 mean loss within
-    ``BF16_FIRST_STEP["loss"]`` of the fp32 one (relative), its
-    gradients within ``BF16_FIRST_STEP["grad"]`` in relative norm over
-    every parameter; per-token loss difference and each parameter's
-    dtype recorded."""
+    ``dtype`` (bfloat16 or float16) from the same weights (``params``,
+    rounded to ``dtype`` in its module) on ``batch``: the mean loss within
+    ``HALF_FIRST_STEP[dtype]["loss"]`` of the fp32 one (relative), its
+    gradients within ``HALF_FIRST_STEP[dtype]["grad"]`` in relative norm
+    over every parameter; the per-token loss difference, the worst
+    parameter and each parameter's dtype recorded."""
     res = {}
-    for dtype in ("float32", "bfloat16"):
+    for dt in ("float32", dtype):
         with fused_env("0"):
-            mod = lm_module(mt, packed_lm_symbol(mt, dtype=dtype), params)
+            mod = lm_module(mt, packed_lm_symbol(mt, dtype=dt), params)
         mod.forward_backward(batch)
         ex = mod._exec
-        res[dtype] = (ex.outputs[0]._data.float().clone(),
-                      {n: ex.grad_dict[n]._data.float().clone()
-                       for n in mod._param_names},
-                      {n: str(ex.arg_dict[n]._data.dtype)
-                       for n in mod._param_names})
+        res[dt] = (ex.outputs[0]._data.float().clone(),
+                   {n: ex.grad_dict[n]._data.float().clone()
+                    for n in mod._param_names},
+                   {n: str(ex.arg_dict[n]._data.dtype)
+                    for n in mod._param_names})
         del mod, ex
         torch.cuda.empty_cache()
-    (l32, g32, _), (l16, g16, types) = res["float32"], res["bfloat16"]
+    (l32, g32, _), (lh, gh, types) = res["float32"], res[dtype]
+    tol = HALF_FIRST_STEP[dtype]
     check(types["tok_embed_weight"] == "torch.float32"
           and {t for n, t in types.items() if n != "tok_embed_weight"}
-          == {"torch.bfloat16"}, f"bf16 LM parameter dtypes: {types}")
-    check(bool(torch.isfinite(l16).all()) and all(
-        bool(torch.isfinite(g).all()) for g in g16.values()),
-        "bf16 LM first step: a loss or gradient is not finite")
-    loss_rel = abs(float(l16.mean()) - float(l32.mean())) \
+          == {f"torch.{dtype}"}, f"{dtype} LM parameter dtypes: {types}")
+    check(bool(torch.isfinite(lh).all()) and all(
+        bool(torch.isfinite(g).all()) for g in gh.values()),
+        f"{dtype} LM first step: a loss or gradient is not finite")
+    loss_rel = abs(float(lh.mean()) - float(l32.mean())) \
         / float(l32.mean())
-    diff = torch.cat([(g16[n] - g32[n]).reshape(-1) for n in g32]).norm()
+    diff = torch.cat([(gh[n] - g32[n]).reshape(-1) for n in g32]).norm()
     ref = torch.cat([g.reshape(-1) for g in g32.values()]).norm()
     grad_rel = float(diff / ref)
-    worst = max(g32, key=lambda n: float((g16[n] - g32[n]).norm()
+    worst = max(g32, key=lambda n: float((gh[n] - g32[n]).norm()
                                          / g32[n].norm().clamp_min(1e-30)))
-    rec = {"mean_loss_fp32": float(l32.mean()),
-           "mean_loss_bf16": float(l16.mean()),
-           "mean_loss_rel_err": loss_rel,
-           "token_loss_max_abs_err": float((l16 - l32).abs().max()),
+    rec = {"dtype": dtype, "mean_loss_fp32": float(l32.mean()),
+           "mean_loss": float(lh.mean()), "mean_loss_rel_err": loss_rel,
+           "token_loss_max_abs_err": float((lh - l32).abs().max()),
            "grad_rel_norm_err": grad_rel, "worst_param": worst,
            "worst_param_rel_norm_err": float(
-               (g16[worst] - g32[worst]).norm() / g32[worst].norm()),
-           "tolerance": BF16_FIRST_STEP}
-    check(loss_rel <= BF16_FIRST_STEP["loss"]
-          and grad_rel <= BF16_FIRST_STEP["grad"],
-          f"bf16 LM first step against fp32: {rec}")
-    print(f"bf16 LM first step against fp32: {rec}")
+               (gh[worst] - g32[worst]).norm() / g32[worst].norm()),
+           "zero_grad_elements": {
+               "fp32": sum(int((g == 0).sum()) for g in g32.values()),
+               dtype: sum(int((g == 0).sum()) for g in gh.values())},
+           "tolerance": tol}
+    check(loss_rel <= tol["loss"] and grad_rel <= tol["grad"],
+          f"{dtype} LM first step against fp32: {rec}")
+    print(f"{dtype} LM first step against fp32: {rec}")
     return rec
 
 
-def bf16_lm_train(torch, mt, ck, counts, params):
-    """The training run's LM built in bf16 (``transformer_lm(...,
-    dtype="bfloat16")``), ``TRAIN_STEPS`` Adam steps (``BF16_OPT``)
-    through the fused step's CUDA graphs, and again under
-    ``MXNET_FUSED_STEP=0`` from the same weights, the graphed steps held
-    to the eager ones at bf16's ``TOL``/``BWD_TOL`` (``lm_train_pair``).
-    Gates: a falling, finite loss; B1's three kernels a layer a step,
-    each launch of the graphed run a bf16 instantiation in the device
-    trace.  Records the share of the bf16 parameters' elements that step
-    10 changed.  → (the record, the trained parameters on the host)."""
+def half_lm_train(torch, mt, ck, counts, params, dtype):
+    """The training run's LM built in ``dtype`` (``transformer_lm(...,
+    dtype=...)``, bfloat16 or float16), ``TRAIN_STEPS`` Adam steps
+    (``BF16_OPT``, no loss scaling: the JAX package has none) through the
+    fused step's CUDA graphs, and again under ``MXNET_FUSED_STEP=0`` from
+    the same weights, the graphed steps held to the eager ones at the
+    dtype's ``TOL``/``BWD_TOL`` (``lm_train_pair``).  Gates: a falling,
+    finite loss; B1's three kernels a layer a step, each launch of the
+    graphed run the dtype's instantiation in the device trace.  Records
+    the share of the half-precision parameters' elements that step 10
+    changed.  → (the record, the trained parameters on the device)."""
     L = GPT2_SMALL["num_layers"]
+    tag = HALF_TAG[dtype]
+    dt = getattr(torch, dtype)
     kept, before, changed = {}, {}, {}
 
     def keep(mod):
@@ -5866,15 +5973,14 @@ def bf16_lm_train(torch, mt, ck, counts, params):
     state = {}
 
     def make():
-        mod = lm_module(mt, packed_lm_symbol(mt, dtype="bfloat16"), params)
+        mod = lm_module(mt, packed_lm_symbol(mt, dtype=dtype), params)
         state["mod"] = mod
         return mod
 
     def snapshot(step):
         mod = state["mod"]
         arg = mod._exec.arg_dict
-        names = [n for n in mod._param_names
-                 if arg[n]._data.dtype == torch.bfloat16]
+        names = [n for n in mod._param_names if arg[n]._data.dtype == dt]
         if step == TRAIN_STEPS - 2:
             before.update({n: arg[n]._data.clone() for n in names})
         elif step == TRAIN_STEPS - 1:
@@ -5887,40 +5993,42 @@ def bf16_lm_train(torch, mt, ck, counts, params):
 
     rec = lm_train_pair(
         torch, mt, ck, make, lm_batches(mt), PACKED_KERNELS,
-        [f"layer{i}_qkv_weight" for i in range(L)], "bf16 training",
+        [f"layer{i}_qkv_weight" for i in range(L)], f"{tag} training",
         keep=keep, tally=counts.add, opt=BF16_OPT,
-        dtype="bfloat16", after_step=snapshot)
+        dtype=dtype, after_step=snapshot)
     state.clear()
     for k in PACKED_KERNELS:
-        check(rec["bf16_launches"].get(k, 0) == L * TRAIN_STEPS,
-              f"bf16 training: {rec['bf16_launches'].get(k, 0)} bf16 "
+        got = rec[f"{tag}_launches"].get(k, 0)
+        check(got == L * TRAIN_STEPS, f"{tag} training: {got} {tag} "
               f"launches of {k} in the trace, not {L * TRAIN_STEPS}")
-    check(changed.get("changed", 0) > 0, f"bf16 training: step "
-          f"{TRAIN_STEPS} changed no bf16 weight ({changed})")
+    check(changed.get("changed", 0) > 0, f"{tag} training: step "
+          f"{TRAIN_STEPS} changed no {tag} weight ({changed})")
     rec["step_changed_elements"] = changed
     return rec, kept
 
 
-def bf16_serving(torch, mt, ck, counts, params):
-    """The GPT-2-class LM served in bf16 by ``DecodeEngine``: S0 its
-    random weights (phase 3's, ``tok_embed_weight`` float32, the rest
-    rounded to bf16) with ``dtype="bfloat16"``, run A's 16 requests of 32
-    tokens each; then the trained bf16 LM (``params``): S1
-    ``dtype="bfloat16"`` (bf16 pages) and S2 ``kv_dtype="bf16"`` over
-    the same requests, and S3 ``dtype="bfloat16"`` with
-    ``spec_tokens=4`` over the spec prompts.  Gates: the engine's
-    parameters keep their dtypes and its pools are bf16; every launch of
-    B1 (prefill), the decode kernel and the verify kernel takes bf16
-    operands (``DtypeLaunches``), as many as prefills, plain steps and
-    verify steps times the layers; S2's greedy tokens equal S1's (the
-    same pages); S0's greedy tokens are the full forward's argmax
+def half_serving(torch, mt, ck, counts, params, dtype):
+    """The GPT-2-class LM served in ``dtype`` by ``DecodeEngine``, each
+    run a device trace (``serve_run(trace=)``).  Run 0: its random
+    weights (phase 3's, ``tok_embed_weight`` float32, the rest rounded to
+    ``dtype``) with ``dtype=dtype`` pages, run A's 16 requests of 32
+    tokens; then the trained LM (``params``): run 1 the same, run 2 over
+    other pages (bf16: ``kv_dtype="bf16"``, whose greedy tokens must equal
+    run 1's; fp16: ``kv_dtype="int8"``, fp16 queries over int8 codes),
+    run 3 ``spec_tokens=4`` over the spec prompts; fp16 also a prefix hit
+    (``half_prefix_hit``).  Gates: the engine's parameters keep their
+    dtypes; every traced B1 and paged launch is the dtype's
+    instantiation, as many as prefills and steps (plain and verify)
+    times the layers; run 0's greedy tokens are the full forward's argmax
     wherever its top-2 margin exceeds ``BF16_MARGIN`` U of the row's
     largest logit, at a quarter of them at least; the trained LM's top
     logits lie within that margin of each other (ten steps taught it the
-    few hundred ids its random walk visits, alike), so S1-S3's tokens
-    are held to the band: each within that margin of the full forward's
-    top logit."""
+    few hundred ids its random walk visits, alike), so the later runs'
+    tokens are held to the band: each within that margin (over int8
+    pages ``INT8_MARGIN``) of the full forward's top logit."""
     L = GPT2_SMALL["num_layers"]
+    tag, u = HALF_TAG[dtype], HALF_U[dtype]
+    dt = getattr(torch, dtype)
     rng = np.random.RandomState(1)
     lens = rng.randint(32, 901, size=16)
     prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], size=n)
@@ -5928,55 +6036,106 @@ def bf16_serving(torch, mt, ck, counts, params):
     temps = [0.8 if i in (3, 11) else 0.0 for i in range(16)]
     spec = spec_prompts()
     spec_temps = [0.0] * len(spec)
-    names = ("flash_mha_packed", "paged_attention_decode",
-             "paged_attention_verify")
     runs, outs = {}, {}
     random_params = {k: torch.from_numpy(v) if k == "tok_embed_weight"
-                     else torch.from_numpy(v).bfloat16()
+                     else torch.from_numpy(v).to(dt)
                      for k, v in gpt2_small_params(0).items()}
-    for run, kw, weights, pr, tp, new in (
-            ("S0", dict(dtype="bfloat16"), random_params, prompts, temps,
-             32),
-            ("S1", dict(dtype="bfloat16"), params, prompts, temps, 32),
-            ("S2", dict(kv_dtype="bf16"), params, prompts, temps, 32),
-            ("S3", dict(dtype="bfloat16", spec_tokens=SPEC_K,
-                        proposer="ngram"), params, spec, spec_temps,
-             SPEC_NEW)):
-        with DtypeLaunches(ck, names) as dl:
-            model, outs[run], st, launches, rec = serve_run(
-                torch, mt, ck, weights, pr, tp, new,
-                on_reset=dl.counts.clear, **kw)
+    other = dict(kv_dtype="bf16") if dtype == "bfloat16" \
+        else dict(kv_dtype="int8")
+    letter = "S" if dtype == "bfloat16" else "F"
+    for i, kw, weights, pr, tp, new in (
+            (0, dict(dtype=dtype), random_params, prompts, temps, 32),
+            (1, dict(dtype=dtype), params, prompts, temps, 32),
+            (2, other, params, prompts, temps, 32),
+            (3, dict(dtype=dtype, spec_tokens=SPEC_K, proposer="ngram"),
+             params, spec, spec_temps, SPEC_NEW)):
+        run = f"{letter}{i}"
+        model, outs[run], st, launches, rec = serve_run(
+            torch, mt, ck, weights, pr, tp, new, trace=f"{run} serving",
+            **kw)
         counts.add(launches)
         dtypes = {n: str(p.dtype) for n, p in model.named_parameters()}
         check(dtypes.pop("tok_embed_weight") == "torch.float32"
-              and set(dtypes.values()) == {"torch.bfloat16"},
+              and set(dtypes.values()) == {f"torch.{dtype}"},
               f"{run}: engine parameter dtypes {dtypes}")
-        plain = st["steps"] - st["spec_steps"]
-        want = {"flash_mha_packed[bfloat16]": L * st["prefills"],
-                "paged_attention_decode[bfloat16/bfloat16]": L * plain,
-                "paged_attention_verify[bfloat16/bfloat16]":
-                    L * st["spec_steps"]}
-        got = {k: dl.counts.get(k, 0) for k in want}
-        check(got == want and sum(dl.counts.values()) == sum(want.values())
-              and launches["flash_mha_packed"] == L * st["prefills"],
-              f"{run}: launches by dtype {dl.counts}, want {want}")
-        check(st["steps"] > 0 and (st["spec_steps"] > 0) == (run == "S3"),
+        half = rec["half_launches"][tag]
+        want = {"flash_mha_packed": L * st["prefills"],
+                "paged_attention": L * st["steps"]}
+        got = {k: (launches.get(k, 0), half.get(k, 0)) for k in want}
+        check(all(g == (n, n) for g, n in zip(got.values(), want.values()))
+              and launches["paged_attention_verify"]
+              + launches["paged_attention_verify_quant"]
+              == L * st["spec_steps"],
+              f"{run}: (traced, {tag}) launches {got}, want {want}")
+        check(st["steps"] > 0 and (st["spec_steps"] > 0) == (i == 3),
               f"{run}: {st}")
+        margin = INT8_MARGIN if kw.get("kv_dtype") == "int8" \
+            else BF16_MARGIN * u
         forward_check(torch, model, pr, outs[run], tp,
-                      [len(p) for p in pr], run,
-                      rel_margin=BF16_MARGIN * U_BF16, band=run != "S0")
-        rec["launches_by_dtype"] = dl.counts
+                      [len(p) for p in pr], run, rel_margin=margin,
+                      band=i != 0)
         rec["greedy_tokens"] = [o.tolist() for o, t in zip(outs[run], tp)
                                 if t == 0.0][:2]
         runs[run] = rec
         del model
         torch.cuda.empty_cache()
     del random_params
-    for i, t in enumerate(temps):
-        if t == 0.0:
-            check(np.array_equal(outs["S1"][i], outs["S2"][i]),
-                  f"S2 stream {i}: greedy tokens differ from S1's")
+    if dtype == "bfloat16":
+        for i, t in enumerate(temps):
+            if t == 0.0:
+                check(np.array_equal(outs["S1"][i], outs["S2"][i]),
+                      f"S2 stream {i}: greedy tokens differ from S1's")
+    else:
+        runs["F4"] = half_prefix_hit(torch, mt, ck, counts, params, dtype)
     return runs
+
+
+def half_prefix_hit(torch, mt, ck, counts, params, dtype):
+    """A prefix hit served in ``dtype`` pages: a 256-token prompt, then the
+    same plus 64 new tokens, 32 greedy tokens each; the second must hit
+    the 256 cached tokens and run B8 once a layer (the dtype's
+    instantiation, traced) over [cached prefix | suffix], and both chains
+    lie within ``BF16_MARGIN`` U of the full forward's top logit (the
+    trained LM's band)."""
+    L = GPT2_SMALL["num_layers"]
+    tag = HALF_TAG[dtype]
+    rng = np.random.RandomState(29)
+    first = rng.randint(1, GPT2_SMALL["vocab_size"], 256).astype(np.int32)
+    second = np.concatenate([first, rng.randint(
+        1, GPT2_SMALL["vocab_size"], 64).astype(np.int32)])
+    with mt.DecodeEngine(params, **GPT2_SMALL, ctx=mt.gpu(0),
+                         kv_block=KVB, max_streams=16, seed=0,
+                         dtype=dtype) as eng:
+        eng.generate(np.arange(1, 20, dtype=np.int32), 2)  # CUDA warm-up
+        a = eng.generate(first, 32)
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        with TracedLaunches(torch, ck, f"{tag} prefix hit") as tr:
+            b = eng.generate(second, 32)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        model = eng.model
+        check(st["prefix_hits"] == 1 and st["prefix_hit_tokens"] == 256
+              and st["prefills"] == 1,
+              f"{tag} prefix hit: {st['prefix_hits']} hits of "
+              f"{st['prefix_hit_tokens']} tokens")
+        counts.add(tr.launches)
+        half = tr.fp16_launches if dtype == "float16" else tr.bf16_launches
+        want = {"flash_attention_partial": L, "flash_mha_packed": 0,
+                "paged_attention": L * st["steps"]}
+        got = {k: (tr.launches.get(k, 0), half.get(k, 0)) for k in want}
+        check(all(g == (n, n) for g, n in zip(got.values(), want.values())),
+              f"{tag} prefix hit: (traced, {tag}) launches {got}, want "
+              f"{want}")
+        forward_check(torch, model, [first, second], [a, b], [0.0, 0.0],
+                      [256, 320], f"{tag} prefix hit",
+                      rel_margin=BF16_MARGIN * HALF_U[dtype], band=True)
+        del model
+    return {"prefix_hit_tokens": st["prefix_hit_tokens"],
+            "ttft_p50_ms": st["ttft_p50_ms"], "wall_s": wall,
+            "launches": tr.launches, "half_launches": half}
 
 
 def grad_distance(torch, grads, ref):
@@ -6172,31 +6331,37 @@ def bf16_resnet_run(torch, mt, variant):
 
 
 def bf16_path(torch, mt, ck):
-    """Phase 13 on ``gpu(0)``: (a) the training run's LM in bf16, its
-    first step against fp32 (``bf16_lm_first_step``) and 10 Adam steps
-    graphed and eager (``bf16_lm_train``); (b) the trained bf16 LM served
-    (``bf16_serving``); (c) ResNet-50's first steps against float64 in
-    fp32, TF32 and bf16 (``bf16_resnet_first_steps``) and its training
-    run in bf16 and under TF32 (``bf16_resnet_run``).  Launch counts
-    reset just before and summed over (a) and (b) just after."""
+    """Phase 13 on ``gpu(0)``, for bf16 and then fp16: (a) the training
+    run's LM in that dtype, its first step against fp32
+    (``half_lm_first_step``) and 10 Adam steps graphed and eager
+    (``half_lm_train``); (b) the trained LM served (``half_serving``);
+    then (c) ResNet-50's first steps against float64 in fp32, TF32 and
+    bf16 (``bf16_resnet_first_steps``) and its training run in bf16 and
+    under TF32 (``bf16_resnet_run``).  Launch counts reset just before
+    and summed over (a) and (b) just after."""
     counts = Launches(torch, ck)
     reset_launch_counts(ck)
     wall = {}
     params = gpt2_small_params(0)
-    t0 = time.perf_counter()
-    with TracedLaunches(torch, ck, "bf16 first step", on=False) as tr:
-        first = bf16_lm_first_step(torch, mt, ck, params,
-                                   next(iter(lm_batches(mt))))
-    counts.add(tr.launches)
-    train, trained = bf16_lm_train(torch, mt, ck, counts, params)
+    batch = next(iter(lm_batches(mt)))
+    lm = {}
+    for dtype in HALF_DTYPES:
+        tag = HALF_TAG[dtype]
+        t0 = time.perf_counter()
+        with TracedLaunches(torch, ck, f"{tag} first step", on=False) as tr:
+            first = half_lm_first_step(torch, mt, ck, params, batch, dtype)
+        counts.add(tr.launches)
+        train, trained = half_lm_train(torch, mt, ck, counts, params, dtype)
+        torch.cuda.empty_cache()
+        wall[f"{tag}_lm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serving = half_serving(torch, mt, ck, counts, trained, dtype)
+        del trained
+        torch.cuda.empty_cache()
+        wall[f"{tag}_serving"] = time.perf_counter() - t0
+        lm[dtype] = {"first_step": first, "train": train,
+                     "serving": serving}
     del params
-    torch.cuda.empty_cache()
-    wall["lm"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    serving = bf16_serving(torch, mt, ck, counts, trained)
-    del trained
-    torch.cuda.empty_cache()
-    wall["serving"] = time.perf_counter() - t0
     now = launch_counts(ck)
     t0 = time.perf_counter()
     resnet = {"first_steps": bf16_resnet_first_steps(torch, mt)}
@@ -6205,32 +6370,38 @@ def bf16_path(torch, mt, ck):
     check(launch_counts(ck) == now, "phase 13: ResNet-50 launched a kernel "
           "of the port's")
     wall["resnet"] = time.perf_counter() - t0
-    L = GPT2_SMALL["num_layers"]
     launched = {k: v for k, v in counts.total.items() if v}
     check(all(launched.get(k, 0) > 0 for k in PACKED_KERNELS + (
-        "paged_attention_decode", "paged_attention_verify")),
+        "paged_attention_decode", "paged_attention_verify",
+        "paged_attention_decode_quant", "flash_attention_partial")),
         f"phase 13 launched {launched}")
-    rec = {"first_step": first, "train": train, "serving": serving,
-           "resnet50": resnet, "part_wall_s": wall,
+    rec = {"lm": lm, "resnet50": resnet, "part_wall_s": wall,
            "launches": counts.total,
-           "bf16_traced_launches": train["bf16_launches"]}
+           "bf16_traced_launches": lm["bfloat16"]["train"]["bf16_launches"],
+           "fp16_traced_launches": lm["float16"]["train"]["fp16_launches"]}
+    summary = {}
+    for dtype, r in lm.items():
+        train = r["train"]
+        summary[HALF_TAG[dtype]] = {
+            "lm_step_p50_ms": train["step_p50_ms"],
+            "lm_eager_step_p50_ms": train.get("eager_step_p50_ms"),
+            "lm_step_device_ms": train["step_device_ms"],
+            "lm_eager_step_device_ms": train.get("eager_step_device_ms"),
+            "lm_graphs": train["graphs"],
+            "lm_peak_memory_bytes": train["peak_memory_bytes"],
+            "lm_tokens_per_s": train["tokens_per_s"],
+            "lm_losses": train["losses"],
+            "lm_graphed_vs_eager": train.get(
+                "graphed_vs_eager_err_over_tol"),
+            "lm_step_changed_share":
+                train["step_changed_elements"]["share"],
+            "first_step": r["first_step"],
+            "serving": {run: {k: x.get(k) for k in (
+                "tokens_per_s", "ttft_p50_ms", "decode_step_p50_ms",
+                "half_launches", "accepted_token_rate", "kv_dtype",
+                "prefix_hit_tokens")} for run, x in r["serving"].items()}}
     print(json.dumps({"bf16_summary": {
-        "lm_step_p50_ms": train["step_p50_ms"],
-        "lm_eager_step_p50_ms": train.get("eager_step_p50_ms"),
-        "lm_step_device_ms": train["step_device_ms"],
-        "lm_eager_step_device_ms": train.get("eager_step_device_ms"),
-        "lm_graphs": train["graphs"],
-        "lm_peak_memory_bytes": train["peak_memory_bytes"],
-        "lm_tokens_per_s": train["tokens_per_s"],
-        "lm_losses": train["losses"],
-        "lm_graphed_vs_eager": train.get("graphed_vs_eager_err_over_tol"),
-        "lm_step_changed_share": train["step_changed_elements"]["share"],
-        "first_step": first,
-        "serving": {r: {k: s[k] for k in ("tokens_per_s", "ttft_p50_ms",
-                                          "decode_step_p50_ms",
-                                          "launches_by_dtype",
-                                          "accepted_token_rate")}
-                    for r, s in serving.items()},
+        **summary,
         "resnet50": {v: {"step_p50_ms": resnet[v]["step_p50_ms"],
                          "images_per_s": resnet[v]["images_per_s"],
                          "peak_memory_bytes": resnet[v]["peak_memory_bytes"],
@@ -8248,14 +8419,15 @@ def tenant_traffic(seed=17):
     return prompts, names, temps
 
 
-def tenant_run(torch, mt, ck, dev_params, traffic, adapters, ads=None):
+def tenant_run(torch, mt, ck, dev_params, traffic, adapters, ads=None,
+               **engine_kw):
     """One engine (an adapter pool with ``ads`` published when
-    ``adapters``), a warm pass of the traffic's shapes under other
-    tokens, then the traffic with the launch counts reset just before →
-    (outputs, stats, launches, wall, model)."""
+    ``adapters``; ``engine_kw`` beside), a warm pass of the traffic's
+    shapes under other tokens, then the traffic with the launch counts
+    reset just before → (outputs, stats, launches, wall, model)."""
     prompts, names, temps = traffic
     wprompts, _, _ = tenant_traffic(seed=18)
-    kw = {}
+    kw = dict(engine_kw)
     if adapters:
         kw["adapters"] = adapter_pool(mt)
         for name, (a, b, alpha) in (ads or {}).items():
@@ -8630,6 +8802,274 @@ def tenancy_path(torch, mt, ck):
     return {"parts": parts, "launches": launches, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the engine's executables as CUDA graphs, warmup(), the pipelined
+# fetch and swap_params (queue A item 7, part 3)
+# ---------------------------------------------------------------------------
+
+# (e): one greedy prompt alone, through the pipelining engine and one
+# held unpipelined (one seat, and an eos id no token equals)
+PIPE_PROMPT, PIPE_NEW = 100, 48
+# (g): the miss whose host and kernel time is split (phase 16's)
+MISS_TOKENS = 712
+
+
+def graph_pair(label, runs, outs):
+    """Graphed against eager: every token of ``outs[0]`` (the graphed
+    engine's) equals ``outs[1]``'s, greedy and sampled alike; each
+    graphed run captured one graph a bucket it used (every ``compiles``
+    count 1, a capture an executable).  → the two runs' serving
+    figures."""
+    for i, (a, b) in enumerate(zip(*outs)):
+        check(np.array_equal(a, b), f"18 {label} stream {i}: graphed tokens "
+              f"differ from eager at {np.nonzero(a != b)[0][:5]}")
+    g, e = runs
+    check(g["graphs"]["graphs_on"] and not e["graphs"]["graphs_on"]
+          and g["graphs"]["captures"] == g["graphs"]["executables"]
+          == g["compiles"] > 0,
+          f"18 {label}: graphs {g['graphs']}, {g['compiles']} compiles")
+    keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+            "decode_step_p50_ms", "prefills", "steps", "d2h_syncs_saved")
+    return {"graphed": {k: g.get(k) for k in keys + ("graphs",)},
+            "eager": {k: e.get(k) for k in keys},
+            "streams_equal": len(outs[0])}
+
+
+def graphs_serving(torch, mt, ck, dev_params, tally):
+    """(a)-(d): run A's traffic (fp32 pages), run B's (``spec_tokens=4``,
+    the verify executables), run A's over int8 pages, and phase 17 (a)'s
+    mixed adapter batch, each through a graphed engine and one with
+    ``_graphs=False`` (the same executables uncaptured): tokens equal.
+    (a) and (b) build every bucket first (``warmup()``, checked by
+    ``warmup_matrix``) and (d) warms the traffic's shapes, so no capture
+    falls inside their timed traffic; (c) captures each bucket at its
+    first use inside it (its graphed TTFT holds those captures).  The
+    graphed runs of (b) and (c) are device traces: B1 12 a prefill, the
+    paged kernel 12 a step (verify and decode) in the trace."""
+    L = GPT2_SMALL["num_layers"]
+    rng = np.random.RandomState(1)
+    lens = rng.randint(32, 901, size=16)
+    prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], size=n)
+               .astype(np.int32) for n in lens]
+    temps = [0.8 if i in (3, 11) else 0.0 for i in range(16)]
+    spec = spec_prompts()
+    stemps = [0.8 if i in (5, 12) else 0.0 for i in range(16)]
+    out = {}
+    for part, pr, tp, new, kw, trace in (
+            ("a", prompts, temps, 32, {}, None),
+            ("b", spec, stemps, SPEC_NEW,
+             dict(spec_tokens=SPEC_K, proposer="ngram"), "18b graphed"),
+            ("c", prompts, temps, 32, dict(kv_dtype="int8"),
+             "18c graphed")):
+        recs, outs = [], []
+        for graphs in (True, False):
+            model, o, st, launches, rec = serve_run(
+                torch, mt, ck, dev_params, pr, tp, new, warm=part != "c",
+                trace=trace if graphs else None, _graphs=graphs, **kw)
+            tally(launches)
+            if graphs and trace is not None:
+                check(launches["flash_mha_packed"] == L * st["prefills"]
+                      and launches["paged_attention"] == L * st["steps"]
+                      and launches["paged_attention_verify"]
+                      + launches["paged_attention_verify_quant"]
+                      == L * st["spec_steps"] > (0 if part == "b" else -1),
+                      f"18{part}: traced launches {launches} for "
+                      f"{st['prefills']} prefills, {st['steps']} steps "
+                      f"({st['spec_steps']} verify)")
+            if graphs and "warmup" in rec:
+                rec["warmup_matrix"] = warmup_matrix(part, rec)
+            recs.append(rec)
+            outs.append(o)
+            del model
+            torch.cuda.empty_cache()
+        out[part] = graph_pair(part, recs, outs)
+        out[part]["warmup"] = recs[0].get("warmup_matrix")
+    ads = tenancy_adapters()
+    traffic = tenant_traffic()
+    runs = []
+    for graphs in (True, False):
+        o, st, launches, wall, model = tenant_run(
+            torch, mt, ck, dev_params, traffic, adapters=True, ads=ads,
+            _graphs=graphs)
+        tally(launches)
+        del model
+        runs.append((o, {"graphs": st["graphs"],
+                         "compiles": len(st["compiles"]),
+                         "tokens_per_s": sum(len(x) for x in o) / wall,
+                         "ttft_p50_ms": st["ttft_p50_ms"],
+                         "ttft_p99_ms": st["ttft_p99_ms"],
+                         "decode_step_p50_ms": st["step_p50_ms"],
+                         "prefills": st["prefills"], "steps": st["steps"],
+                         "d2h_syncs_saved": st["d2h_syncs_saved"]}))
+        if graphs:
+            check(any("lora" in k for k in st["compiles"]),
+                  f"18d: no executable ran an adapter bucket: "
+                  f"{sorted(st['compiles'])}")
+    out["d"] = graph_pair("d", [r for _, r in runs], [o for o, _ in runs])
+    torch.cuda.empty_cache()
+    return out
+
+
+def warmup_matrix(label, rec):
+    """(f): the ``warmup()`` of a run made with ``serve_run(warm=True)``
+    built every prefill bucket and every (bb, mb) decode bucket (and
+    verify bucket when speculating), each captured once: the JAX
+    engine's keys; the traffic after it built none."""
+    w = rec["warmup"]
+    want = {("prefill", tp) for tp in w["prefill_buckets"]}
+    for bb in w["decode_buckets"]:
+        for mb in w["cache_buckets"]:
+            want.add(("decode", bb, mb))
+            if w["spec_tokens"]:
+                want.add(("verify", bb, mb, w["spec_tokens"] + 1))
+    want = {str(k): 1 for k in want}
+    check(w["compiles"] == want == w["compiles_after_traffic"]
+          and w["graphs"]["captures"] == len(want),
+          f"18 {label}: warmup() built {w['compiles']} "
+          f"({w['graphs']['captures']} captures), the traffic after it "
+          f"{set(w['compiles_after_traffic']) - set(want)}; want {want}")
+    return {"executables": len(want), "wall_s": w["wall_s"],
+            "captures": w["graphs"]["captures"],
+            "capture_ms": w["graphs"]["capture_ms"],
+            "pool_bytes": w["graphs"]["pool_bytes"]}
+
+
+def graphs_pipeline(torch, mt, dev_params):
+    """(e): one greedy prompt alone saves device-to-host syncs (the
+    pipelined fetch), with tokens equal to an engine that cannot pipeline
+    (one seat and an eos id no token equals)."""
+    prompt = np.random.RandomState(31).randint(
+        1, GPT2_SMALL["vocab_size"], PIPE_PROMPT).astype(np.int32)
+    res = []
+    for kw in ({}, dict(max_streams=1, decode_buckets=[1], eos_id=-1)):
+        with mt.DecodeEngine(dev_params, **{"kv_block": KVB,
+                                            "max_streams": 16, "seed": 0,
+                                            **GPT2_SMALL, **kw},
+                             ctx=mt.gpu(0)) as eng:
+            out = eng.generate(prompt, PIPE_NEW)
+            res.append((out, eng.stats()))
+    (a, st), (b, st0) = res
+    check(np.array_equal(a, b) and st["d2h_syncs_saved"] > 0
+          and st0["d2h_syncs_saved"] == 0
+          and st["d2h_syncs"] == st["prefills"] + st["steps"],
+          f"18e: pipelined {a[:8]} / saved {st['d2h_syncs_saved']} "
+          f"({st['d2h_syncs']} syncs) against {b[:8]} / saved "
+          f"{st0['d2h_syncs_saved']}")
+    return {"d2h_syncs": st["d2h_syncs"],
+            "d2h_syncs_saved": st["d2h_syncs_saved"],
+            "steps": st["steps"], "step_p50_ms": st["step_p50_ms"],
+            "unpipelined_step_p50_ms": st0["step_p50_ms"]}
+
+
+def graphs_swap(torch, mt, dev_params):
+    """(h): ``swap_params`` while requests decode: the same weights leave
+    every chain and ``compiles`` as they were; other weights
+    (``gpt2_small_params(1)``) make the next requests' greedy chains those
+    of a fresh engine over them; a swap missing a name or of a wrong shape
+    raises and installs nothing."""
+    prompts = spec_prompts(seed=8)[:4]
+    kw = dict(**GPT2_SMALL, ctx=mt.gpu(0), kv_block=KVB, max_streams=16,
+              seed=0)
+    host0, host1 = gpt2_small_params(0), gpt2_small_params(1)
+    with mt.DecodeEngine(host1, **kw) as eng:
+        want1 = [f.result(timeout=600)
+                 for f in [eng.submit(p, 24) for p in prompts]]
+    with mt.DecodeEngine(dev_params, **kw) as eng:
+        want0 = [f.result(timeout=600)
+                 for f in [eng.submit(p, 24) for p in prompts]]
+        before = dict(eng.compiles)
+        futs = [eng.submit(p, 24) for p in prompts]
+        eng.swap_params(host0)  # mid-serve, between two steps
+        same = [f.result(timeout=600) for f in futs]
+        check(all(np.array_equal(a, b) for a, b in zip(same, want0))
+              and dict(eng.compiles) == before,
+              "18h: an identity swap changed a chain or built an "
+              "executable")
+        name = "layer0_qkv_weight"
+        for bad, what in (({name: host1[name]}, "missing"),
+                          ({**host1, name: np.zeros((3, 3), np.float32)},
+                           "shape")):
+            try:
+                eng.swap_params(bad)
+            except mt.MXNetError as exc:
+                check(what in str(exc), f"18h: {exc}")
+            else:
+                check(False, f"18h: a swap with a {what} param installed")
+        again = [f.result(timeout=600)
+                 for f in [eng.submit(p, 24) for p in prompts]]
+        check(all(np.array_equal(a, b) for a, b in zip(again, want0)),
+              "18h: a failed swap changed the served weights")
+        t0 = time.perf_counter()
+        eng.swap_params(host1)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        got = [f.result(timeout=600)
+               for f in [eng.submit(p, 24) for p in prompts]]
+        check(all(np.array_equal(a, b) for a, b in zip(got, want1))
+              and dict(eng.compiles) == before,
+              "18h: after swap_params the chains are not the new "
+              "weights' (or an executable was built)")
+        snap = eng.get_params()
+        check(all(np.array_equal(snap[n], host1[n]) for n in host1),
+              "18h: get_params is not the swapped-in weights")
+    return {"swap_ms": swap_ms, "executables": len(before),
+            "new_chains_differ": sum(not np.array_equal(a, b)
+                                     for a, b in zip(want0, want1))}
+
+
+def graphs_miss(torch, mt, dev_params):
+    """(g): a 712-token miss (prefix cache off, so each call misses),
+    served to its first token graphed and eager: host ms of
+    ``generate(prompt, 1)`` (median of 5 after 2) beside the device's
+    (``step_device_ms``: kernels and the CUDA-event span)."""
+    prompt = np.random.RandomState(32).randint(
+        1, GPT2_SMALL["vocab_size"], MISS_TOKENS).astype(np.int32)
+    out = {}
+    for graphs in (True, False):
+        with mt.DecodeEngine(dev_params, **GPT2_SMALL, ctx=mt.gpu(0),
+                             kv_block=KVB, max_streams=16, seed=0,
+                             prefix_cache=0, _graphs=graphs) as eng:
+            host = []
+            for _ in range(7):
+                t = time.perf_counter()
+                eng.generate(prompt, 1)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+            out["graphed" if graphs else "eager"] = {
+                "host_ms": float(np.median(host[2:])),
+                **step_device_ms(torch, lambda: eng.generate(prompt, 1))}
+    return out
+
+
+def graphs_path(torch, mt, ck):
+    """Phase 18 at the GPT-2-class width, KVB 16: ``DecodeEngine``'s
+    executables as CUDA graphs (``graphs_serving``: (a) run A, (b) run
+    B, (c) int8 pages, (d) the mixed adapter batch, each graphed against
+    ``_graphs=False``; (f) the ``warmup()`` of (a)'s and (b)'s graphed
+    engines: ``warmup_matrix``), (e) the pipelined fetch (``graphs_pipeline``),
+    (g) a miss's host and kernel ms (``graphs_miss``), (h)
+    ``swap_params`` (``graphs_swap``).  A ``graphs_summary`` line."""
+    t_start = time.perf_counter()
+    dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
+    counts = Launches(torch, ck)
+    wall, parts = {}, {}
+    for name, fn in (
+            ("serving", lambda: graphs_serving(torch, mt, ck, dev_params,
+                                               counts.add)),
+            ("pipeline", lambda: graphs_pipeline(torch, mt, dev_params)),
+            ("miss", lambda: graphs_miss(torch, mt, dev_params)),
+            ("swap", lambda: graphs_swap(torch, mt, dev_params))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        wall[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    del dev_params
+    torch.cuda.empty_cache()
+    summary = {**parts, "part_wall_s": wall,
+               "wall_s": time.perf_counter() - t_start, "card": card_line()}
+    print(json.dumps({"graphs_summary": summary}))
+    return {"parts": parts, "launches": counts.total, "summary": summary}
+
+
 def decode_timing(root):
     """``python3 chip_smoke.py --decode-timing ROOT``: time the decode
     kernel (B2) of the port under ROOT (a checkout, e.g. a parent commit
@@ -8768,12 +9208,13 @@ def paths_timing(root, mode="paths"):
     the kernels alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase
     10 (image classification) alone, ``--cnn ROOT`` phase 11 alone,
     ``--ckpt ROOT`` phase 12 alone (each building B1 and B6 first) and
-    ``--bf16 ROOT`` phase 13 alone (B1 and the paged kernels built and
-    checked in bf16 at its shapes first), ``--ops ROOT`` phase 14
+    ``--bf16 ROOT`` phase 13 alone (the attention kernels built and
+    rows 1-9 checked in bf16 and fp16 at the table's shapes first), ``--ops ROOT`` phase 14
     alone (B1 built first, for the packed LM's reference step) and
     ``--core ROOT`` phase 15 alone (B1 built first), ``--prefix ROOT``
     phase 16 alone and ``--tenancy ROOT`` phase 17 alone (B1, B8 and
-    the paged kernels built first).
+    the paged kernels built first), ``--graphs ROOT`` phase 18 alone
+    (the same built first).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -8840,23 +9281,30 @@ def paths_timing(root, mode="paths"):
         print(card_line())
         return 0
     if mode == "bf16":
-        _build.build(["flash_mha_packed", "flash_mha_packed_bwd",
-                      "paged_attention_decode", "paged_attention_verify"])
+        _build.build([n for n in _build.SOURCES
+                      if n not in ("lstm_scan", "nms")])
         rng = np.random.RandomState(2)
-        # the four bf16 instantiations on phase 13's path at its shapes
-        recs = [check_prefill(torch, ck, F, 1024, "bfloat16", B=B)
-                for B in (1, TRAIN_BATCH)]
-        recs += check_backward(torch, ck, F, TRAIN_BATCH, 1024, "bfloat16")
-        recs.append(check_decode(torch, ck, F, 16, 64, "bfloat16", rng))
-        recs.append(check_verify(torch, ck, tatt, F, 16, SPEC_K + 1, 64,
-                                 "bfloat16", rng))
-        for rec in recs:
-            print(json.dumps({"paths_timing": {"root": root, **rec}}))
+        # the bf16 and fp16 instantiations of rows 1-9 at the table's
+        # shapes
+        for dtype in HALF_DTYPES:
+            for rec in half_kernel_checks(torch, ck, tatt, F, dtype, rng):
+                print(json.dumps({"paths_timing": {"root": root, **rec}}))
         torch.cuda.empty_cache()
         rec = bf16_path(torch, mt, ck)
         print(json.dumps({"paths_timing": {"root": root, "bf16_path": {
             k: rec[k] for k in ("part_wall_s", "launches",
-                                "bf16_traced_launches")}}}))
+                                "bf16_traced_launches",
+                                "fp16_traced_launches")}}}))
+        print(card_line())
+        return 0
+    if mode == "graphs":
+        _build.build(["flash_mha_packed", "flash_attention_partial",
+                      "paged_attention_decode",
+                      "paged_attention_decode_quant",
+                      "paged_attention_verify"])
+        rec = graphs_path(torch, mt, ck)
+        print(json.dumps({"paths_timing": {"root": root, "graphs_path": {
+            "launches": rec["launches"]}}}))
         print(card_line())
         return 0
     if mode == "tenancy":
@@ -8889,6 +9337,10 @@ def paths_timing(root, mode="paths"):
         for rec in paged_timing(torch, ck, tatt, F):
             print(json.dumps({"paths_timing": {"root": root, **rec}}))
         torch.cuda.empty_cache()
+        # the fp16 instantiations of rows 1-9 at the table's shapes
+        for rec in half_kernel_checks(torch, ck, tatt, F, "float16",
+                                      np.random.RandomState(2)):
+            print(json.dumps({"paths_timing": {"root": root, **rec}}))
         rec = check_lstm(torch, ck, *LSTM_SHAPES[0])
         print(json.dumps({"paths_timing": {"root": root, **rec}}))
         for rec in user_kernel_checks(torch, F, ex, gelu_kernels)[0] \
@@ -9053,8 +9505,37 @@ def main():
         print(json.dumps({"check": c}))
     torch.cuda.empty_cache()
     print(json.dumps({"rtc_api": rtc_api_checks(torch, mt, api_names, ex)}))
+    # the fp16 instantiations of rows 1, 3 and 6-9 at the table's shapes,
+    # while the paged kernels still compile
+    for c in half_kernel_checks(torch, ck, tatt, F, "float16", None,
+                                parts=("tc",)):
+        checks.append(c)
+        print(json.dumps({"check": c}))
 
     mark("checks")
+    # the training paths need no paged kernel: they run while those still
+    # compile
+    torch.cuda.empty_cache()
+    train = train_path(torch, mt, ck)
+    print(json.dumps({"train_path": train}))
+    torch.cuda.empty_cache()
+    dpa = dpa_path(torch, mt, ck)
+    print(json.dumps({"dpa_path": dpa}))
+    mark("train")
+    print(json.dumps({"imperative": imperative_check(torch, mt, ck)}))
+    example = example_path(torch, mt, ck, ex)
+    print(json.dumps({"user_kernel_example": example}))
+    triton_example = example_path(torch, mt, ck, tex, op="user_triton_silu")
+    print(json.dumps({"user_triton_kernel_example": triton_example}))
+    gelu = gelu_lm_path(torch, mt, ck, "user_gelu", dpa["step_p50_ms"])
+    print(json.dumps({"gelu_lm_path": gelu}))
+    print(json.dumps({"custom_op": custom_op_path(torch, mt)}))
+    mark("user_ops")
+    torch.cuda.empty_cache()
+    lstm = lstm_path(torch, mt, ck)
+    print(json.dumps({"lstm_path": lstm}))
+    mark("lstm")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     built = paged_build.result()
     print(f"build (paged kernels, waited {time.perf_counter() - t0:.1f} s): "
@@ -9108,6 +9589,11 @@ def main():
             "verify_rows_bitwise": sum(c.get("rows_bitwise", False)
                                        for c in mine)}}))
     torch.cuda.empty_cache()
+    # the fp16 instantiations of the paged kernels at the table's shapes
+    for c in half_kernel_checks(torch, ck, tatt, F, "float16", rng,
+                                parts=("paged",)):
+        checks.append(c)
+        print(json.dumps({"check": c}))
     mark("paged_checks")
 
     dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
@@ -9122,26 +9608,6 @@ def main():
     default_lm = default_lm_path(torch, mt, ck)
     print(json.dumps({"default_lm_path": default_lm}))
     mark("serving")
-    torch.cuda.empty_cache()
-    train = train_path(torch, mt, ck)
-    print(json.dumps({"train_path": train}))
-    torch.cuda.empty_cache()
-    dpa = dpa_path(torch, mt, ck)
-    print(json.dumps({"dpa_path": dpa}))
-    mark("train")
-    print(json.dumps({"imperative": imperative_check(torch, mt, ck)}))
-    example = example_path(torch, mt, ck, ex)
-    print(json.dumps({"user_kernel_example": example}))
-    triton_example = example_path(torch, mt, ck, tex, op="user_triton_silu")
-    print(json.dumps({"user_triton_kernel_example": triton_example}))
-    gelu = gelu_lm_path(torch, mt, ck, "user_gelu", dpa["step_p50_ms"])
-    print(json.dumps({"gelu_lm_path": gelu}))
-    print(json.dumps({"custom_op": custom_op_path(torch, mt)}))
-    mark("user_ops")
-    torch.cuda.empty_cache()
-    lstm = lstm_path(torch, mt, ck)
-    print(json.dumps({"lstm_path": lstm}))
-    mark("lstm")
     torch.cuda.empty_cache()
     ssd = ssd_path(torch, mt, ck)
     print(json.dumps({"ssd300_path": ssd}))
@@ -9177,7 +9643,8 @@ def main():
     bf16 = bf16_path(torch, mt, ck)
     bf16["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"bf16_path": {k: bf16[k] for k in (
-        "part_wall_s", "launches", "bf16_traced_launches", "wall_s")}}))
+        "part_wall_s", "launches", "bf16_traced_launches",
+        "fp16_traced_launches", "wall_s")}}))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ops = ops_path(torch, mt, ck, packed=train)
@@ -9199,6 +9666,9 @@ def main():
     tenancy = tenancy_path(torch, mt, ck)
     print(json.dumps({"tenancy_path": tenancy["parts"]}))
     mark("tenancy")
+    torch.cuda.empty_cache()
+    graphs = graphs_path(torch, mt, ck)
+    mark("graphs")
     print(json.dumps({"phase_walls": marks}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
@@ -9270,7 +9740,7 @@ def main():
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
     all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops, core,
-                          prefix, tenancy]
+                          prefix, tenancy, graphs]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -9322,7 +9792,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
                          ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"],
                          ["--ops"], ["--core"], ["--prefix"],
-                         ["--tenancy"]):
+                         ["--tenancy"], ["--graphs"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

@@ -18,18 +18,19 @@
 // Rounding, as the TPU kernels': scores s = (q.k^T) * scale*log2(e) in the
 // exp2 domain, accumulated in fp32.  fp32: Q.K^T and P.V each as split
 // TF32 (three tensor-core products, tensor_core.cuh), which keeps fp32's
-// accuracy.  bf16: Q.K^T on bf16 tensor cores; P is rounded to bf16 before
-// P.V (p.astype(v.dtype)), which then runs on bf16 tensor cores; the row
-// sum l is taken over fp32 p.
+// accuracy.  bf16 and fp16: Q.K^T on the type's tensor cores; P is rounded
+// to the input type before P.V (p.astype(v.dtype)), which then runs on
+// those tensor cores; the row sum l is taken over fp32 p.
 //
 // What bounds it on the H100: the work.  Causal attention at B=8, H=12,
 // T=1024, D=64 is ~12.9 GFLOP against ~100 MB (fp32); a ring hop at (1,
 // 12, 4096, 4096, 64) with nothing masked ~5.2e10 FLOP against ~38 MB: far
 // above the memory line.  Split TF32 runs three TF32 products for each
-// fp32 one: 495 / 3 = 165 TFLOP/s in effect; bf16 runs at up to 989.
+// fp32 one: 495 / 3 = 165 TFLOP/s in effect; bf16 and fp16 run at up to
+// 989.
 //
 // Design:
-// * mma.sync (m16n8k8 TF32, m16n8k16 bf16), not wgmma: wgmma reads a TF32
+// * mma.sync (m16n8k8 TF32, m16n8k16 bf16 or fp16), not wgmma: wgmma reads a TF32
 //   operand from shared memory only K-major, and V in P.V is MN-major, so
 //   fp32 would need V staged transposed by threads; mma.sync takes every
 //   operand from registers, loaded from padded shared tiles without bank
@@ -221,7 +222,7 @@ __device__ __forceinline__ void attend(const Args& a, float scale_log2,
           tc::frag_a<SW>(f, Qtile, warp * 16, ks * 8);
           tc::split(f, qa[ks], qs[ks]);
         } else {
-          tc::frag_a_bf16<SW>(qa[ks], Qtile, warp * 16, ks * 16);
+          tc::frag_a16<SW>(qa[ks], Qtile, warp * 16, ks * 16);
         }
       }
     }
@@ -263,10 +264,10 @@ __device__ __forceinline__ void attend(const Args& a, float scale_log2,
 #pragma unroll
             for (int jj = 0; jj < BN / 16; ++jj) {
               uint32_t r[4];
-              tc::frag_b_bf16<SW>(r, Ks, jj * 16, ks * 16);
+              tc::frag_b16<SW>(r, Ks, jj * 16, ks * 16);
               const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-              tc::mma_bf16(s[2 * jj], qa[ks], b0);
-              tc::mma_bf16(s[2 * jj + 1], qa[ks], b1);
+              tc::mma16<T>(s[2 * jj], qa[ks], b0);
+              tc::mma16<T>(s[2 * jj + 1], qa[ks], b1);
             }
           }
         }
@@ -310,7 +311,7 @@ __device__ __forceinline__ void attend(const Args& a, float scale_log2,
           l[i >> 1] += p;
         }
 
-      // acc += P.V, a tile at a time (tc::gemm_pY_acc); bf16 rounds p
+      // acc += P.V, a tile at a time (tc::gemm_pY_acc); bf16/fp16 round p
       tc::gemm_pY_acc<BN / 8, DP / 8, SW, !F32>(acc, s, Vs);
     }
   }

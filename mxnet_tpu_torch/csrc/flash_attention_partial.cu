@@ -14,12 +14,13 @@
 // with p_ij = exp(q_i.k_j/sqrt(D) - m_i) over the visible keys: all of them,
 // or under the causal mask those with j + koff <= i.  A row that sees no key
 // comes out as m = -inf, l = 0, o = 0 exactly (the ring's merge tests
-// isfinite(m)).  The outputs are float32 for bf16 inputs too.
+// isfinite(m)).  The outputs are float32 for bf16 and fp16 inputs too.
 //
 // Rounding, as the TPU kernel's: scores in the exp2 domain, accumulated
 // in fp32; m is written back in natural units (times ln 2).  fp32: Q.K^T
-// and P.V each as split TF32; bf16: both on bf16 tensor cores, p rounded
-// to bf16 before P.V (p.astype(v.dtype)); l is summed over fp32 p.
+// and P.V each as split TF32; bf16 and fp16: both on the type's tensor
+// cores, p rounded to the input type before P.V (p.astype(v.dtype)); l is
+// summed over fp32 p.
 //
 // Layout: q, k and v are addressed through their own (batch, head, row)
 // element strides, lanes contiguous, so (B, H, T, D) views of the BTHD
@@ -28,7 +29,7 @@
 // What bounds it on the H100: the work.  A ring hop at (1, 12, 4096, 4096,
 // 64) with nothing masked is ~5.2e10 FLOP against ~38 MB of traffic (fp32),
 // far above the memory line: 0.312 ms at split TF32's 165 TFLOP/s, 0.052
-// ms at bf16's 989.
+// ms at bf16's and fp16's 989.
 //
 // Design: the body is fwd::attend (attention_fwd.cuh), the tensor-core
 // forward of B1 and B5, with the key offset in its mask (row i sees key j
@@ -64,7 +65,8 @@ cudaError_t launch(const fwd::Args& a, const fwd::Partial& out,
 }  // namespace
 
 // strides: 9 element strides, (batch, head, row) of q, k and v in that
-// order.  dtype: 0 = float32, 1 = bfloat16 (q, k and v share it); o
+// order.  dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k and v share
+// it); o
 // (B, H, Tq, D), m and l (B, H, Tq) are float32 and contiguous.
 extern "C" int flash_attention_partial_fwd(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
@@ -82,12 +84,14 @@ extern "C" int flash_attention_partial_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(a, out, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(a, out, s);
+  if (dtype == 2) return (int)launch<__half>(a, out, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory a block of the kernel takes at head width D, for
 // chip_smoke.py's resource report (dtype as above)
 extern "C" int flash_attention_partial_smem_bytes(int D, int dtype) {
-  return dtype == 0 ? fwd::smem_of<float>(D)
-                    : fwd::smem_of<__nv_bfloat16>(D);
+  return dtype == 0   ? fwd::smem_of<float>(D)
+         : dtype == 1 ? fwd::smem_of<__nv_bfloat16>(D)
+                      : fwd::smem_of<__half>(D);
 }

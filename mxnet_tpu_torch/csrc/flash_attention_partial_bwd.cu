@@ -17,12 +17,12 @@
 // lse, no Delta = rowsum(do*o), and lb enters with a plus sign.
 //
 // Rounding, as the TPU kernels': every product accumulates in fp32.
-//   q.k^T   fp32: split TF32 (3 products); bf16: bf16 tensor cores
-//   ob.v^T  fp32 x v: split TF32, 3 products in fp32, 2 in bf16 (v is exact
-//           in TF32)
+//   q.k^T   fp32: split TF32 (3 products); bf16/fp16: its tensor cores
+//   ob.v^T  fp32 x v: split TF32, 3 products in fp32, 2 in bf16 and
+//           fp16 (v is exact in TF32)
 //   p^T.ob  p stays fp32 (p.astype(ob.dtype)): split TF32, 3 products
 //   ds.k, ds^T.q  ds rounded to the input dtype first; fp32: split TF32,
-//           bf16: bf16 tensor cores
+//           bf16/fp16: its tensor cores
 // (tensor_core.cuh holds the split, the fragments and the cp.async ring.)
 //
 // Layout: q, k, v, dq, dk and dv through their own (batch, head, row)
@@ -402,6 +402,7 @@ int dispatch(int which, Args& a, const long long* strides, int nlayouts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(which, a, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(which, a, s);
+  if (dtype == 2) return (int)launch<__half>(which, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -417,8 +418,8 @@ int smem_of(int which, int D) {
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) of q, k, v and dq.
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and dq share it); m and lb
-// (B, H, Tq) and ob (B, H, Tq, D) are float32 and contiguous.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and dq share it);
+// m and lb (B, H, Tq) and ob (B, H, Tq, D) are float32 and contiguous.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* m,
                                       const void* ob, const void* lb,
@@ -449,6 +450,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 // dynamic shared memory a block takes (which: 0 = dq, 1 = dk/dv; dtype
 // as above), for chip_smoke.py's resource report
 extern "C" int flash_attention_bwd_smem_bytes(int which, int D, int dtype) {
-  return dtype == 0 ? smem_of<float>(which, D)
-                    : smem_of<__nv_bfloat16>(which, D);
+  return dtype == 0   ? smem_of<float>(which, D)
+         : dtype == 1 ? smem_of<__nv_bfloat16>(which, D)
+                      : smem_of<__half>(which, D);
 }

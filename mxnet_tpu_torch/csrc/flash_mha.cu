@@ -13,9 +13,9 @@
 // Rounding, as the TPU kernel's: scores s = (q.k^T) * scale*log2(e) in the
 // exp2 domain, accumulated in fp32.  fp32: Q.K^T and P.V each as split
 // TF32 (three tensor-core products, tensor_core.cuh), which keeps fp32's
-// accuracy.  bf16: Q.K^T on bf16 tensor cores; P is rounded to bf16 before
-// P.V (p.astype(v.dtype)), which then runs on bf16 tensor cores; the row
-// sum l is taken over fp32 p.
+// accuracy.  bf16 and fp16: Q.K^T on the type's tensor cores; P is rounded
+// to the input type before P.V (p.astype(v.dtype)), which then runs on
+// those tensor cores; the row sum l is taken over fp32 p.
 //
 // Layout: every tensor is addressed through its own (batch, head, row)
 // element strides, lanes contiguous.  blockwise_attention hands the kernel
@@ -25,7 +25,7 @@
 // What bounds it on the H100: the work.  Causal attention at B=8, H=12,
 // T=1024, D=64 is ~12.9 GFLOP against ~100 MB (fp32), far above the
 // memory line.  Split TF32 runs three TF32 products for each fp32 one:
-// 495 / 3 = 165 TFLOP/s in effect; bf16 runs at up to 989 TFLOP/s.
+// 495 / 3 = 165 TFLOP/s in effect; bf16 and fp16 run at up to 989 TFLOP/s.
 //
 // Design: the body is fwd::attend (attention_fwd.cuh), shared with B1's
 // forward and B8; here its causal mask is aligned at position 0 (koff 0:
@@ -59,8 +59,8 @@ cudaError_t launch(const fwd::Args& a, const fwd::Normalized<T>& out,
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) of q, k, v and o in that
-// order.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it; lse is
-// float32 (B, H, Tq), contiguous).
+// order.  dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and o share
+// it; lse is float32 (B, H, Tq), contiguous).
 extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const long long* strides,
                              int B, int H, int Tq, int Tk, int D, int causal,
@@ -83,12 +83,17 @@ extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v,
         fwd::Normalized<__nv_bfloat16>{static_cast<__nv_bfloat16*>(o), l,
                                        ls[3], ll},
         s);
+  if (dtype == 2)
+    return (int)launch<__half>(
+        a, fwd::Normalized<__half>{static_cast<__half*>(o), l, ls[3], ll},
+        s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory a block of the kernel takes at head width D, for
 // chip_smoke.py's resource report (dtype as above)
 extern "C" int flash_mha_smem_bytes(int D, int dtype) {
-  return dtype == 0 ? fwd::smem_of<float>(D)
-                    : fwd::smem_of<__nv_bfloat16>(D);
+  return dtype == 0   ? fwd::smem_of<float>(D)
+         : dtype == 1 ? fwd::smem_of<__nv_bfloat16>(D)
+                      : fwd::smem_of<__half>(D);
 }

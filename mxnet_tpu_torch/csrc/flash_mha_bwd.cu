@@ -16,8 +16,8 @@
 //
 // Rounding, as the TPU kernels': every product accumulates in fp32.  fp32:
 // all five products (q.k^T, do.v^T, ds.k, ds^T.q, p^T.do) as split TF32,
-// three tensor-core products each (tensor_core.cuh).  bf16: all five on
-// bf16 tensor cores, p rounded to do's dtype before p^T.do and ds to k's
+// three tensor-core products each (tensor_core.cuh).  bf16 and fp16: all
+// five on the type's tensor cores, p rounded to do's dtype before p^T.do and ds to k's
 // (q's) dtype before ds.k (ds^T.q), as the TPU kernels cast them.
 //
 // Layout: q, k, v, do, dq, dk and dv through their own (batch, head, row)
@@ -28,7 +28,7 @@
 // What bounds it on the H100: the work.  At B=8, H=12, T=1024, D=64,
 // causal, the two kernels do ~4.5e10 FLOP against ~200 MB of traffic
 // (fp32), far above the memory line.  Split TF32 runs three TF32 products
-// for each fp32 one: 165 TFLOP/s in effect; bf16 up to 989.
+// for each fp32 one: 165 TFLOP/s in effect; bf16 and fp16 up to 989.
 //
 // Design (B9's, flash_attention_partial_bwd.cu, with lse in place of m and
 // -Delta in place of +lb; B1's backward, flash_mha_packed_bwd.cu, is the
@@ -297,7 +297,7 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-    // dV += P^T.dO (bf16: p rounded to do's dtype first)
+    // dV += P^T.dO (bf16/fp16: p rounded to do's dtype first)
     tc::gemm_pY_acc<BM / 8, DP / 8, SW, !F32>(dva, s, Dt);
 
     // dP^T = V.dO^T; dS^T = P^T * (dP^T - Delta), in q's dtype
@@ -382,6 +382,7 @@ int dispatch(int which, Args& a, const long long* strides, int nlayouts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(which, a, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(which, a, s);
+  if (dtype == 2) return (int)launch<__half>(which, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -397,8 +398,8 @@ int smem_of(int which, int D) {
 }  // namespace
 
 // strides: 15 element strides, (batch, head, row) of q, k, v, do and dq.
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and dq share it); lse and
-// delta are float32 (B, H, Tq), contiguous.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, do and dq share
+// it); lse and delta are float32 (B, H, Tq), contiguous.
 extern "C" int flash_mha_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq,
@@ -426,6 +427,7 @@ extern "C" int flash_mha_bwd_dkv(const void* q, const void* k, const void* v,
 // dynamic shared memory a block takes (which: 0 = dq, 1 = dk/dv; D the
 // head width; dtype as above), for chip_smoke.py's resource report
 extern "C" int flash_mha_bwd_smem_bytes(int which, int D, int dtype) {
-  return dtype == 0 ? smem_of<float>(which, D)
-                    : smem_of<__nv_bfloat16>(which, D);
+  return dtype == 0   ? smem_of<float>(which, D)
+         : dtype == 1 ? smem_of<__nv_bfloat16>(which, D)
+                      : smem_of<__half>(which, D);
 }

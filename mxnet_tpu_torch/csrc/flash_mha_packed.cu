@@ -11,14 +11,14 @@
 // Rounding, as the TPU kernel's: scores s = (q.k^T) * scale*log2(e) in the
 // exp2 domain, accumulated in fp32.  fp32: Q.K^T and P.V each as split
 // TF32 (three tensor-core products, tensor_core.cuh), which keeps fp32's
-// accuracy.  bf16: Q.K^T on bf16 tensor cores; P is rounded to bf16 before
-// P.V (p.astype(v.dtype)), which then runs on bf16 tensor cores; the row
-// sum l is taken over fp32 p.
+// accuracy.  bf16 and fp16: Q.K^T on the type's tensor cores; P is rounded
+// to the input type before P.V (p.astype(v.dtype)), which then runs on
+// those tensor cores; the row sum l is taken over fp32 p.
 //
 // What bounds it on the H100: the work.  Causal attention at B=8, T=1024,
 // H=12, D=64 is ~12.9 GFLOP against ~100 MB of traffic (fp32): far above
 // the memory line.  Split TF32 runs three TF32 products for each fp32 one:
-// 495 / 3 = 165 TFLOP/s in effect; bf16 runs at up to 989 TFLOP/s.
+// 495 / 3 = 165 TFLOP/s in effect; bf16 and fp16 run at up to 989 TFLOP/s.
 //
 // Design: the body is fwd::attend (attention_fwd.cuh), shared with B5's
 // forward and B8; the packed layout only sets the strides it reads (q, k
@@ -68,7 +68,8 @@ int run(const void* qkv, void* o, void* lse, int B, int T_, int H, int D,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (qkv and o share it; lse is float32).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (qkv and o share it; lse
+// is float32).
 extern "C" int flash_mha_packed_fwd(const void* qkv, void* o, void* lse,
                                     int B, int T, int H, int D, int causal,
                                     int dtype, void* stream) {
@@ -76,12 +77,14 @@ extern "C" int flash_mha_packed_fwd(const void* qkv, void* o, void* lse,
   if (dtype == 0) return run<float>(qkv, o, lse, B, T, H, D, causal, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(qkv, o, lse, B, T, H, D, causal, s);
+  if (dtype == 2) return run<__half>(qkv, o, lse, B, T, H, D, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory a block of the kernel takes at head width D, for
 // chip_smoke.py's resource report (dtype as above)
 extern "C" int flash_mha_packed_smem_bytes(int D, int dtype) {
-  return dtype == 0 ? fwd::smem_of<float>(D)
-                    : fwd::smem_of<__nv_bfloat16>(D);
+  return dtype == 0   ? fwd::smem_of<float>(D)
+         : dtype == 1 ? fwd::smem_of<__nv_bfloat16>(D)
+                      : fwd::smem_of<__half>(D);
 }

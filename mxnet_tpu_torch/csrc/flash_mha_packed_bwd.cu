@@ -14,14 +14,15 @@
 //
 // Rounding, as the TPU kernels': every product accumulates in fp32.  fp32:
 // all five products (q.k^T, do.v^T, ds.k, ds^T.q, p^T.do) as split TF32,
-// three tensor-core products each (tensor_core.cuh).  bf16: all five on bf16
-// tensor cores, ds rounded to bf16 before ds.k and ds^T.q (ds.astype(
+// three tensor-core products each (tensor_core.cuh).  bf16 and fp16: all
+// five on the type's tensor cores, ds rounded to it before ds.k and ds^T.q
+// (ds.astype(
 // k.dtype)) and p before p^T.do (pT = p.astype(do.dtype)).
 //
 // What bounds it on the H100: the work.  At B=8, T=1024, H=12, D=64, causal,
 // the two kernels do ~4.5e10 FLOP against ~200 MB of traffic (fp32), far
 // above the memory line.  Split TF32 runs three TF32 products for each fp32
-// one: 165 TFLOP/s in effect; bf16 up to 989.
+// one: 165 TFLOP/s in effect; bf16 and fp16 up to 989.
 //
 // Design (B9's, flash_attention_partial_bwd.cu, on the packed layout):
 // * Two kernels, as on the TPU.  Each output row is owned by one warp and
@@ -317,7 +318,7 @@ mhap_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
         s[j][i] = ok ? exp2f(s[j][i] * c1 - l2[j][i & 1]) : 0.f;
       }
 
-    // dV += P^T.dO (bf16: p rounded to bf16 first)
+    // dV += P^T.dO (bf16/fp16: p rounded to the input type first)
     tc::gemm_pY_acc<BM / 8, DP / 8, SW, !F32>(dva, s, Dt);
 
     // dP^T = V.dO^T; dS^T = P^T * (dP^T - Delta), in the inputs' dtype
@@ -395,6 +396,7 @@ int dispatch(int which, const Args& a, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(which, a, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(which, a, s);
+  if (dtype == 2) return (int)launch<__half>(which, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -409,8 +411,8 @@ int smem_of(int which, int D) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (qkv, o, dout and dqkv share it; lse is
-// float32 (B, T, H), natural log).  dq writes dqkv's first third.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (qkv, o, dout and dqkv
+// share it; lse is float32 (B, T, H), natural log).  dq writes dqkv's first third.
 extern "C" int flash_mha_packed_bwd_dq(const void* qkv, const void* o,
                                        const void* lse, const void* dout,
                                        void* dqkv, int B, int T, int H, int D,
@@ -432,6 +434,7 @@ extern "C" int flash_mha_packed_bwd_dkv(const void* qkv, const void* o,
 // dynamic shared memory a block takes (which: 0 = dq, 1 = dk/dv; D the
 // head width; dtype as above), for chip_smoke.py's resource report
 extern "C" int flash_mha_packed_bwd_smem_bytes(int which, int D, int dtype) {
-  return dtype == 0 ? smem_of<float>(which, D)
-                    : smem_of<__nv_bfloat16>(which, D);
+  return dtype == 0   ? smem_of<float>(which, D)
+         : dtype == 1 ? smem_of<__nv_bfloat16>(which, D)
+                      : smem_of<__half>(which, D);
 }

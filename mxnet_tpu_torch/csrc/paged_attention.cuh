@@ -29,8 +29,8 @@
 // * A warp streams its pages in tiles of TT tokens of one page (16; 8 when
 //   a row is over 256 bytes) through a two-buffer stage in shared memory:
 //   cp.async copies (16 bytes, .cg, where D * element size and the pools'
-//   addresses allow: 16 lanes a 256-byte fp32 row, 8 a bf16 row, 4 an int8
-//   row; 8 or 4 bytes else; plain 2- or 1-byte copies for odd widths) of
+//   addresses allow: 16 lanes a 256-byte fp32 row, 8 a bf16 or fp16 row,
+//   4 an int8 row; 8 or 4 bytes else; plain 2- or 1-byte copies for odd widths) of
 //   the next tile's K and V rows (and, over quantized pools, their scales)
 //   are in flight while a tile is computed.  Tokens past the longest row
 //   are not copied.  Stage rows are padded to an odd number of 16-byte
@@ -52,7 +52,7 @@
 //   shared memory (cluster.map_shared_rank, between two cluster barriers)
 //   and writes the rows.  A state that saw no token contributes nothing;
 //   len == 0 gives zeros, never NaN.
-// * Page readers: RawPages reads fp32/bf16 values, QuantPages int8 or
+// * Page readers: RawPages reads fp32/bf16/fp16 values, QuantPages int8 or
 //   fp8-e4m3 codes times the row's fp32 scale, dequantized after the copy
 //   as float(code) * scale, as the TPU kernel does.  Rows are numbered r =
 //   (page * KVB + slot) * H + head: values start at r * D, the (P, KVB, H)
@@ -65,6 +65,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,6 +113,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 // int8 codes are signed char, fp8-e4m3 codes unsigned char
 // (__nv_fp8_storage_t)
 __device__ __forceinline__ float to_f32(signed char x) { return (float)x; }
@@ -127,6 +129,10 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 template <typename TKV>
@@ -588,8 +594,10 @@ cudaError_t launch_rows(const TQ* q, long q_batch_stride, long q_row_stride,
 // one launch: grid (NC * B, H) in clusters of NC; lens[b] + add + w is row
 // w's visible length (decode: W = 1, add = 0; verify: add = 1).  W = 1
 // runs the one-row instantiation, the decode kernels' and a one-row
-// verify's alike.
-template <typename TQ, int DP, typename Pages>
+// verify's alike.  Window: the WC-row instantiation is built too (the
+// verify libraries); the decode libraries, whose W is always 1, leave it
+// out (half their compile time).
+template <typename TQ, int DP, bool Window, typename Pages>
 cudaError_t launch_attend(const TQ* q, long q_batch_stride, long q_row_stride,
                           const Pages& pages, const int* table,
                           const int* lens, int add, TQ* out, int B, int W,
@@ -599,9 +607,11 @@ cudaError_t launch_attend(const TQ* q, long q_batch_stride, long q_row_stride,
     return launch_rows<TQ, DP, 1>(q, q_batch_stride, q_row_stride, pages,
                                   table, lens, add, out, B, W, H, D, KVB, MB,
                                   stream);
-  return launch_rows<TQ, DP, WC>(q, q_batch_stride, q_row_stride, pages,
-                                 table, lens, add, out, B, W, H, D, KVB, MB,
-                                 stream);
+  if constexpr (Window)
+    return launch_rows<TQ, DP, WC>(q, q_batch_stride, q_row_stride, pages,
+                                   table, lens, add, out, B, W, H, D, KVB,
+                                   MB, stream);
+  return cudaErrorInvalidValue;
 }
 
 // the dynamic shared memory of the instantiation for bucket dp over pool

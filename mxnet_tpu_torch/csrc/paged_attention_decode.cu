@@ -40,15 +40,16 @@ cudaError_t launch(const void* q, long qs, const void* kp, const void* vp,
                                    static_cast<const TKV*>(vp)};
   return paged::with_head_dim(D, [&](auto dp, auto ragged) {
     (void)ragged;  // the kernel takes D at run time
-    return paged::launch_attend<TQ, decltype(dp)::value>(
+    return paged::launch_attend<TQ, decltype(dp)::value, false>(
         qq, qs, 0, pages, table, lengths, 0, o, B, 1, H, D, KVB, MB, stream);
   });
 }
 
 }  // namespace
 
-// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16.  Supported pairs: (0, 0),
-// (0, 1) (fp32 model over bf16 pages) and (1, 1).  out has q's dtype.
+// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Supported
+// pairs: (0, 0), (0, 1) and (0, 2) (an fp32 model over 16-bit pages),
+// (1, 1) and (2, 2).  out has q's dtype.
 extern "C" int paged_attention_decode(const void* q, long q_batch_stride,
                                       const void* k_pool,
                                       const void* v_pool, const void* table,
@@ -71,11 +72,18 @@ extern "C" int paged_attention_decode(const void* q, long q_batch_stride,
   if (q_dtype == 1 && kv_dtype == 1)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(
         q, q_batch_stride, k_pool, v_pool, t, n, out, B, H, D, KVB, MB, s);
+  if (q_dtype == 0 && kv_dtype == 2)
+    return (int)launch<float, __half>(q, q_batch_stride, k_pool, v_pool, t,
+                                      n, out, B, H, D, KVB, MB, s);
+  if (q_dtype == 2 && kv_dtype == 2)
+    return (int)launch<__half, __half>(q, q_batch_stride, k_pool, v_pool, t,
+                                       n, out, B, H, D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // the dynamic shared memory of the instantiation for head-width bucket dp
-// over kv_dtype pools (0 = float32, 1 = bfloat16), and the CTAs a cluster
+// over kv_dtype pools (0 = float32, 1 = bfloat16, 2 = float16), and the
+// CTAs a cluster
 extern "C" int paged_attention_decode_smem_bytes(int dp, int kv_dtype) {
   return paged::smem_bytes(dp, kv_dtype == 0 ? 4 : 2, false);
 }

@@ -37,14 +37,15 @@ cudaError_t launch(const void* q, long qs, const void* kp, const void* vp,
                                     static_cast<const TC*>(vp), ks, vs};
   return paged::with_head_dim(D, [&](auto dp, auto ragged) {
     (void)ragged;  // the kernel takes D at run time
-    return paged::launch_attend<TQ, decltype(dp)::value>(
+    return paged::launch_attend<TQ, decltype(dp)::value, false>(
         qq, qs, 0, pages, table, lengths, 0, o, B, 1, H, D, KVB, MB, stream);
   });
 }
 
 }  // namespace
 
-// q_dtype: 0 = float32, 1 = bfloat16.  kv_code: 2 = int8, 3 = fp8 e4m3
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  kv_code: 2 = int8, 3 =
+// fp8 e4m3
 // (float8_e4m3fn).  Scales are float32 (P, KVB, H).  out has q's dtype.
 extern "C" int paged_attention_decode_quant(
     const void* q, long q_batch_stride, const void* k_pool,
@@ -74,6 +75,14 @@ extern "C" int paged_attention_decode_quant(
     return (int)launch<__nv_bfloat16, unsigned char>(
         q, q_batch_stride, k_pool, v_pool, ks, vs, t, n, out, B, H, D, KVB,
         MB, s);
+  if (q_dtype == 2 && kv_code == 2)
+    return (int)launch<__half, signed char>(q, q_batch_stride, k_pool,
+                                            v_pool, ks, vs, t, n, out, B, H,
+                                            D, KVB, MB, s);
+  if (q_dtype == 2 && kv_code == 3)
+    return (int)launch<__half, unsigned char>(q, q_batch_stride, k_pool,
+                                              v_pool, ks, vs, t, n, out, B,
+                                              H, D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
 

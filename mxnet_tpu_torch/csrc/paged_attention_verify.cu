@@ -44,7 +44,7 @@ cudaError_t launch(const void* q, long qbs, long qrs, const Pages& pages,
   TQ* o = static_cast<TQ*>(out);
   return paged::with_head_dim(D, [&](auto dp, auto ragged) {
     (void)ragged;  // the kernel takes D at run time
-    return paged::launch_attend<TQ, decltype(dp)::value>(
+    return paged::launch_attend<TQ, decltype(dp)::value, true>(
         qq, qbs, qrs, pages, table, start, 1, o, B, W, H, D, KVB, MB,
         stream);
   });
@@ -81,8 +81,9 @@ bool bad_shape(int B, int W, int H, int D, int KVB, int MB) {
 
 }  // namespace
 
-// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16; pairs (0, 0), (0, 1)
-// and (1, 1), as the decode kernel.  out has q's dtype.
+// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16, 2 = float16; pairs (0, 0),
+// (0, 1), (0, 2), (1, 1) and (2, 2), as the decode kernel.  out has q's
+// dtype.
 extern "C" int paged_attention_verify(const void* q, long q_batch_stride,
                                       long q_row_stride, const void* k_pool,
                                       const void* v_pool, const void* table,
@@ -106,10 +107,19 @@ extern "C" int paged_attention_verify(const void* q, long q_batch_stride,
     return (int)launch_raw<__nv_bfloat16, __nv_bfloat16>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, t, st, out, B, W, H,
         D, KVB, MB, s);
+  if (q_dtype == 0 && kv_dtype == 2)
+    return (int)launch_raw<float, __half>(q, q_batch_stride, q_row_stride,
+                                          k_pool, v_pool, t, st, out, B, W,
+                                          H, D, KVB, MB, s);
+  if (q_dtype == 2 && kv_dtype == 2)
+    return (int)launch_raw<__half, __half>(q, q_batch_stride, q_row_stride,
+                                           k_pool, v_pool, t, st, out, B, W,
+                                           H, D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// q_dtype: 0 = float32, 1 = bfloat16; kv_code: 2 = int8, 3 = fp8 e4m3;
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16; kv_code: 2 = int8, 3 =
+// fp8 e4m3;
 // scales float32 (P, KVB, H).
 extern "C" int paged_attention_verify_quant(
     const void* q, long q_batch_stride, long q_row_stride,
@@ -137,12 +147,20 @@ extern "C" int paged_attention_verify_quant(
     return (int)launch_quant<__nv_bfloat16, unsigned char>(
         q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
         st, out, B, W, H, D, KVB, MB, s);
+  if (q_dtype == 2 && kv_code == 2)
+    return (int)launch_quant<__half, signed char>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
+        st, out, B, W, H, D, KVB, MB, s);
+  if (q_dtype == 2 && kv_code == 3)
+    return (int)launch_quant<__half, unsigned char>(
+        q, q_batch_stride, q_row_stride, k_pool, v_pool, k_scale, v_scale, t,
+        st, out, B, W, H, D, KVB, MB, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // the dynamic shared memory of the instantiation for head-width bucket dp
-// over kv_code pools (0 = float32, 1 = bfloat16, 2 = int8, 3 = fp8), and
-// the CTAs a cluster
+// over kv_code pools (0 = float32, 1 = a 16-bit type: bfloat16 or float16,
+// 2 = int8, 3 = fp8), and the CTAs a cluster
 extern "C" int paged_attention_verify_smem_bytes(int dp, int kv_code) {
   return paged::smem_bytes(dp, kv_code == 0 ? 4 : kv_code == 1 ? 2 : 1,
                            kv_code >= 2);

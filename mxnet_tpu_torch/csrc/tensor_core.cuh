@@ -4,7 +4,8 @@
 // flash_attention_partial_bwd.cu (B9).
 //
 // * mma.sync wrappers: m16n8k8 with TF32 operands and m16n8k16 with bf16
-//   operands, fp32 accumulators.  A warp owns a 16-row tile; the fragment
+//   or fp16 operands (the 16-bit formats: one code path, `mma16<H>`), fp32
+//   accumulators.  A warp owns a 16-row tile; the fragment
 //   of thread `lane` (g = lane / 4, t = lane % 4) holds, for the
 //   accumulator C (16 x 8), c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t],
 //   c3 = C[g+8][2t+1].
@@ -13,10 +14,12 @@
 //   product is big*small + small*big + big*big, accumulated in fp32.  The
 //   dropped small*small term and the rounding of small cost about 2^-22
 //   relative, so the product keeps fp32's accuracy at three tensor-core
-//   products.  An operand that came from bf16 is exact in TF32 (8
-//   significant bits in 11), so it needs no split and its product two.
+//   products.  An operand that came from bf16 or fp16 is exact in TF32 (8
+//   or 11 significant bits in 11, and fp16's exponents, subnormals
+//   included, are normal in TF32), so it needs no split and its product
+//   two.
 // * Fragment loads from padded shared tiles (row stride `stride<T>(DP)`:
-//   DP + 4 fp32 or DP + 8 bf16 elements, which makes every access pattern
+//   DP + 4 fp32 or DP + 8 16-bit elements, which makes every access pattern
 //   below free of bank conflicts):
 //     a: A[m][k] = X[m][k]       (X row-major over [m][k])
 //     b: B[k][n] = X[n][k]       (X row-major over [n][k], e.g. K in Q.K^T)
@@ -25,11 +28,12 @@
 //   k = t + 4 row 2t + 1 of the 8-row step, which is the order in which an
 //   accumulator fragment holds its columns, so an accumulator (P, dS)
 //   becomes the A operand of the next product with no trip through shared
-//   memory (`c_to_a_tf32`).  bf16 fragments come through ldmatrix, pattern
-//   c with .trans; an accumulator pair packs straight into bf16 A registers.
+//   memory (`c_to_a_tf32`).  16-bit fragments (bf16, fp16) come through
+//   ldmatrix, pattern c with .trans; an accumulator pair packs straight into
+//   16-bit A registers.
 // * cp.async staging of a strided row tile into shared memory, 16 bytes a
 //   thread where every row is 16-byte aligned, else one element a thread
-//   (4-byte cp.async for fp32, a plain load for bf16); lanes past D and
+//   (4-byte cp.async for fp32, a plain load for a 16-bit type); lanes past D and
 //   rows past the end read as zero.
 // * What the attention kernels over strided (batch, head, row) tensors
 //   share: the strides (Layout), the 16-byte row test, the rounding of a
@@ -39,6 +43,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -49,6 +54,8 @@ namespace tc {
 
 template <typename T>
 constexpr bool kIsF32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
 
 // row stride, in elements, of a shared tile DP lanes wide
 template <typename T>
@@ -87,7 +94,8 @@ __device__ __forceinline__ void split(const float (&x)[N], uint32_t (&big)[N],
   for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
 }
 
-// an operand exact in TF32 (it came from bf16): its bits as they are
+// an operand exact in TF32 (it came from bf16 or fp16): its bits as they
+// are
 template <int N>
 __device__ __forceinline__ void exact(const float (&x)[N],
                                       uint32_t (&r)[N]) {
@@ -111,6 +119,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the m16n8k16 product of the 16-bit operand type H (bf16 or fp16)
+template <typename H>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  if constexpr (kIsF16<H>)
+    mma_f16(c, a, b);
+  else
+    mma_bf16(c, a, b);
 }
 
 // c += a.b, both split: the small terms first
@@ -146,6 +173,9 @@ __device__ __forceinline__ void mma2b(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ float lds(const float* p) { return *p; }
 __device__ __forceinline__ float lds(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+__device__ __forceinline__ float lds(const __half* p) {
+  return __half2float(*p);
 }
 
 // TF32 A fragment, pattern a, rows m0.., k0..k0+7 of X (stride SW)
@@ -205,31 +235,28 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-// bf16 A fragment (16 x 16), pattern a, rows m0.., k0..k0+15
-template <int SW>
-__device__ __forceinline__ void frag_a_bf16(uint32_t (&a)[4],
-                                            const __nv_bfloat16* X, int m0,
-                                            int k0) {
+// 16-bit A fragment (16 x 16), pattern a, rows m0.., k0..k0+15
+template <int SW, typename H>
+__device__ __forceinline__ void frag_a16(uint32_t (&a)[4], const H* X,
+                                         int m0, int k0) {
   const int l = lane_id();
   ldsm_x4(a, X + (m0 + (l & 15)) * SW + k0 + (l >> 4) * 8);
 }
 
-// bf16 B fragments of two n-tiles, pattern b: r[0..1] for n0..n0+7,
+// 16-bit B fragments of two n-tiles, pattern b: r[0..1] for n0..n0+7,
 // r[2..3] for n0+8..n0+15, k0..k0+15
-template <int SW>
-__device__ __forceinline__ void frag_b_bf16(uint32_t (&r)[4],
-                                            const __nv_bfloat16* X, int n0,
-                                            int k0) {
+template <int SW, typename H>
+__device__ __forceinline__ void frag_b16(uint32_t (&r)[4], const H* X,
+                                         int n0, int k0) {
   const int l = lane_id();
   ldsm_x4(r, X + (n0 + (l & 7) + ((l >> 4) << 3)) * SW + k0 +
                  ((l >> 3) & 1) * 8);
 }
 
-// bf16 B fragments of two n-tiles, pattern c (ldmatrix .trans)
-template <int SW>
-__device__ __forceinline__ void frag_c_bf16(uint32_t (&r)[4],
-                                            const __nv_bfloat16* X, int k0,
-                                            int n0) {
+// 16-bit B fragments of two n-tiles, pattern c (ldmatrix .trans)
+template <int SW, typename H>
+__device__ __forceinline__ void frag_c16(uint32_t (&r)[4], const H* X,
+                                         int k0, int n0) {
   const int l = lane_id();
   ldsm_x4_trans(r, X + (k0 + (l & 7) + (((l >> 3) & 1) << 3)) * SW + n0 +
                        ((l >> 4) << 3));
@@ -240,21 +267,32 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
-// the accumulators of n-tiles 2s and 2s+1 as the bf16 A operand of a
-// product over their 16 columns (each value rounded to bf16)
-__device__ __forceinline__ void c_to_a_bf16(uint32_t (&a)[4],
-                                            const float (&c0)[4],
-                                            const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+// two values rounded to the 16-bit type H, lo in the low half
+template <typename H>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (kIsF16<H>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// the accumulators of n-tiles 2s and 2s+1 as the 16-bit A operand (type H)
+// of a product over their 16 columns (each value rounded to H)
+template <typename H>
+__device__ __forceinline__ void c_to_a16(uint32_t (&a)[4],
+                                         const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack16<H>(c0[0], c0[1]);
+  a[1] = pack16<H>(c0[2], c0[3]);
+  a[2] = pack16<H>(c1[0], c1[1]);
+  a[3] = pack16<H>(c1[2], c1[3]);
 }
 
 template <int N>
@@ -272,7 +310,7 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 // c[16 x 8*NB] += X.Y^T where X's 16 rows start at row m0 (stride SX) and
 // Y's 8*NB rows at row 0 (stride SY), both over DP lanes: pattern a times
 // pattern b (q.k^T-like).  ExactX / ExactY: that operand is exact in TF32
-// (it came from bf16) and is not split.
+// (it came from bf16 or fp16) and is not split.
 template <int NB, int DP, int SX, int SY, bool ExactX, bool ExactY,
           typename TX, typename TY>
 __device__ __forceinline__ void gemm_abT_tf32(float (&c)[NB][4],
@@ -306,47 +344,48 @@ __device__ __forceinline__ void gemm_abT_tf32(float (&c)[NB][4],
   }
 }
 
-// the same product with both operands bf16, on bf16 tensor cores
-template <int NB, int DP, int SW>
-__device__ __forceinline__ void gemm_abT_bf16(float (&c)[NB][4],
-                                              const __nv_bfloat16* X, int m0,
-                                              const __nv_bfloat16* Y) {
+// the same product with both operands of the 16-bit type H (bf16 or
+// fp16), on its tensor cores
+template <int NB, int DP, int SW, typename H>
+__device__ __forceinline__ void gemm_abT16(float (&c)[NB][4], const H* X,
+                                           int m0, const H* Y) {
 #pragma unroll
   for (int ks = 0; ks < DP / 16; ++ks) {
     uint32_t a[4];
-    frag_a_bf16<SW>(a, X, m0, ks * 16);
+    frag_a16<SW>(a, X, m0, ks * 16);
 #pragma unroll
     for (int jj = 0; jj < NB / 2; ++jj) {
       uint32_t r[4];
-      frag_b_bf16<SW>(r, Y, jj * 16, ks * 16);
+      frag_b16<SW>(r, Y, jj * 16, ks * 16);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(c[2 * jj], a, b0);
-      mma_bf16(c[2 * jj + 1], a, b1);
+      mma16<H>(c[2 * jj], a, b0);
+      mma16<H>(c[2 * jj + 1], a, b1);
     }
   }
 }
 
 // c[16 x 8*NN] += P.Y[:, 8*n0 .. 8*(n0+NN)) where P[16 x 8*NB] is an
 // accumulator (already rounded as its dtype wants) whose columns run over
-// Y's rows (stride SY): pattern c (p.v-like).  Bf16: P holds bf16 values
-// and Y is bf16, on bf16 tensor cores; else split TF32, three products.
-template <int NB, int NN, int SY, bool Bf16, typename TY>
+// Y's rows (stride SY): pattern c (p.v-like).  Half: Y is of a 16-bit type
+// (bf16, fp16) and P is rounded to it, on its tensor cores; else split
+// TF32, three products.
+template <int NB, int NN, int SY, bool Half, typename TY>
 __device__ __forceinline__ void gemm_pY(float (&c)[NN][4],
                                         const float (&p)[NB][4],
                                         const TY* Y, int n0) {
-  if constexpr (Bf16) {
-    static_assert(NN % 2 == 0, "bf16 B fragments come in n-tile pairs");
+  if constexpr (Half) {
+    static_assert(NN % 2 == 0, "16-bit B fragments come in n-tile pairs");
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk) {
       uint32_t a[4];
-      c_to_a_bf16(a, p[2 * kk], p[2 * kk + 1]);
+      c_to_a16<TY>(a, p[2 * kk], p[2 * kk + 1]);
 #pragma unroll
       for (int nn = 0; nn < NN / 2; ++nn) {
         uint32_t r[4];
-        frag_c_bf16<SY>(r, Y, kk * 16, (n0 + 2 * nn) * 8);
+        frag_c16<SY>(r, Y, kk * 16, (n0 + 2 * nn) * 8);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(c[2 * nn], a, b0);
-        mma_bf16(c[2 * nn + 1], a, b1);
+        mma16<TY>(c[2 * nn], a, b0);
+        mma16<TY>(c[2 * nn + 1], a, b1);
       }
     }
   } else {
@@ -374,7 +413,7 @@ __device__ __forceinline__ void gemm_pY(float (&c)[NN][4],
 // drifts; each tile's products are summed in a fresh accumulator, NN
 // n-tiles at a time (which bounds the registers), and added on the CUDA
 // cores.
-template <int NB, int N, int SY, bool Bf16, typename TY>
+template <int NB, int N, int SY, bool Half, typename TY>
 __device__ __forceinline__ void gemm_pY_acc(float (&acc)[N][4],
                                             const float (&p)[NB][4],
                                             const TY* Y) {
@@ -384,7 +423,7 @@ __device__ __forceinline__ void gemm_pY_acc(float (&acc)[N][4],
   for (int n0 = 0; n0 < N; n0 += NN) {
     float c[NN][4];
     zero(c);
-    gemm_pY<NB, NN, SY, Bf16>(c, p, Y, n0);
+    gemm_pY<NB, NN, SY, Half>(c, p, Y, n0);
 #pragma unroll
     for (int n = 0; n < NN; ++n)
 #pragma unroll
@@ -423,7 +462,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // one element: fp32 through a 4-byte cp.async (zero-filled when !ok);
-// bf16 has no 2-byte cp.async, so a plain load and store
+// a 16-bit type has no 2-byte cp.async, so a plain load and store
 __device__ __forceinline__ void copy_elem(float* dst, const float* src,
                                           bool ok) {
   cp_async4(dst, src, ok ? 4 : 0);
@@ -431,6 +470,10 @@ __device__ __forceinline__ void copy_elem(float* dst, const float* src,
 __device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, bool ok) {
   *dst = ok ? *src : __float2bfloat16(0.f);
+}
+__device__ __forceinline__ void copy_elem(__half* dst, const __half* src,
+                                          bool ok) {
+  *dst = ok ? *src : __float2half(0.f);
 }
 
 // Stage rows r0..r0+R-1, lanes 0..DP-1 of a tensor whose row r starts at
@@ -482,21 +525,30 @@ __device__ __forceinline__ float row_dot(const float* x, const float* y) {
   return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
-template <int DP>
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* x,
-                                         const __nv_bfloat16* y) {
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ float2 to_float2(__half2 v) {
+  return __half22float2(v);
+}
+
+// the same over two rows of a 16-bit type H (bf16, fp16), in fp32
+template <int DP, typename H>
+__device__ __forceinline__ std::enable_if_t<!kIsF32<H>, float> row_dot(
+    const H* x, const H* y) {
   static_assert(DP % 8 == 0, "16-byte loads tile the row");
+  using H2 = std::conditional_t<kIsF16<H>, __half2, __nv_bfloat162>;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < DP; c += 8) {
     const uint4 a = *reinterpret_cast<const uint4*>(x + c);
     const uint4 b = *reinterpret_cast<const uint4*>(y + c);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+    const H2* a2 = reinterpret_cast<const H2*>(&a);
+    const H2* b2 = reinterpret_cast<const H2*>(&b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(a2[i]);
-      const float2 fb = __bfloat1622float2(b2[i]);
+      const float2 fa = to_float2(a2[i]);
+      const float2 fb = to_float2(b2[i]);
       s[i] = fmaf(fa.y, fb.y, fmaf(fa.x, fb.x, s[i]));
     }
   }
@@ -533,9 +585,13 @@ __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
 }
+__device__ __forceinline__ float round_to(float x, __half) {
+  return __half2float(__float2half_rn(x));
+}
 
 // c += X.Y^T over DP lanes for a warp's 16 rows of X (from row m0), both
-// padded tiles of T: split TF32 in fp32, bf16 tensor cores in bf16
+// padded tiles of T: split TF32 in fp32, the 16-bit type's tensor cores in
+// bf16 and fp16
 template <int NB, int DP, typename T>
 __device__ __forceinline__ void gemm_abT(float (&c)[NB][4], const T* X,
                                          int m0, const T* Y) {
@@ -543,7 +599,7 @@ __device__ __forceinline__ void gemm_abT(float (&c)[NB][4], const T* X,
   if constexpr (kIsF32<T>)
     gemm_abT_tf32<NB, DP, SW, SW, false, false>(c, X, m0, Y);
   else
-    gemm_abT_bf16<NB, DP, SW>(c, X, m0, Y);
+    gemm_abT16<NB, DP, SW>(c, X, m0, Y);
 }
 
 // write a warp's 16 x DP accumulator times mul into rows r0.. (< nrows)

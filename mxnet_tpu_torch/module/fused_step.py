@@ -324,6 +324,70 @@ def _release_cached_memory():
         host()
 
 
+def capture(fn, side, pool, generators=()):
+    """Capture ``fn()`` as a CUDA graph on the stream ``side`` (where its
+    warm-ups ran) into the memory pool ``pool``, the ``generators``
+    registered with it: first the garbage collector's pass and the
+    allocators' caches emptied (``_release_cached_memory``), then the
+    capture with the collector off, in the ``thread_local`` error mode.
+    The capture runs no kernel, so the launches its calls counted are
+    taken back.  Returns (graph, fn's outputs, those launch counts (one
+    dict a counter of ``_launch_counters``, for ``add_launches`` at each
+    replay), capture ms, the reserved memory it added)."""
+    counters = _launch_counters()
+    before = [dict(c) for c in counters]
+    t0 = time.perf_counter()
+    # no garbage collection inside the capture: a CUDA graph freed there
+    # (one in a reference cycle) resets itself, which the capture does
+    # not permit, and the capture fails
+    gc.collect()
+    _release_cached_memory()
+    reserved = torch.cuda.memory_reserved()
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    # captured on the warm-ups' stream (torch.cuda.graph would capture on
+    # a stream of its own): cuBLAS's and cuDNN's per-stream state and
+    # workspaces are the ones the eager steps used, not met first inside
+    # the capture.  thread_local: another thread's CUDA calls (a
+    # checkpoint writer's copies on its own stream) neither fail this
+    # capture nor fail themselves, as they do under the default global
+    # mode
+    main = torch.cuda.current_stream()
+    side.wait_stream(main)
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool, capture_error_mode="thread_local")
+            try:
+                outs = fn()
+            finally:
+                graph.capture_end()
+    finally:
+        if gc_was_on:
+            gc.enable()
+    main.wait_stream(side)
+    ms = (time.perf_counter() - t0) * 1e3
+    nbytes = torch.cuda.memory_reserved() - reserved
+    launches = []
+    for counts, old in zip(counters, before):
+        delta = {k: n - old.get(k, 0) for k, n in counts.items()
+                 if n != old.get(k, 0)}
+        for k, n in delta.items():
+            counts[k] -= n
+        launches.append(delta)
+    return graph, outs, launches, ms, nbytes
+
+
+def add_launches(launches):
+    """Count a replay: the launches its graph's capture recorded
+    (``capture``'s third result) added to the kernels' counters."""
+    for counts, delta in zip(_launch_counters(), launches):
+        for k, n in delta.items():
+            counts[k] = counts.get(k, 0) + n
+
+
 class Graphed:
     """``step`` (a ``TrainStep`` or ``InferStep``) under a CUDA graph in
     the memory pool ``pool()`` returns at the capture, every generator
@@ -363,9 +427,7 @@ class Graphed:
                 return self._eager()
             self._capture(arrays)
         self.graph.replay()
-        for counts, delta in zip(_launch_counters(), self.launches):
-            for k, n in delta.items():
-                counts[k] = counts.get(k, 0) + n
+        add_launches(self.launches)
         return [o.clone() for o in self.outs]
 
     def _eager(self):
@@ -379,52 +441,12 @@ class Graphed:
         return outs
 
     def _capture(self, arrays):
-        counters = _launch_counters()
-        before = [dict(c) for c in counters]
-        t0 = time.perf_counter()
-        # no garbage collection inside the capture: a CUDA graph freed
-        # there (one in a reference cycle) resets itself, which the
-        # capture does not permit, and the capture fails
-        gc.collect()
-        _release_cached_memory()
-        reserved = torch.cuda.memory_reserved()
-        graph = torch.cuda.CUDAGraph()
-        for g in self.step.streams.generators():
-            if g.device.type == "cuda":
-                graph.register_generator_state(g)
-        # captured on the warm-ups' stream (torch.cuda.graph would capture
-        # on a stream of its own): cuBLAS's and cuDNN's per-stream state
-        # and workspaces are the ones the eager steps used, not met
-        # first inside the capture.  thread_local: another thread's CUDA
-        # calls (a checkpoint writer's copies on its own stream) neither
-        # fail this capture nor fail themselves, as they do under the
-        # default global mode
-        main = torch.cuda.current_stream()
-        self.side.wait_stream(main)
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.stream(self.side):
-                graph.capture_begin(self.pool(),
-                                    capture_error_mode="thread_local")
-                try:
-                    outs = self.step()
-                finally:
-                    graph.capture_end()
-        finally:
-            if gc_was_on:
-                gc.enable()
-        main.wait_stream(self.side)
-        self.capture_ms += (time.perf_counter() - t0) * 1e3
-        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+        gens = [g for g in self.step.streams.generators()
+                if g.device.type == "cuda"]
+        graph, outs, self.launches, ms, nbytes = capture(
+            self.step, self.side, self.pool(), gens)
+        self.capture_ms += ms
+        self.pool_bytes += nbytes
         self.captures += 1
-        # the capture ran no kernel: take back what its calls counted
-        self.launches = []
-        for counts, old in zip(counters, before):
-            delta = {k: n - old.get(k, 0) for k, n in counts.items()
-                     if n != old.get(k, 0)}
-            for k, n in delta.items():
-                counts[k] -= n
-            self.launches.append(delta)
         self.graph, self.outs, self.captured = graph, outs, arrays
         self.version = self._state_version()

@@ -118,7 +118,10 @@ LSTM_MAX_HIDDEN = 1024
 # with force on or off
 NMS_FUSED_MAX_ROWS = 256
 NMS_WORKSPACE_BUDGET = 1 << 30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the attention kernels' dtype codes (their dtype / q_dtype / kv_dtype
+# argument); every attention kernel takes the three
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = "float32, bfloat16 and float16"
 # quantized page codes of the kernels' kv_code argument
 _QUANT_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _vp = ctypes.c_void_p
@@ -222,7 +225,7 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int,
     D = HD3 // (3 * H)
     if qkv.dtype not in _DTYPE_CODE:
         raise MXNetError(f"flash_mha_packed: dtype {qkv.dtype} (the "
-                         f"kernel takes float32 and bfloat16)")
+                         f"kernel takes {_DTYPE_NAMES})")
     _check_head_dim("flash_mha_packed", D)
     if not qkv.is_contiguous():
         raise MXNetError("flash_mha_packed: qkv must be contiguous")
@@ -322,8 +325,8 @@ def flash_mha_packed_bwd(qkv: torch.Tensor, o: torch.Tensor,
                                           block_size)
     if qkv.dtype not in _DTYPE_CODE or o.dtype != qkv.dtype:
         raise MXNetError(f"flash_mha_packed_bwd: qkv {qkv.dtype} / o "
-                         f"{o.dtype} (the kernels take float32 or "
-                         f"bfloat16, one for both)")
+                         f"{o.dtype} (the kernels take {_DTYPE_NAMES}, "
+                         f"one for both)")
     if lse.dtype != torch.float32:
         raise MXNetError("flash_mha_packed_bwd: lse must be float32")
     _check_head_dim("flash_mha_packed_bwd", D)
@@ -393,8 +396,8 @@ def _check_mha(name: str, q, k, v) -> None:
 def _check_mha_launch(name: str, D: int, dtype, *tensors) -> None:
     """What the CUDA kernels take beyond ``_check_mha``."""
     if dtype not in _DTYPE_CODE:
-        raise MXNetError(f"{name}: dtype {dtype} (the kernels take float32 "
-                         f"and bfloat16)")
+        raise MXNetError(f"{name}: dtype {dtype} (the kernels take "
+                         f"{_DTYPE_NAMES})")
     _check_head_dim(name, D)
     if any(t.stride(-1) != 1 for t in tensors):
         raise MXNetError(f"{name}: the head lanes (last axis) of q, k and v "
@@ -909,7 +912,7 @@ def paged_attention_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
     """``paged_attention_decode`` over quantized pages: k_pool/v_pool
     (P, KVB, H, D) int8 or float8_e4m3fn codes, k_scale/v_scale
     (P, KVB, H) float32 per-(slot, head) scales; each element is
-    ``float(code) * scale``.  q (B, H, D) float32 or bfloat16, with any
+    ``float(code) * scale``.  q (B, H, D) float32, bfloat16 or float16, with any
     batch stride → (B, H, D) in q's dtype; lengths == 0 gives zeros."""
     if q.ndim != 3 or k_pool.ndim != 4 or block_table.ndim != 2 \
             or lengths.ndim != 1:
@@ -952,24 +955,26 @@ def paged_attention_decode_quant(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _raw_pair(name, q, k_pool, v_pool):
-    """(q, pool) dtype codes of a raw-page kernel: fp32/fp32, fp32/bf16
-    or bf16/bf16."""
+    """(q, pool) dtype codes of a raw-page kernel: fp32 q over fp32,
+    bf16 or fp16 pools, bf16/bf16 or fp16/fp16."""
     pair = (_DTYPE_CODE.get(q.dtype), _DTYPE_CODE.get(k_pool.dtype))
-    if pair not in ((0, 0), (0, 1), (1, 1)) or v_pool.dtype != k_pool.dtype:
+    if pair not in ((0, 0), (0, 1), (0, 2), (1, 1), (2, 2)) \
+            or v_pool.dtype != k_pool.dtype:
         raise MXNetError(
             f"{name}: q {q.dtype} over pools {k_pool.dtype}/{v_pool.dtype} "
-            f"(the kernel takes fp32/fp32, fp32/bf16 and bf16/bf16)")
+            f"(the kernel takes fp32/fp32, fp32/bf16, fp32/fp16, bf16/bf16 "
+            f"and fp16/fp16)")
     return pair
 
 
 def _check_paged_launch(name, q, D, tensors, block_table, ints):
-    """What every paged kernel needs of its CUDA inputs: q float32 or
-    bfloat16 with head and lane strides D and 1, int32 table and
-    lengths/start, contiguous pools, scales and ints, D up to
+    """What every paged kernel needs of its CUDA inputs: q float32,
+    bfloat16 or float16 with head and lane strides D and 1, int32 table
+    and lengths/start, contiguous pools, scales and ints, D up to
     ``FLASH_MHA_MAX_HEAD_DIM``."""
     if q.dtype not in _DTYPE_CODE:
-        raise MXNetError(f"{name}: q {q.dtype} (the kernel takes float32 "
-                         f"and bfloat16)")
+        raise MXNetError(f"{name}: q {q.dtype} (the kernel takes "
+                         f"{_DTYPE_NAMES})")
     if block_table.dtype != torch.int32 or ints.dtype != torch.int32:
         raise MXNetError(f"{name}: the block table and the per-stream "
                          f"lengths/start must be int32")
@@ -1019,7 +1024,7 @@ def paged_attention_verify(q: torch.Tensor, k_pool: torch.Tensor,
     tokens cached before the window → (B, W, H, D) in q's dtype, row w
     under the mask ``k_pos < start + 1 + w``.
 
-    Raw fp32/bf16 pools launch ``paged_attention_verify``; int8/fp8
+    Raw fp32/bf16/fp16 pools launch ``paged_attention_verify``; int8/fp8
     pools with their (P, KVB, H) float32 scales launch
     ``paged_attention_verify_quant``.  q may be a strided view (the
     query third of a packed qkv): head and lane strides D and 1."""

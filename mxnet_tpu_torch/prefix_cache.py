@@ -309,6 +309,16 @@ class PrefixCache:
             self._drop_chain(node)
         return len(roots)
 
+    def invalidate_all(self) -> int:
+        """Drop every cached chain of every namespace (a weight swap:
+        each page's K/V was computed under the old weights).  Pages live
+        streams hold merely lose their index entry; parked ones are
+        reclaimed.  Returns the number of root chains dropped."""
+        roots = list(self.index._root.values())
+        for node in roots:
+            self._drop_chain(node)
+        return len(roots)
+
     def detach(self, pages: List[int]) -> int:
         """Un-index pages about to be EXPORTED (live KV migration): a
         migrating stream's pages leave this replica's pool, so any

@@ -59,11 +59,34 @@ which replaces the JAX engine's buffer donation.  The scheduler runs on
 its own thread; kernels launch on that thread's current CUDA stream,
 and the step's one device-to-host copy synchronises that stream only.
 
+**Executables** (the JAX engine's ``_exe_cache`` and ``compiles``,
+``mxnet_tpu/serving.py:1426-1428, 2002-2171``): a decode step, a verify
+step and a miss's prefill run ``_Executable``s keyed as the JAX engine
+keys its compiled programs — ``("decode", bb, mb)``, ``("verify", bb,
+mb, W)``, ``("prefill", tp)``, plus the rank buckets a batch's adapter
+rows use — each owning its int32 input buffers (filled by one copy a
+step from a pinned staging buffer) and computing the model up to the
+logits.  On CUDA each is one CUDA graph, captured at the bucket's first
+use (which runs the step eagerly on a side stream first, then captures
+on that stream into the engine's graph pool; ``module.fused_step.
+capture``) and replayed after; ``compiles`` counts it once and it is
+never retaken.  ``warmup()`` builds every prefill and (bb, mb) decode
+bucket (and verify bucket when speculating) at once.  Sampling stays
+outside the graph (its generators are seeded on the host a row).  On the
+CPU, and on CUDA with the private ``_graphs=False``, the same
+executables run uncaptured.  The suffix prefill (a prefix hit's suffix,
+every chunk), the draft LM's forward and the copy-on-write page copies
+stay eager (their shapes or ``start`` are host integers).  A plain step
+whose next step's batch is provably this one's runs two steps back to
+back, step t+1 fed from step t's tokens on the device while step t's
+tokens travel to the host (the JAX engine's pipelined fetch,
+``:3358-3460``; ``d2h_syncs_saved``).  ``swap_params`` copies new weights
+into the served tensors between steps, so no graph is recaptured.
+
 Features of the JAX engine outside this slice raise ``MXNetError("...
 not ported yet")`` when asked for by argument or environment variable:
 tp/pp/devices, ``prefill_only``, ``trace=``, ``canary=``,
-``cost_records()`` and the ``cost_*`` statistics, ``swap_params``,
-``import_stream``.
+``cost_records()`` and the ``cost_*`` statistics, ``import_stream``.
 """
 
 from __future__ import annotations
@@ -83,12 +106,13 @@ from .adapters import (AdapterPool, QuotaExceededError, TenantQuota,
                        adapters_enabled, pool_from_env, quota_from_env)
 from .base import MXNetError, get_env, not_ported
 from .context import current_context
-from .convert import params_from_numpy
+from .convert import params_from_numpy, params_to_numpy
 from .ndarray import torch_dtype
 from .kv_cache import (KV_DTYPES, BlockAllocator, blocks_for_tokens,
                        bucket_ladder, kv_quantized, kv_storage_dtype,
                        trim_blocks)
-from .models.transformer import TransformerLM
+from .models.transformer import TransformerLM, param_names
+from .module.fused_step import add_launches, capture
 from .prefix_cache import EVICT_POLICIES, PrefixCache
 from .random import gumbel_noise, stream_key
 from .speculative import PROPOSERS, make_proposer, verify_sample
@@ -268,6 +292,93 @@ class _Stream:
                     and self.generated[-1] == self.eos))
 
 
+class _Executable:
+    """One bucket of the engine: ``fn(bufs)`` (the model's decode, verify
+    or prefill up to the logits) over int32 input buffers this object
+    owns.
+
+    ``feeds`` [(name, shape)] are views ``bufs[name]`` of one flat device
+    buffer, written by ``feed`` with one host-to-device copy from a
+    pinned staging buffer (two alternate; a staging buffer is reused once
+    its copy has run, so a feed may be queued behind a step that has not
+    run yet).  ``graphed`` (CUDA, the engine's ``_graphs``): the first
+    ``run`` performs the step eagerly on the engine's side stream, which
+    loads every kernel and meets cuBLAS's per-stream state there, then
+    captures ``fn`` on that stream into the engine's graph pool
+    (``fused_step.capture``); each later ``run`` replays it into the
+    output buffer the capture made and counts the captured launches
+    again (``fused_step.add_launches``).  Uncaptured, ``run`` calls
+    ``fn``.  A failed capture raises."""
+
+    def __init__(self, engine, key, fn, feeds):
+        self.key, self.fn = key, fn
+        self.engine = engine
+        dev = engine._device
+        self.graphed = dev.type == "cuda" and engine._graphs
+        self.slices, off = {}, 0
+        for name, shape in feeds:
+            n = int(np.prod(shape))
+            self.slices[name] = (off, n, tuple(shape))
+            off += n
+        self.buf = torch.zeros(off, dtype=torch.int32, device=dev)
+        self.bufs = {name: self.buf[o:o + n].view(shape)
+                     for name, (o, n, shape) in self.slices.items()}
+        cuda = dev.type == "cuda"
+        self.stage = [torch.zeros(off, dtype=torch.int32, pin_memory=cuda)
+                      for _ in range(2 if cuda else 1)]
+        self.copied = [None] * len(self.stage)
+        self.turn = 0
+        self.graph = self.out = self.launches = None
+        self.capture_ms, self.pool_bytes = 0.0, 0
+
+    def feed(self, **arrays):
+        """Every input's value (host arrays of the feeds' shapes), one
+        copy to the device."""
+        if set(arrays) != set(self.slices):
+            raise MXNetError(f"executable {self.key}: feeds "
+                             f"{sorted(arrays)}, want {sorted(self.slices)}")
+        i = self.turn
+        self.turn = (i + 1) % len(self.stage)
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()  # its last copy has been read
+        host = self.stage[i].numpy()
+        for name, a in arrays.items():
+            o, n, _ = self.slices[name]
+            host[o:o + n] = np.asarray(a).ravel()
+        self.buf.copy_(self.stage[i], non_blocking=True)
+        if self.buf.is_cuda:
+            self.copied[i] = torch.cuda.Event()
+            self.copied[i].record()
+
+    def run(self) -> torch.Tensor:
+        """The step on the fed buffers → its logits (a replay's: the
+        graph's output buffer, overwritten by the next replay)."""
+        if not self.graphed:
+            return self.fn(self.bufs)
+        if self.graph is None:
+            with self.engine._compile_lock:
+                if self.graph is None:
+                    return self._first_run()
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+
+    def _first_run(self) -> torch.Tensor:
+        eng = self.engine
+        side = eng._side_stream()
+        main = torch.cuda.current_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.fn(self.bufs)
+        main.wait_stream(side)
+        out.record_stream(main)
+        self.graph, self.out, self.launches, self.capture_ms, \
+            self.pool_bytes = capture(lambda: self.fn(self.bufs), side,
+                                      eng._graph_pool())
+        return out
+
+
 class DecodeEngine:
     """Continuous-batching autoregressive serving of a ``transformer_lm``
     over a paged KV cache.
@@ -310,7 +421,7 @@ class DecodeEngine:
     dtype : str
         The pools' storage dtype while ``kv_dtype`` is ``'fp32'``
         (default ``"float32"``; ``"bfloat16"`` stores bf16 pages, as
-        ``kv_dtype='bf16'`` does).
+        ``kv_dtype='bf16'`` does, ``"float16"`` fp16 pages).
     spec_tokens : int
         Speculative draft depth k (env ``MXNET_SERVING_SPEC_TOKENS``,
         default 0 = off): up to k + 1 tokens a stream per step.
@@ -338,6 +449,10 @@ class DecodeEngine:
     tenant_quota : TenantQuota, optional
         Per-tenant token buckets of admission (default: from
         ``MXNET_TENANT_QUOTA_TOKENS`` / ``_REFILL``, off at 0).
+
+    The private keyword ``_graphs`` (default True) makes each executable
+    a CUDA graph on a CUDA device; False runs the same executables
+    uncaptured there (the graphed-against-eager comparisons).
     """
 
     def __init__(self, params, *, vocab_size, num_layers, num_heads,
@@ -348,8 +463,9 @@ class DecodeEngine:
                  kv_dtype=None, prefix_cache=None, evict_policy=None,
                  spec_tokens=None, proposer=None, prefill_chunk=None,
                  tp=None, pp=None, devices=None, adapters=None,
-                 tenant_quota=None):
+                 tenant_quota=None, _graphs=True):
         _refuse_unported(tp=tp, pp=pp, devices=devices)
+        self._graphs = bool(_graphs)
         self._kv_dtype = kv_dtype if kv_dtype is not None else \
             get_env("MXNET_SERVING_KV_DTYPE", "fp32", str)
         if self._kv_dtype not in KV_DTYPES:
@@ -360,9 +476,11 @@ class DecodeEngine:
         pool_dtype = kv_storage_dtype(self._kv_dtype)
         if self._kv_dtype == "fp32":
             pool_dtype = torch_dtype(dtype)
-            if pool_dtype not in (torch.float32, torch.bfloat16):
+            if pool_dtype not in (torch.float32, torch.bfloat16,
+                                  torch.float16):
                 raise not_ported(f"dtype={dtype!r} pages (the paged "
-                                 f"kernels take float32 and bfloat16)")
+                                 f"kernels take float32, bfloat16 and "
+                                 f"float16)")
         pc = prefix_cache if prefix_cache is not None else \
             _env_int("MXNET_SERVING_PREFIX_CACHE", 1, 0)
         if int(pc) not in (0, 1):
@@ -480,6 +598,14 @@ class DecodeEngine:
                 f"target must share a tokenizer")
 
         dev_params = params_from_numpy(params, self._device, dtype=None)
+        # the served tensors are the engine's own (swap_params writes
+        # them in place): a caller's tensor already on the device is
+        # copied
+        for n, t in dev_params.items():
+            v = params[n]
+            if isinstance(v, torch.Tensor) and t.data_ptr() == v.data_ptr():
+                dev_params[n] = t.clone()
+        self._param_names = param_names(self._L)
         self._model = TransformerLM(dev_params, num_layers=self._L,
                                     num_heads=self._H,
                                     kv_block=self._kv_block, lora=self._lora)
@@ -558,6 +684,12 @@ class DecodeEngine:
         self._seed = int(seed)
         self._temperature = float(temperature)
         self._eos = eos_id
+        # the executables (mxnet_tpu/serving.py:1426-1428): by key, and
+        # how many times each key was built (once)
+        self._exe_cache: Dict[tuple, _Executable] = {}
+        self._compile_lock = threading.RLock()
+        self.compiles: Dict[tuple, int] = {}
+        self._side = self._pool_handle = None
         self._metrics = _Metrics()
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -568,6 +700,9 @@ class DecodeEngine:
         # adapter salts whose prefix chains the scheduler drops before
         # its next admission (publish / retire of the adapter)
         self._prefix_dirty: List[bytes] = []
+        # calls waiting for the scheduler thread's next iteration
+        # (swap_params, get_params)
+        self._calls: List[tuple] = []
         self._accepting = True
         self._alive = True
         self._next_sid = 0
@@ -684,7 +819,102 @@ class DecodeEngine:
         return self.submit(prompt, max_new_tokens, **kw).result()
 
     def swap_params(self, params):
-        raise not_ported("live weight swap (swap_params)")
+        """Live weight swap, by the JAX engine's rules
+        (``mxnet_tpu/serving.py:1640-1688``): every served name must be in
+        ``params`` (an error naming what is "missing"), each value of the
+        served shape (an error naming the "shape"), and values are cast
+        to the served dtypes.  Everything is checked first, so a swap
+        that fails installs nothing.  The values are then copied into the
+        served tensors on the scheduler thread between two steps: no step
+        sees two weight versions, no executable is rebuilt and
+        ``compiles`` does not change.  The prefix cache's chains, whose
+        pages hold the old weights' K/V, stop being matchable then.
+        Returns once installed."""
+        missing = [n for n in self._param_names if n not in params]
+        if missing:
+            raise MXNetError(f"swap_params: params missing {missing}")
+        served = dict(self._model.named_parameters())
+        new = {}
+        for n in self._param_names:
+            t = params_from_numpy({n: params[n]}, "cpu", dtype=None)[n]
+            old = served[n]
+            if tuple(t.shape) != tuple(old.shape):
+                raise MXNetError(
+                    f"swap_params: param {n!r} shape {tuple(t.shape)} != "
+                    f"serving shape {tuple(old.shape)}")
+            new[n] = t.to(old.dtype)
+
+        def install():
+            with torch.no_grad():
+                for n, t in new.items():
+                    served[n].copy_(t)
+            if self._prefix is not None:
+                self._prefix.invalidate_all()
+
+        self._between_steps(install)
+
+    def get_params(self) -> dict:
+        """Host snapshot of the served weights (``params_to_numpy``: numpy
+        arrays, bf16 as ``HostBF16``), taken between two steps: the
+        rollback anchor a failed swap restores from."""
+        out = {}
+
+        def snapshot():
+            out.update(params_to_numpy(dict(self._model.named_parameters())))
+
+        self._between_steps(snapshot)
+        return out
+
+    def _between_steps(self, fn) -> None:
+        """Run ``fn`` on the scheduler thread at its next iteration (between
+        two steps) and wait for it; here when the loop has stopped."""
+        if threading.current_thread() is self._thread:
+            fn()
+            return
+        fut: Future = Future()
+        with self._cond:
+            queued = self._alive and self._thread.is_alive()
+            if queued:
+                self._calls.append((fn, fut))
+                self._cond.notify_all()
+        if not queued:
+            fn()
+            return
+        fut.result()
+
+    def _run_calls(self) -> None:
+        with self._cond:
+            calls, self._calls = self._calls, []
+        for fn, fut in calls:
+            try:
+                fn()
+            except BaseException as exc:
+                fut.set_exception(exc)
+            else:
+                fut.set_result(None)
+
+    def warmup(self):
+        """Build every prefill bucket and every (batch, cache) decode
+        bucket now, and every verify bucket when speculating, as the JAX
+        engine compiles them (``mxnet_tpu/serving.py:1742``): a bucket
+        built inside the serving loop stalls every active stream for its
+        capture.  On CUDA each is captured after one step on zero feeds
+        (lengths 0: its cache writes land on the scratch page).  The
+        JAX engine's suffix-prefill matrix is not built: that path runs
+        eagerly here."""
+        for tp in self._prefill_buckets:
+            self._build(self._prefill_exe(tp))
+        for bb in self._decode_buckets:
+            for mb in self._cache_buckets:
+                self._build(self._decode_exe(bb, mb))
+                if self._spec_k:
+                    self._build(self._verify_exe(bb, mb))
+
+    def _build(self, exe: _Executable) -> None:
+        if exe.graphed and exe.graph is None:
+            exe.feed(**{n: np.zeros(shape, np.int32)
+                        for n, (_, _, shape) in exe.slices.items()})
+            exe.run()
 
     def cost_records(self):
         raise not_ported("per-request cost records (cost_records(); the "
@@ -763,8 +993,9 @@ class DecodeEngine:
                        "preempted", "prefills", "steps", "stream_steps",
                        "prefill_chunks", "spec_steps", "spec_proposed",
                        "spec_accepted", "spec_pages_rolled_back",
-                       "d2h_syncs", "shed", "shed_tenant_quota",
-                       "adapter_publishes", "adapter_retires")})
+                       "d2h_syncs", "d2h_syncs_saved", "shed",
+                       "shed_tenant_quota", "adapter_publishes",
+                       "adapter_retires")})
         # how much of what the proposer offered was verified, and how
         # many tokens one target evaluation of one stream commits (1.0
         # without speculation; up to spec_tokens + 1)
@@ -809,6 +1040,17 @@ class DecodeEngine:
         out["prefill_buckets"] = list(self._prefill_buckets)
         out["kv_block"] = self._kv_block
         out["device"] = str(self._device)
+        # the executables built, by key as the JAX engine prints them,
+        # and their CUDA graphs: captures, capture ms, pool growth
+        with self._compile_lock:
+            out["compiles"] = {str(k): v for k, v in self.compiles.items()}
+            exes = list(self._exe_cache.values())
+        caught = [e for e in exes if e.graph is not None]
+        out["graphs"] = {
+            "graphs_on": self._device.type == "cuda" and self._graphs,
+            "executables": len(exes), "captures": len(caught),
+            "capture_ms": sum(e.capture_ms for e in caught),
+            "pool_bytes": sum(e.pool_bytes for e in caught)}
         # tenancy: per-tenant requests / tokens / shed and the quota's
         # balances; the adapter pool's counters
         with self._lock:
@@ -865,6 +1107,10 @@ class DecodeEngine:
                     streams.append(self._prefilling)
                 self._prefilling = None
             self._pending, self._active = [], []
+            calls, self._calls = self._calls, []
+        for _, fut in calls:
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(exc)
         for s in streams:
             if s.blocks:
                 self._release_pages(s.blocks)
@@ -883,8 +1129,9 @@ class DecodeEngine:
         raise MXNetError(f"{what} {n} exceeds ladder {ladder}")
 
     def _feed(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """One host-to-device copy for a step's int32 feeds, handed back
-        as contiguous views of the arrays' shapes."""
+        """One host-to-device copy for an eager forward's int32 feeds (the
+        suffix prefill), handed back as contiguous views of the arrays'
+        shapes."""
         flat = np.concatenate([a.ravel() for a in arrays])
         dev = torch.from_numpy(flat).to(self._device)
         out, off = [], 0
@@ -892,6 +1139,123 @@ class DecodeEngine:
             out.append(dev[off:off + a.size].view(a.shape))
             off += a.size
         return out
+
+    # ------------------------------------------------------------------
+    # executables (mxnet_tpu/serving.py:2002-2171)
+    # ------------------------------------------------------------------
+    def _side_stream(self):
+        """The stream every capture of this engine warms up and captures
+        on."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self._device)
+        return self._side
+
+    def _graph_pool(self):
+        """The engine's one memory pool of CUDA graphs (its executables
+        run one at a time, on the scheduler thread)."""
+        if self._pool_handle is None:
+            self._pool_handle = torch.cuda.graph_pool_handle()
+        return self._pool_handle
+
+    def _executable(self, key, fn, feeds) -> _Executable:
+        """The executable of ``key``, made at its first use and counted
+        in ``compiles`` once."""
+        exe = self._exe_cache.get(key)
+        if exe is not None:
+            return exe
+        with self._compile_lock:
+            exe = self._exe_cache.get(key)
+            if exe is None:
+                exe = _Executable(self, key, fn, feeds)
+                self._exe_cache[key] = exe
+                self.compiles[key] = self.compiles.get(key, 0) + 1
+            return exe
+
+    @staticmethod
+    def _exe_key(base: tuple, used: tuple) -> tuple:
+        """The JAX engine's key, plus the rank buckets the batch's adapter
+        rows use (a bucket without a row runs no epilogue, and a batch
+        without an adapter the pre-adapter ops: another program)."""
+        return base + ((("lora",) + tuple(used)),) if used else base
+
+    def _exe_adapter(self, bufs, used: tuple) -> tuple:
+        """The model's ``adapter`` arguments over the slot ids in
+        ``bufs`` (``slots{rb}``) of the rank buckets ``used``."""
+        if not used:
+            return ()
+        slabs = self._adapter_pool.slabs()
+        out = []
+        for j, rb in enumerate(self._lora):
+            out += [slabs[2 * j], slabs[2 * j + 1],
+                    bufs[f"slots{rb}"] if rb in used else None]
+        return tuple(out)
+
+    def _adapter_slots(self, streams, bb: int):
+        """({"slots{rb}": (bb,) slot ids}, used rank buckets) of one
+        forward over ``streams`` padded to ``bb`` rows: a bucket is used
+        when a row sits in it (0 for the other rows, pad rows included);
+        none without an adapter in the batch."""
+        if not self._lora or not any(s.adapter_slot for s in streams):
+            return {}, ()
+        vecs = {}
+        for rb in self._lora:
+            vec = np.zeros(bb, np.int32)
+            for i, s in enumerate(streams):
+                if s.adapter_slot is not None and s.adapter_bucket == rb:
+                    vec[i] = s.adapter_slot
+            if vec.any():
+                vecs[f"slots{rb}"] = vec
+        return vecs, tuple(rb for rb in self._lora if f"slots{rb}" in vecs)
+
+    @staticmethod
+    def _slot_feeds(bb: int, used: tuple) -> list:
+        return [(f"slots{rb}", (bb,)) for rb in used]
+
+    def _decode_exe(self, bb: int, mb: int, used: tuple = ()):
+        """The plain step at batch bucket ``bb`` x table bucket ``mb``."""
+        def fn(b):
+            return self._model.decode(b["tokens"], b["positions"],
+                                      b["lengths"], b["table"], self._pools,
+                                      self._exe_adapter(b, used))
+
+        return self._executable(
+            self._exe_key(("decode", bb, mb), used), fn,
+            [("tokens", (bb, 1)), ("positions", (bb, 1)),
+             ("lengths", (bb,)), ("table", (bb, mb))]
+            + self._slot_feeds(bb, used))
+
+    def _verify_exe(self, bb: int, mb: int, used: tuple = ()):
+        """The speculative verify step at ``bb`` x ``mb``: W = 1 +
+        spec_tokens rows a stream (keyed apart from the plain step, the
+        zero-draft fast path)."""
+        W = self._spec_k + 1
+
+        def fn(b):
+            return self._model.verify(b["tokens"], b["positions"],
+                                      b["start"], b["lengths"], b["table"],
+                                      self._pools,
+                                      self._exe_adapter(b, used))
+
+        return self._executable(
+            self._exe_key(("verify", bb, mb, W), used), fn,
+            [("tokens", (bb, W)), ("positions", (bb, W)), ("start", (bb,)),
+             ("lengths", (bb,)), ("table", (bb, mb))]
+            + self._slot_feeds(bb, used))
+
+    def _prefill_exe(self, tp: int, used: tuple = ()):
+        """A miss's prefill at prompt bucket ``tp`` (its table tp / kv_block
+        pages)."""
+        mb = tp // self._kv_block
+
+        def fn(b):
+            return self._model.prefill(b["tokens"], b["positions"],
+                                       b["lengths"], b["table"], self._pools,
+                                       self._exe_adapter(b, used))
+
+        return self._executable(
+            self._exe_key(("prefill", tp), used), fn,
+            [("tokens", (1, tp)), ("positions", (1, tp)), ("lengths", (1,)),
+             ("table", (1, mb))] + self._slot_feeds(1, used))
 
     # ------------------------------------------------------------------
     # page accounting: the one funnel for alloc and release
@@ -919,10 +1283,12 @@ class DecodeEngine:
                 with self._cond:
                     while self._alive and not self._pending \
                             and not self._active \
-                            and self._prefilling is None:
+                            and self._prefilling is None \
+                            and not self._calls:
                         self._cond.wait(timeout=0.5)
                     if not self._alive:
                         return
+                self._run_calls()
                 self._admit()
                 if self._prefilling is not None:
                     # one chunk an iteration: the decode step below runs
@@ -1063,15 +1429,20 @@ class DecodeEngine:
         lengths = np.asarray([end], np.int32)
         table = np.zeros((1, mb), np.int32)
         table[0, :len(s.blocks)] = s.blocks
-        tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions, lengths,
-                                                table)
-        adapter = self._adapter_args([s], 1)
         if suffix:
-            logits = self._model.suffix_prefill(tok_d, pos_d, done, len_d,
-                                                tab_d, self._pools, adapter)
+            # eager: B8's kv_offset = -start is a host integer
+            # (ops/attention.py), and the table width varies with it
+            tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions,
+                                                    lengths, table)
+            logits = self._model.suffix_prefill(
+                tok_d, pos_d, done, len_d, tab_d, self._pools,
+                self._adapter_args([s], 1))
         else:
-            logits = self._model.prefill(tok_d, pos_d, len_d, tab_d,
-                                         self._pools, adapter)
+            slots, used = self._adapter_slots([s], 1)
+            exe = self._prefill_exe(tp, used)
+            exe.feed(tokens=tokens, positions=positions, lengths=lengths,
+                     table=table, **slots)
+            logits = exe.run()
         return logits[:, :csize]
 
     def _sample_first(self, s: _Stream, row: torch.Tensor, n: int) -> int:
@@ -1235,6 +1606,8 @@ class DecodeEngine:
         if pages is None:
             return False
         new = pages[0]
+        # eager, between steps: the pages copied vary with the stream, and
+        # eviction and preemption around it are host bookkeeping
         for pool in self._pools:  # a byte copy: fp8 pages included
             pool[new].view(torch.uint8).copy_(pool[page].view(torch.uint8))
         s.blocks[j] = new
@@ -1270,24 +1643,15 @@ class DecodeEngine:
         self._adapter_pool.release(s.adapter)
 
     def _adapter_args(self, streams, bb: int) -> tuple:
-        """The adapter arguments of one forward over ``streams`` padded
-        to ``bb`` rows: per rank bucket the pool's slabs and the (bb,)
-        slot ids (0 for rows without an adapter in that bucket, pad rows
-        included), slot ids None for a bucket no row sits in.  () when
-        no row has an adapter: the pre-adapter ops."""
-        if not self._lora or not any(s.adapter_slot for s in streams):
-            return ()
-        slabs = self._adapter_pool.slabs()
-        out = []
-        for j, rb in enumerate(self._lora):
-            vec = np.zeros(bb, np.int32)
-            for i, s in enumerate(streams):
-                if s.adapter_slot is not None and s.adapter_bucket == rb:
-                    vec[i] = s.adapter_slot
-            out += [slabs[2 * j], slabs[2 * j + 1],
-                    torch.from_numpy(vec).to(self._device)
-                    if vec.any() else None]
-        return tuple(out)
+        """The adapter arguments of one eager forward (the suffix
+        prefill) over ``streams`` padded to ``bb`` rows: per rank bucket
+        the pool's slabs and the (bb,) slot ids (``_adapter_slots``),
+        None for a bucket no row sits in; () when no row has an adapter:
+        the pre-adapter ops."""
+        vecs, used = self._adapter_slots(streams, bb)
+        bufs = {k: torch.from_numpy(v).to(self._device)
+                for k, v in vecs.items()}
+        return self._exe_adapter(bufs, used)
 
     def _retire(self, s: _Stream):
         self._release_pages(s.blocks)
@@ -1325,6 +1689,8 @@ class DecodeEngine:
         if room < 1:
             return np.empty(0, np.int32)
         ctx = np.concatenate([s.prompt, np.asarray(s.generated, np.int32)])
+        # eager: a draft LM runs its forward over the real tokens, a
+        # length that changes every call
         d = np.asarray(self._proposer.propose(ctx, room), np.int32)
         return d[:room]
 
@@ -1377,11 +1743,11 @@ class DecodeEngine:
             temps[i] = s.temp
             seeds[i] = s.seed
             steps0[i] = s.length  # row j samples position length + j
-        tok_d, pos_d, start_d, len_d, tab_d = self._feed(
-            tokens, positions, start, lengths, table)
-        logits = self._model.verify(tok_d, pos_d, start_d, len_d, tab_d,
-                                    self._pools,
-                                    self._adapter_args(streams, bb))
+        slots, used = self._adapter_slots(streams, bb)
+        exe = self._verify_exe(bb, mb, used)
+        exe.feed(tokens=tokens, positions=positions, start=start,
+                 lengths=lengths, table=table, **slots)
+        logits = exe.run()
         emit = verify_sample(logits, tokens, lengths - start, temps, seeds,
                              steps0, self._seed)
         emit = emit.cpu().numpy()  # the step's one device-to-host copy
@@ -1427,8 +1793,14 @@ class DecodeEngine:
         self._retire_all(retired)
 
     def _plain_step(self):
-        """One decode step over every active stream, unpipelined: feed,
-        run, then one (B,) int32 copy to the host."""
+        """One decode step over every active stream: feed, run, then one
+        (B,) int32 copy to the host.  When the next step's batch is
+        provably this one's, two steps run back to back (the JAX engine's
+        pipelined fetch, ``mxnet_tpu/serving.py:3358-3460``): step t+1 is
+        fed from step t's tokens on the device, and step t's tokens are
+        copied to the host and absorbed while step t+1 runs.  Sampling is
+        keyed by (seed, stream, position), so the pair emits the bits of
+        two sequential steps."""
         t0 = time.perf_counter()
         for s in list(self._active):
             if s in self._active:
@@ -1438,6 +1810,35 @@ class DecodeEngine:
             streams = list(self._active)
         if not streams:
             return
+        # pipelined only while nothing can change the batch between the
+        # two steps: nothing pending, no chunked prefill in flight, no
+        # stream able to retire, pages for two more tokens, and no
+        # copy-on-write at the second step's write.  Not while
+        # speculating: a pair would skip step t+1's proposal, and whether
+        # a stream has a draft picks the sampler of its temperature rows,
+        # so its tokens would hang on the batch it rides in
+        pipeline = (not self._spec_k and not self._pending
+                    and self._prefilling is None
+                    and all(s.eos is None
+                            and len(s.generated) + 2 <= s.max_new
+                            for s in streams))
+        if pipeline:
+            for s in streams:
+                if s not in self._active \
+                        or not self._ensure_capacity(s, ahead=2):
+                    pipeline = False
+                    break
+            with self._lock:
+                cur = list(self._active)
+            if cur != streams:
+                # growing two ahead preempted a stream: a fresh snapshot,
+                # and this iteration unpipelined
+                streams = cur
+                pipeline = False
+                if not streams:
+                    return
+        if pipeline and self._prefix is not None:
+            pipeline = not any(self._cow_ahead(s) for s in streams)
         n = len(streams)
         bb = self._bucket(self._decode_buckets, n, "active streams")
         mb = self._bucket(self._cache_buckets,
@@ -1461,15 +1862,64 @@ class DecodeEngine:
             temps[i] = s.temp
             seeds[i] = s.seed
             steps[i] = s.length  # the position being sampled from
-        tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions, lengths,
-                                                table)
-        logits = self._model.decode(tok_d, pos_d, len_d, tab_d, self._pools,
-                                    self._adapter_args(streams, bb))
-        toks = sample_tokens(logits[:, 0], temps, seeds, steps, self._seed)
-        toks = toks.cpu().numpy()  # the step's one device-to-host copy
-        t_done = time.perf_counter()
+        # one adapter snapshot serves both steps of a pair (the batch is
+        # pinned, so its slot ids are)
+        slots, used = self._adapter_slots(streams, bb)
+        exe = self._decode_exe(bb, mb, used)
+        exe.feed(tokens=tokens, positions=positions, lengths=lengths,
+                 table=table, **slots)
+        toks = sample_tokens(exe.run()[:, 0], temps, seeds, steps,
+                             self._seed)
+        if not pipeline:
+            toks = toks.cpu().numpy()  # the step's one device-to-host copy
+            self._metrics.inc("d2h_syncs")
+            self._absorb_step(streams, toks, t0, time.perf_counter())
+            return
+        # step t's tokens start for the host ahead of step t+1 on the
+        # stream; step t+1 feeds them from the device: live rows advance
+        # one position, pad rows stay dead (lengths 0)
+        fetched = self._fetch(toks)
+        live = lengths > 0
+        exe.feed(tokens=tokens,
+                 positions=positions + live[:, None].astype(np.int32),
+                 lengths=np.where(live, lengths + 1, 0).astype(np.int32),
+                 table=table, **slots)
+        exe.bufs["tokens"].copy_(toks.view(bb, 1))
+        logits = exe.run()
+        toks = self._fetched(fetched)  # while step t+1 runs
         self._metrics.inc("d2h_syncs")
-        self._absorb_step(streams, toks, t0, t_done)
+        self._metrics.inc("d2h_syncs_saved")
+        t_mid = time.perf_counter()
+        # no stream can retire (the predicate): step t+1's batch held
+        self._absorb_step(streams, toks, t0, t_mid)
+        toks = sample_tokens(logits[:, 0], temps, seeds, steps + 1,
+                             self._seed).cpu().numpy()
+        self._metrics.inc("d2h_syncs")
+        self._absorb_step(streams, toks, t_mid, time.perf_counter())
+
+    def _fetch(self, toks: torch.Tensor):
+        """Start the copy of a step's (B,) tokens to the host, behind the
+        step on the stream: (pinned host tensor, its event)."""
+        if not toks.is_cuda:
+            return toks.clone(), None
+        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+        host.copy_(toks, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _fetched(fetched) -> np.ndarray:
+        host, done = fetched
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def _cow_ahead(self, s: _Stream) -> bool:
+        """Would the write after this step's (position ``s.length + 1``)
+        copy a shared page on write?"""
+        j = (s.length + 1) // self._kv_block
+        return j < len(s.blocks) and self._prefix.needs_cow(s.blocks[j])
 
     def _absorb_step(self, streams, toks, t0, t_done):
         """Book one decode step's tokens: counters, per-stream append,

@@ -179,8 +179,8 @@ def test_flash_mha_wrappers_refuse_what_the_kernels_do_not_take():
     # raises rather than running the plain version
     with pytest.raises(mt.MXNetError, match="FLASH_MHA_MAX_HEAD_DIM = 128"):
         ck._check_mha_launch("flash_mha", 136, torch.float32, q)
-    with pytest.raises(mt.MXNetError, match="float32 and bfloat16"):
-        ck._check_mha_launch("flash_mha", 16, torch.float16, q)
+    with pytest.raises(mt.MXNetError, match="float32, bfloat16 and float16"):
+        ck._check_mha_launch("flash_mha", 16, torch.float64, q)
     with pytest.raises(mt.MXNetError, match="no kernel for device meta"):
         ck.flash_mha(*(x.to("meta") for x in (q, k, v)))
 

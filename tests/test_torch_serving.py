@@ -187,13 +187,30 @@ def test_eos_and_single_token_requests_retire(lm):
     ({}, {"MXNET_SERVING_PP": "2"}),
     ({"devices": [0]}, {}),
     ({"tp": 2}, {"MXNET_SERVING_KV_DTYPE": "fp8"}),
-    ({"dtype": "float16"}, {}),
 ], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
 def test_unported_features_raise(lm, monkeypatch, kwargs, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(mt.MXNetError, match="not ported yet"):
         mt.DecodeEngine(lm[0], **_kw(ctx=mt.cpu(), **kwargs))
+
+
+@pytest.mark.parametrize("kwargs,env", [
+    ({"dtype": "float16"}, {}),
+], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
+def test_half_precision_pages_serve(lm, monkeypatch, kwargs, env):
+    """The configuration the port refused until the paged kernels took
+    fp16 (``dtype="float16"``) now stores fp16 pages and serves: an fp32
+    model over them, whose chain may part from fp32 pages' at near-ties
+    only (``tests/test_torch_fp16.py`` holds it to the JAX engine)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    prompt = np.array([3, 17, 42], np.int32)
+    with mt.DecodeEngine(lm[0], **_kw(ctx=mt.cpu(), **kwargs)) as eng:
+        out = eng.generate(prompt, 6)
+        assert {p.dtype for p in eng._pools} == {torch.float16}
+        assert eng.stats()["generations"] == 1
+    assert out.shape == (6,) and np.all((out >= 0) & (out < V))
 
 
 @pytest.mark.parametrize("kwargs,env", [
@@ -281,7 +298,7 @@ def test_unported_request_options_raise(lm, kwargs):
         with pytest.raises(mt.MXNetError, match="not ported yet"):
             eng.submit(np.array([1, 2], np.int32), 2, **kwargs)
         with pytest.raises(mt.MXNetError, match="not ported yet"):
-            eng.swap_params(lm[0])
+            eng.stats()["cost_by_class"]
         with pytest.raises(mt.MXNetError, match="not ported yet"):
             eng.import_stream({})
         with pytest.raises(mt.MXNetError, match="item 8"):
