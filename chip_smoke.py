@@ -395,14 +395,16 @@
    ``core_summary`` line.
 16. The prefix cache and chunked prefill (``prefix_path``), at the
    GPT-2-class width, fp32 pages unless said, KVB 16.  B8 first, at the
-   suffix prefill's shapes (``SUFFIX_SHAPES``: one stream, keys [cached
-   prefix | suffix] at ``kv_offset = -start``) against its plain
-   version, timed beside SDPA and its bound.  Then, each run's launch
+   suffix prefill's shapes (``SUFFIX_SHAPES``: one stream, its two
+   launches: the gathered table's pages under the key limit ``start``,
+   then the raw suffix causal) against its plain version, timed beside
+   SDPA and its bound.  The suffix prefills below run as graphed
+   ``("prefix_prefill", tp, mb)`` executables.  Then, each run's launch
    counts reset just before its traffic: (a) a 512-token system prompt
    served alone, then 15 requests of it plus distinct 16-400-token
    suffixes (two at temperature 0.8), 32 tokens each, with the cache on
    and off: 15 hits of 512 tokens, 15 x 512 fewer prefill tokens, B1 12
-   times a miss, B8 12 times a hit's suffix prefill, the decode kernel
+   times a miss, B8 24 times a hit's suffix prefill, the decode kernel
    12 times a step, the full forward over both runs' greedy streams;
    (b) the system prompt alone again: a full hit, one copy-on-write of
    its tail page (whose bytes stay as they were), no prefill launch;
@@ -410,7 +412,7 @@
    of parked pages, preemptions of streams holding shared pages, every
    page back at the end; (d) four 900-token prompts and one of 960
    (above the engine's largest prefill bucket, 512) in chunks of 256
-   beside 8 short streams already decoding: the chunk count, B8 12
+   beside 8 short streams already decoding: the chunk count, B8 24
    times a chunk, the full forward; the same with the cache off (the
    greedy chains equal up to a near-tie, where batch shapes round
    either way) and unchunked (the short streams' cost of the stall);
@@ -434,7 +436,7 @@
    p50 with adapters and without; (b) a 256-token system prompt with
    new suffixes, plain, under adapter X, plain, under X, then X retired
    and republished with other weights: hits only within a salt, none on
-   X's old chain, B8 12 times a hit's suffix prefill, each stream held
+   X's old chain, B8 24 times a hit's suffix prefill, each stream held
    against its own model; (c) six rank-8 adapters published into bucket
    8's 4 slots while 8 streams decode, one retired mid-run: nothing
    shed, evictions of parked slots only (a held slot's rows keep their
@@ -444,7 +446,7 @@
    request admitted before two batch ones submitted ahead of it; (e)
    ``spec_tokens=4`` on ``spec_prompts()`` (greedy) with the target's
    own weights as the draft LM, with a 2-layer draft cut from them
-   (fp32 and int8 pages) and with the n-gram proposer: run B's launch
+   (fp32 pages) and with the n-gram proposer: run B's launch
    rule, B1 also ``layers`` times a draft forward, ``forward_check``
    (over int8 pages: every token's logit within ``INT8_MARGIN`` of the
    row's largest of the top one), the self-draft accepting above 0.9.
@@ -458,15 +460,38 @@
    graphed (b) and (c) are device traces (B1 12 a prefill, the paged
    kernel 12 a step, verify steps included); (e) the pipelined fetch:
    one prompt alone saves device-to-host syncs, its tokens those of an
-   engine that cannot pipeline; (f) ``warmup()`` of (a)'s and (b)'s
-   graphed engines (run B's speculating) builds and captures every prefill,
-   decode and verify bucket once (the JAX engine's keys), and the
-   traffic after it builds none; (g) a 712-token
+   engine that cannot pipeline; (f) ``warmup()`` of (a)'s
+   graphed engine builds and captures every prefill,
+   decode and verify bucket and every suffix-prefill (tp, mb) bucket
+   once (the JAX engine's keys), and the traffic after it builds none; (g) a 712-token
    miss's host and kernel ms graphed and eager; (h) ``swap_params`` mid-
    serve: the same weights change no chain and build nothing, other
    weights make the next chains a fresh engine's over them, a swap
    missing a name or of a wrong shape raises and installs nothing;
    ``get_params`` gives the new weights.  A ``graphs_summary`` line.
+19. B8's key limit, the serving symbols, the graphed suffix prefill and
+   ``InferenceEngine`` (``infer_path``): (a) B8 with its per-row key
+   limit (``kv_len`` in the card's memory) against its plain version in
+   fp32, bf16 and fp16 at the suffix shapes (both launches, and the
+   merged rows against the plain body), at a decode row over a
+   contiguous cache (16 streams of up to 1,024 keys, one padded) and at
+   the limit's edges (0, 1, 63, 64, 65, a page, all keys, past them),
+   causal and not, timed beside SDPA under the same mask and the bound;
+   (b) the serving symbols at the GPT-2-class width bound with
+   ``simple_bind`` over fp32 and int8 pools: a 200-token prefill, 16
+   decode steps, a verify window of 5, a 64-token suffix prefill over
+   256 cached tokens and (fp32) a contiguous-cache decode, a device
+   trace of their launches, the logits against ``TransformerLM``'s same
+   calls within ``TOL``; (c) phase 16's (a) and (d) traffic graphed and
+   with ``_graphs=False``, tokens equal, and a 200-token suffix over the
+   512-token system prompt's host and kernel ms both ways; (d)
+   ``InferenceEngine`` on ResNet-50 from ``Predictor.from_checkpoint``
+   of a ``Module.save_checkpoint`` (8 client threads, 256 requests of
+   1-4 images, buckets 1/4/16/32): rows against ``Module.predict``, each
+   bucket graphed against eager bit for bit, one capture a bucket; (e)
+   ``InferenceEngine`` on the packed LM scoring 128-token sequences
+   (buckets 1/4/8): B1 12 a batch in a device trace, rows against
+   ``Module.predict``.  An ``infer_summary`` line.
 
 The fused step.  Every ``Module`` training path above and below (the
 packed, DPA, GELU and dropout LMs, LSTM-PTB, SSD300, phases 10 and 11)
@@ -513,7 +538,8 @@ alone, ``--nms ROOT`` B7 alone, ``--image ROOT`` phase 10 alone,
 1-9 at the table's shapes, ``--ops ROOT`` phase 14 alone with the packed
 LM's training run beside it, ``--core ROOT`` phase 15 alone,
 ``--prefix ROOT`` phase 16 alone, ``--tenancy ROOT`` phase 17 alone,
-``--graphs ROOT`` phase 18 alone (see ``paths_timing``);
+``--graphs ROOT`` phase 18 alone, ``--infer ROOT`` phase 19 alone (see
+``paths_timing``);
 ``--eager-step ROOT`` ResNet-50's step on the eager path, by part
 (``eager_step_timing``).
 
@@ -2185,7 +2211,8 @@ def serve_run(torch, mt, ck, dev_params, prompts, temps, new_tokens,
     if warmed is not None:
         rec["warmup"] = {k: warmed[k] for k in (
             "compiles", "graphs", "wall_s", "prefill_buckets",
-            "decode_buckets", "cache_buckets", "spec_tokens")}
+            "decode_buckets", "cache_buckets", "spec_tokens",
+            "prefix_cache")}
         rec["warmup"]["compiles_after_traffic"] = st["compiles"]
     return model, outs, st, launches, rec
 
@@ -6093,8 +6120,9 @@ def half_serving(torch, mt, ck, counts, params, dtype):
 def half_prefix_hit(torch, mt, ck, counts, params, dtype):
     """A prefix hit served in ``dtype`` pages: a 256-token prompt, then the
     same plus 64 new tokens, 32 greedy tokens each; the second must hit
-    the 256 cached tokens and run B8 once a layer (the dtype's
-    instantiation, traced) over [cached prefix | suffix], and both chains
+    the 256 cached tokens and run B8 twice a layer (the dtype's
+    instantiation, traced: the cached pages under the key limit, then
+    the suffix), and both chains
     lie within ``BF16_MARGIN`` U of the full forward's top logit (the
     trained LM's band)."""
     L = GPT2_SMALL["num_layers"]
@@ -6123,7 +6151,7 @@ def half_prefix_hit(torch, mt, ck, counts, params, dtype):
               f"{st['prefix_hit_tokens']} tokens")
         counts.add(tr.launches)
         half = tr.fp16_launches if dtype == "float16" else tr.bf16_launches
-        want = {"flash_attention_partial": L, "flash_mha_packed": 0,
+        want = {"flash_attention_partial": 2 * L, "flash_mha_packed": 0,
                 "paged_attention": L * st["steps"]}
         got = {k: (tr.launches.get(k, 0), half.get(k, 0)) for k in want}
         check(all(g == (n, n) for g, n in zip(got.values(), want.values())),
@@ -6441,6 +6469,32 @@ EARLIER_OPS = frozenset((
     "elemwise_add", "elemwise_mul", "elemwise_sub", "expand_dims",
     "flatten", "make_loss", "pad", "reshape", "smooth_l1", "space_to_depth",
     "transpose"))
+
+
+def serving_ops(registry):
+    """The serving ops, read from their registrations: the port's ops
+    outside ``EARLIER_OPS`` that launch a kernel of the port
+    (``kernel=``) or write a pool in place (a ``new_*`` output).  The
+    sweep leaves them to phase 19 (b), whose symbols must hold every one
+    (``symbol_ops``) and are held against ``TransformerLM``'s same
+    calls."""
+    out = set()
+    for n in registry.list_ops():
+        op = registry.get_op(n)
+        if n in EARLIER_OPS or not op.compute.__module__.startswith(
+                "mxnet_tpu_torch.ops."):
+            continue
+        if op.launches_kernel({}) or any(
+                str(o).startswith("new_") for o in op.output_names({})):
+            out.add(n)
+    return out
+
+
+def symbol_ops(sym):
+    """The op names of ``sym``'s nodes."""
+    return {n.opdef().name for n in sym._topo() if not n.is_variable}
+
+
 # draws a sampler case makes on the card, and the sigmas its sample mean
 # and variance may lie from the distribution's
 SAMPLE_DRAWS, SAMPLE_SIGMAS = 1 << 20, 6.0
@@ -6897,7 +6951,7 @@ def check_sample_moments(torch, case, out):
 
 def ops_sweep(torch, mt):
     """(c) Every op name the port's ops register outside ``EARLIER_OPS``
-    through ``mt.nd.<name>`` on ``gpu(0)`` and on the CPU on the same
+    and ``serving_ops`` through ``mt.nd.<name>`` on ``gpu(0)`` and on the CPU on the same
     seeded inputs (``op_sweep_cases``): outputs within ``TOL`` (exact
     where ``exact``), gradients of sum(out * w) within ``BWD_TOL``, fp32
     and, where a case says so, bf16; a sampler's draws (2^20 on the
@@ -6909,7 +6963,7 @@ def ops_sweep(torch, mt):
     # the port's own ops (not a user's: mt.rtc, CustomOp)
     ported = {n for n in registry.list_ops() if registry.get_op(
         n).compute.__module__.startswith("mxnet_tpu_torch.ops.")}
-    missing = ported - EARLIER_OPS - names
+    missing = ported - EARLIER_OPS - serving_ops(registry) - names
     check(not missing, f"op names the sweep does not run: {sorted(missing)}")
     worst = {"fwd": 0.0, "bwd": 0.0, "bf16": 0.0, "sample_sigmas": 0.0}
     where = {}
@@ -7718,46 +7772,146 @@ SUFFIX_SHAPES = ((PREFIX_TOKENS, 512), (768, CHUNK))
 PREFILL_TIMED = ((0, 712), (PREFIX_TOKENS, 200), (PREFIX_TOKENS, CHUNK))
 
 
+def limit_pairs(Tq, Tk, causal, koff, kv_len):
+    """The (query, key) pairs a head of B8 scores under its causal mask
+    (``koff``) and the per-row key limits ``kv_len`` (a list, one a batch
+    row), and the keys each row reads: what this run's data needs."""
+    rows = np.clip(np.arange(Tq) - koff + 1, 0, Tk) if causal \
+        else np.full(Tq, Tk)
+    lims = np.clip(np.asarray(kv_len), 0, Tk)
+    pairs = int(sum(np.minimum(rows, n).sum() for n in lims))
+    return pairs, int(lims.sum())
+
+
+def check_limit(torch, ck, F, Hh, Tq, Tk, Dh, causal, kv_len, dtype, label,
+                koff=0, q=None, k=None, v=None):
+    """B8 with its per-row key limit (``kv_len``, (B,) int32 on the card)
+    against its plain version on the same inputs: m's -inf pattern
+    exactly, a row that sees no key the exact empty state (m = -inf, l =
+    0, o = 0), o / l within ``TOL``.  Timed beside its plain version,
+    SDPA with the same boolean mask (the library yardstick: rows that
+    see no key come out NaN there, which the timing ignores) and its
+    bound over the keys this run's limits let it read."""
+    dt = getattr(torch, dtype)
+    B = len(kv_len)
+    if q is None:
+        g = torch.Generator(device="cuda").manual_seed(Tq + Tk + B + Dh)
+        q, k, v = (torch.randn((B, T, Hh, Dh), generator=g, device="cuda")
+                   .to(dt) for T in (Tq, Tk, Tk))
+    lim = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    o, m, l = ck.flash_attention_partial(q, k, v, causal, KVB, koff,
+                                         kv_len=lim)
+    po, pm, pl = ck.flash_attention_partial_plain(q, k, v, causal, KVB, koff,
+                                                  kv_len=lim)
+    torch.cuda.synchronize()
+    shape = (f"{label} B={B} H={Hh} Tq={Tq} Tk={Tk} D={Dh} koff={koff} "
+             f"{'causal' if causal else 'full'} kv_len={list(kv_len)[:8]}")
+    empty = torch.isinf(pm)
+    check(torch.equal(torch.isinf(m), empty)
+          and not bool(torch.isnan(o).any() or torch.isnan(l).any()),
+          f"flash_attention_partial {shape} {dtype}: the -inf pattern of m "
+          f"differs from the plain version's, or a NaN")
+    check(bool((m[empty] < 0).all()) and not bool(o[empty].any())
+          and not bool(l[empty].any()),
+          f"flash_attention_partial {shape} {dtype}: a row that sees no "
+          f"key is not the exact empty state")
+    lsafe, plsafe = (x.clamp(min=1e-30)[..., None] for x in (l, pl))
+    err = ((o / lsafe) - (po / plsafe)).abs().max().item()
+    check(err <= TOL[dtype], f"flash_attention_partial {shape} {dtype}: "
+          f"o/l max_abs_err {err} (tolerance {TOL[dtype]})")
+    pairs, keys = limit_pairs(Tq, Tk, causal, koff, kv_len)
+    pairs *= Hh
+    es = q.element_size()
+    nbytes = (B * Tq + 2 * keys) * Hh * Dh * es \
+        + B * Hh * Tq * (Dh + 2) * 4
+    b_ms, b_by = bound(nbytes, 4 * Dh * pairs, dtype)
+    kpos = torch.arange(Tk, device="cuda")
+    mask = (kpos[None, :] < lim[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & ((kpos + koff)[None, :] <= torch.arange(
+            Tq, device="cuda")[:, None])[None, None]
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    run = lambda: ck.flash_attention_partial(q, k, v, causal, KVB, koff,
+                                             kv_len=lim)
+    return {"kernel": "flash_attention_partial", "shape": shape,
+            "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+            "rows_seeing_no_key": int(empty.sum()),
+            "ms": time_ms(torch, run),
+            "back_to_back_ms": back_to_back_ms(torch, run),
+            "plain_ms": time_ms(torch, lambda: ck.flash_attention_partial_plain(
+                q, k, v, causal, KVB, koff, kv_len=lim), reps=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": bound_tc(nbytes, 4 * Dh * pairs, dtype)}
+
+
+# B8's per-row key limit at the edges (phase 19): B = 8 rows of 512 keys
+# whose limits are empty, one key, a tile boundary (64) and beside it, a
+# page, all keys, and past them
+LIMIT_EDGES = (0, 1, 63, 64, 65, KVB, 512, 517)
+# a decode row over a contiguous cache: 16 streams of up to 1024 tokens
+LIMIT_DECODE = (16, 1024)
+
+
 def check_suffix_attention(torch, ck, tatt, F, start, Ts, dtype="float32"):
-    """B8 as the suffix prefill calls it (one stream, H heads of D: q
-    (1, Ts, H, D) over keys [prefix (start) | suffix (Ts)] at
-    ``kv_offset = -start``) against its plain version on the same
-    inputs, through ``prefix_suffix_attention``: the normalized rows
-    within ``TOL``.  Timed beside its plain version, SDPA with the same
-    boolean mask (the library yardstick) and its bound."""
+    """B8 as the suffix prefill calls it (one stream, H heads of D, the
+    table's pages gathered at a fixed width C = the next power of two of
+    start + Ts tokens, stale bytes past ``start``): the prefix launch
+    (non-causal, ``kv_len = start`` from the card's memory) and the
+    suffix launch (causal, ``kv_offset = 0``), each against its plain
+    version (``check_limit`` records, timed, with SDPA under the same
+    mask and the bound), then ``prefix_suffix_attention``'s merged rows
+    against the plain body over [prefix | suffix] at ``kv_offset =
+    -start`` within ``TOL``."""
     g = torch.Generator(device="cuda").manual_seed(start + Ts)
     dt = getattr(torch, dtype)
+    C = 1 << (start + Ts - 1).bit_length()
     q, ks, vs = (torch.randn((1, Ts, H, D), generator=g, device="cuda")
                  .to(dt) for _ in range(3))
-    kg, vg = (torch.randn((1, start, H, D), generator=g, device="cuda")
+    kg, vg = (torch.randn((1, C, H, D), generator=g, device="cuda")
               .to(dt) for _ in range(2))
-    out = tatt.prefix_suffix_attention(q, ks, vs, kg, vg, start, KVB)
-    k, v = torch.cat([kg, ks], 1), torch.cat([vg, vs], 1)
+    lim = torch.tensor([start], dtype=torch.int32, device="cuda")
+    out = tatt.prefix_suffix_attention(q, ks, vs, kg, vg, lim, KVB)
+    k = torch.cat([kg[:, :start], ks], 1)
+    v = torch.cat([vg[:, :start], vs], 1)
     o, m, l = tatt._blockwise_attention_partial_plain(q, k, v, True, KVB,
                                                       -start)
     ref = tatt.normalize_attention_state(o, m, l, dt)
     err = (out.float() - ref.float()).abs().max().item()
-    shape = f"suffix start={start} Ts={Ts} H={H} D={D}"
+    shape = f"suffix start={start} Ts={Ts} C={C} H={H} D={D}"
     check(bool(torch.isfinite(out).all()) and err <= TOL[dtype],
-          f"flash_attention_partial {shape} {dtype}: max_abs_err {err}")
-    Tk = start + Ts
-    pairs = partial_pairs(1, H, Ts, Tk, True, -start)
-    es = q.element_size()
-    nbytes = (Ts + 2 * Tk) * H * D * es + (Ts * D + 2 * Ts) * H * 4
-    b_ms, b_by = bound(nbytes, 4 * D * pairs, dtype)
-    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
-    mask = (torch.arange(Tk, device="cuda") - start)[None, :] \
-        <= torch.arange(Ts, device="cuda")[:, None]
-    return {"kernel": "flash_attention_partial", "shape": shape,
-            "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
-            "ms": time_ms(torch, lambda: ck.flash_attention_partial(
-                q, k, v, True, KVB, -start)),
-            "plain_ms": time_ms(torch, lambda: ck.flash_attention_partial_plain(
-                q, k, v, True, KVB, -start), reps=5, warmup=1),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bound_tc_ms": bound_tc(nbytes, 4 * D * pairs, dtype)}
+          f"prefix_suffix_attention {shape} {dtype}: max_abs_err {err}")
+    recs = [check_limit(torch, ck, F, H, Ts, C, D, False, [start], dtype,
+                        f"suffix-prefix start={start} Ts={Ts}", q=q, k=kg,
+                        v=vg),
+            check_limit(torch, ck, F, H, Ts, Ts, D, True, [Ts], dtype,
+                        f"suffix-self start={start} Ts={Ts}", q=q, k=ks,
+                        v=vs)]
+    for r in recs:
+        r["merged_max_abs_err"] = err
+    return recs
+
+
+def limit_checks(torch, ck, tatt, F):
+    """Phase 19's B8 key-limit checks in fp32, bf16 and fp16: the suffix
+    prefill at ``SUFFIX_SHAPES`` (PERF.md row 8's), a decode row over a
+    contiguous cache (``LIMIT_DECODE``, seeded lengths with a padded
+    row), and ``LIMIT_EDGES`` causal and not."""
+    rng = np.random.RandomState(19)
+    B, C = LIMIT_DECODE
+    lengths = [0] + [int(n) for n in rng.randint(1, C + 1, size=B - 1)]
+    out = []
+    for dtype in ("float32", *HALF_DTYPES):
+        for s, ts in SUFFIX_SHAPES:
+            out += check_suffix_attention(torch, ck, tatt, F, s, ts, dtype)
+        out.append(check_limit(torch, ck, F, H, 1, C, D, False, lengths,
+                               dtype, "decode"))
+        for causal in (False, True):
+            out.append(check_limit(torch, ck, F, H, 256, 512, D, causal,
+                                   list(LIMIT_EDGES), dtype, "edges"))
+        torch.cuda.empty_cache()
+    return out
 
 
 # the engine's host work in (a), by method: (label, attribute path under
@@ -7862,15 +8016,17 @@ def counted_engine(torch, mt, ck, dev_params, warm=(), **engine_kw):
         yield eng
 
 
-def shared_prompt_traffic(seed=4):
+def shared_prompt_traffic(seed=4, lens=None):
     """(a)'s requests: (system prompt, the first request, the others,
-    their temperatures)."""
+    their temperatures); ``lens`` (the suffixes' lengths) are drawn from
+    ``seed`` unless given."""
     V = GPT2_SMALL["vocab_size"]
     rng = np.random.RandomState(seed)
     prefix = rng.randint(1, V, size=PREFIX_TOKENS).astype(np.int32)
     first = np.concatenate([prefix, rng.randint(1, V, size=64)]) \
         .astype(np.int32)
-    lens = rng.randint(16, 401, size=PREFIX_REQUESTS)
+    drawn = rng.randint(16, 401, size=PREFIX_REQUESTS)
+    lens = drawn if lens is None else lens
     prompts = [np.concatenate([prefix, rng.randint(1, V, size=n)])
                .astype(np.int32) for n in lens]
     temps = [0.8 if i in PREFIX_SAMPLED else 0.0
@@ -7881,7 +8037,8 @@ def shared_prompt_traffic(seed=4):
 def expect_prefix_launches(launches, st, run, quant=False, misses=None):
     """The launch rule of a run with the prefix cache: B1 12 times a
     whole-prompt prefill (``misses``; by default every prefill that is
-    not a hit's suffix), B8 12 times a chunk or a hit's suffix prefill,
+    not a hit's suffix), B8 24 times a chunk or a hit's suffix prefill
+    (the prefix under its key limit, then the suffix, a layer),
     the paged decode kernel 12 times a plain step and the verify kernel
     12 times a verify step (their quantized instantiations over int8 /
     fp8 pages)."""
@@ -7892,7 +8049,8 @@ def expect_prefix_launches(launches, st, run, quant=False, misses=None):
     plain = st["steps"] - st["spec_steps"]
     q = "_quant" if quant else ""
     want = {"flash_mha_packed": L * misses,
-            "flash_attention_partial": L * (suffix + st["prefill_chunks"]),
+            "flash_attention_partial": 2 * L * (suffix
+                                                + st["prefill_chunks"]),
             f"paged_attention_decode{q}": L * plain,
             f"paged_attention_verify{q}": L * st["spec_steps"],
             "paged_attention_decode" + ("" if quant else "_quant"): 0,
@@ -7906,7 +8064,10 @@ def shared_prompt_run(torch, mt, ck, dev_params, traffic, label, **kw):
     cache on also (b): the system prompt alone again (a full hit), its
     shared tail page's bytes compared before and after the COW."""
     prefix, first, prompts, temps = traffic
-    _, wfirst, wprompts, _ = shared_prompt_traffic(seed=5)
+    # the warm pass's suffixes are the traffic's lengths: its hits capture
+    # the (tp, mb) suffix-prefill executables the traffic replays
+    _, wfirst, wprompts, _ = shared_prompt_traffic(
+        seed=5, lens=[len(p) - PREFIX_TOKENS for p in prompts])
     # the temperatures too: the process's first sampled token costs ~90
     # ms once (tools/torch_prefill_trace.py), which must not land in (a)
     warm = [(p, PREFIX_NEW, t) for p, t in zip([wfirst] + wprompts,
@@ -8140,7 +8301,7 @@ def prefix_path(torch, mt, ck, tatt, F):
     (a) a 512-token system prompt: one request alone, then 15 of it
         plus distinct 16-400-token suffixes (two sampled), with the
         cache on and off: 15 hits of 512 tokens, 15 x 512 fewer prefill
-        tokens, B1 12 a miss, B8 12 a hit's suffix, the decode kernel 12
+        tokens, B1 12 a miss, B8 24 a hit's suffix, the decode kernel 12
         a step, the full forward on both runs' greedy streams;
     (b) the system prompt alone again: a full hit, one COW, the shared
         page's bytes unchanged, no prefill launch;
@@ -8149,7 +8310,7 @@ def prefix_path(torch, mt, ck, tatt, F):
     (d) four 900-token prompts and a 960 (above the largest prefill
         bucket, 512) in chunks of 256 beside 8 short decoding streams,
         with the cache on and off, and unchunked (buckets to 1024): the
-        chunk count, B8 12 a chunk, the full forward, the cache-off
+        chunk count, B8 24 a chunk, the full forward, the cache-off
         chains equal up to a near-tie, the short streams' cost;
     (e) (a)'s traffic over int8 pages (B8 and the quantized decode
         kernel, first tokens as (a)'s up to a near-tie), and
@@ -8157,8 +8318,8 @@ def prefix_path(torch, mt, ck, tatt, F):
         chunks of 256 (run B's launch rule with chunks)."""
     t_start = time.perf_counter()
     L = GPT2_SMALL["num_layers"]
-    kernels = [check_suffix_attention(torch, ck, tatt, F, s, ts)
-               for s, ts in SUFFIX_SHAPES]
+    kernels = [c for s, ts in SUFFIX_SHAPES
+               for c in check_suffix_attention(torch, ck, tatt, F, s, ts)]
     for c in kernels:
         print(json.dumps({"check": c}))
     ck.reset_launch_counts()
@@ -8524,7 +8685,7 @@ def tenancy_salted(torch, mt, ck, dev_params, ads):
     plain, under adapter X, plain, under X, then X retired and
     republished with other weights, under X again: hits only within a
     salt, none on X's old chain after the republish, every stream held
-    by ``forward_check`` against its own model, B8 12 times a hit's
+    by ``forward_check`` against its own model, B8 24 times a hit's
     suffix prefill."""
     L, V = GPT2_SMALL["num_layers"], GPT2_SMALL["vocab_size"]
     rng = np.random.RandomState(23)
@@ -8552,7 +8713,7 @@ def tenancy_salted(torch, mt, ck, dev_params, ads):
     suffix = st["prefix_hits"] - st["prefix_full_hits"]
     _expect_launches(launches, {
         "flash_mha_packed": L * (st["prefills"] - suffix),
-        "flash_attention_partial": L * suffix}, "17b")
+        "flash_attention_partial": 2 * L * suffix}, "17b")
     models = {None: model,
               "X": merged_model(torch, dev_params, *x),
               "X2": merged_model(torch, dev_params, *x2)}
@@ -8692,11 +8853,11 @@ def draft_params(dev_params, layers):
 def tenancy_draft(torch, mt, ck, dev_params):
     """(e) The draft-LM proposer, ``spec_tokens=4`` on ``spec_prompts()``
     (run B's prompts, greedy): drafting with the target's own weights
-    and with a 2-layer draft cut from them, fp32 pages, then the 2-layer
-    draft over int8 pages; the n-gram proposer on the same prompts beside
-    them.  Run B's launch rule, B1 also ``layers`` times a draft forward;
-    the outputs held by ``forward_check`` (``INT8_MARGIN`` over int8
-    pages)."""
+    and with a 2-layer draft cut from them, fp32 pages (the 2-layer
+    draft over int8 pages is left out for the full run's time limit;
+    phase 18 (c) serves over int8 pages); the n-gram proposer on the
+    same prompts beside them.  Run B's launch rule, B1 also ``layers``
+    times a draft forward; the outputs held by ``forward_check``."""
     from mxnet_tpu_torch.speculative import DraftLMProposer
 
     L, Hh = GPT2_SMALL["num_layers"], GPT2_SMALL["num_heads"]
@@ -8706,9 +8867,7 @@ def tenancy_draft(torch, mt, ck, dev_params):
     # the target gives other tokens (run B holds the sampled verify rows)
     temps = [0.0] * 16
     runs = {}
-    for label, layers, kv in (("self", L, "fp32"), ("two_layer", 2, "fp32"),
-                              ("two_layer_int8", 2, "int8"),
-                              ("ngram", None, "fp32")):
+    for label, layers in (("self", L), ("two_layer", 2), ("ngram", None)):
         draft = DraftLMProposer(draft_params(dev_params, layers),
                                 num_heads=Hh, kv_block=KVB,
                                 ctx=mt.gpu(0)) if layers else "ngram"
@@ -8719,26 +8878,17 @@ def tenancy_draft(torch, mt, ck, dev_params):
 
         model, outs, st, launches, rec = serve_run(
             torch, mt, ck, dev_params, prompts, temps, SPEC_NEW,
-            on_reset=reset, kv_dtype=kv, spec_tokens=SPEC_K,
-            proposer=draft)
-        q = "_quant" if kv == "int8" else ""
+            on_reset=reset, spec_tokens=SPEC_K, proposer=draft)
         plain = st["steps"] - st["spec_steps"]
         forwards = draft.forwards if layers else 0
         _expect_launches(launches, {
             "flash_mha_packed": L * st["prefills"] + (layers or 0) * forwards,
-            f"paged_attention_verify{q}": L * st["spec_steps"],
-            f"paged_attention_decode{q}": L * plain,
-            "paged_attention_verify" + ("" if q else "_quant"): 0,
-            "paged_attention_decode" + ("" if q else "_quant"): 0},
-            f"17e {label}")
-        # int8 pages hold K/V to a code (max|x| / 127), which moves the
-        # logits in proportion to their size: there every engine token's
-        # logit in the fp32 full forward lies within INT8_MARGIN of the
-        # row's largest |logit| below the top one
+            "paged_attention_verify": L * st["spec_steps"],
+            "paged_attention_decode": L * plain,
+            "paged_attention_verify_quant": 0,
+            "paged_attention_decode_quant": 0}, f"17e {label}")
         forward_check(torch, model, prompts, outs, temps, lens,
-                      f"17e {label}",
-                      rel_margin=INT8_MARGIN if kv == "int8" else 0.0,
-                      band=kv == "int8")
+                      f"17e {label}")
         rec.update(draft_layers=layers, draft_forwards=forwards,
                    accepted_token_rate=st["accepted_token_rate"])
         runs[label] = rec
@@ -8841,11 +8991,12 @@ def graphs_serving(torch, mt, ck, dev_params, tally):
     mixed adapter batch, each through a graphed engine and one with
     ``_graphs=False`` (the same executables uncaptured): tokens equal.
     (a) and (b) build every bucket first (``warmup()``, checked by
-    ``warmup_matrix``) and (d) warms the traffic's shapes, so no capture
-    falls inside their timed traffic; (c) captures each bucket at its
-    first use inside it (its graphed TTFT holds those captures).  The
-    graphed runs of (b) and (c) are device traces: B1 12 a prefill, the
-    paged kernel 12 a step (verify and decode) in the trace."""
+    ``warmup_matrix``; (b)'s with the verify buckets) and (d) warms the
+    traffic's shapes, so no capture falls inside their timed traffic;
+    (c) captures each bucket at its first use inside it (its graphed
+    TTFT holds those captures).  The graphed runs of (b) and (c) are
+    device traces: B1 12 a prefill, the paged kernel 12 a step (verify
+    and decode) in the trace."""
     L = GPT2_SMALL["num_layers"]
     rng = np.random.RandomState(1)
     lens = rng.randint(32, 901, size=16)
@@ -8912,9 +9063,10 @@ def graphs_serving(torch, mt, ck, dev_params, tally):
 
 def warmup_matrix(label, rec):
     """(f): the ``warmup()`` of a run made with ``serve_run(warm=True)``
-    built every prefill bucket and every (bb, mb) decode bucket (and
-    verify bucket when speculating), each captured once: the JAX
-    engine's keys; the traffic after it built none."""
+    built every prefill bucket, every (bb, mb) decode bucket (and verify
+    bucket when speculating) and every (tp, mb) suffix-prefill bucket
+    whose table holds the suffix (the prefix cache is on), each captured
+    once: the JAX engine's keys; the traffic after it built none."""
     w = rec["warmup"]
     want = {("prefill", tp) for tp in w["prefill_buckets"]}
     for bb in w["decode_buckets"]:
@@ -8922,6 +9074,9 @@ def warmup_matrix(label, rec):
             want.add(("decode", bb, mb))
             if w["spec_tokens"]:
                 want.add(("verify", bb, mb, w["spec_tokens"] + 1))
+    if w["prefix_cache"]:  # the suffix prefill's (tp, mb) pairs
+        want |= {("prefix_prefill", tp, mb) for tp in w["prefill_buckets"]
+                 for mb in w["cache_buckets"] if mb * KVB >= tp}
     want = {str(k): 1 for k in want}
     check(w["compiles"] == want == w["compiles_after_traffic"]
           and w["graphs"]["captures"] == len(want),
@@ -8966,7 +9121,9 @@ def graphs_swap(torch, mt, dev_params):
     every chain and ``compiles`` as they were; other weights
     (``gpt2_small_params(1)``) make the next requests' greedy chains those
     of a fresh engine over them; a swap missing a name or of a wrong shape
-    raises and installs nothing."""
+    raises and installs nothing.  The prefix cache is on: a swap drops
+    its chains (their pages hold the old weights' K/V), so the prompts
+    served again after it miss and follow the new weights."""
     prompts = spec_prompts(seed=8)[:4]
     kw = dict(**GPT2_SMALL, ctx=mt.gpu(0), kv_block=KVB, max_streams=16,
               seed=0)
@@ -8977,6 +9134,16 @@ def graphs_swap(torch, mt, dev_params):
     with mt.DecodeEngine(dev_params, **kw) as eng:
         want0 = [f.result(timeout=600)
                  for f in [eng.submit(p, 24) for p in prompts]]
+        # the same prompts again hit the prefix cache: their
+        # suffix-prefill executables are built here, before the snapshot
+        hits = eng.stats()["prefix_hits"]
+        warm = [f.result(timeout=600)
+                for f in [eng.submit(p, 24) for p in prompts]]
+        check(all(np.array_equal(a, b) for a, b in zip(warm, want0))
+              and eng.stats()["prefix_hits"] > hits
+              and any(k[0] == "prefix_prefill" for k in eng.compiles),
+              "18h: the prompts served again did not hit the prefix "
+              "cache, or a hit's chain differs from the miss's")
         before = dict(eng.compiles)
         futs = [eng.submit(p, 24) for p in prompts]
         eng.swap_params(host0)  # mid-serve, between two steps
@@ -9007,7 +9174,8 @@ def graphs_swap(torch, mt, dev_params):
         check(all(np.array_equal(a, b) for a, b in zip(got, want1))
               and dict(eng.compiles) == before,
               "18h: after swap_params the chains are not the new "
-              "weights' (or an executable was built)")
+              "weights' (a prefix hit over the old weights' pages, or an "
+              "executable was built)")
         snap = eng.get_params()
         check(all(np.array_equal(snap[n], host1[n]) for n in host1),
               "18h: get_params is not the swapped-in weights")
@@ -9044,8 +9212,8 @@ def graphs_path(torch, mt, ck):
     """Phase 18 at the GPT-2-class width, KVB 16: ``DecodeEngine``'s
     executables as CUDA graphs (``graphs_serving``: (a) run A, (b) run
     B, (c) int8 pages, (d) the mixed adapter batch, each graphed against
-    ``_graphs=False``; (f) the ``warmup()`` of (a)'s and (b)'s graphed
-    engines: ``warmup_matrix``), (e) the pipelined fetch (``graphs_pipeline``),
+    ``_graphs=False``; (f) the ``warmup()`` of (a)'s graphed engine:
+    ``warmup_matrix``), (e) the pipelined fetch (``graphs_pipeline``),
     (g) a miss's host and kernel ms (``graphs_miss``), (h)
     ``swap_params`` (``graphs_swap``).  A ``graphs_summary`` line."""
     t_start = time.perf_counter()
@@ -9068,6 +9236,510 @@ def graphs_path(torch, mt, ck):
                "wall_s": time.perf_counter() - t_start, "card": card_line()}
     print(json.dumps({"graphs_summary": summary}))
     return {"parts": parts, "launches": counts.total, "summary": summary}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: B8's key limit, the serving symbols, the graphed suffix prefill
+# and InferenceEngine
+# ---------------------------------------------------------------------------
+
+# the serving symbols' chain (one stream each): a prompt of INFER_PROMPT
+# tokens (bucket 256), INFER_STEPS decode steps, a verify window of
+# SPEC_K + 1; a second stream of 256 cached tokens and a 64-token suffix
+INFER_PROMPT, INFER_STEPS, INFER_SUFFIX = 200, 16, (256, 64)
+INFER_P, INFER_MB = 64, 32
+# the graphed suffix prefill: 200 new tokens over the 512-token system
+# prompt, INFER_PROBES distinct probes (2 warm, 5 timed)
+INFER_PROBES = 7
+# InferenceEngine on ResNet-50 (BASELINE config 2's scoring): buckets,
+# client threads, requests of 1-4 images; on the packed LM: buckets, T
+INFER_BUCKETS, INFER_CLIENTS, INFER_REQUESTS = (1, 4, 16, 32), 8, 256
+INFER_LM_BUCKETS, INFER_LM_T, INFER_LM_REQUESTS = (1, 4, 8), 128, 24
+# a request's row against Module.predict's: cuDNN picks its deterministic
+# algorithms per batch size, so the rows of one image at two batch sizes
+# differ in float32's rounding
+INFER_TOL = dict(rtol=1e-4, atol=1e-6)
+# the LM's rows are probabilities over 32,768 tokens (about 3e-5 each):
+# the same relative tolerance, an absolute floor far below that
+INFER_LM_TOL = dict(rtol=1e-4, atol=1e-7)
+
+
+def infer_symbols(torch, mt, ck, dev_params, kv):
+    """(b): the serving symbols at the GPT-2-class width, bound with
+    ``simple_bind`` (sharing weights and pools through ``shared_exec``)
+    over ``kv`` pools ("fp32" or "int8"): stream A's prefill of 200
+    tokens, 16 decode steps and a verify window of 5; stream B's prefill
+    of 256 and its 64-token suffix prefill (start 256); over fp32 pools
+    also the contiguous-cache decode (``paged=False``: the prefill's K/V
+    in (1, 256, H, D) caches, 16 steps on B8 with ``kv_len = lengths``).
+    The symbols run as one ``TracedLaunches`` region (B1 12 a prefill,
+    the paged kernel 12 a step, B8 24 a suffix prefill and 12 a
+    contiguous step), then ``TransformerLM``'s same calls over the same
+    pools' bytes: every logits row within ``TOL`` (the contiguous decode
+    against the paged decode's rows within 1e-3: another kernel)."""
+    import importlib
+
+    tf = importlib.import_module("mxnet_tpu_torch.models.transformer")
+    L, V = GPT2_SMALL["num_layers"], GPT2_SMALL["vocab_size"]
+    dm = GPT2_SMALL["d_model"]
+    quant = kv == "int8"
+    rng = np.random.RandomState(19)
+    kw = dict(num_layers=L, num_heads=H, d_model=dm,
+              d_ff=GPT2_SMALL["d_ff"], kv_block=KVB, kv_dtype=kv)
+    pool_names = [f"layer{i}_{n}" for i in range(L)
+                  for n in ("kpool", "vpool", "kscale", "vscale")[
+                      :4 if quant else 2]]
+    ints = ("data", "positions", "lengths", "block_table", "start")
+    common = {"pos_embed_weight": (GPT2_SMALL["max_len"], dm),
+              "block_table": (1, INFER_MB), "lengths": (1,)}
+    for n in pool_names:
+        common[n] = (INFER_P, KVB, H) if "scale" in n \
+            else (INFER_P, KVB, H, D)
+
+    used = set()  # the op names of every symbol bound here
+
+    def bind(fn, shared=None, **shapes):
+        sym = getattr(tf, fn)(V, **kw)
+        used.update(symbol_ops(sym))
+        types = {n: ("int32" if n in ints else "int8" if quant
+                     and "pool" in n else "float32")
+                 for n in sym.list_arguments()}
+        ex = sym.simple_bind(mt.gpu(0), grad_req="null", type_dict=types,
+                             shared_exec=shared, **common, **shapes)
+        if shared is None:
+            ex.copy_params_from({k: v for k, v in dev_params.items()
+                                 if k in ex.arg_dict})
+        return ex
+
+    pre = bind("transformer_lm_prefill", data=(1, 256), positions=(1, 256))
+    dec = bind("transformer_lm_decode", pre, data=(1, 1), positions=(1, 1))
+    ver = bind("transformer_lm_verify", pre, data=(1, SPEC_K + 1),
+               positions=(1, SPEC_K + 1), start=(1,))
+    suf = bind("transformer_lm_prefix_prefill", pre,
+               data=(1, INFER_SUFFIX[1]), positions=(1, INFER_SUFFIX[1]),
+               start=(1,))
+    pools = [pre.arg_dict[n]._data for n in pool_names]
+    check(all(dec.arg_dict[n]._data is p and suf.arg_dict[n]._data is p
+              for n, p in zip(pool_names, pools)),
+          f"19b {kv}: the symbols' executors do not share the pools")
+    for n, p in zip(pool_names, pools):  # stale bytes the masks keep out
+        if "scale" in n:
+            p.copy_(torch.rand(p.shape, device="cuda") + 0.5)
+        elif quant:
+            p.copy_(torch.randint(-100, 100, p.shape, device="cuda"))
+        else:
+            p.normal_()
+    ref_pools = [p.clone() for p in pools]
+    tables = np.zeros((2, INFER_MB), np.int32)
+    tables[0, :14] = np.arange(1, 15)
+    tables[1, :20] = np.arange(15, 35)
+    a_prompt = rng.randint(1, V, INFER_PROMPT).astype(np.int32)
+    b_prompt = rng.randint(1, V, sum(INFER_SUFFIX)).astype(np.int32)
+    steps = rng.randint(1, V, INFER_STEPS + SPEC_K + 1).astype(np.int32)
+    calls = []  # (executor, method, feeds, real rows)
+    tp = np.zeros((1, 256), np.int32)
+    tp[0, :INFER_PROMPT] = a_prompt
+    calls.append((pre, "prefill", dict(
+        data=tp, positions=np.arange(256, dtype=np.int32)[None],
+        lengths=[INFER_PROMPT], block_table=tables[:1]), INFER_PROMPT))
+    for i in range(INFER_STEPS):
+        pos = INFER_PROMPT + i
+        calls.append((dec, "decode", dict(
+            data=[[steps[i]]], positions=[[pos]], lengths=[pos + 1],
+            block_table=tables[:1]), 1))
+    start = INFER_PROMPT + INFER_STEPS
+    W = SPEC_K + 1
+    calls.append((ver, "verify", dict(
+        data=steps[None, INFER_STEPS:], positions=start + np.arange(
+            W, dtype=np.int32)[None], start=[start], lengths=[start + W],
+        block_table=tables[:1]), W))
+    cached, ns = INFER_SUFFIX
+    calls.append((pre, "prefill", dict(
+        data=b_prompt[None, :cached], positions=np.arange(
+            cached, dtype=np.int32)[None], lengths=[cached],
+        block_table=tables[1:]), cached))
+    calls.append((suf, "suffix_prefill", dict(
+        data=b_prompt[None, cached:], positions=cached + np.arange(
+            ns, dtype=np.int32)[None], start=[cached],
+        lengths=[cached + ns], block_table=tables[1:]), ns))
+
+    def feeds_of(f):
+        return {k: torch.tensor(np.asarray(v, np.int32), device="cuda")
+                for k, v in f.items()}
+
+    got = []
+    with TracedLaunches(torch, ck, f"19b {kv} symbols") as tr:
+        for ex, _, f, real in calls:
+            outs = ex.forward(**feeds_of(f))
+            got.append(outs[0]._data[0, :real].clone())
+        cont = []
+        if not quant:
+            csym = tf.transformer_lm_prefill(V, paged=False, **kw)
+            used.update(symbol_ops(csym))
+            cex = csym.simple_bind(
+                mt.gpu(0), grad_req="null", shared_exec=pre,
+                type_dict={n: "int32" if n in ints else "float32"
+                           for n in csym.list_arguments()},
+                data=(1, 256), positions=(1, 256),
+                pos_embed_weight=(GPT2_SMALL["max_len"], dm))
+            outs = cex.forward(**feeds_of({k: v for k, v in calls[0][2]
+                                           .items()
+                                           if k in ("data", "positions")}))
+            caches = [o._data.clone() for o in outs[1:]]
+            dsym = tf.transformer_lm_decode(V, paged=False, **kw)
+            used.update(symbol_ops(dsym))
+            cnames = [f"layer{i}_{n}" for i in range(L)
+                      for n in ("kcache", "vcache")]
+            dex = dsym.simple_bind(
+                mt.gpu(0), grad_req="null", shared_exec=pre,
+                type_dict={n: "int32" if n in ints else "float32"
+                           for n in dsym.list_arguments()},
+                data=(1, 1), positions=(1, 1), lengths=(1,),
+                pos_embed_weight=(GPT2_SMALL["max_len"], dm),
+                **{n: (1, 256, H, D) for n in cnames})
+            for n, c in zip(cnames, caches):
+                dex.arg_dict[n]._data.copy_(c)
+            for _, _, f, _ in calls[1:1 + INFER_STEPS]:
+                outs = dex.forward(**feeds_of({k: v for k, v in f.items()
+                                               if k != "block_table"}))
+                cont.append(outs[0]._data[0].clone())
+            del cex, dex, caches
+    launches = tr.launches
+    n_pre, n_dec = 2 + (0 if quant else 1), INFER_STEPS
+    q = "_quant" if quant else ""
+    want = {"flash_mha_packed": L * n_pre, "paged_attention": L * (n_dec + 1),
+            f"paged_attention_decode{q}": L * n_dec,
+            f"paged_attention_verify{q}": L,
+            "flash_attention_partial": 2 * L + (0 if quant else L * n_dec)}
+    off = {k: (launches.get(k, 0), n) for k, n in want.items()
+           if launches.get(k, 0) != n}
+    check(not off, f"19b {kv}: (traced, wanted) launches {off}")
+    model = tf.TransformerLM(dev_params, num_layers=L, num_heads=H,
+                             kv_block=KVB)
+    errs = []
+    for (_, method, f, real), row in zip(calls, got):
+        t = feeds_of(f)
+        args = [t["data"], t["positions"]] + (
+            [t["start"]] if "start" in t else []) + [t["lengths"],
+                                                      t["block_table"]]
+        want_row = getattr(model, method)(*args, ref_pools)[0, :real]
+        errs.append((want_row - row).abs().max().item())
+    err = max(errs)
+    check(err <= TOL["float32"], f"19b {kv}: the symbols' logits are "
+          f"{err} from TransformerLM's (tolerance {TOL['float32']})")
+    rec = {"kv": kv, "calls": len(calls), "max_abs_err": err,
+           "tol": TOL["float32"], "launches": launches,
+           "ops": sorted(used)}
+    if cont:
+        paged_rows = got[1:1 + INFER_STEPS]
+        cerr = max((a - b[0]).abs().max().item()
+                   for a, b in zip(cont, paged_rows))
+        check(cerr <= 1e-3, f"19b: the contiguous decode's logits are "
+              f"{cerr} from the paged decode's")
+        rec["contiguous_decode_max_abs_err"] = cerr
+    del pre, dec, ver, suf, pools, ref_pools, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def infer_suffix_graphs(torch, mt, ck, dev_params):
+    """(c): phase 16's (a) traffic (a 512-token system prompt, 15 hits)
+    and (d) traffic (chunked prefill beside decoding streams) through a
+    graphed engine and one with ``_graphs=False``: tokens equal, every
+    executable (the ``("prefix_prefill", tp, mb)`` ones among them)
+    captured once; then a 200-token suffix over the cached system prompt
+    served to its first token, graphed and eager (``INFER_PROBES``
+    distinct probes, host ms median of the last 5, device ms by
+    ``step_device_ms`` on a fresh probe each call)."""
+    traffic = shared_prompt_traffic()
+    prefix, first, prompts, temps = traffic
+    out, outs = {}, {}
+    for graphs in (True, False):
+        run = shared_prompt_run(torch, mt, ck, dev_params, traffic,
+                                "19c", _graphs=graphs)
+        st = run["st"]
+        outs[graphs] = run["outs"]
+        out["graphed" if graphs else "eager"] = {
+            k: st[k] for k in ("ttft_hit_p50_ms", "ttft_miss_p50_ms",
+                               "ttft_p50_ms", "prefill_p50_ms",
+                               "step_p50_ms", "prefix_hits")}
+        out["graphed" if graphs else "eager"]["graphs"] = st["graphs"]
+        pfx = [k for k in st["compiles"] if "prefix_prefill" in k]
+        if graphs:
+            check(pfx and st["graphs"]["captures"]
+                  == st["graphs"]["executables"] == len(st["compiles"]),
+                  f"19c: graphs {st['graphs']}, compiles {st['compiles']}")
+            out["prefix_prefill_executables"] = len(pfx)
+        del run
+        torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(outs[True], outs[False])):
+        check(np.array_equal(a, b), f"19c stream {i}: graphed tokens differ "
+              f"from eager at {np.nonzero(a != b)[0][:5]}")
+    ctraffic = chunk_traffic()
+    couts = {}
+    for graphs in (True, False):
+        o, st, _, model, _ = chunk_run(
+            torch, mt, ck, dev_params, ctraffic, prefill_chunk=CHUNK,
+            prefill_buckets=CHUNK_BUCKETS, _graphs=graphs)
+        couts[graphs] = o
+        del model
+    for i, (a, b) in enumerate(zip(couts[True], couts[False])):
+        check(np.array_equal(a, b), f"19c chunked stream {i}: graphed "
+              f"tokens differ from eager")
+    out["streams_equal"] = len(outs[True]) + len(couts[True])
+    rng = np.random.RandomState(33)
+    V = GPT2_SMALL["vocab_size"]
+    for graphs in (True, False):
+        with mt.DecodeEngine(dev_params, **GPT2_SMALL, ctx=mt.gpu(0),
+                             kv_block=KVB, max_streams=16, seed=0,
+                             _graphs=graphs) as eng:
+            eng.generate(prefix, 1)  # the system prompt, cached
+            probes = iter([np.concatenate([prefix, rng.randint(
+                1, V, size=200)]).astype(np.int32) for _ in range(
+                    INFER_PROBES + 12)])
+            host = []
+            for _ in range(INFER_PROBES):
+                t = time.perf_counter()
+                eng.generate(next(probes), 1)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+            st = eng.stats()
+            out["graphed" if graphs else "eager"]["suffix_200_over_512"] = {
+                "host_ms": float(np.median(host[2:])),
+                **step_device_ms(torch, lambda: eng.generate(next(probes),
+                                                             1), reps=3)}
+            check(st["prefix_hits"] >= INFER_PROBES,
+                  f"19c: the probes scored {st['prefix_hits']} hits")
+    return out
+
+
+def resnet_checkpoint(torch, mt, root):
+    """ResNet-50 bound as phase 10 binds it (batch 32, training), seeded
+    Xavier weights, saved by ``Module.save_checkpoint`` under ``root``:
+    the prefix."""
+    mod = image_bind(mt, resnet50(mt), mt.gpu(0), IMAGE["batch"])
+    mt.random.seed(0)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    prefix = os.path.join(root, "resnet50")
+    mod.save_checkpoint(prefix, 0)
+    del mod
+    torch.cuda.empty_cache()
+    return prefix
+
+
+def engine_traffic(eng, requests, clients):
+    """``requests`` (input dicts) submitted by ``clients`` closed-loop
+    threads, request i by thread i % clients: (outputs by request, wall
+    s)."""
+    got = [None] * len(requests)
+
+    def client(c):
+        for i in range(c, len(requests), clients):
+            got[i] = eng.submit(requests[i]).result(timeout=600)[0]
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "19: a client hung")
+    return got, time.perf_counter() - t0
+
+
+def engine_record(st, wall, images):
+    return {"images_per_s": images / wall, "wall_s": wall,
+            "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+            "batch_fill_ratio": st["batch_fill_ratio"],
+            "batches": st["batches"],
+            "flushes": {r: st[f"flush_{r}"] for r in ("full", "timeout",
+                                                      "boundary")},
+            "compiles": st["compiles"], "graphs": st["graphs"]}
+
+
+def infer_resnet(torch, mt, ck, root):
+    """(d): ``InferenceEngine`` on ResNet-50 (fp32, TF32 off) from
+    ``Predictor.from_checkpoint`` of the files ``resnet_checkpoint``
+    wrote, buckets ``INFER_BUCKETS``, prewarmed: ``INFER_CLIENTS``
+    threads submit ``INFER_REQUESTS`` requests of 1-4 seeded images;
+    every row against ``Module.predict`` on the same images within
+    ``INFER_TOL``; each bucket's executable graphed against
+    ``_graphs=False`` on the same padded batch, bit for bit; one capture
+    a bucket."""
+    prefix = resnet_checkpoint(torch, mt, root)
+    shape = IMAGE["image_shape"]
+    rng = np.random.RandomState(19)
+    sizes = rng.randint(1, 5, size=INFER_REQUESTS)
+    images = rng.rand(int(sizes.sum()), *shape).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    reqs = [{"data": images[a:b], "softmax_label": np.zeros(b - a,
+                                                            np.float32)}
+            for a, b in zip(offs[:-1], offs[1:])]
+    pred = mt.Predictor.from_checkpoint(
+        prefix, 0, {"data": (1,) + shape, "softmax_label": (1,)},
+        ctx=mt.gpu(0))
+    recs, same = {}, None
+    for graphs in (True, False):
+        with mt.InferenceEngine(pred, buckets=INFER_BUCKETS, prewarm=True,
+                                _graphs=graphs) as eng:
+            eng.submit(reqs[0]).result(timeout=600)  # the threads' warm-up
+            eng._metrics.reset()
+            got, wall = engine_traffic(eng, reqs, INFER_CLIENTS)
+            st = eng.stats()
+            recs["graphed" if graphs else "eager"] = engine_record(
+                st, wall, len(images))
+            bucket_rows = []
+            for b in INFER_BUCKETS:
+                exe = eng._bucket_exe(b)
+                exe.feed(data=images[:b], softmax_label=np.zeros(
+                    b, np.float32))
+                bucket_rows.append(exe.run()[0].clone())
+            if graphs:
+                check(st["graphs"]["captures"] == st["graphs"]["executables"]
+                      == len(INFER_BUCKETS) and set(st["compiles"]
+                                                    .values()) == {1},
+                      f"19d: {st['graphs']}, compiles {st['compiles']}")
+                same, served = bucket_rows, got
+            else:
+                check(all(torch.equal(a, b) for a, b in zip(same,
+                                                            bucket_rows)),
+                      "19d: a graphed bucket differs from the eager one")
+    mod = image_bind(mt, resnet50(mt), mt.gpu(0), IMAGE["batch"],
+                     for_training=False)
+    _, arg, aux = mt.model.load_checkpoint(prefix, 0)
+    mod.set_params(arg, aux)
+    it = mt.io.NDArrayIter(images, np.zeros(len(images), np.float32),
+                           batch_size=IMAGE["batch"])
+    want = mod.predict(it).asnumpy()
+    err = max(float(np.abs(g - want[a:b]).max())
+              for g, a, b in zip(served, offs[:-1], offs[1:]))
+    ok = all(np.allclose(g, want[a:b], **INFER_TOL)
+             for g, a, b in zip(served, offs[:-1], offs[1:]))
+    check(ok, f"19d: the engine's rows are {err} from Module.predict's")
+    del mod, pred
+    torch.cuda.empty_cache()
+    return {"requests": INFER_REQUESTS, "images": len(images),
+            "max_abs_err_vs_predict": err, **recs}
+
+
+def infer_lm(torch, mt, ck, dev_params):
+    """(e): ``InferenceEngine`` on the packed ``transformer_lm`` at the
+    GPT-2-class width scoring T = 128 sequences (buckets
+    ``INFER_LM_BUCKETS``, prewarmed, 4 client threads of 1-2 seeded
+    sequences): a ``TracedLaunches`` region whose replays must launch B1
+    12 times a batch; the rows against ``Module.predict`` within
+    ``INFER_LM_TOL``."""
+    cfg = GPT2_SMALL
+    L, T, V = cfg["num_layers"], INFER_LM_T, cfg["vocab_size"]
+    sym = mt.models.transformer_lm(V, T, num_layers=L, num_heads=H,
+                                   d_model=cfg["d_model"], d_ff=cfg["d_ff"])
+    params = {k: (v[:T] if k == "pos_embed_weight" else v)
+              for k, v in dev_params.items()}
+    pred = mt.Predictor(sym, params, {"data": (1, T),
+                                      "softmax_label": (1, T)},
+                        ctx=mt.gpu(0))
+    rng = np.random.RandomState(20)
+    sizes = rng.randint(1, 3, size=INFER_LM_REQUESTS)
+    seqs = rng.randint(1, V, size=(int(sizes.sum()), T)).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    reqs = [{"data": seqs[a:b], "softmax_label": np.zeros((b - a, T),
+                                                          np.float32)}
+            for a, b in zip(offs[:-1], offs[1:])]
+    with mt.InferenceEngine(pred, buckets=INFER_LM_BUCKETS,
+                            prewarm=True) as eng:
+        eng.submit(reqs[0]).result(timeout=600)
+        eng._metrics.reset()
+        with TracedLaunches(torch, ck, "19e LM engine") as tr:
+            got, wall = engine_traffic(eng, reqs, 4)
+        st = eng.stats()
+    check(tr.launches["flash_mha_packed"] == L * st["batches"] > 0,
+          f"19e: B1 launched {tr.launches['flash_mha_packed']} times for "
+          f"{st['batches']} batches")
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (max(INFER_LM_BUCKETS), T))],
+             label_shapes=[("softmax_label", (max(INFER_LM_BUCKETS), T))],
+             for_training=False)
+    mod.set_params({k: mt.nd.NDArray(v, mt.gpu(0)) for k, v in
+                    params.items()}, {})
+    it = mt.io.NDArrayIter(seqs, np.zeros((len(seqs), T), np.float32),
+                           batch_size=max(INFER_LM_BUCKETS))
+    want = mod.predict(it).asnumpy()
+    pairs = [(g, want[a:b]) for g, a, b in zip(got, offs[:-1], offs[1:])]
+    err = max(float(np.abs(g - w).max()) for g, w in pairs)
+    rel = max(float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())
+              for g, w in pairs)
+    check(all(np.allclose(g, w, **INFER_LM_TOL) for g, w in pairs),
+          f"19e: the engine's rows are {err} ({rel} relative) from "
+          f"Module.predict's (tolerance {INFER_LM_TOL})")
+    del mod, pred
+    torch.cuda.empty_cache()
+    return {"requests": len(reqs), "sequences": len(seqs),
+            "max_abs_err_vs_predict": err,
+            "max_rel_err_vs_predict": rel, "tol": INFER_LM_TOL,
+            "launches": tr.launches,
+            **engine_record(st, wall, len(seqs))}
+
+
+def infer_path(torch, mt, ck, tatt, F):
+    """Phase 19 (``--infer``): (a) B8's per-row key limit against its
+    plain version (``limit_checks``: fp32, bf16, fp16; the suffix shapes,
+    a decode row, the edges); (b) the serving symbols over fp32 and int8
+    pools (``infer_symbols``); (c) the suffix prefill as graphed
+    executables (``infer_suffix_graphs``); (d) ``InferenceEngine`` on
+    ResNet-50 (``infer_resnet``) and (e) on the packed LM
+    (``infer_lm``).  The launch counts are reset just before each part
+    and read just after.  An ``infer_summary`` line."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    wall = {}
+    t0 = time.perf_counter()
+    kernels = limit_checks(torch, ck, tatt, F)
+    for c in kernels:
+        print(json.dumps({"check": c}))
+    wall["limit_checks"] = time.perf_counter() - t0
+    dev_params = mt.params_from_numpy(gpt2_small_params(0), "cuda")
+    counts = Launches(torch, ck)
+    parts = {}
+    t0 = time.perf_counter()
+    for kv in ("fp32", "int8"):
+        ck.reset_launch_counts()
+        parts[f"symbols_{kv}"] = infer_symbols(torch, mt, ck, dev_params, kv)
+        counts.add(parts[f"symbols_{kv}"]["launches"])
+    from mxnet_tpu_torch.ops import registry
+
+    unrun = serving_ops(registry) - {
+        n for kv in ("fp32", "int8") for n in parts[f"symbols_{kv}"]["ops"]}
+    check(not unrun, f"19b: serving ops no symbol ran: {sorted(unrun)}")
+    wall["symbols"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    parts["suffix_graphs"] = infer_suffix_graphs(torch, mt, ck, dev_params)
+    counts.add(dict(ck.LAUNCHES))
+    wall["suffix_graphs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    root = tempfile.mkdtemp()
+    try:
+        parts["resnet50_engine"] = infer_resnet(torch, mt, ck, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts.add(dict(ck.LAUNCHES))
+    wall["resnet50_engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    parts["lm_engine"] = infer_lm(torch, mt, ck, dev_params)
+    counts.add(parts["lm_engine"]["launches"])
+    wall["lm_engine"] = time.perf_counter() - t0
+    del dev_params
+    torch.cuda.empty_cache()
+    summary = {**parts, "part_wall_s": wall,
+               "wall_s": time.perf_counter() - t_start, "card": card_line()}
+    print(json.dumps({"infer_summary": summary}))
+    return {"parts": parts, "kernels": kernels, "launches": counts.total,
+            "summary": summary}
 
 
 def decode_timing(root):
@@ -9214,7 +9886,7 @@ def paths_timing(root, mode="paths"):
     ``--core ROOT`` phase 15 alone (B1 built first), ``--prefix ROOT``
     phase 16 alone and ``--tenancy ROOT`` phase 17 alone (B1, B8 and
     the paged kernels built first), ``--graphs ROOT`` phase 18 alone
-    (the same built first).
+    and ``--infer ROOT`` phase 19 alone (the same built first).
     Run parent, change, change, parent in one call to compare two
     versions on one card."""
     import torch
@@ -9304,6 +9976,16 @@ def paths_timing(root, mode="paths"):
                       "paged_attention_verify"])
         rec = graphs_path(torch, mt, ck)
         print(json.dumps({"paths_timing": {"root": root, "graphs_path": {
+            "launches": rec["launches"]}}}))
+        print(card_line())
+        return 0
+    if mode == "infer":
+        _build.build(["flash_mha_packed", "flash_attention_partial",
+                      "paged_attention_decode",
+                      "paged_attention_decode_quant",
+                      "paged_attention_verify"])
+        rec = infer_path(torch, mt, ck, tatt, F)
+        print(json.dumps({"paths_timing": {"root": root, "infer_path": {
             "launches": rec["launches"]}}}))
         print(card_line())
         return 0
@@ -9669,6 +10351,9 @@ def main():
     torch.cuda.empty_cache()
     graphs = graphs_path(torch, mt, ck)
     mark("graphs")
+    torch.cuda.empty_cache()
+    infer = infer_path(torch, mt, ck, tatt, F)
+    mark("infer")
     print(json.dumps({"phase_walls": marks}))
 
     # the fp32 check at each kernel's largest main-path shape stands for
@@ -9740,7 +10425,7 @@ def main():
                 partial + "_bwd.cu", "mxnet_tpu/ops/pallas_kernels.py:470",
                 hop, "float32")}
     all_runs = earlier + [sequence, image, cnn, ckpt, bf16, ops, core,
-                          prefix, tenancy, graphs]
+                          prefix, tenancy, graphs, infer]
     kernels = []
     for name, (src, replaces, shape, dtype) in meta.items():
         c = next(c for c in checks if c["kernel"] == name
@@ -9792,7 +10477,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--paths"], ["--kernels"], ["--nms"],
                          ["--image"], ["--cnn"], ["--ckpt"], ["--bf16"],
                          ["--ops"], ["--core"], ["--prefix"],
-                         ["--tenancy"], ["--graphs"]):
+                         ["--tenancy"], ["--graphs"], ["--infer"]):
         sys.exit(paths_timing(sys.argv[2] if len(sys.argv) > 2 else ".",
                               mode=sys.argv[1][2:]))
     sys.exit(main())

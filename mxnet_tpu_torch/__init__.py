@@ -74,9 +74,12 @@ from . import operator, rtc
 from . import sequence
 from . import monitor
 from .monitor import Monitor
-from .serving import DecodeEngine, EngineClosedError
+from .serving import DecodeEngine, EngineClosedError, InferenceEngine
+from . import predictor
+from .predictor import Predictor
 
-__all__ = ["DecodeEngine", "EngineClosedError", "AdapterPool",
+__all__ = ["DecodeEngine", "EngineClosedError", "InferenceEngine",
+           "Predictor", "predictor", "AdapterPool",
            "TenantQuota", "QuotaExceededError", "adapters", "slo",
            "MXNetError", "Context",
            "cpu", "gpu", "current_context", "context", "config", "engine",

@@ -10,7 +10,10 @@
 // up to kMaxHeadDim, Tq and Tk free (tails masked, never padded).  Row i
 // sees key j when j <= lim_i = min(i - koff, Tk - 1) under the causal mask
 // (koff = position of k[0] - position of q[0], 64-bit arithmetic: any
-// int), and every key otherwise.  The epilogue (an Out policy) gets each
+// int), and every key otherwise; with a per-row key limit kv_len (B,)
+// int32 in device memory, row b's queries see no key j >= kv_len[b] on top
+// of that (B8's suffix prefill and contiguous-cache decode; null: none).
+// The epilogue (an Out policy) gets each
 // row's un-normalized o = sum_j p_ij v_j, its max m in the exp2 domain and
 // l = sum_j p_ij, with p_ij = exp2(s_ij - m_i); a row that sees no key
 // holds m = -inf, l = 0, o = 0 exactly.
@@ -95,11 +98,13 @@ int smem_of(int D) {
   return Cfg<T, 128>::SMEM;
 }
 
-// the problem every forward hands the body
+// the problem every forward hands the body; kv_len (B,) int32 on the
+// device, or null (B1 and B5 leave it null)
 struct Args {
   const void *q, *k, *v;
   Layout lq, lk, lv;
   int B, H, Tq, Tk, D, causal, koff;
+  const int* kv_len;
 };
 
 // the last key row i sees (-1: none)
@@ -184,13 +189,16 @@ __device__ __forceinline__ void attend(const Args& a, float scale_log2,
   const int q0 = qt * BQ;
   const int warp = threadIdx.x >> 5;
   const int g = tc::lane_id() >> 2, t = tc::lane_id() & 3;
-  const int Tq = a.Tq, Tk = a.Tk, D = a.D;
+  const int Tq = a.Tq, D = a.D;
+  // the batch row's key limit, read once: keys at or past it are neither
+  // loaded nor seen by any row of the block (0: the empty state)
+  const int Tk = a.kv_len ? max(0, min(a.Tk, __ldg(a.kv_len + b))) : a.Tk;
   const T* qb = static_cast<const T*>(a.q) + b * a.lq.b + h * a.lq.h;
   const T* kb = static_cast<const T*>(a.k) + b * a.lk.b + h * a.lk.h;
   const T* vb = static_cast<const T*>(a.v) + b * a.lv.b + h * a.lv.h;
 
   // no row of the block sees a key at or past its last valid row's
-  // limit + 1
+  // limit + 1 (the min of the causal limit and the row's kv_len)
   const int k_end = key_limit(min(q0 + BQ, Tq) - 1, a.koff, Tk, a.causal) + 1;
   const int nk = (k_end + BN - 1) / BN;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8

@@ -7,12 +7,15 @@
 // ulysses_attention).  Same function: q (B, Tq, H, D), k and v (B, Tk, H, D),
 // any head width D up to kMaxHeadDim, Tq and Tk free (tails masked, never
 // padded), and a key offset koff = (absolute position of k[0]) - (absolute
-// position of q[0]) →
+// position of q[0]), and an optional per-row key limit kv_len (B,) int32
+// in device memory (key j is seen by row b's queries only if j <
+// kv_len[b], on top of the causal mask: JAX's lengths= mask) →
 //   o (B, H, Tq, D) float32, UN-normalized: sum_j p_ij v_j,
 //   m (B, H, Tq) float32, the row max of the scaled scores (natural units),
 //   l (B, H, Tq) float32, sum_j p_ij,
 // with p_ij = exp(q_i.k_j/sqrt(D) - m_i) over the visible keys: all of them,
-// or under the causal mask those with j + koff <= i.  A row that sees no key
+// or under the causal mask those with j + koff <= i, and below kv_len[b]
+// when given.  A row that sees no key
 // comes out as m = -inf, l = 0, o = 0 exactly (the ring's merge tests
 // isfinite(m)).  The outputs are float32 for bf16 and fp16 inputs too.
 //
@@ -35,8 +38,11 @@
 // forward of B1 and B5, with the key offset in its mask (row i sees key j
 // when j <= min(i - koff, Tk - 1), 64-bit) and the Partial epilogue.  A
 // causal block loads key tiles up to its last valid row's limit only, and
-// one that sees no key at all (a positive koff past its rows) loads
-// nothing and writes the empty state.
+// one that sees no key at all (a positive koff past its rows, or kv_len[b]
+// = 0) loads nothing and writes the empty state.  kv_len is read from
+// device memory by each block (once), so a launch with the suffix
+// prefill's start or a decode's lengths on the device records into a
+// CUDA graph; a null kv_len is the unlimited kernel of before.
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "attention_fwd.cuh"
@@ -66,18 +72,19 @@ cudaError_t launch(const fwd::Args& a, const fwd::Partial& out,
 
 // strides: 9 element strides, (batch, head, row) of q, k and v in that
 // order.  dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k and v share
-// it); o
-// (B, H, Tq, D), m and l (B, H, Tq) are float32 and contiguous.
+// it); o (B, H, Tq, D), m and l (B, H, Tq) are float32 and contiguous.
+// kv_len: (B,) int32 on the device, or null.
 extern "C" int flash_attention_partial_fwd(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
     const long long* strides, int B, int H, int Tq, int Tk, int D,
-    int causal, int kv_offset, int dtype, void* stream) {
+    int causal, int kv_offset, const void* kv_len, int dtype,
+    void* stream) {
   tc::Layout ls[3];
   for (int i = 0; i < 3; ++i)
     ls[i] = tc::Layout{strides[3 * i], strides[3 * i + 1],
                        strides[3 * i + 2]};
   const fwd::Args a{q, k, v, ls[0], ls[1], ls[2], B, H, Tq, Tk, D, causal,
-                    kv_offset};
+                    kv_offset, static_cast<const int*>(kv_len)};
   if (fwd::bad_args(a)) return (int)cudaErrorInvalidValue;
   const fwd::Partial out{static_cast<float*>(o), static_cast<float*>(m),
                          static_cast<float*>(l), H, Tq};

@@ -69,7 +69,8 @@ extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v,
   for (int i = 0; i < 4; ++i)
     ls[i] = tc::Layout{strides[3 * i], strides[3 * i + 1],
                        strides[3 * i + 2]};
-  const fwd::Args a{q, k, v, ls[0], ls[1], ls[2], B, H, Tq, Tk, D, causal, 0};
+  const fwd::Args a{q, k, v, ls[0], ls[1], ls[2], B, H, Tq, Tk, D, causal, 0,
+                    nullptr};
   if (fwd::bad_args(a)) return (int)cudaErrorInvalidValue;
   const tc::Layout ll{(long long)H * Tq, Tq, 1};
   float* l = static_cast<float*>(lse);

@@ -58,7 +58,7 @@ int run(const void* qkv, void* o, void* lse, int B, int T_, int H, int D,
   const tc::Layout lqkv{T_ * rs, D, rs};  // q, k, v: thirds of each token
   const T* q = static_cast<const T*>(qkv);
   const fwd::Args a{q, q + HD, q + 2 * HD, lqkv, lqkv, lqkv, B, H, T_, T_,
-                    D, causal, 0};
+                    D, causal, 0, nullptr};
   if (fwd::bad_args(a)) return (int)cudaErrorInvalidValue;
   const fwd::Normalized<T> out{static_cast<T*>(o), static_cast<float*>(lse),
                                tc::Layout{T_ * HD, D, HD},

@@ -4,9 +4,11 @@ and the serving forms.
 Counterpart of ``mxnet_tpu/models/transformer.py``.  ``transformer_lm``
 (``:49-147``) is the training symbol, built from the port's registered
 ops with the JAX package's parameter names, for ``Module``.  The JAX
-package builds its serving graphs as symbols too (``_decode_block``,
-``_lm_trunk``, ``transformer_lm_prefill``/``_decode``); here they are
-fixed chains of the port's ops on one ``nn.Module``:
+package's serving symbols (``_decode_block``, ``_lm_trunk``,
+``transformer_lm_prefill`` / ``_prefix_prefill`` / ``_verify`` /
+``_decode``) are here too, over the port's serving ops, for users who
+bind them (``simple_bind``, ``Predictor``); ``DecodeEngine`` runs the
+same chains of ops on one ``nn.Module``, ``TransformerLM``:
 
 * ``prefill`` — the causal forward over a (padded) prompt that also
   writes every layer's K/V into the paged pools;
@@ -45,7 +47,9 @@ from ..ops.indexing import embedding, take
 from ..ops.nn import fully_connected, gelu, layer_norm
 
 __all__ = ["TransformerLM", "param_names", "transformer_lm",
-           "logical_axes"]
+           "logical_axes", "kv_pool_var", "kv_scale_var",
+           "transformer_lm_prefill", "transformer_lm_prefix_prefill",
+           "transformer_lm_verify", "transformer_lm_decode"]
 
 _QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
@@ -161,6 +165,232 @@ def transformer_lm(vocab_size, seq_len, num_layers=4, num_heads=4,
     return sym.SoftmaxOutput(logits, label, preserve_shape=True,
                              ignore_label=0, use_ignore=True,
                              name="softmax")
+
+
+# ---------------------------------------------------------------------------
+# The serving symbols (``mxnet_tpu/models/transformer.py:171-454``): the
+# same argument names, outputs and attributes as the JAX package's, so a
+# trained checkpoint binds to them without renaming and either package's
+# JSON loads in the other.  They take ``positions`` (B, S) as an input,
+# so one symbol serves every (batch, length) bucket.  The pools are
+# written in place by the serving ops, which return them as the cache
+# outputs.
+# ---------------------------------------------------------------------------
+
+
+def _decode_block(x, d_model, num_heads, d_ff, name, kv_block, attend,
+                  lora=(), layer=0):
+    """One pre-LN block with the attention sublayer replaced by
+    ``attend(qkv) -> (att_out, cache_outs)``; ``lora`` (rank buckets)
+    chains one ``LoraGatherDelta`` epilogue a bucket on the fused QKV
+    projection (slot 0 is the base bits; an empty tuple builds the
+    pre-adapter graph)."""
+    h = sym.LayerNorm(x, name=f"{name}_ln1")
+    qkv = sym.FullyConnected(
+        h, num_hidden=3 * d_model, flatten=False, name=f"{name}_qkv",
+        weight=sym.Variable(f"{name}_qkv_weight",
+                            attr=logical_axes("qkv", "embed")),
+        bias=sym.Variable(f"{name}_qkv_bias", attr=logical_axes("qkv")))
+    for rb in (lora or ()):
+        qkv = sym.LoraGatherDelta(
+            qkv, h, sym.Variable(f"adapter_a_r{rb}"),
+            sym.Variable(f"adapter_b_r{rb}"),
+            sym.Variable(f"adapter_slots_r{rb}"),
+            layer=layer, name=f"{name}_lora_r{rb}")
+    a, cache_outs = attend(qkv)
+    a = sym.FullyConnected(
+        a, num_hidden=d_model, flatten=False, name=f"{name}_proj",
+        weight=sym.Variable(f"{name}_proj_weight",
+                            attr=logical_axes("embed", "heads")),
+        bias=sym.Variable(f"{name}_proj_bias", attr=logical_axes("embed")))
+    x = x + a
+    h = sym.LayerNorm(x, name=f"{name}_ln2")
+    h = sym.FullyConnected(
+        h, num_hidden=d_ff, flatten=False, name=f"{name}_ff1",
+        weight=sym.Variable(f"{name}_ff1_weight",
+                            attr=logical_axes("ffn", "embed")),
+        bias=sym.Variable(f"{name}_ff1_bias", attr=logical_axes("ffn")))
+    h = sym.Activation(h, act_type="gelu", name=f"{name}_gelu")
+    h = sym.FullyConnected(
+        h, num_hidden=d_model, flatten=False, name=f"{name}_ff2",
+        weight=sym.Variable(f"{name}_ff2_weight",
+                            attr=logical_axes("embed", "ffn")),
+        bias=sym.Variable(f"{name}_ff2_bias", attr=logical_axes("embed")))
+    return x + h, cache_outs
+
+
+def kv_pool_var(name: str):
+    """A KV value-pool Variable (P, KVB, H, D), 'heads' its logical
+    shard axis."""
+    return sym.Variable(name, attr=logical_axes(None, None, "heads", None))
+
+
+def kv_scale_var(name: str):
+    """A quantized pool's (P, KVB, H) float32 scale Variable."""
+    return sym.Variable(name, attr=logical_axes(None, None, "heads"))
+
+
+def _lm_trunk(num_layers, num_heads, d_model, d_ff, kv_block, attend_for,
+              vocab_size, lora=None):
+    """Embedding → blocks → ln_f → head logits, layer i's attention from
+    ``attend_for(i)``; outputs ``[logits] + caches``."""
+    d_ff = d_ff or 4 * d_model
+    data = sym.Variable("data")
+    positions = sym.Variable("positions")
+    x = sym.Embedding(data, input_dim=vocab_size, output_dim=d_model,
+                      name="tok_embed",
+                      weight=sym.Variable(
+                          "tok_embed_weight",
+                          attr=logical_axes("vocab", "embed")))
+    pos = sym.Variable("pos_embed_weight",
+                       attr=logical_axes("length", "embed"))
+    x = x + sym.take(pos, positions, name="pos_lookup")
+    caches = []
+    for i in range(num_layers):
+        x, cache_outs = _decode_block(x, d_model, num_heads, d_ff,
+                                      f"layer{i}", kv_block, attend_for(i),
+                                      lora=lora, layer=i)
+        caches.extend(cache_outs)
+    x = sym.LayerNorm(x, name="ln_f")
+    logits = sym.FullyConnected(
+        x, num_hidden=vocab_size, flatten=False, name="head",
+        weight=sym.Variable("head_weight",
+                            attr=logical_axes("vocab", "embed")),
+        bias=sym.Variable("head_bias", attr=logical_axes("vocab")))
+    return sym.Group([logits] + caches)
+
+
+def _kv_quant(kv_dtype) -> bool:
+    from ..kv_cache import KV_DTYPES, kv_quantized
+
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
+    return kv_quantized(kv_dtype)
+
+
+def _pool_vars(i, quant):
+    """Layer i's pool Variables: [k, v] or [k, v, k_scale, v_scale]."""
+    out = [kv_pool_var(f"layer{i}_kpool"), kv_pool_var(f"layer{i}_vpool")]
+    if quant:
+        out += [kv_scale_var(f"layer{i}_kscale"),
+                kv_scale_var(f"layer{i}_vscale")]
+    return out
+
+
+def transformer_lm_prefill(vocab_size, num_layers=4, num_heads=4,
+                           d_model=128, d_ff=None, kv_block=16,
+                           paged=True, kv_dtype="fp32", lora=None):
+    """Prefill symbol: the causal forward over a (padded) prompt that
+    also writes each layer's K/V into the cache.  Inputs ``data`` /
+    ``positions`` (B, T), ``lengths`` (B,), and, paged, ``block_table``
+    (B, MB) and the per-layer pools (``layer{i}_kpool`` / ``_vpool``,
+    with ``_kscale`` / ``_vscale`` for int8/fp8).  Outputs ``[logits
+    (B, T, vocab)] + caches`` (unpaged: each layer's (B, T, H, D) key
+    and value).  Attention at ``block_size = kv_block``."""
+    lengths = sym.Variable("lengths")
+    quant = _kv_quant(kv_dtype)
+
+    def attend_for(i):
+        def attend(qkv):
+            a = sym.QKVSelfAttentionPrefill(
+                qkv, num_heads=num_heads, block_size=kv_block,
+                name=f"layer{i}_attn")
+            out, k, v = a[0], a[1], a[2]
+            if not paged:
+                return out, [k, v]
+            pools = _pool_vars(i, quant)
+            op = sym.PagedCacheWriteQ if quant else sym.PagedCacheWrite
+            w = op(k, v, *pools, sym.Variable("block_table"), lengths,
+                   name=f"layer{i}_cache_write")
+            return out, [w[j] for j in range(len(pools))]
+        return attend
+
+    return _lm_trunk(num_layers, num_heads, d_model, d_ff, kv_block,
+                     attend_for, vocab_size, lora=lora)
+
+
+def _window_symbol(op, op_q, vocab_size, num_layers, num_heads, d_model,
+                   d_ff, kv_block, kv_dtype, lora):
+    """The trunk over a window op taking ``start`` and ``lengths`` (the
+    suffix prefill's and the verify step's)."""
+    lengths = sym.Variable("lengths")
+    start = sym.Variable("start")
+    quant = _kv_quant(kv_dtype)
+
+    def attend_for(i):
+        def attend(qkv):
+            pools = _pool_vars(i, quant)
+            a = (op_q if quant else op)(
+                qkv, *pools, sym.Variable("block_table"), start, lengths,
+                num_heads=num_heads, name=f"layer{i}_attn")
+            return a[0], [a[j + 1] for j in range(len(pools))]
+        return attend
+
+    return _lm_trunk(num_layers, num_heads, d_model, d_ff, kv_block,
+                     attend_for, vocab_size, lora=lora)
+
+
+def transformer_lm_prefix_prefill(vocab_size, num_layers=4, num_heads=4,
+                                  d_model=128, d_ff=None, kv_block=16,
+                                  kv_dtype="fp32", lora=None):
+    """Suffix-prefill symbol for a prefix-cache hit or a chunk: the
+    forward over the uncached suffix only.  Inputs ``data`` /
+    ``positions`` (B, Ts) at positions ``start[b] + i``, ``start`` (B,)
+    cached (block-aligned) tokens, ``lengths`` (B,) total tokens,
+    ``block_table`` (B, MB) covering prefix and suffix pages, the
+    per-layer pools.  Outputs ``[suffix logits (B, Ts, vocab)] +
+    caches``."""
+    return _window_symbol(sym.QKVPagedPrefillAttend,
+                          sym.QKVPagedPrefillAttendQ, vocab_size,
+                          num_layers, num_heads, d_model, d_ff, kv_block,
+                          kv_dtype, lora)
+
+
+def transformer_lm_verify(vocab_size, num_layers=4, num_heads=4,
+                          d_model=128, d_ff=None, kv_block=16,
+                          kv_dtype="fp32", lora=None):
+    """Speculative-verify symbol: W = 1 + k tokens a stream at positions
+    ``start[b] + i`` against the paged cache.  Inputs ``data`` /
+    ``positions`` (B, W), ``start`` (B,), ``lengths`` (B,) (``start`` +
+    live window rows), ``block_table``, the per-layer pools.  Outputs
+    ``[logits (B, W, vocab)] + caches``; row i equals the decode step at
+    length ``start + 1 + i`` over the same cache bytes."""
+    return _window_symbol(sym.QKVPagedVerifyAttend,
+                          sym.QKVPagedVerifyAttendQ, vocab_size, num_layers,
+                          num_heads, d_model, d_ff, kv_block, kv_dtype,
+                          lora)
+
+
+def transformer_lm_decode(vocab_size, num_layers=4, num_heads=4,
+                          d_model=128, d_ff=None, kv_block=16,
+                          paged=True, kv_dtype="fp32", lora=None):
+    """Decode symbol: one token a stream against the KV cache.  Inputs
+    ``data`` / ``positions`` (B, 1), ``lengths`` (B,) counting the
+    current token, and, paged, ``block_table`` and the per-layer pools,
+    or, contiguous, ``layer{i}_kcache`` / ``_vcache`` (B, C, H, D).
+    Outputs ``[logits (B, 1, vocab)] + caches``."""
+    lengths = sym.Variable("lengths")
+    quant = _kv_quant(kv_dtype)
+
+    def attend_for(i):
+        def attend(qkv):
+            if paged:
+                pools = _pool_vars(i, quant)
+                op = sym.QKVPagedAttentionDecodeQ if quant \
+                    else sym.QKVPagedAttentionDecode
+                a = op(qkv, *pools, sym.Variable("block_table"), lengths,
+                       num_heads=num_heads, name=f"layer{i}_attn")
+                return a[0], [a[j + 1] for j in range(len(pools))]
+            a = sym.QKVSelfAttentionDecode(
+                qkv, sym.Variable(f"layer{i}_kcache"),
+                sym.Variable(f"layer{i}_vcache"), lengths,
+                num_heads=num_heads, block_size=kv_block,
+                name=f"layer{i}_attn")
+            return a[0], [a[1], a[2]]
+        return attend
+
+    return _lm_trunk(num_layers, num_heads, d_model, d_ff, kv_block,
+                     attend_for, vocab_size, lora=lora)
 
 
 class TransformerLM(nn.Module):
@@ -291,18 +521,20 @@ class TransformerLM(nn.Module):
         return self._trunk(data, positions, attend, adapter)
 
     @torch.no_grad()
-    def suffix_prefill(self, data, positions, start: int, lengths,
+    def suffix_prefill(self, data, positions, start, lengths,
                        block_table, pools: Sequence[torch.Tensor],
                        adapter=()) -> torch.Tensor:
         """The counterpart of ``transformer_lm_prefix_prefill``:
         data/positions (B, Ts) int hold the uncached suffix at positions
-        ``start + i``; ``start`` (an int, block-aligned) the tokens every
-        row has cached; lengths (B,) int32 the total tokens (start + the
-        real suffix); block_table (B, MB) int32 covering the prefix and
-        suffix pages → logits (B, Ts, vocab) of the suffix rows.  Every
-        layer writes the suffix's K/V into its pools (quantized pools
-        quantize on write), then attends the cached prefix and the raw
-        suffix on the ``flash_attention_partial`` kernel."""
+        ``start[b] + i``; ``start`` (B,) int32 (or an int for every row,
+        block-aligned) the tokens each row has cached; lengths (B,) int32
+        the total tokens (start + the real suffix); block_table (B, MB)
+        int32 covering the prefix and suffix pages → logits (B, Ts,
+        vocab) of the suffix rows.  Every layer writes the suffix's K/V
+        into its pools (quantized pools quantize on write), then attends
+        the table's pages under the key limit ``start`` and the raw
+        suffix, two launches of the ``flash_attention_partial`` kernel
+        (``ops.attention.prefix_suffix_attention``)."""
         st = self._check_pools(pools)
 
         def attend(i, qkv):

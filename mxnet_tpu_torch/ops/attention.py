@@ -1,10 +1,10 @@
 """Attention ops of the serving and training paths: packed-QKV self
 attention (differentiable), ``DotProductAttention`` over separate q, k,
 v (differentiable), prefill, paged cache writes (raw and
-quantize-on-write), paged decode, the speculative verify window and the
+quantize-on-write), paged decode, the speculative verify window, the
 suffix prefill over cached prefix pages (a prefix-cache hit or one
 chunk of a chunked prefill, on the ``flash_attention_partial``
-kernel).
+kernel), and the JAX package's ten serving operators over them.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  Layouts are the JAX
 package's: qkv (B, S, 3*H*D) packed [q | k | v], q/k/v (B, T, H, D)
@@ -54,13 +54,15 @@ __all__ = ["blockwise_attention", "blockwise_attention_partial",
            "paged_cache_update_q", "paged_decode_attention_q",
            "qkv_paged_attention_decode_q", "paged_verify_attention",
            "qkv_paged_verify_attend", "prefix_suffix_attention",
-           "qkv_paged_prefill_attend", "qkv_paged_prefill_attend_q"]
+           "qkv_paged_prefill_attend", "qkv_paged_prefill_attend_q",
+           "cache_update", "qkv_self_attention_decode"]
 
 
 def _blockwise_attention_partial_plain(q, k, v, causal: bool = False,
                                        block_size: int = 512,
                                        kv_offset: int = 0,
-                                       lengths: Optional[torch.Tensor] = None):
+                                       lengths: Optional[torch.Tensor] = None,
+                                       kv_len: Optional[torch.Tensor] = None):
     """Online-softmax attention over K/V blocks, un-normalized state: the
     plain body of every attention kernel (the counterpart of the JAX
     package's ``_blockwise_attention_partial_lax``).  It launches nothing,
@@ -72,8 +74,10 @@ def _blockwise_attention_partial_plain(q, k, v, causal: bool = False,
     is visible to row i when ``j + kv_offset <= i``.  ``lengths`` (B,)
     replaces the causal mask with the per-stream visibility ``k_pos <
     lengths[b]`` (the decode contract: the single query sits at
-    ``lengths[b] - 1``).  A row with nothing visible keeps m = -inf,
-    l = 0, o = 0."""
+    ``lengths[b] - 1``).  ``kv_len`` (B,) hides keys ``k_pos >=
+    kv_len[b]`` on top of whichever mask applies (the kernel's per-row
+    key limit).  A row with nothing visible keeps m = -inf, l = 0,
+    o = 0."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -100,6 +104,9 @@ def _blockwise_attention_partial_plain(q, k, v, causal: bool = False,
         else:
             mask = torch.ones((1, 1, 1, hi - lo), dtype=torch.bool,
                               device=dev)
+        if kv_len is not None:
+            mask = mask & (k_pos[None, None, None, :]
+                           < kv_len.to(dev)[:, None, None, None])
         s = torch.where(mask, s, -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         # fully-masked rows (m_new = -inf) must not give exp(-inf + inf)
@@ -412,6 +419,7 @@ def _qkv_infer(attrs, in_shapes):
 
 
 @register("QKVSelfAttention", arg_names=("qkv",), infer_shape=_qkv_infer,
+          kernel=True,
           doc="Self-attention straight off the fused QKV projection: qkv "
               "(B, T, 3*H*D) packed [q|k|v] -> (B, T, H*D), on the "
               "flash_mha_packed kernels; attrs: num_heads, causal, "
@@ -478,6 +486,7 @@ def _attention_infer(attrs, in_shapes):
 
 @register("DotProductAttention", arg_names=("query", "key", "value"),
           infer_shape=_attention_infer, aliases=("MultiHeadAttention",),
+          kernel=True,
           doc="Fused blockwise multi-head attention: (B, T, H, D) "
               "q/k/v -> (B, T, H, D) on the flash_mha kernels; attrs: "
               "causal, block_size, layout ('BTHD' default | 'BHTD')")
@@ -592,22 +601,24 @@ def qkv_paged_verify_attend(qkv, pools, block_table, start, lengths,
 # ---------------------------------------------------------------------------
 
 
-def prefix_suffix_attention(q, k_suf, v_suf, kg, vg, start: int,
+def prefix_suffix_attention(q, k_suf, v_suf, kg, vg, start,
                             block: int) -> torch.Tensor:
     """Attention of a suffix prefill, through the
     ``flash_attention_partial`` kernel (its plain version on the CPU).
 
     q/k_suf/v_suf (B, Ts, H, D) are the uncached suffix at absolute
-    positions ``start + i``; kg/vg (B, start, H, D) the cached prefix
-    gathered from the pools (dequantized for int8/fp8 pages).  One call
-    over keys ``[prefix | raw suffix]`` with ``kv_offset = -start``: row
-    i sees every prefix key and the suffix keys j <= i, as the JAX
-    package's two chained scans of ``prefix_suffix_attention`` do (its
-    prefix scan masked to ``start``, then the causal suffix scan).
-    ``start`` is block-aligned, so the plain version's key blocks of
-    ``block`` tokens are the JAX scans' blocks.  The suffix attends its
-    own K/V raw, as the full forward would.  Returns (B, Ts, H, D) in
-    q's dtype."""
+    positions ``start[b] + i``; kg/vg (B, C, H, D) the table's pages
+    gathered from the pools (dequantized for int8/fp8 pages), whose first
+    ``start[b]`` slots hold the cached prefix (the rest is the suffix's
+    own pages and stale bytes).  ``start`` is a (B,) int32 tensor on q's
+    device.  The JAX package's two scans of ``prefix_suffix_attention``
+    as two B8 launches: the prefix, non-causal under the per-row key
+    limit ``kv_len = start`` (a row with ``start = 0`` gets the exact
+    empty state), and the raw suffix, causal at ``kv_offset = 0``; their
+    states merge (``attention_state_merge``) and normalize.  The suffix
+    attends its own K/V raw, as the full forward would.  ``block`` (the
+    page size) is the plain version's key block, the JAX scans' blocks.
+    Returns (B, Ts, H, D) in q's dtype."""
     dtype = q.dtype
     if kg.dtype != dtype:
         # dequantized (float32) prefix pages: the softmax runs in float32
@@ -615,46 +626,54 @@ def prefix_suffix_attention(q, k_suf, v_suf, kg, vg, start: int,
         wide = torch.promote_types(kg.dtype, dtype)
         q, k_suf, v_suf, kg, vg = (x.to(wide) for x in
                                    (q, k_suf, v_suf, kg, vg))
-    if start:
-        k, v = torch.cat([kg, k_suf], 1), torch.cat([vg, v_suf], 1)
-    else:
-        k, v = k_suf, v_suf
-    o, m, l = ck.flash_attention_partial(q, k, v, True, block, -int(start))
-    return normalize_attention_state(o, m, l, dtype)
+    pre = ck.flash_attention_partial(q, kg, vg, False, block, 0,
+                                     kv_len=start)
+    suf = ck.flash_attention_partial(q, k_suf, v_suf, True, block, 0)
+    return normalize_attention_state(*attention_state_merge(*pre, *suf),
+                                     dtype)
 
 
-def _check_suffix_start(start, KVB: int) -> int:
-    """``start`` (the tokens already cached, an int the engine knows on
-    the host) as a block-aligned non-negative int."""
+def _suffix_start(start, KVB: int, B: int, device) -> torch.Tensor:
+    """``start`` (the tokens already cached: a (B,) integer tensor, or an
+    int for every row, which must be a non-negative multiple of the page
+    size) as a (B,) int32 tensor on ``device``.  A tensor's values are
+    not read back to the host (they stay on the card, and a CUDA graph
+    replays them): the caller keeps them block-aligned, as the JAX op's
+    callers do."""
     if isinstance(start, torch.Tensor):
-        raise MXNetError("QKVPagedPrefillAttend: start must be a Python "
-                         "int (a kernel argument), not a tensor")
+        if start.shape != (B,):
+            raise MXNetError(f"QKVPagedPrefillAttend: start must be ({B},); "
+                             f"got {tuple(start.shape)}")
+        return start.to(device=device, dtype=torch.int32)
     start = int(start)
     if start < 0 or start % KVB:
         raise MXNetError(f"QKVPagedPrefillAttend: start {start} must be a "
                          f"non-negative multiple of the page size {KVB}")
-    return start
+    return torch.full((B,), start, dtype=torch.int32, device=device)
 
 
 def qkv_paged_prefill_attend(qkv, k_pool, v_pool, block_table, start,
                              lengths, num_heads: int) -> torch.Tensor:
-    """Suffix prefill over a paged cache whose first ``start`` tokens
-    (block-aligned, every row) are cached: qkv (B, Ts, 3*H*D) holds the
-    uncached suffix at positions ``start + i``.  Its K/V is written
+    """Suffix prefill over a paged cache whose first ``start[b]`` tokens
+    (block-aligned) of row b are cached: qkv (B, Ts, 3*H*D) holds the
+    uncached suffix at positions ``start[b] + i``.  Its K/V is written
     through the block table at offset ``start`` (rows at or past
     ``lengths[b]``, the total tokens, land on the scratch page 0), then
-    its queries attend the cached prefix pages plus the raw suffix
-    causally (:func:`prefix_suffix_attention`).  The pools are written in
-    place; returns (B, Ts, H*D)."""
+    its queries attend the table's pages (all MB of them, a fixed width,
+    masked to ``start``) plus the raw suffix causally
+    (:func:`prefix_suffix_attention`).  ``start`` is a (B,) int32
+    tensor, or an int for every row.  The pools are written in place;
+    returns (B, Ts, H*D)."""
     q, k, v, D = _unpack_qkv(qkv, num_heads)
+    B, Ts = qkv.shape[0], qkv.shape[1]
     KVB = k_pool.shape[1]
-    start = _check_suffix_start(start, KVB)
+    start = _suffix_start(start, KVB, B, qkv.device)
     paged_prefill_write(k, v, k_pool, v_pool, block_table, lengths,
                         start=start)
-    B, Ts = qkv.shape[0], qkv.shape[1]
-    idx = block_table[:, :start // KVB].long()
-    kg = ck.gather_pages(k_pool, idx).reshape(B, start, num_heads, D)
-    vg = ck.gather_pages(v_pool, idx).reshape(B, start, num_heads, D)
+    idx = block_table.long()
+    C = idx.shape[1] * KVB
+    kg = ck.gather_pages(k_pool, idx).reshape(B, C, num_heads, D)
+    vg = ck.gather_pages(v_pool, idx).reshape(B, C, num_heads, D)
     out = prefix_suffix_attention(q, k, v, kg.to(q.dtype), vg.to(q.dtype),
                                   start, KVB)
     return out.reshape(B, Ts, num_heads * D)
@@ -664,17 +683,321 @@ def qkv_paged_prefill_attend_q(qkv, k_pool, v_pool, k_scale, v_scale,
                                block_table, start, lengths,
                                num_heads: int) -> torch.Tensor:
     """:func:`qkv_paged_prefill_attend` over int8/fp8 pools: the suffix
-    quantizes on write, the cached prefix dequantizes on gather, and the
+    quantizes on write, the table's pages dequantize on gather, and the
     suffix attends its own K/V raw (pre-quantization), float32 softmax
     throughout.  Returns (B, Ts, H*D); the pools are written in place."""
     q, k, v, D = _unpack_qkv(qkv, num_heads)
+    B, Ts = qkv.shape[0], qkv.shape[1]
     KVB = k_pool.shape[1]
-    start = _check_suffix_start(start, KVB)
+    start = _suffix_start(start, KVB, B, qkv.device)
     paged_prefill_write_q(k, v, k_pool, v_pool, k_scale, v_scale,
                           block_table, lengths, start=start)
-    B, Ts = qkv.shape[0], qkv.shape[1]
-    idx = block_table[:, :start // KVB].long()
+    idx = block_table.long()
     kg = ck.gather_dequant(k_pool, k_scale, idx)
     vg = ck.gather_dequant(v_pool, v_scale, idx)
     out = prefix_suffix_attention(q, k, v, kg, vg, start, KVB)
     return out.reshape(B, Ts, num_heads * D)
+
+
+# ---------------------------------------------------------------------------
+# the serving operators (mxnet_tpu/ops/attention.py:556-990): the JAX
+# package's names, arguments, outputs and attributes.  The JAX ops return
+# new pools; these write the pools they are given in place and return
+# those same tensors as their new_* outputs, so a caller that feeds the
+# outputs back as the next inputs gets the JAX semantics.
+# ---------------------------------------------------------------------------
+
+
+def cache_update(cache_k, cache_v, k_t, v_t, lengths):
+    """Write the current token's K/V (B, 1, H, D) into contiguous
+    (B, C, H, D) caches at position ``lengths - 1``, in place; streams
+    with lengths == 0 (padded slots) write slot 0, whose reads are all
+    masked."""
+    pos = torch.clamp(lengths.long() - 1, min=0)
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k.index_put_((rows, pos), k_t[:, 0].to(cache_k.dtype))
+    cache_v.index_put_((rows, pos), v_t[:, 0].to(cache_v.dtype))
+    return cache_k, cache_v
+
+
+def qkv_self_attention_decode(qkv, cache_k, cache_v, lengths,
+                              num_heads: int, block_size: int = 0):
+    """One decode step over contiguous caches: qkv (B, 1, 3*H*D) of the
+    token at position ``lengths[b] - 1`` → (B, 1, H*D).  The token's K/V
+    is written into the caches in place first, then its query attends
+    keys ``k_pos < lengths[b]`` on the ``flash_attention_partial``
+    kernel with the per-row key limit ``kv_len = lengths`` (the JAX
+    ``decode_attention``)."""
+    _check_decode_step_shape("QKVSelfAttentionDecode", qkv.shape)
+    q, k_t, v_t, D = _unpack_qkv(qkv, num_heads)
+    lengths = lengths.to(torch.int32)
+    cache_update(cache_k, cache_v, k_t, v_t, lengths)
+    o, m, l = ck.flash_attention_partial(
+        q, cache_k.to(q.dtype), cache_v.to(q.dtype), False,
+        block_size or 512, 0, kv_len=lengths)
+    out = normalize_attention_state(o, m, l, q.dtype)
+    return out.reshape(qkv.shape[0], 1, num_heads * D)
+
+
+def _heads(attrs) -> int:
+    return attr_int(attrs.get("num_heads", 1), 1)
+
+
+def _ints(*tensors):
+    """The serving ops' integer inputs (block tables, lengths, starts) as
+    int32, as the JAX ops cast them (a bound float variable included)."""
+    return [t.to(torch.int32) for t in tensors]
+
+
+def _shape(s):
+    return tuple(s) if s is not None else None
+
+
+def _qkv_prefill_infer(attrs, in_shapes):
+    (s,) = in_shapes
+    if s is None:
+        return in_shapes, None, None
+    H = _heads(attrs)
+    if len(s) != 3:
+        raise MXNetError(f"QKVSelfAttentionPrefill wants a 3-D qkv (B, T, "
+                         f"3*num_heads*d_head); got {s}")
+    _check_qkv_packing(s[2], H, s)
+    D = s[2] // (3 * H)
+    return in_shapes, [(s[0], s[1], s[2] // 3), (s[0], s[1], H, D),
+                       (s[0], s[1], H, D)], []
+
+
+@register("QKVSelfAttentionPrefill", arg_names=("qkv",),
+          kernel=True,
+          out_names=("output", "key", "value"),
+          infer_shape=_qkv_prefill_infer,
+          doc="Causal self-attention off the fused QKV projection that also "
+              "returns the (B, T, H, D) key/value state for a KV cache, on "
+              "the flash_mha_packed kernel; attrs: num_heads, block_size")
+def _qkv_prefill_op(op_ctx, attrs, inputs, aux):
+    (qkv,) = inputs
+    out, k, v = qkv_self_attention_prefill(
+        qkv, _heads(attrs), attr_int(attrs.get("block_size", 0), 0))
+    return [out, k, v]
+
+
+def _qkv_decode_infer(attrs, in_shapes):
+    qkv, ck_, cv, _ = in_shapes
+    if qkv is None or ck_ is None:
+        return in_shapes, None, None
+    _check_qkv_packing(qkv[2], _heads(attrs), qkv)
+    _check_decode_step_shape("QKVSelfAttentionDecode", qkv)
+    return in_shapes, [(qkv[0], 1, qkv[2] // 3), tuple(ck_),
+                       tuple(cv if cv is not None else ck_)], []
+
+
+@register("QKVSelfAttentionDecode",
+          kernel=True,
+          arg_names=("qkv", "cache_k", "cache_v", "lengths"),
+          out_names=("output", "new_cache_k", "new_cache_v"),
+          infer_shape=_qkv_decode_infer,
+          doc="One decode step over contiguous (B, C, H, D) caches: qkv "
+              "(B, 1, 3*H*D) at position lengths-1, lengths (B,) counting "
+              "it -> output (B, 1, H*D) and the caches, written in place; "
+              "flash_attention_partial with kv_len = lengths; attrs: "
+              "num_heads, block_size")
+def _qkv_decode_op(op_ctx, attrs, inputs, aux):
+    qkv, cache_k, cache_v, lengths = inputs
+    out = qkv_self_attention_decode(
+        qkv, cache_k, cache_v, lengths, _heads(attrs),
+        attr_int(attrs.get("block_size", 0), 0))
+    return [out, cache_k, cache_v]
+
+
+def _qkv_paged_infer(attrs, in_shapes):
+    qkv, kp, vp = in_shapes[:3]
+    if qkv is None or kp is None:
+        return in_shapes, None, None
+    _check_qkv_packing(qkv[2], _heads(attrs), qkv)
+    _check_decode_step_shape("QKVPagedAttentionDecode", qkv)
+    return in_shapes, [(qkv[0], 1, qkv[2] // 3), tuple(kp),
+                       tuple(vp if vp is not None else kp)], []
+
+
+@register("QKVPagedAttentionDecode",
+          kernel=True,
+          arg_names=("qkv", "k_pool", "v_pool", "block_table", "lengths"),
+          out_names=("output", "new_k_pool", "new_v_pool"),
+          infer_shape=_qkv_paged_infer,
+          doc="One decode step over the paged KV cache: qkv (B, 1, 3*H*D), "
+              "pools (P, KVB, H, D), block_table (B, MB), lengths (B,) -> "
+              "output (B, 1, H*D) and the pools, written in place; the "
+              "paged_attention_decode kernel; attrs: num_heads")
+def _qkv_paged_decode_op(op_ctx, attrs, inputs, aux):
+    qkv, k_pool, v_pool, block_table, lengths = inputs
+    block_table, lengths = _ints(block_table, lengths)
+    out, _, _ = qkv_paged_attention_decode(qkv, k_pool, v_pool, block_table,
+                                           lengths, _heads(attrs))
+    return [out, k_pool, v_pool]
+
+
+def _paged_write_infer(attrs, in_shapes):
+    kp, vp = in_shapes[2], in_shapes[3]
+    if kp is None:
+        return in_shapes, None, None
+    return in_shapes, [tuple(kp), tuple(vp if vp is not None else kp)], []
+
+
+@register("PagedCacheWrite",
+          arg_names=("key", "value", "k_pool", "v_pool", "block_table",
+                     "lengths"),
+          out_names=("new_k_pool", "new_v_pool"),
+          infer_shape=_paged_write_infer,
+          doc="Write a prompt's (B, T, H, D) key/value state into the paged "
+              "pools through the block table, in place; positions >= "
+              "lengths[b] land on the scratch page 0")
+def _paged_write_op(op_ctx, attrs, inputs, aux):
+    k, v, k_pool, v_pool, block_table, lengths = inputs
+    block_table, lengths = _ints(block_table, lengths)
+    paged_prefill_write(k, v, k_pool, v_pool, block_table, lengths)
+    return [k_pool, v_pool]
+
+
+def _paged_write_q_infer(attrs, in_shapes):
+    kp, vp, ks, vs = in_shapes[2:6]
+    if kp is None:
+        return in_shapes, None, None
+    return in_shapes, [tuple(kp), tuple(vp if vp is not None else kp),
+                       _shape(ks), _shape(vs if vs is not None else ks)], []
+
+
+@register("PagedCacheWriteQ",
+          arg_names=("key", "value", "k_pool", "v_pool", "k_scale",
+                     "v_scale", "block_table", "lengths"),
+          out_names=("new_k_pool", "new_v_pool", "new_k_scale",
+                     "new_v_scale"),
+          infer_shape=_paged_write_q_infer,
+          doc="PagedCacheWrite for int8/fp8 pools: the state quantizes on "
+              "write, its (P, KVB, H) float32 scales beside it, in place")
+def _paged_write_q_op(op_ctx, attrs, inputs, aux):
+    k, v, k_pool, v_pool, k_scale, v_scale, block_table, lengths = inputs
+    block_table, lengths = _ints(block_table, lengths)
+    paged_prefill_write_q(k, v, k_pool, v_pool, k_scale, v_scale,
+                          block_table, lengths)
+    return [k_pool, v_pool, k_scale, v_scale]
+
+
+def _qkv_paged_q_infer(attrs, in_shapes):
+    qkv, kp, vp, ks, vs = in_shapes[:5]
+    if qkv is None or kp is None:
+        return in_shapes, None, None
+    _check_qkv_packing(qkv[2], _heads(attrs), qkv)
+    _check_decode_step_shape("QKVPagedAttentionDecodeQ", qkv)
+    return in_shapes, [(qkv[0], 1, qkv[2] // 3), tuple(kp),
+                       tuple(vp if vp is not None else kp), _shape(ks),
+                       _shape(vs)], []
+
+
+@register("QKVPagedAttentionDecodeQ",
+          kernel=True,
+          arg_names=("qkv", "k_pool", "v_pool", "k_scale", "v_scale",
+                     "block_table", "lengths"),
+          out_names=("output", "new_k_pool", "new_v_pool", "new_k_scale",
+                     "new_v_scale"),
+          infer_shape=_qkv_paged_q_infer,
+          doc="QKVPagedAttentionDecode over int8/fp8 pools: the token "
+              "quantizes on write, attention dequantizes inside the "
+              "paged_attention_decode_quant kernel; attrs: num_heads")
+def _qkv_paged_decode_q_op(op_ctx, attrs, inputs, aux):
+    qkv, k_pool, v_pool, k_scale, v_scale, block_table, lengths = inputs
+    block_table, lengths = _ints(block_table, lengths)
+    out = qkv_paged_attention_decode_q(qkv, k_pool, v_pool, k_scale,
+                                       v_scale, block_table, lengths,
+                                       _heads(attrs))
+    return [out, k_pool, v_pool, k_scale, v_scale]
+
+
+def _qkv_window_infer(attrs, in_shapes):
+    """The prefill-attend and verify ops: output (B, T, H*D) and the
+    pools (with their scales when quantized)."""
+    qkv, kp, vp = in_shapes[:3]
+    if qkv is None or kp is None:
+        return in_shapes, None, None
+    _check_qkv_packing(qkv[2], _heads(attrs), qkv)
+    outs = [(qkv[0], qkv[1], qkv[2] // 3), tuple(kp),
+            tuple(vp if vp is not None else kp)]
+    if len(in_shapes) == 8:
+        outs += [_shape(in_shapes[3]), _shape(in_shapes[4])]
+    return in_shapes, outs, []
+
+
+@register("QKVPagedPrefillAttend",
+          kernel=True,
+          arg_names=("qkv", "k_pool", "v_pool", "block_table", "start",
+                     "lengths"),
+          out_names=("output", "new_k_pool", "new_v_pool"),
+          infer_shape=_qkv_window_infer,
+          doc="Suffix prefill over a prefix-shared paged cache: qkv (B, Ts, "
+              "3*H*D) holds the uncached suffix at positions start[b]+i; "
+              "its K/V is written at that offset, its queries attend the "
+              "table's pages under the key limit start and the raw suffix "
+              "causally (two flash_attention_partial launches).  start (B,) "
+              "cached tokens, lengths (B,) total tokens; attrs: num_heads")
+def _qkv_prefill_attend_op(op_ctx, attrs, inputs, aux):
+    qkv, k_pool, v_pool, block_table, start, lengths = inputs
+    block_table, start, lengths = _ints(block_table, start, lengths)
+    out = qkv_paged_prefill_attend(qkv, k_pool, v_pool, block_table, start,
+                                   lengths, _heads(attrs))
+    return [out, k_pool, v_pool]
+
+
+@register("QKVPagedPrefillAttendQ",
+          kernel=True,
+          arg_names=("qkv", "k_pool", "v_pool", "k_scale", "v_scale",
+                     "block_table", "start", "lengths"),
+          out_names=("output", "new_k_pool", "new_v_pool", "new_k_scale",
+                     "new_v_scale"),
+          infer_shape=_qkv_window_infer,
+          doc="QKVPagedPrefillAttend over int8/fp8 pools: the suffix "
+              "quantizes on write, the cached prefix dequantizes on gather, "
+              "the suffix attends its own K/V raw; attrs: num_heads")
+def _qkv_prefill_attend_q_op(op_ctx, attrs, inputs, aux):
+    (qkv, k_pool, v_pool, k_scale, v_scale, block_table, start,
+     lengths) = inputs
+    block_table, start, lengths = _ints(block_table, start, lengths)
+    out = qkv_paged_prefill_attend_q(qkv, k_pool, v_pool, k_scale, v_scale,
+                                     block_table, start, lengths,
+                                     _heads(attrs))
+    return [out, k_pool, v_pool, k_scale, v_scale]
+
+
+@register("QKVPagedVerifyAttend",
+          kernel=True,
+          arg_names=("qkv", "k_pool", "v_pool", "block_table", "start",
+                     "lengths"),
+          out_names=("output", "new_k_pool", "new_v_pool"),
+          infer_shape=_qkv_window_infer,
+          doc="Speculative-verify step over the paged cache: qkv (B, W, "
+              "3*H*D) at positions start[b]+i, written at that offset, each "
+              "query under the mask k_pos < start+1+i on the "
+              "paged_attention_verify kernel; attrs: num_heads")
+def _qkv_verify_op(op_ctx, attrs, inputs, aux):
+    qkv, k_pool, v_pool, block_table, start, lengths = inputs
+    block_table, start, lengths = _ints(block_table, start, lengths)
+    out = qkv_paged_verify_attend(qkv, [k_pool, v_pool], block_table, start,
+                                  lengths, _heads(attrs))
+    return [out, k_pool, v_pool]
+
+
+@register("QKVPagedVerifyAttendQ",
+          kernel=True,
+          arg_names=("qkv", "k_pool", "v_pool", "k_scale", "v_scale",
+                     "block_table", "start", "lengths"),
+          out_names=("output", "new_k_pool", "new_v_pool", "new_k_scale",
+                     "new_v_scale"),
+          infer_shape=_qkv_window_infer,
+          doc="QKVPagedVerifyAttend over int8/fp8 pools: the window "
+              "quantizes on write and every query reads the dequantized "
+              "cache (paged_attention_verify_quant); attrs: num_heads")
+def _qkv_verify_q_op(op_ctx, attrs, inputs, aux):
+    (qkv, k_pool, v_pool, k_scale, v_scale, block_table, start,
+     lengths) = inputs
+    block_table, start, lengths = _ints(block_table, start, lengths)
+    out = qkv_paged_verify_attend(qkv, [k_pool, v_pool, k_scale, v_scale],
+                                  block_table, start, lengths, _heads(attrs))
+    return [out, k_pool, v_pool, k_scale, v_scale]

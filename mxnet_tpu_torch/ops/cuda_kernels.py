@@ -15,7 +15,9 @@ the serving and training paths:
   the tensor cores (``csrc/flash_mha_bwd.cu``, replacing ``_mha_bwd``);
 * ``flash_attention_partial`` — the un-normalized online-softmax state
   (o, m, l) over q, k, v with a key offset ``kv_offset`` in the causal
-  mask, every hop of ``sequence.ring_attention``
+  mask and an optional per-row key limit ``kv_len`` read from device
+  memory (the suffix prefill, the contiguous-cache decode), every hop of
+  ``sequence.ring_attention``
   (``csrc/flash_attention_partial.cu``, replacing
   ``flash_attention_partial``), and ``flash_attention_bwd``, its dq
   kernel and kv-block-outer dk/dv kernel with m held constant
@@ -621,9 +623,21 @@ def _check_partial(name: str, q, k, v) -> None:
                          f"{k.dtype}, {v.dtype})")
 
 
+def _check_kv_len(name: str, kv_len, B: int) -> None:
+    """``kv_len``: None, or a (B,) integer tensor of per-row key limits."""
+    if kv_len is None:
+        return
+    if not isinstance(kv_len, torch.Tensor) or kv_len.shape != (B,) \
+            or kv_len.dtype not in (torch.int32, torch.int64):
+        raise MXNetError(f"{name}: kv_len must be a ({B},) int32 tensor; got "
+                         f"{getattr(kv_len, 'shape', type(kv_len).__name__)}"
+                         f" {getattr(kv_len, 'dtype', '')}")
+
+
 def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, causal: bool = False,
-                                  block_size: int = 512, kv_offset: int = 0
+                                  block_size: int = 512, kv_offset: int = 0,
+                                  kv_len=None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Plain version: the blockwise online softmax in fp32 over
@@ -631,51 +645,62 @@ def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
     from .attention import _blockwise_attention_partial_plain
 
     return _blockwise_attention_partial_plain(q, k, v, causal, block_size,
-                                              kv_offset)
+                                              kv_offset, kv_len=kv_len)
 
 
 def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = False,
-                            block_size: int = 512, kv_offset: int = 0
+                            block_size: int = 512, kv_offset: int = 0,
+                            kv_len=None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Un-normalized attention state: q (B, Tq, H, D), k and v (B, Tk, H,
     D) → (o (B, H, Tq, D), m, l (B, H, Tq)), float32 for every input
     dtype, ``out = o / l`` after the states are merged.  ``kv_offset``
     (an int: the position of k[0] minus that of q[0]) shifts the causal
-    mask to ``k_pos + kv_offset <= q_pos``; a row that sees no key is m =
-    -inf, l = 0, o = 0.
+    mask to ``k_pos + kv_offset <= q_pos``; ``kv_len`` (a (B,) int32
+    tensor on q's device, or None) hides keys ``j >= kv_len[b]`` from
+    row b's queries on top of that (the JAX lax body's ``lengths=``
+    mask; the kernel reads it from device memory, so a CUDA graph may
+    record the launch).  A row that sees no key is m = -inf, l = 0,
+    o = 0.
 
     Any strides with contiguous lanes (the kernel reads each tensor
     through its own strides).  ``block_size`` is the plain version's
     key block; the kernel tiles on its own.  No gradient flows through
     this call: an input that requires one raises
     (``ops.attention.blockwise_attention_partial`` is the differentiable
-    form)."""
+    form, without ``kv_len``)."""
     _check_partial("flash_attention_partial", q, k, v)
     koff = _kv_offset("flash_attention_partial", kv_offset)
+    _check_kv_len("flash_attention_partial", kv_len, q.shape[0])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise MXNetError(
             "flash_attention_partial: an input requires a gradient, which "
             "this call would drop; use ops.attention."
             "blockwise_attention_partial, whose autograd Function runs the "
             "backward kernels")
-    if not _route("flash_attention_partial", q, k, v):
+    lim = () if kv_len is None else (kv_len,)
+    if not _route("flash_attention_partial", q, k, v, *lim):
         return flash_attention_partial_plain(q, k, v, causal, block_size,
-                                             koff)
+                                             koff, kv_len)
     B, Tq, H, D = q.shape
     _check_mha_launch("flash_attention_partial", D, q.dtype, q, k, v)
+    if kv_len is not None:
+        kv_len = kv_len.to(torch.int32).contiguous()
     o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     fn = _load("flash_attention_partial", "flash_attention_partial_fwd",
-               [_vp] * 6 + [_strides] + [_i] * 8 + [_vp])
+               [_vp] * 6 + [_strides] + [_i] * 7 + [_vp, _i, _vp])
     strides = _layout_args(*(x.transpose(1, 2) for x in (q, k, v)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  m.data_ptr(), l.data_ptr(), strides, B, H, Tq, k.shape[1],
-                 D, int(bool(causal)), koff, _DTYPE_CODE[q.dtype], stream)
+                 D, int(bool(causal)), koff,
+                 None if kv_len is None else kv_len.data_ptr(),
+                 _DTYPE_CODE[q.dtype], stream)
     _check_launch(err, "flash_attention_partial")
     LAUNCHES["flash_attention_partial"] += 1
     return o, m, l

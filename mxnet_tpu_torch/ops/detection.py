@@ -319,6 +319,7 @@ def _multibox_detection_infer(attrs, in_shapes):
 
 @register("MultiBoxDetection", arg_names=("cls_prob", "loc_pred", "anchor"),
           infer_shape=_multibox_detection_infer,
+          kernel=True,
           doc="Decode + NMS multibox predictions")
 def _multibox_detection_op(op_ctx, attrs, inputs, aux):
     cls_prob, loc_pred, anchors = (x.detach() for x in inputs)

@@ -16,7 +16,10 @@ ignores the incoming gradient) and ops backed by a kernel are
 An op whose compute cannot be recorded into a CUDA graph (its body
 synchronizes with the host or runs Python over host values per call)
 is registered ``capturable=False``; a symbol that holds one runs the
-Module's fused step uncaptured (``module/fused_step.py``).
+Module's fused step uncaptured (``module/fused_step.py``).  An op whose
+compute launches a hand-written kernel of the port on a CUDA tensor is
+registered ``kernel=True`` (or a callable of its attributes);
+``predictor.export_model`` refuses a graph that holds one.
 """
 
 from __future__ import annotations
@@ -87,6 +90,9 @@ class OpDef:
     needs_rng: bool = False
     # False: the compute cannot be recorded into a CUDA graph
     capturable: bool = True
+    # True, or a callable (attrs) -> bool: on a CUDA tensor the compute
+    # launches a hand-written kernel of the port
+    kernel: Any = False
     # loss head: backward ignores the incoming head gradient, so the
     # executor may seed it with ones
     is_loss: Any = False
@@ -96,6 +102,10 @@ class OpDef:
     def loss_head(self, attrs) -> bool:
         return bool(self.is_loss(attrs)) if callable(self.is_loss) \
             else bool(self.is_loss)
+
+    def launches_kernel(self, attrs) -> bool:
+        return bool(self.kernel(attrs)) if callable(self.kernel) \
+            else bool(self.kernel)
 
     def input_names(self, attrs) -> List[str]:
         a = self.arg_names

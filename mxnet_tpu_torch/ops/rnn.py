@@ -257,6 +257,7 @@ def _rnn_infer(attrs, in_shapes):
 
 @register("RNN", arg_names=_rnn_args, out_names=_rnn_outs, needs_rng=True,
           infer_shape=_rnn_infer,
+          kernel=lambda attrs: str(attrs.get("mode", "")) == "lstm",
           doc="Fused multi-layer (bi)directional RNN/LSTM/GRU; the fp32 "
               "LSTM recurrence runs on the lstm_scan kernel")
 def _rnn(op_ctx, attrs, inputs, aux):

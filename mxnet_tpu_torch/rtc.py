@@ -205,7 +205,10 @@ def register_op(name: str,
             outs = [tuple(o) for o in outs]
         return in_shapes, outs, []
 
+    # a user op may launch user kernels (cuda_op and triton_op register
+    # through here)
     _reg.register(name, arg_names=tuple(arg_names), infer_shape=shape_infer,
+                  kernel=True,
                   doc=doc or f"user-registered op (mxnet_tpu_torch.rtc) — "
                   f"reference capability: python/mxnet/rtc.py")(compute)
     _expose(name)

@@ -1,4 +1,6 @@
-"""Autoregressive serving: continuous batching over a paged KV cache.
+"""Serving: ``InferenceEngine`` (dynamic micro-batching of a
+``Predictor``'s forward, below) and ``DecodeEngine`` (autoregressive
+serving, continuous batching over a paged KV cache).
 
 Counterpart of ``mxnet_tpu/serving.py``'s ``DecodeEngine``, with the same
 entry point and semantics:
@@ -60,23 +62,27 @@ its own thread; kernels launch on that thread's current CUDA stream,
 and the step's one device-to-host copy synchronises that stream only.
 
 **Executables** (the JAX engine's ``_exe_cache`` and ``compiles``,
-``mxnet_tpu/serving.py:1426-1428, 2002-2171``): a decode step, a verify
-step and a miss's prefill run ``_Executable``s keyed as the JAX engine
-keys its compiled programs — ``("decode", bb, mb)``, ``("verify", bb,
-mb, W)``, ``("prefill", tp)``, plus the rank buckets a batch's adapter
-rows use — each owning its int32 input buffers (filled by one copy a
+``mxnet_tpu/serving.py:1426-1428, 2002-2293``): a decode step, a verify
+step, a miss's prefill and a suffix prefill (a prefix hit's suffix,
+every chunk) run ``_Executable``s keyed as the JAX engine keys its
+compiled programs — ``("decode", bb, mb)``, ``("verify", bb, mb, W)``,
+``("prefill", tp)``, ``("prefix_prefill", tp, mb)``, plus the rank
+buckets a batch's adapter rows use — each owning its int32 input
+buffers (filled by one copy a
 step from a pinned staging buffer) and computing the model up to the
 logits.  On CUDA each is one CUDA graph, captured at the bucket's first
 use (which runs the step eagerly on a side stream first, then captures
 on that stream into the engine's graph pool; ``module.fused_step.
 capture``) and replayed after; ``compiles`` counts it once and it is
 never retaken.  ``warmup()`` builds every prefill and (bb, mb) decode
-bucket (and verify bucket when speculating) at once.  Sampling stays
+bucket (and verify bucket when speculating, and (tp, mb) suffix-prefill
+bucket with the prefix cache or chunks) at once.  Sampling stays
 outside the graph (its generators are seeded on the host a row).  On the
 CPU, and on CUDA with the private ``_graphs=False``, the same
-executables run uncaptured.  The suffix prefill (a prefix hit's suffix,
-every chunk), the draft LM's forward and the copy-on-write page copies
-stay eager (their shapes or ``start`` are host integers).  A plain step
+executables run uncaptured.  The suffix prefill's ``start`` is a feed
+like the others: B8 reads it as its per-row key limit from the card's
+memory.  The draft LM's forward (its length is the context's) and the
+copy-on-write page copies stay eager.  A plain step
 whose next step's batch is provably this one's runs two steps back to
 back, step t+1 fed from step t's tokens on the device while step t's
 tokens travel to the host (the JAX engine's pipelined fetch,
@@ -93,10 +99,11 @@ from __future__ import annotations
 
 import collections
 import os
+import queue as _queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -117,7 +124,8 @@ from .prefix_cache import EVICT_POLICIES, PrefixCache
 from .random import gumbel_noise, stream_key
 from .speculative import PROPOSERS, make_proposer, verify_sample
 
-__all__ = ["DecodeEngine", "EngineClosedError", "sample_tokens"]
+__all__ = ["DecodeEngine", "InferenceEngine", "EngineClosedError",
+           "sample_tokens"]
 
 _DEFAULT_KV_BLOCK = 16
 _DEFAULT_MAX_STREAMS = 64
@@ -186,7 +194,8 @@ def _refuse_unported(*, tp, pp, devices) -> None:
     if int(tp) != 1 or int(pp) != 1 or devices is not None \
             or os.environ.get("MXNET_SERVING_DEVICES"):
         raise not_ported("model-parallel serving (tp / pp / devices / "
-                         "MXNET_SERVING_TP / _PP / _DEVICES)")
+                         "MXNET_SERVING_TP / _PP / _DEVICES; queue A "
+                         "item 10)")
 
 
 def _prefix_salt(s) -> bytes:
@@ -292,21 +301,25 @@ class _Stream:
                     and self.generated[-1] == self.eos))
 
 
-class _Executable:
-    """One bucket of the engine: ``fn(bufs)`` (the model's decode, verify
-    or prefill up to the logits) over int32 input buffers this object
-    owns.
+# each feed's bytes start on this boundary of an executable's flat buffer
+_FEED_ALIGN = 16
 
-    ``feeds`` [(name, shape)] are views ``bufs[name]`` of one flat device
-    buffer, written by ``feed`` with one host-to-device copy from a
-    pinned staging buffer (two alternate; a staging buffer is reused once
-    its copy has run, so a feed may be queued behind a step that has not
-    run yet).  ``graphed`` (CUDA, the engine's ``_graphs``): the first
-    ``run`` performs the step eagerly on the engine's side stream, which
-    loads every kernel and meets cuBLAS's per-stream state there, then
+
+class _Executable:
+    """One bucket of an engine: ``fn(bufs)`` (a model's forward up to its
+    outputs) over input buffers this object owns.
+
+    ``feeds`` [(name, shape[, numpy dtype, int32 by default])] are views
+    ``bufs[name]`` of one flat device buffer of bytes, written by
+    ``feed`` with one host-to-device copy from a pinned staging buffer
+    (two alternate; a staging buffer is reused once its copy has run, so
+    a feed may be queued behind a step that has not run yet).
+    ``graphed`` (CUDA, the engine's ``_graphs``): the first ``run``
+    performs the step eagerly on the engine's side stream, which loads
+    every kernel and meets cuBLAS's per-stream state there, then
     captures ``fn`` on that stream into the engine's graph pool
     (``fused_step.capture``); each later ``run`` replays it into the
-    output buffer the capture made and counts the captured launches
+    output buffers the capture made and counts the captured launches
     again (``fused_step.add_launches``).  Uncaptured, ``run`` calls
     ``fn``.  A failed capture raises."""
 
@@ -316,15 +329,18 @@ class _Executable:
         dev = engine._device
         self.graphed = dev.type == "cuda" and engine._graphs
         self.slices, off = {}, 0
-        for name, shape in feeds:
-            n = int(np.prod(shape))
-            self.slices[name] = (off, n, tuple(shape))
-            off += n
-        self.buf = torch.zeros(off, dtype=torch.int32, device=dev)
-        self.bufs = {name: self.buf[o:o + n].view(shape)
-                     for name, (o, n, shape) in self.slices.items()}
+        for name, shape, *dt in feeds:
+            dtype = np.dtype(dt[0] if dt else np.int32)
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            self.slices[name] = (off, nbytes, tuple(shape), dtype)
+            off += -(-nbytes // _FEED_ALIGN) * _FEED_ALIGN
+        self.buf = torch.zeros(off, dtype=torch.uint8, device=dev)
+        self.bufs = {
+            name: self.buf[o:o + n].view(
+                torch.from_numpy(np.zeros(0, dt)).dtype).view(shape)
+            for name, (o, n, shape, dt) in self.slices.items()}
         cuda = dev.type == "cuda"
-        self.stage = [torch.zeros(off, dtype=torch.int32, pin_memory=cuda)
+        self.stage = [torch.zeros(off, dtype=torch.uint8, pin_memory=cuda)
                       for _ in range(2 if cuda else 1)]
         self.copied = [None] * len(self.stage)
         self.turn = 0
@@ -343,16 +359,21 @@ class _Executable:
             self.copied[i].synchronize()  # its last copy has been read
         host = self.stage[i].numpy()
         for name, a in arrays.items():
-            o, n, _ = self.slices[name]
-            host[o:o + n] = np.asarray(a).ravel()
+            o, n, _, dt = self.slices[name]
+            host[o:o + n].view(dt)[:] = np.asarray(a, dt).ravel()
         self.buf.copy_(self.stage[i], non_blocking=True)
         if self.buf.is_cuda:
             self.copied[i] = torch.cuda.Event()
             self.copied[i].record()
 
-    def run(self) -> torch.Tensor:
-        """The step on the fed buffers → its logits (a replay's: the
-        graph's output buffer, overwritten by the next replay)."""
+    def zeros(self):
+        """Zero feeds of every input (a build's, or a warm-up's)."""
+        return {n: np.zeros(shape, dt)
+                for n, (_, _, shape, dt) in self.slices.items()}
+
+    def run(self):
+        """The step on the fed buffers → its outputs (a replay's: the
+        graph's output buffers, overwritten by the next replay)."""
         if not self.graphed:
             return self.fn(self.bufs)
         if self.graph is None:
@@ -363,8 +384,7 @@ class _Executable:
         add_launches(self.launches)
         return self.out
 
-
-    def _first_run(self) -> torch.Tensor:
+    def _first_run(self):
         eng = self.engine
         side = eng._side_stream()
         main = torch.cuda.current_stream()
@@ -372,14 +392,74 @@ class _Executable:
         with torch.cuda.stream(side):
             out = self.fn(self.bufs)
         main.wait_stream(side)
-        out.record_stream(main)
+        for t in (out if isinstance(out, (list, tuple)) else [out]):
+            t.record_stream(main)
         self.graph, self.out, self.launches, self.capture_ms, \
             self.pool_bytes = capture(lambda: self.fn(self.bufs), side,
                                       eng._graph_pool())
         return out
 
 
-class DecodeEngine:
+class _ExecutableHost:
+    """What an engine's executables share: ``_device``, the private
+    ``_graphs`` switch, ``_compile_lock``, ``_exe_cache`` / ``compiles``
+    by key, one side stream and one CUDA-graph memory pool (its
+    executables run one at a time, on one thread)."""
+
+    def _init_executables(self, device, graphs: bool) -> None:
+        self._device = device
+        self._graphs = bool(graphs)
+        self._exe_cache: Dict = {}
+        self._compile_lock = threading.RLock()
+        self.compiles: Dict = {}
+        self._side = self._pool_handle = None
+
+    def _side_stream(self):
+        """The stream every capture of this engine warms up and captures
+        on."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self._device)
+        return self._side
+
+    def _graph_pool(self):
+        """The engine's one memory pool of CUDA graphs."""
+        if self._pool_handle is None:
+            self._pool_handle = torch.cuda.graph_pool_handle()
+        return self._pool_handle
+
+    def _executable(self, key, fn, feeds) -> _Executable:
+        """The executable of ``key``, made at its first use and counted
+        in ``compiles`` once."""
+        exe = self._exe_cache.get(key)
+        if exe is not None:
+            return exe
+        with self._compile_lock:
+            exe = self._exe_cache.get(key)
+            if exe is None:
+                exe = _Executable(self, key, fn, feeds)
+                self._exe_cache[key] = exe
+                self.compiles[key] = self.compiles.get(key, 0) + 1
+            return exe
+
+    def _build(self, exe: _Executable) -> None:
+        """Capture ``exe`` now (on CUDA) over zero feeds."""
+        if exe.graphed and exe.graph is None:
+            exe.feed(**exe.zeros())
+            exe.run()
+
+    def _graph_stats(self) -> dict:
+        """The executables' CUDA graphs: captures, capture ms, pool
+        growth."""
+        with self._compile_lock:
+            exes = list(self._exe_cache.values())
+        caught = [e for e in exes if e.graph is not None]
+        return {"graphs_on": self._device.type == "cuda" and self._graphs,
+                "executables": len(exes), "captures": len(caught),
+                "capture_ms": sum(e.capture_ms for e in caught),
+                "pool_bytes": sum(e.pool_bytes for e in caught)}
+
+
+class DecodeEngine(_ExecutableHost):
     """Continuous-batching autoregressive serving of a ``transformer_lm``
     over a paged KV cache.
 
@@ -686,10 +766,7 @@ class DecodeEngine:
         self._eos = eos_id
         # the executables (mxnet_tpu/serving.py:1426-1428): by key, and
         # how many times each key was built (once)
-        self._exe_cache: Dict[tuple, _Executable] = {}
-        self._compile_lock = threading.RLock()
-        self.compiles: Dict[tuple, int] = {}
-        self._side = self._pool_handle = None
+        self._init_executables(self._device, self._graphs)
         self._metrics = _Metrics()
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -738,9 +815,10 @@ class DecodeEngine:
                              "tracker of queue A item 8)")
         if prefill_only:
             raise not_ported("prefill_only stream export (disaggregated "
-                             "serving)")
+                             "serving, queue A item 10)")
         if trace is not None:
-            raise not_ported("request tracing (trace=)")
+            raise not_ported("request tracing (trace=; profiler spans, "
+                             "queue A item 8)")
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
             raise MXNetError(f"prompt must be a non-empty 1-D token array; "
@@ -895,13 +973,13 @@ class DecodeEngine:
 
     def warmup(self):
         """Build every prefill bucket and every (batch, cache) decode
-        bucket now, and every verify bucket when speculating, as the JAX
+        bucket now, every verify bucket when speculating, and, with the
+        prefix cache or chunked prefill on, every (suffix, table) bucket
+        of the suffix prefill whose table holds the suffix, as the JAX
         engine compiles them (``mxnet_tpu/serving.py:1742``): a bucket
         built inside the serving loop stalls every active stream for its
         capture.  On CUDA each is captured after one step on zero feeds
-        (lengths 0: its cache writes land on the scratch page).  The
-        JAX engine's suffix-prefill matrix is not built: that path runs
-        eagerly here."""
+        (lengths 0: its cache writes land on the scratch page)."""
         for tp in self._prefill_buckets:
             self._build(self._prefill_exe(tp))
         for bb in self._decode_buckets:
@@ -909,12 +987,11 @@ class DecodeEngine:
                 self._build(self._decode_exe(bb, mb))
                 if self._spec_k:
                     self._build(self._verify_exe(bb, mb))
-
-    def _build(self, exe: _Executable) -> None:
-        if exe.graphed and exe.graph is None:
-            exe.feed(**{n: np.zeros(shape, np.int32)
-                        for n, (_, _, shape) in exe.slices.items()})
-            exe.run()
+        if self._prefix is not None or self._chunk:
+            for tp in self._prefill_buckets:
+                for mb in self._cache_buckets:
+                    if mb * self._kv_block >= tp:
+                        self._build(self._prefix_prefill_exe(tp, mb))
 
     def cost_records(self):
         raise not_ported("per-request cost records (cost_records(); the "
@@ -971,7 +1048,8 @@ class DecodeEngine:
             d[name] = d.get(name, 0) + value
 
     def import_stream(self, *args, **kwargs):
-        raise not_ported("KV-page stream import (import_stream)")
+        raise not_ported("KV-page stream import (import_stream; the "
+                         "fleet, queue A item 10)")
 
     def reset_stats(self) -> None:
         """Zero the counters and latency samples so the next
@@ -1044,13 +1122,7 @@ class DecodeEngine:
         # and their CUDA graphs: captures, capture ms, pool growth
         with self._compile_lock:
             out["compiles"] = {str(k): v for k, v in self.compiles.items()}
-            exes = list(self._exe_cache.values())
-        caught = [e for e in exes if e.graph is not None]
-        out["graphs"] = {
-            "graphs_on": self._device.type == "cuda" and self._graphs,
-            "executables": len(exes), "captures": len(caught),
-            "capture_ms": sum(e.capture_ms for e in caught),
-            "pool_bytes": sum(e.pool_bytes for e in caught)}
+        out["graphs"] = self._graph_stats()
         # tenancy: per-tenant requests / tokens / shed and the quota's
         # balances; the adapter pool's counters
         with self._lock:
@@ -1128,49 +1200,9 @@ class DecodeEngine:
                 return b
         raise MXNetError(f"{what} {n} exceeds ladder {ladder}")
 
-    def _feed(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """One host-to-device copy for an eager forward's int32 feeds (the
-        suffix prefill), handed back as contiguous views of the arrays'
-        shapes."""
-        flat = np.concatenate([a.ravel() for a in arrays])
-        dev = torch.from_numpy(flat).to(self._device)
-        out, off = [], 0
-        for a in arrays:
-            out.append(dev[off:off + a.size].view(a.shape))
-            off += a.size
-        return out
-
     # ------------------------------------------------------------------
     # executables (mxnet_tpu/serving.py:2002-2171)
     # ------------------------------------------------------------------
-    def _side_stream(self):
-        """The stream every capture of this engine warms up and captures
-        on."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self._device)
-        return self._side
-
-    def _graph_pool(self):
-        """The engine's one memory pool of CUDA graphs (its executables
-        run one at a time, on the scheduler thread)."""
-        if self._pool_handle is None:
-            self._pool_handle = torch.cuda.graph_pool_handle()
-        return self._pool_handle
-
-    def _executable(self, key, fn, feeds) -> _Executable:
-        """The executable of ``key``, made at its first use and counted
-        in ``compiles`` once."""
-        exe = self._exe_cache.get(key)
-        if exe is not None:
-            return exe
-        with self._compile_lock:
-            exe = self._exe_cache.get(key)
-            if exe is None:
-                exe = _Executable(self, key, fn, feeds)
-                self._exe_cache[key] = exe
-                self.compiles[key] = self.compiles.get(key, 0) + 1
-            return exe
-
     @staticmethod
     def _exe_key(base: tuple, used: tuple) -> tuple:
         """The JAX engine's key, plus the rank buckets the batch's adapter
@@ -1256,6 +1288,22 @@ class DecodeEngine:
             self._exe_key(("prefill", tp), used), fn,
             [("tokens", (1, tp)), ("positions", (1, tp)), ("lengths", (1,)),
              ("table", (1, mb))] + self._slot_feeds(1, used))
+
+    def _prefix_prefill_exe(self, tp: int, mb: int, used: tuple = ()):
+        """A suffix prefill (a prefix hit's suffix, a chunk) at suffix
+        bucket ``tp`` over table bucket ``mb`` (prefix and suffix pages):
+        ``start`` is a feed, B8's key limit on the device
+        (``mxnet_tpu/serving.py:2235``)."""
+        def fn(b):
+            return self._model.suffix_prefill(
+                b["tokens"], b["positions"], b["start"], b["lengths"],
+                b["table"], self._pools, self._exe_adapter(b, used))
+
+        return self._executable(
+            self._exe_key(("prefix_prefill", tp, mb), used), fn,
+            [("tokens", (1, tp)), ("positions", (1, tp)), ("start", (1,)),
+             ("lengths", (1,)), ("table", (1, mb))]
+            + self._slot_feeds(1, used))
 
     # ------------------------------------------------------------------
     # page accounting: the one funnel for alloc and release
@@ -1429,20 +1477,17 @@ class DecodeEngine:
         lengths = np.asarray([end], np.int32)
         table = np.zeros((1, mb), np.int32)
         table[0, :len(s.blocks)] = s.blocks
+        slots, used = self._adapter_slots([s], 1)
         if suffix:
-            # eager: B8's kv_offset = -start is a host integer
-            # (ops/attention.py), and the table width varies with it
-            tok_d, pos_d, len_d, tab_d = self._feed(tokens, positions,
-                                                    lengths, table)
-            logits = self._model.suffix_prefill(
-                tok_d, pos_d, done, len_d, tab_d, self._pools,
-                self._adapter_args([s], 1))
+            exe = self._prefix_prefill_exe(tp, mb, used)
+            exe.feed(tokens=tokens, positions=positions,
+                     start=np.asarray([done], np.int32), lengths=lengths,
+                     table=table, **slots)
         else:
-            slots, used = self._adapter_slots([s], 1)
             exe = self._prefill_exe(tp, used)
             exe.feed(tokens=tokens, positions=positions, lengths=lengths,
                      table=table, **slots)
-            logits = exe.run()
+        logits = exe.run()
         return logits[:, :csize]
 
     def _sample_first(self, s: _Stream, row: torch.Tensor, n: int) -> int:
@@ -1641,17 +1686,6 @@ class DecodeEngine:
             return
         s.adapter_slot = None
         self._adapter_pool.release(s.adapter)
-
-    def _adapter_args(self, streams, bb: int) -> tuple:
-        """The adapter arguments of one eager forward (the suffix
-        prefill) over ``streams`` padded to ``bb`` rows: per rank bucket
-        the pool's slabs and the (bb,) slot ids (``_adapter_slots``),
-        None for a bucket no row sits in; () when no row has an adapter:
-        the pre-adapter ops."""
-        vecs, used = self._adapter_slots(streams, bb)
-        bufs = {k: torch.from_numpy(v).to(self._device)
-                for k, v in vecs.items()}
-        return self._exe_adapter(bufs, used)
 
     def _retire(self, s: _Stream):
         self._release_pages(s.blocks)
@@ -1967,3 +2001,597 @@ class DecodeEngine:
                     self._active.remove(s)
             for s in retired:
                 self._retire(s)
+
+
+# ---------------------------------------------------------------------------
+# InferenceEngine: dynamic micro-batching over one executable a batch
+# bucket (mxnet_tpu/serving.py:81-743)
+# ---------------------------------------------------------------------------
+
+_DEFAULT_BUCKETS = (1, 8, 32, 128)
+
+
+class _Request:
+    __slots__ = ("inputs", "n", "future", "t_submit")
+
+    def __init__(self, inputs, n, future, t_submit):
+        self.inputs = inputs      # {name: np.ndarray with leading n}
+        self.n = n                # samples in this request
+        self.future = future
+        self.t_submit = t_submit
+
+
+class _PredictorModel:
+    """A ``Predictor``'s forward, run at any batch size: its bound batch
+    dimension is dropped from the per-sample shapes."""
+
+    def __init__(self, predictor):
+        self._pred = predictor
+        self.input_names = list(predictor._input_names)
+        self.sample_shapes = {n: tuple(predictor._input_shapes[n][1:])
+                              for n in self.input_names}
+        self.input_dtypes = {n: np.dtype(predictor._input_dtypes[n])
+                             for n in self.input_names}
+        self.output_names = list(predictor.output_names)
+        self.device = predictor._device
+        self.forward = predictor.forward_closure()
+
+    def set_params(self, params):
+        """New weights copied into the served tensors (the bucket
+        graphs read them: nothing is recaptured)."""
+        self._pred.set_params(params)
+
+    def get_params(self):
+        """Host snapshot of the served weights and aux states."""
+        from .predictor import _host
+
+        return {n: _host(t) for n, t in
+                {**self._pred._weights, **self._pred._aux}.items()}
+
+
+class _ExportedModel:
+    """A ``predictor.export_model`` artifact on ``device``: its program is
+    traced at one batch size, so the ladder is that one bucket."""
+
+    def __init__(self, path_or_bytes, device):
+        from .predictor import load_exported
+
+        fn, meta = load_exported(path_or_bytes)
+        self._fn = fn.to(device)
+        self.input_names = list(meta["inputs"])
+        shapes = meta["input_shapes"]
+        self.export_batch = int(shapes[self.input_names[0]][0])
+        self.sample_shapes = {n: tuple(shapes[n][1:])
+                              for n in self.input_names}
+        dtypes = meta.get("input_dtypes", {})
+        self.input_dtypes = {n: np.dtype(dtypes.get(n, "float32"))
+                             for n in self.input_names}
+        self.output_names = list(meta.get("outputs", []))
+        self.device = device
+
+    def forward(self, bufs):
+        with torch.no_grad():
+            return list(self._fn(*[bufs[n] for n in self.input_names]))
+
+    def set_params(self, params):
+        raise MXNetError("an exported artifact embeds its weights: no "
+                         "live swap; export again and restart the engine")
+
+    def get_params(self):
+        raise MXNetError("an exported artifact embeds its weights; there "
+                         "is nothing to snapshot")
+
+
+class InferenceEngine(_ExecutableHost):
+    """Dynamic micro-batching over one executable a batch bucket.
+
+    Counterpart of the JAX package's ``InferenceEngine``: a batcher
+    thread coalesces requests into a micro-batch, pads it to the
+    smallest bucket that holds it and dispatches it; a completer thread
+    waits for its outputs and resolves each request's future with its
+    own rows.  A bucket is an ``_Executable``: input buffers it owns, fed
+    by one copy from a pinned staging buffer, and on CUDA one CUDA graph
+    of the model's forward, captured at the bucket's first use (or
+    ``warmup()``) and replayed (``_graphs=False``, private, runs the same
+    executables uncaptured there; the CPU always does).  The outputs of
+    a dispatch are copied into pinned host buffers on the device's
+    stream right behind it, so the next replay may overwrite the graph's
+    output buffers while the completer reads.
+
+    Parameters
+    ----------
+    model : Predictor
+        The loaded model; its bound batch size is irrelevant (the engine
+        runs the forward at each bucket's).
+    buckets : sequence of int
+        Batch-size ladder (default (1, 8, 32, 128)).
+    max_batch : int, optional
+        Coalescing ceiling (default: the largest bucket); a request may
+        carry at most this many samples.
+    batch_timeout_ms : float
+        How long the batcher holds a partial batch for more requests
+        while the device is busy with an earlier micro-batch.
+    idle_timeout_ms : float
+        The shorter grace when the device is idle (default 0.5 ms).
+    queue_depth : int
+        Request-queue bound; ``submit`` blocks while it is full.
+    pipeline_depth : int
+        Micro-batches in flight between dispatch and completion.
+    prewarm : bool
+        Build (capture) every bucket at construction.
+    donate : bool, optional
+        Accepted for the JAX engine's signature; no effect (the
+        executables own their input buffers).
+    """
+
+    def __init__(self, model, buckets: Sequence[int] = _DEFAULT_BUCKETS,
+                 max_batch: Optional[int] = None,
+                 batch_timeout_ms: float = 2.0,
+                 idle_timeout_ms: float = 0.5, queue_depth: int = 1024,
+                 pipeline_depth: int = 2, prewarm: bool = False,
+                 donate: Optional[bool] = None, _graphs: bool = True):
+        from .predictor import Predictor
+
+        if isinstance(model, Predictor):
+            model = _PredictorModel(model)
+        elif not isinstance(model, (_PredictorModel, _ExportedModel)):
+            raise MXNetError(
+                "InferenceEngine wraps a Predictor or an exported artifact "
+                f"(use from_exported); got {type(model)}")
+        self._model = model
+        if isinstance(model, _ExportedModel):
+            buckets = (model.export_batch,)
+        self._buckets = tuple(sorted({int(b) for b in buckets}))
+        if not self._buckets or self._buckets[0] < 1:
+            raise MXNetError(f"bad bucket ladder {buckets}")
+        self._max_batch = int(max_batch or self._buckets[-1])
+        if self._max_batch > self._buckets[-1]:
+            raise MXNetError(f"max_batch {self._max_batch} exceeds the "
+                             f"largest bucket {self._buckets[-1]}")
+        self._timeout_s = float(batch_timeout_ms) / 1000.0
+        self._idle_timeout_s = min(float(idle_timeout_ms) / 1000.0,
+                                   self._timeout_s)
+        self._init_executables(model.device, _graphs)
+        self._inflight_n = 0  # micro-batches dispatched, not yet done
+        self._queue: _queue.Queue = _queue.Queue(maxsize=queue_depth)
+        self._pipeline_depth = int(pipeline_depth)
+        self._inflight: _queue.Queue = _queue.Queue(maxsize=pipeline_depth)
+        self._carry: Optional[_Request] = None
+        self._building: Optional[List[_Request]] = None
+        self._lock = threading.Lock()
+        self._metrics = _Metrics()
+        # the measured cost model: bucket -> EMA of a batch's ms, which
+        # decides whether growing a batch across a bucket boundary raises
+        # or lowers the projected rate (mxnet_tpu/serving.py:544-564)
+        self._bucket_ms: Dict[int, float] = {}
+        self._alive = True
+        self._accepting = True
+        self._reject = None  # drain(): submit's refusal message
+        self._owned: set = set()  # every accepted, unresolved future
+        # orders submit's (check, put) against close's (clear, sentinel)
+        self._accept_lock = threading.Lock()
+        if prewarm:
+            self.warmup()
+        self._batcher = threading.Thread(
+            target=self._batch_loop, daemon=True,
+            name="mxnet_tpu_torch-serving-batcher")
+        self._completer = threading.Thread(
+            target=self._complete_loop, daemon=True,
+            name="mxnet_tpu_torch-serving-completer")
+        self._batcher.start()
+        self._completer.start()
+
+    @classmethod
+    def from_exported(cls, path_or_bytes, ctx=None, **kwargs):
+        """Serve a ``predictor.export_model`` artifact on ``ctx``
+        (default ``current_context()``), one bucket: its exported batch
+        size."""
+        kwargs.pop("buckets", None)
+        ctx = ctx or current_context()
+        return cls(_ExportedModel(path_or_bytes, ctx.torch_device()),
+                   **kwargs)
+
+    # -- client surface ---------------------------------------------------
+    def submit(self, inputs, trace=None) -> Future:
+        """Enqueue one request → a Future of the list of output arrays,
+        each with this request's sample count as its leading dim.
+        ``inputs``: {input_name: array} (a leading batch dim, or a bare
+        per-sample shape for one sample), or one array when the model has
+        one input.  ``trace=`` (request tracing) is not ported yet."""
+        if trace is not None:
+            raise not_ported("request tracing (InferenceEngine.submit("
+                             "trace=); profiler spans, queue A item 8)")
+        if not self._accepting:
+            raise MXNetError(self._reject or "InferenceEngine is closed")
+        names = self._model.input_names
+        if not isinstance(inputs, dict):
+            if len(names) != 1:
+                raise MXNetError(f"model has inputs {names}; pass a dict")
+            inputs = {names[0]: inputs}
+        missing = set(names) - set(inputs)
+        if missing:
+            raise MXNetError(f"inputs not set: {sorted(missing)}")
+        batch: Dict[str, np.ndarray] = {}
+        n = None
+        for name in names:
+            sshape = self._model.sample_shapes[name]
+            arr = np.asarray(
+                getattr(inputs[name], "asnumpy", lambda: inputs[name])(),
+                dtype=self._model.input_dtypes[name])
+            if arr.shape == sshape:  # a bare single sample
+                arr = arr[None]
+            if arr.shape[1:] != sshape:
+                raise MXNetError(
+                    f"input {name!r} shape {arr.shape} != (n,) + {sshape}")
+            if n is None:
+                n = arr.shape[0]
+            elif arr.shape[0] != n:
+                raise MXNetError(f"inconsistent sample counts: {name!r} has "
+                                 f"{arr.shape[0]}, expected {n}")
+            batch[name] = arr
+        if n == 0:
+            raise MXNetError("empty request")
+        if n > self._max_batch:
+            raise MXNetError(f"request of {n} samples exceeds max_batch "
+                             f"{self._max_batch}; split it client-side")
+        fut: Future = Future()
+        req = _Request(batch, n, fut, time.perf_counter())
+        # backpressure without holding the accept lock through a blocking
+        # put: a full queue stalls this caller only
+        while True:
+            with self._accept_lock:
+                if not self._accepting:
+                    raise MXNetError(
+                        self._reject or "InferenceEngine is closed")
+                try:
+                    self._queue.put_nowait(req)
+                    break
+                except _queue.Full:
+                    pass
+            time.sleep(0.002)
+        self._metrics.inc("requests")
+        with self._lock:
+            self._owned.add(fut)
+        fut.add_done_callback(self._disown)
+        return fut
+
+    def _disown(self, fut):
+        with self._lock:
+            self._owned.discard(fut)
+
+    def infer(self, inputs):
+        """Synchronous convenience: ``submit(...).result()``."""
+        return self.submit(inputs).result()
+
+    def inflight(self) -> int:
+        """Accepted, unresolved requests: queued, coalescing or
+        dispatched (a poisoned future leaves the count when it fails)."""
+        with self._lock:
+            return len(self._owned)
+
+    def drain(self, timeout: float = 30.0) -> int:
+        """Stop accepting requests and wait for the in-flight ones; the
+        number still unresolved at the deadline.  ``resume()`` re-opens
+        (the swap choreography: drain → swap_params → warmup → resume)."""
+        with self._accept_lock:
+            if self._accepting:
+                self._reject = ("InferenceEngine is draining — not "
+                                "accepting requests (weight swap in "
+                                "progress)")
+                self._accepting = False
+        deadline = time.perf_counter() + float(timeout)
+        while self.inflight() and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        return self.inflight()
+
+    def resume(self):
+        """Re-open admission after :meth:`drain`."""
+        if not self._alive:
+            raise MXNetError("cannot resume a closed InferenceEngine")
+        with self._accept_lock:
+            self._reject = None
+            self._accepting = True
+
+    def swap_params(self, params):
+        """Live weight swap on a drained engine: the new weights are
+        copied into the tensors every bucket reads (no graph is
+        recaptured); a missing or misshapen name raises and installs
+        nothing."""
+        n = self.inflight()
+        if n:
+            raise MXNetError(f"swap_params with {n} request(s) in flight — "
+                             f"drain() first (their batches would mix "
+                             f"weight versions)")
+        with self._compile_lock:
+            self._model.set_params(params)
+            with self._lock:
+                self._bucket_ms.clear()  # re-learn: weights changed
+
+    def get_params(self):
+        """Host snapshot of the served weights (weights and aux)."""
+        return self._model.get_params()
+
+    def warmup(self):
+        """Build every bucket now (on CUDA: capture it) and time one run
+        of each on zeros, seeding the cost model."""
+        for b in self._buckets:
+            exe = self._bucket_exe(b)
+            self._build(exe)
+            exe.feed(**exe.zeros())
+            t0 = time.perf_counter()
+            for o in exe.run():
+                o.cpu()
+            with self._lock:
+                self._bucket_ms[b] = (time.perf_counter() - t0) * 1e3
+
+    # -- stats ------------------------------------------------------------
+    _COUNTERS = ("requests", "images", "slots", "batches", "flush_full",
+                 "flush_timeout", "flush_boundary", "cache_hits",
+                 "cache_misses")
+
+    def stats(self) -> dict:
+        """Counters, per-bucket build counts, the slot-weighted batch
+        fill, latency percentiles, rates since start, the graphs."""
+        with self._compile_lock:
+            compiles = {k[1]: v for k, v in self.compiles.items()}
+        c = self._metrics.counters
+        out = {name: int(c.get(name, 0)) for name in self._COUNTERS}
+        out["compiles"] = compiles
+        out["batch_fill_ratio"] = (out["images"] / out["slots"]
+                                   if out["slots"] else None)
+        lat = self._metrics.percentiles("latency_ms")
+        for k in ("p50", "p90", "p99"):
+            out[f"{k}_ms"] = lat[k] if lat else None
+        wall = time.perf_counter() - self._metrics.t0
+        out["requests_per_s"] = out["requests"] / wall
+        out["images_per_s"] = out["images"] / wall
+        out["buckets"] = list(self._buckets)
+        out["latency_breakdown"] = {
+            phase: {"p50_ms": p["p50"], "p99_ms": p["p99"]}
+            for phase, hist in (("queue_wait", "queue_wait_ms"),
+                                ("exec", "batch_ms"),
+                                ("total", "latency_ms"))
+            for p in [self._metrics.percentiles(hist)] if p}
+        out["device"] = str(self._device)
+        out["graphs"] = self._graph_stats()
+        return out
+
+    # -- lifecycle --------------------------------------------------------
+    def close(self, timeout: float = 30.0):
+        """Stop accepting requests, serve what was accepted, join the
+        threads."""
+        if not self._alive:
+            return
+        with self._accept_lock:
+            self._accepting = False
+            self._queue.put(None)  # the batcher serves everything before it
+        self._batcher.join(timeout=timeout)
+        self._alive = False
+        self._completer.join(timeout=timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close(timeout=1.0)
+        except Exception:  # interpreter shutdown: nothing left to join
+            pass
+
+    # -- buckets ----------------------------------------------------------
+    def _bucket_for(self, n: int) -> int:
+        return next(b for b in self._buckets if b >= n)
+
+    def _bucket_exe(self, bucket: int) -> _Executable:
+        m = self._model
+        return self._executable(
+            ("batch", bucket), m.forward,
+            [(n, (bucket,) + m.sample_shapes[n], m.input_dtypes[n])
+             for n in m.input_names])
+
+    def _boundary_flush(self, total: int, add: int) -> bool:
+        """Would adding ``add`` samples push this batch into a bigger
+        bucket whose measured rate is worse than shipping now?  Compares
+        ``total / t(bucket)`` with ``(total + add + backlog) /
+        t(next bucket)``, the backlog capped at the next bucket's room;
+        with a bucket not measured yet, grow."""
+        b = self._bucket_for(total)
+        nb = self._bucket_for(total + add)
+        if nb <= b:
+            return False
+        t_b, t_nb = self._bucket_ms.get(b), self._bucket_ms.get(nb)
+        if not t_b or not t_nb:
+            return False
+        backlog = min(self._queue.qsize(), nb - total - add)
+        return total / t_b >= (total + add + backlog) / t_nb
+
+    # -- batcher thread: coalesce → pad → feed → dispatch ---------------------
+    def _batch_loop(self):
+        try:
+            self._batch_loop_inner()
+        except BaseException as exc:  # the loop died: poison, don't hang
+            self._shutdown(EngineClosedError(
+                f"InferenceEngine batch loop died: {exc!r}"))
+            raise
+
+    def _batch_loop_inner(self):
+        while True:
+            first = self._carry
+            self._carry = None
+            if first is None:
+                first = self._queue.get()
+            if first is None:  # close() sentinel
+                self._shutdown()
+                return
+            batch = [first]
+            self._building = batch  # failed too if the loop dies here
+            total = first.n
+            reason = "full" if total >= self._max_batch else "timeout"
+            closing = False
+            t_first = time.perf_counter()
+            while reason == "timeout":
+                # pipeline full: the deadline is suspended while the batch
+                # grows; device busy: hold up to the deadline; idle: a
+                # short grace
+                suspended = self._inflight_n >= self._pipeline_depth
+                if suspended:
+                    remaining = 0.005
+                else:
+                    window = (self._timeout_s if self._inflight_n > 0
+                              else self._idle_timeout_s)
+                    remaining = t_first + window - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                try:
+                    req = self._queue.get(timeout=remaining)
+                except _queue.Empty:
+                    if suspended:
+                        continue
+                    break
+                if req is None:  # close(): flush what we have, then exit
+                    closing = True
+                    break
+                if total + req.n > self._max_batch:
+                    self._carry = req
+                    reason = "full"
+                    break
+                if self._boundary_flush(total, req.n):
+                    self._carry = req
+                    reason = "boundary"
+                    break
+                batch.append(req)
+                total += req.n
+                if total >= self._max_batch:
+                    reason = "full"
+            self._building = None
+            try:
+                self._dispatch(batch, total, reason)
+            except Exception:  # _dispatch failed the batch's futures
+                pass
+            if closing:
+                self._shutdown()
+                return
+
+    def _shutdown(self, exc: Optional[Exception] = None):
+        """Fail the requests a close raced or a dead loop stranded, then
+        release the completer."""
+        exc = exc or EngineClosedError("InferenceEngine closed")
+        building, self._building = self._building, None
+        for req in building or ():
+            if req.future.set_running_or_notify_cancel():
+                req.future.set_exception(exc)
+        carry, self._carry = self._carry, None
+        while True:
+            if carry is not None:
+                req, carry = carry, None
+            else:
+                try:
+                    req = self._queue.get_nowait()
+                except _queue.Empty:
+                    break
+            if req is not None and req.future.set_running_or_notify_cancel():
+                req.future.set_exception(exc)
+        self._inflight.put(None)
+
+    def _dispatch(self, batch: List[_Request], total: int, reason: str):
+        t0 = time.perf_counter()
+        for req in batch:
+            self._metrics.observe("queue_wait_ms", (t0 - req.t_submit) * 1e3)
+        try:
+            bucket = self._bucket_for(total)
+            built_now = ("batch", bucket) not in self._exe_cache
+            self._metrics.inc("cache_misses" if built_now else "cache_hits")
+            exe = self._bucket_exe(bucket)
+            feeds = {}
+            for name in self._model.input_names:
+                buf = np.zeros((bucket,) + self._model.sample_shapes[name],
+                               self._model.input_dtypes[name])
+                off = 0
+                for req in batch:
+                    buf[off:off + req.n] = req.inputs[name]
+                    off += req.n
+                feeds[name] = buf
+            exe.feed(**feeds)
+            outs = exe.run()
+            # the outputs leave for pinned host buffers right behind the
+            # run, on its stream: a later replay may overwrite the graph's
+            # output buffers while the completer waits
+            cuda = self._device.type == "cuda"
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=cuda)
+                    .copy_(o, non_blocking=cuda) for o in outs]
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+        except BaseException as exc:
+            # nothing else can fail these futures now: they are off the
+            # queue and out of _building
+            for req in batch:
+                if req.future.set_running_or_notify_cancel():
+                    req.future.set_exception(exc)
+            raise
+        with self._lock:
+            self._inflight_n += 1
+        self._metrics.inc("batches")
+        self._metrics.inc("images", total)
+        self._metrics.inc("slots", bucket)
+        self._metrics.inc(f"flush_{reason}")
+        self._inflight.put((host, done, batch, t0, bucket, built_now))
+
+    # -- completer thread: wait, slice, resolve --------------------------------
+    def _complete_loop(self):
+        from .predictor import _host
+
+        last_done = 0.0
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            outs, done, batch, t0, bucket, built_now = item
+            try:
+                if done is not None:
+                    done.synchronize()
+                host = [_host(o) for o in outs]
+            except Exception as exc:
+                with self._lock:
+                    self._inflight_n -= 1
+                for req in batch:
+                    if req.future.set_running_or_notify_cancel():
+                        req.future.set_exception(exc)
+                continue
+            now = time.perf_counter()
+            self._metrics.observe("batch_ms", (now - t0) * 1e3)
+            # the cost model's sample is occupancy (a pipelined batch
+            # occupied the device from its predecessor's end); a batch
+            # that built its bucket (a capture) is no sample
+            exec_ms = (now - max(t0, last_done)) * 1e3
+            last_done = now
+            with self._lock:
+                self._inflight_n -= 1
+                if not built_now:
+                    old = self._bucket_ms.get(bucket)
+                    self._bucket_ms[bucket] = (
+                        exec_ms if old is None else 0.5 * old + 0.5 * exec_ms)
+            bad = [i for i, o in enumerate(host) if o.shape[:1] != (bucket,)]
+            if bad:
+                exc = MXNetError(
+                    f"output(s) {bad} have leading dims "
+                    f"{[host[i].shape for i in bad]} != bucket {bucket}: the "
+                    f"model reduces over the batch axis, so its outputs "
+                    f"cannot be served per request by the batching engine")
+                for req in batch:
+                    if req.future.set_running_or_notify_cancel():
+                        req.future.set_exception(exc)
+                continue
+            off = 0
+            for req in batch:
+                # a copy, not a view: a view would pin the whole bucket
+                rows = [np.array(o[off:off + req.n]) for o in host]
+                off += req.n
+                if req.future.set_running_or_notify_cancel():
+                    req.future.set_result(rows)
+                self._metrics.observe("latency_ms",
+                                      (now - req.t_submit) * 1e3)

@@ -563,10 +563,9 @@ def load_json(json_str: str) -> Symbol:
             try:
                 op = _reg.get_op(op).name
             except MXNetError:
-                raise not_ported(
+                raise MXNetError(
                     f"operator {op!r} (node {jn['name']!r} of a symbol "
-                    f"file; the serving operators of queue A item 7)") \
-                    from None
+                    f"file) is not registered in mxnet_tpu_torch") from None
         node = _Node(None if op == "null" else op, jn["name"], attrs,
                      [(nodes[i[0]], i[1]) for i in jn["inputs"]])
         node._meta = meta

@@ -247,9 +247,18 @@ def test_symbol_json_legacy_param_and_unported_op():
     jsym = mx.sym.Correlation(mx.sym.Variable("a"), mx.sym.Variable("b"),
                               name="corr")
     assert mt.sym.load_json(jsym.tojson()).list_arguments() == ["a", "b"]
-    # ... and one of the JAX package it does not register yet raises
-    doc = jsym.tojson().replace('"Correlation"', '"QKVPagedVerifyAttend"')
-    with pytest.raises(mt.MXNetError, match="QKVPagedVerifyAttend.*item 7"):
+    # ... and so does a JAX serving symbol ...
+    from mxnet_tpu.models.transformer import transformer_lm_verify
+
+    jserve = transformer_lm_verify(61, num_layers=1, num_heads=2,
+                                   d_model=16, kv_block=4)
+    tserve = mt.sym.load_json(jserve.tojson())
+    assert tserve.list_arguments() == jserve.list_arguments()
+    assert tserve.list_outputs() == jserve.list_outputs()
+    # ... while an op name neither package registers raises, naming it
+    doc = jsym.tojson().replace('"Correlation"', '"QKVPagedNoSuchOp"')
+    with pytest.raises(mt.MXNetError, match="QKVPagedNoSuchOp.*not "
+                                            "registered"):
         mt.sym.load_json(doc)
 
 

@@ -18,7 +18,7 @@ import pytest
 import mxnet_tpu.ops.registry as jreg
 import mxnet_tpu_torch.ops.registry as treg
 
-from torch_op_parity import SERVING_OPS, cases, check_case
+from torch_op_parity import cases, check_case
 
 CASES, IDS = cases("elemwise")
 BF16, BF16_IDS = zip(*[(c, i) for c, i in zip(CASES, IDS) if c["bf16"]])
@@ -35,8 +35,8 @@ def test_elemwise_op_bf16_matches_jax(case):
 
 
 def test_every_jax_op_name_outside_serving_is_registered():
-    """A name the port leaves out fails here (the serving ops come with
-    queue A item 7)."""
-    missing = set(jreg._OPS) - SERVING_OPS - set(treg._OPS)
+    """A name the port leaves out fails here; since the serving ops came,
+    the port registers every op name of the JAX package's registry."""
+    missing = set(jreg._OPS) - set(treg._OPS)
     assert not missing, sorted(missing)
     assert set(treg._OPS) <= set(jreg._OPS)

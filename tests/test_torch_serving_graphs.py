@@ -2,8 +2,8 @@
 fetch and ``swap_params`` against the JAX engine on the CPU, and its CUDA
 graphs on the card.
 
-On the CPU each executable (``serving._Executable``: the decode, verify
-and miss-prefill buckets) runs its function uncaptured over the int8
+On the CPU each executable (``serving._Executable``: the decode, verify,
+miss-prefill and suffix-prefill buckets) runs its function uncaptured over the int8
 input buffers it owns, so these tests cover the buffer plumbing and the
 bookkeeping the card's CUDA graphs share: ``compiles`` (keys and counts
 as the JAX engine's for the same requests, and after ``warmup()``),
@@ -85,7 +85,8 @@ def test_swap_params_serves_new_weights_as_jax(lm):
     them; the two packages' chains agree by the margin rule.  The port's
     prefix cache drops its chains at a swap (their pages hold the old
     weights' K/V): the repeated prompt misses and follows the new
-    weights too."""
+    weights too, over the executables built before the swap (the hit's
+    suffix-prefill one among them)."""
     other, _ = sp.make_lm(1)
     p = np.arange(2, 11, dtype=np.int32)
     outs = {}
@@ -107,11 +108,16 @@ def test_swap_params_serves_new_weights_as_jax(lm):
         outs[name] = got
     sp.assert_chains_agree(other, [(p, 8)], [outs["jax"]], [outs["port"]])
     with _port(lm) as eng:
-        eng.generate(p, 8)
+        first = eng.generate(p, 8)
+        np.testing.assert_array_equal(eng.generate(p, 8), first)  # a hit
+        compiles = dict(eng.compiles)
+        assert eng.stats()["prefix_hits"] == 1
+        assert any(k[0] == "prefix_prefill" for k in compiles)
         eng.swap_params(other)
         eng.reset_stats()
         np.testing.assert_array_equal(eng.generate(p, 8), outs["port"])
         assert eng.stats()["prefix_hits"] == 0
+        assert dict(eng.compiles) == compiles
 
 
 # ---------------------------------------------------------------------------
@@ -171,14 +177,16 @@ def _traffic(seed=11):
             for n, m in ((3, 9), (7, 4), (2, 13), (5, 6), (9, 10), (4, 3))]
 
 
-@pytest.mark.parametrize("kw", [{}, dict(spec_tokens=2)],
-                         ids=["plain", "spec"])
+@pytest.mark.parametrize("kw", [{}, dict(spec_tokens=2),
+                                dict(prefill_chunk=4)],
+                         ids=["plain", "spec", "chunked"])
 def test_compiles_as_jax(lm, kw):
     """The same requests (streams joining and retiring over four seats;
-    with speculation, repetitive prompts that draft) build the same
-    executables as the JAX engine compiles, each once, in
-    ``eng.compiles`` and ``stats()["compiles"]`` alike."""
-    if kw:
+    with speculation, repetitive prompts that draft; with chunks of one
+    page, the suffix-prefill executables) build the same executables as
+    the JAX engine compiles, each once, in ``eng.compiles`` and
+    ``stats()["compiles"]`` alike."""
+    if "spec_tokens" in kw:
         rng = np.random.RandomState(4)
         jobs = [(sp.repetitive_prompt(rng, n=n, motif=3), 8)
                 for n in (9, 12, 6)]
@@ -194,14 +202,16 @@ def test_compiles_as_jax(lm, kw):
     (jc, jst), (tc, tst) = got["jax"], got["port"]
     assert tc == jc and all(v == 1 for v in tc.values())
     assert tst["compiles"] == jst["compiles"] == {str(k): 1 for k in jc}
-    assert any(k[0] == "verify" for k in tc) == bool(kw)
+    assert any(k[0] == "verify" for k in tc) == ("spec_tokens" in kw)
+    assert any(k[0] == "prefix_prefill" for k in tc) \
+        == ("prefill_chunk" in kw)
 
 
 def test_warmup_builds_the_jax_matrix(lm):
-    """``warmup()`` builds every prefill bucket and every (bb, mb) decode
-    and verify bucket once, the keys of the JAX engine's ``warmup()``
-    without its suffix-prefill matrix (that path runs eagerly here);
-    serving afterwards builds nothing."""
+    """``warmup()`` builds every prefill bucket, every (bb, mb) decode
+    and verify bucket and every (tp, mb) suffix-prefill bucket whose
+    table holds the suffix once, the keys of the JAX engine's
+    ``warmup()``; serving afterwards builds nothing."""
     got = {}
     for name, make in (("jax", _jax), ("port", _port)):
         with make(lm, spec_tokens=2) as eng:
@@ -214,9 +224,11 @@ def test_warmup_builds_the_jax_matrix(lm):
                 assert dict(eng.compiles) == got["port"]
                 assert not st["graphs"]["graphs_on"]
                 assert st["graphs"]["executables"] == len(got["port"])
-    jax_keys = {k: v for k, v in got["jax"].items()
-                if k[0] != "prefix_prefill"}
+    jax_keys = got["jax"]
     assert got["port"] == jax_keys and set(jax_keys.values()) == {1}
+    assert sum(k[0] == "prefix_prefill" for k in jax_keys) == sum(
+        mb * sp.KVB >= tp for tp in st["prefill_buckets"]
+        for mb in st["cache_buckets"]) > 0
     cells = len(st["decode_buckets"]) * len(st["cache_buckets"])
     assert sum(k[0] == "verify" for k in jax_keys) \
         == sum(k[0] == "decode" for k in jax_keys) == cells
@@ -230,7 +242,7 @@ def test_warmup_builds_the_jax_matrix(lm):
 
 class _Fresh:
     """An executable as the engine ran a forward before its executables:
-    every call on tensors fed anew (``_feed``)."""
+    every call on tensors fed anew, one host-to-device copy a call."""
 
     def __init__(self, engine, fn, feeds):
         self.engine, self.fn = engine, fn
@@ -238,9 +250,8 @@ class _Fresh:
         self.graphed, self.graph = False, None
 
     def feed(self, **arrays):
-        fed = self.engine._feed(*(np.asarray(arrays[n], np.int32)
-                                  for n in self.names))
-        self.bufs = dict(zip(self.names, fed))
+        self.bufs = {n: torch.from_numpy(np.asarray(arrays[n], np.int32))
+                     .to(self.engine._device) for n in self.names}
 
     def run(self):
         return self.fn(self.bufs)
@@ -262,18 +273,28 @@ def _mixed_jobs(rng, n=6):
                                [0.0, 0.8, 0.0, 0.5, 0.0, 0.9][:n])]
 
 
-@pytest.mark.parametrize("mode", ["fp32", "int8", "spec", "adapters"])
+@pytest.mark.parametrize("mode", ["fp32", "int8", "spec", "adapters",
+                                  "prefix", "chunked"])
 def test_executables_equal_the_pre_executable_path(lm, mode):
     """Six requests, greedy and sampled, through the engine and through
     ``_PreExecutable`` (each forward on tensors fed anew, one step an
     iteration): every token equal, over fp32 pages, int8 pages, with
-    ``spec_tokens=2`` (repetitive prompts, so verify steps run) and with
-    two adapters of rank buckets 8 and 16 beside plain streams."""
+    ``spec_tokens=2`` (repetitive prompts, so verify steps run), with
+    two adapters of rank buckets 8 and 16 beside plain streams, with
+    prompts that share an 8-token prefix (prefix hits: the
+    ``("prefix_prefill", tp, mb)`` executables) and with chunked prefill
+    (every chunk one of those executables)."""
     rng = np.random.RandomState({"fp32": 1, "int8": 2, "spec": 3,
-                                 "adapters": 4}[mode])
+                                 "adapters": 4, "prefix": 5,
+                                 "chunked": 6}[mode])
     jobs = _mixed_jobs(rng)
     kw, names = {}, [None] * len(jobs)
-    if mode == "int8":
+    if mode == "prefix":
+        shared = rng.randint(1, V, size=2 * sp.KVB).astype(np.int32)
+        jobs = [(np.concatenate([shared, p]), m, t) for p, m, t in jobs]
+    elif mode == "chunked":
+        kw = dict(prefill_chunk=sp.KVB)
+    elif mode == "int8":
         kw = dict(kv_dtype="int8")
     elif mode == "spec":
         kw = dict(spec_tokens=2)
@@ -306,12 +327,17 @@ def test_executables_equal_the_pre_executable_path(lm, mode):
                     assert st["spec_steps"] > 0
                 if mode == "adapters":
                     assert any("lora" in k for k in st["compiles"])
+                if mode in ("prefix", "chunked"):
+                    assert st["prefix_hits" if mode == "prefix"
+                              else "prefill_chunks"] > 0
+                    assert any("prefix_prefill" in k for k in st["compiles"])
     for a, b in zip(outs[mt.DecodeEngine], outs[_PreExecutable]):
         np.testing.assert_array_equal(a, b)
 
 
 def test_executable_feeds_are_checked(lm):
-    """An executable takes exactly its feeds, in one copy."""
+    """An executable takes exactly its feeds, in one copy of one flat
+    buffer."""
     with _port(lm) as eng:
         exe = eng._decode_exe(2, 4)
         assert exe is eng._decode_exe(2, 4)
@@ -324,7 +350,9 @@ def test_executable_feeds_are_checked(lm):
                  table=np.arange(8, dtype=np.int32).reshape(2, 4))
         assert exe.bufs["table"].tolist() == [[0, 1, 2, 3], [4, 5, 6, 7]]
         assert exe.bufs["lengths"].dtype == torch.int32
-        assert exe.buf.numel() == 2 + 2 + 2 + 8
+        # one flat buffer of bytes, each feed on a 16-byte boundary
+        assert exe.buf.dtype == torch.uint8
+        assert exe.buf.numel() == 16 + 16 + 16 + 32
 
 
 # ---------------------------------------------------------------------------

@@ -98,28 +98,41 @@ def test_prefill_attend_matches_jax_op(name, case):
 
 
 def test_prefill_attend_start_validation():
+    """An int ``start`` must be block-aligned; a (B,) tensor is taken per
+    row (and gives the int's result), a tensor of another shape raises."""
     qkv = torch.zeros(1, 4, 3 * H * D)
     pools = [torch.zeros(P, KVB, H, D) for _ in range(2)]
     with pytest.raises(mt.MXNetError, match="multiple of the page size"):
         tatt.qkv_paged_prefill_attend(qkv, *pools, _t(TABLE), 3,
                                       _t(np.array([7], np.int32)), H)
-    with pytest.raises(mt.MXNetError, match="Python int"):
+    with pytest.raises(mt.MXNetError, match=r"start must be \(1,\)"):
         tatt.qkv_paged_prefill_attend(qkv, *pools, _t(TABLE),
-                                      torch.tensor([4]),
+                                      torch.tensor([4, 4]),
                                       _t(np.array([8], np.int32)), H)
+    rng = np.random.RandomState(7)
+    qkv = _t(rng.randn(1, 4, 3 * H * D).astype(np.float32))
+    outs = []
+    for start in (4, torch.tensor([4], dtype=torch.int32)):
+        _, t_pools = _pools("fp32", np.random.RandomState(8))
+        outs.append(tatt.qkv_paged_prefill_attend(
+            qkv, *t_pools, _t(TABLE), start, _t(np.array([8], np.int32)),
+            H))
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_prefix_suffix_attention_is_one_b8_call(monkeypatch):
-    """The suffix prefill's attention is one ``flash_attention_partial``
-    call a layer with ``kv_offset = -start`` over [prefix | suffix], the
-    kernel the card launches (its plain version here)."""
+    """The suffix prefill's attention is B8 twice a layer, the kernel the
+    card launches (its plain version here): over the table's MB pages
+    (a fixed width) non-causal under the per-row key limit ``kv_len =
+    start``, then over the raw suffix causal at ``kv_offset = 0``."""
     calls = []
     real = ck.flash_attention_partial
 
-    def spy(q, k, v, causal, block_size, kv_offset):
+    def spy(q, k, v, causal, block_size, kv_offset, kv_len=None):
         calls.append((tuple(q.shape), tuple(k.shape), causal, block_size,
-                      kv_offset))
-        return real(q, k, v, causal, block_size, kv_offset)
+                      kv_offset, None if kv_len is None
+                      else kv_len.tolist()))
+        return real(q, k, v, causal, block_size, kv_offset, kv_len)
 
     monkeypatch.setattr(ck, "flash_attention_partial", spy)
     rng = np.random.RandomState(4)
@@ -127,7 +140,9 @@ def test_prefix_suffix_attention_is_one_b8_call(monkeypatch):
     qkv = _t(rng.randn(1, 8, 3 * H * D).astype(np.float32))
     tatt.qkv_paged_prefill_attend(qkv, *t_pools, _t(TABLE), 8,
                                   _t(np.array([13], np.int32)), H)
-    assert calls == [((1, 8, H, D), (1, 16, H, D), True, KVB, -8)]
+    assert calls == [((1, 8, H, D), (1, MB * KVB, H, D), False, KVB, 0,
+                      [8]),
+                     ((1, 8, H, D), (1, 8, H, D), True, KVB, 0, None)]
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,10 @@ one TF32 product alone does not land within them. B1's and B5's bf16
 backward, with P and dS rounded, are also held against the JAX package's
 ``flash_mha_packed`` and ``flash_mha`` backward (``jax.vjp`` through its
 Pallas kernels in interpret mode), and B8's bf16 state against the JAX
-``flash_attention_partial`` (its Pallas kernel in interpret mode). The emulation takes the softmax over
+``flash_attention_partial`` (its Pallas kernel in interpret mode).  B8's
+per-row key limit (``kv_len``) is emulated the same way, causal and not,
+at the limit's edges, and its plain version is held against the JAX lax
+body's ``lengths=`` mask.  The emulation takes the softmax over
 whole rows; the kernels' online softmax over key tiles rescales the same
 products.
 """
@@ -188,17 +191,23 @@ def b5_backward(q, k, v, o, lse, do, causal, mm):
     return tuple(g.to(dt) for g in (dq, dk, dv))
 
 
-def b8_forward(q, k, v, koff, mm):
-    """B8 (causal, key offset koff) on BTHD tensors with the products of
-    ``mm`` and the rounding of q's dtype → the un-normalized state (o
-    (B, H, Tq, D), m (B, H, Tq) natural units, l (B, H, Tq)), float32;
-    a row that sees no key: m = -inf, l = 0, o = 0."""
+def b8_forward(q, k, v, koff, mm, kv_len=None, causal=True):
+    """B8 (causal or not, key offset koff, per-row key limit ``kv_len``)
+    on BTHD tensors with the products of ``mm`` and the rounding of q's
+    dtype → the un-normalized state (o (B, H, Tq, D), m (B, H, Tq)
+    natural units, l (B, H, Tq)), float32; a row that sees no key: m =
+    -inf, l = 0, o = 0."""
     Tq, Tk, D = q.shape[1], k.shape[1], q.shape[3]
     bf16 = q.dtype == torch.bfloat16
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # BHTD
     prod = (lambda a, b: a @ b) if bf16 else mm
     s = prod(qf, kf.transpose(-1, -2)) * (LOG2E / math.sqrt(D))
-    mask = (torch.arange(Tk) + koff)[None, :] <= torch.arange(Tq)[:, None]
+    mask = (torch.arange(Tk) + koff)[None, :] <= torch.arange(Tq)[:, None] \
+        if causal else torch.ones((Tq, Tk), dtype=torch.bool)
+    mask = mask[None, None]
+    if kv_len is not None:
+        mask = mask & (torch.arange(Tk)[None, :] < kv_len[:, None])[
+            :, None, None, :]
     s = torch.where(mask, s, -math.inf)
     m = s.amax(-1, keepdim=True)
     p = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0))
@@ -279,6 +288,77 @@ def test_b8_bf16_state_against_the_jax_reference(monkeypatch, koff):
         norm, m_err, l_err, _ = _b8_errors(got, ref)
         assert norm <= TOL["bfloat16"] and m_err <= 1e-4 \
             and l_err <= 1e-5, (koff, norm, m_err, l_err)
+
+
+# B8's per-row key limit (the suffix prefill's prefix launch, the
+# contiguous-cache decode): empty, one key, a 64-key tile's edges, all
+# keys and past them, over 256 keys
+B8_KV_LEN = (0, 1, 63, 64, 65, 200, 256, 300)
+
+
+def _b8_limit_inputs(dtype, seed=14):
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    B = len(B8_KV_LEN)
+    return (tuple(randn(rng, B, T, 4, 64).to(dt) for T in (128, 256, 256))
+            + (torch.tensor(B8_KV_LEN, dtype=torch.int32),))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_b8_key_limit_split_tf32_within_half_the_tolerance(dtype, causal):
+    """B8 with ``kv_len`` at the limits of ``B8_KV_LEN`` (causal at key
+    offset -128, so the limit and the causal mask both bind): fp32 split
+    TF32 within TOL/2 of the plain version, bf16 within the chip's bf16
+    TOL, the rows that see no key (``kv_len`` 0) the exact empty
+    state."""
+    q, k, v, lim = _b8_limit_inputs(dtype)
+    koff = -128 if causal else 0
+    ref = ck.flash_attention_partial_plain(q, k, v, causal, 64, koff,
+                                           kv_len=lim)
+    norm, m_err, l_err, empty = _b8_errors(
+        b8_forward(q, k, v, koff, mm_split, lim, causal), ref)
+    assert empty == 4 * 128  # the kv_len 0 row, every head and query
+    limit = TOL[dtype] / 2 if dtype == "float32" else TOL[dtype]
+    assert norm <= limit and m_err <= 1e-4 and l_err <= 1e-5, \
+        (dtype, causal, norm, m_err, l_err)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_b8_key_limit_plain_against_the_jax_lax_body(causal):
+    """The plain version's key limit against the JAX lax body
+    (``_blockwise_attention_partial_lax``): non-causal against its
+    ``lengths=`` mask; causal (limit and causal mask together) against
+    its causal scan over each row's first ``kv_len[b]`` keys, the row
+    with no key against the exact empty state.  o / l within
+    ``TOL["float32"]``, m's -inf pattern equal."""
+    from mxnet_tpu.ops.attention import _blockwise_attention_partial_lax
+
+    q, k, v, lim = _b8_limit_inputs("float32")
+    koff = -128 if causal else 0
+    o, m, l = ck.flash_attention_partial_plain(q, k, v, causal, 64, koff,
+                                               kv_len=lim)
+    got = (o / l.clamp(min=1e-30)[..., None]).numpy()
+    qj, kj, vj = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    for b, n in enumerate(B8_KV_LEN):
+        if n == 0:
+            assert torch.isinf(m[b]).all() and not l[b].any() \
+                and not o[b].any()
+            continue
+        if causal:
+            n = min(n, k.shape[1])
+            jo, jm, jl = _blockwise_attention_partial_lax(
+                qj[b:b + 1], kj[b:b + 1, :n], vj[b:b + 1, :n], True, 64,
+                koff)
+        else:
+            jo, jm, jl = _blockwise_attention_partial_lax(
+                qj[b:b + 1], kj[b:b + 1], vj[b:b + 1], False, 64, 0,
+                lengths=jnp.asarray([n], jnp.int32))
+        want = np.asarray(jo) / np.maximum(np.asarray(jl), 1e-30)[..., None]
+        assert np.array_equal(np.isinf(np.asarray(jm)), torch.isinf(
+            m[b:b + 1]).numpy())
+        np.testing.assert_allclose(got[b:b + 1], want, rtol=0,
+                                   atol=TOL["float32"])
 
 
 def b9_backward(q, k, v, m, ob, lb, koff, mm):

@@ -40,13 +40,6 @@ FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-5, atol=1e-5)
 BF16_UNITS, BF16_GRAD_UNITS = 2.0 ** -7, 2.0 ** -6
 SMALL = dict(n=6, m=16, attn=(2, 16, 8))
-# the serving ops of queue A item 7, which the operator layer leaves out
-SERVING_OPS = frozenset((
-    "QKVSelfAttentionPrefill", "QKVSelfAttentionDecode",
-    "QKVPagedAttentionDecode", "QKVPagedAttentionDecodeQ",
-    "QKVPagedPrefillAttend", "QKVPagedPrefillAttendQ",
-    "QKVPagedVerifyAttend", "QKVPagedVerifyAttendQ", "PagedCacheWrite",
-    "PagedCacheWriteQ", "LoraGatherDelta"))
 
 
 def cases(*families):
